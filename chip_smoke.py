@@ -15,6 +15,25 @@
 4. Kernel vs plain: the same model at full width and reduced depth, prefill
    through the kernels and through ``attn_impl="plain"``; first-token logits
    compared.
+5. Serving: ``PagedBatchEngine`` at full width and depth on the repo's mixed
+   workload (``dev/bench_serving.py:27-47`` rebuilt from
+   ``numpy.random.default_rng(0)``: 16 requests of 64-512 text tokens, a 2-tile
+   image on every 4th, 64 new tokens each); a warm-up at 4 new tokens, then
+   the timed run: tokens/s, TTFT and inter-token percentiles, the wall time of
+   a decode step and of the ViT, short-prefill and chunk dispatches on the
+   card's timeline; every request must return 64 tokens, every page must come
+   back, and K12, K14 and K15 must launch.  The run records what each paged
+   kernel was handed.  The four image prompts then prefill again, alternately
+   with K14 and with the gather + K2 chunk attention it replaced: the chunk
+   dispatch time on each, and first-token logits that must agree.
+6. Paged kernel phases: K12, K14 and K15 (and K2 at its batched-prefill
+   shape) at what the timed serving run handed them, held against their plain
+   versions with planted boundary keys and planted faults, as in phase 2;
+   K14 is also timed against gather + K2.
+7. Paged vs single-request engine at full width and 2+2 layers: 4 requests
+   (1 image, 3 text); first-token logits within phase 4's limits, greedy
+   tokens identical up to the first step whose reference top-2 margin is
+   under 0.1.
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -41,12 +60,22 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # there and a bf16 ulp is 0.0078 at |x| in [1, 2): rtol 1e-2 is about one ulp,
 # atol covers the small outputs.  Each phase also checks that the plain version
 # with a planted fault (a boundary column dropped or let in) falls outside.
-ATTN_TOL = {"K1": (4e-3, 1e-2), "K2": (8e-3, 1e-2), "K3": (4e-3, 1e-2)}  # (atol, rtol)
+# K12 and K14 take the limits of their contiguous siblings K3 and K2.
+ATTN_TOL = {"K1": (4e-3, 1e-2), "K2": (8e-3, 1e-2), "K3": (4e-3, 1e-2),
+            "K12": (4e-3, 1e-2), "K14": (8e-3, 1e-2)}  # (atol, rtol)
 NEW_TOKENS = 32
 # phase 4, first-token logits through 2+2 layers, kernels vs the plain reference
 # attention: the logits are bf16 values (ulp 0.031 at |x| in [4, 8)) and the two
 # paths round softmax and q differently, so a few ulps at the largest logits.
 LOGITS_ATOL, LOGITS_RTOL = 1e-1, 2e-2
+# phases 5-7: the serving engine's settings (dev/bench_serving.py's, with the
+# engine's default prefill chunk, which sends the image prompts through the
+# chunked route) and its workload
+SERVING = dict(max_slots=16, num_pages=192, page_size=128, prompt_bucket=128, max_len=4096, decode_roll=16,
+               prefill_chunk=1024, prefill_batch_tokens=8192)
+SERVING_REQUESTS, SERVING_NEW_TOKENS, SERVING_WORKLOAD_SEED = 16, 64, 0
+PARITY_NEW_TOKENS, PARITY_MARGIN = 16, 0.1
+DEVICE = "cuda"  # phases 5-7 place their tensors and engines here
 
 
 def log(*a):
@@ -97,6 +126,19 @@ def check_fault_caught(name, fault, faulty, ref, atol, rtol) -> float:
     return float(dev.max())
 
 
+def _randn(gen, *shape, scale=1.0):
+    import torch
+
+    return (torch.randn(shape, generator=gen, device=DEVICE, dtype=torch.float32) * scale).to(torch.bfloat16)
+
+
+def _direction(gen, *shape):
+    """±1 vectors: a query direction shared by q and the planted keys."""
+    import torch
+
+    return (torch.randint(0, 2, shape, generator=gen, device=DEVICE) * 2 - 1).to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -138,11 +180,10 @@ def kernel_phases(gen, shapes: dict) -> list:
     rows = []
 
     def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(bf)
+        return _randn(gen, *shape, scale=scale)
 
     def direction(*shape):
-        """±1 vectors: a query direction shared by q and the planted keys."""
-        return (torch.randint(0, 2, shape, generator=gen, device=dev) * 2 - 1).to(bf)
+        return _direction(gen, *shape)
 
     # K1 — ViT packed qk-norm attention over the 3 tiles, padded rows SP, valid rows VALID.
     # q carries a per-head direction u; the keys at the last valid column (VALID-1)
@@ -333,7 +374,7 @@ def build_model(cfg, seed: int):
 
     from omchat_torch.models import intern_vit, projector, qwen2
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
     bf = torch.bfloat16
     return {
         "vision_tower": intern_vit.init_params(cfg.vision, g, bf),
@@ -384,7 +425,7 @@ def end_to_end(seed: int, new_tokens: int = NEW_TOKENS) -> dict:
     log(f"e2e: built full-width full-depth weights in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     ids, tiles = make_request(cfg, seed)
-    engine = OmChatEngine(cfg, params)
+    engine = OmChatEngine(cfg, params, image_cache_size=0)  # the timed run encodes its image again
     gen = GenerationConfig(max_new_tokens=new_tokens, eos_token_id=-1)  # no early stop on random weights
 
     bad = []
@@ -445,7 +486,7 @@ def kernel_vs_plain(seed: int) -> dict:
     ids, tiles = make_request(cfg, seed)
     logits = {}
     for impl in (None, "plain"):
-        eng = OmChatEngine(cfg, params, attn_impl=impl)
+        eng = OmChatEngine(cfg, params, attn_impl=impl, image_cache_size=0)
         feats = eng.encode_images(tiles)
         plan = eng.plan([ids])
         logits[impl], _ = eng.prefill(plan, feats, 32)
@@ -459,6 +500,527 @@ def kernel_vs_plain(seed: int) -> dict:
     del params
     torch.cuda.empty_cache()
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phases 5-7: the paged serving engine
+# ---------------------------------------------------------------------------
+
+
+def serving_workload(cfg) -> list:
+    """``dev/bench_serving.py:27-47``'s mixed workload rebuilt from the same
+    seed: SERVING_REQUESTS text prompts of 64-512 tokens, two image sentinels
+    and a 2-tile image (standard_normal pixels) on every 4th.  [(ids, tiles)]."""
+    import numpy as np
+
+    from omchat_torch.constants import IMAGE_TOKEN_INDEX
+
+    rng = np.random.default_rng(SERVING_WORKLOAD_SEED)
+    lengths = [int(rng.integers(64, 513)) for _ in range(SERVING_REQUESTS)]
+    work = []
+    for i, n in enumerate(lengths):
+        ids = [151644] + [int(t) for t in rng.integers(2000, 20000, n - 1)]
+        tiles = None
+        if i % 4 == 0:
+            ids = ids[:2] + [IMAGE_TOKEN_INDEX, IMAGE_TOKEN_INDEX] + ids[2:]
+            size = cfg.vision.image_size
+            tiles = rng.standard_normal((2, 3, size, size)).astype(np.float32)
+        work.append((ids, tiles))
+    return work
+
+
+def gather_k2_attention(q, k_pages, v_pages, kv_len, page_tables, q_offset, *, impl=None):
+    """The chunk attention K14 replaced on the engine's path (the JAX
+    engine's default route): the page-mapped K/V gathered contiguous, then
+    K2.  Phases 5 and 6 time it beside K14."""
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops import paged_attention as pa
+
+    k, v = pa._gather_pages(k_pages, v_pages, page_tables)
+    return fa.flash_attention(q, k, v, causal=True, q_offset=q_offset, kv_len=kv_len, kv_format="bntd")
+
+
+def record_dispatches(eng) -> tuple:
+    """Wrap the serving engine's dispatch points so that a run records what
+    each paged kernel is handed — the decode rolls' lengths and sliced tables
+    (K12), the chunk dispatches' starts, lengths and tables (K14), the page
+    commits' scratch shapes, tables and page counts (K15), the contiguous
+    prefills' plans (K2) — and CUDA events around the ViT dispatch, the
+    short prefills, the chunk dispatches and the decode rolls.  Each entry
+    carries ``rec["label"]`` at its time.  Returns the record and a function
+    that restores the module's functions."""
+    import numpy as np
+    import torch
+
+    from omchat_torch.runtime import paged_engine as pe
+
+    rec = {"label": None, "rolls": [], "chunks": [], "commits": [], "prefills": [], "spans": []}
+    saved = {n: getattr(pe, n) for n in ("_paged_prefill_chunk", "_commit_pages", "paged_prefill_attention")}
+
+    def spanned(kind, fn, extra=lambda *a, **kw: None):
+        def wrapped(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            rec["spans"].append(dict(label=rec["label"], kind=kind, start=start, end=end, extra=extra(*a, **kw)))
+            return out
+        return wrapped
+
+    def on_roll(decoding, roll, active, tables):
+        rec["rolls"].append(dict(label=rec["label"], n=len(decoding), tables=np.array(tables),
+                                 lengths=np.where(active, eng._lengths, 0).astype(np.int32)))
+        return len(decoding), roll
+
+    def chunk(params, cfg, token_ids, is_image, image_index, feats, positions, start, clen, tables, *rest):
+        rec["chunks"].append(dict(label=rec["label"], shape=tuple(token_ids.shape), start=np.array(start),
+                                  len=np.array(clen), tables=np.array(tables)))
+        return saved["_paged_prefill_chunk"](params, cfg, token_ids, is_image, image_index, feats, positions, start,
+                                             clen, tables, *rest)
+
+    def commit(slot_k, slot_v, k_pool, v_pool, tables, n_pages, *a):
+        rec["commits"].append(dict(label=rec["label"], shape=tuple(slot_k.shape), tables=np.array(tables),
+                                   n_pages=np.array(n_pages)))
+        return saved["_commit_pages"](slot_k, slot_v, k_pool, v_pool, tables, n_pages, *a)
+
+    prefill = eng._prefiller.prefill
+
+    def on_prefill(plan, feats, new_tokens):
+        rec["prefills"].append(dict(label=rec["label"], lengths=[int(n) for n in plan.lengths],
+                                    rows=int(plan.max_len)))
+        return prefill(plan, feats, new_tokens)
+
+    pe._paged_prefill_chunk, pe._commit_pages = chunk, commit
+    eng._prefiller.prefill = on_prefill
+    eng._encode_pending = spanned("vit", eng._encode_pending)
+    eng._prefill_shorts = spanned("shorts", eng._prefill_shorts)
+    eng._run_chunk = spanned("chunk", eng._run_chunk)
+    eng._dispatch_roll = spanned("roll", eng._dispatch_roll, on_roll)
+
+    def undo():
+        for n, f in saved.items():
+            setattr(pe, n, f)
+
+    return rec, undo
+
+
+def span_ms(rec, label, kind) -> list:
+    """Elapsed ms of the recorded spans (call after a synchronize)."""
+    return [s["start"].elapsed_time(s["end"]) for s in rec["spans"] if s["label"] == label and s["kind"] == kind]
+
+
+def paged_counters():
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops import paged_attention as pa
+
+    return {
+        "packed_qkv_norm_attention": fa.packed_qkv_norm_attention,
+        "flash_attention": fa.flash_attention,
+        "commit_rows": pa.commit_rows,
+        "paged_flash_decode": pa.paged_flash_decode,
+        "paged_flash_prefill": pa.paged_flash_prefill,
+        "commit_pages": pa.commit_pages,
+    }
+
+
+def capture_first_logits(engine) -> dict:
+    """Record, per request id, the fp32 logits the engine picks each
+    request's first token from (every prefill route ends in
+    ``_finish_with_token``)."""
+    store = {}
+    finish = engine._finish_with_token
+
+    def wrapped(req, first, logits_row=None):
+        store[req.request_id] = logits_row.float()
+        finish(req, first, logits_row)
+
+    engine._finish_with_token = wrapped
+    return store
+
+
+def drive(engine, work, new_tokens: int) -> list:
+    rids = [engine.submit(ids, tiles, max_new_tokens=new_tokens, eos_token_id=-1) for ids, tiles in work]
+    engine.run_to_completion()
+    return rids
+
+
+def serving(seed: int) -> tuple:
+    """Phase 5: the paged engine at full width and depth on the mixed
+    workload, recording what each paged kernel is handed; then the image
+    prompts again, first tokens only, alternately on the engine's K14 route
+    and on gather + K2, to time a chunk dispatch on each and compare their
+    first-token logits.  Returns (results, the timed run's record)."""
+    import torch
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.runtime import paged_engine as pe
+
+    cfg = OmChatConfig()
+    params = build_model(cfg, seed)
+    work = serving_workload(cfg)
+    # no image cache: the timed run encodes its images again, as the warm-up did
+    eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, **SERVING)
+    first = capture_first_logits(eng)
+    rec, undo = record_dispatches(eng)
+    try:
+        rec["label"] = "warm-up"
+        drive(eng, work, 4)  # cuBLAS plans, the allocator, the kernels' first launches
+        eng.reset_latency_stats()
+        counts = paged_counters()
+        for c in counts.values():
+            c.launches = 0
+        rec["label"] = "timed"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = drive(eng, work, SERVING_NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counts.items()}
+        done = [eng.pop_result(r) for r in rids]  # (tokens, prompt length)
+        rolls = [(s["extra"][0], s["start"].elapsed_time(s["end"]) / s["extra"][1])
+                 for s in rec["spans"] if s["label"] == "timed" and s["kind"] == "roll"]
+        full = [ms for n, ms in rolls if n == SERVING["max_slots"]]
+        res = {
+            "requests": len(work), "images": sum(t is not None for _, t in work),
+            "prompt_tokens": sum(p for _, p in done), "generated_tokens": sum(len(t) for t, _ in done),
+            "wall_s": wall, "tokens_per_s": sum(len(t) for t, _ in done) / wall, **eng.latency_stats(),
+            # CUDA events around each host-dispatched roll / step count: the
+            # card's timeline, host launch gaps included
+            "decode_step_wall_ms_16_slots": sum(full) / len(full) if full else None, "rolls_at_16_slots": len(full),
+            "decode_step_wall_ms_all_rolls": [round(ms, 3) for _, ms in rolls],
+            "span_ms": {k: sum(span_ms(rec, "timed", k)) for k in ("vit", "shorts", "chunk", "roll")},
+            "chunk_dispatches": len(span_ms(rec, "timed", "chunk")),
+            "pages_free": eng.allocator.available, "launches": launches,
+        }
+        log("serving: " + json.dumps(res))
+        short = [i for i, (t, _) in enumerate(done) if len(t) != SERVING_NEW_TOKENS]
+        if short:
+            raise AssertionError(f"serving: requests {short} did not return {SERVING_NEW_TOKENS} tokens")
+        if eng.allocator.available != SERVING["num_pages"]:
+            raise AssertionError(f"serving: {SERVING['num_pages'] - eng.allocator.available} pages never came back")
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            raise AssertionError(f"serving: kernels never launched on the serving path: {missing}")
+
+        # The two chunk-attention routes differ only there, so the image
+        # prompts' first-token logits carry the whole difference.
+        images = [w for w in work if w[1] is not None]
+        routes = {"k14": pe.paged_prefill_attention, "gather_k2": gather_k2_attention}
+        reruns = []
+        for route in ("k14", "gather_k2", "gather_k2", "k14"):
+            pe.paged_prefill_attention = routes[route]
+            rec["label"] = f"{route}-{len(reruns)}"
+            reruns.append((route, rec["label"], drive(eng, images, 1)))
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    chunk_ms = {r: [sum(span_ms(rec, label, "chunk")) for rr, label, _ in reruns if rr == r] for r in routes}
+    n_chunks = {len(span_ms(rec, label, "chunk")) for _, label, _ in reruns}
+    (_, _, k14_rids), (_, _, gk_rids) = reruns[0], reruns[1]
+    diffs = [check_close(f"K14 vs gather + K2 first-token logits (image request {i})", first[a], first[b],
+                         LOGITS_ATOL, LOGITS_RTOL) for i, (a, b) in enumerate(zip(k14_rids, gk_rids))]
+    res["routes"] = {"chunk_dispatches_per_rerun": sorted(n_chunks), "chunk_ms_per_rerun": chunk_ms,
+                     "first_token_logits_max_abs_diff": max(diffs)}
+    log("serving, chunk-attention routes on the image prompts: " + json.dumps(res["routes"]))
+    if len(n_chunks) != 1:
+        raise AssertionError(f"serving: the reruns made different chunk dispatch counts {n_chunks}")
+    del eng, params
+    torch.cuda.empty_cache()
+    timed = {k: [e for e in rec[k] if e["label"] == "timed"] for k in ("rolls", "chunks", "commits", "prefills")}
+    log("serving dispatches (timed run): rolls (slots decoding, table width) "
+        f"{[(r['n'], r['tables'].shape[1]) for r in timed['rolls']]}; chunks (B, C, start, len) "
+        f"{[(*c['shape'], c['start'].tolist(), c['len'].tolist()) for c in timed['chunks']]}; commits "
+        f"{[c['shape'][:2] + (c['shape'][3],) for c in timed['commits']]}; contiguous prefills (lengths, rows) "
+        f"{[(p['lengths'], p['rows']) for p in timed['prefills']]}")
+    return res, timed
+
+
+def paged_kernel_phases(gen, timed: dict) -> list:
+    """Phase 6: K12, K14 and K15 (and K2 at the batched-prefill shape,
+    printed only) at what the timed serving run handed them, against their
+    plain versions; returns their rows.  Keys are planted at the length and
+    causal boundaries as in phase 2, and each check shows that a faulted
+    plain version falls outside it."""
+    import itertools
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.runtime.paged_engine import commit_page_ids
+
+    dev = torch.device(DEVICE)
+    i32 = dict(dtype=torch.int32, device=dev)
+    tc = OmChatConfig().text
+    L, H, KVH, D = tc.num_hidden_layers, tc.num_attention_heads, tc.num_key_value_heads, tc.attn_head_dim
+    G = H // KVH
+    PS, P = SERVING["page_size"], SERVING["num_pages"]
+    NP = P + 1  # pages per layer, the parking page last
+    LI = L - 1  # the layer checked; timing walks all of them, as the engine does
+    rows = []
+    # the layered pool [L, P+1, KVH, PS, D], seen flat by K12 and K15 and per layer by K14
+    pool_k, pool_v = _randn(gen, L, NP, KVH, PS, D), _randn(gen, L, NP, KVH, PS, D)
+    kflat, vflat = pool_k.view(L * NP, KVH, PS, D), pool_v.view(L * NP, KVH, PS, D)
+    u = _direction(gen, KVH, D)
+    uq = u.repeat_interleave(G, dim=0)
+    it = itertools.count()
+
+    def plant(table_row, layer, pos, scale):
+        kflat[layer * NP + int(table_row[pos // PS]), :, pos % PS] = scale * u
+
+    # K12 — the middle one of the decode rolls with the most slots decoding:
+    # its lengths (0 for idle slots) and its sliced table.  A sink at column
+    # 0, 0.8 u at the last valid column, at the first one past it and in the
+    # self column.
+    busiest = max(r["n"] for r in timed["rolls"])
+    full = [r for r in timed["rolls"] if r["n"] == busiest]
+    roll = full[len(full) // 2]
+    tab_np, lens_np = roll["tables"], roll["lengths"]
+    S, W = tab_np.shape
+    for b, n in enumerate(lens_np):
+        if n:
+            for pos, scale in ((0, 0.6), (n - 1, 0.8), (n, 0.8)):
+                plant(tab_np[b], LI, pos, scale)
+    tab = torch.as_tensor(tab_np, device=dev)
+    lens = torch.as_tensor(lens_np, device=dev)
+    q = _randn(gen, S, 1, H, D) + uq
+    kn = (0.8 * u)[None].expand(S, KVH, D).contiguous()
+    vn = _randn(gen, S, KVH, D)
+    out = pa.paged_flash_decode(q, kflat, vflat, lens, tab, kn, vn, page_offset=LI * NP)
+    torch.cuda.synchronize()
+
+    def k12_plain(lengths, k_new):
+        return pa.paged_flash_decode_plain(q, kflat, vflat, lengths, tab, k_new, vn, page_offset=LI * NP)
+
+    ref = k12_plain(lens, kn)
+    err = check_close("K12 paged_flash_decode", out, ref, *ATTN_TOL["K12"])
+    live = lens > 0
+    faults = {f"lengths{d:+d}": check_fault_caught("K12", f"lengths{d:+d}", k12_plain(lens + d * live, kn), ref,
+                                                   *ATTN_TOL["K12"]) for d in (-1, 1)}
+    faults["self column dropped"] = check_fault_caught("K12", "the self column dropped", k12_plain(lens, -10 * kn),
+                                                       ref, *ATTN_TOL["K12"])
+    ref_mag = float(ref.float().abs().mean())
+
+    def walk(fn):
+        return fn(q, kflat, vflat, lens, tab, kn, vn, page_offset=(next(it) % L) * NP)
+
+    k_ms = time_ms(lambda: walk(pa.paged_flash_decode), iters=2 * L, warmup=L)
+    p_ms = time_ms(lambda: walk(pa.paged_flash_decode_plain), iters=L // 4, warmup=1)
+    qs = q.transpose(1, 2)
+    cols = torch.arange(W * PS + 1, device=dev)
+    mask = ((cols[None] < lens[:, None]) | (cols[None] == W * PS))[:, None, None, :]
+
+    def k12_library():  # the pages gathered by index_select, the self column appended, SDPA
+        idx = (tab.long() + (next(it) % L) * NP).reshape(-1)
+        kv = [torch.cat([p.index_select(0, idx).view(S, W, KVH, PS, D).transpose(1, 2).reshape(S, KVH, W * PS, D),
+                         n[:, :, None]], dim=2) for p, n in ((kflat, kn), (vflat, vn))]
+        return F.scaled_dot_product_attention(qs, *kv, attn_mask=mask, enable_gqa=True)
+
+    lib_ms = time_ms(k12_library, iters=2 * L, warmup=L)
+    cached = int(lens_np.sum())
+    rows.append(dict(name="paged_flash_decode", source="omchat_torch/csrc/paged_flash_decode.cu",
+                     replaces="omchat_tpu/ops/paged_attention.py:110", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                     library_ms=lib_ms, flops=4.0 * H * D * (cached + S),
+                     bytes=2 * KVH * cached * D * 2 + 2 * S * H * D * 2 + 2 * S * KVH * D * 2 + S * 4 + S * W * 4,
+                     ref_mean_abs=ref_mag, faults=faults, shape=f"S={S} decoding={busiest} cached={cached} W={W}"))
+    del out, ref, qs, mask
+
+    # K14 — the timed run's chunk dispatch with the most causal columns: its
+    # rows' page-aligned starts, chunk lengths and full-width tables.  A sink
+    # at column 0 and 0.8 u at each row's last valid column.
+    def causal_cols(c):
+        return sum(int(n) * int(s) + int(n) * (int(n) + 1) // 2 for s, n in zip(c["start"], c["len"]))
+
+    c14 = max(timed["chunks"], key=causal_cols)
+    (B, C), starts, clen, t14_np = c14["shape"], c14["start"], c14["len"], c14["tables"]
+    kv14 = starts + clen
+    for b in range(B):
+        for pos, scale in ((0, 0.6), (int(kv14[b]) - 1, 0.8)):
+            plant(t14_np[b], LI, pos, scale)
+    t14 = torch.as_tensor(t14_np, device=dev)
+    q14 = _randn(gen, B, C, H, D) + uq
+    qo, kl = torch.as_tensor(starts, **i32), torch.as_tensor(kv14, **i32)
+    out = pa.paged_flash_prefill(q14, pool_k[LI], pool_v[LI], kl, t14, qo)
+    torch.cuda.synchronize()
+    rowmask = (torch.arange(C, device=dev)[None] < torch.as_tensor(clen, device=dev)[:, None])[..., None, None]
+
+    def k14_plain(q_offset, kv_len):  # rows past a row's chunk length are padding
+        return pa.paged_flash_prefill_plain(q14, pool_k[LI], pool_v[LI], kv_len, t14, q_offset) * rowmask
+
+    ref = k14_plain(qo, kl)
+    err = check_close("K14 paged_flash_prefill", out * rowmask, ref, *ATTN_TOL["K14"])
+    faults = {"last valid column dropped": check_fault_caught("K14", "the last valid column dropped",
+                                                              k14_plain(qo, kl - 1), ref, *ATTN_TOL["K14"]),
+              "diagonal shifted by one": check_fault_caught("K14", "the causal diagonal shifted by one",
+                                                            k14_plain(qo + 1, kl), ref, *ATTN_TOL["K14"])}
+    ref_mag = float(ref.float().abs().mean())
+
+    def walk14(fn):
+        li = next(it) % L
+        return fn(q14, pool_k[li], pool_v[li], kl, t14, qo)
+
+    k_ms = time_ms(lambda: walk14(pa.paged_flash_prefill), iters=L, warmup=3)
+    p_ms = time_ms(lambda: walk14(pa.paged_flash_prefill_plain), iters=3, warmup=1)
+    gk_ms = time_ms(lambda: walk14(gather_k2_attention), iters=L, warmup=3)
+    T14 = t14_np.shape[1] * PS
+    idx14 = t14.long().reshape(-1)
+    ar = torch.arange(T14, device=dev)
+    mask14 = ((ar[None, None] <= qo[:, None, None] + torch.arange(C, device=dev)[None, :, None])
+              & (ar[None, None] < kl[:, None, None]))[:, None]
+    q14t = q14.transpose(1, 2)
+
+    def k14_library():  # the pages gathered, SDPA with an explicit offset-causal mask
+        li = next(it) % L
+        kv = [p[li].index_select(0, idx14).view(B, -1, KVH, PS, D).transpose(1, 2).reshape(B, KVH, T14, D)
+              for p in (pool_k, pool_v)]
+        return F.scaled_dot_product_attention(q14t, *kv, attn_mask=mask14, enable_gqa=True)
+
+    lib_ms = time_ms(k14_library, iters=L, warmup=3)
+    rows.append(dict(name="paged_flash_prefill", source="omchat_torch/csrc/paged_flash_prefill.cu",
+                     replaces="omchat_tpu/ops/paged_attention.py:442", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                     library_ms=lib_ms, flops=4.0 * H * D * causal_cols(c14),
+                     bytes=2 * B * C * H * D * 2 + 2 * KVH * int(kv14.sum()) * D * 2 + t14_np.size * 4 + 8 * B,
+                     ref_mean_abs=ref_mag, faults=faults, gather_k2_ms=gk_ms,
+                     shape=f"B={B} C={C} q_offset={starts.tolist()} kv_len={kv14.tolist()}"))
+    del out, ref, q14, q14t, mask14, rowmask
+
+    # K15 — the timed run's largest page commit: the scratch cache
+    # [L, B, KVH, T, D] into its requests' pages, chunks past a prompt and
+    # replica pad rows onto the parking page (the engine's own page ids).
+    c15 = max(timed["commits"], key=lambda c: c["shape"][1] * c["shape"][3])
+    _, B, _, T, _ = c15["shape"]
+    CH = T // PS
+    pages15 = torch.as_tensor(commit_page_ids(c15["tables"], c15["n_pages"], L, CH, NP), device=dev)
+    scratch_k, scratch_v = _randn(gen, L, B, KVH, T, D), _randn(gen, L, B, KVH, T, D)
+    view_k = scratch_k.view(L * B, KVH, CH, PS, D).transpose(1, 2)
+    view_v = scratch_v.view(L * B, KVH, CH, PS, D).transpose(1, 2)
+    ref_k, ref_v = kflat.clone(), vflat.clone()
+    pa.commit_pages(kflat, vflat, pages15, view_k, view_v)
+    torch.cuda.synchronize()
+    pa.commit_pages_plain(ref_k, ref_v, pages15, view_k, view_v)
+    # the parking pages take duplicate writes in no defined order: each of their
+    # 16-byte vectors must come from one of the chunks sent there
+    for got, want, chunks in ((kflat, ref_k, view_k), (vflat, ref_v, view_v)):
+        flat_chunks = chunks.reshape(-1, KVH * PS * D // 8, 8)
+        for li in range(L):
+            park = li * NP + P
+            sent = (pages15 == park).nonzero()[:, 0]
+            if len(sent) and not bool((got[park].reshape(1, -1, 8) == flat_chunks[sent]).all(-1).any(0).all()):
+                raise AssertionError(f"K15 commit_pages: parking page {park} holds a vector no chunk sent there")
+            want[park] = got[park]
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError("K15 commit_pages: the pool differs from the plain commit (bitwise, all pages)")
+    k_ms = time_ms(lambda: pa.commit_pages(kflat, vflat, pages15, view_k, view_v), iters=20)
+    p_ms = time_ms(lambda: pa.commit_pages_plain(ref_k, ref_v, pages15, view_k, view_v), iters=20)
+    src_k, src_v = view_k.reshape(-1, KVH, PS, D), view_v.reshape(-1, KVH, PS, D)
+    idx15 = pages15.long()
+
+    def k15_library():
+        kflat.index_copy_(0, idx15, src_k)
+        vflat.index_copy_(0, idx15, src_v)
+
+    lib_ms = time_ms(k15_library, iters=20)
+    M = int(pages15.numel())
+    rows.append(dict(name="commit_pages", source="omchat_torch/csrc/commit_pages.cu",
+                     replaces="omchat_tpu/ops/paged_attention.py:695", max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                     library_ms=lib_ms, flops=0.0, bytes=4 * M * KVH * PS * D * 2 + M * 4, ref_mean_abs=None,
+                     faults={}, shape=f"M={M} (L={L} x B={B} x {CH} pages)"))
+    del ref_k, ref_v, scratch_k, scratch_v, view_k, view_v, src_k, src_v, pool_k, pool_v, kflat, vflat
+
+    # K2 at the timed run's largest batched contiguous prefill: its plan's
+    # rows and lengths (pad rows replicate the first prompt), bntd scratch
+    # cache; a sink at column 0 and 0.8 u at each row's last valid column.
+    p2 = max((p for p in timed["prefills"] if len(p["lengths"]) > 1), key=lambda p: len(p["lengths"]) * p["rows"])
+    kvl2, width = p2["lengths"], p2["rows"]
+    B = len(kvl2)
+    q2 = _randn(gen, B, width, H, D) + uq
+    k2, v2 = _randn(gen, B, KVH, width, D), _randn(gen, B, KVH, width, D)
+    for b, n in enumerate(kvl2):
+        k2[b, :, 0] = 0.6 * u
+        k2[b, :, n - 1] = 0.8 * u
+    q0, kl2 = torch.zeros(B, **i32), torch.as_tensor(kvl2, **i32)
+    out = fa.flash_attention(q2, k2, v2, causal=True, q_offset=q0, kv_len=kl2, kv_format="bntd")
+    torch.cuda.synchronize()
+    valid = (torch.arange(width, device=dev)[None] < kl2[:, None])[..., None, None]
+
+    def k2_plain(q_offset, kv_len):
+        return fa.flash_attention_plain(q2, k2, v2, causal=True, q_offset=q_offset, kv_len=kv_len) * valid
+
+    ref = k2_plain(q0, kl2)
+    err = check_close("K2 flash_attention (batched prefill)", out * valid, ref, *ATTN_TOL["K2"])
+    faults = {"last valid column dropped": check_fault_caught("K2 batched", "the last valid column dropped",
+                                                              k2_plain(q0, kl2 - 1), ref, *ATTN_TOL["K2"]),
+              "diagonal shifted by one": check_fault_caught("K2 batched", "the causal diagonal shifted by one",
+                                                            k2_plain(q0 + 1, kl2), ref, *ATTN_TOL["K2"])}
+    ref_mag = float(ref.float().abs().mean())
+    k_ms = time_ms(lambda: fa.flash_attention(q2, k2, v2, causal=True, q_offset=q0, kv_len=kl2, kv_format="bntd"))
+    p_ms = time_ms(lambda: fa.flash_attention_plain(q2, k2, v2, causal=True, q_offset=q0, kv_len=kl2),
+                   iters=3, warmup=1)
+    ar = torch.arange(width, device=dev)
+    mask2 = ((ar[None, :] <= ar[:, None])[None] & (ar[None, None, :] < kl2[:, None, None]))[:, None]
+    q2t = q2.transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q2t, k2, v2, attn_mask=mask2, enable_gqa=True))
+    cols2 = sum(n * (n + 1) // 2 for n in kvl2)  # the causal columns of the valid rows
+    k2_batched = dict(name="flash_attention", source="omchat_torch/csrc/flash_attention.cu",
+                      replaces="omchat_tpu/ops/flash_attention.py:246", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                      library_ms=lib_ms, flops=4.0 * H * D * cols2,
+                      bytes=(2 * q2.numel() + 2 * KVH * sum(kvl2) * D) * 2 + 8 * B, ref_mean_abs=ref_mag,
+                      faults=faults, shape=f"B={B} width={width} kv_len={kvl2}")
+    del q2, k2, v2, q2t, mask2, out, ref
+
+    for r in rows + [k2_batched]:
+        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("flops"), r.pop("bytes"))
+        mag = "" if r["ref_mean_abs"] is None else f" ref_mean_abs={r['ref_mean_abs']:.3g}"
+        caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in r["faults"].items())
+        gk = f" gather_k2_ms={r['gather_k2_ms']:.4f}" if "gather_k2_ms" in r else ""
+        log(f"kernel {r['name']} [{r['shape']}]: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f}{gk} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"max_abs_err={r['max_abs_err']:.3g}{mag}{caught}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def paged_parity(seed: int) -> dict:
+    """Phase 7: the first 4 workload requests (1 image, 3 text) through the
+    paged engine and, one at a time, the single-request engine, both on
+    kernels, at full width and 2 ViT + 2 LLM layers."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig, OmChatConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    full = OmChatConfig()
+    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_hidden_layers=2),
+                              text=dataclasses.replace(full.text, num_hidden_layers=2))
+    params = build_model(cfg, seed)
+    work = serving_workload(cfg)[:4]
+    eng = PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, **SERVING)
+    first = capture_first_logits(eng)
+    rids = drive(eng, work, PARITY_NEW_TOKENS)
+    ref = OmChatEngine(cfg, params, image_cache_size=0, device=DEVICE)
+    gen = GenerationConfig(max_new_tokens=PARITY_NEW_TOKENS, eos_token_id=-1)
+    out = []
+    for i, ((ids, tiles), rid) in enumerate(zip(work, rids)):
+        steps = []
+        want = ref.generate([ids], tiles, gen, logits_callback=lambda s, lg: steps.append(lg[0].float())).token_ids[0]
+        diff = check_close(f"paged vs single-request first-token logits (request {i})", first[rid][0], steps[0],
+                           LOGITS_ATOL, LOGITS_RTOL)
+        margins = [float(t[0] - t[1]) for t in (torch.topk(lg, 2).values for lg in steps)]
+        upto = next((j for j, m in enumerate(margins) if m < PARITY_MARGIN), len(margins))
+        got = eng.result(rid)
+        if got[:upto] != want[:upto]:
+            raise AssertionError(f"paged parity, request {i}: tokens {got[:upto]} != {want[:upto]} "
+                                 f"(compared up to step {upto}, the first top-2 margin under {PARITY_MARGIN})")
+        out.append({"image": tiles is not None, "logits_max_abs_diff": diff, "tokens_compared": upto,
+                    "tokens_equal_beyond": got == want})
+    log("paged vs single-request (2 ViT + 2 LLM layers, full width): " + json.dumps(out))
+    del eng, ref, params
+    torch.cuda.empty_cache()
+    return {"requests": out}
 
 
 def main() -> int:
@@ -498,13 +1060,20 @@ def main() -> int:
         raise AssertionError(f"e2e: the request's shapes differ from those phase 2 measured: {shapes}")
     kernel_vs_plain(args.seed)
 
-    launches = e2e["launches"]
+    serve, timed = serving(args.seed)
+    paged_rows = paged_kernel_phases(gen, timed)
+    paged_parity(args.seed)
+
+    # each kernel's launches on its own main path: K1-K4 on the single-image
+    # request (phase 3), K12, K14 and K15 in the timed serving run (phase 5)
+    launches = {**e2e["launches"], **{n: serve["launches"][n] for n in
+                                      ("paged_flash_decode", "paged_flash_prefill", "commit_pages")}}
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
-    } for r in rows]
+    } for r in rows + paged_rows]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
 """High-level API — PyTorch port of ``omchat_tpu/api.py`` (the plain chat
-turn and ``load_pretrained_model``, bf16 weights, one device).
+turn and ``load_pretrained_model``, bf16 weights, one device), plus
+:func:`paged_batch_engine`, the serving engine over a loaded model (what
+``cli/serve.py --paged`` builds).
 
 ``load_pretrained_model`` mirrors the reference's builder.py:22 (tokenizer +
 model + image processor + context length) and returns a ready engine.  int8,
@@ -19,6 +21,7 @@ from omchat_torch.config import GenerationConfig, OmChatConfig
 from omchat_torch.processing.image_processor import OmChatImageProcessor
 from omchat_torch.processing.processor import OmChatProcessor
 from omchat_torch.runtime.generate import OmChatEngine
+from omchat_torch.runtime.paged_engine import PagedBatchEngine
 from omchat_torch.utils.device import resolve_device
 
 
@@ -72,3 +75,12 @@ def load_pretrained_model(
     processor = OmChatProcessor(tokenizer, image_processor)
     return OmChatModel(tokenizer, engine, image_processor, processor, config,
                        config.tokenizer_model_max_length or 8192)
+
+
+def paged_batch_engine(model: OmChatModel, **options) -> PagedBatchEngine:
+    """A paged continuous-batching engine serving ``model``'s weights, by
+    default on its device with its attention route (``options``:
+    PagedBatchEngine's keyword arguments — max_slots, num_pages, page_size,
+    max_len, decode_roll, prefill_chunk, image_cache_size, ...)."""
+    options = {"attn_impl": model.engine.attn_impl, "device": model.engine.device, **options}
+    return PagedBatchEngine(model.config, model.engine.params, **options)

@@ -32,6 +32,9 @@ SOURCES = (
     "flash_attention.cu",
     "flash_decode_stacked.cu",
     "commit_rows.cu",
+    "paged_flash_decode.cu",
+    "paged_flash_prefill.cu",
+    "commit_pages.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

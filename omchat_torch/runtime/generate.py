@@ -4,9 +4,12 @@ PyTorch port of the single-request path of ``omchat_tpu/runtime/generate.py``.
 Prefill fills a cache of the bucketed prompt length plus the bucketed decode
 budget and returns the first-token logits; each decode step runs the whole
 trunk for one token against the read-only cache and commits the new rows
-once.  Greedy decoding only; sampling, logprobs, penalties, constrained and
-speculative decoding, chunked prefill and the on-device decode loop come with
-later slices.
+once.  Encoded images go through an LRU feature cache
+(:mod:`omchat_torch.runtime.feature_cache`).  The paged serving engine
+(:mod:`omchat_torch.runtime.paged_engine`) reuses :meth:`OmChatEngine.plan`
+and :meth:`OmChatEngine.prefill` for its contiguous prefills.  ``generate``
+decodes greedily; logprobs, penalties, constrained and speculative decoding,
+chunked prefill and the on-device decode loop come with later slices.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from omchat_torch.models.omchat import (
 )
 from omchat_torch.models.qwen2 import KVCache, embed_tokens, init_kv_cache, lm_head
 from omchat_torch.ops.sampling import greedy
+from omchat_torch.runtime.feature_cache import ImageFeatureCache, cached_encode
 from omchat_torch.utils.device import resolve_device
 
 PROMPT_BUCKET = 128  # merged prompts and the decode budget round up to multiples of this
@@ -76,7 +80,9 @@ class OmChatEngine:
     ``params`` already live on ``device`` (default CUDA; raises without it).
     ``attn_impl=None`` runs the hand-written kernels on CUDA tensors (their
     plain versions on CPU tensors); ``"plain"`` runs the plain reference
-    attention everywhere — chosen only explicitly.
+    attention everywhere — chosen only explicitly.  ``prompt_bucket``: merged
+    prompts pad to a multiple of it.  ``image_cache_size``: entries in the
+    encoded-image LRU (0 disables it).
 
     After :meth:`generate`, ``spans`` holds the stage times in seconds
     (``encode_images``, ``prefill``, ``ttft``, ``decode``), ``decode_steps``
@@ -88,11 +94,15 @@ class OmChatEngine:
         params: dict,
         *,
         attn_impl: Optional[str] = None,
+        prompt_bucket: int = PROMPT_BUCKET,
+        image_cache_size: int = 8,
         device=None,
     ):
         self.cfg = cfg
         self.params = params
         self.attn_impl = attn_impl
+        self.prompt_bucket = prompt_bucket
+        self.image_cache = ImageFeatureCache(image_cache_size) if image_cache_size else None
         self.device = resolve_device(device)
         self.spans: dict = {}
 
@@ -103,25 +113,40 @@ class OmChatEngine:
     # -- stages ------------------------------------------------------------
 
     @torch.no_grad()
-    def encode_images(self, pixel_values) -> torch.Tensor:
-        """[N, 3, H, W] tiles → flattened [N*L, D] projected features."""
+    def encode_tiles(self, pixel_values) -> torch.Tensor:
+        """[N, 3, H, W] tiles → [N, L, D] projected features (uncached)."""
         pv = torch.as_tensor(np.asarray(pixel_values), device=self.device)
-        feats = encode_images(self.params, self.cfg, pv, attn_impl=self.attn_impl)
-        return feats.reshape(-1, feats.shape[-1])
+        return encode_images(self.params, self.cfg, pv, attn_impl=self.attn_impl)
 
-    def plan(self, batch_input_ids) -> MergePlan:
+    def encode_images(self, pixel_values, cache_key=None) -> torch.Tensor:
+        """[N, 3, H, W] tiles → flattened [N*L, D] projected features, through
+        the feature LRU (``cache_key``: the caller's identity for the image,
+        e.g. a hash of its compressed bytes; host arrays are content-hashed
+        when it is absent)."""
+
+        def encode(pv):
+            feats = self.encode_tiles(pv)
+            return feats.reshape(-1, feats.shape[-1])
+
+        return cached_encode(self.image_cache, pixel_values, cache_key, encode)
+
+    def plan(self, batch_input_ids, pad_to: Optional[int] = None) -> MergePlan:
+        """The merged layout of a batch, padded to ``pad_to`` rows or else to
+        the next multiple of the prompt bucket."""
         return plan_multimodal_merge(
-            batch_input_ids, self.cfg.image_seq_len, bucket=PROMPT_BUCKET,
+            batch_input_ids, self.cfg.image_seq_len, pad_to=pad_to, bucket=self.prompt_bucket,
             max_length=self.cfg.tokenizer_model_max_length,
         )
 
     @torch.no_grad()
     def prefill(self, plan: MergePlan, image_features: Optional[torch.Tensor], max_new_tokens: int):
         """Fuse embeddings, run the trunk over the merged prompt into a fresh
-        cache; returns (last-valid-token logits [B, V] fp32, cache)."""
+        cache of ``plan.max_len`` rows plus the bucketed decode budget (with
+        ``max_new_tokens=0`` exactly ``plan.max_len``); returns
+        (last-valid-token logits [B, V] fp32, cache)."""
         lm = self.params["language_model"]
         dev = self.device
-        cache_len = plan.max_len + round_up_to_bucket(max_new_tokens, PROMPT_BUCKET)
+        cache_len = plan.max_len + round_up_to_bucket(max_new_tokens, self.prompt_bucket)
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         embeds = fuse_embeddings(self.params, t(plan.token_ids), t(plan.is_image), t(plan.image_index), image_features)
         b = embeds.shape[0]

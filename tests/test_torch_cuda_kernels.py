@@ -3,13 +3,16 @@
 A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU (Hopper,
 sm_90a): without one they skip.  They cover edge cases that ``chip_smoke.py``
 (main-path shapes only) does not: partial tiles, GQA
-groups 7 and 2, empty and ragged caches, non-causal and btnd layouts.  Run on
+groups 7 and 2, empty and ragged caches, non-causal and btnd layouts; for the
+paged kernels a zero length, lengths on a page boundary, 16 ragged requests,
+strided tables, a partly filled last page and duplicate parking pages.  Run on
 the card from the repository root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py -q
 
 Inputs are bf16; tolerance atol = rtol = 2e-2 (bf16 rounding of p and of the
-output, sums in another order), except the row commit, which is bitwise.
+output, sums in another order), except the row and page commits, which are
+bitwise.
 """
 
 import pytest
@@ -112,3 +115,102 @@ def test_commit_rows_kernel_is_bitwise_and_in_place(gen):
     assert ko.data_ptr() == kp.data_ptr() and vo.data_ptr() == vp.data_ptr()
     pa.commit_rows_plain(kref, vref, pages, offs, kr, vr)
     assert torch.equal(kp, kref) and torch.equal(vp, vref)
+
+
+def _paged_pool(gen, P, KVH, D, lengths, W):
+    """A bf16 pool of P pages + the parking page P, shuffled live pages per
+    request, parking entries past each length."""
+    PS = 128
+    kp, vp = _randn(gen, P + 1, KVH, PS, D), _randn(gen, P + 1, KVH, PS, D)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(1)).tolist()
+    tables = torch.full((len(lengths), W), P, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(lengths):
+        live = -(-n // PS)
+        tables[b, :live] = torch.tensor(perm[used: used + live], dtype=torch.int32)
+        used += live
+    return kp, vp, tables.cuda()
+
+
+@pytest.mark.parametrize(
+    "lengths,self_col,page_offset",
+    [([0, 5], True, 0), ([128, 256, 129], True, 0),
+     ([3, 700, 1, 2300, 128, 64, 999, 1500, 17, 400, 2048, 255, 600, 90, 1200, 33], True, 0),
+     ([0, 300], False, 0), ([200, 77], True, 3)],
+    ids=["length0", "page_boundary", "b16_ragged", "no_self_column", "page_offset"],
+)
+def test_paged_flash_decode_kernel(gen, lengths, self_col, page_offset):
+    H, KVH, D = 28, 4, 128
+    B = len(lengths)
+    W = max(4, -(-max(lengths) // 128))
+    P = sum(-(-n // 128) for n in lengths) + 2
+    kp, vp, tables = _paged_pool(gen, P, KVH, D, lengths, W)
+    if page_offset:  # the pages sit after `page_offset` pages of another layer
+        kp = torch.cat([_randn(gen, page_offset, *kp.shape[1:]), kp])
+        vp = torch.cat([_randn(gen, page_offset, *vp.shape[1:]), vp])
+    q = _randn(gen, B, 1, H, D)
+    kn, vn = (_randn(gen, B, KVH, D), _randn(gen, B, KVH, D)) if self_col else (None, None)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    wide = torch.cat([tables, torch.zeros_like(tables)], dim=1)[:, :W]  # a column slice keeps its row stride
+    n0 = pa.paged_flash_decode.launches
+    out = pa.paged_flash_decode(q, kp, vp, lens, wide, kn, vn, page_offset=page_offset)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode.launches == n0 + 1
+    ref = pa.paged_flash_decode_plain(q, kp, vp, lens, wide, kn, vn, page_offset=page_offset)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    for b, n in enumerate(lengths):
+        if n == 0:  # no page read: exactly v_new (or zeros), no NaN
+            want = vn[b].repeat_interleave(H // KVH, dim=0) if self_col else torch.zeros_like(out[b, 0])
+            assert torch.equal(out[b, 0], want)
+
+
+@pytest.mark.parametrize(
+    "C,q_offset,chunk_len",
+    [(128, [0, 256], [128, 100]), (256, [1024], [200]), (1024, [1024], [1024])],
+    ids=["ragged_rows", "partial_last_page", "serving_chunk"],
+)
+def test_paged_flash_prefill_kernel(gen, C, q_offset, chunk_len):
+    H, KVH, D = 28, 4, 128
+    B = len(q_offset)
+    kv_len = [o + n for o, n in zip(q_offset, chunk_len)]
+    W = 33
+    P = sum(-(-n // 128) for n in kv_len) + 1
+    kp, vp, tables = _paged_pool(gen, P, KVH, D, kv_len, W)
+    q = _randn(gen, B, C, H, D)
+    qo = torch.tensor(q_offset, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out = pa.paged_flash_prefill(q, kp, vp, kl, tables, qo)
+    torch.cuda.synchronize()
+    ref = pa.paged_flash_prefill_plain(q, kp, vp, kl, tables, qo)
+    for b in range(B):
+        torch.testing.assert_close(out[b, :chunk_len[b]].float(), ref[b, :chunk_len[b]].float(), **TOL)
+    k, v = pa._gather_pages(kp, vp, tables)  # the pages gathered, then K2: the same function
+    gathered = fa.flash_attention(q, k, v, causal=True, q_offset=qo, kv_len=kl, kv_format="bntd")
+    for b in range(B):
+        torch.testing.assert_close(out[b, :chunk_len[b]].float(), gathered[b, :chunk_len[b]].float(), **TOL)
+
+
+def test_commit_pages_kernel_is_bitwise_in_place_with_duplicate_parking(gen):
+    L, P, KVH, D, PS = 3, 9, 4, 128, 128
+    pool_k = _randn(gen, L * (P + 1), KVH, PS, D)
+    pool_v = _randn(gen, L * (P + 1), KVH, PS, D)
+    B, C = 2, 3  # scratch cache [L, B, KVH, C*PS, D] seen as [L*B, C, KVH, PS, D]
+    scratch_k = _randn(gen, L, B, KVH, C * PS, D)
+    scratch_v = _randn(gen, L, B, KVH, C * PS, D)
+    view_k = scratch_k.view(L * B, KVH, C, PS, D).transpose(1, 2)
+    view_v = scratch_v.view(L * B, KVH, C, PS, D).transpose(1, 2)
+    pages = torch.tensor([[[1, 4, P], [2, P, P]]] * L, dtype=torch.int32)  # duplicates on the parking page
+    pages = (pages + torch.arange(L, dtype=torch.int32)[:, None, None] * (P + 1)).reshape(-1).cuda()
+    ref_k, ref_v = pool_k.clone(), pool_v.clone()
+    ko, vo = pa.commit_pages(pool_k, pool_v, pages, view_k, view_v)
+    torch.cuda.synchronize()
+    assert ko.data_ptr() == pool_k.data_ptr() and vo.data_ptr() == pool_v.data_ptr()
+    pa.commit_pages_plain(ref_k, ref_v, pages, view_k, view_v)
+    real = torch.ones(L * (P + 1), dtype=torch.bool)
+    real[P::P + 1] = False
+    assert torch.equal(pool_k[real], ref_k[real]) and torch.equal(pool_v[real], ref_v[real])
+    chunks = view_k.reshape(-1, KVH, PS, D)
+    for li in range(L):  # each 16-byte vector of a parking page comes from one of its chunks
+        park = pool_k[li * (P + 1) + P].reshape(-1, 8)
+        cands = chunks[(pages == li * (P + 1) + P).nonzero()[:, 0]].reshape(-1, park.shape[0], 8)
+        assert bool((park[None] == cands).all(dim=-1).any(dim=0).all())
