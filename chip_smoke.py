@@ -34,6 +34,23 @@
    (1 image, 3 text); first-token logits within phase 4's limits, greedy
    tokens identical up to the first step whose reference top-2 margin is
    under 0.1.
+8. w8a8: the full-width full-depth random model quantized to int8 and its
+   ViT fc1 scales calibrated (``api.quantize_model``, what
+   ``load_pretrained_model(w8a8=True)`` runs): int8 weight GiB, quantize and
+   calibrate seconds.
+9. w8a8 end to end: phase 3's request on the quantized model (TTFT, ViT,
+   prefill and decode spans, peak memory); K7, K8, K9 and K11 must launch.
+   The run records what each w8a8 kernel was handed.
+10. w8a8 serving: phase 5's workload through ``PagedBatchEngine`` on the
+    quantized model; the glue kernels must launch on the short-prefill and
+    chunk routes.
+11. w8a8 kernel phases: K7, K8, K9 and K11 at the shapes phase 9 handed
+    them, held against their plain versions (int8 codes, x', row scales) with
+    planted faults that must fall outside the limits; kernel, plain, library
+    (``torch._int_mm`` on the same GEMM, for K9 and K11) and bound times.
+12. w8a8 kernels vs plain at full width and 2+2 layers: first-token logits
+    through the glue kernels and through ``attn_impl="plain"`` (the unfused
+    chain), no further apart than w8a8 moves the plain chain from bf16.
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -45,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -53,6 +71,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 
 # Tolerances, bf16 on the card.  K1-K3 against their plain versions: the inputs
@@ -75,7 +94,21 @@ SERVING = dict(max_slots=16, num_pages=192, page_size=128, prompt_bucket=128, ma
                prefill_chunk=1024, prefill_batch_tokens=8192)
 SERVING_REQUESTS, SERVING_NEW_TOKENS, SERVING_WORKLOAD_SEED = 16, 64, 0
 PARITY_NEW_TOKENS, PARITY_MARGIN = 16, 0.1
-DEVICE = "cuda"  # phases 5-7 place their tensors and engines here
+DEVICE = "cuda"  # phases 5-12 place their tensors and engines here
+# phase 11, the w8a8 kernels against their plain versions: int8 codes within one
+# and at least 99% equal (fp32 sums in another order move a code next to a
+# rounding boundary), x' within one bf16 ulp, row scales rtol 1e-2 (the JAX
+# package's limit, tests/test_pallas_kernels.py:314).  Each planted fault must
+# break one of them.
+CODE_MAX_DIFF, CODE_EQUAL_SHARE, X_ULPS, SCALE_RTOL = 1, 0.99, 1.0, 1e-2
+# Phase 12, w8a8 prefill through the glue kernels vs attn_impl="plain" (the
+# unfused chain): the first-token logits may differ by no more than w8a8
+# quantization itself moves the plain chain's from the bf16 model's, measured in
+# the same phase.  (The JAX package's trunk limit, 2e-2 of max |logit|,
+# tests/test_llm_glue.py:109, holds at its tiny widths and in the CPU tests;
+# at full width on random weights any ±1 code moves these small logits by
+# 4-6% of their max, whatever the path: 0.048 kernels vs plain, 0.049 static vs
+# dynamic fc1 scales, 0.056 w8a8 vs bf16; bf16 kernels vs plain 0.009.)
 
 
 def log(*a):
@@ -98,8 +131,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -412,18 +445,24 @@ def counters():
     }
 
 
-def end_to_end(seed: int, new_tokens: int = NEW_TOKENS) -> dict:
+def end_to_end(seed: int, new_tokens: int = NEW_TOKENS, model=None, counted=None, label: str = "e2e") -> dict:
+    """Phase 3 (bf16, its own model) or, with ``model`` = (cfg, params) and
+    the kernels that must launch in ``counted``, phase 9 (w8a8)."""
     import torch
 
     from omchat_torch.config import GenerationConfig, OmChatConfig
     from omchat_torch.runtime.generate import OmChatEngine
 
-    cfg = OmChatConfig()  # omchat-v2.0-13B: InternViT-6B (45 layers) + Qwen2-7B (28 layers)
-    t0 = time.perf_counter()
-    params = build_model(cfg, seed)
-    torch.cuda.synchronize()
-    log(f"e2e: built full-width full-depth weights in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if model is None:
+        cfg = OmChatConfig()  # omchat-v2.0-13B: InternViT-6B (45 layers) + Qwen2-7B (28 layers)
+        t0 = time.perf_counter()
+        params = build_model(cfg, seed)
+        torch.cuda.synchronize()
+        log(f"e2e: built full-width full-depth weights in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    else:
+        cfg, params = model
+    counted = counted or counters()
     ids, tiles = make_request(cfg, seed)
     engine = OmChatEngine(cfg, params, image_cache_size=0)  # the timed run encodes its image again
     gen = GenerationConfig(max_new_tokens=new_tokens, eos_token_id=-1)  # no early stop on random weights
@@ -437,10 +476,10 @@ def end_to_end(seed: int, new_tokens: int = NEW_TOKENS) -> dict:
     # warm-up (cuBLAS / allocator first calls), and the logits check: kept out of the timed run
     warm = engine.generate([ids], tiles, gen, logits_callback=finite)
     torch.cuda.reset_peak_memory_stats()
-    for c in counters().values():
+    for c in counted.values():
         c.launches = 0
     out = engine.generate([ids], tiles, gen)
-    launches = {name: c.launches for name, c in counters().items()}
+    launches = {name: c.launches for name, c in counted.items()}
     sp = engine.spans
     res = {
         "tiles": int(tiles.shape[0]),
@@ -455,16 +494,16 @@ def end_to_end(seed: int, new_tokens: int = NEW_TOKENS) -> dict:
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches,
     }
-    log("e2e: " + json.dumps(res))
+    log(f"{label}: " + json.dumps(res))
     if bad:
-        raise AssertionError(f"e2e: non-finite or mis-shaped logits at steps {bad}")
+        raise AssertionError(f"{label}: non-finite or mis-shaped logits at steps {bad}")
     if out.token_ids != warm.token_ids:
-        raise AssertionError("e2e: the timed run's tokens differ from the checked warm-up run's")
+        raise AssertionError(f"{label}: the timed run's tokens differ from the checked warm-up run's")
     if len(out.token_ids[0]) != new_tokens:
-        raise AssertionError(f"e2e: generated {len(out.token_ids[0])} tokens, expected {new_tokens}")
+        raise AssertionError(f"{label}: generated {len(out.token_ids[0])} tokens, expected {new_tokens}")
     missing = [n for n, c in launches.items() if c == 0]
     if missing:
-        raise AssertionError(f"e2e: kernels never launched on the main path: {missing}")
+        raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
     del engine, params
     torch.cuda.empty_cache()
     return res
@@ -644,6 +683,54 @@ def drive(engine, work, new_tokens: int) -> list:
     return rids
 
 
+def timed_serving(eng, work, rec, counts: dict, label: str) -> dict:
+    """A warm-up at 4 new tokens, then the timed run of ``work`` at
+    SERVING_NEW_TOKENS with the kernels in ``counts`` counted: tokens/s,
+    latency percentiles, decode-step and dispatch wall times.  Every request
+    must return all its tokens, every page come back and every counted
+    kernel launch."""
+    import torch
+
+    rec["label"] = "warm-up"
+    drive(eng, work, 4)  # cuBLAS plans, the allocator, the kernels' first launches
+    eng.reset_latency_stats()
+    for c in counts.values():
+        c.launches = 0
+    rec["label"] = "timed"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = drive(eng, work, SERVING_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counts.items()}
+    done = [eng.pop_result(r) for r in rids]  # (tokens, prompt length)
+    rolls = [(s["extra"][0], s["start"].elapsed_time(s["end"]) / s["extra"][1])
+             for s in rec["spans"] if s["label"] == "timed" and s["kind"] == "roll"]
+    full = [ms for n, ms in rolls if n == SERVING["max_slots"]]
+    res = {
+        "requests": len(work), "images": sum(t is not None for _, t in work),
+        "prompt_tokens": sum(p for _, p in done), "generated_tokens": sum(len(t) for t, _ in done),
+        "wall_s": wall, "tokens_per_s": sum(len(t) for t, _ in done) / wall, **eng.latency_stats(),
+        # CUDA events around each host-dispatched roll / step count: the
+        # card's timeline, host launch gaps included
+        "decode_step_wall_ms_16_slots": sum(full) / len(full) if full else None, "rolls_at_16_slots": len(full),
+        "decode_step_wall_ms_all_rolls": [round(ms, 3) for _, ms in rolls],
+        "span_ms": {k: sum(span_ms(rec, "timed", k)) for k in ("vit", "shorts", "chunk", "roll")},
+        "chunk_dispatches": len(span_ms(rec, "timed", "chunk")),
+        "pages_free": eng.allocator.available, "launches": launches,
+    }
+    log(f"{label}: " + json.dumps(res))
+    short = [i for i, (t, _) in enumerate(done) if len(t) != SERVING_NEW_TOKENS]
+    if short:
+        raise AssertionError(f"{label}: requests {short} did not return {SERVING_NEW_TOKENS} tokens")
+    if eng.allocator.available != SERVING["num_pages"]:
+        raise AssertionError(f"{label}: {SERVING['num_pages'] - eng.allocator.available} pages never came back")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the serving path: {missing}")
+    return res
+
+
 def serving(seed: int) -> tuple:
     """Phase 5: the paged engine at full width and depth on the mixed
     workload, recording what each paged kernel is handed; then the image
@@ -663,44 +750,7 @@ def serving(seed: int) -> tuple:
     first = capture_first_logits(eng)
     rec, undo = record_dispatches(eng)
     try:
-        rec["label"] = "warm-up"
-        drive(eng, work, 4)  # cuBLAS plans, the allocator, the kernels' first launches
-        eng.reset_latency_stats()
-        counts = paged_counters()
-        for c in counts.values():
-            c.launches = 0
-        rec["label"] = "timed"
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rids = drive(eng, work, SERVING_NEW_TOKENS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: c.launches for name, c in counts.items()}
-        done = [eng.pop_result(r) for r in rids]  # (tokens, prompt length)
-        rolls = [(s["extra"][0], s["start"].elapsed_time(s["end"]) / s["extra"][1])
-                 for s in rec["spans"] if s["label"] == "timed" and s["kind"] == "roll"]
-        full = [ms for n, ms in rolls if n == SERVING["max_slots"]]
-        res = {
-            "requests": len(work), "images": sum(t is not None for _, t in work),
-            "prompt_tokens": sum(p for _, p in done), "generated_tokens": sum(len(t) for t, _ in done),
-            "wall_s": wall, "tokens_per_s": sum(len(t) for t, _ in done) / wall, **eng.latency_stats(),
-            # CUDA events around each host-dispatched roll / step count: the
-            # card's timeline, host launch gaps included
-            "decode_step_wall_ms_16_slots": sum(full) / len(full) if full else None, "rolls_at_16_slots": len(full),
-            "decode_step_wall_ms_all_rolls": [round(ms, 3) for _, ms in rolls],
-            "span_ms": {k: sum(span_ms(rec, "timed", k)) for k in ("vit", "shorts", "chunk", "roll")},
-            "chunk_dispatches": len(span_ms(rec, "timed", "chunk")),
-            "pages_free": eng.allocator.available, "launches": launches,
-        }
-        log("serving: " + json.dumps(res))
-        short = [i for i, (t, _) in enumerate(done) if len(t) != SERVING_NEW_TOKENS]
-        if short:
-            raise AssertionError(f"serving: requests {short} did not return {SERVING_NEW_TOKENS} tokens")
-        if eng.allocator.available != SERVING["num_pages"]:
-            raise AssertionError(f"serving: {SERVING['num_pages'] - eng.allocator.available} pages never came back")
-        missing = [n for n, c in launches.items() if c == 0]
-        if missing:
-            raise AssertionError(f"serving: kernels never launched on the serving path: {missing}")
+        res = timed_serving(eng, work, rec, paged_counters(), "serving")
 
         # The two chunk-attention routes differ only there, so the image
         # prompts' first-token logits carry the whole difference.
@@ -1023,6 +1073,368 @@ def paged_parity(seed: int) -> dict:
     return {"requests": out}
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-12: the w8a8 serving mode
+# ---------------------------------------------------------------------------
+
+
+def w8a8_counters():
+    from omchat_torch.ops import norms
+    from omchat_torch.ops import quant_matmul as qm
+
+    return {
+        "rmsnorm_quant": norms.rmsnorm_quant,
+        "add_rmsnorm_quant": norms.add_rmsnorm_quant,
+        "dense_prequant_gelu_quant": qm.dense_prequant_gelu_quant_cuda,
+        "attn_proj_glue_quant": qm.attn_proj_glue_quant,
+    }
+
+
+# the C entry point of each w8a8 kernel, and where its sizes sit among its launch arguments
+W8A8_ENTRY = {"omchat_rmsnorm_quant": ("rmsnorm_quant", slice(4, 6)),
+              "omchat_add_rmsnorm_quant": ("add_rmsnorm_quant", slice(7, 9)),
+              "omchat_fc1_gelu_quant": ("dense_prequant_gelu_quant", slice(7, 10)),
+              "omchat_proj_glue_quant": ("attn_proj_glue_quant", slice(10, 12))}
+
+
+def record_w8a8_launches():
+    """Wrap ``kernel_lib.launch`` so a run records the sizes each w8a8
+    kernel was handed (rows, D / M, N, K / M, N); returns the record (name →
+    {sizes: count}) and a function that restores the launcher."""
+    from omchat_torch.ops import kernel_lib
+
+    rec = {name: {} for name, _ in W8A8_ENTRY.values()}
+    launch = kernel_lib.launch
+
+    def recording(source, fn_name, argtypes, *args):
+        if fn_name in W8A8_ENTRY:
+            name, sizes = W8A8_ENTRY[fn_name]
+            key = tuple(args[sizes])
+            rec[name][key] = rec[name].get(key, 0) + 1
+        return launch(source, fn_name, argtypes, *args)
+
+    kernel_lib.launch = recording
+
+    def undo():
+        kernel_lib.launch = launch
+
+    return rec, undo
+
+
+def quantize_full_model(seed: int):
+    """Phase 8: the random full model in bf16, then ``api.quantize_model``
+    (per-layer int8 quantization on the card, fc1 calibration); returns
+    (cfg, params, results)."""
+    import torch
+
+    from omchat_torch import api
+    from omchat_torch.config import OmChatConfig
+
+    gc.collect()  # earlier phases' engines hold their models through reference cycles (wrapped methods)
+    torch.cuda.empty_cache()
+    cfg = OmChatConfig()
+    params = build_model(cfg, seed)
+    torch.cuda.synchronize()
+    calibrate = api.calibrate_fc1_scales
+    spans = {}
+
+    def timed_calibrate(*a, **kw):
+        t = time.perf_counter()
+        out = calibrate(*a, **kw)
+        torch.cuda.synchronize()
+        spans["calibrate_s"] = time.perf_counter() - t
+        return out
+
+    api.calibrate_fc1_scales = timed_calibrate
+    try:
+        t0 = time.perf_counter()
+        cfg8, qparams = api.quantize_model(cfg, params, w8a8=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        api.calibrate_fc1_scales = calibrate
+    del params
+    torch.cuda.empty_cache()
+
+    def nbytes(tree, int8_only):
+        if isinstance(tree, dict):
+            return sum(nbytes(v, int8_only) for v in tree.values())
+        return tree.numel() * tree.element_size() if (tree.dtype == torch.int8 or not int8_only) else 0
+
+    scales = qparams["vision_tower"]["layers"]["mlp"]["fc1_out_scale"]
+    res = {"int8_weights_gib": nbytes(qparams, True) / 2**30, "all_weights_gib": nbytes(qparams, False) / 2**30,
+           "quantize_s": total - spans["calibrate_s"], "calibrate_s": spans["calibrate_s"],
+           "fc1_out_scale_min_max": [float(scales.min()), float(scales.max())],
+           "memory_allocated_gib": torch.cuda.memory_allocated() / 2**30}
+    log("w8a8 quantize + calibrate: " + json.dumps(res))
+    if not (torch.isfinite(scales).all() and (scales > 0).all()):
+        raise AssertionError("w8a8: calibrated fc1 scales are not finite and positive")
+    return cfg8, qparams, res
+
+
+def w8a8_serving(cfg, params) -> dict:
+    """Phase 10: phase 5's workload on the w8a8 model; the glue kernels must
+    launch on the short-prefill and the chunk routes."""
+    import torch
+
+    from omchat_torch.runtime import paged_engine as pe
+
+    work = serving_workload(cfg)
+    eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, **SERVING)
+    rec, undo = record_dispatches(eng)
+    counts = {**paged_counters(), **w8a8_counters()}
+    per_route = {"shorts": {}, "chunk": {}}  # launches inside the short-prefill and chunk dispatches
+    for kind, name in (("shorts", "_prefill_shorts"), ("chunk", "_run_chunk")):
+        fn = getattr(eng, name)
+
+        def counted(*a, _fn=fn, _kind=kind, **kw):
+            before = {n: c.launches for n, c in counts.items()}
+            out = _fn(*a, **kw)
+            if rec["label"] == "timed":
+                for n, c in counts.items():
+                    if c.launches > before[n]:
+                        per_route[_kind][n] = per_route[_kind].get(n, 0) + c.launches - before[n]
+            return out
+
+        setattr(eng, name, counted)
+    try:
+        res = timed_serving(eng, work, rec, counts, "w8a8 serving")
+    finally:
+        undo()
+    res["launches_by_route"] = per_route
+    log("w8a8 serving, launches by prefill route: " + json.dumps(per_route))
+    for route in ("shorts", "chunk"):
+        missing = [n for n in ("rmsnorm_quant", "attn_proj_glue_quant") if not per_route[route].get(n)]
+        if missing:
+            raise AssertionError(f"w8a8 serving: {missing} never launched on the {route} route")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def quant_compare(got: dict, ref: dict) -> dict:
+    """Codes, x' and row scales of a w8a8 kernel against a reference."""
+    import torch
+
+    d = (got["codes"].int() - ref["codes"].int()).abs()
+    st = {"code_max_diff": int(d.max()), "code_equal": float((d == 0).float().mean())}
+    if "rs" in ref:
+        st["scale_rel"] = float(((got["rs"] - ref["rs"]).abs() / ref["rs"].abs()).max())
+    if "x" in ref:
+        ulp = torch.exp2(torch.floor(torch.log2(ref["x"].float().abs().clamp(min=1e-30))) - 7)
+        st["x_ulps"] = float(((got["x"].float() - ref["x"].float()).abs() / ulp).max())
+    return st
+
+
+def quant_ok(st: dict) -> bool:
+    return (st["code_max_diff"] <= CODE_MAX_DIFF and st["code_equal"] >= CODE_EQUAL_SHARE
+            and st.get("scale_rel", 0.0) <= SCALE_RTOL and st.get("x_ulps", 0.0) <= X_ULPS)
+
+
+def check_quant(name, got, ref) -> dict:
+    st = quant_compare(got, ref)
+    if not quant_ok(st):
+        raise AssertionError(f"{name}: outside the limits (codes ±{CODE_MAX_DIFF} on all, equal on "
+                             f"{CODE_EQUAL_SHARE:.0%}, x' {X_ULPS} ulp, scales rtol {SCALE_RTOL}): {st}")
+    return st
+
+
+def quant_fault_caught(name, fault, faulty, ref) -> dict:
+    st = quant_compare(faulty, ref)
+    if quant_ok(st):
+        raise AssertionError(f"{name}: the limits would pass a kernel that has {fault}: {st}")
+    return st
+
+
+def w8a8_kernel_phases(gen, shapes: dict) -> list:
+    """Phase 11: K7, K8, K9 and K11 at the shapes the w8a8 request handed
+    them (``shapes``: name → {sizes: launches}), on inputs drawn like the
+    path's (unit-normal activations, int8 weights quantized from
+    normal(0, 0.02), LayerScale near 0.1), against their plain versions."""
+    import torch
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.ops import linear as lin
+    from omchat_torch.ops import norms
+    from omchat_torch.ops import quant_matmul as qm
+
+    rows_out = []
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0, off=0.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * scale + off).to(bf)
+
+    def qlinear(n, k):
+        return lin.quantize_linear({"kernel": randn(k, n, scale=0.02)})
+
+    def top(name):  # the most launched shape
+        return max(shapes[name].items(), key=lambda kv: kv[1])[0]
+
+    def unfused(xn, gamma):  # the chain: the norm rounded to bf16, then quantized
+        q, rs = lin.quantize_activations(norms.rms_norm(xn, gamma))
+        return {"codes": q, "rs": rs}
+
+    def row(name, source, replaces, stats, faults, ms, plain_ms, lib_ms, ops, nbytes, shape, peak=PEAK_INT8_OPS):
+        b, by = bound_ms(ops, nbytes, peak)
+        r = dict(name=name, source=source, replaces=replaces, max_abs_err=float(stats["code_max_diff"]), ms=ms,
+                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b, bound_by=by, stats=stats, faults=faults,
+                 shape=shape)
+        rows_out.append(r)
+        caught = "".join(f"; fault '{f}' {json.dumps(d)} (caught)" for f, d in faults.items())
+        lib = "—" if lib_ms is None else f"{lib_ms:.4f} (torch._int_mm, the GEMM alone)"
+        log(f"kernel {name} [{shape}]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
+            f"bound_ms={b:.4f} ({by}) {json.dumps(stats)}{caught}")
+
+    # K7 — the LLM prefill's input norm + quantize
+    rows, D = top("rmsnorm_quant")
+    x, gamma = randn(rows, D), randn(D, scale=0.1, off=1.0)
+    q, rs = norms.rmsnorm_quant(x, gamma)
+    torch.cuda.synchronize()
+    rq, rrs = norms.rmsnorm_quant_plain(x, gamma)
+    ref = {"codes": rq, "rs": rrs}
+    st = check_quant("K7 rmsnorm_quant", {"codes": q, "rs": rs}, ref)
+    faults = {"gamma dropped": quant_fault_caught("K7", "gamma dropped", dict(zip(
+        ("codes", "rs"), norms.rmsnorm_quant_plain(x, torch.ones_like(gamma)))), ref),
+        "the bf16-rounded norm quantized (the unfused chain)": quant_fault_caught(
+            "K7", "the unfused chain", unfused(x, gamma), ref)}
+    row("rmsnorm_quant", "omchat_torch/csrc/norm_quant.cu", "omchat_tpu/ops/norms.py:98", st, faults,
+        time_ms(lambda: norms.rmsnorm_quant(x, gamma), iters=50), time_ms(lambda: norms.rmsnorm_quant_plain(x, gamma)),
+        None, 0.0, rows * D * 3 + D * 2 + rows * 4, f"rows={rows} D={D}")
+    del x, q, rq
+
+    # K8 — the ViT MLP glue: x' = x + y * ls2, then the next layer's norm1 + quantize
+    rows, D = top("add_rmsnorm_quant")
+    x, delta, ls, gamma = randn(rows, D), randn(rows, D), randn(D, scale=0.02, off=0.1), randn(D, scale=0.1, off=1.0)
+    xn, q, rs = norms.add_rmsnorm_quant(x, delta, ls, gamma)
+    torch.cuda.synchronize()
+    ref = dict(zip(("x", "codes", "rs"), norms.add_rmsnorm_quant_plain(x, delta, ls, gamma)))
+    st = check_quant("K8 add_rmsnorm_quant", {"x": xn, "codes": q, "rs": rs}, ref)
+    faults = {f: quant_fault_caught("K8", f, dict(zip(("x", "codes", "rs"), fn())), ref) for f, fn in (
+        ("LayerScale dropped", lambda: norms.add_rmsnorm_quant_plain(x, delta, None, gamma)),
+        ("residual skipped", lambda: norms.add_rmsnorm_quant_plain(torch.zeros_like(x), delta, ls, gamma)))}
+    faults["the bf16-rounded norm quantized (the unfused chain)"] = quant_fault_caught(
+        "K8", "the unfused chain", {"x": ref["x"], **unfused(ref["x"], gamma)}, ref)
+    row("add_rmsnorm_quant", "omchat_torch/csrc/norm_quant.cu", "omchat_tpu/ops/norms.py:148", st, faults,
+        time_ms(lambda: norms.add_rmsnorm_quant(x, delta, ls, gamma), iters=50),
+        time_ms(lambda: norms.add_rmsnorm_quant_plain(x, delta, ls, gamma)), None,
+        0.0, rows * D * 7 + 2 * D * 2 + rows * 4, f"rows={rows} D={D}")
+    del x, delta, xn, q, ref
+
+    # K9 — the ViT fc1: codes of a unit-normal activation, a bias near h's
+    # spread and the static scale a calibration would set (max |gelu(h)| / 127)
+    M, N, K = top("dense_prequant_gelu_quant")
+    xq, rs = lin.quantize_activations(randn(M, K))
+    p = qlinear(N, K)
+    h = lin.int8_matmul(xq, p["kernel_q"].t()).float() * rs * p["scale"].float()
+    p["bias"] = randn(N, scale=float(h.std()))
+    os_ = lin.div127(lin.gelu_tanh(h + p["bias"].float()).abs().amax())
+    del h
+    out = qm.dense_prequant_gelu_quant_cuda(xq, rs, p, os_)
+    torch.cuda.synchronize()
+    ref = {"codes": qm.dense_prequant_gelu_quant_plain(xq, rs, p, os_)}
+    st = check_quant("K9 fc1_gelu_quant", {"codes": out}, ref)
+    nobias = {k: v for k, v in p.items() if k != "bias"}
+    faults = {"bias dropped": quant_fault_caught("K9", "bias dropped", {
+        "codes": qm.dense_prequant_gelu_quant_plain(xq, rs, nobias, os_)}, ref),
+        "row scales shifted by one row": quant_fault_caught("K9", "row scales shifted by one row", {
+            "codes": qm.dense_prequant_gelu_quant_plain(xq, rs.roll(1, 0), p, os_)}, ref)}
+    row("dense_prequant_gelu_quant", "omchat_torch/csrc/fc1_gelu_quant.cu", "omchat_tpu/ops/quant_matmul.py:62", st,
+        faults, time_ms(lambda: qm.dense_prequant_gelu_quant_cuda(xq, rs, p, os_)),
+        time_ms(lambda: qm.dense_prequant_gelu_quant_plain(xq, rs, p, os_), iters=5, warmup=1),
+        time_ms(lambda: torch._int_mm(xq, p["kernel_q"].t())), 2.0 * M * N * K,
+        M * K + N * K + M * 4 + 2 * N * 2 + 4 + M * N, f"M={M} N={N} K={K}")
+    del xq, out, ref, p
+
+    # K11 — at each shape the path gave it (the ViT proj with bias and LayerScale
+    # ls1; the Qwen2 o_proj with neither), reported as one row weighted by launches
+    parts = []
+    vit_width = OmChatConfig().vision.hidden_size
+    for (M, N), n_launch in sorted(shapes["attn_proj_glue_quant"].items()):
+        vit = N == vit_width  # the ViT proj (bias, LayerScale); else the Qwen2 o_proj
+        a, x, gamma = randn(M, N, scale=0.5), randn(M, N), randn(N, scale=0.1, off=1.0)
+        p = qlinear(N, N)
+        ls = randn(N, scale=0.02, off=0.1) if vit else None
+        if vit:
+            aq, sa = lin.quantize_activations(a)
+            y = lin.int8_matmul(aq, p["kernel_q"].t()).float() * sa * p["scale"].float()
+            p["bias"] = randn(N, scale=float(y.std()))
+            del y
+        xn, q, rs = qm.attn_proj_glue_quant(a, x, p, ls, gamma)
+        torch.cuda.synchronize()
+        ref = dict(zip(("x", "codes", "rs"), qm.attn_proj_glue_quant_plain(a, x, p, ls, gamma)))
+        tag = f"K11 attn_proj_glue_quant M={M} N={N}"
+        st = check_quant(tag, {"x": xn, "codes": q, "rs": rs}, ref)
+        cases = [("residual skipped", lambda: qm.attn_proj_glue_quant_plain(a, torch.zeros_like(x), p, ls, gamma))]
+        if vit:
+            nob = {k: v for k, v in p.items() if k != "bias"}
+            cases += [("LayerScale dropped", lambda: qm.attn_proj_glue_quant_plain(a, x, p, None, gamma)),
+                      ("bias dropped", lambda: qm.attn_proj_glue_quant_plain(a, x, nob, ls, gamma))]
+        faults = {f: quant_fault_caught(tag, f, dict(zip(("x", "codes", "rs"), fn())), ref) for f, fn in cases}
+        faults["the bf16-rounded norm quantized"] = quant_fault_caught(
+            tag, "the bf16-rounded norm quantized", {"x": ref["x"], **unfused(ref["x"], gamma)}, ref)
+        aq, _ = lin.quantize_activations(a)
+        parts.append(dict(
+            launches=n_launch, stats=st, faults=faults, shape=f"M={M} N=K={N}",
+            ms=time_ms(lambda: qm.attn_proj_glue_quant(a, x, p, ls, gamma)),
+            plain_ms=time_ms(lambda: qm.attn_proj_glue_quant_plain(a, x, p, ls, gamma), iters=5, warmup=1),
+            library_ms=time_ms(lambda: torch._int_mm(aq, p["kernel_q"].t())),
+            ops=2.0 * M * N * N, nbytes=M * N * 2 * 3 + N * N + M * N + 4 * N * 2 + M * 4))
+        del a, x, xn, q, ref, aq, p
+    total = sum(pt["launches"] for pt in parts)
+
+    def mean(key):
+        return sum(pt[key] * pt["launches"] for pt in parts) / total
+
+    worst = max((pt["stats"] for pt in parts), key=lambda st: (st["code_max_diff"], -st["code_equal"]))
+    row("attn_proj_glue_quant", "omchat_torch/csrc/proj_glue_quant.cu", "omchat_tpu/ops/quant_matmul.py:255",
+        worst, {f"{pt['shape']}: {f}": d for pt in parts for f, d in pt["faults"].items()}, mean("ms"),
+        mean("plain_ms"), mean("library_ms"), mean("ops"), mean("nbytes"),
+        "; ".join(f"{pt['shape']} x{pt['launches']}: {pt['ms']:.4f} ms, plain {pt['plain_ms']:.4f}, "
+                  f"_int_mm {pt['library_ms']:.4f}, bound {bound_ms(pt['ops'], pt['nbytes'], PEAK_INT8_OPS)[0]:.4f}"
+                  for pt in parts) + " (launch-weighted means)")
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def w8a8_kernel_vs_plain(seed: int) -> dict:
+    """Phase 12: the model at full width and 2 ViT + 2 LLM layers; first-token
+    logits of the w8a8 model through the glue kernels and through
+    ``attn_impl="plain"`` (the unfused w8a8 chain, plain attention), and of
+    the bf16 model through the plain route."""
+    import torch
+
+    from omchat_torch import api
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    full = OmChatConfig()
+    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_hidden_layers=2),
+                              text=dataclasses.replace(full.text, num_hidden_layers=2))
+    bf16 = build_model(cfg, seed)
+    cfg8, params = api.quantize_model(cfg, bf16, w8a8=True)
+    ids, tiles = make_request(cfg, seed)
+    logits = {}
+    for key, c, p, impl in (("kernels", cfg8, params, None), ("plain", cfg8, params, "plain"),
+                            ("bf16_plain", cfg, bf16, "plain")):
+        eng = OmChatEngine(c, p, attn_impl=impl, image_cache_size=0)
+        logits[key], _ = eng.prefill(eng.plan([ids]), eng.encode_images(tiles), 32)
+    torch.cuda.synchronize()
+    got, ref = logits["kernels"], logits["plain"]
+    diff, top = float((got - ref).abs().max()), float(ref.abs().max())
+    quant = float((ref - logits["bf16_plain"]).abs().max())
+    res = {"logits_max_abs_diff": diff, "logits_max_abs": top, "rel": diff / top,
+           "w8a8_vs_bf16_max_abs_diff": quant, "argmax_equal": bool(torch.equal(got.argmax(-1), ref.argmax(-1)))}
+    log("w8a8 kernels vs plain (2 ViT + 2 LLM layers, full width): " + json.dumps(res))
+    if not torch.isfinite(got).all() or diff > quant:
+        raise AssertionError(f"w8a8 kernels vs plain: logits differ by {diff:.4g}, more than w8a8 moves the plain "
+                             f"chain from bf16 ({quant:.4g})")
+    del params, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -1064,16 +1476,35 @@ def main() -> int:
     paged_rows = paged_kernel_phases(gen, timed)
     paged_parity(args.seed)
 
+    cfg8, params8, _ = quantize_full_model(args.seed)
+    shapes8, undo = record_w8a8_launches()
+    try:
+        e2e8 = end_to_end(args.seed, model=(cfg8, params8), counted={**counters(), **w8a8_counters()},
+                          label="w8a8 e2e")
+    finally:
+        undo()
+    log("w8a8 kernel shapes (timed and warm-up runs, launches per shape): "
+        + json.dumps({n: {str(k): v for k, v in d.items()} for n, d in shapes8.items()}))
+    bf16_vs_w8a8 = {k: [e2e[k], e2e8[k]] for k in ("ttft_ms", "vit_ms", "prefill_ms", "decode_tokens_per_s",
+                                                   "peak_mem_gib")}
+    log("bf16 vs w8a8, single request (this call): " + json.dumps(bf16_vs_w8a8))
+    w8a8_serving(cfg8, params8)
+    del params8
+    w8a8_rows = w8a8_kernel_phases(gen, shapes8)
+    w8a8_kernel_vs_plain(args.seed)
+
     # each kernel's launches on its own main path: K1-K4 on the single-image
-    # request (phase 3), K12, K14 and K15 in the timed serving run (phase 5)
+    # request (phase 3), K12, K14 and K15 in the timed serving run (phase 5),
+    # K7, K8, K9 and K11 on the w8a8 single-image request (phase 9)
     launches = {**e2e["launches"], **{n: serve["launches"][n] for n in
-                                      ("paged_flash_decode", "paged_flash_prefill", "commit_pages")}}
+                                      ("paged_flash_decode", "paged_flash_prefill", "commit_pages")},
+                **{n: e2e8["launches"][n] for n in w8a8_counters()}}
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
-    } for r in rows + paged_rows]
+    } for r in rows + paged_rows + w8a8_rows]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

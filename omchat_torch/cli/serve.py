@@ -1,7 +1,7 @@
 """Thin OpenAI-style HTTP server over the paged continuous-batching engine —
 the port's counterpart of ``cli/serve.py --paged``.
 
-    python -m omchat_torch.cli.serve --model-path CKPT [--port 8000] [--device cuda]
+    python -m omchat_torch.cli.serve --model-path CKPT [--port 8000] [--device cuda] [--int8 | --w8a8]
 
 Serves ``GET /health`` and non-streaming ``POST /v1/chat/completions`` (text
 and base64 ``image_url`` content parts; ``max_tokens``, ``temperature``,
@@ -256,6 +256,10 @@ def main(argv=None):
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default="cuda", help="cuda (default; raises without a GPU) or cpu (plain PyTorch path)")
+    ap.add_argument("--int8", action="store_true", help="int8 weight-only quantization")
+    ap.add_argument("--w8a8", action="store_true",
+                    help="w8a8 serving mode: int8 activations and weights for the ViT encode and the prefills "
+                         "(implies --int8; calibrates static fc1 scales at load)")
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--num-pages", type=int, default=1024)
     ap.add_argument("--page-size", type=int, default=128)
@@ -269,7 +273,7 @@ def main(argv=None):
     from omchat_torch.api import load_pretrained_model, paged_batch_engine
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    model = load_pretrained_model(args.model_path, device=args.device)
+    model = load_pretrained_model(args.model_path, quantize_int8=args.int8, w8a8=args.w8a8, device=args.device)
     engine = paged_batch_engine(
         model, max_slots=args.max_slots, num_pages=args.num_pages, page_size=args.page_size, max_len=args.max_len,
         decode_roll=args.decode_roll, prefill_chunk=args.prefill_chunk, image_cache_size=args.image_cache,

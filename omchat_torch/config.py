@@ -47,8 +47,8 @@ class VisionConfig:
     attention_dropout: float = 0.0
     dropout: float = 0.0
     # Serving mode (not an HF checkpoint key): int8×int8 matmuls with dynamic
-    # per-token activation quantization.  Kept so configs round-trip; the
-    # port's w8a8 path comes in a later slice.
+    # per-token activation quantization (the ViT encode; see
+    # models/intern_vit.py).
     w8a8: bool = False
 
     @property

@@ -7,8 +7,16 @@
 
 Params are a dict of tensors in the JAX package's layout (per-layer tensors
 stacked on a leading layer axis, linear kernels [in, out]) except the patch
-conv, which is OIHW for ``F.conv2d``.  The w8a8 glue scan and the fc1
-calibration come with the w8a8 slice.
+conv, which is OIHW for ``F.conv2d``, and quantized int8 kernels, which are
+[out, in] (:mod:`omchat_torch.ops.linear`).
+
+w8a8 (``cfg.w8a8`` with quantized params): the matmuls run int8 x int8 with
+per-token activation quantization and the MLP takes the tanh GELU.  On the
+packed path the stack runs as the glue scan (:func:`_layer_forward_glue`):
+each layer hands the next its residual stream plus the int8 codes and row
+scales of its normed value, so every residual + norm + quantize is one fused
+pass (K8, K11) and fc1 writes int8 codes (K9, with the static scales of
+:func:`calibrate_fc1_scales`).
 """
 
 from __future__ import annotations
@@ -23,9 +31,10 @@ import torch.nn.functional as F
 from omchat_torch.config import VisionConfig
 from omchat_torch.ops.attention import PLAIN, attention
 from omchat_torch.ops.flash_attention import packed_prescale, packed_qkv_norm_attention, packed_seq_supported
-from omchat_torch.ops.linear import dense
+from omchat_torch.ops.linear import dense, dense_prequant, div127, gelu_tanh, quantize_activations
+from omchat_torch.ops.norms import add_rmsnorm_quant, apply_norm, rms_norm
+from omchat_torch.ops.quant_matmul import attn_proj_glue_quant, fc1_gelu_quant, proj_glue_supported
 from omchat_torch.utils.tree import layer_slice
-from omchat_torch.ops.norms import apply_norm, rms_norm
 
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -110,16 +119,19 @@ def _layer_forward(
     *,
     attn_impl: Optional[str],
     fused_valid_len: Optional[int] = None,
-) -> torch.Tensor:
+    with_fc1_amax: bool = False,
+):
     """One pre-norm block: x + ls1*attn(norm1(x)); x + ls2*mlp(norm2(x)).
 
     ``fused_valid_len`` selects the packed path: q/k/v stay in the
     [B, SP, 3*H*D] layout the qkv matmul writes and rows >= fused_valid_len
-    are padding."""
+    are padding.  ``with_fc1_amax`` also returns max |gelu(fc1(.))| (the
+    calibration pass)."""
     b, n, d = x.shape
     h, hd = cfg.num_attention_heads, cfg.head_dim
+    a8 = cfg.w8a8
     y = apply_norm(x, layer["norm1"], cfg.layer_norm_eps)
-    qkv = dense(y, layer["attn"]["qkv"])
+    qkv = dense(y, layer["attn"]["qkv"], a8=a8)
     if fused_valid_len is not None:
         attn_out = _attention_fused(cfg, layer, qkv, fused_valid_len)
     else:
@@ -131,10 +143,39 @@ def _layer_forward(
         k = k.reshape(b, n, h, hd)
         v = v.reshape(b, n, h, hd)
         attn_out = attention(q, k, v, causal=False, impl=attn_impl).reshape(b, n, d)
-    x = x + dense(attn_out, layer["attn"]["proj"]) * layer["ls1"]
+    x = x + dense(attn_out, layer["attn"]["proj"], a8=a8) * layer["ls1"]
     y = apply_norm(x, layer["norm2"], cfg.layer_norm_eps)
-    y = dense(F.gelu(dense(y, layer["mlp"]["fc1"])), layer["mlp"]["fc2"])  # exact erf GELU
-    return x + y * layer["ls2"]
+    # exact erf GELU, except in w8a8 on quantized params: the tanh form, whose
+    # output is re-quantized at once (the JAX package's choice)
+    hid = dense(y, layer["mlp"]["fc1"], a8=a8)
+    hid = gelu_tanh(hid) if a8 and "kernel_q" in layer["mlp"]["fc1"] else F.gelu(hid)
+    x = x + dense(hid, layer["mlp"]["fc2"], a8=a8) * layer["ls2"]
+    if with_fc1_amax:
+        return x, hid.float().abs().amax()
+    return x
+
+
+def _layer_forward_glue(cfg: VisionConfig, carry: tuple, layer: dict, *, valid_len: int) -> tuple:
+    """w8a8 packed-path block.  The carry is (x, int8 codes of norm1(x), row
+    scales); ``layer["next_norm1_scale"]`` is the next layer's norm1 gamma,
+    so the carry always holds the quantized input of the next matmul."""
+    x, xq, rs = carry
+    eps = cfg.layer_norm_eps
+    qkv = dense_prequant(xq, rs, layer["attn"]["qkv"], dtype=x.dtype)
+    attn_out = _attention_fused(cfg, layer, qkv, valid_len)
+    proj = layer["attn"]["proj"]
+    n_out, k_in = proj["kernel_q"].shape
+    if proj_glue_supported(k_in, n_out):  # K11: the bf16 proj output never reaches memory
+        x, xq, rs = attn_proj_glue_quant(attn_out, x, proj, layer["ls1"], layer["norm2"]["scale"], eps)
+    else:
+        x, xq, rs = add_rmsnorm_quant(x, dense(attn_out, proj, a8=True), layer["ls1"], layer["norm2"]["scale"], eps)
+    mlp = layer["mlp"]
+    if "fc1_out_scale" in mlp:  # static scale: fc1 writes int8 codes only (K9)
+        codes = fc1_gelu_quant(xq, rs, mlp["fc1"], mlp["fc1_out_scale"])
+        y = dense_prequant(codes, mlp["fc1_out_scale"], mlp["fc2"], dtype=x.dtype)
+    else:
+        y = dense(gelu_tanh(dense_prequant(xq, rs, mlp["fc1"], dtype=x.dtype)), mlp["fc2"], a8=True)
+    return add_rmsnorm_quant(x, y, layer["ls2"], layer["next_norm1_scale"], eps)
 
 
 def intern_vit_forward(
@@ -165,9 +206,45 @@ def intern_vit_forward(
     n_run = num_layers + 1 + feature_layer if feature_layer < 0 else feature_layer
     n_run = max(0, min(num_layers, n_run))
     layers = params["layers"]
-    for i in range(n_run):
-        x = _layer_forward(cfg, x, layer_slice(layers, i), attn_impl=attn_impl, fused_valid_len=s if fused else None)
+    # w8a8 + packed path + RMSNorm + quantized params: the glue scan (a8 on
+    # unquantized params stays a no-op, as dense() promises)
+    glue = (fused and cfg.w8a8 and "bias" not in layers["norm1"] and n_run > 0
+            and "kernel_q" in layers["attn"]["qkv"])
+    if glue:
+        next_norm1 = torch.roll(layers["norm1"]["scale"][:n_run], -1, dims=0)
+        carry = (x, *quantize_activations(rms_norm(x, layers["norm1"]["scale"][0], cfg.layer_norm_eps)))
+        for i in range(n_run):
+            layer = layer_slice(layers, i)
+            layer["next_norm1_scale"] = next_norm1[i]
+            carry = _layer_forward_glue(cfg, carry, layer, valid_len=s)
+        x = carry[0]
+    else:
+        for i in range(n_run):
+            x = _layer_forward(cfg, x, layer_slice(layers, i), attn_impl=attn_impl,
+                               fused_valid_len=s if fused else None)
     return x[:, :s] if sp != s else x
+
+
+@torch.no_grad()
+def calibrate_fc1_scales(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor,
+                         attn_impl: Optional[str] = None) -> dict:
+    """Per-layer static fc1-output scales for the quantizing fc1 epilogue.
+
+    Runs the whole tower on a calibration batch through the unfused w8a8 path
+    (``cfg.w8a8`` set, params quantized) and records each layer's amax of
+    ``gelu(fc1(.))``; the scale amax/127 clips nothing seen here.  Returns a
+    new params dict with ``layers.mlp.fc1_out_scale`` [L] fp32 set — the glue
+    scan picks it up."""
+    x = embeddings(params, cfg, pixel_values)
+    amax = []
+    for i in range(cfg.num_hidden_layers):
+        x, a = _layer_forward(cfg, x, layer_slice(params["layers"], i), attn_impl=attn_impl, with_fc1_amax=True)
+        amax.append(a)
+    scales = div127(torch.stack(amax).float().clamp(min=1e-6))
+    out = dict(params)
+    out["layers"] = dict(params["layers"])
+    out["layers"]["mlp"] = {**params["layers"]["mlp"], "fc1_out_scale": scales}
+    return out
 
 
 def feature_select(hidden: torch.Tensor, strategy: str = "default") -> torch.Tensor:

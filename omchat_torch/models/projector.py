@@ -2,8 +2,9 @@
 
 Types linear, mlpNx_gelu and identity (reference builder.py:39-66); the
 flagship checkpoint's projector is Linear(3200→3584) + GELU +
-Linear(3584→3584) (``linear_1``/``linear_2``).  cabstract and the MoE-LLaVA
-sparse projector come with a later slice.
+Linear(3584→3584) (``linear_1``/``linear_2``).  Quantized linears run
+weight-only int8 through ``dense``, in w8a8 too, as in the JAX package.
+cabstract and the MoE-LLaVA sparse projector come with a later slice.
 """
 
 from __future__ import annotations

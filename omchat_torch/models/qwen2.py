@@ -13,8 +13,14 @@ tensor pair [L, B, KVH, T, D].
   rows in place (:func:`commit_decode_rows`, kernel K4).
 
 The port updates the cache in place where the JAX package returns a new one
-(saves a copy of the whole cache per call).  LoRA banks and the w8a8 glue
-layer come with later slices.
+(saves a copy of the whole cache per call).
+
+w8a8 (``cfg.w8a8``): prefill calls (S > 1) run the matmuls int8 x int8 with
+per-token activation quantization; the decode step (S == 1) stays
+weight-only int8.  With ``quant_glue`` (every route but ``attn_impl="plain"``)
+and quantized params a prefill layer is :func:`_decoder_layer_glue`: the
+input norm writes int8 codes (K7) and o_proj rides the residual + norm +
+quantize pass (K11).  LoRA banks come with a later slice.
 """
 
 from __future__ import annotations
@@ -26,9 +32,10 @@ import torch.nn.functional as F
 
 from omchat_torch.config import TextConfig
 from omchat_torch.ops.attention import PLAIN, attention, decode_attention
-from omchat_torch.ops.linear import dense
-from omchat_torch.ops.norms import rms_norm
+from omchat_torch.ops.linear import dense, dense_prequant
+from omchat_torch.ops.norms import rms_norm, rmsnorm_quant
 from omchat_torch.ops.paged_attention import commit_rows, commit_rows_plain
+from omchat_torch.ops.quant_matmul import attn_proj_glue_quant, proj_glue_supported, swiglu_quant
 from omchat_torch.ops.rope import apply_rope, rope_cos_sin
 from omchat_torch.utils.tree import layer_slice
 
@@ -49,34 +56,88 @@ def init_kv_cache(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat1
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device), v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _mlp(y: torch.Tensor, p: dict) -> torch.Tensor:
+def _mlp(y: torch.Tensor, p: dict, a8: bool = False) -> torch.Tensor:
     """SwiGLU: down(silu(gate(y)) * up(y))."""
-    return dense(F.silu(dense(y, p["gate_proj"])) * dense(y, p["up_proj"]), p["down_proj"])
+    g = dense(y, p["gate_proj"], a8=a8)
+    u = dense(y, p["up_proj"], a8=a8)
+    return dense(F.silu(g) * u, p["down_proj"], a8=a8)
 
 
-def attention_inputs(cfg: TextConfig, y, p: dict, cos, sin):
+def _mlp_prequant(yq, yrs, p: dict, dtype) -> torch.Tensor:
+    """SwiGLU over pre-quantized activations (the glue path): gate and up
+    from the codes, the bf16 intermediate quantized again per token for
+    down_proj.  A calibrated ``swiglu_out_scale`` would take K10, which is
+    not ported yet."""
+    if "swiglu_out_scale" in p:
+        return swiglu_quant(yq, yrs, p["gate_proj"], p["up_proj"], p["swiglu_out_scale"])
+    g = dense_prequant(yq, yrs, p["gate_proj"], dtype=dtype)
+    u = dense_prequant(yq, yrs, p["up_proj"], dtype=dtype)
+    return dense(F.silu(g) * u, p["down_proj"], a8=True)
+
+
+def quant_glue_ok(attn_impl) -> bool:
+    """Whether prefill takes the fused glue kernels: every route but the
+    plain reference (the JAX package's ``attn_impl="xla"``, which runs the
+    unfused chain)."""
+    return attn_impl != PLAIN
+
+
+def attention_inputs(cfg: TextConfig, y, p: dict, cos, sin, a8: bool = False):
     """q/k/v projections + RoPE.  y: [B, S, D] (normed) → q [B, S, H, hd],
     k/v [B, S, KVH, hd]."""
     b, s, _ = y.shape
     h, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.attn_head_dim
-    q = dense(y, p["q_proj"]).reshape(b, s, h, hd)
-    k = dense(y, p["k_proj"]).reshape(b, s, kvh, hd)
-    v = dense(y, p["v_proj"]).reshape(b, s, kvh, hd)
+    q = dense(y, p["q_proj"], a8=a8).reshape(b, s, h, hd)
+    k = dense(y, p["k_proj"], a8=a8).reshape(b, s, kvh, hd)
+    v = dense(y, p["v_proj"], a8=a8).reshape(b, s, kvh, hd)
     q, k = apply_rope(q, k, cos, sin)
     return q, k, v
 
 
-def decoder_layer(cfg: TextConfig, x, layer: dict, cos, sin, attend):
+def decoder_layer(cfg: TextConfig, x, layer: dict, cos, sin, attend, *, quant_glue: bool = False):
     """One decoder layer.  ``attend(q, k, v) -> ctx [B, S, H, hd]`` owns the
     cache handling (prefill write + causal attention, or the decode self
-    column)."""
+    column).  ``quant_glue``: w8a8 prefill layers over quantized params take
+    the fused glue path (:func:`_decoder_layer_glue`)."""
     b, s, _ = x.shape
+    # w8a8 serves the compute-bound prefill; the one-token decode step keeps
+    # the weight-only int8 path
+    a8 = cfg.w8a8 and s > 1
+    attn_p = layer["self_attn"]
+    if quant_glue and a8 and "kernel_q" in attn_p["q_proj"] and "kernel_q" in attn_p["o_proj"]:
+        return _decoder_layer_glue(cfg, x, layer, cos, sin, attend)
     y = rms_norm(x, layer["input_layernorm"]["scale"], cfg.rms_norm_eps)
-    q, k, v = attention_inputs(cfg, y, layer["self_attn"], cos, sin)
+    q, k, v = attention_inputs(cfg, y, attn_p, cos, sin, a8)
     ctx = attend(q, k, v)
-    x = x + dense(ctx.reshape(b, s, -1), layer["self_attn"]["o_proj"])
+    x = x + dense(ctx.reshape(b, s, -1), attn_p["o_proj"], a8=a8)
     y = rms_norm(x, layer["post_attention_layernorm"]["scale"], cfg.rms_norm_eps)
-    return x + _mlp(y, layer["mlp"])
+    return x + _mlp(y, layer["mlp"], a8)
+
+
+def _decoder_layer_glue(cfg: TextConfig, x, layer: dict, cos, sin, attend):
+    """w8a8 prefill layer on the fused glue kernels: the input norm writes
+    only int8 codes (K7); o_proj, the residual, the post-attention norm and
+    its quantization are one pass (K11) when o_proj is square, else a w8a8
+    o_proj and K7.  Matches the unfused w8a8 layer to ±1 int8 code per
+    quantization point."""
+    b, s, _ = x.shape
+    eps = cfg.rms_norm_eps
+    attn_p = layer["self_attn"]
+    xq, xrs = rmsnorm_quant(x, layer["input_layernorm"]["scale"], eps)
+    h, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.attn_head_dim
+    q = dense_prequant(xq, xrs, attn_p["q_proj"], dtype=x.dtype).reshape(b, s, h, hd)
+    k = dense_prequant(xq, xrs, attn_p["k_proj"], dtype=x.dtype).reshape(b, s, kvh, hd)
+    v = dense_prequant(xq, xrs, attn_p["v_proj"], dtype=x.dtype).reshape(b, s, kvh, hd)
+    q, k = apply_rope(q, k, cos, sin)
+    o = attend(q, k, v).reshape(b, s, -1)
+    post_gamma = layer["post_attention_layernorm"]["scale"]
+    n_out, k_in = attn_p["o_proj"]["kernel_q"].shape
+    if proj_glue_supported(k_in, n_out):
+        x, yq, yrs = attn_proj_glue_quant(o, x, attn_p["o_proj"], None, post_gamma, eps)
+    else:
+        x = x + dense(o, attn_p["o_proj"], a8=True)
+        yq, yrs = rmsnorm_quant(x, post_gamma, eps)
+    return x + _mlp_prequant(yq, yrs, layer["mlp"], x.dtype)
 
 
 def cache_attend(attn_impl, write_pos, starts, kv_len, k_cache, v_cache, q, k, v):
@@ -182,7 +243,8 @@ def qwen2_forward(
             def attend(q, k, v, kc=kc, vc=vc):
                 return cache_attend(attn_impl, write_pos, starts, kv_len, kc, vc, q, k, v)
 
-            x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend)
+            x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend,
+                              quant_glue=quant_glue_ok(attn_impl))
     return rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps), cache
 
 

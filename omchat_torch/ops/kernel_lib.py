@@ -35,6 +35,9 @@ SOURCES = (
     "paged_flash_decode.cu",
     "paged_flash_prefill.cu",
     "commit_pages.cu",
+    "norm_quant.cu",
+    "fc1_gelu_quant.cu",
+    "proj_glue_quant.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -7,7 +7,9 @@ trunk for one token against the read-only cache and commits the new rows
 once.  Encoded images go through an LRU feature cache
 (:mod:`omchat_torch.runtime.feature_cache`).  The paged serving engine
 (:mod:`omchat_torch.runtime.paged_engine`) reuses :meth:`OmChatEngine.plan`
-and :meth:`OmChatEngine.prefill` for its contiguous prefills.  ``generate``
+and :meth:`OmChatEngine.prefill` for its contiguous prefills.  On int8
+params (``api.quantize_model``) with ``cfg.w8a8`` the encode and prefill run
+the w8a8 glue kernels and decode stays weight-only int8.  ``generate``
 decodes greedily; logprobs, penalties, constrained and speculative decoding,
 chunked prefill and the on-device decode loop come with later slices.
 """

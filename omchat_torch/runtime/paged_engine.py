@@ -21,6 +21,10 @@ table.  One :meth:`PagedBatchEngine.step` (a scheduler tick):
    read-only (K12 with the in-flight token as a self column) and commits all
    layers' new rows once (K4); the tokens come back to the host once per roll.
 
+Under w8a8 (``cfg.w8a8`` with int8 params) the short prefills and the
+chunks run the glue layer of :func:`~omchat_torch.models.qwen2.decoder_layer`
+(K7, K11) and the ViT its glue scan; decode rolls stay weight-only int8.
+
 The pools are updated in place (the counterpart of the JAX package's buffer
 donation).  ``attn_impl``: None runs the hand-written kernels on CUDA tensors
 (their plain versions on CPU tensors); ``"plain"`` the plain reference
@@ -48,7 +52,7 @@ import torch
 
 from omchat_torch.config import OmChatConfig
 from omchat_torch.models.omchat import fuse_embeddings
-from omchat_torch.models.qwen2 import decoder_layer, embed_tokens, lm_head
+from omchat_torch.models.qwen2 import decoder_layer, embed_tokens, lm_head, quant_glue_ok
 from omchat_torch.ops.attention import PLAIN
 from omchat_torch.ops.norms import rms_norm
 from omchat_torch.ops.paged_attention import (
@@ -215,7 +219,7 @@ def _paged_prefill_chunk(params, cfg: OmChatConfig, token_ids, is_image, image_i
             vp[pages] = v.reshape(b * n_chunk, page_size, kvh, hd).transpose(1, 2).to(vp.dtype)
             return paged_prefill_attention(q, kp, vp, kv_len, tab, q_off, impl=attn_impl)
 
-        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend)
+        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl))
     last_idx = torch.as_tensor(np.maximum(chunk_len - 1, 0), dtype=torch.long, device=dev)
     last = x[torch.arange(b, device=dev), last_idx]  # [B, D]
     return lm_head(lm, tc, rms_norm(last, lm["norm"]["scale"], tc.rms_norm_eps))

@@ -12,7 +12,11 @@ the card from the repository root:
 
 Inputs are bf16; tolerance atol = rtol = 2e-2 (bf16 rounding of p and of the
 output, sums in another order), except the row and page commits, which are
-bitwise.
+bitwise.  The w8a8 kernels (K7 rmsnorm_quant, K8 add_rmsnorm_quant, K9 fc1 +
+GELU + quantize, K11 proj glue) at M not a tile multiple, M <= 16 and rows of
+all zeros (the 1e-6 floor of the row scale): int8 codes within one of the
+plain version's and at least 99% equal (fp32 sums in another order), row
+scales rtol 1e-5, x' bitwise for K8 and within one bf16 ulp for K11.
 """
 
 import pytest
@@ -20,7 +24,9 @@ import torch
 
 from omchat_torch.ops import decode_attention as da
 from omchat_torch.ops import flash_attention as fa
+from omchat_torch.ops import norms
 from omchat_torch.ops import paged_attention as pa
+from omchat_torch.ops import quant_matmul as qm
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -214,3 +220,75 @@ def test_commit_pages_kernel_is_bitwise_in_place_with_duplicate_parking(gen):
         park = pool_k[li * (P + 1) + P].reshape(-1, 8)
         cands = chunks[(pages == li * (P + 1) + P).nonzero()[:, 0]].reshape(-1, park.shape[0], 8)
         assert bool((park[None] == cands).all(dim=-1).any(dim=0).all())
+
+
+def _codes_close(got, want):
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d == 0).float().mean()) >= 0.99
+
+
+def _within_ulp(got, want):
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=1e-30))) - 7)
+    assert bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("rows,D", [(1, 64), (5, 3584), (130, 3200)])
+def test_rmsnorm_quant_kernels(gen, rows, D):
+    x, gamma = _randn(gen, rows, D), (1 + 0.1 * _randn(gen, D).float()).bfloat16()
+    x[0] = 0  # the scale floor: max(0, 1e-6) / 127, codes 0
+    n7, n8 = norms.rmsnorm_quant.launches, norms.add_rmsnorm_quant.launches
+    q, rs = norms.rmsnorm_quant(x, gamma)
+    torch.cuda.synchronize()
+    qp, rp = norms.rmsnorm_quant_plain(x, gamma)
+    _codes_close(q, qp)
+    torch.testing.assert_close(rs, rp, rtol=1e-5, atol=0)
+    assert float(rs[0, 0]) == pytest.approx(1e-6 / 127) and not q[0].any()
+    delta, ls = _randn(gen, rows, D), (0.1 * _randn(gen, D).float()).bfloat16()
+    delta[0] = 0
+    for scale in (ls, None):
+        xn, q, rs = norms.add_rmsnorm_quant(x, delta, scale, gamma)
+        torch.cuda.synchronize()
+        xp, qp, rp = norms.add_rmsnorm_quant_plain(x, delta, scale, gamma)
+        assert torch.equal(xn, xp)
+        _codes_close(q, qp)
+        torch.testing.assert_close(rs, rp, rtol=1e-5, atol=0)
+    assert (norms.rmsnorm_quant.launches, norms.add_rmsnorm_quant.launches) == (n7 + 1, n8 + 2)
+
+
+def _qlinear(gen, n, k, bias):
+    p = {"kernel_q": torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8),
+         "scale": (torch.rand(n, generator=gen, device="cuda") * 4e-4 + 1e-4).bfloat16()}
+    if bias:
+        p["bias"] = (0.05 * _randn(gen, n).float()).bfloat16()
+    return p
+
+
+@pytest.mark.parametrize("M,K,N,bias", [(13, 256, 384, True), (300, 256, 384, False), (129, 3200, 1280, True)])
+def test_fc1_gelu_quant_kernel(gen, M, K, N, bias):
+    xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+    xq[1] = 0  # a row of zeros: h is the bias alone
+    rs = torch.rand((M, 1), generator=gen, device="cuda") * 0.01 + 1e-3
+    p = _qlinear(gen, N, K, bias)
+    os_ = torch.tensor(0.02, device="cuda")
+    n0 = qm.dense_prequant_gelu_quant_cuda.launches
+    out = qm.fc1_gelu_quant(xq, rs, p, os_)
+    torch.cuda.synchronize()
+    assert qm.dense_prequant_gelu_quant_cuda.launches == n0 + 1 and out.shape == (M, N)
+    _codes_close(out, qm.dense_prequant_gelu_quant_plain(xq, rs, p, os_))
+
+
+@pytest.mark.parametrize("M,K,bias,ls", [(7, 256, True, True), (70, 384, False, True), (33, 3584, False, False)])
+def test_attn_proj_glue_quant_kernel(gen, M, K, bias, ls):
+    a, x = (0.5 * _randn(gen, M, K).float()).bfloat16(), _randn(gen, M, K)
+    a[1] = 0  # the row scale floor on the attention output
+    p = _qlinear(gen, K, K, bias)
+    scale = (0.05 + 0.1 * _randn(gen, K).float()).bfloat16() if ls else None
+    gamma = (1 + 0.1 * _randn(gen, K).float()).bfloat16()
+    n0 = qm.attn_proj_glue_quant.launches
+    xn, q, rs = qm.attn_proj_glue_quant(a, x, p, scale, gamma)
+    torch.cuda.synchronize()
+    assert qm.attn_proj_glue_quant.launches == n0 + 1
+    xp, qp, rp = qm.attn_proj_glue_quant_plain(a, x, p, scale, gamma)
+    _within_ulp(xn, xp)
+    _codes_close(q, qp)
+    torch.testing.assert_close(rs, rp, rtol=1e-5, atol=0)
