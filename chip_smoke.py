@@ -78,6 +78,20 @@
     the wrong kv head, the causal mask ignored or shifted), each of which
     must fall outside a limit in one comparison; then two full-parameter
     stage-2 steps, whose backward runs K16b/K16c through the ViT too.
+17. The fp8 KV cache's kernels: K13 (the manual-copy paged decode) over a
+    bf16 and an e4m3 pool and the e4m3 variants of K12 and K14 at what phase
+    5 handed K12 and K14, of K2 and K3 at phase 2's shapes, against their
+    plain versions with phase 6's planted keys; planted faults (a page-table
+    entry off by one, the self column or p rounded to e4m3, phase 6's) must
+    fall outside the limits.  The e4m3 stores of K4 and K15 bitwise at those
+    shapes, and on all 65536 bf16 bit patterns against ``ops.fp8.to_e4m3``.
+18. Serving at full width and depth, phase 5's workload, three more runs:
+    bf16 pool on K13, e4m3 pool on K12, e4m3 pool on K13 (pool GiB, the
+    first step leaving phase 5's tokens); then phase 3's request with an
+    e4m3 cache (TTFT, decode tokens/s, peak GiB).
+19. fp8 at full width and 2+2 layers: first-token logits, e4m3 vs bf16 cache
+    and kernels vs plain on e4m3, within FP8_LOGIT_GAP_REL of max |logit|; a
+    fault planted in K2 (q heads on the next kv head) must fall outside.
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -145,6 +159,15 @@ PACKED_ROWS, PACKED_DOCS = 4096, ((0, 700), (700, 1900), (1900, 2600), (2600, 39
 # (projector / LoRA); faults planted in K16a/b/c read loss 2.7e-4 and up
 # (forward faults; backward ones leave the loss) and gradients 0.12 and up.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-4, 5e-2
+# Phase 17, the fp8 KV cache: K2 over an e4m3 cache rounds p to e4m3 (as the
+# TPU kernel's p.astype(v.dtype)) against the running row max, its plain version
+# against the row's global max; p below 2^-6 lands on e4m3's subnormal steps, so
+# the two differ by a few per cent of the output (the TPU kernel and its XLA
+# reference differ alike).  The other e4m3 variants keep their bf16 limits.
+K2_E4M3_TOL = (5e-2, 5e-2)
+# Phase 19, first-token logits at 2+2 layers: e4m3 cache vs bf16 cache, and
+# kernels vs plain on the e4m3 cache, each within this share of max |logit|.
+FP8_LOGIT_GAP_REL = 0.15
 # Phase 12, w8a8 prefill through the glue kernels vs attn_impl="plain" (the
 # unfused chain): the first-token logits may differ by no more than w8a8
 # quantization itself moves the plain chain's from the bf16 model's, measured in
@@ -489,9 +512,11 @@ def counters():
     }
 
 
-def end_to_end(seed: int, new_tokens: int = NEW_TOKENS, model=None, counted=None, label: str = "e2e") -> dict:
+def end_to_end(seed: int, new_tokens: int = NEW_TOKENS, model=None, counted=None, label: str = "e2e",
+               cache_dtype=None) -> dict:
     """Phase 3 (bf16, its own model) or, with ``model`` = (cfg, params) and
-    the kernels that must launch in ``counted``, phase 9 (w8a8)."""
+    the kernels that must launch in ``counted``, phase 9 (w8a8) and phase 18
+    (``cache_dtype`` e4m3: the fp8 KV cache)."""
     import torch
 
     from omchat_torch.config import GenerationConfig, OmChatConfig
@@ -508,7 +533,8 @@ def end_to_end(seed: int, new_tokens: int = NEW_TOKENS, model=None, counted=None
         cfg, params = model
     counted = counted or counters()
     ids, tiles = make_request(cfg, seed)
-    engine = OmChatEngine(cfg, params, image_cache_size=0)  # the timed run encodes its image again
+    # no image cache: the timed run encodes its image again
+    engine = OmChatEngine(cfg, params, image_cache_size=0, cache_dtype=cache_dtype)
     gen = GenerationConfig(max_new_tokens=new_tokens, eos_token_id=-1)  # no early stop on random weights
 
     bad = []
@@ -764,6 +790,7 @@ def timed_serving(eng, work, rec, counts: dict, label: str) -> dict:
         "pages_free": eng.allocator.available, "launches": launches,
     }
     log(f"{label}: " + json.dumps(res))
+    res["tokens"] = [t for t, _ in done]
     short = [i for i, (t, _) in enumerate(done) if len(t) != SERVING_NEW_TOKENS]
     if short:
         raise AssertionError(f"{label}: requests {short} did not return {SERVING_NEW_TOKENS} tokens")
@@ -1951,6 +1978,477 @@ def train_kernel_vs_plain(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 17-19: the fp8 (e4m3) KV cache and the manual-copy paged decode (K13)
+# ---------------------------------------------------------------------------
+
+
+def paged_decode_p_e4m3(q, k_pages, v_pages, lengths, page_tables, k_new, v_new, page_offset):
+    """K12's plain version with the fault the fp8 slice repaired (phase 17's
+    planted fault): p rounded to e4m3, not to q's dtype, for the PV product."""
+    import torch
+
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.ops.flash_attention import LOG2E
+    from omchat_torch.ops.fp8 import to_e4m3
+
+    B, _, H, D = q.shape
+    KVH = k_pages.shape[1]
+    k, v = pa._gather_pages(k_pages, v_pages, page_tables.long() + page_offset)
+    qg = q[:, 0].reshape(B, KVH, H // KVH, D).float()
+    s = torch.einsum("bngd,bntd->bngt", qg, k.float()) * (D**-0.5 * LOG2E)
+    valid = torch.arange(k.shape[2], device=q.device)[None, :] < lengths[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.tensor(float("-inf"), device=q.device))
+    s = torch.cat([s, torch.einsum("bngd,bnd->bng", qg, k_new.float())[..., None] * (D**-0.5 * LOG2E)], dim=-1)
+    v = torch.cat([v.to(q.dtype), v_new[:, :, None]], dim=2)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bngt,bntd->bngd", to_e4m3(p).float(), v.float()) / p.sum(dim=-1, keepdim=True)
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
+    """Phase 17: K13 over a bf16 and an e4m3 pool and the e4m3 variants of
+    K12 and K14 at what the timed serving run (phase 5) handed K12 and K14,
+    K2 and K3 on an e4m3 cache at the single request's shapes (phase 2),
+    with phase 6's planted keys, held against their plain versions; planted
+    faults must fall outside the limits.  The e4m3 stores of K4 and K15
+    bitwise at those shapes and on every bf16 bit pattern (the in-kernel
+    cast against ``ops.fp8.to_e4m3``).  Times as in phases 2 and 6; the
+    library line upcasts the e4m3 operands to bf16 inside the timed call."""
+    import itertools
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.ops import decode_attention as da
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.ops.fp8 import E4M3, to_e4m3
+    from omchat_torch.runtime.paged_engine import commit_page_ids
+
+    dev = torch.device(DEVICE)
+    bf = torch.bfloat16
+    i32 = dict(dtype=torch.int32, device=dev)
+    tc = OmChatConfig().text
+    L, H, KVH, D = tc.num_hidden_layers, tc.num_attention_heads, tc.num_key_value_heads, tc.attn_head_dim
+    G = H // KVH
+    PS, P = SERVING["page_size"], SERVING["num_pages"]
+    NP, LI = P + 1, L - 1
+    u = _direction(gen, KVH, D)
+    uq = u.repeat_interleave(G, dim=0)
+    it = itertools.count()
+    rows = []
+
+    def add(name, source, replaces, got, ref, tol, faults, fns, flops, nbytes, shape, iters, warmup=3):
+        """Check ``got`` against ``ref`` and each planted fault against
+        ``ref``; time the kernel, plain and library callables ``fns``."""
+        err = check_close(name, got, ref, *tol)
+        caught = {f: check_fault_caught(name, f, bad, ref, *tol) for f, bad in faults.items()}
+        k_fn, p_fn, lib_fn = fns
+        k_it, p_it = iters
+        row = dict(name=name, source=source, replaces=replaces, max_abs_err=err, ref_mean_abs=float(ref.float().abs().mean()),
+                   ms=time_ms(k_fn, iters=k_it, warmup=warmup), plain_ms=time_ms(p_fn, iters=p_it, warmup=1),
+                   library_ms=time_ms(lib_fn, iters=k_it, warmup=warmup) if lib_fn else None, faults=caught,
+                   shape=shape)
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        rows.append(row)
+        return row
+
+    def upcast(t):
+        return t.to(bf) if t.dtype == E4M3 else t
+
+    # The layered pool [L, P+1, KVH, PS, D] in bf16, phase 6's keys planted in
+    # layer LI for the busiest decode roll (K12, K13) and the largest chunk
+    # (K14), then rounded to e4m3 as the pool stores it.
+    kflat, vflat = _randn(gen, L * NP, KVH, PS, D), _randn(gen, L * NP, KVH, PS, D)
+
+    def plant(table_row, pos, scale):
+        kflat[LI * NP + int(table_row[pos // PS]), :, pos % PS] = scale * u
+
+    busiest = max(r["n"] for r in timed["rolls"])
+    full = [r for r in timed["rolls"] if r["n"] == busiest]
+    roll = full[len(full) // 2]
+    tab_np, lens_np = roll["tables"], roll["lengths"]
+    S, W = tab_np.shape
+    for b, n in enumerate(lens_np):
+        if n:
+            for pos, scale in ((0, 0.6), (n - 1, 0.8), (n, 0.8)):
+                plant(tab_np[b], pos, scale)
+
+    def causal_cols(c):
+        return sum(int(n) * int(s) + int(n) * (int(n) + 1) // 2 for s, n in zip(c["start"], c["len"]))
+
+    c14 = max(timed["chunks"], key=causal_cols)
+    (B14, C), starts, clen, t14_np = c14["shape"], c14["start"], c14["len"], c14["tables"]
+    kv14 = starts + clen
+    for b in range(B14):
+        for pos, scale in ((0, 0.6), (int(kv14[b]) - 1, 0.8)):
+            plant(t14_np[b], pos, scale)
+    pools = {"bf16": (kflat, vflat), "e4m3": (to_e4m3(kflat), to_e4m3(vflat))}
+
+    # K12 (e4m3) and K13 (bf16, e4m3): the roll's lengths and sliced table; a
+    # sink at 0, 0.8 u at the last valid column, the first one past it and
+    # the self column.  Faults: one live page-table entry off by one, the self
+    # column rounded to e4m3, p rounded to e4m3.
+    tab, lens = torch.as_tensor(tab_np, device=dev), torch.as_tensor(lens_np, device=dev)
+    bad_tab = tab.clone()
+    bad_tab[int(np.argmax(lens_np)), 0] += 1
+    q = _randn(gen, S, 1, H, D) + uq
+    kn = (0.8 * u)[None].expand(S, KVH, D).contiguous()
+    vn = _randn(gen, S, KVH, D)
+    kn8, vn8 = to_e4m3(kn).to(bf), to_e4m3(vn).to(bf)
+    cached = int(lens_np.sum())
+    cols = torch.arange(W * PS + 1, device=dev)
+    mask = ((cols[None] < lens[:, None]) | (cols[None] == W * PS))[:, None, None, :]
+    qs = q.transpose(1, 2)
+    names = {"auto": ("paged_flash_decode", "paged_flash_decode.cu", "omchat_tpu/ops/paged_attention.py:110"),
+             "manual": ("paged_flash_decode_manual", "paged_flash_decode_manual.cu",
+                        "omchat_tpu/ops/paged_attention.py:270")}
+    outs = {}
+    for kernel, pool in (("manual", "bf16"), ("auto", "e4m3"), ("manual", "e4m3")):
+        kp, vp = pools[pool]
+        fn = pa.DECODE_KERNELS[kernel]
+        name, src, replaces = names[kernel]
+
+        def plain(tables=tab, k_new=kn, v_new=vn, kp=kp, vp=vp):
+            return pa.paged_flash_decode_plain(q, kp, vp, lens, tables, k_new, v_new, page_offset=LI * NP)
+
+        def walk(f, kp=kp, vp=vp):
+            return f(q, kp, vp, lens, tab, kn, vn, page_offset=(next(it) % L) * NP)
+
+        def library(kp=kp, vp=vp):  # the pages gathered (and upcast), the self column appended, SDPA
+            idx = (tab.long() + (next(it) % L) * NP).reshape(-1)
+            kv = [torch.cat([upcast(p.index_select(0, idx)).view(S, W, KVH, PS, D).transpose(1, 2)
+                             .reshape(S, KVH, W * PS, D), n[:, :, None]], dim=2) for p, n in ((kp, kn), (vp, vn))]
+            return F.scaled_dot_product_attention(qs, *kv, attn_mask=mask, enable_gqa=True)
+
+        out = fn(q, kp, vp, lens, tab, kn, vn, page_offset=LI * NP)
+        torch.cuda.synchronize()
+        outs[(kernel, pool)] = out
+        faults = {"a page-table entry off by one": plain(tables=bad_tab),
+                  "the self column rounded to e4m3": plain(k_new=kn8, v_new=vn8),
+                  "p rounded to e4m3": paged_decode_p_e4m3(q, kp, vp, lens, tab, kn, vn, LI * NP)}
+        add(name if pool == "bf16" else f"{name}[e4m3]", f"omchat_torch/csrc/{src}", replaces, out, plain(),
+            ATTN_TOL["K12"], faults, (lambda: walk(fn), lambda: walk(pa.paged_flash_decode_plain), library),
+            4.0 * H * D * (cached + S),
+            2 * KVH * cached * D * kp.element_size() + 2 * S * H * D * 2 + 2 * S * KVH * D * 2 + S * 4 + S * W * 4,
+            f"S={S} decoding={busiest} cached={cached} W={W}", (2 * L, L // 4))
+    k12_bf16 = pa.paged_flash_decode(q, *pools["bf16"], lens, tab, kn, vn, page_offset=LI * NP)
+    torch.cuda.synchronize()
+    log(f"K13 vs K12 on the same inputs: bitwise equal on the bf16 pool "
+        f"{bool(torch.equal(outs[('manual', 'bf16')], k12_bf16))}, on the e4m3 pool "
+        f"{bool(torch.equal(outs[('manual', 'e4m3')], outs[('auto', 'e4m3')]))}")
+    del q, qs, kn, vn, kn8, vn8, mask, outs, k12_bf16
+
+    # K14 (e4m3): the largest chunk's starts, lengths and tables; faults as phase 6's.
+    kp8, vp8 = (p.view(L, NP, KVH, PS, D) for p in pools["e4m3"])
+    t14 = torch.as_tensor(t14_np, device=dev)
+    q14 = _randn(gen, B14, C, H, D) + uq
+    qo, kl = torch.as_tensor(starts, **i32), torch.as_tensor(kv14, **i32)
+    rowmask = (torch.arange(C, device=dev)[None] < torch.as_tensor(clen, device=dev)[:, None])[..., None, None]
+    out = pa.paged_flash_prefill(q14, kp8[LI], vp8[LI], kl, t14, qo)
+    torch.cuda.synchronize()
+
+    def k14_plain(q_offset=qo, kv_len=kl, li=LI):
+        return pa.paged_flash_prefill_plain(q14, kp8[li], vp8[li], kv_len, t14, q_offset) * rowmask
+
+    def walk14(fn):
+        li = next(it) % L
+        return fn(q14, kp8[li], vp8[li], kl, t14, qo)
+
+    T14 = t14_np.shape[1] * PS
+    idx14 = t14.long().reshape(-1)
+    ar = torch.arange(T14, device=dev)
+    mask14 = ((ar[None, None] <= qo[:, None, None] + torch.arange(C, device=dev)[None, :, None])
+              & (ar[None, None] < kl[:, None, None]))[:, None]
+    q14t = q14.transpose(1, 2)
+
+    def k14_library():
+        li = next(it) % L
+        kv = [upcast(p[li].index_select(0, idx14)).view(B14, -1, KVH, PS, D).transpose(1, 2)
+              .reshape(B14, KVH, T14, D) for p in (kp8, vp8)]
+        return F.scaled_dot_product_attention(q14t, *kv, attn_mask=mask14, enable_gqa=True)
+
+    add("paged_flash_prefill[e4m3]", "omchat_torch/csrc/paged_flash_prefill.cu",
+        "omchat_tpu/ops/paged_attention.py:442", out * rowmask, k14_plain(), ATTN_TOL["K14"],
+        {"the last valid column dropped": k14_plain(kv_len=kl - 1),
+         "the causal diagonal shifted by one": k14_plain(q_offset=qo + 1)},
+        (lambda: walk14(pa.paged_flash_prefill), lambda: k14_plain(li=next(it) % L), k14_library),
+        4.0 * H * D * causal_cols(c14), 2 * B14 * C * H * D * 2 + 2 * KVH * int(kv14.sum()) * D + t14_np.size * 4 + 8 * B14,
+        f"B={B14} C={C} q_offset={starts.tolist()} kv_len={kv14.tolist()}", (L, 3))
+    del q14, q14t, mask14, rowmask, out
+
+    # K15 (e4m3): the largest page commit, bf16 scratch pages rounded into the
+    # e4m3 pool; bitwise against the plain commit, parking pages as phase 6.
+    c15 = max(timed["commits"], key=lambda c: c["shape"][1] * c["shape"][3])
+    _, B15, _, T15, _ = c15["shape"]
+    CH = T15 // PS
+    pages15 = torch.as_tensor(commit_page_ids(c15["tables"], c15["n_pages"], L, CH, NP), device=dev)
+    view_k = _randn(gen, L, B15, KVH, T15, D).view(L * B15, KVH, CH, PS, D).transpose(1, 2)
+    view_v = _randn(gen, L, B15, KVH, T15, D).view(L * B15, KVH, CH, PS, D).transpose(1, 2)
+    k8, v8 = pools["e4m3"]
+    ref_k, ref_v = k8.clone(), v8.clone()
+    pa.commit_pages(k8, v8, pages15, view_k, view_v)
+    torch.cuda.synchronize()
+    pa.commit_pages_plain(ref_k, ref_v, pages15, view_k, view_v)
+    for got, want, chunks in ((k8, ref_k, view_k), (v8, ref_v, view_v)):
+        sent_vecs = to_e4m3(chunks).view(torch.uint8).reshape(-1, KVH * PS * D // 8, 8)
+        for li in range(L):
+            park = li * NP + P
+            sent = (pages15 == park).nonzero()[:, 0]
+            if len(sent) and not bool((got[park].view(torch.uint8).reshape(1, -1, 8) == sent_vecs[sent])
+                                      .all(-1).any(0).all()):
+                raise AssertionError(f"K15 commit_pages[e4m3]: parking page {park} holds a vector no chunk sent there")
+            want[park] = got[park]
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError("K15 commit_pages[e4m3]: the pool differs from the plain commit (bitwise, all pages)")
+    M = int(pages15.numel())
+    row = dict(name="commit_pages[e4m3]", source="omchat_torch/csrc/commit_pages.cu",
+               replaces="omchat_tpu/ops/paged_attention.py:695", max_abs_err=0.0, ref_mean_abs=None, faults={},
+               ms=time_ms(lambda: pa.commit_pages(k8, v8, pages15, view_k, view_v), iters=20),
+               plain_ms=time_ms(lambda: pa.commit_pages_plain(ref_k, ref_v, pages15, view_k, view_v), iters=20),
+               library_ms=None, shape=f"M={M} (L={L} x B={B15} x {CH} pages)")
+    row["bound_ms"], row["bound_by"] = bound_ms(0.0, 2 * M * KVH * PS * D * (2 + 1) + M * 4)
+    rows.append(row)
+    del pools, kflat, vflat, k8, v8, kp8, vp8, ref_k, ref_v, view_k, view_v
+
+    # K2 (e4m3): phase 2's prompt against an e4m3 cache layer, phase 2's keys.
+    # p is rounded to e4m3 against the running row max in the kernel and the
+    # row's global max in the plain version (as the TPU kernel and its XLA
+    # reference differ), so the limit is K2_E4M3_TOL, not K2's.
+    S2, T, KVL = shapes["prompt_rows"], shapes["cache_rows"], shapes["prompt_len"]
+    q2 = _randn(gen, 1, S2, H, D) + uq
+    k2, v2 = _randn(gen, 1, KVH, T, D), _randn(gen, 1, KVH, T, D)
+    k2[0, :, 0] = 0.6 * u
+    k2[0, :, KVL - 1] = 0.8 * u
+    k2, v2 = to_e4m3(k2), to_e4m3(v2)
+    q_off = torch.zeros(1, **i32)
+    kvl = torch.full((1,), KVL, **i32)
+    out = fa.flash_attention(q2, k2, v2, causal=True, q_offset=q_off, kv_len=kvl, kv_format="bntd")
+    torch.cuda.synchronize()
+
+    def k2_plain(q_offset=q_off, kv_len=kvl):
+        return fa.flash_attention_plain(q2, k2, v2, causal=True, q_offset=q_offset, kv_len=kv_len)[:, :KVL]
+
+    q2t = q2[:, :KVL].transpose(1, 2)
+    add("flash_attention[e4m3]", "omchat_torch/csrc/flash_attention.cu", "omchat_tpu/ops/flash_attention.py:246",
+        out[:, :KVL], k2_plain(), K2_E4M3_TOL,
+        {"the last valid column dropped": k2_plain(kv_len=kvl - 1),
+         "the causal diagonal shifted by one": k2_plain(q_offset=q_off + 1)},
+        (lambda: fa.flash_attention(q2, k2, v2, causal=True, q_offset=q_off, kv_len=kvl, kv_format="bntd"),
+         k2_plain, lambda: F.scaled_dot_product_attention(q2t, k2[:, :, :KVL].to(bf), v2[:, :, :KVL].to(bf),
+                                                         is_causal=True, enable_gqa=True)),
+        4.0 * H * D * sum(min(i + 1, KVL) for i in range(S2)), (2 * q2.numel()) * 2 + 2 * KVH * KVL * D,
+        f"S={S2} T={T} kv_len={KVL}", (20, 3))
+    del q2, k2, v2, q2t, out
+
+    # K3 (e4m3): phase 2's decode over an e4m3 stacked cache at the decode
+    # lengths, phase 2's keys and faults; K4 (e4m3) commits the step's rows.
+    lens3 = shapes["decode_lens"]
+    LEN = lens3[0]
+    kc, vc = _randn(gen, L, 1, KVH, T, D), _randn(gen, L, 1, KVH, T, D)
+    kc[:, 0, :, 0] = 0.6 * u
+    kc[:, 0, :, LEN - 1] = 0.8 * u
+    kc[:, 0, :, LEN] = 0.8 * u
+    kc, vc = to_e4m3(kc), to_e4m3(vc)
+    qd = _randn(gen, 1, 1, H, D) + uq
+    kn_, vn_ = (0.8 * u)[None], _randn(gen, 1, KVH, D)
+    clen = torch.full((1,), LEN, **i32)
+    out = da.flash_decode_stacked(qd, kc, vc, clen, L - 1, kn_, vn_)
+    torch.cuda.synchronize()
+
+    def k3_plain(cache_len=clen, k_new=kn_):
+        return da.flash_decode_stacked_plain(qd, kc, vc, cache_len, L - 1, k_new, vn_)
+
+    clens = [torch.full((1,), n, **i32) for n in lens3]
+
+    def walk3(fn):
+        i = next(it)
+        return fn(qd, kc, vc, clens[i % len(lens3)], i % L, kn_, vn_)
+
+    qds = qd.transpose(1, 2)
+
+    def k3_library():
+        i = next(it)
+        li, n = i % L, lens3[i % len(lens3)]
+        return F.scaled_dot_product_attention(qds, kc[li][:, :, :n].to(bf), vc[li][:, :, :n].to(bf), enable_gqa=True)
+
+    mean_len = sum(lens3) / len(lens3)
+    add("flash_decode_stacked[e4m3]", "omchat_torch/csrc/flash_decode_stacked.cu",
+        "omchat_tpu/ops/decode_attention.py:109", out, k3_plain(), ATTN_TOL["K3"],
+        {"cache_len-1": k3_plain(cache_len=clen - 1), "cache_len+1": k3_plain(cache_len=clen + 1),
+         "the self column dropped": k3_plain(k_new=-10 * kn_)},
+        (lambda: walk3(da.flash_decode_stacked), lambda: walk3(da.flash_decode_stacked_plain), k3_library),
+        4.0 * H * D * (mean_len + 1), 2 * KVH * (mean_len + 1) * D + 2 * H * D * 2,
+        f"T={T} cache_len={lens3[0]}..{lens3[-1]}", (2 * len(lens3), len(lens3)),
+        warmup=len(lens3))  # warm up over every length: the library call plans once per shape
+
+    kf, vf = kc.view(L, KVH, T, D), vc.view(L, KVH, T, D)
+    pages = torch.arange(L, **i32)
+    offs = torch.full((L,), LEN, **i32)
+    k_rows, v_rows = _randn(gen, L, KVH, D, scale=8.0), _randn(gen, L, KVH, D, scale=8.0)
+    k_ref, v_ref = kf.clone(), vf.clone()
+    pa.commit_rows(kf, vf, pages, offs, k_rows, v_rows)
+    torch.cuda.synchronize()
+    pa.commit_rows_plain(k_ref, v_ref, pages, offs, k_rows, v_rows)
+    if not (torch.equal(kf.view(torch.uint8), k_ref.view(torch.uint8))
+            and torch.equal(vf.view(torch.uint8), v_ref.view(torch.uint8))):
+        raise AssertionError("K4 commit_rows[e4m3]: cache differs from the plain commit (bitwise, all rows)")
+    row = dict(name="commit_rows[e4m3]", source="omchat_torch/csrc/commit_rows.cu",
+               replaces="omchat_tpu/ops/paged_attention.py:619", max_abs_err=0.0, ref_mean_abs=None, faults={},
+               ms=time_ms(lambda: pa.commit_rows(kf, vf, pages, offs, k_rows, v_rows), iters=100),
+               plain_ms=time_ms(lambda: pa.commit_rows_plain(k_ref, v_ref, pages, offs, k_rows, v_rows), iters=100),
+               library_ms=None, shape=f"N={L} rows into [L, KVH, {T}, D]")
+    row["bound_ms"], row["bound_by"] = bound_ms(0.0, 2 * L * KVH * D * (2 + 1) + 2 * L * 4)
+    rows.append(row)
+    del kc, vc, kf, vf, k_ref, v_ref
+
+    # The in-kernel cast: every bf16 bit pattern through K4 (as rows) and K15
+    # (as a page) into e4m3 pools, against to_e4m3 bitwise (NaN past 464).
+    patterns = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16).view(bf)
+    want = to_e4m3(patterns).view(torch.uint8)
+    kp, vp = (torch.zeros(2, KVH, PS, D, dtype=E4M3, device=dev) for _ in range(2))
+    prow = patterns.view(PS, KVH, D)
+    pa.commit_rows(kp, vp, torch.ones(PS, **i32), torch.arange(PS, **i32), prow, prow)
+    pa.commit_pages(kp, vp, torch.zeros(1, **i32), patterns.view(1, KVH, PS, D), patterns.view(1, KVH, PS, D))
+    torch.cuda.synchronize()
+    cast = {"K4": int((kp[1].transpose(0, 1).reshape(-1).view(torch.uint8) != want).sum()),
+            "K15": int((kp[0].reshape(-1).view(torch.uint8) != want).sum())}
+    nan_share = float(((want & 0x7F) == 0x7F).float().mean())
+    log(f"e4m3 store, every bf16 bit pattern: bytes differing from to_e4m3 {cast} (NaN share {nan_share:.4f})")
+    if any(cast.values()):
+        raise AssertionError(f"the e4m3 stores differ from to_e4m3 on {cast} of the 65536 bf16 patterns")
+
+    for r in rows:
+        mag = "" if r["ref_mean_abs"] is None else f" ref_mean_abs={r['ref_mean_abs']:.3g}"
+        caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in r["faults"].items())
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"kernel {r['name']} [{r['shape']}]: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={lib} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"max_abs_err={r['max_abs_err']:.3g}{mag}{caught}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def first_divergence(tokens: list, base: list) -> list:
+    """Per request, the first step whose greedy token leaves ``base``'s (None: never)."""
+    return [next((j for j, (a, b) in enumerate(zip(t, w)) if a != b), None) for t, w in zip(tokens, base)]
+
+
+def fp8_serving(seed: int, base_tokens: list) -> dict:
+    """Phase 18 at full width and depth, one model: phase 5's workload with
+    the decode on K13 over the bf16 pool, then on K12 and on K13 over an e4m3
+    pool (each must launch its decode kernel and not the other one); each
+    run's first step leaving phase 5's greedy tokens; then phase 3's request
+    with an e4m3 cache (K2, K3, K4 on their e4m3 variants)."""
+    import torch
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.ops.fp8 import E4M3
+    from omchat_torch.runtime import paged_engine as pe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = OmChatConfig()
+    params = build_model(cfg, seed)
+    work = serving_workload(cfg)
+    decode = {"auto": "paged_flash_decode", "manual": "paged_flash_decode_manual"}
+    runs = {}
+    for pool, kernel in (("bf16", "manual"), ("e4m3", "auto"), ("e4m3", "manual")):
+        label = f"fp8 serving ({pool} pool, decode_kernel={kernel})"
+        eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, decode_kernel=kernel,
+                                  cache_dtype=E4M3 if pool == "e4m3" else None, **SERVING)
+        rec, undo = record_dispatches(eng)
+        counts = {n: c for n, c in paged_counters().items() if n != "paged_flash_decode"}
+        counts[decode[kernel]] = pa.DECODE_KERNELS[kernel]
+        other = pa.DECODE_KERNELS["manual" if kernel == "auto" else "auto"]
+        other.launches = 0
+        try:
+            res = timed_serving(eng, work, rec, counts, label)
+        finally:
+            undo()
+        steps = first_divergence(res.pop("tokens"), base_tokens)
+        res.update(pool_gib=(eng.k_pool.numel() * eng.k_pool.element_size() * 2) / 2**30,
+                   first_divergence_step=min((s for s in steps if s is not None), default=None),
+                   divergence_steps=steps, requests_identical_to_bf16_auto=steps.count(None))
+        log(f"{label}: pool {res['pool_gib']:.3f} GiB, first step leaving the bf16 K12 run's tokens "
+            f"{res['first_divergence_step']} (per request {steps})")
+        if other.launches:
+            raise AssertionError(f"{label}: the other decode kernel launched {other.launches} times")
+        if eng.k_pool.dtype != (E4M3 if pool == "e4m3" else torch.bfloat16):
+            raise AssertionError(f"{label}: the pool is {eng.k_pool.dtype}")
+        runs[(pool, kernel)] = res
+        del eng
+        gc.collect()
+    torch.cuda.empty_cache()
+    e2e8 = end_to_end(seed, model=(cfg, params), label="fp8 e2e (e4m3 cache)", cache_dtype=E4M3)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serving": runs, "e2e": e2e8}
+
+
+def fp8_logit_gaps(seed: int) -> dict:
+    """Phase 19, full width and 2 ViT + 2 LLM layers: the request's first-token
+    logits with an e4m3 cache against a bf16 cache (both on the kernels), and
+    through the kernels against ``attn_impl="plain"`` on the e4m3 cache, each
+    within FP8_LOGIT_GAP_REL of the bf16 logits' max |logit|; a fault planted
+    in K2 (every q head reads the next kv head) must fall outside both."""
+    import torch
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops.fp8 import E4M3
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    full = OmChatConfig()
+    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_hidden_layers=2),
+                              text=dataclasses.replace(full.text, num_hidden_layers=2))
+    params = build_model(cfg, seed)
+    ids, tiles = make_request(cfg, seed)
+
+    def first_logits(impl, cache_dtype):
+        eng = OmChatEngine(cfg, params, attn_impl=impl, cache_dtype=cache_dtype, image_cache_size=0)
+        logits, _ = eng.prefill(eng.plan([ids]), eng.encode_images(tiles), NEW_TOKENS)
+        return logits.float()
+
+    bf16, e4m3, e4m3_plain = first_logits(None, None), first_logits(None, E4M3), first_logits("plain", E4M3)
+    k2 = fa.flash_attention
+
+    def next_kv_head(q, k, v, **kw):
+        dim = 1 if kw.get("kv_format") == "bntd" else 2
+        return k2(q, *(t.view(torch.uint8).roll(1, dims=dim).view(t.dtype) for t in (k, v)), **kw)
+
+    next_kv_head.launches = 0  # K2 counts its launches on the module's flash_attention
+    fa.flash_attention = next_kv_head
+    try:
+        faulty = first_logits(None, E4M3)
+    finally:
+        fa.flash_attention = k2
+    limit = FP8_LOGIT_GAP_REL * float(bf16.abs().max())
+
+    def gap(a, b):
+        return float((a - b).abs().max())
+
+    res = {"logits_max_abs": float(bf16.abs().max()), "limit": limit,
+           "e4m3_vs_bf16": gap(e4m3, bf16), "e4m3_kernels_vs_plain": gap(e4m3, e4m3_plain),
+           "fault_vs_bf16": gap(faulty, bf16), "fault_vs_plain": gap(faulty, e4m3_plain),
+           "argmax_equal_e4m3_vs_bf16": bool(torch.equal(e4m3.argmax(-1), bf16.argmax(-1)))}
+    log("fp8 logit gaps (2 ViT + 2 LLM layers, full width): " + json.dumps(res))
+    for k in ("e4m3_vs_bf16", "e4m3_kernels_vs_plain"):
+        if not (torch.isfinite(e4m3).all() and res[k] <= limit):
+            raise AssertionError(f"fp8 logits: {k} {res[k]:.4g} outside the limit {limit:.4g}")
+    for k in ("fault_vs_bf16", "fault_vs_plain"):
+        if res[k] <= limit:
+            raise AssertionError(f"fp8 logits: the limit would pass K2 reading the next kv head ({k} {res[k]:.4g})")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -2020,20 +2518,39 @@ def main() -> int:
                                                                      "hfu", "losses")} for k, r in trained.items()}))
     train_kernel_vs_plain(args.seed)
 
+    fp8_rows = fp8_kernel_phases(gen, shapes, timed)
+    fp8 = fp8_serving(args.seed, serve["tokens"])
+    fp8_logit_gaps(args.seed)
+    fp8_runs = fp8["serving"]
+    log("serving by pool and decode kernel (this call): " + json.dumps({
+        f"{pool}/{kernel}": {k: r[k] for k in ("tokens_per_s", "ttft_p50_s", "ttft_p99_s", "intertoken_p50_s",
+                                               "intertoken_p99_s", "decode_step_wall_ms_16_slots", "pages_free")}
+        for (pool, kernel), r in (((("bf16", "auto"), serve),) + tuple(fp8_runs.items()))}))
+    log("bf16 vs e4m3 cache, single request (this call): " + json.dumps(
+        {k: [e2e[k], fp8["e2e"][k]] for k in ("ttft_ms", "prefill_ms", "decode_tokens_per_s", "peak_mem_gib")}))
+
     # each kernel's launches on its own main path: K1-K4 on the single-image
     # request (phase 3), K12, K14 and K15 in the timed serving run (phase 5),
     # K7, K8, K9 and K11 on the w8a8 single-image request (phase 9), K16a/b/c
-    # in the three stage-1 steps (phase 14)
-    launches = {**e2e["launches"], **{n: serve["launches"][n] for n in
-                                      ("paged_flash_decode", "paged_flash_prefill", "commit_pages")},
+    # in the three stage-1 steps (phase 14); the e4m3 variants of K2, K3 and K4
+    # on the e4m3-cache request, K13 in the manual-decode serving runs, the
+    # e4m3 variants of K12, K14 and K15 in the e4m3 serving run on K12 (phase 18)
+    paged = ("paged_flash_decode", "paged_flash_prefill", "commit_pages")
+    launches = {**e2e["launches"], **{n: serve["launches"][n] for n in paged},
                 **{n: e2e8["launches"][n] for n in w8a8_counters()},
-                **trained["stage1"]["launches"]}
+                **trained["stage1"]["launches"],
+                **{f"{n}[e4m3]": fp8["e2e"]["launches"][n] for n in ("flash_attention", "flash_decode_stacked",
+                                                                      "commit_rows")},
+                **{f"{n}[e4m3]": fp8_runs[("e4m3", "auto")]["launches"][n] for n in paged},
+                "paged_flash_decode_manual": fp8_runs[("bf16", "manual")]["launches"]["paged_flash_decode_manual"],
+                "paged_flash_decode_manual[e4m3]":
+                    fp8_runs[("e4m3", "manual")]["launches"]["paged_flash_decode_manual"]}
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
-    } for r in rows + paged_rows + w8a8_rows + train_rows]
+    } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -83,6 +83,7 @@ def load_pretrained_model(
     attn_impl: Optional[str] = None,
     device=None,
     lora_path: Optional[str] = None,
+    cache_dtype: Optional[torch.dtype] = None,
 ) -> OmChatModel:
     """Load an OmChat checkpoint directory (HF-bundle or repo-native key
     layout) onto ``device`` (default CUDA; raises without it).
@@ -93,7 +94,9 @@ def load_pretrained_model(
     calibrates the ViT's static fc1 scales at load (:func:`quantize_model`).
     ``lora_path``: a LoRA adapter directory (either package's
     ``save_lora_adapter``), merged in bf16 before any quantization, so the
-    int8 scales cover the fine-tuned weights."""
+    int8 scales cover the fine-tuned weights.  ``cache_dtype``: the KV
+    cache's storage dtype (``torch.float8_e4m3fn``: the fp8 cache), also the
+    page pool's of :func:`paged_batch_engine`."""
     from transformers import AutoTokenizer
 
     dev = resolve_device(device)
@@ -103,7 +106,7 @@ def load_pretrained_model(
         params = merge_lora(params, load_lora_adapter(lora_path, dtype, device=dev))
     if quantize_int8 or w8a8:
         config, params = quantize_model(config, params, w8a8=w8a8, attn_impl=attn_impl)
-    engine = OmChatEngine(config, params, attn_impl=attn_impl, device=dev)
+    engine = OmChatEngine(config, params, attn_impl=attn_impl, cache_dtype=cache_dtype, device=dev)
     image_processor = OmChatImageProcessor(
         crop_size=config.vision.image_size,
         shortest_edge=config.vision.image_size,
@@ -118,8 +121,10 @@ def load_pretrained_model(
 
 def paged_batch_engine(model: OmChatModel, **options) -> PagedBatchEngine:
     """A paged continuous-batching engine serving ``model``'s weights, by
-    default on its device with its attention route (``options``:
-    PagedBatchEngine's keyword arguments — max_slots, num_pages, page_size,
-    max_len, decode_roll, prefill_chunk, image_cache_size, ...)."""
-    options = {"attn_impl": model.engine.attn_impl, "device": model.engine.device, **options}
+    default on its device with its attention route and cache dtype
+    (``options``: PagedBatchEngine's keyword arguments — max_slots,
+    num_pages, page_size, max_len, decode_roll, prefill_chunk,
+    image_cache_size, cache_dtype, decode_kernel, ...)."""
+    options = {"attn_impl": model.engine.attn_impl, "device": model.engine.device,
+               "cache_dtype": model.engine.cache_dtype, **options}
     return PagedBatchEngine(model.config, model.engine.params, **options)

@@ -1,7 +1,8 @@
 """Thin OpenAI-style HTTP server over the paged continuous-batching engine —
 the port's counterpart of ``cli/serve.py --paged``.
 
-    python -m omchat_torch.cli.serve --model-path CKPT [--port 8000] [--device cuda] [--int8 | --w8a8]
+    python -m omchat_torch.cli.serve --model-path CKPT [--port 8000] [--device cuda] [--int8 | --w8a8] \\
+        [--kv-cache-dtype fp8] [--decode-kernel manual]
 
 Serves ``GET /health`` and non-streaming ``POST /v1/chat/completions`` (text
 and base64 ``image_url`` content parts; ``max_tokens``, ``temperature``,
@@ -268,15 +269,23 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=1024,
                     help="prompts longer than this prefill in chunks of this width, decode rolls in between")
     ap.add_argument("--image-cache", type=int, default=8, help="encoded-image LRU entries (0 disables)")
+    ap.add_argument("--kv-cache-dtype", choices=["bf16", "fp8"], default="bf16",
+                    help="page-pool storage dtype; fp8 (e4m3) halves a page's bytes, the kernels widen on load")
+    ap.add_argument("--decode-kernel", choices=["auto", "manual"], default="auto",
+                    help="paged decode kernel: auto (K12) or manual (K13, pages streamed through a ring of bulk "
+                         "copies); the plain CPU path ignores it")
     args = ap.parse_args(argv)
 
     from omchat_torch.api import load_pretrained_model, paged_batch_engine
+    from omchat_torch.ops.fp8 import E4M3
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    model = load_pretrained_model(args.model_path, quantize_int8=args.int8, w8a8=args.w8a8, device=args.device)
+    model = load_pretrained_model(args.model_path, quantize_int8=args.int8, w8a8=args.w8a8, device=args.device,
+                                  cache_dtype=E4M3 if args.kv_cache_dtype == "fp8" else None)
     engine = paged_batch_engine(
         model, max_slots=args.max_slots, num_pages=args.num_pages, page_size=args.page_size, max_len=args.max_len,
         decode_roll=args.decode_roll, prefill_chunk=args.prefill_chunk, image_cache_size=args.image_cache,
+        decode_kernel=args.decode_kernel,
     )
     server, loop = make_server(model, engine, args.host, args.port)
     logger.info(f"serving on {args.host}:{args.port} ({args.max_slots} slots, {args.num_pages} pages)")

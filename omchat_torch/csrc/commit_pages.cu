@@ -5,7 +5,11 @@
 // (body _commit_pages_kernel :688, pallas_call :741).
 //
 //   k_pool, v_pool  [NP, KVH, PS, D] bf16, written in place (PyTorch's
-//                   counterpart of the TPU call's input_output_aliases)
+//                   counterpart of the TPU call's input_output_aliases), or
+//                   e4m3 through omchat_commit_pages_e4m3: the bf16 chunks are
+//                   rounded in the kernel as jnp.astype(float8_e4m3fn) rounds
+//                   them before the TPU call (paged_attention.py:751; NaN past
+//                   464, common.cuh f32_to_e4m3)
 //   pages           [M] int32 destination page of chunk m
 //   k_src, v_src    the chunks, chunk m = (g, c) with g = m / C, c = m % C:
 //                   head h's PS x D page rows start at element
@@ -20,14 +24,32 @@
 // so nothing asserts uniqueness.
 //
 // What bounds it on the H100: bytes (each page is read once and written once,
-// 2 x 128 KiB for K and V).  Design: one block per destination page, 16-byte
-// vector copies, consecutive threads on consecutive addresses.
+// 2 x 128 KiB for K and V; into e4m3, 128 KiB read and 64 KiB written each).
+// Design: one block per destination page, 16-byte vector loads of 8 source
+// values, consecutive threads on consecutive addresses; the e4m3 variant
+// stores each vector's 8 rounded bytes as one 8-byte store.
 #include "common.cuh"
 
 namespace {
 
+// 8 source values (one 16-byte vector) as stored in the pool: as they are, or
+// rounded to e4m3 one byte each.
+__device__ __forceinline__ uint4 store_as(uint4 x, uint4*) { return x; }
+__device__ __forceinline__ uint2 store_as(uint4 x, uint2*) {
+    const unsigned w[4] = {x.x, x.y, x.z, x.w};
+    unsigned out[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // value i: the low or high bf16 of word i / 2
+        const unsigned bits = (w[i / 2] >> (16 * (i % 2))) & 0xFFFFu;
+        out[i / 4] |= (unsigned)f32_to_e4m3(__uint_as_float(bits << 16)) << (8 * (i % 4));
+    }
+    return make_uint2(out[0], out[1]);
+}
+
+// The pool as vectors V (uint4: 8 bf16; uint2: 8 e4m3): one per source vector.
+template <typename V>
 __global__ void __launch_bounds__(256)
-commit_pages_kernel(uint4* __restrict__ k_pool, uint4* __restrict__ v_pool, const int* __restrict__ pages,
+commit_pages_kernel(V* __restrict__ k_pool, V* __restrict__ v_pool, const int* __restrict__ pages,
                     const uint4* __restrict__ k_src, const uint4* __restrict__ v_src, int C, long long stride_g,
                     long long stride_c, long long stride_h, int KVH, int head_vecs) {
     const int m = blockIdx.x;
@@ -37,25 +59,40 @@ commit_pages_kernel(uint4* __restrict__ k_pool, uint4* __restrict__ v_pool, cons
     for (int h = 0; h < KVH; ++h) {
         const uint4* ks = k_src + src + h * stride_h;
         const uint4* vs = v_src + src + h * stride_h;
-        uint4* kd = k_pool + dst + (size_t)h * head_vecs;
-        uint4* vd = v_pool + dst + (size_t)h * head_vecs;
+        V* kd = k_pool + dst + (size_t)h * head_vecs;
+        V* vd = v_pool + dst + (size_t)h * head_vecs;
         for (int i = threadIdx.x; i < head_vecs; i += blockDim.x) {
-            kd[i] = ks[i];
-            vd[i] = vs[i];
+            kd[i] = store_as(ks[i], kd);
+            vd[i] = store_as(vs[i], vd);
         }
     }
 }
 
+template <typename V>
+int launch(void* k_pool, void* v_pool, const void* pages, const void* k_src, const void* v_src, int M, int C,
+           long long stride_g, long long stride_c, long long stride_h, int KVH, int PS, int D, void* stream) {
+    if (M == 0) return 0;
+    if (C <= 0 || (PS * D) % 8 || stride_g % 8 || stride_c % 8 || stride_h % 8) return (int)cudaErrorInvalidValue;
+    commit_pages_kernel<V><<<M, 256, 0, (cudaStream_t)stream>>>(
+        (V*)k_pool, (V*)v_pool, (const int*)pages, (const uint4*)k_src, (const uint4*)v_src, C, stride_g / 8,
+        stride_c / 8, stride_h / 8, KVH, PS * D / 8);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// 16-bit elements (the bf16 pool); strides in elements, each a multiple of 8.
+// bf16 chunks into a bf16 pool (a bitwise copy); strides in source elements,
+// each a multiple of 8 (16 bytes).
 extern "C" int omchat_commit_pages(void* k_pool, void* v_pool, const void* pages, const void* k_src,
                                    const void* v_src, int M, int C, long long stride_g, long long stride_c,
                                    long long stride_h, int KVH, int PS, int D, void* stream) {
-    if (M == 0) return 0;
-    if (C <= 0 || (PS * D) % 8 || stride_g % 8 || stride_c % 8 || stride_h % 8) return (int)cudaErrorInvalidValue;
-    commit_pages_kernel<<<M, 256, 0, (cudaStream_t)stream>>>(
-        (uint4*)k_pool, (uint4*)v_pool, (const int*)pages, (const uint4*)k_src, (const uint4*)v_src, C,
-        stride_g / 8, stride_c / 8, stride_h / 8, KVH, PS * D / 8);
-    return (int)cudaGetLastError();
+    return launch<uint4>(k_pool, v_pool, pages, k_src, v_src, M, C, stride_g, stride_c, stride_h, KVH, PS, D, stream);
+}
+
+// bf16 chunks into an e4m3 pool (8-byte aligned), rounded in the kernel; the
+// same source strides.
+extern "C" int omchat_commit_pages_e4m3(void* k_pool, void* v_pool, const void* pages, const void* k_src,
+                                        const void* v_src, int M, int C, long long stride_g, long long stride_c,
+                                        long long stride_h, int KVH, int PS, int D, void* stream) {
+    return launch<uint2>(k_pool, v_pool, pages, k_src, v_src, M, C, stride_g, stride_c, stride_h, KVH, PS, D, stream);
 }

@@ -14,13 +14,21 @@
 //   B (16x8, column major), 2 x b32: b0 = B[2t..2t+1][g]    b1 = B[2t+8..2t+9][g]
 //   C (16x8, fp32), 4 floats:        c0,c1 = C[g][2t..2t+1] c2,c3 = C[g+8][2t..2t+1]
 // The lower column (or row, for B) of a pair sits in the low 16 bits.
+//
+// K/V may be stored as e4m3 (the fp8 KV cache, one byte a value): a kernel
+// templated on the element type T (bf16 or e4m3) stages the bytes as stored
+// and widens them to bf16 in registers, e4m3 -> f16 -> bf16, which is exact,
+// so the products see the values the JAX kernels see after astype(q.dtype).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
+typedef __nv_fp8_e4m3 e4m3;  // one byte; the raw bits are its __x member
 
 // A finite mask value, as the JAX kernels use (-0.7 * FLT_MAX): a fully
 // masked row then never produces inf - inf.
@@ -40,6 +48,52 @@ __device__ __forceinline__ uint32_t pack_bf16_raw(bf16 lo, bf16 hi) {
     v.x = lo;
     v.y = hi;
     return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two e4m3 values (the lower in the low byte) as a packed bf16 pair; exact.
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(__nv_fp8x2_storage_t raw) {
+    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(raw, __NV_E4M3)));
+    return pack_bf16(f.x, f.y);
+}
+
+// Two consecutive stored K/V values as a packed bf16 pair (an mma B operand),
+// and one value, or two values of different rows, widened the same way.
+__device__ __forceinline__ uint32_t load_bf16x2(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+__device__ __forceinline__ uint32_t load_bf16x2(const e4m3* p) {
+    return e4m3x2_to_bf16x2(*reinterpret_cast<const __nv_fp8x2_storage_t*>(p));
+}
+__device__ __forceinline__ uint32_t pack_pair(bf16 lo, bf16 hi) { return pack_bf16_raw(lo, hi); }
+__device__ __forceinline__ uint32_t pack_pair(e4m3 lo, e4m3 hi) {
+    return e4m3x2_to_bf16x2((__nv_fp8x2_storage_t)(lo.__x | (hi.__x << 8)));
+}
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(e4m3 x) {
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
+}
+
+// f32 -> e4m3 as jnp.astype(float8_e4m3fn) stores it: round to nearest even,
+// subnormals included; what rounds past 448 (|x| > 464), +-inf and NaN become
+// NaN with x's sign.  __NV_NOSAT gives that NaN on overflow; its NaN for a
+// NaN input is always positive, so the sign is put back here.
+__device__ __forceinline__ unsigned char f32_to_e4m3(float x) {
+    unsigned char r = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3);
+    if ((r & 0x7F) == 0x7F) r = (unsigned char)(0x7F | ((__float_as_uint(x) >> 24) & 0x80));
+    return r;
+}
+
+// The PV product's A operand from two fp32 p: rounded to bf16, or (the fp8
+// cache in K2, whose TPU kernel computes p.astype(v.dtype)) to e4m3 and then
+// widened exactly.  0 <= p <= 1, so the saturating hardware conversion never
+// saturates here and rounds as astype does.
+template <bool P_E4M3>
+__device__ __forceinline__ uint32_t pack_p(float lo, float hi) {
+    if constexpr (P_E4M3) {
+        unsigned short raw;
+        asm("cvt.rn.satfinite.e4m3x2.f32 %0, %2, %1;\n" : "=h"(raw) : "f"(lo), "f"(hi));
+        return e4m3x2_to_bf16x2(raw);
+    } else {
+        return pack_bf16(lo, hi);
+    }
 }
 
 // 16-byte asynchronous copy global -> shared (Ampere+ cp.async, L2 only), and
@@ -92,15 +146,16 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], 
 //
 //   qa     the warp's q fragments, D/16 k-steps of 4 registers, already in the
 //          exp2 domain (softmax scale and log2 e folded into q);
-//   ks, vs the tile's K and V rows in shared memory, row stride `ld` elements;
+//   ks, vs the tile's K and V rows in shared memory as stored (bf16 or e4m3,
+//          widened to bf16 in registers), row stride `ld` elements;
 //   mask   mask(row_half, col_in_tile, s) -> the score to use (the caller's
 //          masking rule, applied to every element);
 //   m, l   running row max and row sum (fp32), acc the fp32 output rows.
 //
 // exp2 softmax as in the JAX kernels: p = exp2(s - m_new), l accumulates the
-// unrounded fp32 p, the PV product takes p rounded to bf16.
-template <int D, int KV_TILE, typename Mask>
-__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], const bf16* ks, const bf16* vs, int ld,
+// unrounded fp32 p, the PV product takes p rounded to bf16 (P_E4M3: to e4m3).
+template <int D, int KV_TILE, bool P_E4M3 = false, typename T, typename Mask>
+__device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], const T* ks, const T* vs, int ld,
                                             float (&m)[2], float (&l)[2], float (&acc)[D / 8][4], Mask mask) {
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;
@@ -111,11 +166,11 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], con
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
         s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        const bf16* krow = ks + (nt * 8 + g) * ld;
+        const T* krow = ks + (nt * 8 + g) * ld;
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-            uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 2 * t);
-            uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8 + 2 * t);
+            uint32_t b0 = load_bf16x2(krow + kk * 16 + 2 * t);
+            uint32_t b1 = load_bf16x2(krow + kk * 16 + 8 + 2 * t);
             mma_bf16_16816(s[nt], qa[kk], b0, b1);
         }
     }
@@ -162,17 +217,17 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], con
 #pragma unroll
     for (int kk = 0; kk < KV_TILE / 16; ++kk) {
         uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const bf16* v0 = vs + (kk * 16 + 2 * t) * ld;
-        const bf16* v8 = vs + (kk * 16 + 8 + 2 * t) * ld;
+        pa[0] = pack_p<P_E4M3>(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_p<P_E4M3>(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_p<P_E4M3>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_p<P_E4M3>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        const T* v0 = vs + (kk * 16 + 2 * t) * ld;
+        const T* v8 = vs + (kk * 16 + 8 + 2 * t) * ld;
 #pragma unroll
         for (int dt = 0; dt < D / 8; ++dt) {
             const int col = dt * 8 + g;
-            uint32_t b0 = pack_bf16_raw(v0[col], v0[ld + col]);
-            uint32_t b1 = pack_bf16_raw(v8[col], v8[ld + col]);
+            uint32_t b0 = pack_pair(v0[col], v0[ld + col]);
+            uint32_t b1 = pack_pair(v8[col], v8[ld + col]);
             mma_bf16_16816(acc[dt], pa, b0, b1);
         }
     }
@@ -192,5 +247,99 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], const f
         const int col = dt * 8 + 2 * t;
         if (out_row0) *reinterpret_cast<uint32_t*>(out_row0 + col) = pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
         if (out_row8) *reinterpret_cast<uint32_t*>(out_row8 + col) = pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+    }
+}
+
+// Paged decode (K12, K13): the GQA group's `group` q rows at `qb` ([group, D]
+// bf16) as one mma row tile, rows >= group zero.
+template <int D>
+__device__ __forceinline__ void load_q_group(uint32_t (&qa)[D / 16][4], const bf16* qb, int group) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk * 16 + 2 * t;
+        qa[kk][0] = g < group ? *reinterpret_cast<const uint32_t*>(qb + (size_t)g * D + c) : 0u;
+        qa[kk][1] = g + 8 < group ? *reinterpret_cast<const uint32_t*>(qb + (size_t)(g + 8) * D + c) : 0u;
+        qa[kk][2] = g < group ? *reinterpret_cast<const uint32_t*>(qb + (size_t)g * D + c + 8) : 0u;
+        qa[kk][3] = g + 8 < group ? *reinterpret_cast<const uint32_t*>(qb + (size_t)(g + 8) * D + c + 8) : 0u;
+    }
+}
+
+// Paged decode's epilogue (K12, K13), called by every thread of the block:
+// merge the online-softmax states (m, l, acc of attend_tile) of warps
+// 0..NW-1 through the shared scratch `smem` (2 NW ROWS + ROWS + NW ROWS D
+// floats; warps >= NW hold no state), fold in the self column (k_row, v_row:
+// this request and kv head's in-flight K/V, or null) and write the group's
+// rows to `ob` [group, D].  The self column's p is rounded to bf16 for its
+// product, as in attend_tile; a row with no column at all writes zeros.
+template <int D, int NW, int ROWS>
+__device__ __forceinline__ void merge_fold_store(float* smem, const float (&m)[2], const float (&l)[2],
+                                                 const float (&acc)[D / 8][4], const bf16* qb, const bf16* k_row,
+                                                 const bf16* v_row, bf16* ob, int group, float scale_log2) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    float* m_s = smem;                 // [NW][ROWS]
+    float* l_s = m_s + NW * ROWS;      // [NW][ROWS]
+    float* self_s = l_s + NW * ROWS;   // [ROWS]
+    float* acc_s = self_s + ROWS;      // [NW][ROWS][D]
+    if (warp < NW) {
+        if (t == 0) {
+            m_s[warp * ROWS + g] = m[0];
+            m_s[warp * ROWS + g + 8] = m[1];
+            l_s[warp * ROWS + g] = l[0];
+            l_s[warp * ROWS + g + 8] = l[1];
+        }
+#pragma unroll
+        for (int dt = 0; dt < D / 8; ++dt) {
+            const int col = dt * 8 + 2 * t;
+            float* a0 = acc_s + ((size_t)warp * ROWS + g) * D + col;
+            float* a8 = acc_s + ((size_t)warp * ROWS + g + 8) * D + col;
+            a0[0] = acc[dt][0];
+            a0[1] = acc[dt][1];
+            a8[0] = acc[dt][2];
+            a8[1] = acc[dt][3];
+        }
+    }
+    // Self-column scores, one row per warp and pass (fp32 dot of bf16 inputs).
+    if (k_row != nullptr) {
+        for (int r = warp; r < group; r += blockDim.x >> 5) {
+            float s = 0.f;
+            for (int d = lane; d < D; d += 32) s += __bfloat162float(qb[(size_t)r * D + d]) * __bfloat162float(k_row[d]);
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+            if (lane == 0) self_s[r] = s * scale_log2;
+        }
+    }
+    __syncthreads();
+
+    for (int i = threadIdx.x; i < group * D; i += blockDim.x) {
+        const int r = i / D, d = i % D;
+        float mg = -INFINITY;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) mg = fmaxf(mg, m_s[w * ROWS + r]);
+        float lsum = 0.f, a = 0.f;
+        if (mg != -INFINITY) {
+#pragma unroll
+            for (int w = 0; w < NW; ++w) {
+                const float mw = m_s[w * ROWS + r];
+                if (mw == -INFINITY) continue;  // a warp that saw no column
+                const float sc = exp2f(mw - mg);
+                lsum += l_s[w * ROWS + r] * sc;
+                a += acc_s[((size_t)w * ROWS + r) * D + d] * sc;
+            }
+        }
+        if (v_row != nullptr) {
+            const float ss = self_s[r];
+            const float m_new = fmaxf(mg, ss);
+            const float alpha = exp2f(mg - m_new);  // mg = -inf (no cached row): 0
+            const float p = exp2f(ss - m_new);
+            lsum = lsum * alpha + p;
+            a = a * alpha + __bfloat162float(__float2bfloat16(p)) * __bfloat162float(v_row[d]);
+        }
+        ob[(size_t)r * D + d] = __float2bfloat16(lsum == 0.f ? 0.f : a / lsum);
     }
 }

@@ -6,14 +6,18 @@
 // the fold is omchat_tpu/ops/online_softmax.py:64 fold_self_column).
 //
 //   q            [B, H, D] bf16 (the [B, 1, H, D] query)
-//   k/v cache    [L, B, KVH, T, D] bf16; layer `layer` is reached by pointer
-//                offset, never sliced
+//   k/v cache    [L, B, KVH, T, D] bf16, or e4m3 through
+//                omchat_flash_decode_stacked_e4m3 (the fp8 cache); layer `layer`
+//                is reached by pointer offset, never sliced
 //   cache_len    [B] int32 valid rows in the cache, EXCLUDING the new token
 //   k_new/v_new  [B, KVH, D] bf16 the in-flight token's K/V
 //   out          [B, H, D] bf16
 //
 // Softmax in the natural-exp domain with scale D^-0.5, as the TPU kernel does;
-// p is rounded to bf16 for the PV product, l sums the fp32 p.
+// p is rounded to bf16 for the PV product, l sums the fp32 p.  An e4m3 cache
+// is widened to fp32 on load (exact), and p and the bf16 self column are not
+// rounded to it, as the TPU kernel casts K/V to q's dtype
+// (decode_attention.py:66,72).
 //
 // What bounds it on the H100: bytes.  At the main path's ~3.1k cached rows a
 // layer reads ~6.4 MB of K/V for ~1.6 MFLOP, ~2 us at 3.35 TB/s.  Design: one
@@ -30,10 +34,10 @@ namespace {
 constexpr int WARPS = 16;
 constexpr int MAX_GROUP = 8;
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(32 * WARPS)
-flash_decode_stacked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
-                            const bf16* __restrict__ v_cache, const int* __restrict__ cache_len, int layer,
+flash_decode_stacked_kernel(const bf16* __restrict__ q, const E* __restrict__ k_cache,
+                            const E* __restrict__ v_cache, const int* __restrict__ cache_len, int layer,
                             const bf16* __restrict__ k_new, const bf16* __restrict__ v_new, bf16* __restrict__ out,
                             int B, int KVH, int T, int group, float sm_scale) {
     constexpr int PER = D / 32;  // columns owned by a lane
@@ -72,16 +76,16 @@ flash_decode_stacked_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     }
 
     const size_t plane = (((size_t)layer * B + b) * KVH + kvh) * T * D;
-    const bf16* kc = k_cache + plane;
-    const bf16* vc = v_cache + plane;
+    const E* kc = k_cache + plane;
+    const E* vc = v_cache + plane;
     const int len = min(cache_len[b], T);
 
     for (int r = warp; r < len; r += WARPS) {
         float kf[PER], vf[PER];
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
-            kf[i] = __bfloat162float(kc[(size_t)r * D + d0 + i]);
-            vf[i] = __bfloat162float(vc[(size_t)r * D + d0 + i]);
+            kf[i] = to_f32(kc[(size_t)r * D + d0 + i]);
+            vf[i] = to_f32(vc[(size_t)r * D + d0 + i]);
         }
 #pragma unroll
         for (int gi = 0; gi < MAX_GROUP; ++gi) {
@@ -164,13 +168,16 @@ flash_decode_stacked_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     }
 }
 
-template <int D>
+template <int D, typename E>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* cache_len, int layer,
-           const void* k_new, const void* v_new, void* out, int B, int KVH, int T, int group, void* stream) {
+           const void* k_new, const void* v_new, void* out, int B, int KVH, int T, int D_arg, int group,
+           void* stream) {
+    if (group < 1 || group > MAX_GROUP) return (int)cudaErrorInvalidValue;
+    if (D_arg != D) return (int)cudaErrorInvalidValue;
     const float sm_scale = 1.f / sqrtf((float)D);
     dim3 grid(KVH, B);
-    flash_decode_stacked_kernel<D><<<grid, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k_cache, (const bf16*)v_cache, (const int*)cache_len, layer, (const bf16*)k_new,
+    flash_decode_stacked_kernel<D, E><<<grid, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+        (const bf16*)q, (const E*)k_cache, (const E*)v_cache, (const int*)cache_len, layer, (const bf16*)k_new,
         (const bf16*)v_new, (bf16*)out, B, KVH, T, group, sm_scale);
     return (int)cudaGetLastError();
 }
@@ -180,7 +187,12 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
 extern "C" int omchat_flash_decode_stacked(const void* q, const void* k_cache, const void* v_cache,
                                            const void* cache_len, int layer, const void* k_new, const void* v_new,
                                            void* out, int B, int KVH, int T, int D, int group, void* stream) {
-    if (group < 1 || group > MAX_GROUP) return (int)cudaErrorInvalidValue;
-    if (D != 128) return (int)cudaErrorInvalidValue;
-    return launch<128>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, group, stream);
+    return launch<128, bf16>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group, stream);
+}
+
+extern "C" int omchat_flash_decode_stacked_e4m3(const void* q, const void* k_cache, const void* v_cache,
+                                                const void* cache_len, int layer, const void* k_new,
+                                                const void* v_new, void* out, int B, int KVH, int T, int D, int group,
+                                                void* stream) {
+    return launch<128, e4m3>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group, stream);
 }

@@ -5,7 +5,8 @@
 // paged_flash_prefill (body _paged_prefill_kernel :385, pallas_call :514).
 //
 //   q            [B, C, H, D] bf16, already multiplied (in bf16) by D^-0.5 * log2(e)
-//   k/v_pages    [P, KVH, PS, D] bf16, one layer's page-major pool (PS % 64 == 0)
+//   k/v_pages    [P, KVH, PS, D] bf16, or e4m3 through omchat_paged_flash_prefill_e4m3
+//                (the fp8 pool), one layer's page-major pool (PS % 64 == 0)
 //   q_offset     [B] int32 position of the chunk's first row (page-aligned)
 //   kv_len       [B] int32 valid positions, this chunk's rows included
 //   tables       [B, *] int32 rows of `table_stride`, `width` entries used
@@ -25,7 +26,9 @@
 // The TPU kernel's grid re-walked the pages per (kv head, q block) and paid a
 // per-step issue cost; here each block walks only the tiles below its causal
 // diagonal and kv_len, and reads them straight from the pool.  No TMA, wgmma
-// or pipelining yet.
+// or pipelining yet.  An e4m3 pool is staged as stored and widened to bf16 in
+// registers; p is rounded to bf16, as the TPU kernel casts the pages to q's
+// dtype before its products (paged_attention.py:423,429).
 #include "common.cuh"
 
 namespace {
@@ -34,16 +37,15 @@ constexpr int ROWS = 16;      // query rows per block (one mma row tile per warp
 constexpr int KV_TILE = 64;   // kv rows per shared-memory tile
 constexpr int MAX_GROUP = 8;  // 256 threads
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(32 * MAX_GROUP)
-paged_flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-                           const bf16* __restrict__ v_pages, bf16* __restrict__ out, const int* __restrict__ q_offset,
-                           const int* __restrict__ kv_len, const int* __restrict__ tables, int C, int H, int KVH,
+paged_flash_prefill_kernel(const bf16* __restrict__ q, const E* __restrict__ k_pages, const E* __restrict__ v_pages,
+                           bf16* __restrict__ out, const int* __restrict__ q_offset, const int* __restrict__ kv_len, const int* __restrict__ tables, int C, int H, int KVH,
                            int PS, int table_stride, int width) {
-    constexpr int LD = D + 8;
+    constexpr int LD = D + 16 / (int)sizeof(E);  // padded smem row (bank spread), 16-byte aligned
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-    bf16* vs = ks + KV_TILE * LD;
+    E* ks = reinterpret_cast<E*>(smem_raw);
+    E* vs = ks + KV_TILE * LD;
 
     const int group = H / KVH;
     const int b = blockIdx.z;
@@ -88,7 +90,8 @@ paged_flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 
     const size_t page_elems = (size_t)KVH * PS * D;
     const size_t head_off = (size_t)kvh * PS * D;
-    constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+    constexpr int VEC = 16 / (int)sizeof(E);  // elements per 16-byte chunk
+    constexpr int CHUNKS = D / VEC;           // 16-byte chunks per row
     const int nthreads = blockDim.x;
 
     for (int j = 0; j < n_tiles; ++j) {
@@ -96,7 +99,7 @@ paged_flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
         const size_t base = (size_t)table[c0 / PS] * page_elems + head_off + (size_t)(c0 % PS) * D;
         __syncthreads();  // the previous tile is no longer read
         for (int idx = threadIdx.x; idx < KV_TILE * CHUNKS; idx += nthreads) {
-            const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
+            const int r = idx / CHUNKS, c = (idx % CHUNKS) * VEC;
             *reinterpret_cast<uint4*>(ks + r * LD + c) =
                 *reinterpret_cast<const uint4*>(k_pages + base + (size_t)r * D + c);
             *reinterpret_cast<uint4*>(vs + r * LD + c) =
@@ -118,17 +121,20 @@ paged_flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     store_rows<D>(acc, l, oa, ob);
 }
 
-template <int D>
+template <int D, typename E>
 int launch(const void* q, const void* k_pages, const void* v_pages, void* out, const void* q_offset,
-           const void* kv_len, const void* tables, int B, int C, int H, int KVH, int PS, int table_stride, int width,
-           void* stream) {
+           const void* kv_len, const void* tables, int B, int C, int H, int KVH, int PS, int D_arg, int table_stride,
+           int width, void* stream) {
+    if (KVH <= 0 || H % KVH != 0 || H / KVH > MAX_GROUP) return (int)cudaErrorInvalidValue;
+    if (D_arg != D || PS <= 0 || PS % KV_TILE != 0) return (int)cudaErrorInvalidValue;
+    if (B == 0 || C == 0) return 0;
     const int group = H / KVH;
-    const size_t smem = 2 * (size_t)KV_TILE * (D + 8) * sizeof(bf16);
-    cudaFuncSetAttribute(paged_flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const size_t smem = 2 * (size_t)KV_TILE * (D + 16 / sizeof(E)) * sizeof(E);
+    cudaFuncSetAttribute(paged_flash_prefill_kernel<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     dim3 grid((C + ROWS - 1) / ROWS, KVH, B);
-    paged_flash_prefill_kernel<D><<<grid, 32 * group, smem, (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k_pages, (const bf16*)v_pages, (bf16*)out, (const int*)q_offset,
-        (const int*)kv_len, (const int*)tables, C, H, KVH, PS, table_stride, width);
+    paged_flash_prefill_kernel<D, E><<<grid, 32 * group, smem, (cudaStream_t)stream>>>(
+        (const bf16*)q, (const E*)k_pages, (const E*)v_pages, (bf16*)out, (const int*)q_offset, (const int*)kv_len,
+        (const int*)tables, C, H, KVH, PS, table_stride, width);
     return (int)cudaGetLastError();
 }
 
@@ -137,9 +143,14 @@ int launch(const void* q, const void* k_pages, const void* v_pages, void* out, c
 extern "C" int omchat_paged_flash_prefill(const void* q, const void* k_pages, const void* v_pages, void* out,
                                           const void* q_offset, const void* kv_len, const void* tables, int B, int C,
                                           int H, int KVH, int PS, int D, int table_stride, int width, void* stream) {
-    if (KVH <= 0 || H % KVH != 0 || H / KVH > MAX_GROUP) return (int)cudaErrorInvalidValue;
-    if (D != 128 || PS <= 0 || PS % KV_TILE != 0) return (int)cudaErrorInvalidValue;
-    if (B == 0 || C == 0) return 0;
-    return launch<128>(q, k_pages, v_pages, out, q_offset, kv_len, tables, B, C, H, KVH, PS, table_stride, width,
-                       stream);
+    return launch<128, bf16>(q, k_pages, v_pages, out, q_offset, kv_len, tables, B, C, H, KVH, PS, D, table_stride,
+                             width, stream);
+}
+
+extern "C" int omchat_paged_flash_prefill_e4m3(const void* q, const void* k_pages, const void* v_pages, void* out,
+                                               const void* q_offset, const void* kv_len, const void* tables, int B,
+                                               int C, int H, int KVH, int PS, int D, int table_stride, int width,
+                                               void* stream) {
+    return launch<128, e4m3>(q, k_pages, v_pages, out, q_offset, kv_len, tables, B, C, H, KVH, PS, D, table_stride,
+                             width, stream);
 }

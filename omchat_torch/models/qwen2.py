@@ -3,7 +3,9 @@ trunk of ``omchat_tpu/models/qwen2.py``.
 
 GQA attention with qkv bias and no o-proj bias, RoPE (linear / dynamic-NTK),
 RMSNorm, SwiGLU MLP, optional tied lm_head.  The cache is one head-major
-tensor pair [L, B, KVH, T, D].
+tensor pair [L, B, KVH, T, D], in the weights' dtype or e4m3 (the fp8 cache:
+K/V rounded on every write with :func:`omchat_torch.ops.fp8.cast_to`, widened
+to q's dtype on every read).
 
 - Prefill (:func:`cache_attend`) writes each layer's K/V into its cache slice
   in place and runs causal attention against it (kernel K2 on CUDA).
@@ -33,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from omchat_torch.config import TextConfig
 from omchat_torch.ops.attention import PLAIN, attention, decode_attention
+from omchat_torch.ops.fp8 import cast_to
 from omchat_torch.ops.linear import dense, dense_prequant
 from omchat_torch.ops.norms import rms_norm, rmsnorm_quant
 from omchat_torch.ops.paged_attention import commit_rows, commit_rows_plain
@@ -53,6 +56,7 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> KVCache:
+    """A zeroed cache; ``dtype`` torch.float8_e4m3fn halves its bytes."""
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.attn_head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device), v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -144,15 +148,17 @@ def _decoder_layer_glue(cfg: TextConfig, x, layer: dict, cos, sin, attend):
 def cache_attend(attn_impl, write_pos, starts, kv_len, k_cache, v_cache, q, k, v, segment_ids=None):
     """Prefill cache handler for one layer: write K/V at ``write_pos`` [B]
     (``starts``: the same offsets as host ints) into the head-major cache
-    layer [B, KVH, T, D] in place and attend causally against it (``kv_len``
-    [B] valid length after the write).  With no cache (``k_cache is None``) it
-    attends over this call's K/V only, within ``segment_ids`` when given."""
+    layer [B, KVH, T, D] in place, rounded to the cache's dtype, and attend
+    causally against the cache (``kv_len`` [B] valid length after the write):
+    on an e4m3 cache the prompt's own attention sees the rounded K/V, as in
+    the JAX package.  With no cache (``k_cache is None``) it attends over this
+    call's K/V only, within ``segment_ids`` when given."""
     if k_cache is None:
         return attention(q, k, v, causal=True, impl=attn_impl, segment_ids=segment_ids)
     s = q.shape[1]
     for bi, wp in enumerate(starts):
-        k_cache[bi, :, wp : wp + s] = k[bi].transpose(0, 1).to(k_cache.dtype)
-        v_cache[bi, :, wp : wp + s] = v[bi].transpose(0, 1).to(v_cache.dtype)
+        k_cache[bi, :, wp : wp + s] = cast_to(k[bi].transpose(0, 1), k_cache.dtype)
+        v_cache[bi, :, wp : wp + s] = cast_to(v[bi].transpose(0, 1), v_cache.dtype)
     return attention(q, k_cache, v_cache, causal=True, q_offset=write_pos, kv_len=kv_len, impl=attn_impl,
                      kv_format="bntd")
 
@@ -161,8 +167,8 @@ def commit_decode_rows(cache: KVCache, write_pos: torch.Tensor, k_rows, v_rows, 
     """Commit the decode loop's staged K/V rows ([L, B, KVH, D]) into the
     stacked cache at ``write_pos`` [B], in place — the one write of the
     read-only-cache decode step.  Each (layer, batch) cache row is one "page"
-    of the row-commit kernel (K4 on CUDA); ``attn_impl="plain"`` writes with
-    the plain indexed assignment."""
+    of the row-commit kernel (K4 on CUDA, which rounds to an e4m3 cache
+    itself); ``attn_impl="plain"`` writes with the plain indexed assignment."""
     n_layers, b = k_rows.shape[0], k_rows.shape[1]
     rows = (
         torch.arange(n_layers, dtype=torch.int32, device=k_rows.device)[:, None] * b

@@ -16,6 +16,10 @@
 
 The references are the independent oracles (einsum + fp32 softmax with a
 -1e30 mask), as ``_xla_attention`` and ``self_column_reference`` are in JAX.
+The plain routes take an e4m3 (fp8) cache widened to q's dtype, which is
+exact; the decode route rounds the self column to the cache's dtype first, as
+the JAX package's XLA decode does (its ``self_column_reference`` concatenates
+``k_new.astype(k_cache.dtype)``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from omchat_torch.ops.fp8 import cast_to
 
 PLAIN = "plain"
 VJP = "vjp"
@@ -110,7 +116,8 @@ def attention(
     if impl == PLAIN:
         if kv_format == "bntd":
             k, v = k.transpose(1, 2), v.transpose(1, 2)
-        return attention_reference(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, segment_ids=segment_ids)
+        return attention_reference(q, k.to(q.dtype), v.to(q.dtype), causal=causal, q_offset=q_offset, kv_len=kv_len,
+                                   segment_ids=segment_ids)
     if impl == VJP:
         if q_offset is not None or kv_len is not None or kv_format != "btnd" or q.shape[1] != k.shape[1]:
             raise ValueError("attention impl 'vjp' is full-sequence self-attention: no cache, offsets or kv_len")
@@ -142,7 +149,9 @@ def decode_attention(
     in-flight token, whose K/V (k_new/v_new [B, KVH, D]) fold in as a self
     column.  Returns [B, 1, H, D]."""
     if impl == PLAIN:
-        return self_column_reference(q, k_cache[layer], v_cache[layer], cache_len, k_new, v_new)
+        kc, vc = k_cache[layer], v_cache[layer]
+        return self_column_reference(q, kc.to(q.dtype), vc.to(q.dtype), cache_len,
+                                     cast_to(k_new, kc.dtype).to(q.dtype), cast_to(v_new, vc.dtype).to(q.dtype))
     if impl is not None:
         raise ValueError(f"unknown attention impl {impl!r} (None or 'plain')")
     from omchat_torch.ops.decode_attention import flash_decode_stacked

@@ -23,6 +23,7 @@ import torch
 
 from omchat_torch.ops import kernel_lib
 from omchat_torch.ops.attention import per_batch
+from omchat_torch.ops.fp8 import E4M3, cast_to
 
 LOG2E = 1.4426950408889634
 # The JAX kernels' finite mask value (-0.7 * float32 max): a fully masked
@@ -34,12 +35,21 @@ _K1_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _K2_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    for t in tensors:
+def _require_cuda(name: str, *tensors: torch.Tensor, cache=()) -> str:
+    """Every operand on CUDA and bfloat16, but the ``cache`` operands (a K/V
+    cache or pool), which may be bfloat16 or e4m3, both of one dtype.  Returns
+    the suffix of the kernel's C entry point for the cache's dtype: "" or
+    "_e4m3"."""
+    for t in (*tensors, *cache):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+    for t in tensors:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
+    dtypes = {t.dtype for t in cache}
+    if len(dtypes) > 1 or not dtypes <= {torch.bfloat16, E4M3}:
+        raise TypeError(f"{name}: the CUDA kernel takes a bfloat16 or e4m3 cache of one dtype, got {dtypes}")
+    return "_e4m3" if E4M3 in dtypes else ""
 
 
 # ---------------------------------------------------------------------------
@@ -144,8 +154,9 @@ def flash_attention_plain(q, k, v, *, causal: bool, q_offset, kv_len, segment_id
     """The kernel's function, untiled.  q: [B, S, H, D]; k/v [B, KVH, T, D].
 
     q pre-scaled in its dtype, fp32 scores in the exp2 domain, the finite
-    mask value, p rounded to v's dtype for the PV product; a row with no
-    valid column outputs zeros."""
+    mask value, p rounded to v's dtype for the PV product (to e4m3 on an fp8
+    cache, as the TPU kernel's ``p.astype(v.dtype)``); a row with no valid
+    column outputs zeros."""
     B, S, H, D = q.shape
     KVH, T = k.shape[1], k.shape[2]
     G = H // KVH
@@ -165,7 +176,7 @@ def flash_attention_plain(q, k, v, *, causal: bool, q_offset, kv_len, segment_id
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bngst,bntd->bngsd", p.to(v.dtype).float(), v.float()) / l
+    o = torch.einsum("bngst,bntd->bngsd", cast_to(p, v.dtype).float(), v.float()) / l
     o = torch.where(mask.any(dim=-1)[:, None, None, :, None], o, torch.zeros((), device=dev))
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
 
@@ -182,8 +193,9 @@ def flash_attention(
     segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Flash attention forward.  q: [B, S, H, D]; k/v: [B, T, KVH, D]
-    ("btnd") or [B, KVH, T, D] ("bntd", the cache layout the kernel reads).
-    Returns [B, S, H, D] in q.dtype; semantics of ``attention_reference``."""
+    ("btnd") or [B, KVH, T, D] ("bntd", the cache layout the kernel reads;
+    bfloat16 or e4m3 on CUDA).  Returns [B, S, H, D] in q.dtype; semantics of
+    ``attention_reference``."""
     if kv_format == "btnd":
         k, v = k.transpose(1, 2), v.transpose(1, 2)
     elif kv_format != "bntd":
@@ -192,7 +204,7 @@ def flash_attention(
     KVH, T = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, segment_ids=segment_ids)
-    _require_cuda("flash_attention", q, k, v)
+    suffix = _require_cuda("flash_attention", q, cache=(k, v))
     if segment_ids is not None:
         raise NotImplementedError("flash_attention: segment_ids packing has no CUDA kernel yet")
     if D != 128 or H % KVH != 0 or H // KVH > 8:
@@ -203,7 +215,7 @@ def flash_attention(
     kvl = per_batch(kv_len, B, T, q.device)
     out = torch.empty_like(qs)
     kernel_lib.launch(
-        "flash_attention.cu", "omchat_flash_attention", _K2_ARGS,
+        "flash_attention.cu", "omchat_flash_attention" + suffix, _K2_ARGS,
         *map(kernel_lib.ptr, (qs, k, v, out, q_off, kvl)), B, S, H, KVH, T, D, int(causal),
         kernel_lib.stream_ptr(q.device),
     )

@@ -33,6 +33,7 @@ SOURCES = (
     "flash_decode_stacked.cu",
     "commit_rows.cu",
     "paged_flash_decode.cu",
+    "paged_flash_decode_manual.cu",
     "paged_flash_prefill.cu",
     "commit_pages.cu",
     "norm_quant.cu",

@@ -3,12 +3,17 @@ the in-place row and page commits.
 
 PyTorch port of ``omchat_tpu/ops/paged_attention.py``.  K/V live in a shared
 page-major pool ``[P, KVH, page_size, D]`` (one page holds every kv head's
-slice); each request maps logical blocks to physical pages through a page
-table.  Four kernels:
+slice), in bfloat16 or e4m3 (the fp8 pool: every store rounds with
+:func:`omchat_torch.ops.fp8.to_e4m3`, every read widens to q's dtype); each
+request maps logical blocks to physical pages through a page table.  Five
+kernels:
 
 - K12 :func:`paged_flash_decode` — one query token per request through its
   page table, with the in-flight token folded in as a self column
   (``omchat_torch/csrc/paged_flash_decode.cu``);
+- K13 :func:`paged_flash_decode_manual` — K12's function with the pages
+  streamed through a ring of bulk asynchronous copies
+  (``omchat_torch/csrc/paged_flash_decode_manual.cu``);
 - K14 :func:`paged_flash_prefill` — a causal prefill chunk attending through
   the page tables (``omchat_torch/csrc/paged_flash_prefill.cu``);
 - K4 :func:`commit_rows` — single-token rows written in place
@@ -32,10 +37,11 @@ import torch
 from omchat_torch.ops import kernel_lib
 from omchat_torch.ops.attention import PLAIN, attention_reference, per_batch, self_column_reference
 from omchat_torch.ops.flash_attention import LOG2E, _prescale_q, _require_cuda, flash_attention_plain
+from omchat_torch.ops.fp8 import cast_to
 
 # C signatures:
 # K4  k_pool, v_pool, pages, offsets, k_rows, v_rows, N, KVH, PS, D, stream
-# K12 q, k_pages, v_pages, lengths, tables, k_new, v_new, out,
+# K12, K13 q, k_pages, v_pages, lengths, tables, k_new, v_new, out,
 #     B, H, KVH, PS, D, table_stride, width, page_offset, stream
 # K14 q, k_pages, v_pages, out, q_offset, kv_len, tables,
 #     B, C, H, KVH, PS, D, table_stride, width, stream
@@ -95,31 +101,63 @@ def _table_arg(page_tables: torch.Tensor, device) -> torch.Tensor:
 def paged_flash_decode_plain(q, k_pages, v_pages, lengths, page_tables, k_new=None, v_new=None, *,
                              page_offset: int = 0):
     """The kernel's function, untiled: columns below ``lengths[b]`` of the
-    pages ``page_tables[b] + page_offset`` (at most the table's width), plus
-    the in-flight token as one always-valid column when ``k_new`` is given.
-    fp32 scores in the exp2 domain (scale D^-0.5 * log2 e), p rounded to the
-    pool dtype for the PV product, l summing the fp32 p; a request with no
-    valid column outputs zeros.  q [B, 1, H, D] → [B, 1, H, D]."""
+    pages ``page_tables[b] + page_offset`` (at most the table's width), read
+    in q's dtype (an e4m3 pool widened, as the TPU kernel's
+    ``astype(q.dtype)``), plus the in-flight token as one always-valid column
+    in q's dtype when ``k_new`` is given.  fp32 scores in the exp2 domain
+    (scale D^-0.5 * log2 e), p rounded to q's dtype for the PV product, l
+    summing the fp32 p; a request with no valid column outputs zeros.
+    q [B, 1, H, D] → [B, 1, H, D]."""
     B, _, H, D = q.shape
     _, KVH, PS, _ = k_pages.shape
     G = H // KVH
     dev = q.device
     k, v = _gather_pages(k_pages, v_pages, _int32(page_tables, dev) + page_offset)  # [B, KVH, T, D]
+    k, v = k.to(q.dtype), v.to(q.dtype)
     T = k.shape[2]
     qg = q[:, 0].reshape(B, KVH, G, D).float()
     s = torch.einsum("bngd,bntd->bngt", qg, k.float()) * (D**-0.5 * LOG2E)
     valid = torch.arange(T, device=dev)[None, :] < per_batch(lengths, B, 0, dev)[:, None]
     s = torch.where(valid[:, None, None, :], s, torch.tensor(float("-inf"), device=dev))
     if k_new is not None:
-        s_self = torch.einsum("bngd,bnd->bng", qg, k_new.to(k_pages.dtype).float()) * (D**-0.5 * LOG2E)
+        s_self = torch.einsum("bngd,bnd->bng", qg, k_new.to(q.dtype).float()) * (D**-0.5 * LOG2E)
         s = torch.cat([s, s_self[..., None]], dim=-1)
-        v = torch.cat([v, v_new.to(v_pages.dtype)[:, :, None]], dim=2)
+        v = torch.cat([v, v_new.to(q.dtype)[:, :, None]], dim=2)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bngt,bntd->bngd", p.to(v.dtype).float(), v.float())
     o = o / torch.where(l == 0, torch.ones_like(l), l)
     return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _launch_paged_decode(name, source, q, k_pages, v_pages, lengths, page_tables, k_new, v_new, page_offset):
+    """Check the operands of K12 or K13 (one contract) and launch the kernel
+    of ``source`` for the pool's dtype; returns [B, 1, H, D]."""
+    B, S, H, D = q.shape
+    _, KVH, PS, _ = k_pages.shape
+    self_col = k_new is not None
+    suffix = _require_cuda(name, q, *((k_new, v_new) if self_col else ()), cache=(k_pages, v_pages))
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or k_pages.shape != v_pages.shape:
+        raise ValueError(f"{name}: the pools must be contiguous and of one shape")
+    if S != 1 or D != 128 or PS != 128 or H % KVH or H // KVH > 16:
+        raise ValueError(f"{name}: unsupported shape q={tuple(q.shape)} pool={tuple(k_pages.shape)}")
+    if self_col and not (k_new.shape == v_new.shape == (B, KVH, D)):
+        raise ValueError(f"{name}: the self column must be [B, KVH, D], got {tuple(k_new.shape)}")
+    qc = q.contiguous()
+    tables = _table_arg(page_tables, q.device)
+    lens = _int32(lengths, q.device).expand(B).contiguous()
+    kn = k_new.contiguous() if self_col else None
+    vn = v_new.contiguous() if self_col else None
+    out = torch.empty_like(qc)
+    null = ctypes.c_void_p(0)
+    kernel_lib.launch(
+        source, "omchat_" + name + suffix, _K12_ARGS,
+        *map(kernel_lib.ptr, (qc, k_pages, v_pages, lens, tables)),
+        kernel_lib.ptr(kn) if self_col else null, kernel_lib.ptr(vn) if self_col else null, kernel_lib.ptr(out),
+        B, H, KVH, PS, D, tables.stride(0), tables.shape[1], int(page_offset), kernel_lib.stream_ptr(q.device),
+    )
+    return out
 
 
 def paged_flash_decode(
@@ -136,37 +174,17 @@ def paged_flash_decode(
     """Decode attention over paged KV.
 
     q [B, 1, H, D]; k/v_pages [NP, KVH, page_size, D] (page-major, e.g. the
-    flat ``[L*(P+1), ...]`` view of a layered pool); lengths [B] int32 valid
-    rows; page_tables [B, W] int32, offset by ``page_offset`` (the layer's
-    first page in a flat pool).  ``k_new``/``v_new`` [B, KVH, D]: the in-flight
-    token's K/V as a self column (``lengths`` then EXCLUDES it).  Only the
-    pages below ``ceil(length / page_size)`` are read.  Returns [B, 1, H, D]."""
+    flat ``[L*(P+1), ...]`` view of a layered pool; bfloat16 or e4m3 on
+    CUDA); lengths [B] int32 valid rows; page_tables [B, W] int32, offset by
+    ``page_offset`` (the layer's first page in a flat pool).
+    ``k_new``/``v_new`` [B, KVH, D]: the in-flight token's K/V as a self
+    column (``lengths`` then EXCLUDES it).  Only the pages below
+    ``ceil(length / page_size)`` are read.  Returns [B, 1, H, D]."""
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pages, v_pages, lengths, page_tables, k_new, v_new,
                                         page_offset=page_offset)
-    B, S, H, D = q.shape
-    _, KVH, PS, _ = k_pages.shape
-    self_col = k_new is not None
-    _require_cuda("paged_flash_decode", q, k_pages, v_pages, *((k_new, v_new) if self_col else ()))
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or k_pages.shape != v_pages.shape:
-        raise ValueError("paged_flash_decode: the pools must be contiguous and of one shape")
-    if S != 1 or D != 128 or PS != 128 or H % KVH or H // KVH > 16:
-        raise ValueError(f"paged_flash_decode: unsupported shape q={tuple(q.shape)} pool={tuple(k_pages.shape)}")
-    if self_col and not (k_new.shape == v_new.shape == (B, KVH, D)):
-        raise ValueError(f"paged_flash_decode: the self column must be [B, KVH, D], got {tuple(k_new.shape)}")
-    qc = q.contiguous()
-    tables = _table_arg(page_tables, q.device)
-    lens = _int32(lengths, q.device).expand(B).contiguous()
-    kn = k_new.contiguous() if self_col else None
-    vn = v_new.contiguous() if self_col else None
-    out = torch.empty_like(qc)
-    null = ctypes.c_void_p(0)
-    kernel_lib.launch(
-        "paged_flash_decode.cu", "omchat_paged_flash_decode", _K12_ARGS,
-        *map(kernel_lib.ptr, (qc, k_pages, v_pages, lens, tables)),
-        kernel_lib.ptr(kn) if self_col else null, kernel_lib.ptr(vn) if self_col else null, kernel_lib.ptr(out),
-        B, H, KVH, PS, D, tables.stride(0), tables.shape[1], int(page_offset), kernel_lib.stream_ptr(q.device),
-    )
+    out = _launch_paged_decode("paged_flash_decode", "paged_flash_decode.cu", q, k_pages, v_pages, lengths,
+                               page_tables, k_new, v_new, page_offset)
     paged_flash_decode.launches += 1
     return out
 
@@ -174,17 +192,64 @@ def paged_flash_decode(
 paged_flash_decode.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K13: the same function, pages streamed through a ring of bulk copies
+# ---------------------------------------------------------------------------
+
+
+def paged_flash_decode_manual_plain(q, k_pages, v_pages, lengths, page_tables, k_new=None, v_new=None, *,
+                                    page_offset: int = 0):
+    """K13's function, which is K12's (:func:`paged_flash_decode_plain`): the
+    TPU kernels differ only in how the pages reach VMEM."""
+    return paged_flash_decode_plain(q, k_pages, v_pages, lengths, page_tables, k_new, v_new, page_offset=page_offset)
+
+
+def paged_flash_decode_manual(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_tables: torch.Tensor,
+    k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
+    *,
+    page_offset: int = 0,
+) -> torch.Tensor:
+    """:func:`paged_flash_decode`'s contract, on the manual-copy kernel: a
+    producer warp streams each (kv head, request)'s page slices through a
+    ring of ``cp.async.bulk`` copies completing on mbarriers while consumer
+    warps run the online softmax (the counterpart of the TPU kernel's NBUF
+    ring of async copies).  Returns [B, 1, H, D]."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_manual_plain(q, k_pages, v_pages, lengths, page_tables, k_new, v_new,
+                                               page_offset=page_offset)
+    out = _launch_paged_decode("paged_flash_decode_manual", "paged_flash_decode_manual.cu", q, k_pages, v_pages,
+                               lengths, page_tables, k_new, v_new, page_offset)
+    paged_flash_decode_manual.launches += 1
+    return out
+
+
+paged_flash_decode_manual.launches = 0
+
+DECODE_KERNELS = {"auto": paged_flash_decode, "manual": paged_flash_decode_manual}
+
+
 def paged_decode_attention(q, k_pages, v_pages, lengths, page_tables, *, impl: Optional[str] = None,
-                           k_new=None, v_new=None, page_offset: int = 0):
-    """Dispatcher: K12 (:func:`paged_flash_decode`) for ``impl=None``; for
-    "plain", the gathered pages through the plain reference
-    attention (the counterpart of the JAX package's XLA route).
+                           k_new=None, v_new=None, page_offset: int = 0, kernel: str = "auto"):
+    """Dispatcher: for ``impl=None`` the kernel ``kernel`` names, K12
+    (:func:`paged_flash_decode`, "auto") or K13
+    (:func:`paged_flash_decode_manual`, "manual"); for "plain", the gathered
+    pages in q's dtype through the plain reference attention (the
+    counterpart of the JAX package's XLA route, which ignores ``kernel``).
 
     ``k_new``/``v_new`` [B, KVH, D]: self-column mode — the in-flight token's
     K/V fold into the softmax instead of being read back from the pool, and
     ``lengths`` EXCLUDES that token."""
+    if kernel not in DECODE_KERNELS:
+        raise ValueError(f"unknown decode kernel {kernel!r} (auto or manual)")
     if impl is None:
-        return paged_flash_decode(q, k_pages, v_pages, lengths, page_tables, k_new, v_new, page_offset=page_offset)
+        return DECODE_KERNELS[kernel](q, k_pages, v_pages, lengths, page_tables, k_new, v_new,
+                                      page_offset=page_offset)
     if impl != PLAIN:
         raise ValueError(f"unknown paged attention impl {impl!r} (None or 'plain')")
     k, v = _gather_pages(k_pages, v_pages, _int32(page_tables, q.device) + page_offset)
@@ -200,10 +265,12 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_tables, *, impl: O
 
 
 def paged_flash_prefill_plain(q, k_pages, v_pages, kv_len, page_tables, q_offset):
-    """The kernel's function: the page-mapped K/V gathered contiguous, then
-    K2's plain causal attention (the kernel shares K2's arithmetic)."""
+    """The kernel's function: the page-mapped K/V gathered contiguous in q's
+    dtype (an e4m3 pool widened, as the TPU kernel's ``astype(q.dtype)``, so
+    p is rounded to q's dtype), then K2's plain causal attention (the kernel
+    shares K2's arithmetic)."""
     k, v = _gather_pages(k_pages, v_pages, _int32(page_tables, q.device))
-    return flash_attention_plain(q, k, v, causal=True, q_offset=q_offset, kv_len=kv_len)
+    return flash_attention_plain(q, k.to(q.dtype), v.to(q.dtype), causal=True, q_offset=q_offset, kv_len=kv_len)
 
 
 def paged_flash_prefill(
@@ -218,14 +285,15 @@ def paged_flash_prefill(
     request b sits at position ``q_offset[b] + i`` and sees the columns
     ``<= q_offset[b] + i`` and ``< kv_len[b]`` of its page-mapped sequence.
 
-    q [B, C, H, D]; k/v_pages [P, KVH, page_size, D] (one layer's pool);
+    q [B, C, H, D]; k/v_pages [P, KVH, page_size, D] (one layer's pool,
+    bfloat16 or e4m3 on CUDA);
     kv_len, q_offset [B] or scalar; page_tables [B, W] int32.  Returns
     [B, C, H, D]; rows past a request's chunk length are padding."""
     if q.device.type == "cpu":
         return paged_flash_prefill_plain(q, k_pages, v_pages, kv_len, page_tables, q_offset)
     B, C, H, D = q.shape
     _, KVH, PS, _ = k_pages.shape
-    _require_cuda("paged_flash_prefill", q, k_pages, v_pages)
+    suffix = _require_cuda("paged_flash_prefill", q, cache=(k_pages, v_pages))
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or k_pages.shape != v_pages.shape:
         raise ValueError("paged_flash_prefill: the pools must be contiguous and of one shape")
     if D != 128 or PS % 64 or H % KVH or H // KVH > 8:
@@ -236,7 +304,7 @@ def paged_flash_prefill(
     kvl = per_batch(kv_len, B, 0, q.device)
     out = torch.empty_like(qs)
     kernel_lib.launch(
-        "paged_flash_prefill.cu", "omchat_paged_flash_prefill", _K14_ARGS,
+        "paged_flash_prefill.cu", "omchat_paged_flash_prefill" + suffix, _K14_ARGS,
         *map(kernel_lib.ptr, (qs, k_pages, v_pages, out, q_off, kvl, tables)),
         B, C, H, KVH, PS, D, tables.stride(0), tables.shape[1], kernel_lib.stream_ptr(q.device),
     )
@@ -269,11 +337,12 @@ def paged_prefill_attention(q, k_pages, v_pages, kv_len, page_tables, q_offset, 
 
 
 def commit_rows_plain(k_pool, v_pool, pages, offsets, k_rows, v_rows):
-    """``pool[pages[i], :, offsets[i]] = rows[i]`` in place."""
+    """``pool[pages[i], :, offsets[i]] = rows[i]`` in place, rounded to the
+    pool's dtype (:func:`~omchat_torch.ops.fp8.cast_to`)."""
     pages = torch.as_tensor(pages, dtype=torch.long, device=k_pool.device)
     offsets = torch.as_tensor(offsets, dtype=torch.long, device=k_pool.device)
-    k_pool[pages, :, offsets] = k_rows.to(k_pool.dtype)
-    v_pool[pages, :, offsets] = v_rows.to(v_pool.dtype)
+    k_pool[pages, :, offsets] = cast_to(k_rows, k_pool.dtype)
+    v_pool[pages, :, offsets] = cast_to(v_rows, v_pool.dtype)
     return k_pool, v_pool
 
 
@@ -287,28 +356,26 @@ def commit_rows(
 ):
     """Write N single-token K/V rows into the pools IN PLACE.
 
-    k/v_pool [P, KVH, PS, D]; pages, offsets [N] int32; k/v_rows [N, KVH, D].
-    The pools are updated in place — PyTorch's counterpart of the TPU call's
+    k/v_pool [P, KVH, PS, D]; pages, offsets [N] int32; k/v_rows [N, KVH, D]
+    (on CUDA: bfloat16 rows into a bfloat16 or e4m3 pool, rounded in the
+    kernel as :func:`~omchat_torch.ops.fp8.to_e4m3` rounds).  The pools are
+    updated in place — PyTorch's counterpart of the TPU call's
     ``input_output_aliases`` — and returned.  Only the N target rows change;
     every other byte of the pools is left as it was.  Rows sharing a
     (page, offset) race; only the parking page receives such rows."""
     if k_pool.device.type == "cpu":
         return commit_rows_plain(k_pool, v_pool, pages, offsets, k_rows, v_rows)
-    for t in (k_pool, v_pool, k_rows, v_rows):
-        if t.device.type != "cuda":
-            raise ValueError(f"commit_rows: expected CUDA tensors, got {t.device}")
+    suffix = _require_cuda("commit_rows", k_rows, v_rows, cache=(k_pool, v_pool))
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()) or k_pool.shape != v_pool.shape:
         raise ValueError("commit_rows: the pools must be contiguous and of one shape")
-    if k_pool.dtype != torch.bfloat16 or v_pool.dtype != torch.bfloat16:
-        raise TypeError(f"commit_rows: the CUDA kernel takes a bfloat16 cache, got {k_pool.dtype}")
     P, KVH, PS, D = k_pool.shape
     n = int(pages.shape[0])
-    kr = k_rows.to(k_pool.dtype).reshape(n, KVH, D).contiguous()
-    vr = v_rows.to(v_pool.dtype).reshape(n, KVH, D).contiguous()
+    kr = k_rows.reshape(n, KVH, D).contiguous()
+    vr = v_rows.reshape(n, KVH, D).contiguous()
     pg = _int32(pages, k_pool.device).contiguous()
     of = _int32(offsets, k_pool.device).contiguous()
     kernel_lib.launch(
-        "commit_rows.cu", "omchat_commit_rows", _K4_ARGS,
+        "commit_rows.cu", "omchat_commit_rows" + suffix, _K4_ARGS,
         *map(kernel_lib.ptr, (k_pool, v_pool, pg, of, kr, vr)), n, KVH, PS, D, kernel_lib.stream_ptr(k_pool.device),
     )
     commit_rows.launches += 1
@@ -334,11 +401,12 @@ def _chunk_groups(chunks: torch.Tensor) -> torch.Tensor:
 
 def commit_pages_plain(k_pool, v_pool, pages, k_chunks, v_chunks):
     """``pool[pages[m]] = chunks[m]`` in place (chunks flattened to
-    [M, KVH, ps, D] in row-major order of their leading dims)."""
+    [M, KVH, ps, D] in row-major order of their leading dims), rounded to the
+    pool's dtype (:func:`~omchat_torch.ops.fp8.cast_to`)."""
     pages = torch.as_tensor(pages, dtype=torch.long, device=k_pool.device)
     shape = k_pool.shape[1:]
-    k_pool[pages] = k_chunks.reshape(-1, *shape).to(k_pool.dtype)
-    v_pool[pages] = v_chunks.reshape(-1, *shape).to(v_pool.dtype)
+    k_pool[pages] = cast_to(k_chunks.reshape(-1, *shape), k_pool.dtype)
+    v_pool[pages] = cast_to(v_chunks.reshape(-1, *shape), v_pool.dtype)
     return k_pool, v_pool
 
 
@@ -355,12 +423,14 @@ def commit_pages(
     pool); pages [M] int32 destination pages; k/v_chunks [M, KVH, ps, D], or
     a strided view [G, C, KVH, ps, D] with M = G*C whose page rows are
     contiguous per head — the engine passes the scratch cache
-    [L*B, KVH, T, D] seen as [L*B, C, KVH, ps, D] without copying it.
+    [L*B, KVH, T, D] seen as [L*B, C, KVH, ps, D] without copying it.  On
+    CUDA the chunks are bfloat16 and the pool bfloat16 or e4m3 (rounded in the
+    kernel as :func:`~omchat_torch.ops.fp8.to_e4m3` rounds).
     Duplicate destinations (the parking page) write garbage over garbage in
     no defined order; nothing asserts uniqueness."""
     if k_pool.device.type == "cpu":
         return commit_pages_plain(k_pool, v_pool, pages, k_chunks, v_chunks)
-    _require_cuda("commit_pages", k_pool, v_pool, k_chunks, v_chunks)
+    suffix = _require_cuda("commit_pages", k_chunks, v_chunks, cache=(k_pool, v_pool))
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()) or k_pool.shape != v_pool.shape:
         raise ValueError("commit_pages: the pools must be contiguous and of one shape")
     _, KVH, PS, D = k_pool.shape
@@ -368,16 +438,20 @@ def commit_pages(
     G, C = kc.shape[:2]
     if kc.shape != (G, C, KVH, PS, D) or vc.shape != kc.shape or kc.stride() != vc.stride():
         raise ValueError(f"commit_pages: chunks {tuple(kc.shape)} do not match the pool's pages {(KVH, PS, D)}")
+    # the kernel reads 16-byte vectors of 8 source values and writes each as 8
+    # pool values (16 bytes in bf16, 8 in e4m3)
     sg, sc, sh, sr, sd = kc.stride()
     if sd != 1 or sr != D or any(s % 8 for s in (sg, sc, sh)) or any(t.data_ptr() % 16 for t in (kc, vc)):
         raise ValueError("commit_pages: each chunk's page rows must be contiguous and 16-byte aligned")
+    if (PS * D) % 8 or any(t.data_ptr() % (8 * t.element_size()) for t in (k_pool, v_pool)):
+        raise ValueError("commit_pages: the pool's pages must hold whole 8-value vectors, aligned")
     pg = _int32(pages, k_pool.device).contiguous()
     if pg.numel() != G * C:
         raise ValueError(f"commit_pages: {pg.numel()} pages for {G * C} chunks")
     if G * C == 0:
         return k_pool, v_pool
     kernel_lib.launch(
-        "commit_pages.cu", "omchat_commit_pages", _K15_ARGS,
+        "commit_pages.cu", "omchat_commit_pages" + suffix, _K15_ARGS,
         *map(kernel_lib.ptr, (k_pool, v_pool, pg, kc, vc)), G * C, C, sg, sc, sh, KVH, PS, D,
         kernel_lib.stream_ptr(k_pool.device),
     )

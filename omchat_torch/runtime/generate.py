@@ -84,7 +84,9 @@ class OmChatEngine:
     plain versions on CPU tensors); ``"plain"`` runs the plain reference
     attention everywhere — chosen only explicitly.  ``prompt_bucket``: merged
     prompts pad to a multiple of it.  ``image_cache_size``: entries in the
-    encoded-image LRU (0 disables it).
+    encoded-image LRU (0 disables it).  ``cache_dtype``: the KV cache's
+    storage dtype, default the weights'; ``torch.float8_e4m3fn`` halves the
+    cache's bytes (K/V rounded on write, widened on read by the kernels).
 
     After :meth:`generate`, ``spans`` holds the stage times in seconds
     (``encode_images``, ``prefill``, ``ttft``, ``decode``), ``decode_steps``
@@ -98,11 +100,13 @@ class OmChatEngine:
         attn_impl: Optional[str] = None,
         prompt_bucket: int = PROMPT_BUCKET,
         image_cache_size: int = 8,
+        cache_dtype: Optional[torch.dtype] = None,
         device=None,
     ):
         self.cfg = cfg
         self.params = params
         self.attn_impl = attn_impl
+        self.cache_dtype = cache_dtype
         self.prompt_bucket = prompt_bucket
         self.image_cache = ImageFeatureCache(image_cache_size) if image_cache_size else None
         self.device = resolve_device(device)
@@ -152,7 +156,7 @@ class OmChatEngine:
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         embeds = fuse_embeddings(self.params, t(plan.token_ids), t(plan.is_image), t(plan.image_index), image_features)
         b = embeds.shape[0]
-        cache = init_kv_cache(self.cfg.text, b, cache_len, dtype=embeds.dtype, device=dev)
+        cache = init_kv_cache(self.cfg.text, b, cache_len, dtype=self.cache_dtype or embeds.dtype, device=dev)
         lengths = t(plan.lengths)
         hidden, cache = decoder_forward(
             lm, self.cfg.text, embeds, t(plan.positions), cache,

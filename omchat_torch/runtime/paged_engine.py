@@ -18,8 +18,16 @@ table.  One :meth:`PagedBatchEngine.step` (a scheduler tick):
    width together;
 4. runs one decode roll of ``decode_roll`` steps over every decoding slot
    (:func:`_paged_decode_roll`): each step runs every layer with the pool
-   read-only (K12 with the in-flight token as a self column) and commits all
-   layers' new rows once (K4); the tokens come back to the host once per roll.
+   read-only (K12, or with ``decode_kernel="manual"`` K13, with the in-flight
+   token as a self column) and commits all layers' new rows once (K4); the
+   tokens come back to the host once per roll.
+
+``cache_dtype=torch.float8_e4m3fn`` keeps the pool in e4m3 (half the bytes a
+page): short prompts still prefill into a scratch cache of the weights' dtype
+and K15 rounds their pages on commit; a chunk's K/V are rounded as they are
+written into its pages, which K14 then reads; decode folds the in-flight token
+in unrounded and K4 rounds it on commit.  Every rounding is
+:func:`omchat_torch.ops.fp8.to_e4m3`'s, the JAX package's ``astype``.
 
 Under w8a8 (``cfg.w8a8`` with int8 params) the short prefills and the
 chunks run the glue layer of :func:`~omchat_torch.models.qwen2.decoder_layer`
@@ -32,8 +40,7 @@ attention and plain commits everywhere.
 
 Waiting for later slices, each raising ``NotImplementedError`` rather than
 being ignored: the prefix cache, speculative verify, pipelined and streaming
-rolls, logprobs, a pool dtype other than the weights' (fp8), the manual-copy
-decode kernel (K13), a device mesh, the MoE trunk, and presence / frequency
+rolls, logprobs, a device mesh, the MoE trunk, and presence / frequency
 penalties.  The JAX engine's ``precompile`` has no counterpart: PyTorch runs
 eagerly, so there is no program menu to compile ahead of traffic.
 """
@@ -54,8 +61,10 @@ from omchat_torch.config import OmChatConfig
 from omchat_torch.models.omchat import fuse_embeddings
 from omchat_torch.models.qwen2 import decoder_layer, embed_tokens, lm_head, quant_glue_ok
 from omchat_torch.ops.attention import PLAIN
+from omchat_torch.ops.fp8 import cast_to
 from omchat_torch.ops.norms import rms_norm
 from omchat_torch.ops.paged_attention import (
+    DECODE_KERNELS,
     PageAllocator,
     commit_pages,
     commit_pages_plain,
@@ -108,17 +117,18 @@ def _commit_pages(slot_k, slot_v, k_pool, v_pool, tables: np.ndarray, n_pages: n
 
 
 def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
-                      attn_impl: Optional[str] = None, *, sampling: Optional[dict] = None,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      attn_impl: Optional[str] = None, *, decode_kernel: str = "auto",
+                      sampling: Optional[dict] = None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One decode step over every slot against the page pool; returns the
     next tokens [S] (int32) and commits the step's K/V rows in place.
 
     tokens, lengths (valid rows already in pages), active [S]; tables [S, W]
     (parked rows for inactive slots), all on the pools' device.  The layer
     body is the shared :func:`~omchat_torch.models.qwen2.decoder_layer`; only
-    ``attend`` differs: K12 over the flat pool ``[L*(P+1), KVH, page, D]``
-    (layer li's pages at ``li*(P+1) + page``), READ-ONLY through the layer
-    loop, with the in-flight token as a self column.  Each layer hands back
+    ``attend`` differs: K12 (``decode_kernel="manual"``: K13) over the flat
+    pool ``[L*(P+1), KVH, page, D]`` (layer li's pages at ``li*(P+1) +
+    page``), READ-ONLY through the layer loop, with the in-flight token as a
+    self column.  Each layer hands back
     its new K/V rows, and one row commit (K4) writes all layers' rows after
     the loop.  ``sampling``: per-slot do_sample / temperature / top_k / top_p
     tensors, drawn with ``generator``; None decodes greedily."""
@@ -144,7 +154,8 @@ def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables
             k_rows.append(k[:, 0])
             v_rows.append(v[:, 0])
             return paged_decode_attention(q, kflat, vflat, attn_lengths, tables, impl=attn_impl,
-                                          k_new=k[:, 0], v_new=v[:, 0], page_offset=li * n_slots)
+                                          k_new=k[:, 0], v_new=v[:, 0], page_offset=li * n_slots,
+                                          kernel=decode_kernel)
 
         x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend)
     flat_pages = (torch.arange(n_layers, dtype=torch.int32, device=tokens.device)[:, None] * n_slots
@@ -161,8 +172,8 @@ def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables
 
 
 def _paged_decode_roll(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
-                       attn_impl: Optional[str], steps: int, *, sampling: Optional[dict] = None,
-                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                       attn_impl: Optional[str], steps: int, *, decode_kernel: str = "auto",
+                       sampling: Optional[dict] = None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """``steps`` decode iterations issued back to back on the device; returns
     the [steps, S] tokens without reading them back.  Requests that hit EOS
     or their budget mid-roll keep decoding into their own headroom pages (the
@@ -171,7 +182,7 @@ def _paged_decode_roll(params, cfg: OmChatConfig, tokens, lengths, active, table
     out = []
     for _ in range(steps):
         tokens = _decode_step_core(params, cfg, tokens, lengths, active, tables, k_pool, v_pool, page_size,
-                                   attn_impl, sampling=sampling, generator=generator)
+                                   attn_impl, decode_kernel=decode_kernel, sampling=sampling, generator=generator)
         out.append(tokens)
         lengths = torch.where(active, lengths + 1, lengths)
     return torch.stack(out)
@@ -181,9 +192,9 @@ def _paged_prefill_chunk(params, cfg: OmChatConfig, token_ids, is_image, image_i
                          chunk_start: np.ndarray, chunk_len: np.ndarray, tables: np.ndarray, k_pool, v_pool,
                          page_size: int, attn_impl: Optional[str] = None) -> torch.Tensor:
     """One chunk of a paged prefill for B requests at once: each row's K/V go
-    into its own pages (a plain indexed write, in place) and the chunk attends
-    to everything cached so far through the page tables; returns each row's
-    last-valid-position logits [B, V].
+    into its own pages (a plain indexed write, in place, rounded to the pool's
+    dtype) and the chunk attends to everything cached so far through the page
+    tables; returns each row's last-valid-position logits [B, V].
 
     token_ids, is_image, image_index, positions [B, C] (C a multiple of
     page_size); chunk_start (page-aligned), chunk_len [B] and tables
@@ -215,8 +226,8 @@ def _paged_prefill_chunk(params, cfg: OmChatConfig, token_ids, is_image, image_i
         kp, vp = k_pool[li], v_pool[li]
 
         def attend(q, k, v, kp=kp, vp=vp):
-            kp[pages] = k.reshape(b * n_chunk, page_size, kvh, hd).transpose(1, 2).to(kp.dtype)
-            vp[pages] = v.reshape(b * n_chunk, page_size, kvh, hd).transpose(1, 2).to(vp.dtype)
+            kp[pages] = cast_to(k.reshape(b * n_chunk, page_size, kvh, hd).transpose(1, 2), kp.dtype)
+            vp[pages] = cast_to(v.reshape(b * n_chunk, page_size, kvh, hd).transpose(1, 2), vp.dtype)
             return paged_prefill_attention(q, kp, vp, kv_len, tab, q_off, impl=attn_impl)
 
         x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl))
@@ -298,14 +309,16 @@ class PagedBatchEngine:
         one host readback per roll; prompts longer than ``prefill_chunk``
         advance one chunk per tick, decode rolls in between;
         ``prefill_batch_tokens`` caps B x width of a batched prefill's scratch
-        cache.  ``params`` already live on ``device`` (default CUDA; raises
+        cache.  ``cache_dtype``: the pool's storage dtype, default the
+        weights'; ``torch.float8_e4m3fn`` halves a page's bytes.
+        ``decode_kernel``: "auto" decodes with K12, "manual" with K13 (the
+        same function; the plain route ignores it, as the JAX engine does off
+        the TPU).  ``params`` already live on ``device`` (default CUDA; raises
         without it)."""
         dtype = params["language_model"]["embed_tokens"].dtype
         waiting = {
             "a device mesh (tensor-parallel serving)": mesh is not None,
             "the prefix cache": prefix_cache,
-            "a pool dtype other than the weights' (fp8 pool)": cache_dtype not in (None, dtype),
-            "decode_kernel='manual' (K13)": decode_kernel == "manual",
             "streaming rolls": streaming_roll is not None,
             "speculative verify": speculative,
             "pipelined rolls": pipeline_rolls,
@@ -314,8 +327,8 @@ class PagedBatchEngine:
         for what, asked in waiting.items():
             if asked:
                 raise NotImplementedError(f"PagedBatchEngine: {what} waits for a later slice of the port")
-        if decode_kernel != "auto":
-            raise ValueError(f"unknown decode_kernel {decode_kernel!r}")
+        if decode_kernel not in DECODE_KERNELS:
+            raise ValueError(f"unknown decode_kernel {decode_kernel!r} (auto or manual)")
         if attn_impl not in (None, PLAIN):
             raise ValueError(f"unknown attn_impl {attn_impl!r} (None or 'plain')")
         if prompt_bucket % page_size or prefill_chunk % page_size:
@@ -327,20 +340,22 @@ class PagedBatchEngine:
         self.max_slots = max_slots
         self.max_len = max_len
         self.attn_impl = attn_impl
+        self.decode_kernel = decode_kernel
         self.prefill_chunk = prefill_chunk
         self.prefill_batch_tokens = prefill_batch_tokens
         self._prompt_bucket = prompt_bucket
         self._chunk_bucket = math.lcm(prompt_bucket, page_size)
         self.decode_roll = max(1, int(decode_roll))
-        # contiguous prefills and the ViT go through the single-request engine
+        # contiguous prefills and the ViT go through the single-request engine,
+        # whose scratch cache keeps the weights' dtype (K15 rounds on commit)
         self._prefiller = OmChatEngine(
             cfg, params, attn_impl=attn_impl, prompt_bucket=prompt_bucket,
             image_cache_size=image_cache_size, device=self.device,
         )
         tc = cfg.text
         shape = (tc.num_hidden_layers, num_pages + 1, tc.num_key_value_heads, page_size, tc.attn_head_dim)
-        self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.k_pool = torch.zeros(shape, dtype=cache_dtype or dtype, device=self.device)
+        self.v_pool = torch.zeros(shape, dtype=cache_dtype or dtype, device=self.device)
         self.allocator = PageAllocator(num_pages)
         self._parking = num_pages
         # pages one request may map: the table width, widened by the roll
@@ -799,7 +814,8 @@ class PagedBatchEngine:
             self.params, self.cfg, torch.as_tensor(self._tokens, device=dev),
             torch.as_tensor(self._lengths, device=dev), torch.as_tensor(active, device=dev),
             torch.as_tensor(np.ascontiguousarray(tables_dec), device=dev), self.k_pool, self.v_pool,
-            self.page_size, self.attn_impl, roll, sampling=sampling, generator=self._generator,
+            self.page_size, self.attn_impl, roll, decode_kernel=self.decode_kernel, sampling=sampling,
+            generator=self._generator,
         )
         return {"decoding": list(decoding), "slots": [r.slot for r in decoding], "toks_dev": toks}
 

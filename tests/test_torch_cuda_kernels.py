@@ -21,7 +21,13 @@ training attention kernels (K16a forward + lse, K16b dQ, K16c dK/dV) at
 ragged lengths, GQA groups 1, 2 and 7, causal and not, packed with a -1
 tail: outputs and gradients within the bf16 tolerance above, lse atol 1e-3
 (fp32 sums in another order), padding rows lse = -inf and output 0, and
-dK/dV bitwise the same on a second run (no atomics).
+dK/dV bitwise the same on a second run (no atomics).  The fp8 (e4m3) KV
+cache: K2, K3, K12, K13 and K14 over e4m3 caches at the bf16 tolerance, but
+K2, whose p is rounded to e4m3 against the running row max (the plain version
+rounds it against the row's global max, as the TPU kernel and its XLA
+reference differ): atol = rtol = 5e-2; K13 over bf16 and e4m3 pools on K12's
+cases; the e4m3 stores of K4 and K15 bitwise against ``ops.fp8.to_e4m3`` on
+every bf16 bit pattern (NaN past 464).
 """
 
 import pytest
@@ -32,9 +38,11 @@ from omchat_torch.ops import flash_attention as fa
 from omchat_torch.ops import norms
 from omchat_torch.ops import paged_attention as pa
 from omchat_torch.ops import quant_matmul as qm
+from omchat_torch.ops.fp8 import E4M3, to_e4m3
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=2e-2, rtol=2e-2)
+K2_E4M3_TOL = dict(atol=5e-2, rtol=5e-2)
 
 
 @pytest.fixture
@@ -362,3 +370,94 @@ def test_flash_bwd_dkv_kernel_is_deterministic(gen, B, S, H, KVH, causal, packed
     rk, rv = fb.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal, seg)
     torch.testing.assert_close(dk.float(), rk.float(), **TOL)
     torch.testing.assert_close(dv.float(), rv.float(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the fp8 (e4m3) KV cache and K13
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+@pytest.mark.parametrize(
+    "lengths,self_col",
+    [([0, 5], True), ([128, 256, 129], True),
+     ([3, 700, 1, 2300, 128, 64, 999, 1500, 17, 400, 2048, 255, 600, 90, 1200, 33], True), ([0, 300], False)],
+    ids=["length0", "page_boundary", "b16_ragged", "no_self_column"],
+)
+@pytest.mark.parametrize("kernel", ["auto", "manual"], ids=["k12", "k13"])
+def test_paged_decode_kernels_on_bf16_and_e4m3_pools(gen, kernel, lengths, self_col, pool):
+    H, KVH, D = 28, 4, 128
+    B = len(lengths)
+    W = max(4, -(-max(lengths) // 128))
+    P = sum(-(-n // 128) for n in lengths) + 2
+    kp, vp, tables = _paged_pool(gen, P, KVH, D, lengths, W)
+    kp = torch.cat([_randn(gen, 3, *kp.shape[1:]), kp])  # another layer's 3 pages first
+    vp = torch.cat([_randn(gen, 3, *vp.shape[1:]), vp])
+    if pool == "e4m3":
+        kp, vp = to_e4m3(kp), to_e4m3(vp)
+    q = _randn(gen, B, 1, H, D)
+    kn, vn = (_randn(gen, B, KVH, D), _randn(gen, B, KVH, D)) if self_col else (None, None)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    fn = pa.DECODE_KERNELS[kernel]
+    n0 = fn.launches
+    out = fn(q, kp, vp, lens, tables, kn, vn, page_offset=3)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    ref = pa.paged_flash_decode_plain(q, kp, vp, lens, tables, kn, vn, page_offset=3)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+def test_flash_attention_and_decode_kernels_e4m3(gen):
+    """K2 (prefill over the cache) and K3 (decode over the stacked cache) on
+    an e4m3 cache."""
+    H, KVH, S, T, D = 28, 4, 200, 328, 128
+    q = _randn(gen, 2, S, H, D)
+    k, v = to_e4m3(_randn(gen, 2, KVH, T, D)), to_e4m3(_randn(gen, 2, KVH, T, D))
+    qo = torch.tensor([0, 100], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([190, 290], dtype=torch.int32, device="cuda")
+    out = fa.flash_attention(q, k, v, causal=True, q_offset=qo, kv_len=kl, kv_format="bntd")
+    ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=qo, kv_len=kl)
+    for b, rows in enumerate((190, 190)):
+        torch.testing.assert_close(out[b, :rows].float(), ref[b, :rows].float(), **K2_E4M3_TOL)
+    kc, vc = to_e4m3(_randn(gen, 3, 2, KVH, T, D)), to_e4m3(_randn(gen, 3, 2, KVH, T, D))
+    qd, kn, vn = _randn(gen, 2, 1, H, D), _randn(gen, 2, KVH, D), _randn(gen, 2, KVH, D)
+    cl = torch.tensor([0, 311], dtype=torch.int32, device="cuda")
+    out = da.flash_decode_stacked(qd, kc, vc, cl, 2, kn, vn)
+    torch.testing.assert_close(out.float(), da.flash_decode_stacked_plain(qd, kc, vc, cl, 2, kn, vn).float(), **TOL)
+
+
+def test_paged_flash_prefill_kernel_e4m3(gen):
+    H, KVH, D, C = 28, 4, 128, 256
+    q_offset, chunk_len = [0, 1024], [256, 200]
+    kv_len = [o + n for o, n in zip(q_offset, chunk_len)]
+    kp, vp, tables = _paged_pool(gen, sum(-(-n // 128) for n in kv_len) + 1, KVH, D, kv_len, 12)
+    kp, vp = to_e4m3(kp), to_e4m3(vp)
+    q = _randn(gen, 2, C, H, D)
+    qo = torch.tensor(q_offset, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out = pa.paged_flash_prefill(q, kp, vp, kl, tables, qo)
+    ref = pa.paged_flash_prefill_plain(q, kp, vp, kl, tables, qo)
+    for b in range(2):
+        torch.testing.assert_close(out[b, :chunk_len[b]].float(), ref[b, :chunk_len[b]].float(), **TOL)
+
+
+def test_e4m3_stores_round_every_bf16_pattern_as_to_e4m3(gen):
+    """K4 (rows) and K15 (a page) store all 65536 bf16 bit patterns into e4m3
+    pools exactly as ``to_e4m3`` does: NaN past 464, never saturated."""
+    KVH, PS, D = 4, 128, 128
+    patterns = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda").to(torch.int16).view(torch.bfloat16)
+    want = to_e4m3(patterns).view(torch.uint8)
+    kp, vp = (torch.zeros(3, KVH, PS, D, dtype=E4M3, device="cuda") for _ in range(2))
+    rows = patterns.view(PS, KVH, D)
+    pa.commit_rows(kp, vp, torch.full((PS,), 1, dtype=torch.int32, device="cuda"),
+                   torch.arange(PS, dtype=torch.int32, device="cuda"), rows, rows.flip(0))
+    torch.cuda.synchronize()
+    assert torch.equal(kp[1].transpose(0, 1).reshape(-1).view(torch.uint8), want)
+    assert torch.equal(vp[1].transpose(0, 1).flip(0).reshape(-1).view(torch.uint8), want)
+    assert not kp[0].view(torch.uint8).any() and not kp[2].view(torch.uint8).any()  # nothing else written
+    kp.zero_()
+    page = patterns.view(1, KVH, PS, D)
+    pa.commit_pages(kp, vp, torch.tensor([2], dtype=torch.int32, device="cuda"), page, page)
+    torch.cuda.synchronize()
+    assert torch.equal(kp[2].reshape(-1).view(torch.uint8), want)
+    assert not kp[:2].view(torch.uint8).any()

@@ -143,7 +143,7 @@ def test_sampling_top_k1_is_greedy_and_seeded_runs_repeat(reference):
 
 @pytest.mark.parametrize("option", [
     dict(prefix_cache=True), dict(speculative=True), dict(pipeline_rolls=True), dict(streaming_roll=4),
-    dict(cache_dtype=torch.float8_e4m3fn), dict(decode_kernel="manual"), dict(mesh=object()),
+    dict(mesh=object()),
 ], ids=lambda o: next(iter(o)))
 def test_waiting_options_raise(option):
     with pytest.raises(NotImplementedError):
