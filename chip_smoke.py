@@ -93,6 +93,38 @@
     and kernels vs plain on e4m3, within FP8_LOGIT_GAP_REL of max |logit|; a
     fault planted in K2 (q heads on the next kv head) must fall outside.
 
+20. Page sizes 16, 32, 64: K12 and K13 (bf16 and e4m3 pools) and K14 (both
+    pools) at what phase 5 handed K12 and K14, the same logical caches cut
+    into pages of each size, against their plain versions (a page-table
+    entry off by one page must fall outside the limits); K12 / K13 at page
+    size 32 bitwise against 128; kernel times at page size 64 beside 128's.
+    Then phase 5's workload at ``page_size=64`` (384 pages; line
+    ``serving (page_size=64)``: tokens/s, every page back, the first step
+    leaving the page-size-128 tokens), and ``PagedBatchEngine(page_size=48)``
+    refused on CUDA before it allocates.
+21. The calibrated w8a8 MLP (K10): ``calibrate_swiglu_scales`` over phase
+    8's quantized 28-layer trunk on the request's merged prompt embeddings
+    (line ``w8a8 swiglu calibrate``), the request again (``w8a8 e2e
+    (calibrated MLP)``, 28 K10 launches, beside phase 9's numbers) and the
+    serving workload (K10 on the batched-shorts and chunk routes); phase 11
+    holds K10 against its plain version at every recorded shape (planted
+    faults: gate and up swapped, row scales shifted), phase 12 also compares
+    the calibrated 2+2-layer model's logits through the kernels with the
+    plain route.
+22. The InternViT-6B geometry without qk-norm (45 layers, random bf16
+    weights, the request's 3 tiles): the packed route runs K5 in every layer
+    (line ``vit without qk-norm (K5)``: ViT ms, launches, max |diff| against
+    the plain route); K5 against its plain version at (3, 1032, 25*128)
+    valid 1025 and unpadded, planted faults (no prescale, valid_len off by
+    one) outside the limits.
+23. Decode over a per-layer cache (K6), on phase 3's model: one decode step
+    after the request's prefill with every layer through ``cache_attend``
+    (S == 1: the token written into the layer cache, K6 over it) against the
+    same step through ``decode_scan`` (K3 + K4), bf16 and e4m3 caches; per
+    layer, K6 against K3 with the self column on one q; K6 against its plain
+    version at B=16 ragged lengths (cache_len off by one caught) and timed
+    at the request's shape.
+
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
 result) when CUDA is unavailable, when the package is missing beside this
@@ -139,6 +171,8 @@ LOGITS_ATOL, LOGITS_RTOL = 1e-1, 2e-2
 SERVING = dict(max_slots=16, num_pages=192, page_size=128, prompt_bucket=128, max_len=4096, decode_roll=16,
                prefill_chunk=1024, prefill_batch_tokens=8192)
 SERVING_REQUESTS, SERVING_NEW_TOKENS, SERVING_WORKLOAD_SEED = 16, 64, 0
+# phase 20: the same workload at page size 64, the pool's rows unchanged
+SERVING_PS64 = {**SERVING, "page_size": 64, "num_pages": 384}
 PARITY_NEW_TOKENS, PARITY_MARGIN = 16, 0.1
 DEVICE = "cuda"  # phases 5-12 place their tensors and engines here
 # phase 11, the w8a8 kernels against their plain versions: int8 codes within one
@@ -168,6 +202,15 @@ K2_E4M3_TOL = (5e-2, 5e-2)
 # Phase 19, first-token logits at 2+2 layers: e4m3 cache vs bf16 cache, and
 # kernels vs plain on the e4m3 cache, each within this share of max |logit|.
 FP8_LOGIT_GAP_REL = 0.15
+# Phase 23, one decode step at full depth through cache_attend (K6) vs through
+# decode_scan (K3): 28 layers of bf16 activations, and the two kernels sum the
+# token's own column in another order (an H100 run read 0.125 at max |logit|
+# 5.53: a few bf16 ulps of the largest logits), so a share of max |logit|.
+STEP_LOGIT_REL = 5e-2
+# Phase 22, the 45-layer ViT without qk-norm, packed route (K5) vs the plain
+# route: bf16 rounds every activation over 45 layers and the two routes round
+# q and p at other places; max |diff| within this share of max |out|.
+VIT_REL_LIMIT = 5e-2
 # Phase 12, w8a8 prefill through the glue kernels vs attn_impl="plain" (the
 # unfused chain): the first-token logits may differ by no more than w8a8
 # quantization itself moves the plain chain's from the bf16 model's, measured in
@@ -469,6 +512,22 @@ def kernel_phases(gen, shapes: dict) -> list:
 # ---------------------------------------------------------------------------
 
 
+def full_model(seed: int) -> tuple:
+    """``OmChatConfig()`` at full width and depth with random bf16 weights:
+    (cfg, params)."""
+    import torch
+
+    from omchat_torch.config import OmChatConfig
+
+    cfg = OmChatConfig()  # omchat-v2.0-13B: InternViT-6B (45 layers) + Qwen2-7B (28 layers)
+    t0 = time.perf_counter()
+    params = build_model(cfg, seed)
+    torch.cuda.synchronize()
+    log(f"e2e: built full-width full-depth weights in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, params
+
+
 def build_model(cfg, seed: int):
     import torch
 
@@ -512,25 +571,17 @@ def counters():
     }
 
 
-def end_to_end(seed: int, new_tokens: int = NEW_TOKENS, model=None, counted=None, label: str = "e2e",
+def end_to_end(seed: int, model: tuple, new_tokens: int = NEW_TOKENS, counted=None, label: str = "e2e",
                cache_dtype=None) -> dict:
-    """Phase 3 (bf16, its own model) or, with ``model`` = (cfg, params) and
-    the kernels that must launch in ``counted``, phase 9 (w8a8) and phase 18
-    (``cache_dtype`` e4m3: the fp8 KV cache)."""
+    """Phase 3 on ``model`` = (cfg, params) (bf16) or, with the kernels that
+    must launch in ``counted``, phase 9 (w8a8), phase 18 (``cache_dtype``
+    e4m3: the fp8 KV cache) and phase 21 (the calibrated w8a8 MLP)."""
     import torch
 
-    from omchat_torch.config import GenerationConfig, OmChatConfig
+    from omchat_torch.config import GenerationConfig
     from omchat_torch.runtime.generate import OmChatEngine
 
-    if model is None:
-        cfg = OmChatConfig()  # omchat-v2.0-13B: InternViT-6B (45 layers) + Qwen2-7B (28 layers)
-        t0 = time.perf_counter()
-        params = build_model(cfg, seed)
-        torch.cuda.synchronize()
-        log(f"e2e: built full-width full-depth weights in {time.perf_counter() - t0:.1f} s, "
-            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    else:
-        cfg, params = model
+    cfg, params = model
     counted = counted or counters()
     ids, tiles = make_request(cfg, seed)
     # no image cache: the timed run encodes its image again
@@ -546,6 +597,7 @@ def end_to_end(seed: int, new_tokens: int = NEW_TOKENS, model=None, counted=None
     # warm-up (cuBLAS / allocator first calls), and the logits check: kept out of the timed run
     warm = engine.generate([ids], tiles, gen, logits_callback=finite)
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
     for c in counted.values():
         c.launches = 0
     out = engine.generate([ids], tiles, gen)
@@ -562,6 +614,7 @@ def end_to_end(seed: int, new_tokens: int = NEW_TOKENS, model=None, counted=None
         "ttft_ms": sp["ttft"] * 1e3,
         "decode_tokens_per_s": sp["decode_steps"] / sp["decode"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "resident_before_gib": resident,
         "launches": launches,
     }
     log(f"{label}: " + json.dumps(res))
@@ -794,8 +847,8 @@ def timed_serving(eng, work, rec, counts: dict, label: str) -> dict:
     short = [i for i, (t, _) in enumerate(done) if len(t) != SERVING_NEW_TOKENS]
     if short:
         raise AssertionError(f"{label}: requests {short} did not return {SERVING_NEW_TOKENS} tokens")
-    if eng.allocator.available != SERVING["num_pages"]:
-        raise AssertionError(f"{label}: {SERVING['num_pages'] - eng.allocator.available} pages never came back")
+    if eng.allocator.available != eng.allocator.num_pages:
+        raise AssertionError(f"{label}: {eng.allocator.num_pages - eng.allocator.available} pages never came back")
     missing = [n for n, c in launches.items() if c == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the serving path: {missing}")
@@ -1161,10 +1214,17 @@ def w8a8_counters():
     }
 
 
+def swiglu_counters():
+    from omchat_torch.ops import quant_matmul as qm
+
+    return {"dense_prequant_swiglu_quant": qm.dense_prequant_swiglu_quant_cuda}
+
+
 # the C entry point of each w8a8 kernel, and where its sizes sit among its launch arguments
 W8A8_ENTRY = {"omchat_rmsnorm_quant": ("rmsnorm_quant", slice(4, 6)),
               "omchat_add_rmsnorm_quant": ("add_rmsnorm_quant", slice(7, 9)),
               "omchat_fc1_gelu_quant": ("dense_prequant_gelu_quant", slice(7, 10)),
+              "omchat_swiglu_quant": ("dense_prequant_swiglu_quant", slice(8, 11)),
               "omchat_proj_glue_quant": ("attn_proj_glue_quant", slice(10, 12))}
 
 
@@ -1243,9 +1303,11 @@ def quantize_full_model(seed: int):
     return cfg8, qparams, res
 
 
-def w8a8_serving(cfg, params) -> dict:
-    """Phase 10: phase 5's workload on the w8a8 model; the glue kernels must
-    launch on the short-prefill and the chunk routes."""
+def w8a8_serving(cfg, params, label: str = "w8a8 serving",
+                 must_launch=("rmsnorm_quant", "attn_proj_glue_quant")) -> dict:
+    """Phase 10 (and phase 21 over the calibrated MLP): phase 5's workload on
+    the w8a8 model; the kernels ``must_launch`` names must launch on the
+    short-prefill and the chunk routes."""
     import torch
 
     from omchat_torch.runtime import paged_engine as pe
@@ -1253,7 +1315,7 @@ def w8a8_serving(cfg, params) -> dict:
     work = serving_workload(cfg)
     eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, **SERVING)
     rec, undo = record_dispatches(eng)
-    counts = {**paged_counters(), **w8a8_counters()}
+    counts = {**paged_counters(), **w8a8_counters(), **swiglu_counters()}
     per_route = {"shorts": {}, "chunk": {}}  # launches inside the short-prefill and chunk dispatches
     for kind, name in (("shorts", "_prefill_shorts"), ("chunk", "_run_chunk")):
         fn = getattr(eng, name)
@@ -1268,17 +1330,19 @@ def w8a8_serving(cfg, params) -> dict:
             return out
 
         setattr(eng, name, counted)
+    if "dense_prequant_swiglu_quant" not in must_launch:  # K10 runs only over a calibrated MLP
+        del counts["dense_prequant_swiglu_quant"]
     try:
-        res = timed_serving(eng, work, rec, counts, "w8a8 serving")
+        res = timed_serving(eng, work, rec, counts, label)
     finally:
         undo()
     res["launches_by_route"] = per_route
-    log("w8a8 serving, launches by prefill route: " + json.dumps(per_route))
+    log(f"{label}, launches by prefill route: " + json.dumps(per_route))
     for route in ("shorts", "chunk"):
-        missing = [n for n in ("rmsnorm_quant", "attn_proj_glue_quant") if not per_route[route].get(n)]
+        missing = [n for n in must_launch if not per_route[route].get(n)]
         if missing:
-            raise AssertionError(f"w8a8 serving: {missing} never launched on the {route} route")
-    del eng
+            raise AssertionError(f"{label}: {missing} never launched on the {route} route")
+    del eng, fn, counted  # the loop's bound method and wrapper hold the engine and its pool too
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -1342,6 +1406,22 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
     def top(name):  # the most launched shape
         return max(shapes[name].items(), key=lambda kv: kv[1])[0]
 
+    def weighted_row(name, source, replaces, parts, lib_name):
+        """One row for a kernel checked at several shapes: the worst stats,
+        every fault, launch-weighted times, ops and bytes."""
+        total = sum(pt["launches"] for pt in parts)
+
+        def mean(key):
+            return sum(pt[key] * pt["launches"] for pt in parts) / total
+
+        worst = max((pt["stats"] for pt in parts), key=lambda st: (st["code_max_diff"], -st["code_equal"]))
+        row(name, source, replaces, worst, {f"{pt['shape']}: {f}": d for pt in parts for f, d in pt["faults"].items()},
+            mean("ms"), mean("plain_ms"), mean("library_ms"), mean("ops"), mean("nbytes"),
+            "; ".join(f"{pt['shape']} x{pt['launches']}: {pt['ms']:.4f} ms, plain {pt['plain_ms']:.4f}, "
+                      f"{lib_name} {pt['library_ms']:.4f}, "
+                      f"bound {bound_ms(pt['ops'], pt['nbytes'], PEAK_INT8_OPS)[0]:.4f}" for pt in parts)
+            + " (launch-weighted means)")
+
     def unfused(xn, gamma):  # the chain: the norm rounded to bf16, then quantized
         q, rs = lin.quantize_activations(norms.rms_norm(xn, gamma))
         return {"codes": q, "rs": rs}
@@ -1353,7 +1433,7 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
                  shape=shape)
         rows_out.append(r)
         caught = "".join(f"; fault '{f}' {json.dumps(d)} (caught)" for f, d in faults.items())
-        lib = "—" if lib_ms is None else f"{lib_ms:.4f} (torch._int_mm, the GEMM alone)"
+        lib = "none (no single call computes it)" if lib_ms is None else f"{lib_ms:.4f} (torch._int_mm, the GEMMs alone)"
         log(f"kernel {name} [{shape}]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
             f"bound_ms={b:.4f} ({by}) {json.dumps(stats)}{caught}")
 
@@ -1417,6 +1497,43 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
         M * K + N * K + M * 4 + 2 * N * 2 + 4 + M * N, f"M={M} N={N} K={K}")
     del xq, out, ref, p
 
+    # K10 — the calibrated Qwen2 MLP's gate and up at each shape the path gave
+    # it (the request's prefill, the serving run's batched shorts and chunks),
+    # reported as one row weighted by launches.  Codes of a unit-normal
+    # activation and the static scale a calibration would set (max |silu(g) *
+    # u| / 127).
+    parts = []
+    for (M, N, K), n_launch in sorted(shapes["dense_prequant_swiglu_quant"].items()):
+        xq, rs = lin.quantize_activations(randn(M, K))
+        gp, up = qlinear(N, K), qlinear(N, K)
+        g = lin.int8_matmul(xq, gp["kernel_q"].t()).float() * rs * gp["scale"].float()
+        u = lin.int8_matmul(xq, up["kernel_q"].t()).float() * rs * up["scale"].float()
+        os_ = lin.div127((lin.silu(g) * u).abs().amax())
+        del g, u
+        out = qm.dense_prequant_swiglu_quant_cuda(xq, rs, gp, up, os_)
+        torch.cuda.synchronize()
+        ref = {"codes": qm.dense_prequant_swiglu_quant_plain(xq, rs, gp, up, os_)}
+        tag = f"K10 swiglu_quant M={M} N={N} K={K}"
+        st = check_quant(tag, {"codes": out}, ref)
+        faults = {f: quant_fault_caught(tag, f, {"codes": fn()}, ref) for f, fn in (
+            ("gate and up swapped", lambda: qm.dense_prequant_swiglu_quant_plain(xq, rs, up, gp, os_)),
+            ("row scales shifted by one row", lambda: qm.dense_prequant_swiglu_quant_plain(xq, rs.roll(1, 0), gp, up,
+                                                                                           os_)))}
+
+        def both_gemms():
+            torch._int_mm(xq, gp["kernel_q"].t())
+            torch._int_mm(xq, up["kernel_q"].t())
+
+        parts.append(dict(
+            launches=n_launch, stats=st, faults=faults, shape=f"M={M} N={N} K={K}",
+            ms=time_ms(lambda: qm.dense_prequant_swiglu_quant_cuda(xq, rs, gp, up, os_)),
+            plain_ms=time_ms(lambda: qm.dense_prequant_swiglu_quant_plain(xq, rs, gp, up, os_), iters=3, warmup=1),
+            library_ms=time_ms(both_gemms), ops=4.0 * M * N * K,
+            nbytes=M * K + 2 * N * K + M * 4 + 2 * N * 2 + 4 + M * N))
+        del xq, rs, gp, up, out, ref
+    weighted_row("dense_prequant_swiglu_quant", "omchat_torch/csrc/swiglu_quant.cu",
+                 "omchat_tpu/ops/quant_matmul.py:131", parts, "torch._int_mm on the two GEMMs")
+
     # K11 — at each shape the path gave it (the ViT proj with bias and LayerScale
     # ls1; the Qwen2 o_proj with neither), reported as one row weighted by launches
     parts = []
@@ -1452,18 +1569,8 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
             library_ms=time_ms(lambda: torch._int_mm(aq, p["kernel_q"].t())),
             ops=2.0 * M * N * N, nbytes=M * N * 2 * 3 + N * N + M * N + 4 * N * 2 + M * 4))
         del a, x, xn, q, ref, aq, p
-    total = sum(pt["launches"] for pt in parts)
-
-    def mean(key):
-        return sum(pt[key] * pt["launches"] for pt in parts) / total
-
-    worst = max((pt["stats"] for pt in parts), key=lambda st: (st["code_max_diff"], -st["code_equal"]))
-    row("attn_proj_glue_quant", "omchat_torch/csrc/proj_glue_quant.cu", "omchat_tpu/ops/quant_matmul.py:255",
-        worst, {f"{pt['shape']}: {f}": d for pt in parts for f, d in pt["faults"].items()}, mean("ms"),
-        mean("plain_ms"), mean("library_ms"), mean("ops"), mean("nbytes"),
-        "; ".join(f"{pt['shape']} x{pt['launches']}: {pt['ms']:.4f} ms, plain {pt['plain_ms']:.4f}, "
-                  f"_int_mm {pt['library_ms']:.4f}, bound {bound_ms(pt['ops'], pt['nbytes'], PEAK_INT8_OPS)[0]:.4f}"
-                  for pt in parts) + " (launch-weighted means)")
+    weighted_row("attn_proj_glue_quant", "omchat_torch/csrc/proj_glue_quant.cu", "omchat_tpu/ops/quant_matmul.py:255",
+                 parts, "_int_mm")
     torch.cuda.empty_cache()
     return rows_out
 
@@ -1472,11 +1579,16 @@ def w8a8_kernel_vs_plain(seed: int) -> dict:
     """Phase 12: the model at full width and 2 ViT + 2 LLM layers; first-token
     logits of the w8a8 model through the glue kernels and through
     ``attn_impl="plain"`` (the unfused w8a8 chain, plain attention), and of
-    the bf16 model through the plain route."""
+    the bf16 model through the plain route; then (phase 21) the calibrated
+    MLP's glue trunk through the kernels and through their plain versions."""
     import torch
 
     from omchat_torch import api
     from omchat_torch.config import OmChatConfig
+    from omchat_torch.models import qwen2
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops import norms
+    from omchat_torch.ops import quant_matmul as qm
     from omchat_torch.runtime.generate import OmChatEngine
 
     full = OmChatConfig()
@@ -1491,16 +1603,48 @@ def w8a8_kernel_vs_plain(seed: int) -> dict:
         eng = OmChatEngine(c, p, attn_impl=impl, image_cache_size=0)
         logits[key], _ = eng.prefill(eng.plan([ids]), eng.encode_images(tiles), 32)
     torch.cuda.synchronize()
+    # The calibrated MLP (K10): the same glue trunk through the kernels and
+    # through their plain versions (K7, K11, K10 and K2 swapped for theirs in
+    # the trunk; the ViT runs its kernels on both sides).  The plain route
+    # above has no static scales: it runs the dynamic chain.
+    calib = swiglu_calibrate(cfg8, params, seed, label="w8a8 swiglu calibrate (2+2 layers)")
+    eng = OmChatEngine(cfg8, calib, image_cache_size=0)
+    plan, feats = eng.plan([ids]), eng.encode_images(tiles)
+    logits["kernels_calibrated"], _ = eng.prefill(plan, feats, 32)
+
+    def plain_attention(q, k, v, *, causal=False, q_offset=None, kv_len=None, impl=None, kv_format="btnd",
+                        segment_ids=None):
+        if kv_format == "btnd":
+            k, v = k.transpose(1, 2), v.transpose(1, 2)
+        return fa.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+    swapped = {"rmsnorm_quant": norms.rmsnorm_quant_plain, "attn_proj_glue_quant": qm.attn_proj_glue_quant_plain,
+               "swiglu_quant": qm.dense_prequant_swiglu_quant_plain, "attention": plain_attention}
+    saved = {n: getattr(qwen2, n) for n in swapped}
+    for n, f in swapped.items():
+        setattr(qwen2, n, f)
+    try:
+        logits["plain_calibrated"], _ = eng.prefill(plan, feats, 32)
+    finally:
+        for n, f in saved.items():
+            setattr(qwen2, n, f)
+    torch.cuda.synchronize()
     got, ref = logits["kernels"], logits["plain"]
     diff, top = float((got - ref).abs().max()), float(ref.abs().max())
     quant = float((ref - logits["bf16_plain"]).abs().max())
+    calibrated = float((logits["kernels_calibrated"] - logits["plain_calibrated"]).abs().max())
     res = {"logits_max_abs_diff": diff, "logits_max_abs": top, "rel": diff / top,
-           "w8a8_vs_bf16_max_abs_diff": quant, "argmax_equal": bool(torch.equal(got.argmax(-1), ref.argmax(-1)))}
+           "w8a8_vs_bf16_max_abs_diff": quant, "argmax_equal": bool(torch.equal(got.argmax(-1), ref.argmax(-1))),
+           "calibrated_mlp_kernels_vs_plain_max_abs_diff": calibrated,
+           "calibrated_mlp_kernels_vs_dynamic_plain_chain_max_abs_diff":
+               float((logits["kernels_calibrated"] - ref).abs().max())}
     log("w8a8 kernels vs plain (2 ViT + 2 LLM layers, full width): " + json.dumps(res))
-    if not torch.isfinite(got).all() or diff > quant:
-        raise AssertionError(f"w8a8 kernels vs plain: logits differ by {diff:.4g}, more than w8a8 moves the plain "
-                             f"chain from bf16 ({quant:.4g})")
-    del params, bf16
+    for name, d, lg in (("kernels", diff, got), ("kernels over the calibrated MLP", calibrated,
+                                                 logits["kernels_calibrated"])):
+        if not torch.isfinite(lg).all() or d > quant:
+            raise AssertionError(f"w8a8 {name} vs plain: logits differ by {d:.4g}, more than w8a8 moves the plain "
+                                 f"chain from bf16 ({quant:.4g})")
+    del params, bf16, calib, eng
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -2449,6 +2593,463 @@ def fp8_logit_gaps(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-23: page sizes 16-64 (C1), K10 (the calibrated w8a8 MLP), K5 (the
+# ViT without qk-norm), K6 (decode over a per-layer cache)
+# ---------------------------------------------------------------------------
+
+
+def repage(k, v, ps: int, gen):
+    """A logical cache k/v [B, KVH, T, D] (T a multiple of ps) as a pool of
+    pages of ``ps`` rows in a shuffled order, and the tables that map it."""
+    import torch
+
+    B, KVH, T, D = k.shape
+    n = B * T // ps
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(ps)).to(k.device)
+    pools = []
+    for x in (k, v):
+        pages = x.view(B, KVH, T // ps, ps, D).transpose(1, 2).reshape(n, KVH, ps, D)
+        pool = torch.empty(pages.shape, dtype=pages.dtype, device=pages.device)  # contiguous, whatever B is
+        pool[perm] = pages
+        pools.append(pool)
+    return pools[0], pools[1], perm.to(torch.int32).view(B, T // ps)
+
+
+def page_size_kernel_phases(gen, timed: dict) -> list:
+    """Phase 20: K12 and K13 (bf16 and e4m3 pools) and K14 (both pools) at
+    page sizes 16, 32 and 64 against their plain versions, at what the timed
+    serving run (phase 5) handed K12 and K14 — the same logical caches, in
+    pages of each size, phase 6's keys planted; a page-table entry off by one
+    page must fall outside the limits.  K12 / K13 at page size 32 bitwise
+    against 128 on the same logical cache, and each kernel's time at page
+    size 64 beside 128's.  Returns the page-size-64 rows of K12 and K14."""
+    import numpy as np
+    import torch
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.ops.fp8 import to_e4m3
+
+    dev = torch.device(DEVICE)
+    i32 = dict(dtype=torch.int32, device=dev)
+    tc = OmChatConfig().text
+    H, KVH, D = tc.num_attention_heads, tc.num_key_value_heads, tc.attn_head_dim
+    u = _direction(gen, KVH, D)
+    uq = u.repeat_interleave(H // KVH, dim=0)
+    rows, times = [], {}
+
+    # K12 / K13: the busiest decode roll's lengths over its table width.
+    busiest = max(r["n"] for r in timed["rolls"])
+    roll = [r for r in timed["rolls"] if r["n"] == busiest]
+    roll = roll[len(roll) // 2]
+    lens_np = roll["lengths"]
+    S, W = roll["tables"].shape
+    T = W * 128
+    k, v = _randn(gen, S, KVH, T, D), _randn(gen, S, KVH, T, D)
+    for b, n in enumerate(lens_np):
+        if n:
+            for pos, scale in ((0, 0.6), (n - 1, 0.8), (n, 0.8)):
+                k[b, :, pos] = scale * u
+    lens = torch.as_tensor(lens_np, device=dev)
+    q = _randn(gen, S, 1, H, D) + uq
+    kn = (0.8 * u)[None].expand(S, KVH, D).contiguous()
+    vn = _randn(gen, S, KVH, D)
+    longest = int(np.argmax(lens_np))
+    cached = int(lens_np.sum())
+    outs = {}
+    for ps in (128, 64, 32, 16):
+        kp, vp, tab = repage(k, v, ps, gen)
+        bad = tab.clone()
+        bad[longest, 0] = (bad[longest, 0] + 1) % kp.shape[0]  # one live entry off by one page
+        for pool in ("bf16", "e4m3"):
+            kpp, vpp = (kp, vp) if pool == "bf16" else (to_e4m3(kp), to_e4m3(vp))
+            for kernel, name in (("auto", "K12"), ("manual", "K13")):
+                fn = pa.DECODE_KERNELS[kernel]
+                out = fn(q, kpp, vpp, lens, tab, kn, vn)
+                torch.cuda.synchronize()
+                outs[(ps, pool, kernel)] = out
+                if ps == 128:
+                    if pool == "bf16":
+                        times[(name, 128)] = time_ms(lambda: fn(q, kpp, vpp, lens, tab, kn, vn), iters=50)
+                    continue
+                tag = f"{name}[{pool}, page_size={ps}]"
+                ref = pa.paged_flash_decode_plain(q, kpp, vpp, lens, tab, kn, vn)
+                err = check_close(tag, out, ref, *ATTN_TOL["K12"])
+                dev_ = check_fault_caught(tag, "a page-table entry off by one page",
+                                          pa.paged_flash_decode_plain(q, kpp, vpp, lens, bad, kn, vn), ref,
+                                          *ATTN_TOL["K12"])
+                log(f"kernel {tag} [S={S} decoding={busiest} cached={cached} W={T // ps}]: max_abs_err={err:.3g}; "
+                    f"fault 'a page-table entry off by one page' max_dev={dev_:.3g} (caught)")
+                if ps == 64 and pool == "bf16":
+                    times[(name, 64)] = time_ms(lambda: fn(q, kpp, vpp, lens, tab, kn, vn), iters=50)
+                    if name == "K12":
+                        rows.append(dict(name="paged_flash_decode[page_size=64]",
+                                         source="omchat_torch/csrc/paged_flash_decode.cu",
+                                         replaces="omchat_tpu/ops/paged_attention.py:110", max_abs_err=err,
+                                         ms=times[(name, 64)],
+                                         plain_ms=time_ms(lambda: pa.paged_flash_decode_plain(
+                                             q, kpp, vpp, lens, tab, kn, vn), iters=3, warmup=1),
+                                         library_ms=None, flops=4.0 * H * D * (cached + S),
+                                         bytes=2 * KVH * cached * D * 2 + 2 * S * H * D * 2 + 2 * S * KVH * D * 2
+                                         + S * 4 + S * (T // ps) * 4))
+        del kp, vp, tab, bad
+    same = {f"{name}[{pool}]": bool(torch.equal(outs[(32, pool, kernel)], outs[(128, pool, kernel)]))
+            for pool in ("bf16", "e4m3") for kernel, name in (("auto", "K12"), ("manual", "K13"))}
+    log("K12 / K13 at page size 32 vs 128 on the same logical cache, bitwise equal: " + json.dumps(same))
+    if not all(same.values()):
+        raise AssertionError(f"page size 32 differs from 128 on the same logical cache: {same}")
+    del k, v, q, kn, vn, outs
+
+    # K14: the chunk dispatch with the most causal columns, its starts and lengths.
+    def causal_cols(c):
+        return sum(int(n) * int(s) + int(n) * (int(n) + 1) // 2 for s, n in zip(c["start"], c["len"]))
+
+    c14 = max(timed["chunks"], key=causal_cols)
+    (B, C), starts, clen, t14 = c14["shape"], c14["start"], c14["len"], c14["tables"]
+    kv14 = starts + clen
+    T = t14.shape[1] * 128
+    k, v = _randn(gen, B, KVH, T, D), _randn(gen, B, KVH, T, D)
+    for b in range(B):
+        k[b, :, 0] = 0.6 * u
+        k[b, :, int(kv14[b]) - 1] = 0.8 * u
+    q14 = _randn(gen, B, C, H, D) + uq
+    qo, kl = torch.as_tensor(starts, **i32), torch.as_tensor(kv14, **i32)
+    rowmask = (torch.arange(C, device=dev)[None] < torch.as_tensor(clen, device=dev)[:, None])[..., None, None]
+    longest = int(np.argmax(kv14))
+    for ps in (128, 64, 32, 16):
+        kp, vp, tab = repage(k, v, ps, gen)
+        bad = tab.clone()
+        bad[longest, 0] = (bad[longest, 0] + 1) % kp.shape[0]
+        for pool in ("bf16", "e4m3"):
+            kpp, vpp = (kp, vp) if pool == "bf16" else (to_e4m3(kp), to_e4m3(vp))
+            if ps == 128:
+                if pool == "bf16":
+                    times[("K14", 128)] = time_ms(lambda: pa.paged_flash_prefill(q14, kpp, vpp, kl, tab, qo))
+                continue
+            tag = f"K14[{pool}, page_size={ps}]"
+            out = pa.paged_flash_prefill(q14, kpp, vpp, kl, tab, qo) * rowmask
+            torch.cuda.synchronize()
+            ref = pa.paged_flash_prefill_plain(q14, kpp, vpp, kl, tab, qo) * rowmask
+            err = check_close(tag, out, ref, *ATTN_TOL["K14"])
+            dev_ = check_fault_caught(tag, "a page-table entry off by one page",
+                                      pa.paged_flash_prefill_plain(q14, kpp, vpp, kl, bad, qo) * rowmask, ref,
+                                      *ATTN_TOL["K14"])
+            log(f"kernel {tag} [B={B} C={C} q_offset={starts.tolist()} kv_len={kv14.tolist()}]: "
+                f"max_abs_err={err:.3g}; fault 'a page-table entry off by one page' max_dev={dev_:.3g} (caught)")
+            if ps == 64 and pool == "bf16":
+                times[("K14", 64)] = time_ms(lambda: pa.paged_flash_prefill(q14, kpp, vpp, kl, tab, qo))
+                rows.append(dict(name="paged_flash_prefill[page_size=64]",
+                                 source="omchat_torch/csrc/paged_flash_prefill.cu",
+                                 replaces="omchat_tpu/ops/paged_attention.py:442", max_abs_err=err,
+                                 ms=times[("K14", 64)],
+                                 plain_ms=time_ms(lambda: pa.paged_flash_prefill_plain(q14, kpp, vpp, kl, tab, qo),
+                                                  iters=3, warmup=1),
+                                 library_ms=None, flops=4.0 * H * D * causal_cols(c14),
+                                 bytes=2 * B * C * H * D * 2 + 2 * KVH * int(kv14.sum()) * D * 2
+                                 + tab.numel() * 4 + 8 * B))
+        del kp, vp, tab, bad
+    del k, v, q14
+    log("page size 64 beside 128, kernel ms (bf16 pool, the same logical caches): " + json.dumps(
+        {name: {"page_size_128": times[(name, 128)], "page_size_64": times[(name, 64)]}
+         for name in ("K12", "K13", "K14")}))
+    for r in rows:
+        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("flops"), r.pop("bytes"))
+        log(f"kernel {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=null "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err={r['max_abs_err']:.3g}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def page_size_serving(seed: int, base_tokens: list) -> dict:
+    """Phase 20, serving: phase 5's workload at page_size=64 (384 pages, the
+    same pool rows) — tokens/s, every page back, the first step leaving the
+    page-size-128 run's tokens; and an engine at a page size no kernel is
+    built for (48) must refuse on CUDA before it allocates."""
+    import torch
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.runtime import paged_engine as pe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = OmChatConfig()
+    params = build_model(cfg, seed)
+    before = torch.cuda.memory_allocated()
+    try:
+        pe.PagedBatchEngine(cfg, params, image_cache_size=0, device="cuda",
+                            **{**SERVING, "page_size": 48, "prompt_bucket": 96, "prefill_chunk": 960})
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("PagedBatchEngine(page_size=48) on CUDA did not refuse")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("PagedBatchEngine(page_size=48) allocated before it refused")
+    log(f"page_size=48 on CUDA: refused before allocating ({refused})")
+    eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, **SERVING_PS64)
+    rec, undo = record_dispatches(eng)
+    try:
+        res = timed_serving(eng, serving_workload(cfg), rec, paged_counters(), "serving (page_size=64)")
+    finally:
+        undo()
+    steps = first_divergence(res.pop("tokens"), base_tokens)
+    res.update(first_divergence_step=min((s for s in steps if s is not None), default=None), divergence_steps=steps,
+               requests_identical_to_page_size_128=steps.count(None))
+    log(f"serving (page_size=64): first step leaving the page-size-128 run's tokens {res['first_divergence_step']} "
+        f"(per request {steps})")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def swiglu_calibrate(cfg8, params8, seed: int, label: str = "w8a8 swiglu calibrate") -> dict:
+    """Phase 21: ``calibrate_swiglu_scales`` over the quantized trunk (full
+    width, 28 layers) on the single request's merged prompt embeddings (its
+    valid rows); returns the params with ``swiglu_out_scale`` set."""
+    import torch
+
+    from omchat_torch.models.omchat import fuse_embeddings
+    from omchat_torch.models.qwen2 import calibrate_swiglu_scales
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    ids, tiles = make_request(cfg8, seed)
+    eng = OmChatEngine(cfg8, params8, image_cache_size=0)
+    plan = eng.plan([ids])
+    t = lambda a: torch.as_tensor(a, device=DEVICE)  # noqa: E731
+    with torch.no_grad():
+        embeds = fuse_embeddings(params8, t(plan.token_ids), t(plan.is_image), t(plan.image_index),
+                                 eng.encode_images(tiles))
+    n = int(plan.lengths[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm = calibrate_swiglu_scales(params8["language_model"], cfg8.text, embeds[:, :n], t(plan.positions)[:, :n])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    scales = lm["layers"]["mlp"]["swiglu_out_scale"]
+    res = {"seconds": secs, "rows": n, "layers": int(scales.numel()),
+           "swiglu_out_scale_min_max": [float(scales.min()), float(scales.max())]}
+    log(f"{label}: " + json.dumps(res))
+    if not (scales.dtype == torch.float32 and torch.isfinite(scales).all() and (scales > 0).all()):
+        raise AssertionError("w8a8: calibrated SwiGLU scales are not finite, positive fp32")
+    del eng, embeds
+    return {**params8, "language_model": lm}
+
+
+def vit_without_qk_norm(gen, seed: int, shapes: dict) -> tuple:
+    """Phase 22: the InternViT-6B geometry (45 layers, d=3200, 25 heads of
+    128) with ``qk_normalization=False``, random bf16 weights, on the
+    request's 3 tiles: the packed route runs K5 in every layer (ViT ms,
+    launches) and is held against the same tower on the plain route.  Then
+    K5 against its plain version at (3, 1032, 25*128) valid 1025 and at an
+    unpadded (3, 1024, 25*128), keys planted at the mask boundary; planted
+    faults (valid_len off by one, no prescale) must fall outside the limits.
+    Returns (result, K5's row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.models import intern_vit
+    from omchat_torch.ops import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(OmChatConfig().vision, qk_normalization=False)
+    params = intern_vit.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(seed), torch.bfloat16)
+    _, tiles = make_request(OmChatConfig(), seed)
+    px = torch.as_tensor(tiles, device=DEVICE)
+    with torch.no_grad():
+        intern_vit.intern_vit_forward(params, cfg, px)  # warm-up
+        fa.packed_self_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = intern_vit.intern_vit_forward(params, cfg, px)
+        torch.cuda.synchronize()
+        vit_ms = (time.perf_counter() - t0) * 1e3
+        launches = fa.packed_self_attention.launches
+        plain = intern_vit.intern_vit_forward(params, cfg, px, attn_impl="plain")
+    diff, top = float((out.float() - plain.float()).abs().max()), float(plain.float().abs().max())
+    res = {"tiles": int(px.shape[0]), "layers": cfg.num_hidden_layers, "vit_ms": vit_ms,
+           "packed_self_attention_launches": launches, "max_abs_diff_vs_plain_route": diff, "max_abs_plain": top,
+           "rel": diff / top}
+    log("vit without qk-norm (K5): " + json.dumps(res))
+    if not torch.isfinite(out).all() or launches != cfg.num_hidden_layers:
+        raise AssertionError(f"vit without qk-norm: non-finite output or {launches} K5 launches")
+    if diff > VIT_REL_LIMIT * top:
+        raise AssertionError(f"vit without qk-norm: kernels vs plain {diff:.4g} over {VIT_REL_LIMIT} of {top:.4g}")
+    del params, out, plain
+    torch.cuda.empty_cache()
+
+    # K5 at the path's shape and unpadded: q carries a per-head direction, the
+    # keys at the last valid column and the first pad column 0.8 u + 0.6 noise.
+    B, SP, VALID = shapes["tiles"], shapes["vit_sp"], shapes["vit_valid"]
+    H, D = cfg.num_attention_heads, cfg.head_dim
+    HD = H * D
+    row = None
+    for sp, valid in ((SP, VALID), (SP - 8, SP - 8)):
+        u = _direction(gen, HD) * 0.5
+        qkv = _randn(gen, B, sp, 3 * HD)
+        qkv[..., :HD] += u
+        for col in (valid - 1, valid):  # each takes about a quarter of every row's softmax when let in
+            if col < sp:
+                qkv[:, col, HD:2 * HD] = 2.4 * u + 0.6 * _randn(gen, B, HD)
+        q, k, v = qkv.chunk(3, dim=-1)
+        out = fa.packed_self_attention(q, k, v, num_heads=H, valid_len=valid)
+        torch.cuda.synchronize()
+
+        def plain(valid_len=valid, qq=q, prescaled=False):
+            return fa.packed_self_attention_plain(qq, k, v, num_heads=H, valid_len=valid_len,
+                                                  prescaled=prescaled)[:, :valid]
+
+        ref = plain()
+        tag = f"K5 packed_self_attention [B={B} SP={sp} valid={valid}]"
+        err = check_close(tag, out[:, :valid], ref, *ATTN_TOL["K1"])
+        faults = {"no prescale": check_fault_caught(tag, "no prescale", plain(prescaled=True), ref, *ATTN_TOL["K1"]),
+                  "last valid column dropped": check_fault_caught(tag, "the last valid column dropped",
+                                                                  plain(valid_len=valid - 1), ref, *ATTN_TOL["K1"])}
+        if valid < sp:
+            faults["first pad column let in"] = check_fault_caught(tag, "the first pad column let in",
+                                                                   plain(valid_len=valid + 1), ref, *ATTN_TOL["K1"])
+        caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in faults.items())
+        log(f"kernel {tag}: max_abs_err={err:.3g} ref_mean_abs={float(ref.float().abs().mean()):.3g}{caught}")
+        if row is None:  # the path's shape: times, library, bound
+            qs, ks_, vs_ = (t[:, :valid].reshape(B, valid, H, D).transpose(1, 2) for t in (q, k, v))
+            row = dict(name="packed_self_attention", source="omchat_torch/csrc/packed_qkv_norm_attention.cu",
+                       replaces="omchat_tpu/ops/flash_attention.py:624", max_abs_err=err,
+                       ms=time_ms(lambda: fa.packed_self_attention(q, k, v, num_heads=H, valid_len=valid)),
+                       plain_ms=time_ms(plain, iters=5, warmup=1),
+                       library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks_, vs_)))
+            row["bound_ms"], row["bound_by"] = bound_ms(4.0 * B * H * valid * valid * D,
+                                                        qkv.numel() * 2 + B * sp * HD * 2)
+            log(f"kernel packed_self_attention: kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"library_ms={row['library_ms']:.4f} (SDPA) bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        del qkv, q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return res, row
+
+
+def decode_layer_cache(gen, cfg, params, seed: int) -> tuple:
+    """Phase 23 on phase 3's model: the request's prefill, then one decode
+    step whose layers attend through ``cache_attend`` with one query row —
+    the token written into each layer cache, K6 over it (28 launches) —
+    against the same step through ``decode_scan`` (K3 with the self column,
+    K4) on a copy of the cache; bf16 and e4m3 caches.  Per layer of the real
+    cache, K6 (cache_len + 1) against K3 (cache_len, self column) on the same
+    q.  Then K6 against its plain version at B=16 ragged lengths (1, 512,
+    3189, ...) with keys planted at the length boundary and a cache_len off
+    by one that must fall outside, and K6's time at the request's shape.
+    Returns (result, K6's row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omchat_torch.models import qwen2
+    from omchat_torch.ops import decode_attention as da
+    from omchat_torch.ops.fp8 import E4M3, cast_to
+    from omchat_torch.ops.rope import rope_cos_sin
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.utils.tree import layer_slice
+
+    tc = cfg.text
+    lm = params["language_model"]
+    L, H, KVH, D = tc.num_hidden_layers, tc.num_attention_heads, tc.num_key_value_heads, tc.attn_head_dim
+    ids, tiles = make_request(cfg, seed)
+    res, launches = {}, None
+    for cache_dtype in (None, E4M3):
+        label = "bf16" if cache_dtype is None else "e4m3"
+        eng = OmChatEngine(cfg, params, image_cache_size=0, cache_dtype=cache_dtype)
+        plan = eng.plan([ids])
+        logits, cache = eng.prefill(plan, eng.encode_images(tiles), NEW_TOKENS)
+        tok = logits.argmax(-1).to(torch.int32)
+        n = int(plan.lengths[0])
+        wp = torch.full((1,), n, dtype=torch.int32, device=DEVICE)
+        ref_cache = qwen2.KVCache(cache.k.clone(), cache.v.clone())
+        ref_logits, _ = eng.decode_step(tok, wp, ref_cache)  # decode_scan: K3 + K4
+        # the same step, each layer through cache_attend (S == 1: K6 on the written layer cache)
+        with torch.no_grad():
+            x = qwen2.embed_tokens(lm, tok[:, None])
+            cos, sin = rope_cos_sin(wp[:, None], D, theta=tc.rope_theta, scaling=tc.rope_scaling,
+                                    max_position_embeddings=tc.max_position_embeddings, dtype=x.dtype)
+            da.flash_decode.launches = 0
+            for li in range(L):
+                def attend(q, k, v, li=li):
+                    return qwen2.cache_attend(None, wp, [n], wp + 1, cache.k[li], cache.v[li], q, k, v)
+
+                x = qwen2.decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend)
+            got = qwen2.lm_head(lm, tc, qwen2.rms_norm(x, lm["norm"]["scale"], tc.rms_norm_eps))[:, 0]
+            torch.cuda.synchronize()
+        if launches is None:
+            launches = da.flash_decode.launches
+        diff, top = float((got - ref_logits).abs().max()), float(ref_logits.abs().max())
+        # on an e4m3 cache K6 reads the token rounded to e4m3, K3 its bf16 self column
+        limit = (STEP_LOGIT_REL if cache_dtype is None else FP8_LOGIT_GAP_REL) * top
+        if not (torch.isfinite(got).all() and diff <= limit):
+            raise AssertionError(f"decode step through cache_attend (K6) vs decode_scan (K3) [{label} cache]: "
+                                 f"logits differ by {diff:.4g}, over {limit:.4g}")
+        # per layer of the real cache: K6 over the written row vs K3 with the self column, on one q;
+        # the row's values are ones the cache holds exactly, so both read the same numbers
+        q = _randn(gen, 1, 1, H, D)
+        kn, vn = (cast_to(_randn(gen, 1, KVH, D), cache.k.dtype).to(torch.bfloat16) for _ in range(2))
+        clen = wp.clone()
+        worst = 0.0
+        for li in range(L):
+            k3 = da.flash_decode_stacked(q, ref_cache.k, ref_cache.v, clen, li, kn, vn)
+            kw, vw = ref_cache.k[li].clone(), ref_cache.v[li].clone()
+            kw[:, :, n], vw[:, :, n] = cast_to(kn, kw.dtype), cast_to(vn, vw.dtype)
+            k6 = da.flash_decode(q, kw, vw, clen + 1)
+            worst = max(worst, check_close(f"K6 vs K3 + self column, layer {li} [{label} cache]", k6, k3,
+                                           *ATTN_TOL["K3"]))
+        res[label] = {"step_logits_max_abs_diff": diff, "step_logits_max_abs": top, "k6_vs_k3_max_abs_diff": worst,
+                      "argmax_equal": bool(torch.equal(got.argmax(-1), ref_logits.argmax(-1)))}
+        del eng, cache, ref_cache, kw, vw
+        torch.cuda.empty_cache()
+    res["flash_decode_launches"] = launches
+    log("decode over the layer cache (K6): " + json.dumps(res))
+    if launches != L:
+        raise AssertionError(f"K6 launched {launches} times in a {L}-layer decode step through cache_attend")
+
+    # K6 against its plain version: B=16 ragged lengths, keys planted at each
+    # length's last valid row and the first row past it.
+    lens = [1, 2, 17, 128, 512, 640, 1000, 1024, 1536, 2047, 2048, 2500, 3000, 3188, 3189, 3328]
+    B, T = len(lens), 3328
+    u = _direction(gen, KVH, D)
+    q = _randn(gen, B, 1, H, D) + u.repeat_interleave(H // KVH, dim=0)
+    kc, vc = _randn(gen, B, KVH, T, D), _randn(gen, B, KVH, T, D)
+    for b, n in enumerate(lens):
+        kc[b, :, 0] = 0.6 * u
+        kc[b, :, n - 1] = 0.8 * u
+        if n < T:
+            kc[b, :, n] = 0.8 * u
+    cl = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    out = da.flash_decode(q, kc, vc, cl)
+    torch.cuda.synchronize()
+    ref = da.flash_decode_plain(q, kc, vc, cl)
+    err = check_close("K6 flash_decode [B=16 ragged]", out, ref, *ATTN_TOL["K3"])
+    faults = {f"cache_len{d:+d}": check_fault_caught("K6", f"cache_len{d:+d}", da.flash_decode_plain(
+        q, kc, vc, (cl + d).clamp(1, T)), ref, *ATTN_TOL["K3"]) for d in (-1, 1)}
+    log(f"kernel flash_decode [B=16 lengths {lens[0]}..{lens[-1]}]: max_abs_err={err:.3g}" + "".join(
+        f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in faults.items()))
+    del kc, vc, out, ref
+    # time at the request's shape: one request, its cache (T rows), length n + 1
+    n = int(wp[0]) + 1
+    kc, vc = _randn(gen, 1, KVH, T, D), _randn(gen, 1, KVH, T, D)
+    q1 = _randn(gen, 1, 1, H, D)
+    c1 = torch.full((1,), n, dtype=torch.int32, device=DEVICE)
+    qs = q1.transpose(1, 2)
+    row = dict(name="flash_decode", source="omchat_torch/csrc/flash_decode_stacked.cu",
+               replaces="omchat_tpu/ops/decode_attention.py:198", max_abs_err=err,
+               ms=time_ms(lambda: da.flash_decode(q1, kc, vc, c1), iters=100),
+               plain_ms=time_ms(lambda: da.flash_decode_plain(q1, kc, vc, c1)),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, kc[:, :, :n], vc[:, :, :n],
+                                                                         enable_gqa=True), iters=100))
+    row["bound_ms"], row["bound_by"] = bound_ms(4.0 * H * D * n, (2 * KVH * n * D + 2 * H * D) * 2 + 4)
+    log(f"kernel flash_decode [B=1 T={T} cache_len={n}]: kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+        f"library_ms={row['library_ms']:.4f} (SDPA over the valid rows) bound_ms={row['bound_ms']:.4f} "
+        f"({row['bound_by']})")
+    del kc, vc
+    torch.cuda.empty_cache()
+    return res, row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -2480,10 +3081,14 @@ def main() -> int:
     log("main-path shapes: " + json.dumps({k: v for k, v in shapes.items() if k != "decode_lens"})
         + f" decode_lens {shapes['decode_lens'][0]}..{shapes['decode_lens'][-1]}")
     rows = kernel_phases(gen, shapes)
-    e2e = end_to_end(args.seed)
+    full = full_model(args.seed)
+    e2e = end_to_end(args.seed, model=full)
     if (e2e["tiles"], e2e["merged_len"], e2e["cache_len"]) != (shapes["tiles"], shapes["prompt_len"],
                                                                  shapes["cache_rows"]):
         raise AssertionError(f"e2e: the request's shapes differ from those phase 2 measured: {shapes}")
+    k6, k6_row = decode_layer_cache(gen, *full, args.seed)
+    del full
+    gc.collect()
     kernel_vs_plain(args.seed)
 
     serve, timed = serving(args.seed)
@@ -2503,7 +3108,27 @@ def main() -> int:
                                                    "peak_mem_gib")}
     log("bf16 vs w8a8, single request (this call): " + json.dumps(bf16_vs_w8a8))
     w8a8_serving(cfg8, params8)
+    calib8 = swiglu_calibrate(cfg8, params8, args.seed)
     del params8
+    shapes10, undo = record_w8a8_launches()
+    try:
+        e2e10 = end_to_end(args.seed, model=(cfg8, calib8),
+                           counted={**counters(), **w8a8_counters(), **swiglu_counters()},
+                           label="w8a8 e2e (calibrated MLP)")
+        w8a8_serving(cfg8, calib8, label="w8a8 serving (calibrated MLP)",
+                     must_launch=("rmsnorm_quant", "attn_proj_glue_quant", "dense_prequant_swiglu_quant"))
+    finally:
+        undo()
+    del calib8
+    shapes8["dense_prequant_swiglu_quant"] = shapes10["dense_prequant_swiglu_quant"]
+    log("K10 shapes (calibrated request and serving runs, timed and warm-up, launches per shape): "
+        + json.dumps({str(k): v for k, v in shapes8["dense_prequant_swiglu_quant"].items()}))
+    n_layers = cfg8.text.num_hidden_layers
+    if e2e10["launches"]["dense_prequant_swiglu_quant"] != n_layers:
+        raise AssertionError(f"w8a8 e2e (calibrated MLP): K10 launched "
+                             f"{e2e10['launches']['dense_prequant_swiglu_quant']} times, not {n_layers}")
+    log("w8a8 vs w8a8 with the calibrated MLP, single request (this call): " + json.dumps(
+        {k: [e2e8[k], e2e10[k]] for k in ("ttft_ms", "prefill_ms", "decode_tokens_per_s", "peak_mem_gib")}))
     w8a8_rows = w8a8_kernel_phases(gen, shapes8)
     w8a8_kernel_vs_plain(args.seed)
 
@@ -2529,6 +3154,14 @@ def main() -> int:
     log("bf16 vs e4m3 cache, single request (this call): " + json.dumps(
         {k: [e2e[k], fp8["e2e"][k]] for k in ("ttft_ms", "prefill_ms", "decode_tokens_per_s", "peak_mem_gib")}))
 
+    ps_rows = page_size_kernel_phases(gen, timed)
+    ps64 = page_size_serving(args.seed, serve["tokens"])
+    log("serving by page size (this call): " + json.dumps(
+        {ps: {k: r[k] for k in ("tokens_per_s", "ttft_p50_s", "ttft_p99_s", "intertoken_p50_s", "intertoken_p99_s",
+                                "decode_step_wall_ms_16_slots", "pages_free")}
+         for ps, r in ((128, serve), (64, ps64))}))
+    vit5, k5_row = vit_without_qk_norm(gen, args.seed, shapes)
+
     # each kernel's launches on its own main path: K1-K4 on the single-image
     # request (phase 3), K12, K14 and K15 in the timed serving run (phase 5),
     # K7, K8, K9 and K11 on the w8a8 single-image request (phase 9), K16a/b/c
@@ -2544,13 +3177,20 @@ def main() -> int:
                 **{f"{n}[e4m3]": fp8_runs[("e4m3", "auto")]["launches"][n] for n in paged},
                 "paged_flash_decode_manual": fp8_runs[("bf16", "manual")]["launches"]["paged_flash_decode_manual"],
                 "paged_flash_decode_manual[e4m3]":
-                    fp8_runs[("e4m3", "manual")]["launches"]["paged_flash_decode_manual"]}
+                    fp8_runs[("e4m3", "manual")]["launches"]["paged_flash_decode_manual"],
+                # K10 on the calibrated w8a8 request (phase 21), K5 in the 45-layer ViT without
+                # qk-norm (phase 22), K6 in the decode step through cache_attend (phase 23), the
+                # page-size-64 K12 and K14 in the page-size-64 serving run (phase 20)
+                "dense_prequant_swiglu_quant": e2e10["launches"]["dense_prequant_swiglu_quant"],
+                "packed_self_attention": vit5["packed_self_attention_launches"],
+                "flash_decode": k6["flash_decode_launches"],
+                **{f"{n}[page_size=64]": ps64["launches"][n] for n in ("paged_flash_decode", "paged_flash_prefill")}}
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
-    } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows]
+    } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows + ps_rows + [k5_row, k6_row]]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

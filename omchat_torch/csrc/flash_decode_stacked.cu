@@ -1,10 +1,18 @@
 // One query token's GQA attention against one layer of the stacked, read-only
-// KV cache, with the in-flight token folded in as a self column.
+// KV cache, with the in-flight token folded in as a self column (K3), and the
+// same against a per-layer cache that already holds the token (K6).
 //
-// Replaces the TPU kernel omchat_tpu/ops/decode_attention.py:109
+// K3 replaces the TPU kernel omchat_tpu/ops/decode_attention.py:109
 // flash_decode_stacked (body _decode_kernel_stacked :86, pallas_call :185;
 // the fold is omchat_tpu/ops/online_softmax.py:64 fold_self_column).
+// K6 replaces omchat_tpu/ops/decode_attention.py:198 flash_decode (body
+// _decode_kernel :38, pallas_call :260): the kernel below with SELF = false,
+// entry omchat_flash_decode[_e4m3]:
+//   q [B, H, D] bf16, k/v cache [B, KVH, T, D] bf16 or e4m3, cache_len [B]
+//   int32 valid rows INCLUDING the new token, out [B, H, D] bf16; a request
+//   of length 0 writes zeros (the TPU kernel's l == 0 guard).
 //
+// K3's operands:
 //   q            [B, H, D] bf16 (the [B, 1, H, D] query)
 //   k/v cache    [L, B, KVH, T, D] bf16, or e4m3 through
 //                omchat_flash_decode_stacked_e4m3 (the fp8 cache); layer `layer`
@@ -26,7 +34,8 @@
 // columns), then the warps merge their states through shared memory in a
 // fixed order and warp 0 folds the self column and writes the group's heads.
 // At B=1 that is only KVH=4 blocks on 132 SMs, so it runs far from the byte
-// bound; splitting the cache across blocks is later work.
+// bound; splitting the cache across blocks is later work.  K6 has K3's bound
+// (the same bytes but the self column) and its design.
 #include "common.cuh"
 
 namespace {
@@ -34,7 +43,7 @@ namespace {
 constexpr int WARPS = 16;
 constexpr int MAX_GROUP = 8;
 
-template <int D, typename E>
+template <int D, typename E, bool SELF>
 __global__ void __launch_bounds__(32 * WARPS)
 flash_decode_stacked_kernel(const bf16* __restrict__ q, const E* __restrict__ k_cache,
                             const E* __restrict__ v_cache, const int* __restrict__ cache_len, int layer,
@@ -139,8 +148,20 @@ flash_decode_stacked_kernel(const bf16* __restrict__ q, const E* __restrict__ k_
         __syncthreads();
     }
 
+    // Without a self column (K6): normalise, warp 0 only; a row that saw no
+    // column writes zeros.
+    if (!SELF && warp == 0) {
+#pragma unroll
+        for (int gi = 0; gi < MAX_GROUP; ++gi) {
+            if (gi >= group) break;
+            const float inv = lg[gi] == 0.f ? 0.f : 1.f / lg[gi];
+            bf16* o = out + ((size_t)b * H + kvh * group + gi) * D;
+#pragma unroll
+            for (int i = 0; i < PER; ++i) o[d0 + i] = __float2bfloat16(acc_s[gi][d0 + i] * inv);
+        }
+    }
     // Self column (the in-flight token), then normalise: warp 0 only.
-    if (warp == 0) {
+    if (SELF && warp == 0) {
         const bf16* kn = k_new + ((size_t)b * KVH + kvh) * D;
         const bf16* vn = v_new + ((size_t)b * KVH + kvh) * D;
 #pragma unroll
@@ -168,15 +189,16 @@ flash_decode_stacked_kernel(const bf16* __restrict__ q, const E* __restrict__ k_
     }
 }
 
-template <int D, typename E>
+template <int D, typename E, bool SELF>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* cache_len, int layer,
            const void* k_new, const void* v_new, void* out, int B, int KVH, int T, int D_arg, int group,
            void* stream) {
     if (group < 1 || group > MAX_GROUP) return (int)cudaErrorInvalidValue;
     if (D_arg != D) return (int)cudaErrorInvalidValue;
+    if (B == 0) return 0;
     const float sm_scale = 1.f / sqrtf((float)D);
     dim3 grid(KVH, B);
-    flash_decode_stacked_kernel<D, E><<<grid, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+    flash_decode_stacked_kernel<D, E, SELF><<<grid, 32 * WARPS, 0, (cudaStream_t)stream>>>(
         (const bf16*)q, (const E*)k_cache, (const E*)v_cache, (const int*)cache_len, layer, (const bf16*)k_new,
         (const bf16*)v_new, (bf16*)out, B, KVH, T, group, sm_scale);
     return (int)cudaGetLastError();
@@ -187,12 +209,28 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
 extern "C" int omchat_flash_decode_stacked(const void* q, const void* k_cache, const void* v_cache,
                                            const void* cache_len, int layer, const void* k_new, const void* v_new,
                                            void* out, int B, int KVH, int T, int D, int group, void* stream) {
-    return launch<128, bf16>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group, stream);
+    return launch<128, bf16, true>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group,
+                                   stream);
 }
 
 extern "C" int omchat_flash_decode_stacked_e4m3(const void* q, const void* k_cache, const void* v_cache,
                                                 const void* cache_len, int layer, const void* k_new,
                                                 const void* v_new, void* out, int B, int KVH, int T, int D, int group,
                                                 void* stream) {
-    return launch<128, e4m3>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group, stream);
+    return launch<128, e4m3, true>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group,
+                                   stream);
+}
+
+// K6: the per-layer cache [B, KVH, T, D] is layer 0 of a one-layer stack.
+extern "C" int omchat_flash_decode(const void* q, const void* k_cache, const void* v_cache, const void* cache_len,
+                                   void* out, int B, int KVH, int T, int D, int group, void* stream) {
+    return launch<128, bf16, false>(q, k_cache, v_cache, cache_len, 0, nullptr, nullptr, out, B, KVH, T, D, group,
+                                    stream);
+}
+
+extern "C" int omchat_flash_decode_e4m3(const void* q, const void* k_cache, const void* v_cache,
+                                        const void* cache_len, void* out, int B, int KVH, int T, int D, int group,
+                                        void* stream) {
+    return launch<128, e4m3, false>(q, k_cache, v_cache, cache_len, 0, nullptr, nullptr, out, B, KVH, T, D, group,
+                                    stream);
 }

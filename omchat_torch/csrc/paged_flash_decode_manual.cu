@@ -8,7 +8,7 @@
 //
 // The contract is K12's (paged_flash_decode.cu), and so is the function:
 //   q            [B, H, D] bf16 (the [B, 1, H, D] query)
-//   k/v_pages    [NP, KVH, PS, D] page-major pool (PS = 128), bf16 or, through
+//   k/v_pages    [NP, KVH, PS, D] page-major pool (PS 16, 32, 64 or 128), bf16 or, through
 //                omchat_paged_flash_decode_manual_e4m3, e4m3; a layered pool
 //                [L, P+1, ...] is passed flat and `page_offset` (the layer's
 //                first page) is added to every table entry
@@ -30,11 +30,16 @@
 // consumer warp releases a stage through a second mbarrier.  K12 instead has
 // every thread issue 16-byte cp.async copies into a double buffer.
 //
-// The ring's unit is one kv head's slice of a page (PS x D values, contiguous
-// in the [NP, KVH, PS, D] pool): a whole page of 4 kv heads is 128 KiB of K
-// plus 128 KiB of V in bf16, more than the 227 KiB a block may hold.  A stage
-// holds K and V of one slice: 64 KiB in bf16, so NBUF = 3 (192 KiB), and
-// 32 KiB in e4m3, so NBUF = 4 (128 KiB).
+// The ring's unit is 128 cache rows of one kv head: 128 / PS page slices
+// (each PS x D values, contiguous in the [NP, KVH, PS, D] pool), one bulk copy
+// of K and one of V per slice.  A whole 128-row page of 4 kv heads is 128 KiB
+// of K plus 128 KiB of V in bf16, more than the 227 KiB a block may hold.  A
+// stage holds K and V of 128 rows: 64 KiB in bf16, so NBUF = 3 (192 KiB), and
+// 32 KiB in e4m3, so NBUF = 4 (128 KiB).  As in K12, a stage, each consumer
+// warp's 16 columns and the merge order do not depend on PS, so every page
+// size computes the same bits as PS = 128.  A stage's slots past the last page
+// the request reads are filled with a copy of that page (its columns are
+// masked), so every stage completes the same transaction count.
 //
 // Grid: one block per (kv head, request), as K12, not the TPU kernel's one
 // program per request: (B,) would be 16 blocks on 132 SMs at the serving
@@ -49,11 +54,11 @@
 
 namespace {
 
-constexpr int PS = 128;               // page rows
-constexpr int CONSUMERS = 8;          // consumer warps
-constexpr int WARPS = CONSUMERS + 1;  // and one producer warp
-constexpr int COLS = PS / CONSUMERS;  // page columns per consumer warp
-constexpr int ROWS = 16;              // q rows of the mma tile (the GQA group, padded)
+constexpr int STAGE_ROWS = 128;               // cache rows per stage (128 / PS page slices)
+constexpr int CONSUMERS = 8;                  // consumer warps
+constexpr int WARPS = CONSUMERS + 1;          // and one producer warp
+constexpr int COLS = STAGE_ROWS / CONSUMERS;  // stage columns per consumer warp
+constexpr int ROWS = 16;                      // q rows of the mma tile (the GQA group, padded)
 
 template <typename E>
 struct Ring;
@@ -110,7 +115,7 @@ __device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, unsigned
         : "memory");
 }
 
-template <int D, typename E>
+template <int D, typename E, int PS>
 __global__ void __launch_bounds__(32 * WARPS)
 paged_flash_decode_manual_kernel(const bf16* __restrict__ q, const E* __restrict__ k_pages,
                                  const E* __restrict__ v_pages, const int* __restrict__ lengths,
@@ -118,10 +123,12 @@ paged_flash_decode_manual_kernel(const bf16* __restrict__ q, const E* __restrict
                                  const bf16* __restrict__ v_new, bf16* __restrict__ out, int H, int KVH,
                                  int table_stride, int width, int page_offset, float scale_log2) {
     constexpr int NBUF = Ring<E>::NBUF;
-    constexpr int SLICE = PS * D;  // values of one kv head's page slice
+    constexpr int SLICE = PS * D;           // values of one kv head's page slice
+    constexpr int STAGE = STAGE_ROWS * D;   // values of K (or V) in a stage
+    constexpr int SLOTS = STAGE_ROWS / PS;  // page slices a stage holds
     constexpr unsigned SLICE_BYTES = SLICE * sizeof(E);
     extern __shared__ __align__(128) unsigned char smem_raw[];
-    E* ring = reinterpret_cast<E*>(smem_raw);  // [NBUF][K, V][PS][D]
+    E* ring = reinterpret_cast<E*>(smem_raw);  // [NBUF][K, V][STAGE_ROWS][D]
     __shared__ __align__(8) uint64_t full[NBUF];   // a stage's copies have landed
     __shared__ __align__(8) uint64_t empty[NBUF];  // every consumer warp is done with a stage
 
@@ -131,8 +138,9 @@ paged_flash_decode_manual_kernel(const bf16* __restrict__ q, const E* __restrict
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
 
-    const int len = lengths[b];
-    const int n_pages = len > 0 ? min((len + PS - 1) / PS, width) : 0;
+    const int len = min(lengths[b], width * PS);  // the columns the table maps
+    const int n_pages = len > 0 ? (len + PS - 1) / PS : 0;
+    const int n_stages = (len + STAGE_ROWS - 1) / STAGE_ROWS;
     const int* table = tables + (size_t)b * table_stride;
     const bf16* qb = q + ((size_t)b * H + (size_t)kvh * group) * D;
 
@@ -156,14 +164,17 @@ paged_flash_decode_manual_kernel(const bf16* __restrict__ q, const E* __restrict
         // consumer warps have released its previous page.
         if (lane == 0) {
             const size_t page_elems = (size_t)KVH * SLICE;
-            for (int p = 0; p < n_pages; ++p) {
+            for (int p = 0; p < n_stages; ++p) {
                 const int s = p % NBUF;
                 if (p >= NBUF) mbar_wait(&empty[s], (p / NBUF - 1) & 1);
-                const size_t src = (size_t)(table[p] + page_offset) * page_elems + (size_t)kvh * SLICE;
-                E* kd = ring + (size_t)s * 2 * SLICE;
-                mbar_arrive_expect_tx(&full[s], 2 * SLICE_BYTES);
-                bulk_copy(kd, k_pages + src, SLICE_BYTES, &full[s]);
-                bulk_copy(kd + SLICE, v_pages + src, SLICE_BYTES, &full[s]);
+                E* kd = ring + (size_t)s * 2 * STAGE;
+                mbar_arrive_expect_tx(&full[s], 2 * SLOTS * SLICE_BYTES);
+                for (int i = 0; i < SLOTS; ++i) {
+                    const int pg = min(p * SLOTS + i, n_pages - 1);
+                    const size_t src = (size_t)(table[pg] + page_offset) * page_elems + (size_t)kvh * SLICE;
+                    bulk_copy(kd + i * SLICE, k_pages + src, SLICE_BYTES, &full[s]);
+                    bulk_copy(kd + STAGE + i * SLICE, v_pages + src, SLICE_BYTES, &full[s]);
+                }
             }
         }
         __syncwarp();
@@ -173,13 +184,13 @@ paged_flash_decode_manual_kernel(const bf16* __restrict__ q, const E* __restrict
         // page with its own online softmax.
         uint32_t qa[D / 16][4];
         load_q_group<D>(qa, qb, group);
-        for (int p = 0; p < n_pages; ++p) {
+        for (int p = 0; p < n_stages; ++p) {
             const int s = p % NBUF;
             mbar_wait(&full[s], (p / NBUF) & 1);
-            const int c0 = p * PS + warp * COLS;
+            const int c0 = p * STAGE_ROWS + warp * COLS;
             if (c0 < len) {  // a warp whose columns all lie past the length skips its share
-                const E* ks = ring + (size_t)s * 2 * SLICE + warp * COLS * D;
-                const E* vs = ks + SLICE;
+                const E* ks = ring + (size_t)s * 2 * STAGE + warp * COLS * D;
+                const E* vs = ks + STAGE;
                 auto mask = [&](int, int col, float sc) { return c0 + col < len ? sc * scale_log2 : OMCHAT_MASK_VALUE; };
                 attend_tile<D, COLS>(qa, ks, vs, D, m, l, acc, mask);
             }
@@ -198,24 +209,36 @@ paged_flash_decode_manual_kernel(const bf16* __restrict__ q, const E* __restrict
                                          out + ((size_t)b * H + (size_t)kvh * group) * D, group, scale_log2);
 }
 
-template <int D, typename E>
-int launch(const void* q, const void* k_pages, const void* v_pages, const void* lengths, const void* tables,
-           const void* k_new, const void* v_new, void* out, int B, int H, int KVH, int page_size, int D_arg,
-           int table_stride, int width, int page_offset, void* stream) {
+template <int D, typename E, int PS>
+int launch_ps(const void* q, const void* k_pages, const void* v_pages, const void* lengths, const void* tables,
+              const void* k_new, const void* v_new, void* out, int B, int H, int KVH, int D_arg, int table_stride,
+              int width, int page_offset, void* stream) {
     if (KVH <= 0 || H % KVH != 0 || H / KVH > ROWS) return (int)cudaErrorInvalidValue;
-    if (D_arg != D || page_size != PS) return (int)cudaErrorInvalidValue;
+    if (D_arg != D) return (int)cudaErrorInvalidValue;
     if (B == 0) return 0;
-    constexpr size_t smem = (size_t)Ring<E>::NBUF * 2 * PS * D * sizeof(E);
+    constexpr size_t smem = (size_t)Ring<E>::NBUF * 2 * STAGE_ROWS * D * sizeof(E);
     static_assert((2 * CONSUMERS * ROWS + ROWS + CONSUMERS * ROWS * D) * sizeof(float) <= smem,
                   "the merge scratch must fit the ring");
-    cudaFuncSetAttribute(paged_flash_decode_manual_kernel<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(paged_flash_decode_manual_kernel<D, E, PS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
     const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
     dim3 grid(KVH, B);
-    paged_flash_decode_manual_kernel<D, E><<<grid, 32 * WARPS, smem, (cudaStream_t)stream>>>(
+    paged_flash_decode_manual_kernel<D, E, PS><<<grid, 32 * WARPS, smem, (cudaStream_t)stream>>>(
         (const bf16*)q, (const E*)k_pages, (const E*)v_pages, (const int*)lengths, (const int*)tables,
         (const bf16*)k_new, (const bf16*)v_new, (bf16*)out, H, KVH, table_stride, width, page_offset, scale_log2);
     return (int)cudaGetLastError();
+}
+
+// The page sizes the kernel is built for (the serving engine refuses any other).
+template <int D, typename E, typename... Args>
+int launch(int page_size, Args... args) {
+    switch (page_size) {
+        case 16: return launch_ps<D, E, 16>(args...);
+        case 32: return launch_ps<D, E, 32>(args...);
+        case 64: return launch_ps<D, E, 64>(args...);
+        case 128: return launch_ps<D, E, 128>(args...);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -224,7 +247,7 @@ extern "C" int omchat_paged_flash_decode_manual(const void* q, const void* k_pag
                                                 const void* lengths, const void* tables, const void* k_new,
                                                 const void* v_new, void* out, int B, int H, int KVH, int page_size,
                                                 int D, int table_stride, int width, int page_offset, void* stream) {
-    return launch<128, bf16>(q, k_pages, v_pages, lengths, tables, k_new, v_new, out, B, H, KVH, page_size, D,
+    return launch<128, bf16>(page_size, q, k_pages, v_pages, lengths, tables, k_new, v_new, out, B, H, KVH, D,
                              table_stride, width, page_offset, stream);
 }
 
@@ -233,6 +256,6 @@ extern "C" int omchat_paged_flash_decode_manual_e4m3(const void* q, const void* 
                                                      const void* v_new, void* out, int B, int H, int KVH,
                                                      int page_size, int D, int table_stride, int width,
                                                      int page_offset, void* stream) {
-    return launch<128, e4m3>(q, k_pages, v_pages, lengths, tables, k_new, v_new, out, B, H, KVH, page_size, D,
+    return launch<128, e4m3>(page_size, q, k_pages, v_pages, lengths, tables, k_new, v_new, out, B, H, KVH, D,
                              table_stride, width, page_offset, stream);
 }

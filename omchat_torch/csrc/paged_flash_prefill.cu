@@ -6,7 +6,7 @@
 //
 //   q            [B, C, H, D] bf16, already multiplied (in bf16) by D^-0.5 * log2(e)
 //   k/v_pages    [P, KVH, PS, D] bf16, or e4m3 through omchat_paged_flash_prefill_e4m3
-//                (the fp8 pool), one layer's page-major pool (PS % 64 == 0)
+//                (the fp8 pool), one layer's page-major pool (PS 16, 32, 64 or 128)
 //   q_offset     [B] int32 position of the chunk's first row (page-aligned)
 //   kv_len       [B] int32 valid positions, this chunk's rows included
 //   tables       [B, *] int32 rows of `table_stride`, `width` entries used
@@ -21,8 +21,10 @@
 // 989 TFLOP/s, ~5 us at 3.35 TB/s).  Design: K2's (flash_attention.cu) —
 // one block per (16 query rows, kv head, request), one warp per q head of the
 // GQA group sharing every staged 64-row K/V tile, mma.sync m16n8k16 with an
-// online exp2 softmax in registers — with each tile addressed through
-// tables[b][col / PS] at row col % PS: a 64-row tile never straddles a page.
+// online exp2 softmax in registers — with each tile row addressed through
+// tables[b][col / PS] at row col % PS: a 64-row tile lies in one page when
+// PS >= 64 and spans 64 / PS pages below that.  Rows past the mapped pages
+// (col / PS >= width) are staged as zeros and masked.
 // The TPU kernel's grid re-walked the pages per (kv head, q block) and paid a
 // per-step issue cost; here each block walks only the tiles below its causal
 // diagonal and kv_len, and reads them straight from the pool.  No TMA, wgmma
@@ -37,11 +39,11 @@ constexpr int ROWS = 16;      // query rows per block (one mma row tile per warp
 constexpr int KV_TILE = 64;   // kv rows per shared-memory tile
 constexpr int MAX_GROUP = 8;  // 256 threads
 
-template <int D, typename E>
+template <int D, typename E, int PS>
 __global__ void __launch_bounds__(32 * MAX_GROUP)
 paged_flash_prefill_kernel(const bf16* __restrict__ q, const E* __restrict__ k_pages, const E* __restrict__ v_pages,
-                           bf16* __restrict__ out, const int* __restrict__ q_offset, const int* __restrict__ kv_len, const int* __restrict__ tables, int C, int H, int KVH,
-                           int PS, int table_stride, int width) {
+                           bf16* __restrict__ out, const int* __restrict__ q_offset, const int* __restrict__ kv_len,
+                           const int* __restrict__ tables, int C, int H, int KVH, int table_stride, int width) {
     constexpr int LD = D + 16 / (int)sizeof(E);  // padded smem row (bank spread), 16-byte aligned
     extern __shared__ __align__(16) unsigned char smem_raw[];
     E* ks = reinterpret_cast<E*>(smem_raw);
@@ -58,7 +60,7 @@ paged_flash_prefill_kernel(const bf16* __restrict__ q, const E* __restrict__ k_p
     const int head = kvh * group + warp;
 
     const int qoff = q_offset[b];
-    const int klen = kv_len[b];
+    const int klen = min(kv_len[b], width * PS);  // the columns the table maps
     const int* table = tables + (size_t)b * table_stride;
 
     uint32_t qa[D / 16][4];
@@ -78,8 +80,7 @@ paged_flash_prefill_kernel(const bf16* __restrict__ q, const E* __restrict__ k_p
 
     // kv columns this block needs: below kv_len and the mapped pages, and at
     // or below the diagonal of its last row.
-    int end = min(klen, width * PS);
-    end = min(end, min(r0 + ROWS, C) - 1 + qoff + 1);
+    const int end = min(klen, min(r0 + ROWS, C) - 1 + qoff + 1);
     const int n_tiles = end > 0 ? (end + KV_TILE - 1) / KV_TILE : 0;
 
     float m[2] = {-INFINITY, -INFINITY};
@@ -96,14 +97,18 @@ paged_flash_prefill_kernel(const bf16* __restrict__ q, const E* __restrict__ k_p
 
     for (int j = 0; j < n_tiles; ++j) {
         const int c0 = j * KV_TILE;
-        const size_t base = (size_t)table[c0 / PS] * page_elems + head_off + (size_t)(c0 % PS) * D;
         __syncthreads();  // the previous tile is no longer read
         for (int idx = threadIdx.x; idx < KV_TILE * CHUNKS; idx += nthreads) {
             const int r = idx / CHUNKS, c = (idx % CHUNKS) * VEC;
-            *reinterpret_cast<uint4*>(ks + r * LD + c) =
-                *reinterpret_cast<const uint4*>(k_pages + base + (size_t)r * D + c);
-            *reinterpret_cast<uint4*>(vs + r * LD + c) =
-                *reinterpret_cast<const uint4*>(v_pages + base + (size_t)r * D + c);
+            const int pos = c0 + r, pg = pos / PS;
+            uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
+            if (pg < width) {
+                const size_t src = (size_t)table[pg] * page_elems + head_off + (size_t)(pos % PS) * D + c;
+                kx = *reinterpret_cast<const uint4*>(k_pages + src);
+                vx = *reinterpret_cast<const uint4*>(v_pages + src);
+            }
+            *reinterpret_cast<uint4*>(ks + r * LD + c) = kx;
+            *reinterpret_cast<uint4*>(vs + r * LD + c) = vx;
         }
         __syncthreads();
         const int row_a = r0 + g;
@@ -121,21 +126,34 @@ paged_flash_prefill_kernel(const bf16* __restrict__ q, const E* __restrict__ k_p
     store_rows<D>(acc, l, oa, ob);
 }
 
-template <int D, typename E>
-int launch(const void* q, const void* k_pages, const void* v_pages, void* out, const void* q_offset,
-           const void* kv_len, const void* tables, int B, int C, int H, int KVH, int PS, int D_arg, int table_stride,
-           int width, void* stream) {
+template <int D, typename E, int PS>
+int launch_ps(const void* q, const void* k_pages, const void* v_pages, void* out, const void* q_offset,
+              const void* kv_len, const void* tables, int B, int C, int H, int KVH, int D_arg, int table_stride,
+              int width, void* stream) {
     if (KVH <= 0 || H % KVH != 0 || H / KVH > MAX_GROUP) return (int)cudaErrorInvalidValue;
-    if (D_arg != D || PS <= 0 || PS % KV_TILE != 0) return (int)cudaErrorInvalidValue;
+    if (D_arg != D) return (int)cudaErrorInvalidValue;
     if (B == 0 || C == 0) return 0;
     const int group = H / KVH;
     const size_t smem = 2 * (size_t)KV_TILE * (D + 16 / sizeof(E)) * sizeof(E);
-    cudaFuncSetAttribute(paged_flash_prefill_kernel<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncSetAttribute(paged_flash_prefill_kernel<D, E, PS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
     dim3 grid((C + ROWS - 1) / ROWS, KVH, B);
-    paged_flash_prefill_kernel<D, E><<<grid, 32 * group, smem, (cudaStream_t)stream>>>(
+    paged_flash_prefill_kernel<D, E, PS><<<grid, 32 * group, smem, (cudaStream_t)stream>>>(
         (const bf16*)q, (const E*)k_pages, (const E*)v_pages, (bf16*)out, (const int*)q_offset, (const int*)kv_len,
-        (const int*)tables, C, H, KVH, PS, table_stride, width);
+        (const int*)tables, C, H, KVH, table_stride, width);
     return (int)cudaGetLastError();
+}
+
+// The page sizes the kernel is built for (the serving engine refuses any other).
+template <int D, typename E, typename... Args>
+int launch(int page_size, Args... args) {
+    switch (page_size) {
+        case 16: return launch_ps<D, E, 16>(args...);
+        case 32: return launch_ps<D, E, 32>(args...);
+        case 64: return launch_ps<D, E, 64>(args...);
+        case 128: return launch_ps<D, E, 128>(args...);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -143,7 +161,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages, void* out, c
 extern "C" int omchat_paged_flash_prefill(const void* q, const void* k_pages, const void* v_pages, void* out,
                                           const void* q_offset, const void* kv_len, const void* tables, int B, int C,
                                           int H, int KVH, int PS, int D, int table_stride, int width, void* stream) {
-    return launch<128, bf16>(q, k_pages, v_pages, out, q_offset, kv_len, tables, B, C, H, KVH, PS, D, table_stride,
+    return launch<128, bf16>(PS, q, k_pages, v_pages, out, q_offset, kv_len, tables, B, C, H, KVH, D, table_stride,
                              width, stream);
 }
 
@@ -151,6 +169,6 @@ extern "C" int omchat_paged_flash_prefill_e4m3(const void* q, const void* k_page
                                                const void* q_offset, const void* kv_len, const void* tables, int B,
                                                int C, int H, int KVH, int PS, int D, int table_stride, int width,
                                                void* stream) {
-    return launch<128, e4m3>(q, k_pages, v_pages, out, q_offset, kv_len, tables, B, C, H, KVH, PS, D, table_stride,
+    return launch<128, e4m3>(PS, q, k_pages, v_pages, out, q_offset, kv_len, tables, B, C, H, KVH, D, table_stride,
                              width, stream);
 }

@@ -2,7 +2,8 @@
 
 - conv patchify + CLS + bicubic-interpolated position embeddings
   (modeling_intern_vit.py:61-102),
-- packed-QKV attention with qk-RMSNorm over the flattened head dim,
+- packed-QKV attention, with qk-RMSNorm over the flattened head dim where the
+  tower has it,
 - pre-norm blocks with LayerScale ls1/ls2; no final norm.
 
 Params are a dict of tensors in the JAX package's layout (per-layer tensors
@@ -31,7 +32,12 @@ from torch.utils.checkpoint import checkpoint
 
 from omchat_torch.config import VisionConfig
 from omchat_torch.ops.attention import attention
-from omchat_torch.ops.flash_attention import packed_prescale, packed_qkv_norm_attention, packed_seq_supported
+from omchat_torch.ops.flash_attention import (
+    packed_prescale,
+    packed_qkv_norm_attention,
+    packed_self_attention,
+    packed_seq_supported,
+)
 from omchat_torch.ops.linear import dense, dense_prequant, div127, gelu_tanh, quantize_activations
 from omchat_torch.ops.norms import add_rmsnorm_quant, apply_norm, rms_norm
 from omchat_torch.ops.quant_matmul import attn_proj_glue_quant, fc1_gelu_quant, proj_glue_supported
@@ -99,10 +105,13 @@ def embeddings(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor) -> t
 
 
 def _attention_fused(cfg: VisionConfig, layer: dict, qkv: torch.Tensor, valid_len: int) -> torch.Tensor:
-    """qk-norm (prescale folded into the q gamma) + packed attention on
-    [B, SP, 3D] — kernel K1 on CUDA."""
+    """Packed attention on [B, SP, 3D]: with qk-norm (prescale folded into
+    the q gamma) kernel K1 on CUDA; without, the q/k/v column blocks read in
+    place and prescaled in the kernel, K5."""
     if not cfg.qk_normalization:
-        raise NotImplementedError("packed attention without qk-norm (300M tower) waits for a later slice")
+        q, k, v = qkv.chunk(3, dim=-1)
+        return packed_self_attention(q, k, v, num_heads=cfg.num_attention_heads, valid_len=valid_len,
+                                     prescaled=False)
     return packed_qkv_norm_attention(
         qkv,
         num_heads=cfg.num_attention_heads,
@@ -195,14 +204,15 @@ def intern_vit_forward(
     when the head width allows, the whole stack runs at the sequence length
     padded once to a multiple of 8 — every op but attention is row-local and
     attention masks the pad columns — so nothing is re-packed around the
-    attention kernel.  Any other route takes the split path, the qk-norm
+    attention kernel (K1, or K5 for a tower without qk-norm).  Any other
+    route takes the split path, the qk-norm
     applied outside attention: ``attn_impl="plain"`` with the plain reference
     attention (the JAX package's ``"xla"``), ``attn_impl="vjp"`` with the
     differentiable flash attention (K16, non-causal; the training route).
     ``remat`` checkpoints every layer when gradients are recorded."""
     x = embeddings(params, cfg, pixel_values)
     s = x.shape[1]
-    fused = attn_impl is None and not remat and packed_seq_supported(cfg.head_dim) and cfg.qk_normalization
+    fused = attn_impl is None and not remat and packed_seq_supported(cfg.head_dim)
     sp = (s + 7) // 8 * 8 if fused else s
     if sp != s:
         x = F.pad(x, (0, 0, 0, sp - s))

@@ -12,7 +12,10 @@ to q's dtype on every read).
 - Decode (:func:`decode_scan`) keeps the cache read-only through the layer
   loop: each layer attends to its cache layer plus the in-flight token as a
   self column (kernel K3), and one commit after the loop writes the L x B new
-  rows in place (:func:`commit_decode_rows`, kernel K4).
+  rows in place (:func:`commit_decode_rows`, kernel K4).  :func:`qwen2_forward`
+  sends every one-token step with a cache there; a direct
+  :func:`cache_attend` call with S == 1 writes the token into its layer cache
+  and decodes over it (kernel K6), as the JAX package's does.
 
 The port updates the cache in place where the JAX package returns a new one
 (saves a copy of the whole cache per call).
@@ -22,7 +25,9 @@ per-token activation quantization; the decode step (S == 1) stays
 weight-only int8.  With ``quant_glue`` (every route but ``attn_impl="plain"``)
 and quantized params a prefill layer is :func:`_decoder_layer_glue`: the
 input norm writes int8 codes (K7) and o_proj rides the residual + norm +
-quantize pass (K11).  LoRA banks come with a later slice.
+quantize pass (K11); with the static scales of
+:func:`calibrate_swiglu_scales` the MLP's gate and up write int8 codes (K10)
+for down_proj.  LoRA banks come with a later slice.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from omchat_torch.config import TextConfig
 from omchat_torch.ops.attention import PLAIN, attention, decode_attention
 from omchat_torch.ops.fp8 import cast_to
-from omchat_torch.ops.linear import dense, dense_prequant
+from omchat_torch.ops.linear import dense, dense_prequant, div127, silu
 from omchat_torch.ops.norms import rms_norm, rmsnorm_quant
 from omchat_torch.ops.paged_attention import commit_rows, commit_rows_plain
 from omchat_torch.ops.quant_matmul import attn_proj_glue_quant, proj_glue_supported, swiglu_quant
@@ -69,12 +74,13 @@ def _mlp(y: torch.Tensor, p: dict, a8: bool = False) -> torch.Tensor:
 
 
 def _mlp_prequant(yq, yrs, p: dict, dtype) -> torch.Tensor:
-    """SwiGLU over pre-quantized activations (the glue path): gate and up
-    from the codes, the bf16 intermediate quantized again per token for
-    down_proj.  A calibrated ``swiglu_out_scale`` would take K10, which is
-    not ported yet."""
+    """SwiGLU over pre-quantized activations (the glue path).  With a
+    calibrated ``swiglu_out_scale`` gate and up write the int8 codes of
+    silu(g) · u at that static scale (K10) and down_proj reads them; else
+    the bf16 intermediate is quantized again per token for down_proj."""
     if "swiglu_out_scale" in p:
-        return swiglu_quant(yq, yrs, p["gate_proj"], p["up_proj"], p["swiglu_out_scale"])
+        codes = swiglu_quant(yq, yrs, p["gate_proj"], p["up_proj"], p["swiglu_out_scale"])
+        return dense_prequant(codes, p["swiglu_out_scale"], p["down_proj"], dtype=dtype)
     g = dense_prequant(yq, yrs, p["gate_proj"], dtype=dtype)
     u = dense_prequant(yq, yrs, p["up_proj"], dtype=dtype)
     return dense(F.silu(g) * u, p["down_proj"], a8=True)
@@ -146,19 +152,24 @@ def _decoder_layer_glue(cfg: TextConfig, x, layer: dict, cos, sin, attend):
 
 
 def cache_attend(attn_impl, write_pos, starts, kv_len, k_cache, v_cache, q, k, v, segment_ids=None):
-    """Prefill cache handler for one layer: write K/V at ``write_pos`` [B]
+    """Cache handler for one layer: write K/V at ``write_pos`` [B]
     (``starts``: the same offsets as host ints) into the head-major cache
     layer [B, KVH, T, D] in place, rounded to the cache's dtype, and attend
     causally against the cache (``kv_len`` [B] valid length after the write):
     on an e4m3 cache the prompt's own attention sees the rounded K/V, as in
-    the JAX package.  With no cache (``k_cache is None``) it attends over this
-    call's K/V only, within ``segment_ids`` when given."""
+    the JAX package.  One query row (S == 1) decodes over the written layer
+    cache (:func:`~omchat_torch.ops.attention.decode_attention` on a 4-D
+    cache: kernel K6, ``kv_len`` including the token).  With no cache
+    (``k_cache is None``) it attends over this call's K/V only, within
+    ``segment_ids`` when given."""
     if k_cache is None:
         return attention(q, k, v, causal=True, impl=attn_impl, segment_ids=segment_ids)
     s = q.shape[1]
     for bi, wp in enumerate(starts):
         k_cache[bi, :, wp : wp + s] = cast_to(k[bi].transpose(0, 1), k_cache.dtype)
         v_cache[bi, :, wp : wp + s] = cast_to(v[bi].transpose(0, 1), v_cache.dtype)
+    if s == 1:
+        return decode_attention(q, k_cache, v_cache, kv_len, impl=attn_impl)
     return attention(q, k_cache, v_cache, causal=True, q_offset=write_pos, kv_len=kv_len, impl=attn_impl,
                      kv_format="bntd")
 
@@ -273,6 +284,52 @@ def qwen2_forward(
             x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend,
                               quant_glue=quant_glue_ok(attn_impl))
     return rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps), cache
+
+
+@torch.no_grad()
+def calibrate_swiglu_scales(params: dict, cfg: TextConfig, inputs_embeds: torch.Tensor,
+                            positions: torch.Tensor) -> dict:
+    """Per-layer static SwiGLU-output scales for the quantizing MLP epilogue
+    (the LLM analogue of :func:`~omchat_torch.models.intern_vit.
+    calibrate_fc1_scales`; a function, as in the JAX package: no load path
+    calls it).  Runs the unfused w8a8 trunk (``dense(..., a8=True)`` for
+    every matmul, causal attention without a cache) on a calibration batch
+    (inputs_embeds [B, S, D], positions [B, S]) over quantized params and
+    records each layer's amax of ``silu(gate(y)) * up(y)``.  Returns a new
+    params dict with ``layers.mlp.swiglu_out_scale`` [L] fp32 set to
+    max(amax, 1e-6) / 127 — the glue layer picks it up (K10).
+
+    The JAX package runs this attention on its XLA route.  Here it takes the
+    default route on CUDA (kernel K2), as
+    :func:`~omchat_torch.models.intern_vit.calibrate_fc1_scales` does, and the
+    plain reference attention (the XLA route's counterpart) on the CPU."""
+    impl = None if inputs_embeds.is_cuda else PLAIN
+    cos, sin = rope_cos_sin(
+        positions,
+        cfg.attn_head_dim,
+        theta=cfg.rope_theta,
+        scaling=cfg.rope_scaling,
+        max_position_embeddings=cfg.max_position_embeddings,
+        dtype=inputs_embeds.dtype,
+    )
+    b, s, _ = inputs_embeds.shape
+    eps = cfg.rms_norm_eps
+    n_layers = params["layers"]["input_layernorm"]["scale"].shape[0]
+    x, amax = inputs_embeds, []
+    for layer in layer_list(params["layers"], n_layers):
+        y = rms_norm(x, layer["input_layernorm"]["scale"], eps)
+        q, k, v = attention_inputs(cfg, y, layer["self_attn"], cos, sin, True)
+        ctx = attention(q, k, v, causal=True, impl=impl).reshape(b, s, -1)
+        x = x + dense(ctx, layer["self_attn"]["o_proj"], a8=True)
+        y = rms_norm(x, layer["post_attention_layernorm"]["scale"], eps)
+        p = layer["mlp"]
+        h = silu(dense(y, p["gate_proj"], a8=True)) * dense(y, p["up_proj"], a8=True)
+        x = x + dense(h, p["down_proj"], a8=True)
+        amax.append(h.float().abs().amax())
+    out = dict(params)
+    out["layers"] = dict(params["layers"])
+    out["layers"]["mlp"] = {**params["layers"]["mlp"], "swiglu_out_scale": div127(torch.stack(amax).clamp(min=1e-6))}
+    return out
 
 
 def lm_head(params: dict, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:

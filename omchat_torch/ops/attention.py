@@ -11,8 +11,9 @@
   of :mod:`omchat_torch.ops.flash_attention_bwd` (K16, forward and backward
   kernels).
 - :func:`decode_attention` — one decode token against the stacked cache with a
-  self column (:mod:`omchat_torch.ops.decode_attention`), or the plain
-  :func:`self_column_reference`.
+  self column (K3 of :mod:`omchat_torch.ops.decode_attention`, or the plain
+  :func:`self_column_reference`), or against a per-layer cache that holds the
+  token (K6, or the plain :func:`attention_reference`).
 
 The references are the independent oracles (einsum + fp32 softmax with a
 -1e30 mask), as ``_xla_attention`` and ``self_column_reference`` are in JAX.
@@ -140,20 +141,34 @@ def decode_attention(
     cache_len: torch.Tensor,
     *,
     impl: Optional[str] = None,
-    layer: int,
-    k_new: torch.Tensor,
-    v_new: torch.Tensor,
+    layer: Optional[int] = None,
+    k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Single-step decode attention against one layer of the stacked,
-    read-only cache [L, B, KVH, T, D]; ``cache_len`` [B] EXCLUDES the
-    in-flight token, whose K/V (k_new/v_new [B, KVH, D]) fold in as a self
-    column.  Returns [B, 1, H, D]."""
+    """Single-step decode attention.  q [B, 1, H, D]; returns [B, 1, H, D].
+
+    - A per-layer cache [B, KVH, T, D] already holds the new token and
+      ``cache_len`` [B] INCLUDES it (K6).
+    - One layer ``layer`` of the stacked, read-only cache [L, B, KVH, T, D]:
+      ``cache_len`` [B] EXCLUDES the in-flight token, whose K/V (k_new/v_new
+      [B, KVH, D]) fold in as a self column (K3)."""
+    if impl not in (None, PLAIN):
+        raise ValueError(f"unknown attention impl {impl!r} (None or 'plain')")
+    if k_cache.dim() == 4:
+        if k_new is not None or layer is not None:
+            raise ValueError("decode_attention: a per-layer cache holds the new token (no layer, no self column)")
+        if impl == PLAIN:
+            return attention_reference(q, k_cache.transpose(1, 2).to(q.dtype), v_cache.transpose(1, 2).to(q.dtype),
+                                       causal=False, q_offset=None, kv_len=cache_len)
+        from omchat_torch.ops.decode_attention import flash_decode
+
+        return flash_decode(q, k_cache, v_cache, cache_len)
+    if layer is None or k_new is None or v_new is None:
+        raise ValueError("decode_attention: the stacked cache needs `layer` and the self column k_new / v_new")
     if impl == PLAIN:
         kc, vc = k_cache[layer], v_cache[layer]
         return self_column_reference(q, kc.to(q.dtype), vc.to(q.dtype), cache_len,
                                      cast_to(k_new, kc.dtype).to(q.dtype), cast_to(v_new, vc.dtype).to(q.dtype))
-    if impl is not None:
-        raise ValueError(f"unknown attention impl {impl!r} (None or 'plain')")
     from omchat_torch.ops.decode_attention import flash_decode_stacked
 
     return flash_decode_stacked(q, k_cache, v_cache, cache_len, layer, k_new, v_new)

@@ -1,10 +1,17 @@
-"""Flash decode over the stacked, read-only KV cache with a self column (K3).
+"""Flash decode: one query token's GQA attention against a KV cache.
 
-PyTorch port of ``omchat_tpu/ops/decode_attention.py:109 flash_decode_stacked``.
-The wrapper :func:`flash_decode_stacked` sends a CPU tensor to
-:func:`flash_decode_stacked_plain` and launches the CUDA kernel
-(``omchat_torch/csrc/flash_decode_stacked.cu``) on a CUDA tensor, or raises;
-``flash_decode_stacked.launches`` counts the kernel launches.
+PyTorch port of ``omchat_tpu/ops/decode_attention.py``, two kernels in one
+CUDA source (``omchat_torch/csrc/flash_decode_stacked.cu``):
+
+- K3 :func:`flash_decode_stacked` (``:109 flash_decode_stacked``): one layer
+  of the stacked, read-only cache plus the in-flight token as a self column
+  (the decode loop's);
+- K6 :func:`flash_decode` (``:198 flash_decode``): a per-layer cache that
+  already holds the new token, no self column.
+
+Each wrapper sends a CPU tensor to its plain version (``*_plain``) and
+launches its kernel on a CUDA tensor, or raises; ``<wrapper>.launches`` counts
+the kernel launches.
 """
 
 from __future__ import annotations
@@ -16,8 +23,10 @@ import torch
 from omchat_torch.ops import kernel_lib
 from omchat_torch.ops.flash_attention import _require_cuda
 
-# C signature: q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group, stream
+# C signatures: q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group, stream /
+# q, k_cache, v_cache, cache_len, out, B, KVH, T, D, group, stream
 _K3_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_K6_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def flash_decode_stacked_plain(q, k_cache, v_cache, cache_len, layer: int, k_new, v_new):
@@ -84,3 +93,56 @@ def flash_decode_stacked(
 
 
 flash_decode_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: decode over a per-layer cache that holds the new token
+# ---------------------------------------------------------------------------
+
+
+def flash_decode_plain(q, k_cache, v_cache, cache_len):
+    """K6's function: the cache read in q's dtype (an e4m3 cache widened, as
+    the TPU kernel's ``astype(q.dtype)``), columns below ``cache_len``;
+    natural-exp softmax with scale D^-0.5, p rounded to q's dtype for the PV
+    product, the output scaled by 1 / l of the fp32 row sums; a request of
+    length 0 outputs zeros.  q [B, 1, H, D] → [B, 1, H, D]."""
+    B, _, H, D = q.shape
+    kc, vc = k_cache.to(q.dtype), v_cache.to(q.dtype)  # [B, KVH, T, D]
+    KVH, T = kc.shape[1], kc.shape[2]
+    qg = q[:, 0].reshape(B, KVH, H // KVH, D).float()
+    s = torch.einsum("bngd,bntd->bngt", qg, kc.float()) * D**-0.5
+    lens = torch.as_tensor(cache_len, dtype=torch.int64, device=q.device).expand(B)
+    valid = torch.arange(T, device=q.device)[None, :] < lens[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.tensor(float("-inf"), device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bngt,bntd->bngd", p.to(q.dtype).float(), vc.float()) * (1.0 / torch.where(l == 0, 1.0, l))
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: torch.Tensor) -> torch.Tensor:
+    """Decode attention against a per-layer cache.
+
+    q [B, 1, H, D]; k/v_cache [B, KVH, T, D] (bfloat16 or e4m3 on CUDA), the
+    new token already written at row ``cache_len - 1``; cache_len [B] int32
+    valid rows INCLUDING the new token.  Returns [B, 1, H, D]."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, cache_len)
+    B, KVH, T, D = k_cache.shape
+    H = q.shape[2]
+    suffix = _require_cuda("flash_decode", q, cache=(k_cache, v_cache))
+    if q.shape[1] != 1 or H % KVH or H // KVH > 8 or D != 128 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"flash_decode: unsupported shape q={tuple(q.shape)} cache={tuple(k_cache.shape)}")
+    qc, kc, vc = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
+    lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device).expand(B).contiguous()
+    out = torch.empty_like(qc)
+    kernel_lib.launch(
+        "flash_decode_stacked.cu", "omchat_flash_decode" + suffix, _K6_ARGS,
+        *map(kernel_lib.ptr, (qc, kc, vc, lens, out)), B, KVH, T, D, H // KVH, kernel_lib.stream_ptr(q.device),
+    )
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

@@ -1,9 +1,10 @@
-"""Flash attention forward: the ViT's packed qk-norm attention (K1) and the
-causal GQA prefill attention (K2).
+"""Flash attention forward: the ViT's packed qk-norm attention (K1), its
+sibling without the norm (K5) and the causal GQA prefill attention (K2).
 
 PyTorch port of ``omchat_tpu/ops/flash_attention.py``.  Each kernel comes as
 
-- a wrapper (:func:`packed_qkv_norm_attention`, :func:`flash_attention`): a
+- a wrapper (:func:`packed_qkv_norm_attention`, :func:`packed_self_attention`,
+  :func:`flash_attention`): a
   CPU tensor goes to the plain PyTorch version, a CUDA tensor launches the
   hand-written CUDA kernel (``omchat_torch/csrc/``) or raises — there is no
   fallback from the kernel to the plain version;
@@ -30,8 +31,11 @@ LOG2E = 1.4426950408889634
 # row never produces inf - inf.
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # C signatures: qkv, rq, rk, gq, gk, out, B, SP, H, D, valid_len, stream /
+# q, k, v, q_scale, out, B, SP, H, D, batch_stride, row_stride, valid_len, stream /
 # q, k, v, out, q_offset, kv_len, B, S, H, KVH, T, D, causal, stream
 _K1_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_K5_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4
+            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _K2_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -137,6 +141,73 @@ def packed_qkv_norm_attention(
 
 
 packed_qkv_norm_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: packed non-causal attention without the qk-norm
+# ---------------------------------------------------------------------------
+
+
+def packed_self_attention_plain(q, k, v, *, num_heads: int, valid_len: int, prescaled: bool = False):
+    """K5's function, untiled: q × (D^-0.5 · log2 e) in fp32 rounded to q's
+    dtype (unless ``prescaled``), full-row exp2 softmax with columns >=
+    valid_len masked, p rounded to v's dtype for the PV product, the output
+    scaled by 1 / l of the fp32 row sums."""
+    B, SP, HD = q.shape
+    D = HD // num_heads
+    dt = q.dtype
+    qs = q if prescaled else (q.float() * packed_prescale(D)).to(dt)
+    qh, kh, vh = (t.reshape(B, SP, num_heads, D) for t in (qs, k, v))
+    s = torch.einsum("bshd,bthd->bhst", qh.float(), kh.float())
+    if valid_len < SP:
+        s[..., valid_len:] = float("-inf")
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l_inv = 1.0 / p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhst,bthd->bhsd", p.to(v.dtype).float(), vh.float()) * l_inv
+    return o.transpose(1, 2).reshape(B, SP, HD).to(dt)
+
+
+def packed_self_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    num_heads: int,
+    valid_len: Optional[int] = None,
+    prescaled: bool = False,
+) -> torch.Tensor:
+    """Packed non-causal self-attention over [B, SP, H*D] lane slices, the
+    ViT route of a tower without qk-norm.
+
+    q, k, v: [B, SP, H*D] — views of the fused qkv matmul's output
+    (``qkv.chunk(3, -1)``) are read in place through their strides;
+    ``prescaled``: q already carries ``packed_prescale(D)``.  Returns
+    [B, SP, H*D]; rows >= valid_len are garbage."""
+    B, SP, HD = q.shape
+    D = HD // num_heads
+    valid_len = SP if valid_len is None else int(valid_len)
+    if q.device.type == "cpu":
+        return packed_self_attention_plain(q, k, v, num_heads=num_heads, valid_len=valid_len, prescaled=prescaled)
+    _require_cuda("packed_self_attention", q, k, v)
+    if D != 128 or not 1 <= valid_len <= SP or not q.shape == k.shape == v.shape:
+        raise ValueError(f"packed_self_attention: head_dim {D} / valid_len {valid_len} / shapes "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)} unsupported")
+    # one element layout for q, k and v: unit inner stride, rows 16-byte aligned
+    if (q.stride(2) != 1 or not q.stride() == k.stride() == v.stride() or q.stride(0) % 8 or q.stride(1) % 8
+            or any(t.data_ptr() % 16 for t in (q, k, v))):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty((B, SP, HD), dtype=q.dtype, device=q.device)
+    kernel_lib.launch(
+        "packed_qkv_norm_attention.cu", "omchat_packed_self_attention", _K5_ARGS,
+        *map(kernel_lib.ptr, (q, k, v)), 1.0 if prescaled else packed_prescale(D), kernel_lib.ptr(out),
+        B, SP, num_heads, D, q.stride(0), q.stride(1), valid_len, kernel_lib.stream_ptr(q.device),
+    )
+    packed_self_attention.launches += 1
+    return out
+
+
+packed_self_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ SOURCES = (
     "commit_pages.cu",
     "norm_quant.cu",
     "fc1_gelu_quant.cu",
+    "swiglu_quant.cu",
     "proj_glue_quant.cu",
     "flash_attention_bwd.cu",
 )

@@ -98,6 +98,24 @@ def dense_prequant_gelu_quant(xq: torch.Tensor, row_scale, p: dict, out_scale) -
     return torch.round(gelu_tanh(h) / out_scale).clamp(-127, 127).to(torch.int8)
 
 
+def silu(h: torch.Tensor) -> torch.Tensor:
+    """h * sigmoid(h), as ``jax.nn.silu`` computes it (the logistic rounded
+    on its own, then one product)."""
+    return h * torch.sigmoid(h)
+
+
+def dense_prequant_swiglu_quant(xq: torch.Tensor, row_scale, gate_p: dict, up_p: dict, out_scale) -> torch.Tensor:
+    """The SwiGLU's gate and up int8 matmuls + static-scale int8
+    re-quantization, all epilogue math in fp32 (the XLA chain;
+    ``silu(g) * u / out_scale`` is a true division): codes =
+    int8(clip(round(silu(xq @ Wg) * (xq @ Wu) / out_scale))).  Feed the codes
+    to :func:`dense_prequant` (down_proj) with ``out_scale``.  The fused
+    kernel is :func:`omchat_torch.ops.quant_matmul.swiglu_quant` (K10)."""
+    g = _int8_product(xq, gate_p).float() * row_scale * gate_p["scale"].float()
+    u = _int8_product(xq, up_p).float() * row_scale * up_p["scale"].float()
+    return torch.round(silu(g) * u / out_scale).clamp(-127, 127).to(torch.int8)
+
+
 def _dense_w8a8(x: torch.Tensor, p: dict) -> torch.Tensor:
     xq, row_scale = quantize_activations(x)
     return dense_prequant(xq, row_scale, p, dtype=x.dtype)

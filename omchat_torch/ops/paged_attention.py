@@ -23,7 +23,8 @@ kernels:
 
 Each wrapper sends CPU tensors to its plain PyTorch version (``*_plain``) and
 launches its CUDA kernel on CUDA tensors, or raises; ``<wrapper>.launches``
-counts the kernel launches.  :func:`paged_decode_attention` and
+counts the kernel launches.  The attention kernels K12, K13 and K14 are built
+for the page sizes in :data:`PAGE_SIZES`; K4 and K15 take any page size.  :func:`paged_decode_attention` and
 :func:`paged_prefill_attention` are the dispatchers the serving engine calls.
 """
 
@@ -50,6 +51,8 @@ _K4_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _K12_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _K14_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _K15_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# The page sizes the CUDA attention kernels (K12, K13, K14) are built for.
+PAGE_SIZES = (16, 32, 64, 128)
 
 
 class PageAllocator:
@@ -140,7 +143,7 @@ def _launch_paged_decode(name, source, q, k_pages, v_pages, lengths, page_tables
     suffix = _require_cuda(name, q, *((k_new, v_new) if self_col else ()), cache=(k_pages, v_pages))
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or k_pages.shape != v_pages.shape:
         raise ValueError(f"{name}: the pools must be contiguous and of one shape")
-    if S != 1 or D != 128 or PS != 128 or H % KVH or H // KVH > 16:
+    if S != 1 or D != 128 or PS not in PAGE_SIZES or H % KVH or H // KVH > 16:
         raise ValueError(f"{name}: unsupported shape q={tuple(q.shape)} pool={tuple(k_pages.shape)}")
     if self_col and not (k_new.shape == v_new.shape == (B, KVH, D)):
         raise ValueError(f"{name}: the self column must be [B, KVH, D], got {tuple(k_new.shape)}")
@@ -296,7 +299,7 @@ def paged_flash_prefill(
     suffix = _require_cuda("paged_flash_prefill", q, cache=(k_pages, v_pages))
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or k_pages.shape != v_pages.shape:
         raise ValueError("paged_flash_prefill: the pools must be contiguous and of one shape")
-    if D != 128 or PS % 64 or H % KVH or H // KVH > 8:
+    if D != 128 or PS not in PAGE_SIZES or H % KVH or H // KVH > 8:
         raise ValueError(f"paged_flash_prefill: unsupported shape q={tuple(q.shape)} pool={tuple(k_pages.shape)}")
     qs = _prescale_q(q).contiguous()
     tables = _table_arg(page_tables, q.device)

@@ -6,6 +6,11 @@
   column scale, + bias, tanh-GELU, × 1/out_scale, round half to even, clip
   → int8 codes; only the codes are written (``omchat_torch/csrc/
   fc1_gelu_quant.cu``).
+- K10 :func:`dense_prequant_swiglu_quant_cuda` (dispatched by
+  :func:`swiglu_quant`): the Qwen2 MLP's gate and up with a calibrated
+  ``swiglu_out_scale``.  Two int8 products, each × row scale × its column
+  scale in fp32, silu(g) · u, × 1/out_scale, round half to even, clip → int8
+  codes for down_proj (``omchat_torch/csrc/swiglu_quant.cu``).
 - K11 :func:`attn_proj_glue_quant`: the attention output projection fused
   with the glue after it.  Dynamic row quantization of the attention output,
   the int8 product with the square proj / o_proj weight, dequant + bias in the
@@ -17,12 +22,11 @@ Each has a plain version (``*_plain``) and a launch counter
 launches the kernel or raises.  Weights are int8 [N, K] (``kernel_q``, see
 :mod:`omchat_torch.ops.linear`).
 
-K9 multiplies by ``1 / out_scale`` as the Pallas kernel does
-(``quant_matmul.py:58``); the XLA chain :func:`~omchat_torch.ops.linear.
-dense_prequant_gelu_quant` divides, and the two agree to ±1 code.
-
-K10 (the quantizing SwiGLU epilogue) is not ported yet: it runs only once
-``swiglu_out_scale`` is calibrated, which no load path does.
+K9 and K10 multiply by ``1 / out_scale`` as the Pallas kernels do
+(``quant_matmul.py:58``, ``:127``); the XLA chains
+(:func:`~omchat_torch.ops.linear.dense_prequant_gelu_quant`,
+:func:`~omchat_torch.ops.linear.dense_prequant_swiglu_quant`) divide, and
+the two agree to ±1 code.
 """
 
 from __future__ import annotations
@@ -33,18 +37,28 @@ from typing import Optional
 import torch
 
 from omchat_torch.ops import kernel_lib
-from omchat_torch.ops.linear import dense_prequant_gelu_quant, div127, gelu_tanh, int8_matmul
+from omchat_torch.ops.linear import (
+    dense_prequant_gelu_quant,
+    dense_prequant_swiglu_quant,
+    div127,
+    gelu_tanh,
+    int8_matmul,
+    silu,
+)
 from omchat_torch.ops.norms import norm_quant_rows
 
 # C signatures: xq, w, row_scale, col_scale, bias, out_scale, out, M, N, K, stream /
+# xq, w_gate, w_up, row_scale, col_scale_gate, col_scale_up, out_scale, out, M, N, K, stream /
 # a, x, w, col_scale, bias, ls, gamma, x_new, codes, row_scale, M, N, eps, stream
 _K9_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_K10_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _K11_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def pallas_supported(k: int, n: int) -> bool:
-    """Geometry gate of the fused fc1 epilogue (the JAX package's, which the
-    CUDA kernel shares: its tiles are 64 deep and 128 wide)."""
+    """Geometry gate of the fused fc1 and SwiGLU epilogues (the JAX
+    package's, which the CUDA kernels share: their tiles are 64 deep and 128
+    or 64 wide)."""
     return k % 128 == 0 and n % 128 == 0
 
 
@@ -121,9 +135,66 @@ def fc1_gelu_quant(xq: torch.Tensor, row_scale: torch.Tensor, p: dict, out_scale
     return dense_prequant_gelu_quant(xq, row_scale, p, out_scale)
 
 
-def swiglu_quant(xq, row_scale, gate_p: dict, up_p: dict, out_scale):
-    """The static-scale quantizing SwiGLU epilogue (K10)."""
-    raise NotImplementedError("K10 waits for a later slice (it needs calibrate_swiglu_scales, which no load path runs)")
+# ---------------------------------------------------------------------------
+# K10: gate and up int8 GEMMs + silu * up + static-scale quantize
+# ---------------------------------------------------------------------------
+
+
+def dense_prequant_swiglu_quant_plain(xq: torch.Tensor, row_scale: torch.Tensor, gate_p: dict, up_p: dict,
+                                      out_scale) -> torch.Tensor:
+    """K10's function, untiled, in the Pallas kernel's order: g = acc_g ×
+    rs × cs_g and u = acc_u × rs × cs_u (fp32), codes = clip(round(silu(g) ×
+    u × (1 / out_scale)))."""
+    k = xq.shape[-1]
+    a = xq.reshape(-1, k)
+    rs = row_scale.float().reshape(-1, 1)
+    g = int8_matmul(a, gate_p["kernel_q"].t()).float() * rs * gate_p["scale"].float()
+    u = int8_matmul(a, up_p["kernel_q"].t()).float() * rs * up_p["scale"].float()
+    inv = 1.0 / torch.as_tensor(out_scale, dtype=torch.float32, device=g.device)
+    codes = torch.round(silu(g) * u * inv).clamp(-127, 127).to(torch.int8)
+    return codes.reshape(*xq.shape[:-1], -1)
+
+
+def dense_prequant_swiglu_quant_cuda(xq: torch.Tensor, row_scale: torch.Tensor, gate_p: dict, up_p: dict,
+                                     out_scale) -> torch.Tensor:
+    """K10: xq int8 [..., K]; row_scale fp32 [..., 1]; ``gate_p`` /
+    ``up_p``: ``kernel_q`` int8 [N, K], ``scale`` [N] bf16; out_scale a
+    scalar fp32 tensor.  Returns int8 codes [..., N]."""
+    if xq.device.type == "cpu":
+        return dense_prequant_swiglu_quant_plain(xq, row_scale, gate_p, up_p, out_scale)
+    wg, wu = gate_p["kernel_q"], up_p["kernel_q"]
+    n, k = wg.shape
+    _bf16_cuda("swiglu_quant", gate_p["scale"], up_p["scale"])
+    if (xq.dtype != torch.int8 or wg.dtype != torch.int8 or wu.dtype != torch.int8 or wu.shape != wg.shape
+            or xq.shape[-1] != k or not pallas_supported(k, n)):
+        raise ValueError(f"swiglu_quant: unsupported operands {tuple(xq.shape)} {xq.dtype} x {tuple(wg.shape)} "
+                         f"{wg.dtype} / {tuple(wu.shape)} {wu.dtype}")
+    a = xq.reshape(-1, k).contiguous()
+    m = a.shape[0]
+    rs = row_scale.to(torch.float32).reshape(m).contiguous()
+    os_ = torch.as_tensor(out_scale, dtype=torch.float32, device=xq.device).reshape(1).contiguous()
+    gc, uc = wg.contiguous(), wu.contiguous()
+    sg, su = gate_p["scale"].contiguous(), up_p["scale"].contiguous()
+    out = torch.empty((m, n), dtype=torch.int8, device=xq.device)
+    if m:
+        kernel_lib.launch("swiglu_quant.cu", "omchat_swiglu_quant", _K10_ARGS,
+                          *map(kernel_lib.ptr, (a, gc, uc, rs, sg, su, os_, out)), m, n, k,
+                          kernel_lib.stream_ptr(xq.device))
+        dense_prequant_swiglu_quant_cuda.launches += 1
+    return out.reshape(*xq.shape[:-1], n)
+
+
+dense_prequant_swiglu_quant_cuda.launches = 0
+
+
+def swiglu_quant(xq: torch.Tensor, row_scale: torch.Tensor, gate_p: dict, up_p: dict, out_scale) -> torch.Tensor:
+    """The static-scale quantizing SwiGLU epilogue: K10 where its geometry
+    gate holds (``pallas_supported``), else the unfused chain, as the JAX
+    dispatcher chooses."""
+    n, k = gate_p["kernel_q"].shape
+    if pallas_supported(k, n):
+        return dense_prequant_swiglu_quant_cuda(xq, row_scale, gate_p, up_p, out_scale)
+    return dense_prequant_swiglu_quant(xq, row_scale, gate_p, up_p, out_scale)
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,10 @@ chunks run the glue layer of :func:`~omchat_torch.models.qwen2.decoder_layer`
 The pools are updated in place (the counterpart of the JAX package's buffer
 donation).  ``attn_impl``: None runs the hand-written kernels on CUDA tensors
 (their plain versions on CPU tensors); ``"plain"`` the plain reference
-attention and plain commits everywhere.
+attention and plain commits everywhere.  A CUDA engine takes the page sizes
+the paged attention kernels are built for (``ops.paged_attention.PAGE_SIZES``:
+16, 32, 64, 128) and refuses any other before it allocates; a CPU engine takes
+any page size.
 
 Waiting for later slices, each raising ``NotImplementedError`` rather than
 being ignored: the prefix cache, speculative verify, pipelined and streaming
@@ -65,6 +68,7 @@ from omchat_torch.ops.fp8 import cast_to
 from omchat_torch.ops.norms import rms_norm
 from omchat_torch.ops.paged_attention import (
     DECODE_KERNELS,
+    PAGE_SIZES,
     PageAllocator,
     commit_pages,
     commit_pages_plain,
@@ -315,6 +319,9 @@ class PagedBatchEngine:
         same function; the plain route ignores it, as the JAX engine does off
         the TPU).  ``params`` already live on ``device`` (default CUDA; raises
         without it)."""
+        if page_size not in PAGE_SIZES and torch.device(device or "cuda").type == "cuda":
+            raise ValueError(f"PagedBatchEngine: page_size {page_size} has no CUDA kernel; the paged attention kernels "
+                             f"take page sizes {PAGE_SIZES}")
         dtype = params["language_model"]["embed_tokens"].dtype
         waiting = {
             "a device mesh (tensor-parallel serving)": mesh is not None,

@@ -27,7 +27,14 @@ K2, whose p is rounded to e4m3 against the running row max (the plain version
 rounds it against the row's global max, as the TPU kernel and its XLA
 reference differ): atol = rtol = 5e-2; K13 over bf16 and e4m3 pools on K12's
 cases; the e4m3 stores of K4 and K15 bitwise against ``ops.fp8.to_e4m3`` on
-every bf16 bit pattern (NaN past 464).
+every bf16 bit pattern (NaN past 464).  Page sizes 16, 32 and 64: K12, K13
+and K14 over bf16 and e4m3 pools at the bf16 tolerance, and K12 / K13 at
+page size 32 bitwise equal to page size 128 on the same logical cache.  K10
+(gate / up + silu * up + quantize) at M not a tile multiple and M <= 16:
+codes as K9's; K5 (packed attention without qk-norm) on the qkv chunk views,
+prescaled and not; K6 (decode over a per-layer cache) at ragged lengths, a
+length of 0 and an e4m3 cache, and against K3 with the self column on the
+same step (the bf16 tolerance).
 """
 
 import pytest
@@ -461,3 +468,147 @@ def test_e4m3_stores_round_every_bf16_pattern_as_to_e4m3(gen):
     torch.cuda.synchronize()
     assert torch.equal(kp[2].reshape(-1).view(torch.uint8), want)
     assert not kp[:2].view(torch.uint8).any()
+
+
+# ---------------------------------------------------------------------------
+# page sizes 16, 32, 64; K10, K5, K6
+# ---------------------------------------------------------------------------
+
+
+def _paged_pool_ps(gen, PS, KVH, D, lengths, W, e4m3):
+    """As _paged_pool, at page size PS (and the pool in e4m3 if asked)."""
+    P = sum(-(-n // PS) for n in lengths) + 2
+    kp, vp = _randn(gen, P + 1, KVH, PS, D), _randn(gen, P + 1, KVH, PS, D)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(2)).tolist()
+    tables = torch.full((len(lengths), W), P, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(lengths):
+        live = -(-n // PS)
+        tables[b, :live] = torch.tensor(perm[used: used + live], dtype=torch.int32)
+        used += live
+    if e4m3:
+        kp, vp = to_e4m3(kp), to_e4m3(vp)
+    return kp, vp, tables.cuda()
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+@pytest.mark.parametrize("kernel", ["auto", "manual"], ids=["k12", "k13"])
+@pytest.mark.parametrize("PS", [16, 32, 64])
+def test_paged_decode_kernels_at_page_size(gen, PS, kernel, pool):
+    H, KVH, D = 28, 4, 128
+    lengths = [0, 1, PS, 128, 129, 3 * PS + 5, 700, 2047]
+    W = max(-(-n // PS) for n in lengths) + 1
+    kp, vp, tables = _paged_pool_ps(gen, PS, KVH, D, lengths, W, pool == "e4m3")
+    q, kn, vn = _randn(gen, len(lengths), 1, H, D), _randn(gen, len(lengths), KVH, D), _randn(gen, len(lengths), KVH, D)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    fn = pa.DECODE_KERNELS[kernel]
+    n0 = fn.launches
+    out = fn(q, kp, vp, lens, tables, kn, vn)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    torch.testing.assert_close(out.float(), pa.paged_flash_decode_plain(q, kp, vp, lens, tables, kn, vn).float(), **TOL)
+
+
+@pytest.mark.parametrize("kernel", ["auto", "manual"], ids=["k12", "k13"])
+def test_paged_decode_page_size_32_is_bitwise_page_size_128(gen, kernel):
+    """The same logical cache in 128-row pages and in 32-row pages: a stage,
+    each warp's columns and the merge order do not depend on the page size."""
+    H, KVH, D = 28, 4, 128
+    lengths = [5, 128, 300, 1000]
+    kp, vp, t128 = _paged_pool_ps(gen, 128, KVH, D, lengths, 8, False)
+    k, v = pa._gather_pages(kp, vp, t128)  # [B, KVH, 1024, D], the logical cache
+    B = len(lengths)
+    k32 = k.view(B, KVH, 32, 32, D).transpose(1, 2).reshape(B * 32, KVH, 32, D).contiguous()
+    v32 = v.view(B, KVH, 32, 32, D).transpose(1, 2).reshape(B * 32, KVH, 32, D).contiguous()
+    t32 = torch.arange(B * 32, dtype=torch.int32, device="cuda").view(B, 32)
+    q, kn, vn = _randn(gen, B, 1, H, D), _randn(gen, B, KVH, D), _randn(gen, B, KVH, D)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    fn = pa.DECODE_KERNELS[kernel]
+    a, b = fn(q, kp, vp, lens, t128, kn, vn), fn(q, k32, v32, lens, t32, kn, vn)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+@pytest.mark.parametrize("PS", [16, 32, 64])
+def test_paged_flash_prefill_kernel_at_page_size(gen, PS, pool):
+    H, KVH, D, C = 28, 4, 128, 256
+    q_offset, chunk_len = [0, 4 * PS, 1024], [256, 200, 77]
+    kv_len = [o + n for o, n in zip(q_offset, chunk_len)]
+    W = max(-(-n // PS) for n in kv_len) + 1
+    kp, vp, tables = _paged_pool_ps(gen, PS, KVH, D, kv_len, W, pool == "e4m3")
+    q = _randn(gen, 3, C, H, D)
+    qo = torch.tensor(q_offset, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out = pa.paged_flash_prefill(q, kp, vp, kl, tables, qo)
+    torch.cuda.synchronize()
+    ref = pa.paged_flash_prefill_plain(q, kp, vp, kl, tables, qo)
+    for b in range(3):
+        torch.testing.assert_close(out[b, :chunk_len[b]].float(), ref[b, :chunk_len[b]].float(), **TOL)
+
+
+@pytest.mark.parametrize("M,K,N", [(13, 256, 384), (300, 256, 384), (129, 3584, 1280)])
+def test_swiglu_quant_kernel(gen, M, K, N):
+    xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+    xq[1] = 0  # a row of zeros: codes 0
+    rs = torch.rand((M, 1), generator=gen, device="cuda") * 0.01 + 1e-3
+    gp, up = _qlinear(gen, N, K, False), _qlinear(gen, N, K, False)
+    os_ = torch.tensor(0.05, device="cuda")
+    n0 = qm.dense_prequant_swiglu_quant_cuda.launches
+    out = qm.swiglu_quant(xq, rs, gp, up, os_)
+    torch.cuda.synchronize()
+    assert qm.dense_prequant_swiglu_quant_cuda.launches == n0 + 1 and out.shape == (M, N)
+    _codes_close(out, qm.dense_prequant_swiglu_quant_plain(xq, rs, gp, up, os_))
+    assert not out[1].any()
+
+
+@pytest.mark.parametrize("B,SP,valid,H,prescaled", [(2, 72, 65, 3, False), (1, 136, 136, 2, True),
+                                                    (3, 1032, 1025, 2, False)])
+def test_packed_self_attention_kernel(gen, B, SP, valid, H, prescaled):
+    D = 128
+    qkv = _randn(gen, B, SP, 3 * H * D)
+    q, k, v = qkv.chunk(3, dim=-1)
+    n0 = fa.packed_self_attention.launches
+    out = fa.packed_self_attention(q, k, v, num_heads=H, valid_len=valid, prescaled=prescaled)
+    torch.cuda.synchronize()
+    assert fa.packed_self_attention.launches == n0 + 1
+    ref = fa.packed_self_attention_plain(q, k, v, num_heads=H, valid_len=valid, prescaled=prescaled)
+    torch.testing.assert_close(out[:, :valid].float(), ref[:, :valid].float(), **TOL)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "e4m3"])
+@pytest.mark.parametrize("H,KVH,lens", [(28, 4, [3188]), (28, 4, [0, 1, 512, 1000]), (4, 2, [200, 77])],
+                         ids=["main_shape", "ragged_zero_one_tile", "group2"])
+def test_flash_decode_kernel(gen, H, KVH, lens, cache):
+    D = 128
+    B, T = len(lens), max(256, -(-max(lens) // 128) * 128)
+    q = _randn(gen, B, 1, H, D)
+    kc, vc = _randn(gen, B, KVH, T, D), _randn(gen, B, KVH, T, D)
+    if cache == "e4m3":
+        kc, vc = to_e4m3(kc), to_e4m3(vc)
+    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    n0 = da.flash_decode.launches
+    out = da.flash_decode(q, kc, vc, cl)
+    torch.cuda.synchronize()
+    assert da.flash_decode.launches == n0 + 1
+    torch.testing.assert_close(out.float(), da.flash_decode_plain(q, kc, vc, cl).float(), **TOL)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not out[b].any()
+
+
+def test_flash_decode_kernel_equals_k3_with_the_self_column(gen):
+    """K6 over a layer cache with the step's row written in (cache_len + 1)
+    against K3 over the stacked cache plus the self column (cache_len)."""
+    H, KVH, D, L, T = 28, 4, 128, 3, 512
+    kc, vc = _randn(gen, L, 2, KVH, T, D), _randn(gen, L, 2, KVH, T, D)
+    q, kn, vn = _randn(gen, 2, 1, H, D), _randn(gen, 2, KVH, D), _randn(gen, 2, KVH, D)
+    cl = torch.tensor([300, 17], dtype=torch.int32, device="cuda")
+    k3 = da.flash_decode_stacked(q, kc, vc, cl, 1, kn, vn)
+    kw, vw = kc[1].clone(), vc[1].clone()
+    for b in range(2):
+        kw[b, :, int(cl[b])] = kn[b]
+        vw[b, :, int(cl[b])] = vn[b]
+    k6 = da.flash_decode(q, kw, vw, cl + 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k6.float(), k3.float(), **TOL)

@@ -233,11 +233,6 @@ def test_dense_matches_jax(mode, dtype):
         np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6)
 
 
-def test_swiglu_quant_waits_for_k10():
-    with pytest.raises(NotImplementedError, match="K10"):
-        tqm.swiglu_quant(None, None, {}, {}, None)
-
-
 def test_from_jax_params_carries_bf16_and_int8_leaves():
     """bf16 numpy leaves arrive as torch bf16 with their values; int8
     ``kernel_q`` leaves arrive transposed to the port's [out, in]."""
