@@ -59,7 +59,9 @@
     dropped, the causal mask shifted, lse from the wrong row, a q head left
     out of dK/dV, segment isolation broken) must fall outside the limits;
     kernel, plain, library (SDPA forward; SDPA backward for dQ + dK/dV) and
-    bound times.
+    bound times, the achieved TFLOP/s and the share of the bound.  A kernel's
+    time is the median of ``K16_READINGS`` readings of 30 launches, the three
+    kernels read in turns; the wrappers' ``q * scale`` pass is timed beside.
 14. Stage-1 at full width and depth: ``OmChatConfig()`` with random bf16
     weights, B=2 samples of one seeded 448x448 image and a 64-token answer
     (2 x 3328 merged rows), three ``train_step``s training the projector alone
@@ -159,6 +161,7 @@ ATTN_TOL = {"K1": (4e-3, 1e-2), "K2": (8e-3, 1e-2), "K3": (4e-3, 1e-2),
             # K16 (phase 13): outputs and dQ as K2; dK/dV sum a whole GQA group's
             # rows in fp32 before one bf16 rounding, up to |13| (ulp 0.0625)
             "K16a": (8e-3, 1e-2), "K16b": (8e-3, 1e-2), "K16c": (1.6e-2, 1e-2)}  # (atol, rtol)
+K16_READINGS = 5  # phase 13: readings of each K16 kernel, taken in turns
 LSE_ATOL = 1e-3  # K16a's fp32 log-sum-exp: exp2 / log2 and sums in another order
 NEW_TOKENS = 32
 # phase 4, first-token logits through 2+2 layers, kernels vs the plain reference
@@ -1788,9 +1791,15 @@ def train_kernel_phases(gen, shapes: dict) -> list:
                 *ATTN_TOL["K16a"])
         del ro, rl, rq, rk, rv
         torch.cuda.empty_cache()
-        ms = {"fwd": time_ms(lambda: fb.flash_fwd(q, k, v, causal, seg), iters=10),
-              "dq": time_ms(lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, causal, seg), iters=10),
-              "dkv": time_ms(lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, causal, seg), iters=10)}
+        launch = {"fwd": lambda: fb.flash_fwd(q, k, v, causal, seg),
+                  "dq": lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, causal, seg),
+                  "dkv": lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, causal, seg)}
+        readings = {kname: [] for kname in launch}
+        for _ in range(K16_READINGS):
+            for kname, fn in launch.items():
+                readings[kname].append(time_ms(fn, iters=30))
+        ms = {kname: sorted(r)[len(r) // 2] for kname, r in readings.items()}
+        prescale_ms = time_ms(lambda: fb._prescaled(q), iters=30)  # inside every K16a and K16c call
         plain = {"fwd": time_ms(lambda: fb.flash_fwd_plain(q, k, v, causal, seg), iters=2, warmup=1),
                  "dq": time_ms(lambda: fb.flash_bwd_dq_plain(q, k, v, do, lse, di, causal, seg), iters=2, warmup=1),
                  "dkv": time_ms(lambda: fb.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal, seg), iters=2,
@@ -1824,10 +1833,12 @@ def train_kernel_phases(gen, shapes: dict) -> list:
         for kname, p in parts[case].items():
             b_ms, by = bound_ms(p["flops"], p["bytes"])
             p["bound_ms"], p["bound_by"] = b_ms, by
+            # achieved rate: the operations these inputs need over the kernel's time
             log(f"kernel K16 {kname} [{case}: B={B} S={S} H={H}/{KVH} causal={causal}]: kernel_ms={p['ms']:.4f} "
                 f"plain_ms={p['plain_ms']:.4f} library_ms={p['library_ms']:.4f} bound_ms={b_ms:.4f} ({by}) "
-                f"max_abs_err={p['err']:.3g}")
-        log(f"K16 {case}: lse max_abs_err={lse_err:.3g}; " + "; ".join(
+                f"tflops={p['flops'] / p['ms'] / 1e9:.1f} share_of_bound={b_ms / p['ms']:.3f} "
+                f"max_abs_err={p['err']:.3g} readings={[round(x, 4) for x in readings[kname]]}")
+        log(f"K16 {case}: q * scale ms={prescale_ms:.4f}; lse max_abs_err={lse_err:.3g}; " + "; ".join(
             f"fault '{f}' max_dev={d:.3g} (caught)" for f, d in faults.items()))
         del q, k, v, do, out, lse, dq, dk, dv, di
         torch.cuda.empty_cache()

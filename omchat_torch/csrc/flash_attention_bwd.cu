@@ -14,8 +14,9 @@
 //   seg                [B, S]         int32 segment ids or NULL; a row attends
 //                      only to columns of its own segment, negative ids are
 //                      padding and match nothing
-//   scale              D^-0.5 rounded to bf16; q is multiplied by it and
-//                      rounded to bf16 on load, as the TPU kernels receive it
+// K16a and K16c receive q already multiplied by scale = D^-0.5 and rounded to
+// bf16 (the wrappers do it, as JAX does before its pallas_calls); K16b
+// receives q as stored and the scale, and rounds q * scale to bf16 on load.
 //
 // The math, with s = (q * scale) k^T in fp32:
 //   fwd:  out = softmax(s) v,  lse = log sum exp(s)  (a row with no valid
@@ -28,35 +29,82 @@
 // What bounds them on the H100: at the LLM training shape (B=2, S=3328, H=28,
 // KVH=4, causal) the forward does ~0.16 TFLOP against ~110 MB of tensors, the
 // backward 3 and 4 GEMMs of the same size: all are bound by tensor-core
-// operations.  Design: mma.sync m16n8k16 (bf16 in, fp32 accumulate) with the
-// operands read from padded shared memory by ldmatrix (.trans where the
-// product wants the other major order).  Forward and dQ: one block per (row
-// tile, kv head, batch), one warp per (q head of the GQA group, 16-row slice),
-// so each staged K/V tile serves the whole group; the online softmax (exp2
-// domain) and the dQ accumulator stay in registers.  dK/dV: one block per (64
-// kv rows, kv head, batch), one warp per 16 kv rows, looping over the q tiles
-// and over the group's q heads and accumulating dK/dV in fp32 registers: the
-// GQA group sum happens in-kernel, with no atomics, so the result is
-// deterministic.  Tiles above the causal diagonal, and with segment ids tiles
-// whose segment ranges do not overlap, are skipped, not masked.  Ragged tails
-// (S not a multiple of a tile) are masked in-kernel.  No TMA, wgmma or
-// pipelining yet.
+// operations, and only wgmma reaches Hopper's tensor-core rate.
+//
+// K16a and K16c (Hopper design, sm90.cuh): Q, K, V and dO tiles come by TMA
+// into 128-byte-swizzled shared memory, completing on mbarriers, through a
+// ring whose stages the consumers release through a second mbarrier, so the
+// loads of the next tile overlap the products of this one; every product is
+// wgmma.  Registers set the block's shape: an SM sub-partition holds 16384,
+// and ptxas allocates within what a thread gets at launch (setmaxnreg did not
+// raise it: measured slower, with more spills).
+//   K16a: a block per (128 q rows, q head, batch): two consumer warpgroups of
+//   64 q rows and one producer warp after them, whose one thread issues the
+//   loads (9 warps: 168 registers a thread, enough for S, P and O).  Q is
+//   loaded once, K/V stream through a 2-stage ring of 128-row tiles.
+//   S = Q K^T is m64n128k16 from shared memory (both K-major); the online
+//   softmax (exp2 domain) runs on the accumulators, and O += P V takes P from
+//   registers (the accumulator layout of S is wgmma's A-register layout) and
+//   V MN-major (the transpose bit).  The heads of one kv head are
+//   neighbouring blocks, so they share each K/V tile through L2; under the
+//   causal mask the last (longest) row tiles launch first.
+//   K16c: a block per (64 kv rows, kv head, batch), one warpgroup, two blocks
+//   an SM; it holds its K and V in shared memory and dK, dV in fp32
+//   registers (128 a thread; 231-239 in all, no spill: there is no producer
+//   warp, whose 9th warp would cap every thread at 168).  Warp 0 also fills
+//   the ring: (q tile of 64 rows, q head of the group) pairs, Q and dO by
+//   TMA, lse and di beside them, refilling a stage once every warp has
+//   released it.  Per pair: S^T = K Q^T and dP^T = V dO^T (m64n64k16,
+//   K-major), then dV += P^T dO and dK += dS^T Q (m64n128k16, A from
+//   registers, B MN-major).  The GQA group sum stays in the kernel, in a
+//   fixed order: no atomics.  Under the causal mask the q loop starts at the
+//   block's diagonal and the first kv tiles (the most q tiles) launch first.
+//   Blocks of 128 kv rows (two warpgroups, one block an SM) measured no
+//   faster (PERF.md) and are not built.
+// Both: tiles above the causal diagonal, and with segment ids tiles whose
+// segment ranges cannot meet, are skipped and never loaded (the block lists
+// the tiles it needs before its loop); only the diagonal tile, a ragged tail
+// (TMA reads zeros past S) or a packed tile is masked.
+//
+// K16b keeps its first design: mma.sync m16n8k16 fed by ldmatrix from padded
+// shared tiles staged synchronously, one warp per (q head, 16 rows).
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int HD = 128;        // head width (Qwen2-7B, InternViT-6B)
-constexpr int LDS = HD + 8;    // padded smem row: the 8 rows of an ldmatrix land on distinct banks
-constexpr int FWD_KT = 64;     // kv rows per tile, forward
-constexpr int DQ_KT = 32;      // kv rows per tile, dQ
-constexpr int DKV_KT = 64;     // kv rows per dK/dV block (16 per warp)
-constexpr int DKV_QT = 32;     // q rows per tile, dK/dV
-constexpr int MAX_WARPS = 8;   // forward / dQ block: group x row slices, at most 256 threads
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr int WG = 128;        // threads of a warpgroup
+constexpr int TILE64 = 64 * HD * 2;    // bytes of a 64-row shared tile
+constexpr int TILE128 = 128 * HD * 2;  // bytes of a 128-row shared tile
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// K16b (dQ)
+constexpr int LDS = HD + 8;    // padded smem row: the 8 rows of an ldmatrix land on distinct banks
+constexpr int DQ_KT = 32;      // kv rows per tile
+constexpr int MAX_WARPS = 8;   // block: group x row slices, at most 256 threads
+
+// K16a (forward)
+constexpr int FWD_BM = 128;    // q rows per block (two consumer groups of 64)
+constexpr int FWD_BN = 128;    // kv rows per tile
+constexpr int FWD_STAGES = 2;  // K/V ring: Q 32 KB + 2 x (32 + 32) KB
+constexpr int FWD_K = TILE128;
+constexpr int FWD_V = FWD_K + FWD_STAGES * TILE128;
+constexpr int FWD_BAR = FWD_V + FWD_STAGES * TILE128;  // q_full, full[STAGES], empty[STAGES]
+constexpr int FWD_META = FWD_BAR + 8 * (1 + 2 * FWD_STAGES);
+
+// K16c (dK/dV)
+constexpr int BWD_QT = 64;     // q rows per streamed tile
+constexpr int DKV_STAGE = 2 * TILE64 + 1024;  // Q tile, dO tile, then 64 x (lse2, di, seg)
+constexpr int DKV_BK = 64;                     // kv rows per block: one warpgroup
+constexpr int DKV_STAGES_N = 2;                // ring stages (two blocks share an SM)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) { return sm90::smem_u32(p); }
+
+// The dynamic shared memory, advanced to a 1024-byte boundary (the swizzle atom).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+    return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -69,12 +117,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(smem_addr(p)));
-}
-
-// A operand (16 x 16 at rows m0, cols k0) of a row-major smem matrix M[m][k].
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base, int m0, int k0) {
-    const int lane = threadIdx.x & 31;
-    ldsm_x4(a, base + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + k0 + (lane >> 4) * 8);
 }
 
 // B operands of the two 8-column blocks n0..n0+15 at k0..k0+15, where
@@ -99,22 +141,13 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t x, float sc) {
 __device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
 // Rows r0..r0+n-1 of a [S, stride] bf16 matrix (row r at src + r * stride,
-// HD columns) into smem rows of LDS; rows past S are zeros.  sc != 0
-// multiplies every element by sc, rounded to bf16.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, size_t stride, int r0, int n, int S, float sc) {
+// HD columns) into smem rows of LDS; rows past S are zeros.
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, size_t stride, int r0, int n, int S) {
     constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
     for (int idx = threadIdx.x; idx < n * CHUNKS; idx += blockDim.x) {
         const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
         uint4 val = make_uint4(0, 0, 0, 0);
-        if (r0 + r < S) {
-            val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride + c);
-            if (sc != 0.f) {
-                val.x = scale_pair(val.x, sc);
-                val.y = scale_pair(val.y, sc);
-                val.z = scale_pair(val.z, sc);
-                val.w = scale_pair(val.w, sc);
-            }
-        }
+        if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride + c);
         *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
     }
 }
@@ -138,7 +171,47 @@ __device__ __forceinline__ int2 seg_range(const int* s, int n) {
     return make_int2(lo, hi);
 }
 
+// The same over rows r0..r0+n-1 of global seg_b (rows past S ignored), by
+// one warp; every lane gets the range.
+__device__ __forceinline__ int2 warp_seg_range(const int* seg_b, int r0, int n, int S) {
+    int lo = 1 << 30, hi = -(1 << 30);
+    for (int i = threadIdx.x & 31; i < n; i += 32) {
+        const int x = r0 + i < S ? seg_b[r0 + i] : -1;
+        if (x >= 0) {
+            lo = min(lo, x);
+            hi = max(hi, x);
+        }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    return make_int2(lo, hi);
+}
+
 __device__ __forceinline__ bool overlap(int2 a, int2 b) { return a.y >= b.x && a.x <= b.y; }
+
+// With segment ids: the tiles (of `rows` rows, indices first..first+n-1)
+// whose segment range meets that of rows [r0, r0 + own) go to list[0..count),
+// in order; meta[0] = count.  Run by every thread of the block, which must
+// synchronise after it.
+__device__ void list_meeting_tiles(const int* seg_b, int S, int r0, int own, int first, int n, int rows, int* meta,
+                                   int* list) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    const int2 mine = warp_seg_range(seg_b, r0, own, S);
+    for (int j = warp; j < n; j += warps) {
+        const int2 r = warp_seg_range(seg_b, (first + j) * rows, rows, S);
+        if (lane == 0) list[j] = overlap(mine, r);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int count = 0;
+        for (int j = 0; j < n; ++j)
+            if (list[j]) list[count++] = first + j;
+        meta[0] = count;
+    }
+}
 
 // s[KT/8][4] = a_frag (16 x HD, in registers) times M^T, M the KT x HD smem tile.
 template <int KT>
@@ -203,119 +276,175 @@ __device__ __forceinline__ void load_row_frags(uint32_t (&a)[HD / 16][4], const 
     }
 }
 
+// The A fragment of a 16-column slice kk of a wgmma accumulator (its columns
+// 16 kk .. 16 kk + 15), rounded to bf16: the accumulator layout of one
+// product is the A-register layout of the next.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], int kk) {
+    a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+    a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+    a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+    a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
 // ---------------------------------------------------------------------------
 // K16a: forward with lse
 // ---------------------------------------------------------------------------
 
 template <bool SEG>
-__global__ void __launch_bounds__(32 * MAX_WARPS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                 const int* __restrict__ seg, bf16* __restrict__ out, float* __restrict__ lse, int S, int H, int KVH,
-                 int causal, int sub, float scale) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-    bf16* vs = ks + FWD_KT * LDS;
-    int* seg_q = reinterpret_cast<int*>(vs + FWD_KT * LDS);
-    int* seg_k = seg_q + 16 * MAX_WARPS;
+__global__ void __launch_bounds__(2 * WG + 32, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, const int* __restrict__ seg, bf16* __restrict__ out,
+                 float* __restrict__ lse, int B, int S, int H, int KVH, int causal) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = aligned_smem(smem_raw);
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + FWD_BAR);
+    uint64_t* full = q_full + 1;
+    uint64_t* empty = full + FWD_STAGES;
+    int* meta = reinterpret_cast<int*>(sm + FWD_META);  // [0]: tiles in the list
+    int* list = meta + 4;
 
-    const int group = H / KVH;
-    const int rows = 16 * sub;
-    const int b = blockIdx.z, kvh = blockIdx.y, r0 = blockIdx.x * rows;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int head = kvh * group + warp % group;
-    const int w0 = r0 + (warp / group) * 16;  // the warp's first row
-    const size_t qs = (size_t)H * HD, kvs = (size_t)KVH * HD;
-    const bf16* kb = k + (size_t)b * S * kvs + (size_t)kvh * HD;
-    const bf16* vb = v + (size_t)b * S * kvs + (size_t)kvh * HD;
+    const int head = blockIdx.x, b = blockIdx.y % B;
+    const int rt = (S + FWD_BM - 1) / FWD_BM - 1 - blockIdx.y / B;  // the last (longest) row tiles first
+    const int r0 = rt * FWD_BM, kvh = head / (H / KVH);
+    const int n_cand = causal ? rt + 1 : (S + FWD_BN - 1) / FWD_BN;  // tiles at or below the diagonal
+    const int tid = threadIdx.x;
     const int* seg_b = SEG ? seg + (size_t)b * S : nullptr;
 
-    uint32_t qa[HD / 16][4];
-    load_row_frags(qa, q + (size_t)b * S * qs + (size_t)head * HD, qs, w0 + g, S, scale);
-
-    int2 qr = make_int2(0, 0);
-    if (SEG) {
-        stage_seg(seg_q, seg_b, r0, rows, S);
-        __syncthreads();
-        qr = seg_range(seg_q, rows);
+    if (tid == 0) {
+        sm90::mbar_init(q_full, 1);
+        for (int s = 0; s < FWD_STAGES; ++s) {
+            sm90::mbar_init(&full[s], 1);
+            sm90::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+        }
+        sm90::mbar_fence_init();
+        if (!SEG) meta[0] = n_cand;
     }
-    const int end = causal ? min(S, r0 + rows) : S;  // columns this block can need
-    const int n_tiles = (end + FWD_KT - 1) / FWD_KT;
+    if (SEG) list_meeting_tiles(seg_b, S, r0, FWD_BM, 0, n_cand, FWD_BN, meta, list);
+    __syncthreads();
+    const int n_tiles = meta[0];
 
+    if (tid >= 2 * WG) {  // producer warp: one thread issues every load
+        if (tid == 2 * WG) {
+            sm90::tma_prefetch_map(&map_q);
+            sm90::tma_prefetch_map(&map_k);
+            sm90::tma_prefetch_map(&map_v);
+            sm90::mbar_arrive_expect_tx(q_full, TILE128);
+            for (int h = 0; h < 2; ++h) sm90::tma_load_4d(sm + h * TILE128 / 2, &map_q, q_full, 64 * h, head, r0, b);
+            for (int i = 0; i < n_tiles; ++i) {
+                const int s = i % FWD_STAGES, j = SEG ? list[i] : i;
+                if (i >= FWD_STAGES) sm90::mbar_wait(&empty[s], (i / FWD_STAGES - 1) & 1);
+                sm90::mbar_arrive_expect_tx(&full[s], 2 * TILE128);
+                for (int h = 0; h < 2; ++h) {
+                    sm90::tma_load_4d(sm + FWD_K + s * TILE128 + h * TILE128 / 2, &map_k, &full[s], 64 * h, kvh,
+                                      j * FWD_BN, b);
+                    sm90::tma_load_4d(sm + FWD_V + s * TILE128 + h * TILE128 / 2, &map_v, &full[s], 64 * h, kvh,
+                                      j * FWD_BN, b);
+                }
+            }
+        }
+        return;
+    }
+
+    const int cg = tid / WG;                            // consumer group: q rows w0 .. w0 + 63
+    const int warp = (tid / 32) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int w0 = r0 + 64 * cg, row0 = w0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    int sq[2] = {-1, -1};
+    if (SEG) {
+        sq[0] = row0 < S ? seg_b[row0] : -1;
+        sq[1] = row0 + 8 < S ? seg_b[row0 + 8] : -1;
+    }
+    const uint32_t q_tile = smem_addr(sm);
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    float acc[HD / 8][4];
+    float o[64];
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
 
-    for (int j = 0; j < n_tiles; ++j) {
-        const int c0 = j * FWD_KT;
-        __syncthreads();  // the previous tile is no longer read
-        if (SEG) {
-            stage_seg(seg_k, seg_b, c0, FWD_KT, S);
-            __syncthreads();
-            if (!overlap(qr, seg_range(seg_k, FWD_KT))) continue;  // block-uniform
-        }
-        stage_rows(ks, kb, kvs, c0, FWD_KT, S, 0.f);
-        stage_rows(vs, vb, kvs, c0, FWD_KT, S, 0.f);
-        __syncthreads();
-        if (w0 >= S || (causal && c0 > w0 + 15)) continue;  // nothing of this tile for this warp
+    sm90::mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % FWD_STAGES, c0 = (SEG ? list[i] : i) * FWD_BN;
+        sm90::mbar_wait(&full[s], (i / FWD_STAGES) & 1);
+        if (w0 < S) {  // uniform over the group: a group wholly past S has nothing to do
+            const uint32_t k_tile = smem_addr(sm + FWD_K + s * TILE128);
+            const uint32_t v_tile = smem_addr(sm + FWD_V + s * TILE128);
+            float sc[64];
+#pragma unroll
+            for (int x = 0; x < 64; ++x) sc[x] = 0.f;
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk)
+                sm90::wgmma_m64n128k16_ss(sc, sm90::desc_kmajor(q_tile, FWD_BM, 64 * cg, kk),
+                                          sm90::desc_kmajor(k_tile, FWD_BN, 0, kk), kk > 0);
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::reg_fence(sc);
 
-        float s[FWD_KT / 8][4];
-        row_times_tile<FWD_KT>(qa, ks, s);
-        float mx[2] = {m[0], m[1]};
+            const bool masked = SEG || c0 + FWD_BN > S || (causal && c0 + FWD_BN - 1 > w0);
+            float mx[2] = {m[0], m[1]};
 #pragma unroll
-        for (int nt = 0; nt < FWD_KT / 8; ++nt) {
+            for (int n = 0; n < 16; ++n) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int col = c0 + nt * 8 + 2 * t + (e & 1);
-                const int row = w0 + g + (e >> 1) * 8;
-                bool ok = col < S && (!causal || col <= row);
-                if (SEG) ok = ok && seg_k[col - c0] >= 0 && seg_k[col - c0] == seg_q[row - r0];
-                s[nt][e] = ok ? s[nt][e] * LOG2E : -INFINITY;
-                mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+                for (int e = 0; e < 4; ++e) {
+                    float x = sc[4 * n + e] * LOG2E;
+                    if (masked) {
+                        const int col = c0 + 8 * n + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
+                        bool ok = col < S && (!causal || col <= row);
+                        if (SEG) {
+                            const int sk = col < S ? seg_b[col] : -1;
+                            ok = ok && sk >= 0 && sk == sq[e >> 1];
+                        }
+                        x = ok ? x : -INFINITY;
+                    }
+                    sc[4 * n + e] = x;
+                    mx[e >> 1] = fmaxf(mx[e >> 1], x);
+                }
             }
-        }
-        float alpha[2], base[2], sum[2] = {0.f, 0.f};
+            float alpha[2], base[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-            base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row with no valid column yet keeps p = 0
-            alpha[r] = exp2f(m[r] - base[r]);
-            m[r] = mx[r];
-        }
-#pragma unroll
-        for (int nt = 0; nt < FWD_KT / 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                s[nt][e] = exp2f(s[nt][e] - base[e >> 1]);
-                sum[e >> 1] += s[nt][e];
+            for (int r = 0; r < 2; ++r) {
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+                base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row with no valid column yet keeps p = 0
+                alpha[r] = exp2f(m[r] - base[r]);
+                m[r] = mx[r];
             }
-        }
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-            sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-            l[r] = alpha[r] * l[r] + sum[r];
-        }
+            for (int x = 0; x < 64; ++x) {
+                sc[x] = exp2f(sc[x] - base[(x >> 1) & 1]);
+                sum[(x >> 1) & 1] += sc[x];
+            }
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt) {
-            acc[dt][0] *= alpha[0];
-            acc[dt][1] *= alpha[0];
-            acc[dt][2] *= alpha[1];
-            acc[dt][3] *= alpha[1];
+            for (int r = 0; r < 2; ++r) {
+                sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+                sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+                l[r] = alpha[r] * l[r] + sum[r];
+            }
+#pragma unroll
+            for (int x = 0; x < 64; ++x) o[x] *= alpha[(x >> 1) & 1];
+            uint32_t pa[FWD_BN / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < FWD_BN / 16; ++kk) acc_to_a(pa[kk], sc, kk);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < FWD_BN / 16; ++kk)
+                sm90::wgmma_m64n128k16_rs(o, pa[kk], sm90::desc_mnmajor(v_tile, FWD_BN, kk), 1);
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::reg_fence(o);
         }
-        p_times_tile<FWD_KT>(s, vs, acc);
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[s]);
     }
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-        const int row = w0 + g + 8 * r;
+        const int row = row0 + 8 * r;
         if (row >= S) continue;
         const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-        bf16* o = out + ((size_t)b * S + row) * qs + (size_t)head * HD;
+        bf16* op = out + ((size_t)b * S + row) * H * HD + (size_t)head * HD;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt)
-            *reinterpret_cast<uint32_t*>(o + dt * 8 + 2 * t) = pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+        for (int n = 0; n < 16; ++n)
+            *reinterpret_cast<uint32_t*>(op + 8 * n + 2 * t) = pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
         if (t == 0) lse[((size_t)b * H + head) * S + row] = l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : -INFINITY;
     }
 }
@@ -380,8 +509,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
             __syncthreads();
             if (!overlap(qr, seg_range(seg_k, DQ_KT))) continue;
         }
-        stage_rows(ks, kb, kvs, c0, DQ_KT, S, 0.f);
-        stage_rows(vs, vb, kvs, c0, DQ_KT, S, 0.f);
+        stage_rows(ks, kb, kvs, c0, DQ_KT, S);
+        stage_rows(vs, vb, kvs, c0, DQ_KT, S);
         __syncthreads();
         if (w0 >= S || (causal && c0 > w0 + 15)) continue;
 
@@ -419,123 +548,196 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
 // K16c: dK / dV per kv head
 // ---------------------------------------------------------------------------
 
-template <bool SEG>
-__global__ void __launch_bounds__(32 * (DKV_KT / 16))
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
-                     const int* __restrict__ seg, bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int KVH,
-                     int causal, float scale) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-    bf16* vs = ks + DKV_KT * LDS;
-    bf16* qsm = vs + DKV_KT * LDS;
-    bf16* dos = qsm + DKV_QT * LDS;
-    float* lse_s = reinterpret_cast<float*>(dos + DKV_QT * LDS);
-    float* di_s = lse_s + DKV_QT;
-    int* seg_k = reinterpret_cast<int*>(di_s + DKV_QT);
-    int* seg_q = seg_k + DKV_KT;
+// shared memory: K, V, the ring of (Q, dO, lse, di, segment ids) stages, the
+// barriers kv_full, full[DKV_STAGES_N], empty[DKV_STAGES_N], then the tile list
+constexpr int DKV_K = 0;
+constexpr int DKV_V = TILE64;
+constexpr int DKV_RING = 2 * TILE64;
+constexpr int DKV_BAR = DKV_RING + DKV_STAGES_N * DKV_STAGE;
+constexpr int DKV_META = DKV_BAR + 8 * (1 + 2 * DKV_STAGES_N);
 
-    const int group = H / KVH;
-    const int b = blockIdx.z, kvh = blockIdx.y, c0 = blockIdx.x * DKV_KT;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int kw0 = c0 + warp * 16;  // the warp's first kv row
-    const size_t qs = (size_t)H * HD, kvs = (size_t)KVH * HD;
+template <bool SEG>
+__global__ void __launch_bounds__(WG, 2)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                     const float* __restrict__ lse, const float* __restrict__ di, const int* __restrict__ seg,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int H, int KVH, int causal) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = aligned_smem(smem_raw);
+    uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + DKV_BAR);
+    uint64_t* full = kv_full + 1;
+    uint64_t* empty = full + DKV_STAGES_N;
+    int* meta = reinterpret_cast<int*>(sm + DKV_META);  // [0]: q tiles in the list
+    int* list = meta + 4;
+
+    const int kvh = blockIdx.x % KVH, b = blockIdx.x / KVH;
+    const int c0 = blockIdx.y * DKV_BK, group = H / KVH;  // blockIdx.y = 0 first: the most q tiles
+    const int q_first = causal ? c0 / BWD_QT : 0;  // q tiles wholly above the block's rows see none of them
+    const int n_cand = (S + BWD_QT - 1) / BWD_QT - q_first;
+    const int tid = threadIdx.x;
     const int* seg_b = SEG ? seg + (size_t)b * S : nullptr;
 
-    stage_rows(ks, k + (size_t)b * S * kvs + (size_t)kvh * HD, kvs, c0, DKV_KT, S, 0.f);
-    stage_rows(vs, v + (size_t)b * S * kvs + (size_t)kvh * HD, kvs, c0, DKV_KT, S, 0.f);
-    if (SEG) stage_seg(seg_k, seg_b, c0, DKV_KT, S);
+    if (tid == 0) {
+        sm90::mbar_init(kv_full, 1);
+        for (int s = 0; s < DKV_STAGES_N; ++s) {
+            sm90::mbar_init(&full[s], 32);  // warp 0's lanes (lse, di, ids) + the TMA bytes
+            sm90::mbar_init(&empty[s], 4);  // one arrival per warp
+        }
+        sm90::mbar_fence_init();
+        if (!SEG) meta[0] = n_cand;
+    }
+    if (SEG) list_meeting_tiles(seg_b, S, c0, DKV_BK, q_first, n_cand, BWD_QT, meta, list);
     __syncthreads();
-    const int2 kr = SEG ? seg_range(seg_k, DKV_KT) : make_int2(0, 0);
+    const int pairs = meta[0] * group;  // (q tile, q head of the group), heads innermost
 
-    float dka[HD / 8][4], dva[HD / 8][4];
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
-        dka[dt][0] = dka[dt][1] = dka[dt][2] = dka[dt][3] = 0.f;
-        dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
+    const int warp = tid / 32, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const bool loader = tid < 32;  // warp 0 also fills the ring: no producer warp, so a block of
+                                   // 8 warps keeps 255 registers a thread (a 9th warp caps them at 168)
+    // Stage i % DKV_STAGES_N <- pair i: lse (log2 domain), di and segment ids of its 64 q rows by the
+    // warp's lanes, Q and dO by TMA.
+    auto fill = [&](int i) {
+        const int s = i % DKV_STAGES_N, q0 = (SEG ? list[i / group] : q_first + i / group) * BWD_QT;
+        const int head = kvh * group + i % group;
+        unsigned char* st = sm + DKV_RING + s * DKV_STAGE;
+        float* lse_s = reinterpret_cast<float*>(st + 2 * TILE64);
+        float* di_s = lse_s + BWD_QT;
+        int* sq_s = reinterpret_cast<int*>(di_s + BWD_QT);
+        for (int r = lane; r < BWD_QT; r += 32) {
+            const int row = q0 + r;
+            const size_t at = ((size_t)b * H + head) * S + row;
+            lse_s[r] = row < S ? lse[at] * LOG2E : -INFINITY;
+            di_s[r] = row < S ? di[at] : 0.f;
+            if (SEG) sq_s[r] = row < S ? seg_b[row] : -1;
+        }
+        if (lane == 0) {
+            sm90::mbar_arrive_expect_tx(&full[s], 2 * TILE64);
+            for (int h = 0; h < 2; ++h) {
+                sm90::tma_load_4d(st + h * TILE64 / 2, &map_q, &full[s], 64 * h, head, q0, b);
+                sm90::tma_load_4d(st + TILE64 + h * TILE64 / 2, &map_do, &full[s], 64 * h, head, q0, b);
+            }
+        } else {
+            sm90::mbar_arrive(&full[s]);
+        }
+    };
+    if (loader) {
+        if (lane == 0) {
+            sm90::tma_prefetch_map(&map_q);
+            sm90::tma_prefetch_map(&map_do);
+            sm90::mbar_arrive_expect_tx(kv_full, 2 * TILE64);
+            for (int h = 0; h < 2; ++h) {
+                sm90::tma_load_4d(sm + DKV_K + h * TILE64 / 2, &map_k, kv_full, 64 * h, kvh, c0, b);
+                sm90::tma_load_4d(sm + DKV_V + h * TILE64 / 2, &map_v, kv_full, 64 * h, kvh, c0, b);
+            }
+        }
+        for (int i = 0; i < min(pairs, DKV_STAGES_N); ++i) fill(i);
     }
 
-    const int i0 = causal ? c0 / DKV_QT : 0;  // q tiles wholly above the block's rows see none of them
-    const int n_q = (S + DKV_QT - 1) / DKV_QT;
-    for (int i = i0; i < n_q; ++i) {
-        const int q0 = i * DKV_QT;
-        if (SEG) {
-            __syncthreads();  // seg_q of the previous tile is no longer read
-            stage_seg(seg_q, seg_b, q0, DKV_QT, S);
-            __syncthreads();
-            if (!overlap(kr, seg_range(seg_q, DKV_QT))) continue;  // block-uniform
-        }
-        for (int gi = 0; gi < group; ++gi) {
-            const int head = kvh * group + gi;
-            __syncthreads();  // the previous head's q / dO tiles are no longer read
-            stage_rows(qsm, q + (size_t)b * S * qs + (size_t)head * HD, qs, q0, DKV_QT, S, scale);
-            stage_rows(dos, dout + (size_t)b * S * qs + (size_t)head * HD, qs, q0, DKV_QT, S, 0.f);
-            for (int r = threadIdx.x; r < DKV_QT; r += blockDim.x) {
-                const size_t at = ((size_t)b * H + head) * S + q0 + r;
-                lse_s[r] = q0 + r < S ? lse[at] * LOG2E : -INFINITY;
-                di_s[r] = q0 + r < S ? di[at] : 0.f;
-            }
-            __syncthreads();
-            if (kw0 >= S || (causal && q0 + DKV_QT - 1 < kw0)) continue;
+    const int kr0 = c0 + 16 * warp + g;  // this thread's kv rows: kr0, kr0 + 8
+    const bool kv_ragged = c0 + DKV_BK > S;
+    int sk[2] = {-1, -1};
+    if (SEG) {
+        sk[0] = kr0 < S ? seg_b[kr0] : -1;
+        sk[1] = kr0 + 8 < S ? seg_b[kr0 + 8] : -1;
+    }
+    const uint32_t k_tile = smem_addr(sm + DKV_K), v_tile = smem_addr(sm + DKV_V);
+    float dka[64], dva[64];
+#pragma unroll
+    for (int x = 0; x < 64; ++x) dka[x] = dva[x] = 0.f;
 
-            // S^T = k q^T and dP^T = v dO^T for the warp's 16 kv rows x 32 q rows
-            float st[DKV_QT / 8][4], dpt[DKV_QT / 8][4];
+    sm90::mbar_wait(kv_full, 0);
+    for (int i = 0; i < pairs; ++i) {
+        // the stage pair i - 1 used is refilled once every warp has released it
+        if (loader && i > 0 && i - 1 + DKV_STAGES_N < pairs) {
+            sm90::mbar_wait(&empty[(i - 1) % DKV_STAGES_N], ((i - 1) / DKV_STAGES_N) & 1);
+            fill(i - 1 + DKV_STAGES_N);
+        }
+        const int s = i % DKV_STAGES_N, q0 = (SEG ? list[i / group] : q_first + i / group) * BWD_QT;
+        sm90::mbar_wait(&full[s], (i / DKV_STAGES_N) & 1);
+        if (!causal || q0 + BWD_QT - 1 >= c0) {  // uniform over the group
+            const unsigned char* st = sm + DKV_RING + s * DKV_STAGE;
+            const uint32_t q_tile = smem_addr(st), do_tile = q_tile + TILE64;
+            const float* lse_s = reinterpret_cast<const float*>(st + 2 * TILE64);
+            const float* di_s = lse_s + BWD_QT;
+            const int* sq_s = reinterpret_cast<const int*>(di_s + BWD_QT);
+            float sa[32], dpa[32];
 #pragma unroll
-            for (int nt = 0; nt < DKV_QT / 8; ++nt) {
-                st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
-                dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
-            }
+            for (int x = 0; x < 32; ++x) sa[x] = dpa[x] = 0.f;
+            sm90::wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < HD / 16; ++kk) {
-                uint32_t ak[4], av[4];
-                load_a(ak, ks, warp * 16, kk * 16);
-                load_a(av, vs, warp * 16, kk * 16);
+            for (int kk = 0; kk < HD / 16; ++kk)
+                sm90::wgmma_m64n64k16_ss(sa, sm90::desc_kmajor(k_tile, DKV_BK, 0, kk),
+                                         sm90::desc_kmajor(q_tile, BWD_QT, 0, kk), kk > 0);
 #pragma unroll
-                for (int nt2 = 0; nt2 < DKV_QT / 16; ++nt2) {
-                    uint32_t bq[4], bd[4];
-                    load_b_nk(bq, qsm, nt2 * 16, kk * 16);
-                    load_b_nk(bd, dos, nt2 * 16, kk * 16);
-                    mma_bf16_16816(st[2 * nt2], ak, bq[0], bq[1]);
-                    mma_bf16_16816(st[2 * nt2 + 1], ak, bq[2], bq[3]);
-                    mma_bf16_16816(dpt[2 * nt2], av, bd[0], bd[1]);
-                    mma_bf16_16816(dpt[2 * nt2 + 1], av, bd[2], bd[3]);
-                }
-            }
+            for (int kk = 0; kk < HD / 16; ++kk)
+                sm90::wgmma_m64n64k16_ss(dpa, sm90::desc_kmajor(v_tile, DKV_BK, 0, kk),
+                                         sm90::desc_kmajor(do_tile, BWD_QT, 0, kk), kk > 0);
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::reg_fence(sa);
+            sm90::reg_fence(dpa);
+
+            const bool diag = causal && q0 < c0 + 63;  // some q row of the tile precedes some kv row
 #pragma unroll
-            for (int nt = 0; nt < DKV_QT / 8; ++nt) {
+            for (int n = 0; n < 8; ++n) {
+                const int qc = 8 * n + 2 * t;  // q rows q0 + qc, q0 + qc + 1 of the tile
+                const float2 l2 = *reinterpret_cast<const float2*>(lse_s + qc);
+                const float2 d2 = *reinterpret_cast<const float2*>(di_s + qc);
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
-                    const int qc = nt * 8 + 2 * t + (e & 1);  // q row within the tile
-                    const int kvr = kw0 + g + (e >> 1) * 8;   // kv row
-                    bool ok = q0 + qc < S && kvr < S && (!causal || kvr <= q0 + qc) && lse_s[qc] != -INFINITY;
-                    if (SEG) ok = ok && seg_q[qc] >= 0 && seg_q[qc] == seg_k[kvr - c0];
-                    const float pe = ok ? exp2f(st[nt][e] * LOG2E - lse_s[qc]) : 0.f;
-                    st[nt][e] = pe;
-                    dpt[nt][e] = pe * (dpt[nt][e] - di_s[qc]);  // dS^T
+                    const float lv = (e & 1) ? l2.y : l2.x, dv_ = (e & 1) ? d2.y : d2.x;
+                    const int kvr = kr0 + 8 * (e >> 1);
+                    bool ok = lv != -INFINITY;
+                    if (diag) ok = ok && kvr <= q0 + qc + (e & 1);
+                    if (kv_ragged) ok = ok && kvr < S;
+                    if (SEG) {
+                        const int sqv = sq_s[qc + (e & 1)];
+                        ok = ok && sqv >= 0 && sqv == sk[e >> 1];
+                    }
+                    const float p = ok ? exp2f(sa[4 * n + e] * LOG2E - lv) : 0.f;
+                    sa[4 * n + e] = p;
+                    dpa[4 * n + e] = p * (dpa[4 * n + e] - dv_);  // dS^T
                 }
             }
-            p_times_tile<DKV_QT>(st, dos, dva);   // dV += P^T dO
-            p_times_tile<DKV_QT>(dpt, qsm, dka);  // dK += dS^T (q * scale)
+            uint32_t pa[BWD_QT / 16][4], dsa[BWD_QT / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < BWD_QT / 16; ++kk) {
+                acc_to_a(pa[kk], sa, kk);
+                acc_to_a(dsa[kk], dpa, kk);
+            }
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BWD_QT / 16; ++kk)
+                sm90::wgmma_m64n128k16_rs(dva, pa[kk], sm90::desc_mnmajor(do_tile, BWD_QT, kk), 1);  // dV += P^T dO
+#pragma unroll
+            for (int kk = 0; kk < BWD_QT / 16; ++kk)
+                sm90::wgmma_m64n128k16_rs(dka, dsa[kk], sm90::desc_mnmajor(q_tile, BWD_QT, kk), 1);  // dK += dS^T Q
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::reg_fence(dva);
+            sm90::reg_fence(dka);
         }
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[s]);
     }
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-        const int row = kw0 + g + 8 * r;
+        const int row = kr0 + 8 * r;
         if (row >= S) continue;
-        bf16* ok_ = dk + ((size_t)b * S + row) * kvs + (size_t)kvh * HD;
-        bf16* ov = dv + ((size_t)b * S + row) * kvs + (size_t)kvh * HD;
+        const size_t at = ((size_t)b * S + row) * KVH * HD + (size_t)kvh * HD;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt) {
-            *reinterpret_cast<uint32_t*>(ok_ + dt * 8 + 2 * t) = pack_bf16(dka[dt][2 * r], dka[dt][2 * r + 1]);
-            *reinterpret_cast<uint32_t*>(ov + dt * 8 + 2 * t) = pack_bf16(dva[dt][2 * r], dva[dt][2 * r + 1]);
+        for (int n = 0; n < 16; ++n) {
+            *reinterpret_cast<uint32_t*>(dk + at + 8 * n + 2 * t) = pack_bf16(dka[4 * n + 2 * r], dka[4 * n + 2 * r + 1]);
+            *reinterpret_cast<uint32_t*>(dv + at + 8 * n + 2 * t) = pack_bf16(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
         }
     }
 }
 
 bool bad_shape(int B, int S, int H, int KVH, int D) {
-    return D != HD || B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > MAX_WARPS;
+    return D != HD || B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0;
 }
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 int row_slices(int H, int KVH) { return max(1, MAX_WARPS / (H / KVH)); }
 
@@ -544,28 +746,36 @@ void allow_smem(Kernel kernel, size_t bytes) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Tensor maps over [B, S, heads, 128] bf16, read `rows` rows of one head at a time.
+bool rows_map(CUtensorMap* map, const void* x, int B, int S, int heads, int rows) {
+    return sm90::bf16_rows_map(map, x, heads, S, B, HD, (uint64_t)heads * HD, (uint64_t)S * heads * HD, rows);
+}
+
 }  // namespace
 
+// q arrives multiplied by D^-0.5 (rounded to bf16).
 extern "C" int omchat_flash_attention_fwd(const void* q, const void* k, const void* v, const void* seg, void* out,
-                                          void* lse, int B, int S, int H, int KVH, int D, int causal, float scale,
-                                          void* stream) {
-    if (bad_shape(B, S, H, KVH, D)) return (int)cudaErrorInvalidValue;
-    const int sub = row_slices(H, KVH);
-    const size_t smem = 2 * FWD_KT * LDS * sizeof(bf16) + (16 * MAX_WARPS + FWD_KT) * sizeof(int);
-    const dim3 grid((S + 16 * sub - 1) / (16 * sub), KVH, B);
-    const int threads = 32 * (H / KVH) * sub;
+                                          void* lse, int B, int S, int H, int KVH, int D, int causal, void* stream) {
+    if (bad_shape(B, S, H, KVH, D) || misaligned(q) || misaligned(k) || misaligned(v))
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap mq, mk, mv;
+    if (!rows_map(&mq, q, B, S, H, FWD_BM) || !rows_map(&mk, k, B, S, KVH, FWD_BN) ||
+        !rows_map(&mv, v, B, S, KVH, FWD_BN))
+        return (int)cudaErrorInvalidValue;
+    const int n_rt = (S + FWD_BM - 1) / FWD_BM, n_kv = (S + FWD_BN - 1) / FWD_BN;
+    const size_t smem = 1024 + FWD_META + (4 + n_kv) * sizeof(int);
+    const dim3 grid(H, n_rt * B);
     auto kernel = seg ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
     allow_smem(kernel, smem);
-    kernel<<<grid, threads, smem, (cudaStream_t)stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                                          (const int*)seg, (bf16*)out, (float*)lse, S, H, KVH, causal,
-                                                          sub, scale);
+    kernel<<<grid, 2 * WG + 32, smem, (cudaStream_t)stream>>>(mq, mk, mv, (const int*)seg, (bf16*)out, (float*)lse,
+                                                              B, S, H, KVH, causal);
     return (int)cudaGetLastError();
 }
 
 extern "C" int omchat_flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                              const void* lse, const void* di, const void* seg, void* dq, int B, int S,
                                              int H, int KVH, int D, int causal, float scale, void* stream) {
-    if (bad_shape(B, S, H, KVH, D)) return (int)cudaErrorInvalidValue;
+    if (bad_shape(B, S, H, KVH, D) || H / KVH > MAX_WARPS) return (int)cudaErrorInvalidValue;
     const int sub = row_slices(H, KVH);
     const size_t smem = 2 * DQ_KT * LDS * sizeof(bf16) + (16 * MAX_WARPS + DQ_KT) * sizeof(int);
     const dim3 grid((S + 16 * sub - 1) / (16 * sub), KVH, B);
@@ -578,18 +788,22 @@ extern "C" int omchat_flash_attention_bwd_dq(const void* q, const void* k, const
     return (int)cudaGetLastError();
 }
 
+// q arrives multiplied by D^-0.5 (rounded to bf16).
 extern "C" int omchat_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                               const void* lse, const void* di, const void* seg, void* dk, void* dv,
-                                              int B, int S, int H, int KVH, int D, int causal, float scale,
-                                              void* stream) {
-    if (bad_shape(B, S, H, KVH, D)) return (int)cudaErrorInvalidValue;
-    const size_t smem = (2 * DKV_KT + 2 * DKV_QT) * LDS * sizeof(bf16) + 2 * DKV_QT * sizeof(float) +
-                        (DKV_KT + DKV_QT) * sizeof(int);
-    const dim3 grid((S + DKV_KT - 1) / DKV_KT, KVH, B);
+                                              int B, int S, int H, int KVH, int D, int causal, void* stream) {
+    if (bad_shape(B, S, H, KVH, D) || misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap mq, mdo, mk, mv;
+    if (!rows_map(&mq, q, B, S, H, BWD_QT) || !rows_map(&mdo, dout, B, S, H, BWD_QT) ||
+        !rows_map(&mk, k, B, S, KVH, DKV_BK) || !rows_map(&mv, v, B, S, KVH, DKV_BK))
+        return (int)cudaErrorInvalidValue;
+    const int n_qt = (S + BWD_QT - 1) / BWD_QT;
+    const size_t smem = 1024 + DKV_META + (4 + n_qt) * sizeof(int);
+    const dim3 grid(KVH * B, (S + DKV_BK - 1) / DKV_BK);
     auto kernel = seg ? flash_bwd_dkv_kernel<true> : flash_bwd_dkv_kernel<false>;
     allow_smem(kernel, smem);
-    kernel<<<grid, 32 * (DKV_KT / 16), smem, (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse, (const float*)di,
-        (const int*)seg, (bf16*)dk, (bf16*)dv, S, H, KVH, causal, scale);
+    kernel<<<grid, WG, smem, (cudaStream_t)stream>>>(mq, mdo, mk, mv, (const float*)lse, (const float*)di,
+                                                     (const int*)seg, (bf16*)dk, (bf16*)dv, B, S, H, KVH, causal);
     return (int)cudaGetLastError();
 }

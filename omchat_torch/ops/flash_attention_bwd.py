@@ -8,10 +8,12 @@ backward as two kernels, dQ and dK/dV — PyTorch port of
     dS = P * (dO V^T - di)
     dQ = dS K * scale,    dK = dS^T (Q * scale)
 
-GQA: the q heads sharing a kv head ride one block, so each K/V tile is
-staged once per group, and dK/dV are summed over the group inside the kernel.
+GQA: the q heads sharing a kv head run in neighbouring blocks (forward) or
+ride one block (dQ), and dK/dV are summed over the group inside the kernel.
 ``segment_ids`` (multi-document packing, ``--pack``) isolate documents; tiles
-whose segments cannot meet are skipped.
+whose segments cannot meet are skipped.  As in JAX, the forward and dK/dV
+wrappers multiply q by ``D**-0.5`` in q's dtype before the launch; the dQ
+kernel rounds q * scale to bf16 as it loads q, which gives the same bits.
 
 Each kernel comes as a wrapper (:func:`flash_fwd`, :func:`flash_bwd_dq`,
 :func:`flash_bwd_dkv`) that takes the plain PyTorch version (``*_plain``) for a
@@ -35,15 +37,16 @@ import torch
 from omchat_torch.ops import kernel_lib
 
 SOURCE = "flash_attention_bwd.cu"
-# C signatures (every size an int, the softmax scale a float):
-#   q, k, v, seg, out, lse, B, S, H, KVH, D, causal, scale, stream
-#   q, k, v, dout, lse, di, seg, dq, ...
-#   q, k, v, dout, lse, di, seg, dk, dv, ...
-_SIZES = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-_FWD_ARGS = [ctypes.c_void_p] * 6 + _SIZES
-_DQ_ARGS = [ctypes.c_void_p] * 8 + _SIZES
-_DKV_ARGS = [ctypes.c_void_p] * 9 + _SIZES
-MAX_GROUP = 8  # q heads per kv head a kernel block takes
+# C signatures (every size an int; the forward and dK/dV take q prescaled,
+# dQ the softmax scale as a float):
+#   q, k, v, seg, out, lse, B, S, H, KVH, D, causal, stream
+#   q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, D, causal, scale, stream
+#   q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH, D, causal, stream
+_SIZES = [ctypes.c_int] * 6
+_FWD_ARGS = [ctypes.c_void_p] * 6 + _SIZES + [ctypes.c_void_p]
+_DQ_ARGS = [ctypes.c_void_p] * 8 + _SIZES + [ctypes.c_float, ctypes.c_void_p]
+_DKV_ARGS = [ctypes.c_void_p] * 9 + _SIZES + [ctypes.c_void_p]
+MAX_GROUP = 8  # q heads per kv head a dQ block takes
 
 
 def softmax_scale(q: torch.Tensor) -> torch.Tensor:
@@ -173,7 +176,13 @@ def _seg_arg(segment_ids, q):
 
 def _dims(q, k, causal):
     b, s, h, d = q.shape
-    return b, s, h, k.shape[2], d, int(causal), ctypes.c_float(float(softmax_scale(q)))
+    return b, s, h, k.shape[2], d, int(causal)
+
+
+def _prescaled(q: torch.Tensor) -> torch.Tensor:
+    """q * D^-0.5 in q's dtype, as JAX hands q to its forward and backward
+    pallas_calls (flash_attention_bwd.py:331, :432)."""
+    return (q * softmax_scale(q)).contiguous()
 
 
 def flash_fwd(q, k, v, causal: bool, segment_ids=None):
@@ -182,13 +191,13 @@ def flash_fwd(q, k, v, causal: bool, segment_ids=None):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, segment_ids)
     _check("flash_fwd", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    qs, k, v = _prescaled(q), k.contiguous(), v.contiguous()
     seg, seg_p = _seg_arg(segment_ids, q)
-    out = torch.empty_like(q)
+    out = torch.empty_like(qs)
     b, s, h = q.shape[:3]
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     kernel_lib.launch(SOURCE, "omchat_flash_attention_fwd", _FWD_ARGS,
-                      *map(kernel_lib.ptr, (q, k, v)), seg_p, kernel_lib.ptr(out), kernel_lib.ptr(lse),
+                      *map(kernel_lib.ptr, (qs, k, v)), seg_p, kernel_lib.ptr(out), kernel_lib.ptr(lse),
                       *_dims(q, k, causal), kernel_lib.stream_ptr(q.device))
     flash_fwd.launches += 1
     return out, lse
@@ -205,7 +214,7 @@ def flash_bwd_dq(q, k, v, dout, lse, di, causal: bool, segment_ids=None):
     dq = torch.empty_like(q)
     kernel_lib.launch(SOURCE, "omchat_flash_attention_bwd_dq", _DQ_ARGS,
                       *map(kernel_lib.ptr, (q, k, v, dout, lse, di)), seg_p, kernel_lib.ptr(dq),
-                      *_dims(q, k, causal), kernel_lib.stream_ptr(q.device))
+                      *_dims(q, k, causal), ctypes.c_float(float(softmax_scale(q))), kernel_lib.stream_ptr(q.device))
     flash_bwd_dq.launches += 1
     return dq
 
@@ -215,12 +224,12 @@ def flash_bwd_dkv(q, k, v, dout, lse, di, causal: bool, segment_ids=None):
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, dout, lse, di, causal, segment_ids)
     _check("flash_bwd_dkv", q, k, v, dout)
-    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    qs, k, v, dout = _prescaled(q), k.contiguous(), v.contiguous(), dout.contiguous()
     lse, di = lse.float().contiguous(), di.float().contiguous()
     seg, seg_p = _seg_arg(segment_ids, q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     kernel_lib.launch(SOURCE, "omchat_flash_attention_bwd_dkv", _DKV_ARGS,
-                      *map(kernel_lib.ptr, (q, k, v, dout, lse, di)), seg_p, kernel_lib.ptr(dk), kernel_lib.ptr(dv),
+                      *map(kernel_lib.ptr, (qs, k, v, dout, lse, di)), seg_p, kernel_lib.ptr(dk), kernel_lib.ptr(dv),
                       *_dims(q, k, causal), kernel_lib.stream_ptr(q.device))
     flash_bwd_dkv.launches += 1
     return dk, dv

@@ -3,8 +3,9 @@
 Each ``omchat_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with :mod:`ctypes`.  A
 library is built at first use into ``omchat_torch/_build/`` (listed in
-``.gitignore``); its file name carries a hash of its sources, so an edited
-kernel is rebuilt and an unchanged one is reused.  :func:`build_all` starts one
+``.gitignore``); its file name carries a hash of its source, of every header
+(``csrc/*.cuh``) and of the compiler flags, so an edited kernel or header is
+rebuilt and an unchanged one is reused.  :func:`build_all` starts one
 ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU-only test environment has no
@@ -65,7 +66,9 @@ def nvcc_path() -> str:
 
 def _library_path(source: str) -> str:
     h = hashlib.sha256()
-    for name in (source, "common.cuh"):
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in (source, *headers):
+        h.update(name.encode())
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

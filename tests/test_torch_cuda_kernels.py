@@ -19,7 +19,10 @@ plain version's and at least 99% equal (fp32 sums in another order), row
 scales rtol 1e-5, x' bitwise for K8 and within one bf16 ulp for K11.  The
 training attention kernels (K16a forward + lse, K16b dQ, K16c dK/dV) at
 ragged lengths, GQA groups 1, 2 and 7, causal and not, packed with a -1
-tail: outputs and gradients within the bf16 tolerance above, lse atol 1e-3
+tail, at the edges of the 128-row tiles (S = 127, 128, 129, 257), a
+ViT-like 1 x 1025 at 25 heads and a packed case whose document boundaries
+fall inside 128-row tiles: outputs and gradients within the bf16 tolerance
+above, lse atol 1e-3
 (fp32 sums in another order), padding rows lse = -inf and output 0, and
 dK/dV bitwise the same on a second run (no atomics).  The fp8 (e4m3) KV
 cache: K2, K3, K12, K13 and K14 over e4m3 caches at the bf16 tolerance, but
@@ -327,8 +330,15 @@ def _train_attn_case(gen, B, S, H, KVH, packed):
 
 
 TRAIN_CASES = [(1, 200, 4, 2, True, False), (2, 77, 7, 1, False, False), (1, 130, 3, 3, False, True),
-               (2, 300, 28, 4, True, True)]
-TRAIN_IDS = ["causal_group2_ragged", "noncausal_group7", "noncausal_mha_packed", "causal_group7_packed"]
+               (2, 300, 28, 4, True, True),
+               # the edges of K16a's 128-row tiles and K16c's 128-row blocks / 64-row q tiles
+               (1, 127, 7, 1, True, False), (1, 128, 7, 1, True, False), (1, 129, 7, 1, True, False),
+               (2, 257, 14, 2, True, False), (1, 1025, 25, 25, False, False),
+               # document boundaries at rows 76 and 192: inside 128-row tiles
+               (1, 384, 28, 4, True, True)]
+TRAIN_IDS = ["causal_group2_ragged", "noncausal_group7", "noncausal_mha_packed", "causal_group7_packed",
+             "causal_group7_s127", "causal_group7_s128", "causal_group7_s129", "causal_group7_s257",
+             "vit_like_1025_mha", "causal_group7_packed_boundary_in_tile"]
 
 
 @pytest.mark.parametrize("B,S,H,KVH,causal,packed", TRAIN_CASES, ids=TRAIN_IDS)

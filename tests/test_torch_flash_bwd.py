@@ -126,3 +126,66 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
     fb.flash_attention_trainable(tq, tk, tv, True).sum().backward()
     assert (fb.flash_fwd.launches, fb.flash_bwd_dq.launches, fb.flash_bwd_dkv.launches) == n0
     assert tq.grad is not None and tk.grad.shape == tk.shape
+
+
+def test_prescale_matches_jax_on_every_bf16_pattern():
+    """The forward and dK/dV kernels take q already multiplied by D^-0.5 in
+    bf16 (``_prescaled``), as JAX multiplies it before its pallas_calls
+    (flash_attention_bwd.py:331, :432): the two products must agree bitwise
+    on all 65536 bf16 patterns.  Excluded: the 1130 patterns whose fp32
+    product is subnormal (|q| < 1.33e-37; 1120 of them differ), which XLA on
+    the CPU flushes to zero before rounding while PyTorch keeps them, and NaN
+    inputs, which give NaN on both sides with payloads that IEEE leaves
+    open."""
+    import ml_dtypes
+
+    bits = np.arange(65536, dtype=np.uint32).astype(np.uint16)
+    q = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16).reshape(1, 512, 1, 128)
+    got = fb._prescaled(q).view(torch.int16).numpy().view(np.uint16).ravel()
+    jq = jnp.asarray(bits.view(ml_dtypes.bfloat16).reshape(1, 512, 1, 128))
+    ref = np.asarray(jq * jnp.asarray(128**-0.5, jnp.bfloat16)).view(np.uint16).ravel()
+    qf = bits.view(ml_dtypes.bfloat16).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        prod = np.abs(qf * np.float32(ml_dtypes.bfloat16(128**-0.5)))  # the fp32 product both sides round
+    flushed = (prod < np.finfo(np.float32).tiny) & (prod > 0)
+    nan = np.isnan(qf)
+    assert flushed.sum() == 1130 and np.abs(qf[flushed]).max() < 1.33e-37
+    assert (ref[flushed] & 0x7FFF == 0).all() and (got[flushed] != ref[flushed]).sum() == 1120
+    keep = ~flushed & ~nan
+    assert keep.sum() == 65536 - 1130 - 254
+    np.testing.assert_array_equal(got[keep], ref[keep])
+    out = got.view(ml_dtypes.bfloat16).astype(np.float32)
+    assert np.isnan(out[nan]).all() and np.isnan(np.asarray(ref).view(ml_dtypes.bfloat16).astype(np.float32)[nan]).all()
+
+
+@pytest.mark.parametrize("name", ["causal_gqa7_1_ragged200", "packed_noncausal_gqa7_1"])
+def test_prescaled_q_gives_the_plain_versions_the_same_inputs(name):
+    """The plain versions round q * scale to q's dtype themselves; handing
+    them the prescaled q with a unit scale is the kernels' view and must give
+    the same scores: the wrappers' prescale changes no bits of the math."""
+    c = CASES[name]
+    q, k, v, _, seg = _inputs(c, seed=5)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    ts = None if seg is None else torch.from_numpy(seg)
+    qs, s, _ = fb._scores(tq, tk, c["causal"], ts)
+    torch.testing.assert_close(qs, fb._prescaled(tq), rtol=0, atol=0)
+    s_pre = torch.einsum("bngsd,btnd->bngst", fb._grouped(fb._prescaled(tq), tk.shape[2]), tk.float())
+    torch.testing.assert_close(s, s_pre, rtol=0, atol=0)
+
+
+def test_wrappers_route_cpu_bf16_tensors_to_the_plain_versions():
+    """bf16 CPU tensors (the kernels' dtype) also take the plain versions and
+    count no launch; the results equal the plain versions' bitwise."""
+    c = CASES["packed_causal_gqa4_2"]
+    q, k, v, w, seg = _inputs(c, seed=7)
+    tq, tk, tv, tw = (torch.from_numpy(x).bfloat16() for x in (q, k, v, w))
+    ts = torch.from_numpy(seg)
+    n0 = (fb.flash_fwd.launches, fb.flash_bwd_dq.launches, fb.flash_bwd_dkv.launches)
+    out, lse = fb.flash_fwd(tq, tk, tv, True, ts)
+    ro, rl = fb.flash_fwd_plain(tq, tk, tv, True, ts)
+    assert torch.equal(out, ro) and torch.equal(lse, rl)
+    di = fb.flash_di(tw, out)
+    dk, dv = fb.flash_bwd_dkv(tq, tk, tv, tw, lse, di, True, ts)
+    rk, rv = fb.flash_bwd_dkv_plain(tq, tk, tv, tw, lse, di, True, ts)
+    assert torch.equal(dk, rk) and torch.equal(dv, rv)
+    assert (fb.flash_fwd.launches, fb.flash_bwd_dq.launches, fb.flash_bwd_dkv.launches) == n0
