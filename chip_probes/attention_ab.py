@@ -1,0 +1,122 @@
+"""K1, K2 (bf16, e4m3, batched prefill), K5, K14 and K16a (the training
+forward, LLM, ViT and packed) at their PERF.md section-6 shapes, timed from
+the ``omchat_torch`` package under ``--root``, so that two trees (a parent
+commit unpacked with ``git archive``, and this one) are read on one card in
+one call, in turns: parent, change, change, parent.
+
+    python3 chip_probes/attention_ab.py --root _chip/parent --label parent
+    python3 chip_probes/attention_ab.py --root . --label change
+
+Each case is the median of 5 readings of 30 launches through the public
+wrapper (K1 with its prepass, or, in a tree before the prepass, with its
+eager statistics; K16a with its ``q * scale`` pass), the cases read in turns
+(``--cases K16a``: only those whose names start so).  Prints one JSON line:
+the card, the label and {case: median ms}.  Needs one NVIDIA GPU.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+READINGS, LAUNCHES = 5, 30
+BATCHED_KV_LEN = [349, 293, 429, 355, 473, 336, 499, 391]  # the serving run's largest batched prefill
+PACKED_DOCS = ((0, 700), (700, 1900), (1900, 2600), (2600, 3900))  # chip_smoke.py's packed K16 case, 4096 rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", required=True, help="directory holding the omchat_torch package to time")
+    ap.add_argument("--label", required=True)
+    ap.add_argument("--cases", default="", help="read only the cases whose names start with this")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops import flash_attention_bwd as fb
+    from omchat_torch.ops import kernel_lib
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.ops.fp8 import to_e4m3
+
+    if not torch.cuda.is_available():
+        print("attention_ab: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sources = ("flash_attention.cu", "packed_qkv_norm_attention.cu", "paged_flash_prefill.cu",
+               "flash_attention_bwd.cu")
+    kernel_lib.build_all(sources)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    # K1 / K5: 3 tiles x 1032 rows (1025 valid), 25 heads of 128
+    B, SP, VALID, H, D = 3, 1032, 1025, 25, 128
+    qkv = randn(B, SP, 3 * H * D)
+    qg = (1 + 0.1 * randn(H * D).float()).to(bf) * fa.packed_prescale(D)
+    kg = (1 + 0.1 * randn(H * D).float()).to(bf)
+    q5, k5, v5 = qkv.chunk(3, dim=-1)
+    # K2: the prompt's 3200 rows over a 3328-row cache layer (3187 valid), 28 / 4 heads; batched: 8 x 512
+    S, T, KVL, HQ, KVH = 3200, 3328, 3187, 28, 4
+    q2 = randn(1, S, HQ, D)
+    k2, v2 = randn(1, KVH, T, D), randn(1, KVH, T, D)
+    k8, v8 = to_e4m3(k2), to_e4m3(v2)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    off1, len1 = torch.zeros(1, **i32), torch.full((1,), KVL, **i32)
+    nb = len(BATCHED_KV_LEN)
+    qb, kb, vb = randn(nb, 512, HQ, D), randn(nb, KVH, 512, D), randn(nb, KVH, 512, D)
+    offb, lenb = torch.zeros(nb, **i32), torch.tensor(BATCHED_KV_LEN, **i32)
+    # K14: a 1024-row chunk at position 1024 over 2048 positions in 16 pages of 128, scattered in a 64-page pool
+    qc = randn(1, 1024, HQ, D)
+    kp, vp = randn(64, KVH, 128, D), randn(64, KVH, 128, D)
+    tables = torch.randperm(64, generator=torch.Generator().manual_seed(0))[:16].to(**i32)[None]
+    offc, lenc = torch.full((1,), 1024, **i32), torch.full((1,), 2048, **i32)
+    # K16a: the stage-1 step's LLM (2 x 3328, 28/4 causal) and ViT (6 x 1025, 25/25) shapes, and a packed 4096
+    qt, kt, vt = randn(2, 3328, HQ, D), randn(2, 3328, KVH, D), randn(2, 3328, KVH, D)
+    qv, kv, vv = randn(6, VALID, H, D), randn(6, VALID, H, D), randn(6, VALID, H, D)
+    qp, kp4, vp4 = randn(1, 4096, HQ, D), randn(1, 4096, KVH, D), randn(1, 4096, KVH, D)
+    seg = torch.full((1, 4096), -1, **i32)
+    for i, (a, b) in enumerate(PACKED_DOCS):
+        seg[:, a:b] = i
+    cases = {
+        "K1": lambda: fa.packed_qkv_norm_attention(qkv, num_heads=H, q_gamma=qg, k_gamma=kg, eps=1e-6,
+                                                   valid_len=VALID),
+        "K5": lambda: fa.packed_self_attention(q5, k5, v5, num_heads=H, valid_len=VALID),
+        "K2": lambda: fa.flash_attention(q2, k2, v2, causal=True, q_offset=off1, kv_len=len1, kv_format="bntd"),
+        "K2 e4m3": lambda: fa.flash_attention(q2, k8, v8, causal=True, q_offset=off1, kv_len=len1,
+                                              kv_format="bntd"),
+        "K2 batched": lambda: fa.flash_attention(qb, kb, vb, causal=True, q_offset=offb, kv_len=lenb,
+                                                 kv_format="bntd"),
+        "K14": lambda: pa.paged_flash_prefill(qc, kp, vp, lenc, tables, offc),
+        "K16a llm": lambda: fb.flash_fwd(qt, kt, vt, True),
+        "K16a vit": lambda: fb.flash_fwd(qv, kv, vv, False),
+        "K16a packed": lambda: fb.flash_fwd(qp, kp4, vp4, True, seg),
+    }
+
+    def time_ms(fn):
+        for _ in range(3):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(LAUNCHES):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / LAUNCHES
+
+    cases = {case: fn for case, fn in cases.items() if case.startswith(args.cases)}
+    readings = {case: [] for case in cases}
+    for _ in range(READINGS):
+        for case, fn in cases.items():
+            readings[case].append(time_ms(fn))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(json.dumps({"card": smi.stdout.strip(), "label": args.label,
+                      "ms": {k: sorted(r)[len(r) // 2] for k, r in readings.items()},
+                      "readings": {k: [round(x, 4) for x in r] for k, r in readings.items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,7 +18,7 @@ from omchat_torch import api
 from omchat_torch.config import OmChatConfig
 from omchat_torch.runtime.generate import OmChatEngine
 
-OURS = ("packed_qkv_norm_attention", "flash_attention_kernel", "flash_decode_stacked", "commit_rows",
+OURS = ("qk_norm_prepass", "flash_fwd", "flash_decode_stacked", "commit_rows",
         "add_rmsnorm_quant", "rmsnorm_quant", "fc1_gelu_quant", "proj_glue_quant")  # add_... before its suffix
 
 

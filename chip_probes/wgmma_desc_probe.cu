@@ -96,8 +96,8 @@ __global__ void __launch_bounds__(128) probe_kernel(const __grid_constant__ CUte
 extern "C" int omchat_wgmma_probe(const void* a, const void* b, const void* p, void* c, int mode, void* stream) {
     const int rows_a = (mode == 0) ? 128 : 64, rows_b = (mode == 0 || mode == 1) ? 128 : 64;
     CUtensorMap ma, mb;
-    if (!sm90::bf16_rows_map(&ma, a, 1, rows_a, 1, 128, 128, (uint64_t)rows_a * 128, rows_a) ||
-        !sm90::bf16_rows_map(&mb, b, 1, rows_b, 1, 128, 128, (uint64_t)rows_b * 128, rows_b))
+    if (!sm90::rows_map(&ma, a, 2, 1, rows_a, 1, 128, 128, (uint64_t)rows_a * 128, rows_a) ||
+        !sm90::rows_map(&mb, b, 2, 1, rows_b, 1, 128, 128, (uint64_t)rows_b * 128, rows_b))
         return (int)cudaErrorInvalidValue;
     const int smem = 65536 + 1024 + 64;
     cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -8,6 +8,11 @@
 2. Kernel phases: each kernel of the main path (K1-K4) at the main path's
    shapes, in bf16, held against its plain PyTorch version; kernel, plain,
    library (one PyTorch call computing the same function) and bound times.
+   K1 and K2 (and, in phases 6, 17 and 22, batched K2, e4m3 K2 and K5) are
+   read as phase 13 reads K16: the median of ``READINGS`` readings of 30
+   launches, kernel and library in turns, with the achieved TFLOP/s and the
+   share of the bound; the K1 line also times its prepass alone, and holds
+   it against its plain version (``PREPASS_TOL``, with two planted faults).
 3. End to end: ``OmChatConfig()`` at full width and depth (InternViT-6B +
    Qwen2-7B, random bf16 weights from a seeded generator), one 448x448 image
    (3 anyres tiles) and a question, greedy decode of 32 tokens through
@@ -60,7 +65,7 @@
     out of dK/dV, segment isolation broken) must fall outside the limits;
     kernel, plain, library (SDPA forward; SDPA backward for dQ + dK/dV) and
     bound times, the achieved TFLOP/s and the share of the bound.  A kernel's
-    time is the median of ``K16_READINGS`` readings of 30 launches, the three
+    time is the median of ``READINGS`` readings of 30 launches, the three
     kernels read in turns; the wrappers' ``q * scale`` pass is timed beside.
 14. Stage-1 at full width and depth: ``OmChatConfig()`` with random bf16
     weights, B=2 samples of one seeded 448x448 image and a 64-token answer
@@ -161,7 +166,14 @@ ATTN_TOL = {"K1": (4e-3, 1e-2), "K2": (8e-3, 1e-2), "K3": (4e-3, 1e-2),
             # K16 (phase 13): outputs and dQ as K2; dK/dV sum a whole GQA group's
             # rows in fp32 before one bf16 rounding, up to |13| (ulp 0.0625)
             "K16a": (8e-3, 1e-2), "K16b": (8e-3, 1e-2), "K16c": (1.6e-2, 1e-2)}  # (atol, rtol)
-K16_READINGS = 5  # phase 13: readings of each K16 kernel, taken in turns
+# phase 2, K1's prepass against its plain version: qn and kn within two bf16
+# ulps (the rstd sums run in another order), as tests/test_torch_cuda_kernels.py
+# holds it; a planted fault (k's gamma left out, k normalised by q's rstd) must
+# fall outside.
+PREPASS_TOL = (1e-6, 8e-3)  # (atol, rtol)
+# phases 2, 6, 13, 17, 22: a kernel's time is the median of READINGS readings of
+# READING_LAUNCHES launches, the kernels of a case (and their library call) read in turns
+READINGS, READING_LAUNCHES = 5, 30
 LSE_ATOL = 1e-3  # K16a's fp32 log-sum-exp: exp2 / log2 and sums in another order
 NEW_TOKENS = 32
 # phase 4, first-token logits through 2+2 layers, kernels vs the plain reference
@@ -242,6 +254,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_in_turns(fns: dict) -> tuple:
+    """``READINGS`` readings of ``READING_LAUNCHES`` launches of each callable
+    of ``fns`` (``time_ms``), taken in turns: ({name: median ms}, {name: readings})."""
+    got = {name: [] for name in fns}
+    for _ in range(READINGS):
+        for name, fn in fns.items():
+            got[name].append(time_ms(fn, iters=READING_LAUNCHES))
+    return {name: sorted(r)[len(r) // 2] for name, r in got.items()}, got
+
+
+def rate_text(flops: float, ms: float, b_ms: float, readings: list) -> str:
+    """The achieved rate and share of the bound beside a kernel's readings."""
+    return (f" tflops={flops / ms / 1e9:.1f} share_of_bound={b_ms / ms:.3f} "
+            f"readings={[round(x, 4) for x in readings]}")
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
@@ -359,21 +387,37 @@ def kernel_phases(gen, shapes: dict) -> list:
                                                               k1_plain(VALID - 1), ref, *ATTN_TOL["K1"]),
               "first pad column let in": check_fault_caught("K1", "the first pad column let in",
                                                             k1_plain(VALID + 1), ref, *ATTN_TOL["K1"])}
+    # the prepass alone, against its plain version, and two planted faults
+    want = torch.stack(fa.qk_norm_prepass_plain(qkv, qg, kg, eps))
+    pre_err = check_close("K1 qk_norm_prepass", torch.stack(fa.qk_norm_prepass(qkv, qg, kg, eps)), want,
+                          *PREPASS_TOL)
+    kx = qkv[..., HD:2 * HD].float()
+    for fault, kn_bad in (("k's gamma left out", kx * rk[..., None]),
+                          ("k normalised by q's rstd", kx * rq[..., None] * gk32)):
+        faults[f"prepass: {fault}"] = check_fault_caught("K1 qk_norm_prepass", fault,
+                                                         torch.stack((want[0], kn_bad.to(bf))), want, *PREPASS_TOL)
+    del want, kx, kn_bad
     ref_mag = float(ref.float().abs().mean())
-    k_ms = time_ms(lambda: fa.packed_qkv_norm_attention(qkv, num_heads=H, q_gamma=qg, k_gamma=kg, eps=eps,
-                                                        valid_len=VALID))
     p_ms = time_ms(lambda: fa.packed_qkv_norm_attention_plain(qkv, rq, rk, gq32, gk32, num_heads=H,
                                                               valid_len=VALID), iters=5, warmup=1)
     # library yardstick: SDPA over the already-normalised heads (no qk-norm)
     qn = (qkv[:, :VALID, :HD].float() * rq[:, :VALID, None] * gq32).to(bf).view(B, VALID, H, D).transpose(1, 2)
     kn = (qkv[:, :VALID, HD:2 * HD].float() * rk[:, :VALID, None] * gk32).to(bf).view(B, VALID, H, D).transpose(1, 2)
     vn = qkv[:, :VALID, 2 * HD:].reshape(B, VALID, H, D).transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qn, kn, vn))
+    # the kernel (its prepass included), the prepass alone and SDPA, read in turns
+    ms, readings = time_in_turns({
+        "kernel": lambda: fa.packed_qkv_norm_attention(qkv, num_heads=H, q_gamma=qg, k_gamma=kg, eps=eps,
+                                                       valid_len=VALID),
+        "prepass": lambda: fa.qk_norm_prepass(qkv, qg, kg, eps),
+        "library": lambda: F.scaled_dot_product_attention(qn, kn, vn)})
     flops = 4.0 * B * H * VALID * VALID * D
-    nbytes = qkv.numel() * 2 + 2 * B * SP * 4 + 2 * HD * 4 + B * SP * HD * 2
+    nbytes = qkv.numel() * 2 + 2 * HD * 4 + B * SP * HD * 2
     rows.append(dict(name="packed_qkv_norm_attention", source="omchat_torch/csrc/packed_qkv_norm_attention.cu",
-                     replaces="omchat_tpu/ops/flash_attention.py:559", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                     library_ms=lib_ms, flops=flops, bytes=nbytes, ref_mean_abs=ref_mag, faults=faults))
+                     replaces="omchat_tpu/ops/flash_attention.py:559", max_abs_err=err, ms=ms["kernel"],
+                     plain_ms=p_ms, library_ms=ms["library"], flops=flops, bytes=nbytes, ref_mean_abs=ref_mag,
+                     faults=faults, readings=readings["kernel"],
+                     extra=f" prepass_ms={ms['prepass']:.4f} (bound {bound_ms(0.0, 2 * B * SP * 2 * HD * 2)[0]:.4f}, "
+                           f"bytes) prepass_max_abs_err={pre_err:.4g}"))
     del qkv, out, ref, qn, kn, vn
 
     # K2 — causal GQA prefill over the bntd cache layer: the merged prompt's S rows
@@ -404,18 +448,20 @@ def kernel_phases(gen, shapes: dict) -> list:
               "diagonal shifted by one": check_fault_caught("K2", "the causal diagonal shifted by one",
                                                             k2_plain(q_off + 1, kvl), ref, *ATTN_TOL["K2"])}
     ref_mag = float(ref.float().abs().mean())
-    k_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
     p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True, q_offset=q_off, kv_len=kvl),
                    iters=3, warmup=1)
     qt = q[:, :KVL].transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, k[:, :, :KVL], v[:, :, :KVL], is_causal=True,
-                                                            enable_gqa=True))
+    ms, readings = time_in_turns({
+        "kernel": lambda: fa.flash_attention(q, k, v, **kw),
+        "library": lambda: F.scaled_dot_product_attention(qt, k[:, :, :KVL], v[:, :, :KVL], is_causal=True,
+                                                          enable_gqa=True)})
     cols = sum(min(i + 1, KVL) for i in range(S))  # causal columns this data needs
     flops = 4.0 * H * D * cols
     nbytes = (q.numel() + 2 * KVH * KVL * D + q.numel()) * 2
     rows.append(dict(name="flash_attention", source="omchat_torch/csrc/flash_attention.cu",
-                     replaces="omchat_tpu/ops/flash_attention.py:246", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                     library_ms=lib_ms, flops=flops, bytes=nbytes, ref_mean_abs=ref_mag, faults=faults))
+                     replaces="omchat_tpu/ops/flash_attention.py:246", max_abs_err=err, ms=ms["kernel"],
+                     plain_ms=p_ms, library_ms=ms["library"], flops=flops, bytes=nbytes, ref_mean_abs=ref_mag,
+                     faults=faults, readings=readings["kernel"]))
     del q, k, v, out, ref, qt
 
     # K3 — decode against the stacked cache [L, B=1, KVH, T, D] at the decode steps'
@@ -500,12 +546,14 @@ def kernel_phases(gen, shapes: dict) -> list:
     del kc, vc, kf, vf, k_ref, v_ref
 
     for r in rows:
-        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("flops"), r.pop("bytes"))
+        flops = r.pop("flops")
+        r["bound_ms"], r["bound_by"] = bound_ms(flops, r.pop("bytes"))
         mag = "" if r["ref_mean_abs"] is None else f" ref_mean_abs={r['ref_mean_abs']:.3g}"
         caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in r["faults"].items())
+        rate = rate_text(flops, r["ms"], r["bound_ms"], r.pop("readings")) if "readings" in r else ""
         log(f"kernel {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-            f"max_abs_err={r['max_abs_err']:.3g}{mag}{caught}")
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){rate}"
+            f"{r.pop('extra', '')} max_abs_err={r['max_abs_err']:.3g}{mag}{caught}")
     torch.cuda.empty_cache()
     return rows
 
@@ -568,6 +616,7 @@ def counters():
 
     return {
         "packed_qkv_norm_attention": fa.packed_qkv_norm_attention,
+        "qk_norm_prepass": fa.qk_norm_prepass,  # K1's first step, launched by its wrapper
         "flash_attention": fa.flash_attention,
         "flash_decode_stacked": da.flash_decode_stacked,
         "commit_rows": pa.commit_rows,
@@ -780,6 +829,7 @@ def paged_counters():
 
     return {
         "packed_qkv_norm_attention": fa.packed_qkv_norm_attention,
+        "qk_norm_prepass": fa.qk_norm_prepass,  # K1's first step, launched by its wrapper
         "flash_attention": fa.flash_attention,
         "commit_rows": pa.commit_rows,
         "paged_flash_decode": pa.paged_flash_decode,
@@ -1133,28 +1183,31 @@ def paged_kernel_phases(gen, timed: dict) -> list:
               "diagonal shifted by one": check_fault_caught("K2 batched", "the causal diagonal shifted by one",
                                                             k2_plain(q0 + 1, kl2), ref, *ATTN_TOL["K2"])}
     ref_mag = float(ref.float().abs().mean())
-    k_ms = time_ms(lambda: fa.flash_attention(q2, k2, v2, causal=True, q_offset=q0, kv_len=kl2, kv_format="bntd"))
     p_ms = time_ms(lambda: fa.flash_attention_plain(q2, k2, v2, causal=True, q_offset=q0, kv_len=kl2),
                    iters=3, warmup=1)
     ar = torch.arange(width, device=dev)
     mask2 = ((ar[None, :] <= ar[:, None])[None] & (ar[None, None, :] < kl2[:, None, None]))[:, None]
     q2t = q2.transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q2t, k2, v2, attn_mask=mask2, enable_gqa=True))
+    ms, readings = time_in_turns({
+        "kernel": lambda: fa.flash_attention(q2, k2, v2, causal=True, q_offset=q0, kv_len=kl2, kv_format="bntd"),
+        "library": lambda: F.scaled_dot_product_attention(q2t, k2, v2, attn_mask=mask2, enable_gqa=True)})
     cols2 = sum(n * (n + 1) // 2 for n in kvl2)  # the causal columns of the valid rows
     k2_batched = dict(name="flash_attention", source="omchat_torch/csrc/flash_attention.cu",
-                      replaces="omchat_tpu/ops/flash_attention.py:246", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                      library_ms=lib_ms, flops=4.0 * H * D * cols2,
+                      replaces="omchat_tpu/ops/flash_attention.py:246", max_abs_err=err, ms=ms["kernel"],
+                      plain_ms=p_ms, library_ms=ms["library"], flops=4.0 * H * D * cols2,
                       bytes=(2 * q2.numel() + 2 * KVH * sum(kvl2) * D) * 2 + 8 * B, ref_mean_abs=ref_mag,
-                      faults=faults, shape=f"B={B} width={width} kv_len={kvl2}")
+                      faults=faults, shape=f"B={B} width={width} kv_len={kvl2}", readings=readings["kernel"])
     del q2, k2, v2, q2t, mask2, out, ref
 
     for r in rows + [k2_batched]:
-        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("flops"), r.pop("bytes"))
+        flops = r.pop("flops")
+        r["bound_ms"], r["bound_by"] = bound_ms(flops, r.pop("bytes"))
         mag = "" if r["ref_mean_abs"] is None else f" ref_mean_abs={r['ref_mean_abs']:.3g}"
         caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in r["faults"].items())
         gk = f" gather_k2_ms={r['gather_k2_ms']:.4f}" if "gather_k2_ms" in r else ""
+        rate = rate_text(flops, r["ms"], r["bound_ms"], r.pop("readings")) if "readings" in r else ""
         log(f"kernel {r['name']} [{r['shape']}]: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']:.4f}{gk} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"library_ms={r['library_ms']:.4f}{gk} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){rate} "
             f"max_abs_err={r['max_abs_err']:.3g}{mag}{caught}")
     torch.cuda.empty_cache()
     return rows
@@ -1794,11 +1847,7 @@ def train_kernel_phases(gen, shapes: dict) -> list:
         launch = {"fwd": lambda: fb.flash_fwd(q, k, v, causal, seg),
                   "dq": lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, causal, seg),
                   "dkv": lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, causal, seg)}
-        readings = {kname: [] for kname in launch}
-        for _ in range(K16_READINGS):
-            for kname, fn in launch.items():
-                readings[kname].append(time_ms(fn, iters=30))
-        ms = {kname: sorted(r)[len(r) // 2] for kname, r in readings.items()}
+        ms, readings = time_in_turns(launch)
         prescale_ms = time_ms(lambda: fb._prescaled(q), iters=30)  # inside every K16a and K16c call
         plain = {"fwd": time_ms(lambda: fb.flash_fwd_plain(q, k, v, causal, seg), iters=2, warmup=1),
                  "dq": time_ms(lambda: fb.flash_bwd_dq_plain(q, k, v, do, lse, di, causal, seg), iters=2, warmup=1),
@@ -2196,18 +2245,25 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
     it = itertools.count()
     rows = []
 
-    def add(name, source, replaces, got, ref, tol, faults, fns, flops, nbytes, shape, iters, warmup=3):
+    def add(name, source, replaces, got, ref, tol, faults, fns, flops, nbytes, shape, iters, warmup=3,
+            in_turns=False):
         """Check ``got`` against ``ref`` and each planted fault against
-        ``ref``; time the kernel, plain and library callables ``fns``."""
+        ``ref``; time the kernel, plain and library callables ``fns`` (the
+        kernel and library ``in_turns``: medians of ``time_in_turns``)."""
         err = check_close(name, got, ref, *tol)
         caught = {f: check_fault_caught(name, f, bad, ref, *tol) for f, bad in faults.items()}
         k_fn, p_fn, lib_fn = fns
         k_it, p_it = iters
         row = dict(name=name, source=source, replaces=replaces, max_abs_err=err, ref_mean_abs=float(ref.float().abs().mean()),
-                   ms=time_ms(k_fn, iters=k_it, warmup=warmup), plain_ms=time_ms(p_fn, iters=p_it, warmup=1),
-                   library_ms=time_ms(lib_fn, iters=k_it, warmup=warmup) if lib_fn else None, faults=caught,
-                   shape=shape)
+                   plain_ms=time_ms(p_fn, iters=p_it, warmup=1), faults=caught, shape=shape)
         row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        if in_turns:
+            ms, readings = time_in_turns({"kernel": k_fn, "library": lib_fn})
+            row.update(ms=ms["kernel"], library_ms=ms["library"],
+                       rate=rate_text(flops, ms["kernel"], row["bound_ms"], readings["kernel"]))
+        else:
+            row.update(ms=time_ms(k_fn, iters=k_it, warmup=warmup),
+                       library_ms=time_ms(lib_fn, iters=k_it, warmup=warmup) if lib_fn else None)
         rows.append(row)
         return row
 
@@ -2396,7 +2452,7 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
          k2_plain, lambda: F.scaled_dot_product_attention(q2t, k2[:, :, :KVL].to(bf), v2[:, :, :KVL].to(bf),
                                                          is_causal=True, enable_gqa=True)),
         4.0 * H * D * sum(min(i + 1, KVL) for i in range(S2)), (2 * q2.numel()) * 2 + 2 * KVH * KVL * D,
-        f"S={S2} T={T} kv_len={KVL}", (20, 3))
+        f"S={S2} T={T} kv_len={KVL}", (20, 3), in_turns=True)
     del q2, k2, v2, q2t, out
 
     # K3 (e4m3): phase 2's decode over an e4m3 stacked cache at the decode
@@ -2481,7 +2537,7 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
         caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in r["faults"].items())
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernel {r['name']} [{r['shape']}]: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={lib} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"library_ms={lib} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){r.pop('rate', '')} "
             f"max_abs_err={r['max_abs_err']:.3g}{mag}{caught}")
     torch.cuda.empty_cache()
     return rows
@@ -2925,15 +2981,17 @@ def vit_without_qk_norm(gen, seed: int, shapes: dict) -> tuple:
         log(f"kernel {tag}: max_abs_err={err:.3g} ref_mean_abs={float(ref.float().abs().mean()):.3g}{caught}")
         if row is None:  # the path's shape: times, library, bound
             qs, ks_, vs_ = (t[:, :valid].reshape(B, valid, H, D).transpose(1, 2) for t in (q, k, v))
+            ms, readings = time_in_turns({
+                "kernel": lambda: fa.packed_self_attention(q, k, v, num_heads=H, valid_len=valid),
+                "library": lambda: F.scaled_dot_product_attention(qs, ks_, vs_)})
+            flops = 4.0 * B * H * valid * valid * D
             row = dict(name="packed_self_attention", source="omchat_torch/csrc/packed_qkv_norm_attention.cu",
-                       replaces="omchat_tpu/ops/flash_attention.py:624", max_abs_err=err,
-                       ms=time_ms(lambda: fa.packed_self_attention(q, k, v, num_heads=H, valid_len=valid)),
-                       plain_ms=time_ms(plain, iters=5, warmup=1),
-                       library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks_, vs_)))
-            row["bound_ms"], row["bound_by"] = bound_ms(4.0 * B * H * valid * valid * D,
-                                                        qkv.numel() * 2 + B * sp * HD * 2)
+                       replaces="omchat_tpu/ops/flash_attention.py:624", max_abs_err=err, ms=ms["kernel"],
+                       plain_ms=time_ms(plain, iters=5, warmup=1), library_ms=ms["library"])
+            row["bound_ms"], row["bound_by"] = bound_ms(flops, qkv.numel() * 2 + B * sp * HD * 2)
             log(f"kernel packed_self_attention: kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                f"library_ms={row['library_ms']:.4f} (SDPA) bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+                f"library_ms={row['library_ms']:.4f} (SDPA) bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
+                + rate_text(flops, row["ms"], row["bound_ms"], readings["kernel"]))
         del qkv, q, k, v, out, ref
     torch.cuda.empty_cache()
     return res, row

@@ -6,9 +6,10 @@
 // cudaGetLastError() right after the launch; the Python wrapper raises when
 // that is not cudaSuccess.
 //
-// The attention kernels use the warp-level tensor-core product
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate).  Fragment layouts, with
-// g = lane / 4 and t = lane % 4:
+// The paged decode kernels (K12, K13: attend_tile below) and K16b use the
+// warp-level tensor-core product mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate); K1, K2, K5, K14, K16a and K16c use wgmma (sm90.cuh).
+// Fragment layouts, with g = lane / 4 and t = lane % 4:
 //   A (16x16, row major), 4 x b32:  a0 = A[g][2t..2t+1]     a1 = A[g+8][2t..2t+1]
 //                                   a2 = A[g][2t+8..2t+9]   a3 = A[g+8][2t+8..2t+9]
 //   B (16x8, column major), 2 x b32: b0 = B[2t..2t+1][g]    b1 = B[2t+8..2t+9][g]
@@ -16,9 +17,9 @@
 // The lower column (or row, for B) of a pair sits in the low 16 bits.
 //
 // K/V may be stored as e4m3 (the fp8 KV cache, one byte a value): a kernel
-// templated on the element type T (bf16 or e4m3) stages the bytes as stored
-// and widens them to bf16 in registers, e4m3 -> f16 -> bf16, which is exact,
-// so the products see the values the JAX kernels see after astype(q.dtype).
+// stages the bytes as stored and widens them to bf16 (in registers, or once
+// into a shared tile), e4m3 -> f16 -> bf16, which is exact, so the products
+// see the values the JAX kernels see after astype(q.dtype).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -153,8 +154,8 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], 
 //   m, l   running row max and row sum (fp32), acc the fp32 output rows.
 //
 // exp2 softmax as in the JAX kernels: p = exp2(s - m_new), l accumulates the
-// unrounded fp32 p, the PV product takes p rounded to bf16 (P_E4M3: to e4m3).
-template <int D, int KV_TILE, bool P_E4M3 = false, typename T, typename Mask>
+// unrounded fp32 p, the PV product takes p rounded to bf16.
+template <int D, int KV_TILE, typename T, typename Mask>
 __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], const T* ks, const T* vs, int ld,
                                             float (&m)[2], float (&l)[2], float (&acc)[D / 8][4], Mask mask) {
     const int lane = threadIdx.x & 31;
@@ -217,10 +218,10 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], con
 #pragma unroll
     for (int kk = 0; kk < KV_TILE / 16; ++kk) {
         uint32_t pa[4];
-        pa[0] = pack_p<P_E4M3>(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_p<P_E4M3>(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_p<P_E4M3>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_p<P_E4M3>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
         const T* v0 = vs + (kk * 16 + 2 * t) * ld;
         const T* v8 = vs + (kk * 16 + 8 + 2 * t) * ld;
 #pragma unroll
@@ -230,23 +231,6 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], con
             uint32_t b1 = pack_pair(v8[col], v8[ld + col]);
             mma_bf16_16816(acc[dt], pa, b0, b1);
         }
-    }
-}
-
-// Write a warp's 16 normalised output rows (acc / l; rows with l == 0 write
-// zeros, as the JAX kernels do).  `out_row0`/`out_row8` point at the first
-// element of rows g and g + 8 (nullptr skips a row past the end).
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], const float (&l)[2], bf16* out_row0,
-                                           bf16* out_row8) {
-    const int t = threadIdx.x & 3;
-    const float inv0 = l[0] == 0.f ? 1.f : 1.f / l[0];
-    const float inv1 = l[1] == 0.f ? 1.f : 1.f / l[1];
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-        const int col = dt * 8 + 2 * t;
-        if (out_row0) *reinterpret_cast<uint32_t*>(out_row0 + col) = pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-        if (out_row8) *reinterpret_cast<uint32_t*>(out_row8 + col) = pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
     }
 }
 
@@ -341,5 +325,52 @@ __device__ __forceinline__ void merge_fold_store(float* smem, const float (&m)[2
             a = a * alpha + __bfloat162float(__float2bfloat16(p)) * __bfloat162float(v_row[d]);
         }
         ob[(size_t)r * D + d] = __float2bfloat16(lsum == 0.f ? 0.f : a / lsum);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Segment ids (packed training sequences; K16a, K16c)
+// ---------------------------------------------------------------------------
+
+// (min, max) of the non-negative segment ids of rows r0..r0+n-1 of seg_b
+// (global; rows past S ignored), by one warp; every lane gets the range.  An
+// all-padding range overlaps nothing.
+__device__ __forceinline__ int2 warp_seg_range(const int* seg_b, int r0, int n, int S) {
+    int lo = 1 << 30, hi = -(1 << 30);
+    for (int i = threadIdx.x & 31; i < n; i += 32) {
+        const int x = r0 + i < S ? seg_b[r0 + i] : -1;
+        if (x >= 0) {
+            lo = min(lo, x);
+            hi = max(hi, x);
+        }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    return make_int2(lo, hi);
+}
+
+__device__ __forceinline__ bool overlap(int2 a, int2 b) { return a.y >= b.x && a.x <= b.y; }
+
+// With segment ids: the tiles (of `rows` rows, indices first..first+n-1)
+// whose segment range meets that of rows [r0, r0 + own) go to list[0..count),
+// in order; meta[0] = count.  Run by every thread of the block, which must
+// synchronise after it.
+__device__ inline void list_meeting_tiles(const int* seg_b, int S, int r0, int own, int first, int n, int rows,
+                                          int* meta, int* list) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    const int2 mine = warp_seg_range(seg_b, r0, own, S);
+    for (int j = warp; j < n; j += warps) {
+        const int2 r = warp_seg_range(seg_b, (first + j) * rows, rows, S);
+        if (lane == 0) list[j] = overlap(mine, r);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        int count = 0;
+        for (int j = 0; j < n; ++j)
+            if (list[j]) list[count++] = first + j;
+        meta[0] = count;
     }
 }

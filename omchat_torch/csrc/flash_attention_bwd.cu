@@ -38,16 +38,13 @@
 // wgmma.  Registers set the block's shape: an SM sub-partition holds 16384,
 // and ptxas allocates within what a thread gets at launch (setmaxnreg did not
 // raise it: measured slower, with more spills).
-//   K16a: a block per (128 q rows, q head, batch): two consumer warpgroups of
-//   64 q rows and one producer warp after them, whose one thread issues the
-//   loads (9 warps: 168 registers a thread, enough for S, P and O).  Q is
-//   loaded once, K/V stream through a 2-stage ring of 128-row tiles.
-//   S = Q K^T is m64n128k16 from shared memory (both K-major); the online
-//   softmax (exp2 domain) runs on the accumulators, and O += P V takes P from
-//   registers (the accumulator layout of S is wgmma's A-register layout) and
-//   V MN-major (the transpose bit).  The heads of one kv head are
-//   neighbouring blocks, so they share each K/V tile through L2; under the
-//   causal mask the last (longest) row tiles launch first.
+//   K16a: the forward mainloop that K1, K2, K5 and K14 run
+//   (flash_fwd_sm90.cuh: a block per (128 q rows, q head, batch), two
+//   consumer warpgroups and a producer warp, Q once and K/V through a 2-stage
+//   ring of 128-row tiles, S and P V by wgmma m64n128k16, an exp2 online
+//   softmax on the accumulators), in its LSE mode (the scores multiplied by
+//   log2 e in fp32, the natural-log lse written, -inf masks) and, for packed
+//   rows, its SEG mode.
 //   K16c: a block per (64 kv rows, kv head, batch), one warpgroup, two blocks
 //   an SM; it holds its K and V in shared memory and dK, dV in fp32
 //   registers (128 a thread; 231-239 in all, no spill: there is no producer
@@ -69,30 +66,20 @@
 // K16b keeps its first design: mma.sync m16n8k16 fed by ldmatrix from padded
 // shared tiles staged synchronously, one warp per (q head, 16 rows).
 #include "common.cuh"
+#include "flash_fwd_sm90.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 constexpr int HD = 128;        // head width (Qwen2-7B, InternViT-6B)
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 constexpr int WG = 128;        // threads of a warpgroup
 constexpr int TILE64 = 64 * HD * 2;    // bytes of a 64-row shared tile
-constexpr int TILE128 = 128 * HD * 2;  // bytes of a 128-row shared tile
 
 // K16b (dQ)
 constexpr int LDS = HD + 8;    // padded smem row: the 8 rows of an ldmatrix land on distinct banks
 constexpr int DQ_KT = 32;      // kv rows per tile
 constexpr int MAX_WARPS = 8;   // block: group x row slices, at most 256 threads
-
-// K16a (forward)
-constexpr int FWD_BM = 128;    // q rows per block (two consumer groups of 64)
-constexpr int FWD_BN = 128;    // kv rows per tile
-constexpr int FWD_STAGES = 2;  // K/V ring: Q 32 KB + 2 x (32 + 32) KB
-constexpr int FWD_K = TILE128;
-constexpr int FWD_V = FWD_K + FWD_STAGES * TILE128;
-constexpr int FWD_BAR = FWD_V + FWD_STAGES * TILE128;  // q_full, full[STAGES], empty[STAGES]
-constexpr int FWD_META = FWD_BAR + 8 * (1 + 2 * FWD_STAGES);
 
 // K16c (dK/dV)
 constexpr int BWD_QT = 64;     // q rows per streamed tile
@@ -171,48 +158,6 @@ __device__ __forceinline__ int2 seg_range(const int* s, int n) {
     return make_int2(lo, hi);
 }
 
-// The same over rows r0..r0+n-1 of global seg_b (rows past S ignored), by
-// one warp; every lane gets the range.
-__device__ __forceinline__ int2 warp_seg_range(const int* seg_b, int r0, int n, int S) {
-    int lo = 1 << 30, hi = -(1 << 30);
-    for (int i = threadIdx.x & 31; i < n; i += 32) {
-        const int x = r0 + i < S ? seg_b[r0 + i] : -1;
-        if (x >= 0) {
-            lo = min(lo, x);
-            hi = max(hi, x);
-        }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-    }
-    return make_int2(lo, hi);
-}
-
-__device__ __forceinline__ bool overlap(int2 a, int2 b) { return a.y >= b.x && a.x <= b.y; }
-
-// With segment ids: the tiles (of `rows` rows, indices first..first+n-1)
-// whose segment range meets that of rows [r0, r0 + own) go to list[0..count),
-// in order; meta[0] = count.  Run by every thread of the block, which must
-// synchronise after it.
-__device__ void list_meeting_tiles(const int* seg_b, int S, int r0, int own, int first, int n, int rows, int* meta,
-                                   int* list) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-    const int2 mine = warp_seg_range(seg_b, r0, own, S);
-    for (int j = warp; j < n; j += warps) {
-        const int2 r = warp_seg_range(seg_b, (first + j) * rows, rows, S);
-        if (lane == 0) list[j] = overlap(mine, r);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        int count = 0;
-        for (int j = 0; j < n; ++j)
-            if (list[j]) list[count++] = first + j;
-        meta[0] = count;
-    }
-}
-
 // s[KT/8][4] = a_frag (16 x HD, in registers) times M^T, M the KT x HD smem tile.
 template <int KT>
 __device__ __forceinline__ void row_times_tile(const uint32_t (&a)[HD / 16][4], const bf16* tile, float (&s)[KT / 8][4]) {
@@ -285,168 +230,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], 
     a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
     a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
     a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
-}
-
-// ---------------------------------------------------------------------------
-// K16a: forward with lse
-// ---------------------------------------------------------------------------
-
-template <bool SEG>
-__global__ void __launch_bounds__(2 * WG + 32, 1)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-                 const __grid_constant__ CUtensorMap map_v, const int* __restrict__ seg, bf16* __restrict__ out,
-                 float* __restrict__ lse, int B, int S, int H, int KVH, int causal) {
-    extern __shared__ unsigned char smem_raw[];
-    unsigned char* sm = aligned_smem(smem_raw);
-    uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + FWD_BAR);
-    uint64_t* full = q_full + 1;
-    uint64_t* empty = full + FWD_STAGES;
-    int* meta = reinterpret_cast<int*>(sm + FWD_META);  // [0]: tiles in the list
-    int* list = meta + 4;
-
-    const int head = blockIdx.x, b = blockIdx.y % B;
-    const int rt = (S + FWD_BM - 1) / FWD_BM - 1 - blockIdx.y / B;  // the last (longest) row tiles first
-    const int r0 = rt * FWD_BM, kvh = head / (H / KVH);
-    const int n_cand = causal ? rt + 1 : (S + FWD_BN - 1) / FWD_BN;  // tiles at or below the diagonal
-    const int tid = threadIdx.x;
-    const int* seg_b = SEG ? seg + (size_t)b * S : nullptr;
-
-    if (tid == 0) {
-        sm90::mbar_init(q_full, 1);
-        for (int s = 0; s < FWD_STAGES; ++s) {
-            sm90::mbar_init(&full[s], 1);
-            sm90::mbar_init(&empty[s], 8);  // one arrival per consumer warp
-        }
-        sm90::mbar_fence_init();
-        if (!SEG) meta[0] = n_cand;
-    }
-    if (SEG) list_meeting_tiles(seg_b, S, r0, FWD_BM, 0, n_cand, FWD_BN, meta, list);
-    __syncthreads();
-    const int n_tiles = meta[0];
-
-    if (tid >= 2 * WG) {  // producer warp: one thread issues every load
-        if (tid == 2 * WG) {
-            sm90::tma_prefetch_map(&map_q);
-            sm90::tma_prefetch_map(&map_k);
-            sm90::tma_prefetch_map(&map_v);
-            sm90::mbar_arrive_expect_tx(q_full, TILE128);
-            for (int h = 0; h < 2; ++h) sm90::tma_load_4d(sm + h * TILE128 / 2, &map_q, q_full, 64 * h, head, r0, b);
-            for (int i = 0; i < n_tiles; ++i) {
-                const int s = i % FWD_STAGES, j = SEG ? list[i] : i;
-                if (i >= FWD_STAGES) sm90::mbar_wait(&empty[s], (i / FWD_STAGES - 1) & 1);
-                sm90::mbar_arrive_expect_tx(&full[s], 2 * TILE128);
-                for (int h = 0; h < 2; ++h) {
-                    sm90::tma_load_4d(sm + FWD_K + s * TILE128 + h * TILE128 / 2, &map_k, &full[s], 64 * h, kvh,
-                                      j * FWD_BN, b);
-                    sm90::tma_load_4d(sm + FWD_V + s * TILE128 + h * TILE128 / 2, &map_v, &full[s], 64 * h, kvh,
-                                      j * FWD_BN, b);
-                }
-            }
-        }
-        return;
-    }
-
-    const int cg = tid / WG;                            // consumer group: q rows w0 .. w0 + 63
-    const int warp = (tid / 32) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int w0 = r0 + 64 * cg, row0 = w0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
-    int sq[2] = {-1, -1};
-    if (SEG) {
-        sq[0] = row0 < S ? seg_b[row0] : -1;
-        sq[1] = row0 + 8 < S ? seg_b[row0 + 8] : -1;
-    }
-    const uint32_t q_tile = smem_addr(sm);
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    float o[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
-
-    sm90::mbar_wait(q_full, 0);
-    for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % FWD_STAGES, c0 = (SEG ? list[i] : i) * FWD_BN;
-        sm90::mbar_wait(&full[s], (i / FWD_STAGES) & 1);
-        if (w0 < S) {  // uniform over the group: a group wholly past S has nothing to do
-            const uint32_t k_tile = smem_addr(sm + FWD_K + s * TILE128);
-            const uint32_t v_tile = smem_addr(sm + FWD_V + s * TILE128);
-            float sc[64];
-#pragma unroll
-            for (int x = 0; x < 64; ++x) sc[x] = 0.f;
-            sm90::wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < HD / 16; ++kk)
-                sm90::wgmma_m64n128k16_ss(sc, sm90::desc_kmajor(q_tile, FWD_BM, 64 * cg, kk),
-                                          sm90::desc_kmajor(k_tile, FWD_BN, 0, kk), kk > 0);
-            sm90::wgmma_commit();
-            sm90::wgmma_wait<0>();
-            sm90::reg_fence(sc);
-
-            const bool masked = SEG || c0 + FWD_BN > S || (causal && c0 + FWD_BN - 1 > w0);
-            float mx[2] = {m[0], m[1]};
-#pragma unroll
-            for (int n = 0; n < 16; ++n) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    float x = sc[4 * n + e] * LOG2E;
-                    if (masked) {
-                        const int col = c0 + 8 * n + 2 * t + (e & 1), row = row0 + 8 * (e >> 1);
-                        bool ok = col < S && (!causal || col <= row);
-                        if (SEG) {
-                            const int sk = col < S ? seg_b[col] : -1;
-                            ok = ok && sk >= 0 && sk == sq[e >> 1];
-                        }
-                        x = ok ? x : -INFINITY;
-                    }
-                    sc[4 * n + e] = x;
-                    mx[e >> 1] = fmaxf(mx[e >> 1], x);
-                }
-            }
-            float alpha[2], base[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-                base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row with no valid column yet keeps p = 0
-                alpha[r] = exp2f(m[r] - base[r]);
-                m[r] = mx[r];
-            }
-#pragma unroll
-            for (int x = 0; x < 64; ++x) {
-                sc[x] = exp2f(sc[x] - base[(x >> 1) & 1]);
-                sum[(x >> 1) & 1] += sc[x];
-            }
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-                sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-                l[r] = alpha[r] * l[r] + sum[r];
-            }
-#pragma unroll
-            for (int x = 0; x < 64; ++x) o[x] *= alpha[(x >> 1) & 1];
-            uint32_t pa[FWD_BN / 16][4];
-#pragma unroll
-            for (int kk = 0; kk < FWD_BN / 16; ++kk) acc_to_a(pa[kk], sc, kk);
-            sm90::wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < FWD_BN / 16; ++kk)
-                sm90::wgmma_m64n128k16_rs(o, pa[kk], sm90::desc_mnmajor(v_tile, FWD_BN, kk), 1);
-            sm90::wgmma_commit();
-            sm90::wgmma_wait<0>();
-            sm90::reg_fence(o);
-        }
-        __syncwarp();
-        if (lane == 0) sm90::mbar_arrive(&empty[s]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 8 * r;
-        if (row >= S) continue;
-        const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-        bf16* op = out + ((size_t)b * S + row) * H * HD + (size_t)head * HD;
-#pragma unroll
-        for (int n = 0; n < 16; ++n)
-            *reinterpret_cast<uint32_t*>(op + 8 * n + 2 * t) = pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
-        if (t == 0) lse[((size_t)b * H + head) * S + row] = l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : -INFINITY;
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -748,7 +531,7 @@ void allow_smem(Kernel kernel, size_t bytes) {
 
 // Tensor maps over [B, S, heads, 128] bf16, read `rows` rows of one head at a time.
 bool rows_map(CUtensorMap* map, const void* x, int B, int S, int heads, int rows) {
-    return sm90::bf16_rows_map(map, x, heads, S, B, HD, (uint64_t)heads * HD, (uint64_t)S * heads * HD, rows);
+    return sm90::rows_map(map, x, 2, heads, S, B, HD, (uint64_t)heads * HD, (uint64_t)S * heads * HD, rows);
 }
 
 }  // namespace
@@ -758,18 +541,23 @@ extern "C" int omchat_flash_attention_fwd(const void* q, const void* k, const vo
                                           void* lse, int B, int S, int H, int KVH, int D, int causal, void* stream) {
     if (bad_shape(B, S, H, KVH, D) || misaligned(q) || misaligned(k) || misaligned(v))
         return (int)cudaErrorInvalidValue;
+    fwd90::Params p{};
+    p.out = (bf16*)out;
+    p.out_row = (long long)H * HD;
+    p.out_batch = (long long)S * H * HD;
+    p.kv_len_all = S;
+    p.B = B, p.S = S, p.H = H, p.KVH = KVH, p.T = S;
+    p.causal = causal;
+    p.q_scale = 1.f;
+    p.mask_value = -INFINITY;
+    p.lse = (float*)lse;
+    p.seg = (const int*)seg;
     CUtensorMap mq, mk, mv;
-    if (!rows_map(&mq, q, B, S, H, FWD_BM) || !rows_map(&mk, k, B, S, KVH, FWD_BN) ||
-        !rows_map(&mv, v, B, S, KVH, FWD_BN))
+    if (!rows_map(&mq, q, B, S, H, fwd90::BM) || !rows_map(&mk, k, B, S, KVH, fwd90::BN) ||
+        !rows_map(&mv, v, B, S, KVH, fwd90::BN))
         return (int)cudaErrorInvalidValue;
-    const int n_rt = (S + FWD_BM - 1) / FWD_BM, n_kv = (S + FWD_BN - 1) / FWD_BN;
-    const size_t smem = 1024 + FWD_META + (4 + n_kv) * sizeof(int);
-    const dim3 grid(H, n_rt * B);
-    auto kernel = seg ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
-    allow_smem(kernel, smem);
-    kernel<<<grid, 2 * WG + 32, smem, (cudaStream_t)stream>>>(mq, mk, mv, (const int*)seg, (bf16*)out, (float*)lse,
-                                                              B, S, H, KVH, causal);
-    return (int)cudaGetLastError();
+    return seg ? fwd90::launch<false, false, true, true>(mq, mk, mv, p, stream)
+               : fwd90::launch<false, false, true, false>(mq, mk, mv, p, stream);
 }
 
 extern "C" int omchat_flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -1,7 +1,10 @@
 // Hopper (sm_90a) building blocks: TMA tile loads completing on mbarriers and
-// wgmma on 128-byte-swizzled shared tiles.  Used by K16a / K16c (flash_attention_bwd.cu) now
-// and meant for K2's forward next.  K13 keeps its own copies of the mbarrier
-// helpers (paged_flash_decode_manual.cu).
+// wgmma on 128-byte-swizzled shared tiles.  Users: K16c
+// (flash_attention_bwd.cu) and the forward mainloop of flash_fwd_sm90.cuh,
+// which K1 and K5 (packed_qkv_norm_attention.cu), K2 (flash_attention.cu),
+// K14 (paged_flash_prefill.cu) and K16a (flash_attention_bwd.cu) run.
+// K13 keeps its own copies of the mbarrier helpers
+// (paged_flash_decode_manual.cu).
 //
 // The shared tile: R rows of a head-width-128 bf16 matrix, stored as two
 // 64-column halves ([2][R][64], half h at h * R * 128 bytes), each written by
@@ -93,6 +96,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Makes this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma operands read from shared memory), before a barrier.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// A barrier among `count` threads (whole warps) of the block on hardware
+// barrier `id` (0 is __syncthreads').
+__device__ __forceinline__ void named_barrier(int id, int count) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -224,19 +237,22 @@ inline EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// A rank-4 bf16 map over x[d3][d2][d1][128] with row strides s1, s2, s3
-// (elements), read in boxes of 64 columns x 1 x `rows` x 1 with the 128-byte
-// swizzle.  Returns false if the driver refuses it.
-inline bool bf16_rows_map(CUtensorMap* map, const void* x, uint64_t d1, uint64_t d2, uint64_t d3, uint64_t s1,
-                          uint64_t s2, uint64_t s3, uint32_t rows) {
+// A rank-4 map over x[d3][d2][d1][128] of `elem_bytes`-byte elements (bf16:
+// 2, e4m3 as uint8: 1) with row strides s1, s2, s3 (elements), read in boxes
+// of 128 bytes of columns x 1 x `rows` x 1 with the 128-byte swizzle.  Returns
+// false if cuTensorMapEncodeTiled refuses it (a base not 16-byte aligned, a stride not a
+// multiple of 16 bytes).
+inline bool rows_map(CUtensorMap* map, const void* x, int elem_bytes, uint64_t d1, uint64_t d2, uint64_t d3,
+                     uint64_t s1, uint64_t s2, uint64_t s3, uint32_t rows) {
     EncodeTiledFn fn = encode_tiled();
     if (!fn) return false;
     const cuuint64_t dims[4] = {128, d1, d2, d3};
-    const cuuint64_t strides[3] = {s1 * 2, s2 * 2, s3 * 2};
-    const cuuint32_t box[4] = {64, 1, rows, 1};
+    const cuuint64_t strides[3] = {s1 * elem_bytes, s2 * elem_bytes, s3 * elem_bytes};
+    const cuuint32_t box[4] = {128u / elem_bytes, 1, rows, 1};
     const cuuint32_t estr[4] = {1, 1, 1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box, estr,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+    const CUtensorMapDataType dt = elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+    return fn(map, dt, 4, const_cast<void*>(x), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

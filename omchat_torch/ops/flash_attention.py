@@ -4,10 +4,11 @@ sibling without the norm (K5) and the causal GQA prefill attention (K2).
 PyTorch port of ``omchat_tpu/ops/flash_attention.py``.  Each kernel comes as
 
 - a wrapper (:func:`packed_qkv_norm_attention`, :func:`packed_self_attention`,
-  :func:`flash_attention`): a
+  :func:`flash_attention`, and K1's first step :func:`qk_norm_prepass`): a
   CPU tensor goes to the plain PyTorch version, a CUDA tensor launches the
   hand-written CUDA kernel (``omchat_torch/csrc/``) or raises — there is no
-  fallback from the kernel to the plain version;
+  fallback from the kernel to the plain version, and an operand that the
+  kernels' TMA tensor maps cannot take is refused by name;
 - the plain version (``*_plain``), which computes the kernel's function
   without tiling: the CPU tests run it and ``chip_smoke.py`` holds the kernel
   against it;
@@ -30,13 +31,14 @@ LOG2E = 1.4426950408889634
 # The JAX kernels' finite mask value (-0.7 * float32 max): a fully masked
 # row never produces inf - inf.
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# C signatures: qkv, rq, rk, gq, gk, out, B, SP, H, D, valid_len, stream /
-# q, k, v, q_scale, out, B, SP, H, D, batch_stride, row_stride, valid_len, stream /
-# q, k, v, out, q_offset, kv_len, B, S, H, KVH, T, D, causal, stream
-_K1_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_K5_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4
-            + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-_K2_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# C signatures: qkv, gq, gk, qkn, rows, HD, eps, stream /
+# q, q row / batch strides, k, ..., v, ..., q_scale, out, B, SP, H, D, valid_len, stream /
+# q, k, v each with its head / row / batch strides, out, q_offset, kv_len, B, S, H, KVH, T, D, causal, stream
+_PREPASS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_PACKED_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_K2_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong] * 3
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def _require_cuda(name: str, *tensors: torch.Tensor, cache=()) -> str:
@@ -54,6 +56,27 @@ def _require_cuda(name: str, *tensors: torch.Tensor, cache=()) -> str:
     if len(dtypes) > 1 or not dtypes <= {torch.bfloat16, E4M3}:
         raise TypeError(f"{name}: the CUDA kernel takes a bfloat16 or e4m3 cache of one dtype, got {dtypes}")
     return "_e4m3" if E4M3 in dtypes else ""
+
+
+def _tma_strides(name: str, what: str, t: torch.Tensor) -> tuple:
+    """The element strides of ``t`` but the last, as the kernels' TMA tensor
+    maps take them; raises, naming the operand, on what a map cannot take: a
+    column stride other than 1, a base not 16-byte aligned, a stride not a
+    multiple of 16 bytes.  A dimension of size 1 gets the stride it would have
+    in a contiguous tensor (its own is never used)."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: {what} needs a unit column stride for TMA, got strides {tuple(t.stride())}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {what}'s base address is not 16-byte aligned, as TMA needs")
+    strides, inner = [], t.shape[-1]
+    for n, st in zip(reversed(t.shape[:-1]), reversed(t.stride()[:-1])):
+        st = st if n > 1 else inner
+        if st * t.element_size() % 16:
+            raise ValueError(f"{name}: {what} has a stride of {st} elements, not a multiple of 16 bytes as TMA needs "
+                             f"(strides {tuple(t.stride())})")
+        strides.append(st)
+        inner = st * n
+    return tuple(reversed(strides))
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +128,61 @@ def qk_norm_stats(qkv: torch.Tensor, q_gamma, k_gamma, eps: float):
     return rq, rk, q_gamma.float().contiguous(), k_gamma.float().contiguous()
 
 
+def qk_norm_prepass_plain(qkv: torch.Tensor, q_gamma, k_gamma, eps: float):
+    """K1's prepass, untiled: qn = (x * rstd_q) * gq and kn = (x * rstd_k) * gk
+    in fp32 over the q and k column blocks of qkv, rounded to qkv's dtype —
+    the values the kernel's QK dot takes.  Returns (qn, kn), [B, SP, H*D]."""
+    HD = qkv.shape[-1] // 3
+    rq, rk, gq, gk = qk_norm_stats(qkv, q_gamma, k_gamma, eps)
+    qn = (qkv[..., :HD].float() * rq[..., None] * gq).to(qkv.dtype)
+    kn = (qkv[..., HD : 2 * HD].float() * rk[..., None] * gk).to(qkv.dtype)
+    return qn, kn
+
+
+def qk_norm_prepass(qkv: torch.Tensor, q_gamma, k_gamma, eps: float):
+    """K1's prepass (``omchat_qk_norm_prepass``): the q and k column blocks of
+    each qkv row normalised and multiplied by their gammas, once.  qkv:
+    [B, SP, 3*H*D]; returns (qn, kn), [B, SP, H*D] each (views of one
+    [2, B, SP, H*D] tensor on CUDA)."""
+    if qkv.device.type == "cpu":
+        return qk_norm_prepass_plain(qkv, q_gamma, k_gamma, eps)
+    _require_cuda("qk_norm_prepass", qkv)
+    B, SP, HD3 = qkv.shape
+    HD = HD3 // 3
+    qkv = qkv.contiguous()
+    gq, gk = q_gamma.float().contiguous(), k_gamma.float().contiguous()
+    if (HD % 8 or HD > 4096 or gq.shape != (HD,) or gk.shape != (HD,)
+            or any(t.data_ptr() % 16 for t in (qkv, gq, gk))):
+        raise ValueError(f"qk_norm_prepass: qkv {tuple(qkv.shape)} / gammas {tuple(gq.shape)} {tuple(gk.shape)} "
+                         "unsupported (H*D a multiple of 8 up to 4096, 16-byte aligned bases)")
+    qkn = torch.empty((2, B, SP, HD), dtype=qkv.dtype, device=qkv.device)
+    kernel_lib.launch(
+        "packed_qkv_norm_attention.cu", "omchat_qk_norm_prepass", _PREPASS_ARGS,
+        *map(kernel_lib.ptr, (qkv, gq, gk, qkn)), B * SP, HD, float(eps), kernel_lib.stream_ptr(qkv.device),
+    )
+    qk_norm_prepass.launches += 1
+    return qkn[0], qkn[1]
+
+
+qk_norm_prepass.launches = 0
+
+
+def _packed_attention(name: str, q, k, v, q_scale: float, num_heads: int, valid_len: int) -> torch.Tensor:
+    """``omchat_packed_attention`` over [B, SP, H*128] q, k, v read in place
+    through their strides: K1's attention (q, k normalised, q_scale 1) and K5."""
+    B, SP, HD = q.shape
+    strides = [_tma_strides(name, what, t) for what, t in (("q", q), ("k", k), ("v", v))]
+    out = torch.empty((B, SP, HD), dtype=q.dtype, device=q.device)
+    args = []
+    for t, (sb, sr) in zip((q, k, v), strides):
+        args += [kernel_lib.ptr(t), sr, sb]
+    kernel_lib.launch(
+        "packed_qkv_norm_attention.cu", "omchat_packed_attention", _PACKED_ARGS, *args, float(q_scale),
+        kernel_lib.ptr(out), B, SP, num_heads, HD // num_heads, valid_len, kernel_lib.stream_ptr(q.device),
+    )
+    return out
+
+
 def packed_qkv_norm_attention(
     qkv: torch.Tensor,
     *,
@@ -118,24 +196,21 @@ def packed_qkv_norm_attention(
 
     qkv: [B, SP, 3*H*D] as the fused qkv matmul writes it; q_gamma must
     already include ``packed_prescale(D)``.  Returns [B, SP, H*D]; rows >=
-    valid_len are garbage."""
+    valid_len are garbage.  On CUDA: the prepass (``qk_norm_prepass``), then
+    the attention over qn, kn and the v block of qkv in place."""
     B, SP, HD3 = qkv.shape
     HD = HD3 // 3
     D = HD // num_heads
     valid_len = SP if valid_len is None else int(valid_len)
-    rq, rk, gq, gk = qk_norm_stats(qkv, q_gamma, k_gamma, eps)
     if qkv.device.type == "cpu":
+        rq, rk, gq, gk = qk_norm_stats(qkv, q_gamma, k_gamma, eps)
         return packed_qkv_norm_attention_plain(qkv, rq, rk, gq, gk, num_heads=num_heads, valid_len=valid_len)
     _require_cuda("packed_qkv_norm_attention", qkv)
     if D != 128 or not 1 <= valid_len <= SP:
         raise ValueError(f"packed_qkv_norm_attention: head_dim {D} / valid_len {valid_len} unsupported")
     qkv = qkv.contiguous()
-    out = torch.empty((B, SP, HD), dtype=qkv.dtype, device=qkv.device)
-    kernel_lib.launch(
-        "packed_qkv_norm_attention.cu", "omchat_packed_qkv_norm_attention", _K1_ARGS,
-        *map(kernel_lib.ptr, (qkv, rq, rk, gq, gk, out)), B, SP, num_heads, D, valid_len,
-        kernel_lib.stream_ptr(qkv.device),
-    )
+    qn, kn = qk_norm_prepass(qkv, q_gamma, k_gamma, eps)
+    out = _packed_attention("packed_qkv_norm_attention", qn, kn, qkv[..., 2 * HD :], 1.0, num_heads, valid_len)
     packed_qkv_norm_attention.launches += 1
     return out
 
@@ -193,16 +268,8 @@ def packed_self_attention(
     if D != 128 or not 1 <= valid_len <= SP or not q.shape == k.shape == v.shape:
         raise ValueError(f"packed_self_attention: head_dim {D} / valid_len {valid_len} / shapes "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)} unsupported")
-    # one element layout for q, k and v: unit inner stride, rows 16-byte aligned
-    if (q.stride(2) != 1 or not q.stride() == k.stride() == v.stride() or q.stride(0) % 8 or q.stride(1) % 8
-            or any(t.data_ptr() % 16 for t in (q, k, v))):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((B, SP, HD), dtype=q.dtype, device=q.device)
-    kernel_lib.launch(
-        "packed_qkv_norm_attention.cu", "omchat_packed_self_attention", _K5_ARGS,
-        *map(kernel_lib.ptr, (q, k, v)), 1.0 if prescaled else packed_prescale(D), kernel_lib.ptr(out),
-        B, SP, num_heads, D, q.stride(0), q.stride(1), valid_len, kernel_lib.stream_ptr(q.device),
-    )
+    out = _packed_attention("packed_self_attention", q, k, v, 1.0 if prescaled else packed_prescale(D), num_heads,
+                            valid_len)
     packed_self_attention.launches += 1
     return out
 
@@ -278,17 +345,19 @@ def flash_attention(
     suffix = _require_cuda("flash_attention", q, cache=(k, v))
     if segment_ids is not None:
         raise NotImplementedError("flash_attention: segment_ids packing has no CUDA kernel yet")
-    if D != 128 or H % KVH != 0 or H // KVH > 8:
-        raise ValueError(f"flash_attention: head_dim {D}, heads {H}/{KVH} unsupported by the CUDA kernel")
+    if D != 128 or H % KVH != 0 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: head_dim {D}, heads {H}/{KVH}, k {tuple(k.shape)} / v {tuple(v.shape)} "
+                         "unsupported by the CUDA kernel")
+    ks, vs = _tma_strides("flash_attention", "k", k), _tma_strides("flash_attention", "v", v)
     qs = _prescale_q(q).contiguous()
-    k, v = k.contiguous(), v.contiguous()
     q_off = per_batch(q_offset, B, T - S, q.device)
     kvl = per_batch(kv_len, B, T, q.device)
     out = torch.empty_like(qs)
     kernel_lib.launch(
         "flash_attention.cu", "omchat_flash_attention" + suffix, _K2_ARGS,
-        *map(kernel_lib.ptr, (qs, k, v, out, q_off, kvl)), B, S, H, KVH, T, D, int(causal),
-        kernel_lib.stream_ptr(q.device),
+        kernel_lib.ptr(qs), D, H * D, S * H * D, kernel_lib.ptr(k), ks[1], ks[2], ks[0],
+        kernel_lib.ptr(v), vs[1], vs[2], vs[0], *map(kernel_lib.ptr, (out, q_off, kvl)), B, S, H, KVH, T, D,
+        int(causal), kernel_lib.stream_ptr(q.device),
     )
     flash_attention.launches += 1
     return out

@@ -49,7 +49,7 @@ from omchat_torch.ops.fp8 import cast_to
 # K15 k_pool, v_pool, pages, k_src, v_src, M, C, stride_g, stride_c, stride_h, KVH, PS, D, stream
 _K4_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _K12_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_K14_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_K14_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _K15_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # The page sizes the CUDA attention kernels (K12, K13, K14) are built for.
 PAGE_SIZES = (16, 32, 64, 128)
@@ -299,7 +299,7 @@ def paged_flash_prefill(
     suffix = _require_cuda("paged_flash_prefill", q, cache=(k_pages, v_pages))
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or k_pages.shape != v_pages.shape:
         raise ValueError("paged_flash_prefill: the pools must be contiguous and of one shape")
-    if D != 128 or PS not in PAGE_SIZES or H % KVH or H // KVH > 8:
+    if D != 128 or PS not in PAGE_SIZES or H % KVH:
         raise ValueError(f"paged_flash_prefill: unsupported shape q={tuple(q.shape)} pool={tuple(k_pages.shape)}")
     qs = _prescale_q(q).contiguous()
     tables = _table_arg(page_tables, q.device)
@@ -309,7 +309,7 @@ def paged_flash_prefill(
     kernel_lib.launch(
         "paged_flash_prefill.cu", "omchat_paged_flash_prefill" + suffix, _K14_ARGS,
         *map(kernel_lib.ptr, (qs, k_pages, v_pages, out, q_off, kvl, tables)),
-        B, C, H, KVH, PS, D, tables.stride(0), tables.shape[1], kernel_lib.stream_ptr(q.device),
+        B, C, H, KVH, PS, D, tables.stride(0), tables.shape[1], k_pages.shape[0], kernel_lib.stream_ptr(q.device),
     )
     paged_flash_prefill.launches += 1
     return out

@@ -622,3 +622,131 @@ def test_flash_decode_kernel_equals_k3_with_the_self_column(gen):
     k6 = da.flash_decode(q, kw, vw, cl + 1)
     torch.cuda.synchronize()
     torch.testing.assert_close(k6.float(), k3.float(), **TOL)
+
+
+# The TMA + wgmma kernels of K2, K1 and K5 (csrc/flash_fwd_sm90.cuh): 128-row
+# q and kv tiles, so q row counts one past a tile, offsets that put the causal
+# diagonal across two kv tiles, row tiles wholly past kv_len (written as
+# zeros without loading anything), and the 64-column ragged last tile.
+@pytest.mark.parametrize(
+    "H,KVH,S,T,q_off,kv_len",
+    [(28, 4, 129, 300, [37, 100], [166, 229]), (14, 2, 257, 400, [100, 37], [357, 250]),
+     (4, 1, 257, 257, [0], [257])],
+    ids=["rows129_offsets37_100", "rows257_offsets100_37", "rows257_group4"],
+)
+def test_flash_attention_kernel_across_kv_tiles(gen, H, KVH, S, T, q_off, kv_len):
+    D = 128
+    B = len(q_off)
+    q, k, v = _randn(gen, B, S, H, D), _randn(gen, B, KVH, T, D), _randn(gen, B, KVH, T, D)
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=True, q_offset=qo, kv_len=kl, kv_format="bntd")
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=qo, kv_len=kl)
+    for b in range(B):
+        rows = min(S, kv_len[b] - q_off[b])
+        torch.testing.assert_close(out[b, :rows].float(), ref[b, :rows].float(), **TOL)
+
+
+@pytest.mark.parametrize("cache", ["bf16", "e4m3"])
+def test_flash_attention_kernel_batched_prefill_skips_padding(gen, cache):
+    """The paged engine's batched short prefill: B=8 x 512 rows at kv_len
+    64-512 and one 0; row tiles wholly past kv_len read zeros."""
+    H, KVH, S, D = 28, 4, 512, 128
+    lens = [64, 100, 128, 129, 300, 0, 511, 512]
+    B = len(lens)
+    q = _randn(gen, B, S, H, D)
+    k, v = _randn(gen, B, KVH, S, D), _randn(gen, B, KVH, S, D)
+    if cache == "e4m3":
+        k, v = to_e4m3(k), to_e4m3(v)
+    qo = torch.zeros(B, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = fa.flash_attention(q, k, v, causal=True, q_offset=qo, kv_len=kl, kv_format="bntd")
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=qo, kv_len=kl)
+    tol = TOL if cache == "bf16" else K2_E4M3_TOL
+    for b, n in enumerate(lens):
+        torch.testing.assert_close(out[b, :n].float(), ref[b, :n].float(), **tol)
+        assert not out[b, (n + 127) // 128 * 128:].any()  # skipped row tiles
+        if n == 0:
+            assert not out[b].any()
+
+
+@pytest.mark.parametrize(
+    "B,S,T,q_off,kv_len",
+    [(1, 3200, 3328, [0], [3187]), (3, 257, 400, [0, 37, 100], [257, 200, 357])],
+    ids=["main_shape", "ragged"],
+)
+def test_flash_attention_kernel_e4m3_tiles(gen, B, S, T, q_off, kv_len):
+    """K2 on an e4m3 cache: TMA stages the bytes, the block widens them once."""
+    H, KVH, D = 28, 4, 128
+    q = _randn(gen, B, S, H, D)
+    k, v = to_e4m3(_randn(gen, B, KVH, T, D)), to_e4m3(_randn(gen, B, KVH, T, D))
+    qo = torch.tensor(q_off, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out = fa.flash_attention(q, k, v, causal=True, q_offset=qo, kv_len=kl, kv_format="bntd")
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=qo, kv_len=kl)
+    for b in range(B):
+        rows = min(S, kv_len[b] - q_off[b])
+        torch.testing.assert_close(out[b, :rows].float(), ref[b, :rows].float(), **K2_E4M3_TOL)
+
+
+@pytest.mark.parametrize("B,SP,valid,H", [(2, 8, 1, 3), (2, 72, 65, 3), (3, 1032, 1025, 25)],
+                         ids=["valid1", "valid65", "valid1025"])
+def test_packed_attention_kernels_at_valid_len(gen, B, SP, valid, H):
+    """K1 (prepass, then the attention over qn / kn and v in place) and K5 at
+    valid_len 1, 65 and the ViT's 1025 (a one-row last kv tile)."""
+    D = 128
+    qkv = _randn(gen, B, SP, 3 * H * D)
+    qg = (1 + 0.1 * _randn(gen, H * D).float()).to(torch.bfloat16) * fa.packed_prescale(D)
+    kg = (1 + 0.1 * _randn(gen, H * D).float()).to(torch.bfloat16)
+    n0, p0 = fa.packed_qkv_norm_attention.launches, fa.qk_norm_prepass.launches
+    out = fa.packed_qkv_norm_attention(qkv, num_heads=H, q_gamma=qg, k_gamma=kg, eps=1e-6, valid_len=valid)
+    qn, kn = fa.qk_norm_prepass(qkv, qg, kg, 1e-6)
+    torch.cuda.synchronize()
+    assert fa.packed_qkv_norm_attention.launches == n0 + 1 and fa.qk_norm_prepass.launches == p0 + 2
+    # the prepass within two bf16 ulps of its plain version (rstd summed in another order)
+    for got, want in zip((qn, kn), fa.qk_norm_prepass_plain(qkv, qg, kg, 1e-6)):
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=8e-3)
+    rq, rk, gq, gk = fa.qk_norm_stats(qkv, qg, kg, 1e-6)
+    ref = fa.packed_qkv_norm_attention_plain(qkv, rq, rk, gq, gk, num_heads=H, valid_len=valid)
+    torch.testing.assert_close(out[:, :valid].float(), ref[:, :valid].float(), **TOL)
+    q, k, v = qkv.chunk(3, dim=-1)
+    out5 = fa.packed_self_attention(q, k, v, num_heads=H, valid_len=valid)
+    torch.cuda.synchronize()
+    ref5 = fa.packed_self_attention_plain(q, k, v, num_heads=H, valid_len=valid)
+    torch.testing.assert_close(out5[:, :valid].float(), ref5[:, :valid].float(), **TOL)
+
+
+def test_flash_attention_kernel_k_and_v_of_different_layouts(gen):
+    """The ViT's split route: q and k normalised into new [B, N, H, D]
+    tensors, v a column block of the fused qkv (row stride 3 H D), each read
+    in place through its own strides."""
+    B, N, H, D = 2, 1025, 25, 128
+    qkv = _randn(gen, B, N, 3 * H * D)
+    q, k = _randn(gen, B, N, H, D), _randn(gen, B, N, H, D)
+    v = qkv[..., 2 * H * D:].view(B, N, H, D)
+    out = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), causal=False, q_offset=None, kv_len=None)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+def test_attention_kernels_refuse_what_tma_cannot_take(gen):
+    """A row stride that is not a multiple of 16 bytes, or a base that is not
+    16-byte aligned, is refused by name before any launch."""
+    H, KVH, S, T, D = 4, 2, 16, 64, 128
+    q = _randn(gen, 1, S, H, D)
+    wide = _randn(gen, 1, KVH, T, D + 4)
+    k, v = wide[..., :D], wide[..., 4:]
+    n0 = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="flash_attention: k has a stride of 132 elements"):
+        fa.flash_attention(q, k, v, causal=True, kv_format="bntd")
+    qkv = _randn(gen, 1, 8 * 3 * H * D + 1)[:, 1:].view(1, 8, 3 * H * D)
+    qq, kk, vv = qkv.chunk(3, dim=-1)
+    with pytest.raises(ValueError, match="packed_self_attention: q's base address is not 16-byte aligned"):
+        fa.packed_self_attention(qq, kk, vv, num_heads=H)
+    assert fa.flash_attention.launches == n0
