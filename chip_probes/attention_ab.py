@@ -1,5 +1,6 @@
-"""K1, K2 (bf16, e4m3, batched prefill), K5, K14 and K16a (the training
-forward, LLM, ViT and packed) at their PERF.md section-6 shapes, timed from
+"""K1, K2 (bf16, e4m3, batched prefill), K5, K14, K16a (the training
+forward, LLM, ViT and packed), K3 (bf16 and e4m3) and K6 at their PERF.md
+section-6 shapes, timed from
 the ``omchat_torch`` package under ``--root``, so that two trees (a parent
 commit unpacked with ``git archive``, and this one) are read on one card in
 one call, in turns: parent, change, change, parent.
@@ -10,8 +11,13 @@ one call, in turns: parent, change, change, parent.
 Each case is the median of 5 readings of 30 launches through the public
 wrapper (K1 with its prepass, or, in a tree before the prepass, with its
 eager statistics; K16a with its ``q * scale`` pass), the cases read in turns
-(``--cases K16a``: only those whose names start so).  Prints one JSON line:
-the card, the label and {case: median ms}.  Needs one NVIDIA GPU.
+(``--cases K16a``: only those whose names start so).  The decode cases walk
+28 layers (K3: the stacked cache, at the 31 decode lengths 3187-3217) or 28
+per-layer caches (K6: length 3188), so that every launch reads from HBM;
+"K3", "K3_e4m3" and "K6" are one call's device time (the 28 calls of a walk
+graphed, ``chip_smoke.graphed``), "... eager" one call issued from the host.
+Prints one JSON line: the card, the label and {case: median ms}.  Needs one
+NVIDIA GPU.
 """
 import argparse
 import json
@@ -30,9 +36,13 @@ def main() -> int:
     ap.add_argument("--label", required=True)
     ap.add_argument("--cases", default="", help="read only the cases whose names start with this")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
+    from chip_smoke import graphed
+
+    from omchat_torch.ops import decode_attention as da
     from omchat_torch.ops import flash_attention as fa
     from omchat_torch.ops import flash_attention_bwd as fb
     from omchat_torch.ops import kernel_lib
@@ -43,7 +53,7 @@ def main() -> int:
         print("attention_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sources = ("flash_attention.cu", "packed_qkv_norm_attention.cu", "paged_flash_prefill.cu",
-               "flash_attention_bwd.cu")
+               "flash_attention_bwd.cu", "flash_decode_stacked.cu")
     kernel_lib.build_all(sources)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -79,6 +89,23 @@ def main() -> int:
     seg = torch.full((1, 4096), -1, **i32)
     for i, (a, b) in enumerate(PACKED_DOCS):
         seg[:, a:b] = i
+    # K3 / K6: one decode token over 28 layers of a [1, 4, 3328, 128] cache, walked in turn
+    L = 28
+    kd, vd = randn(L, 1, KVH, T, D), randn(L, 1, KVH, T, D)
+    kd8, vd8 = to_e4m3(kd), to_e4m3(vd)
+    qd, kn, vn = randn(1, 1, HQ, D), randn(1, KVH, D), randn(1, KVH, D)
+    dlens = [torch.full((1,), KVL + j, **i32) for j in range(31)]
+    len6 = torch.full((1,), KVL + 1, **i32)
+    step = iter(range(10**9))
+
+    def k3(k, v):
+        i = next(step)
+        return da.flash_decode_stacked(qd, k, v, dlens[i % len(dlens)], i % L, kn, vn)
+
+    def k6():
+        i = next(step) % L
+        return da.flash_decode(qd, kd[i], vd[i], len6)
+
     cases = {
         "K1": lambda: fa.packed_qkv_norm_attention(qkv, num_heads=H, q_gamma=qg, k_gamma=kg, eps=1e-6,
                                                    valid_len=VALID),
@@ -92,7 +119,11 @@ def main() -> int:
         "K16a llm": lambda: fb.flash_fwd(qt, kt, vt, True),
         "K16a vit": lambda: fb.flash_fwd(qv, kv, vv, False),
         "K16a packed": lambda: fb.flash_fwd(qp, kp4, vp4, True, seg),
+        "K3 eager": lambda: k3(kd, vd),
+        "K3_e4m3 eager": lambda: k3(kd8, vd8),
+        "K6 eager": k6,
     }
+    graphs = {name.split()[0]: name for name in cases if name.endswith(" eager")}
 
     def time_ms(fn):
         for _ in range(3):
@@ -105,11 +136,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / LAUNCHES
 
+    cases.update({name: graphed(cases[eager], L) for name, eager in graphs.items()})
     cases = {case: fn for case, fn in cases.items() if case.startswith(args.cases)}
     readings = {case: [] for case in cases}
     for _ in range(READINGS):
         for case, fn in cases.items():
-            readings[case].append(time_ms(fn))
+            readings[case].append(time_ms(fn) / (L if case in graphs else 1))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(json.dumps({"card": smi.stdout.strip(), "label": args.label,

@@ -8,11 +8,19 @@
 2. Kernel phases: each kernel of the main path (K1-K4) at the main path's
    shapes, in bf16, held against its plain PyTorch version; kernel, plain,
    library (one PyTorch call computing the same function) and bound times.
-   K1 and K2 (and, in phases 6, 17 and 22, batched K2, e4m3 K2 and K5) are
-   read as phase 13 reads K16: the median of ``READINGS`` readings of 30
-   launches, kernel and library in turns, with the achieved TFLOP/s and the
-   share of the bound; the K1 line also times its prepass alone, and holds
-   it against its plain version (``PREPASS_TOL``, with two planted faults).
+   K1, K2 and K3 (and, in phases 6, 17, 22 and 23, batched K2, e4m3 K2 and
+   K3, K5 and K6) are read as phase 13 reads K16: the median of
+   ``READINGS`` readings of 30 launches, kernel and library in turns, with
+   the achieved TFLOP/s and the share of the bound; the K1 line also times
+   its prepass alone, and holds it against its plain version
+   (``PREPASS_TOL``, with two planted faults).  K3 walks the 28 layers and
+   the decode lengths, so that every launch reads from HBM; a K3 or K6 call
+   takes the card less time than the host takes to issue it, so they and
+   their library calls are read as device time (the 28 calls of a walk
+   captured in a CUDA graph, ``decode_times``) beside the time of a call
+   issued eagerly.  The K3 line gives how the split-KV kernel cut the cache
+   (splits, rows a split, grids); its check plants keys at a split's edge and
+   catches one split's rows dropped.
 3. End to end: ``OmChatConfig()`` at full width and depth (InternViT-6B +
    Qwen2-7B, random bf16 weights from a seeded generator), one 448x448 image
    (3 anyres tiles) and a question, greedy decode of 32 tokens through
@@ -129,8 +137,9 @@
     (S == 1: the token written into the layer cache, K6 over it) against the
     same step through ``decode_scan`` (K3 + K4), bf16 and e4m3 caches; per
     layer, K6 against K3 with the self column on one q; K6 against its plain
-    version at B=16 ragged lengths (cache_len off by one caught) and timed
-    at the request's shape.
+    version at B=16 ragged lengths and at the request's shape, keys planted
+    at a split's edge (cache_len off by one and one split's rows dropped
+    caught), timed at the request's shape over 28 caches walked in turn.
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -171,7 +180,7 @@ ATTN_TOL = {"K1": (4e-3, 1e-2), "K2": (8e-3, 1e-2), "K3": (4e-3, 1e-2),
 # holds it; a planted fault (k's gamma left out, k normalised by q's rstd) must
 # fall outside.
 PREPASS_TOL = (1e-6, 8e-3)  # (atol, rtol)
-# phases 2, 6, 13, 17, 22: a kernel's time is the median of READINGS readings of
+# phases 2, 6, 13, 17, 22, 23: a kernel's time is the median of READINGS readings of
 # READING_LAUNCHES launches, the kernels of a case (and their library call) read in turns
 READINGS, READING_LAUNCHES = 5, 30
 LSE_ATOL = 1e-3  # K16a's fp32 log-sum-exp: exp2 / log2 and sums in another order
@@ -266,6 +275,46 @@ def time_in_turns(fns: dict) -> tuple:
     return {name: sorted(r)[len(r) // 2] for name, r in got.items()}, got
 
 
+def graphed(fn, calls: int):
+    """``calls`` calls of ``fn`` captured once into a CUDA graph (after a
+    warm-up on a side stream); returns the graph's replay.  A replay runs
+    those launches back to back on the card with no host work between them,
+    so its time / ``calls`` is one call's device time, also where the host
+    takes longer to issue a call than the card takes to run it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(calls):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph.replay
+
+
+def decode_times(kernel, library, calls: int) -> tuple:
+    """K3 and K6 (phases 2, 17, 23), whose calls take the card less time than
+    the host takes to issue them: the kernel and its library call read in
+    turns as ``time_in_turns`` reads them, each as one call's device time
+    (``calls`` calls graphed, e.g. a walk over the layers) and as the time of
+    one call issued eagerly ("kernel_eager", "library_eager")."""
+    ms, readings = time_in_turns({"kernel": graphed(kernel, calls), "library": graphed(library, calls),
+                                  "kernel_eager": kernel, "library_eager": library})
+    for name in ("kernel", "library"):
+        ms[name] /= calls
+        readings[name] = [r / calls for r in readings[name]]
+    return ms, readings
+
+
+def eager_text(ms: dict) -> str:
+    return (f" eager_ms={ms['kernel_eager']:.4f} (library {ms['library_eager']:.4f}: a call issued from the host, "
+            f"the device times above from graphed calls)")
+
+
 def rate_text(flops: float, ms: float, b_ms: float, readings: list) -> str:
     """The achieved rate and share of the bound beside a kernel's readings."""
     return (f" tflops={flops / ms / 1e9:.1f} share_of_bound={b_ms / ms:.3f} "
@@ -311,6 +360,31 @@ def _direction(gen, *shape):
     import torch
 
     return (torch.randint(0, 2, shape, generator=gen, device=DEVICE) * 2 - 1).to(torch.bfloat16)
+
+
+def split_edge(B, KVH, T, length) -> tuple:
+    """(splits, rows, edge): how K3 and K6 cut a cache of T rows on this card
+    (``decode_splits``) and a chunk edge below ``length``, near its middle,
+    where phases 2, 17 and 23 plant keys."""
+    import torch
+
+    from omchat_torch.ops.decode_attention import decode_splits
+
+    splits, rows = decode_splits(B, KVH, T, torch.cuda.get_device_properties(0).multi_processor_count)
+    return splits, rows, max(1, length // rows // 2) * rows
+
+
+def split_text(splits, rows, B, KVH, H) -> str:
+    return f" splits={splits}x{rows}rows grid=({splits},{KVH},{B})+merge({H},{B})"
+
+
+def drop_rows(k, v, start, n) -> tuple:
+    """k and v [..., T, D] (widened to bf16: the plain versions read the cache
+    so) without rows start..start+n-1: the planted fault "one split's rows
+    dropped"."""
+    import torch
+
+    return tuple(torch.cat([t[..., :start, :], t[..., start + n:, :]], dim=-2).to(torch.bfloat16) for t in (k, v))
 
 
 # ---------------------------------------------------------------------------
@@ -466,15 +540,16 @@ def kernel_phases(gen, shapes: dict) -> list:
 
     # K3 — decode against the stacked cache [L, B=1, KVH, T, D] at the decode steps'
     # lengths.  Checked at the first step's length LEN: a sink at row 0, 0.8 u at the
-    # last valid row (LEN-1), at the first row past it (LEN) and in the self column.
+    # last valid row (LEN-1), at the first row past it (LEN), at the last row of one
+    # split and the first of the next (the kernel's chunk edge), and in the self column.
     L, lens = cfg.text.num_hidden_layers, shapes["decode_lens"]
     LEN = lens[0]
+    splits, srows, edge = split_edge(1, KVH, T, LEN)
     kc = randn(L, 1, KVH, T, D)
     vc = randn(L, 1, KVH, T, D)
     qd = randn(1, 1, H, D) + u.repeat_interleave(H // KVH, dim=0)
-    kc[:, 0, :, 0] = 0.6 * u
-    kc[:, 0, :, LEN - 1] = 0.8 * u
-    kc[:, 0, :, LEN] = 0.8 * u
+    for row, w in ((0, 0.6), (edge - 1, 0.8), (edge, 0.8), (LEN - 1, 0.8), (LEN, 0.8)):
+        kc[:, 0, :, row] = w * u
     kn_ = (0.8 * u)[None]
     vn_ = randn(1, KVH, D)
     clen = torch.full((1,), LEN, dtype=torch.int32, device=dev)
@@ -489,32 +564,37 @@ def kernel_phases(gen, shapes: dict) -> list:
     faults["self column dropped"] = check_fault_caught(
         "K3", "the self column dropped", da.flash_decode_stacked_plain(qd, kc, vc, clen, L - 1, -10 * kn_, vn_),
         ref, *ATTN_TOL["K3"])
+    faults["one split's rows dropped"] = check_fault_caught(
+        "K3", "one split's rows dropped", da.flash_decode_stacked_plain(
+            qd, *drop_rows(kc[L - 1:], vc[L - 1:], edge, srows), clen - srows, 0, kn_, vn_), ref, *ATTN_TOL["K3"])
     ref_mag = float(ref.float().abs().mean())
     # walk the layers and the decode lengths, so every launch reads its cache from HBM, as decode does
     clens = [torch.full((1,), n, dtype=torch.int32, device=dev) for n in lens]
     it = iter(range(10**9))
+    qs = qd.transpose(1, 2)
 
     def walk(fn):
         i = next(it)
         return fn(qd, kc, vc, clens[i % len(lens)], i % L, kn_, vn_)
-
-    # warm up over every length: the library call plans once per shape
-    k_ms = time_ms(lambda: walk(da.flash_decode_stacked), iters=2 * len(lens), warmup=len(lens))
-    p_ms = time_ms(lambda: walk(da.flash_decode_stacked_plain), iters=len(lens), warmup=len(lens))
-    qs = qd.transpose(1, 2)
 
     def library_decode():
         i = next(it)
         li, n = i % L, lens[i % len(lens)]
         return F.scaled_dot_product_attention(qs, kc[li][:, :, :n], vc[li][:, :, :n], enable_gqa=True)
 
-    lib_ms = time_ms(library_decode, iters=2 * len(lens), warmup=len(lens))
+    for _ in range(len(lens)):  # warm up over every length: the library call plans once per shape
+        walk(da.flash_decode_stacked)
+        library_decode()
+    p_ms = time_ms(lambda: walk(da.flash_decode_stacked_plain), iters=len(lens), warmup=len(lens))
+    ms, readings = decode_times(lambda: walk(da.flash_decode_stacked), library_decode, L)
     mean_len = sum(lens) / len(lens)
     flops = 4.0 * H * D * (mean_len + 1)
     nbytes = (2 * KVH * (mean_len + 1) * D + 2 * H * D) * 2
     rows.append(dict(name="flash_decode_stacked", source="omchat_torch/csrc/flash_decode_stacked.cu",
-                     replaces="omchat_tpu/ops/decode_attention.py:109", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                     library_ms=lib_ms, flops=flops, bytes=nbytes, ref_mean_abs=ref_mag, faults=faults))
+                     replaces="omchat_tpu/ops/decode_attention.py:109", max_abs_err=err, ms=ms["kernel"],
+                     plain_ms=p_ms, library_ms=ms["library"], flops=flops, bytes=nbytes, ref_mean_abs=ref_mag,
+                     faults=faults, readings=readings["kernel"],
+                     extra=split_text(splits, srows, 1, KVH, H) + eager_text(ms)))
 
     # K4 — commit the L new rows into the cache seen as [L*B, KVH, T, D] at the first step's row
     kf = kc.view(L, KVH, T, D)
@@ -2246,10 +2326,11 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
     rows = []
 
     def add(name, source, replaces, got, ref, tol, faults, fns, flops, nbytes, shape, iters, warmup=3,
-            in_turns=False):
+            in_turns=False, graph_calls=0):
         """Check ``got`` against ``ref`` and each planted fault against
         ``ref``; time the kernel, plain and library callables ``fns`` (the
-        kernel and library ``in_turns``: medians of ``time_in_turns``)."""
+        kernel and library ``in_turns``: medians of ``time_in_turns``, or
+        of ``decode_times`` over ``graph_calls`` graphed calls)."""
         err = check_close(name, got, ref, *tol)
         caught = {f: check_fault_caught(name, f, bad, ref, *tol) for f, bad in faults.items()}
         k_fn, p_fn, lib_fn = fns
@@ -2258,9 +2339,11 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
                    plain_ms=time_ms(p_fn, iters=p_it, warmup=1), faults=caught, shape=shape)
         row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
         if in_turns:
-            ms, readings = time_in_turns({"kernel": k_fn, "library": lib_fn})
+            ms, readings = (decode_times(k_fn, lib_fn, graph_calls) if graph_calls
+                            else time_in_turns({"kernel": k_fn, "library": lib_fn}))
             row.update(ms=ms["kernel"], library_ms=ms["library"],
-                       rate=rate_text(flops, ms["kernel"], row["bound_ms"], readings["kernel"]))
+                       rate=rate_text(flops, ms["kernel"], row["bound_ms"], readings["kernel"])
+                       + (eager_text(ms) if graph_calls else ""))
         else:
             row.update(ms=time_ms(k_fn, iters=k_it, warmup=warmup),
                        library_ms=time_ms(lib_fn, iters=k_it, warmup=warmup) if lib_fn else None)
@@ -2459,10 +2542,10 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
     # lengths, phase 2's keys and faults; K4 (e4m3) commits the step's rows.
     lens3 = shapes["decode_lens"]
     LEN = lens3[0]
+    splits, srows, edge = split_edge(1, KVH, T, LEN)
     kc, vc = _randn(gen, L, 1, KVH, T, D), _randn(gen, L, 1, KVH, T, D)
-    kc[:, 0, :, 0] = 0.6 * u
-    kc[:, 0, :, LEN - 1] = 0.8 * u
-    kc[:, 0, :, LEN] = 0.8 * u
+    for row, w in ((0, 0.6), (edge - 1, 0.8), (edge, 0.8), (LEN - 1, 0.8), (LEN, 0.8)):
+        kc[:, 0, :, row] = w * u
     kc, vc = to_e4m3(kc), to_e4m3(vc)
     qd = _randn(gen, 1, 1, H, D) + uq
     kn_, vn_ = (0.8 * u)[None], _randn(gen, 1, KVH, D)
@@ -2486,15 +2569,20 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
         li, n = i % L, lens3[i % len(lens3)]
         return F.scaled_dot_product_attention(qds, kc[li][:, :, :n].to(bf), vc[li][:, :, :n].to(bf), enable_gqa=True)
 
+    for _ in range(len(lens3)):  # warm up over every length: the library call plans once per shape
+        walk3(da.flash_decode_stacked)
+        k3_library()
     mean_len = sum(lens3) / len(lens3)
     add("flash_decode_stacked[e4m3]", "omchat_torch/csrc/flash_decode_stacked.cu",
         "omchat_tpu/ops/decode_attention.py:109", out, k3_plain(), ATTN_TOL["K3"],
         {"cache_len-1": k3_plain(cache_len=clen - 1), "cache_len+1": k3_plain(cache_len=clen + 1),
-         "the self column dropped": k3_plain(k_new=-10 * kn_)},
+         "the self column dropped": k3_plain(k_new=-10 * kn_),
+         "one split's rows dropped": da.flash_decode_stacked_plain(
+             qd, *drop_rows(kc[L - 1:], vc[L - 1:], edge, srows), clen - srows, 0, kn_, vn_)},
         (lambda: walk3(da.flash_decode_stacked), lambda: walk3(da.flash_decode_stacked_plain), k3_library),
         4.0 * H * D * (mean_len + 1), 2 * KVH * (mean_len + 1) * D + 2 * H * D * 2,
-        f"T={T} cache_len={lens3[0]}..{lens3[-1]}", (2 * len(lens3), len(lens3)),
-        warmup=len(lens3))  # warm up over every length: the library call plans once per shape
+        f"T={T} cache_len={lens3[0]}..{lens3[-1]}, {L} layers walked;{split_text(splits, srows, 1, KVH, H)}",
+        (None, len(lens3)), in_turns=True, graph_calls=L)
 
     kf, vf = kc.view(L, KVH, T, D), vc.view(L, KVH, T, D)
     pages = torch.arange(L, **i32)
@@ -3005,8 +3093,10 @@ def decode_layer_cache(gen, cfg, params, seed: int) -> tuple:
     K4) on a copy of the cache; bf16 and e4m3 caches.  Per layer of the real
     cache, K6 (cache_len + 1) against K3 (cache_len, self column) on the same
     q.  Then K6 against its plain version at B=16 ragged lengths (1, 512,
-    3189, ...) with keys planted at the length boundary and a cache_len off
-    by one that must fall outside, and K6's time at the request's shape.
+    3189, ...) and at the request's shape, with keys planted at the length
+    boundary and at a chunk edge of the split; a cache_len off by one and one
+    split's rows dropped must fall outside.  K6's time at the request's
+    shape, over ``L`` caches walked in turn, in turns with its SDPA call.
     Returns (result, K6's row)."""
     import torch
     import torch.nn.functional as F
@@ -3077,17 +3167,20 @@ def decode_layer_cache(gen, cfg, params, seed: int) -> tuple:
         raise AssertionError(f"K6 launched {launches} times in a {L}-layer decode step through cache_attend")
 
     # K6 against its plain version: B=16 ragged lengths, keys planted at each
-    # length's last valid row and the first row past it.
+    # length's last valid row and the first row past it, and at a chunk edge.
     lens = [1, 2, 17, 128, 512, 640, 1000, 1024, 1536, 2047, 2048, 2500, 3000, 3188, 3189, 3328]
     B, T = len(lens), 3328
     u = _direction(gen, KVH, D)
     q = _randn(gen, B, 1, H, D) + u.repeat_interleave(H // KVH, dim=0)
     kc, vc = _randn(gen, B, KVH, T, D), _randn(gen, B, KVH, T, D)
+    splits16, srows16, _ = split_edge(B, KVH, T, T)
     for b, n in enumerate(lens):
         kc[b, :, 0] = 0.6 * u
         kc[b, :, n - 1] = 0.8 * u
         if n < T:
             kc[b, :, n] = 0.8 * u
+        if srows16 < T:
+            kc[b, :, srows16 - 1] = kc[b, :, srows16] = 0.8 * u
     cl = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
     out = da.flash_decode(q, kc, vc, cl)
     torch.cuda.synchronize()
@@ -3095,26 +3188,50 @@ def decode_layer_cache(gen, cfg, params, seed: int) -> tuple:
     err = check_close("K6 flash_decode [B=16 ragged]", out, ref, *ATTN_TOL["K3"])
     faults = {f"cache_len{d:+d}": check_fault_caught("K6", f"cache_len{d:+d}", da.flash_decode_plain(
         q, kc, vc, (cl + d).clamp(1, T)), ref, *ATTN_TOL["K3"]) for d in (-1, 1)}
-    log(f"kernel flash_decode [B=16 lengths {lens[0]}..{lens[-1]}]: max_abs_err={err:.3g}" + "".join(
-        f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in faults.items()))
+    log(f"kernel flash_decode [B=16 lengths {lens[0]}..{lens[-1]};{split_text(splits16, srows16, B, KVH, H)}]: "
+        f"max_abs_err={err:.3g}" + "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in faults.items()))
     del kc, vc, out, ref
-    # time at the request's shape: one request, its cache (T rows), length n + 1
+    # at the request's shape: one request, length n + 1 of T rows, over L caches walked in
+    # turn so that every launch reads from HBM; phase 2's keys, at a chunk edge too
     n = int(wp[0]) + 1
-    kc, vc = _randn(gen, 1, KVH, T, D), _randn(gen, 1, KVH, T, D)
-    q1 = _randn(gen, 1, 1, H, D)
+    splits, srows, edge = split_edge(1, KVH, T, n)
+    kcs, vcs = _randn(gen, L, 1, KVH, T, D), _randn(gen, L, 1, KVH, T, D)
+    for row, w in ((0, 0.6), (edge - 1, 0.8), (edge, 0.8), (n - 1, 0.8), (n, 0.8)):
+        kcs[:, 0, :, row] = w * u
+    q1 = _randn(gen, 1, 1, H, D) + u.repeat_interleave(H // KVH, dim=0)
     c1 = torch.full((1,), n, dtype=torch.int32, device=DEVICE)
+    out = da.flash_decode(q1, kcs[0], vcs[0], c1)
+    torch.cuda.synchronize()
+    ref = da.flash_decode_plain(q1, kcs[0], vcs[0], c1)
+    err = max(err, check_close("K6 flash_decode [B=1]", out, ref, *ATTN_TOL["K3"]))
+    faults = {f"cache_len{d:+d}": check_fault_caught("K6", f"cache_len{d:+d}", da.flash_decode_plain(
+        q1, kcs[0], vcs[0], c1 + d), ref, *ATTN_TOL["K3"]) for d in (-1, 1)}
+    faults["one split's rows dropped"] = check_fault_caught("K6", "one split's rows dropped", da.flash_decode_plain(
+        q1, *drop_rows(kcs[0], vcs[0], edge, srows), c1 - srows), ref, *ATTN_TOL["K3"])
+    it = iter(range(10**9))
     qs = q1.transpose(1, 2)
+
+    def walk(fn):
+        i = next(it) % L
+        return fn(q1, kcs[i], vcs[i], c1)
+
+    def library():
+        i = next(it) % L
+        return F.scaled_dot_product_attention(qs, kcs[i][:, :, :n], vcs[i][:, :, :n], enable_gqa=True)
+
+    ms, readings = decode_times(lambda: walk(da.flash_decode), library, L)
     row = dict(name="flash_decode", source="omchat_torch/csrc/flash_decode_stacked.cu",
-               replaces="omchat_tpu/ops/decode_attention.py:198", max_abs_err=err,
-               ms=time_ms(lambda: da.flash_decode(q1, kc, vc, c1), iters=100),
-               plain_ms=time_ms(lambda: da.flash_decode_plain(q1, kc, vc, c1)),
-               library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, kc[:, :, :n], vc[:, :, :n],
-                                                                         enable_gqa=True), iters=100))
-    row["bound_ms"], row["bound_by"] = bound_ms(4.0 * H * D * n, (2 * KVH * n * D + 2 * H * D) * 2 + 4)
-    log(f"kernel flash_decode [B=1 T={T} cache_len={n}]: kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-        f"library_ms={row['library_ms']:.4f} (SDPA over the valid rows) bound_ms={row['bound_ms']:.4f} "
-        f"({row['bound_by']})")
-    del kc, vc
+               replaces="omchat_tpu/ops/decode_attention.py:198", max_abs_err=err, ms=ms["kernel"],
+               plain_ms=time_ms(lambda: walk(da.flash_decode_plain)), library_ms=ms["library"])
+    flops = 4.0 * H * D * n
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, (2 * KVH * n * D + 2 * H * D) * 2 + 4)
+    log(f"kernel flash_decode [B=1 T={T} cache_len={n}, {L} caches walked]: kernel_ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} (SDPA over the valid rows) "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
+        f"{rate_text(flops, row['ms'], row['bound_ms'], readings['kernel'])}"
+        f"{split_text(splits, srows, 1, KVH, H)}{eager_text(ms)} max_abs_err={err:.3g}"
+        + "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in faults.items()))
+    del kcs, vcs, out, ref
     torch.cuda.empty_cache()
     return res, row
 

@@ -6,7 +6,7 @@
 // cudaGetLastError() right after the launch; the Python wrapper raises when
 // that is not cudaSuccess.
 //
-// The paged decode kernels (K12, K13: attend_tile below) and K16b use the
+// The decode kernels (K3, K6, K12, K13: attend_tile below) and K16b use the
 // warp-level tensor-core product mma.sync.m16n8k16 (bf16 in, fp32
 // accumulate); K1, K2, K5, K14, K16a and K16c use wgmma (sm90.cuh).
 // Fragment layouts, with g = lane / 4 and t = lane % 4:
@@ -148,16 +148,18 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], 
 //   qa     the warp's q fragments, D/16 k-steps of 4 registers, already in the
 //          exp2 domain (softmax scale and log2 e folded into q);
 //   ks, vs the tile's K and V rows in shared memory as stored (bf16 or e4m3,
-//          widened to bf16 in registers), row stride `ld` elements;
+//          widened to bf16 in registers), row stride `ld` elements; the warp
+//          computes DV of the D output columns (all by default), those of V
+//          from `vs` on (the split-KV decode kernels give each warp a slice);
 //   mask   mask(row_half, col_in_tile, s) -> the score to use (the caller's
 //          masking rule, applied to every element);
 //   m, l   running row max and row sum (fp32), acc the fp32 output rows.
 //
 // exp2 softmax as in the JAX kernels: p = exp2(s - m_new), l accumulates the
 // unrounded fp32 p, the PV product takes p rounded to bf16.
-template <int D, int KV_TILE, typename T, typename Mask>
+template <int D, int KV_TILE, int DV = D, typename T, typename Mask>
 __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], const T* ks, const T* vs, int ld,
-                                            float (&m)[2], float (&l)[2], float (&acc)[D / 8][4], Mask mask) {
+                                            float (&m)[2], float (&l)[2], float (&acc)[DV / 8][4], Mask mask) {
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
@@ -208,7 +210,7 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], con
         l[r] = alpha[r] * l[r] + sum[r];
     }
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < DV / 8; ++dt) {
         acc[dt][0] *= alpha[0];
         acc[dt][1] *= alpha[0];
         acc[dt][2] *= alpha[1];
@@ -225,7 +227,7 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], con
         const T* v0 = vs + (kk * 16 + 2 * t) * ld;
         const T* v8 = vs + (kk * 16 + 8 + 2 * t) * ld;
 #pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
+        for (int dt = 0; dt < DV / 8; ++dt) {
             const int col = dt * 8 + g;
             uint32_t b0 = pack_pair(v0[col], v0[ld + col]);
             uint32_t b1 = pack_pair(v8[col], v8[ld + col]);
@@ -326,6 +328,165 @@ __device__ __forceinline__ void merge_fold_store(float* smem, const float (&m)[2
         }
         ob[(size_t)r * D + d] = __float2bfloat16(lsum == 0.f ? 0.f : a / lsum);
     }
+}
+
+// ---------------------------------------------------------------------------
+// Split-KV decode (K3, K6; written for K12 and K13 as well): the cache's rows
+// are cut into chunks, a block of a chunk writes its q rows' fp32 softmax
+// state (store_split_state), and a second kernel merges the chunks of each q
+// row (combine_splits).  A state row is m and l (exp2 domain) and acc [D],
+// unnormalised, relative to m.
+// ---------------------------------------------------------------------------
+
+// One warp's share of a split block's state, after its last tile: the
+// rows g < group (the GQA group, at most 8: the mma tile's rows g + 8 are
+// padding) of its DV output columns from `col0` on, into acc_out[r * D + d];
+// with `ml`, also m_out[r] and l_out[r].
+template <int D, int DV>
+__device__ __forceinline__ void store_split_state(const float (&m)[2], const float (&l)[2],
+                                                  const float (&acc)[DV / 8][4], int group, int col0, bool ml,
+                                                  float* m_out, float* l_out, float* acc_out) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    if (g >= group) return;
+#pragma unroll
+    for (int dt = 0; dt < DV / 8; ++dt)
+        *reinterpret_cast<float2*>(acc_out + (size_t)g * D + col0 + dt * 8 + 2 * t) =
+            make_float2(acc[dt][0], acc[dt][1]);
+    if (ml && t == 0) {
+        m_out[g] = m[0];
+        l_out[g] = l[0];
+    }
+}
+
+// The merge across split blocks for one q row, called by every thread of a
+// block of NW warps: the states of n splits (m_part[s * stride], l_part[s *
+// stride], acc_part[s * stride * D + d]; a split that saw no column has m =
+// -inf and its acc is never read into the sums).  Warp w takes splits w PER
+// .. w PER + PER - 1, then w PER + NW PER ..., every load of a pass issued
+// before its sums, merges them in split order against its running max; then
+// warp 0 merges the warps in warp order: a fixed order, so the result is
+// bitwise the same from launch to launch.  Then the self column (q_row .
+// k_row, v_row; none when k_row is null) folds in after the merge, as
+// omchat_tpu/ops/online_softmax.py:64 fold_self_column follows the last tile,
+// its p rounded to bf16 for its product; the row is normalised
+// (normalize_output :76: a row with no column at all writes zeros) into o_row
+// [D] bf16.  smem: NW (D + 2) floats, 16-byte aligned.  Launch its kernel
+// as a programmatic dependent of the split kernel (launch_merge_dependent).
+template <int D, int NW, int PER>
+__device__ __forceinline__ void combine_splits(float* smem, const float* m_part, const float* l_part,
+                                               const float* acc_part, int n, int stride, const bf16* q_row,
+                                               const bf16* k_row, const bf16* v_row, bf16* o_row, float scale_log2) {
+    static_assert(D == 128, "a lane holds four columns, one float4");
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int c = lane * 4;
+    float qf[4], kf[4], vf[4];  // the self column's operands, which no split block writes
+    if (warp == 0 && k_row != nullptr)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            qf[i] = __bfloat162float(q_row[c + i]);
+            kf[i] = __bfloat162float(k_row[c + i]);
+            vf[i] = __bfloat162float(v_row[c + i]);
+        }
+    // Launched as a programmatic dependent of the split kernel, the block may
+    // start before that kernel ends: wait here until its stores are visible
+    // (a no-op otherwise).
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+    float mw = -INFINITY, lw = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s0 = warp * PER; s0 < n; s0 += NW * PER) {
+        float ms[PER], ls[PER];
+        float4 x[PER];
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+            const bool in = s0 + j < n;
+            const size_t s = (size_t)(s0 + j) * stride;
+            ms[j] = in ? m_part[s] : -INFINITY;
+            ls[j] = in ? l_part[s] : 0.f;
+            x[j] = in ? *reinterpret_cast<const float4*>(acc_part + s * D + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        float mb = mw;
+#pragma unroll
+        for (int j = 0; j < PER; ++j) mb = fmaxf(mb, ms[j]);
+        if (mb == -INFINITY) continue;
+        const float sc = exp2f(mw - mb);  // mw = -inf (nothing yet): 0
+        lw *= sc;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] *= sc;
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+            if (ms[j] == -INFINITY) continue;  // an empty split: its acc is not a number to add
+            const float e = exp2f(ms[j] - mb);
+            lw += ls[j] * e;
+            a[0] += x[j].x * e;
+            a[1] += x[j].y * e;
+            a[2] += x[j].z * e;
+            a[3] += x[j].w * e;
+        }
+        mw = mb;
+    }
+    float* m_s = smem;           // [NW]
+    float* l_s = m_s + NW;       // [NW]
+    float* a_s = l_s + NW;       // [NW][D]
+    if (lane == 0) {
+        m_s[warp] = mw;
+        l_s[warp] = lw;
+    }
+    *reinterpret_cast<float4*>(a_s + warp * D + c) = make_float4(a[0], a[1], a[2], a[3]);
+    __syncthreads();
+    if (warp != 0) return;
+
+    float mg = -INFINITY;
+    for (int w = 0; w < NW; ++w) mg = fmaxf(mg, m_s[w]);
+    float lsum = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int w = 0; w < NW; ++w) {
+        if (m_s[w] == -INFINITY) continue;  // a warp that held no split with a column
+        const float e = exp2f(m_s[w] - mg);
+        const float4 x = *reinterpret_cast<const float4*>(a_s + w * D + c);
+        lsum += l_s[w] * e;
+        o[0] += x.x * e;
+        o[1] += x.y * e;
+        o[2] += x.z * e;
+        o[3] += x.w * e;
+    }
+    if (k_row != nullptr) {
+        float s = qf[0] * kf[0] + qf[1] * kf[1] + qf[2] * kf[2] + qf[3] * kf[3];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+        s *= scale_log2;
+        const float m_new = fmaxf(mg, s);
+        const float alpha = exp2f(mg - m_new);  // mg = -inf (no cached row): 0
+        const float p = exp2f(s - m_new);
+        const float pb = __bfloat162float(__float2bfloat16(p));
+        lsum = lsum * alpha + p;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[i] = o[i] * alpha + pb * vf[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o_row[c + i] = __float2bfloat16(lsum == 0.f ? 0.f : o[i] / lsum);
+}
+
+// Launch the merge kernel right behind the split kernel on `stream` as its
+// programmatic dependent: the merge blocks start while the split blocks
+// finish (the split kernel lets them: trigger_merge_launch) and wait in
+// combine_splits for the split kernel's stores.
+__device__ __forceinline__ void trigger_merge_launch() { asm volatile("griddepcontrol.launch_dependents;\n" ::); }
+
+template <typename... Params, typename... Args>
+cudaError_t launch_merge_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, cudaStream_t stream,
+                                   Args... args) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = block;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 // ---------------------------------------------------------------------------

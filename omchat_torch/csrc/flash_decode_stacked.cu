@@ -6,7 +6,7 @@
 // flash_decode_stacked (body _decode_kernel_stacked :86, pallas_call :185;
 // the fold is omchat_tpu/ops/online_softmax.py:64 fold_self_column).
 // K6 replaces omchat_tpu/ops/decode_attention.py:198 flash_decode (body
-// _decode_kernel :38, pallas_call :260): the kernel below with SELF = false,
+// _decode_kernel :38, pallas_call :260): the kernels below with SELF = false,
 // entry omchat_flash_decode[_e4m3]:
 //   q [B, H, D] bf16, k/v cache [B, KVH, T, D] bf16 or e4m3, cache_len [B]
 //   int32 valid rows INCLUDING the new token, out [B, H, D] bf16; a request
@@ -20,217 +20,208 @@
 //   cache_len    [B] int32 valid rows in the cache, EXCLUDING the new token
 //   k_new/v_new  [B, KVH, D] bf16 the in-flight token's K/V
 //   out          [B, H, D] bf16
+// Both take `scratch`, fp32 [B * H * splits * (D + 2)] from the wrapper, and
+// the split: `splits` chunks of `rows` rows (a multiple of 64) covering T
+// (ops/decode_attention.py:decode_splits, chosen on the host from T, B, KVH
+// and the SM count, never from the lengths on the card).
 //
-// Softmax in the natural-exp domain with scale D^-0.5, as the TPU kernel does;
-// p is rounded to bf16 for the PV product, l sums the fp32 p.  An e4m3 cache
-// is widened to fp32 on load (exact), and p and the bf16 self column are not
-// rounded to it, as the TPU kernel casts K/V to q's dtype
-// (decode_attention.py:66,72).
+// What bounds it on the H100: bytes.  At the main path's ~3.2k cached rows a
+// layer reads ~6.8 MB of K/V (3328 x 4 kv heads x 128 x 2 bytes, K and V) for
+// ~1.6 MFLOP: 0.0020 ms at 3.35 TB/s.
 //
-// What bounds it on the H100: bytes.  At the main path's ~3.1k cached rows a
-// layer reads ~6.4 MB of K/V for ~1.6 MFLOP, ~2 us at 3.35 TB/s.  Design: one
-// block per (batch, kv head), 16 warps striding over the cache rows; each
-// warp keeps an online softmax per q head of the group (lane owns D/32
-// columns), then the warps merge their states through shared memory in a
-// fixed order and warp 0 folds the self column and writes the group's heads.
-// At B=1 that is only KVH=4 blocks on 132 SMs, so it runs far from the byte
-// bound; splitting the cache across blocks is later work.  K6 has K3's bound
-// (the same bytes but the self column) and its design.
+// Design (split-KV).  The TPU kernel walks 512-row tiles of one (batch, kv
+// head) in order on one core (grid (B, KVH, T / block_k)).  Here the rows are
+// cut into chunks and every chunk is a block of its own: grid (splits, KVH,
+// B), 2 warps, 208 blocks on the 132 SMs at B = 1 (52 chunks of 64 rows).  A
+// block issues all of its chunk's 16-byte cp.async copies at once (64 rows x
+// 256 B of K and of V, 32 KiB in bf16, one stage; a longer chunk streams
+// 64-row stages double-buffered), rows past the request's length
+// zero-filled, and a chunk wholly past it loads nothing and writes an empty
+// state (m = -inf, l = 0), as the TPU kernel's index map clamps the tail
+// (decode_attention.py:14-16).  The GQA group's q rows are one mma.sync row
+// tile (attend_tile, as K12).  Both warps score all 64 columns of a stage
+// (the same scores, max and sums in each) and each computes its own 64 of
+// the 128 output columns, so the warps need no merge (scoring twice cost
+// less than a merge through shared memory, and two warps less than four):
+// each writes its columns of the block's fp32 (m, l, acc) into the scratch
+// [B, KVH, splits, group] (store_split_state).  A second kernel, launched from the same entry on the
+// same stream as the first one's programmatic dependent (its blocks start
+// while the split blocks finish, and wait for their stores), one block of 8
+// warps a q head, merges the head's splits in a fixed order (combine_splits
+// in common.cuh, so every launch gives the same bits), then folds K3's self
+// column in after the merge, as fold_self_column follows the last tile, and
+// normalises.
+//
+// Numerics: fp32 scores in the exp2 domain (D^-0.5 * log2 e folded into the
+// score), p rounded to bf16 for the P V product, l summing the unrounded fp32
+// p.  p is rounded against its chunk's own maximum, as the TPU kernel rounds
+// against the running maximum of its 512-row tiles: the same kind of
+// rounding.  An e4m3 cache is staged as stored (128 B a row, 16 values a
+// 16-byte copy) and widened to bf16 in registers (exact); p and the bf16 self
+// column are not rounded to e4m3, as the TPU kernel casts K/V to q's dtype
+// (decode_attention.py:66,72).  K6 has K3's bound (the same bytes but the
+// self column) and its design.
 #include "common.cuh"
 
 namespace {
 
-constexpr int WARPS = 16;
-constexpr int MAX_GROUP = 8;
+constexpr int TILE = 64;         // cache rows a stage; a chunk's rows are a multiple of it
+constexpr int WARPS = 2;         // warps of a split block
+constexpr int MAX_GROUP = 8;     // q rows of the mma tile that are not padding
+constexpr int MERGE_WARPS = 8;   // warps of a merge block (one q head)
+constexpr int MERGE_PER = 8;     // splits a merge warp loads in one pass
 
-template <int D, typename E, bool SELF>
+// The scratch: for n = B * KVH * splits * group partial rows (row
+// ((b * KVH + kvh) * splits + split) * group + gi), acc [n, D] first, then
+// m [n], then l [n], all fp32.
+
+template <int D, typename E>
 __global__ void __launch_bounds__(32 * WARPS)
-flash_decode_stacked_kernel(const bf16* __restrict__ q, const E* __restrict__ k_cache,
-                            const E* __restrict__ v_cache, const int* __restrict__ cache_len, int layer,
-                            const bf16* __restrict__ k_new, const bf16* __restrict__ v_new, bf16* __restrict__ out,
-                            int B, int KVH, int T, int group, float sm_scale) {
-    constexpr int PER = D / 32;  // columns owned by a lane
-    __shared__ float q_s[MAX_GROUP][D];
-    __shared__ float m_s[WARPS][MAX_GROUP];
-    __shared__ float l_s[WARPS][MAX_GROUP];
-    __shared__ float acc_s[MAX_GROUP][D];
+decode_split_kernel(const bf16* __restrict__ q, const E* __restrict__ k_cache, const E* __restrict__ v_cache,
+                    const int* __restrict__ cache_len, int layer, float* __restrict__ scratch, int B, int KVH, int T,
+                    int group, int rows, float scale_log2) {
+    constexpr int VEC = 16 / (int)sizeof(E);  // elements a 16-byte copy
+    constexpr int LD = D + VEC;               // padded shared row (bank spread), 16-byte aligned
+    constexpr int STAGE = 2 * TILE * LD;      // K and V of one stage, elements
+    constexpr int DV = D / WARPS;             // output columns a warp
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    E* buf = reinterpret_cast<E*>(smem_raw);
 
-    const int kvh = blockIdx.x;
-    const int b = blockIdx.y;
+    trigger_merge_launch();  // the merge blocks may start; they wait for these stores
+    const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+    const int splits = gridDim.x;
     const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int H = KVH * group;
-    const int d0 = lane * PER;
-
-    for (int i = threadIdx.x; i < group * D; i += blockDim.x) {
-        const int gi = i / D, d = i % D;
-        q_s[gi][d] = __bfloat162float(q[((size_t)b * H + kvh * group + gi) * D + d]);
-    }
-    for (int i = threadIdx.x; i < MAX_GROUP * D; i += blockDim.x) acc_s[i / D][i % D] = 0.f;
-    __syncthreads();
-
-    float qr[MAX_GROUP][PER];
-#pragma unroll
-    for (int gi = 0; gi < MAX_GROUP; ++gi)
-#pragma unroll
-        for (int i = 0; i < PER; ++i) qr[gi][i] = gi < group ? q_s[gi][d0 + i] : 0.f;
-
-    float m[MAX_GROUP], l[MAX_GROUP], acc[MAX_GROUP][PER];
-#pragma unroll
-    for (int gi = 0; gi < MAX_GROUP; ++gi) {
-        m[gi] = -INFINITY;
-        l[gi] = 0.f;
-#pragma unroll
-        for (int i = 0; i < PER; ++i) acc[gi][i] = 0.f;
+    const size_t n = (size_t)B * KVH * splits * group;
+    const size_t r0 = (((size_t)b * KVH + kvh) * splits + split) * group;  // the block's first partial row
+    float* m_out = scratch + n * D + r0;
+    float* l_out = m_out + n;
+    const int len = min(cache_len[b], T);
+    const int c_begin = split * rows;
+    const int c_end = min(c_begin + rows, len);
+    if (c_begin >= c_end) {  // the chunk lies past the request's length
+        for (int gi = threadIdx.x; gi < group; gi += blockDim.x) {
+            m_out[gi] = -INFINITY;
+            l_out[gi] = 0.f;
+        }
+        return;
     }
 
-    const size_t plane = (((size_t)layer * B + b) * KVH + kvh) * T * D;
+    const size_t plane = (((size_t)layer * B + b) * KVH + kvh) * (size_t)T * D;
     const E* kc = k_cache + plane;
     const E* vc = v_cache + plane;
-    const int len = min(cache_len[b], T);
+    const int n_tiles = (c_end - c_begin + TILE - 1) / TILE;
+    auto stage = [&](int t, int s) {
+        E* kd = buf + s * STAGE;
+        E* vd = kd + TILE * LD;
+        for (int idx = threadIdx.x; idx < TILE * (D / VEC); idx += blockDim.x) {
+            const int r = idx / (D / VEC), c = (idx % (D / VEC)) * VEC;
+            const int row = c_begin + t * TILE + r;
+            const bool valid = row < c_end;  // else zero-filled: past the length or the chunk
+            const size_t src = valid ? (size_t)row * D + c : 0;
+            cp_async16_zfill(kd + r * LD + c, kc + src, valid);
+            cp_async16_zfill(vd + r * LD + c, vc + src, valid);
+        }
+        cp_async_commit();
+    };
+    stage(0, 0);
 
-    for (int r = warp; r < len; r += WARPS) {
-        float kf[PER], vf[PER];
+    const int H = KVH * group;
+    uint32_t qa[D / 16][4];
+    load_q_group<D>(qa, q + ((size_t)b * H + (size_t)kvh * group) * D, group);
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    float acc[DV / 8][4];
 #pragma unroll
-        for (int i = 0; i < PER; ++i) {
-            kf[i] = to_f32(kc[(size_t)r * D + d0 + i]);
-            vf[i] = to_f32(vc[(size_t)r * D + d0 + i]);
-        }
-#pragma unroll
-        for (int gi = 0; gi < MAX_GROUP; ++gi) {
-            if (gi >= group) break;
-            float s = 0.f;
-#pragma unroll
-            for (int i = 0; i < PER; ++i) s += qr[gi][i] * kf[i];
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-            s *= sm_scale;
-            const float m_new = fmaxf(m[gi], s);
-            const float alpha = __expf(m[gi] - m_new);
-            const float p = __expf(s - m_new);
-            const float pb = __bfloat162float(__float2bfloat16(p));
-            l[gi] = l[gi] * alpha + p;
-#pragma unroll
-            for (int i = 0; i < PER; ++i) acc[gi][i] = acc[gi][i] * alpha + pb * vf[i];
-            m[gi] = m_new;
-        }
-    }
+    for (int dt = 0; dt < DV / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
 
-    // Merge the warps' states: global max first, then each warp adds its
-    // rescaled share in warp order (deterministic).
-    if (lane == 0)
-#pragma unroll
-        for (int gi = 0; gi < MAX_GROUP; ++gi) {
-            m_s[warp][gi] = m[gi];
-            l_s[warp][gi] = l[gi];
-        }
-    __syncthreads();
-    float mg[MAX_GROUP], lg[MAX_GROUP], scale[MAX_GROUP];
-#pragma unroll
-    for (int gi = 0; gi < MAX_GROUP; ++gi) {
-        mg[gi] = -INFINITY;
-        for (int w = 0; w < WARPS; ++w) mg[gi] = fmaxf(mg[gi], m_s[w][gi]);
-        lg[gi] = 0.f;
-        for (int w = 0; w < WARPS; ++w)
-            if (m_s[w][gi] != -INFINITY) lg[gi] += l_s[w][gi] * __expf(m_s[w][gi] - mg[gi]);
-        scale[gi] = m[gi] == -INFINITY ? 0.f : __expf(m[gi] - mg[gi]);
-    }
-    // (every loop over the group is unrolled to MAX_GROUP with a guard, so the
-    // per-head arrays stay in registers instead of local memory)
-    for (int w = 0; w < WARPS; ++w) {
-        if (warp == w) {
-#pragma unroll
-            for (int gi = 0; gi < MAX_GROUP; ++gi)
-                if (gi < group)
-#pragma unroll
-                    for (int i = 0; i < PER; ++i) acc_s[gi][d0 + i] += acc[gi][i] * scale[gi];
+    for (int t = 0; t < n_tiles; ++t) {
+        if (t + 1 < n_tiles) {
+            stage(t + 1, (t + 1) & 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
         __syncthreads();
+        // every warp scores all of the stage's columns and keeps DV columns of the output
+        const int c0 = c_begin + t * TILE;
+        const E* ks = buf + (t & 1) * STAGE;
+        auto mask = [&](int, int col, float s) { return c0 + col < c_end ? s * scale_log2 : OMCHAT_MASK_VALUE; };
+        attend_tile<D, TILE, DV>(qa, ks, ks + TILE * LD + warp * DV, LD, m, l, acc, mask);
+        __syncthreads();  // the buffer is free for the stage after next
     }
+    // m and l are the same in every warp (the same scores in the same order): warp 0 writes them
+    store_split_state<D, DV>(m, l, acc, group, warp * DV, warp == 0, m_out, l_out, scratch + r0 * D);
+}
 
-    // Without a self column (K6): normalise, warp 0 only; a row that saw no
-    // column writes zeros.
-    if (!SELF && warp == 0) {
-#pragma unroll
-        for (int gi = 0; gi < MAX_GROUP; ++gi) {
-            if (gi >= group) break;
-            const float inv = lg[gi] == 0.f ? 0.f : 1.f / lg[gi];
-            bf16* o = out + ((size_t)b * H + kvh * group + gi) * D;
-#pragma unroll
-            for (int i = 0; i < PER; ++i) o[d0 + i] = __float2bfloat16(acc_s[gi][d0 + i] * inv);
-        }
-    }
-    // Self column (the in-flight token), then normalise: warp 0 only.
-    if (SELF && warp == 0) {
-        const bf16* kn = k_new + ((size_t)b * KVH + kvh) * D;
-        const bf16* vn = v_new + ((size_t)b * KVH + kvh) * D;
-#pragma unroll
-        for (int gi = 0; gi < MAX_GROUP; ++gi) {
-            if (gi >= group) break;
-            float s = 0.f;
-#pragma unroll
-            for (int i = 0; i < PER; ++i) s += qr[gi][i] * __bfloat162float(kn[d0 + i]);
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-            s *= sm_scale;
-            const float m_new = fmaxf(mg[gi], s);
-            const float alpha = __expf(mg[gi] - m_new);
-            const float p = __expf(s - m_new);
-            const float pb = __bfloat162float(__float2bfloat16(p));
-            const float l_new = lg[gi] * alpha + p;
-            const float inv = 1.f / l_new;
-            bf16* o = out + ((size_t)b * H + kvh * group + gi) * D;
-#pragma unroll
-            for (int i = 0; i < PER; ++i) {
-                const float a = acc_s[gi][d0 + i] * alpha + pb * __bfloat162float(vn[d0 + i]);
-                o[d0 + i] = __float2bfloat16(a * inv);
-            }
-        }
-    }
+template <int D, bool SELF>
+__global__ void __launch_bounds__(32 * MERGE_WARPS)
+decode_merge_kernel(const float* __restrict__ scratch, const bf16* __restrict__ q, const bf16* __restrict__ k_new,
+                    const bf16* __restrict__ v_new, bf16* __restrict__ out, int B, int KVH, int splits, int group,
+                    float scale_log2) {
+    __shared__ __align__(16) float smem[MERGE_WARPS * (D + 2)];
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int H = KVH * group, kvh = h / group, gi = h % group;
+    const size_t n = (size_t)B * KVH * splits * group;
+    const size_t r = ((size_t)b * KVH + kvh) * splits * group + gi;  // split 0's partial row of this head
+    const size_t kv = ((size_t)b * KVH + kvh) * D;
+    combine_splits<D, MERGE_WARPS, MERGE_PER>(smem, scratch + n * D + r, scratch + n * D + n + r, scratch + r * D,
+                                              splits, group, q + ((size_t)b * H + h) * D,
+                                              SELF ? k_new + kv : nullptr, SELF ? v_new + kv : nullptr,
+                                              out + ((size_t)b * H + h) * D, scale_log2);
 }
 
 template <int D, typename E, bool SELF>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* cache_len, int layer,
-           const void* k_new, const void* v_new, void* out, int B, int KVH, int T, int D_arg, int group,
-           void* stream) {
+           const void* k_new, const void* v_new, void* out, void* scratch, int B, int KVH, int T, int D_arg,
+           int group, int splits, int rows, void* stream) {
     if (group < 1 || group > MAX_GROUP) return (int)cudaErrorInvalidValue;
     if (D_arg != D) return (int)cudaErrorInvalidValue;
+    if (splits < 1 || rows < TILE || rows % TILE != 0 || (long long)splits * rows < T)
+        return (int)cudaErrorInvalidValue;
     if (B == 0) return 0;
-    const float sm_scale = 1.f / sqrtf((float)D);
-    dim3 grid(KVH, B);
-    flash_decode_stacked_kernel<D, E, SELF><<<grid, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-        (const bf16*)q, (const E*)k_cache, (const E*)v_cache, (const int*)cache_len, layer, (const bf16*)k_new,
-        (const bf16*)v_new, (bf16*)out, B, KVH, T, group, sm_scale);
-    return (int)cudaGetLastError();
+    constexpr size_t smem = 2 * 2 * (size_t)TILE * (D + 16 / sizeof(E)) * sizeof(E);  // two stages of K and V
+    cudaFuncSetAttribute(decode_split_kernel<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+    cudaStream_t s = (cudaStream_t)stream;
+    decode_split_kernel<D, E><<<dim3(splits, KVH, B), 32 * WARPS, smem, s>>>(
+        (const bf16*)q, (const E*)k_cache, (const E*)v_cache, (const int*)cache_len, layer, (float*)scratch, B, KVH,
+        T, group, rows, scale_log2);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_merge_dependent(decode_merge_kernel<D, SELF>, dim3(KVH * group, B), dim3(32 * MERGE_WARPS), s,
+                                       (const float*)scratch, (const bf16*)q, (const bf16*)k_new, (const bf16*)v_new,
+                                       (bf16*)out, B, KVH, splits, group, scale_log2);
 }
 
 }  // namespace
 
 extern "C" int omchat_flash_decode_stacked(const void* q, const void* k_cache, const void* v_cache,
                                            const void* cache_len, int layer, const void* k_new, const void* v_new,
-                                           void* out, int B, int KVH, int T, int D, int group, void* stream) {
-    return launch<128, bf16, true>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group,
-                                   stream);
+                                           void* out, void* scratch, int B, int KVH, int T, int D, int group,
+                                           int splits, int rows, void* stream) {
+    return launch<128, bf16, true>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, scratch, B, KVH, T, D,
+                                   group, splits, rows, stream);
 }
 
 extern "C" int omchat_flash_decode_stacked_e4m3(const void* q, const void* k_cache, const void* v_cache,
                                                 const void* cache_len, int layer, const void* k_new,
-                                                const void* v_new, void* out, int B, int KVH, int T, int D, int group,
-                                                void* stream) {
-    return launch<128, e4m3, true>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group,
-                                   stream);
+                                                const void* v_new, void* out, void* scratch, int B, int KVH, int T,
+                                                int D, int group, int splits, int rows, void* stream) {
+    return launch<128, e4m3, true>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, scratch, B, KVH, T, D,
+                                   group, splits, rows, stream);
 }
 
 // K6: the per-layer cache [B, KVH, T, D] is layer 0 of a one-layer stack.
 extern "C" int omchat_flash_decode(const void* q, const void* k_cache, const void* v_cache, const void* cache_len,
-                                   void* out, int B, int KVH, int T, int D, int group, void* stream) {
-    return launch<128, bf16, false>(q, k_cache, v_cache, cache_len, 0, nullptr, nullptr, out, B, KVH, T, D, group,
-                                    stream);
+                                   void* out, void* scratch, int B, int KVH, int T, int D, int group, int splits,
+                                   int rows, void* stream) {
+    return launch<128, bf16, false>(q, k_cache, v_cache, cache_len, 0, nullptr, nullptr, out, scratch, B, KVH, T, D,
+                                    group, splits, rows, stream);
 }
 
 extern "C" int omchat_flash_decode_e4m3(const void* q, const void* k_cache, const void* v_cache,
-                                        const void* cache_len, void* out, int B, int KVH, int T, int D, int group,
-                                        void* stream) {
-    return launch<128, e4m3, false>(q, k_cache, v_cache, cache_len, 0, nullptr, nullptr, out, B, KVH, T, D, group,
-                                    stream);
+                                        const void* cache_len, void* out, void* scratch, int B, int KVH, int T, int D,
+                                        int group, int splits, int rows, void* stream) {
+    return launch<128, e4m3, false>(q, k_cache, v_cache, cache_len, 0, nullptr, nullptr, out, scratch, B, KVH, T, D,
+                                    group, splits, rows, stream);
 }

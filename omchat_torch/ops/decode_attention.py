@@ -9,24 +9,55 @@ CUDA source (``omchat_torch/csrc/flash_decode_stacked.cu``):
 - K6 :func:`flash_decode` (``:198 flash_decode``): a per-layer cache that
   already holds the new token, no self column.
 
-Each wrapper sends a CPU tensor to its plain version (``*_plain``) and
-launches its kernel on a CUDA tensor, or raises; ``<wrapper>.launches`` counts
-the kernel launches.
+Both kernels split the cache's rows over blocks (split-KV): the wrapper cuts
+the T rows into :func:`decode_splits` chunks on the host, and one call
+launches a kernel that attends each chunk and a second that merges the
+chunks' softmax states.  Each wrapper sends a CPU tensor to its plain version
+(``*_plain``) and launches its kernels on a CUDA tensor, or raises;
+``<wrapper>.launches`` counts the calls that launched them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from omchat_torch.ops import kernel_lib
 from omchat_torch.ops.flash_attention import _require_cuda
 
-# C signatures: q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, B, KVH, T, D, group, stream /
-# q, k_cache, v_cache, cache_len, out, B, KVH, T, D, group, stream
-_K3_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_K6_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# C signatures: q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, scratch, B, KVH, T, D, group, splits,
+# rows, stream / q, k_cache, v_cache, cache_len, out, scratch, B, KVH, T, D, group, splits, rows, stream
+_K3_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_K6_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+SPLIT_ROWS = 64  # a split's rows are a multiple of this (the kernel's tile)
+
+
+def decode_splits(B: int, KVH: int, T: int, num_sms: int) -> tuple:
+    """How the kernels cut a cache of capacity ``T`` rows: ``(splits, rows)``,
+    ``splits`` chunks of ``rows`` rows (a multiple of ``SPLIT_ROWS``; the last
+    chunk may be shorter) covering rows 0..T-1 once each.  A chunk is as few
+    tiles as still give the grid of B x KVH x splits blocks one block for each
+    of the card's ``num_sms`` SMs (all of T in one chunk when the batch's
+    kv heads alone fill the card, or T is one tile).
+    It reads only the capacity, never the lengths, which live on the card."""
+    tiles = max(1, -(-T // SPLIT_ROWS))
+    rows = min(tiles, max(1, tiles * B * KVH // num_sms)) * SPLIT_ROWS
+    return max(1, -(-T // rows)), rows
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_args(q, B, KVH, T, D):
+    """(scratch, splits, rows) for one call: the fp32 partial states
+    [B, KVH, splits, group] x (D + 2) that the merge reads."""
+    splits, rows = decode_splits(B, KVH, T, _num_sms(q.device.index))
+    scratch = torch.empty(B * q.shape[2] * splits * (D + 2), dtype=torch.float32, device=q.device)
+    return scratch, splits, rows
 
 
 def flash_decode_stacked_plain(q, k_cache, v_cache, cache_len, layer: int, k_new, v_new):
@@ -83,10 +114,12 @@ def flash_decode_stacked(
     kn, vn = k_new.contiguous(), v_new.contiguous()
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device).expand(B).contiguous()
     out = torch.empty_like(qc)
+    scratch, splits, rows = _split_args(q, B, KVH, T, D)
     kernel_lib.launch(
         "flash_decode_stacked.cu", "omchat_flash_decode_stacked" + suffix, _K3_ARGS,
-        *map(kernel_lib.ptr, (qc, k_cache, v_cache, lens)), int(layer), *map(kernel_lib.ptr, (kn, vn, out)),
-        B, KVH, T, D, H // KVH, kernel_lib.stream_ptr(q.device),
+        *map(kernel_lib.ptr, (qc, k_cache, v_cache, lens)), int(layer),
+        *map(kernel_lib.ptr, (kn, vn, out, scratch)), B, KVH, T, D, H // KVH, splits, rows,
+        kernel_lib.stream_ptr(q.device),
     )
     flash_decode_stacked.launches += 1
     return out
@@ -137,9 +170,11 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, 
     qc, kc, vc = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device).expand(B).contiguous()
     out = torch.empty_like(qc)
+    scratch, splits, rows = _split_args(q, B, KVH, T, D)
     kernel_lib.launch(
         "flash_decode_stacked.cu", "omchat_flash_decode" + suffix, _K6_ARGS,
-        *map(kernel_lib.ptr, (qc, kc, vc, lens, out)), B, KVH, T, D, H // KVH, kernel_lib.stream_ptr(q.device),
+        *map(kernel_lib.ptr, (qc, kc, vc, lens, out, scratch)), B, KVH, T, D, H // KVH, splits, rows,
+        kernel_lib.stream_ptr(q.device),
     )
     flash_decode.launches += 1
     return out

@@ -35,9 +35,11 @@ and K14 over bf16 and e4m3 pools at the bf16 tolerance, and K12 / K13 at
 page size 32 bitwise equal to page size 128 on the same logical cache.  K10
 (gate / up + silu * up + quantize) at M not a tile multiple and M <= 16:
 codes as K9's; K5 (packed attention without qk-norm) on the qkv chunk views,
-prescaled and not; K6 (decode over a per-layer cache) at ragged lengths, a
-length of 0 and an e4m3 cache, and against K3 with the self column on the
-same step (the bf16 tolerance).
+prescaled and not; K3 and K6 (the split-KV decode kernels) over bf16 and
+e4m3 caches at ragged lengths, lengths 0 and 1, at a chunk's edges (chunk -
+1, chunk, chunk + 1) and T, 16 ragged requests, K3 at layer 27 of a 28-layer
+stack, with keys planted at every chunk edge, two launches bitwise equal;
+K6 against K3 with the self column on the same step (the bf16 tolerance).
 """
 
 import pytest
@@ -112,19 +114,54 @@ def test_flash_attention_kernel(gen, H, KVH, S, T, q_off, kv_len, causal, fmt):
         torch.testing.assert_close(out[b, :rows].float(), ref[b, :rows].float(), **TOL)
 
 
-@pytest.mark.parametrize("H,KVH,lens,layer", [(28, 4, [0], 0), (28, 4, [3110], 27), (4, 2, [1, 200], 1),
-                                              (14, 2, [255, 17], 2)],
-                         ids=["empty", "main_shape", "group2", "group7_ragged"])
-def test_flash_decode_stacked_kernel(gen, H, KVH, lens, layer):
-    D = 128
-    B, T = len(lens), 3328 if max(lens) > 256 else 256
-    L = max(3, layer + 1)
-    q = _randn(gen, B, 1, H, D)
+# The split-KV decode kernels (K3, K6): phase 23's 16 ragged lengths, and
+# lengths at a chunk's edges ("edges": 0, 1, chunk - 1, chunk, chunk + 1, T,
+# with the chunk that decode_splits gives this card at B = 6).
+B16_LENS = [1, 2, 17, 128, 512, 640, 1000, 1024, 1536, 2047, 2048, 2500, 3000, 3188, 3189, 3328]
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _decode_case(gen, H, KVH, lens, T, L, cache):
+    """q [B, 1, H, D] carrying its kv head's direction u, a cache [L, B, KVH,
+    T, D] whose rows at every chunk edge (the last row of a split and the
+    first of the next) hold 0.8 u, so that they take most of each row's
+    softmax, and the lengths."""
+    D, B = 128, len(lens)
+    rows = da.decode_splits(B, KVH, T, _sms())[1]
+    u = (torch.randint(0, 2, (KVH, D), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    q = _randn(gen, B, 1, H, D) + u.repeat_interleave(H // KVH, dim=0)
     kc, vc = _randn(gen, L, B, KVH, T, D), _randn(gen, L, B, KVH, T, D)
-    kn, vn = _randn(gen, B, KVH, D), _randn(gen, B, KVH, D)
-    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for e in range(rows, T, rows):
+        kc[:, :, :, e - 1] = kc[:, :, :, e] = 0.8 * u
+    if cache == "e4m3":
+        kc, vc = to_e4m3(kc), to_e4m3(vc)
+    return q, kc, vc, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def _edge_lens(KVH, T):
+    rows = da.decode_splits(6, KVH, T, _sms())[1]
+    return [0, 1, rows - 1, rows, rows + 1, T]
+
+
+@pytest.mark.parametrize("cache", ["bf16", "e4m3"])
+@pytest.mark.parametrize("H,KVH,lens,layer", [(28, 4, [0], 0), (28, 4, [3110], 27), (4, 2, [1, 200], 1),
+                                              (14, 2, [255, 17], 2), (28, 4, "edges", 1), (28, 4, B16_LENS, 27)],
+                         ids=["empty", "main_shape", "group2", "group7_ragged", "chunk_edges", "B16_ragged"])
+def test_flash_decode_stacked_kernel(gen, H, KVH, lens, layer, cache):
+    """K3 against its plain version, and two launches bitwise equal (the
+    splits merge in a fixed order)."""
+    D = 128
+    T = 3328 if lens == "edges" or max(lens) > 256 else 256
+    lens = _edge_lens(KVH, T) if lens == "edges" else lens
+    q, kc, vc, cl = _decode_case(gen, H, KVH, lens, T, max(3, layer + 1), cache)
+    kn, vn = _randn(gen, len(lens), KVH, D), _randn(gen, len(lens), KVH, D)
     out = da.flash_decode_stacked(q, kc, vc, cl, layer, kn, vn)
+    again = da.flash_decode_stacked(q, kc, vc, cl, layer, kn, vn)
     torch.cuda.synchronize()
+    assert torch.equal(out, again)
     ref = da.flash_decode_stacked_plain(q, kc, vc, cl, layer, kn, vn)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
 
@@ -587,20 +624,22 @@ def test_packed_self_attention_kernel(gen, B, SP, valid, H, prescaled):
 
 
 @pytest.mark.parametrize("cache", ["bf16", "e4m3"])
-@pytest.mark.parametrize("H,KVH,lens", [(28, 4, [3188]), (28, 4, [0, 1, 512, 1000]), (4, 2, [200, 77])],
-                         ids=["main_shape", "ragged_zero_one_tile", "group2"])
+@pytest.mark.parametrize("H,KVH,lens", [(28, 4, [3188]), (28, 4, [0, 1, 512, 1000]), (4, 2, [200, 77]),
+                                        (28, 4, "edges"), (28, 4, B16_LENS)],
+                         ids=["main_shape", "ragged_zero_one_tile", "group2", "chunk_edges", "B16_ragged"])
 def test_flash_decode_kernel(gen, H, KVH, lens, cache):
-    D = 128
-    B, T = len(lens), max(256, -(-max(lens) // 128) * 128)
-    q = _randn(gen, B, 1, H, D)
-    kc, vc = _randn(gen, B, KVH, T, D), _randn(gen, B, KVH, T, D)
-    if cache == "e4m3":
-        kc, vc = to_e4m3(kc), to_e4m3(vc)
-    cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    """K6 against its plain version, zeros at length 0, and two launches
+    bitwise equal."""
+    T = 3328 if lens == "edges" or max(lens) > 256 else 256
+    lens = _edge_lens(KVH, T) if lens == "edges" else lens
+    q, kc, vc, cl = _decode_case(gen, H, KVH, lens, T, 1, cache)
+    kc, vc = kc[0], vc[0]
     n0 = da.flash_decode.launches
     out = da.flash_decode(q, kc, vc, cl)
+    again = da.flash_decode(q, kc, vc, cl)
     torch.cuda.synchronize()
-    assert da.flash_decode.launches == n0 + 1
+    assert da.flash_decode.launches == n0 + 2
+    assert torch.equal(out, again)
     torch.testing.assert_close(out.float(), da.flash_decode_plain(q, kc, vc, cl).float(), **TOL)
     for b, n in enumerate(lens):
         if n == 0:
