@@ -1,5 +1,6 @@
 """K1, K2 (bf16, e4m3, batched prefill), K5, K14, K16a (the training
-forward, LLM, ViT and packed), K3 (bf16 and e4m3) and K6 at their PERF.md
+forward, LLM, ViT and packed), K16b (the training dQ, the same three), K3
+(bf16 and e4m3), K6 and K13 (bf16 and e4m3 pools) at their PERF.md
 section-6 shapes, timed from
 the ``omchat_torch`` package under ``--root``, so that two trees (a parent
 commit unpacked with ``git archive``, and this one) are read on one card in
@@ -10,16 +11,23 @@ one call, in turns: parent, change, change, parent.
 
 Each case is the median of 5 readings of 30 launches through the public
 wrapper (K1 with its prepass, or, in a tree before the prepass, with its
-eager statistics; K16a with its ``q * scale`` pass), the cases read in turns
-(``--cases K16a``: only those whose names start so).  The decode cases walk
-28 layers (K3: the stacked cache, at the 31 decode lengths 3187-3217) or 28
-per-layer caches (K6: length 3188), so that every launch reads from HBM;
-"K3", "K3_e4m3" and "K6" are one call's device time (the 28 calls of a walk
-graphed, ``chip_smoke.graphed``), "... eager" one call issued from the host.
-Prints one JSON line: the card, the label and {case: median ms}.  Needs one
-NVIDIA GPU.
+eager statistics; K16a with its ``q * scale`` pass; K16b given the
+backward's prescaled q where its wrapper takes one, ``q_scaled``), the cases
+read in turns (``--cases K16a,K3``: only those whose names start so).  The
+decode cases walk 28 layers (K3: the stacked cache, at the 31 decode lengths
+3187-3217; K13: a layered page pool at the serving workload's mid-decode
+point, 16 requests of 64-2455 rows over 32-page tables) or 28 per-layer
+caches (K6: length 3188), so that every launch reads from HBM; "K3",
+"K3_e4m3", "K6", "K13" and "K13_e4m3" are one call's device time (the 28
+calls of a walk graphed, ``chip_smoke.graphed``), "... eager" one call
+issued from the host.  ``--k13-rows 256,512`` also reads K13 (graphed, bf16
+pool) with its chunks set to each of those row counts ("K13 rows=256"), to
+choose the split.  Prints one JSON line: the card, the label and {case:
+median ms}.  Needs one NVIDIA GPU.
 """
 import argparse
+import functools
+import inspect
 import json
 import os
 import subprocess
@@ -28,13 +36,19 @@ import sys
 READINGS, LAUNCHES = 5, 30
 BATCHED_KV_LEN = [349, 293, 429, 355, 473, 336, 499, 391]  # the serving run's largest batched prefill
 PACKED_DOCS = ((0, 700), (700, 1900), (1900, 2600), (2600, 3900))  # chip_smoke.py's packed K16 case, 4096 rows
+# K13: 16 decoding requests at the serving workload's mid-decode point (13471 cached rows in all, as the
+# busiest roll of chip_smoke.py's phase 5 holds them), tables of 32 pages of 128 rows
+K13_LENGTHS = [2455, 1960, 64, 310, 1475, 130, 705, 1010, 95, 1190, 400, 880, 512, 260, 620, 1405]
+K13_WIDTH, K13_POOL_PAGES = 32, 192
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", required=True, help="directory holding the omchat_torch package to time")
     ap.add_argument("--label", required=True)
-    ap.add_argument("--cases", default="", help="read only the cases whose names start with this")
+    ap.add_argument("--cases", default="", help="read only the cases whose names start with one of these "
+                                                 "comma-separated prefixes")
+    ap.add_argument("--k13-rows", default="", help="comma-separated chunk rows at which to read K13 as well")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, os.path.abspath(args.root))
@@ -53,7 +67,7 @@ def main() -> int:
         print("attention_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sources = ("flash_attention.cu", "packed_qkv_norm_attention.cu", "paged_flash_prefill.cu",
-               "flash_attention_bwd.cu", "flash_decode_stacked.cu")
+               "flash_attention_bwd.cu", "flash_decode_stacked.cu", "paged_flash_decode_manual.cu")
     kernel_lib.build_all(sources)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -89,8 +103,38 @@ def main() -> int:
     seg = torch.full((1, 4096), -1, **i32)
     for i, (a, b) in enumerate(PACKED_DOCS):
         seg[:, a:b] = i
-    # K3 / K6: one decode token over 28 layers of a [1, 4, 3328, 128] cache, walked in turn
+    # K16b: the same three shapes, lse and di from the forward
+    takes_qs = "q_scaled" in inspect.signature(fb.flash_bwd_dq).parameters
+    bwd = {}
+    for case, (q_, k_, v_, causal, sg) in {"llm": (qt, kt, vt, True, None), "vit": (qv, kv, vv, False, None),
+                                            "packed": (qp, kp4, vp4, True, seg)}.items():
+        do_ = randn(*q_.shape)
+        out_, lse_ = fb.flash_fwd(q_, k_, v_, causal, sg)
+        kw = {"q_scaled": fb._prescaled(q_)} if takes_qs else {}
+        bwd[case] = (q_, k_, v_, do_, lse_, fb.flash_di(do_, out_), causal, sg, kw)
+        del out_
+    # K13: the layered pool [L, P+1, KVH, 128, D] seen flat, each request's pages scattered, walked by layer
     L = 28
+    NP = K13_POOL_PAGES + 1
+    kpool, vpool = randn(L * NP, KVH, 128, D), randn(L * NP, KVH, 128, D)
+    kpool8, vpool8 = to_e4m3(kpool), to_e4m3(vpool)
+    perm = torch.randperm(K13_POOL_PAGES, generator=torch.Generator().manual_seed(1)).tolist()
+    tab13 = torch.full((len(K13_LENGTHS), K13_WIDTH), K13_POOL_PAGES, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(K13_LENGTHS):
+        live = -(-n // 128)
+        tab13[b, :live] = torch.tensor(perm[used:used + live], dtype=torch.int32)
+        used += live
+    tab13 = tab13.cuda()
+    len13 = torch.tensor(K13_LENGTHS, **i32)
+    B13 = len(K13_LENGTHS)
+    q13, kn13, vn13 = randn(B13, 1, HQ, D), randn(B13, KVH, D), randn(B13, KVH, D)
+
+    def k13(k, v):
+        return pa.paged_flash_decode_manual(q13, k, v, len13, tab13, kn13, vn13, page_offset=(next(step) % L) * NP)
+
+
+    # K3 / K6: one decode token over 28 layers of a [1, 4, 3328, 128] cache, walked in turn
     kd, vd = randn(L, 1, KVH, T, D), randn(L, 1, KVH, T, D)
     kd8, vd8 = to_e4m3(kd), to_e4m3(vd)
     qd, kn, vn = randn(1, 1, HQ, D), randn(1, KVH, D), randn(1, KVH, D)
@@ -119,11 +163,22 @@ def main() -> int:
         "K16a llm": lambda: fb.flash_fwd(qt, kt, vt, True),
         "K16a vit": lambda: fb.flash_fwd(qv, kv, vv, False),
         "K16a packed": lambda: fb.flash_fwd(qp, kp4, vp4, True, seg),
+        **{f"K16b {case}": functools.partial(fb.flash_bwd_dq, *a[:8], **a[8]) for case, a in bwd.items()},
         "K3 eager": lambda: k3(kd, vd),
         "K3_e4m3 eager": lambda: k3(kd8, vd8),
         "K6 eager": k6,
+        "K13 eager": lambda: k13(kpool, vpool),
+        "K13_e4m3 eager": lambda: k13(kpool8, vpool8),
     }
     graphs = {name.split()[0]: name for name in cases if name.endswith(" eager")}
+
+    def k13_at(rows):  # K13 with its chunks set to `rows` rows, captured while the split is patched
+        saved = pa.manual_splits
+        pa.manual_splits = lambda B, KVH, cap, sms: (-(-cap // rows), rows)
+        try:
+            return graphed(lambda: k13(kpool, vpool), L)
+        finally:
+            pa.manual_splits = saved
 
     def time_ms(fn):
         for _ in range(3):
@@ -137,7 +192,10 @@ def main() -> int:
         return start.elapsed_time(end) / LAUNCHES
 
     cases.update({name: graphed(cases[eager], L) for name, eager in graphs.items()})
-    cases = {case: fn for case, fn in cases.items() if case.startswith(args.cases)}
+    for rows in filter(None, args.k13_rows.split(",")):
+        graphs[f"K13 rows={rows}"] = None
+        cases[f"K13 rows={rows}"] = k13_at(int(rows))
+    cases = {case: fn for case, fn in cases.items() if case.startswith(tuple(args.cases.split(",")))}
     readings = {case: [] for case in cases}
     for _ in range(READINGS):
         for case, fn in cases.items():

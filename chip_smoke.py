@@ -42,7 +42,8 @@
 6. Paged kernel phases: K12, K14 and K15 (and K2 at its batched-prefill
    shape) at what the timed serving run handed them, held against their plain
    versions with planted boundary keys and planted faults, as in phase 2;
-   K14 is also timed against gather + K2.
+   K14 is also timed against gather + K2; K12 and its gather + SDPA call are
+   read graphed over a walk of the 28 layers, as K3 is.
 7. Paged vs single-request engine at full width and 2+2 layers: 4 requests
    (1 image, 3 text); first-token logits within phase 4's limits, greedy
    tokens identical up to the first step whose reference top-2 margin is
@@ -74,7 +75,9 @@
     kernel, plain, library (SDPA forward; SDPA backward for dQ + dK/dV) and
     bound times, the achieved TFLOP/s and the share of the bound.  A kernel's
     time is the median of ``READINGS`` readings of 30 launches, the three
-    kernels read in turns; the wrappers' ``q * scale`` pass is timed beside.
+    kernels and the SDPA forward and backward read in turns (K16b and K16c
+    given the one prescaled q the backward hands them); the ``q * scale``
+    pass is timed beside; a second dQ launch must be bitwise the same.
 14. Stage-1 at full width and depth: ``OmChatConfig()`` with random bf16
     weights, B=2 samples of one seeded 448x448 image and a 64-token answer
     (2 x 3328 merged rows), three ``train_step``s training the projector alone
@@ -98,7 +101,11 @@
     5 handed K12 and K14, of K2 and K3 at phase 2's shapes, against their
     plain versions with phase 6's planted keys; planted faults (a page-table
     entry off by one, the self column or p rounded to e4m3, phase 6's) must
-    fall outside the limits.  The e4m3 stores of K4 and K15 bitwise at those
+    fall outside the limits.  K13 and K12 on the e4m3 pool, and their gather
+    + SDPA calls, are read as device time (a walk over the 28 layers
+    graphed, ``decode_times``) beside the eager call; K13 against K12 on the
+    same inputs is logged as their max |diff| (the split-KV K13 sums in
+    another order).  The e4m3 stores of K4 and K15 bitwise at those
     shapes, and on all 65536 bf16 bit patterns against ``ops.fp8.to_e4m3``.
 18. Serving at full width and depth, phase 5's workload, three more runs:
     bf16 pool on K13, e4m3 pool on K12, e4m3 pool on K13 (pool GiB, the
@@ -112,7 +119,8 @@
     pools) at what phase 5 handed K12 and K14, the same logical caches cut
     into pages of each size, against their plain versions (a page-table
     entry off by one page must fall outside the limits); K12 / K13 at page
-    size 32 bitwise against 128; kernel times at page size 64 beside 128's.
+    size 32 bitwise against 128; kernel times at page size 64 beside 128's
+    (K12 and K13 read graphed, 28 calls, in turns, with the eager calls).
     Then phase 5's workload at ``page_size=64`` (384 pages; line
     ``serving (page_size=64)``: tokens/s, every page back, the first step
     leaving the page-size-128 tokens), and ``PagedBatchEngine(page_size=48)``
@@ -151,6 +159,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -183,6 +192,8 @@ PREPASS_TOL = (1e-6, 8e-3)  # (atol, rtol)
 # phases 2, 6, 13, 17, 22, 23: a kernel's time is the median of READINGS readings of
 # READING_LAUNCHES launches, the kernels of a case (and their library call) read in turns
 READINGS, READING_LAUNCHES = 5, 30
+# phase 20, K12 / K13 at page sizes 128 and 64: a decode step's 28 calls (one a layer) graphed
+PAGE_SIZE_GRAPH_CALLS = 28
 LSE_ATOL = 1e-3  # K16a's fp32 log-sum-exp: exp2 / log2 and sums in another order
 NEW_TOKENS = 32
 # phase 4, first-token logits through 2+2 layers, kernels vs the plain reference
@@ -1114,7 +1125,6 @@ def paged_kernel_phases(gen, timed: dict) -> list:
     def walk(fn):
         return fn(q, kflat, vflat, lens, tab, kn, vn, page_offset=(next(it) % L) * NP)
 
-    k_ms = time_ms(lambda: walk(pa.paged_flash_decode), iters=2 * L, warmup=L)
     p_ms = time_ms(lambda: walk(pa.paged_flash_decode_plain), iters=L // 4, warmup=1)
     qs = q.transpose(1, 2)
     cols = torch.arange(W * PS + 1, device=dev)
@@ -1126,11 +1136,13 @@ def paged_kernel_phases(gen, timed: dict) -> list:
                          n[:, :, None]], dim=2) for p, n in ((kflat, kn), (vflat, vn))]
         return F.scaled_dot_product_attention(qs, *kv, attn_mask=mask, enable_gqa=True)
 
-    lib_ms = time_ms(k12_library, iters=2 * L, warmup=L)
+    # a call takes the card less time than the host takes to issue it: graphed walks over the layers
+    dms, drd = decode_times(lambda: walk(pa.paged_flash_decode), k12_library, L)
     cached = int(lens_np.sum())
     rows.append(dict(name="paged_flash_decode", source="omchat_torch/csrc/paged_flash_decode.cu",
-                     replaces="omchat_tpu/ops/paged_attention.py:110", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                     library_ms=lib_ms, flops=4.0 * H * D * (cached + S),
+                     replaces="omchat_tpu/ops/paged_attention.py:110", max_abs_err=err, ms=dms["kernel"],
+                     plain_ms=p_ms, library_ms=dms["library"], readings=drd["kernel"], eager=eager_text(dms),
+                     flops=4.0 * H * D * (cached + S),
                      bytes=2 * KVH * cached * D * 2 + 2 * S * H * D * 2 + 2 * S * KVH * D * 2 + S * 4 + S * W * 4,
                      ref_mean_abs=ref_mag, faults=faults, shape=f"S={S} decoding={busiest} cached={cached} W={W}"))
     del out, ref, qs, mask
@@ -1286,6 +1298,7 @@ def paged_kernel_phases(gen, timed: dict) -> list:
         caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in r["faults"].items())
         gk = f" gather_k2_ms={r['gather_k2_ms']:.4f}" if "gather_k2_ms" in r else ""
         rate = rate_text(flops, r["ms"], r["bound_ms"], r.pop("readings")) if "readings" in r else ""
+        rate += r.pop("eager", "")
         log(f"kernel {r['name']} [{r['shape']}]: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f}{gk} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){rate} "
             f"max_abs_err={r['max_abs_err']:.3g}{mag}{caught}")
@@ -1882,9 +1895,14 @@ def train_kernel_phases(gen, shapes: dict) -> list:
         torch.cuda.synchronize()
         ro, rl = fb.flash_fwd_plain(q, k, v, causal, seg)
         di = fb.flash_di(do, ro)
-        dq = fb.flash_bwd_dq(q, k, v, do, rl, di, causal, seg)
-        dk, dv = fb.flash_bwd_dkv(q, k, v, do, rl, di, causal, seg)
+        qs = fb._prescaled(q)  # as the backward hands it to K16b and K16c
+        dq = fb.flash_bwd_dq(q, k, v, do, rl, di, causal, seg, q_scaled=qs)
+        dk, dv = fb.flash_bwd_dkv(q, k, v, do, rl, di, causal, seg, q_scaled=qs)
+        dq2 = fb.flash_bwd_dq(q, k, v, do, rl, di, causal, seg, q_scaled=qs)
         torch.cuda.synchronize()
+        if not torch.equal(dq, dq2):
+            raise AssertionError(f"K16 {case}: a second dQ launch differs (a block owns its rows: no atomics)")
+        del dq2
         rq = fb.flash_bwd_dq_plain(q, k, v, do, rl, di, causal, seg)
         rk, rv = fb.flash_bwd_dkv_plain(q, k, v, do, rl, di, causal, seg)
         tag = f"K16 {case} B={B} S={S} H={H}/{KVH} causal={causal}"
@@ -1924,25 +1942,27 @@ def train_kernel_phases(gen, shapes: dict) -> list:
                 *ATTN_TOL["K16a"])
         del ro, rl, rq, rk, rv
         torch.cuda.empty_cache()
+        # library yardstick: SDPA forward, and its backward (dQ, dK, dV together); the packed case as a mask
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        kw = dict(is_causal=causal, enable_gqa=True) if seg is None else dict(
+            attn_mask=fb.attention_mask(S, causal, seg, q.device)[:, None], enable_gqa=True)
+        o = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        dot = do.transpose(1, 2)
+        # the kernels and SDPA in turns; K16b and K16c take the backward's one prescaled q
         launch = {"fwd": lambda: fb.flash_fwd(q, k, v, causal, seg),
-                  "dq": lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, causal, seg),
-                  "dkv": lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, causal, seg)}
+                  "dq": lambda: fb.flash_bwd_dq(q, k, v, do, lse, di, causal, seg, q_scaled=qs),
+                  "dkv": lambda: fb.flash_bwd_dkv(q, k, v, do, lse, di, causal, seg, q_scaled=qs),
+                  "sdpa_fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                  "sdpa_bwd": lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)}
         ms, readings = time_in_turns(launch)
-        prescale_ms = time_ms(lambda: fb._prescaled(q), iters=30)  # inside every K16a and K16c call
+        lib_fwd, lib_bwd = ms["sdpa_fwd"], ms["sdpa_bwd"]
+        del o, qt, kt, vt, dot
+        prescale_ms = time_ms(lambda: fb._prescaled(q), iters=30)  # inside every K16a call, once a backward
         plain = {"fwd": time_ms(lambda: fb.flash_fwd_plain(q, k, v, causal, seg), iters=2, warmup=1),
                  "dq": time_ms(lambda: fb.flash_bwd_dq_plain(q, k, v, do, lse, di, causal, seg), iters=2, warmup=1),
                  "dkv": time_ms(lambda: fb.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal, seg), iters=2,
                                 warmup=1)}
         torch.cuda.empty_cache()
-        # library yardstick: SDPA forward, and its backward (dQ, dK, dV together); the packed case as a mask
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        kw = dict(is_causal=causal, enable_gqa=True) if seg is None else dict(
-            attn_mask=fb.attention_mask(S, causal, seg, q.device)[:, None], enable_gqa=True)
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), iters=10)
-        o = F.scaled_dot_product_attention(qt, kt, vt, **kw)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True),
-                          iters=10)
-        del o, qt, kt, vt
         # the work these inputs need: causal pairs, packed pairs within each document
         if seg is not None:
             pairs = sum((b - a) * (b - a + 1) / 2 for a, b in PACKED_DOCS) * B
@@ -1966,10 +1986,11 @@ def train_kernel_phases(gen, shapes: dict) -> list:
             log(f"kernel K16 {kname} [{case}: B={B} S={S} H={H}/{KVH} causal={causal}]: kernel_ms={p['ms']:.4f} "
                 f"plain_ms={p['plain_ms']:.4f} library_ms={p['library_ms']:.4f} bound_ms={b_ms:.4f} ({by}) "
                 f"tflops={p['flops'] / p['ms'] / 1e9:.1f} share_of_bound={b_ms / p['ms']:.3f} "
-                f"max_abs_err={p['err']:.3g} readings={[round(x, 4) for x in readings[kname]]}")
+                f"max_abs_err={p['err']:.3g} readings={[round(x, 4) for x in readings[kname]]} "
+                f"library_readings={[round(x, 4) for x in readings['sdpa_bwd' if kname != 'fwd' else 'sdpa_fwd']]}")
         log(f"K16 {case}: q * scale ms={prescale_ms:.4f}; lse max_abs_err={lse_err:.3g}; " + "; ".join(
             f"fault '{f}' max_dev={d:.3g} (caught)" for f, d in faults.items()))
-        del q, k, v, do, out, lse, dq, dk, dv, di
+        del q, qs, k, v, do, out, lse, dq, dk, dv, di
         torch.cuda.empty_cache()
     # one row per kernel, at the LLM trunk's shape (the most launched and the most work)
     for kname, name, replaces in (("fwd", "flash_attention_fwd", "omchat_tpu/ops/flash_attention_bwd.py:327"),
@@ -2129,14 +2150,14 @@ def _train_faults() -> dict:
 
     kernel_fwd = fb.flash_fwd
 
-    def dkv_head_dropped(q, k, v, dout, lse, di, causal, segment_ids=None):
+    def dkv_head_dropped(q, k, v, dout, lse, di, causal, segment_ids=None, *, q_scaled=None):
         g = q.shape[2] // k.shape[2]
         dout, di = dout.clone(), di.clone()
         dout[:, :, g - 1] = 0  # the last q head of kv head 0's group left out
         di[:, g - 1] = 0
         return fb.flash_bwd_dkv_plain(q, k, v, dout, lse, di, causal, segment_ids)
 
-    def dq_di_dropped(q, k, v, dout, lse, di, causal, segment_ids=None):
+    def dq_di_dropped(q, k, v, dout, lse, di, causal, segment_ids=None, *, q_scaled=None):
         return fb.flash_bwd_dq_plain(q, k, v, dout, lse, torch.zeros_like(di), causal, segment_ids)
 
     def fwd_wrong_kv_head(q, k, v, causal, segment_ids=None):
@@ -2428,12 +2449,13 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
             ATTN_TOL["K12"], faults, (lambda: walk(fn), lambda: walk(pa.paged_flash_decode_plain), library),
             4.0 * H * D * (cached + S),
             2 * KVH * cached * D * kp.element_size() + 2 * S * H * D * 2 + 2 * S * KVH * D * 2 + S * 4 + S * W * 4,
-            f"S={S} decoding={busiest} cached={cached} W={W}", (2 * L, L // 4))
+            f"S={S} decoding={busiest} cached={cached} W={W}", (2 * L, L // 4), in_turns=True, graph_calls=L)
     k12_bf16 = pa.paged_flash_decode(q, *pools["bf16"], lens, tab, kn, vn, page_offset=LI * NP)
     torch.cuda.synchronize()
-    log(f"K13 vs K12 on the same inputs: bitwise equal on the bf16 pool "
-        f"{bool(torch.equal(outs[('manual', 'bf16')], k12_bf16))}, on the e4m3 pool "
-        f"{bool(torch.equal(outs[('manual', 'e4m3')], outs[('auto', 'e4m3')]))}")
+    splits, chunk = pa.manual_splits(S, KVH, W * PS, torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"K13 vs K12 on the same inputs (K13 split-KV: {splits} chunks of {chunk} rows, then a merge), max |diff|: "
+        f"bf16 pool {float((outs[('manual', 'bf16')].float() - k12_bf16.float()).abs().max()):.4g}, e4m3 pool "
+        f"{float((outs[('manual', 'e4m3')].float() - outs[('auto', 'e4m3')].float()).abs().max()):.4g}")
     del q, qs, kn, vn, kn8, vn8, mask, outs, k12_bf16
 
     # K14 (e4m3): the largest chunk's starts, lengths and tables; faults as phase 6's.
@@ -2792,7 +2814,7 @@ def page_size_kernel_phases(gen, timed: dict) -> list:
     H, KVH, D = tc.num_attention_heads, tc.num_key_value_heads, tc.attn_head_dim
     u = _direction(gen, KVH, D)
     uq = u.repeat_interleave(H // KVH, dim=0)
-    rows, times = [], {}
+    rows, times, timed_calls = [], {}, {}
 
     # K12 / K13: the busiest decode roll's lengths over its table width.
     busiest = max(r["n"] for r in timed["rolls"])
@@ -2824,9 +2846,9 @@ def page_size_kernel_phases(gen, timed: dict) -> list:
                 out = fn(q, kpp, vpp, lens, tab, kn, vn)
                 torch.cuda.synchronize()
                 outs[(ps, pool, kernel)] = out
+                if pool == "bf16" and ps in (128, 64):  # timed below, graphed
+                    timed_calls[(name, ps)] = functools.partial(fn, q, kpp, vpp, lens, tab, kn, vn)
                 if ps == 128:
-                    if pool == "bf16":
-                        times[(name, 128)] = time_ms(lambda: fn(q, kpp, vpp, lens, tab, kn, vn), iters=50)
                     continue
                 tag = f"{name}[{pool}, page_size={ps}]"
                 ref = pa.paged_flash_decode_plain(q, kpp, vpp, lens, tab, kn, vn)
@@ -2837,18 +2859,27 @@ def page_size_kernel_phases(gen, timed: dict) -> list:
                 log(f"kernel {tag} [S={S} decoding={busiest} cached={cached} W={T // ps}]: max_abs_err={err:.3g}; "
                     f"fault 'a page-table entry off by one page' max_dev={dev_:.3g} (caught)")
                 if ps == 64 and pool == "bf16":
-                    times[(name, 64)] = time_ms(lambda: fn(q, kpp, vpp, lens, tab, kn, vn), iters=50)
                     if name == "K12":
                         rows.append(dict(name="paged_flash_decode[page_size=64]",
                                          source="omchat_torch/csrc/paged_flash_decode.cu",
                                          replaces="omchat_tpu/ops/paged_attention.py:110", max_abs_err=err,
-                                         ms=times[(name, 64)],
                                          plain_ms=time_ms(lambda: pa.paged_flash_decode_plain(
                                              q, kpp, vpp, lens, tab, kn, vn), iters=3, warmup=1),
                                          library_ms=None, flops=4.0 * H * D * (cached + S),
                                          bytes=2 * KVH * cached * D * 2 + 2 * S * H * D * 2 + 2 * S * KVH * D * 2
                                          + S * 4 + S * (T // ps) * 4))
         del kp, vp, tab, bad
+    # K12 / K13 at page sizes 128 and 64, in turns: a call takes the card less time than the host takes to
+    # issue it, so each is read as device time (PAGE_SIZE_GRAPH_CALLS calls graphed) with the eager call beside
+    ms, readings = time_in_turns({**{key: graphed(fn, PAGE_SIZE_GRAPH_CALLS) for key, fn in timed_calls.items()},
+                                  **{(name, ps, "eager"): fn for (name, ps), fn in timed_calls.items()}})
+    for key in timed_calls:
+        times[key] = ms[key] / PAGE_SIZE_GRAPH_CALLS
+        log(f"{key[0]} at page size {key[1]} (bf16 pool): graphed_ms={times[key]:.4f} "
+            f"readings={[round(x / PAGE_SIZE_GRAPH_CALLS, 4) for x in readings[key]]} "
+            f"eager_ms={ms[(*key, 'eager')]:.4f}")
+    rows[0]["ms"] = times[("K12", 64)]
+    del timed_calls
     same = {f"{name}[{pool}]": bool(torch.equal(outs[(32, pool, kernel)], outs[(128, pool, kernel)]))
             for pool in ("bf16", "e4m3") for kernel, name in (("auto", "K12"), ("manual", "K13"))}
     log("K12 / K13 at page size 32 vs 128 on the same logical cache, bitwise equal: " + json.dumps(same))
@@ -2905,7 +2936,7 @@ def page_size_kernel_phases(gen, timed: dict) -> list:
                                  + tab.numel() * 4 + 8 * B))
         del kp, vp, tab, bad
     del k, v, q14
-    log("page size 64 beside 128, kernel ms (bf16 pool, the same logical caches): " + json.dumps(
+    log("page size 64 beside 128, kernel ms (bf16 pool, the same logical caches; K12 / K13 graphed): " + json.dumps(
         {name: {"page_size_128": times[(name, 128)], "page_size_64": times[(name, 64)]}
          for name in ("K12", "K13", "K14")}))
     for r in rows:

@@ -6,9 +6,9 @@
 // cudaGetLastError() right after the launch; the Python wrapper raises when
 // that is not cudaSuccess.
 //
-// The decode kernels (K3, K6, K12, K13: attend_tile below) and K16b use the
+// The decode kernels (K3, K6, K12, K13: attend_tile below) use the
 // warp-level tensor-core product mma.sync.m16n8k16 (bf16 in, fp32
-// accumulate); K1, K2, K5, K14, K16a and K16c use wgmma (sm90.cuh).
+// accumulate); K1, K2, K5, K14 and K16a-c use wgmma (sm90.cuh).
 // Fragment layouts, with g = lane / 4 and t = lane % 4:
 //   A (16x16, row major), 4 x b32:  a0 = A[g][2t..2t+1]     a1 = A[g+8][2t..2t+1]
 //                                   a2 = A[g][2t+8..2t+9]   a3 = A[g+8][2t+8..2t+9]
@@ -253,7 +253,7 @@ __device__ __forceinline__ void load_q_group(uint32_t (&qa)[D / 16][4], const bf
     }
 }
 
-// Paged decode's epilogue (K12, K13), called by every thread of the block:
+// K12's epilogue, called by every thread of the block:
 // merge the online-softmax states (m, l, acc of attend_tile) of warps
 // 0..NW-1 through the shared scratch `smem` (2 NW ROWS + ROWS + NW ROWS D
 // floats; warps >= NW hold no state), fold in the self column (k_row, v_row:
@@ -331,17 +331,19 @@ __device__ __forceinline__ void merge_fold_store(float* smem, const float (&m)[2
 }
 
 // ---------------------------------------------------------------------------
-// Split-KV decode (K3, K6; written for K12 and K13 as well): the cache's rows
-// are cut into chunks, a block of a chunk writes its q rows' fp32 softmax
-// state (store_split_state), and a second kernel merges the chunks of each q
-// row (combine_splits).  A state row is m and l (exp2 domain) and acc [D],
-// unnormalised, relative to m.
+// Split-KV decode (K3, K6, K13): the cache's rows are cut
+// into chunks, a block of a chunk writes its q rows' fp32 softmax state
+// (store_split_state), and a second kernel merges the chunks of each q row
+// (split_merge_kernel, over combine_splits).  A state row is m and l (exp2
+// domain) and acc [D], unnormalised, relative to m.  The scratch: for n = B *
+// KVH * splits * group partial rows (row ((b * KVH + kvh) * splits + split) *
+// group + gi), acc [n, D] first, then m [n], then l [n], all fp32.
 // ---------------------------------------------------------------------------
 
 // One warp's share of a split block's state, after its last tile: the
-// rows g < group (the GQA group, at most 8: the mma tile's rows g + 8 are
-// padding) of its DV output columns from `col0` on, into acc_out[r * D + d];
-// with `ml`, also m_out[r] and l_out[r].
+// rows r < group of the GQA group (the mma tile's rows g and g + 8; at most
+// 16) of its DV output columns from `col0` on, into acc_out[r * D + d]; with
+// `ml`, also m_out[r] and l_out[r].
 template <int D, int DV>
 __device__ __forceinline__ void store_split_state(const float (&m)[2], const float (&l)[2],
                                                   const float (&acc)[DV / 8][4], int group, int col0, bool ml,
@@ -349,14 +351,18 @@ __device__ __forceinline__ void store_split_state(const float (&m)[2], const flo
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
-    if (g >= group) return;
 #pragma unroll
-    for (int dt = 0; dt < DV / 8; ++dt)
-        *reinterpret_cast<float2*>(acc_out + (size_t)g * D + col0 + dt * 8 + 2 * t) =
-            make_float2(acc[dt][0], acc[dt][1]);
-    if (ml && t == 0) {
-        m_out[g] = m[0];
-        l_out[g] = l[0];
+    for (int h = 0; h < 2; ++h) {
+        const int r = g + 8 * h;
+        if (r >= group) continue;
+#pragma unroll
+        for (int dt = 0; dt < DV / 8; ++dt)
+            *reinterpret_cast<float2*>(acc_out + (size_t)r * D + col0 + dt * 8 + 2 * t) =
+                make_float2(acc[dt][2 * h], acc[dt][2 * h + 1]);
+        if (ml && t == 0) {
+            m_out[r] = m[h];
+            l_out[r] = l[h];
+        }
     }
 }
 
@@ -468,6 +474,25 @@ __device__ __forceinline__ void combine_splits(float* smem, const float* m_part,
     for (int i = 0; i < 4; ++i) o_row[c + i] = __float2bfloat16(lsum == 0.f ? 0.f : o[i] / lsum);
 }
 
+// The merge kernel: one block of NW warps a (q head, request), grid (H, B),
+// over the scratch above; the self column k_new / v_new [B, KVH, D] (null:
+// none) folds in after the merge; out [B, H, D] bf16.
+template <int D, int NW, int PER>
+__global__ void __launch_bounds__(32 * NW)
+split_merge_kernel(const float* __restrict__ scratch, const bf16* __restrict__ q, const bf16* __restrict__ k_new,
+                   const bf16* __restrict__ v_new, bf16* __restrict__ out, int B, int KVH, int splits, int group,
+                   float scale_log2) {
+    __shared__ __align__(16) float smem[NW * (D + 2)];
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int H = KVH * group, kvh = h / group, gi = h % group;
+    const size_t n = (size_t)B * KVH * splits * group;
+    const size_t r = ((size_t)b * KVH + kvh) * splits * group + gi;  // split 0's partial row of this head
+    const size_t kv = ((size_t)b * KVH + kvh) * D;
+    combine_splits<D, NW, PER>(smem, scratch + n * D + r, scratch + n * D + n + r, scratch + r * D, splits, group,
+                               q + ((size_t)b * H + h) * D, k_new != nullptr ? k_new + kv : nullptr,
+                               v_new != nullptr ? v_new + kv : nullptr, out + ((size_t)b * H + h) * D, scale_log2);
+}
+
 // Launch the merge kernel right behind the split kernel on `stream` as its
 // programmatic dependent: the merge blocks start while the split blocks
 // finish (the split kernel lets them: trigger_merge_launch) and wait in
@@ -490,7 +515,7 @@ cudaError_t launch_merge_dependent(void (*kernel)(Params...), dim3 grid, dim3 bl
 }
 
 // ---------------------------------------------------------------------------
-// Segment ids (packed training sequences; K16a, K16c)
+// Segment ids (packed training sequences; K16a, K16b, K16c)
 // ---------------------------------------------------------------------------
 
 // (min, max) of the non-negative segment ids of rows r0..r0+n-1 of seg_b

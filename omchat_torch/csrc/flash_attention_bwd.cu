@@ -14,9 +14,10 @@
 //   seg                [B, S]         int32 segment ids or NULL; a row attends
 //                      only to columns of its own segment, negative ids are
 //                      padding and match nothing
-// K16a and K16c receive q already multiplied by scale = D^-0.5 and rounded to
-// bf16 (the wrappers do it, as JAX does before its pallas_calls); K16b
-// receives q as stored and the scale, and rounds q * scale to bf16 on load.
+// All three receive q already multiplied by scale = D^-0.5 and rounded to
+// bf16 (the wrappers do it once a backward, as JAX does before its
+// pallas_calls); K16b multiplies dQ by the scale once more, in fp32, before
+// rounding it.
 //
 // The math, with s = (q * scale) k^T in fp32:
 //   fwd:  out = softmax(s) v,  lse = log sum exp(s)  (a row with no valid
@@ -31,12 +32,12 @@
 // backward 3 and 4 GEMMs of the same size: all are bound by tensor-core
 // operations, and only wgmma reaches Hopper's tensor-core rate.
 //
-// K16a and K16c (Hopper design, sm90.cuh): Q, K, V and dO tiles come by TMA
-// into 128-byte-swizzled shared memory, completing on mbarriers, through a
-// ring whose stages the consumers release through a second mbarrier, so the
-// loads of the next tile overlap the products of this one; every product is
-// wgmma.  Registers set the block's shape: an SM sub-partition holds 16384,
-// and ptxas allocates within what a thread gets at launch (setmaxnreg did not
+// Hopper design (sm90.cuh): Q, K, V and dO tiles come by TMA into
+// 128-byte-swizzled shared memory, completing on mbarriers, through a ring
+// whose stages the consumers release through a second mbarrier, so the loads
+// of the next tile overlap the products of this one; every product is wgmma.
+// Registers set the block's shape: an SM sub-partition holds 16384, and
+// ptxas allocates within what a thread gets at launch (setmaxnreg did not
 // raise it: measured slower, with more spills).
 //   K16a: the forward mainloop that K1, K2, K5 and K14 run
 //   (flash_fwd_sm90.cuh: a block per (128 q rows, q head, batch), two
@@ -45,6 +46,19 @@
 //   softmax on the accumulators), in its LSE mode (the scores multiplied by
 //   log2 e in fp32, the natural-log lse written, -inf masks) and, for packed
 //   rows, its SEG mode.
+//   K16b: K16c's block transposed, on K16a's grid: a block per (128 q rows,
+//   q head, batch), the q heads of one kv head in neighbouring blocks (their
+//   K / V tiles meet in L2) and the longest causal row tiles first.  Two
+//   consumer warpgroups of 64 q rows and a producer warp whose one thread
+//   loads Q and dO once (TMA, 128-row boxes) and streams 64-row K / V tiles
+//   through a 2-stage ring.  Each group holds its dQ rows in fp32 registers
+//   (64 a thread) and lse, di for its two rows a thread; per tile S = Q K^T
+//   and dP = dO V^T (m64n64k16, both K-major; 32 + 32 registers), P =
+//   exp2(S log2 e - lse log2 e), dS = P (dP - di) rounded to bf16 in
+//   registers, then dQ += dS K (m64n128k16, A from registers, B the K tile
+//   MN-major: the form of K16c's dK += dS^T Q).  64-row kv tiles keep S, dP
+//   and dQ at 128 registers, which the 9 warps' cap of 168 holds (128-row
+//   tiles would need 192).  A block owns its rows' dQ: no atomics.
 //   K16c: a block per (64 kv rows, kv head, batch), one warpgroup, two blocks
 //   an SM; it holds its K and V in shared memory and dK, dV in fp32
 //   registers (128 a thread; 231-239 in all, no spill: there is no producer
@@ -58,13 +72,10 @@
 //   block's diagonal and the first kv tiles (the most q tiles) launch first.
 //   Blocks of 128 kv rows (two warpgroups, one block an SM) measured no
 //   faster (PERF.md) and are not built.
-// Both: tiles above the causal diagonal, and with segment ids tiles whose
-// segment ranges cannot meet, are skipped and never loaded (the block lists
-// the tiles it needs before its loop); only the diagonal tile, a ragged tail
-// (TMA reads zeros past S) or a packed tile is masked.
-//
-// K16b keeps its first design: mma.sync m16n8k16 fed by ldmatrix from padded
-// shared tiles staged synchronously, one warp per (q head, 16 rows).
+// All three: tiles above the causal diagonal, and with segment ids tiles
+// whose segment ranges cannot meet, are skipped and never loaded (the block
+// lists the tiles it needs before its loop); only the diagonal tile, a
+// ragged tail (TMA reads zeros past S) or a packed tile is masked.
 #include "common.cuh"
 #include "flash_fwd_sm90.cuh"
 #include "sm90.cuh"
@@ -77,9 +88,11 @@ constexpr int WG = 128;        // threads of a warpgroup
 constexpr int TILE64 = 64 * HD * 2;    // bytes of a 64-row shared tile
 
 // K16b (dQ)
-constexpr int LDS = HD + 8;    // padded smem row: the 8 rows of an ldmatrix land on distinct banks
-constexpr int DQ_KT = 32;      // kv rows per tile
-constexpr int MAX_WARPS = 8;   // block: group x row slices, at most 256 threads
+constexpr int DQ_BM = 128;                 // q rows per block: two consumer warpgroups of 64
+constexpr int DQ_BN = 64;                  // kv rows per streamed tile
+constexpr int DQ_STAGES = 2;               // ring stages (one block an SM; 3 measured slower)
+constexpr int DQ_THREADS = 2 * WG + 32;    // and a producer warp
+constexpr int TILE128 = 128 * HD * 2;      // bytes of a 128-row shared tile
 
 // K16c (dK/dV)
 constexpr int BWD_QT = 64;     // q rows per streamed tile
@@ -92,133 +105,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) { return sm90::smem
 // The dynamic shared memory, advanced to a 1024-byte boundary (the swizzle atom).
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
     return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-// B operands of the two 8-column blocks n0..n0+15 at k0..k0+15, where
-// B[k][n] = M[n][k] (M row-major [n][k]: K rows for q k^T).  b[0], b[1] serve
-// columns n0..n0+7, b[2], b[3] columns n0+8..n0+15.
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* base, int n0, int k0) {
-    const int lane = threadIdx.x & 31;
-    ldsm_x4(b, base + (n0 + (lane & 7) + (lane >> 4) * 8) * LDS + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// The same where B[k][n] = M[k][n] (M row-major [k][n]: V rows for p v).
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* base, int k0, int n0) {
-    const int lane = threadIdx.x & 31;
-    ldsm_x4_t(b, base + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + n0 + (lane >> 4) * 8);
-}
-
-__device__ __forceinline__ uint32_t scale_pair(uint32_t x, float sc) {
-    __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
-    return pack_bf16(__bfloat162float(v.x) * sc, __bfloat162float(v.y) * sc);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// Rows r0..r0+n-1 of a [S, stride] bf16 matrix (row r at src + r * stride,
-// HD columns) into smem rows of LDS; rows past S are zeros.
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, size_t stride, int r0, int n, int S) {
-    constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
-    for (int idx = threadIdx.x; idx < n * CHUNKS; idx += blockDim.x) {
-        const int r = idx / CHUNKS, c = (idx % CHUNKS) * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride + c);
-        *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
-    }
-}
-
-// Segment ids of rows r0..r0+n-1 (-1 past S) into smem.
-__device__ __forceinline__ void stage_seg(int* dst, const int* seg_b, int r0, int n, int S) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = r0 + i < S ? seg_b[r0 + i] : -1;
-}
-
-// (min, max) of the non-negative ids in smem; an all-padding tile gives an
-// empty range that overlaps nothing.
-__device__ __forceinline__ int2 seg_range(const int* s, int n) {
-    int lo = 1 << 30, hi = -(1 << 30);
-    for (int i = 0; i < n; ++i) {
-        const int x = s[i];
-        if (x >= 0) {
-            lo = min(lo, x);
-            hi = max(hi, x);
-        }
-    }
-    return make_int2(lo, hi);
-}
-
-// s[KT/8][4] = a_frag (16 x HD, in registers) times M^T, M the KT x HD smem tile.
-template <int KT>
-__device__ __forceinline__ void row_times_tile(const uint32_t (&a)[HD / 16][4], const bf16* tile, float (&s)[KT / 8][4]) {
-#pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int nt2 = 0; nt2 < KT / 16; ++nt2) {
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-            uint32_t b[4];
-            load_b_nk(b, tile, nt2 * 16, kk * 16);
-            mma_bf16_16816(s[2 * nt2], a[kk], b[0], b[1]);
-            mma_bf16_16816(s[2 * nt2 + 1], a[kk], b[2], b[3]);
-        }
-    }
-}
-
-// acc[HD/8][4] += p (16 x KT, C-fragment layout, rounded to bf16) times the KT x HD smem tile.
-template <int KT>
-__device__ __forceinline__ void p_times_tile(const float (&p)[KT / 8][4], const bf16* tile, float (&acc)[HD / 8][4]) {
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-        pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-        pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-        pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-        for (int dt2 = 0; dt2 < HD / 16; ++dt2) {
-            uint32_t b[4];
-            load_b_kn(b, tile, kk * 16, dt2 * 16);
-            mma_bf16_16816(acc[2 * dt2], pa, b[0], b[1]);
-            mma_bf16_16816(acc[2 * dt2 + 1], pa, b[2], b[3]);
-        }
-    }
-}
-
-// The warp's q fragments for rows ra and ra + 8 of one head (zeros past S),
-// multiplied by sc and rounded to bf16 when sc != 0.
-__device__ __forceinline__ void load_row_frags(uint32_t (&a)[HD / 16][4], const bf16* base, size_t stride, int ra,
-                                               int S, float sc) {
-    const int t = threadIdx.x & 3;
-    const bf16* pa = base + (size_t)ra * stride;
-    const bf16* pb = base + (size_t)(ra + 8) * stride;
-    const bool va = ra < S, vb = ra + 8 < S;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-        const int c = kk * 16 + 2 * t;
-        uint32_t x0 = va ? ld32(pa + c) : 0u, x1 = vb ? ld32(pb + c) : 0u;
-        uint32_t x2 = va ? ld32(pa + c + 8) : 0u, x3 = vb ? ld32(pb + c + 8) : 0u;
-        if (sc != 0.f) {
-            x0 = scale_pair(x0, sc);
-            x1 = scale_pair(x1, sc);
-            x2 = scale_pair(x2, sc);
-            x3 = scale_pair(x3, sc);
-        }
-        a[kk][0] = x0;
-        a[kk][1] = x1;
-        a[kk][2] = x2;
-        a[kk][3] = x3;
-    }
 }
 
 // The A fragment of a 16-column slice kk of a wgmma accumulator (its columns
@@ -236,94 +122,173 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], 
 // K16b: dQ
 // ---------------------------------------------------------------------------
 
+// shared memory: Q, dO, the ring of (K, V) stages, the barriers q_full,
+// full[DQ_STAGES], empty[DQ_STAGES], then (SEG) the tile list
+constexpr int DQ_Q = 0;
+constexpr int DQ_DO = TILE128;
+constexpr int DQ_RING = 2 * TILE128;
+constexpr int DQ_BAR = DQ_RING + DQ_STAGES * 2 * TILE64;
+constexpr int DQ_META = DQ_BAR + 8 * (1 + 2 * DQ_STAGES);
+
 template <bool SEG>
-__global__ void __launch_bounds__(32 * MAX_WARPS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ di,
-                    const int* __restrict__ seg, bf16* __restrict__ dq, int S, int H, int KVH, int causal, int sub,
-                    float scale) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-    bf16* vs = ks + DQ_KT * LDS;
-    int* seg_q = reinterpret_cast<int*>(vs + DQ_KT * LDS);
-    int* seg_k = seg_q + 16 * MAX_WARPS;
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                    const float* __restrict__ lse, const float* __restrict__ di, const int* __restrict__ seg,
+                    bf16* __restrict__ dq, int B, int S, int H, int KVH, int causal, float scale) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* sm = aligned_smem(smem_raw);
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + DQ_BAR);
+    uint64_t* full = q_full + 1;
+    uint64_t* empty = full + DQ_STAGES;
+    int* meta = reinterpret_cast<int*>(sm + DQ_META);  // SEG: [0] the tiles in the list
+    int* list = meta + 4;
 
-    const int group = H / KVH;
-    const int rows = 16 * sub;
-    const int b = blockIdx.z, kvh = blockIdx.y, r0 = blockIdx.x * rows;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int head = kvh * group + warp % group;
-    const int w0 = r0 + (warp / group) * 16;
-    const size_t qs = (size_t)H * HD, kvs = (size_t)KVH * HD;
-    const bf16* kb = k + (size_t)b * S * kvs + (size_t)kvh * HD;
-    const bf16* vb = v + (size_t)b * S * kvs + (size_t)kvh * HD;
+    const int head = blockIdx.x, b = blockIdx.y % B;
+    const int rt = (S + DQ_BM - 1) / DQ_BM - 1 - blockIdx.y / B;  // the last (longest) row tiles first
+    const int r0 = rt * DQ_BM, kvh = head / (H / KVH), tid = threadIdx.x;
     const int* seg_b = SEG ? seg + (size_t)b * S : nullptr;
+    bf16* dq_b = dq + (size_t)b * S * H * HD + (size_t)head * HD;
 
-    uint32_t qa[HD / 16][4], da[HD / 16][4];
-    load_row_frags(qa, q + (size_t)b * S * qs + (size_t)head * HD, qs, w0 + g, S, scale);
-    load_row_frags(da, dout + (size_t)b * S * qs + (size_t)head * HD, qs, w0 + g, S, 0.f);
-    float lse2[2], dd[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        const int row = w0 + g + 8 * r;
-        const size_t at = ((size_t)b * H + head) * S + row;
-        lse2[r] = row < S ? lse[at] * LOG2E : -INFINITY;
-        dd[r] = row < S ? di[at] : 0.f;
-    }
-
-    int2 qr = make_int2(0, 0);
-    if (SEG) {
-        stage_seg(seg_q, seg_b, r0, rows, S);
+    const int end = causal ? min(S, r0 + DQ_BM) : S;  // the block's columns: [0, end)
+    int n_tiles = (end + DQ_BN - 1) / DQ_BN;
+    if constexpr (SEG) {  // only the tiles whose segment ids can meet the block's rows
+        list_meeting_tiles(seg_b, S, r0, DQ_BM, 0, n_tiles, DQ_BN, meta, list);
         __syncthreads();
-        qr = seg_range(seg_q, rows);
+        n_tiles = meta[0];
     }
-    const int end = causal ? min(S, r0 + rows) : S;
-    const int n_tiles = (end + DQ_KT - 1) / DQ_KT;
-
-    float acc[HD / 8][4];
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-    for (int j = 0; j < n_tiles; ++j) {
-        const int c0 = j * DQ_KT;
-        __syncthreads();
-        if (SEG) {
-            stage_seg(seg_k, seg_b, c0, DQ_KT, S);
-            __syncthreads();
-            if (!overlap(qr, seg_range(seg_k, DQ_KT))) continue;
+    if (n_tiles == 0) {  // padding rows only: zero gradient
+        for (int idx = tid; idx < DQ_BM * (HD / 8); idx += DQ_THREADS) {
+            const int row = r0 + idx / (HD / 8);
+            if (row < S)
+                *reinterpret_cast<uint4*>(dq_b + (size_t)row * H * HD + (idx % (HD / 8)) * 8) = make_uint4(0, 0, 0, 0);
         }
-        stage_rows(ks, kb, kvs, c0, DQ_KT, S);
-        stage_rows(vs, vb, kvs, c0, DQ_KT, S);
-        __syncthreads();
-        if (w0 >= S || (causal && c0 > w0 + 15)) continue;
+        return;
+    }
 
-        float p[DQ_KT / 8][4], dp[DQ_KT / 8][4];
-        row_times_tile<DQ_KT>(qa, ks, p);
-        row_times_tile<DQ_KT>(da, vs, dp);  // dO v^T
-#pragma unroll
-        for (int nt = 0; nt < DQ_KT / 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int col = c0 + nt * 8 + 2 * t + (e & 1);
-                const int row = w0 + g + (e >> 1) * 8;
-                bool ok = col < S && (!causal || col <= row) && lse2[e >> 1] != -INFINITY;
-                if (SEG) ok = ok && seg_k[col - c0] >= 0 && seg_k[col - c0] == seg_q[row - r0];
-                const float pe = ok ? exp2f(p[nt][e] * LOG2E - lse2[e >> 1]) : 0.f;
-                dp[nt][e] = pe * (dp[nt][e] - dd[e >> 1]);  // dS
+    if (tid == 0) {
+        sm90::mbar_init(q_full, 1);
+        for (int s = 0; s < DQ_STAGES; ++s) {
+            sm90::mbar_init(&full[s], 1);
+            sm90::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+        }
+        sm90::mbar_fence_init();
+    }
+    __syncthreads();
+
+    if (tid >= 2 * WG) {  // producer warp: one thread issues every load
+        if (tid == 2 * WG) {
+            sm90::tma_prefetch_map(&map_q);
+            sm90::tma_prefetch_map(&map_do);
+            sm90::tma_prefetch_map(&map_k);
+            sm90::tma_prefetch_map(&map_v);
+            sm90::mbar_arrive_expect_tx(q_full, 2 * TILE128);
+            for (int h = 0; h < 2; ++h) {
+                sm90::tma_load_4d(sm + DQ_Q + h * TILE128 / 2, &map_q, q_full, 64 * h, head, r0, b);
+                sm90::tma_load_4d(sm + DQ_DO + h * TILE128 / 2, &map_do, q_full, 64 * h, head, r0, b);
+            }
+            for (int i = 0; i < n_tiles; ++i) {
+                const int s = i % DQ_STAGES, c0 = (SEG ? list[i] : i) * DQ_BN;
+                if (i >= DQ_STAGES) sm90::mbar_wait(&empty[s], (i / DQ_STAGES - 1) & 1);
+                sm90::mbar_arrive_expect_tx(&full[s], 2 * TILE64);
+                unsigned char* st = sm + DQ_RING + s * 2 * TILE64;
+                for (int h = 0; h < 2; ++h) {
+                    sm90::tma_load_4d(st + h * TILE64 / 2, &map_k, &full[s], 64 * h, kvh, c0, b);
+                    sm90::tma_load_4d(st + TILE64 + h * TILE64 / 2, &map_v, &full[s], 64 * h, kvh, c0, b);
+                }
             }
         }
-        p_times_tile<DQ_KT>(dp, ks, acc);  // dS k
+        return;
+    }
+
+    const int cg = tid / WG;  // consumer group: q rows w0 .. w0 + 63
+    const int warp = (tid / 32) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int w0 = r0 + 64 * cg, row0 = w0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    int g_end = causal ? min(S, w0 + 64) : S;  // the group's columns: [0, g_end)
+    if (w0 >= S) g_end = 0;
+    float lse2[2], dd[2];
+    int sq[2] = {-1, -1};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        const size_t at = ((size_t)b * H + head) * S + row;
+        const float lv = row < S ? lse[at] : -INFINITY;
+        lse2[r] = lv == -INFINITY ? INFINITY : lv * LOG2E;  // a row with no column: p = exp2(s - inf) = 0
+        dd[r] = row < S ? di[at] : 0.f;
+        if (SEG) sq[r] = row < S ? seg_b[row] : -1;
+    }
+    const uint32_t q_tile = smem_addr(sm + DQ_Q), do_tile = smem_addr(sm + DQ_DO);
+    float acc[64];
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+
+    sm90::mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % DQ_STAGES, c0 = (SEG ? list[i] : i) * DQ_BN;
+        sm90::mbar_wait(&full[s], (i / DQ_STAGES) & 1);
+        if (c0 < g_end) {  // uniform over the group
+            const uint32_t k_tile = smem_addr(sm + DQ_RING + s * 2 * TILE64), v_tile = k_tile + TILE64;
+            float sa[32], dpa[32];
+#pragma unroll
+            for (int x = 0; x < 32; ++x) sa[x] = dpa[x] = 0.f;
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk)
+                sm90::wgmma_m64n64k16_ss(sa, sm90::desc_kmajor(q_tile, DQ_BM, 64 * cg, kk),
+                                         sm90::desc_kmajor(k_tile, DQ_BN, 0, kk), kk > 0);
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk)
+                sm90::wgmma_m64n64k16_ss(dpa, sm90::desc_kmajor(do_tile, DQ_BM, 64 * cg, kk),
+                                         sm90::desc_kmajor(v_tile, DQ_BN, 0, kk), kk > 0);
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::reg_fence(sa);
+            sm90::reg_fence(dpa);
+
+            // some column past S, (causal) past a row's position or (SEG) of another segment
+            const bool masked = SEG || c0 + DQ_BN > S || (causal && c0 + DQ_BN - 1 > w0);
+#pragma unroll
+            for (int n = 0; n < DQ_BN / 8; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int x = 4 * n + e, r = e >> 1;
+                    float p = exp2f(sa[x] * LOG2E - lse2[r]);
+                    if (masked) {
+                        const int col = c0 + 8 * n + 2 * t + (e & 1);
+                        bool ok = col < S && (!causal || col <= row0 + 8 * r);
+                        if constexpr (SEG) {
+                            const int sk = col < S ? seg_b[col] : -1;
+                            ok = ok && sk >= 0 && sk == sq[r];
+                        }
+                        p = ok ? p : 0.f;
+                    }
+                    dpa[x] = p * (dpa[x] - dd[r]);  // dS
+                }
+            }
+            uint32_t dsa[DQ_BN / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < DQ_BN / 16; ++kk) acc_to_a(dsa[kk], dpa, kk);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < DQ_BN / 16; ++kk)
+                sm90::wgmma_m64n128k16_rs(acc, dsa[kk], sm90::desc_mnmajor(k_tile, DQ_BN, kk), 1);  // dQ += dS K
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::reg_fence(acc);
+        }
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(&empty[s]);
     }
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-        const int row = w0 + g + 8 * r;
+        const int row = row0 + 8 * r;
         if (row >= S) continue;
-        bf16* o = dq + ((size_t)b * S + row) * qs + (size_t)head * HD;
+        bf16* o = dq_b + (size_t)row * H * HD;
 #pragma unroll
-        for (int dt = 0; dt < HD / 8; ++dt)
-            *reinterpret_cast<uint32_t*>(o + dt * 8 + 2 * t) =
-                pack_bf16(acc[dt][2 * r] * scale, acc[dt][2 * r + 1] * scale);
+        for (int n = 0; n < 16; ++n)
+            *reinterpret_cast<uint32_t*>(o + 8 * n + 2 * t) =
+                pack_bf16(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale);
     }
 }
 
@@ -522,8 +487,6 @@ bool bad_shape(int B, int S, int H, int KVH, int D) {
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
-int row_slices(int H, int KVH) { return max(1, MAX_WARPS / (H / KVH)); }
-
 template <typename Kernel>
 void allow_smem(Kernel kernel, size_t bytes) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -560,19 +523,23 @@ extern "C" int omchat_flash_attention_fwd(const void* q, const void* k, const vo
                : fwd90::launch<false, false, true, false>(mq, mk, mv, p, stream);
 }
 
+// q arrives multiplied by D^-0.5 (rounded to bf16); dQ is multiplied by `scale` in fp32 before its rounding.
 extern "C" int omchat_flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                              const void* lse, const void* di, const void* seg, void* dq, int B, int S,
                                              int H, int KVH, int D, int causal, float scale, void* stream) {
-    if (bad_shape(B, S, H, KVH, D) || H / KVH > MAX_WARPS) return (int)cudaErrorInvalidValue;
-    const int sub = row_slices(H, KVH);
-    const size_t smem = 2 * DQ_KT * LDS * sizeof(bf16) + (16 * MAX_WARPS + DQ_KT) * sizeof(int);
-    const dim3 grid((S + 16 * sub - 1) / (16 * sub), KVH, B);
-    const int threads = 32 * (H / KVH) * sub;
+    if (bad_shape(B, S, H, KVH, D) || misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap mq, mdo, mk, mv;
+    if (!rows_map(&mq, q, B, S, H, DQ_BM) || !rows_map(&mdo, dout, B, S, H, DQ_BM) ||
+        !rows_map(&mk, k, B, S, KVH, DQ_BN) || !rows_map(&mv, v, B, S, KVH, DQ_BN))
+        return (int)cudaErrorInvalidValue;
+    const int n_kt = (S + DQ_BN - 1) / DQ_BN;
+    const size_t smem = 1024 + DQ_META + (seg ? (4 + n_kt) * sizeof(int) : 0);
+    const dim3 grid(H, ((S + DQ_BM - 1) / DQ_BM) * B);
     auto kernel = seg ? flash_bwd_dq_kernel<true> : flash_bwd_dq_kernel<false>;
     allow_smem(kernel, smem);
-    kernel<<<grid, threads, smem, (cudaStream_t)stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                                          (const bf16*)dout, (const float*)lse, (const float*)di,
-                                                          (const int*)seg, (bf16*)dq, S, H, KVH, causal, sub, scale);
+    kernel<<<grid, DQ_THREADS, smem, (cudaStream_t)stream>>>(mq, mdo, mk, mv, (const float*)lse, (const float*)di,
+                                                             (const int*)seg, (bf16*)dq, B, S, H, KVH, causal, scale);
     return (int)cudaGetLastError();
 }
 

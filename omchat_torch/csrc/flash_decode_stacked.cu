@@ -47,10 +47,10 @@
 // [B, KVH, splits, group] (store_split_state).  A second kernel, launched from the same entry on the
 // same stream as the first one's programmatic dependent (its blocks start
 // while the split blocks finish, and wait for their stores), one block of 8
-// warps a q head, merges the head's splits in a fixed order (combine_splits
-// in common.cuh, so every launch gives the same bits), then folds K3's self
-// column in after the merge, as fold_self_column follows the last tile, and
-// normalises.
+// warps a q head (split_merge_kernel in common.cuh), merges the head's
+// splits in a fixed order (combine_splits, so every launch gives the same
+// bits), then folds K3's self column in after the merge, as fold_self_column
+// follows the last tile, and normalises.
 //
 // Numerics: fp32 scores in the exp2 domain (D^-0.5 * log2 e folded into the
 // score), p rounded to bf16 for the P V product, l summing the unrounded fp32
@@ -71,9 +71,7 @@ constexpr int MAX_GROUP = 8;     // q rows of the mma tile that are not padding
 constexpr int MERGE_WARPS = 8;   // warps of a merge block (one q head)
 constexpr int MERGE_PER = 8;     // splits a merge warp loads in one pass
 
-// The scratch: for n = B * KVH * splits * group partial rows (row
-// ((b * KVH + kvh) * splits + split) * group + gi), acc [n, D] first, then
-// m [n], then l [n], all fp32.
+// The scratch: common.cuh's (split-KV decode).
 
 template <int D, typename E>
 __global__ void __launch_bounds__(32 * WARPS)
@@ -153,23 +151,6 @@ decode_split_kernel(const bf16* __restrict__ q, const E* __restrict__ k_cache, c
     store_split_state<D, DV>(m, l, acc, group, warp * DV, warp == 0, m_out, l_out, scratch + r0 * D);
 }
 
-template <int D, bool SELF>
-__global__ void __launch_bounds__(32 * MERGE_WARPS)
-decode_merge_kernel(const float* __restrict__ scratch, const bf16* __restrict__ q, const bf16* __restrict__ k_new,
-                    const bf16* __restrict__ v_new, bf16* __restrict__ out, int B, int KVH, int splits, int group,
-                    float scale_log2) {
-    __shared__ __align__(16) float smem[MERGE_WARPS * (D + 2)];
-    const int h = blockIdx.x, b = blockIdx.y;
-    const int H = KVH * group, kvh = h / group, gi = h % group;
-    const size_t n = (size_t)B * KVH * splits * group;
-    const size_t r = ((size_t)b * KVH + kvh) * splits * group + gi;  // split 0's partial row of this head
-    const size_t kv = ((size_t)b * KVH + kvh) * D;
-    combine_splits<D, MERGE_WARPS, MERGE_PER>(smem, scratch + n * D + r, scratch + n * D + n + r, scratch + r * D,
-                                              splits, group, q + ((size_t)b * H + h) * D,
-                                              SELF ? k_new + kv : nullptr, SELF ? v_new + kv : nullptr,
-                                              out + ((size_t)b * H + h) * D, scale_log2);
-}
-
 template <int D, typename E, bool SELF>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* cache_len, int layer,
            const void* k_new, const void* v_new, void* out, void* scratch, int B, int KVH, int T, int D_arg,
@@ -188,8 +169,9 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
         T, group, rows, scale_log2);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    return (int)launch_merge_dependent(decode_merge_kernel<D, SELF>, dim3(KVH * group, B), dim3(32 * MERGE_WARPS), s,
-                                       (const float*)scratch, (const bf16*)q, (const bf16*)k_new, (const bf16*)v_new,
+    return (int)launch_merge_dependent(split_merge_kernel<D, MERGE_WARPS, MERGE_PER>, dim3(KVH * group, B),
+                                       dim3(32 * MERGE_WARPS), s, (const float*)scratch, (const bf16*)q,
+                                       (const bf16*)(SELF ? k_new : nullptr), (const bf16*)(SELF ? v_new : nullptr),
                                        (bf16*)out, B, KVH, splits, group, scale_log2);
 }
 

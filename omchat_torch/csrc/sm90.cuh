@@ -1,10 +1,9 @@
 // Hopper (sm_90a) building blocks: TMA tile loads completing on mbarriers and
-// wgmma on 128-byte-swizzled shared tiles.  Users: K16c
+// wgmma on 128-byte-swizzled shared tiles.  Users: K16b and K16c
 // (flash_attention_bwd.cu) and the forward mainloop of flash_fwd_sm90.cuh,
 // which K1 and K5 (packed_qkv_norm_attention.cu), K2 (flash_attention.cu),
-// K14 (paged_flash_prefill.cu) and K16a (flash_attention_bwd.cu) run.
-// K13 keeps its own copies of the mbarrier helpers
-// (paged_flash_decode_manual.cu).
+// K14 (paged_flash_prefill.cu) and K16a (flash_attention_bwd.cu) run; K13
+// (paged_flash_decode_manual.cu) takes the mbarrier helpers alone.
 //
 // The shared tile: R rows of a head-width-128 bf16 matrix, stored as two
 // 64-column halves ([2][R][64], half h at h * R * 128 bytes), each written by

@@ -34,28 +34,32 @@ _K6_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 SPLIT_ROWS = 64  # a split's rows are a multiple of this (the kernel's tile)
 
 
-def decode_splits(B: int, KVH: int, T: int, num_sms: int) -> tuple:
-    """How the kernels cut a cache of capacity ``T`` rows: ``(splits, rows)``,
-    ``splits`` chunks of ``rows`` rows (a multiple of ``SPLIT_ROWS``; the last
-    chunk may be shorter) covering rows 0..T-1 once each.  A chunk is as few
-    tiles as still give the grid of B x KVH x splits blocks one block for each
-    of the card's ``num_sms`` SMs (all of T in one chunk when the batch's
-    kv heads alone fill the card, or T is one tile).
+def decode_splits(B: int, KVH: int, T: int, num_sms: int, tile: int = SPLIT_ROWS) -> tuple:
+    """How a split-KV decode kernel cuts a cache of capacity ``T`` rows:
+    ``(splits, rows)``, ``splits`` chunks of ``rows`` rows (a multiple of
+    ``tile``; the last chunk may be shorter) covering rows 0..T-1 once each.
+    A chunk is as few tiles as still give the grid of B x KVH x splits blocks
+    one block for each of ``num_sms`` (all of T in one chunk when the batch's
+    kv heads alone fill them, or T is one tile).  K3 and K6 take the default
+    64-row tile and the card's SM count; K13 (``ops.paged_attention``) takes
+    128-row tiles, so that a chunk starts on a page boundary at every page
+    size, and the blocks the card holds at once.
     It reads only the capacity, never the lengths, which live on the card."""
-    tiles = max(1, -(-T // SPLIT_ROWS))
-    rows = min(tiles, max(1, tiles * B * KVH // num_sms)) * SPLIT_ROWS
+    tiles = max(1, -(-T // tile))
+    rows = min(tiles, max(1, tiles * B * KVH // num_sms)) * tile
     return max(1, -(-T // rows)), rows
 
 
 @functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
+def num_sms(index: int) -> int:
+    """The SM count of CUDA device ``index`` (asked once)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _split_args(q, B, KVH, T, D):
     """(scratch, splits, rows) for one call: the fp32 partial states
     [B, KVH, splits, group] x (D + 2) that the merge reads."""
-    splits, rows = decode_splits(B, KVH, T, _num_sms(q.device.index))
+    splits, rows = decode_splits(B, KVH, T, num_sms(q.device.index))
     scratch = torch.empty(B * q.shape[2] * splits * (D + 2), dtype=torch.float32, device=q.device)
     return scratch, splits, rows
 

@@ -8,12 +8,12 @@ backward as two kernels, dQ and dK/dV — PyTorch port of
     dS = P * (dO V^T - di)
     dQ = dS K * scale,    dK = dS^T (Q * scale)
 
-GQA: the q heads sharing a kv head run in neighbouring blocks (forward) or
-ride one block (dQ), and dK/dV are summed over the group inside the kernel.
+GQA: the q heads sharing a kv head run in neighbouring blocks (forward and
+dQ), and dK/dV are summed over the group inside the kernel.
 ``segment_ids`` (multi-document packing, ``--pack``) isolate documents; tiles
-whose segments cannot meet are skipped.  As in JAX, the forward and dK/dV
-wrappers multiply q by ``D**-0.5`` in q's dtype before the launch; the dQ
-kernel rounds q * scale to bf16 as it loads q, which gives the same bits.
+whose segments cannot meet are skipped.  As in JAX, every kernel takes q
+multiplied by ``D**-0.5`` in q's dtype (:func:`_prescaled`); the backward
+computes that product once and hands it to the dQ and dK/dV kernels.
 
 Each kernel comes as a wrapper (:func:`flash_fwd`, :func:`flash_bwd_dq`,
 :func:`flash_bwd_dkv`) that takes the plain PyTorch version (``*_plain``) for a
@@ -37,8 +37,8 @@ import torch
 from omchat_torch.ops import kernel_lib
 
 SOURCE = "flash_attention_bwd.cu"
-# C signatures (every size an int; the forward and dK/dV take q prescaled,
-# dQ the softmax scale as a float):
+# C signatures (every size an int; every kernel takes q prescaled, dQ also
+# the softmax scale as a float, by which it multiplies dQ):
 #   q, k, v, seg, out, lse, B, S, H, KVH, D, causal, stream
 #   q, k, v, dout, lse, di, seg, dq, B, S, H, KVH, D, causal, scale, stream
 #   q, k, v, dout, lse, di, seg, dk, dv, B, S, H, KVH, D, causal, stream
@@ -46,7 +46,6 @@ _SIZES = [ctypes.c_int] * 6
 _FWD_ARGS = [ctypes.c_void_p] * 6 + _SIZES + [ctypes.c_void_p]
 _DQ_ARGS = [ctypes.c_void_p] * 8 + _SIZES + [ctypes.c_float, ctypes.c_void_p]
 _DKV_ARGS = [ctypes.c_void_p] * 9 + _SIZES + [ctypes.c_void_p]
-MAX_GROUP = 8  # q heads per kv head a dQ block takes
 
 
 def softmax_scale(q: torch.Tensor) -> torch.Tensor:
@@ -160,9 +159,9 @@ def _check(name: str, q, k, *tensors) -> None:
             raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
     b, s, h, d = q.shape
     kvh = k.shape[2]
-    if d != 128 or h % kvh != 0 or h // kvh > MAX_GROUP or k.shape[:2] != (b, s):
+    if d != 128 or h % kvh != 0 or k.shape[:2] != (b, s):
         raise ValueError(f"{name}: q {tuple(q.shape)} / k {tuple(k.shape)} unsupported by the CUDA kernel "
-                         f"(head width 128, at most {MAX_GROUP} q heads per kv head, self-attention)")
+                         f"(head width 128, whole GQA groups, self-attention)")
 
 
 def _seg_arg(segment_ids, q):
@@ -203,28 +202,41 @@ def flash_fwd(q, k, v, causal: bool, segment_ids=None):
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, dout, lse, di, causal: bool, segment_ids=None):
-    """K16b: dQ [B, S, H, D]."""
+def _q_arg(q, q_scaled):
+    """The kernels' q: ``q_scaled`` (the caller's :func:`_prescaled` of q),
+    or that product computed here."""
+    if q_scaled is None:
+        return _prescaled(q)
+    if q_scaled.shape != q.shape or q_scaled.dtype != q.dtype or q_scaled.device != q.device:
+        raise ValueError(f"q_scaled {tuple(q_scaled.shape)} {q_scaled.dtype} must be q * D^-0.5 in q's shape and dtype")
+    return q_scaled.contiguous()
+
+
+def flash_bwd_dq(q, k, v, dout, lse, di, causal: bool, segment_ids=None, *, q_scaled=None):
+    """K16b: dQ [B, S, H, D].  ``q_scaled``: :func:`_prescaled` of q where the
+    caller has it (the backward computes it once for K16b and K16c); the CPU
+    route ignores it."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, dout, lse, di, causal, segment_ids)
     _check("flash_bwd_dq", q, k, v, dout)
-    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    qs, k, v, dout = _q_arg(q, q_scaled), k.contiguous(), v.contiguous(), dout.contiguous()
     lse, di = lse.float().contiguous(), di.float().contiguous()
     seg, seg_p = _seg_arg(segment_ids, q)
-    dq = torch.empty_like(q)
+    dq = torch.empty_like(qs)
     kernel_lib.launch(SOURCE, "omchat_flash_attention_bwd_dq", _DQ_ARGS,
-                      *map(kernel_lib.ptr, (q, k, v, dout, lse, di)), seg_p, kernel_lib.ptr(dq),
+                      *map(kernel_lib.ptr, (qs, k, v, dout, lse, di)), seg_p, kernel_lib.ptr(dq),
                       *_dims(q, k, causal), ctypes.c_float(float(softmax_scale(q))), kernel_lib.stream_ptr(q.device))
     flash_bwd_dq.launches += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, dout, lse, di, causal: bool, segment_ids=None):
-    """K16c: (dK, dV) [B, S, KVH, D], summed over each kv head's GQA group."""
+def flash_bwd_dkv(q, k, v, dout, lse, di, causal: bool, segment_ids=None, *, q_scaled=None):
+    """K16c: (dK, dV) [B, S, KVH, D], summed over each kv head's GQA group.
+    ``q_scaled`` as :func:`flash_bwd_dq`'s."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, dout, lse, di, causal, segment_ids)
     _check("flash_bwd_dkv", q, k, v, dout)
-    qs, k, v, dout = _prescaled(q), k.contiguous(), v.contiguous(), dout.contiguous()
+    qs, k, v, dout = _q_arg(q, q_scaled), k.contiguous(), v.contiguous(), dout.contiguous()
     lse, di = lse.float().contiguous(), di.float().contiguous()
     seg, seg_p = _seg_arg(segment_ids, q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -256,8 +268,9 @@ class FlashAttentionTrainable(torch.autograd.Function):
         q, k, v, out, lse, segment_ids = ctx.saved_tensors
         dout = dout.contiguous()
         di = flash_di(dout, out)
-        dq = flash_bwd_dq(q, k, v, dout, lse, di, ctx.causal, segment_ids)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, di, ctx.causal, segment_ids)
+        qs = _prescaled(q)  # once, for both kernels
+        dq = flash_bwd_dq(q, k, v, dout, lse, di, ctx.causal, segment_ids, q_scaled=qs)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, di, ctx.causal, segment_ids, q_scaled=qs)
         return dq, dk, dv, None, None
 
 

@@ -12,7 +12,8 @@ kernels:
   page table, with the in-flight token folded in as a self column
   (``omchat_torch/csrc/paged_flash_decode.cu``);
 - K13 :func:`paged_flash_decode_manual` — K12's function with the pages
-  streamed through a ring of bulk asynchronous copies
+  streamed through a ring of bulk asynchronous copies, split-KV (a block
+  per chunk of a request's rows, then a merge)
   (``omchat_torch/csrc/paged_flash_decode_manual.cu``);
 - K14 :func:`paged_flash_prefill` — a causal prefill chunk attending through
   the page tables (``omchat_torch/csrc/paged_flash_prefill.cu``);
@@ -37,22 +38,35 @@ import torch
 
 from omchat_torch.ops import kernel_lib
 from omchat_torch.ops.attention import PLAIN, attention_reference, per_batch, self_column_reference
+from omchat_torch.ops.decode_attention import decode_splits, num_sms
 from omchat_torch.ops.flash_attention import LOG2E, _prescale_q, _require_cuda, flash_attention_plain
 from omchat_torch.ops.fp8 import cast_to
 
 # C signatures:
 # K4  k_pool, v_pool, pages, offsets, k_rows, v_rows, N, KVH, PS, D, stream
-# K12, K13 q, k_pages, v_pages, lengths, tables, k_new, v_new, out,
+# K12 q, k_pages, v_pages, lengths, tables, k_new, v_new, out,
 #     B, H, KVH, PS, D, table_stride, width, page_offset, stream
+# K13 q, k_pages, v_pages, lengths, tables, k_new, v_new, out, scratch,
+#     B, H, KVH, PS, D, table_stride, width, page_offset, splits, rows, stream
 # K14 q, k_pages, v_pages, out, q_offset, kv_len, tables,
 #     B, C, H, KVH, PS, D, table_stride, width, stream
 # K15 k_pool, v_pool, pages, k_src, v_src, M, C, stride_g, stride_c, stride_h, KVH, PS, D, stream
 _K4_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _K12_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_K13_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _K14_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _K15_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # The page sizes the CUDA attention kernels (K12, K13, K14) are built for.
 PAGE_SIZES = (16, 32, 64, 128)
+# K13 cuts a request's capacity into chunks of a multiple of this many rows
+# (the largest page size, so a chunk starts on a page boundary at every page
+# size), aiming at MANUAL_BLOCKS_PER_SM blocks an SM (two rings of ~100 KiB
+# share an SM's shared memory) and at most MANUAL_MAX_ROWS rows a chunk: a
+# block's 64-row stages wait one after another on the copies (~4-6 us each on
+# the H100, PERF.md), so a chunk of more stages sets the time.
+MANUAL_SPLIT_ROWS = 128
+MANUAL_BLOCKS_PER_SM = 2
+MANUAL_MAX_ROWS = 256
 
 
 class PageAllocator:
@@ -134,9 +148,10 @@ def paged_flash_decode_plain(q, k_pages, v_pages, lengths, page_tables, k_new=No
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
-def _launch_paged_decode(name, source, q, k_pages, v_pages, lengths, page_tables, k_new, v_new, page_offset):
-    """Check the operands of K12 or K13 (one contract) and launch the kernel
-    of ``source`` for the pool's dtype; returns [B, 1, H, D]."""
+def _paged_decode_operands(name, q, k_pages, v_pages, lengths, page_tables, k_new, v_new):
+    """Check the operands of K12 or K13 (one contract); returns the C entry's
+    suffix for the pool's dtype and the operands as the kernels take them:
+    (suffix, q, tables, lengths, k_new, v_new, out)."""
     B, S, H, D = q.shape
     _, KVH, PS, _ = k_pages.shape
     self_col = k_new is not None
@@ -150,17 +165,12 @@ def _launch_paged_decode(name, source, q, k_pages, v_pages, lengths, page_tables
     qc = q.contiguous()
     tables = _table_arg(page_tables, q.device)
     lens = _int32(lengths, q.device).expand(B).contiguous()
-    kn = k_new.contiguous() if self_col else None
-    vn = v_new.contiguous() if self_col else None
-    out = torch.empty_like(qc)
-    null = ctypes.c_void_p(0)
-    kernel_lib.launch(
-        source, "omchat_" + name + suffix, _K12_ARGS,
-        *map(kernel_lib.ptr, (qc, k_pages, v_pages, lens, tables)),
-        kernel_lib.ptr(kn) if self_col else null, kernel_lib.ptr(vn) if self_col else null, kernel_lib.ptr(out),
-        B, H, KVH, PS, D, tables.stride(0), tables.shape[1], int(page_offset), kernel_lib.stream_ptr(q.device),
-    )
-    return out
+    kn, vn = (k_new.contiguous(), v_new.contiguous()) if self_col else (None, None)
+    return suffix, qc, tables, lens, kn, vn, torch.empty_like(qc)
+
+
+def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0) if t is None else kernel_lib.ptr(t)
 
 
 def paged_flash_decode(
@@ -186,8 +196,15 @@ def paged_flash_decode(
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pages, v_pages, lengths, page_tables, k_new, v_new,
                                         page_offset=page_offset)
-    out = _launch_paged_decode("paged_flash_decode", "paged_flash_decode.cu", q, k_pages, v_pages, lengths,
-                               page_tables, k_new, v_new, page_offset)
+    B, _, H, D = q.shape
+    KVH, PS = k_pages.shape[1:3]
+    suffix, qc, tables, lens, kn, vn, out = _paged_decode_operands("paged_flash_decode", q, k_pages, v_pages,
+                                                                   lengths, page_tables, k_new, v_new)
+    kernel_lib.launch(
+        "paged_flash_decode.cu", "omchat_paged_flash_decode" + suffix, _K12_ARGS,
+        *map(kernel_lib.ptr, (qc, k_pages, v_pages, lens, tables)), _opt_ptr(kn), _opt_ptr(vn), kernel_lib.ptr(out),
+        B, H, KVH, PS, D, tables.stride(0), tables.shape[1], int(page_offset), kernel_lib.stream_ptr(q.device),
+    )
     paged_flash_decode.launches += 1
     return out
 
@@ -207,6 +224,17 @@ def paged_flash_decode_manual_plain(q, k_pages, v_pages, lengths, page_tables, k
     return paged_flash_decode_plain(q, k_pages, v_pages, lengths, page_tables, k_new, v_new, page_offset=page_offset)
 
 
+def manual_splits(B: int, KVH: int, capacity: int, num_sms: int) -> tuple:
+    """How K13 cuts a request's ``capacity`` rows (the table width times the
+    page size): ``(splits, rows)``, the rows of :func:`decode_splits` with
+    ``MANUAL_SPLIT_ROWS``-row tiles and the blocks the card holds at once,
+    at most ``MANUAL_MAX_ROWS``.  Never reads the lengths, which live on the
+    card."""
+    rows = min(decode_splits(B, KVH, capacity, num_sms * MANUAL_BLOCKS_PER_SM, tile=MANUAL_SPLIT_ROWS)[1],
+               MANUAL_MAX_ROWS)
+    return -(-capacity // rows), rows
+
+
 def paged_flash_decode_manual(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -218,16 +246,30 @@ def paged_flash_decode_manual(
     *,
     page_offset: int = 0,
 ) -> torch.Tensor:
-    """:func:`paged_flash_decode`'s contract, on the manual-copy kernel: a
-    producer warp streams each (kv head, request)'s page slices through a
-    ring of ``cp.async.bulk`` copies completing on mbarriers while consumer
-    warps run the online softmax (the counterpart of the TPU kernel's NBUF
-    ring of async copies).  Returns [B, 1, H, D]."""
+    """:func:`paged_flash_decode`'s contract, on the manual-copy kernel,
+    split-KV: each request's capacity (the table width times the page size)
+    is cut into :func:`manual_splits` chunks on the host; a block per (chunk,
+    kv head, request) has a producer warp stream the chunk's page slices
+    through a ring of ``cp.async.bulk`` copies completing on mbarriers (the
+    counterpart of the TPU kernel's NBUF ring of async copies) while consumer
+    warps run the online softmax, and writes its fp32 softmax state to a
+    scratch; a second kernel, launched from the same C entry, merges the
+    chunks and folds the self column in.  Returns [B, 1, H, D]."""
     if q.device.type == "cpu":
         return paged_flash_decode_manual_plain(q, k_pages, v_pages, lengths, page_tables, k_new, v_new,
                                                page_offset=page_offset)
-    out = _launch_paged_decode("paged_flash_decode_manual", "paged_flash_decode_manual.cu", q, k_pages, v_pages,
-                               lengths, page_tables, k_new, v_new, page_offset)
+    B, _, H, D = q.shape
+    KVH, PS = k_pages.shape[1:3]
+    suffix, qc, tables, lens, kn, vn, out = _paged_decode_operands("paged_flash_decode_manual", q, k_pages, v_pages,
+                                                                   lengths, page_tables, k_new, v_new)
+    splits, rows = manual_splits(B, KVH, tables.shape[1] * PS, num_sms(q.device.index))
+    scratch = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
+    kernel_lib.launch(
+        "paged_flash_decode_manual.cu", "omchat_paged_flash_decode_manual" + suffix, _K13_ARGS,
+        *map(kernel_lib.ptr, (qc, k_pages, v_pages, lens, tables)), _opt_ptr(kn), _opt_ptr(vn),
+        kernel_lib.ptr(out), kernel_lib.ptr(scratch), B, H, KVH, PS, D, tables.stride(0), tables.shape[1],
+        int(page_offset), splits, rows, kernel_lib.stream_ptr(q.device),
+    )
     paged_flash_decode_manual.launches += 1
     return out
 

@@ -23,8 +23,9 @@ tail, at the edges of the 128-row tiles (S = 127, 128, 129, 257), a
 ViT-like 1 x 1025 at 25 heads and a packed case whose document boundaries
 fall inside 128-row tiles: outputs and gradients within the bf16 tolerance
 above, lse atol 1e-3
-(fp32 sums in another order), padding rows lse = -inf and output 0, and
-dK/dV bitwise the same on a second run (no atomics).  The fp8 (e4m3) KV
+(fp32 sums in another order), padding rows lse = -inf and output 0 (and
+dQ 0 where lse = -inf), dQ and dK/dV bitwise the same on a second run (no
+atomics), and a k whose base TMA cannot take refused.  The fp8 (e4m3) KV
 cache: K2, K3, K12, K13 and K14 over e4m3 caches at the bf16 tolerance, but
 K2, whose p is rounded to e4m3 against the running row max (the plain version
 rounds it against the row's global max, as the TPU kernel and its XLA
@@ -40,6 +41,10 @@ e4m3 caches at ragged lengths, lengths 0 and 1, at a chunk's edges (chunk -
 1, chunk, chunk + 1) and T, 16 ragged requests, K3 at layer 27 of a 28-layer
 stack, with keys planted at every chunk edge, two launches bitwise equal;
 K6 against K3 with the self column on the same step (the bf16 tolerance).
+K13 (split-KV over the page tables' capacity) on both pools at lengths 0, 1
+and a chunk's edges, with one request filling every chunk and the others
+only the first, bitwise the same on a second launch and under a CUDA-graph
+replay over new lengths.
 """
 
 import pytest
@@ -372,10 +377,12 @@ TRAIN_CASES = [(1, 200, 4, 2, True, False), (2, 77, 7, 1, False, False), (1, 130
                (1, 127, 7, 1, True, False), (1, 128, 7, 1, True, False), (1, 129, 7, 1, True, False),
                (2, 257, 14, 2, True, False), (1, 1025, 25, 25, False, False),
                # document boundaries at rows 76 and 192: inside 128-row tiles
-               (1, 384, 28, 4, True, True)]
+               (1, 384, 28, 4, True, True),
+               # boundaries at rows 205 and 1018: inside 64-row kv tiles (K16b's), a ragged tail past 1024
+               (1, 1025, 28, 4, True, True)]
 TRAIN_IDS = ["causal_group2_ragged", "noncausal_group7", "noncausal_mha_packed", "causal_group7_packed",
              "causal_group7_s127", "causal_group7_s128", "causal_group7_s129", "causal_group7_s257",
-             "vit_like_1025_mha", "causal_group7_packed_boundary_in_tile"]
+             "vit_like_1025_mha", "causal_group7_packed_boundary_in_tile", "causal_group7_packed_1025"]
 
 
 @pytest.mark.parametrize("B,S,H,KVH,causal,packed", TRAIN_CASES, ids=TRAIN_IDS)
@@ -403,9 +410,46 @@ def test_flash_bwd_dq_kernel(gen, B, S, H, KVH, causal, packed):
     di = fb.flash_di(do, out)
     n0 = fb.flash_bwd_dq.launches
     dq = fb.flash_bwd_dq(q, k, v, do, lse, di, causal, seg)
+    again = fb.flash_bwd_dq(q, k, v, do, lse, di, causal, seg, q_scaled=fb._prescaled(q))
     torch.cuda.synchronize()
-    assert fb.flash_bwd_dq.launches == n0 + 1
+    assert fb.flash_bwd_dq.launches == n0 + 2
+    assert torch.equal(dq, again)  # a block owns its rows' dQ: bitwise the same every run
     torch.testing.assert_close(dq.float(), fb.flash_bwd_dq_plain(q, k, v, do, lse, di, causal, seg).float(), **TOL)
+    if seg is not None:  # padding rows (lse = -inf) get zero gradient
+        assert bool((dq[seg < 0] == 0).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_dq_kernel_zero_rows_where_lse_is_minus_inf(gen, causal):
+    """A row whose lse is -inf (no valid column) gets a zero dQ row, in a
+    ragged tail and mid-tile, without segment ids."""
+    from omchat_torch.ops import flash_attention_bwd as fb
+
+    q, k, v, do, _ = _train_attn_case(gen, 2, 200, 14, 2, False)
+    out, lse = fb.flash_fwd_plain(q, k, v, causal)
+    di = fb.flash_di(do, out)
+    rows = [0, 63, 64, 130, 199]
+    lse[:, :, rows] = float("-inf")
+    dq = fb.flash_bwd_dq(q, k, v, do, lse, di, causal)
+    torch.cuda.synchronize()
+    assert bool((dq[:, rows] == 0).all())
+    torch.testing.assert_close(dq.float(), fb.flash_bwd_dq_plain(q, k, v, do, lse, di, causal).float(), **TOL)
+
+
+def test_flash_bwd_dq_kernel_refuses_a_misaligned_base(gen):
+    """TMA needs a 16-byte aligned base: a k one element into its storage is
+    refused, and nothing launches."""
+    from omchat_torch.ops import flash_attention_bwd as fb
+
+    q, k, v, do, _ = _train_attn_case(gen, 1, 128, 4, 2, False)
+    k_off = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")[1:].view(k.shape)
+    k_off.copy_(k)
+    out, lse = fb.flash_fwd_plain(q, k, v, True)
+    di = fb.flash_di(do, out)
+    n0 = fb.flash_bwd_dq.launches
+    with pytest.raises(RuntimeError, match="omchat_flash_attention_bwd_dq"):
+        fb.flash_bwd_dq(q, k_off, v, do, lse, di, True)
+    assert fb.flash_bwd_dq.launches == n0
 
 
 @pytest.mark.parametrize("B,S,H,KVH,causal,packed", TRAIN_CASES, ids=TRAIN_IDS)
@@ -459,6 +503,70 @@ def test_paged_decode_kernels_on_bf16_and_e4m3_pools(gen, kernel, lengths, self_
     assert fn.launches == n0 + 1
     ref = pa.paged_flash_decode_plain(q, kp, vp, lens, tables, kn, vn, page_offset=3)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+def _k13_case(gen, lengths, W, pool):
+    """K13's operands over a flat two-layer pool (the layer at page_offset P + 1)."""
+    H, KVH, D = 28, 4, 128
+    P = sum(-(-n // 128) for n in lengths) + 2
+    kp, vp, tables = _paged_pool(gen, P, KVH, D, lengths, W)
+    kp = torch.cat([_randn(gen, P + 1, *kp.shape[1:]), kp])
+    vp = torch.cat([_randn(gen, P + 1, *vp.shape[1:]), vp])
+    if pool == "e4m3":
+        kp, vp = to_e4m3(kp), to_e4m3(vp)
+    B = len(lengths)
+    q, kn, vn = _randn(gen, B, 1, H, D), _randn(gen, B, KVH, D), _randn(gen, B, KVH, D)
+    return q, kp, vp, torch.tensor(lengths, dtype=torch.int32, device="cuda"), tables, kn, vn, P + 1
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+@pytest.mark.parametrize("case", ["chunk_edges", "one_request_fills_every_chunk"])
+def test_paged_decode_manual_split_kv(gen, case, pool):
+    """K13 cuts each request's capacity into chunks (manual_splits): lengths
+    0, 1 and at a chunk's edges (chunk - 1, chunk, chunk + 1), and a batch in
+    which one request fills every chunk and the others only the first, against
+    the plain version; a second launch is bitwise the same (fixed merge order)."""
+    W, KVH = 26, 4
+    chunk = pa.manual_splits(6, KVH, W * 128, _sms())[1]
+    lengths = ([0, 1, chunk - 1, chunk, chunk + 1, W * 128] if case == "chunk_edges"
+               else [W * 128, 5, chunk - 1, chunk, 100, 1])
+    q, kp, vp, lens, tables, kn, vn, off = _k13_case(gen, lengths, W, pool)
+    assert pa.manual_splits(len(lengths), KVH, W * 128, _sms())[0] > 1, "the capacity must span several chunks"
+    n0 = pa.paged_flash_decode_manual.launches
+    out = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    again = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode_manual.launches == n0 + 2
+    assert torch.equal(out, again)
+    ref = pa.paged_flash_decode_plain(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    if 0 in lengths:  # no page read: exactly v_new
+        b = lengths.index(0)
+        assert torch.equal(out[b, 0], vn[b].repeat_interleave(q.shape[2] // KVH, dim=0))
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+def test_paged_decode_manual_replays_under_a_cuda_graph(gen, pool):
+    """K13's two launches and its scratch capture into a CUDA graph; a replay
+    over new lengths (read on the card, not the host) equals the eager call."""
+    W, KVH = 20, 4
+    lengths = [2500, 64, 300, 1000, 0, 129, 2047, 512]
+    q, kp, vp, lens, tables, kn, vn, off = _k13_case(gen, lengths, W, pool)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    lens.copy_(torch.tensor([2500, 1, 255, 256, 257, 128, 2000, 0], dtype=torch.int32))
+    graph.replay()
+    want = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ref = pa.paged_flash_decode_plain(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL)
 
 
 def test_flash_attention_and_decode_kernels_e4m3(gen):

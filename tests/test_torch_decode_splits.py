@@ -1,10 +1,15 @@
 """``ops.decode_attention.decode_splits``: how the split-KV decode kernels (K3
-and K6) cut a cache of T rows over blocks.  A plain host function of the
-capacity, the batch, the kv heads and the card's SM count, so it runs here."""
+and K6, and through ``ops.paged_attention.manual_splits`` K13) cut a cache of
+T rows over blocks.  A plain host function of the capacity, the batch, the kv
+heads and the card's SM count, so it runs here."""
+
+import os
+import re
 
 import pytest
 
 from omchat_torch.ops.decode_attention import SPLIT_ROWS, decode_splits
+from omchat_torch.ops.paged_attention import MANUAL_MAX_ROWS, MANUAL_SPLIT_ROWS, PAGE_SIZES, manual_splits
 
 SHAPES = [(1, 4, 3328, 132), (16, 4, 3328, 132), (1, 4, 256, 132), (2, 2, 300, 132), (1, 4, 3328, 114),
           (3, 4, 4096, 132), (64, 4, 3328, 132), (1, 1, 65, 8)]
@@ -47,3 +52,76 @@ def test_depends_on_its_arguments_only():
     first = [decode_splits(*shape) for shape in SHAPES]
     assert [decode_splits(*shape) for shape in reversed(SHAPES)][::-1] == first
     assert all(isinstance(n, int) and isinstance(r, int) for n, r in first)
+
+
+def _k3_splits_before_the_tile_argument(B, KVH, T, sms):
+    """decode_splits as K3 and K6 had it before it took a tile: their cut must not move."""
+    tiles = max(1, -(-T // 64))
+    rows = min(tiles, max(1, tiles * B * KVH // sms)) * 64
+    return max(1, -(-T // rows)), rows
+
+
+@pytest.mark.parametrize("B,KVH,T,sms", SHAPES)
+def test_k3_and_k6_splits_are_unchanged(B, KVH, T, sms):
+    assert decode_splits(B, KVH, T, sms) == _k3_splits_before_the_tile_argument(B, KVH, T, sms)
+    assert decode_splits(B, KVH, T, sms, tile=SPLIT_ROWS) == decode_splits(B, KVH, T, sms)
+    if (B, KVH, T, sms) == (1, 4, 3328, 132):
+        assert decode_splits(B, KVH, T, sms) == (52, 64)
+
+
+# K13 at the serving engine's shapes: 16 slots of 4 kv heads over tables of 1-32 pages of 128 rows, and
+# capacities that are no multiple of 128 (a width of 19 pages of 16 rows)
+MANUAL_SHAPES = [(16, 4, 20 * 128, 132), (16, 4, 128, 132), (16, 4, 32 * 128, 132), (1, 4, 3328, 132),
+                 (6, 4, 3328, 132), (4, 2, 19 * 16, 132), (3, 4, 1000 * 16, 114), (16, 4, 26 * 128, 8)]
+
+
+def _k13_stage_rows() -> int:
+    """The rows of one stage of K13's ring, as its source declares them."""
+    src = os.path.join(os.path.dirname(__file__), "..", "omchat_torch", "csrc", "paged_flash_decode_manual.cu")
+    with open(src) as f:
+        return int(re.search(r"constexpr int STAGE_ROWS = (\d+);", f.read()).group(1))
+
+
+@pytest.mark.parametrize("B,KVH,cap,sms", MANUAL_SHAPES)
+def test_k13_chunks_are_multiples_of_its_stage(B, KVH, cap, sms):
+    stage = _k13_stage_rows()
+    _, rows = manual_splits(B, KVH, cap, sms)
+    assert rows > 0 and rows % stage == 0 and rows % MANUAL_SPLIT_ROWS == 0
+
+
+@pytest.mark.parametrize("B,KVH,cap,sms", MANUAL_SHAPES)
+def test_k13_every_row_lies_in_exactly_one_chunk(B, KVH, cap, sms):
+    splits, rows = manual_splits(B, KVH, cap, sms)
+    chunks = [range(s * rows, min((s + 1) * rows, cap)) for s in range(splits)]
+    assert all(len(c) > 0 for c in chunks)
+    assert [r for c in chunks for r in c] == list(range(cap))
+
+
+@pytest.mark.parametrize("PS", PAGE_SIZES)
+@pytest.mark.parametrize("B,KVH,cap,sms", MANUAL_SHAPES)
+def test_k13_chunks_start_on_page_boundaries(B, KVH, cap, sms, PS):
+    """A chunk boundary is a page boundary at every page size the kernels are built for."""
+    splits, rows = manual_splits(B, KVH, cap, sms)
+    assert all((s * rows) % PS == 0 for s in range(splits))
+
+
+@pytest.mark.parametrize("B,KVH,cap,sms", MANUAL_SHAPES)
+def test_k13_split_reads_only_the_capacity(B, KVH, cap, sms):
+    """The same capacity in pages of any size is cut the same way (so page
+    size 32 can compute page size 128's bits): decode_splits's rows for two
+    blocks an SM, at most MANUAL_MAX_ROWS."""
+    rows = min(decode_splits(B, KVH, cap, 2 * sms, tile=MANUAL_SPLIT_ROWS)[1], MANUAL_MAX_ROWS)
+    assert manual_splits(B, KVH, cap, sms) == (-(-cap // rows), rows)
+    for PS in PAGE_SIZES:
+        if cap % PS == 0:
+            assert manual_splits(B, KVH, (cap // PS) * PS, sms) == manual_splits(B, KVH, cap, sms)
+
+
+def test_k13_serving_shape_spreads_the_longest_request():
+    """The serving workload's 16 slots of 4 kv heads over 32-page tables (4096
+    rows): 256-row chunks, at most 4 stages a block, so the workload's longest
+    request (~2.5k rows) is read by 10 blocks a kv head; one long request
+    alone is cut finer, into 128-row chunks, to fill the card."""
+    assert manual_splits(16, 4, 32 * 128, 132) == (16, 256)
+    assert manual_splits(1, 4, 32 * 128, 132) == (32, 128)
+    assert all(manual_splits(*shape)[1] <= MANUAL_MAX_ROWS for shape in MANUAL_SHAPES)

@@ -189,3 +189,34 @@ def test_wrappers_route_cpu_bf16_tensors_to_the_plain_versions():
     rk, rv = fb.flash_bwd_dkv_plain(tq, tk, tv, tw, lse, di, True, ts)
     assert torch.equal(dk, rk) and torch.equal(dv, rv)
     assert (fb.flash_fwd.launches, fb.flash_bwd_dq.launches, fb.flash_bwd_dkv.launches) == n0
+
+
+@pytest.mark.parametrize("name", ["causal_gqa7_1_ragged200", "packed_noncausal_gqa7_1"])
+def test_backward_hands_both_kernels_one_prescaled_q(name, monkeypatch):
+    """The backward computes q * D^-0.5 once (``_prescaled``) and hands the
+    same tensor to the dQ and dK/dV wrappers as ``q_scaled``; on the CPU route
+    the gradients still match the JAX package's flash_attention_trainable in
+    interpret mode within the JAX package's limits."""
+    c = CASES[name]
+    q, k, v, w, seg = _inputs(c, seed=11)
+    ref_out, ref_grads = _jax_side(c, q, k, v, w, seg)
+    handed = {}
+
+    def recording(fn, key):
+        def wrapper(*args, q_scaled=None, **kw):
+            handed[key] = q_scaled
+            return fn(*args, q_scaled=q_scaled, **kw)
+        return wrapper
+
+    monkeypatch.setattr(fb, "flash_bwd_dq", recording(fb.flash_bwd_dq, "dq"))
+    monkeypatch.setattr(fb, "flash_bwd_dkv", recording(fb.flash_bwd_dkv, "dkv"))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    ts = None if seg is None else torch.from_numpy(seg)
+    out = fb.flash_attention_trainable(tq, tk, tv, c["causal"], ts)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert handed["dq"] is handed["dkv"] is not None
+    assert torch.equal(handed["dq"], fb._prescaled(tq.detach()))
+    valid = np.ones(q.shape[:2], bool) if seg is None else seg >= 0
+    np.testing.assert_allclose(out.detach().numpy()[valid], ref_out[valid], **OUT_TOL)
+    for got, ref, n in zip((tq.grad, tk.grad, tv.grad), ref_grads, "qkv"):
+        np.testing.assert_allclose(got.numpy(), ref, err_msg=f"d{n}", **GRAD_TOL)
