@@ -1,6 +1,6 @@
 """K1, K2 (bf16, e4m3, batched prefill), K5, K14, K16a (the training
 forward, LLM, ViT and packed), K16b (the training dQ, the same three), K3
-(bf16 and e4m3), K6 and K13 (bf16 and e4m3 pools) at their PERF.md
+(bf16 and e4m3), K6, K12 and K13 (bf16 and e4m3 pools) at their PERF.md
 section-6 shapes, timed from
 the ``omchat_torch`` package under ``--root``, so that two trees (a parent
 commit unpacked with ``git archive``, and this one) are read on one card in
@@ -15,14 +15,17 @@ eager statistics; K16a with its ``q * scale`` pass; K16b given the
 backward's prescaled q where its wrapper takes one, ``q_scaled``), the cases
 read in turns (``--cases K16a,K3``: only those whose names start so).  The
 decode cases walk 28 layers (K3: the stacked cache, at the 31 decode lengths
-3187-3217; K13: a layered page pool at the serving workload's mid-decode
-point, 16 requests of 64-2455 rows over 32-page tables) or 28 per-layer
-caches (K6: length 3188), so that every launch reads from HBM; "K3",
-"K3_e4m3", "K6", "K13" and "K13_e4m3" are one call's device time (the 28
-calls of a walk graphed, ``chip_smoke.graphed``), "... eager" one call
-issued from the host.  ``--k13-rows 256,512`` also reads K13 (graphed, bf16
-pool) with its chunks set to each of those row counts ("K13 rows=256"), to
-choose the split.  Prints one JSON line: the card, the label and {case:
+3187-3217; K12 and K13: a layered page pool at the serving workload's
+mid-decode point, 16 requests of 64-2455 rows over 32-page tables) or 28
+per-layer caches (K6: length 3188), so that every launch reads from HBM;
+"K3", "K3_e4m3", "K6", "K12", "K12_e4m3", "K13" and "K13_e4m3" are one
+call's device time (the 28 calls of a walk graphed,
+``chip_smoke.graphed``), "... eager" one call issued from the host.
+``--k13-rows 256,512`` also reads K13 (graphed, bf16 pool) with its chunks
+set to each of those row counts ("K13 rows=256"), to choose the split.
+``--save-outputs FILE`` writes K12's and K13's outputs on layer 0 of that
+pool (both pools) with ``torch.save``, so that two trees' outputs can be
+compared bit for bit.  Prints one JSON line: the card, the label and {case:
 median ms}.  Needs one NVIDIA GPU.
 """
 import argparse
@@ -49,6 +52,7 @@ def main() -> int:
     ap.add_argument("--cases", default="", help="read only the cases whose names start with one of these "
                                                  "comma-separated prefixes")
     ap.add_argument("--k13-rows", default="", help="comma-separated chunk rows at which to read K13 as well")
+    ap.add_argument("--save-outputs", default="", help="torch.save K12's and K13's layer-0 outputs to this file")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, os.path.abspath(args.root))
@@ -67,7 +71,8 @@ def main() -> int:
         print("attention_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sources = ("flash_attention.cu", "packed_qkv_norm_attention.cu", "paged_flash_prefill.cu",
-               "flash_attention_bwd.cu", "flash_decode_stacked.cu", "paged_flash_decode_manual.cu")
+               "flash_attention_bwd.cu", "flash_decode_stacked.cu", "paged_flash_decode.cu",
+               "paged_flash_decode_manual.cu")
     kernel_lib.build_all(sources)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -133,6 +138,14 @@ def main() -> int:
     def k13(k, v):
         return pa.paged_flash_decode_manual(q13, k, v, len13, tab13, kn13, vn13, page_offset=(next(step) % L) * NP)
 
+    def k12(k, v):
+        return pa.paged_flash_decode(q13, k, v, len13, tab13, kn13, vn13, page_offset=(next(step) % L) * NP)
+
+    if args.save_outputs:
+        torch.save({f"{name}{suffix}": fn(q13, k, v, len13, tab13, kn13, vn13).cpu()
+                    for name, fn in (("K12", pa.paged_flash_decode), ("K13", pa.paged_flash_decode_manual))
+                    for suffix, k, v in (("", kpool, vpool), ("_e4m3", kpool8, vpool8))}, args.save_outputs)
+
 
     # K3 / K6: one decode token over 28 layers of a [1, 4, 3328, 128] cache, walked in turn
     kd, vd = randn(L, 1, KVH, T, D), randn(L, 1, KVH, T, D)
@@ -167,18 +180,21 @@ def main() -> int:
         "K3 eager": lambda: k3(kd, vd),
         "K3_e4m3 eager": lambda: k3(kd8, vd8),
         "K6 eager": k6,
+        "K12 eager": lambda: k12(kpool, vpool),
+        "K12_e4m3 eager": lambda: k12(kpool8, vpool8),
         "K13 eager": lambda: k13(kpool, vpool),
         "K13_e4m3 eager": lambda: k13(kpool8, vpool8),
     }
     graphs = {name.split()[0]: name for name in cases if name.endswith(" eager")}
 
     def k13_at(rows):  # K13 with its chunks set to `rows` rows, captured while the split is patched
-        saved = pa.manual_splits
-        pa.manual_splits = lambda B, KVH, cap, sms: (-(-cap // rows), rows)
+        name = "paged_splits" if hasattr(pa, "paged_splits") else "manual_splits"  # a tree before K12 took it
+        saved = getattr(pa, name)
+        setattr(pa, name, lambda B, KVH, cap, sms: (-(-cap // rows), rows))
         try:
             return graphed(lambda: k13(kpool, vpool), L)
         finally:
-            pa.manual_splits = saved
+            setattr(pa, name, saved)
 
     def time_ms(fn):
         for _ in range(3):

@@ -8,7 +8,11 @@
 //   mode 1: C[64 x 128] = P V       P [64 x 128] in registers, V: a 128-row tile (MN-major, m64n128k16, rs)
 //   mode 2: C[64 x 64]  = A B^T     A, B: 64-row tiles (K-major, m64n64k16)
 //   mode 3: C[64 x 128] = P V       P [64 x 64] in registers, V: a 64-row tile (MN-major)
+//   mode 4: C[64 x 128] = A B^T     int8 (s32 out): A rows 64..127 of a 128-row [128 x 128] tile, B a
+//                                   [128 x 128] tile, both K-major by s8_gemm_sm90.cuh's rank-2 maps,
+//                                   descriptors and m64n128k32 s8 (omchat_s8_probe)
 #include "common.cuh"
+#include "s8_gemm_sm90.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -90,7 +94,55 @@ __global__ void __launch_bounds__(128) probe_kernel(const __grid_constant__ CUte
     }
 }
 
+// mode 4: one warpgroup, the tiles by s8gemm::tma_load_2d, four k32 steps of s8gemm's descriptors.
+__global__ void __launch_bounds__(128) s8_probe_kernel(const __grid_constant__ CUtensorMap map_a,
+                                                       const __grid_constant__ CUtensorMap map_b, int* c) {
+    extern __shared__ unsigned char raw[];
+    unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+    int8_t* ta = reinterpret_cast<int8_t*>(base);          // 128 rows x 128 bytes
+    int8_t* tb = reinterpret_cast<int8_t*>(base + 16384);  // 128 rows x 128 bytes
+    uint64_t* bar = reinterpret_cast<uint64_t*>(base + 32768);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    if (tid == 0) {
+        sm90::mbar_init(bar, 1);
+        sm90::mbar_fence_init();
+    }
+    __syncthreads();
+    if (tid == 0) {
+        sm90::mbar_arrive_expect_tx(bar, 2 * 128 * 128);
+        s8gemm::tma_load_2d(ta, &map_a, bar, 0, 0);
+        s8gemm::tma_load_2d(tb, &map_b, bar, 0, 0);
+    }
+    sm90::mbar_wait(bar, 0);
+    int d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+        s8gemm::wgmma_m64n128k32_s8(d, s8gemm::desc(sm90::smem_u32(ta), 64, kk), s8gemm::desc(sm90::smem_u32(tb), 0, kk),
+                                    kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    s8gemm::reg_fence(d);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[(16 * warp + g + 8 * (e / 2)) * 128 + 8 * j + 2 * t + (e % 2)] = d[4 * j + e];
+}
+
 }  // namespace
+
+// a, b: [128, 128] int8; c: [64, 128] int32 (rows 64..127 of a times b^T)
+extern "C" int omchat_s8_probe(const void* a, const void* b, void* c, void* stream) {
+    CUtensorMap ma, mb;
+    if (!s8gemm::matrix_map(&ma, a, 128, 128, 128) || !s8gemm::matrix_map(&mb, b, 128, 128, 128))
+        return (int)cudaErrorInvalidValue;
+    const int smem = 32768 + 1024 + 64;
+    cudaFuncSetAttribute(s8_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    s8_probe_kernel<<<1, 128, smem, (cudaStream_t)stream>>>(ma, mb, (int*)c);
+    return (int)cudaGetLastError();
+}
 
 // a, b: [rows, 128] bf16 (b is V in modes 1 and 3); p: [64, rows_b] bf16; c: [64, 128 or 64] fp32
 extern "C" int omchat_wgmma_probe(const void* a, const void* b, const void* p, void* c, int mode, void* stream) {

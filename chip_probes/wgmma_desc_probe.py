@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Check the wgmma descriptors and TMA maps of ``omchat_torch/csrc/sm90.cuh``
-on the card, one product at a time, against ``torch.matmul``.
+(bf16) and ``omchat_torch/csrc/s8_gemm_sm90.cuh`` (int8) on the card, one
+product at a time, against ``torch.matmul`` and ``torch._int_mm``.
 
     python3 chip_probes/wgmma_desc_probe.py
 
@@ -10,7 +11,10 @@ into 128-byte-swizzled shared memory: S = Q K^T (m64n128k16, both K-major,
 rows 64-127 of a 128-row tile), P V (m64n128k16, P in registers, V
 MN-major over 128 rows), K Q^T over 64-row tiles (m64n64k16) and P V over a
 64-row V.  Each fp32 result must match the fp32 product of the same bf16
-inputs within 1e-3 (sums in another order).  Exits 1 if a product fails.
+inputs within 1e-3 (sums in another order).  Then mode 4: an int8 A B^T
+(m64n128k32 s8, rows 64-127 of a 128-row A tile, both operands K-major from
+rank-2 TMA maps), which must equal ``torch._int_mm`` exactly (int32 sums are
+exact).  Exits 1 if a product fails.
 """
 
 from __future__ import annotations
@@ -42,7 +46,21 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(out)
     lib.omchat_wgmma_probe.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     lib.omchat_wgmma_probe.restype = ctypes.c_int
+    lib.omchat_s8_probe.argtypes = [ctypes.c_void_p] * 4
+    lib.omchat_s8_probe.restype = ctypes.c_int
     return lib
+
+
+def run_s8(lib, gen) -> int:
+    """Mode 4: the int8 product's largest |difference| from torch._int_mm (must be 0)."""
+    a = torch.randint(-128, 128, (128, 128), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-128, 128, (128, 128), generator=gen, device="cuda", dtype=torch.int8)
+    c = torch.full((64, 128), -(2**31), dtype=torch.int32, device="cuda")
+    err = lib.omchat_s8_probe(a.data_ptr(), b.data_ptr(), c.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"mode 4: launch failed ({err})")
+    torch.cuda.synchronize()
+    return int((c.long() - torch._int_mm(a[64:].contiguous(), b.t()).long()).abs().max())
 
 
 def run(lib, mode: int, gen) -> float:
@@ -80,6 +98,10 @@ def main() -> int:
         good = err <= 1e-3
         ok = ok and good
         print(f"mode {mode} ({what}): max_abs_err={err:.3g} {'ok' if good else 'FAILED'}", flush=True)
+    err = run_s8(lib, gen)
+    ok = ok and err == 0
+    print(f"mode 4 (int8 A B^T, m64n128k32 s8, rank-2 maps): max_abs_err={err} {'ok' if err == 0 else 'FAILED'}",
+          flush=True)
     return 0 if ok else 1
 
 

@@ -59,9 +59,10 @@
     quantized model; the glue kernels must launch on the short-prefill and
     chunk routes.
 11. w8a8 kernel phases: K7, K8, K9 and K11 at the shapes phase 9 handed
-    them, held against their plain versions (int8 codes, x', row scales) with
-    planted faults that must fall outside the limits; kernel, plain, library
-    (``torch._int_mm`` on the same GEMM, for K9 and K11) and bound times.
+    them, held against their plain versions (int8 codes, x', row scales; K11's
+    x' bitwise) with planted faults that must fall outside the limits;
+    kernel, plain, library (``torch._int_mm`` on the same GEMM, for K9 and
+    K11) and bound times.
 12. w8a8 kernels vs plain at full width and 2+2 layers: first-token logits
     through the glue kernels and through ``attn_impl="plain"`` (the unfused
     chain), no further apart than w8a8 moves the plain chain from bf16.
@@ -103,13 +104,14 @@
     entry off by one, the self column or p rounded to e4m3, phase 6's) must
     fall outside the limits.  K13 and K12 on the e4m3 pool, and their gather
     + SDPA calls, are read as device time (a walk over the 28 layers
-    graphed, ``decode_times``) beside the eager call; K13 against K12 on the
-    same inputs is logged as their max |diff| (the split-KV K13 sums in
-    another order).  The e4m3 stores of K4 and K15 bitwise at those
+    graphed, ``decode_times``) beside the eager call; K13 must equal K12
+    bit for bit on the same inputs, on both pools (they share chunks and
+    arithmetic).  The e4m3 stores of K4 and K15 bitwise at those
     shapes, and on all 65536 bf16 bit patterns against ``ops.fp8.to_e4m3``.
 18. Serving at full width and depth, phase 5's workload, three more runs:
     bf16 pool on K13, e4m3 pool on K12, e4m3 pool on K13 (pool GiB, the
-    first step leaving phase 5's tokens); then phase 3's request with an
+    first step leaving phase 5's tokens); each K13 run must give every
+    request the K12 run's tokens on its pool; then phase 3's request with an
     e4m3 cache (TTFT, decode tokens/s, peak GiB).
 19. fp8 at full width and 2+2 layers: first-token logits, e4m3 vs bf16 cache
     and kernels vs plain on e4m3, within FP8_LOGIT_GAP_REL of max |logit|; a
@@ -1374,7 +1376,7 @@ W8A8_ENTRY = {"omchat_rmsnorm_quant": ("rmsnorm_quant", slice(4, 6)),
               "omchat_add_rmsnorm_quant": ("add_rmsnorm_quant", slice(7, 9)),
               "omchat_fc1_gelu_quant": ("dense_prequant_gelu_quant", slice(7, 10)),
               "omchat_swiglu_quant": ("dense_prequant_swiglu_quant", slice(8, 11)),
-              "omchat_proj_glue_quant": ("attn_proj_glue_quant", slice(10, 12))}
+              "omchat_proj_glue_quant": ("attn_proj_glue_quant", slice(13, 15))}
 
 
 def record_w8a8_launches():
@@ -1702,6 +1704,8 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
         ref = dict(zip(("x", "codes", "rs"), qm.attn_proj_glue_quant_plain(a, x, p, ls, gamma)))
         tag = f"K11 attn_proj_glue_quant M={M} N={N}"
         st = check_quant(tag, {"x": xn, "codes": q, "rs": rs}, ref)
+        if not torch.equal(xn, ref["x"]):  # an exact int32 product and an elementwise epilogue
+            raise AssertionError(f"{tag}: x' must equal the plain version's bit for bit ({st['x_ulps']} ulps)")
         cases = [("residual skipped", lambda: qm.attn_proj_glue_quant_plain(a, torch.zeros_like(x), p, ls, gamma))]
         if vit:
             nob = {k: v for k, v in p.items() if k != "bias"}
@@ -2450,13 +2454,16 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
             4.0 * H * D * (cached + S),
             2 * KVH * cached * D * kp.element_size() + 2 * S * H * D * 2 + 2 * S * KVH * D * 2 + S * 4 + S * W * 4,
             f"S={S} decoding={busiest} cached={cached} W={W}", (2 * L, L // 4), in_turns=True, graph_calls=L)
-    k12_bf16 = pa.paged_flash_decode(q, *pools["bf16"], lens, tab, kn, vn, page_offset=LI * NP)
+    outs[("auto", "bf16")] = pa.paged_flash_decode(q, *pools["bf16"], lens, tab, kn, vn, page_offset=LI * NP)
     torch.cuda.synchronize()
-    splits, chunk = pa.manual_splits(S, KVH, W * PS, torch.cuda.get_device_properties(0).multi_processor_count)
-    log(f"K13 vs K12 on the same inputs (K13 split-KV: {splits} chunks of {chunk} rows, then a merge), max |diff|: "
-        f"bf16 pool {float((outs[('manual', 'bf16')].float() - k12_bf16.float()).abs().max()):.4g}, e4m3 pool "
-        f"{float((outs[('manual', 'e4m3')].float() - outs[('auto', 'e4m3')].float()).abs().max()):.4g}")
-    del q, qs, kn, vn, kn8, vn8, mask, outs, k12_bf16
+    splits, chunk = pa.paged_splits(S, KVH, W * PS, torch.cuda.get_device_properties(0).multi_processor_count)
+    diffs = {pool: float((outs[("manual", pool)].float() - outs[("auto", pool)].float()).abs().max())
+             for pool in ("bf16", "e4m3")}
+    log(f"K13 vs K12 on the same inputs (both split-KV: {splits} chunks of {chunk} rows, then a merge), max |diff|: "
+        f"bf16 pool {diffs['bf16']:.4g}, e4m3 pool {diffs['e4m3']:.4g}")
+    if any(not torch.equal(outs[("manual", pool)], outs[("auto", pool)]) for pool in ("bf16", "e4m3")):
+        raise AssertionError(f"K13 and K12 must compute the same bits on the same inputs: max |diff| {diffs}")
+    del q, qs, kn, vn, kn8, vn8, mask, outs
 
     # K14 (e4m3): the largest chunk's starts, lengths and tables; faults as phase 6's.
     kp8, vp8 = (p.view(L, NP, KVH, PS, D) for p in pools["e4m3"])
@@ -2662,8 +2669,10 @@ def fp8_serving(seed: int, base_tokens: list) -> dict:
     """Phase 18 at full width and depth, one model: phase 5's workload with
     the decode on K13 over the bf16 pool, then on K12 and on K13 over an e4m3
     pool (each must launch its decode kernel and not the other one); each
-    run's first step leaving phase 5's greedy tokens; then phase 3's request
-    with an e4m3 cache (K2, K3, K4 on their e4m3 variants)."""
+    run's first step leaving phase 5's greedy tokens; a K13 run must give
+    every request the K12 run's tokens on its pool (``base_tokens``, phase
+    5's, on bf16); then phase 3's request with an e4m3 cache (K2, K3, K4 on
+    their e4m3 variants)."""
     import torch
 
     from omchat_torch.config import OmChatConfig
@@ -2677,7 +2686,7 @@ def fp8_serving(seed: int, base_tokens: list) -> dict:
     params = build_model(cfg, seed)
     work = serving_workload(cfg)
     decode = {"auto": "paged_flash_decode", "manual": "paged_flash_decode_manual"}
-    runs = {}
+    runs, tokens = {}, {}
     for pool, kernel in (("bf16", "manual"), ("e4m3", "auto"), ("e4m3", "manual")):
         label = f"fp8 serving ({pool} pool, decode_kernel={kernel})"
         eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, decode_kernel=kernel,
@@ -2691,7 +2700,8 @@ def fp8_serving(seed: int, base_tokens: list) -> dict:
             res = timed_serving(eng, work, rec, counts, label)
         finally:
             undo()
-        steps = first_divergence(res.pop("tokens"), base_tokens)
+        tokens[(pool, kernel)] = res.pop("tokens")
+        steps = first_divergence(tokens[(pool, kernel)], base_tokens)
         res.update(pool_gib=(eng.k_pool.numel() * eng.k_pool.element_size() * 2) / 2**30,
                    first_divergence_step=min((s for s in steps if s is not None), default=None),
                    divergence_steps=steps, requests_identical_to_bf16_auto=steps.count(None))
@@ -2699,6 +2709,11 @@ def fp8_serving(seed: int, base_tokens: list) -> dict:
             f"{res['first_divergence_step']} (per request {steps})")
         if other.launches:
             raise AssertionError(f"{label}: the other decode kernel launched {other.launches} times")
+        if kernel == "manual":  # K13 computes K12's bits: the same greedy tokens as the K12 run on this pool
+            same = first_divergence(tokens[(pool, kernel)], base_tokens if pool == "bf16" else tokens[(pool, "auto")])
+            if any(s is not None for s in same):
+                raise AssertionError(f"{label}: the tokens leave the {pool} K12 run's (first step per request {same})")
+            log(f"{label}: every request's tokens equal the {pool}-pool K12 run's")
         if eng.k_pool.dtype != (E4M3 if pool == "e4m3" else torch.bfloat16):
             raise AssertionError(f"{label}: the pool is {eng.k_pool.dtype}")
         runs[(pool, kernel)] = res

@@ -253,85 +253,8 @@ __device__ __forceinline__ void load_q_group(uint32_t (&qa)[D / 16][4], const bf
     }
 }
 
-// K12's epilogue, called by every thread of the block:
-// merge the online-softmax states (m, l, acc of attend_tile) of warps
-// 0..NW-1 through the shared scratch `smem` (2 NW ROWS + ROWS + NW ROWS D
-// floats; warps >= NW hold no state), fold in the self column (k_row, v_row:
-// this request and kv head's in-flight K/V, or null) and write the group's
-// rows to `ob` [group, D].  The self column's p is rounded to bf16 for its
-// product, as in attend_tile; a row with no column at all writes zeros.
-template <int D, int NW, int ROWS>
-__device__ __forceinline__ void merge_fold_store(float* smem, const float (&m)[2], const float (&l)[2],
-                                                 const float (&acc)[D / 8][4], const bf16* qb, const bf16* k_row,
-                                                 const bf16* v_row, bf16* ob, int group, float scale_log2) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    float* m_s = smem;                 // [NW][ROWS]
-    float* l_s = m_s + NW * ROWS;      // [NW][ROWS]
-    float* self_s = l_s + NW * ROWS;   // [ROWS]
-    float* acc_s = self_s + ROWS;      // [NW][ROWS][D]
-    if (warp < NW) {
-        if (t == 0) {
-            m_s[warp * ROWS + g] = m[0];
-            m_s[warp * ROWS + g + 8] = m[1];
-            l_s[warp * ROWS + g] = l[0];
-            l_s[warp * ROWS + g + 8] = l[1];
-        }
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-            const int col = dt * 8 + 2 * t;
-            float* a0 = acc_s + ((size_t)warp * ROWS + g) * D + col;
-            float* a8 = acc_s + ((size_t)warp * ROWS + g + 8) * D + col;
-            a0[0] = acc[dt][0];
-            a0[1] = acc[dt][1];
-            a8[0] = acc[dt][2];
-            a8[1] = acc[dt][3];
-        }
-    }
-    // Self-column scores, one row per warp and pass (fp32 dot of bf16 inputs).
-    if (k_row != nullptr) {
-        for (int r = warp; r < group; r += blockDim.x >> 5) {
-            float s = 0.f;
-            for (int d = lane; d < D; d += 32) s += __bfloat162float(qb[(size_t)r * D + d]) * __bfloat162float(k_row[d]);
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-            if (lane == 0) self_s[r] = s * scale_log2;
-        }
-    }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < group * D; i += blockDim.x) {
-        const int r = i / D, d = i % D;
-        float mg = -INFINITY;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) mg = fmaxf(mg, m_s[w * ROWS + r]);
-        float lsum = 0.f, a = 0.f;
-        if (mg != -INFINITY) {
-#pragma unroll
-            for (int w = 0; w < NW; ++w) {
-                const float mw = m_s[w * ROWS + r];
-                if (mw == -INFINITY) continue;  // a warp that saw no column
-                const float sc = exp2f(mw - mg);
-                lsum += l_s[w * ROWS + r] * sc;
-                a += acc_s[((size_t)w * ROWS + r) * D + d] * sc;
-            }
-        }
-        if (v_row != nullptr) {
-            const float ss = self_s[r];
-            const float m_new = fmaxf(mg, ss);
-            const float alpha = exp2f(mg - m_new);  // mg = -inf (no cached row): 0
-            const float p = exp2f(ss - m_new);
-            lsum = lsum * alpha + p;
-            a = a * alpha + __bfloat162float(__float2bfloat16(p)) * __bfloat162float(v_row[d]);
-        }
-        ob[(size_t)r * D + d] = __float2bfloat16(lsum == 0.f ? 0.f : a / lsum);
-    }
-}
-
 // ---------------------------------------------------------------------------
-// Split-KV decode (K3, K6, K13): the cache's rows are cut
+// Split-KV decode (K3, K6, K12, K13): the cache's rows are cut
 // into chunks, a block of a chunk writes its q rows' fp32 softmax state
 // (store_split_state), and a second kernel merges the chunks of each q row
 // (split_merge_kernel, over combine_splits).  A state row is m and l (exp2

@@ -41,9 +41,10 @@ def decode_splits(B: int, KVH: int, T: int, num_sms: int, tile: int = SPLIT_ROWS
     A chunk is as few tiles as still give the grid of B x KVH x splits blocks
     one block for each of ``num_sms`` (all of T in one chunk when the batch's
     kv heads alone fill them, or T is one tile).  K3 and K6 take the default
-    64-row tile and the card's SM count; K13 (``ops.paged_attention``) takes
-    128-row tiles, so that a chunk starts on a page boundary at every page
-    size, and the blocks the card holds at once.
+    64-row tile and the card's SM count; K12 and K13
+    (``ops.paged_attention.paged_splits``) take 128-row tiles, so that a
+    chunk starts on a page boundary at every page size, and the blocks the
+    card holds at once.
     It reads only the capacity, never the lengths, which live on the card."""
     tiles = max(1, -(-T // tile))
     rows = min(tiles, max(1, tiles * B * KVH // num_sms)) * tile

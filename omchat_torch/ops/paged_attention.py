@@ -9,12 +9,14 @@ request maps logical blocks to physical pages through a page table.  Five
 kernels:
 
 - K12 :func:`paged_flash_decode` — one query token per request through its
-  page table, with the in-flight token folded in as a self column
-  (``omchat_torch/csrc/paged_flash_decode.cu``);
-- K13 :func:`paged_flash_decode_manual` — K12's function with the pages
-  streamed through a ring of bulk asynchronous copies, split-KV (a block
-  per chunk of a request's rows, then a merge)
-  (``omchat_torch/csrc/paged_flash_decode_manual.cu``);
+  page table, with the in-flight token folded in as a self column,
+  split-KV (a block per chunk of a request's rows, then a merge), its pages
+  copied by 16-byte ``cp.async`` (``omchat_torch/csrc/paged_flash_decode.cu``);
+- K13 :func:`paged_flash_decode_manual` — K12's function, chunks and
+  arithmetic (``omchat_torch/csrc/paged_decode_split.cuh``) with the pages
+  streamed through a ring of bulk asynchronous copies
+  (``omchat_torch/csrc/paged_flash_decode_manual.cu``): the two compute the
+  same bits;
 - K14 :func:`paged_flash_prefill` — a causal prefill chunk attending through
   the page tables (``omchat_torch/csrc/paged_flash_prefill.cu``);
 - K4 :func:`commit_rows` — single-token rows written in place
@@ -44,29 +46,26 @@ from omchat_torch.ops.fp8 import cast_to
 
 # C signatures:
 # K4  k_pool, v_pool, pages, offsets, k_rows, v_rows, N, KVH, PS, D, stream
-# K12 q, k_pages, v_pages, lengths, tables, k_new, v_new, out,
-#     B, H, KVH, PS, D, table_stride, width, page_offset, stream
-# K13 q, k_pages, v_pages, lengths, tables, k_new, v_new, out, scratch,
+# K12, K13 q, k_pages, v_pages, lengths, tables, k_new, v_new, out, scratch,
 #     B, H, KVH, PS, D, table_stride, width, page_offset, splits, rows, stream
 # K14 q, k_pages, v_pages, out, q_offset, kv_len, tables,
 #     B, C, H, KVH, PS, D, table_stride, width, stream
 # K15 k_pool, v_pool, pages, k_src, v_src, M, C, stride_g, stride_c, stride_h, KVH, PS, D, stream
 _K4_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_K12_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_K13_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_SPLIT_DECODE_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _K14_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _K15_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 # The page sizes the CUDA attention kernels (K12, K13, K14) are built for.
 PAGE_SIZES = (16, 32, 64, 128)
-# K13 cuts a request's capacity into chunks of a multiple of this many rows
-# (the largest page size, so a chunk starts on a page boundary at every page
-# size), aiming at MANUAL_BLOCKS_PER_SM blocks an SM (two rings of ~100 KiB
-# share an SM's shared memory) and at most MANUAL_MAX_ROWS rows a chunk: a
+# K12 and K13 cut a request's capacity into chunks of a multiple of this many
+# rows (the largest page size, so a chunk starts on a page boundary at every
+# page size), aiming at SPLIT_BLOCKS_PER_SM blocks an SM (two rings of ~100
+# KiB share an SM's shared memory) and at most SPLIT_MAX_ROWS rows a chunk: a
 # block's 64-row stages wait one after another on the copies (~4-6 us each on
 # the H100, PERF.md), so a chunk of more stages sets the time.
-MANUAL_SPLIT_ROWS = 128
-MANUAL_BLOCKS_PER_SM = 2
-MANUAL_MAX_ROWS = 256
+SPLIT_TILE_ROWS = 128
+SPLIT_BLOCKS_PER_SM = 2
+SPLIT_MAX_ROWS = 256
 
 
 class PageAllocator:
@@ -173,6 +172,44 @@ def _opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(0) if t is None else kernel_lib.ptr(t)
 
 
+def paged_splits(B: int, KVH: int, capacity: int, num_sms: int) -> tuple:
+    """How K12 and K13 cut a request's ``capacity`` rows (the table width
+    times the page size): ``(splits, rows)``, the rows of
+    :func:`decode_splits` with ``SPLIT_TILE_ROWS``-row tiles and the blocks
+    the card holds at once, at most ``SPLIT_MAX_ROWS``.  The one cut of both
+    kernels, so that they compute the same bits.  Never reads the lengths,
+    which live on the card."""
+    rows = min(decode_splits(B, KVH, capacity, num_sms * SPLIT_BLOCKS_PER_SM, tile=SPLIT_TILE_ROWS)[1],
+               SPLIT_MAX_ROWS)
+    return -(-capacity // rows), rows
+
+
+# the C entry of each split-KV paged decode kernel, by wrapper name
+_SPLIT_DECODE = {"paged_flash_decode": ("paged_flash_decode.cu", "omchat_paged_flash_decode"),
+                 "paged_flash_decode_manual": ("paged_flash_decode_manual.cu", "omchat_paged_flash_decode_manual")}
+
+
+def _launch_split_decode(name, q, k_pages, v_pages, lengths, page_tables, k_new, v_new, page_offset):
+    """Launch K12 or K13 (``name``, a key of ``_SPLIT_DECODE``): the
+    :func:`paged_splits` cut of the table's capacity, the fp32 scratch of
+    the chunks' partial states, one C entry that launches the split kernel
+    and the merge.  Returns [B, 1, H, D]."""
+    source, entry = _SPLIT_DECODE[name]
+    B, _, H, D = q.shape
+    KVH, PS = k_pages.shape[1:3]
+    suffix, qc, tables, lens, kn, vn, out = _paged_decode_operands(name, q, k_pages, v_pages, lengths, page_tables,
+                                                                   k_new, v_new)
+    splits, rows = paged_splits(B, KVH, tables.shape[1] * PS, num_sms(q.device.index))
+    scratch = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
+    kernel_lib.launch(
+        source, entry + suffix, _SPLIT_DECODE_ARGS,
+        *map(kernel_lib.ptr, (qc, k_pages, v_pages, lens, tables)), _opt_ptr(kn), _opt_ptr(vn),
+        kernel_lib.ptr(out), kernel_lib.ptr(scratch), B, H, KVH, PS, D, tables.stride(0), tables.shape[1],
+        int(page_offset), splits, rows, kernel_lib.stream_ptr(q.device),
+    )
+    return out
+
+
 def paged_flash_decode(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -192,19 +229,18 @@ def paged_flash_decode(
     ``page_offset`` (the layer's first page in a flat pool).
     ``k_new``/``v_new`` [B, KVH, D]: the in-flight token's K/V as a self
     column (``lengths`` then EXCLUDES it).  Only the pages below
-    ``ceil(length / page_size)`` are read.  Returns [B, 1, H, D]."""
+    ``ceil(length / page_size)`` are read.  On CUDA, split-KV: each
+    request's capacity is cut into :func:`paged_splits` chunks on the host; a
+    block per (chunk, kv head, request) has a producer warp copy the chunk's
+    rows by 16-byte ``cp.async`` into a ring while consumer warps run the
+    online softmax, and writes its fp32 softmax state to a scratch; a second
+    kernel, launched from the same C entry, merges the chunks and folds the
+    self column in.  Returns [B, 1, H, D]."""
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pages, v_pages, lengths, page_tables, k_new, v_new,
                                         page_offset=page_offset)
-    B, _, H, D = q.shape
-    KVH, PS = k_pages.shape[1:3]
-    suffix, qc, tables, lens, kn, vn, out = _paged_decode_operands("paged_flash_decode", q, k_pages, v_pages,
-                                                                   lengths, page_tables, k_new, v_new)
-    kernel_lib.launch(
-        "paged_flash_decode.cu", "omchat_paged_flash_decode" + suffix, _K12_ARGS,
-        *map(kernel_lib.ptr, (qc, k_pages, v_pages, lens, tables)), _opt_ptr(kn), _opt_ptr(vn), kernel_lib.ptr(out),
-        B, H, KVH, PS, D, tables.stride(0), tables.shape[1], int(page_offset), kernel_lib.stream_ptr(q.device),
-    )
+    out = _launch_split_decode("paged_flash_decode", q, k_pages, v_pages, lengths, page_tables, k_new, v_new,
+                               page_offset)
     paged_flash_decode.launches += 1
     return out
 
@@ -224,17 +260,6 @@ def paged_flash_decode_manual_plain(q, k_pages, v_pages, lengths, page_tables, k
     return paged_flash_decode_plain(q, k_pages, v_pages, lengths, page_tables, k_new, v_new, page_offset=page_offset)
 
 
-def manual_splits(B: int, KVH: int, capacity: int, num_sms: int) -> tuple:
-    """How K13 cuts a request's ``capacity`` rows (the table width times the
-    page size): ``(splits, rows)``, the rows of :func:`decode_splits` with
-    ``MANUAL_SPLIT_ROWS``-row tiles and the blocks the card holds at once,
-    at most ``MANUAL_MAX_ROWS``.  Never reads the lengths, which live on the
-    card."""
-    rows = min(decode_splits(B, KVH, capacity, num_sms * MANUAL_BLOCKS_PER_SM, tile=MANUAL_SPLIT_ROWS)[1],
-               MANUAL_MAX_ROWS)
-    return -(-capacity // rows), rows
-
-
 def paged_flash_decode_manual(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -246,30 +271,16 @@ def paged_flash_decode_manual(
     *,
     page_offset: int = 0,
 ) -> torch.Tensor:
-    """:func:`paged_flash_decode`'s contract, on the manual-copy kernel,
-    split-KV: each request's capacity (the table width times the page size)
-    is cut into :func:`manual_splits` chunks on the host; a block per (chunk,
-    kv head, request) has a producer warp stream the chunk's page slices
-    through a ring of ``cp.async.bulk`` copies completing on mbarriers (the
-    counterpart of the TPU kernel's NBUF ring of async copies) while consumer
-    warps run the online softmax, and writes its fp32 softmax state to a
-    scratch; a second kernel, launched from the same C entry, merges the
-    chunks and folds the self column in.  Returns [B, 1, H, D]."""
+    """:func:`paged_flash_decode`'s contract, chunks and arithmetic on the
+    manual-copy kernel: the producer warp streams each chunk's rows through
+    a ring of ``cp.async.bulk`` copies completing on mbarriers (the
+    counterpart of the TPU kernel's NBUF ring of async copies).  Gives K12's
+    bits.  Returns [B, 1, H, D]."""
     if q.device.type == "cpu":
         return paged_flash_decode_manual_plain(q, k_pages, v_pages, lengths, page_tables, k_new, v_new,
                                                page_offset=page_offset)
-    B, _, H, D = q.shape
-    KVH, PS = k_pages.shape[1:3]
-    suffix, qc, tables, lens, kn, vn, out = _paged_decode_operands("paged_flash_decode_manual", q, k_pages, v_pages,
-                                                                   lengths, page_tables, k_new, v_new)
-    splits, rows = manual_splits(B, KVH, tables.shape[1] * PS, num_sms(q.device.index))
-    scratch = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
-    kernel_lib.launch(
-        "paged_flash_decode_manual.cu", "omchat_paged_flash_decode_manual" + suffix, _K13_ARGS,
-        *map(kernel_lib.ptr, (qc, k_pages, v_pages, lens, tables)), _opt_ptr(kn), _opt_ptr(vn),
-        kernel_lib.ptr(out), kernel_lib.ptr(scratch), B, H, KVH, PS, D, tables.stride(0), tables.shape[1],
-        int(page_offset), splits, rows, kernel_lib.stream_ptr(q.device),
-    )
+    out = _launch_split_decode("paged_flash_decode_manual", q, k_pages, v_pages, lengths, page_tables, k_new, v_new,
+                               page_offset)
     paged_flash_decode_manual.launches += 1
     return out
 

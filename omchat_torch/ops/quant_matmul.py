@@ -15,7 +15,9 @@
   with the glue after it.  Dynamic row quantization of the attention output,
   the int8 product with the square proj / o_proj weight, dequant + bias in the
   activation dtype, x' = x + y·ls rounded once, RMSNorm·γ of x', int8 codes
-  and row scales (``omchat_torch/csrc/proj_glue_quant.cu``).
+  and row scales (``omchat_torch/csrc/proj_glue_quant.cu``: a row prepass,
+  the product on the TMA + wgmma int8 mainloop ``csrc/s8_gemm_sm90.cuh`` with
+  the glue in its epilogue, a row finish).
 
 Each has a plain version (``*_plain``) and a launch counter
 (``<wrapper>.launches``); a CPU tensor runs the plain version, a CUDA tensor
@@ -49,10 +51,11 @@ from omchat_torch.ops.norms import norm_quant_rows
 
 # C signatures: xq, w, row_scale, col_scale, bias, out_scale, out, M, N, K, stream /
 # xq, w_gate, w_up, row_scale, col_scale_gate, col_scale_up, out_scale, out, M, N, K, stream /
-# a, x, w, col_scale, bias, ls, gamma, x_new, codes, row_scale, M, N, eps, stream
+# a, x, w, col_scale, bias, ls, gamma, x_new, codes, row_scale, aq, sa, partial, M, N, eps, stream
 _K9_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _K10_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_K11_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+_K11_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+PROJ_GLUE_TILE = 128  # K11's GEMM tiles x' in PROJ_GLUE_TILE x PROJ_GLUE_TILE blocks
 
 
 def pallas_supported(k: int, n: int) -> bool:
@@ -64,9 +67,10 @@ def pallas_supported(k: int, n: int) -> bool:
 
 def proj_glue_supported(k: int, n: int) -> bool:
     """Geometry gate of the fused proj + glue kernel: a square weight with a
-    128-multiple side up to 4096 (the JAX gate; InternViT-6B proj 3200²,
-    Qwen2-7B o_proj 3584²).  The CUDA kernel keeps a block's quantized rows
-    of the attention output in shared memory, which bounds K."""
+    128-multiple side up to 4096 (InternViT-6B proj 3200², Qwen2-7B o_proj
+    3584²).  The JAX gate, which the TPU kernel's VMEM-resident weight sets;
+    the CUDA kernel shares it, so both packages fuse the same layers (its
+    128 x 128 tiles need only the 128-multiple side)."""
     return k == n and k % 128 == 0 and k * n <= 4096 * 4096
 
 
@@ -224,6 +228,16 @@ def attn_proj_glue_quant_plain(attn_out: torch.Tensor, x: torch.Tensor, p: dict,
     return xn.reshape(*lead, n), codes.reshape(*lead, n), rs.reshape(*lead, 1)
 
 
+def proj_glue_scratch(m: int, n: int) -> dict:
+    """The shapes and dtypes of K11's scratch for m rows of width n (K == n):
+    the codes of the attention output and their row scales (the prepass's
+    output, the GEMM's A operand), and each row's sum of x'² over each
+    ``PROJ_GLUE_TILE``-column tile of the GEMM (the finish sums them in tile
+    order)."""
+    return {"aq": ((m, n), torch.int8), "sa": ((m,), torch.float32),
+            "partial": ((m, n // PROJ_GLUE_TILE), torch.float32)}
+
+
 def attn_proj_glue_quant(attn_out: torch.Tensor, x: torch.Tensor, p: dict, ls: Optional[torch.Tensor],
                          gamma: torch.Tensor, eps: float = 1e-6):
     """Fused ``dense(attn_out, p, a8=True)`` + ``add_rmsnorm_quant``: only x'
@@ -245,16 +259,19 @@ def attn_proj_glue_quant(attn_out: torch.Tensor, x: torch.Tensor, p: dict, ls: O
     if x2.shape[0] != m:
         raise ValueError("attn_proj_glue_quant: attn_out and x must have the same rows")
     wc, cs, gc = w.contiguous(), p["scale"].contiguous(), gamma.contiguous()
+    if wc.data_ptr() % 16:
+        raise ValueError("attn_proj_glue_quant: the weight's base address is not 16-byte aligned, as TMA needs")
     bc = bias.contiguous() if bias is not None else None
     lc = ls.contiguous() if ls is not None else None
     xn = torch.empty_like(x2)
     codes = torch.empty((m, n), dtype=torch.int8, device=x.device)
     rs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if m:
+        scratch = [torch.empty(shape, dtype=dt, device=x.device) for shape, dt in proj_glue_scratch(m, n).values()]
         kernel_lib.launch("proj_glue_quant.cu", "omchat_proj_glue_quant", _K11_ARGS,
                           *map(kernel_lib.ptr, (a2, x2, wc, cs)), *(None if t is None else kernel_lib.ptr(t)
                                                                     for t in (bc, lc)),
-                          *map(kernel_lib.ptr, (gc, xn, codes, rs)), m, n, float(eps),
+                          *map(kernel_lib.ptr, (gc, xn, codes, rs, *scratch)), m, n, float(eps),
                           kernel_lib.stream_ptr(x.device))
         attn_proj_glue_quant.launches += 1
     lead = x.shape[:-1]

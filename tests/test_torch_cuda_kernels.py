@@ -16,7 +16,10 @@ bitwise.  The w8a8 kernels (K7 rmsnorm_quant, K8 add_rmsnorm_quant, K9 fc1 +
 GELU + quantize, K11 proj glue) at M not a tile multiple, M <= 16 and rows of
 all zeros (the 1e-6 floor of the row scale): int8 codes within one of the
 plain version's and at least 99% equal (fp32 sums in another order), row
-scales rtol 1e-5, x' bitwise for K8 and within one bf16 ulp for K11.  The
+scales rtol 1e-5, x' bitwise for K8 and K11; K11 also at the path's shapes
+(the ViT proj 3200 with bias and LayerScale, the Qwen2 o_proj 3584 with
+neither, M from 1 to 3096 across its 128-row tiles), codes and row scales
+within chip_smoke.py's phase-11 limits (±1, 99% equal, rtol 1e-2).  The
 training attention kernels (K16a forward + lse, K16b dQ, K16c dK/dV) at
 ragged lengths, GQA groups 1, 2 and 7, causal and not, packed with a -1
 tail, at the edges of the 128-row tiles (S = 127, 128, 129, 257), a
@@ -44,7 +47,9 @@ K6 against K3 with the self column on the same step (the bf16 tolerance).
 K13 (split-KV over the page tables' capacity) on both pools at lengths 0, 1
 and a chunk's edges, with one request filling every chunk and the others
 only the first, bitwise the same on a second launch and under a CUDA-graph
-replay over new lengths.
+replay over new lengths.  K12 (split-KV on K13's chunks and arithmetic)
+bitwise equal to K13 on both pools in those cases and at page sizes 16-128,
+bitwise the same on a second launch and under a CUDA-graph replay.
 """
 
 import pytest
@@ -292,11 +297,6 @@ def _codes_close(got, want):
     assert int(d.max()) <= 1 and float((d == 0).float().mean()) >= 0.99
 
 
-def _within_ulp(got, want):
-    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=1e-30))) - 7)
-    assert bool(((got.float() - want.float()).abs() <= ulp).all())
-
-
 @pytest.mark.parametrize("rows,D", [(1, 64), (5, 3584), (130, 3200)])
 def test_rmsnorm_quant_kernels(gen, rows, D):
     x, gamma = _randn(gen, rows, D), (1 + 0.1 * _randn(gen, D).float()).bfloat16()
@@ -354,9 +354,33 @@ def test_attn_proj_glue_quant_kernel(gen, M, K, bias, ls):
     torch.cuda.synchronize()
     assert qm.attn_proj_glue_quant.launches == n0 + 1
     xp, qp, rp = qm.attn_proj_glue_quant_plain(a, x, p, scale, gamma)
-    _within_ulp(xn, xp)
+    assert torch.equal(xn, xp)
     _codes_close(q, qp)
     torch.testing.assert_close(rs, rp, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 1000, 3096])
+@pytest.mark.parametrize("N,vit", [(3200, True), (3584, False)], ids=["vit_proj", "qwen2_o_proj"])
+def test_attn_proj_glue_quant_kernel_at_path_shapes(gen, M, N, vit):
+    """K11 at the widths the path gives it (bias and LayerScale on the ViT
+    proj, neither on the o_proj) and at M on both sides of its 64-row
+    warpgroup and 128-row tile edges: x' bitwise the plain version's (the
+    int32 product is exact, the epilogue elementwise), codes and row scales
+    within phase 11's limits, a second launch bitwise the same."""
+    a, x = (0.5 * _randn(gen, M, N).float()).bfloat16(), _randn(gen, M, N)
+    p = _qlinear(gen, N, N, vit)
+    ls = (0.05 + 0.1 * _randn(gen, N).float()).bfloat16() if vit else None
+    gamma = (1 + 0.1 * _randn(gen, N).float()).bfloat16()
+    n0 = qm.attn_proj_glue_quant.launches
+    xn, q, rs = qm.attn_proj_glue_quant(a, x, p, ls, gamma)
+    again = qm.attn_proj_glue_quant(a, x, p, ls, gamma)
+    torch.cuda.synchronize()
+    assert qm.attn_proj_glue_quant.launches == n0 + 2
+    assert all(torch.equal(u, v) for u, v in zip((xn, q, rs), again))
+    xp, qp, rp = qm.attn_proj_glue_quant_plain(a, x, p, ls, gamma)
+    assert torch.equal(xn, xp)
+    _codes_close(q, qp)
+    torch.testing.assert_close(rs, rp, rtol=1e-2, atol=0)
 
 
 def _train_attn_case(gen, B, S, H, KVH, packed):
@@ -522,16 +546,16 @@ def _k13_case(gen, lengths, W, pool):
 @pytest.mark.parametrize("pool", ["bf16", "e4m3"])
 @pytest.mark.parametrize("case", ["chunk_edges", "one_request_fills_every_chunk"])
 def test_paged_decode_manual_split_kv(gen, case, pool):
-    """K13 cuts each request's capacity into chunks (manual_splits): lengths
+    """K13 cuts each request's capacity into chunks (paged_splits): lengths
     0, 1 and at a chunk's edges (chunk - 1, chunk, chunk + 1), and a batch in
     which one request fills every chunk and the others only the first, against
     the plain version; a second launch is bitwise the same (fixed merge order)."""
     W, KVH = 26, 4
-    chunk = pa.manual_splits(6, KVH, W * 128, _sms())[1]
+    chunk = pa.paged_splits(6, KVH, W * 128, _sms())[1]
     lengths = ([0, 1, chunk - 1, chunk, chunk + 1, W * 128] if case == "chunk_edges"
                else [W * 128, 5, chunk - 1, chunk, 100, 1])
     q, kp, vp, lens, tables, kn, vn, off = _k13_case(gen, lengths, W, pool)
-    assert pa.manual_splits(len(lengths), KVH, W * 128, _sms())[0] > 1, "the capacity must span several chunks"
+    assert pa.paged_splits(len(lengths), KVH, W * 128, _sms())[0] > 1, "the capacity must span several chunks"
     n0 = pa.paged_flash_decode_manual.launches
     out = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
     again = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
@@ -567,6 +591,55 @@ def test_paged_decode_manual_replays_under_a_cuda_graph(gen, pool):
     assert torch.equal(got, want)
     ref = pa.paged_flash_decode_plain(q, kp, vp, lens, tables, kn, vn, page_offset=off)
     torch.testing.assert_close(got.float(), ref.float(), **TOL)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+@pytest.mark.parametrize("case", ["chunk_edges", "one_request_fills_every_chunk"])
+def test_paged_decode_k12_is_bitwise_k13(gen, case, pool):
+    """K12 and K13 share their chunks and arithmetic and differ only in their
+    copies, so on the same inputs they give the same bits: at lengths 0, 1 and
+    a chunk's edges, and with one request filling every chunk; a second K12
+    launch is bitwise the same, and a request of length 0 returns v_new."""
+    W, KVH = 26, 4
+    chunk = pa.paged_splits(6, KVH, W * 128, _sms())[1]
+    lengths = ([0, 1, chunk - 1, chunk, chunk + 1, W * 128] if case == "chunk_edges"
+               else [W * 128, 5, chunk - 1, chunk, 100, 1])
+    q, kp, vp, lens, tables, kn, vn, off = _k13_case(gen, lengths, W, pool)
+    n0 = pa.paged_flash_decode.launches
+    k12 = pa.paged_flash_decode(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    again = pa.paged_flash_decode(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    k13 = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_decode.launches == n0 + 2
+    assert torch.equal(k12, k13) and torch.equal(k12, again)
+    torch.testing.assert_close(k12.float(), pa.paged_flash_decode_plain(
+        q, kp, vp, lens, tables, kn, vn, page_offset=off).float(), **TOL)
+    if 0 in lengths:
+        b = lengths.index(0)
+        assert torch.equal(k12[b, 0], vn[b].repeat_interleave(q.shape[2] // KVH, dim=0))
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+def test_paged_decode_k12_replays_under_a_cuda_graph(gen, pool):
+    """K12's two launches and its scratch capture into a CUDA graph; a replay
+    over new lengths equals the eager call and K13's."""
+    W, KVH = 20, 4
+    lengths = [2500, 64, 300, 1000, 0, 129, 2047, 512]
+    q, kp, vp, lens, tables, kn, vn, off = _k13_case(gen, lengths, W, pool)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_flash_decode(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = pa.paged_flash_decode(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    lens.copy_(torch.tensor([2500, 1, 255, 256, 257, 128, 2000, 0], dtype=torch.int32))
+    graph.replay()
+    want = pa.paged_flash_decode(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    k13 = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, k13)
 
 
 def test_flash_attention_and_decode_kernels_e4m3(gen):
@@ -682,6 +755,21 @@ def test_paged_decode_page_size_32_is_bitwise_page_size_128(gen, kernel):
     a, b = fn(q, kp, vp, lens, t128, kn, vn), fn(q, k32, v32, lens, t32, kn, vn)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+@pytest.mark.parametrize("PS", [16, 32, 64, 128])
+def test_paged_decode_k12_is_bitwise_k13_at_page_size(gen, PS, pool):
+    H, KVH, D = 28, 4, 128
+    lengths = [0, 1, PS, 128, 129, 3 * PS + 5, 700, 2047]
+    W = max(-(-n // PS) for n in lengths) + 1
+    kp, vp, tables = _paged_pool_ps(gen, PS, KVH, D, lengths, W, pool == "e4m3")
+    q, kn, vn = _randn(gen, len(lengths), 1, H, D), _randn(gen, len(lengths), KVH, D), _randn(gen, len(lengths), KVH, D)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    k12 = pa.paged_flash_decode(q, kp, vp, lens, tables, kn, vn)
+    k13 = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn)
+    torch.cuda.synchronize()
+    assert torch.equal(k12, k13)
 
 
 @pytest.mark.parametrize("pool", ["bf16", "e4m3"])

@@ -143,19 +143,31 @@ def test_fc1_gelu_quant_matches_pallas(bias):
     check_codes(got, chain)
 
 
-@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
-def test_attn_proj_glue_quant_matches_pallas(bias):
+@pytest.mark.parametrize("B,M,K,bias,ls", [
+    pytest.param(2, 70, 256, True, True, id="bias"),
+    pytest.param(2, 70, 256, False, True, id="no_bias"),
+    # N = K = 384: a multiple of the CUDA kernel's 128-wide tiles, not of 256;
+    # M on both sides of the 128-row blocks; as the path calls it: the ViT
+    # proj with bias and LayerScale, the Qwen2 o_proj with neither (ls None).
+    # (XLA on the CPU skips the bf16 rounding of y + bias, which the kernels
+    # keep; without a LayerScale to scale it down that moves ~2% of x' by two
+    # ulps, so the reference has no bias-without-LayerScale case on the path.)
+    *(pytest.param(1, M, 384, ls, ls, id=f"m{M}_k384{'' if ls else '_no_ls'}")
+      for M in (1, 70, 129) for ls in (True, False)),
+])
+def test_attn_proj_glue_quant_matches_pallas(B, M, K, bias, ls):
     from omchat_tpu.ops.linear import dense
     from omchat_tpu.ops.norms import add_rmsnorm_quant
     from omchat_tpu.ops.quant_matmul import attn_proj_glue_quant
 
     rng = np.random.default_rng(7)
-    B, M, K = 2, 70, 256  # M not a multiple of the TPU's 128-row block
     assert tqm.proj_glue_supported(K, K) and not tqm.proj_glue_supported(K, 2 * K)
     ja, ta = _bf16(rng, B, M, K, scale=0.5)
     jx, tx = _bf16(rng, B, M, K)
     jp, tp = _qparams(rng, K, K, bias)
     jls, tls = _bf16(rng, K, scale=0.1, offset=0.05)
+    if not ls:  # the port takes None for a plain residual, the JAX package ones (qwen2.py:171)
+        jls, tls = jnp.ones((K,), jnp.bfloat16), None
     jg, tg = _bf16(rng, K, scale=0.1, offset=1.0)
     want_x, want_q, want_rs = attn_proj_glue_quant(ja, jx, jp, jls, jg, 1e-6, interpret=True)
     got_x, got_q, got_rs = tqm.attn_proj_glue_quant(ta, tx, tp, tls, tg, 1e-6)
@@ -168,6 +180,38 @@ def test_attn_proj_glue_quant_matches_pallas(bias):
     check_within_bf16_ulp(got_x, chain_x, share=CODE_EQUAL)
     check_codes(got_q, chain_q, equal=0.9)
     np.testing.assert_allclose(_np(got_rs), _np(chain_rs), rtol=1e-2)
+
+
+@pytest.mark.parametrize("k,n", [(3200, 3200), (3584, 3584), (4096, 4096), (4224, 4224), (384, 384), (320, 320),
+                                 (256, 512), (128, 128)])
+def test_proj_glue_gate_is_the_jax_gate(k, n):
+    """The port fuses K11 on the same layers as the JAX package."""
+    from omchat_tpu.ops.quant_matmul import proj_glue_supported
+
+    assert tqm.proj_glue_supported(k, n) == proj_glue_supported(k, n)
+
+
+def _k11_tile() -> int:
+    """The CUDA kernel's GEMM tile (rows and columns), as its source declares it."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(__file__), "..", "omchat_torch", "csrc", "proj_glue_quant.cu")
+    with open(src) as f:
+        bm, bn = re.search(r"constexpr int BM = (\d+), BN = (\d+),", f.read()).groups()
+    assert bm == bn
+    return int(bn)
+
+
+@pytest.mark.parametrize("m,n", [(1, 384), (70, 256), (3096, 3200), (3200, 3584), (1024, 4096)])
+def test_proj_glue_scratch(m, n):
+    """K11's scratch: the codes and row scales of the attention output, and one
+    partial sum of x'^2 a row and 128-column tile of the GEMM, for every width
+    the gate admits."""
+    assert tqm.proj_glue_supported(n, n) and n % tqm.PROJ_GLUE_TILE == 0
+    assert tqm.PROJ_GLUE_TILE == _k11_tile()
+    assert tqm.proj_glue_scratch(m, n) == {"aq": ((m, n), torch.int8), "sa": ((m,), torch.float32),
+                                           "partial": ((m, n // tqm.PROJ_GLUE_TILE), torch.float32)}
 
 
 def test_quantize_linear_and_tree_match_jax():
