@@ -119,21 +119,6 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// int8 tensor-core product mma.sync.m16n8k32 (s8 x s8, s32 accumulate; the
-// w8a8 kernels).  Each register holds four consecutive int8 of one row
-// (A) or one column (B), the lowest index in the low byte:
-//   A (16x32, row major):  a0 = A[g][4t..4t+3]    a1 = A[g+8][4t..4t+3]
-//                          a2 = A[g][16+4t..]     a3 = A[g+8][16+4t..]
-//   B (32x8, column major): b0 = B[4t..4t+3][g]   b1 = B[16+4t..][g]
-//   C (16x8, s32): as the fp32 C above.
-__device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
     asm volatile(
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "

@@ -15,24 +15,41 @@
 // sums and 1/out_scale, round half to even), with tanhf — not the
 // approximate tanh.approx.f32 — and the roundings forced with __fmul_rn /
 // __fadd_rn so no multiply-add is contracted.  Only int8 codes are written:
-// the [M, N] bf16 intermediate never reaches device memory.
+// the [M, N] bf16 intermediate never reaches device memory.  The int32
+// product is exact in any K order and the epilogue is elementwise, so the
+// codes do not depend on the tiling.
 //
 // What bounds it on the H100: operations.  At the main-path shape (M = 3096,
 // K = 3200, N = 12800) the product is 2 M N K = 253.6 G int8 operations,
 // 0.128 ms at the dense int8 peak (1979 TOPS), against 90.5 MB of traffic
-// (0.027 ms).  Design: 128 x 128 output tiles, 8 warps each computing 64 x 32
-// with mma.sync m16n8k32 (s8, s32 accumulate); 64-deep K tiles of both
-// operands staged by cp.async in a 3-stage ring (rows padded to 80 bytes, so
-// the fragment loads hit 32 distinct banks); rows past M are zero-filled and
-// not stored.  No wgmma or TMA yet.
+// (0.027 ms).  At M = 128 it is bytes: the weight's 41.0 MB (0.012 ms)
+// against 10.5 G operations (0.005 ms).
+//
+// Design: the GEMM runs on s8_gemm_sm90.cuh's mainloop, as K11's does.  A
+// block computes a 128 x 128 tile of the output: one producer warp keeps
+// STAGES 128-deep K tiles of xq and w in flight by TMA (rows past M read as
+// zeros and are not stored), two consumer warpgroups each run wgmma
+// m64n128k32 s8 over 64 of the tile's rows, and the epilogue works from the
+// accumulator registers.  Two blocks share an SM, a 3-stage ring each, so
+// one block's tanh epilogue runs while the other's wgmma do (one block an
+// SM with 5 stages measured slower: PERF.md).
+//
+// Tile order: blockIdx.x runs along M, so the grid sweeps every row block of
+// one column tile before the next, as the TPU kernel's grid (N outer, M
+// inner) keeps a weight tile resident across its M sweep.  The ~130-260
+// blocks in flight cover 5-11 column tiles, so each weight tile should be
+// read from device memory once and reused from L2 by the other row blocks,
+// while xq (9.9 MB at M = 3096) stays in the 50 MB L2.  Device-memory bytes
+// of w, reckoned from the shapes (not measured): at M = 3096, 41.0 MB, once
+// (a column-major sweep that re-streamed it for each of the 25 row blocks
+// would read 1.02 GB); at M = 128, 41.0 MB, one row block either way.
 #include "common.cuh"
+#include "s8_gemm_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3, THREADS = 256;
-constexpr int LDS = BK + 16;  // bytes per staged row
-constexpr int STAGE_BYTES = (BM + BN) * LDS;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;  // 61440
+constexpr int BM = 128, BN = 128;
+constexpr int BLOCKS_PER_SM = 2, STAGES = 3;  // 96 KB of ring a block
 
 __device__ __forceinline__ float gelu_tanh(float h) {
     // jax.nn.gelu(approximate=True): h * (0.5 * (1 + tanh(sqrt(2/pi) * (h + 0.044715 * h^3))))
@@ -41,117 +58,50 @@ __device__ __forceinline__ float gelu_tanh(float h) {
     return __fmul_rn(h, __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner))));
 }
 
-__global__ void __launch_bounds__(THREADS)
-fc1_gelu_quant_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w, const float* __restrict__ row_scale,
-                      const bf16* __restrict__ col_scale, const bf16* __restrict__ bias,
-                      const float* __restrict__ out_scale, int8_t* __restrict__ out, int M, int N, int K) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm*64.., cols wn*32..
-    const int KT = K / BK;
-
-    auto load_stage = [&](int stage, int kt) {
-        unsigned char* as = smem + stage * STAGE_BYTES;
-        unsigned char* bs = as + BM * LDS;
-        const int k0 = kt * BK;
+// The 128 x 128 output tile (blockIdx.x along M, blockIdx.y along N).
+__global__ void __launch_bounds__(s8gemm::THREADS, BLOCKS_PER_SM)
+fc1_gelu_quant_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+                      const float* __restrict__ row_scale, const bf16* __restrict__ col_scale,
+                      const bf16* __restrict__ bias, const float* __restrict__ out_scale, int8_t* __restrict__ out,
+                      int M, int N, int k_tiles) {
+    const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+    s8gemm::tile<STAGES>(&map_x, &map_w, nullptr, m0, n0, k_tiles, row_scale, M,
+                         [&](const int (&d)[64], const int (&rows)[2], const float (&rs)[2], int t) {
+        const float inv = __fdiv_rn(1.f, out_scale[0]);
 #pragma unroll
-        for (int i = 0; i < (BM * BK / 16) / THREADS; ++i) {
-            const int c = tid + i * THREADS, row = c >> 2, col = (c & 3) * 16;
-            const bool valid = m0 + row < M;
-            cp_async16_zfill(as + row * LDS + col, xq + (size_t)(valid ? m0 + row : 0) * K + k0 + col, valid);
-        }
+        for (int j = 0; j < BN / 8; ++j) {
+            const int col = n0 + 8 * j + 2 * t;
+            const float cs[2] = {__bfloat162float(col_scale[col]), __bfloat162float(col_scale[col + 1])};
+            const float b[2] = {bias ? __bfloat162float(bias[col]) : 0.f, bias ? __bfloat162float(bias[col + 1]) : 0.f};
 #pragma unroll
-        for (int i = 0; i < (BN * BK / 16) / THREADS; ++i) {
-            const int c = tid + i * THREADS, row = c >> 2, col = (c & 3) * 16;
-            cp_async16(bs + row * LDS + col, w + (size_t)(n0 + row) * K + k0 + col);
-        }
-    };
-
-    int acc[4][4][4];
+            for (int h = 0; h < 2; ++h) {
+                if (rows[h] >= M) continue;
+                uint32_t packed = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-        if (s < KT) load_stage(s, s);
-        cp_async_commit();
-    }
-    for (int kt = 0; kt < KT; ++kt) {
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();  // stage kt has landed; stage kt-1 is no longer read
-        if (kt + STAGES - 1 < KT) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-        cp_async_commit();
-        const unsigned char* as = smem + (kt % STAGES) * STAGE_BYTES;
-        const unsigned char* bs = as + BM * LDS;
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 32) {
-            uint32_t a[4][4], b[4][2];
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt) {
-                const unsigned char* r0 = as + (wm * 64 + mt * 16 + g) * LDS + kk + 4 * t;
-                a[mt][0] = *reinterpret_cast<const uint32_t*>(r0);
-                a[mt][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LDS);
-                a[mt][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
-                a[mt][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LDS + 16);
-            }
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-                const unsigned char* c0 = bs + (wn * 32 + nt * 8 + g) * LDS + kk + 4 * t;
-                b[nt][0] = *reinterpret_cast<const uint32_t*>(c0);
-                b[nt][1] = *reinterpret_cast<const uint32_t*>(c0 + 16);
-            }
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-                for (int nt = 0; nt < 4; ++nt) mma_s8_16832(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
-        }
-    }
-    cp_async_wait<0>();
-
-    const float inv = __fdiv_rn(1.f, out_scale[0]);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-        const float cs0 = __bfloat162float(col_scale[col]), cs1 = __bfloat162float(col_scale[col + 1]);
-        const float b0 = bias ? __bfloat162float(bias[col]) : 0.f;
-        const float b1 = bias ? __bfloat162float(bias[col + 1]) : 0.f;
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int row = m0 + wm * 64 + mt * 16 + g + 8 * half;
-                if (row >= M) continue;
-                const float rs = row_scale[row];
-                float h0 = __fmul_rn(__fmul_rn((float)acc[mt][nt][2 * half], rs), cs0);
-                float h1 = __fmul_rn(__fmul_rn((float)acc[mt][nt][2 * half + 1], rs), cs1);
-                if (bias) {
-                    h0 = __fadd_rn(h0, b0);
-                    h1 = __fadd_rn(h1, b1);
+                for (int e = 0; e < 2; ++e) {
+                    float v = __fmul_rn(__fmul_rn((float)d[4 * j + 2 * h + e], rs[h]), cs[e]);
+                    if (bias) v = __fadd_rn(v, b[e]);
+                    const float q = fminf(fmaxf(rintf(__fmul_rn(gelu_tanh(v), inv)), -127.f), 127.f);
+                    packed |= (uint32_t)(uint8_t)(int8_t)(int)q << (8 * e);
                 }
-                const float q0 = fminf(fmaxf(rintf(__fmul_rn(gelu_tanh(h0), inv)), -127.f), 127.f);
-                const float q1 = fminf(fmaxf(rintf(__fmul_rn(gelu_tanh(h1), inv)), -127.f), 127.f);
-                const uint16_t packed = (uint16_t)(uint8_t)(int8_t)(int)q0 | ((uint16_t)(uint8_t)(int8_t)(int)q1 << 8);
-                *reinterpret_cast<uint16_t*>(out + (size_t)row * N + col) = packed;
+                *reinterpret_cast<uint16_t*>(out + (size_t)rows[h] * N + col) = (uint16_t)packed;
             }
         }
-    }
+    });
 }
 
 }  // namespace
 
-// N a multiple of 128, K a multiple of 64 (the wrapper asks for 128, the
-// JAX package's gate); rows of xq and w 16-byte aligned (K % 16 == 0).
+// N and K multiples of 128 (the wrapper's gate, the JAX package's); xq and
+// w contiguous with 16-byte-aligned bases, as their TMA maps need.
 extern "C" int omchat_fc1_gelu_quant(const void* xq, const void* w, const void* row_scale, const void* col_scale,
                                      const void* bias, const void* out_scale, void* out, int M, int N, int K,
                                      void* stream) {
-    cudaFuncSetAttribute(fc1_gelu_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    const dim3 grid(N / BN, (M + BM - 1) / BM);
-    fc1_gelu_quant_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-        (const int8_t*)xq, (const int8_t*)w, (const float*)row_scale, (const bf16*)col_scale, (const bf16*)bias,
-        (const float*)out_scale, (int8_t*)out, M, N, K);
-    return (int)cudaGetLastError();
+    if (M <= 0 || N <= 0 || K <= 0 || N % BN != 0 || K % s8gemm::BK != 0) return (int)cudaErrorInvalidValue;
+    CUtensorMap map_x, map_w;
+    if (!s8gemm::matrix_map(&map_x, xq, M, K, BM) || !s8gemm::matrix_map(&map_w, w, N, K, BN))
+        return (int)cudaErrorInvalidValue;
+    return s8gemm::launch<STAGES>(fc1_gelu_quant_kernel, dim3((M + BM - 1) / BM, N / BN), (cudaStream_t)stream,
+                                  map_x, map_w, (const float*)row_scale, (const bf16*)col_scale, (const bf16*)bias,
+                                  (const float*)out_scale, (int8_t*)out, M, N, K / s8gemm::BK);
 }

@@ -49,10 +49,7 @@
 namespace {
 
 constexpr int BM = 128, BN = 128, STAGES = 5;
-constexpr int CONSUMER_WARPS = 8;                  // two warpgroups, 64 tile rows each
-constexpr int GEMM_THREADS = 32 * (CONSUMER_WARPS + 1);  // and a producer warp
 constexpr int ROW_WARPS = 8;                       // rows a block of the row passes
-using GemmRing = s8gemm::Ring<BM, BN, STAGES>;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -105,72 +102,50 @@ row_quant_kernel(const bf16* __restrict__ a, int8_t* __restrict__ aq, float* __r
 
 // 2. x_new and the partial sums of squares of the 128 x 128 tile (blockIdx.x
 // along N, blockIdx.y along M).
-__global__ void __launch_bounds__(GEMM_THREADS, 1)
+__global__ void __launch_bounds__(s8gemm::THREADS, 1)
 proj_gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
                  const float* __restrict__ sa, const bf16* __restrict__ x, const bf16* __restrict__ col_scale,
                  const bf16* __restrict__ bias, const bf16* __restrict__ ls, bf16* __restrict__ x_new,
                  float* __restrict__ partial, int M, int N, int k_tiles) {
-    extern __shared__ unsigned char smem_raw[];
-    GemmRing& r = *reinterpret_cast<GemmRing*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
     const int n_tile = blockIdx.x, n0 = n_tile * BN, m0 = blockIdx.y * BM;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    s8gemm::init(r, CONSUMER_WARPS);
-    __syncthreads();
-    if (warp == CONSUMER_WARPS) {
-        if (lane == 0) s8gemm::produce(r, &map_a, &map_w, m0, n0, k_tiles);
-        return;
-    }
-
-    int d[64];
+    s8gemm::tile<STAGES>(&map_a, &map_w, nullptr, m0, n0, k_tiles, sa, M,
+                         [&](const int (&d)[64], const int (&rows)[2], const float (&sar)[2], int t) {
+        float ss[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0;
-    const int row0 = (warp >> 2) * 64;  // the warpgroup's rows of the tile
-    s8gemm::consume(d, r, row0, k_tiles);
-
-    // Epilogue: thread (w, g, t) of the warpgroup holds rows 16 w + g (h = 0)
-    // and 16 w + g + 8 (h = 1), columns 8 j + 2 t, + 1 (j < 16).
-    const int g = lane >> 2, t = lane & 3;
-    int rows[2];
-    float sar[2], ss[2] = {0.f, 0.f};
+        for (int j = 0; j < BN / 8; ++j) {
+            const int col = n0 + 8 * j + 2 * t;
+            const float2 cs = load_bf16x2_f(col_scale + col);
+            const float2 b = bias ? load_bf16x2_f(bias + col) : make_float2(0.f, 0.f);
+            const float2 l = ls ? load_bf16x2_f(ls + col) : make_float2(1.f, 1.f);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        rows[h] = m0 + row0 + 16 * (warp & 3) + g + 8 * h;
-        sar[h] = rows[h] < M ? sa[rows[h]] : 0.f;
-    }
+            for (int h = 0; h < 2; ++h) {
+                if (rows[h] >= M) continue;
+                const size_t at = (size_t)rows[h] * N + col;
+                const float2 xv = load_bf16x2_f(x + at);
+                const float csv[2] = {cs.x, cs.y}, bv[2] = {b.x, b.y}, lv[2] = {l.x, l.y}, xs[2] = {xv.x, xv.y};
+                bf16 o[2];
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-        const int col = n0 + 8 * j + 2 * t;
-        const float2 cs = load_bf16x2_f(col_scale + col);
-        const float2 b = bias ? load_bf16x2_f(bias + col) : make_float2(0.f, 0.f);
-        const float2 l = ls ? load_bf16x2_f(ls + col) : make_float2(1.f, 1.f);
+                for (int e = 0; e < 2; ++e) {
+                    float y = __bfloat162float(
+                        __float2bfloat16_rn(__fmul_rn(__fmul_rn((float)d[4 * j + 2 * h + e], sar[h]), csv[e])));
+                    if (bias) y = __bfloat162float(__float2bfloat16_rn(__fadd_rn(y, bv[e])));
+                    o[e] = __float2bfloat16_rn(__fadd_rn(xs[e], __fmul_rn(y, lv[e])));
+                    const float v = __bfloat162float(o[e]);
+                    ss[h] = __fadd_rn(ss[h], __fmul_rn(v, v));
+                }
+                *reinterpret_cast<uint32_t*>(x_new + at) = pack_bf16_raw(o[0], o[1]);
+            }
+        }
+        // each row's sum over the tile's 128 columns: its four threads (t) in a fixed order
+        const int n_tiles = N / BN;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-            if (rows[h] >= M) continue;
-            const size_t at = (size_t)rows[h] * N + col;
-            const float2 xv = load_bf16x2_f(x + at);
-            const float csv[2] = {cs.x, cs.y}, bv[2] = {b.x, b.y}, lv[2] = {l.x, l.y}, xs[2] = {xv.x, xv.y};
-            bf16 o[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                float y = __bfloat162float(
-                    __float2bfloat16_rn(__fmul_rn(__fmul_rn((float)d[4 * j + 2 * h + e], sar[h]), csv[e])));
-                if (bias) y = __bfloat162float(__float2bfloat16_rn(__fadd_rn(y, bv[e])));
-                o[e] = __float2bfloat16_rn(__fadd_rn(xs[e], __fmul_rn(y, lv[e])));
-                const float v = __bfloat162float(o[e]);
-                ss[h] = __fadd_rn(ss[h], __fmul_rn(v, v));
-            }
-            *reinterpret_cast<uint32_t*>(x_new + at) = pack_bf16_raw(o[0], o[1]);
+            float s = ss[h];
+            s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+            s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
+            if (t == 0 && rows[h] < M) partial[(size_t)rows[h] * n_tiles + n_tile] = s;
         }
-    }
-    // each row's sum over the tile's 128 columns: its four threads (t) in a fixed order
-    const int n_tiles = N / BN;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        float s = ss[h];
-        s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
-        s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
-        if (t == 0 && rows[h] < M) partial[(size_t)rows[h] * n_tiles + n_tile] = s;
-    }
+    });
 }
 
 // 3. codes and the row scale of row blockIdx.x * ROW_WARPS + warp.
@@ -222,12 +197,10 @@ extern "C" int omchat_proj_glue_quant(const void* a, const void* x, const void* 
     CUtensorMap map_a, map_w;
     if (!s8gemm::matrix_map(&map_a, aq, M, K, BM) || !s8gemm::matrix_map(&map_w, w, N, K, BN))
         return (int)cudaErrorInvalidValue;
-    const int smem = (int)sizeof(GemmRing) + 1024;  // and room to align the ring to 1024 bytes
-    cudaFuncSetAttribute(proj_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    proj_gemm_kernel<<<dim3(N / BN, (M + BM - 1) / BM), GEMM_THREADS, smem, s>>>(
-        map_a, map_w, (const float*)sa, (const bf16*)x, (const bf16*)col_scale, (const bf16*)bias, (const bf16*)ls,
-        (bf16*)x_new, (float*)partial, M, N, K / s8gemm::BK);
-    err = cudaGetLastError();
+    err = (cudaError_t)s8gemm::launch<STAGES>(proj_gemm_kernel, dim3(N / BN, (M + BM - 1) / BM), s, map_a, map_w,
+                                              (const float*)sa, (const bf16*)x, (const bf16*)col_scale,
+                                              (const bf16*)bias, (const bf16*)ls, (bf16*)x_new, (float*)partial, M, N,
+                                              K / s8gemm::BK);
     if (err != cudaSuccess) return (int)err;
 
     row_finish_kernel<<<row_blocks, 32 * ROW_WARPS, 0, s>>>((const bf16*)x_new, (const float*)partial,

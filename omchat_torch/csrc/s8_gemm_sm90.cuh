@@ -1,8 +1,10 @@
 // The int8 GEMM mainloop for Hopper (sm_90a): A [M, K] and B [N, K] int8,
 // both K-major as stored, through TMA into 128-byte-swizzled shared tiles and
 // wgmma.mma_async m64n128k32 s32.s8.s8 into int32 accumulators, over an
-// mbarrier ring fed by one producer thread.  Users: K11 (proj_glue_quant.cu);
-// the other w8a8 products (K9, K10) are to follow.
+// mbarrier ring fed by one producer thread; tile() is a block's whole body
+// up to its epilogue.  Users: K11 (proj_glue_quant.cu), K9
+// (fc1_gelu_quant.cu) and K10 (swiglu_quant.cu, whose B stage is two
+// matrices: produce's map_b_hi); each keeps only its epilogue and its grid.
 //
 // A stage holds BK = 128 values of K: one 128-byte row per matrix row, which
 // is one swizzle row, so a tile of R rows is R x 128 bytes, [R / 8] swizzle
@@ -104,17 +106,25 @@ __device__ __forceinline__ void init(Ring<BM, BN, STAGES>& r, int consumer_warps
 
 // The producer, one thread: the k_tiles K tiles of A rows [m0, m0 + BM) and
 // B rows [n0, n0 + BN), each stage once every consumer warp has released it.
+// With map_b_hi, a B stage is two boxes of BN / 2 rows from two matrices:
+// rows [n0, n0 + BN / 2) of map_b into the tile's first BN / 2 rows and the
+// same rows of map_b_hi into its last BN / 2 (both maps built with box_rows
+// BN / 2).  A half is whole swizzle atoms, so the second box starts on a
+// 1024-byte boundary and the swizzle holds across it.
 template <int BM, int BN, int STAGES>
 __device__ __forceinline__ void produce(Ring<BM, BN, STAGES>& r, const CUtensorMap* map_a, const CUtensorMap* map_b,
-                                        int m0, int n0, int k_tiles) {
+                                        int m0, int n0, int k_tiles, const CUtensorMap* map_b_hi = nullptr) {
+    static_assert(BN % 16 == 0, "each half of a split B tile is whole swizzle atoms");
     sm90::tma_prefetch_map(map_a);
     sm90::tma_prefetch_map(map_b);
+    if (map_b_hi) sm90::tma_prefetch_map(map_b_hi);
     for (int kt = 0; kt < k_tiles; ++kt) {
         const int s = kt % STAGES;
         if (kt >= STAGES) sm90::mbar_wait(&r.empty[s], (kt / STAGES - 1) & 1);
         sm90::mbar_arrive_expect_tx(&r.full[s], (BM + BN) * BK);
         tma_load_2d(r.a[s], map_a, &r.full[s], kt * BK, m0);
         tma_load_2d(r.b[s], map_b, &r.full[s], kt * BK, n0);
+        if (map_b_hi) tma_load_2d(r.b[s] + BN / 2 * BK, map_b_hi, &r.full[s], kt * BK, n0);
     }
 }
 
@@ -138,6 +148,63 @@ __device__ __forceinline__ void consume(int (&d)[64], Ring<BM, 128, STAGES>& r, 
     }
     sm90::wgmma_wait<0>();
     reg_fence(d);
+}
+
+// The block of a 128-row output tile: CONSUMER_WARPS warps in two consumer
+// warpgroups of 64 tile rows each, and a producer warp.
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = 32 * (CONSUMER_WARPS + 1);
+
+// The body of a block over the tile at rows [m0, m0 + 128) of A and B stage
+// rows [n0, ...) (map_b_hi as in produce), with a ring of STAGES stages in
+// the dynamic shared memory (launch: below).  The producer warp feeds the
+// ring and returns; each consumer thread runs consume and hands its
+// accumulators to epi(d, rows, rs, t): thread (w, g, t) of its warpgroup
+// (g = lane / 4, t = lane % 4) holds tile rows 16 w + g (h = 0) and 16 w + g
+// + 8 (h = 1), which are rows[h] of A, with their row_scale in rs[h] (0 past
+// M; the epilogue stores no row past M), in d[4 j + 2 h + e], the product
+// with B stage row 8 j + 2 t + e (j < 16, e < 2).
+template <int STAGES, class Epilogue>
+__device__ __forceinline__ void tile(const CUtensorMap* map_a, const CUtensorMap* map_b, const CUtensorMap* map_b_hi,
+                                     int m0, int n0, int k_tiles, const float* __restrict__ row_scale, int M,
+                                     Epilogue&& epi) {
+    extern __shared__ unsigned char smem_raw[];
+    using R = Ring<128, 128, STAGES>;
+    R& r = *reinterpret_cast<R*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    init(r, CONSUMER_WARPS);
+    __syncthreads();
+    if (warp == CONSUMER_WARPS) {
+        if (lane == 0) produce(r, map_a, map_b, m0, n0, k_tiles, map_b_hi);
+        return;
+    }
+
+    int d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0;
+    const int row0 = (warp >> 2) * 64;  // the warpgroup's rows of the tile
+    consume(d, r, row0, k_tiles);
+
+    const int g = lane >> 2, t = lane & 3;
+    int rows[2];
+    float rs[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        rows[h] = m0 + row0 + 16 * (warp & 3) + g + 8 * h;
+        rs[h] = rows[h] < M ? row_scale[rows[h]] : 0.f;
+    }
+    epi(d, rows, rs, t);
+}
+
+// Host: launches `kernel`, whose body is tile<STAGES>, over `grid` on
+// `stream`, with the ring's dynamic shared memory (and room to align it to
+// 1024 bytes).
+template <int STAGES, class... Params, class... Args>
+inline int launch(void (*kernel)(Params...), dim3 grid, cudaStream_t stream, Args... args) {
+    constexpr int smem = (int)sizeof(Ring<128, 128, STAGES>) + 1024;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    kernel<<<grid, THREADS, smem, stream>>>(args...);
+    return (int)cudaGetLastError();
 }
 
 // Host: a rank-2 map over an int8 matrix [rows, cols] (row stride `cols`

@@ -3,9 +3,9 @@
 // (flash_attention_bwd.cu) and the forward mainloop of flash_fwd_sm90.cuh,
 // which K1 and K5 (packed_qkv_norm_attention.cu), K2 (flash_attention.cu),
 // K14 (paged_flash_prefill.cu) and K16a (flash_attention_bwd.cu) run; the
-// int8 mainloop of s8_gemm_sm90.cuh (K11) builds on the descriptor, the TMA
-// map encoder and the barriers; K12 and K13 (paged_decode_split.cuh) take
-// the mbarrier helpers alone.
+// int8 mainloop of s8_gemm_sm90.cuh (K9, K10, K11) builds on the
+// descriptor, the TMA map encoder and the barriers; K12 and K13
+// (paged_decode_split.cuh) take the mbarrier helpers alone.
 //
 // The shared tile: R rows of a head-width-128 bf16 matrix, stored as two
 // 64-column halves ([2][R][64], half h at h * R * 128 bytes), each written by

@@ -16,150 +16,97 @@
 // XLA expands it), 1 / out_scale, round half to even; __fmul_rn / __fadd_rn
 // keep any multiply-add from being contracted.  Only int8 codes are written:
 // the [M, N] gate, up and silu * up intermediates never reach device memory.
+// The int32 products are exact in any K order and the epilogue is
+// elementwise, so the codes do not depend on the tiling.
 //
-// What bounds it on the H100: operations.  At the main-path shape (M = 3200,
-// K = 3584, N = 18944) the two products are 4 M N K = 869 G int8 operations,
-// 0.44 ms at the dense int8 peak (1979 TOPS), against ~147 MB of traffic
-// (0.044 ms).  Design: K9's (fc1_gelu_quant.cu) with two B operands — 128 x 64
-// output tiles, 8 warps each computing 64 x 16 of both gate and up with
-// mma.sync m16n8k32 (s8, s32 accumulate) into two int32 accumulators (64
-// registers a thread, as K9's one 64 x 32 accumulator); 64-deep K tiles of
-// xq, gate and up staged by cp.async in a 3-stage ring (rows padded to 80
-// bytes, so the fragment loads hit 32 distinct banks); rows past M are
-// zero-filled and not stored.  No wgmma or TMA yet.
+// What bounds it on the H100: operations at the prefill, bytes at the
+// serving shapes.  At M = 3200 (K = 3584, N = 18944) the two products are 4
+// M N K = 869 G int8 operations, 0.44 ms at the dense int8 peak (1979 TOPS),
+// against ~208 MB of traffic (0.062 ms); at M = 128 the weights' 135.8 MB
+// take 0.041 ms against 0.018 ms of operations.
+//
+// Design: the GEMM runs on s8_gemm_sm90.cuh's mainloop (K9's and K11's).  A
+// block computes a 128 x 64 tile of the output.  Its B stage is 128 rows:
+// gate rows [n0, n0 + 64) in rows 0-63 and up rows [n0, n0 + 64) in rows
+// 64-127, two 64-row TMA boxes from two maps (produce's map_b_hi).  So
+// consume runs unchanged, wgmma m64n128k32 s8 over 64 of the tile's rows in
+// each of two consumer warpgroups, with the same MMA work a block as K9's
+// and K11's, and one 64-register accumulator a thread: in its layout d[4 j +
+// e] (j < 8) is gate column 8 j + 2 t + e % 2 and d[4 (j + 8) + e] is up of
+// the same column, in the same thread, so the epilogue pairs them in
+// registers.  Rows past M read as zeros and are not stored.  Two blocks
+// share an SM, a 3-stage ring each, so one block's epilogue runs while the
+// other's wgmma do (one block an SM with 5 stages measured slower: PERF.md).
+//
+// Tile order: blockIdx.x runs along M, so the grid sweeps every row block of
+// one column tile before the next, as the TPU kernel's grid (N outer, M
+// inner) keeps a weight tile resident across its M sweep, and each weight
+// tile should be read from device memory once while xq (11.5 MB at M =
+// 3200) stays in the 50 MB L2.  Device-memory bytes of wg and wu, reckoned
+// from the shapes (not measured): at M = 3200, 135.8 MB, once (a
+// column-major sweep that re-streamed them for each of the 25 row blocks
+// would read 3.4 GB, ~1.0 ms of HBM); at M = 128, 135.8 MB, one row block
+// either way.
 #include "common.cuh"
+#include "s8_gemm_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 64, BK = 64, STAGES = 3, THREADS = 256;
-constexpr int LDS = BK + 16;  // bytes per staged row
-constexpr int STAGE_BYTES = (BM + 2 * BN) * LDS;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;  // 61440
+constexpr int BM = 128, BN = 64;  // the output tile; a B stage holds BN gate rows and BN up rows
+constexpr int BLOCKS_PER_SM = 2, STAGES = 3;  // 96 KB of ring a block
 
 __device__ __forceinline__ float silu(float g) {
     // jax.nn.silu(g) = g * sigmoid(g), sigmoid = 1 / (1 + exp(-g))
     return __fmul_rn(g, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g))));
 }
 
-__global__ void __launch_bounds__(THREADS)
-swiglu_quant_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wg, const int8_t* __restrict__ wu,
-                    const float* __restrict__ row_scale, const bf16* __restrict__ cs_g,
-                    const bf16* __restrict__ cs_u, const float* __restrict__ out_scale, int8_t* __restrict__ out,
-                    int M, int N, int K) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm*64.., cols wn*16..
-    const int KT = K / BK;
-
-    auto load_stage = [&](int stage, int kt) {
-        unsigned char* as = smem + stage * STAGE_BYTES;
-        unsigned char* gs = as + BM * LDS;
-        unsigned char* us = gs + BN * LDS;
-        const int k0 = kt * BK;
+// The 128 x 64 output tile (blockIdx.x along M, blockIdx.y along N).
+__global__ void __launch_bounds__(s8gemm::THREADS, BLOCKS_PER_SM)
+swiglu_quant_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
+                    const __grid_constant__ CUtensorMap map_u, const float* __restrict__ row_scale,
+                    const bf16* __restrict__ cs_g, const bf16* __restrict__ cs_u, const float* __restrict__ out_scale,
+                    int8_t* __restrict__ out, int M, int N, int k_tiles) {
+    const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+    // d[4 j + 2 h + e] is gate and d[4 (j + BN / 8) + 2 h + e] up of column n0 + 8 j + 2 t + e (j < 8)
+    s8gemm::tile<STAGES>(&map_x, &map_g, &map_u, m0, n0, k_tiles, row_scale, M,
+                         [&](const int (&d)[64], const int (&rows)[2], const float (&rs)[2], int t) {
+        const float inv = __fdiv_rn(1.f, out_scale[0]);
 #pragma unroll
-        for (int i = 0; i < (BM * BK / 16) / THREADS; ++i) {
-            const int c = tid + i * THREADS, row = c >> 2, col = (c & 3) * 16;
-            const bool valid = m0 + row < M;
-            cp_async16_zfill(as + row * LDS + col, xq + (size_t)(valid ? m0 + row : 0) * K + k0 + col, valid);
-        }
-        {  // BN * BK / 16 == THREADS: one 16-byte chunk of each weight per thread
-            const int row = tid >> 2, col = (tid & 3) * 16;
-            cp_async16(gs + row * LDS + col, wg + (size_t)(n0 + row) * K + k0 + col);
-            cp_async16(us + row * LDS + col, wu + (size_t)(n0 + row) * K + k0 + col);
-        }
-    };
-
-    int acc_g[4][2][4], acc_u[4][2][4];
+        for (int j = 0; j < BN / 8; ++j) {
+            const int col = n0 + 8 * j + 2 * t;
+            const float sg[2] = {__bfloat162float(cs_g[col]), __bfloat162float(cs_g[col + 1])};
+            const float su[2] = {__bfloat162float(cs_u[col]), __bfloat162float(cs_u[col + 1])};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+            for (int h = 0; h < 2; ++h) {
+                if (rows[h] >= M) continue;
+                uint32_t packed = 0;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc_g[i][j][e] = acc_u[i][j][e] = 0;
-
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-        if (s < KT) load_stage(s, s);
-        cp_async_commit();
-    }
-    for (int kt = 0; kt < KT; ++kt) {
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();  // stage kt has landed; stage kt-1 is no longer read
-        if (kt + STAGES - 1 < KT) load_stage((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
-        cp_async_commit();
-        const unsigned char* as = smem + (kt % STAGES) * STAGE_BYTES;
-        const unsigned char* gs = as + BM * LDS;
-        const unsigned char* us = gs + BN * LDS;
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 32) {
-            uint32_t a[4][4], bg[2][2], bu[2][2];
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt) {
-                const unsigned char* r0 = as + (wm * 64 + mt * 16 + g) * LDS + kk + 4 * t;
-                a[mt][0] = *reinterpret_cast<const uint32_t*>(r0);
-                a[mt][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LDS);
-                a[mt][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
-                a[mt][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LDS + 16);
-            }
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-                const int off = (wn * 16 + nt * 8 + g) * LDS + kk + 4 * t;
-                bg[nt][0] = *reinterpret_cast<const uint32_t*>(gs + off);
-                bg[nt][1] = *reinterpret_cast<const uint32_t*>(gs + off + 16);
-                bu[nt][0] = *reinterpret_cast<const uint32_t*>(us + off);
-                bu[nt][1] = *reinterpret_cast<const uint32_t*>(us + off + 16);
-            }
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-                for (int nt = 0; nt < 2; ++nt) {
-                    mma_s8_16832(acc_g[mt][nt], a[mt], bg[nt][0], bg[nt][1]);
-                    mma_s8_16832(acc_u[mt][nt], a[mt], bu[nt][0], bu[nt][1]);
+                for (int e = 0; e < 2; ++e) {
+                    const float gv = __fmul_rn(__fmul_rn((float)d[4 * j + 2 * h + e], rs[h]), sg[e]);
+                    const float uv = __fmul_rn(__fmul_rn((float)d[4 * (j + BN / 8) + 2 * h + e], rs[h]), su[e]);
+                    const float q = fminf(fmaxf(rintf(__fmul_rn(__fmul_rn(silu(gv), uv), inv)), -127.f), 127.f);
+                    packed |= (uint32_t)(uint8_t)(int8_t)(int)q << (8 * e);
                 }
-        }
-    }
-    cp_async_wait<0>();
-
-    const float inv = __fdiv_rn(1.f, out_scale[0]);
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-        const int col = n0 + wn * 16 + nt * 8 + 2 * t;
-        const float sg0 = __bfloat162float(cs_g[col]), sg1 = __bfloat162float(cs_g[col + 1]);
-        const float su0 = __bfloat162float(cs_u[col]), su1 = __bfloat162float(cs_u[col + 1]);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int row = m0 + wm * 64 + mt * 16 + g + 8 * half;
-                if (row >= M) continue;
-                const float rs = row_scale[row];
-                const float g0 = __fmul_rn(__fmul_rn((float)acc_g[mt][nt][2 * half], rs), sg0);
-                const float g1 = __fmul_rn(__fmul_rn((float)acc_g[mt][nt][2 * half + 1], rs), sg1);
-                const float u0 = __fmul_rn(__fmul_rn((float)acc_u[mt][nt][2 * half], rs), su0);
-                const float u1 = __fmul_rn(__fmul_rn((float)acc_u[mt][nt][2 * half + 1], rs), su1);
-                const float q0 = fminf(fmaxf(rintf(__fmul_rn(__fmul_rn(silu(g0), u0), inv)), -127.f), 127.f);
-                const float q1 = fminf(fmaxf(rintf(__fmul_rn(__fmul_rn(silu(g1), u1), inv)), -127.f), 127.f);
-                const uint16_t packed = (uint16_t)(uint8_t)(int8_t)(int)q0 | ((uint16_t)(uint8_t)(int8_t)(int)q1 << 8);
-                *reinterpret_cast<uint16_t*>(out + (size_t)row * N + col) = packed;
+                *reinterpret_cast<uint16_t*>(out + (size_t)rows[h] * N + col) = (uint16_t)packed;
             }
         }
-    }
+    });
 }
 
 }  // namespace
 
-// N a multiple of 64, K a multiple of 64 (the wrapper asks for 128, the JAX
-// package's gate); rows of xq and the weights 16-byte aligned (K % 16 == 0).
+// N a multiple of 64 and K of 128 (the wrapper asks N % 128, the JAX
+// package's gate); xq, wg and wu contiguous with 16-byte-aligned bases, as
+// their TMA maps need.
 extern "C" int omchat_swiglu_quant(const void* xq, const void* wg, const void* wu, const void* row_scale,
                                    const void* cs_g, const void* cs_u, const void* out_scale, void* out, int M,
                                    int N, int K, void* stream) {
-    if (N % BN != 0 || K % BK != 0) return (int)cudaErrorInvalidValue;
-    cudaFuncSetAttribute(swiglu_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    const dim3 grid(N / BN, (M + BM - 1) / BM);
-    swiglu_quant_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-        (const int8_t*)xq, (const int8_t*)wg, (const int8_t*)wu, (const float*)row_scale, (const bf16*)cs_g,
-        (const bf16*)cs_u, (const float*)out_scale, (int8_t*)out, M, N, K);
-    return (int)cudaGetLastError();
+    if (M <= 0 || N <= 0 || K <= 0 || N % BN != 0 || K % s8gemm::BK != 0) return (int)cudaErrorInvalidValue;
+    CUtensorMap map_x, map_g, map_u;
+    if (!s8gemm::matrix_map(&map_x, xq, M, K, BM) || !s8gemm::matrix_map(&map_g, wg, N, K, BN) ||
+        !s8gemm::matrix_map(&map_u, wu, N, K, BN))
+        return (int)cudaErrorInvalidValue;
+    return s8gemm::launch<STAGES>(swiglu_quant_kernel, dim3((M + BM - 1) / BM, N / BN), (cudaStream_t)stream,
+                                  map_x, map_g, map_u, (const float*)row_scale, (const bf16*)cs_g, (const bf16*)cs_u,
+                                  (const float*)out_scale, (int8_t*)out, M, N, K / s8gemm::BK);
 }

@@ -7,10 +7,10 @@ A param dict is either
 
 The dense kernel keeps the JAX package's [in, out] layout.  The int8 kernel
 is stored TRANSPOSED, [out, in] (stacked: [L, out, in]): the int8 tensor-core
-product (``mma.sync ... .s8.s8`` in the port's CUDA kernels, and cuBLASLt
-behind ``torch._int_mm``) wants the contraction axis contiguous for both
-operands, and the transpose is paid once, at quantization or conversion,
-instead of in every launch.  Codes and scales are the JAX package's.
+product (``wgmma ... .s8.s8`` on K-major TMA tiles in the port's CUDA
+kernels, and cuBLASLt behind ``torch._int_mm``) wants the contraction axis
+contiguous for both operands, and the transpose is paid once, at
+quantization or conversion, instead of in every launch.  Codes and scales are the JAX package's.
 
 - weight-only int8 (``dense`` without ``a8``): the codes are converted to the
   activation dtype and multiplied in it, then rescaled per output channel;

@@ -19,6 +19,11 @@
   the product on the TMA + wgmma int8 mainloop ``csrc/s8_gemm_sm90.cuh`` with
   the glue in its epilogue, a row finish).
 
+K9's and K10's products run on K11's TMA + wgmma int8 mainloop with their
+epilogues from the accumulators; their TMA maps need xq and the weights
+contiguous with 16-byte-aligned bases, so the wrappers copy an operand that
+is not (:func:`_tma_operand`).
+
 Each has a plain version (``*_plain``) and a launch counter
 (``<wrapper>.launches``); a CPU tensor runs the plain version, a CUDA tensor
 launches the kernel or raises.  Weights are int8 [N, K] (``kernel_q``, see
@@ -60,8 +65,8 @@ PROJ_GLUE_TILE = 128  # K11's GEMM tiles x' in PROJ_GLUE_TILE x PROJ_GLUE_TILE b
 
 def pallas_supported(k: int, n: int) -> bool:
     """Geometry gate of the fused fc1 and SwiGLU epilogues (the JAX
-    package's, which the CUDA kernels share: their tiles are 64 deep and 128
-    or 64 wide)."""
+    package's, which the CUDA kernels share: their K stages are 128 deep,
+    their output tiles 128 or 64 wide)."""
     return k % 128 == 0 and n % 128 == 0
 
 
@@ -72,6 +77,13 @@ def proj_glue_supported(k: int, n: int) -> bool:
     the CUDA kernel shares it, so both packages fuse the same layers (its
     128 x 128 tiles need only the 128-multiple side)."""
     return k == n and k % 128 == 0 and k * n <= 4096 * 4096
+
+
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a TMA map reads it: contiguous, its base 16-byte aligned (a
+    copy where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _bf16_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -111,11 +123,11 @@ def dense_prequant_gelu_quant_cuda(xq: torch.Tensor, row_scale: torch.Tensor, p:
     if xq.dtype != torch.int8 or w.dtype != torch.int8 or xq.shape[-1] != k or not pallas_supported(k, n):
         raise ValueError(f"fc1_gelu_quant: unsupported operands {tuple(xq.shape)} {xq.dtype} x {tuple(w.shape)} "
                          f"{w.dtype}")
-    a = xq.reshape(-1, k).contiguous()
+    a = _tma_operand(xq.reshape(-1, k))
     m = a.shape[0]
     rs = row_scale.to(torch.float32).reshape(m).contiguous()
     os_ = torch.as_tensor(out_scale, dtype=torch.float32, device=xq.device).reshape(1).contiguous()
-    wc, cs = w.contiguous(), p["scale"].contiguous()
+    wc, cs = _tma_operand(w), p["scale"].contiguous()
     bc = bias.contiguous() if bias is not None else None
     out = torch.empty((m, n), dtype=torch.int8, device=xq.device)
     if m:
@@ -173,11 +185,11 @@ def dense_prequant_swiglu_quant_cuda(xq: torch.Tensor, row_scale: torch.Tensor, 
             or xq.shape[-1] != k or not pallas_supported(k, n)):
         raise ValueError(f"swiglu_quant: unsupported operands {tuple(xq.shape)} {xq.dtype} x {tuple(wg.shape)} "
                          f"{wg.dtype} / {tuple(wu.shape)} {wu.dtype}")
-    a = xq.reshape(-1, k).contiguous()
+    a = _tma_operand(xq.reshape(-1, k))
     m = a.shape[0]
     rs = row_scale.to(torch.float32).reshape(m).contiguous()
     os_ = torch.as_tensor(out_scale, dtype=torch.float32, device=xq.device).reshape(1).contiguous()
-    gc, uc = wg.contiguous(), wu.contiguous()
+    gc, uc = _tma_operand(wg), _tma_operand(wu)
     sg, su = gate_p["scale"].contiguous(), up_p["scale"].contiguous()
     out = torch.empty((m, n), dtype=torch.int8, device=xq.device)
     if m:

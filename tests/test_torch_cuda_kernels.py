@@ -38,8 +38,11 @@ every bf16 bit pattern (NaN past 464).  Page sizes 16, 32 and 64: K12, K13
 and K14 over bf16 and e4m3 pools at the bf16 tolerance, and K12 / K13 at
 page size 32 bitwise equal to page size 128 on the same logical cache.  K10
 (gate / up + silu * up + quantize) at M not a tile multiple and M <= 16:
-codes as K9's; K5 (packed attention without qk-norm) on the qkv chunk views,
-prescaled and not; K3 and K6 (the split-KV decode kernels) over bf16 and
+codes as K9's.  K9 and K10 (the int8 TMA + wgmma mainloop) also at M = 1 and
+127-129 about a 128-row tile, N = 384, K = 3200 and 3584 and the path's
+shapes, a second launch bitwise the same, and a misaligned xq copied by the
+wrapper to codes bitwise the aligned ones; K5 (packed attention without
+qk-norm) on the qkv chunk views, prescaled and not; K3 and K6 (the split-KV decode kernels) over bf16 and
 e4m3 caches at ragged lengths, lengths 0 and 1, at a chunk's edges (chunk -
 1, chunk, chunk + 1) and T, 16 ragged requests, K3 at layer 27 of a 28-layer
 stack, with keys planted at every chunk edge, two launches bitwise equal;
@@ -328,17 +331,27 @@ def _qlinear(gen, n, k, bias):
     return p
 
 
-@pytest.mark.parametrize("M,K,N,bias", [(13, 256, 384, True), (300, 256, 384, False), (129, 3200, 1280, True)])
+# K9 and K10 on the int8 mainloop: M = 1 and 127 / 128 / 129 about a 128-row
+# tile (TMA zero-fills the rows past M, which are not stored), N = 384 (three
+# 128-column tiles, six of K10's 64-column ones), K = 3200 and 3584 (25 and
+# 28 K stages, not a multiple of the ring depth), and the path's shapes.
+S8_EDGES = [(1, 3200, 384), (127, 3584, 384), (128, 3200, 384), (129, 3584, 384)]
+
+
+@pytest.mark.parametrize("M,K,N,bias", [(13, 256, 384, True), (300, 256, 384, False), (129, 3200, 1280, True)]
+                         + [(M, K, N, M % 2 == 1) for M, K, N in S8_EDGES] + [(3096, 3200, 12800, True)])
 def test_fc1_gelu_quant_kernel(gen, M, K, N, bias):
     xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
-    xq[1] = 0  # a row of zeros: h is the bias alone
+    xq[min(1, M - 1)] = 0  # a row of zeros: h is the bias alone
     rs = torch.rand((M, 1), generator=gen, device="cuda") * 0.01 + 1e-3
     p = _qlinear(gen, N, K, bias)
     os_ = torch.tensor(0.02, device="cuda")
     n0 = qm.dense_prequant_gelu_quant_cuda.launches
     out = qm.fc1_gelu_quant(xq, rs, p, os_)
+    again = qm.fc1_gelu_quant(xq, rs, p, os_)
     torch.cuda.synchronize()
-    assert qm.dense_prequant_gelu_quant_cuda.launches == n0 + 1 and out.shape == (M, N)
+    assert qm.dense_prequant_gelu_quant_cuda.launches == n0 + 2 and out.shape == (M, N)
+    assert torch.equal(out, again)
     _codes_close(out, qm.dense_prequant_gelu_quant_plain(xq, rs, p, os_))
 
 
@@ -790,19 +803,47 @@ def test_paged_flash_prefill_kernel_at_page_size(gen, PS, pool):
         torch.testing.assert_close(out[b, :chunk_len[b]].float(), ref[b, :chunk_len[b]].float(), **TOL)
 
 
-@pytest.mark.parametrize("M,K,N", [(13, 256, 384), (300, 256, 384), (129, 3584, 1280)])
+@pytest.mark.parametrize("M,K,N", [(13, 256, 384), (300, 256, 384), (129, 3584, 1280)] + S8_EDGES
+                         + [(1024, 3584, 18944), (3200, 3584, 18944)])
 def test_swiglu_quant_kernel(gen, M, K, N):
     xq = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
-    xq[1] = 0  # a row of zeros: codes 0
+    zero = min(1, M - 1)
+    xq[zero] = 0  # a row of zeros: codes 0
     rs = torch.rand((M, 1), generator=gen, device="cuda") * 0.01 + 1e-3
     gp, up = _qlinear(gen, N, K, False), _qlinear(gen, N, K, False)
     os_ = torch.tensor(0.05, device="cuda")
     n0 = qm.dense_prequant_swiglu_quant_cuda.launches
     out = qm.swiglu_quant(xq, rs, gp, up, os_)
+    again = qm.swiglu_quant(xq, rs, gp, up, os_)
     torch.cuda.synchronize()
-    assert qm.dense_prequant_swiglu_quant_cuda.launches == n0 + 1 and out.shape == (M, N)
+    assert qm.dense_prequant_swiglu_quant_cuda.launches == n0 + 2 and out.shape == (M, N)
+    assert torch.equal(out, again)
     _codes_close(out, qm.dense_prequant_swiglu_quant_plain(xq, rs, gp, up, os_))
-    assert not out[1].any()
+    assert not out[zero].any()
+
+
+@pytest.mark.parametrize("kernel", ["fc1_gelu", "swiglu"])
+def test_s8_gemm_kernels_take_a_misaligned_xq(gen, kernel):
+    """An xq view whose base is 1 byte past a 16-byte boundary (TMA takes no
+    such base): the wrapper copies it and launches the kernel, whose codes
+    are bitwise those of the aligned xq."""
+    M, K, N = 70, 256, 384
+    buf = torch.randint(-127, 128, (M * K + 1,), generator=gen, device="cuda", dtype=torch.int8)
+    xq = buf[1:].view(M, K)
+    assert xq.data_ptr() % 16 and xq.is_contiguous()
+    rs = torch.rand((M, 1), generator=gen, device="cuda") * 0.01 + 1e-3
+    os_ = torch.tensor(0.05, device="cuda")
+    if kernel == "fc1_gelu":
+        p = _qlinear(gen, N, K, True)
+        wrapper, run = qm.dense_prequant_gelu_quant_cuda, lambda x: qm.fc1_gelu_quant(x, rs, p, os_)
+    else:
+        gp, up = _qlinear(gen, N, K, False), _qlinear(gen, N, K, False)
+        wrapper, run = qm.dense_prequant_swiglu_quant_cuda, lambda x: qm.swiglu_quant(x, rs, gp, up, os_)
+    n0 = wrapper.launches
+    out, aligned = run(xq), run(xq.clone())
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 2
+    assert torch.equal(out, aligned)
 
 
 @pytest.mark.parametrize("B,SP,valid,H,prescaled", [(2, 72, 65, 3, False), (1, 136, 136, 2, True),
