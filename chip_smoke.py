@@ -17,10 +17,11 @@
    the decode lengths, so that every launch reads from HBM; a K3 or K6 call
    takes the card less time than the host takes to issue it, so they and
    their library calls are read as device time (the 28 calls of a walk
-   captured in a CUDA graph, ``decode_times``) beside the time of a call
+   captured in a CUDA graph, ``device_times``) beside the time of a call
    issued eagerly.  The K3 line gives how the split-KV kernel cut the cache
    (splits, rows a split, grids); its check plants keys at a split's edge and
-   catches one split's rows dropped.
+   catches one split's rows dropped.  K4 and its ``index_put_`` are read as
+   graphed device time too (``GRAPH_CALLS`` calls), beside the eager call.
 3. End to end: ``OmChatConfig()`` at full width and depth (InternViT-6B +
    Qwen2-7B, random bf16 weights from a seeded generator), one 448x448 image
    (3 anyres tiles) and a question, greedy decode of 32 tokens through
@@ -62,7 +63,9 @@
     them, held against their plain versions (int8 codes, x', row scales; K11's
     x' bitwise) with planted faults that must fall outside the limits;
     kernel, plain, library (``torch._int_mm`` on the same GEMM, for K9 and
-    K11) and bound times.
+    K11) and bound times.  K7 and K8 are read as graphed device time from
+    HBM (``GRAPH_CALLS`` calls cycling over ``hbm_set_count`` input sets)
+    beside the eager call, with the share of the bound.
 12. w8a8 kernels vs plain at full width and 2+2 layers: first-token logits
     through the glue kernels and through ``attn_impl="plain"`` (the unfused
     chain), no further apart than w8a8 moves the plain chain from bf16.
@@ -104,10 +107,12 @@
     entry off by one, the self column or p rounded to e4m3, phase 6's) must
     fall outside the limits.  K13 and K12 on the e4m3 pool, and their gather
     + SDPA calls, are read as device time (a walk over the 28 layers
-    graphed, ``decode_times``) beside the eager call; K13 must equal K12
+    graphed, ``device_times``) beside the eager call; K13 must equal K12
     bit for bit on the same inputs, on both pools (they share chunks and
     arithmetic).  The e4m3 stores of K4 and K15 bitwise at those
-    shapes, and on all 65536 bf16 bit patterns against ``ops.fp8.to_e4m3``.
+    shapes, and on all 65536 bf16 bit patterns against ``ops.fp8.to_e4m3``;
+    their times graphed (``device_times``) beside the eager call (K15's
+    352 MB a call read from HBM).
 18. Serving at full width and depth, phase 5's workload, three more runs:
     bf16 pool on K13, e4m3 pool on K12, e4m3 pool on K13 (pool GiB, the
     first step leaving phase 5's tokens); each K13 run must give every
@@ -163,6 +168,7 @@ import argparse
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import math
 import os
@@ -194,6 +200,11 @@ PREPASS_TOL = (1e-6, 8e-3)  # (atol, rtol)
 # phases 2, 6, 13, 17, 22, 23: a kernel's time is the median of READINGS readings of
 # READING_LAUNCHES launches, the kernels of a case (and their library call) read in turns
 READINGS, READING_LAUNCHES = 5, 30
+# K4, K7, K8 and K15[e4m3] (phases 2, 11, 17), whose calls the host may issue slower
+# than the card runs them: GRAPH_CALLS calls in one CUDA graph (``device_times``); K7
+# and K8 cycle over input sets moving HBM_CYCLE_BYTES (4 x the L2) together
+# (``hbm_set_count``)
+GRAPH_CALLS, HBM_CYCLE_BYTES = 30, 200e6
 # phase 20, K12 / K13 at page sizes 128 and 64: a decode step's 28 calls (one a layer) graphed
 PAGE_SIZE_GRAPH_CALLS = 28
 LSE_ATOL = 1e-3  # K16a's fp32 log-sum-exp: exp2 / log2 and sums in another order
@@ -309,29 +320,47 @@ def graphed(fn, calls: int):
     return graph.replay
 
 
-def decode_times(kernel, library, calls: int) -> tuple:
-    """K3 and K6 (phases 2, 17, 23), whose calls take the card less time than
-    the host takes to issue them: the kernel and its library call read in
-    turns as ``time_in_turns`` reads them, each as one call's device time
-    (``calls`` calls graphed, e.g. a walk over the layers) and as the time of
-    one call issued eagerly ("kernel_eager", "library_eager")."""
-    ms, readings = time_in_turns({"kernel": graphed(kernel, calls), "library": graphed(library, calls),
-                                  "kernel_eager": kernel, "library_eager": library})
-    for name in ("kernel", "library"):
+def device_times(kernel, library, calls: int) -> tuple:
+    """Kernels read as device time (K3, K4, K6, K7, K8, K12 and K13, whose
+    calls take the card less time than the host takes to issue them, and
+    K15[e4m3]): the kernel and its library call (None: no single call
+    computes it) read in turns as ``time_in_turns`` reads them, each as one
+    call's device time (``calls`` calls graphed, e.g. a walk over the
+    layers) and as the time of one call issued eagerly ("kernel_eager",
+    "library_eager")."""
+    fns = {"kernel": kernel} if library is None else {"kernel": kernel, "library": library}
+    ms, readings = time_in_turns({**{name: graphed(fn, calls) for name, fn in fns.items()},
+                                  **{f"{name}_eager": fn for name, fn in fns.items()}})
+    for name in fns:
         ms[name] /= calls
         readings[name] = [r / calls for r in readings[name]]
     return ms, readings
 
 
+def cycling(call, sets: list):
+    """A callable running ``call`` on the next of ``sets`` each time (see
+    ``hbm_set_count``)."""
+    turns = itertools.cycle(sets)
+    return lambda: call(*next(turns))
+
+
+def hbm_set_count(nbytes: float) -> int:
+    """How many input sets a call moving ``nbytes`` cycles over so that a set
+    has left the 50 MB L2 before it comes round again: each call then reads
+    from HBM, as the path's calls do."""
+    return max(2, math.ceil(HBM_CYCLE_BYTES / nbytes))
+
+
 def eager_text(ms: dict) -> str:
-    return (f" eager_ms={ms['kernel_eager']:.4f} (library {ms['library_eager']:.4f}: a call issued from the host, "
+    lib = f"library {ms['library_eager']:.4f}: " if "library_eager" in ms else ""
+    return (f" eager_ms={ms['kernel_eager']:.4f} ({lib}a call issued from the host, "
             f"the device times above from graphed calls)")
 
 
 def rate_text(flops: float, ms: float, b_ms: float, readings: list) -> str:
     """The achieved rate and share of the bound beside a kernel's readings."""
-    return (f" tflops={flops / ms / 1e9:.1f} share_of_bound={b_ms / ms:.3f} "
-            f"readings={[round(x, 4) for x in readings]}")
+    tflops = f" tflops={flops / ms / 1e9:.1f}" if flops else ""
+    return f"{tflops} share_of_bound={b_ms / ms:.3f} readings={[round(x, 5) for x in readings]}"
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
@@ -599,7 +628,7 @@ def kernel_phases(gen, shapes: dict) -> list:
         walk(da.flash_decode_stacked)
         library_decode()
     p_ms = time_ms(lambda: walk(da.flash_decode_stacked_plain), iters=len(lens), warmup=len(lens))
-    ms, readings = decode_times(lambda: walk(da.flash_decode_stacked), library_decode, L)
+    ms, readings = device_times(lambda: walk(da.flash_decode_stacked), library_decode, L)
     mean_len = sum(lens) / len(lens)
     flops = 4.0 * H * D * (mean_len + 1)
     nbytes = (2 * KVH * (mean_len + 1) * D + 2 * H * D) * 2
@@ -623,7 +652,6 @@ def kernel_phases(gen, shapes: dict) -> list:
     if not (torch.equal(kf.view(torch.int16), k_ref.view(torch.int16))
             and torch.equal(vf.view(torch.int16), v_ref.view(torch.int16))):
         raise AssertionError("K4 commit_rows: cache differs from the plain commit (bitwise, all rows)")
-    k_ms = time_ms(lambda: pa.commit_rows(kf, vf, pages, offs, k_rows, v_rows), iters=100)
     p_ms = time_ms(lambda: pa.commit_rows_plain(k_ref, v_ref, pages, offs, k_rows, v_rows), iters=100)
     idx = (pages.long()[:, None], torch.arange(KVH, device=dev)[None, :], offs.long()[:, None])
 
@@ -631,11 +659,13 @@ def kernel_phases(gen, shapes: dict) -> list:
         kf.index_put_(idx, k_rows)
         vf.index_put_(idx, v_rows)
 
-    lib_ms = time_ms(library_commit, iters=100)
+    ms, readings = device_times(lambda: pa.commit_rows(kf, vf, pages, offs, k_rows, v_rows), library_commit,
+                                GRAPH_CALLS)
     nbytes = 2 * (2 * L * KVH * D * 2) + 2 * L * 4
     rows.append(dict(name="commit_rows", source="omchat_torch/csrc/commit_rows.cu",
-                     replaces="omchat_tpu/ops/paged_attention.py:619", max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
-                     library_ms=lib_ms, flops=0.0, bytes=nbytes, ref_mean_abs=None, faults={}))
+                     replaces="omchat_tpu/ops/paged_attention.py:619", max_abs_err=0.0, ms=ms["kernel"],
+                     plain_ms=p_ms, library_ms=ms["library"], flops=0.0, bytes=nbytes, ref_mean_abs=None, faults={},
+                     readings=readings["kernel"], extra=eager_text(ms)))
     del kc, vc, kf, vf, k_ref, v_ref
 
     for r in rows:
@@ -1061,7 +1091,6 @@ def paged_kernel_phases(gen, timed: dict) -> list:
     plain versions; returns their rows.  Keys are planted at the length and
     causal boundaries as in phase 2, and each check shows that a faulted
     plain version falls outside it."""
-    import itertools
 
     import numpy as np
     import torch
@@ -1139,7 +1168,7 @@ def paged_kernel_phases(gen, timed: dict) -> list:
         return F.scaled_dot_product_attention(qs, *kv, attn_mask=mask, enable_gqa=True)
 
     # a call takes the card less time than the host takes to issue it: graphed walks over the layers
-    dms, drd = decode_times(lambda: walk(pa.paged_flash_decode), k12_library, L)
+    dms, drd = device_times(lambda: walk(pa.paged_flash_decode), k12_library, L)
     cached = int(lens_np.sum())
     rows.append(dict(name="paged_flash_decode", source="omchat_torch/csrc/paged_flash_decode.cu",
                      replaces="omchat_tpu/ops/paged_attention.py:110", max_abs_err=err, ms=dms["kernel"],
@@ -1578,7 +1607,14 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
         return {"codes": q, "rs": rs}
 
     def row(name, source, replaces, stats, faults, ms, plain_ms, lib_ms, ops, nbytes, shape, peak=PEAK_INT8_OPS):
+        """One kernel's row and log line; ``ms`` a time, or what
+        ``device_times`` read (logged with the share of the bound, the
+        readings and the eager call's time)."""
         b, by = bound_ms(ops, nbytes, peak)
+        timing = ""
+        if isinstance(ms, tuple):  # (ms, readings) from device_times
+            timing = rate_text(ops, ms[0]["kernel"], b, ms[1]["kernel"]) + eager_text(ms[0])
+            ms = ms[0]["kernel"]
         r = dict(name=name, source=source, replaces=replaces, max_abs_err=float(stats["code_max_diff"]), ms=ms,
                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b, bound_by=by, stats=stats, faults=faults,
                  shape=shape)
@@ -1586,11 +1622,13 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
         caught = "".join(f"; fault '{f}' {json.dumps(d)} (caught)" for f, d in faults.items())
         lib = "none (no single call computes it)" if lib_ms is None else f"{lib_ms:.4f} (torch._int_mm, the GEMMs alone)"
         log(f"kernel {name} [{shape}]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
-            f"bound_ms={b:.4f} ({by}) {json.dumps(stats)}{caught}")
+            f"bound_ms={b:.4f} ({by}){timing} {json.dumps(stats)}{caught}")
 
-    # K7 — the LLM prefill's input norm + quantize
+    # K7 — the LLM prefill's input norm + quantize; timed over input sets that
+    # together pass the L2, graphed (the host issues a call slower than the card runs it)
     rows, D = top("rmsnorm_quant")
     x, gamma = randn(rows, D), randn(D, scale=0.1, off=1.0)
+    nbytes = rows * D * 3 + D * 2 + rows * 4
     q, rs = norms.rmsnorm_quant(x, gamma)
     torch.cuda.synchronize()
     rq, rrs = norms.rmsnorm_quant_plain(x, gamma)
@@ -1600,14 +1638,16 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
         ("codes", "rs"), norms.rmsnorm_quant_plain(x, torch.ones_like(gamma)))), ref),
         "the bf16-rounded norm quantized (the unfused chain)": quant_fault_caught(
             "K7", "the unfused chain", unfused(x, gamma), ref)}
+    sets = [(x,)] + [(randn(rows, D),) for _ in range(hbm_set_count(nbytes) - 1)]
     row("rmsnorm_quant", "omchat_torch/csrc/norm_quant.cu", "omchat_tpu/ops/norms.py:98", st, faults,
-        time_ms(lambda: norms.rmsnorm_quant(x, gamma), iters=50), time_ms(lambda: norms.rmsnorm_quant_plain(x, gamma)),
-        None, 0.0, rows * D * 3 + D * 2 + rows * 4, f"rows={rows} D={D}")
-    del x, q, rq
+        device_times(cycling(lambda x: norms.rmsnorm_quant(x, gamma), sets), None, GRAPH_CALLS),
+        time_ms(lambda: norms.rmsnorm_quant_plain(x, gamma)), None, 0.0, nbytes, f"rows={rows} D={D}")
+    del x, q, rq, sets
 
     # K8 — the ViT MLP glue: x' = x + y * ls2, then the next layer's norm1 + quantize
     rows, D = top("add_rmsnorm_quant")
     x, delta, ls, gamma = randn(rows, D), randn(rows, D), randn(D, scale=0.02, off=0.1), randn(D, scale=0.1, off=1.0)
+    nbytes = rows * D * 7 + 2 * D * 2 + rows * 4
     xn, q, rs = norms.add_rmsnorm_quant(x, delta, ls, gamma)
     torch.cuda.synchronize()
     ref = dict(zip(("x", "codes", "rs"), norms.add_rmsnorm_quant_plain(x, delta, ls, gamma)))
@@ -1617,11 +1657,11 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
         ("residual skipped", lambda: norms.add_rmsnorm_quant_plain(torch.zeros_like(x), delta, ls, gamma)))}
     faults["the bf16-rounded norm quantized (the unfused chain)"] = quant_fault_caught(
         "K8", "the unfused chain", {"x": ref["x"], **unfused(ref["x"], gamma)}, ref)
+    sets = [(x, delta)] + [(randn(rows, D), randn(rows, D)) for _ in range(hbm_set_count(nbytes) - 1)]
     row("add_rmsnorm_quant", "omchat_torch/csrc/norm_quant.cu", "omchat_tpu/ops/norms.py:148", st, faults,
-        time_ms(lambda: norms.add_rmsnorm_quant(x, delta, ls, gamma), iters=50),
-        time_ms(lambda: norms.add_rmsnorm_quant_plain(x, delta, ls, gamma)), None,
-        0.0, rows * D * 7 + 2 * D * 2 + rows * 4, f"rows={rows} D={D}")
-    del x, delta, xn, q, ref
+        device_times(cycling(lambda x, delta: norms.add_rmsnorm_quant(x, delta, ls, gamma), sets), None, GRAPH_CALLS),
+        time_ms(lambda: norms.add_rmsnorm_quant_plain(x, delta, ls, gamma)), None, 0.0, nbytes, f"rows={rows} D={D}")
+    del x, delta, xn, q, ref, sets
 
     # K9 — the ViT fc1: codes of a unit-normal activation, a bias near h's
     # spread and the static scale a calibration would set (max |gelu(h)| / 127)
@@ -2324,7 +2364,6 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
     bitwise at those shapes and on every bf16 bit pattern (the in-kernel
     cast against ``ops.fp8.to_e4m3``).  Times as in phases 2 and 6; the
     library line upcasts the e4m3 operands to bf16 inside the timed call."""
-    import itertools
 
     import numpy as np
     import torch
@@ -2355,7 +2394,7 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
         """Check ``got`` against ``ref`` and each planted fault against
         ``ref``; time the kernel, plain and library callables ``fns`` (the
         kernel and library ``in_turns``: medians of ``time_in_turns``, or
-        of ``decode_times`` over ``graph_calls`` graphed calls)."""
+        of ``device_times`` over ``graph_calls`` graphed calls)."""
         err = check_close(name, got, ref, *tol)
         caught = {f: check_fault_caught(name, f, bad, ref, *tol) for f, bad in faults.items()}
         k_fn, p_fn, lib_fn = fns
@@ -2364,7 +2403,7 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
                    plain_ms=time_ms(p_fn, iters=p_it, warmup=1), faults=caught, shape=shape)
         row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
         if in_turns:
-            ms, readings = (decode_times(k_fn, lib_fn, graph_calls) if graph_calls
+            ms, readings = (device_times(k_fn, lib_fn, graph_calls) if graph_calls
                             else time_in_turns({"kernel": k_fn, "library": lib_fn}))
             row.update(ms=ms["kernel"], library_ms=ms["library"],
                        rate=rate_text(flops, ms["kernel"], row["bound_ms"], readings["kernel"])
@@ -2528,12 +2567,14 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
         if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
             raise AssertionError("K15 commit_pages[e4m3]: the pool differs from the plain commit (bitwise, all pages)")
     M = int(pages15.numel())
+    ms, readings = device_times(lambda: pa.commit_pages(k8, v8, pages15, view_k, view_v), None, GRAPH_CALLS)
     row = dict(name="commit_pages[e4m3]", source="omchat_torch/csrc/commit_pages.cu",
                replaces="omchat_tpu/ops/paged_attention.py:695", max_abs_err=0.0, ref_mean_abs=None, faults={},
-               ms=time_ms(lambda: pa.commit_pages(k8, v8, pages15, view_k, view_v), iters=20),
+               ms=ms["kernel"],
                plain_ms=time_ms(lambda: pa.commit_pages_plain(ref_k, ref_v, pages15, view_k, view_v), iters=20),
                library_ms=None, shape=f"M={M} (L={L} x B={B15} x {CH} pages)")
     row["bound_ms"], row["bound_by"] = bound_ms(0.0, 2 * M * KVH * PS * D * (2 + 1) + M * 4)
+    row["rate"] = rate_text(0.0, row["ms"], row["bound_ms"], readings["kernel"]) + eager_text(ms)
     rows.append(row)
     del pools, kflat, vflat, k8, v8, kp8, vp8, ref_k, ref_v, view_k, view_v
 
@@ -2624,12 +2665,14 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
     if not (torch.equal(kf.view(torch.uint8), k_ref.view(torch.uint8))
             and torch.equal(vf.view(torch.uint8), v_ref.view(torch.uint8))):
         raise AssertionError("K4 commit_rows[e4m3]: cache differs from the plain commit (bitwise, all rows)")
+    ms, readings = device_times(lambda: pa.commit_rows(kf, vf, pages, offs, k_rows, v_rows), None, GRAPH_CALLS)
     row = dict(name="commit_rows[e4m3]", source="omchat_torch/csrc/commit_rows.cu",
                replaces="omchat_tpu/ops/paged_attention.py:619", max_abs_err=0.0, ref_mean_abs=None, faults={},
-               ms=time_ms(lambda: pa.commit_rows(kf, vf, pages, offs, k_rows, v_rows), iters=100),
+               ms=ms["kernel"],
                plain_ms=time_ms(lambda: pa.commit_rows_plain(k_ref, v_ref, pages, offs, k_rows, v_rows), iters=100),
                library_ms=None, shape=f"N={L} rows into [L, KVH, {T}, D]")
     row["bound_ms"], row["bound_by"] = bound_ms(0.0, 2 * L * KVH * D * (2 + 1) + 2 * L * 4)
+    row["rate"] = rate_text(0.0, row["ms"], row["bound_ms"], readings["kernel"]) + eager_text(ms)
     rows.append(row)
     del kc, vc, kf, vf, k_ref, v_ref
 
@@ -3265,7 +3308,7 @@ def decode_layer_cache(gen, cfg, params, seed: int) -> tuple:
         i = next(it) % L
         return F.scaled_dot_product_attention(qs, kcs[i][:, :, :n], vcs[i][:, :, :n], enable_gqa=True)
 
-    ms, readings = decode_times(lambda: walk(da.flash_decode), library, L)
+    ms, readings = device_times(lambda: walk(da.flash_decode), library, L)
     row = dict(name="flash_decode", source="omchat_torch/csrc/flash_decode_stacked.cu",
                replaces="omchat_tpu/ops/decode_attention.py:198", max_abs_err=err, ms=ms["kernel"],
                plain_ms=time_ms(lambda: walk(da.flash_decode_plain)), library_ms=ms["library"])
@@ -3353,8 +3396,9 @@ def main() -> int:
         undo()
     del calib8
     shapes8["dense_prequant_swiglu_quant"] = shapes10["dense_prequant_swiglu_quant"]
-    log("K10 shapes (calibrated request and serving runs, timed and warm-up, launches per shape): "
-        + json.dumps({str(k): v for k, v in shapes8["dense_prequant_swiglu_quant"].items()}))
+    log("K7, K8 and K10 shapes (calibrated request and serving runs, timed and warm-up, launches per shape): "
+        + json.dumps({n: {str(k): v for k, v in shapes10[n].items()}
+                      for n in ("rmsnorm_quant", "add_rmsnorm_quant", "dense_prequant_swiglu_quant")}))
     n_layers = cfg8.text.num_hidden_layers
     if e2e10["launches"]["dense_prequant_swiglu_quant"] != n_layers:
         raise AssertionError(f"w8a8 e2e (calibrated MLP): K10 launched "

@@ -16,7 +16,11 @@ bitwise.  The w8a8 kernels (K7 rmsnorm_quant, K8 add_rmsnorm_quant, K9 fc1 +
 GELU + quantize, K11 proj glue) at M not a tile multiple, M <= 16 and rows of
 all zeros (the 1e-6 floor of the row scale): int8 codes within one of the
 plain version's and at least 99% equal (fp32 sums in another order), row
-scales rtol 1e-5, x' bitwise for K8 and K11; K11 also at the path's shapes
+scales rtol 1e-5, x' bitwise for K8 and K11; K7 and K8 (with and without
+LayerScale) at D on both edges of each count of vectors a thread (64 to
+16384) and at 1 row, fewer rows than their persistent grid and many times
+it, a row's bits the same alone and inside a batch of 3200, two launches
+bitwise equal; K11 also at the path's shapes
 (the ViT proj 3200 with bias and LayerScale, the Qwen2 o_proj 3584 with
 neither, M from 1 to 3096 across its 128-row tiles), codes and row scales
 within chip_smoke.py's phase-11 limits (±1, 99% equal, rtol 1e-2).  The
@@ -34,7 +38,9 @@ K2, whose p is rounded to e4m3 against the running row max (the plain version
 rounds it against the row's global max, as the TPU kernel and its XLA
 reference differ): atol = rtol = 5e-2; K13 over bf16 and e4m3 pools on K12's
 cases; the e4m3 stores of K4 and K15 bitwise against ``ops.fp8.to_e4m3`` on
-every bf16 bit pattern (NaN past 464).  Page sizes 16, 32 and 64: K12, K13
+every bf16 bit pattern (NaN past 464), and K15's at the serving run's
+largest commit with values past 464, +-inf, NaN and subnormals, bitwise the
+plain commit.  Page sizes 16, 32 and 64: K12, K13
 and K14 over bf16 and e4m3 pools at the bf16 tolerance, and K12 / K13 at
 page size 32 bitwise equal to page size 128 on the same logical cache.  K10
 (gate / up + silu * up + quantize) at M not a tile multiple and M <= 16:
@@ -300,8 +306,23 @@ def _codes_close(got, want):
     assert int(d.max()) <= 1 and float((d == 0).float().mean()) >= 0.99
 
 
-@pytest.mark.parametrize("rows,D", [(1, 64), (5, 3584), (130, 3200)])
+def _norm_quant_grid():
+    """Blocks of K7's persistent grid on this card up to D = 4096 (three an
+    SM, ``K7_BLOCKS_PER_SM`` in csrc/norm_quant.cu; one past it)."""
+    return torch.cuda.get_device_properties(0).multi_processor_count * 3
+
+
+# K7 / K8: D at both edges of each V = ceil(D / 2048) vectors a K7 thread
+# (1-8), rows of 1, fewer than K7's persistent grid ("under": grid - 1) and
+# many times it ("many": 8 x grid + 3, rows left over for some blocks)
+NORM_QUANT_CASES = [(1, 64), (5, 3584), (130, 3200), ("under", 2048), ("many", 2056), ("many", 3200), (1, 3584),
+                    ("under", 3584), ("many", 3584), ("under", 4096), ("many", 6144), ("many", 8192), (1, 10240),
+                    ("under", 12288), ("many", 14336), ("many", 16384), (1, 16384)]
+
+
+@pytest.mark.parametrize("rows,D", NORM_QUANT_CASES)
 def test_rmsnorm_quant_kernels(gen, rows, D):
+    rows = {"under": _norm_quant_grid() - 1, "many": 8 * _norm_quant_grid() + 3}.get(rows, rows)
     x, gamma = _randn(gen, rows, D), (1 + 0.1 * _randn(gen, D).float()).bfloat16()
     x[0] = 0  # the scale floor: max(0, 1e-6) / 127, codes 0
     n7, n8 = norms.rmsnorm_quant.launches, norms.add_rmsnorm_quant.launches
@@ -321,6 +342,33 @@ def test_rmsnorm_quant_kernels(gen, rows, D):
         _codes_close(q, qp)
         torch.testing.assert_close(rs, rp, rtol=1e-5, atol=0)
     assert (norms.rmsnorm_quant.launches, norms.add_rmsnorm_quant.launches) == (n7 + 1, n8 + 2)
+
+
+@pytest.mark.parametrize("D", [3200, 3584])
+def test_rmsnorm_quant_rows_do_not_depend_on_their_block(gen, D):
+    """A row's codes, scale and x' are the same bits whether it is quantized
+    alone or inside a batch of 3200 rows (another block, another pass of the
+    row loop), and two launches on one batch are bitwise equal."""
+    x, delta = _randn(gen, 3200, D), _randn(gen, 3200, D)
+    gamma, ls = (1 + 0.1 * _randn(gen, D).float()).bfloat16(), (0.1 * _randn(gen, D).float()).bfloat16()
+    x[7] = 0
+    delta[7] = 0
+    picks = [0, 1, 7, _norm_quant_grid() - 1, _norm_quant_grid(), 1234, 3199]
+    batch = {"K7": norms.rmsnorm_quant(x, gamma), "K8": norms.add_rmsnorm_quant(x, delta, ls, gamma),
+             "K8 without LayerScale": norms.add_rmsnorm_quant(x, delta, None, gamma)}
+    again = {"K7": norms.rmsnorm_quant(x, gamma), "K8": norms.add_rmsnorm_quant(x, delta, ls, gamma),
+             "K8 without LayerScale": norms.add_rmsnorm_quant(x, delta, None, gamma)}
+    for i in picks:
+        alone = {"K7": norms.rmsnorm_quant(x[i:i + 1], gamma),
+                 "K8": norms.add_rmsnorm_quant(x[i:i + 1], delta[i:i + 1], ls, gamma),
+                 "K8 without LayerScale": norms.add_rmsnorm_quant(x[i:i + 1], delta[i:i + 1], None, gamma)}
+        torch.cuda.synchronize()
+        for name, outs in alone.items():
+            for got, want in zip(outs, batch[name]):
+                assert torch.equal(got[0].view(torch.uint8), want[i].view(torch.uint8)), (name, i)
+    for name, outs in again.items():
+        for got, want in zip(outs, batch[name]):
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), name
 
 
 def _qlinear(gen, n, k, bias):
@@ -709,6 +757,31 @@ def test_e4m3_stores_round_every_bf16_pattern_as_to_e4m3(gen):
     torch.cuda.synchronize()
     assert torch.equal(kp[2].reshape(-1).view(torch.uint8), want)
     assert not kp[:2].view(torch.uint8).any()
+
+
+def test_commit_pages_e4m3_at_the_serving_shape(gen):
+    """K15 into an e4m3 pool at the serving run's largest commit (a strided
+    28 x 8 x 4 x 512 x 128 scratch cache, 896 pages at distinct random pool
+    pages), values spread past 464 with +-inf, NaN, -0 and subnormals
+    planted: bitwise the plain commit, and a second launch the same."""
+    L, B, KVH, T, D, PS, NP = 28, 8, 4, 512, 128, 128, 193
+    CH = T // PS
+    scratch = [(100 * _randn(gen, L, B, KVH, T, D).float()).bfloat16() for _ in range(2)]
+    flat = scratch[0].view(-1)
+    flat[:6] = torch.tensor([float("inf"), -float("inf"), float("nan"), -0.0, 1e-40, -3e-3], dtype=torch.bfloat16)
+    views = [t.view(L * B, KVH, CH, PS, D).transpose(1, 2) for t in scratch]
+    pages = torch.randperm(L * NP, generator=gen, device="cuda")[:L * B * CH].int()
+    pools = [torch.zeros(L * NP, KVH, PS, D, dtype=E4M3, device="cuda") for _ in range(2)]
+    refs = [p.clone() for p in pools]
+    pa.commit_pages(*pools, pages, *views)
+    torch.cuda.synchronize()
+    first = [p.clone() for p in pools]
+    pa.commit_pages(*pools, pages, *views)
+    pa.commit_pages_plain(*refs, pages, *views)
+    torch.cuda.synchronize()
+    for got, again, want in zip(first, pools, refs):
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        assert torch.equal(again.view(torch.uint8), got.view(torch.uint8))
 
 
 # ---------------------------------------------------------------------------
