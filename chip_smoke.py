@@ -21,11 +21,14 @@
    issued eagerly.  The K3 line gives how the split-KV kernel cut the cache
    (splits, rows a split, grids); its check plants keys at a split's edge and
    catches one split's rows dropped.  K4 and its ``index_put_`` are read as
-   graphed device time too (``GRAPH_CALLS`` calls), beside the eager call.
+   graphed device time too (``GRAPH_CALLS`` calls), beside the eager call
+   and K4's launch floor (an empty kernel on its grid, read the same way).
 3. End to end: ``OmChatConfig()`` at full width and depth (InternViT-6B +
    Qwen2-7B, random bf16 weights from a seeded generator), one 448x448 image
    (3 anyres tiles) and a question, greedy decode of 32 tokens through
-   ``OmChatEngine.generate``; every kernel must have launched.
+   ``OmChatEngine.generate``, each decode step one CUDA-graph replay (as in
+   every phase: the engines decode through graphs by default); every kernel
+   must have launched.
 4. Kernel vs plain: the same model at full width and reduced depth, prefill
    through the kernels and through ``attn_impl="plain"``; first-token logits
    compared.
@@ -155,6 +158,16 @@
     version at B=16 ragged lengths and at the request's shape, keys planted
     at a split's edge (cache_len off by one and one split's rows dropped
     caught), timed at the request's shape over 28 caches walked in turn.
+24. Decode as one dispatch, on phase 3's model and request: ``generate`` and
+    ``generate_ondevice`` through an engine replaying a CUDA graph of the
+    decode step and one running the same step eagerly
+    (``decode_graphs=False``), in turns, on bf16, the e4m3 cache and (after
+    phase 9) w8a8: tokens bitwise equal and the same launches in every run;
+    decode tokens/s, step wall ms, capture ms, launches and peak GiB of each.
+    Then phase 5's workload, graphed after ``precompile()`` and eager, on
+    K12 and on K13: every request the eager run's tokens, every roll
+    graphed, the same launches; tokens/s, TTFT and inter-token percentiles,
+    the 16-slot decode step wall, rolls graphed / eager and pages free.
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -335,6 +348,21 @@ def device_times(kernel, library, calls: int) -> tuple:
         ms[name] /= calls
         readings[name] = [r / calls for r in readings[name]]
     return ms, readings
+
+
+def k4_floor_ms(n: int, kvh: int, d: int) -> float:
+    """K4's launch floor: a kernel that does nothing, launched on the grid K4
+    takes for ``n`` rows of ``kvh`` x ``d`` (``omchat_commit_rows_floor``),
+    read as K4 is read (graphed device time, ``GRAPH_CALLS`` calls)."""
+    import ctypes
+
+    from omchat_torch.ops import kernel_lib
+
+    args = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    ms, _ = device_times(lambda: kernel_lib.launch("commit_rows.cu", "omchat_commit_rows_floor", args, n, kvh, d,
+                                                   kernel_lib.stream_ptr()),
+                         None, GRAPH_CALLS)
+    return ms["kernel"]
 
 
 def cycling(call, sets: list):
@@ -665,7 +693,9 @@ def kernel_phases(gen, shapes: dict) -> list:
     rows.append(dict(name="commit_rows", source="omchat_torch/csrc/commit_rows.cu",
                      replaces="omchat_tpu/ops/paged_attention.py:619", max_abs_err=0.0, ms=ms["kernel"],
                      plain_ms=p_ms, library_ms=ms["library"], flops=0.0, bytes=nbytes, ref_mean_abs=None, faults={},
-                     readings=readings["kernel"], extra=eager_text(ms)))
+                     readings=readings["kernel"],
+                     extra=f" launch_floor_ms={k4_floor_ms(L, KVH, D):.5f} (an empty kernel on K4's grid, graphed)"
+                           + eager_text(ms)))
     del kc, vc, kf, vf, k_ref, v_ref
 
     for r in rows:
@@ -2672,7 +2702,8 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
                plain_ms=time_ms(lambda: pa.commit_rows_plain(k_ref, v_ref, pages, offs, k_rows, v_rows), iters=100),
                library_ms=None, shape=f"N={L} rows into [L, KVH, {T}, D]")
     row["bound_ms"], row["bound_by"] = bound_ms(0.0, 2 * L * KVH * D * (2 + 1) + 2 * L * 4)
-    row["rate"] = rate_text(0.0, row["ms"], row["bound_ms"], readings["kernel"]) + eager_text(ms)
+    row["rate"] = (rate_text(0.0, row["ms"], row["bound_ms"], readings["kernel"])
+                   + f" launch_floor_ms={k4_floor_ms(L, KVH, D):.5f}" + eager_text(ms))
     rows.append(row)
     del kc, vc, kf, vf, k_ref, v_ref
 
@@ -3325,6 +3356,155 @@ def decode_layer_cache(gen, cfg, params, seed: int) -> tuple:
     return res, row
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: decode as one dispatch (CUDA graphs of the decode step and roll)
+# ---------------------------------------------------------------------------
+
+
+def graph_counters() -> dict:
+    """The kernels a single request's decode step launches (K3, K4)."""
+    from omchat_torch.ops import decode_attention as da
+    from omchat_torch.ops import paged_attention as pa
+
+    return {"flash_decode_stacked": da.flash_decode_stacked, "commit_rows": pa.commit_rows}
+
+
+def single_request_graphs(seed: int, model: tuple, label: str, cache_dtype=None) -> dict:
+    """Phase 24, single request: phase 3's request on ``model`` through an
+    engine that replays a CUDA graph a decode step and one that runs the same
+    step eagerly (``decode_graphs=False``), through ``generate`` and
+    ``generate_ondevice``, in turns (eager, graphed, graphed, eager) after a
+    warm-up of each (the graphed one captures there).  Every run's tokens
+    must equal the first eager run's bit for bit, and every run must launch
+    what it did.  Returns decode tokens/s and step wall ms (medians of the
+    two turns), capture ms, launches and peak GiB of each route and API, and
+    what the graphed engine's kept decode states hold on the card after
+    requests of one, two and three shapes (batch 1, batch 2, batch 1 with a
+    longer budget) and after ``release_decode_states``."""
+    import numpy as np
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    cfg, params = model
+    ids, tiles = make_request(cfg, seed)
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_id=-1)
+    engines = {graphs: OmChatEngine(cfg, params, image_cache_size=0, cache_dtype=cache_dtype, decode_graphs=graphs)
+               for graphs in (False, True)}
+    counted = graph_counters()
+    capture_ms = None
+    for graphs, eng in engines.items():  # warm-up: cuBLAS plans, the kernels' first launches, the capture
+        eng.generate([ids], tiles, gen)
+        if graphs:
+            capture_ms = eng.spans["capture"] * 1e3
+    runs, want = {}, None
+    for graphs in (False, True, True, False):
+        eng = engines[graphs]
+        for api in ("generate", "generate_ondevice"):
+            for c in counted.values():
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            tokens = getattr(eng, api)([ids], tiles, gen).token_ids
+            sp = eng.spans
+            run = {"decode_tokens_per_s": sp["decode_steps"] / sp["decode"],
+                   "step_wall_ms": sp["decode"] / sp["decode_steps"] * 1e3,
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "launches": {n: c.launches for n, c in counted.items() if c.launches}}
+            if "capture" in sp:
+                raise AssertionError(f"{label}: the graphed engine captured again on a request of a kept shape")
+            want = want if want is not None else (tokens, run["launches"])
+            if tokens != want[0]:
+                raise AssertionError(f"{label}: {api} with decode_graphs={graphs} gave other tokens than the eager "
+                                     f"generate: {tokens} vs {want[0]}")
+            if run["launches"] != want[1]:
+                raise AssertionError(f"{label}: {api} with decode_graphs={graphs} launched {run['launches']}, the "
+                                     f"eager generate {want[1]}")
+            runs.setdefault(("graphed" if graphs else "eager", api), []).append(run)
+    res = {"capture_ms": capture_ms, "new_tokens": len(want[0][0]), "tokens_bitwise_equal": True}
+    for (route, api), rs in runs.items():
+        mid = lambda k: sorted(r[k] for r in rs)[len(rs) // 2]  # noqa: E731
+        res[f"{route}/{api}"] = {"decode_tokens_per_s": mid("decode_tokens_per_s"),
+                                 "decode_tokens_per_s_runs": [r["decode_tokens_per_s"] for r in rs],
+                                 "step_wall_ms": mid("step_wall_ms"), "peak_mem_gib": max(r["peak_mem_gib"] for r in rs),
+                                 "launches": rs[0]["launches"]}
+    eng = engines[True]
+    engines[False].release_decode_states()
+    kept = [torch.cuda.memory_allocated()]
+    eng.generate([ids, ids], np.concatenate([tiles, tiles]), gen)
+    kept.append(torch.cuda.memory_allocated())
+    eng.generate([ids], tiles, GenerationConfig(max_new_tokens=NEW_TOKENS + eng.prompt_bucket, eos_token_id=-1))
+    kept.append(torch.cuda.memory_allocated())
+    if len(eng._states) != 3:
+        raise AssertionError(f"{label}: requests of three shapes left {len(eng._states)} decode states")
+    eng.release_decode_states()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    res["kept_states_gib"] = {f"{n} states": (m - base) / 2**30 for n, m in enumerate(kept, 1)}
+    if not base < kept[0] < kept[1] < kept[2]:
+        raise AssertionError(f"{label}: the kept decode states do not hold and release memory as they should: "
+                             f"{res['kept_states_gib']}")
+    log(f"decode as one dispatch, single request ({label}): " + json.dumps(res))
+    del engines
+    torch.cuda.empty_cache()
+    return res
+
+
+def serving_graphs(cfg, params) -> dict:
+    """Phase 24, serving: phase 5's workload through ``PagedBatchEngine``
+    with greedy rolls replayed from CUDA graphs after ``precompile()`` and
+    with every roll eager (``decode_graphs=False``), on K12 and on K13, in
+    turns; each run as phase 5's (``timed_serving``: a warm-up, then the
+    timed run).  Every request must get the eager run's tokens on the same
+    kernel, the graphed runs must replay every roll and launch what the
+    eager ones did, and every page must come back."""
+    import torch
+
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.runtime import paged_engine as pe
+
+    work = serving_workload(cfg)
+    res = {}
+    for kernel, order in (("auto", (False, True)), ("manual", (True, False))):
+        got = {}
+        for graphs in order:
+            eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, decode_kernel=kernel,
+                                      decode_graphs=graphs, **SERVING)
+            t0 = time.perf_counter()
+            widths = eng.precompile() if graphs else []
+            precompile_s = time.perf_counter() - t0
+            rec, undo = record_dispatches(eng)
+            decode = pa.DECODE_KERNELS[kernel]
+            counts = {**{n: c for n, c in paged_counters().items() if n != "paged_flash_decode"},
+                      decode.__name__: decode}
+            route = "graphed" if graphs else "eager"
+            try:
+                r = timed_serving(eng, work, rec, counts, f"decode as one dispatch, serving ({route}, "
+                                                          f"decode_kernel={kernel})")
+            finally:
+                undo()
+            got[graphs] = r
+            res[f"{route}/{kernel}"] = {**{k: r[k] for k in ("tokens_per_s", "ttft_p50_s", "ttft_p99_s",
+                                                              "intertoken_p50_s", "intertoken_p99_s",
+                                                              "decode_step_wall_ms_16_slots", "rolls_graphed",
+                                                              "rolls_eager", "pages_free", "launches")},
+                                        "precompile_s": precompile_s if graphs else None, "widths": widths}
+            if graphs and (r["rolls_eager"] or not r["rolls_graphed"]):
+                raise AssertionError(f"serving ({route}, {kernel}): rolls graphed {r['rolls_graphed']}, "
+                                     f"eager {r['rolls_eager']}")
+            del eng
+            torch.cuda.empty_cache()
+        if got[True]["tokens"] != got[False]["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(got[True]["tokens"], got[False]["tokens"])) if a != b]
+            raise AssertionError(f"serving on {kernel}: the graphed rolls gave requests {bad} other tokens than "
+                                 f"the eager rolls")
+        if got[True]["launches"] != got[False]["launches"]:
+            raise AssertionError(f"serving on {kernel}: graphed launches {got[True]['launches']} != eager "
+                                 f"{got[False]['launches']}")
+    log("decode as one dispatch, serving (16 slots, this call): " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -3362,6 +3542,11 @@ def main() -> int:
                                                                  shapes["cache_rows"]):
         raise AssertionError(f"e2e: the request's shapes differ from those phase 2 measured: {shapes}")
     k6, k6_row = decode_layer_cache(gen, *full, args.seed)
+    from omchat_torch.ops.fp8 import E4M3
+
+    one_dispatch = {"bf16": single_request_graphs(args.seed, full, "bf16"),
+                    "e4m3 cache": single_request_graphs(args.seed, full, "e4m3 cache", cache_dtype=E4M3),
+                    "serving": serving_graphs(*full)}
     del full
     gc.collect()
     kernel_vs_plain(args.seed)
@@ -3379,6 +3564,10 @@ def main() -> int:
         undo()
     log("w8a8 kernel shapes (timed and warm-up runs, launches per shape): "
         + json.dumps({n: {str(k): v for k, v in d.items()} for n, d in shapes8.items()}))
+    one_dispatch["w8a8"] = single_request_graphs(args.seed, (cfg8, params8), "w8a8")
+    log("decode as one dispatch, decode tokens/s eager vs graphed (this call): " + json.dumps(
+        {k: [r[f"{route}/{api}"]["decode_tokens_per_s"] for route in ("eager", "graphed")
+             for api in ("generate", "generate_ondevice")] for k, r in one_dispatch.items() if k != "serving"}))
     bf16_vs_w8a8 = {k: [e2e[k], e2e8[k]] for k in ("ttft_ms", "vit_ms", "prefill_ms", "decode_tokens_per_s",
                                                    "peak_mem_gib")}
     log("bf16 vs w8a8, single request (this call): " + json.dumps(bf16_vs_w8a8))

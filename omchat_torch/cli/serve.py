@@ -2,7 +2,7 @@
 the port's counterpart of ``cli/serve.py --paged``.
 
     python -m omchat_torch.cli.serve --model-path CKPT [--port 8000] [--device cuda] [--int8 | --w8a8] \\
-        [--kv-cache-dtype fp8] [--decode-kernel manual]
+        [--kv-cache-dtype fp8] [--decode-kernel manual] [--no-warmup]
 
 Serves ``GET /health`` and non-streaming ``POST /v1/chat/completions`` (text
 and base64 ``image_url`` content parts; ``max_tokens``, ``temperature``,
@@ -243,6 +243,29 @@ def make_handler(model, loop: ServingLoop):
     return Handler
 
 
+def warmup_engine(engine, timeout_s: float = 600.0) -> float:
+    """What the first requests would otherwise pay for, before the server
+    takes traffic (the JAX server's ``warmup_engines``): the engine's
+    ``precompile`` (a CUDA graph of the decode roll at every table width
+    bucket), then three short text requests run to completion (the batched
+    and the lone short prefill, the kernels' first launches; eos -1 never
+    matches, so each runs its four tokens).  Returns the seconds taken."""
+    t0 = time.perf_counter()
+    engine.precompile()
+    rids = [engine.submit(list(p), None, max_new_tokens=4, eos_token_id=-1) for p in ([9] * 17, [9] * 9, [9] * 9)]
+    deadline = time.perf_counter() + timeout_s
+    while engine.has_work() and time.perf_counter() < deadline:
+        engine.step()
+    for rid in rids:
+        if engine.finished(rid):
+            engine.pop_result(rid)
+        else:
+            logger.warning("warm-up request %d did not finish in %.0f s; continuing", rid, timeout_s)
+            engine.cancel(rid)
+    engine.reset_latency_stats()
+    return time.perf_counter() - t0
+
+
 def make_server(model, engine, host: str = "127.0.0.1", port: int = 8000):
     """A ready HTTP server and its started scheduler loop; the caller runs
     ``server.serve_forever()`` and, when done, ``server.shutdown()``,
@@ -274,6 +297,9 @@ def main(argv=None):
     ap.add_argument("--decode-kernel", choices=["auto", "manual"], default="auto",
                     help="paged decode kernel: auto (K12) or manual (K13, pages streamed through a ring of bulk "
                          "copies); the plain CPU path ignores it")
+    ap.add_argument("--no-warmup", dest="warmup", action="store_false",
+                    help="skip the start-up warm-up (the decode rolls' CUDA graphs, captured by precompile, and "
+                         "three short requests); the first requests then pay for them")
     args = ap.parse_args(argv)
 
     from omchat_torch.api import load_pretrained_model, paged_batch_engine
@@ -287,6 +313,8 @@ def main(argv=None):
         decode_roll=args.decode_roll, prefill_chunk=args.prefill_chunk, image_cache_size=args.image_cache,
         decode_kernel=args.decode_kernel,
     )
+    if args.warmup:
+        logger.info(f"warm-up done in {warmup_engine(engine):.1f} s")
     server, loop = make_server(model, engine, args.host, args.port)
     logger.info(f"serving on {args.host}:{args.port} ({args.max_slots} slots, {args.num_pages} pages)")
     try:

@@ -9,7 +9,7 @@
 //                   e4m3 through omchat_commit_pages_e4m3: the bf16 chunks are
 //                   rounded in the kernel as jnp.astype(float8_e4m3fn) rounds
 //                   them before the TPU call (paged_attention.py:751; NaN past
-//                   464, as common.cuh f32_to_e4m3 rounds)
+//                   464, common.cuh bf16x8_to_e4m3x8)
 //   pages           [M] int32 destination page of chunk m
 //   k_src, v_src    the chunks, chunk m = (g, c) with g = m / C, c = m % C:
 //                   head h's PS x D page rows start at element
@@ -28,36 +28,16 @@
 // Design: one block per destination page, 16-byte vector loads of 8 source
 // values, consecutive threads on consecutive addresses; the e4m3 variant
 // stores each vector's 8 rounded bytes as one 8-byte store.  The rounding
-// must not cost more than the bytes: the conversion without saturation
-// (__NV_NOSAT) has no instruction and runs as a long software sequence for
-// each value, so the e4m3 variant rounds two values an instruction with the
-// saturating one (cvt.rn.satfinite.e4m3x2.f32, 448 for what rounds past it)
-// and then puts NaN, with the value's sign, where the bf16 value is past
-// 464, +-inf or NaN: the same bits, on every bf16 input.
+// must not cost more than the bytes: it rounds two values an instruction
+// (common.cuh bf16x2_to_e4m3x2).
 #include "common.cuh"
 
 namespace {
 
 // 8 source values (one 16-byte vector) as stored in the pool: as they are, or
-// rounded to e4m3 one byte each.
+// rounded to e4m3 one byte each (common.cuh, the store K4 shares).
 __device__ __forceinline__ uint4 store_as(uint4 x, uint4*) { return x; }
-__device__ __forceinline__ uint2 store_as(uint4 x, uint2*) {
-    constexpr unsigned PAST_464 = 0x43E8u;  // |bf16| bits above 464's: NaN in e4m3 (so are +-inf and NaN)
-    const unsigned w[4] = {x.x, x.y, x.z, x.w};
-    unsigned out[2] = {0u, 0u};
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {  // word p: values 2p (low bf16, low byte) and 2p + 1
-        unsigned short pair;
-        asm("cvt.rn.satfinite.e4m3x2.f32 %0, %2, %1;\n"
-            : "=h"(pair)
-            : "f"(__uint_as_float(w[p] << 16)), "f"(__uint_as_float(w[p] & 0xFFFF0000u)));
-        unsigned b = pair;
-        if ((w[p] & 0x7FFFu) > PAST_464) b = (b & 0xFF00u) | 0x7Fu | ((w[p] >> 8) & 0x80u);
-        if (((w[p] >> 16) & 0x7FFFu) > PAST_464) b = (b & 0x00FFu) | 0x7F00u | ((w[p] >> 16) & 0x8000u);
-        out[p / 2] |= b << (16 * (p % 2));
-    }
-    return make_uint2(out[0], out[1]);
-}
+__device__ __forceinline__ uint2 store_as(uint4 x, uint2*) { return bf16x8_to_e4m3x8(x); }
 
 // The pool as vectors V (uint4: 8 bf16; uint2: 8 e4m3): one per source vector.
 template <typename V>

@@ -72,14 +72,33 @@ __device__ __forceinline__ float to_f32(e4m3 x) {
     return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
 }
 
-// f32 -> e4m3 as jnp.astype(float8_e4m3fn) stores it: round to nearest even,
-// subnormals included; what rounds past 448 (|x| > 464), +-inf and NaN become
-// NaN with x's sign.  __NV_NOSAT gives that NaN on overflow; its NaN for a
-// NaN input is always positive, so the sign is put back here.
-__device__ __forceinline__ unsigned char f32_to_e4m3(float x) {
-    unsigned char r = __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3);
-    if ((r & 0x7F) == 0x7F) r = (unsigned char)(0x7F | ((__float_as_uint(x) >> 24) & 0x80));
-    return r;
+// bf16 -> e4m3 as jnp.astype(float8_e4m3fn) stores it (ops.fp8.to_e4m3):
+// round to nearest even, subnormals included; what rounds past 448
+// (|x| > 464), +-inf and NaN become NaN with x's sign.  The conversion
+// without saturation (__NV_NOSAT) has no instruction and runs as a long
+// software sequence a value, so two values are rounded an instruction with
+// the saturating one (cvt.rn.satfinite.e4m3x2.f32, 448 for what rounds past
+// it) and NaN, with the value's sign, is put back where the bf16 value is
+// past 464, +-inf or NaN: the same bits on every bf16 input.  The row commit
+// (K4) and the page commit (K15) store through these.
+//   w: two bf16 values, the lower in the low half -> two e4m3 bytes, the
+//   lower in the low byte
+__device__ __forceinline__ unsigned bf16x2_to_e4m3x2(unsigned w) {
+    constexpr unsigned PAST_464 = 0x43E8u;  // |bf16| bits above 464's: NaN in e4m3 (so are +-inf and NaN)
+    unsigned short pair;
+    asm("cvt.rn.satfinite.e4m3x2.f32 %0, %2, %1;\n"
+        : "=h"(pair)
+        : "f"(__uint_as_float(w << 16)), "f"(__uint_as_float(w & 0xFFFF0000u)));
+    unsigned b = pair;
+    if ((w & 0x7FFFu) > PAST_464) b = (b & 0xFF00u) | 0x7Fu | ((w >> 8) & 0x80u);
+    if (((w >> 16) & 0x7FFFu) > PAST_464) b = (b & 0x00FFu) | 0x7F00u | ((w >> 16) & 0x8000u);
+    return b;
+}
+
+// 8 bf16 values (one 16-byte vector) -> their 8 e4m3 bytes (one 8-byte vector).
+__device__ __forceinline__ uint2 bf16x8_to_e4m3x8(uint4 x) {
+    return make_uint2(bf16x2_to_e4m3x2(x.x) | (bf16x2_to_e4m3x2(x.y) << 16),
+                      bf16x2_to_e4m3x2(x.z) | (bf16x2_to_e4m3x2(x.w) << 16));
 }
 
 // The PV product's A operand from two fp32 p: rounded to bf16, or (the fp8

@@ -6,7 +6,7 @@ and turns what rounds past 448 (|x| > 464), +-inf and NaN into NaN with the
 input's sign.  ``torch.Tensor.to(torch.float8_e4m3fn)`` saturates instead
 (500 -> 448), so every store into an e4m3 cache or pool goes through
 :func:`to_e4m3` (or :func:`cast_to`), and the CUDA stores (K4, K15) round the
-same way in the kernel (``csrc/common.cuh`` ``f32_to_e4m3``).
+same way in the kernel (``csrc/common.cuh`` ``bf16x2_to_e4m3x2``).
 """
 
 from __future__ import annotations

@@ -418,7 +418,11 @@ def commit_rows(
     updated in place — PyTorch's counterpart of the TPU call's
     ``input_output_aliases`` — and returned.  Only the N target rows change;
     every other byte of the pools is left as it was.  Rows sharing a
-    (page, offset) race; only the parking page receives such rows."""
+    (page, offset) race; only the parking page receives such rows.  On CUDA a
+    thread moves one 16-byte vector of a row (two rows a block, K and V in
+    separate blocks); a head width D that is not a
+    multiple of 8, or a pointer a vector cannot take, moves one value a
+    thread."""
     if k_pool.device.type == "cpu":
         return commit_rows_plain(k_pool, v_pool, pages, offsets, k_rows, v_rows)
     suffix = _require_cuda("commit_rows", k_rows, v_rows, cache=(k_pool, v_pool))
@@ -432,7 +436,8 @@ def commit_rows(
     of = _int32(offsets, k_pool.device).contiguous()
     kernel_lib.launch(
         "commit_rows.cu", "omchat_commit_rows" + suffix, _K4_ARGS,
-        *map(kernel_lib.ptr, (k_pool, v_pool, pg, of, kr, vr)), n, KVH, PS, D, kernel_lib.stream_ptr(k_pool.device),
+        *map(kernel_lib.ptr, (k_pool, v_pool, pg, of, kr, vr)), n, KVH, PS, D,
+        kernel_lib.stream_ptr(k_pool.device),
     )
     commit_rows.launches += 1
     return k_pool, v_pool

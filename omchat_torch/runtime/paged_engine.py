@@ -20,7 +20,18 @@ table.  One :meth:`PagedBatchEngine.step` (a scheduler tick):
    (:func:`_paged_decode_roll`): each step runs every layer with the pool
    read-only (K12, or with ``decode_kernel="manual"`` K13, with the in-flight
    token as a self column) and commits all layers' new rows once (K4); the
-   tokens come back to the host once per roll.
+   tokens come back to the host once per roll.  The roll reads its tokens,
+   lengths, active flags and page tables from one static buffer of
+   ``max_slots`` rows that the host fills before each roll.  On a CUDA engine
+   a greedy roll is one replay of a CUDA graph of the roll
+   (:class:`~omchat_torch.runtime.cuda_graphs.GraphedStep`), one graph per
+   table width bucket (4, 8, 16, 32 pages, capped at the table's width),
+   captured by :meth:`PagedBatchEngine.precompile` or at the bucket's first
+   roll: the counterpart of the JAX engine's one ``_paged_decode_roll_jit``
+   dispatch.  A roll with a sampled slot runs eagerly (its generator is not
+   yet graph-safe), and so do CPU engines, ``attn_impl="plain"`` and
+   ``decode_graphs=False``; ``latency_stats()`` counts ``rolls_graphed`` and
+   ``rolls_eager``.
 
 ``cache_dtype=torch.float8_e4m3fn`` keeps the pool in e4m3 (half the bytes a
 page): short prompts still prefill into a scratch cache of the weights' dtype
@@ -44,8 +55,8 @@ any page size.
 Waiting for later slices, each raising ``NotImplementedError`` rather than
 being ignored: the prefix cache, speculative verify, pipelined and streaming
 rolls, logprobs, a device mesh, the MoE trunk, and presence / frequency
-penalties.  The JAX engine's ``precompile`` has no counterpart: PyTorch runs
-eagerly, so there is no program menu to compile ahead of traffic.
+penalties.  Prefill runs eagerly, so :meth:`PagedBatchEngine.precompile`
+captures the decode rolls only.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from __future__ import annotations
 import itertools
 import math
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -79,10 +91,13 @@ from omchat_torch.ops.paged_attention import (
 )
 from omchat_torch.ops.rope import rope_cos_sin
 from omchat_torch.ops.sampling import greedy, sample, sample_batch
+from omchat_torch.runtime.cuda_graphs import GraphedStep
 from omchat_torch.runtime.feature_cache import pixel_digest
 from omchat_torch.runtime.generate import OmChatEngine
 from omchat_torch.utils.device import resolve_device
 from omchat_torch.utils.tree import layer_slice
+
+ROLL_WIDTHS = (4, 8, 16, 32)  # the page-table width buckets of a decode roll (pages), as the JAX engine's
 
 
 def commit_page_ids(tables: np.ndarray, n_pages: np.ndarray, n_layers: int, n_chunks: int,
@@ -307,6 +322,7 @@ class PagedBatchEngine:
         streaming_roll: Optional[int] = None,
         speculative: bool = False,
         pipeline_rolls: bool = False,
+        decode_graphs: bool = True,
     ):
         """``max_len`` caps one request's prompt + generation (it sets the
         page-table width); ``decode_roll`` decode steps run per dispatch, with
@@ -317,8 +333,10 @@ class PagedBatchEngine:
         weights'; ``torch.float8_e4m3fn`` halves a page's bytes.
         ``decode_kernel``: "auto" decodes with K12, "manual" with K13 (the
         same function; the plain route ignores it, as the JAX engine does off
-        the TPU).  ``params`` already live on ``device`` (default CUDA; raises
-        without it)."""
+        the TPU).  ``decode_graphs``: a CUDA engine on the kernels replays a
+        CUDA graph for each greedy roll (False: every roll eagerly).
+        ``params`` already live on ``device`` (default CUDA; raises without
+        it)."""
         if page_size not in PAGE_SIZES and torch.device(device or "cuda").type == "cuda":
             raise ValueError(f"PagedBatchEngine: page_size {page_size} has no CUDA kernel; the paged attention kernels "
                              f"take page sizes {PAGE_SIZES}")
@@ -378,6 +396,14 @@ class PagedBatchEngine:
         self._lengths = np.zeros(max_slots, np.int32)
         self._tables = np.full((max_slots, self.max_pages), self._parking, np.int32)
         self._generator = torch.Generator(device=self.device).manual_seed(rng_seed)
+        # a roll's inputs, one row a slot: token, length, active, then the page table
+        cuda = self.device.type == "cuda"
+        self._roll_host = torch.zeros((max_slots, 3 + self.max_pages), dtype=torch.int32, pin_memory=cuda)
+        self._roll_dev = self._roll_host.to(self.device) if cuda else self._roll_host
+        self.decode_graphs = decode_graphs
+        self._rolls: dict = {}  # table width -> the roll's GraphedStep, or its body run eagerly
+        self._graph_pool = torch.cuda.graph_pool_handle() if self.graphed() else None
+        self.rolls_graphed = self.rolls_eager = 0
 
     # -- client API ---------------------------------------------------------
 
@@ -465,17 +491,21 @@ class PagedBatchEngine:
         return out
 
     def reset_latency_stats(self) -> None:
-        """Clear the rolling windows (after a warm-up)."""
+        """Clear the rolling windows and the roll counts (after a warm-up)."""
         self._ttfts.clear()
         self._gaps.clear()
+        self.rolls_graphed = self.rolls_eager = 0
 
     def latency_stats(self) -> dict:
         """TTFT p50/p99/max and inter-token p50/p99, seconds, over rolling
-        windows.  Inter-token gaps are observation gaps at roll granularity:
-        a roll delivers its tokens together."""
+        windows, and the rolls replayed from a CUDA graph (``rolls_graphed``)
+        and issued eagerly (``rolls_eager``).  Inter-token gaps are
+        observation gaps at roll granularity: a roll delivers its tokens
+        together."""
         ttfts = list(self._ttfts)
         gaps = list(self._gaps)
-        out: dict = {"requests_measured": len(ttfts)}
+        out: dict = {"requests_measured": len(ttfts), "rolls_graphed": self.rolls_graphed,
+                     "rolls_eager": self.rolls_eager}
         if ttfts:
             out["ttft_p50_s"] = float(np.percentile(ttfts, 50))
             out["ttft_p99_s"] = float(np.percentile(ttfts, 99))
@@ -799,10 +829,75 @@ class PagedBatchEngine:
         width = min(_pow2_at_least(need_pages, 4), tables_dec.shape[1])
         self._process_roll(self._dispatch_roll(decoding, roll, active, tables_dec[:, :width]))
 
+    # -- decode rolls ---------------------------------------------------------
+
+    def graphed(self) -> bool:
+        """Whether greedy rolls replay CUDA graphs (a CUDA engine on the
+        kernels with ``decode_graphs``)."""
+        return self.decode_graphs and self.device.type == "cuda" and self.attn_impl != PLAIN
+
+    def precompile(self, roll_widths: Sequence[int] = ROLL_WIDTHS) -> List[int]:
+        """Capture the greedy roll of every table width in ``roll_widths``
+        (capped at the table's width) ahead of traffic, as the JAX engine's
+        ``precompile`` compiles its roll programs; returns the widths.  Each
+        capture follows one roll over parked slots (nothing active, every
+        table on the parking page), so it writes nothing but the parking
+        page.  Prefill runs eagerly and has nothing to capture.  On a CPU
+        engine, or without graphs, the parked roll runs eagerly once."""
+        widths = sorted({min(int(w), self.max_pages) for w in roll_widths})
+        parked = np.full((self.max_slots, self.max_pages), self._parking, np.int32)
+        zeros = np.zeros(self.max_slots, np.int32)
+        for w in widths:
+            step = self._roll_step(w)
+            if isinstance(step, GraphedStep) and step.graph is not None:
+                continue
+            self._stage_roll(zeros, zeros, zeros, parked[:, :w])
+            step()
+        return widths
+
+    def _stage_roll(self, tokens, lengths, active, tables) -> None:
+        """Copy a roll's host inputs ([S] tokens, lengths, active; [S, W]
+        tables) into the static buffer the roll reads (one asynchronous copy
+        from pinned memory on CUDA: the host writes the pinned rows again only
+        after the roll's tokens came back)."""
+        h = self._roll_host.numpy()
+        h[:, 0], h[:, 1], h[:, 2] = tokens, lengths, active
+        h[:, 3: 3 + tables.shape[1]] = tables
+        if self._roll_dev is not self._roll_host:
+            self._roll_dev.copy_(self._roll_host, non_blocking=True)
+
+    def _roll_inputs(self, width: int) -> tuple:
+        """(tokens, lengths, active, tables) of the staged roll: views of the
+        static buffer, tables the first ``width`` pages."""
+        b = self._roll_dev
+        return b[:, 0], b[:, 1], b[:, 2] != 0, b[:, 3: 3 + width]
+
+    def _roll_step(self, width: int):
+        """The greedy roll at table width ``width``: a GraphedStep on a graphed
+        engine, else its body; it writes the [roll, S] tokens into a static
+        buffer and returns it."""
+        step = self._rolls.get(width)
+        if step is None:
+            out = torch.zeros((self.decode_roll, self.max_slots), dtype=torch.int32, device=self.device)
+            engine = weakref.ref(self)  # weak: a deleted engine is freed at once, not by the collector
+
+            def body():
+                eng = engine()
+                toks = _paged_decode_roll(eng.params, eng.cfg, *eng._roll_inputs(width), eng.k_pool, eng.v_pool,
+                                          eng.page_size, eng.attn_impl, eng.decode_roll,
+                                          decode_kernel=eng.decode_kernel)
+                return out.copy_(toks)
+
+            step = GraphedStep(body, self._graph_pool, self.device) if self.graphed() else body
+            self._rolls[width] = step
+        return step
+
     def _dispatch_roll(self, decoding, roll, active, tables_dec):
-        """Issue one decode roll without reading its tokens back."""
+        """Issue one decode roll without reading its tokens back: a replay of
+        the width's graph, or eagerly where a slot samples or graphs are off."""
         dev = self.device
-        sampling = None
+        self._stage_roll(self._tokens, self._lengths, active, tables_dec)
+        width = tables_dec.shape[1]
         if any(r.samples for r in decoding):
             do_sample = np.zeros(self.max_slots, bool)
             temperature = np.ones(self.max_slots, np.float32)
@@ -817,13 +912,18 @@ class PagedBatchEngine:
                     top_p[r.slot] = g.top_p
             sampling = {k: torch.as_tensor(v, device=dev) for k, v in
                         dict(do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p).items()}
-        toks = _paged_decode_roll(
-            self.params, self.cfg, torch.as_tensor(self._tokens, device=dev),
-            torch.as_tensor(self._lengths, device=dev), torch.as_tensor(active, device=dev),
-            torch.as_tensor(np.ascontiguousarray(tables_dec), device=dev), self.k_pool, self.v_pool,
-            self.page_size, self.attn_impl, roll, decode_kernel=self.decode_kernel, sampling=sampling,
-            generator=self._generator,
-        )
+            toks = _paged_decode_roll(
+                self.params, self.cfg, *self._roll_inputs(width), self.k_pool, self.v_pool, self.page_size,
+                self.attn_impl, roll, decode_kernel=self.decode_kernel, sampling=sampling, generator=self._generator,
+            )
+            self.rolls_eager += 1
+        else:
+            step = self._roll_step(width)
+            toks = step()
+            if isinstance(step, GraphedStep):
+                self.rolls_graphed += 1
+            else:
+                self.rolls_eager += 1
         return {"decoding": list(decoding), "slots": [r.slot for r in decoding], "toks_dev": toks}
 
     def _process_roll(self, h):

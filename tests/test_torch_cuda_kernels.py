@@ -1099,3 +1099,183 @@ def test_attention_kernels_refuse_what_tma_cannot_take(gen):
     with pytest.raises(ValueError, match="packed_self_attention: q's base address is not 16-byte aligned"):
         fa.packed_self_attention(qq, kk, vv, num_heads=H)
     assert fa.flash_attention.launches == n0
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose base sits one element past ``t``'s
+    own allocation's start, so that no 16-byte vector can take it."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return flat.copy_(t.reshape(-1)).view(t.shape)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+@pytest.mark.parametrize("KVH,D,N,misaligned", [
+    (4, 128, 28, False), (4, 128, 448, False), (3, 40, 9, False),  # 16-byte vectors
+    (3, 20, 9, False), (2, 12, 5, False), (4, 128, 28, True),  # one value a thread
+], ids=["vec_4x128_decode", "vec_4x128_serving", "vec_3x40", "scalar_3x20", "scalar_2x12", "scalar_misaligned"])
+def test_commit_rows_vector_and_scalar_paths(gen, KVH, D, N, misaligned, pool):
+    """K4 writes N rows at distinct (page, offset) bitwise as the plain commit
+    does (into e4m3 as ``to_e4m3`` rounds, with values past 464, +-inf and NaN
+    among them) and leaves every other byte of the pools as it was: through
+    16-byte vectors where D is a multiple of 8 and the pointers allow, one
+    value a thread otherwise."""
+    P, PS = 40, 16
+    dtype = torch.bfloat16 if pool == "bf16" else E4M3
+    kr = _randn(gen, N, KVH, D) * 100
+    vr = _randn(gen, N, KVH, D) * 100
+    kr.view(-1)[:4] = torch.tensor([500.0, -float("inf"), float("nan"), 1e-9], dtype=torch.bfloat16)
+    slots = torch.randperm(P * PS, generator=gen, device="cuda")[:N]
+    pages, offs = (slots // PS).int(), (slots % PS).int()
+    base_k = torch.randint(0, 256, (P, KVH, PS, D * (2 if pool == "bf16" else 1)), generator=gen, device="cuda",
+                           dtype=torch.uint8).view(dtype)
+    base_v = torch.randint(0, 256, base_k.view(torch.uint8).shape, generator=gen, device="cuda",
+                           dtype=torch.uint8).view(dtype)
+    if misaligned:
+        kp, vp, kr, vr = map(_misaligned, (base_k, base_v, kr, vr))
+        assert kp.data_ptr() % 16 and kr.data_ptr() % 16
+    else:
+        kp, vp = base_k.clone(), base_v.clone()
+    kref, vref = kp.clone(), vp.clone()
+    n0 = pa.commit_rows.launches
+    ko, vo = pa.commit_rows(kp, vp, pages, offs, kr, vr)
+    torch.cuda.synchronize()
+    assert pa.commit_rows.launches == n0 + 1 and ko.data_ptr() == kp.data_ptr() and vo.data_ptr() == vp.data_ptr()
+    pa.commit_rows_plain(kref, vref, pages, offs, kr, vr)
+    bits = torch.uint8 if pool == "e4m3" else torch.int16
+    assert torch.equal(kp.view(bits), kref.view(bits)) and torch.equal(vp.view(bits), vref.view(bits))
+
+
+def test_graphed_step_counts_replays_and_checks_its_capture(gen):
+    """A ``GraphedStep`` re-adds its capture's launches at each replay, so K4's
+    counter reads one a call; a body whose capture launches other kernels
+    than its eager first run is refused at capture."""
+    from omchat_torch.runtime.cuda_graphs import GraphedStep
+
+    kp, vp = (torch.zeros(4, 4, 16, 128, dtype=torch.bfloat16, device="cuda") for _ in range(2))
+    rows = _randn(gen, 2, 4, 128)
+    pages, offs = torch.tensor([0, 3], dtype=torch.int32, device="cuda"), torch.tensor([1, 5], dtype=torch.int32,
+                                                                                        device="cuda")
+    pool = torch.cuda.graph_pool_handle()
+    step = GraphedStep(lambda: pa.commit_rows(kp, vp, pages, offs, rows, rows), pool, torch.device("cuda"))
+    n0 = pa.commit_rows.launches
+    for _ in range(4):
+        step()
+    torch.cuda.synchronize()
+    assert pa.commit_rows.launches == n0 + 4 and step.replays == 3
+    assert torch.equal(kp[pages.long(), :, offs.long()], rows)
+
+    calls = []
+
+    def eager_only():
+        calls.append(1)
+        if len(calls) == 1:
+            pa.commit_rows(kp, vp, pages, offs, rows, rows)
+
+    with pytest.raises(RuntimeError, match="commit_rows"):
+        GraphedStep(eager_only, pool, torch.device("cuda"))()
+
+
+def _graph_model():
+    """OmChatConfig() at full width with 2 ViT and 2 LLM layers, random bf16
+    weights (seed 0)."""
+    import dataclasses
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.models import intern_vit, projector, qwen2
+
+    full = OmChatConfig()
+    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_hidden_layers=2),
+                              text=dataclasses.replace(full.text, num_hidden_layers=2))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    return cfg, {"vision_tower": intern_vit.init_params(cfg.vision, g, bf),
+                 "projector": projector.init_params(cfg.projector, cfg.vision.hidden_size, cfg.text.hidden_size, g, bf),
+                 "language_model": qwen2.init_params(cfg.text, g, bf)}
+
+
+@pytest.fixture(scope="module")
+def graph_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return _graph_model()
+
+
+def _prompts(n, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [[151644] + [int(t) for t in rng.integers(2000, 20000, int(rng.integers(64, 600)))] for _ in range(n)]
+
+
+@pytest.mark.parametrize("cache", ["bf16", "e4m3"])
+def test_decode_graphs_give_the_eager_tokens(graph_model, cache):
+    """On the card, ``generate`` and ``generate_ondevice`` replaying a CUDA
+    graph of the decode step give the tokens of the same step run eagerly,
+    bit for bit; a second request of the same shape replays without
+    capturing; the launch counters read what the eager run launched."""
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.cuda_graphs import GraphedStep
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    cfg, params = graph_model
+    dtype = None if cache == "bf16" else E4M3
+    gen = GenerationConfig(max_new_tokens=24, eos_token_id=-1)
+    ids = _prompts(1)[0]
+    counted = (da.flash_decode_stacked, pa.commit_rows)
+
+    def run(eng, fn="generate"):
+        for c in counted:
+            c.launches = 0
+        out = getattr(eng, fn)([ids], None, gen).token_ids
+        torch.cuda.synchronize()
+        return out, [c.launches for c in counted]
+
+    eager = OmChatEngine(cfg, params, image_cache_size=0, cache_dtype=dtype, decode_graphs=False)
+    want, want_launches = run(eager)
+    assert want_launches == [23 * 2, 23] and len(want[0]) == 24
+    graphed = OmChatEngine(cfg, params, image_cache_size=0, cache_dtype=dtype)
+    got, launches = run(graphed)
+    assert got == want and launches == want_launches and graphed.spans["capture"] > 0
+    (st,) = graphed._states.values()
+    assert isinstance(st.run, GraphedStep) and st.run.graph is not None and st.run.replays == 22
+    graph = st.run.graph
+    again, launches = run(graphed)
+    assert again == want and launches == want_launches and "capture" not in graphed.spans
+    assert st.run.graph is graph and st.run.replays == 22 + 23
+    assert run(graphed, "generate_ondevice") == (want, want_launches)
+    assert run(eager, "generate_ondevice")[0] == want
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+@pytest.mark.parametrize("kernel", ["auto", "manual"], ids=["k12", "k13"])
+def test_paged_rolls_graphed_give_the_eager_tokens(graph_model, kernel, pool):
+    """``PagedBatchEngine`` after ``precompile`` replays a CUDA graph of each
+    greedy roll (table widths 4, 8 and the capped 9) and gives every request
+    the eager rolls' tokens on both decode kernels and pools; precompile
+    writes nothing but the parking page; the launch counters read what the
+    eager run launched; every page comes back."""
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    cfg, params = graph_model
+    settings = dict(max_slots=4, num_pages=48, page_size=128, prompt_bucket=128, max_len=1024, decode_roll=4,
+                    prefill_chunk=1024, image_cache_size=0, decode_kernel=kernel,
+                    cache_dtype=None if pool == "bf16" else E4M3)
+    decode = pa.DECODE_KERNELS[kernel]
+    got = {}
+    for graphs in (False, True):
+        eng = PagedBatchEngine(cfg, params, decode_graphs=graphs, **settings)
+        if graphs:
+            assert eng.precompile() == [4, 8, 9]
+            for p in (eng.k_pool, eng.v_pool):
+                assert not p[:, : eng._parking].view(torch.uint8).any() and p[:, eng._parking].view(torch.uint8).any()
+        decode.launches = pa.commit_rows.launches = 0
+        rids = [eng.submit(p, None, max_new_tokens=12, eos_token_id=-1) for p in _prompts(6, seed=1)]
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        got[graphs] = ([eng.result(r) for r in rids], decode.launches, pa.commit_rows.launches,
+                       eng.latency_stats())
+        assert eng.allocator.available == settings["num_pages"]
+    (want, k_eager, c_eager, st_eager), (tokens, k_graph, c_graph, st_graph) = got[False], got[True]
+    assert tokens == want and all(len(t) == 12 for t in tokens)
+    assert (k_graph, c_graph) == (k_eager, c_eager) and c_eager > 0
+    assert st_graph["rolls_graphed"] == st_eager["rolls_eager"] > 0 and st_graph["rolls_eager"] == 0
