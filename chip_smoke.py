@@ -168,6 +168,35 @@
     K12 and on K13: every request the eager run's tokens, every roll
     graphed, the same launches; tokens/s, TTFT and inter-token percentiles,
     the 16-slot decode step wall, rolls graphed / eager and pages free.
+25. The single-request surface through the entry points (right after phase
+    24), on phase 3's model as an ``OmChatModel`` (``api.omchat_model``, the
+    ``MockTokenizer``), 32 greedy tokens each: a 3-turn chat on one 448x448
+    image with history threaded (turns 2-3 must hit the encoded-image cache),
+    a 1344x1344 image (1 + 9 tiles, 10240 image tokens), three 448x448
+    images interleaved with text, and a 32-frame video (``VIDEO_WRITTEN``
+    JPEG frames written by PIL, sampled by ``load_video_frames``, through
+    ``chat_video``: ~32.9k merged rows); each line gives TTFT, decode
+    tokens/s, ViT tiles/s, prefill ms, peak GiB and K1-K4 launches, and the
+    entry point's tokens must equal ``engine.generate``'s on the same ids
+    and tiles.  K2 at the video prompt's rows: its last query rows against
+    the plain version, timed beside SDPA.
+26. ``generate``'s options and the single-request runtimes on that model:
+    sampling on the graph (``generate_ondevice(do_sample=True)`` twice
+    graphed and once eager from one seed, bitwise equal, every token in its
+    step's top 50, one replay a step), a +100 bias, a frequency penalty,
+    log-probs of the biased logits, guided choices / JSON mode /
+    ``chat_tools(tool_choice="required")``, ``prefill_chunked`` against the
+    one-shot prefill on bf16 and e4m3 caches, speculative decoding (an
+    oracle draft, whose verify logits must track the decode steps' at 2+2
+    layers, and prompt lookup on an echo prompt), beam search (4 beams, 16
+    tokens; at 2+2 layers each step's addition to a beam's score within
+    ``BEAM_STEP_GAP`` of the plain route's), with planted faults that both
+    limits must catch, the device preprocessing pipeline against the host
+    path; K2 at a verify step's 9 rows and K3 at B = 4 and over the video's
+    cache against their plain versions (planted faults), timed graphed with
+    their bounds.  After phase 9 (and phase 21) one speculative run under
+    w8a8 must launch K7 and K11 (and K10) at M = 9 and nowhere else; phase
+    11 holds them at those shapes too (rows ``[M=9]``).
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -236,6 +265,7 @@ SERVING_REQUESTS, SERVING_NEW_TOKENS, SERVING_WORKLOAD_SEED = 16, 64, 0
 SERVING_PS64 = {**SERVING, "page_size": 64, "num_pages": 384}
 PARITY_NEW_TOKENS, PARITY_MARGIN = 16, 0.1
 DEVICE = "cuda"  # phases 5-12 place their tensors and engines here
+CARD = ""  # the card's name and power limit (nvidia-smi), set by main; phases 25-26 print it on every line
 # phase 11, the w8a8 kernels against their plain versions: int8 codes within one
 # and at least 99% equal (fp32 sums in another order move a code next to a
 # rounding boundary), x' within one bf16 ulp, row scales rtol 1e-2 (the JAX
@@ -260,6 +290,26 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_REL = 1e-4, 5e-2
 # the two differ by a few per cent of the output (the TPU kernel and its XLA
 # reference differ alike).  The other e4m3 variants keep their bf16 limits.
 K2_E4M3_TOL = (5e-2, 5e-2)
+# Phases 25-26, the single-request surface: a video of VIDEO_WRITTEN frames on disk,
+# VIDEO_FRAMES sampled (one tile each); K2 at the video's rows checked on its last
+# VIDEO_CHECK_ROWS query rows; a speculative verify step of 1 + SPEC_DRAFT rows; the
+# sampled graph drawn from SAMPLE_SEED; a +100 bias on BIAS_TOKEN, +3 on
+# LOGPROB_BIAS_TOKEN (neither is eos); PENALTY_TOKENS greedy tokens for the frequency
+# penalty's count, JSON_TOKENS for json_mode; chunked prefill in chunks of CHUNK;
+# BEAMS beams for BEAM_TOKENS tokens.
+VIDEO_WRITTEN, VIDEO_FRAMES, VIDEO_CHECK_ROWS = 96, 32, 256
+SPEC_DRAFT, SAMPLE_SEED, BIAS_TOKEN, LOGPROB_BIAS_TOKEN = 8, 0, 1000, 2000
+PENALTY_TOKENS, JSON_TOKENS, CHUNK, BEAMS, BEAM_TOKENS = 64, 48, 1024, 4, 16
+# Phase 26's beam search at 2+2 layers, kernels vs the plain route: a beam score
+# sums one log-prob a step, a log-prob is a logit less the log-sum-exp, so what
+# each step adds to a beam's score (its score less its parent's) is held to
+# phase 4's absolute logit limit.  The first step's log-probs are the prefill's,
+# whose logits phase 4 lets differ by 1e-1: an H100 run read 0.031 there, past
+# 1e-2.  The order of the cache first matters to the third step's scores (the
+# beams start identical), so the routes' beams must agree for BEAM_MIN_AGREE
+# steps.  Planted faults (beam_faults) must fail one or the other.
+BEAM_STEP_GAP, BEAM_MIN_AGREE = LOGITS_ATOL, 3
+
 # Phase 19, first-token logits at 2+2 layers: e4m3 cache vs bf16 cache, and
 # kernels vs plain on the e4m3 cache, each within this share of max |logit|.
 FP8_LOGIT_GAP_REL = 0.15
@@ -1592,11 +1642,13 @@ def quant_fault_caught(name, fault, faulty, ref) -> dict:
     return st
 
 
-def w8a8_kernel_phases(gen, shapes: dict) -> list:
+def w8a8_kernel_phases(gen, shapes: dict, verify_shapes: dict) -> list:
     """Phase 11: K7, K8, K9 and K11 at the shapes the w8a8 request handed
-    them (``shapes``: name → {sizes: launches}), on inputs drawn like the
-    path's (unit-normal activations, int8 weights quantized from
-    normal(0, 0.02), LayerScale near 0.1), against their plain versions."""
+    them (``shapes``: name → {sizes: launches}), and K7, K10 and K11 at the
+    speculative verify's M = 9 (``verify_shapes``, rows ``<name>[M=9]``), on
+    inputs drawn like the path's (unit-normal activations, int8 weights
+    quantized from normal(0, 0.02), LayerScale near 0.1), against their plain
+    versions."""
     import torch
 
     from omchat_torch.config import OmChatConfig
@@ -1625,18 +1677,22 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
             return sum(pt[key] * pt["launches"] for pt in parts) / total
 
         worst = max((pt["stats"] for pt in parts), key=lambda st: (st["code_max_diff"], -st["code_equal"]))
+        # torch._int_mm takes more than 16 rows: a part of fewer has no library time, nor then the row
+        lib = None if any(pt["library_ms"] is None for pt in parts) else mean("library_ms")
         row(name, source, replaces, worst, {f"{pt['shape']}: {f}": d for pt in parts for f, d in pt["faults"].items()},
-            mean("ms"), mean("plain_ms"), mean("library_ms"), mean("ops"), mean("nbytes"),
+            mean("ms"), mean("plain_ms"), lib, mean("ops"), mean("nbytes"),
             "; ".join(f"{pt['shape']} x{pt['launches']}: {pt['ms']:.4f} ms, plain {pt['plain_ms']:.4f}, "
-                      f"{lib_name} {pt['library_ms']:.4f}, "
-                      f"bound {bound_ms(pt['ops'], pt['nbytes'], PEAK_INT8_OPS)[0]:.4f}" for pt in parts)
-            + " (launch-weighted means)")
+                      + (f"{lib_name} {pt['library_ms']:.4f}, " if pt["library_ms"] is not None
+                         else f"{lib_name} none (it takes more than 16 rows), ")
+                      + f"bound {bound_ms(pt['ops'], pt['nbytes'], PEAK_INT8_OPS)[0]:.4f}" for pt in parts)
+            + " (launch-weighted means)", lib_none="none (torch._int_mm takes more than 16 rows)")
 
     def unfused(xn, gamma):  # the chain: the norm rounded to bf16, then quantized
         q, rs = lin.quantize_activations(norms.rms_norm(xn, gamma))
         return {"codes": q, "rs": rs}
 
-    def row(name, source, replaces, stats, faults, ms, plain_ms, lib_ms, ops, nbytes, shape, peak=PEAK_INT8_OPS):
+    def row(name, source, replaces, stats, faults, ms, plain_ms, lib_ms, ops, nbytes, shape, peak=PEAK_INT8_OPS,
+            lib_none="none (no single call computes it)"):
         """One kernel's row and log line; ``ms`` a time, or what
         ``device_times`` read (logged with the share of the bound, the
         readings and the eager call's time)."""
@@ -1650,29 +1706,34 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
                  shape=shape)
         rows_out.append(r)
         caught = "".join(f"; fault '{f}' {json.dumps(d)} (caught)" for f, d in faults.items())
-        lib = "none (no single call computes it)" if lib_ms is None else f"{lib_ms:.4f} (torch._int_mm, the GEMMs alone)"
+        lib = lib_none if lib_ms is None else f"{lib_ms:.4f} (torch._int_mm, the GEMMs alone)"
         log(f"kernel {name} [{shape}]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
             f"bound_ms={b:.4f} ({by}){timing} {json.dumps(stats)}{caught}")
 
-    # K7 — the LLM prefill's input norm + quantize; timed over input sets that
-    # together pass the L2, graphed (the host issues a call slower than the card runs it)
-    rows, D = top("rmsnorm_quant")
-    x, gamma = randn(rows, D), randn(D, scale=0.1, off=1.0)
-    nbytes = rows * D * 3 + D * 2 + rows * 4
-    q, rs = norms.rmsnorm_quant(x, gamma)
-    torch.cuda.synchronize()
-    rq, rrs = norms.rmsnorm_quant_plain(x, gamma)
-    ref = {"codes": rq, "rs": rrs}
-    st = check_quant("K7 rmsnorm_quant", {"codes": q, "rs": rs}, ref)
-    faults = {"gamma dropped": quant_fault_caught("K7", "gamma dropped", dict(zip(
-        ("codes", "rs"), norms.rmsnorm_quant_plain(x, torch.ones_like(gamma)))), ref),
-        "the bf16-rounded norm quantized (the unfused chain)": quant_fault_caught(
-            "K7", "the unfused chain", unfused(x, gamma), ref)}
-    sets = [(x,)] + [(randn(rows, D),) for _ in range(hbm_set_count(nbytes) - 1)]
-    row("rmsnorm_quant", "omchat_torch/csrc/norm_quant.cu", "omchat_tpu/ops/norms.py:98", st, faults,
-        device_times(cycling(lambda x: norms.rmsnorm_quant(x, gamma), sets), None, GRAPH_CALLS),
-        time_ms(lambda: norms.rmsnorm_quant_plain(x, gamma)), None, 0.0, nbytes, f"rows={rows} D={D}")
-    del x, q, rq, sets
+    # K7 — the LLM prefill's input norm + quantize, and the verify's at M = 9;
+    # timed over input sets that together pass the L2, graphed (the host
+    # issues a call slower than the card runs it)
+    def k7_row(name, rows, D):
+        x, gamma = randn(rows, D), randn(D, scale=0.1, off=1.0)
+        nbytes = rows * D * 3 + D * 2 + rows * 4
+        q, rs = norms.rmsnorm_quant(x, gamma)
+        torch.cuda.synchronize()
+        rq, rrs = norms.rmsnorm_quant_plain(x, gamma)
+        ref = {"codes": rq, "rs": rrs}
+        tag = f"K7 rmsnorm_quant rows={rows}"
+        st = check_quant(tag, {"codes": q, "rs": rs}, ref)
+        faults = {"gamma dropped": quant_fault_caught(tag, "gamma dropped", dict(zip(
+            ("codes", "rs"), norms.rmsnorm_quant_plain(x, torch.ones_like(gamma)))), ref),
+            "the bf16-rounded norm quantized (the unfused chain)": quant_fault_caught(
+                tag, "the unfused chain", unfused(x, gamma), ref)}
+        sets = [(x,)] + [(randn(rows, D),) for _ in range(hbm_set_count(nbytes) - 1)]
+        row(name, "omchat_torch/csrc/norm_quant.cu", "omchat_tpu/ops/norms.py:98", st, faults,
+            device_times(cycling(lambda x: norms.rmsnorm_quant(x, gamma), sets), None, GRAPH_CALLS),
+            time_ms(lambda: norms.rmsnorm_quant_plain(x, gamma)), None, 0.0, nbytes, f"rows={rows} D={D}")
+
+    k7_row("rmsnorm_quant", *top("rmsnorm_quant"))
+    ((verify_k7, _),) = verify_shapes["rmsnorm_quant"].items()
+    k7_row("rmsnorm_quant[M=9]", *verify_k7)
 
     # K8 — the ViT MLP glue: x' = x + y * ls2, then the next layer's norm1 + quantize
     rows, D = top("add_rmsnorm_quant")
@@ -1720,80 +1781,94 @@ def w8a8_kernel_phases(gen, shapes: dict) -> list:
 
     # K10 — the calibrated Qwen2 MLP's gate and up at each shape the path gave
     # it (the request's prefill, the serving run's batched shorts and chunks),
-    # reported as one row weighted by launches.  Codes of a unit-normal
+    # reported as one row weighted by launches, and at the verify's M = 9.  Codes of a unit-normal
     # activation and the static scale a calibration would set (max |silu(g) *
     # u| / 127).
-    parts = []
-    for (M, N, K), n_launch in sorted(shapes["dense_prequant_swiglu_quant"].items()):
-        xq, rs = lin.quantize_activations(randn(M, K))
-        gp, up = qlinear(N, K), qlinear(N, K)
-        g = lin.int8_matmul(xq, gp["kernel_q"].t()).float() * rs * gp["scale"].float()
-        u = lin.int8_matmul(xq, up["kernel_q"].t()).float() * rs * up["scale"].float()
-        os_ = lin.div127((lin.silu(g) * u).abs().amax())
-        del g, u
-        out = qm.dense_prequant_swiglu_quant_cuda(xq, rs, gp, up, os_)
-        torch.cuda.synchronize()
-        ref = {"codes": qm.dense_prequant_swiglu_quant_plain(xq, rs, gp, up, os_)}
-        tag = f"K10 swiglu_quant M={M} N={N} K={K}"
-        st = check_quant(tag, {"codes": out}, ref)
-        faults = {f: quant_fault_caught(tag, f, {"codes": fn()}, ref) for f, fn in (
-            ("gate and up swapped", lambda: qm.dense_prequant_swiglu_quant_plain(xq, rs, up, gp, os_)),
-            ("row scales shifted by one row", lambda: qm.dense_prequant_swiglu_quant_plain(xq, rs.roll(1, 0), gp, up,
-                                                                                           os_)))}
+    def swiglu_parts(shape_launches):
+        parts = []
+        for (M, N, K), n_launch in sorted(shape_launches.items()):
+            xq, rs = lin.quantize_activations(randn(M, K))
+            gp, up = qlinear(N, K), qlinear(N, K)
+            g = lin.int8_matmul(xq, gp["kernel_q"].t()).float() * rs * gp["scale"].float()
+            u = lin.int8_matmul(xq, up["kernel_q"].t()).float() * rs * up["scale"].float()
+            os_ = lin.div127((lin.silu(g) * u).abs().amax())
+            del g, u
+            out = qm.dense_prequant_swiglu_quant_cuda(xq, rs, gp, up, os_)
+            torch.cuda.synchronize()
+            ref = {"codes": qm.dense_prequant_swiglu_quant_plain(xq, rs, gp, up, os_)}
+            tag = f"K10 swiglu_quant M={M} N={N} K={K}"
+            st = check_quant(tag, {"codes": out}, ref)
+            faults = {f: quant_fault_caught(tag, f, {"codes": fn()}, ref) for f, fn in (
+                ("gate and up swapped", lambda: qm.dense_prequant_swiglu_quant_plain(xq, rs, up, gp, os_)),
+                ("row scales shifted by one row",
+                 lambda: qm.dense_prequant_swiglu_quant_plain(xq, rs.roll(1, 0), gp, up, os_)))}
 
-        def both_gemms():
-            torch._int_mm(xq, gp["kernel_q"].t())
-            torch._int_mm(xq, up["kernel_q"].t())
+            def both_gemms():
+                torch._int_mm(xq, gp["kernel_q"].t())
+                torch._int_mm(xq, up["kernel_q"].t())
 
-        parts.append(dict(
-            launches=n_launch, stats=st, faults=faults, shape=f"M={M} N={N} K={K}",
-            ms=time_ms(lambda: qm.dense_prequant_swiglu_quant_cuda(xq, rs, gp, up, os_)),
-            plain_ms=time_ms(lambda: qm.dense_prequant_swiglu_quant_plain(xq, rs, gp, up, os_), iters=3, warmup=1),
-            library_ms=time_ms(both_gemms), ops=4.0 * M * N * K,
-            nbytes=M * K + 2 * N * K + M * 4 + 2 * N * 2 + 4 + M * N))
-        del xq, rs, gp, up, out, ref
-    weighted_row("dense_prequant_swiglu_quant", "omchat_torch/csrc/swiglu_quant.cu",
-                 "omchat_tpu/ops/quant_matmul.py:131", parts, "torch._int_mm on the two GEMMs")
+            parts.append(dict(
+                launches=n_launch, stats=st, faults=faults, shape=f"M={M} N={N} K={K}",
+                ms=time_ms(lambda: qm.dense_prequant_swiglu_quant_cuda(xq, rs, gp, up, os_)),
+                plain_ms=time_ms(lambda: qm.dense_prequant_swiglu_quant_plain(xq, rs, gp, up, os_), iters=3,
+                                 warmup=1),
+                library_ms=time_ms(both_gemms) if M > 16 else None, ops=4.0 * M * N * K,
+                nbytes=M * K + 2 * N * K + M * 4 + 2 * N * 2 + 4 + M * N))
+            del xq, rs, gp, up, out, ref
+        return parts
+
+    for name, shape_launches in (("dense_prequant_swiglu_quant", shapes["dense_prequant_swiglu_quant"]),
+                                 ("dense_prequant_swiglu_quant[M=9]", verify_shapes["dense_prequant_swiglu_quant"])):
+        weighted_row(name, "omchat_torch/csrc/swiglu_quant.cu", "omchat_tpu/ops/quant_matmul.py:131",
+                     swiglu_parts(shape_launches), "torch._int_mm on the two GEMMs")
 
     # K11 — at each shape the path gave it (the ViT proj with bias and LayerScale
-    # ls1; the Qwen2 o_proj with neither), reported as one row weighted by launches
-    parts = []
+    # ls1; the Qwen2 o_proj with neither), reported as one row weighted by
+    # launches, and at the verify's M = 9
     vit_width = OmChatConfig().vision.hidden_size
-    for (M, N), n_launch in sorted(shapes["attn_proj_glue_quant"].items()):
-        vit = N == vit_width  # the ViT proj (bias, LayerScale); else the Qwen2 o_proj
-        a, x, gamma = randn(M, N, scale=0.5), randn(M, N), randn(N, scale=0.1, off=1.0)
-        p = qlinear(N, N)
-        ls = randn(N, scale=0.02, off=0.1) if vit else None
-        if vit:
-            aq, sa = lin.quantize_activations(a)
-            y = lin.int8_matmul(aq, p["kernel_q"].t()).float() * sa * p["scale"].float()
-            p["bias"] = randn(N, scale=float(y.std()))
-            del y
-        xn, q, rs = qm.attn_proj_glue_quant(a, x, p, ls, gamma)
-        torch.cuda.synchronize()
-        ref = dict(zip(("x", "codes", "rs"), qm.attn_proj_glue_quant_plain(a, x, p, ls, gamma)))
-        tag = f"K11 attn_proj_glue_quant M={M} N={N}"
-        st = check_quant(tag, {"x": xn, "codes": q, "rs": rs}, ref)
-        if not torch.equal(xn, ref["x"]):  # an exact int32 product and an elementwise epilogue
-            raise AssertionError(f"{tag}: x' must equal the plain version's bit for bit ({st['x_ulps']} ulps)")
-        cases = [("residual skipped", lambda: qm.attn_proj_glue_quant_plain(a, torch.zeros_like(x), p, ls, gamma))]
-        if vit:
-            nob = {k: v for k, v in p.items() if k != "bias"}
-            cases += [("LayerScale dropped", lambda: qm.attn_proj_glue_quant_plain(a, x, p, None, gamma)),
-                      ("bias dropped", lambda: qm.attn_proj_glue_quant_plain(a, x, nob, ls, gamma))]
-        faults = {f: quant_fault_caught(tag, f, dict(zip(("x", "codes", "rs"), fn())), ref) for f, fn in cases}
-        faults["the bf16-rounded norm quantized"] = quant_fault_caught(
-            tag, "the bf16-rounded norm quantized", {"x": ref["x"], **unfused(ref["x"], gamma)}, ref)
-        aq, _ = lin.quantize_activations(a)
-        parts.append(dict(
-            launches=n_launch, stats=st, faults=faults, shape=f"M={M} N=K={N}",
-            ms=time_ms(lambda: qm.attn_proj_glue_quant(a, x, p, ls, gamma)),
-            plain_ms=time_ms(lambda: qm.attn_proj_glue_quant_plain(a, x, p, ls, gamma), iters=5, warmup=1),
-            library_ms=time_ms(lambda: torch._int_mm(aq, p["kernel_q"].t())),
-            ops=2.0 * M * N * N, nbytes=M * N * 2 * 3 + N * N + M * N + 4 * N * 2 + M * 4))
-        del a, x, xn, q, ref, aq, p
-    weighted_row("attn_proj_glue_quant", "omchat_torch/csrc/proj_glue_quant.cu", "omchat_tpu/ops/quant_matmul.py:255",
-                 parts, "_int_mm")
+
+    def glue_parts(shape_launches):
+        parts = []
+        for (M, N), n_launch in sorted(shape_launches.items()):
+            vit = N == vit_width  # the ViT proj (bias, LayerScale); else the Qwen2 o_proj
+            a, x, gamma = randn(M, N, scale=0.5), randn(M, N), randn(N, scale=0.1, off=1.0)
+            p = qlinear(N, N)
+            ls = randn(N, scale=0.02, off=0.1) if vit else None
+            if vit:
+                aq, sa = lin.quantize_activations(a)
+                y = lin.int8_matmul(aq, p["kernel_q"].t()).float() * sa * p["scale"].float()
+                p["bias"] = randn(N, scale=float(y.std()))
+                del y
+            xn, q, rs = qm.attn_proj_glue_quant(a, x, p, ls, gamma)
+            torch.cuda.synchronize()
+            ref = dict(zip(("x", "codes", "rs"), qm.attn_proj_glue_quant_plain(a, x, p, ls, gamma)))
+            tag = f"K11 attn_proj_glue_quant M={M} N={N}"
+            st = check_quant(tag, {"x": xn, "codes": q, "rs": rs}, ref)
+            if not torch.equal(xn, ref["x"]):  # an exact int32 product and an elementwise epilogue
+                raise AssertionError(f"{tag}: x' must equal the plain version's bit for bit ({st['x_ulps']} ulps)")
+            cases = [("residual skipped",
+                      lambda: qm.attn_proj_glue_quant_plain(a, torch.zeros_like(x), p, ls, gamma))]
+            if vit:
+                nob = {k: v for k, v in p.items() if k != "bias"}
+                cases += [("LayerScale dropped", lambda: qm.attn_proj_glue_quant_plain(a, x, p, None, gamma)),
+                          ("bias dropped", lambda: qm.attn_proj_glue_quant_plain(a, x, nob, ls, gamma))]
+            faults = {f: quant_fault_caught(tag, f, dict(zip(("x", "codes", "rs"), fn())), ref) for f, fn in cases}
+            faults["the bf16-rounded norm quantized"] = quant_fault_caught(
+                tag, "the bf16-rounded norm quantized", {"x": ref["x"], **unfused(ref["x"], gamma)}, ref)
+            aq, _ = lin.quantize_activations(a)
+            parts.append(dict(
+                launches=n_launch, stats=st, faults=faults, shape=f"M={M} N=K={N}",
+                ms=time_ms(lambda: qm.attn_proj_glue_quant(a, x, p, ls, gamma)),
+                plain_ms=time_ms(lambda: qm.attn_proj_glue_quant_plain(a, x, p, ls, gamma), iters=5, warmup=1),
+                library_ms=time_ms(lambda: torch._int_mm(aq, p["kernel_q"].t())) if M > 16 else None,
+                ops=2.0 * M * N * N, nbytes=M * N * 2 * 3 + N * N + M * N + 4 * N * 2 + M * 4))
+            del a, x, xn, q, ref, aq, p
+        return parts
+
+    for name, shape_launches in (("attn_proj_glue_quant", shapes["attn_proj_glue_quant"]),
+                                 ("attn_proj_glue_quant[M=9]", verify_shapes["attn_proj_glue_quant"])):
+        weighted_row(name, "omchat_torch/csrc/proj_glue_quant.cu", "omchat_tpu/ops/quant_matmul.py:255",
+                     glue_parts(shape_launches), "_int_mm")
     torch.cuda.empty_cache()
     return rows_out
 
@@ -3505,6 +3580,847 @@ def serving_graphs(cfg, params) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-26: the single-request surface (entry points, generate's options)
+# ---------------------------------------------------------------------------
+
+
+def surface_model(cfg, params, **engine_kw):
+    """An ``OmChatModel`` over in-memory params, built as
+    ``load_pretrained_model`` builds it (``api.omchat_model``), with the
+    ``MockTokenizer`` (no tokenizer files: ids are bytes)."""
+    from omchat_torch.api import omchat_model
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.utils.testing import MockTokenizer
+
+    return omchat_model(MockTokenizer(), OmChatEngine(cfg, params, **engine_kw))
+
+
+def seeded_image(rng, h: int, w: int):
+    import numpy as np
+    from PIL import Image
+
+    return Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+def write_video(directory: str, seed: int, n: int) -> None:
+    """``n`` synthetic 480x640 frames written by PIL as JPEG files: a seeded
+    low-resolution field upsampled (smooth content, as camera frames have)
+    with a bright square moving across it."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    base = Image.fromarray(rng.integers(0, 256, (30, 40, 3), dtype=np.uint8)).resize((640, 480), Image.BILINEAR)
+    for i in range(n):
+        frame = np.asarray(base).copy()
+        x, y = (17 * i) % 560, (11 * i) % 400
+        frame[y: y + 80, x: x + 80] = (255, 240, 32)
+        Image.fromarray(frame).save(os.path.join(directory, f"frame{i:04d}.jpg"), quality=90)
+
+
+def surface_run(model, label: str, route, ids, tiles, gen, extra=None, want=None) -> dict:
+    """One entry-point run of phase 25: ``engine.generate`` on the same ids
+    and tiles first (the reference tokens, and the warm-up of this shape;
+    ``want``: the reference, computed by the caller, whose image cache the
+    run then keeps), the encoded-image cache emptied, then
+    ``route(stream_callback)`` timed; the streamed tokens must equal the
+    reference's.  One line: TTFT, decode tokens/s, ViT tiles/s, prefill ms,
+    peak GiB, K1-K4 launches."""
+    import torch
+
+    from omchat_torch.runtime.feature_cache import ImageFeatureCache
+
+    eng = model.engine
+    if want is None:
+        want = eng.generate([ids], tiles, gen).token_ids[0]
+        eng.image_cache = ImageFeatureCache(eng.image_cache.capacity)
+    counted = counters()
+    for c in counted.values():
+        c.launches = 0
+    hits = eng.image_cache.hits
+    torch.cuda.reset_peak_memory_stats()
+    got = []
+    route(got.append)
+    sp = dict(eng.spans)
+    n_tiles = 0 if tiles is None else int(tiles.shape[0])
+    res = {"card": CARD, **(extra or {}), "tiles": n_tiles, "image_tokens": n_tiles * model.config.image_seq_len,
+           "prompt_ids": len(ids), "merged_len": int(eng.plan([ids]).lengths[0]), "cache_rows": sp["cache_len"], "new_tokens": len(got),
+           "ttft_ms": sp["ttft"] * 1e3, "prefill_ms": sp["prefill"] * 1e3, "vit_ms": sp["encode_images"] * 1e3,
+           "vit_tiles_per_s": n_tiles / sp["encode_images"] if n_tiles else None,
+           "image_cache_hit": eng.image_cache.hits > hits,
+           "decode_tokens_per_s": sp["decode_steps"] / sp["decode"],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": {n: c.launches for n, c in counted.items()}}
+    log(f"entry point, {label}: " + json.dumps(res))
+    if got != want:
+        raise AssertionError(f"{label}: the entry point's tokens {got} differ from engine.generate's {want}")
+    if len(got) != gen.max_new_tokens:
+        raise AssertionError(f"{label}: {len(got)} tokens, expected {gen.max_new_tokens}")
+    res["tokens"] = got
+    return res
+
+
+def entry_points(seed: int, model) -> dict:
+    """Phase 25: BASELINE.json configs 2-5 through the entry points at full
+    width and depth: a 3-turn chat on one 448x448 image with history
+    threaded (turns 2-3 image-cache hits), a 1344x1344 image (1 + 9 tiles),
+    three 448x448 images interleaved with text, and a 32-frame video
+    (``VIDEO_WRITTEN`` frames written by PIL, sampled by
+    ``load_video_frames``, through ``chat_video``); each with K2 checked at
+    the video's rows (the last ``VIDEO_CHECK_ROWS`` query rows against their
+    plain version)."""
+    import tempfile
+
+    import numpy as np
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.processing.chat import make_context
+    from omchat_torch.processing.video import load_video_frames, process_video_frames, video_prompt
+    from omchat_torch.runtime.feature_cache import ImageFeatureCache
+
+    rng = np.random.default_rng(seed)
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_id=-1)
+    out = {}
+
+    # multi-turn chat: the references first, turn by turn (history from their replies); then, the image
+    # cache emptied, the timed turns: turn 1 encodes the image, turns 2-3 must find it in the cache
+    image = seeded_image(rng, 448, 448)
+    questions = ["What is shown in this picture? Describe it.", "What colours stand out?",
+                 "Summarise both answers in one line."]
+    history, refs = [], []
+    for q in questions:
+        inputs = model.processor(q, images=image, history=list(history))
+        ids = inputs["input_ids"][0].tolist()
+        want = model.engine.generate([ids], inputs["images"], gen).token_ids[0]
+        refs.append((q, list(history), ids, inputs["images"], want))
+        history.append((q, model.tokenizer.decode(want, skip_special_tokens=True)))
+    model.engine.image_cache = ImageFeatureCache(model.engine.image_cache.capacity)
+    turns = [surface_run(model, f"multi-turn chat, turn {turn}", lambda cb, q=q, h=h: model.chat(
+        q, image=image, history=h, generation=gen, stream_callback=cb), ids, tiles, gen, extra={"turn": turn},
+        want=want) for turn, (q, h, ids, tiles, want) in enumerate(refs, 1)]
+    hits = sum(r["image_cache_hit"] for r in turns[1:])
+    if hits != 2 or turns[0]["image_cache_hit"]:
+        raise AssertionError(f"multi-turn chat: image-cache hits on turns 2-3: {hits}, on turn 1: "
+                             f"{turns[0]['image_cache_hit']}")
+    out["multi-turn chat"] = turns
+
+    # high-res: one 1344x1344 image, the (1344, 1344) grid: 1 + 9 tiles
+    big = seeded_image(rng, 1344, 1344)
+    inputs = model.processor("Describe every region of this picture.", images=big)
+    out["high-res"] = surface_run(model, "high-res 1344x1344", lambda cb: model.chat(
+        "Describe every region of this picture.", image=big, generation=gen, stream_callback=cb),
+        inputs["input_ids"][0].tolist(), inputs["images"], gen)
+    if model.config.vision.image_size == 448 and out["high-res"]["tiles"] != 10:
+        raise AssertionError(f"high-res: {out['high-res']['tiles']} tiles, the (1344, 1344) grid gives 1 + 9")
+
+    # multi-image interleave: three 448x448 images with text between the sentinels
+    imgs = [seeded_image(rng, 448, 448) for _ in range(3)]
+    text = "First: <image> then the second: <image> and the last: <image> What changes from one to the next?"
+    inputs = model.processor(text, images=imgs)
+    out["multi-image"] = surface_run(model, "multi-image interleave (3 images)", lambda cb: model.chat(
+        text, image=imgs, generation=gen, stream_callback=cb), inputs["input_ids"][0].tolist(), inputs["images"],
+        gen)
+
+    # video: VIDEO_WRITTEN frames on disk, 32 sampled, one tile and sentinel a frame
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_video(d, seed, VIDEO_WRITTEN)
+        frames = load_video_frames(d, num_samples=VIDEO_FRAMES)
+        load_s = time.perf_counter() - t0
+    question = "What happens in this video?"
+    t0 = time.perf_counter()
+    tiles = process_video_frames(frames, tile_size=model.config.vision.image_size, num_samples=VIDEO_FRAMES)
+    host_prep_s = time.perf_counter() - t0
+    _, ids = make_context(model.tokenizer, video_prompt(question, tiles.shape[0]), None,
+                          "You are a helpful assistant.")
+    res = surface_run(model, f"video ({VIDEO_FRAMES} frames)", lambda cb: model.chat_video(
+        question, frames, num_samples=VIDEO_FRAMES, generation=gen, stream_callback=cb), ids, tiles, gen,
+        extra={"frames_written": VIDEO_WRITTEN, "write_and_load_s": load_s, "host_preprocess_s": host_prep_s})
+    res["prefill_share_of_ttft"] = res["prefill_ms"] / res["ttft_ms"]
+    log(f"entry point, video: prefill share of TTFT {res['prefill_share_of_ttft']:.4f} ({CARD})")
+    out["video"] = res
+    out["video_frames"] = frames
+    return out
+
+
+def video_k2_rows(gen, rows: int, kv_len: int) -> dict:
+    """K2 at the video prompt's shape (``rows`` query rows over as many cache
+    rows, ``kv_len`` valid): the kernel over all rows, its last
+    ``VIDEO_CHECK_ROWS`` query rows against the plain version over those
+    rows (the plain version over every row needs the full score matrix,
+    122 GB), keys planted at the last valid column; timed beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.ops import flash_attention as fa
+
+    cfg = OmChatConfig().text
+    H, KVH, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.attn_head_dim
+    u = _direction(gen, KVH, D)
+    q = _randn(gen, 1, rows, H, D) + u.repeat_interleave(H // KVH, dim=0)
+    k, v = _randn(gen, 1, KVH, rows, D), _randn(gen, 1, KVH, rows, D)
+    k[0, :, kv_len - 1] = 0.8 * u
+    zero = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    kvl = torch.full((1,), kv_len, dtype=torch.int32, device=DEVICE)
+    out = fa.flash_attention(q, k, v, causal=True, q_offset=zero, kv_len=kvl, kv_format="bntd")
+    torch.cuda.synchronize()
+    n = VIDEO_CHECK_ROWS
+    start = kv_len - n
+    qo = torch.full((1,), start, dtype=torch.int32, device=DEVICE)
+    ref = fa.flash_attention_plain(q[:, start:kv_len], k, v, causal=True, q_offset=qo, kv_len=kvl)
+    err = check_close("K2 at the video's rows", out[:, start:kv_len], ref, *ATTN_TOL["K2"])
+    fault = check_fault_caught("K2 at the video's rows", "the last valid column dropped", fa.flash_attention_plain(
+        q[:, start:kv_len], k, v, causal=True, q_offset=qo, kv_len=kvl - 1), ref, *ATTN_TOL["K2"])
+    qt = q[:, :kv_len].transpose(1, 2)
+    ms, readings = time_in_turns({
+        "kernel": lambda: fa.flash_attention(q, k, v, causal=True, q_offset=zero, kv_len=kvl, kv_format="bntd"),
+        "library": lambda: F.scaled_dot_product_attention(qt, k[:, :, :kv_len], v[:, :, :kv_len], is_causal=True,
+                                                          enable_gqa=True)})
+    flops = 4.0 * H * D * kv_len * (kv_len + 1) / 2
+    b_ms, by = bound_ms(flops, (2 * q.numel() + 2 * KVH * kv_len * D) * 2)
+    res = {"card": CARD, "rows": rows, "kv_len": kv_len, "checked_rows": n, "max_abs_err": err,
+           "fault_last_column_dropped": fault, "kernel_ms": ms["kernel"], "library_ms": ms["library"],
+           "bound_ms": b_ms, "bound_by": by, "share_of_bound": b_ms / ms["kernel"],
+           "readings": [round(x, 4) for x in readings["kernel"]]}
+    log("kernel K2 at the video's rows (causal, one prompt): " + json.dumps(res))
+    del q, k, v, out, ref, qt
+    torch.cuda.empty_cache()
+    return res
+
+
+def surface_kernel_rows(gen, prompt_len: int, video_len: int) -> list:
+    """Phase 26's kernel rows: K2 at a verify step's 9 rows at ``q_offset =
+    prompt_len`` (3328-row cache), K3 at B = 4 (a beam search, 3328 rows) and
+    at B = 1 over the video's cache, each held against its plain version
+    with planted keys and faults, timed beside the library call (K3 read
+    graphed), with their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.ops import decode_attention as da
+    from omchat_torch.ops import flash_attention as fa
+
+    cfg = OmChatConfig().text
+    H, KVH, D, L = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.attn_head_dim, cfg.num_hidden_layers
+    rows = []
+
+    # K2, S = 1 + draft_len rows at the prompt's end; keys planted on each row's causal edge and one past it
+    S, T = SPEC_DRAFT + 1, 3328
+    u = _direction(gen, KVH, D)
+    q = _randn(gen, 1, S, H, D) + u.repeat_interleave(H // KVH, dim=0)
+    k, v = _randn(gen, 1, KVH, T, D), _randn(gen, 1, KVH, T, D)
+    k[0, :, prompt_len: prompt_len + S + 1] = 0.8 * u[:, None]
+    qo = torch.full((1,), prompt_len, dtype=torch.int32, device=DEVICE)
+    kvl = qo + S
+    kw = dict(causal=True, q_offset=qo, kv_len=kvl)
+    out = fa.flash_attention(q, k, v, kv_format="bntd", **kw)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    err = check_close("K2 verify rows", out, ref, *ATTN_TOL["K2"])
+    faults = {"causal edge one column late": check_fault_caught(
+        "K2 verify rows", "the causal edge one column late",
+        fa.flash_attention_plain(q, k, v, causal=True, q_offset=qo + 1, kv_len=kvl + 1), ref, *ATTN_TOL["K2"])}
+    p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), iters=5, warmup=1)
+    qt = q.transpose(1, 2)
+    mask = (torch.arange(prompt_len + S, device=DEVICE)[None, :]
+            <= (prompt_len + torch.arange(S, device=DEVICE))[:, None])
+    ms, readings = device_times(lambda: fa.flash_attention(q, k, v, kv_format="bntd", **kw),
+                                lambda: F.scaled_dot_product_attention(qt, k[:, :, :prompt_len + S],
+                                                                       v[:, :, :prompt_len + S], attn_mask=mask,
+                                                                       enable_gqa=True), GRAPH_CALLS)
+    cols = sum(prompt_len + i + 1 for i in range(S))
+    rows.append(dict(name=f"flash_attention[S={S},q_offset={prompt_len}]", source="omchat_torch/csrc/flash_attention.cu",
+                     replaces="omchat_tpu/ops/flash_attention.py:246", max_abs_err=err, ms=ms["kernel"],
+                     plain_ms=p_ms, library_ms=ms["library"], flops=4.0 * H * D * cols,
+                     bytes=(2 * q.numel() + 2 * KVH * (prompt_len + S) * D) * 2, faults=faults,
+                     readings=readings["kernel"], extra=eager_text(ms)))
+    del q, k, v, out, ref, qt
+
+    # K3 at a beam search's B = 4 and at the video's length
+    for name, B, T, lens in (("flash_decode_stacked[B=4]", 4, 3328, [prompt_len] * 4),
+                             ("flash_decode_stacked[video]", 1, round_up(video_len + 1, 128), [video_len])):
+        splits, srows, edge = split_edge(B, KVH, T, lens[0])
+        kc, vc = _randn(gen, L, B, KVH, T, D), _randn(gen, L, B, KVH, T, D)
+        u = _direction(gen, KVH, D)
+        qd = _randn(gen, B, 1, H, D) + u.repeat_interleave(H // KVH, dim=0)
+        for row, w in ((0, 0.6), (edge - 1, 0.8), (edge, 0.8), (lens[0] - 1, 0.8), (lens[0], 0.8)):
+            kc[:, :, :, row] = w * u
+        kn_, vn_ = (0.8 * u)[None].expand(B, KVH, D).contiguous(), _randn(gen, B, KVH, D)
+        clen = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        out = da.flash_decode_stacked(qd, kc, vc, clen, L - 1, kn_, vn_)
+        torch.cuda.synchronize()
+        ref = da.flash_decode_stacked_plain(qd, kc, vc, clen, L - 1, kn_, vn_)
+        err = check_close(name, out, ref, *ATTN_TOL["K3"])
+        faults = {"cache_len-1": check_fault_caught(name, "cache_len-1", da.flash_decode_stacked_plain(
+            qd, kc, vc, clen - 1, L - 1, kn_, vn_), ref, *ATTN_TOL["K3"]),
+                  "one split's rows dropped": check_fault_caught(name, "one split's rows dropped",
+                                                                 da.flash_decode_stacked_plain(
+                      qd, *drop_rows(kc[L - 1:], vc[L - 1:], edge, srows), clen - srows, 0, kn_, vn_), ref,
+                      *ATTN_TOL["K3"])}
+        it = iter(range(10**9))
+        qs = qd.transpose(1, 2)
+
+        def library_decode():
+            li = next(it) % L
+            return F.scaled_dot_product_attention(qs, kc[li][:, :, :lens[0]], vc[li][:, :, :lens[0]],
+                                                  enable_gqa=True)
+
+        p_ms = time_ms(lambda: da.flash_decode_stacked_plain(qd, kc, vc, clen, next(it) % L, kn_, vn_), iters=L,
+                       warmup=2)
+        ms, readings = device_times(lambda: da.flash_decode_stacked(qd, kc, vc, clen, next(it) % L, kn_, vn_),
+                                    library_decode, L)
+        rows.append(dict(name=name, source="omchat_torch/csrc/flash_decode_stacked.cu",
+                         replaces="omchat_tpu/ops/decode_attention.py:109", max_abs_err=err, ms=ms["kernel"],
+                         plain_ms=p_ms, library_ms=ms["library"], flops=4.0 * B * H * D * (lens[0] + 1),
+                         bytes=(2 * B * KVH * (lens[0] + 1) * D + 2 * B * H * D) * 2, faults=faults,
+                         readings=readings["kernel"], extra=split_text(splits, srows, B, KVH, H) + eager_text(ms)))
+        del kc, vc, out, ref
+        torch.cuda.empty_cache()
+
+    for r in rows:
+        flops = r.pop("flops")
+        r["bound_ms"], r["bound_by"] = bound_ms(flops, r.pop("bytes"))
+        caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in r.pop("faults").items())
+        log(f"kernel {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+            f"{rate_text(flops, r['ms'], r['bound_ms'], r.pop('readings'))}{r.pop('extra')} "
+            f"max_abs_err={r['max_abs_err']:.3g}{caught} ({CARD})")
+    return rows
+
+
+def round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def sampling_on_the_graph(model, ids, tiles) -> dict:
+    """Phase 26, sampling: ``generate_ondevice(do_sample=True,
+    temperature=0.8, top_k=50)`` twice from one seed on the graphed engine
+    and once through ``generate`` on an eager engine (its raw logits read a
+    step): the three token lists bitwise equal, every sampled token in its
+    step's top 50, one replay a step; tokens/s beside the greedy graphed
+    step's."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    eng = model.engine
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_id=-1, do_sample=True, temperature=0.8, top_k=50)
+    greedy = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_id=-1)
+    eager = OmChatEngine(model.config, eng.params, image_cache_size=0, decode_graphs=False, device=DEVICE)
+    logits = []
+    want = eager.generate([ids], tiles, gen, rng_key=SAMPLE_SEED,
+                          logits_callback=lambda step, lg: logits.append(lg[0].clone())).token_ids[0]
+    outside = [t for t, (tok, lg) in enumerate(zip(want, logits)) if tok not in torch.topk(lg, 50).indices.tolist()]
+    runs, rates = [], []
+    for _ in range(2):
+        got = eng.generate_ondevice([ids], tiles, gen, rng_key=SAMPLE_SEED)
+        runs.append(got.token_ids[0])
+        rates.append(eng.spans["decode_steps"] / eng.spans["decode"])
+    st = eng._states[next(k for k in eng._states if k[0] == 1 and k[1] == eng.spans["cache_len"])]
+    run = st.runs[(True, False)]
+    replays = run.replays
+    eng.generate_ondevice([ids], tiles, gen, rng_key=SAMPLE_SEED)
+    steps = eng.spans["decode_steps"]
+    replay_delta = run.replays - replays
+    eng.generate_ondevice([ids], tiles, greedy)
+    res = {"card": CARD, "new_tokens": len(want), "tokens_bitwise_equal": runs[0] == runs[1] == want,
+           "outside_top50": outside, "sampled_decode_tokens_per_s": rates,
+           "greedy_decode_tokens_per_s": eng.spans["decode_steps"] / eng.spans["decode"],
+           "replays_per_step": replay_delta / steps, "distinct_tokens": len(set(want))}
+    log("options, sampling on the graph (generate_ondevice, T=0.8, top-k 50, one seed): " + json.dumps(res))
+    if not res["tokens_bitwise_equal"]:
+        raise AssertionError(f"sampling: graphed runs {runs} and the eager run {want} differ")
+    if outside:
+        raise AssertionError(f"sampling: steps {outside} drew a token outside their top 50")
+    if replay_delta != steps:
+        raise AssertionError(f"sampling: {replay_delta} replays for {steps} steps")
+    del eager
+    return res
+
+
+def bias_penalties_logprobs(model, ids, tiles) -> dict:
+    """Phase 26: a +100 bias on one token (not eos) gives it at every step; a
+    frequency penalty of 2.0 lowers the count of the greedy run's most
+    repeated token; each chosen log-prob equals log_softmax of that step's
+    biased logits within 1e-3."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+
+    eng = model.engine
+    gen = GenerationConfig(max_new_tokens=PENALTY_TOKENS, eos_token_id=-1)
+    forced = eng.generate([ids], tiles, GenerationConfig(max_new_tokens=16, eos_token_id=-1),
+                          logit_bias={BIAS_TOKEN: 100.0}).token_ids[0]
+    base = eng.generate([ids], tiles, gen).token_ids[0]
+    top, count = max(((t, base.count(t)) for t in set(base)), key=lambda tc: tc[1])
+    pen = eng.generate([ids], tiles, GenerationConfig(max_new_tokens=PENALTY_TOKENS, eos_token_id=-1,
+                                                      frequency_penalty=2.0)).token_ids[0]
+    logits = []
+    bias = {LOGPROB_BIAS_TOKEN: 3.0}
+    out = eng.generate([ids], tiles, GenerationConfig(max_new_tokens=16, eos_token_id=-1), logit_bias=bias,
+                       return_logprobs=True, top_logprobs=5, logits_callback=lambda s, lg: logits.append(lg[0]))
+    gaps = []
+    for tok, lp, lg in zip(out.token_ids[0], out.logprobs[0], logits):
+        lg = lg.clone()
+        lg[LOGPROB_BIAS_TOKEN] += 3.0
+        gaps.append(abs(float(torch.log_softmax(lg, -1)[tok]) - lp))
+    res = {"card": CARD, "bias_token": BIAS_TOKEN, "biased_tokens": forced,
+           "greedy_most_repeated": [top, count], "with_frequency_penalty_2": pen.count(top),
+           "logprob_max_gap": max(gaps), "top_logprobs_first": out.top_logprobs[0][0]}
+    log("options, bias / penalties / logprobs: " + json.dumps(res))
+    if forced != [BIAS_TOKEN] * 16:
+        raise AssertionError(f"bias: +100 on {BIAS_TOKEN} gave {forced}")
+    if count < 2 or pen.count(top) >= count:
+        raise AssertionError(f"frequency penalty: the greedy run's most repeated token {top} ({count} times) "
+                             f"appears {pen.count(top)} times with the penalty")
+    if max(gaps) > 1e-3:
+        raise AssertionError(f"logprobs: {max(gaps):.3g} from log_softmax of the biased logits")
+    return res
+
+
+def constrained_on_the_card(model) -> dict:
+    """Phase 26: ``guided_choices`` returns one of them; ``json_mode``'s
+    output is a prefix the automaton accepts (parsed when it closed);
+    ``chat_tools(tool_choice="required")`` returns a well-formed call."""
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.json_mode import get_json_mode
+
+    tok = model.tokenizer
+    choices = ["yes", "no", "maybe"]
+    choice = model.chat("Is the sky green? Answer yes, no or maybe.", guided_choices=choices,
+                        generation=GenerationConfig(max_new_tokens=8, eos_token_id=-1))
+    ids = []
+    text = model.chat("Describe a cat as a JSON object.", json_mode=True, stream_callback=ids.append,
+                      generation=GenerationConfig(max_new_tokens=JSON_TOKENS, eos_token_id=-1))
+    fn = get_json_mode(tok).mask_fn()
+    rejected = [i for i in range(len(ids)) if fn(ids[:i]) is None or ids[i] not in set(fn(ids[:i]).tolist())]
+    closed = fn(ids) is None
+    parsed = None
+    if closed:
+        parsed = json.loads(text)
+    tools = [{"type": "function", "function": {"name": "set_unit", "parameters": {
+        "type": "object", "properties": {"unit": {"type": "string", "enum": ["celsius", "fahrenheit"]},
+                                         "rounded": {"type": "boolean"}}, "required": ["unit", "rounded"]}}},
+             {"type": "function", "function": {"name": "stop", "parameters": {"type": "object", "properties": {}}}}]
+    call = model.chat_tools("Switch to celsius.", tools, tool_choice="required",
+                            generation=GenerationConfig(max_new_tokens=64, eos_token_id=-1))
+    res = {"card": CARD, "guided_choice": choice, "json_mode": text, "json_closed": closed,
+           "json_tokens": len(ids), "json_rejected_steps": rejected, "tool_call": call}
+    log("options, constrained decoding: " + json.dumps(res))
+    if choice not in choices:
+        raise AssertionError(f"guided_choices returned {choice!r}")
+    if rejected or not text.startswith("{"):
+        raise AssertionError(f"json_mode: steps {rejected} the automaton rejects, output {text!r}")
+    if not call["tool_calls"]:
+        raise AssertionError(f"chat_tools(required): no tool call in {call}")
+    fc = call["tool_calls"][0]["function"]
+    if fc["name"] not in ("set_unit", "stop") or not isinstance(json.loads(fc["arguments"]), dict):
+        raise AssertionError(f"chat_tools(required): malformed call {call}")
+    del parsed
+    return res
+
+
+def chunked_prefill_on_the_card(cfg, params, ids, tiles) -> dict:
+    """Phase 26: ``prefill_chunked`` (chunk 1024) against the one-shot
+    prefill at the single request's shape, on a bf16 and an e4m3 cache:
+    last-token logits within phase 4's limits, the cache rows of the prompt
+    within K2's check limits (per layer, the largest gap printed)."""
+    import torch
+
+    from omchat_torch.ops.fp8 import E4M3
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    res = {"card": CARD}
+    for label, dtype in (("bf16", None), ("e4m3", E4M3)):
+        eng = OmChatEngine(cfg, params, image_cache_size=0, cache_dtype=dtype, device=DEVICE)
+        plan = eng.plan([ids])
+        feats = eng.encode_images(tiles)
+        one, full = eng.prefill(plan, feats, NEW_TOKENS)
+        got, cache = eng.prefill_chunked(plan, feats, NEW_TOKENS, chunk_size=CHUNK)
+        n = int(plan.lengths[0])
+        gaps = [max(float((cache.k[li, :, :, :n].float() - full.k[li, :, :, :n].float()).abs().max()),
+                    float((cache.v[li, :, :, :n].float() - full.v[li, :, :, :n].float()).abs().max()))
+                for li in range(cfg.text.num_hidden_layers)]
+        err = check_close(f"chunked prefill logits ({label})", got, one, LOGITS_ATOL, LOGITS_RTOL)
+        atol, rtol = ATTN_TOL["K2"] if dtype is None else K2_E4M3_TOL
+        for t, f in ((cache.k, full.k), (cache.v, full.v)):
+            check_close(f"chunked prefill cache rows ({label})", t[:, :, :, :n], f[:, :, :, :n], atol, rtol)
+        res[label] = {"prompt_rows": n, "chunks": round_up(plan.max_len, CHUNK) // CHUNK, "cache_rows": cache.max_len,
+                      "logits_max_abs_err": err, "argmax_equal": bool(torch.equal(got.argmax(-1), one.argmax(-1))),
+                      "cache_max_gap_by_layer": [round(g, 5) for g in gaps]}
+        del eng, full, cache
+        torch.cuda.empty_cache()
+    log(f"options, chunked prefill (chunk {CHUNK}) vs one-shot: " + json.dumps(res))
+    return res
+
+
+def verify_logit_gaps(verify: list, step_logits: list, greedy: list, got: list, plen: int):
+    """The speculative verify rows against the decode steps' logits: a
+    verify row's logits are a decode step's while the speculative run's
+    tokens before the step (``got``), the row's input and every row's input
+    before it are the greedy run's tokens.  Returns (rows compared, max
+    |gap|, logits outside phase 4's limits)."""
+    worst, rows, outside = 0.0, 0, 0
+    for kv, toks, lg in verify:
+        n = kv - plen + 1  # tokens generated before this verify step
+        if got[: n - 1] != greedy[: n - 1]:
+            break
+        for r, t in enumerate(toks):
+            if n + r >= len(step_logits) or t != greedy[n - 1 + r]:
+                break
+            got_r, ref = lg[r].float(), step_logits[n + r].float()
+            worst = max(worst, float((got_r - ref).abs().max()))
+            outside += int(((got_r - ref).abs() > LOGITS_ATOL + LOGITS_RTOL * ref.abs()).sum())
+            rows += 1
+    return rows, worst, outside
+
+
+def counted_from_first_verify(counted: dict, rec: dict = None):
+    """Wrap ``speculative.verify_step`` so that its first call sets the
+    counts of ``counted`` (name → counted wrapper) to 0 and empties ``rec``
+    (a ``record_w8a8_launches`` record): read after the run, they are the
+    verify steps' launches alone, the prefill's left out.  Returns a function
+    that restores ``verify_step``."""
+    from omchat_torch.runtime import speculative as sp
+
+    verify, first = sp.verify_step, [True]
+
+    def counting(*a, **kw):
+        if first[0]:
+            first[0] = False
+            for c in counted.values():
+                c.launches = 0
+            for d in (rec or {}).values():
+                d.clear()
+        return verify(*a, **kw)
+
+    sp.verify_step = counting
+    return lambda: setattr(sp, "verify_step", verify)
+
+
+def verify_faults(verify) -> dict:
+    """Wrong verify routes that phase 26's 2+2-layer limits must catch:
+    ``verify_step`` off by one where a port could be."""
+    import torch
+
+    return {
+        "the rows written and read one position late (write_pos + 1)":
+            lambda eng, toks, wp, cache: verify(eng, toks, wp + 1, cache),
+        "the draft fed one row late": lambda eng, toks, wp, cache: verify(
+            eng, torch.cat([toks[:, :1], toks[:, :-1]], 1), wp, cache),
+    }
+
+
+def speculative_on_the_card(model, small, ids, tiles) -> dict:
+    """Phase 26: ``generate_speculative`` with an oracle draft (the greedy
+    continuation of ``generate``) and with prompt lookup on an echo prompt,
+    at full depth, and with the oracle on ``small`` (the model at 2+2
+    layers).  At 2+2 layers every verify row whose inputs are the greedy
+    run's must be within phase 4's limits of the decode step's logits
+    (``verify_logit_gaps``), and a run on each of ``verify_faults`` must put
+    some of them outside.  K2's launches are the verify steps' (counted from
+    the first), which must be layers x device steps.  At full depth the
+    verify logits must be finite,
+    and their gaps are read, not held: from the decode steps', and from the
+    prefill route's on the same tokens (the first verify step's rows, each
+    the last-row logits of a one-shot prefill of the prompt and the rows up
+    to it), beside the prefill route's gap from the decode step.  Over 28
+    layers of bf16 activations the three routes (9-row, 1-row and
+    3k-row products) round apart by 4-5% of the largest logit on random
+    weights, past phase 4's 2+2-layer limits.  Device steps against
+    tokens, steps saved and the first step leaving the greedy run are
+    readings: on random weights the top logits lie within hundredths of each
+    other, so the verify's argmax may leave the decode route's and a draft is
+    rejected there (ROADMAP §C)."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.runtime import speculative as sp
+    from omchat_torch.runtime.speculative import draft_context, generate_speculative
+
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_id=-1)
+    res, missed = {"card": CARD}, []  # missed: planted faults the limits passed
+    echo = "Repeat this twice: the quick brown fox jumps over the lazy dog, the quick brown fox jumps over the lazy dog."
+    echo_ids = model.processor(echo)["input_ids"][0].tolist()
+    for label, (eng, req_ids, req_tiles, oracle) in (
+            ("oracle draft", (model.engine, ids, tiles, True)),
+            ("oracle draft, 2+2 layers", (small.engine, ids, tiles, True)),
+            ("prompt lookup, echo prompt", (model.engine, echo_ids, None, False))):
+        step_logits = []
+        greedy = eng.generate([req_ids], req_tiles, gen,
+                              logits_callback=lambda s, lg: step_logits.append(lg[0].clone())).token_ids[0]
+        plen = int(eng.plan([req_ids]).lengths[0])
+        ctx0 = len(draft_context(req_ids))
+        verify = []
+        kw = {"draft_fn": (lambda ctx: greedy[len(ctx) - ctx0:])} if oracle else {}
+        torch.cuda.synchronize()
+        undo = counted_from_first_verify({"flash_attention": fa.flash_attention})
+        try:
+            t0 = time.perf_counter()
+            got, steps = generate_speculative(
+                eng, req_ids, req_tiles, gen, draft_len=SPEC_DRAFT,
+                logits_callback=lambda kv, toks, lg: verify.append((kv, toks, lg.clone())), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            undo()
+        k2 = fa.flash_attention.launches
+        if k2 != eng.cfg.text.num_hidden_layers * steps:
+            raise AssertionError(f"speculative, {label}: K2 launched {k2} times over {steps} verify steps")
+        rows, worst, outside = verify_logit_gaps(verify, step_logits, greedy, got, plen)
+        run = {"tokens": len(got), "device_steps": steps, "steps_saved": len(got) - 1 - steps, "k2_launches": k2,
+               "wall_s": wall,
+               "first_step_leaving_greedy": next((i for i, (a, b) in enumerate(zip(got, greedy)) if a != b), None),
+               "verify_rows_vs_decode": rows, "verify_vs_decode_max_gap": worst,
+               "verify_vs_decode_outside_phase4_limits": outside}
+        if eng is small.engine:
+            if outside:
+                raise AssertionError(f"speculative, {label}: {outside} verify logits outside phase 4's limits of "
+                                     f"the decode steps' ({worst:.4g} max)")
+            run["faults"] = {}
+            for fault, faulty in verify_faults(sp.verify_step).items():
+                seen, real = [], sp.verify_step
+                sp.verify_step = faulty
+                try:
+                    bad, _ = generate_speculative(
+                        eng, req_ids, req_tiles, gen, draft_len=SPEC_DRAFT,
+                        logits_callback=lambda kv, toks, lg: seen.append((kv, toks, lg.clone())), **kw)
+                finally:
+                    sp.verify_step = real
+                f_rows, f_worst, f_outside = verify_logit_gaps(seen, step_logits, greedy, bad, plen)
+                run["faults"][fault] = {"rows": f_rows, "max_gap": f_worst, "outside_phase4_limits": f_outside}
+                if not f_outside:
+                    missed.append(f"speculative, {label}: phase 4's limits would pass a verify with {fault} "
+                                  f"({f_rows} rows, {f_worst:.4g} max)")
+        else:
+            _, toks, lg = verify[0]
+            feats = eng.encode_images(req_tiles) if req_tiles is not None else None
+            one_shot = torch.stack([eng.prefill(eng.plan([list(req_ids) + toks[: r + 1]]), feats, 0)[0][0]
+                                    for r in range(len(toks))])
+            if not all(bool(torch.isfinite(v[2]).all()) for v in verify):
+                raise AssertionError(f"speculative, {label}: non-finite verify logits")
+            run["verify_vs_prefill_max_gap"] = float((lg.float() - one_shot.float()).abs().max())
+            run["verify_vs_prefill_outside_phase4_limits"] = int(
+                ((lg.float() - one_shot.float()).abs() > LOGITS_ATOL + LOGITS_RTOL * one_shot.float().abs()).sum())
+            run["prefill_vs_decode_step1_max_gap"] = float((one_shot[0] - step_logits[1]).abs().max())
+            run["max_abs_logit"] = float(step_logits[1].abs().max())
+        res[label] = run
+    log("options, speculative decoding: " + json.dumps(res))
+    if missed:
+        raise AssertionError(" | ".join(missed))
+    return res
+
+
+def speculative_w8a8(model, ids, tiles, label: str, must: tuple) -> dict:
+    """Under w8a8 the verify step is an S > 1 trunk pass on the glue kernels:
+    one speculative run (an oracle draft), whose verify steps (counted from
+    the first, ``counted_from_first_verify``) must launch each of ``must``
+    and hand every w8a8 kernel M = 9 rows only; their logits must be finite.
+    Returns the run's readings with ``launches`` (name → the verify steps'
+    launches) and ``shapes`` (name → {sizes: launches}, for phase 11).
+    Whether the tokens equal the greedy run's is a reading: the decode step
+    (S = 1) runs the weight-only int8 route and the verify the w8a8 glue, two
+    roundings of the activations, and on random weights the top logits lie
+    within hundredths of each other (ROADMAP §C)."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.speculative import draft_context, generate_speculative
+
+    eng = model.engine
+    gen = GenerationConfig(max_new_tokens=12, eos_token_id=-1)
+    greedy = eng.generate([ids], tiles, gen).token_ids[0]
+    ctx0 = len(draft_context(ids))
+    counted = {n: c for n, c in {**w8a8_counters(), **swiglu_counters()}.items() if n in must}
+    verify = []
+    rec, undo_rec = record_w8a8_launches()
+    undo = counted_from_first_verify(counted, rec)
+    try:
+        got, steps = generate_speculative(eng, ids, tiles, gen, draft_len=SPEC_DRAFT,
+                                          draft_fn=lambda ctx: greedy[len(ctx) - ctx0:],
+                                          logits_callback=lambda kv, toks, lg: verify.append(lg))
+        torch.cuda.synchronize()
+    finally:
+        undo()
+        undo_rec()
+    shapes = {n: d for n, d in rec.items() if d}
+    res = {"card": CARD, "tokens": len(got), "device_steps": steps,
+           "launches": {n: c.launches for n, c in counted.items()},
+           "shapes": shapes, "tokens_equal_greedy": got == greedy}
+    log(f"options, speculative verify under {label}: "
+        + json.dumps({**res, "shapes": {n: {str(k): v for k, v in d.items()} for n, d in shapes.items()}}))
+    missing = [n for n, c in res["launches"].items() if not c]
+    if missing:
+        raise AssertionError(f"speculative verify under {label}: {missing} never launched")
+    other = {n: [k for k in d if k[0] != SPEC_DRAFT + 1] for n, d in shapes.items()}
+    if any(other.values()):
+        raise AssertionError(f"speculative verify under {label}: rows other than {SPEC_DRAFT + 1}: {other}")
+    if not all(bool(torch.isfinite(lg).all()) for lg in verify):
+        raise AssertionError(f"speculative verify under {label}: non-finite verify logits")
+    return res
+
+
+def beam_step_gaps(kernel: list, plain: list) -> tuple:
+    """Two routes' beam searches (``score_callback``'s (scores, tokens) a
+    step) while their beams agree: what each step adds to a beam's score (its
+    score less its parent's) on one route against the other.  Returns
+    (steps agreeing, max |gap| of a step's addition)."""
+    import numpy as np
+
+    agree, worst, prev = 0, 0.0, None
+    for (sk, tk), (sp, tp) in zip(kernel, plain):
+        if tk != tp:
+            break
+        d = sk - sp
+        if prev is not None:
+            parents = {tuple(t): i for i, t in enumerate(prev[1])}
+            d = d - prev[0][[parents[tuple(t[:-1])] for t in tk]]
+        worst = max(worst, float(np.abs(d).max()))
+        prev = (sk - sp, tk)
+        agree += 1
+    return agree, worst
+
+
+def beam_faults() -> dict:
+    """Wrong beam routes that phase 26's 2+2-layer limit must catch: each
+    a (module attribute, replacement) of ``runtime.beam_search``."""
+    import torch
+
+    return {
+        "the cache not reordered to the surviving parents": ("gather_beams", lambda cache, parent: None),
+        "log-probs rounded to bf16": ("_log_softmax", lambda logits: torch.log_softmax(
+            logits.float(), dim=-1).bfloat16().float().cpu().numpy()),
+        "the log-sum-exp dropped (logits as log-probs)": ("_log_softmax", lambda logits: logits.float().cpu().numpy()),
+    }
+
+
+def beam_on_the_card(model, small, ids, tiles) -> dict:
+    """Phase 26: ``beam_search(num_beams=4)``, 16 tokens, at full width and
+    depth (timed; K3 launched at B = 4 through the decode state's graph);
+    then at 2+2 layers the kernel route's beams must agree with
+    ``attn_impl="plain"``'s for ``BEAM_MIN_AGREE`` steps, and while they
+    agree what each step adds to a beam's score must be within
+    ``BEAM_STEP_GAP`` of the plain route's (``beam_step_gaps``); each of
+    ``beam_faults`` on the kernel route must fail that."""
+    import torch
+
+    from omchat_torch.ops import decode_attention as da
+    from omchat_torch.runtime import beam_search as bs
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    eng = model.engine
+    kw = dict(num_beams=BEAMS, max_new_tokens=BEAM_TOKENS, eos_token_id=-1)
+    bs.beam_search(eng, ids, tiles, **kw)  # warm-up and the capture at B = 4
+    da.flash_decode_stacked.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = bs.beam_search(eng, ids, tiles, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = da.flash_decode_stacked.launches
+    state_batches = sorted({k[0] for k in eng._states})
+
+    def scores(impl, fault=None):
+        e = OmChatEngine(small.config, small.engine.params, attn_impl=impl, image_cache_size=0, device=DEVICE)
+        seen = []
+        name, fn = fault or (None, None)
+        real = getattr(bs, name) if name else None
+        if name:
+            setattr(bs, name, fn)
+        try:
+            bs.beam_search(e, ids, tiles, score_callback=lambda s, sc, toks: seen.append((sc, toks)), **kw)
+        finally:
+            if name:
+                setattr(bs, name, real)
+        return seen
+
+    plain = scores("plain")
+    agree, worst = beam_step_gaps(scores(None), plain)
+    def fails(steps, gap):
+        return steps < BEAM_MIN_AGREE or gap > BEAM_STEP_GAP
+
+    faults = {}
+    for fault, patch in beam_faults().items():
+        f_agree, f_worst = beam_step_gaps(scores(None, patch), plain)
+        faults[fault] = {"steps_agreeing": f_agree, "max_step_gap": f_worst, "caught": fails(f_agree, f_worst)}
+    res = {"card": CARD, "num_beams": BEAMS, "tokens": len(best), "wall_s": wall,
+           "k3_launches": launches, "decode_state_batches": state_batches,
+           "reduced_depth_steps_agreeing": agree, "reduced_depth_max_step_gap": worst, "faults": faults}
+    log("options, beam search: " + json.dumps(res))
+    if launches != model.config.text.num_hidden_layers * (BEAM_TOKENS - 1) or BEAMS not in state_batches:
+        raise AssertionError(f"beam search: K3 launched {launches} times (states {state_batches})")
+    if fails(agree, worst):
+        raise AssertionError(f"beam search at 2+2 layers: a step's score additions {worst:.3g} apart over {agree} "
+                             f"agreeing steps (at least {BEAM_MIN_AGREE})")
+    missed = [f for f, r in faults.items() if not r["caught"]]
+    if missed:
+        raise AssertionError(f"beam search at 2+2 layers: the limit would pass {missed}: {faults}")
+    return res
+
+
+def device_pipeline_on_the_card(frames) -> dict:
+    """Phase 26: ``device_preprocess_frames`` on the video's 32 frames
+    against the host ``process_video_frames`` (mean |diff| under 0.05, the
+    JAX package's limit), timed by CUDA events (uint8 upload included) beside
+    the host path's wall time."""
+    import torch
+
+    from omchat_torch.processing.device_pipeline import device_preprocess_frames, frames_to_device_batch
+    from omchat_torch.processing.video import process_video_frames
+
+    t0 = time.perf_counter()
+    host = process_video_frames(frames, num_samples=VIDEO_FRAMES)
+    host_s = time.perf_counter() - t0
+    batch = frames_to_device_batch(frames, num_samples=VIDEO_FRAMES)
+    dev = device_preprocess_frames(batch)
+    torch.cuda.synchronize()
+    diff = (dev.cpu() - torch.from_numpy(host)).abs()
+    ms, readings = time_in_turns({"device": lambda: device_preprocess_frames(batch)})
+    res = {"card": CARD, "frames": int(batch.shape[0]), "frame_hw": list(batch.shape[1:3]),
+           "mean_abs_diff": float(diff.mean()), "max_abs_diff": float(diff.max()),
+           "device_ms": ms["device"], "host_ms": host_s * 1e3}
+    log("options, device preprocessing pipeline vs host: " + json.dumps(res))
+    if res["mean_abs_diff"] >= 0.05:
+        raise AssertionError(f"device pipeline: mean |diff| {res['mean_abs_diff']:.4g} from the host path")
+    return res
+
+
+def options_on_the_card(gen, model, seed: int) -> dict:
+    """Phase 26 on the full model: sampling on the graph, bias / penalties /
+    logprobs, constrained decoding, chunked prefill, speculative decoding,
+    beam search; the last two also on the model at 2+2 layers (random
+    weights from ``seed``), where phase 4's limits hold."""
+    import torch
+
+    ids, tiles = make_request(model.config, seed)
+    full = model.config
+    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_hidden_layers=2),
+                              text=dataclasses.replace(full.text, num_hidden_layers=2))
+    small = surface_model(cfg, build_model(cfg, seed), image_cache_size=0, device=DEVICE)
+    # every option runs and prints its line; the phase then raises with every check that failed
+    res, failed = {}, []
+    for name, run in (("sampling", lambda: sampling_on_the_graph(model, ids, tiles)),
+                      ("bias", lambda: bias_penalties_logprobs(model, ids, tiles)),
+                      ("constrained", lambda: constrained_on_the_card(model)),
+                      ("chunked", lambda: chunked_prefill_on_the_card(model.config, model.engine.params, ids, tiles)),
+                      ("speculative", lambda: speculative_on_the_card(model, small, ids, tiles)),
+                      ("beam", lambda: beam_on_the_card(model, small, ids, tiles))):
+        try:
+            res[name] = run()
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+    del small
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 26 failed: " + " | ".join(failed))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -3524,6 +4440,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "nvidia-smi failed"
+    global CARD
+    CARD = card
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     build_s = kernel_lib.build_all()
@@ -3547,6 +4465,15 @@ def main() -> int:
     one_dispatch = {"bf16": single_request_graphs(args.seed, full, "bf16"),
                     "e4m3 cache": single_request_graphs(args.seed, full, "e4m3 cache", cache_dtype=E4M3),
                     "serving": serving_graphs(*full)}
+    surface = surface_model(*full)
+    entry = entry_points(args.seed, surface)
+    video_frames = entry.pop("video_frames")
+    video_k2 = video_k2_rows(gen, round_up(entry["video"]["merged_len"], 128), entry["video"]["merged_len"])
+    options = options_on_the_card(gen, surface, args.seed)
+    options["device pipeline"] = device_pipeline_on_the_card(video_frames)
+    surface.engine.release_decode_states()
+    del surface, video_frames
+    surface_rows = surface_kernel_rows(gen, shapes["prompt_len"], entry["video"]["merged_len"])
     del full
     gc.collect()
     kernel_vs_plain(args.seed)
@@ -3565,6 +4492,9 @@ def main() -> int:
     log("w8a8 kernel shapes (timed and warm-up runs, launches per shape): "
         + json.dumps({n: {str(k): v for k, v in d.items()} for n, d in shapes8.items()}))
     one_dispatch["w8a8"] = single_request_graphs(args.seed, (cfg8, params8), "w8a8")
+    ids, tiles = make_request(cfg8, args.seed)
+    spec8 = speculative_w8a8(surface_model(cfg8, params8), ids, tiles, "w8a8",
+                             ("rmsnorm_quant", "attn_proj_glue_quant"))
     log("decode as one dispatch, decode tokens/s eager vs graphed (this call): " + json.dumps(
         {k: [r[f"{route}/{api}"]["decode_tokens_per_s"] for route in ("eager", "graphed")
              for api in ("generate", "generate_ondevice")] for k, r in one_dispatch.items() if k != "serving"}))
@@ -3583,6 +4513,8 @@ def main() -> int:
                      must_launch=("rmsnorm_quant", "attn_proj_glue_quant", "dense_prequant_swiglu_quant"))
     finally:
         undo()
+    spec10 = speculative_w8a8(surface_model(cfg8, calib8), ids, tiles, "w8a8 (calibrated MLP)",
+                              ("rmsnorm_quant", "attn_proj_glue_quant", "dense_prequant_swiglu_quant"))
     del calib8
     shapes8["dense_prequant_swiglu_quant"] = shapes10["dense_prequant_swiglu_quant"]
     log("K7, K8 and K10 shapes (calibrated request and serving runs, timed and warm-up, launches per shape): "
@@ -3594,7 +4526,8 @@ def main() -> int:
                              f"{e2e10['launches']['dense_prequant_swiglu_quant']} times, not {n_layers}")
     log("w8a8 vs w8a8 with the calibrated MLP, single request (this call): " + json.dumps(
         {k: [e2e8[k], e2e10[k]] for k in ("ttft_ms", "prefill_ms", "decode_tokens_per_s", "peak_mem_gib")}))
-    w8a8_rows = w8a8_kernel_phases(gen, shapes8)
+    w8a8_rows = w8a8_kernel_phases(gen, shapes8, {**spec8["shapes"], "dense_prequant_swiglu_quant":
+                                                  spec10["shapes"]["dense_prequant_swiglu_quant"]})
     w8a8_kernel_vs_plain(args.seed)
 
     from omchat_torch.config import OmChatConfig
@@ -3649,13 +4582,21 @@ def main() -> int:
                 "dense_prequant_swiglu_quant": e2e10["launches"]["dense_prequant_swiglu_quant"],
                 "packed_self_attention": vit5["packed_self_attention_launches"],
                 "flash_decode": k6["flash_decode_launches"],
-                **{f"{n}[page_size=64]": ps64["launches"][n] for n in ("paged_flash_decode", "paged_flash_prefill")}}
+                **{f"{n}[page_size=64]": ps64["launches"][n] for n in ("paged_flash_decode", "paged_flash_prefill")},
+                # phase 26: K2 at a verify step's rows (the oracle-draft speculative run's verify steps), K3
+                # at B = 4 (the timed beam search); K3 over the video's cache (phase 25's timed video
+                # request); K7, K11 and K10 at M = 9 in the w8a8 speculative runs' verify steps
+                surface_rows[0]["name"]: options["speculative"]["oracle draft"]["k2_launches"],
+                **{f"{n}[M=9]": spec8["launches"][n] for n in ("rmsnorm_quant", "attn_proj_glue_quant")},
+                "dense_prequant_swiglu_quant[M=9]": spec10["launches"]["dense_prequant_swiglu_quant"],
+                "flash_decode_stacked[B=4]": options["beam"]["k3_launches"],
+                "flash_decode_stacked[video]": entry["video"]["launches"]["flash_decode_stacked"]}
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
-    } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows + ps_rows + [k5_row, k6_row]]
+    } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows + ps_rows + [k5_row, k6_row] + surface_rows]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,15 @@ over a loaded model (what ``cli/serve.py --paged`` builds).
 ``load_pretrained_model`` mirrors the reference's builder.py:22 (tokenizer +
 model + image processor + context length) and returns a ready engine.
 ``lora_path`` merges a trained LoRA adapter at load, which closes train →
-serve.  Tensor parallelism and the guided / speculative / beam chat variants
-come with later slices.
+serve.  ``OmChatModel`` carries the JAX package's single-request surface:
+``chat`` (history, beams, speculative, guided / JSON / schema decoding),
+``chat_tools`` and ``chat_video``.  Tensor parallelism comes with a later
+slice.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Optional
 
@@ -22,10 +25,25 @@ from omchat_torch.checkpoint.loader import load_lora_adapter, load_omchat_checkp
 from omchat_torch.config import GenerationConfig, OmChatConfig
 from omchat_torch.models.intern_vit import calibrate_fc1_scales
 from omchat_torch.ops.linear import quantize_tree
+from omchat_torch.processing.chat import make_context
 from omchat_torch.processing.image_processor import OmChatImageProcessor
 from omchat_torch.processing.processor import OmChatProcessor
+from omchat_torch.processing.video import process_video_frames, video_prompt
+from omchat_torch.runtime.beam_search import beam_search
+from omchat_torch.runtime.constrained import choice_mask_fn
 from omchat_torch.runtime.generate import OmChatEngine
+from omchat_torch.runtime.json_mode import get_json_mode
+from omchat_torch.runtime.json_schema import get_json_schema_mode
 from omchat_torch.runtime.paged_engine import PagedBatchEngine
+from omchat_torch.runtime.speculative import generate_speculative
+from omchat_torch.runtime.tool_calls import (
+    forced_call_schema,
+    parse_tool_calls,
+    parse_tool_choice,
+    render_tools_system,
+    validate_tools,
+    wire_tool_calls,
+)
 from omchat_torch.training.lora import merge_lora
 from omchat_torch.utils.device import resolve_device
 
@@ -41,13 +59,129 @@ class OmChatModel:
     config: OmChatConfig
     context_len: int = 8192
 
-    def chat(self, text: str, image=None, history=None, generation: Optional[GenerationConfig] = None,
-             stream_callback=None) -> str:
-        """One chat turn: build the anyres context, generate greedily, decode."""
+    def chat(
+        self,
+        text: str,
+        image=None,
+        history=None,
+        generation: Optional[GenerationConfig] = None,
+        stream_callback=None,
+        speculative: bool = False,
+        guided_choices=None,
+        json_mode: bool = False,
+        json_schema: Optional[dict] = None,
+        num_beams: int = 1,
+    ) -> str:
+        """One chat turn: build the anyres context, generate, decode.
+
+        ``speculative=True`` (greedy only) decodes with prompt-lookup
+        speculation (runtime/speculative.py): greedy tokens, fewer device
+        steps on echo-heavy continuations.  ``guided_choices``: restrict the
+        reply to one of these strings by trie-masked decoding
+        (runtime/constrained.py).  ``json_mode``: a valid JSON object
+        (runtime/json_mode.py).  ``json_schema``: a reply conforming to the
+        schema (runtime/json_schema.py).  ``num_beams > 1``: beam search
+        (runtime/beam_search.py), greedy-only and unconstrained.  Precedence,
+        as in the JAX package: beams, then speculative (greedy and
+        unconstrained only), then the guided mask, the schema mask, the JSON
+        mask."""
         inputs = self.processor(text, images=image, history=history)
+        gen = generation or GenerationConfig()
+        ids = inputs["input_ids"][0].tolist()
+        if num_beams > 1:
+            if gen.do_sample or guided_choices or json_mode or json_schema is not None:
+                raise ValueError("num_beams > 1 is greedy-only (no sampling/constrained decoding)")
+            out = beam_search(self.engine, ids, inputs.get("images"), num_beams=num_beams,
+                              max_new_tokens=gen.max_new_tokens, eos_token_id=gen.eos_token_id)
+            return self.tokenizer.decode(out, skip_special_tokens=True)
+        if speculative and not gen.do_sample and not guided_choices and not json_mode and json_schema is None:
+            out, _ = generate_speculative(self.engine, ids, inputs.get("images"), gen, stream_callback=stream_callback)
+            return self.tokenizer.decode(out, skip_special_tokens=True)
+        allowed_fn = None
+        if guided_choices:
+            allowed_fn = choice_mask_fn(self.tokenizer, list(guided_choices))
+        elif json_schema is not None:
+            allowed_fn = get_json_schema_mode(self.tokenizer, json_schema).mask_fn()
+        elif json_mode:
+            allowed_fn = get_json_mode(self.tokenizer).mask_fn()
+        out = self.engine.generate(
+            [ids],
+            inputs.get("images"),
+            gen,
+            stream_callback=stream_callback,
+            tokenizer=self.tokenizer,
+            allowed_tokens_fn=allowed_fn,
+        )
+        return self.tokenizer.decode(out.token_ids[0], skip_special_tokens=True)
+
+    def chat_tools(
+        self,
+        text: str,
+        tools: list,
+        image=None,
+        history=None,
+        tool_choice="auto",
+        generation: Optional[GenerationConfig] = None,
+        system: str = "You are a helpful assistant.",
+    ) -> dict:
+        """One chat turn with OpenAI-style tool calling (runtime/tool_calls.py).
+
+        Returns ``{"content": str | None, "tool_calls": [{"id", "type",
+        "function": {"name", "arguments"}}, ...]}``.  ``tool_choice``
+        "required" or ``{"type": "function", "function": {"name": ...}}``
+        constrains decoding via the schema-guided mask, so the call is
+        well-formed JSON naming a declared tool; "auto" parses
+        ``<tool_call>`` blocks out of an unconstrained completion."""
+        fns = validate_tools(tools)
+        mode, forced_name = parse_tool_choice(tool_choice, fns)
+        if mode != "none":
+            system = render_tools_system(system, fns)
+        inputs = self.processor(text, images=image, history=history, system=system)
+        gen = generation or GenerationConfig()
+        allowed_fn = None
+        if mode == "forced":
+            schema = forced_call_schema(fns, forced_name)
+            try:
+                allowed_fn = get_json_schema_mode(self.tokenizer, schema).mask_fn()
+            except ValueError:
+                schema = forced_call_schema([{"name": f["name"]} for f in fns], forced_name)
+                allowed_fn = get_json_schema_mode(self.tokenizer, schema).mask_fn()
         out = self.engine.generate(
             [inputs["input_ids"][0].tolist()],
             inputs.get("images"),
+            gen,
+            tokenizer=self.tokenizer,
+            allowed_tokens_fn=allowed_fn,
+        )
+        reply = self.tokenizer.decode(out.token_ids[0], skip_special_tokens=True)
+        if mode == "forced":
+            try:
+                obj = json.loads(reply)
+                calls = [{"name": obj["name"],
+                          "arguments": json.dumps(obj.get("arguments", {}), ensure_ascii=False)}]
+                return {"content": None, "tool_calls": wire_tool_calls(calls)}
+            except (json.JSONDecodeError, KeyError, TypeError):
+                return {"content": reply, "tool_calls": []}
+        content, calls = parse_tool_calls(reply)
+        return {"content": content, "tool_calls": wire_tool_calls(calls)}
+
+    def chat_video(
+        self,
+        text: str,
+        frames,
+        num_samples: int = 32,
+        generation: Optional[GenerationConfig] = None,
+        stream_callback=None,
+    ) -> str:
+        """Video QA: uniform frame sampling, one ViT tile + sentinel per frame
+        (the 32-frame MMBench-Video configuration), on the host PIL path
+        (``processing/video.py``)."""
+        pixel_values = process_video_frames(frames, tile_size=self.config.vision.image_size, num_samples=num_samples)
+        prompt = video_prompt(text, pixel_values.shape[0])
+        _, context_tokens = make_context(self.tokenizer, prompt, None, "You are a helpful assistant.")
+        out = self.engine.generate(
+            [context_tokens],
+            pixel_values,
             generation or GenerationConfig(),
             stream_callback=stream_callback,
             tokenizer=self.tokenizer,
@@ -106,14 +240,22 @@ def load_pretrained_model(
         params = merge_lora(params, load_lora_adapter(lora_path, dtype, device=dev))
     if quantize_int8 or w8a8:
         config, params = quantize_model(config, params, w8a8=w8a8, attn_impl=attn_impl)
-    engine = OmChatEngine(config, params, attn_impl=attn_impl, cache_dtype=cache_dtype, device=dev)
+    return omchat_model(tokenizer, OmChatEngine(config, params, attn_impl=attn_impl, cache_dtype=cache_dtype,
+                                                device=dev))
+
+
+def omchat_model(tokenizer, engine: OmChatEngine) -> OmChatModel:
+    """An :class:`OmChatModel` over a ready engine (its config and params):
+    the image processor and processor ``load_pretrained_model`` builds, for a
+    model whose weights are already in memory."""
+    config = engine.cfg
+    if config.mm_patch_merge_type != "flat":
+        raise NotImplementedError("the OmChat-v1 spatial patch merge waits for a later slice")
     image_processor = OmChatImageProcessor(
         crop_size=config.vision.image_size,
         shortest_edge=config.vision.image_size,
         image_grid_pinpoints=config.image_grid_pinpoints,
     )
-    if config.mm_patch_merge_type != "flat":
-        raise NotImplementedError("the OmChat-v1 spatial patch merge waits for a later slice")
     processor = OmChatProcessor(tokenizer, image_processor)
     return OmChatModel(tokenizer, engine, image_processor, processor, config,
                        config.tokenizer_model_max_length or 8192)

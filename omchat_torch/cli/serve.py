@@ -2,7 +2,7 @@
 the port's counterpart of ``cli/serve.py --paged``.
 
     python -m omchat_torch.cli.serve --model-path CKPT [--port 8000] [--device cuda] [--int8 | --w8a8] \\
-        [--kv-cache-dtype fp8] [--decode-kernel manual] [--no-warmup]
+        [--kv-cache-dtype fp8] [--lora ADAPTER] [--decode-kernel manual] [--no-warmup]
 
 Serves ``GET /health`` and non-streaming ``POST /v1/chat/completions`` (text
 and base64 ``image_url`` content parts; ``max_tokens``, ``temperature``,
@@ -33,6 +33,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
+from omchat_torch.cli.options import add_model_flags, load_model
 from omchat_torch.config import GenerationConfig
 
 logger = logging.getLogger("omchat_torch.serve")
@@ -276,14 +277,9 @@ def make_server(model, engine, host: str = "127.0.0.1", port: int = 8000):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model-path", required=True)
+    add_model_flags(ap)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
-    ap.add_argument("--device", default="cuda", help="cuda (default; raises without a GPU) or cpu (plain PyTorch path)")
-    ap.add_argument("--int8", action="store_true", help="int8 weight-only quantization")
-    ap.add_argument("--w8a8", action="store_true",
-                    help="w8a8 serving mode: int8 activations and weights for the ViT encode and the prefills "
-                         "(implies --int8; calibrates static fc1 scales at load)")
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--num-pages", type=int, default=1024)
     ap.add_argument("--page-size", type=int, default=128)
@@ -292,8 +288,6 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=1024,
                     help="prompts longer than this prefill in chunks of this width, decode rolls in between")
     ap.add_argument("--image-cache", type=int, default=8, help="encoded-image LRU entries (0 disables)")
-    ap.add_argument("--kv-cache-dtype", choices=["bf16", "fp8"], default="bf16",
-                    help="page-pool storage dtype; fp8 (e4m3) halves a page's bytes, the kernels widen on load")
     ap.add_argument("--decode-kernel", choices=["auto", "manual"], default="auto",
                     help="paged decode kernel: auto (K12) or manual (K13, pages streamed through a ring of bulk "
                          "copies); the plain CPU path ignores it")
@@ -302,12 +296,10 @@ def main(argv=None):
                          "three short requests); the first requests then pay for them")
     args = ap.parse_args(argv)
 
-    from omchat_torch.api import load_pretrained_model, paged_batch_engine
-    from omchat_torch.ops.fp8 import E4M3
+    from omchat_torch.api import paged_batch_engine
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    model = load_pretrained_model(args.model_path, quantize_int8=args.int8, w8a8=args.w8a8, device=args.device,
-                                  cache_dtype=E4M3 if args.kv_cache_dtype == "fp8" else None)
+    model = load_model(ap, args)
     engine = paged_batch_engine(
         model, max_slots=args.max_slots, num_pages=args.num_pages, page_size=args.page_size, max_len=args.max_len,
         decode_roll=args.decode_roll, prefill_chunk=args.prefill_chunk, image_cache_size=args.image_cache,

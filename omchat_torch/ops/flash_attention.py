@@ -284,8 +284,9 @@ packed_self_attention.launches = 0
 
 def _prescale_q(q: torch.Tensor) -> torch.Tensor:
     """q * D^-0.5 * log2(e) in q's own dtype (flash_attention.py:450); without
-    this bf16 rounding the result drifts from the JAX path."""
-    return q * torch.tensor(q.shape[-1] ** -0.5 * LOG2E, dtype=q.dtype, device=q.device)
+    this bf16 rounding the result drifts from the JAX path.  The factor is
+    filled on q's device (no host copy), so a CUDA graph can capture K2."""
+    return q * torch.full((), q.shape[-1] ** -0.5 * LOG2E, dtype=q.dtype, device=q.device)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, q_offset, kv_len, segment_ids=None):

@@ -48,13 +48,42 @@ def categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tenso
 
 
 def sample(logits: torch.Tensor, generator: torch.Generator, cfg: GenerationConfig) -> torch.Tensor:
-    """[B, V] → [B] next tokens per the generation config."""
+    """[B, V] → [B] next tokens per the generation config: greedy, or
+    :func:`sample_from` with the config's parameters (temperature clamped to
+    1e-6)."""
     if not cfg.do_sample:
         return greedy(logits)
-    logits = logits / max(cfg.temperature, 1e-6)
-    logits = apply_top_k(logits, cfg.top_k)
-    logits = apply_top_p(logits, cfg.top_p)
-    return categorical(logits, generator)
+    dev = logits.device
+    return sample_from(logits, generator, torch.tensor([max(cfg.temperature, 1e-6)], dtype=torch.float32, device=dev),
+                       torch.tensor([cfg.top_k], dtype=torch.int32, device=dev),
+                       torch.tensor([cfg.top_p], dtype=torch.float32, device=dev))
+
+
+def sample_from(logits: torch.Tensor, generator: torch.Generator, temperature: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor) -> torch.Tensor:
+    """A sampled pick with its parameters in tensors (temperature, top_p [1]
+    fp32, temperature already clamped; top_k [1] int32), so that a captured
+    decode step reads them from buffers: temperature, then :func:`apply_top_k`,
+    then :func:`apply_top_p` (the JAX package's order), bit for bit, then the
+    draw from ``generator``.  One descending sort gives the top-k threshold
+    (the value at rank k-1; k <= 0 keeps every token) and, with the tokens
+    below it set to -inf (the sort of :func:`apply_top_k`'s output), the
+    top-p threshold over that renormalised prefix (p >= 1 keeps every token).
+    Its constants are Python scalars: a CUDA graph capture takes no
+    host-to-device copy."""
+    v = logits.shape[-1]
+    ninf = float("-inf")
+    scaled = logits / temperature
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    kth = torch.gather(sorted_desc, 1, torch.clamp(top_k.long() - 1, 0, v - 1).expand(scaled.shape[0])[:, None])
+    kth = torch.where(top_k > 0, kth, ninf)
+    kept = torch.where(scaled < kth, ninf, scaled)
+    sorted_kept = torch.where(sorted_desc < kth, ninf, sorted_desc)
+    probs = torch.softmax(sorted_kept, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    pth = torch.where(cum - probs < top_p, sorted_kept, float("inf")).amin(dim=-1, keepdim=True)
+    pth = torch.where(top_p >= 1.0, ninf, pth)
+    return categorical(torch.where(kept < pth, ninf, kept), generator)
 
 
 def sample_batch_logits(logits, temperature, top_k, top_p) -> torch.Tensor:

@@ -31,6 +31,14 @@ recorded, and each replay adds it again: the counters read what the card
 ran.  The capture's count must equal the eager first run's, wrapper by
 wrapper, or the capture raises.  A failure of capture or replay raises;
 nothing falls back to the eager route.
+
+A body that draws random numbers (a sampled decode step) names its
+generators: each is registered with the graph
+(``CUDAGraph.register_generator_state``), so that every replay draws from
+the generator's current seed and offset and advances the offset by what the
+captured draws consume, as the eager body does.  The offset the eager first
+run advanced is recorded, and the first replay must advance it by as much,
+or it raises: the graph's draws are the eager body's.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ from __future__ import annotations
 import importlib
 import pkgutil
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -62,12 +70,16 @@ class GraphedStep:
     graph in ``pool``; every later call replays it.  Each call runs the body
     once on the card and returns what the body returns (the captured run's
     result from the second call on: the body should return its static
-    output buffers).  ``capture_s`` is the wall time the capture took."""
+    output buffers).  ``capture_s`` is the wall time the capture took.
+    ``generators``: the CUDA generators the body draws from."""
 
-    def __init__(self, body: Callable[[], object], pool, device: torch.device):
+    def __init__(self, body: Callable[[], object], pool, device: torch.device,
+                 generators: Sequence[torch.Generator] = ()):
         self.body = body
         self.pool = pool
         self.device = device
+        self.generators = tuple(generators)
+        self._draws: Optional[list] = None  # offsets the eager run advanced, until the first replay checks them
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out = None
         self.capture_s = 0.0
@@ -77,7 +89,14 @@ class GraphedStep:
     def __call__(self):
         if self.graph is None:
             return self._run_and_capture()
+        before = [g.get_offset() for g in self.generators] if self._draws is not None else None
         self.graph.replay()
+        if before is not None:
+            replayed = [g.get_offset() - b for g, b in zip(self.generators, before)]
+            if replayed != self._draws:
+                raise RuntimeError(f"GraphedStep: a replay advanced its generators by {replayed}, the eager run "
+                                   f"by {self._draws}")
+            self._draws = None
         for wrapper, n in self._deltas.items():
             wrapper.launches += n
         self.replays += 1
@@ -89,14 +108,18 @@ class GraphedStep:
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
+        offsets = [g.get_offset() for g in self.generators]
         with torch.cuda.stream(side):
             out = self.body()
         current.wait_stream(side)
         torch.cuda.synchronize(self.device)
         eager = {w: w.launches - before[w] for w in wrappers if w.launches != before[w]}
+        draws = [g.get_offset() - o for g, o in zip(self.generators, offsets)]
         before = {w: w.launches for w in wrappers}
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
         try:
             with torch.cuda.graph(graph, pool=self.pool):
                 captured = self.body()
@@ -111,4 +134,5 @@ class GraphedStep:
             raise RuntimeError(f"GraphedStep: the capture launched {names(self._deltas)}, "
                                f"the eager run {names(eager)}")
         self.graph, self.out = graph, captured
+        self._draws = draws if self.generators else None
         return out

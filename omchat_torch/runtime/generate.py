@@ -1,6 +1,6 @@
-"""Generation runtime: prefill, decode step, a host streaming loop and the
-on-device decode loop — PyTorch port of the single-request path of
-``omchat_tpu/runtime/generate.py``.
+"""Generation runtime: prefill, chunked prefill, decode step, a host
+streaming loop and the on-device decode loop — PyTorch port of the
+single-request path of ``omchat_tpu/runtime/generate.py``.
 
 Prefill fills a cache of the bucketed prompt length plus the bucketed decode
 budget and returns the first-token logits; each decode step runs the whole
@@ -14,15 +14,20 @@ the w8a8 glue kernels and decode stays weight-only int8.
 
 ``generate`` (a readback a token, as the JAX engine's per-token
 ``_decode_step_jit``) and ``generate_ondevice`` (the JAX ``_decode_loop_jit``:
-no readback a token) decode greedily over a :class:`DecodeState`: the cache
-and the step's token / length / done / output buffers, kept per (batch,
-cache rows, cache dtype) in a small LRU.  On a CUDA engine each decode step
-is one replay of a CUDA graph of the step
+no readback a token) decode over a :class:`DecodeState`: the cache and the
+step's token / length / done / output buffers, and the buffers the pick
+reads (an additive logit bias, the counts of generated tokens for the
+presence / frequency penalties, the sampling parameters and a generator),
+kept per (batch, cache rows, cache dtype) in a small LRU.  On a CUDA engine
+each decode step is one replay of a CUDA graph of the step
 (:class:`~omchat_torch.runtime.cuda_graphs.GraphedStep`), the counterpart of
-one jit dispatch; a CPU engine, and a CUDA engine built with
-``decode_graphs=False``, run the same step body eagerly.  Sampling,
-logprobs, penalties, constrained and speculative decoding and chunked
-prefill come with later slices.
+one jit dispatch, one graph per pick mode (greedy or sampled, with or
+without log-probs); a CPU engine, and a CUDA engine built with
+``decode_graphs=False``, run the same step body eagerly.  The pick follows
+the JAX ``generate``'s order: bias, then the penalties; an
+``allowed_tokens_fn`` mask replaces both (it is added to the raw logits, as
+in the JAX package); then greedy or sampled; log-probs of the biased /
+masked logits, before temperature.
 """
 
 from __future__ import annotations
@@ -30,8 +35,8 @@ from __future__ import annotations
 import time
 import weakref
 from collections import OrderedDict
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Union
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,7 +52,7 @@ from omchat_torch.models.omchat import (
 )
 from omchat_torch.models.qwen2 import KVCache, embed_tokens, init_kv_cache, lm_head
 from omchat_torch.ops.attention import PLAIN
-from omchat_torch.ops.sampling import greedy
+from omchat_torch.ops.sampling import greedy, sample_from
 from omchat_torch.runtime.cuda_graphs import GraphedStep
 from omchat_torch.runtime.feature_cache import ImageFeatureCache, cached_encode
 from omchat_torch.utils.device import resolve_device
@@ -55,6 +60,13 @@ from omchat_torch.utils.device import resolve_device
 PROMPT_BUCKET = 128  # merged prompts and the decode budget round up to multiples of this
 DECODE_STATES = 4  # decode states (cache, buffers, graph) an engine keeps, least recently used dropped first
 DONE_POLL = 8  # generate_ondevice reads ``done`` back once every this many steps
+TOP_LOGPROBS_MAX = 20  # top_logprobs a step can return (OpenAI's cap)
+
+# A pick mode: (sampled, log-probs).  With log-probs a step writes the chosen
+# token's and the top TOP_LOGPROBS_MAX; the host slices the k it was asked
+# for.  Each mode is one step body, so a state has at most four.
+PickMode = Tuple[bool, bool]
+GREEDY: PickMode = (False, False)
 
 
 def make_stdout_streamer(tokenizer, window: int = 24):
@@ -90,18 +102,44 @@ class KeywordStopper:
 class GenerateOutput:
     token_ids: List[List[int]]  # generated tokens per sequence (eos excluded)
     prompt_len: np.ndarray
+    # per-token log p(token | prefix) for each sequence, aligned with
+    # token_ids; only populated when generate(return_logprobs=True)
+    logprobs: Optional[List[List[float]]] = None
+    # per-token top-k alternatives [(token_id, logprob), ...] per sequence,
+    # aligned with token_ids; populated when generate(top_logprobs=k > 0)
+    top_logprobs: Optional[List[List[List[tuple]]]] = None
+
+
+def seed_of(rng_key) -> int:
+    """The seed a request's draws start from: ``rng_key`` itself when an int,
+    one int64 drawn from it when a :class:`torch.Generator`, else 0 (the JAX
+    package's default ``PRNGKey(0)``)."""
+    if rng_key is None:
+        return 0
+    if isinstance(rng_key, torch.Generator):
+        return int(torch.randint(0, 2**62, (1,), generator=rng_key, device=rng_key.device))
+    if isinstance(rng_key, (int, np.integer)):
+        return int(rng_key)
+    raise TypeError(f"rng_key: a seed (int) or a torch.Generator, not {type(rng_key).__name__}")
 
 
 @dataclass
 class DecodeState:
     """The static buffers of the decode loop for one (batch, cache rows,
     cache dtype): the cache prefill writes into and the step reads, and what
-    the step reads and writes around it.  A step (``run``) feeds ``tokens``
-    at ``kv_len``, picks the greedy next token of each row (eos where the row
-    is ``done``), writes it into column ``step`` of ``out`` and into
-    ``tokens``, marks rows that picked eos done, and advances ``kv_len`` and
-    ``step``.  The buffers are only ever written in place: a CUDA graph of
-    the step reads and writes these addresses."""
+    the step reads and writes around it.  A step feeds ``tokens`` at
+    ``kv_len``, picks the next token of each row from its logits (eos where
+    the row is ``done``), writes it into column ``step`` of ``out`` and into
+    ``tokens``, counts it, marks rows that picked eos done, and advances
+    ``kv_len`` and ``step``.  The pick reads ``bias`` (added to the logits),
+    ``penalty`` and ``counts`` (subtracted: presence where a token was
+    generated, frequency times its count), and for a sampled pick
+    ``temperature``, ``top_k``, ``top_p`` and ``generator``; with log-probs
+    it writes ``logprob`` and ``top_logprob`` / ``top_id``.  The buffers are
+    only ever written in place: a CUDA graph of the step reads and writes
+    these addresses, and the host rewrites ``bias`` between replays for a
+    constrained decode.  ``runs`` holds one step callable a pick mode;
+    ``run`` is the greedy one."""
 
     cache: KVCache
     tokens: torch.Tensor  # [B] int32
@@ -110,8 +148,22 @@ class DecodeState:
     eos: torch.Tensor  # [1] int32
     step: torch.Tensor  # [1] int64
     out: torch.Tensor  # [B, cache rows] int32: the first token, then a step's each
-    logits: torch.Tensor  # [B, V] fp32, the last step's
-    run: Union[GraphedStep, Callable[[], torch.Tensor], None] = None
+    logits: torch.Tensor  # [B, V] fp32, the last step's (raw, before the pick's bias)
+    bias: torch.Tensor  # [V] fp32 additive bias: logit_bias, or an allowed-token mask
+    penalty: torch.Tensor  # [2] fp64: presence, frequency
+    counts: torch.Tensor  # [B, V] int32: tokens generated so far (eos excluded)
+    temperature: torch.Tensor  # [1] fp32
+    top_k: torch.Tensor  # [1] int32, <= 0 keeps every token
+    top_p: torch.Tensor  # [1] fp32, >= 1 keeps every token
+    logprob: torch.Tensor  # [B] fp32, log p of the picked token
+    top_logprob: torch.Tensor  # [B, TOP_LOGPROBS_MAX] fp32
+    top_id: torch.Tensor  # [B, TOP_LOGPROBS_MAX] int64
+    generator: torch.Generator
+    runs: Dict[PickMode, Union[GraphedStep, Callable[[], torch.Tensor]]] = field(default_factory=dict)
+
+    @property
+    def run(self):
+        return self.runs[GREEDY]
 
 
 class OmChatEngine:
@@ -129,9 +181,9 @@ class OmChatEngine:
 
     ``decode_graphs`` (default True): on a CUDA engine with the kernels
     (``attn_impl=None``) each decode step replays one CUDA graph of the step,
-    captured on the first step of each decode state; False runs the same
-    step body eagerly, and so do CPU engines and ``attn_impl="plain"``
-    (whose plain versions build host scalars).
+    captured on the first step of each decode state and pick mode; False
+    runs the same step body eagerly, and so do CPU engines and
+    ``attn_impl="plain"`` (whose plain versions build host scalars).
 
     After :meth:`generate` or :meth:`generate_ondevice`, ``spans`` holds the
     stage times in seconds (``encode_images``, ``prefill``, ``ttft``,
@@ -231,6 +283,50 @@ class OmChatEngine:
         return lm_head(lm, self.cfg.text, last), cache
 
     @torch.no_grad()
+    def prefill_chunked(self, plan: MergePlan, image_features: Optional[torch.Tensor], max_new_tokens: int,
+                        chunk_size: int = 1024):
+        """Incremental prefill in fixed-size chunks against the cache (the
+        JAX ``prefill_chunked`` over ``_prefill_chunk_jit``): chunk ``c0``
+        writes its K/V at ``write_pos = c0`` and attends causally to every row
+        cached so far (K2 at ``q_offset = c0``); the last chunk is padded to
+        ``chunk_size``, so the cache covers the padded write extent plus the
+        decode budget, bucketed.  Returns (last-token logits [B, V] fp32,
+        cache)."""
+        cfg = self.cfg
+        lm = self.params["language_model"]
+        dev = self.device
+        b, m = plan.token_ids.shape
+        padded_m = round_up_to_bucket(plan.max_len, chunk_size)
+        cache_len = round_up_to_bucket(padded_m + max_new_tokens, self.prompt_bucket)
+        cache = init_kv_cache(cfg.text, b, cache_len, dtype=self.cache_dtype or lm["embed_tokens"].dtype, device=dev)
+        final = torch.zeros((b, cfg.text.vocab_size), dtype=torch.float32, device=dev)
+        lengths = plan.lengths
+        for c0 in range(0, m, chunk_size):
+            csize = min(chunk_size, m - c0)
+
+            def cut(a):
+                part = a[:, c0: c0 + csize]
+                if csize < chunk_size:
+                    part = np.pad(part, ((0, 0), (0, chunk_size - csize)))
+                return torch.as_tensor(part, device=dev)
+
+            chunk_lengths = np.clip(lengths - c0, 0, chunk_size).astype(np.int32)
+            if (chunk_lengths == 0).all():
+                break
+            embeds = fuse_embeddings(self.params, cut(plan.token_ids), cut(plan.is_image), cut(plan.image_index),
+                                     image_features)
+            start = torch.full((b,), c0, dtype=torch.int32, device=dev)
+            hidden, cache = decoder_forward(lm, cfg.text, embeds, cut(plan.positions), cache, write_pos=start,
+                                            kv_len=start + torch.as_tensor(chunk_lengths, device=dev),
+                                            attn_impl=self.attn_impl)
+            ends = (lengths > c0) & (lengths <= c0 + chunk_size)  # rows whose last token is in this chunk
+            if ends.any():
+                idx = torch.as_tensor(np.maximum(chunk_lengths - 1, 0), device=dev).long()
+                logits = lm_head(lm, cfg.text, hidden[torch.arange(b, device=dev), idx])
+                final = torch.where(torch.as_tensor(ends, device=dev)[:, None], logits, final)
+        return final, cache
+
+    @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, kv_len: torch.Tensor, cache: KVCache):
         """One decode step.  tokens [B]; kv_len [B] current length (pre-write).
         The cache is updated in place."""
@@ -252,7 +348,7 @@ class OmChatEngine:
     def decode_state(self, batch: int, cache_rows: int) -> DecodeState:
         """The decode state for ``batch`` rows over a cache of ``cache_rows``
         rows in the engine's cache dtype, from the LRU or made (its cache
-        zeroed, its step not yet run or captured)."""
+        zeroed, its greedy step not yet run or captured)."""
         lm = self.params["language_model"]
         dtype = self.cache_dtype or lm["embed_tokens"].dtype
         key = (batch, cache_rows, dtype)
@@ -261,62 +357,130 @@ class OmChatEngine:
             while len(self._states) >= DECODE_STATES:
                 self._states.popitem(last=False)
             dev = self.device
+            v = self.cfg.text.vocab_size
             i32 = dict(dtype=torch.int32, device=dev)
+            f32 = dict(dtype=torch.float32, device=dev)
             st = DecodeState(
                 cache=init_kv_cache(self.cfg.text, batch, cache_rows, dtype=dtype, device=dev),
                 tokens=torch.zeros(batch, **i32), kv_len=torch.zeros(batch, **i32),
                 done=torch.zeros(batch, dtype=torch.bool, device=dev), eos=torch.zeros(1, **i32),
                 step=torch.zeros(1, dtype=torch.int64, device=dev), out=torch.zeros(batch, cache_rows, **i32),
-                logits=torch.zeros(batch, self.cfg.text.vocab_size, dtype=torch.float32, device=dev),
+                logits=torch.zeros(batch, v, **f32), bias=torch.zeros(v, **f32),
+                penalty=torch.zeros(2, dtype=torch.float64, device=dev), counts=torch.zeros(batch, v, **i32),
+                temperature=torch.ones(1, **f32), top_k=torch.zeros(1, **i32), top_p=torch.ones(1, **f32),
+                logprob=torch.zeros(batch, **f32), top_logprob=torch.zeros(batch, TOP_LOGPROBS_MAX, **f32),
+                top_id=torch.zeros(batch, TOP_LOGPROBS_MAX, dtype=torch.int64, device=dev),
+                generator=torch.Generator(device=dev),
             )
+            self._runner(st, GREEDY)
+        self._states[key] = st
+        return st
+
+    def _runner(self, st: DecodeState, mode: PickMode):
+        """``st``'s step for pick ``mode``, made on first use: a
+        :class:`GraphedStep` of the body on a graphed engine (a sampled mode
+        registers the state's generator with its graph), else the body."""
+        run = st.runs.get(mode)
+        if run is None:
             # The body holds its engine and state weakly: a state dropped from
             # the LRU, or an engine deleted, is freed at once, not at the
             # collector's next pass.
             engine, state = weakref.ref(self), weakref.ref(st)
-            body = lambda: engine()._decode_body(state())  # noqa: E731
-            st.run = GraphedStep(body, self._graph_pool, dev) if self.graphed() else body
-        self._states[key] = st
-        return st
+            body = lambda: engine()._decode_body(state(), mode)  # noqa: E731
+            if self.graphed():
+                run = GraphedStep(body, self._graph_pool, self.device, generators=(st.generator,) if mode[0] else ())
+            else:
+                run = body
+            st.runs[mode] = run
+        return run
 
     def release_decode_states(self) -> None:
-        """Drop every kept decode state: its cache, buffers and graph (whose
+        """Drop every kept decode state: its cache, buffers and graphs (whose
         memory goes back to the allocator with the engine's last graph).  A
         long-running caller that has served requests of many shapes can call
         this to free them; the next request makes its state anew."""
         self._states.clear()
 
-    def _decode_body(self, st: DecodeState) -> torch.Tensor:
+    def _decode_body(self, st: DecodeState, mode: PickMode = GREEDY) -> torch.Tensor:
         """One decode step on ``st``'s buffers, in place (the step a graph
         captures): :meth:`decode_step` (embed, the 28-layer ``decode_scan``
-        with K3 in every layer and one K4 commit, lm_head), the greedy pick,
-        eos for rows already done, as the JAX ``_decode_loop_jit`` body.
-        Returns the logits buffer."""
+        with K3 in every layer and one K4 commit, lm_head), then
+        :meth:`_pick`, as the JAX ``_decode_loop_jit`` body.  Returns the
+        logits buffer."""
         logits, _ = self.decode_step(st.tokens, st.kv_len, st.cache)
-        nxt = torch.where(st.done, st.eos, greedy(logits))
         st.logits.copy_(logits)
-        st.out.index_copy_(1, st.step, nxt[:, None])
-        st.done.logical_or_(nxt == st.eos)
-        st.tokens.copy_(nxt)
+        self._pick(st, logits, mode)
         st.kv_len.add_(1)
-        st.step.add_(1)
         return st.logits
 
-    def _start(self, st: DecodeState, first: torch.Tensor, lengths, eos: int) -> None:
-        """Set ``st`` for a request: the first tokens [B] (picked from the
-        prefill's logits) in ``tokens`` and ``out``'s column 0, eos in the rest
-        of ``out``, the prompt lengths in ``kv_len``."""
-        st.tokens.copy_(first)
-        st.kv_len.copy_(torch.as_tensor(np.asarray(lengths, np.int32)))
-        st.eos.fill_(eos)
-        st.done.copy_(first == eos)
-        st.step.fill_(1)
-        st.out.fill_(eos)
-        st.out[:, 0] = first
+    @staticmethod
+    def _pick(st: DecodeState, logits: torch.Tensor, mode: PickMode) -> None:
+        """Pick each row's next token from ``logits`` [B, V] per ``mode`` and
+        the state's option buffers, in the JAX ``generate``'s order: + bias,
+        - (presence where counted + frequency x count), computed in fp64 and
+        rounded once as the JAX package's numpy penalty is; greedy, or
+        sampled from ``generator``; eos for rows already done; the log-probs
+        of the biased logits; then the token written, counted and fed."""
+        sampled, with_logprobs = mode
+        pen = torch.where(st.counts > 0, st.penalty[0] + st.penalty[1] * st.counts.double(), 0.0)
+        step_logits = (logits + st.bias) - pen.float()
+        if sampled:
+            picked = sample_from(step_logits, st.generator, st.temperature, st.top_k, st.top_p)
+        else:
+            picked = greedy(step_logits)
+        if with_logprobs:
+            lp = torch.log_softmax(step_logits.float(), dim=-1)
+            st.logprob.copy_(lp.gather(1, picked[:, None].long())[:, 0])
+            k = min(TOP_LOGPROBS_MAX, lp.shape[-1])
+            top = torch.topk(lp, k, dim=-1)
+            st.top_logprob[:, :k].copy_(top.values)
+            st.top_id[:, :k].copy_(top.indices)
+        nxt = torch.where(st.done, st.eos, picked)
+        st.out.index_copy_(1, st.step, nxt[:, None])
+        st.counts.scatter_add_(1, nxt[:, None].long(), ((nxt != st.eos) & ~st.done).int()[:, None])
+        st.done.logical_or_(nxt == st.eos)
+        st.tokens.copy_(nxt)
+        st.step.add_(1)
 
-    def _prefill_into_state(self, batch_input_ids, images, gen: GenerationConfig, t0: float):
+    def _start(self, st: DecodeState, lengths, gen: GenerationConfig, rng_key=None,
+               logit_bias: Optional[dict] = None) -> None:
+        """Set ``st`` for a request before its first pick: the prompt
+        lengths in ``kv_len``, eos everywhere in ``out``, nothing done or
+        counted, step 0; the request's bias (``logit_bias``: {token id: bias},
+        out-of-vocabulary ids inert), penalties and sampling parameters, and
+        its generator seeded from ``rng_key`` (:func:`seed_of`)."""
+        st.kv_len.copy_(torch.as_tensor(np.asarray(lengths, np.int32)))
+        st.eos.fill_(gen.eos_token_id)
+        st.done.zero_()
+        st.step.zero_()
+        st.out.fill_(gen.eos_token_id)
+        st.counts.zero_()
+        bias = np.zeros(st.bias.shape[0], np.float32)
+        for tid, bv in (logit_bias or {}).items():
+            if 0 <= int(tid) < bias.shape[0]:
+                bias[int(tid)] = float(bv)
+        st.bias.copy_(torch.from_numpy(bias))
+        st.penalty.copy_(torch.tensor([gen.presence_penalty, gen.frequency_penalty], dtype=torch.float64))
+        st.temperature.fill_(max(gen.temperature, 1e-6))
+        st.top_k.fill_(gen.top_k)
+        st.top_p.fill_(gen.top_p)
+        st.generator.manual_seed(seed_of(rng_key))
+
+    @staticmethod
+    def _mask(st: DecodeState, allowed) -> None:
+        """The constrained decode's step bias: 0 on ``allowed``, -inf
+        elsewhere, written into ``st.bias`` in place and the penalties
+        zeroed, so the pick sees the raw logits plus the mask (the JAX
+        package's ``logits + bias``: a mask replaces bias and penalties)."""
+        st.bias.fill_(float("-inf"))
+        st.bias[torch.as_tensor(np.asarray(allowed, np.int64), device=st.bias.device)] = 0.0
+        st.penalty.zero_()
+
+    def _prefill_into_state(self, batch_input_ids, images, gen: GenerationConfig, t0: float, rng_key=None,
+                            logit_bias: Optional[dict] = None):
         """Encode, plan and prefill into the decode state of the request's
-        shape; records the ``encode_images`` and ``prefill`` spans.  Returns
-        (plan, state, first-token logits, first tokens)."""
+        shape and set it for the request (:meth:`_start`); records the
+        ``encode_images`` span.  Returns (plan, state, first-token logits)."""
         feats = self.encode_images(images) if images is not None else None
         self._sync()
         t1 = time.perf_counter()
@@ -324,33 +488,20 @@ class OmChatEngine:
         plan = self.plan(batch_input_ids)
         st = self.decode_state(plan.token_ids.shape[0], self.cache_rows(plan, gen.max_new_tokens))
         logits, _ = self.prefill(plan, feats, gen.max_new_tokens, cache=st.cache)
-        first = greedy(logits)
-        self._start(st, first, plan.lengths, gen.eos_token_id)
-        self._sync()
-        self.spans["prefill"] = time.perf_counter() - t1
-        return plan, st, logits, first
+        self._start(st, plan.lengths, gen, rng_key, logit_bias)
+        return plan, st, logits
 
-    def _decode_spans(self, st: DecodeState, t_dec: float, graph_before, steps: int) -> None:
-        """The ``decode`` span since ``t_dec`` and, when the state's step was
-        captured since (its graph is no longer ``graph_before``), the
-        ``capture`` span, taken out of ``decode``."""
+    def _decode_spans(self, run, t_dec: float, graph_before, steps: int, cache_len: int) -> None:
+        """The ``decode`` span since ``t_dec`` and, when ``run`` was captured
+        since (its graph is no longer ``graph_before``), the ``capture`` span,
+        taken out of ``decode``."""
         self._sync()
         wall = time.perf_counter() - t_dec
-        if getattr(st.run, "graph", None) is not graph_before:
-            self.spans["capture"] = st.run.capture_s
+        if getattr(run, "graph", None) is not graph_before:
+            self.spans["capture"] = run.capture_s
         self.spans["decode"] = wall - self.spans.get("capture", 0.0)
         self.spans["decode_steps"] = steps
-        self.spans["cache_len"] = st.cache.max_len
-
-    @staticmethod
-    def _greedy(generation: Optional[GenerationConfig]) -> GenerationConfig:
-        gen = generation or GenerationConfig()
-        if gen.do_sample:
-            raise NotImplementedError("sampled decode needs a generator a CUDA graph can replay; it waits for queue "
-                                      "A item 17 (A17): the port decodes greedily")
-        if gen.presence_penalty or gen.frequency_penalty:
-            raise NotImplementedError("penalties wait for a later slice; the port decodes greedily")
-        return gen
+        self.spans["cache_len"] = cache_len
 
     # -- full generation ----------------------------------------------------
 
@@ -364,31 +515,68 @@ class OmChatEngine:
         stream_callback: Optional[Callable[[int], None]] = None,
         stop_keywords: Sequence[str] = (),
         tokenizer=None,
+        rng_key=None,
+        return_logprobs: bool = False,
+        top_logprobs: int = 0,
+        allowed_tokens_fn: Optional[Callable[[List[int]], Optional[List[int]]]] = None,
+        logit_bias: Optional[dict] = None,
+        adapter_id=None,
         logits_callback: Optional[Callable[[int, torch.Tensor], None]] = None,
     ) -> GenerateOutput:
-        """Greedy decode with host streaming: one decode step (one graph
-        replay on a CUDA engine) and one readback of its tokens a token.
+        """Greedy / sampled decode with host streaming: one decode step (one
+        graph replay on a CUDA engine) and one readback of its tokens a token.
 
         images: [N_total_tiles, 3, H, W] across the batch's sentinels, in
-        sentinel order.  ``logits_callback(step, logits)`` sees each step's
-        [B, V] fp32 logits before the token is picked (a copy of the decode
-        state's buffer, which the next step overwrites)."""
-        gen = self._greedy(generation)
+        sentinel order.  ``rng_key``: a seed or a ``torch.Generator`` (the
+        seed of the request's draws, :func:`seed_of`).  ``logit_bias``:
+        OpenAI-style {token_id: bias} added to every step's logits;
+        presence / frequency penalties ride the generation config.
+        ``return_logprobs`` / ``top_logprobs``: the chosen token's log-prob
+        and the top-k (≤ 20) alternatives a step, of the biased / masked
+        logits before temperature.  ``allowed_tokens_fn(generated) -> ids |
+        None`` (single request): each step's pick is restricted to ``ids``
+        added as a mask to the raw logits (bias and penalties do not apply
+        then, as in the JAX package); None ends the generation.
+        ``logits_callback(step, logits)`` sees each step's raw [B, V] fp32
+        logits (a copy of the decode state's buffer).  ``adapter_id``
+        (per-request LoRA banks) waits for the serving slice and raises."""
+        gen = generation or GenerationConfig()
+        if adapter_id is not None:
+            raise NotImplementedError("adapter_id: per-request LoRA banks wait for queue A item 10 (A10); "
+                                      "merge an adapter at load (load_pretrained_model(lora_path=))")
+        if allowed_tokens_fn is not None and len(batch_input_ids) != 1:
+            raise ValueError("constrained decoding is single-request (b == 1)")
+        if not 0 <= top_logprobs <= TOP_LOGPROBS_MAX:
+            raise ValueError(f"top_logprobs must be in [0, {TOP_LOGPROBS_MAX}]")
+        mode = (gen.do_sample, bool(return_logprobs or top_logprobs))
         stopper = KeywordStopper(stop_keywords, tokenizer) if stop_keywords else None
         self.spans = {}
         t0 = time.perf_counter()
-        plan, st, logits, tokens = self._prefill_into_state(batch_input_ids, images, gen, t0)
-        graph_before = getattr(st.run, "graph", None)
+        plan, st, logits = self._prefill_into_state(batch_input_ids, images, gen, t0, rng_key, logit_bias)
+        run = self._runner(st, mode)
+        graph_before = getattr(run, "graph", None)
 
         b = plan.token_ids.shape[0]
         generated: List[List[int]] = [[] for _ in range(b)]
+        logprobs: List[List[float]] = [[] for _ in range(b)]
+        tops: List[List[List[tuple]]] = [[] for _ in range(b)]
         done = np.zeros(b, bool)
         steps = 0
+        allowed = allowed_tokens_fn([]) if allowed_tokens_fn is not None else ()
+        if allowed is not None:  # None: the empty output already completes the constraint
+            if allowed_tokens_fn is not None:
+                self._mask(st, allowed)
+            self._pick(st, logits, mode)
+        self._sync()
+        self.spans["prefill"] = time.perf_counter() - t0 - self.spans["encode_images"]
         t_dec = time.perf_counter()
-        for step in range(gen.max_new_tokens):
+        for step in range(gen.max_new_tokens if allowed is not None else 0):
             if logits_callback is not None:
                 logits_callback(step, logits.clone())
-            toks = tokens.cpu().numpy()
+            toks = st.tokens.cpu().numpy()
+            lps = st.logprob.cpu().numpy() if mode[1] else None
+            top_lp = st.top_logprob[:, :top_logprobs].cpu().numpy() if top_logprobs else None
+            top_id = st.top_id[:, :top_logprobs].cpu().numpy() if top_logprobs else None
             if step == 0:
                 self.spans["ttft"] = time.perf_counter() - t0
                 t_dec = time.perf_counter()
@@ -399,17 +587,30 @@ class OmChatEngine:
                     done[i] = True
                     continue
                 generated[i].append(int(toks[i]))
+                if lps is not None:
+                    logprobs[i].append(float(lps[i]))
+                if top_lp is not None:
+                    tops[i].append([(int(t), float(lp)) for t, lp in zip(top_id[i], top_lp[i])])
                 if stream_callback is not None and b == 1:
                     stream_callback(int(toks[i]))
                 if stopper is not None and stopper.should_stop(generated[i]):
                     done[i] = True
             if done.all() or step == gen.max_new_tokens - 1:
                 break
-            logits = st.run()
-            tokens = st.tokens
+            if allowed_tokens_fn is not None:
+                allowed = allowed_tokens_fn(generated[0])
+                if allowed is None:
+                    break
+                self._mask(st, allowed)
+            logits = run()
             steps += 1
-        self._decode_spans(st, t_dec, graph_before, steps)
-        return GenerateOutput(token_ids=generated, prompt_len=plan.lengths)
+        self.spans.setdefault("ttft", time.perf_counter() - t0)
+        self._decode_spans(run, t_dec, graph_before, steps, st.cache.max_len)
+        return GenerateOutput(
+            token_ids=generated, prompt_len=plan.lengths,
+            logprobs=logprobs if return_logprobs else None,
+            top_logprobs=tops if top_logprobs > 0 else None,
+        )
 
     @torch.no_grad()
     def generate_ondevice(
@@ -417,29 +618,36 @@ class OmChatEngine:
         batch_input_ids: Sequence[Sequence[int]],
         images=None,
         generation: Optional[GenerationConfig] = None,
+        rng_key=None,
     ) -> GenerateOutput:
-        """Greedy decode with no readback a token (the JAX
+        """Greedy or sampled decode with no readback a token (the JAX
         ``generate_ondevice`` over ``_decode_loop_jit``): the output starts as
         eos with the first token in column 0; each step writes ``next =
         where(done, eos, picked)`` and sets ``done |= next == eos``, for at
         most ``max_new_tokens - 1`` steps; the host reads ``done`` once every
         ``DONE_POLL`` steps to stop early.  Each row is cut at its first
-        eos.  Sampling needs a generator that a CUDA graph can replay, which
-        comes with queue A item 17 (A17): ``do_sample`` raises."""
-        gen = self._greedy(generation)
+        eos.  A sampled decode draws from the decode state's generator,
+        seeded from ``rng_key`` (:func:`seed_of`): the first pick and every
+        step (every graph replay) draw from advancing offsets."""
+        gen = generation or GenerationConfig()
+        mode = (gen.do_sample, False)
         self.spans = {}
         t0 = time.perf_counter()
-        plan, st, _, _ = self._prefill_into_state(batch_input_ids, images, gen, t0)
+        plan, st, logits = self._prefill_into_state(batch_input_ids, images, gen, t0, rng_key)
+        self._pick(st, logits, mode)
+        self._sync()
+        self.spans["prefill"] = time.perf_counter() - t0 - self.spans["encode_images"]
         self.spans["ttft"] = time.perf_counter() - t0
-        graph_before = getattr(st.run, "graph", None)
+        run = self._runner(st, mode)
+        graph_before = getattr(run, "graph", None)
         t_dec = time.perf_counter()
         steps = 0
         while steps < gen.max_new_tokens - 1 and not bool(st.done.all()):
             for _ in range(min(DONE_POLL, gen.max_new_tokens - 1 - steps)):
-                st.run()
+                run()
                 steps += 1
         out = st.out[:, : gen.max_new_tokens].cpu().tolist()
-        self._decode_spans(st, t_dec, graph_before, steps)
+        self._decode_spans(run, t_dec, graph_before, steps, st.cache.max_len)
         eos = gen.eos_token_id
         return GenerateOutput(token_ids=[row[: row.index(eos)] if eos in row else row for row in out],
                               prompt_len=plan.lengths)

@@ -58,7 +58,14 @@ and a chunk's edges, with one request filling every chunk and the others
 only the first, bitwise the same on a second launch and under a CUDA-graph
 replay over new lengths.  K12 (split-KV on K13's chunks and arithmetic)
 bitwise equal to K13 on both pools in those cases and at page sizes 16-128,
-bitwise the same on a second launch and under a CUDA-graph replay.
+bitwise the same on a second launch and under a CUDA-graph replay.  The
+single-request surface's regimes: K2 at S = 1, 9 and 64 query rows past
+q_offset 127, 3187, 3199 and 3200 (a speculative verify step, a chunk; the
+causal edge inside a kv tile and on its boundary), K3 at B = 4 (beams) and
+over a 33024-row cache (a 32-frame video), K7, K11 and K10 at M = 9 (one
+128-row tile, mostly padding), each with a planted fault that must fall
+outside the tolerance; the sampled decode step replayed from a CUDA graph,
+bitwise its eager run from one seed.
 """
 
 import pytest
@@ -1279,3 +1286,127 @@ def test_paged_rolls_graphed_give_the_eager_tokens(graph_model, kernel, pool):
     assert tokens == want and all(len(t) == 12 for t in tokens)
     assert (k_graph, c_graph) == (k_eager, c_eager) and c_eager > 0
     assert st_graph["rolls_graphed"] == st_eager["rolls_eager"] > 0 and st_graph["rolls_eager"] == 0
+
+
+# -- the single-request surface's regimes: K2 at a verify step's or a chunk's
+# rows past an offset, K3 over a video's cache and at a beam search's batch,
+# K7 / K11 / K10 at a verify step's 9 rows, the sampled decode step graphed.
+
+
+def _fault_outside(got, faulty, tol=TOL):
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got.float(), faulty.float(), **tol)
+
+
+@pytest.mark.parametrize("S", [1, 9, 64])
+@pytest.mark.parametrize("q_off", [3187, 3199, 3200, 127], ids=["prompt_end", "tile_edge_minus_1", "tile_edge",
+                                                                "first_tile_edge"])
+def test_flash_attention_kernel_rows_past_an_offset(gen, S, q_off):
+    """K2 with S query rows at ``q_offset`` (a speculative verify step: 9 rows
+    at the prompt's end; a chunk) over a 3328-row cache, the causal edge
+    inside a 128-row kv tile or on its boundary, keys planted on the columns
+    each row's causal edge lets in and the one past it; the plain version
+    with the causal edge one column further must fall outside."""
+    H, KVH, D, T = 28, 4, 128, 3328
+    u = (torch.randint(0, 2, (KVH, D), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    q = _randn(gen, 1, S, H, D) + u.repeat_interleave(H // KVH, dim=0)
+    k, v = _randn(gen, 1, KVH, T, D), _randn(gen, 1, KVH, T, D)
+    k[0, :, q_off: q_off + S + 1] = 0.8 * u[:, None]
+    qo = torch.tensor([q_off], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([q_off + S], dtype=torch.int32, device="cuda")
+    out = fa.flash_attention(q, k, v, causal=True, q_offset=qo, kv_len=kl, kv_format="bntd")
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=qo, kv_len=kl)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    _fault_outside(out, fa.flash_attention_plain(q, k, v, causal=True, q_offset=qo + 1, kv_len=kl + 1))
+
+
+@pytest.mark.parametrize("case", ["video_B1_33k", "beams_B4"])
+def test_flash_decode_stacked_at_video_length_and_beam_batch(gen, case):
+    """K3 at B = 1 over a 33024-row cache (a 32-frame video prompt of ~32.9k
+    rows; ``decode_splits`` cuts it into its most splits) and at B = 4 (a
+    beam search) over 3328 rows, keys planted at every chunk edge and on each
+    row's last valid column; the plain version with that column dropped must
+    fall outside.  Two launches bitwise equal."""
+    H, KVH, D = 28, 4, 128
+    T, lens = (33024, [32950]) if case == "video_B1_33k" else (3328, [3187, 3187, 3187, 3187])
+    q, kc, vc, cl = _decode_case(gen, H, KVH, lens, T, 2, "bf16")
+    for b, n in enumerate(lens):
+        kc[1, b, :, n - 1] = 1.5 * q[b, 0, ::H // KVH]  # each kv head's first q head
+    kn, vn = _randn(gen, len(lens), KVH, D), _randn(gen, len(lens), KVH, D)
+    splits = da.decode_splits(len(lens), KVH, T, _sms())
+    out = da.flash_decode_stacked(q, kc, vc, cl, 1, kn, vn)
+    again = da.flash_decode_stacked(q, kc, vc, cl, 1, kn, vn)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and splits[0] >= 1
+    ref = da.flash_decode_stacked_plain(q, kc, vc, cl, 1, kn, vn)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    _fault_outside(out, da.flash_decode_stacked_plain(q, kc, vc, cl - 1, 1, kn, vn))
+
+
+def _codes_far(got, faulty):
+    d = (got.int() - faulty.int()).abs()
+    assert int(d.max()) > 1 or float((d == 0).float().mean()) < 0.99
+
+
+@pytest.mark.parametrize("kernel", ["K7", "K11", "K10"])
+def test_w8a8_kernels_at_a_verify_steps_nine_rows(gen, kernel):
+    """K7, K11 (Qwen2 o_proj, 3584) and K10 (3584 -> 18944) at M = 9, a
+    speculative verify step's rows under w8a8: one 128-row tile of mostly
+    padding.  Codes within phase 11's limits of the plain version, x'
+    bitwise, row scales rtol 1e-2; a planted fault (the rows shifted by one,
+    so a padding row's place is read; gate and up swapped for K10) breaks
+    the codes."""
+    M, D = 9, 3584
+    gamma = (1 + 0.1 * _randn(gen, D).float()).bfloat16()
+    if kernel == "K7":
+        x = _randn(gen, M, D)
+        q, rs = norms.rmsnorm_quant(x, gamma)
+        torch.cuda.synchronize()
+        qp, rp = norms.rmsnorm_quant_plain(x, gamma)
+        _codes_close(q, qp)
+        torch.testing.assert_close(rs, rp, rtol=1e-2, atol=0)
+        _codes_far(q, norms.rmsnorm_quant_plain(x.roll(1, 0), gamma)[0])
+    elif kernel == "K11":
+        a, x = (0.5 * _randn(gen, M, D).float()).bfloat16(), _randn(gen, M, D)
+        p = _qlinear(gen, D, D, False)
+        xn, q, rs = qm.attn_proj_glue_quant(a, x, p, None, gamma)
+        torch.cuda.synchronize()
+        xp, qp, rp = qm.attn_proj_glue_quant_plain(a, x, p, None, gamma)
+        assert torch.equal(xn, xp)
+        _codes_close(q, qp)
+        torch.testing.assert_close(rs, rp, rtol=1e-2, atol=0)
+        _codes_far(q, qm.attn_proj_glue_quant_plain(a, x.roll(1, 0), p, None, gamma)[1])
+    else:
+        xq = torch.randint(-127, 128, (M, D), generator=gen, device="cuda", dtype=torch.int8)
+        rs = torch.rand((M, 1), generator=gen, device="cuda") * 0.01 + 1e-3
+        gp, up = _qlinear(gen, 18944, D, False), _qlinear(gen, 18944, D, False)
+        os_ = torch.tensor(0.05, device="cuda")
+        out = qm.swiglu_quant(xq, rs, gp, up, os_)
+        torch.cuda.synchronize()
+        _codes_close(out, qm.dense_prequant_swiglu_quant_plain(xq, rs, gp, up, os_))
+        _codes_far(out, qm.dense_prequant_swiglu_quant_plain(xq, rs, up, gp, os_))
+
+
+@pytest.mark.parametrize("top_k", [0, 50])
+def test_sampled_decode_graph_draws_the_eager_tokens(graph_model, top_k):
+    """``generate_ondevice(do_sample=True)`` replaying a CUDA graph of the
+    sampled step (the decode state's generator registered with the graph)
+    draws, from one seed, the tokens of the same step run eagerly, twice;
+    one replay a step; another seed draws other tokens."""
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    cfg, params = graph_model
+    gen = GenerationConfig(max_new_tokens=24, eos_token_id=-1, do_sample=True, temperature=0.8, top_k=top_k)
+    ids = _prompts(1)[0]
+    eager = OmChatEngine(cfg, params, image_cache_size=0, decode_graphs=False)
+    graphed = OmChatEngine(cfg, params, image_cache_size=0)
+    want = eager.generate_ondevice([ids], None, gen, rng_key=7).token_ids
+    got = [graphed.generate_ondevice([ids], None, gen, rng_key=7).token_ids for _ in range(2)]
+    assert got[0] == got[1] == want and len(want[0]) == 24
+    (st,) = graphed._states.values()
+    run = st.runs[(True, False)]
+    assert run.graph is not None and run.replays == 2 * 23 - 1
+    assert graphed.generate([ids], None, gen, rng_key=7).token_ids == want
+    assert graphed.generate_ondevice([ids], None, gen, rng_key=8).token_ids != want

@@ -118,7 +118,8 @@ def test_static_step_body_equals_the_eager_decode_step_loop():
 
         st = eng.decode_state(1, rows)
         first, _ = eng.prefill(plan, feats, budget, cache=st.cache)
-        eng._start(st, first.argmax(-1).to(torch.int32), plan.lengths, -1)
+        eng._start(st, plan.lengths, TGenerationConfig(eos_token_id=-1))
+        eng._pick(st, first, tgen.GREEDY)
         for i in range(steps):
             assert torch.equal(st.run(), want_logits[i])
             assert torch.equal(st.tokens, want_tokens[i])
@@ -192,10 +193,16 @@ def test_prefill_into_a_state_cache_equals_a_fresh_cache():
 
 
 def test_sampled_generate_ondevice_raises():
+    """A sampled ``generate_ondevice`` runs on the decode state's sampled step
+    (it raised before the generation options were ported): from one seed it
+    draws what sampled ``generate`` draws; it raises only on an ``rng_key``
+    that is neither a seed nor a generator."""
     eng = _engine(_jax_ondevice()["params"])
-    gen = TGenerationConfig(max_new_tokens=4, do_sample=True, temperature=1.0)
-    with pytest.raises(NotImplementedError, match="A17"):
-        eng.generate_ondevice([[5, 6, 7]], None, gen)
+    gen = TGenerationConfig(max_new_tokens=6, eos_token_id=-1, do_sample=True, temperature=1.0)
+    out = eng.generate_ondevice([[5, 6, 7]], None, gen, rng_key=3)
+    assert len(out.token_ids[0]) == 6 and out.token_ids == eng.generate([[5, 6, 7]], None, gen, rng_key=3).token_ids
+    with pytest.raises(TypeError, match="rng_key"):
+        eng.generate_ondevice([[5, 6, 7]], None, gen, rng_key=3.5)
 
 
 @pytest.mark.parametrize("roll", [1, 4])
