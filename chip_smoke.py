@@ -196,7 +196,27 @@
     cache against their plain versions (planted faults), timed graphed with
     their bounds.  After phase 9 (and phase 21) one speculative run under
     w8a8 must launch K7 and K11 (and K10) at M = 9 and nowhere else; phase
-    11 holds them at those shapes too (rows ``[M=9]``).
+    11 holds them at those shapes too (rows ``[M=9]``).  C4: the verify
+    (9 rows), decode and one-shot prefill routes of the same tokens read at
+    full depth on the kernels and on the plain route (``c4_route_gaps``);
+    the full-depth verify is held to ``C4_LIMIT`` (1.5x the largest plain
+    gap an H100 run read), which both planted verify faults must fail.
+27. The server over HTTP, in process on 127.0.0.1, on phase 3's model
+    (right after phase 26): the default route (the single-request engine)
+    with phase 3's image request as a base64 PNG (its tokens bitwise
+    ``engine.generate``'s, the SSE deltas the same text, HTTP TTFT beside
+    the engine's, K1-K4 launches) and one request of each option; the
+    ``--paged`` route serving phase 5's workload from 16 client threads
+    (sampled, log-prob, SSE and greedy requests; tokens/s, SSE TTFT and
+    inter-chunk percentiles, every roll graphed after ``precompile`` of
+    all four pick modes, capture ms, pages back, K12 / K14 / K15 / K4
+    launches; request 0 alone bitwise the in-process run); the paged
+    log-probs against the single-request engine's on the same tokens
+    (``C4_LIMIT`` at full depth, phase 4's limits at 2+2 layers, where
+    three planted faults must fail); a graphed sampled roll bitwise the
+    eager one, every draw in its top 50; a LoRA bank of two rank-16
+    adapters (adapter 0 the base engine's tokens; adapter 1 against
+    ``merge_lora``; decode tokens/s with and without the bank).
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -309,6 +329,16 @@ PENALTY_TOKENS, JSON_TOKENS, CHUNK, BEAMS, BEAM_TOKENS = 64, 48, 1024, 4, 16
 # beams start identical), so the routes' beams must agree for BEAM_MIN_AGREE
 # steps.  Planted faults (beam_faults) must fail one or the other.
 BEAM_STEP_GAP, BEAM_MIN_AGREE = LOGITS_ATOL, 3
+# C4, phase 26 at full depth: the verify route (9 rows past q_offset) against the
+# decode (1 row) and one-shot prefill (3k rows) routes of the same tokens.  An H100
+# run (NVIDIA H100 80GB HBM3, 700.00 W; chip_probes/c4_route_gaps.py) read the three
+# routes 0.176-0.204 apart on attn_impl="plain" and 0.203-0.219 on the kernels, 1.23x
+# the plain gap at most, at max |logit| 5.97: bf16 rounding of the 9-, 1- and 3k-row
+# products over 28 layers, not a fault of K2 or K3.  So the routes are held to 1.5x
+# the largest plain gap read (0.2041); the planted verify faults read 0.52
+# (write_pos + 1) and 5.86 (the draft one row late) there.
+C4_PLAIN_GAP = 0.2041015625
+C4_LIMIT = 1.5 * C4_PLAIN_GAP
 
 # Phase 19, first-token logits at 2+2 layers: e4m3 cache vs bf16 cache, and
 # kernels vs plain on the e4m3 cache, each within this share of max |logit|.
@@ -796,19 +826,25 @@ def build_model(cfg, seed: int):
     }
 
 
-def make_request(cfg, seed: int):
+REQUEST_QUESTION = "What is shown in this picture? Describe it."
+
+
+def request_image(seed: int):
+    """Phase 3's image: 448x448 seeded noise."""
     import numpy as np
     from PIL import Image
 
+    return Image.fromarray(np.random.default_rng(seed).integers(0, 256, (448, 448, 3), dtype=np.uint8))
+
+
+def make_request(cfg, seed: int):
     from omchat_torch.processing.chat import image_prompt, make_context
     from omchat_torch.processing.image_processor import process_anyres_image
     from omchat_torch.utils.testing import MockTokenizer
 
-    rng = np.random.default_rng(seed)
-    image = Image.fromarray(rng.integers(0, 256, (448, 448, 3), dtype=np.uint8))
-    tiles = process_anyres_image(image, cfg.image_grid_pinpoints, cfg.vision.image_size)
-    _, ids = make_context(MockTokenizer(), image_prompt("What is shown in this picture? Describe it.", len(tiles)),
-                          None, "You are a helpful assistant.")
+    tiles = process_anyres_image(request_image(seed), cfg.image_grid_pinpoints, cfg.vision.image_size)
+    _, ids = make_context(MockTokenizer(), image_prompt(REQUEST_QUESTION, len(tiles)), None,
+                          "You are a helpful assistant.")
     return ids, tiles
 
 
@@ -3546,7 +3582,7 @@ def serving_graphs(cfg, params) -> dict:
             eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, decode_kernel=kernel,
                                       decode_graphs=graphs, **SERVING)
             t0 = time.perf_counter()
-            widths = eng.precompile() if graphs else []
+            widths = eng.precompile(variants=(pe.PICK_MODES[0],)) if graphs else []  # greedy traffic
             precompile_s = time.perf_counter() - t0
             rec, undo = record_dispatches(eng)
             decode = pa.DECODE_KERNELS[kernel]
@@ -4115,6 +4151,70 @@ def verify_faults(verify) -> dict:
     }
 
 
+def route_logits(engine, ids, feats, toks: list) -> dict:
+    """The logits after each of ``toks`` (the greedy continuation of
+    ``ids``) on three routes of ``engine``'s trunk, [len(toks), V] fp32
+    each: one speculative verify step over all of them ("verify", K2 at
+    len(toks) rows past ``q_offset``), one decode step a token ("decode",
+    K3 and K4) and, for each token, a one-shot prefill of the prompt and the
+    tokens up to it ("prefill", K2 over the whole prompt)."""
+    import torch
+
+    from omchat_torch.runtime.speculative import verify_step
+
+    dev = engine.device
+    plan = engine.plan([ids])
+    plen = int(plan.lengths[0])
+    _, cache = engine.prefill(plan, feats, len(toks) + 1)
+    verify = verify_step(engine, torch.tensor([toks], dtype=torch.int32, device=dev),
+                         torch.tensor([plen], dtype=torch.int32, device=dev), cache)[0]
+    _, cache = engine.prefill(plan, feats, len(toks) + 1)
+    decode = []
+    for r, t in enumerate(toks):
+        lg, cache = engine.decode_step(torch.tensor([t], dtype=torch.int32, device=dev),
+                                       torch.tensor([plen + r], dtype=torch.int32, device=dev), cache)
+        decode.append(lg[0])
+    prefill = [engine.prefill(engine.plan([list(ids) + toks[: r + 1]]), feats, 0)[0][0] for r in range(len(toks))]
+    return {"verify": verify.float(), "decode": torch.stack(decode).float(), "prefill": torch.stack(prefill).float()}
+
+
+def c4_route_gaps(model, ids, tiles) -> dict:
+    """C4 (ROADMAP §C): at full depth in bf16, the logits of the same
+    ``1 + SPEC_DRAFT`` greedy tokens of phase 3's request on the three
+    routes of ``route_logits`` (a verify step of that many rows, a decode
+    step a token, a one-shot prefill of the prompt and the tokens), read on
+    the kernels and on ``attn_impl="plain"`` over the same weights and image
+    features.  Prints ``C4, route gaps at full depth (kernels | plain)``:
+    each pair of routes' max |logit| gap on both, the kernels' gap over the
+    plain one's, and each route's kernels-vs-plain gap."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    eng = model.engine
+    n = 1 + SPEC_DRAFT
+    toks = eng.generate([ids], tiles, GenerationConfig(max_new_tokens=n, eos_token_id=-1)).token_ids[0]
+    feats = eng.encode_images(tiles)
+    plain = OmChatEngine(model.config, eng.params, attn_impl="plain", image_cache_size=0, device=DEVICE)
+    routes = {"kernels": route_logits(eng, ids, feats, toks), "plain": route_logits(plain, ids, feats, toks)}
+    del plain
+    pairs = (("verify", "decode"), ("verify", "prefill"), ("prefill", "decode"))
+    gap = lambda a, b: float((a - b).abs().max())  # noqa: E731
+    res = {"card": CARD, "rows": n, "max_abs_logit": float(routes["plain"]["decode"].abs().max())}
+    for a, b in pairs:
+        k, p = gap(routes["kernels"][a], routes["kernels"][b]), gap(routes["plain"][a], routes["plain"][b])
+        res[f"{a} vs {b}"] = {"kernels": k, "plain": p, "kernels_over_plain": k / p if p else None}
+    res["kernels vs plain, same route"] = {r: gap(routes["kernels"][r], routes["plain"][r])
+                                           for r in ("verify", "decode", "prefill")}
+    res["largest plain gap"] = max(res[f"{a} vs {b}"]["plain"] for a, b in pairs)
+    res["largest kernels gap"] = max(res[f"{a} vs {b}"]["kernels"] for a, b in pairs)
+    del routes
+    torch.cuda.empty_cache()
+    log("C4, route gaps at full depth (kernels | plain): " + json.dumps(res))
+    return res
+
+
 def speculative_on_the_card(model, small, ids, tiles) -> dict:
     """Phase 26: ``generate_speculative`` with an oracle draft (the greedy
     continuation of ``generate``) and with prompt lookup on an echo prompt,
@@ -4124,14 +4224,16 @@ def speculative_on_the_card(model, small, ids, tiles) -> dict:
     (``verify_logit_gaps``), and a run on each of ``verify_faults`` must put
     some of them outside.  K2's launches are the verify steps' (counted from
     the first), which must be layers x device steps.  At full depth the
-    verify logits must be finite,
-    and their gaps are read, not held: from the decode steps', and from the
+    verify logits are held to ``C4_LIMIT`` of the decode steps' and of the
     prefill route's on the same tokens (the first verify step's rows, each
     the last-row logits of a one-shot prefill of the prompt and the rows up
-    to it), beside the prefill route's gap from the decode step.  Over 28
-    layers of bf16 activations the three routes (9-row, 1-row and
-    3k-row products) round apart by 4-5% of the largest logit on random
-    weights, past phase 4's 2+2-layer limits.  Device steps against
+    to it), and so is the prefill route's gap from the decode step: over 28
+    layers of bf16 activations the three routes (9-row, 1-row and 3k-row
+    products) round apart by 3-4% of the largest logit on random weights,
+    past phase 4's 2+2-layer limits, on the plain route as on the kernels
+    (``c4_route_gaps``, whose kernel gaps are held to ``C4_LIMIT`` too).
+    The oracle runs also run ``verify_faults``, which must fail phase 4's
+    limits at 2+2 layers and ``C4_LIMIT`` at full depth.  Device steps against
     tokens, steps saved and the first step leaving the greedy run are
     readings: on random weights the top logits lie within hundredths of each
     other, so the verify's argmax may leave the decode route's and a draft is
@@ -4182,6 +4284,22 @@ def speculative_on_the_card(model, small, ids, tiles) -> dict:
             if outside:
                 raise AssertionError(f"speculative, {label}: {outside} verify logits outside phase 4's limits of "
                                      f"the decode steps' ({worst:.4g} max)")
+        else:
+            _, toks, lg = verify[0]
+            feats = eng.encode_images(req_tiles) if req_tiles is not None else None
+            one_shot = torch.stack([eng.prefill(eng.plan([list(req_ids) + toks[: r + 1]]), feats, 0)[0][0]
+                                    for r in range(len(toks))])
+            run["verify_vs_prefill_max_gap"] = float((lg.float() - one_shot.float()).abs().max())
+            run["prefill_vs_decode_step1_max_gap"] = float((one_shot[0] - step_logits[1]).abs().max())
+            run["max_abs_logit"] = float(step_logits[1].abs().max())
+            # C4's limit was read on the first verify step's rows: it holds those
+            rows1, worst1, _ = verify_logit_gaps(verify[:1], step_logits, greedy, got, plen)
+            run["c4_limit"], run["first_verify_step_vs_decode_max_gap"] = C4_LIMIT, worst1
+            gaps = (worst1, run["verify_vs_prefill_max_gap"], run["prefill_vs_decode_step1_max_gap"])
+            if not rows1 or not all(g <= C4_LIMIT for g in gaps):
+                raise AssertionError(f"speculative, {label}: {rows1} verify rows compared; route gaps {gaps} "
+                                     f"past C4's limit {C4_LIMIT:.4g}")
+        if oracle:  # the planted faults: at 2+2 layers against phase 4's limits, at full depth against C4's
             run["faults"] = {}
             for fault, faulty in verify_faults(sp.verify_step).items():
                 seen, real = [], sp.verify_step
@@ -4192,24 +4310,20 @@ def speculative_on_the_card(model, small, ids, tiles) -> dict:
                         logits_callback=lambda kv, toks, lg: seen.append((kv, toks, lg.clone())), **kw)
                 finally:
                     sp.verify_step = real
-                f_rows, f_worst, f_outside = verify_logit_gaps(seen, step_logits, greedy, bad, plen)
+                f_rows, f_worst, f_outside = verify_logit_gaps(seen if eng is small.engine else seen[:1],
+                                                               step_logits, greedy, bad, plen)
                 run["faults"][fault] = {"rows": f_rows, "max_gap": f_worst, "outside_phase4_limits": f_outside}
-                if not f_outside:
-                    missed.append(f"speculative, {label}: phase 4's limits would pass a verify with {fault} "
+                caught = f_outside if eng is small.engine else f_worst > C4_LIMIT
+                if not caught:
+                    limits = "phase 4's limits" if eng is small.engine else f"C4's limit {C4_LIMIT:.4g}"
+                    missed.append(f"speculative, {label}: {limits} would pass a verify with {fault} "
                                   f"({f_rows} rows, {f_worst:.4g} max)")
-        else:
-            _, toks, lg = verify[0]
-            feats = eng.encode_images(req_tiles) if req_tiles is not None else None
-            one_shot = torch.stack([eng.prefill(eng.plan([list(req_ids) + toks[: r + 1]]), feats, 0)[0][0]
-                                    for r in range(len(toks))])
-            if not all(bool(torch.isfinite(v[2]).all()) for v in verify):
-                raise AssertionError(f"speculative, {label}: non-finite verify logits")
-            run["verify_vs_prefill_max_gap"] = float((lg.float() - one_shot.float()).abs().max())
-            run["verify_vs_prefill_outside_phase4_limits"] = int(
-                ((lg.float() - one_shot.float()).abs() > LOGITS_ATOL + LOGITS_RTOL * one_shot.float().abs()).sum())
-            run["prefill_vs_decode_step1_max_gap"] = float((one_shot[0] - step_logits[1]).abs().max())
-            run["max_abs_logit"] = float(step_logits[1].abs().max())
         res[label] = run
+    res["C4"] = c4_route_gaps(model, ids, tiles)
+    over = {k: v["kernels"] for k, v in res["C4"].items() if isinstance(v, dict) and "kernels" in v
+            and v["kernels"] > C4_LIMIT}
+    if over:
+        missed.append(f"C4: the kernels' route gaps {over} are past {C4_LIMIT:.4g}")
     log("options, speculative decoding: " + json.dumps(res))
     if missed:
         raise AssertionError(" | ".join(missed))
@@ -4390,6 +4504,14 @@ def device_pipeline_on_the_card(frames) -> dict:
     return res
 
 
+def small_surface(full, seed: int):
+    """``surface_model`` at full width and 2 ViT + 2 LLM layers, random
+    weights from ``seed``, without an image cache."""
+    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_hidden_layers=2),
+                              text=dataclasses.replace(full.text, num_hidden_layers=2))
+    return surface_model(cfg, build_model(cfg, seed), image_cache_size=0, device=DEVICE)
+
+
 def options_on_the_card(gen, model, seed: int) -> dict:
     """Phase 26 on the full model: sampling on the graph, bias / penalties /
     logprobs, constrained decoding, chunked prefill, speculative decoding,
@@ -4398,10 +4520,7 @@ def options_on_the_card(gen, model, seed: int) -> dict:
     import torch
 
     ids, tiles = make_request(model.config, seed)
-    full = model.config
-    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_hidden_layers=2),
-                              text=dataclasses.replace(full.text, num_hidden_layers=2))
-    small = surface_model(cfg, build_model(cfg, seed), image_cache_size=0, device=DEVICE)
+    small = small_surface(model.config, seed)
     # every option runs and prints its line; the phase then raises with every check that failed
     res, failed = {}, []
     for name, run in (("sampling", lambda: sampling_on_the_graph(model, ids, tiles)),
@@ -4418,6 +4537,777 @@ def options_on_the_card(gen, model, seed: int) -> dict:
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError("phase 26 failed: " + " | ".join(failed))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the server over HTTP on both routes, the paged engine's log-probs
+# and sampled rolls on the graph, the LoRA bank at full width
+# ---------------------------------------------------------------------------
+
+# Phase 27: the default route's requests generate HTTP_NEW_TOKENS tokens (the
+# image request NEW_TOKENS); the paged route serves phase 5's workload over HTTP
+# with these requests sampled (T 0.8, top-p 0.9), these asking for log-probs
+# (top 5; two are image requests, prefilled by chunks) and these streamed over
+# SSE, the rest plain greedy; phase 27's sampled rolls draw top-k 50.
+HTTP_NEW_TOKENS = 12
+HTTP_SAMPLED, HTTP_LOGPROBS, HTTP_SSE = (1, 5, 9, 13), (2, 4, 10, 12), (3, 7, 11, 15)
+LORA_RANK, LORA_B_STD = 16, 1e-3
+
+
+def id_tokenizer(bytes_as_text: bool = True):
+    """The ``MockTokenizer`` with every token id readable in text: an id past
+    the byte range decodes to ``<id>`` and ``<id>`` in text encodes to it, so
+    prompts of any ids go over HTTP and replies carry their ids
+    (``bytes_as_text=False``: byte ids decode to ``<id>`` too)."""
+    import re
+
+    from omchat_torch.utils.testing import MockTokenizer
+
+    class IdTokenizer(MockTokenizer):
+        def encode(self, text):
+            out, pos = [], 0
+            for m in re.finditer(r"<(\d+)>", text):
+                out += super().encode(text[pos: m.start()]) + [int(m.group(1))]
+                pos = m.end()
+            return out + super().encode(text[pos:])
+
+        def decode(self, ids, **kw):
+            parts, run = [], []
+            for t in (int(i) for i in ids):
+                if bytes_as_text and 0 <= t < 256:
+                    run.append(t)
+                    continue
+                parts.append(bytes(run).decode("utf-8", errors="replace"))
+                run = []
+                parts.append(f"<{t}>")
+            return "".join(parts) + bytes(run).decode("utf-8", errors="replace")
+
+    return IdTokenizer()
+
+
+def ids_of(text: str) -> list:
+    import re
+
+    return [int(t) for t in re.findall(r"<(\d+)>", text)]
+
+
+def png_url(image) -> str:
+    import base64
+    import io
+
+    buf = io.BytesIO()
+    image.save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+def http_call(port: int, path: str, body=None, stream: bool = False):
+    """One request to the in-process server: (reply, seconds); a stream's
+    reply is [(seconds since the request, event)] as the events arrived."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        if not stream:
+            raw = resp.read().decode()
+            return (json.loads(raw) if resp.headers["Content-Type"].startswith("application/json") else raw,
+                    time.perf_counter() - t0)
+        events = []
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                events.append((time.perf_counter() - t0, line[6:] if line == "data: [DONE]" else
+                               json.loads(line[6:])))
+    return events, time.perf_counter() - t0
+
+
+def sse_text(events) -> str:
+    return "".join(e["choices"][0]["delta"].get("content", "") for _, e in events
+                   if isinstance(e, dict) and e.get("choices"))
+
+
+def start_http(model, engine=None):
+    """The port's server on 127.0.0.1:0 in this process: (port, stop)."""
+    import threading
+
+    from omchat_torch.cli.serve import make_server
+
+    srv, loop = make_server(model, engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True, name="phase27-http")
+    thread.start()
+
+    def stop():
+        srv.shutdown()
+        srv.server_close()
+        loop.close()
+        thread.join(30)
+        if thread.is_alive() or loop._thread.is_alive():
+            raise AssertionError("phase 27: the server's threads did not stop")
+        if loop.error is not None:
+            raise AssertionError(f"phase 27: the scheduler failed: {loop.error!r}")
+
+    return srv.server_address[1], stop
+
+
+def forced_logprobs(engine, ids, tiles, toks: list):
+    """log_softmax of the single-request engine's logits before each of
+    ``toks`` on the decode route (the prefill's last row, then a decode step
+    a token, fed ``toks``): [len(toks), V] fp32, what ``generate``'s
+    ``return_logprobs`` reads on those tokens."""
+    import torch
+
+    dev = engine.device
+    feats = engine.encode_images(tiles) if tiles is not None else None
+    plan = engine.plan([ids])
+    plen = int(plan.lengths[0])
+    logits, cache = engine.prefill(plan, feats, len(toks) + 1)
+    rows = [logits[0]]
+    for r, t in enumerate(toks[:-1]):
+        lg, cache = engine.decode_step(torch.tensor([t], dtype=torch.int32, device=dev),
+                                       torch.tensor([plen + r], dtype=torch.int32, device=dev), cache)
+        rows.append(lg[0])
+    return torch.log_softmax(torch.stack(rows).float(), dim=-1)
+
+
+def logprob_gaps(ref, toks, chosen, tops) -> tuple:
+    """A request's paged log-probs (chosen [n], tops [n] of [(id, lp)])
+    against ``ref`` ([n, V] log-probs on the same tokens): (max |gap|, values
+    outside phase 4's limits)."""
+    import torch
+
+    ids = torch.tensor([[t] + [i for i, _ in top] for t, top in zip(toks, tops)], device=ref.device)
+    got = torch.tensor([[c] + [v for _, v in top] for c, top in zip(chosen, tops)], device=ref.device)
+    want = ref[: len(toks)].gather(1, ids)
+    gap = (got - want).abs()
+    return float(gap.max()), int((gap > LOGITS_ATOL + LOGITS_RTOL * want.abs()).sum())
+
+
+def http_default_route(model, seed: int) -> dict:
+    """Phase 27 (a): the server's default route (the single-request engine
+    under the lock) over HTTP on phase 3's model.  Phase 3's image request as
+    a base64 PNG: the reply's tokens must be ``model.engine.generate``'s and
+    the SSE deltas must spell the same text; HTTP TTFT (the reply at
+    max_tokens 1, the first SSE content chunk) beside the engine's in the
+    same call (both image-cache hits); K1-K4 launches of the first HTTP
+    request, which encodes its image.  Then one request of each
+    option, each checked as ``tests/test_serve.py`` checks it, and /metrics
+    must count every request."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.json_mode import START, advance
+    from omchat_torch.runtime.json_schema import JsonSchemaMode
+
+    tok = model.tokenizer
+    image = request_image(seed)
+    inputs = model.processor(REQUEST_QUESTION, images=[image])
+    ids, tiles = inputs["input_ids"][0].tolist(), inputs["images"]
+    if ids != make_request(model.config, seed)[0]:
+        raise AssertionError("serve, default route: the server's prompt is not phase 3's")
+    image_body = {"messages": [{"role": "user", "content": [
+        {"type": "text", "text": REQUEST_QUESTION}, {"type": "image_url", "image_url": {"url": png_url(image)}}]}]}
+    port, stop = start_http(model)
+    posts = 0
+    res, failed = {"card": CARD}, []
+    try:
+        model.engine.image_cache.clear()  # the first request encodes its image (K1); the later ones hit the cache
+        counted = counters()
+        for c in counted.values():
+            c.launches = 0
+        out, wall = http_call(port, "/v1/chat/completions", {**image_body, "max_tokens": NEW_TOKENS})
+        posts += 1
+        launches = {n: c.launches for n, c in counted.items()}
+        text = out["choices"][0]["message"]["content"]
+        want = model.engine.generate([ids], tiles, GenerationConfig(max_new_tokens=NEW_TOKENS)).token_ids[0]
+        engine_ttft = model.engine.spans["ttft"]
+        events, _ = http_call(port, "/v1/chat/completions", {**image_body, "max_tokens": NEW_TOKENS, "stream": True},
+                              stream=True)
+        posts += 1
+        first_chunk = next(t for t, e in events if isinstance(e, dict) and e["choices"]
+                           and e["choices"][0]["delta"].get("content"))
+        one, one_wall = http_call(port, "/v1/chat/completions", {**image_body, "max_tokens": 1})
+        posts += 1
+        res["image request"] = {
+            "new_tokens": len(want), "tokens_bitwise_engine": text == tok.decode(want),
+            "sse_text_equal": sse_text(events) == text, "http_reply_s": wall,
+            "http_ttft_ms_nonstream_max_tokens_1": 1e3 * one_wall, "http_ttft_ms_sse_first_content": 1e3 * first_chunk,
+            "engine_ttft_ms": 1e3 * engine_ttft, "image_cache": model.engine.image_cache.stats(),
+            "launches": launches}
+        if not res["image request"]["tokens_bitwise_engine"]:
+            failed.append(f"the image request's reply {ids_of(text)} is not the engine's {want}")
+        if not res["image request"]["sse_text_equal"]:
+            failed.append("the SSE deltas do not spell the reply's text")
+        if one["usage"]["completion_tokens"] != 1:
+            failed.append(f"max_tokens 1 gave {one['usage']['completion_tokens']} tokens")
+        missing = [n for n in ("qk_norm_prepass", "flash_attention", "flash_decode_stacked", "commit_rows")
+                   if not launches[n]]
+        if missing:
+            failed.append(f"the HTTP request launched no {missing}")
+
+        def chat(text, **kw):
+            nonlocal posts
+            posts += 1
+            return http_call(port, "/v1/chat/completions",
+                             {"messages": [{"role": "user", "content": text}], "max_tokens": HTTP_NEW_TOKENS, **kw})[0]
+
+        opts = {}
+        n2 = chat("Hello there", n=2)
+        opts["n=2"] = [c["message"]["content"] for c in n2["choices"]]
+        if len(opts["n=2"]) != 2 or opts["n=2"][0] != opts["n=2"][1]:
+            failed.append(f"n=2 (greedy) gave {opts['n=2']}")
+        seeded = [chat("Hello there", temperature=0.9, seed=5)["choices"][0]["message"]["content"] for _ in range(2)]
+        opts["seed twice equal"] = seeded[0] == seeded[1]
+        if not opts["seed twice equal"]:
+            failed.append(f"seed 5 twice gave {seeded}")
+        base = opts["n=2"][0]
+        stop_at = f"<{ids_of(base)[2]}>" if len(ids_of(base)) > 2 else None
+        if stop_at:
+            cut = chat("Hello there", stop=stop_at)["choices"][0]
+            opts["stop"] = {"stop": stop_at, "finish_reason": cut["finish_reason"],
+                            "cut_at_first": cut["message"]["content"] == base[: base.find(stop_at)]}
+            if cut["finish_reason"] != "stop" or not opts["stop"]["cut_at_first"]:
+                failed.append(f"stop {stop_at}: {cut}")
+        biased = chat("Hello there", logit_bias={str(BIAS_TOKEN): 100})["choices"][0]["message"]["content"]
+        opts["logit_bias"] = ids_of(biased)
+        if ids_of(biased) != [BIAS_TOKEN] * HTTP_NEW_TOKENS:
+            failed.append(f"logit_bias +100 on {BIAS_TOKEN} gave {ids_of(biased)}")
+        pen = ids_of(chat("Hello there", logit_bias={str(BIAS_TOKEN): 100},
+                          frequency_penalty=1000.0)["choices"][0]["message"]["content"])
+        opts["bias + frequency_penalty"] = pen
+        if not pen or pen[0] != BIAS_TOKEN or pen.count(BIAS_TOKEN) != 1:
+            failed.append(f"bias + a frequency penalty of 1000 gave {pen}")
+        lp = chat("Hello there", logprobs=True, top_logprobs=5)["choices"][0]["logprobs"]["content"]
+        chosen_top1 = max(abs(e["logprob"] - e["top_logprobs"][0]["logprob"]) for e in lp)
+        opts["logprobs"] = {"n": len(lp), "max_chosen": max(e["logprob"] for e in lp),
+                            "chosen_vs_top1_max_gap": chosen_top1,
+                            "tops_sorted": all([t["logprob"] for t in e["top_logprobs"]]
+                                               == sorted((t["logprob"] for t in e["top_logprobs"]), reverse=True)
+                                               for e in lp)}
+        if opts["logprobs"]["max_chosen"] > 0 or chosen_top1 > 1e-6 or not opts["logprobs"]["tops_sorted"]:
+            failed.append(f"logprobs: {opts['logprobs']}")
+        js = chat("give me json", max_tokens=24, response_format={"type": "json_object"})["choices"][0]
+        opts["json_object"] = js["message"]["content"]
+        if advance(START, js["message"]["content"]) is None:
+            failed.append(f"json_object gave {js['message']['content']!r}")
+        schema = {"type": "object", "properties": {"ok": {"type": "boolean"}}, "required": ["ok"]}
+        sj = chat("go", max_tokens=24, response_format={"type": "json_schema",
+                                                         "json_schema": {"name": "t", "schema": schema}})
+        opts["json_schema"] = sj["choices"][0]["message"]["content"]
+        mode = JsonSchemaMode(tok, schema)
+        if mode.advance(mode.START, opts["json_schema"]) is None:
+            failed.append(f"json_schema gave {opts['json_schema']!r}")
+        gc_text = chat("yes or no?", guided_choice=["yes", "no"])["choices"][0]["message"]["content"]
+        opts["guided_choice"] = gc_text
+        if gc_text not in ("yes", "no"):
+            failed.append(f"guided_choice gave {gc_text!r}")
+        tools = [{"type": "function", "function": {"name": "get_weather", "parameters": {
+            "type": "object", "properties": {"city": {"type": "string"}}, "required": ["city"]}}}]
+        call = chat("weather in paris?", max_tokens=48, tools=tools,
+                    tool_choice={"type": "function", "function": {"name": "get_weather"}})["choices"][0]
+        opts["forced tool call"] = {"finish_reason": call["finish_reason"],
+                                    "tool_calls": call["message"].get("tool_calls"),
+                                    "content": call["message"]["content"]}
+        ok = (call["finish_reason"] == "tool_calls" and call["message"]["tool_calls"][0]["function"]["name"]
+              == "get_weather") or (call["finish_reason"] == "length" and call["message"]["content"].startswith("{"))
+        if not ok:
+            failed.append(f"the forced tool call gave {call}")
+        posts += 1
+        echo = http_call(port, "/v1/completions", {"prompt": "abc<151644>", "max_tokens": 4, "echo": True})[0]
+        opts["/v1/completions echo"] = echo["choices"][0]["text"]
+        if not echo["choices"][0]["text"].startswith("abc<151644>") or echo["usage"]["prompt_tokens"] != 4:
+            failed.append(f"/v1/completions with echo gave {echo}")
+        res["options"] = opts
+        metrics, _ = http_call(port, "/metrics")
+        rows = dict(line.split(" ", 1) for line in metrics.splitlines() if line and not line.startswith("#"))
+        res["metrics_requests_total"] = int(rows["omchat_requests_total"])
+        res["requests_sent"] = posts
+        if res["metrics_requests_total"] != posts or int(rows["omchat_requests_failed_total"]):
+            failed.append(f"/metrics counts {rows} for {posts} requests")
+    finally:
+        stop()
+    torch.cuda.synchronize()
+    log("serve, default route: " + json.dumps(res))
+    if failed:
+        raise AssertionError("serve, default route: " + " | ".join(failed))
+    return res
+
+
+def http_workload(cfg, tokenizer, seed: int) -> list:
+    """Phase 5's workload (``serving_workload``) as chat requests: each
+    request's ids after its first as ``<id>`` text, and a seeded 448x448 PNG
+    (thumbnail + one tile, the workload's two) on its image requests.
+    [(body, ids, tiles)], ids and tiles as the server's processor makes
+    them."""
+    import numpy as np
+
+    from omchat_torch.constants import IMAGE_TOKEN_INDEX
+    from omchat_torch.processing.image_processor import OmChatImageProcessor
+    from omchat_torch.processing.processor import OmChatProcessor
+
+    processor = OmChatProcessor(tokenizer, OmChatImageProcessor(
+        crop_size=cfg.vision.image_size, shortest_edge=cfg.vision.image_size,
+        image_grid_pinpoints=cfg.image_grid_pinpoints))
+    rng = np.random.default_rng(seed)
+    out = []
+    for ids, tiles in serving_workload(cfg):
+        text = "".join(f"<{t}>" for t in ids[1:] if t != IMAGE_TOKEN_INDEX)
+        if tiles is None:
+            content, images = text, None
+        else:
+            image = seeded_image(rng, 448, 448)
+            content = [{"type": "text", "text": text}, {"type": "image_url", "image_url": {"url": png_url(image)}}]
+            images = [image]
+        inputs = processor(text, images=images)
+        out.append(({"messages": [{"role": "user", "content": content}], "max_tokens": SERVING_NEW_TOKENS},
+                    inputs["input_ids"][0].tolist(), inputs.get("images")))
+    return out
+
+
+def http_paged_route(model, seed: int) -> dict:
+    """Phase 27 (b) and (c) at full depth: the server's ``--paged`` route
+    (``PagedBatchEngine`` with phase 5's options over phase 3's weights,
+    ``precompile()`` first) serving phase 5's workload over HTTP from 16
+    client threads at once: ``HTTP_SAMPLED`` sampled, ``HTTP_LOGPROBS`` with
+    log-probs, ``HTTP_SSE`` streamed, the rest greedy.  Before that, request
+    0 alone over HTTP must be bitwise the in-process engine's run of it, and
+    the whole workload runs in process (greedy) for the tokens/s beside.
+    Every roll must replay a graph and every page come back; each log-prob
+    request's log-probs must hold ``logprob_gaps`` against the
+    single-request engine's on the same tokens within C4's limit.  Returns
+    the results and the engine (for phase 27 (d))."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from omchat_torch.api import omchat_model, paged_batch_engine
+    from omchat_torch.config import GenerationConfig
+
+    tok = id_tokenizer(bytes_as_text=False)
+    http_model = omchat_model(tok, model.engine)
+    eng = paged_batch_engine(http_model, image_cache_size=0, **SERVING)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    widths = eng.precompile()
+    torch.cuda.synchronize()
+    res = {"card": CARD, "precompile_s": time.perf_counter() - t0, "capture_ms": eng.capture_ms(),
+           "graphs": len(eng._rolls), "widths": widths,
+           "precompile_alloc_gib": (torch.cuda.memory_allocated() - mem0) / 2**30}
+    work = http_workload(model.config, tok, seed)
+    failed = []
+    # in process: request 0 alone, then the workload (greedy), each after a warm-up at 4 tokens
+    gen = GenerationConfig(max_new_tokens=SERVING_NEW_TOKENS)
+    for rid in drive(eng, [(ids, tiles) for _, ids, tiles in work], 4):
+        eng.pop_result(rid)
+    alone = eng.submit(work[0][1], work[0][2], max_new_tokens=SERVING_NEW_TOKENS, eos_token_id=gen.eos_token_id)
+    eng.run_to_completion()
+    alone_tokens = eng.pop_result(alone)[0]
+    torch.cuda.synchronize()
+    eng.reset_latency_stats()
+    t0 = time.perf_counter()
+    rids = [eng.submit(ids, tiles, max_new_tokens=SERVING_NEW_TOKENS, eos_token_id=gen.eos_token_id)
+            for _, ids, tiles in work]
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    in_wall = time.perf_counter() - t0
+    in_process = [eng.pop_result(r)[0] for r in rids]
+    st = eng.latency_stats()
+    res.update({"in_process_tokens_per_s": sum(map(len, in_process)) / in_wall,
+                "in_process_ttft_p50_s": st["ttft_p50_s"], "in_process_ttft_p99_s": st["ttft_p99_s"],
+                "in_process_rolls": st["rolls_graphed"] + st["rolls_eager"]})
+    counted = paged_counters()
+    port, stop = start_http(http_model, eng)
+    try:
+        one, _ = http_call(port, "/v1/chat/completions", work[0][0])
+        res["request_0_alone_bitwise_in_process"] = ids_of(one["choices"][0]["message"]["content"]) == alone_tokens
+        if not res["request_0_alone_bitwise_in_process"]:
+            failed.append("request 0 alone over HTTP is not the in-process run of it")
+        eng.reset_latency_stats()
+        for c in counted.values():
+            c.launches = 0
+        replies = [None] * len(work)
+
+        def client(i):
+            body = dict(work[i][0])
+            if i in HTTP_SAMPLED:
+                body.update(temperature=0.8, top_p=0.9)
+            if i in HTTP_LOGPROBS:
+                body.update(logprobs=True, top_logprobs=5)
+            replies[i] = http_call(port, "/v1/chat/completions", {**body, "stream": True} if i in HTTP_SSE
+                                   else body, stream=i in HTTP_SSE)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(work))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or any(r is None for r in replies):
+            raise AssertionError("serve, paged route: a client did not finish")
+        launches = {n: c.launches for n, c in counted.items()}
+        stats = eng.latency_stats()
+    finally:
+        stop()
+    # the same traffic from 16 threads straight into the serving loop (no
+    # HTTP, no tokenizing or tiling): what the server's own layer costs
+    from omchat_torch.cli.serve import ServingLoop
+
+    loop = ServingLoop(eng).start()
+    counts = [0] * len(work)
+
+    def direct(i):
+        g = (GenerationConfig(max_new_tokens=SERVING_NEW_TOKENS, do_sample=True, temperature=0.8, top_p=0.9)
+             if i in HTTP_SAMPLED else gen)
+        counts[i] = len(loop.run_n(work[i][1], work[i][2], g, logprobs=i in HTTP_LOGPROBS,
+                                   top_logprobs=5 if i in HTTP_LOGPROBS else 0)[0][0])
+
+    eng.reset_latency_stats()
+    threads = [threading.Thread(target=direct, args=(i,)) for i in range(len(work))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    direct_wall = time.perf_counter() - t0
+    loop.close()
+    if any(t.is_alive() for t in threads) or loop.error is not None:
+        raise AssertionError(f"serve, paged route: the threads into the serving loop did not finish ({loop.error!r})")
+    res["threads_into_loop"] = {"tokens_per_s": sum(counts) / direct_wall, "rolls": eng.rolls_graphed + eng.rolls_eager,
+                                "ttft_p50_s": eng.latency_stats()["ttft_p50_s"]}
+    texts = [sse_text(r[0]) if i in HTTP_SSE else r[0]["choices"][0]["message"]["content"]
+             for i, r in enumerate(replies)]
+    tokens = [ids_of(t) for t in texts]
+    ttft = [next(t for t, e in replies[i][0] if isinstance(e, dict) and e.get("choices")
+                 and e["choices"][0]["delta"].get("content")) for i in HTTP_SSE]
+    chunks = [[t for t, e in replies[i][0] if isinstance(e, dict) and e.get("choices")
+               and e["choices"][0]["delta"].get("content")] for i in HTTP_SSE]
+    gaps = [b - a for c in chunks for a, b in zip(c, c[1:])]
+    greedy = [i for i in range(len(work)) if i not in HTTP_SAMPLED]
+    res.update({
+        "requests": len(work), "clients": len(work), "generated_tokens": sum(map(len, tokens)), "wall_s": wall,
+        "tokens_per_s": sum(map(len, tokens)) / wall,
+        "sse_ttft_p50_s": float(np.percentile(ttft, 50)), "sse_ttft_p99_s": float(np.percentile(ttft, 99)),
+        "sse_interchunk_p50_s": float(np.percentile(gaps, 50)) if gaps else None,
+        "sse_interchunk_p99_s": float(np.percentile(gaps, 99)) if gaps else None,
+        "rolls_graphed": stats["rolls_graphed"], "rolls_eager": stats["rolls_eager"],
+        "engine_ttft_p50_s": stats["ttft_p50_s"], "engine_ttft_p99_s": stats["ttft_p99_s"],
+        "pages_free": eng.allocator.available, "pages_total": eng.allocator.num_pages,
+        "launches": {"K12 paged_flash_decode": launches["paged_flash_decode"],
+                     "K14 paged_flash_prefill": launches["paged_flash_prefill"],
+                     "K15 commit_pages": launches["commit_pages"], "K4 commit_rows": launches["commit_rows"],
+                     "K1 / K2": [launches["packed_qkv_norm_attention"], launches["flash_attention"]]},
+        "greedy_first_step_leaving_in_process": {i: first_divergence([tokens[i]], [in_process[i]])[0]
+                                                 for i in greedy},
+        "short_replies": [i for i, t in enumerate(tokens) if len(t) != SERVING_NEW_TOKENS and i not in HTTP_LOGPROBS]})
+    if stats["rolls_eager"] or not stats["rolls_graphed"]:
+        failed.append(f"rolls graphed {stats['rolls_graphed']}, eager {stats['rolls_eager']} after precompile")
+    if eng.allocator.available != eng.allocator.num_pages:
+        failed.append(f"{eng.allocator.num_pages - eng.allocator.available} pages never came back")
+    if any(not launches[n] for n in ("paged_flash_decode", "paged_flash_prefill", "commit_pages", "commit_rows")):
+        failed.append(f"a paged kernel never launched: {launches}")
+    # (c) at full depth: the log-prob requests against the single-request engine on their tokens
+    lp = {}
+    for i in HTTP_LOGPROBS:
+        content = replies[i][0]["choices"][0]["logprobs"]["content"]
+        chosen = [e["logprob"] for e in content]
+        tops = [[(ids_of(t["token"])[0], t["logprob"]) for t in e["top_logprobs"]] for e in content]
+        ref = forced_logprobs(model.engine, work[i][1], work[i][2], tokens[i])
+        worst, outside = logprob_gaps(ref, tokens[i], chosen, tops)
+        lp[i] = {"tokens": len(chosen), "max_gap_vs_single_request": worst, "outside_phase4_limits": outside,
+                 "max_chosen": max(chosen), "chosen_vs_top1_max_gap": max(abs(c - t[0][1]) for c, t in
+                                                                         zip(chosen, tops)),
+                 "tops_sorted": all([v for _, v in t] == sorted((v for _, v in t), reverse=True) for t in tops)}
+        if worst > C4_LIMIT or lp[i]["max_chosen"] > 0 or lp[i]["chosen_vs_top1_max_gap"] > 1e-6 \
+                or not lp[i]["tops_sorted"] or len(chosen) != len(tokens[i]):
+            failed.append(f"paged log-probs of request {i}: {lp[i]} (C4's limit {C4_LIMIT:.4g})")
+    res["logprobs_full_depth"] = lp
+    log("serve, paged route: " + json.dumps(res))
+    if failed:
+        raise AssertionError("serve, paged route: " + " | ".join(failed))
+    return res, eng, work
+
+
+def sampled_rolls_on_the_graph(model, eng, work) -> dict:
+    """Phase 27 (d): the first 8 requests of the HTTP workload in process,
+    the ``HTTP_SAMPLED`` ones sampled (T 0.8, top-k 50), on the graphed
+    engine of (b) and on an engine whose rolls run eagerly
+    (``decode_graphs=False``), each generator seeded with ``SAMPLE_SEED``:
+    every request's tokens must be equal, and every sampled slot's draw must
+    be in its row's top 50 (read on the eager engine)."""
+    import torch
+
+    from omchat_torch.api import paged_batch_engine
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime import paged_engine as pe
+
+    hot = GenerationConfig(max_new_tokens=16, eos_token_id=-1, do_sample=True, temperature=0.8, top_k=50)
+    batch = [(ids, tiles, hot if i in HTTP_SAMPLED else None) for i, (_, ids, tiles) in enumerate(work[:8])]
+
+    def run(engine):
+        engine._generator.manual_seed(SAMPLE_SEED)
+        rids = [engine.submit(ids, tiles, max_new_tokens=16, eos_token_id=-1, generation=g) for ids, tiles, g in batch]
+        engine.run_to_completion()
+        return [engine.pop_result(r)[0] for r in rids]
+
+    eng.reset_latency_stats()
+    graphed = run(eng)
+    g_stats = eng.latency_stats()
+    eager_eng = paged_batch_engine(model, image_cache_size=0, decode_graphs=False, **SERVING)
+    draws, real = [], pe.sample_batch
+
+    def recording(logits, generator, do_sample, **kw):
+        out = real(logits, generator, do_sample=do_sample, **kw)
+        draws.append((logits.float().clone(), do_sample.clone(), out.clone()))
+        return out
+
+    pe.sample_batch = recording
+    try:
+        eager = run(eager_eng)
+    finally:
+        pe.sample_batch = real
+    outside = 0
+    for logits, do_sample, out in draws:
+        top = torch.topk(logits, 50, dim=-1).indices
+        hit = (top == out[:, None].long()).any(dim=1)
+        outside += int((do_sample & ~hit).sum())
+    res = {"card": CARD, "requests": len(batch), "sampled": [i for i in range(8) if i in HTTP_SAMPLED],
+           "tokens_bitwise_equal": graphed == eager, "rolls_graphed": g_stats["rolls_graphed"],
+           "rolls_eager": g_stats["rolls_eager"], "eager_engine_rolls_eager": eager_eng.rolls_eager,
+           "sampled_steps_read": len(draws), "draws_outside_top50": outside,
+           "distinct_sampled_tokens": len({t for i, t_ in enumerate(graphed) if i in HTTP_SAMPLED for t in t_})}
+    log("serve, sampled rolls on the graph (graphed vs eager, one seed): " + json.dumps(res))
+    del eager_eng
+    torch.cuda.empty_cache()
+    if not res["tokens_bitwise_equal"] or outside or g_stats["rolls_eager"] or not draws:
+        raise AssertionError(f"sampled rolls on the graph: {res}")
+    return res
+
+
+def paged_logprob_faults() -> dict:
+    """Wrong paged log-prob routes phase 27's 2+2-layer limits must catch,
+    each a function of the engine that plants the fault in it."""
+    import torch
+
+    from omchat_torch.runtime import paged_engine as pe
+
+    def slot_shifted(eng):  # each slot reads its neighbour's rows of the roll's log-probs
+        process = eng._process_roll
+
+        def shifted(h):
+            h["out"] = (h["out"][0], *(torch.roll(t, 1, dims=1) for t in h["out"][1:])) if len(h["out"]) > 1 \
+                else h["out"]
+            return process(h)
+
+        eng._process_roll = shifted
+
+    def temperature_scaled(eng):  # log_softmax of the logits over each slot's temperature
+        real = pe._roll_pick
+
+        def scaled(logits, sampling, generator, logprobs):
+            out = real(logits, sampling, generator, logprobs)
+            if not logprobs or sampling is None:
+                return out
+            lp = torch.log_softmax(logits.float() / sampling["temperature"][:, None], dim=-1)
+            top = torch.topk(lp, pe.LOGPROBS_K, dim=-1)
+            return out[0], lp.gather(1, out[0][:, None].long())[:, 0], top.values, top.indices
+
+        pe._roll_pick = scaled
+        return lambda: setattr(pe, "_roll_pick", real)
+
+    def wrong_prefill_row(eng):  # a request's first log-probs from the previous request's prefill row
+        finish, last = eng._finish_with_token, []
+
+        def swapped(req, first, logits_row=None):
+            row = last[-1] if last else logits_row
+            last.append(logits_row)
+            finish(req, first, row)
+
+        eng._finish_with_token = swapped
+
+    return {"a slot's log-prob rows shifted by one slot": slot_shifted,
+            "log_softmax over temperature-scaled logits": temperature_scaled,
+            "the first token's log-probs from another request's prefill row": wrong_prefill_row}
+
+
+def paged_logprobs_small(small) -> dict:
+    """Phase 27 (c) at 2+2 layers: four short text requests with log-probs
+    (top 5) in one batch of the graphed paged engine, two greedy and two
+    sampled (T 0.7): every chosen and top log-prob within phase 4's limits
+    of the single-request engine's on the same tokens (``forced_logprobs``);
+    each of ``paged_logprob_faults`` (on an eager engine) must put some
+    outside."""
+    import numpy as np
+    import torch
+
+    from omchat_torch.api import paged_batch_engine
+    from omchat_torch.config import GenerationConfig
+
+    prompts = [[151644] + [int(t) for t in np.random.default_rng(i).integers(1, 500, 40 + 9 * i)] for i in range(4)]
+    warm = GenerationConfig(max_new_tokens=16, eos_token_id=-1, do_sample=True, temperature=0.7)
+
+    def run(engine, plant=None):
+        undo = plant(engine) if plant else None
+        try:
+            engine._generator.manual_seed(SAMPLE_SEED)
+            rids = [engine.submit(p, None, max_new_tokens=16, eos_token_id=-1, generation=warm if i % 2 else None,
+                                  logprobs=True, top_logprobs=5) for i, p in enumerate(prompts)]
+            engine.run_to_completion()
+            out = []
+            for r in rids:
+                chosen, tops = engine.request_logprobs(r)
+                out.append((engine.pop_result(r)[0], chosen, tops))
+            return out
+        finally:
+            if undo:
+                undo()
+
+    def gaps(out):
+        worst, outside = 0.0, 0
+        for p, (toks, chosen, tops) in zip(prompts, out):
+            w, o = logprob_gaps(forced_logprobs(small.engine, p, None, toks), toks, chosen, tops)
+            worst, outside = max(worst, w), outside + o
+        return worst, outside
+
+    eng = paged_batch_engine(small, image_cache_size=0, **SERVING)
+    eng.precompile()
+    worst, outside = gaps(run(eng))
+    res = {"card": CARD, "requests": len(prompts), "max_gap": worst, "outside_phase4_limits": outside,
+           "rolls_graphed": eng.rolls_graphed, "rolls_eager": eng.rolls_eager, "faults": {}}
+    missed = []
+    for fault, plant in paged_logprob_faults().items():
+        f_worst, f_outside = gaps(run(paged_batch_engine(small, image_cache_size=0, decode_graphs=False, **SERVING),
+                                      plant))
+        res["faults"][fault] = {"max_gap": f_worst, "outside_phase4_limits": f_outside}
+        if not f_outside:
+            missed.append(f"phase 4's limits would pass paged log-probs with {fault} ({f_worst:.4g} max)")
+    log("serve, paged log-probs at 2+2 layers: " + json.dumps(res))
+    torch.cuda.empty_cache()
+    if outside or eng.rolls_eager:
+        raise AssertionError(f"paged log-probs at 2+2 layers: {outside} values outside phase 4's limits "
+                             f"({worst:.4g} max), {eng.rolls_eager} eager rolls")
+    if missed:
+        raise AssertionError(" | ".join(missed))
+    return res
+
+
+def seeded_adapters(params, seed: int, n: int = 2) -> list:
+    """``n`` rank-``LORA_RANK`` adapters on q / k / v / o from ``seed``: A as
+    ``init_lora`` draws it, B ~ N(0, LORA_B_STD^2) (``init_lora`` zeroes it)."""
+    import torch
+
+    from omchat_torch.training.lora import init_lora
+
+    out = []
+    for i in range(n):
+        g = torch.Generator(device=DEVICE).manual_seed(seed + 1 + i)
+        lora = init_lora(g, params, rank=LORA_RANK)
+        for group in lora["layers"].values():
+            for ab in group.values():
+                ab["a"] = ab["a"].detach()
+                ab["b"] = (torch.randn(ab["b"].shape, generator=g, device=DEVICE) * LORA_B_STD).to(ab["b"].dtype)
+        out.append(lora)
+    return out
+
+
+def lora_bank_on_the_card(model, small, seed: int) -> dict:
+    """Phase 27 (e): a bank of two seeded rank-16 adapters on q / k / v / o
+    (``build_lora_bank``) on an engine over phase 3's weights.
+    ``generate(adapter_id=0)`` must give the bank-free engine's tokens and
+    its logits within phase 4's limits (bitwise expected); adapter 1's
+    first-token logits against a ``merge_lora`` model within phase 4's limits
+    at 2+2 layers, read at full depth; graphed decode tokens/s with and
+    without the bank."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.training.lora import build_lora_bank, merge_lora
+
+    ids, tiles = make_request(model.config, seed)
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_id=-1)
+    res = {"card": CARD, "adapters": 2, "rank": LORA_RANK, "targets": "q_proj k_proj v_proj o_proj"}
+    failed = []
+    for label, m in (("full depth", model), ("2+2 layers", small)):
+        params = m.engine.params
+        adapters = seeded_adapters(params, seed)
+        bank = build_lora_bank(adapters, dtype=torch.bfloat16)
+        banked = OmChatEngine(m.config, params, lora_bank=bank, image_cache_size=0, device=DEVICE)
+        base = OmChatEngine(m.config, params, image_cache_size=0, device=DEVICE)
+        plan = base.plan([ids])
+        feats = base.encode_images(tiles)
+        merged = OmChatEngine(m.config, merge_lora(params, adapters[0]), image_cache_size=0, device=DEVICE)
+        first = banked.prefill(plan, feats, 0, adapter_ids=torch.tensor([1], device=DEVICE))[0][0].float()
+        want = merged.prefill(plan, feats, 0)[0][0].float()
+        del merged
+        gap = (first - want).abs()
+        run = {"adapter1_vs_merged_first_token_max_gap": float(gap.max()),
+               "adapter1_vs_merged_outside_phase4_limits": int((gap > LOGITS_ATOL + LOGITS_RTOL * want.abs()).sum()),
+               "adapter1_vs_base_first_token_max_gap": float(
+                   (first - base.prefill(plan, feats, 0)[0][0].float()).abs().max())}
+        if label == "2+2 layers" and run["adapter1_vs_merged_outside_phase4_limits"]:
+            failed.append(f"{label}: adapter 1 vs merge_lora outside phase 4's limits ({run})")
+        if label == "full depth":
+            lg_base, lg_bank, rates = [], [], {}
+            for name, eng, kw, store in (("base", base, {}, lg_base), ("bank, adapter 0", banked, {"adapter_id": 0},
+                                                                          lg_bank)):
+                eng.generate([ids], tiles, gen, **kw)  # the decode state's capture
+                toks = eng.generate([ids], tiles, gen, logits_callback=lambda s, lg, st=store: st.append(lg[0]),
+                                    **kw).token_ids[0]
+                rates[name] = (toks, eng.spans["decode_steps"] / eng.spans["decode"])
+            banked.generate([ids], tiles, gen, adapter_id=1)
+            rates["bank, adapter 1"] = (None, banked.spans["decode_steps"] / banked.spans["decode"])
+            worst = max(float((a.float() - b.float()).abs().max()) for a, b in zip(lg_base, lg_bank))
+            run.update({"adapter0_tokens_equal_base": rates["base"][0] == rates["bank, adapter 0"][0],
+                        "adapter0_vs_base_logits_max_gap": worst,
+                        "decode_tokens_per_s": {k: v[1] for k, v in rates.items()}})
+            if not run["adapter0_tokens_equal_base"] or worst > LOGITS_ATOL:
+                failed.append(f"{label}: adapter 0 leaves the base engine ({run})")
+        res[label] = run
+        del banked, base
+        torch.cuda.empty_cache()
+    log("serve, LoRA bank: " + json.dumps(res))
+    if failed:
+        raise AssertionError("LoRA bank: " + " | ".join(failed))
+    return res
+
+
+def serving_on_the_card(model, small, seed: int) -> dict:
+    """Phase 27 on phase 3's model (``model``, the same weights under
+    ``id_tokenizer``) and ``small`` (2+2 layers): the default route over
+    HTTP, the ``--paged`` route over HTTP with the full-depth log-prob check,
+    the 2+2-layer log-prob check with its planted faults, sampled rolls on
+    the graph and the LoRA bank; every part runs and prints its line, then
+    the phase raises with every check that failed."""
+    import torch
+
+    from omchat_torch.api import omchat_model
+
+    http_model = omchat_model(id_tokenizer(), model.engine)
+    res, failed, paged = {}, [], None
+    for name, run in (("default", lambda: http_default_route(http_model, seed)),
+                      ("paged", lambda: http_paged_route(model, seed)),
+                      ("logprobs 2+2", lambda: paged_logprobs_small(small)),
+                      ("sampled", lambda: sampled_rolls_on_the_graph(model, *paged[1:])),
+                      ("lora", lambda: lora_bank_on_the_card(model, small, seed))):
+        try:
+            if name == "sampled" and paged is None:
+                raise AssertionError("the paged route failed before its engine was ready")
+            out = run()
+            if name == "paged":
+                paged = out
+                out = out[0]
+            res[name] = out
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+    del paged
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 27 failed: " + " | ".join(failed))
     return res
 
 
@@ -4471,6 +5361,7 @@ def main() -> int:
     video_k2 = video_k2_rows(gen, round_up(entry["video"]["merged_len"], 128), entry["video"]["merged_len"])
     options = options_on_the_card(gen, surface, args.seed)
     options["device pipeline"] = device_pipeline_on_the_card(video_frames)
+    served = serving_on_the_card(surface, small_surface(surface.config, args.seed), args.seed)
     surface.engine.release_decode_states()
     del surface, video_frames
     surface_rows = surface_kernel_rows(gen, shapes["prompt_len"], entry["video"]["merged_len"])
@@ -4479,6 +5370,10 @@ def main() -> int:
     kernel_vs_plain(args.seed)
 
     serve, timed = serving(args.seed)
+    log("serve, paged route over HTTP beside phase 5 in process (this call): " + json.dumps({
+        "card": CARD, "http_tokens_per_s": served["paged"]["tokens_per_s"],
+        "phase27_in_process_tokens_per_s": served["paged"]["in_process_tokens_per_s"],
+        "phase5_in_process_tokens_per_s": serve["tokens_per_s"]}))
     paged_rows = paged_kernel_phases(gen, timed)
     paged_parity(args.seed)
 

@@ -8,8 +8,9 @@ model + image processor + context length) and returns a ready engine.
 ``lora_path`` merges a trained LoRA adapter at load, which closes train →
 serve.  ``OmChatModel`` carries the JAX package's single-request surface:
 ``chat`` (history, beams, speculative, guided / JSON / schema decoding),
-``chat_tools`` and ``chat_video``.  Tensor parallelism comes with a later
-slice.
+``chat_tools`` and ``chat_video``.  The server (``cli/serve.py``) builds the
+model and, with ``--paged``, :func:`paged_batch_engine` over its weights.
+Tensor parallelism comes with a later slice.
 """
 
 from __future__ import annotations

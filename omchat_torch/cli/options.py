@@ -24,12 +24,20 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
                         help="tensor-parallel degree (multi-device: waits for ROADMAP queue A item 13)")
 
 
+def refuse_waiting(parser: argparse.ArgumentParser, waiting: dict) -> None:
+    """A usage error (exit code 2) for the first of ``waiting`` ({flag:
+    (asked, ROADMAP queue A item)}) that was asked for, naming the item that
+    will bring it; run before any weight loads."""
+    for flag, (asked, item) in waiting.items():
+        if asked:
+            parser.error(f"{flag}: not ported yet (ROADMAP queue A item {item}); the port refuses it rather than "
+                         "ignoring it")
+
+
 def load_model(parser: argparse.ArgumentParser, args):
     """``api.load_pretrained_model`` per the flags; ``--tp`` above 1 is a
     usage error naming the queue item it waits for."""
-    if args.tp > 1:
-        parser.error("--tp: tensor parallelism is not ported yet (ROADMAP queue A item 13, parallelism); "
-                     "the port serves on one device")
+    refuse_waiting(parser, {"--tp above 1 (tensor parallelism; the port serves on one device)": (args.tp > 1, "13")})
     from omchat_torch.api import load_pretrained_model
     from omchat_torch.ops.fp8 import E4M3
 

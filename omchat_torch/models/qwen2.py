@@ -27,7 +27,14 @@ and quantized params a prefill layer is :func:`_decoder_layer_glue`: the
 input norm writes int8 codes (K7) and o_proj rides the residual + norm +
 quantize pass (K11); with the static scales of
 :func:`calibrate_swiglu_scales` the MLP's gate and up write int8 codes (K10)
-for down_proj.  LoRA banks come with a later slice.
+for down_proj.
+
+Per-request LoRA (``lora_bank`` and ``adapter_ids`` [B] of
+:func:`qwen2_forward`): each batch row adds its own adapter's low-rank delta
+to q / k / v / o and gate / up / down, gathered from a stacked bank
+(:func:`omchat_torch.training.lora.build_lora_bank`, whose row 0 is all
+zeros: the base model).  A layer with a bank runs the unfused chain, as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -66,11 +73,32 @@ def init_kv_cache(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat1
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device), v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _mlp(y: torch.Tensor, p: dict, a8: bool = False) -> torch.Tensor:
-    """SwiGLU: down(silu(gate(y)) * up(y))."""
-    g = dense(y, p["gate_proj"], a8=a8)
-    u = dense(y, p["up_proj"], a8=a8)
-    return dense(F.silu(g) * u, p["down_proj"], a8=a8)
+def lora_delta(y: torch.Tensor, ab: dict, ids: torch.Tensor) -> torch.Tensor:
+    """Each batch row's low-rank delta from ITS adapter of a stacked bank:
+    y [B, S, in]; ab {"a": [N, in, r], "b": [N, r, out]} (scale folded into
+    b); ids [B] bank rows.  Row 0 of a bank is zeros, so id 0 adds exactly
+    zero."""
+    a = ab["a"].index_select(0, ids).to(y.dtype)  # [B, in, r]
+    b = ab["b"].index_select(0, ids).to(y.dtype)  # [B, r, out]
+    return torch.bmm(torch.bmm(y, a), b)
+
+
+def _lora_dense(y, p: dict, a8: bool, lora: Optional[dict], name: str, ids) -> torch.Tensor:
+    """``dense(y, p)`` plus the per-row delta of ``lora[name]`` where the bank
+    adapts this projection."""
+    out = dense(y, p, a8=a8)
+    if lora is not None and name in lora:
+        return out + lora_delta(y, lora[name], ids)
+    return out
+
+
+def _mlp(y: torch.Tensor, p: dict, a8: bool = False, lora: Optional[dict] = None, adapter_ids=None) -> torch.Tensor:
+    """SwiGLU: down(silu(gate(y)) * up(y)); per-row LoRA deltas when serving
+    a bank."""
+    g = _lora_dense(y, p["gate_proj"], a8, lora, "gate_proj", adapter_ids)
+    u = _lora_dense(y, p["up_proj"], a8, lora, "up_proj", adapter_ids)
+    h = F.silu(g) * u
+    return _lora_dense(h, p["down_proj"], a8, lora, "down_proj", adapter_ids)
 
 
 def _mlp_prequant(yq, yrs, p: dict, dtype) -> torch.Tensor:
@@ -93,36 +121,42 @@ def quant_glue_ok(attn_impl) -> bool:
     return attn_impl != PLAIN
 
 
-def attention_inputs(cfg: TextConfig, y, p: dict, cos, sin, a8: bool = False):
+def attention_inputs(cfg: TextConfig, y, p: dict, cos, sin, a8: bool = False, lora: Optional[dict] = None,
+                     adapter_ids=None):
     """q/k/v projections + RoPE.  y: [B, S, D] (normed) → q [B, S, H, hd],
     k/v [B, S, KVH, hd]."""
     b, s, _ = y.shape
     h, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.attn_head_dim
-    q = dense(y, p["q_proj"], a8=a8).reshape(b, s, h, hd)
-    k = dense(y, p["k_proj"], a8=a8).reshape(b, s, kvh, hd)
-    v = dense(y, p["v_proj"], a8=a8).reshape(b, s, kvh, hd)
+    q = _lora_dense(y, p["q_proj"], a8, lora, "q_proj", adapter_ids).reshape(b, s, h, hd)
+    k = _lora_dense(y, p["k_proj"], a8, lora, "k_proj", adapter_ids).reshape(b, s, kvh, hd)
+    v = _lora_dense(y, p["v_proj"], a8, lora, "v_proj", adapter_ids).reshape(b, s, kvh, hd)
     q, k = apply_rope(q, k, cos, sin)
     return q, k, v
 
 
-def decoder_layer(cfg: TextConfig, x, layer: dict, cos, sin, attend, *, quant_glue: bool = False):
+def decoder_layer(cfg: TextConfig, x, layer: dict, cos, sin, attend, *, quant_glue: bool = False,
+                  lora: Optional[dict] = None, adapter_ids=None):
     """One decoder layer.  ``attend(q, k, v) -> ctx [B, S, H, hd]`` owns the
     cache handling (prefill write + causal attention, or the decode self
     column).  ``quant_glue``: w8a8 prefill layers over quantized params take
-    the fused glue path (:func:`_decoder_layer_glue`)."""
+    the fused glue path (:func:`_decoder_layer_glue`).  ``lora``: this
+    layer's slice of a LoRA bank ({group: {name: {"a": [N, in, r], "b":
+    [N, r, out]}}}), applied per row by ``adapter_ids`` [B]."""
     b, s, _ = x.shape
     # w8a8 serves the compute-bound prefill; the one-token decode step keeps
     # the weight-only int8 path
     a8 = cfg.w8a8 and s > 1
     attn_p = layer["self_attn"]
-    if quant_glue and a8 and "kernel_q" in attn_p["q_proj"] and "kernel_q" in attn_p["o_proj"]:
+    if quant_glue and a8 and lora is None and "kernel_q" in attn_p["q_proj"] and "kernel_q" in attn_p["o_proj"]:
         return _decoder_layer_glue(cfg, x, layer, cos, sin, attend)
+    attn_lora = lora.get("self_attn") if lora is not None else None
+    mlp_lora = lora.get("mlp") if lora is not None else None
     y = rms_norm(x, layer["input_layernorm"]["scale"], cfg.rms_norm_eps)
-    q, k, v = attention_inputs(cfg, y, attn_p, cos, sin, a8)
-    ctx = attend(q, k, v)
-    x = x + dense(ctx.reshape(b, s, -1), attn_p["o_proj"], a8=a8)
+    q, k, v = attention_inputs(cfg, y, attn_p, cos, sin, a8, attn_lora, adapter_ids)
+    o = attend(q, k, v).reshape(b, s, -1)
+    x = x + _lora_dense(o, attn_p["o_proj"], a8, attn_lora, "o_proj", adapter_ids)
     y = rms_norm(x, layer["post_attention_layernorm"]["scale"], cfg.rms_norm_eps)
-    return x + _mlp(y, layer["mlp"], a8)
+    return x + _mlp(y, layer["mlp"], a8, mlp_lora, adapter_ids)
 
 
 def _decoder_layer_glue(cfg: TextConfig, x, layer: dict, cos, sin, attend):
@@ -195,7 +229,8 @@ def commit_decode_rows(cache: KVCache, write_pos: torch.Tensor, k_rows, v_rows, 
     return cache
 
 
-def decode_scan(cfg: TextConfig, attn_impl, params: dict, inputs_embeds, cos, sin, cache: KVCache, kv_len, write_pos):
+def decode_scan(cfg: TextConfig, attn_impl, params: dict, inputs_embeds, cos, sin, cache: KVCache, kv_len, write_pos,
+                lora_bank: Optional[dict] = None, adapter_ids=None):
     """Single-token decode over the layer stack with the cache READ-ONLY in
     the loop: layer ``li`` attends to its cache layer (selected inside the
     kernel) plus the in-flight token as a self column; the new K/V rows are
@@ -211,9 +246,15 @@ def decode_scan(cfg: TextConfig, attn_impl, params: dict, inputs_embeds, cos, si
             return decode_attention(q, cache.k, cache.v, cache_len, impl=attn_impl, layer=li,
                                     k_new=k[:, 0], v_new=v[:, 0])
 
-        x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend)
+        x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend,
+                          lora=_bank_layer(lora_bank, li), adapter_ids=adapter_ids)
     cache = commit_decode_rows(cache, write_pos, torch.stack(k_rows), torch.stack(v_rows), attn_impl)
     return x, cache
+
+
+def _bank_layer(lora_bank: Optional[dict], li: int) -> Optional[dict]:
+    """Layer ``li``'s slice of a LoRA bank, or None without one."""
+    return None if lora_bank is None else layer_slice(lora_bank["layers"], li)
 
 
 def qwen2_forward(
@@ -228,6 +269,8 @@ def qwen2_forward(
     attn_impl: Optional[str] = None,
     remat: bool = False,
     segment_ids: Optional[torch.Tensor] = None,
+    lora_bank: Optional[dict] = None,
+    adapter_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder trunk (no lm_head).
 
@@ -239,7 +282,11 @@ def qwen2_forward(
     Without a cache (the training path): ``remat`` checkpoints every layer
     (``torch.utils.checkpoint``, non-reentrant: only the layer inputs are
     kept and the layer runs again in the backward), and ``segment_ids``
-    [B, S] (negative = padding) isolates packed documents."""
+    [B, S] (negative = padding) isolates packed documents.
+
+    ``lora_bank`` (``build_lora_bank``: leaves [L, N, in, r] / [L, N, r,
+    out], bank row 0 = the base) with ``adapter_ids`` [B]: each batch row
+    applies its own adapter."""
     cos, sin = rope_cos_sin(
         positions,
         cfg.attn_head_dim,
@@ -254,25 +301,31 @@ def qwen2_forward(
                  else torch.as_tensor(write_pos, dtype=torch.int32, device=dev).expand(b))
     if kv_len is not None:
         kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=dev).expand(b)
+    if lora_bank is None or adapter_ids is None:
+        lora_bank, adapter_ids = None, None
+    else:
+        adapter_ids = torch.as_tensor(adapter_ids, device=dev).long()
 
     if segment_ids is not None and cache is not None:
         raise ValueError("segment_ids (packing) is for the cacheless training path")
     if cache is not None and inputs_embeds.shape[1] == 1:
-        x, cache = decode_scan(cfg, attn_impl, params, inputs_embeds, cos, sin, cache, kv_len, write_pos)
+        x, cache = decode_scan(cfg, attn_impl, params, inputs_embeds, cos, sin, cache, kv_len, write_pos,
+                               lora_bank, adapter_ids)
     elif cache is None:
         def attend(q, k, v):
             return cache_attend(attn_impl, None, (), None, None, None, q, k, v, segment_ids)
 
-        def layer_fn(x, layer):
-            return decoder_layer(cfg, x, layer, cos, sin, attend, quant_glue=quant_glue_ok(attn_impl))
+        def layer_fn(x, layer, lora=None):
+            return decoder_layer(cfg, x, layer, cos, sin, attend, quant_glue=quant_glue_ok(attn_impl), lora=lora,
+                                 adapter_ids=adapter_ids)
 
         x = inputs_embeds
         n_layers = params["layers"]["input_layernorm"]["scale"].shape[0]
-        for layer in layer_list(params["layers"], n_layers):
+        for li, layer in enumerate(layer_list(params["layers"], n_layers)):
             if remat and torch.is_grad_enabled():
-                x = checkpoint(layer_fn, x, layer, use_reentrant=False)
+                x = checkpoint(layer_fn, x, layer, _bank_layer(lora_bank, li), use_reentrant=False)
             else:
-                x = layer_fn(x, layer)
+                x = layer_fn(x, layer, _bank_layer(lora_bank, li))
     else:
         x = inputs_embeds
         n_layers = params["layers"]["input_layernorm"]["scale"].shape[0]
@@ -282,7 +335,8 @@ def qwen2_forward(
                 return cache_attend(attn_impl, write_pos, starts, kv_len, kc, vc, q, k, v)
 
             x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend,
-                              quant_glue=quant_glue_ok(attn_impl))
+                              quant_glue=quant_glue_ok(attn_impl), lora=_bank_layer(lora_bank, li),
+                              adapter_ids=adapter_ids)
     return rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps), cache
 
 

@@ -89,20 +89,22 @@ def sample_from(logits: torch.Tensor, generator: torch.Generator, temperature: t
 def sample_batch_logits(logits, temperature, top_k, top_p) -> torch.Tensor:
     """The kept logits of :func:`sample_batch`: scaled by the per-row
     temperature, everything below the larger of the top-k and top-p
-    thresholds (both read off one descending sort) set to -inf."""
+    thresholds (both read off one descending sort) set to -inf.  Its
+    constants are Python scalars, so a captured decode roll takes no
+    host-to-device copy."""
     v = logits.shape[-1]
+    ninf = float("-inf")
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
     sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
     # top-k threshold: value at rank k-1 (k <= 0 keeps everything)
     k_idx = torch.clamp(top_k.long() - 1, 0, v - 1)
     kth = torch.gather(sorted_desc, 1, k_idx[:, None])
-    ninf = torch.tensor(float("-inf"), device=logits.device)
     kth = torch.where(top_k[:, None] > 0, kth, ninf)
     # top-p threshold on the same sort
     probs = torch.softmax(sorted_desc, dim=-1)
     cum = torch.cumsum(probs, dim=-1)
     keep = cum - probs < top_p[:, None]  # always keeps rank 0
-    pth = torch.where(keep, sorted_desc, torch.tensor(float("inf"), device=logits.device)).amin(dim=-1, keepdim=True)
+    pth = torch.where(keep, sorted_desc, float("inf")).amin(dim=-1, keepdim=True)
     return torch.where(scaled < torch.maximum(kth, pth), ninf, scaled)
 
 

@@ -28,6 +28,12 @@ the JAX ``generate``'s order: bias, then the penalties; an
 ``allowed_tokens_fn`` mask replaces both (it is added to the raw logits, as
 in the JAX package); then greedy or sampled; log-probs of the biased /
 masked logits, before temperature.
+
+``OmChatEngine(lora_bank=)`` (``training.lora.build_lora_bank``) serves
+per-request LoRA: ``generate(adapter_id=)`` picks each row's adapter (0: the
+base model).  The ids reach the prefill, and the decode step through the
+decode state's ``adapter_ids`` buffer, so one graph of the step serves every
+adapter.
 """
 
 from __future__ import annotations
@@ -127,7 +133,8 @@ def seed_of(rng_key) -> int:
 class DecodeState:
     """The static buffers of the decode loop for one (batch, cache rows,
     cache dtype): the cache prefill writes into and the step reads, and what
-    the step reads and writes around it.  A step feeds ``tokens`` at
+    the step reads and writes around it (with a LoRA bank, each row's
+    ``adapter_ids``).  A step feeds ``tokens`` at
     ``kv_len``, picks the next token of each row from its logits (eos where
     the row is ``done``), writes it into column ``step`` of ``out`` and into
     ``tokens``, counts it, marks rows that picked eos done, and advances
@@ -158,6 +165,7 @@ class DecodeState:
     logprob: torch.Tensor  # [B] fp32, log p of the picked token
     top_logprob: torch.Tensor  # [B, TOP_LOGPROBS_MAX] fp32
     top_id: torch.Tensor  # [B, TOP_LOGPROBS_MAX] int64
+    adapter_ids: torch.Tensor  # [B] int64 rows of the engine's LoRA bank (0: the base model)
     generator: torch.Generator
     runs: Dict[PickMode, Union[GraphedStep, Callable[[], torch.Tensor]]] = field(default_factory=dict)
 
@@ -185,6 +193,11 @@ class OmChatEngine:
     runs the same step body eagerly, and so do CPU engines and
     ``attn_impl="plain"`` (whose plain versions build host scalars).
 
+    ``lora_bank``: a stacked multi-adapter bank
+    (:func:`~omchat_torch.training.lora.build_lora_bank`, on the params'
+    device) for per-request LoRA; requests pick an adapter with
+    ``generate(adapter_id=)``, id 0 being the base model.
+
     After :meth:`generate` or :meth:`generate_ondevice`, ``spans`` holds the
     stage times in seconds (``encode_images``, ``prefill``, ``ttft``,
     ``decode``: the decode steps, a capture excluded; ``capture``: the CUDA
@@ -202,8 +215,10 @@ class OmChatEngine:
         cache_dtype: Optional[torch.dtype] = None,
         device=None,
         decode_graphs: bool = True,
+        lora_bank: Optional[dict] = None,
     ):
         self.cfg = cfg
+        self.lora_bank = lora_bank
         self.params = params
         self.attn_impl = attn_impl
         self.cache_dtype = cache_dtype
@@ -247,6 +262,25 @@ class OmChatEngine:
             max_length=self.cfg.tokenizer_model_max_length,
         )
 
+    def _adapter_ids(self, b: int, adapter_id) -> Optional[torch.Tensor]:
+        """[B] bank rows for a batch of ``b`` (``adapter_id``: an int for
+        the whole batch or one a row), or None without a bank.  An id
+        outside the bank raises ``ValueError``, as does a nonzero id on an
+        engine without a bank."""
+        if self.lora_bank is None:
+            if adapter_id is not None and np.any(np.asarray(adapter_id) != 0):
+                raise ValueError(f"adapter_id {adapter_id}: this engine has no LoRA bank")
+            return None
+        if adapter_id is None or np.isscalar(adapter_id):
+            ids = np.full((b,), adapter_id or 0, np.int64)
+        else:
+            ids = np.asarray(adapter_id, np.int64)
+        leaf = next(iter(next(iter(self.lora_bank["layers"].values())).values()))["a"]
+        n = leaf.shape[1]
+        if ids.shape != (b,) or (ids < 0).any() or (ids >= n).any():
+            raise ValueError(f"adapter ids {ids.tolist()} out of range for a bank of {n - 1} adapters")
+        return torch.as_tensor(ids, device=self.device)
+
     def cache_rows(self, plan: MergePlan, max_new_tokens: int) -> int:
         """The cache a prefill fills: ``plan.max_len`` rows plus the bucketed
         decode budget."""
@@ -254,13 +288,13 @@ class OmChatEngine:
 
     @torch.no_grad()
     def prefill(self, plan: MergePlan, image_features: Optional[torch.Tensor], max_new_tokens: int,
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None, adapter_ids: Optional[torch.Tensor] = None):
         """Fuse embeddings, run the trunk over the merged prompt into a cache
         of ``plan.max_len`` rows plus the bucketed decode budget (with
         ``max_new_tokens=0`` exactly ``plan.max_len``): a fresh one, or
         ``cache`` (of that shape; a decode state's) zeroed first, so that it
         holds what a fresh one would; returns (last-valid-token logits [B, V]
-        fp32, cache)."""
+        fp32, cache).  ``adapter_ids`` [B]: each row's LoRA bank row."""
         lm = self.params["language_model"]
         dev = self.device
         cache_len = self.cache_rows(plan, max_new_tokens)
@@ -278,6 +312,7 @@ class OmChatEngine:
         hidden, cache = decoder_forward(
             lm, self.cfg.text, embeds, t(plan.positions), cache,
             write_pos=torch.zeros((b,), dtype=torch.int32, device=dev), kv_len=lengths, attn_impl=self.attn_impl,
+            lora_bank=self.lora_bank, adapter_ids=adapter_ids,
         )
         last = hidden[torch.arange(b, device=dev), (lengths - 1).clamp(min=0).long()]  # [B, D]
         return lm_head(lm, self.cfg.text, last), cache
@@ -327,14 +362,17 @@ class OmChatEngine:
         return final, cache
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor, kv_len: torch.Tensor, cache: KVCache):
-        """One decode step.  tokens [B]; kv_len [B] current length (pre-write).
-        The cache is updated in place."""
+    def decode_step(self, tokens: torch.Tensor, kv_len: torch.Tensor, cache: KVCache,
+                    adapter_ids: Optional[torch.Tensor] = None):
+        """One decode step.  tokens [B]; kv_len [B] current length (pre-write);
+        ``adapter_ids`` [B]: each row's LoRA bank row.  The cache is updated
+        in place."""
         lm = self.params["language_model"]
         embeds = embed_tokens(lm, tokens[:, None])
         hidden, cache = decoder_forward(
             lm, self.cfg.text, embeds, kv_len[:, None], cache,
             write_pos=kv_len, kv_len=kv_len + 1, attn_impl=self.attn_impl,
+            lora_bank=self.lora_bank, adapter_ids=adapter_ids,
         )
         return lm_head(lm, self.cfg.text, hidden)[:, 0], cache
 
@@ -370,6 +408,7 @@ class OmChatEngine:
                 temperature=torch.ones(1, **f32), top_k=torch.zeros(1, **i32), top_p=torch.ones(1, **f32),
                 logprob=torch.zeros(batch, **f32), top_logprob=torch.zeros(batch, TOP_LOGPROBS_MAX, **f32),
                 top_id=torch.zeros(batch, TOP_LOGPROBS_MAX, dtype=torch.int64, device=dev),
+                adapter_ids=torch.zeros(batch, dtype=torch.int64, device=dev),
                 generator=torch.Generator(device=dev),
             )
             self._runner(st, GREEDY)
@@ -407,7 +446,8 @@ class OmChatEngine:
         with K3 in every layer and one K4 commit, lm_head), then
         :meth:`_pick`, as the JAX ``_decode_loop_jit`` body.  Returns the
         logits buffer."""
-        logits, _ = self.decode_step(st.tokens, st.kv_len, st.cache)
+        logits, _ = self.decode_step(st.tokens, st.kv_len, st.cache,
+                                     st.adapter_ids if self.lora_bank is not None else None)
         st.logits.copy_(logits)
         self._pick(st, logits, mode)
         st.kv_len.add_(1)
@@ -443,13 +483,18 @@ class OmChatEngine:
         st.step.add_(1)
 
     def _start(self, st: DecodeState, lengths, gen: GenerationConfig, rng_key=None,
-               logit_bias: Optional[dict] = None) -> None:
+               logit_bias: Optional[dict] = None, adapter_ids: Optional[torch.Tensor] = None) -> None:
         """Set ``st`` for a request before its first pick: the prompt
         lengths in ``kv_len``, eos everywhere in ``out``, nothing done or
         counted, step 0; the request's bias (``logit_bias``: {token id: bias},
-        out-of-vocabulary ids inert), penalties and sampling parameters, and
-        its generator seeded from ``rng_key`` (:func:`seed_of`)."""
+        out-of-vocabulary ids inert), penalties and sampling parameters, its
+        generator seeded from ``rng_key`` (:func:`seed_of`) and its LoRA bank
+        rows (``adapter_ids``, default 0)."""
         st.kv_len.copy_(torch.as_tensor(np.asarray(lengths, np.int32)))
+        if adapter_ids is None:
+            st.adapter_ids.zero_()
+        else:
+            st.adapter_ids.copy_(adapter_ids)
         st.eos.fill_(gen.eos_token_id)
         st.done.zero_()
         st.step.zero_()
@@ -477,18 +522,19 @@ class OmChatEngine:
         st.penalty.zero_()
 
     def _prefill_into_state(self, batch_input_ids, images, gen: GenerationConfig, t0: float, rng_key=None,
-                            logit_bias: Optional[dict] = None):
+                            logit_bias: Optional[dict] = None, adapter_id=None):
         """Encode, plan and prefill into the decode state of the request's
         shape and set it for the request (:meth:`_start`); records the
         ``encode_images`` span.  Returns (plan, state, first-token logits)."""
+        ids = self._adapter_ids(len(batch_input_ids), adapter_id)
         feats = self.encode_images(images) if images is not None else None
         self._sync()
         t1 = time.perf_counter()
         self.spans["encode_images"] = t1 - t0
         plan = self.plan(batch_input_ids)
         st = self.decode_state(plan.token_ids.shape[0], self.cache_rows(plan, gen.max_new_tokens))
-        logits, _ = self.prefill(plan, feats, gen.max_new_tokens, cache=st.cache)
-        self._start(st, plan.lengths, gen, rng_key, logit_bias)
+        logits, _ = self.prefill(plan, feats, gen.max_new_tokens, cache=st.cache, adapter_ids=ids)
+        self._start(st, plan.lengths, gen, rng_key, logit_bias, ids)
         return plan, st, logits
 
     def _decode_spans(self, run, t_dec: float, graph_before, steps: int, cache_len: int) -> None:
@@ -538,12 +584,10 @@ class OmChatEngine:
         added as a mask to the raw logits (bias and penalties do not apply
         then, as in the JAX package); None ends the generation.
         ``logits_callback(step, logits)`` sees each step's raw [B, V] fp32
-        logits (a copy of the decode state's buffer).  ``adapter_id``
-        (per-request LoRA banks) waits for the serving slice and raises."""
+        logits (a copy of the decode state's buffer).  ``adapter_id``: the
+        LoRA bank row of the whole batch (an int) or of each row (a
+        sequence), 0 the base model; ``ValueError`` outside the bank."""
         gen = generation or GenerationConfig()
-        if adapter_id is not None:
-            raise NotImplementedError("adapter_id: per-request LoRA banks wait for queue A item 10 (A10); "
-                                      "merge an adapter at load (load_pretrained_model(lora_path=))")
         if allowed_tokens_fn is not None and len(batch_input_ids) != 1:
             raise ValueError("constrained decoding is single-request (b == 1)")
         if not 0 <= top_logprobs <= TOP_LOGPROBS_MAX:
@@ -552,7 +596,8 @@ class OmChatEngine:
         stopper = KeywordStopper(stop_keywords, tokenizer) if stop_keywords else None
         self.spans = {}
         t0 = time.perf_counter()
-        plan, st, logits = self._prefill_into_state(batch_input_ids, images, gen, t0, rng_key, logit_bias)
+        plan, st, logits = self._prefill_into_state(batch_input_ids, images, gen, t0, rng_key, logit_bias,
+                                                    adapter_id)
         run = self._runner(st, mode)
         graph_before = getattr(run, "graph", None)
 

@@ -21,17 +21,24 @@ table.  One :meth:`PagedBatchEngine.step` (a scheduler tick):
    read-only (K12, or with ``decode_kernel="manual"`` K13, with the in-flight
    token as a self column) and commits all layers' new rows once (K4); the
    tokens come back to the host once per roll.  The roll reads its tokens,
-   lengths, active flags and page tables from one static buffer of
-   ``max_slots`` rows that the host fills before each roll.  On a CUDA engine
-   a greedy roll is one replay of a CUDA graph of the roll
+   lengths, active flags, per-slot pick parameters (do_sample, top_k,
+   temperature, top_p) and page tables from one static buffer of
+   ``max_slots`` rows that the host fills before each roll.  A roll's pick
+   mode is (any slot samples, any slot wants log-probs), the JAX engine's
+   four program variants: sampled slots draw from the engine's generator,
+   greedy slots take the argmax, and with log-probs the roll also returns
+   each slot's chosen log-prob and top ``LOGPROBS_K`` of the raw logits.
+   On a CUDA engine a roll is one replay of a CUDA graph of the roll
    (:class:`~omchat_torch.runtime.cuda_graphs.GraphedStep`), one graph per
-   table width bucket (4, 8, 16, 32 pages, capped at the table's width),
-   captured by :meth:`PagedBatchEngine.precompile` or at the bucket's first
-   roll: the counterpart of the JAX engine's one ``_paged_decode_roll_jit``
-   dispatch.  A roll with a sampled slot runs eagerly (its generator is not
-   yet graph-safe), and so do CPU engines, ``attn_impl="plain"`` and
-   ``decode_graphs=False``; ``latency_stats()`` counts ``rolls_graphed`` and
-   ``rolls_eager``.
+   table width bucket (4, 8, 16, 32 pages, capped at the table's width) and
+   pick mode, in one graph pool, a sampled graph drawing from the engine's
+   generator registered with it; :meth:`PagedBatchEngine.precompile`
+   captures them ahead of traffic, else a roll captures at its first use:
+   the counterpart of the JAX engine's one ``_paged_decode_roll_jit``
+   dispatch.  CPU engines, ``attn_impl="plain"`` and ``decode_graphs=False``
+   run the same bodies eagerly; ``latency_stats()`` counts
+   ``rolls_graphed`` and ``rolls_eager``.  A request's first token's
+   log-probs come from its prefill's last row, on every prefill route.
 
 ``cache_dtype=torch.float8_e4m3fn`` keeps the pool in e4m3 (half the bytes a
 page): short prompts still prefill into a scratch cache of the weights' dtype
@@ -54,9 +61,9 @@ any page size.
 
 Waiting for later slices, each raising ``NotImplementedError`` rather than
 being ignored: the prefix cache, speculative verify, pipelined and streaming
-rolls, logprobs, a device mesh, the MoE trunk, and presence / frequency
-penalties.  Prefill runs eagerly, so :meth:`PagedBatchEngine.precompile`
-captures the decode rolls only.
+rolls, a device mesh and the MoE trunk.  Presence / frequency penalties raise
+too: the JAX paged engine has none either.  Prefill runs eagerly, so
+:meth:`PagedBatchEngine.precompile` captures the decode rolls only.
 """
 
 from __future__ import annotations
@@ -98,6 +105,13 @@ from omchat_torch.utils.device import resolve_device
 from omchat_torch.utils.tree import layer_slice
 
 ROLL_WIDTHS = (4, 8, 16, 32)  # the page-table width buckets of a decode roll (pages), as the JAX engine's
+LOGPROBS_K = 5  # OpenAI caps top_logprobs at 5; a roll with log-probs returns this many, the host slices
+# A roll's pick mode: (any slot samples, any slot wants log-probs), the JAX
+# engine's four (any_sampled, logprobs) variants; one CUDA graph each a width
+PICK_MODES = ((False, False), (True, False), (False, True), (True, True))
+# the roll buffer's columns before the page table: token, length, active,
+# do_sample, top_k, then temperature and top_p as fp32 bits
+_ROLL_COLS = 7
 
 
 def commit_page_ids(tables: np.ndarray, n_pages: np.ndarray, n_layers: int, n_chunks: int,
@@ -137,9 +151,14 @@ def _commit_pages(slot_k, slot_v, k_pool, v_pool, tables: np.ndarray, n_pages: n
 
 def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
                       attn_impl: Optional[str] = None, *, decode_kernel: str = "auto",
-                      sampling: Optional[dict] = None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      sampling: Optional[dict] = None, generator: Optional[torch.Generator] = None,
+                      logprobs: bool = False):
     """One decode step over every slot against the page pool; returns the
-    next tokens [S] (int32) and commits the step's K/V rows in place.
+    next tokens [S] (int32) and commits the step's K/V rows in place.  With
+    ``logprobs`` it returns (tokens, chosen [S] fp32, top values [S, K]
+    fp32, top ids [S, K] int64): the log-probs of the raw fp32 logits, before
+    temperature and any sampling filter, the chosen token's and the top
+    ``LOGPROBS_K``.
 
     tokens, lengths (valid rows already in pages), active [S]; tables [S, W]
     (parked rows for inactive slots), all on the pools' device.  The layer
@@ -185,25 +204,42 @@ def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables
            torch.stack(k_rows).reshape(n_layers * s, *k_rows[0].shape[1:]),
            torch.stack(v_rows).reshape(n_layers * s, *v_rows[0].shape[1:]))
     logits = lm_head(lm, tc, rms_norm(x, lm["norm"]["scale"], tc.rms_norm_eps))[:, 0]
-    if sampling is None:
-        return greedy(logits)
-    return sample_batch(logits, generator, **sampling)
+    return _roll_pick(logits, sampling, generator, logprobs)
+
+
+def _roll_pick(logits, sampling: Optional[dict], generator: Optional[torch.Generator], logprobs: bool):
+    """A roll step's pick from its [S, V] fp32 logits: the argmax, or with
+    ``sampling`` :func:`~omchat_torch.ops.sampling.sample_batch` (greedy
+    slots still take the argmax); with ``logprobs`` also the chosen token's
+    log-prob and the top ``LOGPROBS_K`` of log_softmax of the raw logits."""
+    nxt = greedy(logits) if sampling is None else sample_batch(logits, generator, **sampling)
+    if not logprobs:
+        return nxt
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    top = torch.topk(lp, LOGPROBS_K, dim=-1)
+    return nxt, lp.gather(1, nxt[:, None].long())[:, 0], top.values, top.indices
 
 
 def _paged_decode_roll(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
                        attn_impl: Optional[str], steps: int, *, decode_kernel: str = "auto",
-                       sampling: Optional[dict] = None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                       sampling: Optional[dict] = None, generator: Optional[torch.Generator] = None,
+                       logprobs: bool = False):
     """``steps`` decode iterations issued back to back on the device; returns
-    the [steps, S] tokens without reading them back.  Requests that hit EOS
-    or their budget mid-roll keep decoding into their own headroom pages (the
-    engine allocates ``decode_roll - 1`` extra positions); the host discards
-    the surplus tokens."""
+    the [steps, S] tokens without reading them back (with ``logprobs`` the
+    tuple of :func:`_decode_step_core`'s outputs, each stacked over the
+    steps).  Requests that hit EOS or their budget mid-roll keep decoding
+    into their own headroom pages (the engine allocates ``decode_roll - 1``
+    extra positions); the host discards the surplus tokens."""
     out = []
     for _ in range(steps):
-        tokens = _decode_step_core(params, cfg, tokens, lengths, active, tables, k_pool, v_pool, page_size,
-                                   attn_impl, decode_kernel=decode_kernel, sampling=sampling, generator=generator)
-        out.append(tokens)
+        step = _decode_step_core(params, cfg, tokens, lengths, active, tables, k_pool, v_pool, page_size,
+                                 attn_impl, decode_kernel=decode_kernel, sampling=sampling, generator=generator,
+                                 logprobs=logprobs)
+        out.append(step)
+        tokens = step[0] if logprobs else step
         lengths = torch.where(active, lengths + 1, lengths)
+    if logprobs:
+        return tuple(torch.stack(parts) for parts in zip(*out))
     return torch.stack(out)
 
 
@@ -279,6 +315,10 @@ class _PagedRequest:
     submit_t: float = 0.0  # perf_counter at submit (latency accounting)
     ttft: Optional[float] = None  # first-token latency (s)
     token_times: List[float] = field(default_factory=list)  # observation time per token
+    logprobs: bool = False  # OpenAI logprobs: the chosen token's log-prob a token
+    top_logprobs: int = 0  # 0..LOGPROBS_K alternatives a token
+    lp_list: List[float] = field(default_factory=list)  # aligned with generated
+    top_list: List[list] = field(default_factory=list)  # [(token id, log-prob), ...] a token, LOGPROBS_K of them
 
     @property
     def samples(self) -> bool:
@@ -334,7 +374,7 @@ class PagedBatchEngine:
         ``decode_kernel``: "auto" decodes with K12, "manual" with K13 (the
         same function; the plain route ignores it, as the JAX engine does off
         the TPU).  ``decode_graphs``: a CUDA engine on the kernels replays a
-        CUDA graph for each greedy roll (False: every roll eagerly).
+        CUDA graph for each roll (False: every roll eagerly).
         ``params`` already live on ``device`` (default CUDA; raises without
         it)."""
         if page_size not in PAGE_SIZES and torch.device(device or "cuda").type == "cuda":
@@ -395,13 +435,15 @@ class PagedBatchEngine:
         self._tokens = np.zeros(max_slots, np.int32)
         self._lengths = np.zeros(max_slots, np.int32)
         self._tables = np.full((max_slots, self.max_pages), self._parking, np.int32)
+        self.rng_seed = rng_seed
         self._generator = torch.Generator(device=self.device).manual_seed(rng_seed)
-        # a roll's inputs, one row a slot: token, length, active, then the page table
+        # a roll's inputs, one row a slot: token, length, active, the pick's
+        # parameters, then the page table
         cuda = self.device.type == "cuda"
-        self._roll_host = torch.zeros((max_slots, 3 + self.max_pages), dtype=torch.int32, pin_memory=cuda)
+        self._roll_host = torch.zeros((max_slots, _ROLL_COLS + self.max_pages), dtype=torch.int32, pin_memory=cuda)
         self._roll_dev = self._roll_host.to(self.device) if cuda else self._roll_host
         self.decode_graphs = decode_graphs
-        self._rolls: dict = {}  # table width -> the roll's GraphedStep, or its body run eagerly
+        self._rolls: dict = {}  # (table width, pick mode) -> the roll's GraphedStep, or its body run eagerly
         self._graph_pool = torch.cuda.graph_pool_handle() if self.graphed() else None
         self.rolls_graphed = self.rolls_eager = 0
 
@@ -419,13 +461,16 @@ class PagedBatchEngine:
         top_logprobs: int = 0,
     ) -> int:
         """Queue one request (ids with ``-200`` sentinels, its tiles
-        [N, 3, H, W] in sentinel order); returns its id.  Raises before any
-        work when no allocation could ever hold it."""
-        if logprobs or top_logprobs:
-            raise NotImplementedError("PagedBatchEngine: logprobs wait for a later slice of the port")
+        [N, 3, H, W] in sentinel order); returns its id.  ``logprobs`` /
+        ``top_logprobs`` (at most ``LOGPROBS_K``): each generated token's
+        log-prob and the top alternatives, read with
+        :meth:`request_logprobs`.  Raises before any work when no allocation
+        could ever hold it."""
         if generation is not None and (generation.presence_penalty or generation.frequency_penalty):
             raise NotImplementedError("PagedBatchEngine: presence / frequency penalties wait for a later slice")
         req = _PagedRequest(next(self._ids), list(input_ids), None, max_new_tokens, eos_token_id, generation)
+        req.logprobs = bool(logprobs) or top_logprobs > 0
+        req.top_logprobs = max(0, min(int(top_logprobs), LOGPROBS_K))
         req.submit_t = time.perf_counter()
         req.plan = self._prefiller.plan([req.input_ids])
         # roll - 1 extra positions absorb mid-roll writes past a finished budget
@@ -467,6 +512,18 @@ class PagedBatchEngine:
     def pop_result(self, request_id: int):
         req = self.requests.pop(request_id)
         return list(req.generated), req.prompt_len
+
+    def request_logprobs(self, request_id: int):
+        """(chosen-token log-probs, top alternatives), both aligned with the
+        generated tokens; read before :meth:`pop_result`.  Top entries are
+        ``[(token id, log-prob), ...]`` cut to the request's
+        ``top_logprobs`` (None when it asked for none); (None, None) when
+        the request asked for no log-probs."""
+        req = self.requests[request_id]
+        if not req.logprobs:
+            return None, None
+        tops = [t[: req.top_logprobs] for t in req.top_list] if req.top_logprobs else None
+        return list(req.lp_list), tops
 
     def cancel(self, request_id: int) -> None:
         """Request early termination.  Only a flag is set here; the scheduler
@@ -750,6 +807,11 @@ class PagedBatchEngine:
             self._release(req)
             return
         req.generated.append(first)
+        if req.logprobs and logits_row is not None:
+            lp = torch.log_softmax(logits_row.float(), dim=-1)[0]
+            top = torch.topk(lp, LOGPROBS_K)
+            req.lp_list.append(float(lp[first]))
+            req.top_list.append(list(zip(top.indices.tolist(), top.values.tolist())))
         req.token_times.append(now)
         if len(req.generated) >= req.max_new_tokens:
             self._release(req)
@@ -832,37 +894,60 @@ class PagedBatchEngine:
     # -- decode rolls ---------------------------------------------------------
 
     def graphed(self) -> bool:
-        """Whether greedy rolls replay CUDA graphs (a CUDA engine on the
-        kernels with ``decode_graphs``)."""
+        """Whether rolls replay CUDA graphs (a CUDA engine on the kernels
+        with ``decode_graphs``)."""
         return self.decode_graphs and self.device.type == "cuda" and self.attn_impl != PLAIN
 
-    def precompile(self, roll_widths: Sequence[int] = ROLL_WIDTHS) -> List[int]:
-        """Capture the greedy roll of every table width in ``roll_widths``
-        (capped at the table's width) ahead of traffic, as the JAX engine's
+    def precompile(self, roll_widths: Sequence[int] = ROLL_WIDTHS,
+                   variants: Sequence[tuple] = PICK_MODES) -> List[int]:
+        """Capture the roll of every table width in ``roll_widths`` (capped
+        at the table's width) and every pick mode in ``variants`` ((any
+        sampled, log-probs) pairs) ahead of traffic, as the JAX engine's
         ``precompile`` compiles its roll programs; returns the widths.  Each
         capture follows one roll over parked slots (nothing active, every
         table on the parking page), so it writes nothing but the parking
-        page.  Prefill runs eagerly and has nothing to capture.  On a CPU
-        engine, or without graphs, the parked roll runs eagerly once."""
+        page; the generator is seeded again afterwards, so that precompiling
+        leaves the draws of the traffic after it unchanged.  Prefill runs
+        eagerly and has nothing to capture.  On a CPU engine, or without
+        graphs, each parked roll runs eagerly once."""
         widths = sorted({min(int(w), self.max_pages) for w in roll_widths})
         parked = np.full((self.max_slots, self.max_pages), self._parking, np.int32)
         zeros = np.zeros(self.max_slots, np.int32)
         for w in widths:
-            step = self._roll_step(w)
-            if isinstance(step, GraphedStep) and step.graph is not None:
-                continue
-            self._stage_roll(zeros, zeros, zeros, parked[:, :w])
-            step()
+            for mode in variants:
+                step = self._roll_step(w, tuple(mode))
+                if isinstance(step, GraphedStep) and step.graph is not None:
+                    continue
+                self._stage_roll(zeros, zeros, zeros, parked[:, :w], self._sampling_rows([]))
+                step()
+        self._generator.manual_seed(self.rng_seed)
         return widths
 
-    def _stage_roll(self, tokens, lengths, active, tables) -> None:
-        """Copy a roll's host inputs ([S] tokens, lengths, active; [S, W]
-        tables) into the static buffer the roll reads (one asynchronous copy
-        from pinned memory on CUDA: the host writes the pinned rows again only
-        after the roll's tokens came back)."""
+    def capture_ms(self) -> float:
+        """The wall time the roll graphs' captures took, in milliseconds."""
+        return 1e3 * sum(step.capture_s for step in self._rolls.values() if isinstance(step, GraphedStep))
+
+    def _sampling_rows(self, decoding) -> np.ndarray:
+        """[S, 4] fp32 host rows of the roll's per-slot pick parameters:
+        do_sample, top_k, temperature, top_p (neutral for greedy slots)."""
+        rows = np.zeros((self.max_slots, 4), np.float32)
+        rows[:, 2:] = 1.0
+        for r in decoding:
+            if r.samples:
+                g = r.generation
+                rows[r.slot] = (1.0, g.top_k, g.temperature, g.top_p)
+        return rows
+
+    def _stage_roll(self, tokens, lengths, active, tables, sampling: np.ndarray) -> None:
+        """Copy a roll's host inputs ([S] tokens, lengths, active; [S, 4]
+        sampling rows; [S, W] tables) into the static buffer the roll reads
+        (one asynchronous copy from pinned memory on CUDA: the host writes the
+        pinned rows again only after the roll's tokens came back)."""
         h = self._roll_host.numpy()
         h[:, 0], h[:, 1], h[:, 2] = tokens, lengths, active
-        h[:, 3: 3 + tables.shape[1]] = tables
+        h[:, 3], h[:, 4] = sampling[:, 0], sampling[:, 1]
+        h[:, 5:7] = np.ascontiguousarray(sampling[:, 2:]).view(np.int32)
+        h[:, _ROLL_COLS: _ROLL_COLS + tables.shape[1]] = tables
         if self._roll_dev is not self._roll_host:
             self._roll_dev.copy_(self._roll_host, non_blocking=True)
 
@@ -870,68 +955,72 @@ class PagedBatchEngine:
         """(tokens, lengths, active, tables) of the staged roll: views of the
         static buffer, tables the first ``width`` pages."""
         b = self._roll_dev
-        return b[:, 0], b[:, 1], b[:, 2] != 0, b[:, 3: 3 + width]
+        return b[:, 0], b[:, 1], b[:, 2] != 0, b[:, _ROLL_COLS: _ROLL_COLS + width]
 
-    def _roll_step(self, width: int):
-        """The greedy roll at table width ``width``: a GraphedStep on a graphed
-        engine, else its body; it writes the [roll, S] tokens into a static
-        buffer and returns it."""
-        step = self._rolls.get(width)
+    def _roll_sampling(self) -> dict:
+        """The staged per-slot pick parameters, as ``sample_batch`` takes them."""
+        b = self._roll_dev
+        return {"do_sample": b[:, 3] != 0, "top_k": b[:, 4], "temperature": b[:, 5].view(torch.float32),
+                "top_p": b[:, 6].view(torch.float32)}
+
+    def _roll_step(self, width: int, mode: tuple = PICK_MODES[0]):
+        """The roll at table width ``width`` and pick ``mode``: a GraphedStep
+        on a graphed engine (a sampled mode registers the engine's generator
+        with its graph), else its body; it writes the [roll, S] tokens (and
+        with log-probs the chosen [roll, S] and top [roll, S, K] values and
+        ids) into static buffers and returns them."""
+        step = self._rolls.get((width, mode))
         if step is None:
-            out = torch.zeros((self.decode_roll, self.max_slots), dtype=torch.int32, device=self.device)
+            sampled, logprobs = mode
+            kw = dict(dtype=torch.int32, device=self.device)
+            shape = (self.decode_roll, self.max_slots)
+            out = [torch.zeros(shape, **kw)]
+            if logprobs:
+                out += [torch.zeros(shape, dtype=torch.float32, device=self.device),
+                        torch.zeros((*shape, LOGPROBS_K), dtype=torch.float32, device=self.device),
+                        torch.zeros((*shape, LOGPROBS_K), dtype=torch.int64, device=self.device)]
             engine = weakref.ref(self)  # weak: a deleted engine is freed at once, not by the collector
 
             def body():
                 eng = engine()
-                toks = _paged_decode_roll(eng.params, eng.cfg, *eng._roll_inputs(width), eng.k_pool, eng.v_pool,
-                                          eng.page_size, eng.attn_impl, eng.decode_roll,
-                                          decode_kernel=eng.decode_kernel)
-                return out.copy_(toks)
+                got = _paged_decode_roll(eng.params, eng.cfg, *eng._roll_inputs(width), eng.k_pool, eng.v_pool,
+                                         eng.page_size, eng.attn_impl, eng.decode_roll,
+                                         decode_kernel=eng.decode_kernel,
+                                         sampling=eng._roll_sampling() if sampled else None,
+                                         generator=eng._generator, logprobs=logprobs)
+                for o, g in zip(out, got if logprobs else (got,)):
+                    o.copy_(g)
+                return tuple(out)
 
-            step = GraphedStep(body, self._graph_pool, self.device) if self.graphed() else body
-            self._rolls[width] = step
+            if self.graphed():
+                step = GraphedStep(body, self._graph_pool, self.device,
+                                   generators=(self._generator,) if sampled else ())
+            else:
+                step = body
+            self._rolls[(width, mode)] = step
         return step
 
     def _dispatch_roll(self, decoding, roll, active, tables_dec):
         """Issue one decode roll without reading its tokens back: a replay of
-        the width's graph, or eagerly where a slot samples or graphs are off."""
-        dev = self.device
-        self._stage_roll(self._tokens, self._lengths, active, tables_dec)
-        width = tables_dec.shape[1]
-        if any(r.samples for r in decoding):
-            do_sample = np.zeros(self.max_slots, bool)
-            temperature = np.ones(self.max_slots, np.float32)
-            top_k = np.zeros(self.max_slots, np.int32)
-            top_p = np.ones(self.max_slots, np.float32)
-            for r in decoding:
-                if r.samples:
-                    g = r.generation
-                    do_sample[r.slot] = True
-                    temperature[r.slot] = g.temperature
-                    top_k[r.slot] = g.top_k
-                    top_p[r.slot] = g.top_p
-            sampling = {k: torch.as_tensor(v, device=dev) for k, v in
-                        dict(do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p).items()}
-            toks = _paged_decode_roll(
-                self.params, self.cfg, *self._roll_inputs(width), self.k_pool, self.v_pool, self.page_size,
-                self.attn_impl, roll, decode_kernel=self.decode_kernel, sampling=sampling, generator=self._generator,
-            )
-            self.rolls_eager += 1
+        the graph of its width and pick mode, or its body run eagerly where
+        graphs are off."""
+        self._stage_roll(self._tokens, self._lengths, active, tables_dec, self._sampling_rows(decoding))
+        mode = (any(r.samples for r in decoding), any(r.logprobs for r in decoding))
+        step = self._roll_step(tables_dec.shape[1], mode)
+        out = step()
+        if isinstance(step, GraphedStep):
+            self.rolls_graphed += 1
         else:
-            step = self._roll_step(width)
-            toks = step()
-            if isinstance(step, GraphedStep):
-                self.rolls_graphed += 1
-            else:
-                self.rolls_eager += 1
-        return {"decoding": list(decoding), "slots": [r.slot for r in decoding], "toks_dev": toks}
+            self.rolls_eager += 1
+        return {"decoding": list(decoding), "slots": [r.slot for r in decoding], "out": out}
 
     def _process_roll(self, h):
-        """Read a roll's tokens back (one readback) and run the per-request
-        bookkeeping: EOS / budget releases and the latency windows.  Host
+        """Read a roll's tokens (and log-probs) back, one readback each, and
+        run the per-request bookkeeping: EOS / budget releases, the latency
+        windows and the log-prob lists, kept aligned with the tokens.  Host
         lengths advance per consumed token; a request that finishes mid-roll
         is released, so its surplus positions stay in its freed headroom."""
-        toks_np = h["toks_dev"].cpu().numpy()  # [roll, S]
+        toks_np, *lp = (t.cpu().numpy() for t in h["out"])  # [roll, S], then [roll, S], [roll, S, K] x 2
         tick_now = time.perf_counter()  # tokens of a roll arrive together
         for r, slot in zip(h["decoding"], h["slots"]):
             if r.done:
@@ -944,6 +1033,9 @@ class PagedBatchEngine:
                     self._release(r)
                     break
                 r.generated.append(tok)
+                if r.logprobs:
+                    r.lp_list.append(float(lp[0][i, slot]))
+                    r.top_list.append([(int(t), float(v)) for t, v in zip(lp[2][i, slot], lp[1][i, slot])])
                 if r.token_times and tick_now > r.token_times[-1]:
                     self._gaps.append(tick_now - r.token_times[-1])
                 r.token_times.append(tick_now)

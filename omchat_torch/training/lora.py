@@ -13,8 +13,9 @@ port of ``omchat_tpu/training/lora.py``.
 - :func:`merge_lora` folds trained adapters into the checkpoint (bf16, or
   re-quantized to int8) for serving.
 
-B starts at zero, so step 0 is exactly the base model.  The per-request
-serving bank (``build_lora_bank``) comes with a later slice.
+B starts at zero, so step 0 is exactly the base model.
+:func:`build_lora_bank` stacks several adapters into a serving bank for
+per-request LoRA (``OmChatEngine(lora_bank=)``, ``generate(adapter_id=)``).
 """
 
 from __future__ import annotations
@@ -112,6 +113,47 @@ def merge_lora(params: dict, lora: dict, *, quantize: bool = False) -> dict:
         lm["layers"] = quantize_tree(lm["layers"])
         merged = {**merged, "language_model": lm}
     return merged
+
+
+@torch.no_grad()
+def build_lora_bank(adapters: Sequence[dict], dtype=torch.bfloat16, device=None) -> dict:
+    """Stack adapter trees (this module's layout) into a serving bank for
+    per-request multi-LoRA (:func:`omchat_torch.models.qwen2.lora_delta`).
+
+    Returns {"layers": {group: {name: {"a": [L, N+1, in, rmax], "b": [L,
+    N+1, rmax, out]}}}}: the layer axis first, so a layer's slice is that
+    layer's bank, and the bank axis second.  Row 0 is the all-zero adapter
+    (the base model); adapter i serves as bank id i+1.  Each adapter's
+    ``scale`` is folded into its b, ranks are zero-padded to the widest
+    (exact: the padded rows add a @ 0 + 0 @ b = 0), and a target an adapter
+    lacks contributes zeros for it.  ``device``: default the first
+    adapter's."""
+    if not adapters:
+        raise ValueError("build_lora_bank needs at least one adapter")
+    n = len(adapters)
+    leaves = [ab for ad in adapters for group in ad["layers"].values() for ab in group.values()]
+    rmax = max(ab["a"].shape[-1] for ab in leaves)
+    device = device if device is not None else leaves[0]["a"].device
+    shapes: dict = {}  # the union of (group, name) targets with their (L, in, out)
+    for ad in adapters:
+        for group, names in ad["layers"].items():
+            for name, ab in names.items():
+                n_layers, d_in, _ = ab["a"].shape
+                shapes.setdefault(group, {})[name] = (n_layers, d_in, ab["b"].shape[-1])
+    bank: dict = {}
+    for group, names in shapes.items():
+        for name, (n_layers, d_in, d_out) in names.items():
+            a = torch.zeros((n_layers, n + 1, d_in, rmax), dtype=dtype, device=device)
+            b = torch.zeros((n_layers, n + 1, rmax, d_out), dtype=dtype, device=device)
+            for i, ad in enumerate(adapters):
+                ab = ad["layers"].get(group, {}).get(name)
+                if ab is None:
+                    continue
+                r = ab["a"].shape[-1]
+                a[:, i + 1, :, :r] = ab["a"].to(dtype)
+                b[:, i + 1, :r, :] = (ab["b"] * ad["scale"]).to(dtype)
+            bank.setdefault(group, {})[name] = {"a": a, "b": b}
+    return {"layers": bank}
 
 
 def lora_loss_fn(lora: dict, params: dict, cfg: OmChatConfig, batch: dict, *, attn_impl: Optional[str] = VJP,

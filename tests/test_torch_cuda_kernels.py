@@ -1288,6 +1288,60 @@ def test_paged_rolls_graphed_give_the_eager_tokens(graph_model, kernel, pool):
     assert st_graph["rolls_graphed"] == st_eager["rolls_eager"] > 0 and st_graph["rolls_eager"] == 0
 
 
+def test_paged_pick_modes_graphed_give_the_eager_rolls(graph_model):
+    """Sampled and log-prob rolls replay their pick mode's graph after
+    ``precompile`` and give the eager rolls' tokens and log-probs bit for
+    bit from one generator seed; no roll runs eagerly."""
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    cfg, params = graph_model
+    hot = GenerationConfig(max_new_tokens=12, eos_token_id=-1, do_sample=True, temperature=0.8, top_k=50)
+    got = {}
+    for graphs in (False, True):
+        eng = PagedBatchEngine(cfg, params, decode_graphs=graphs, max_slots=4, num_pages=48, page_size=128,
+                               max_len=1024, decode_roll=4, image_cache_size=0, rng_seed=5)
+        eng.precompile()
+        rids = [eng.submit(p, None, max_new_tokens=12, eos_token_id=-1, generation=hot if i % 2 else None,
+                           logprobs=i < 3, top_logprobs=5) for i, p in enumerate(_prompts(6, seed=2))]
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        got[graphs] = [(eng.result(r), eng.request_logprobs(r)) for r in rids], eng.latency_stats()
+    (want, st_eager), (runs, st_graph) = got[False], got[True]
+    assert runs == want and all(len(t) == 12 for t, _ in runs)
+    assert st_graph["rolls_eager"] == 0 and st_graph["rolls_graphed"] == st_eager["rolls_eager"] > 0
+
+
+def test_lora_bank_decode_graph_serves_every_adapter(graph_model):
+    """With a LoRA bank the graphed decode step reads each request's adapter
+    from the decode state's buffer: adapters 1, 0 and 2 in turn on one state
+    give the eager engine's tokens, and adapter 0 the bank-free engine's."""
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.training.lora import build_lora_bank, init_lora
+
+    cfg, params = graph_model
+    adapters = []
+    for seed in (1, 2):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        lora = init_lora(g, params, rank=8)
+        for group in lora["layers"].values():
+            for ab in group.values():
+                ab["a"] = ab["a"].detach()
+                ab["b"] = (torch.randn(ab["b"].shape, generator=g, device="cuda") * 0.02).to(ab["b"].dtype)
+        adapters.append(lora)
+    bank = build_lora_bank(adapters)
+    gen = GenerationConfig(max_new_tokens=10, eos_token_id=-1)
+    ids = [_prompts(1, seed=3)[0]]
+    engines = {graphs: OmChatEngine(cfg, params, lora_bank=bank, image_cache_size=0, decode_graphs=graphs)
+               for graphs in (False, True)}
+    for adapter in (1, 0, 2):
+        want = engines[False].generate(ids, None, gen, adapter_id=adapter).token_ids
+        assert engines[True].generate(ids, None, gen, adapter_id=adapter).token_ids == want
+    base = OmChatEngine(cfg, params, image_cache_size=0).generate(ids, None, gen).token_ids
+    assert engines[True].generate(ids, None, gen, adapter_id=0).token_ids == base
+
+
 # -- the single-request surface's regimes: K2 at a verify step's or a chunk's
 # rows past an offset, K3 over a video's cache and at a beam search's batch,
 # K7 / K11 / K10 at a verify step's 9 rows, the sampled decode step graphed.

@@ -21,6 +21,7 @@ from omchat_torch.config import GenerationConfig as TGenerationConfig
 from omchat_torch.config import OmChatConfig as TOmChatConfig
 from omchat_torch.runtime import generate as tgen
 from omchat_torch.runtime.generate import OmChatEngine as TEngine
+from omchat_torch.runtime.paged_engine import PICK_MODES
 from tests.test_torch_engine import _request
 from tests.test_torch_paged_engine import ENGINE, MAX_NEW, _port, _run, reference  # noqa: F401
 
@@ -218,7 +219,7 @@ def test_precompile_and_bucketed_rolls_match_per_step_rolls_and_jax(reference, r
     assert widths == sorted({min(w, eng.max_pages) for w in (4, 8, 16, 32)})
     parking = eng._parking
     assert not eng.k_pool[:, :parking].any() and not eng.v_pool[:, :parking].any()
-    assert set(eng._rolls) == set(widths)
+    assert set(eng._rolls) == {(w, mode) for w in widths for mode in PICK_MODES}  # every width and pick mode
     assert _run(eng) == want == _run(_port(params, decode_roll=1))
     stats = eng.latency_stats()
     assert stats["rolls_graphed"] == 0 and stats["rolls_eager"] > 0  # a CPU engine rolls eagerly

@@ -123,7 +123,9 @@ def test_allowed_tokens_fn_replaces_bias_and_penalties_as_jax_does():
 
 
 def test_adapter_id_raises_by_name():
-    with pytest.raises(NotImplementedError, match="A10"):
+    """An adapter asked of an engine without a LoRA bank is refused by name
+    (the bank itself: tests/test_torch_lora_bank.py)."""
+    with pytest.raises(ValueError, match="no LoRA bank"):
         _engine().generate([[5, 6, 7]], None, TGen(max_new_tokens=2), adapter_id=1)
 
 

@@ -154,9 +154,7 @@ def test_waiting_options_raise(option):
 def test_waiting_request_options_raise(reference):
     params, _ = reference
     eng = _port(params)
-    with pytest.raises(NotImplementedError):
-        eng.submit([5, 6], logprobs=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):  # the JAX paged engine has no penalties either
         eng.submit([5, 6], generation=GenerationConfig(presence_penalty=0.5))
     with pytest.raises(NotImplementedError):
         TPagedEngine(TOmChatConfig(text=TOmChatConfig.tiny().text.__class__(num_experts=4, moe_intermediate_size=8)),

@@ -1,6 +1,8 @@
-"""The port's thin HTTP server on the CPU: the tiny on-disk checkpoint loaded
-by the port, the paged engine ticked by the scheduler thread, ``/health`` and
-a text and an image chat completion on ``127.0.0.1:0``."""
+"""The port's HTTP server over the paged engine on the CPU: the tiny on-disk
+checkpoint loaded by the port, the paged engine ticked by the scheduler
+thread, ``/health`` and a text and an image chat completion on
+``127.0.0.1:0``; the flags the server still refuses by name (the parity of
+every route with the JAX server: ``tests/test_torch_serve.py``)."""
 
 import base64
 import io
@@ -71,19 +73,30 @@ def test_image_completion(server):
     out = _post(port, {
         "messages": [{"role": "user", "content": [
             {"type": "text", "text": "What is this?"}, {"type": "image_url", "image_url": {"url": url}}]}],
-        "max_tokens": 3, "temperature": 0.8, "top_k": 5,
+        "max_tokens": 3, "temperature": 0.8,
     })
     assert 1 <= out["usage"]["completion_tokens"] <= 3
     assert out["usage"]["prompt_tokens"] > 2 * 16  # at least two 16-row tiles spliced in
     assert engine.stats()["image_cache_misses"] >= 1
 
 
-def test_unsupported_field_is_a_client_error(server):
-    port, _ = server
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(port, {"messages": [{"role": "user", "content": "hi"}], "stream": True})
-    assert e.value.code == 400
-    assert "stream" in json.loads(e.value.read())["error"]["message"]
+@pytest.mark.parametrize("flags,item", [
+    (["--prefix-cache"], "A10c"), (["--streaming-roll", "4"], "A10c"), (["--pipeline-rolls"], "A10c"),
+    (["--paged", "--speculative"], "A10c"), (["--continuous-batching"], "A10d"), (["--tp", "2"], "13"),
+], ids=["prefix-cache", "streaming-roll", "pipeline-rolls", "paged-speculative", "continuous-batching", "tp"])
+def test_unsupported_field_is_a_client_error(flags, item, capsys, monkeypatch):
+    """What the port does not serve yet is refused by name, as a usage error
+    naming the queue item that will bring it, before any weight loads."""
+    from omchat_torch.cli.serve import main
+
+    def no_load(*a, **kw):
+        raise AssertionError("weights loaded before the refusal")
+
+    monkeypatch.setattr("omchat_torch.api.load_pretrained_model", no_load)
+    with pytest.raises(SystemExit) as e:
+        main(["--model-path", "/nonexistent", "--device", "cpu", *flags])
+    assert e.value.code == 2
+    assert item in capsys.readouterr().err
 
 
 def test_prompt_no_allocation_holds_is_a_client_error(server):
@@ -121,5 +134,5 @@ def test_failed_scheduler_cancels_and_forgets_the_request():
     loop = ServingLoop(eng)  # never started: the scheduler is gone
     loop.error = RuntimeError("scheduler died")
     with pytest.raises(RuntimeError, match="unavailable"):
-        loop.run([1, 2], None, GenerationConfig(max_new_tokens=2))
+        loop.run_n([1, 2], None, GenerationConfig(max_new_tokens=2))
     assert eng.cancelled == [0] and eng.requests == {}
