@@ -217,6 +217,34 @@
     eager one, every draw in its top 50; a LoRA bank of two rank-16
     adapters (adapter 0 the base engine's tokens; adapter 1 against
     ``merge_lora``; decode tokens/s with and without the bank).
+28. The paged engine's routes at full width and depth on phase 3's weights
+    (right after phase 27): (a) phase 5's requests behind one 1024-token
+    system prompt, served cold and with ``prefix_cache=True`` after a wave
+    that published the prompt's pages (hits, prefill dispatch wall ms by
+    kind, TTFT, tokens/s, pages free + evictable = the pool); the hit
+    requests' first-token logits against the cold ones within 1.5x the gap
+    the plain route reads (``PREFIX_PLAIN_GAP``), which a hit resumed one
+    page late and decode rows written onto the shared pages must fail;
+    multi-turn VQA (turn 2 hits every page turn 1 published, the ViT
+    skipped; TTFT of both turns).  (b) The verify's logits
+    (``_paged_verify``: K2 over gathered pages, K4) against the decode
+    route's at full depth, fed the same tokens, within 1.5x the gap the
+    kernels' plain versions read between the two routes
+    (``SPEC_PLAIN_GAP``; write_pos + 1 and the draft a row late must fail
+    it), that gap and the plain route's read beside it, and against
+    ``attn_impl="plain"`` at 2+2 layers within phase 4's limits; an echo workload at 16 slots on plain rolls
+    and with speculative verify in turns (verify dispatches, tokens, mean
+    accepted drafts, tokens/s, verifies eager 0), the graphed verify's ms
+    beside the graphed roll's ms a step.  (c) Phase 27 (b) over HTTP with
+    ``--streaming-roll 4``: SSE inter-chunk p50 / p99 beside the same engine
+    without it and phase 27's, the roll lengths run, a request alone over
+    SSE bitwise its 16-step run.  (d) Phase 5's workload in process, then
+    phase 27 (b) over HTTP, with and without ``pipeline_rolls`` in turns:
+    tokens bitwise equal, every roll graphed, the card's busy share
+    between rolls.  Kernel rows: K2 at the largest verify (16 slots x 5
+    rows over the gathered blocks, SDPA with the same mask), K4 at its
+    L*S*T = 2240 rows (``index_put_``), K14 on the prefix run's largest
+    resumed chunk (gather + SDPA).
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -1020,7 +1048,7 @@ def record_dispatches(eng) -> tuple:
             return out
         return wrapped
 
-    def on_roll(decoding, roll, active, tables):
+    def on_roll(decoding, roll, active, tables, *a, **kw):
         rec["rolls"].append(dict(label=rec["label"], n=len(decoding), tables=np.array(tables),
                                  lengths=np.where(active, eng._lengths, 0).astype(np.int32)))
         return len(decoding), roll
@@ -5098,9 +5126,11 @@ def paged_logprob_faults() -> dict:
     def slot_shifted(eng):  # each slot reads its neighbour's rows of the roll's log-probs
         process = eng._process_roll
 
-        def shifted(h):
-            h["out"] = (h["out"][0], *(torch.roll(t, 1, dims=1) for t in h["out"][1:])) if len(h["out"]) > 1 \
-                else h["out"]
+        def shifted(h):  # in the host copies the engine reads, once they have landed
+            if h["ready"] is not None:
+                h["ready"].synchronize()
+            h["host"] = (h["host"][0], *(torch.roll(t, 1, dims=1) for t in h["host"][1:])) if len(h["host"]) > 1 \
+                else h["host"]
             return process(h)
 
         eng._process_roll = shifted
@@ -5311,6 +5341,979 @@ def serving_on_the_card(model, small, seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the paged engine's routes (prefix cache, speculative verify in the
+# batch, streaming and pipelined rolls) at full width and depth
+# ---------------------------------------------------------------------------
+
+# Phase 28 (a): phase 5's requests behind one shared system prompt of
+# PREFIX_PAGES pages (PREFIX_PAGES * 128 tokens); the pool holds the cold run
+# (each request its own copy of the prompt), and prompts up to ROUTES's
+# prefill_chunk take the one-shot route cold (K2 + K15; a hit resumes on the
+# chunked route, K14 over pages another request wrote).  PREFIX_SUBSET: the
+# requests whose first-token logits are read on attn_impl="plain" too; the
+# fault runs seed PREFIX_FAULT_SEEDS requests that decode PREFIX_FAULT_TOKENS.
+PREFIX_PAGES, PREFIX_SUBSET, PREFIX_FAULT_SEEDS, PREFIX_FAULT_TOKENS = 8, (0, 1, 2, 3), 4, 32
+ROUTES = {**SERVING, "num_pages": 320, "prefill_chunk": 2048}
+# The prefix-hit request's first-token logits against the same request served
+# cold: the resumed route (K14 over the cached pages) and the one-shot route (K2
+# over the whole prompt) round bf16 products of other shapes over 28 layers, as
+# C4's routes do.  The limit is 1.5x the plain route's gap on the same requests, as
+# an H100 run read it (NVIDIA H100 80GB HBM3, 700.00 W; chip_probes/paged_routes.py):
+# plain 0.1797, kernels 0.1582 over all 16 requests, at max |logit| 6.06; the
+# planted faults read 6.63 (a page late) and 7.77 (decode rows on shared pages).
+PREFIX_PLAIN_GAP = 0.1796875
+# Phase 28 (b): the verify checks run SPEC_SLOTS requests through SPEC_DRAFT_LEN + 1
+# verify rows; the repetitive workload has ECHO_REQUESTS prompts of a ECHO_BLOCK-token
+# block said ECHO_REPEATS times (tests/test_paged_engine.py:553's shape, at 16 slots).
+SPEC_SLOTS, SPEC_DRAFT_LEN, ECHO_REQUESTS, ECHO_BLOCK, ECHO_REPEATS = 4, 4, 16, 32, 4
+# Phase 28 (c): the roll while an SSE request decodes (--streaming-roll 4 beside
+# --decode-roll 16); timing replays of the graphed verify and roll
+STREAMING_ROLL, STEP_REPLAYS = 4, 10
+PLAIN_IMPL, PICK_MODES_GREEDY = "plain", (False, False)
+# Phase 28 (b), the batch's verify (4 slots x 5 rows, K2 over gathered pages) against
+# the paged decode route (K12) at full depth, fed the same tokens: C4's method on this
+# comparison.  An H100 run (NVIDIA H100 80GB HBM3, 700.00 W; teacher-forced, max |logit|
+# 5.88) read the two routes 0.330 apart on the kernels, 0.335 apart on the kernels'
+# plain versions (the functions the JAX kernels compute, no CUDA kernel involved) and
+# 0.211 on attn_impl="plain", which rounds p nowhere; each kernel against its own
+# plain version 0.26 (K2) and 0.31 (K12) over 28 layers.  So the gap is the two
+# functions' bf16 rounding, not a fault, and C4's 0.306 (read on a single request's
+# 9 rows) is too tight for it: the limit is 1.5x the plain versions' gap; the planted
+# faults read 6.30 (write_pos + 1) and 8.45 (the draft a row late).
+SPEC_PLAIN_GAP = 0.335
+# what phase 28's runs hand the kernels of its rows, and their launches there
+# (filled before the runs' checks, so that a failed check still times them)
+ROUTES_SEEN: dict = {}
+
+
+def routes_workload(cfg, tails_seed: int) -> list:
+    """Phase 5's requests (``serving_workload``; with ``tails_seed`` other
+    than its own seed, other ids of the same lengths) behind one
+    ``PREFIX_PAGES``-page system prompt: [(ids, tiles)]."""
+    import numpy as np
+
+    sys_ids = [int(t) for t in np.random.default_rng(1000).integers(2000, 20000, PREFIX_PAGES * 128 - 1)]
+    rng = np.random.default_rng(tails_seed)
+    out = []
+    for ids, tiles in serving_workload(cfg):
+        if tails_seed != SERVING_WORKLOAD_SEED:
+            ids = [t if t < 0 else int(rng.integers(2000, 20000)) for t in ids]
+        out.append(([151644] + sys_ids + ids[1:], tiles))
+    return out
+
+
+def lone_prefill_spans(eng) -> list:
+    """CUDA events around each lone one-shot prefill (``_prefill_tick`` on
+    its contiguous route: a prompt with an image, or a text prompt alone):
+    [(start, end)]."""
+    import torch
+
+    spans, tick = [], eng._prefill_tick
+
+    def wrapped(req):
+        if req.chunk_pos or int(req.plan.lengths[0]) > eng.prefill_chunk:
+            return tick(req)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = tick(req)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    eng._prefill_tick = wrapped
+    return spans
+
+
+def roll_timeline(eng) -> dict:
+    """CUDA events around each roll dispatch, each beside the count of
+    prefill and ViT dispatches before it, and the roll lengths: what
+    ``busy_between_rolls`` reads."""
+    import torch
+
+    rec = {"rolls": [], "other": 0}
+    dispatch = eng._dispatch_roll
+
+    def roll(decoding, n, *a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        h = dispatch(decoding, n, *a, **kw)
+        end.record()
+        rec["rolls"].append((start, end, rec["other"], n))
+        return h
+
+    def counting(fn):
+        def wrapped(*a, **kw):
+            rec["other"] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    eng._dispatch_roll = roll
+    for name in ("_prefill_shorts", "_run_chunk", "_prefill_tick"):
+        setattr(eng, name, counting(getattr(eng, name)))
+    eng._prefiller.encode_tiles = counting(eng._prefiller.encode_tiles)
+    return rec
+
+
+def busy_between_rolls(rec) -> dict:
+    """From ``roll_timeline``'s events (after a synchronize): the card's
+    busy share over the stretches where rolls follow rolls with no other
+    dispatch between them (each roll's device time over itself plus the gap
+    from the previous roll's end), and those gaps' median."""
+    rolls = rec["rolls"]
+    busy, gaps = [], []
+    for (s0, e0, n0, _), (s1, e1, n1, _) in zip(rolls, rolls[1:]):
+        if n0 == n1:
+            busy.append(s1.elapsed_time(e1))
+            gaps.append(max(0.0, e0.elapsed_time(s1)))
+    total = sum(busy) + sum(gaps)
+    return {"busy_share_between_rolls": sum(busy) / total if total else None,
+            "roll_gap_ms_p50": sorted(gaps)[len(gaps) // 2] if gaps else None, "roll_pairs": len(gaps)}
+
+
+def prefix_serving(cfg, params, prefix_cache: bool, label: str) -> tuple:
+    """Phase 28 (a), one engine: a warm-up wave (the system prompt before
+    other tails, 4 tokens: it publishes the system prompt's pages when
+    ``prefix_cache``), then the timed wave at SERVING_NEW_TOKENS.  Returns
+    (results, the first-token logits by request index, the timed run's
+    recorded chunk dispatches)."""
+    import torch
+
+    from omchat_torch.runtime import paged_engine as pe
+
+    eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, prefix_cache=prefix_cache, **ROUTES)
+    first = capture_first_logits(eng)
+    rec, undo = record_dispatches(eng)
+    lone = lone_prefill_spans(eng)
+    try:
+        rec["label"] = "warm-up"
+        for rid in drive(eng, routes_workload(cfg, 7), 4):
+            eng.pop_result(rid)
+        torch.cuda.synchronize()
+        eng.reset_latency_stats()
+        for c in paged_counters().values():
+            c.launches = 0
+        lone.clear()
+        hits0 = eng.prefix_cache.stats()["hits"] if prefix_cache else 0
+        rec["label"] = "timed"
+        work = routes_workload(cfg, SERVING_WORKLOAD_SEED)
+        t0 = time.perf_counter()
+        rids = drive(eng, work, SERVING_NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = {n: c.launches for n, c in paged_counters().items()}
+    tokens = [eng.pop_result(r)[0] for r in rids]
+    st = eng.latency_stats()
+    cache = eng.prefix_cache.stats() if prefix_cache else {}
+    free = eng.allocator.available
+    rows = [int(eng._prefiller.plan([w[0]]).lengths[0]) for w in work]
+    res = {"card": CARD, "requests": len(work), "prompt_rows_min_max": [min(rows), max(rows)],
+           "tokens_per_s": sum(map(len, tokens)) / wall, "wall_s": wall,
+           "ttft_p50_s": st["ttft_p50_s"], "ttft_p99_s": st["ttft_p99_s"],
+           "intertoken_p99_s": st.get("intertoken_p99_s"),
+           "prefill_dispatch_wall_ms": {k: sum(span_ms(rec, "timed", k)) for k in ("vit", "shorts", "chunk")},
+           "chunk_dispatches": len(span_ms(rec, "timed", "chunk")),
+           "pages_free": free, "pages_evictable": cache.get("evictable", 0),
+           "hits_pages": cache.get("hits", 0) - hits0, "pages_cached": cache.get("pages_cached", 0),
+           "rolls_graphed": st["rolls_graphed"], "rolls_eager": st["rolls_eager"],
+           "launches": {n: launches[n] for n in ("flash_attention", "paged_flash_prefill", "commit_pages",
+                                                  "paged_flash_decode", "commit_rows")}}
+    torch.cuda.synchronize()
+    res["prefill_dispatch_wall_ms"]["lone one-shot"] = sum(s.elapsed_time(e) for s, e in lone)
+    logits = {i: first[r] for i, r in enumerate(rids)}
+    chunks = [c for c in rec["chunks"] if c["label"] == "timed"]
+    log(f"routes, prefix cache, {label}: " + json.dumps(res))
+    if any(len(t) != SERVING_NEW_TOKENS for t in tokens):
+        raise AssertionError(f"{label}: a request did not return {SERVING_NEW_TOKENS} tokens")
+    if free + cache.get("evictable", 0) != eng.allocator.num_pages:
+        raise AssertionError(f"{label}: {free} pages free + {cache.get('evictable', 0)} evictable != "
+                             f"{eng.allocator.num_pages}")
+    res["tokens"] = tokens
+    del eng
+    torch.cuda.empty_cache()
+    return res, logits, chunks
+
+
+def first_logits(cfg, params, prefix_cache: bool, attn_impl=None, fault=None) -> dict:
+    """The first-token logits of ``PREFIX_SUBSET``'s timed requests (one
+    token each), cold or (``prefix_cache``) after a seed wave published the
+    system prompt's pages; ``fault`` plants one in the hit route: "late" (a
+    hit resumes one page past the cached ones), "shared write" (the seed
+    requests' decode rows land on the system prompt's pages)."""
+    import numpy as np
+    import torch
+
+    from omchat_torch.runtime import paged_engine as pe
+
+    eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, prefix_cache=prefix_cache,
+                              attn_impl=attn_impl, **ROUTES)
+    seeds = routes_workload(cfg, 7)[:PREFIX_FAULT_SEEDS]
+    if fault == "shared write":
+        dispatch = eng._dispatch_roll
+
+        def onto_shared_pages(decoding, roll, active, tables, *a, **kw):
+            tables = np.array(tables)
+            for r in decoding:  # the decode page -> a published page of the system prompt
+                shared = [eng.prefix_cache.by_hash[h] for h in r.page_hashes[:PREFIX_PAGES]]
+                for pos in (eng._lengths[r.slot], eng._lengths[r.slot] + roll - 1):
+                    col = min(int(pos) // eng.page_size, tables.shape[1] - 1)
+                    tables[r.slot, col] = shared[col % PREFIX_PAGES]
+            return dispatch(decoding, roll, active, tables, *a, **kw)
+
+        eng._dispatch_roll = onto_shared_pages
+    if prefix_cache:
+        for rid in drive(eng, seeds, PREFIX_FAULT_TOKENS):
+            eng.pop_result(rid)
+    if fault == "shared write":
+        del eng._dispatch_roll
+    if fault == "late":
+        admit = eng._admit
+
+        def late():
+            before = {r.request_id for r in eng.slots if r is not None}
+            admit()
+            for r in eng.slots:
+                if (r is not None and r.request_id not in before and r.cache_refs
+                        and r.chunk_pos + eng.page_size < int(r.plan.lengths[0])):
+                    r.chunk_pos += eng.page_size
+
+        eng._admit = late
+    first = capture_first_logits(eng)
+    work = routes_workload(cfg, SERVING_WORKLOAD_SEED)
+    rids = drive(eng, [work[i] for i in PREFIX_SUBSET], 1)
+    torch.cuda.synchronize()
+    out = {i: first[r] for i, r in zip(PREFIX_SUBSET, rids)}
+    hits = eng.prefix_cache.stats()["hits"] if prefix_cache else 0
+    del eng
+    torch.cuda.empty_cache()
+    return out, hits
+
+
+def logit_gap(a: dict, b: dict) -> float:
+    return max(float((a[i] - b[i]).abs().max()) for i in a)
+
+
+def vqa_turns(model) -> dict:
+    """Phase 28 (a), multi-turn VQA on the paged engine with the prefix
+    cache: turn 1 is phase 3's request (3 tiles, 3187 rows); turn 2 sends
+    turn 1's image and text again, turn 1's answer and a new question.  Turn
+    2 must hit the pages over the image's rows and skip the ViT."""
+    import torch
+
+    from omchat_torch.runtime import paged_engine as pe
+
+    cfg, params = model.config, model.engine.params
+    ids, tiles = make_request(cfg, 0)
+    eng = pe.PagedBatchEngine(cfg, params, device=DEVICE, prefix_cache=True, **ROUTES)
+    rid = eng.submit(ids, tiles, max_new_tokens=NEW_TOKENS, eos_token_id=-1)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    t1 = eng.requests[rid].ttft
+    answer = eng.pop_result(rid)[0]
+    follow = model.processor("And what colours does it have?")["input_ids"][0].tolist()
+    ids2 = list(ids) + answer + follow
+    hits0 = eng.prefix_cache.stats()["hits"]
+    rid = eng.submit(ids2, tiles.copy(), max_new_tokens=NEW_TOKENS, eos_token_id=-1)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    t2 = eng.requests[rid].ttft
+    tokens2 = eng.pop_result(rid)[0]
+    plan = eng._prefiller.plan([ids])
+    img_end = int(plan.is_image[0].nonzero()[0].max()) + 1
+    hit = eng.prefix_cache.stats()["hits"] - hits0
+    res = {"card": CARD, "turn1_rows": int(plan.lengths[0]), "turn2_rows": int(eng._prefiller.plan([ids2]).lengths[0]),
+           "turn1_ttft_ms": 1e3 * t1, "turn2_ttft_ms": 1e3 * t2, "turn2_hit_pages": hit, "image_rows_end": img_end,
+           "image_cache": eng._prefiller.image_cache.stats(), "turn2_tokens": len(tokens2)}
+    log("routes, prefix cache, multi-turn VQA (turn 2 resends turn 1's image and text): " + json.dumps(res))
+    del eng
+    torch.cuda.empty_cache()
+    # every page turn 1 published (all but the one its first decode step wrote) is hit
+    if hit != res["turn1_rows"] // ROUTES["page_size"] or res["image_cache"]["hits"] < 1:
+        raise AssertionError(f"VQA turn 2: the hit ({hit} pages) is not turn 1's {res['turn1_rows']} rows' "
+                             f"pages, or the ViT ran again ({res['image_cache']})")
+    return res
+
+
+def prefix_cache_routes(model) -> tuple:
+    """Phase 28 (a): cold and prefix-cache serving, the route gaps of the
+    first-token logits (kernels and plain), the limit and its two planted
+    faults, then multi-turn VQA.  The prefix run's chunk dispatches and K14
+    launches go into ``ROUTES_SEEN``."""
+    cfg, params = model.config, model.engine.params
+    cold, cold_first, _ = prefix_serving(cfg, params, False, "cold")
+    warm, warm_first, chunks = prefix_serving(cfg, params, True, "prefix cache")
+    ROUTES_SEEN.update(chunks=chunks, paged_flash_prefill=warm["launches"]["paged_flash_prefill"])
+    res = {"card": CARD, "cold_vs_cache": {k: [cold[k], warm[k]] for k in (
+        "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "prefill_dispatch_wall_ms", "chunk_dispatches", "hits_pages",
+        "pages_free", "pages_evictable")}}
+    subset = {i: cold_first[i] for i in PREFIX_SUBSET}
+    plain_cold, _ = first_logits(cfg, params, False, attn_impl=PLAIN_IMPL)
+    plain_hit, plain_hits = first_logits(cfg, params, True, attn_impl=PLAIN_IMPL)
+    gaps = {"kernels, all requests": logit_gap(cold_first, warm_first),
+            "kernels, subset": logit_gap(subset, {i: warm_first[i] for i in PREFIX_SUBSET}),
+            "plain, subset": logit_gap(plain_cold, plain_hit),
+            "kernels vs plain, cold": logit_gap(subset, plain_cold)}
+    plain_gap = PREFIX_PLAIN_GAP if PREFIX_PLAIN_GAP is not None else gaps["plain, subset"]
+    limit = 1.5 * plain_gap
+    res.update({"first_token_logit_gaps_hit_vs_cold": gaps, "plain_hit_pages": plain_hits,
+                "limit": limit, "limit_from": "PREFIX_PLAIN_GAP" if PREFIX_PLAIN_GAP is not None else "this run",
+                "max_abs_logit": max(float(v.abs().max()) for v in cold_first.values())})
+    faults = {}
+    for fault in ("late", "shared write"):
+        got, _ = first_logits(cfg, params, True, fault=fault)
+        faults[fault] = logit_gap(subset, got)
+    res["faults"] = faults
+    res["vqa"] = vqa_turns(model)
+    log("routes, prefix cache: " + json.dumps(res))
+    failed = []
+    if gaps["kernels, all requests"] > limit:
+        failed.append(f"hit vs cold first-token logits {gaps['kernels, all requests']:.4g} past {limit:.4g}")
+    failed += [f"the limit {limit:.4g} passes the fault '{f}' ({g:.4g})" for f, g in faults.items() if g <= limit]
+    if warm["hits_pages"] < PREFIX_PAGES * len(cold["tokens"]):
+        failed.append(f"the timed wave hit {warm['hits_pages']} pages, not {PREFIX_PAGES} a request")
+    if failed:
+        raise AssertionError("prefix cache: " + " | ".join(failed))
+    return res
+
+
+def verify_snapshot(eng, work, new_tokens: int) -> tuple:
+    """Serve ``work`` on an eager engine (decode_roll 1): the pools, lengths,
+    active flags, tables and tokens staged for the first roll (right after
+    the prefills), the decode route's logits of each step ([S, V] fp32 a
+    step, from ``_roll_pick``), and the tokens."""
+    import numpy as np
+
+    from omchat_torch.runtime import paged_engine as pe
+
+    snap, steps = {}, []
+    dispatch, pick = eng._dispatch_roll, pe._roll_pick
+
+    def first(decoding, roll, active, tables, *a, **kw):
+        if not snap:
+            snap.update(k=eng.k_pool.clone(), v=eng.v_pool.clone(), lengths=np.array(eng._lengths),
+                        active=np.array(active), tokens=np.array(eng._tokens),
+                        tables=np.where(active[:, None], eng._tables, eng._parking))  # the full width
+        return dispatch(decoding, roll, active, tables, *a, **kw)
+
+    eng._dispatch_roll = first
+    pe._roll_pick = lambda logits, *a, **kw: (steps.append(logits.float().clone()), pick(logits, *a, **kw))[1]
+    try:
+        rids = drive(eng, work, new_tokens)
+    finally:
+        pe._roll_pick = pick
+        del eng._dispatch_roll
+    return snap, steps, [eng.pop_result(r)[0] for r in rids]
+
+
+def verify_logits(eng, snap, tokens, lengths=None, impl=None, plain_k2: bool = False):
+    """``_paged_verify`` over a copy of the snapshot's pools: [S, T, V]
+    (``plain_k2``: K2's plain version in K2's place, on the card)."""
+    import torch
+
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.runtime import paged_engine as pe
+
+    dev = eng.device
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    k2 = fa.flash_attention
+    if plain_k2:
+        fa.flash_attention = lambda q, k, v, *, kv_format, **kw: fa.flash_attention_plain(q, k, v, **kw)
+    try:
+        return pe._paged_verify(eng.params, eng.cfg, t(tokens), t(snap["lengths"] if lengths is None else lengths),
+                                t(snap["active"]), t(snap["tables"]), snap["k"].clone(), snap["v"].clone(),
+                                eng.page_size, impl).float()
+    finally:
+        fa.flash_attention = k2
+
+
+def decode_logits(eng, snap, tokens, impl=None, plain_k12: bool = False):
+    """The decode route from the snapshot's pools fed ``tokens`` [S, T], one
+    step a column (``_decode_step_core``; ``plain_k12``: K12's plain version
+    in K12's place): each step's logits, [S, T, V]."""
+    import torch
+
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.runtime import paged_engine as pe
+
+    dev, out = eng.device, []
+    pick, kernels = pe._roll_pick, dict(pa.DECODE_KERNELS)
+    pe._roll_pick = lambda logits, *a, **kw: (out.append(logits.float().clone()), pick(logits, *a, **kw))[1]
+    if plain_k12:
+        pa.DECODE_KERNELS["auto"] = pa.paged_flash_decode_plain
+    try:
+        kp, vp = snap["k"].clone(), snap["v"].clone()
+        act = torch.as_tensor(snap["active"], device=dev)
+        lengths, tables = torch.as_tensor(snap["lengths"], device=dev), torch.as_tensor(snap["tables"], device=dev)
+        for r in range(tokens.shape[1]):
+            pe._decode_step_core(eng.params, eng.cfg, torch.as_tensor(tokens[:, r], device=dev),
+                                 lengths + r * act.int(), act, tables, kp, vp, eng.page_size, impl)
+    finally:
+        pe._roll_pick = pick
+        pa.DECODE_KERNELS.update(kernels)
+    return torch.stack(out, dim=1)
+
+
+def verify_vs_decode(model, small) -> dict:
+    """Phase 28 (b), the verify's logits: SPEC_SLOTS requests prefilled, then
+    decoded SPEC_DRAFT_LEN + 1 steps on the decode route (K12 + K4); the
+    verify of those tokens from the same pools (``_paged_verify``: K2 over
+    the gathered pages, K4) must give each row the decode step's logits
+    within 1.5x ``SPEC_PLAIN_GAP`` at full depth, and a verify with its rows
+    written and read one position late or its draft fed one row late must
+    not.  The two routes' gap on the kernels' plain versions and on
+    ``attn_impl="plain"``, fed the same tokens from the same pools, is read
+    every run beside it.  At 2+2 layers the verify on the kernels against
+    the plain route within phase 4's limits."""
+    import numpy as np
+    import torch
+
+    from omchat_torch.runtime import paged_engine as pe
+
+    t = SPEC_DRAFT_LEN + 1
+    limit = 1.5 * max(C4_PLAIN_GAP, SPEC_PLAIN_GAP)
+    res = {"card": CARD, "rows": t}
+    for label, m in (("full depth", model), ("2+2 layers", small)):
+        cfg, params = m.config, m.engine.params
+        eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, max_slots=SPEC_SLOTS, num_pages=48,
+                                  page_size=128, max_len=1024, decode_roll=1, decode_graphs=False)
+        work = [w for w in serving_workload(cfg) if w[1] is None][:SPEC_SLOTS]
+        snap, steps, toks = verify_snapshot(eng, work, t + 1)
+        feed = np.zeros((SPEC_SLOTS, t), np.int32)
+        for s_, tk in zip(np.nonzero(snap["active"])[0], toks):
+            feed[s_] = tk[:t]  # the first token, then the decode route's
+        decode = torch.stack(steps[:t], dim=1)  # [S, T, V]
+        live = torch.as_tensor(snap["active"], device=eng.device)
+        gap = lambda a, b: float((a - b)[live].abs().max())  # noqa: E731
+        verify = verify_logits(eng, snap, feed)
+        if label == "full depth":
+            late = verify_logits(eng, snap, feed, lengths=snap["lengths"] + snap["active"].astype(np.int32))
+            shifted = np.concatenate([feed[:, :1], feed[:, :-1]], axis=1)
+            res[label] = {
+                "verify_vs_decode_max_gap": gap(verify, decode), "limit": limit, "c4_limit": C4_LIMIT,
+                "max_abs_logit": float(decode[live].abs().max()),
+                "kernels' plain versions, verify vs decode": gap(verify_logits(eng, snap, feed, plain_k2=True),
+                                                                 decode_logits(eng, snap, feed, plain_k12=True)),
+                "attn_impl plain, verify vs decode": gap(verify_logits(eng, snap, feed, impl=PLAIN_IMPL),
+                                                         decode_logits(eng, snap, feed, impl=PLAIN_IMPL)),
+                "faults": {"write_pos + 1": gap(late, decode),
+                           "the draft one row late": gap(verify_logits(eng, snap, shifted), decode)}}
+        else:
+            plain = verify_logits(eng, snap, feed, impl=PLAIN_IMPL)
+            err = (verify - plain)[live].abs()
+            outside = int((err > LOGITS_ATOL + LOGITS_RTOL * plain[live].abs()).sum())
+            res[label] = {"kernels_vs_plain_max_gap": float(err.max()), "outside_phase4_limits": outside,
+                          "verify_vs_decode_max_gap": gap(verify, decode)}
+        del eng, snap, steps, decode, verify
+        torch.cuda.empty_cache()
+    log("routes, speculative verify in the batch, logits: " + json.dumps(res))
+    full, small_res = res["full depth"], res["2+2 layers"]
+    failed = []
+    if full["verify_vs_decode_max_gap"] > limit:
+        failed.append(f"full-depth verify vs decode {full['verify_vs_decode_max_gap']:.4g} past {limit:.4g}")
+    failed += [f"the limit {limit:.4g} passes the fault '{f}' ({g:.4g})" for f, g in full["faults"].items()
+               if g <= limit]
+    if small_res["outside_phase4_limits"]:
+        failed.append(f"2+2 layers: {small_res['outside_phase4_limits']} verify logits outside phase 4's limits")
+    if failed:
+        raise AssertionError("speculative verify: " + " | ".join(failed))
+    return res
+
+
+def echo_workload(cfg) -> list:
+    """ECHO_REQUESTS text prompts, each a seeded ECHO_BLOCK-token block said
+    ECHO_REPEATS times and its first two tokens again."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVING_WORKLOAD_SEED + 1)
+    out = []
+    for _ in range(ECHO_REQUESTS):
+        block = [int(t) for t in rng.integers(2000, 20000, ECHO_BLOCK)]
+        out.append(([151644] + block * ECHO_REPEATS + block[:2], None))
+    return out
+
+
+def speculative_in_the_batch(model) -> dict:
+    """Phase 28 (b) at 16 slots: the echo workload served on plain rolls, with
+    speculative verify by prompt lookup (which drafts only where the model
+    repeats itself: random weights may never), and with an oracle draft (the
+    rolls run's own tokens, accepted as far as the verify's argmax keeps
+    them), all graphed after ``precompile``, in turns after a warm-up; verify
+    dispatches, tokens, mean accepted drafts a slot verify, tokens/s; then
+    the graphed verify's ms beside the graphed roll's ms a step at the
+    largest verify's lengths and tables.  The largest verify dispatch's
+    inputs and K2's and K4's launches in the oracle runs' verify ticks go
+    into ``ROUTES_SEEN``."""
+    import numpy as np
+    import torch
+
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.runtime import paged_engine as pe
+
+    cfg, params = model.config, model.engine.params
+    work = echo_workload(cfg)
+    rolls = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, **SERVING)
+    spec = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, speculative=True,
+                               draft_len=SPEC_DRAFT_LEN, **SERVING)
+    res = {"card": CARD, "requests": len(work), "prompt_rows": len(work[0][0])}
+    for eng in (rolls, spec):
+        eng.precompile(variants=(PICK_MODES_GREEDY,))
+        for rid in drive(eng, work, 4):
+            eng.pop_result(rid)
+    staged, in_verify = [], {"flash_attention": 0, "commit_rows": 0}
+    stage, tick = spec._stage_verify, spec._speculative_tick
+
+    def record_stage(tokens, lengths, active, tables):
+        staged.append((np.array(lengths), np.array(active), np.array(tables)))
+        return stage(tokens, lengths, active, tables)
+
+    def counted_tick(decoding):
+        before = (fa.flash_attention.launches, pa.commit_rows.launches)
+        ran = tick(decoding)
+        in_verify["flash_attention"] += fa.flash_attention.launches - before[0]
+        in_verify["commit_rows"] += pa.commit_rows.launches - before[1]
+        return ran
+
+    spec._stage_verify, spec._speculative_tick = record_stage, counted_tick
+    cont, tokens, oracle_staged, oracle_launches = {}, {}, [], {"flash_attention": 0, "commit_rows": 0}
+    for name in ("rolls", "prompt lookup", "oracle draft", "oracle draft", "prompt lookup", "rolls"):
+        eng = rolls if name == "rolls" else spec
+        spec.draft_fn = (lambda ctx: cont.get(tuple(ctx), [])[:SPEC_DRAFT_LEN]) if name == "oracle draft" else None
+        eng.reset_latency_stats()
+        d0, t0_spec, s0 = eng.spec_dispatches, eng.spec_tokens, len(staged)
+        for k in in_verify:
+            in_verify[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = drive(eng, work, SERVING_NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        toks = [eng.pop_result(r)[0] for r in rids]
+        if name == "rolls" and not cont:
+            cont = {tuple(ids + t[:i]): t[i:] for (ids, _), t in zip(work, toks) for i in range(len(t))}
+        st = eng.latency_stats()
+        run = res.setdefault(name, {"runs_tokens_per_s": []})
+        run["runs_tokens_per_s"].append(sum(map(len, toks)) / wall)
+        run.update({k: st[k] for k in ("rolls_graphed", "rolls_eager", "verifies_graphed", "verifies_eager")},
+                   pages_free=eng.allocator.available)
+        if eng is spec:
+            slot_verifies = sum(int(a.sum()) for _, a, _ in staged[s0:])
+            run.update({"verify_dispatches": eng.spec_dispatches - d0, "spec_tokens": eng.spec_tokens - t0_spec,
+                        "slot_verifies": slot_verifies,
+                        "accepted_drafts_per_slot_verify": (eng.spec_tokens - t0_spec) / slot_verifies - 1
+                        if slot_verifies else None, "launches_in_verify_ticks": dict(in_verify)})
+            if name == "oracle draft":
+                oracle_staged += staged[s0:]
+                oracle_launches = dict(in_verify)
+        tokens[name] = toks
+    res["first_step_leaving_rolls"] = {n: first_divergence(tokens[n], tokens["rolls"])
+                                       for n in ("prompt lookup", "oracle draft")}
+    spec._stage_verify, spec._speculative_tick = stage, tick
+    failed = []
+    if not oracle_staged:
+        failed.append("no verify dispatch with the oracle draft")
+    else:
+        # the graphed verify and the graphed roll over the largest verify's lengths and tables
+        lengths, active, tables = max(oracle_staged, key=lambda v: (int(v[1].sum()), v[2].shape[1]))
+        ROUTES_SEEN.update(verify=(lengths, active, tables), **oracle_launches)
+        width = tables.shape[1]
+        toks = np.zeros((spec.max_slots, SPEC_DRAFT_LEN + 1), np.int32)
+        vstep = spec._verify_step(width)
+        roll = spec._roll_step(width, PICK_MODES_GREEDY, spec.decode_roll)
+        times = {}
+        for _ in range(3):  # in turns
+            for label, fn, stage_fn in (
+                    ("verify", vstep, lambda: spec._stage_verify(toks, lengths, active, tables)),
+                    ("roll", roll, lambda: spec._stage_roll(np.zeros(spec.max_slots, np.int32), lengths, active,
+                                                            tables, spec._sampling_rows([])))):
+                stage_fn()
+                fn()
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(STEP_REPLAYS):
+                    fn()
+                end.record()
+                torch.cuda.synchronize()
+                times.setdefault(label, []).append(start.elapsed_time(end) / STEP_REPLAYS)
+        verify_ms = sorted(times["verify"])[1]
+        roll_step_ms = sorted(times["roll"])[1] / spec.decode_roll
+        res["graphed"] = {"verify_ms": verify_ms, "roll_ms_a_step": roll_step_ms,
+                          "verify_over_roll_step": verify_ms / roll_step_ms, "slots": int(active.sum()),
+                          "table_width": width, "mean_length": float(lengths[active].mean()),
+                          "verify_graphs": len(spec._verifies), "capture_ms": spec.capture_ms()}
+    log("routes, speculative verify in the batch, echo workload at 16 slots: " + json.dumps(res))
+    del rolls, spec
+    torch.cuda.empty_cache()
+    for name in ("rolls", "prompt lookup", "oracle draft"):
+        r = res[name]
+        if r["verifies_eager"] or r["rolls_eager"] or r["pages_free"] != SERVING["num_pages"]:
+            failed.append(f"{name}: eager dispatches after precompile or pages lost: {r}")
+    if failed:
+        raise AssertionError("speculative in the batch: " + " | ".join(failed))
+    return res
+
+
+def http_mix(http_model, eng, work, label: str, alone: int = None) -> dict:
+    """Phase 27 (b)'s traffic over HTTP on ``eng`` (already precompiled):
+    16 clients at once, ``HTTP_SAMPLED`` sampled, ``HTTP_LOGPROBS`` with
+    log-probs, ``HTTP_SSE`` streamed; tokens/s, SSE TTFT and inter-chunk
+    percentiles, rolls by length, busy share between rolls.  ``alone``: a
+    request index first sent alone over SSE, whose tokens are returned."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    port, stop = start_http(http_model, eng)
+    res = {"card": CARD, "pipeline_rolls": eng.pipeline_rolls, "streaming_roll": eng.streaming_roll}
+    try:
+        if alone is not None:
+            events, _ = http_call(port, "/v1/chat/completions", {**work[alone][0], "stream": True}, stream=True)
+            res["alone_tokens"] = ids_of(sse_text(events))
+        torch.cuda.synchronize()
+        timeline = roll_timeline(eng)
+        eng.reset_latency_stats()
+        replies = [None] * len(work)
+
+        def client(i):
+            body = dict(work[i][0])
+            if i in HTTP_SAMPLED:
+                body.update(temperature=0.8, top_p=0.9)
+            if i in HTTP_LOGPROBS:
+                body.update(logprobs=True, top_logprobs=5)
+            replies[i] = http_call(port, "/v1/chat/completions", {**body, "stream": True} if i in HTTP_SSE
+                                   else body, stream=i in HTTP_SSE)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(work))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t0
+        if any(th.is_alive() for th in threads) or any(r is None for r in replies):
+            raise AssertionError(f"{label}: a client did not finish")
+        stats = eng.latency_stats()
+    finally:
+        stop()
+        for name in ("_dispatch_roll", "_prefill_shorts", "_run_chunk", "_prefill_tick"):
+            eng.__dict__.pop(name, None)
+        eng._prefiller.__dict__.pop("encode_tiles", None)
+    torch.cuda.synchronize()
+    texts = [sse_text(r[0]) if i in HTTP_SSE else r[0]["choices"][0]["message"]["content"]
+             for i, r in enumerate(replies)]
+    chunks = [[t for t, e in replies[i][0] if isinstance(e, dict) and e.get("choices")
+               and e["choices"][0]["delta"].get("content")] for i in HTTP_SSE]
+    gaps = [b - a for c in chunks for a, b in zip(c, c[1:])]
+    lengths = [n for *_, n in timeline["rolls"]]
+    res.update({"tokens_per_s": sum(len(ids_of(t)) for t in texts) / wall, "wall_s": wall,
+                "sse_ttft_p50_s": float(np.percentile([c[0] for c in chunks], 50)),
+                "sse_interchunk_p50_s": float(np.percentile(gaps, 50)),
+                "sse_interchunk_p99_s": float(np.percentile(gaps, 99)),
+                "rolls_by_length": {n: lengths.count(n) for n in sorted(set(lengths))},
+                "rolls_graphed": stats["rolls_graphed"], "rolls_eager": stats["rolls_eager"],
+                "pages_free": eng.allocator.available, **busy_between_rolls(timeline)})
+    log(f"routes, {label}: " + json.dumps({k: v for k, v in res.items() if k != "alone_tokens"}))
+    if stats["rolls_eager"] or eng.allocator.available != eng.allocator.num_pages:
+        raise AssertionError(f"{label}: rolls eager {stats['rolls_eager']}, pages free {eng.allocator.available}")
+    return res
+
+
+def streaming_and_pipelined(model, seed: int, phase27: dict = None) -> dict:
+    """Phase 28 (c) and (d) on one engine (phase 5's options, ``--streaming-roll
+    4``, ``--pipeline-rolls``; all 32 roll graphs captured by ``precompile``),
+    whose ``streaming_roll`` and ``pipeline_rolls`` are switched between runs
+    (the headroom and the graphs stay those of the engine built with both).
+    (d): phase 5's workload in process with and without pipelining, in
+    turns (tokens bitwise equal, every roll graphed, the busy share between
+    rolls), then phase 27 (b) over HTTP each way; (c): phase 27 (b) over HTTP
+    with streaming rolls, the SSE inter-chunk percentiles beside the run
+    without them (and phase 27's, ``phase27``), and a request alone over SSE
+    (4-step rolls) bitwise the same request in process (16-step rolls)."""
+    import torch
+
+    from omchat_torch.api import omchat_model, paged_batch_engine
+
+    tok = id_tokenizer(bytes_as_text=False)
+    http_model = omchat_model(tok, model.engine)
+    eng = paged_batch_engine(http_model, image_cache_size=0, streaming_roll=STREAMING_ROLL, pipeline_rolls=True,
+                             **SERVING)
+    t0 = time.perf_counter()
+    eng.precompile()
+    torch.cuda.synchronize()
+    res = {"card": CARD, "precompile_s": time.perf_counter() - t0, "graphs": len(eng._rolls),
+           "capture_ms": eng.capture_ms()}
+    work = serving_workload(model.config)
+    for rid in drive(eng, work, 4):
+        eng.pop_result(rid)
+    # (d) in process, pipelined and not in turns
+    runs, tokens = [], {}
+    for pipelined in (True, False, False, True):
+        eng.pipeline_rolls, eng.streaming_roll = pipelined, None
+        eng.reset_latency_stats()
+        timeline = roll_timeline(eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = drive(eng, work, SERVING_NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name in ("_dispatch_roll", "_prefill_shorts", "_run_chunk", "_prefill_tick"):
+            eng.__dict__.pop(name, None)
+        eng._prefiller.__dict__.pop("encode_tiles", None)
+        toks = [eng.pop_result(r)[0] for r in rids]
+        st = eng.latency_stats()
+        runs.append({"pipeline_rolls": pipelined, "tokens_per_s": sum(map(len, toks)) / wall,
+                     "rolls_graphed": st["rolls_graphed"], "rolls_eager": st["rolls_eager"],
+                     "ttft_p50_s": st["ttft_p50_s"], "pages_free": eng.allocator.available,
+                     **busy_between_rolls(timeline)})
+        tokens.setdefault(pipelined, []).append(toks)
+    res["in_process"] = runs
+    log("routes, pipelined rolls, phase 5's workload in process (pipelined / not, in turns): " + json.dumps(runs))
+    failed = []
+    if any(t != tokens[False][0] for ts in tokens.values() for t in ts):
+        failed.append(f"pipelined tokens differ from the unpipelined run's: first steps leaving it "
+                      f"{first_divergence(tokens[True][0], tokens[False][0])}")
+    if any(r["rolls_eager"] or r["pages_free"] != SERVING["num_pages"] for r in runs):
+        failed.append("an in-process run rolled eagerly or lost pages")
+    # (d) over HTTP, then (c)
+    http_work = http_workload(model.config, tok, seed)
+    for pipelined in (True, False):
+        eng.pipeline_rolls, eng.streaming_roll = pipelined, None
+        res[f"http, pipeline_rolls={pipelined}"] = http_mix(http_model, eng, http_work,
+                                                            f"pipelined rolls over HTTP ({pipelined})")
+    # (c): a request alone whose table width is the same at 4- and 16-step rolls
+    alone = next(i for i, (_, ids, tiles) in enumerate(http_work) if tiles is None and len(
+        {eng._table_width(n + r, eng.max_pages) for n in range(len(ids), len(ids) + SERVING_NEW_TOKENS)
+         for r in (STREAMING_ROLL, SERVING["decode_roll"])}) == 1)
+    eng.pipeline_rolls, eng.streaming_roll = False, STREAMING_ROLL
+    streamed = http_mix(http_model, eng, http_work, "streaming rolls over HTTP (--streaming-roll 4)", alone=alone)
+    eng.streaming_roll = None
+    rid = eng.submit(http_work[alone][1], None, max_new_tokens=SERVING_NEW_TOKENS, eos_token_id=151645)
+    eng.run_to_completion()
+    in_process = eng.pop_result(rid)[0]
+    res["streaming"] = {k: v for k, v in streamed.items() if k != "alone_tokens"}
+    res["streaming"]["alone_request"] = alone
+    res["streaming"]["alone_bitwise_decode_roll_16"] = streamed["alone_tokens"] == in_process
+    plain = res["http, pipeline_rolls=False"]
+    res["sse_interchunk_p50_p99_s"] = {
+        "streaming_roll 4": [streamed["sse_interchunk_p50_s"], streamed["sse_interchunk_p99_s"]],
+        "decode_roll 16 (this phase)": [plain["sse_interchunk_p50_s"], plain["sse_interchunk_p99_s"]],
+        "phase 27": [phase27.get("sse_interchunk_p50_s"), phase27.get("sse_interchunk_p99_s")] if phase27 else None}
+    res["http_tokens_per_s"] = {"pipelined": res["http, pipeline_rolls=True"]["tokens_per_s"],
+                                "not pipelined": plain["tokens_per_s"], "streaming": streamed["tokens_per_s"],
+                                "phase 27": phase27.get("tokens_per_s") if phase27 else None}
+    log("routes, streaming and pipelined rolls: " + json.dumps({k: v for k, v in res.items() if not k.startswith(
+        "http, ") and k != "streaming"}))
+    if not res["streaming"]["alone_bitwise_decode_roll_16"]:
+        failed.append(f"request {alone} alone over SSE (4-step rolls) is not its 16-step run in process")
+    if STREAMING_ROLL not in streamed["rolls_by_length"]:
+        failed.append(f"no {STREAMING_ROLL}-step roll while SSE requests decoded: {streamed['rolls_by_length']}")
+    del eng
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("streaming and pipelined rolls: " + " | ".join(failed))
+    return res
+
+
+def routes_kernel_rows(gen, verify_inputs: tuple, chunks: list) -> list:
+    """Phase 28's kernel rows: K2 over a paged verify step's gathered blocks
+    (the largest verify dispatch of the echo run: 16 slots x 5 rows, per-slot
+    q_offset and kv_len), K4 committing that verify's L*S*T rows, and K14
+    on the prefix run's largest resumed chunk; each held against its plain
+    version (K2 and K14 with planted keys and a planted fault, K4 bitwise),
+    timed beside its library call, with its bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops import paged_attention as pa
+
+    dev = torch.device(DEVICE)
+    i32 = dict(dtype=torch.int32, device=dev)
+    tc = OmChatConfig().text
+    L, H, KVH, D = tc.num_hidden_layers, tc.num_attention_heads, tc.num_key_value_heads, tc.attn_head_dim
+    PS = SERVING["page_size"]
+    rows = []
+    lengths, active, tables = verify_inputs
+    if not active.any():
+        raise AssertionError("routes kernel rows: the verify handed no active slot")
+    S, T = len(lengths), SPEC_DRAFT_LEN + 1
+    W = tables.shape[1] * PS
+    # K2 over the verify's blocks [S, KVH, W, D]: q_offset = length, kv_len = length + T (0 for idle slots);
+    # a sink at column 0 and the direction u planted on each row's causal edge
+    qo = torch.as_tensor(np.where(active, lengths, 0), **i32)
+    kvl = torch.as_tensor(np.where(active, lengths + T, 0), **i32)
+    u = _direction(gen, KVH, D)
+    q = _randn(gen, S, T, H, D) + u.repeat_interleave(H // KVH, dim=0)
+    k, v = _randn(gen, S, KVH, W, D), _randn(gen, S, KVH, W, D)
+    for s in np.nonzero(active)[0]:
+        k[s, :, 0] = 0.6 * u
+        k[s, :, int(lengths[s]): int(lengths[s]) + T] = 0.8 * u[:, None]
+    kw = dict(causal=True, q_offset=qo, kv_len=kvl)
+    out = fa.flash_attention(q, k, v, kv_format="bntd", **kw)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    err = check_close("K2 paged verify", out, ref, *ATTN_TOL["K2"])
+    faults = {"causal edge one column late": check_fault_caught(
+        "K2 paged verify", "the causal edge one column late",
+        fa.flash_attention_plain(q, k, v, causal=True, q_offset=qo + 1, kv_len=torch.where(kvl > 0, kvl + 1, kvl)),
+        ref, *ATTN_TOL["K2"])}
+    p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), iters=3, warmup=1)
+    col = torch.arange(W, device=dev)
+    mask = ((col[None, None] <= qo[:, None, None] + torch.arange(T, device=dev)[None, :, None])
+            & (col[None, None] < kvl[:, None, None]))[:, None]
+    qt = q.transpose(1, 2)
+    ms, readings = device_times(lambda: fa.flash_attention(q, k, v, kv_format="bntd", **kw),
+                                lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask, enable_gqa=True),
+                                GRAPH_CALLS)
+    live = np.nonzero(active)[0]
+    cols = sum(int(lengths[s]) * T + T * (T + 1) // 2 for s in live)
+    rows.append(dict(name=f"flash_attention[paged verify, S={S}x{T}]", source="omchat_torch/csrc/flash_attention.cu",
+                     replaces="omchat_tpu/ops/flash_attention.py:246", max_abs_err=err, ms=ms["kernel"], plain_ms=p_ms,
+                     library_ms=ms["library"], flops=4.0 * H * D * cols,
+                     bytes=2 * q.numel() * 2 + sum(2 * KVH * (int(lengths[s]) + T) * D * 2 for s in live),
+                     faults=faults, readings=readings["kernel"],
+                     extra=f" slots={len(live)} width={W} mean_length={float(lengths[live].mean()):.0f}"
+                           + eager_text(ms)))
+    del q, k, v, out, ref, qt, mask
+
+    # K4: the verify's L*S*T rows into a pool of the serving engine's pages, at its pages and offsets
+    NP = SERVING["num_pages"] + 1
+    kf, vf = _randn(gen, L * NP, KVH, PS, D), _randn(gen, L * NP, KVH, PS, D)
+    pos = np.where(active[:, None], lengths[:, None] + np.arange(T)[None], np.arange(T)[None])
+    page = np.where(active[:, None], np.take_along_axis(tables, np.minimum(pos // PS, tables.shape[1] - 1), 1),
+                    SERVING["num_pages"])
+    pages = torch.as_tensor((np.arange(L)[:, None, None] * NP + page[None]).reshape(-1), **i32)
+    offs = torch.as_tensor(np.broadcast_to(pos % PS, (L, S, T)).reshape(-1), **i32)
+    n = L * S * T
+    k_rows, v_rows = _randn(gen, n, KVH, D), _randn(gen, n, KVH, D)
+    k_ref, v_ref = kf.clone(), vf.clone()
+    pa.commit_rows(kf, vf, pages, offs, k_rows, v_rows)
+    torch.cuda.synchronize()
+    pa.commit_rows_plain(k_ref, v_ref, pages, offs, k_rows, v_rows)
+    if not (torch.equal(kf.view(torch.int16), k_ref.view(torch.int16))
+            and torch.equal(vf.view(torch.int16), v_ref.view(torch.int16))):
+        raise AssertionError(f"K4 commit_rows[L*S*T={n}]: the pool differs from the plain commit (bitwise)")
+    p_ms = time_ms(lambda: pa.commit_rows_plain(k_ref, v_ref, pages, offs, k_rows, v_rows), iters=20)
+    idx = (pages.long()[:, None], torch.arange(KVH, device=dev)[None, :], offs.long()[:, None])
+
+    def library_commit():
+        kf.index_put_(idx, k_rows)
+        vf.index_put_(idx, v_rows)
+
+    ms, readings = device_times(lambda: pa.commit_rows(kf, vf, pages, offs, k_rows, v_rows), library_commit,
+                                GRAPH_CALLS)
+    rows.append(dict(name=f"commit_rows[L*S*T={n}]", source="omchat_torch/csrc/commit_rows.cu",
+                     replaces="omchat_tpu/ops/paged_attention.py:619", max_abs_err=0.0, ms=ms["kernel"], plain_ms=p_ms,
+                     library_ms=ms["library"], flops=0.0, bytes=2 * (2 * n * KVH * D * 2) + 2 * n * 4, faults={},
+                     readings=readings["kernel"],
+                     extra=f" launch_floor_ms={k4_floor_ms(n, KVH, D):.5f} (an empty kernel on K4's grid, graphed)"
+                           + eager_text(ms)))
+    del kf, vf, k_ref, v_ref
+    torch.cuda.empty_cache()
+
+    # K14 on the prefix run's resumed chunk with the most causal columns: its starts (past the hit),
+    # lengths and tables over a pool of ROUTES's pages; a sink at column 0 and u at each row's last column
+    def causal_cols(c):
+        return sum(int(m) * int(s) + int(m) * (int(m) + 1) // 2 for s, m in zip(c["start"], c["len"]))
+
+    c14 = max((c for c in chunks if (c["start"] > 0).all()), key=causal_cols)
+    (B, C), starts, clen, t14_np = c14["shape"], c14["start"], c14["len"], c14["tables"]
+    NP = ROUTES["num_pages"] + 1
+    pool_k, pool_v = _randn(gen, NP, KVH, PS, D), _randn(gen, NP, KVH, PS, D)
+    kv14 = starts + clen
+    for b in range(B):
+        for p_, scale in ((0, 0.6), (int(kv14[b]) - 1, 0.8)):
+            pool_k[int(t14_np[b][p_ // PS]), :, p_ % PS] = scale * u
+    t14 = torch.as_tensor(t14_np, device=dev)
+    q14 = _randn(gen, B, C, H, D) + u.repeat_interleave(H // KVH, dim=0)
+    qo, kl = torch.as_tensor(starts, **i32), torch.as_tensor(kv14, **i32)
+    out = pa.paged_flash_prefill(q14, pool_k, pool_v, kl, t14, qo)
+    torch.cuda.synchronize()
+    rowmask = (torch.arange(C, device=dev)[None] < torch.as_tensor(clen, device=dev)[:, None])[..., None, None]
+
+    def k14_plain(q_offset, kv_len):
+        return pa.paged_flash_prefill_plain(q14, pool_k, pool_v, kv_len, t14, q_offset) * rowmask
+
+    ref = k14_plain(qo, kl)
+    err = check_close("K14 prefix resume", out * rowmask, ref, *ATTN_TOL["K14"])
+    faults = {"resumed one page late": check_fault_caught("K14 prefix resume", "the chunk resumed one page late",
+                                                          k14_plain(qo + PS, kl + PS), ref, *ATTN_TOL["K14"])}
+    k_ms = time_ms(lambda: pa.paged_flash_prefill(q14, pool_k, pool_v, kl, t14, qo), iters=L, warmup=3)
+    p_ms = time_ms(lambda: pa.paged_flash_prefill_plain(q14, pool_k, pool_v, kl, t14, qo), iters=3, warmup=1)
+    T14 = t14_np.shape[1] * PS
+    idx14 = t14.long().reshape(-1)
+    ar = torch.arange(T14, device=dev)
+    mask14 = ((ar[None, None] <= qo[:, None, None] + torch.arange(C, device=dev)[None, :, None])
+              & (ar[None, None] < kl[:, None, None]))[:, None]
+    q14t = q14.transpose(1, 2)
+
+    def k14_library():
+        kv = [p.index_select(0, idx14).view(B, -1, KVH, PS, D).transpose(1, 2).reshape(B, KVH, T14, D)
+              for p in (pool_k, pool_v)]
+        return F.scaled_dot_product_attention(q14t, *kv, attn_mask=mask14, enable_gqa=True)
+
+    lib_ms = time_ms(k14_library, iters=L, warmup=3)
+    rows.append(dict(name="paged_flash_prefill[prefix resume]", source="omchat_torch/csrc/paged_flash_prefill.cu",
+                     replaces="omchat_tpu/ops/paged_attention.py:442", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                     library_ms=lib_ms, flops=4.0 * H * D * causal_cols(c14),
+                     bytes=2 * B * C * H * D * 2 + 2 * KVH * int(kv14.sum()) * D * 2 + t14_np.size * 4 + 8 * B,
+                     faults=faults, readings=None,
+                     extra=f" B={B} C={C} q_offset={starts.tolist()} kv_len={kv14.tolist()}"))
+    del q14, q14t, pool_k, pool_v, out, ref, mask14
+    torch.cuda.empty_cache()
+
+    for r in rows:
+        flops = r.pop("flops")
+        r["bound_ms"], r["bound_by"] = bound_ms(flops, r.pop("bytes"))
+        caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in r.pop("faults").items())
+        readings = r.pop("readings")
+        rate = rate_text(flops, r["ms"], r["bound_ms"], readings) if readings else \
+            f" share_of_bound={r['bound_ms'] / r['ms']:.3f}"
+        log(f"kernel {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){rate}"
+            f"{r.pop('extra')} max_abs_err={r['max_abs_err']:.3g}{caught} ({CARD})")
+    return rows
+
+
+def paged_routes_on_the_card(gen, model, seed: int, phase27: dict = None) -> tuple:
+    """Phase 28 at full width and depth on phase 3's weights: (a) the prefix
+    cache, (b) speculative verify in the batch, (c) streaming rolls and (d)
+    pipelined rolls, then the three kernel rows of their new regimes.  Every
+    part runs and prints its lines; then the phase raises with every check
+    that failed.  Returns (results, kernel rows, the rows' launches)."""
+    import torch
+
+    res, failed, rows, counts = {}, [], [], {}
+    ROUTES_SEEN.clear()
+    for name, run in (("prefix cache", lambda: prefix_cache_routes(model)),
+                      ("verify logits", lambda: verify_vs_decode(model, small_surface(model.config, seed))),
+                      ("speculative", lambda: speculative_in_the_batch(model)),
+                      ("streaming and pipelined", lambda: streaming_and_pipelined(model, seed, phase27))):
+        try:
+            res[name] = run()
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+        torch.cuda.empty_cache()
+    if "chunks" in ROUTES_SEEN and "verify" in ROUTES_SEEN:
+        rows = routes_kernel_rows(gen, ROUTES_SEEN["verify"], ROUTES_SEEN["chunks"])
+        # K2 and K4 counted in the verify ticks, K14 in the prefix run's timed wave
+        counts = {r["name"]: ROUTES_SEEN[r["name"].split("[")[0]] for r in rows}
+        missing = [n for n, c in counts.items() if not c]
+        if missing:
+            failed.append(f"kernels never launched on phase 28's paths: {missing}")
+    else:
+        failed.append("the kernel rows need the prefix and speculative runs' dispatches")
+    if failed:
+        raise AssertionError("phase 28 failed: " + " | ".join(failed))
+    return res, rows, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -5363,6 +6366,7 @@ def main() -> int:
     options["device pipeline"] = device_pipeline_on_the_card(video_frames)
     served = serving_on_the_card(surface, small_surface(surface.config, args.seed), args.seed)
     surface.engine.release_decode_states()
+    _, routes_rows, routes_launches = paged_routes_on_the_card(gen, surface, args.seed, served["paged"])
     del surface, video_frames
     surface_rows = surface_kernel_rows(gen, shapes["prompt_len"], entry["video"]["merged_len"])
     del full
@@ -5485,13 +6489,16 @@ def main() -> int:
                 **{f"{n}[M=9]": spec8["launches"][n] for n in ("rmsnorm_quant", "attn_proj_glue_quant")},
                 "dense_prequant_swiglu_quant[M=9]": spec10["launches"]["dense_prequant_swiglu_quant"],
                 "flash_decode_stacked[B=4]": options["beam"]["k3_launches"],
-                "flash_decode_stacked[video]": entry["video"]["launches"]["flash_decode_stacked"]}
+                "flash_decode_stacked[video]": entry["video"]["launches"]["flash_decode_stacked"],
+                # phase 28: K2 and K4 in the echo run's verify ticks, K14 in the prefix-cache run's timed wave
+                **routes_launches}
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
-    } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows + ps_rows + [k5_row, k6_row] + surface_rows]
+    } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows + ps_rows + [k5_row, k6_row] + surface_rows
+        + routes_rows]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """OpenAI-compatible HTTP server — the port's counterpart of ``cli/serve.py``.
 
     python -m omchat_torch.cli.serve --model-path CKPT [--port 8000] [--device cuda] [--int8 | --w8a8] \\
-        [--kv-cache-dtype fp8] [--lora ADAPTER] [--paged [--decode-roll N] [--decode-kernel manual]] \\
-        [--speculative] [--no-warmup]
+        [--kv-cache-dtype fp8] [--lora ADAPTER] [--paged [--decode-roll N] [--decode-kernel manual] \\
+        [--prefix-cache] [--streaming-roll N] [--pipeline-rolls] [--draft-len N]] [--speculative] [--no-warmup]
 
 Routes: ``GET /health``, ``/metrics`` (Prometheus text: request counters,
 and with ``--paged`` the batch engine's ``stats()`` and ``engine_dead``) and
@@ -25,7 +25,12 @@ Engines, as the JAX server routes them:
   :class:`~omchat_torch.runtime.paged_engine.PagedBatchEngine` over the same
   weights, ticked by a scheduler thread: plain, sampled and log-prob requests
   join its batch; seeded, biased, penalised and constrained requests run the
-  single-request engine under the lock.
+  single-request engine under the lock.  The paged engine's routes come
+  from the flags, as on the JAX server: ``--prefix-cache``,
+  ``--streaming-roll N`` (the roll while an SSE request decodes: SSE
+  requests submit with ``streaming=True``), ``--pipeline-rolls``, and
+  ``--speculative`` with ``--draft-len`` (speculative verify of the batch's
+  greedy slots).
 
 One lock serialises the card: the scheduler takes it for each tick and a
 single-request generation for its whole run, so that no CUDA graph is
@@ -34,9 +39,8 @@ the batch while it runs, as it holds the lock for its whole generation).  The
 two engines share one set of weights.
 
 Refused by name before any weight loads, with the work that will bring them
-(``ROADMAP.md`` queue A): ``--prefix-cache``, ``--streaming-roll``,
-``--pipeline-rolls`` and ``--paged --speculative`` (A10c), ``--continuous-batching``
-without ``--paged`` (the slot engine, A10d), ``--tp`` above 1 (A13).
+(``ROADMAP.md`` queue A): ``--continuous-batching`` without ``--paged`` (the
+slot engine, A10d), ``--tp`` above 1 (A13).
 
 Request example:
     {"messages": [{"role": "user", "content": [
@@ -466,8 +470,10 @@ def make_handler(model, loop: ServingLoop, speculative: bool = False):
 
             finish = None
             if batch is not None:
+                # streaming: the engine shrinks its rolls to --streaming-roll while this request decodes
                 rid = loop.submit(input_ids, images,
-                                  dataclasses.replace(gen, presence_penalty=0.0, frequency_penalty=0.0), image_key)
+                                  dataclasses.replace(gen, presence_penalty=0.0, frequency_penalty=0.0), image_key,
+                                  streaming=True)
                 deadline = time.time() + 60 + 0.5 * gen.max_new_tokens
                 sent = 0
                 while True:
@@ -762,12 +768,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged decode kernel: auto (K12) or manual (K13, pages streamed through a ring of bulk "
                          "copies); the plain CPU path ignores it")
     ap.add_argument("--speculative", action="store_true",
-                    help="prompt-lookup speculative decoding of greedy n == 1 requests on the single-request "
-                         "engine; with --paged it waits for A10c")
-    ap.add_argument("--prefix-cache", action="store_true", help="paged prefix caching; waits for A10c")
+                    help="prompt-lookup speculative decoding: with --paged, the batch's greedy slots advance up to "
+                         "draft-len + 1 tokens a verify dispatch (sampled or log-prob ticks roll); without it, "
+                         "greedy n == 1 requests on the single-request engine")
+    ap.add_argument("--draft-len", type=int, default=4, help="paged: speculative draft tokens a verify dispatch")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="paged: requests sharing a prompt prefix (system prompts, a resent image) reuse its KV pages")
     ap.add_argument("--streaming-roll", type=int, default=None, metavar="N",
-                    help="paged adaptive roll while SSE streams are attached; waits for A10c")
-    ap.add_argument("--pipeline-rolls", action="store_true", help="paged pipelined decode rolls; waits for A10c")
+                    help="paged: the decode roll while an SSE request decodes (e.g. --decode-roll 16 "
+                         "--streaming-roll 4); batch traffic keeps the full roll")
+    ap.add_argument("--pipeline-rolls", action="store_true",
+                    help="paged: dispatch the next decode roll from the card's tokens before reading the last one "
+                         "back (the host's readback overlaps the card's work)")
     ap.add_argument("--no-warmup", dest="warmup", action="store_false",
                     help="skip the start-up warm-up (with --paged the decode rolls' CUDA graphs, captured by "
                          "precompile, and three short requests; else one short generate); the first requests "
@@ -781,10 +793,6 @@ def main(argv=None):
     if args.paged:
         args.continuous_batching = True  # --paged implies the batch scheduler
     refuse_waiting(ap, {
-        "--prefix-cache": (args.prefix_cache, "A10c"),
-        "--streaming-roll": (args.streaming_roll is not None, "A10c"),
-        "--pipeline-rolls": (args.pipeline_rolls, "A10c"),
-        "--paged --speculative (speculative verify in the batch)": (args.paged and args.speculative, "A10c"),
         "--continuous-batching without --paged (the slot engine)": (args.continuous_batching and not args.paged,
                                                                    "A10d"),
     })
@@ -798,7 +806,9 @@ def main(argv=None):
         engine = paged_batch_engine(
             model, max_slots=args.max_slots, num_pages=args.num_pages, page_size=args.page_size,
             max_len=args.max_len, decode_roll=args.decode_roll, prefill_chunk=args.prefill_chunk,
-            image_cache_size=args.image_cache, decode_kernel=args.decode_kernel,
+            image_cache_size=args.image_cache, decode_kernel=args.decode_kernel, prefix_cache=args.prefix_cache,
+            streaming_roll=args.streaming_roll, pipeline_rolls=args.pipeline_rolls, speculative=args.speculative,
+            draft_len=args.draft_len,
         )
     if args.warmup:
         logger.info(f"warm-up done in {warmup_engines(model, engine):.1f} s")

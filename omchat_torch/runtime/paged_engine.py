@@ -16,11 +16,13 @@ table.  One :meth:`PagedBatchEngine.step` (a scheduler tick):
    (:func:`_paged_prefill_chunk`: the chunk's K/V written into the request's
    pages, attention walking the page tables, K14), requests at the same chunk
    width together;
-4. runs one decode roll of ``decode_roll`` steps over every decoding slot
+4. runs one decode roll over every decoding slot
    (:func:`_paged_decode_roll`): each step runs every layer with the pool
    read-only (K12, or with ``decode_kernel="manual"`` K13, with the in-flight
    token as a self column) and commits all layers' new rows once (K4); the
-   tokens come back to the host once per roll.  The roll reads its tokens,
+   tokens come back to the host once per roll.  A roll runs ``decode_roll``
+   steps, or ``streaming_roll`` while any decoding request was submitted with
+   ``streaming=True`` (an SSE client is attached).  The roll reads its tokens,
    lengths, active flags, per-slot pick parameters (do_sample, top_k,
    temperature, top_p) and page tables from one static buffer of
    ``max_slots`` rows that the host fills before each roll.  A roll's pick
@@ -30,25 +32,54 @@ table.  One :meth:`PagedBatchEngine.step` (a scheduler tick):
    each slot's chosen log-prob and top ``LOGPROBS_K`` of the raw logits.
    On a CUDA engine a roll is one replay of a CUDA graph of the roll
    (:class:`~omchat_torch.runtime.cuda_graphs.GraphedStep`), one graph per
-   table width bucket (4, 8, 16, 32 pages, capped at the table's width) and
-   pick mode, in one graph pool, a sampled graph drawing from the engine's
-   generator registered with it; :meth:`PagedBatchEngine.precompile`
-   captures them ahead of traffic, else a roll captures at its first use:
-   the counterpart of the JAX engine's one ``_paged_decode_roll_jit``
-   dispatch.  CPU engines, ``attn_impl="plain"`` and ``decode_graphs=False``
-   run the same bodies eagerly; ``latency_stats()`` counts
-   ``rolls_graphed`` and ``rolls_eager``.  A request's first token's
-   log-probs come from its prefill's last row, on every prefill route.
+   table width bucket (4, 8, 16, 32 pages, capped at the table's width),
+   pick mode and roll length, in one graph pool, a sampled graph drawing
+   from the engine's generator registered with it;
+   :meth:`PagedBatchEngine.precompile` captures them ahead of traffic, else
+   a roll captures at its first use: the counterpart of the JAX engine's one
+   ``_paged_decode_roll_jit`` dispatch.  CPU engines, ``attn_impl="plain"``
+   and ``decode_graphs=False`` run the same bodies eagerly;
+   ``latency_stats()`` counts ``rolls_graphed`` and ``rolls_eager``.  A
+   request's first token's log-probs come from its prefill's last row, on
+   every prefill route.
+
+The routes beside the plain roll, each the JAX engine's:
+
+- ``prefix_cache``: prompt pages are published under a digest chain
+  (:mod:`omchat_torch.runtime.prefix_cache`, image-aware) when a prefill
+  completes; a later request whose prompt starts with published pages maps
+  them and resumes its prefill past them on the chunked route (K14 reading
+  pages another request wrote).  Refcount-0 pages are evicted under
+  pressure.
+- ``speculative``: while no decoding request samples or wants log-probs,
+  each slot proposes up to ``draft_len`` tokens (prompt lookup over its
+  prompt and generation, or ``draft_fn``) and one verify dispatch
+  (:func:`_paged_verify`: the slot's live pages gathered, K2 over them with
+  the in-flight rows spliced in, one K4 for all L·S·T rows) scores them all;
+  an acceptance EMA sends the engine back to rolls when drafts stop
+  accepting.  On a CUDA engine the verify is one replay of a CUDA graph per
+  table width (``verifies_graphed`` / ``verifies_eager``).
+- ``pipeline_rolls``: while nothing would change the decoding set, the next
+  roll is dispatched from the in-flight roll's tokens on the device before
+  the host reads that roll back, so the host's readback and bookkeeping
+  overlap the card's work.
+- ``prefill_priority``: no roll while an admitted slot is mid-prefill.
+
+A roll or verify may write past a finished request's budget: each request
+holds ``_max_roll - 1`` positions of headroom (the largest of
+``decode_roll``, ``streaming_roll`` and ``draft_len + 1``, doubled under
+``pipeline_rolls``), and the table is widened by as much.
 
 ``cache_dtype=torch.float8_e4m3fn`` keeps the pool in e4m3 (half the bytes a
 page): short prompts still prefill into a scratch cache of the weights' dtype
 and K15 rounds their pages on commit; a chunk's K/V are rounded as they are
 written into its pages, which K14 then reads; decode folds the in-flight token
-in unrounded and K4 rounds it on commit.  Every rounding is
+in unrounded and K4 rounds it on commit; the verify widens the gathered pages
+to the activations' dtype, so it runs K2's bf16 entry.  Every rounding is
 :func:`omchat_torch.ops.fp8.to_e4m3`'s, the JAX package's ``astype``.
 
-Under w8a8 (``cfg.w8a8`` with int8 params) the short prefills and the
-chunks run the glue layer of :func:`~omchat_torch.models.qwen2.decoder_layer`
+Under w8a8 (``cfg.w8a8`` with int8 params) the short prefills, the chunks and
+the verify run the glue layer of :func:`~omchat_torch.models.qwen2.decoder_layer`
 (K7, K11) and the ViT its glue scan; decode rolls stay weight-only int8.
 
 The pools are updated in place (the counterpart of the JAX package's buffer
@@ -60,10 +91,10 @@ the paged attention kernels are built for (``ops.paged_attention.PAGE_SIZES``:
 any page size.
 
 Waiting for later slices, each raising ``NotImplementedError`` rather than
-being ignored: the prefix cache, speculative verify, pipelined and streaming
-rolls, a device mesh and the MoE trunk.  Presence / frequency penalties raise
-too: the JAX paged engine has none either.  Prefill runs eagerly, so
-:meth:`PagedBatchEngine.precompile` captures the decode rolls only.
+being ignored: a device mesh and the MoE trunk.  Presence / frequency
+penalties raise too: the JAX paged engine has none either.  Prefill runs
+eagerly, so :meth:`PagedBatchEngine.precompile` captures the decode rolls and
+the verify only.
 """
 
 from __future__ import annotations
@@ -82,13 +113,14 @@ import torch
 from omchat_torch.config import OmChatConfig
 from omchat_torch.models.omchat import fuse_embeddings
 from omchat_torch.models.qwen2 import decoder_layer, embed_tokens, lm_head, quant_glue_ok
-from omchat_torch.ops.attention import PLAIN
+from omchat_torch.ops.attention import PLAIN, attention
 from omchat_torch.ops.fp8 import cast_to
 from omchat_torch.ops.norms import rms_norm
 from omchat_torch.ops.paged_attention import (
     DECODE_KERNELS,
     PAGE_SIZES,
     PageAllocator,
+    _gather_pages,
     commit_pages,
     commit_pages_plain,
     commit_rows,
@@ -101,6 +133,8 @@ from omchat_torch.ops.sampling import greedy, sample, sample_batch
 from omchat_torch.runtime.cuda_graphs import GraphedStep
 from omchat_torch.runtime.feature_cache import pixel_digest
 from omchat_torch.runtime.generate import OmChatEngine
+from omchat_torch.runtime.prefix_cache import PrefixPageCache, page_hashes
+from omchat_torch.runtime.speculative import propose_draft
 from omchat_torch.utils.device import resolve_device
 from omchat_torch.utils.tree import layer_slice
 
@@ -228,7 +262,7 @@ def _paged_decode_roll(params, cfg: OmChatConfig, tokens, lengths, active, table
     the [steps, S] tokens without reading them back (with ``logprobs`` the
     tuple of :func:`_decode_step_core`'s outputs, each stacked over the
     steps).  Requests that hit EOS or their budget mid-roll keep decoding
-    into their own headroom pages (the engine allocates ``decode_roll - 1``
+    into their own headroom pages (the engine allocates ``_max_roll - 1``
     extra positions); the host discards the surplus tokens."""
     out = []
     for _ in range(steps):
@@ -291,6 +325,69 @@ def _paged_prefill_chunk(params, cfg: OmChatConfig, token_ids, is_image, image_i
     return lm_head(lm, tc, rms_norm(last, lm["norm"]["scale"], tc.rms_norm_eps))
 
 
+def _paged_verify(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
+                  attn_impl: Optional[str] = None) -> torch.Tensor:
+    """Speculative verify: T candidate rows a slot in one forward against the
+    page pool; returns the logits of every row [S, T, V] (fp32) and commits
+    the rows' K/V in place.
+
+    tokens [S, T] (each slot's last token, then its draft), lengths (valid
+    rows already in pages), active [S]; tables [S, W] (parked rows for
+    inactive slots), all on the pools' device.  The decode step's memory
+    structure: the pools stay READ-ONLY through the layer loop; each layer
+    gathers the slots' live pages to a contiguous [S, KVH, W*ps, D] block,
+    widens it to q's dtype (an e4m3 pool's pages included, so K2 runs its
+    bf16 entry and does not round p), splices the in-flight rows in at their
+    absolute positions and runs causal attention over it (K2 at per-slot
+    ``q_offset = lengths`` and ``kv_len = lengths + T``; inactive slots attend
+    to nothing), and hands back its T new rows; one row commit (K4) writes all
+    L*S*T rows after the loop, inactive slots' onto the parking page.
+    Rejected rows stay beyond the accepted length, where the next dispatch
+    writes again before anything reads them."""
+    tc = cfg.text
+    lm = params["language_model"]
+    s, t = tokens.shape
+    dev = tokens.device
+    max_pages = tables.shape[1]
+    n_layers, n_slots = k_pool.shape[0], k_pool.shape[1]  # P+1 incl. parking
+    kflat = k_pool.view(n_layers * n_slots, *k_pool.shape[2:])
+    vflat = v_pool.view(n_layers * n_slots, *v_pool.shape[2:])
+    x = embed_tokens(lm, tokens)  # [S, T, D]
+    positions = lengths[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+    cos, sin = rope_cos_sin(
+        positions, tc.attn_head_dim, theta=tc.rope_theta, scaling=tc.rope_scaling,
+        max_position_embeddings=tc.max_position_embeddings, dtype=x.dtype,
+    )
+    col = (positions // page_size).long()
+    page_rows = torch.where(col < max_pages, tables.gather(1, col.clamp(max=max_pages - 1)), n_slots - 1)  # [S, T]
+    offsets = positions % page_size
+    kv_len = torch.where(active, lengths + t, torch.zeros_like(lengths))
+    q_off = torch.where(active, lengths, torch.zeros_like(lengths))
+    b_idx = torch.arange(s, device=dev)[:, None]
+    rows = positions.long()
+    k_rows: List[torch.Tensor] = []
+    v_rows: List[torch.Tensor] = []
+    for li in range(n_layers):
+        def attend(q, k, v, li=li):
+            k_rows.append(k)
+            v_rows.append(v)
+            kg, vg = _gather_pages(kflat, vflat, tables + li * n_slots)
+            kg, vg = kg.to(q.dtype), vg.to(q.dtype)
+            kg[b_idx, :, rows] = k
+            vg[b_idx, :, rows] = v
+            return attention(q, kg, vg, causal=True, q_offset=q_off, kv_len=kv_len, impl=attn_impl,
+                             kv_format="bntd")
+
+        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl))
+    flat_pages = (torch.arange(n_layers, dtype=torch.int32, device=dev)[:, None, None] * n_slots
+                  + page_rows[None]).reshape(-1)
+    commit = commit_rows_plain if attn_impl == PLAIN else commit_rows
+    commit(kflat, vflat, flat_pages, offsets[None].expand(n_layers, s, t).reshape(-1),
+           torch.stack(k_rows).reshape(n_layers * s * t, *k_rows[0].shape[2:]),
+           torch.stack(v_rows).reshape(n_layers * s * t, *v_rows[0].shape[2:]))
+    return lm_head(lm, tc, rms_norm(x, lm["norm"]["scale"], tc.rms_norm_eps))
+
+
 @dataclass
 class _PagedRequest:
     request_id: int
@@ -309,6 +406,8 @@ class _PagedRequest:
     prompt_len: int = 0
     n_pages_needed: int = 0
     chunk_pos: int = 0  # next chunk start of an in-progress paged prefill
+    page_hashes: List[bytes] = field(default_factory=list)  # prefix-cache digests of the prompt's pages
+    cache_refs: List[int] = field(default_factory=list)  # pages held through the prefix cache
     cancelled: bool = False  # cooperative: swept by the scheduler at tick start
     pending_pixels: Optional[np.ndarray] = None  # tiles awaiting the batched ViT tick
     image_cache_key: Optional[str] = None
@@ -319,6 +418,8 @@ class _PagedRequest:
     top_logprobs: int = 0  # 0..LOGPROBS_K alternatives a token
     lp_list: List[float] = field(default_factory=list)  # aligned with generated
     top_list: List[list] = field(default_factory=list)  # [(token id, log-prob), ...] a token, LOGPROBS_K of them
+    streaming: bool = False  # an SSE client is attached: rolls shrink to streaming_roll
+    lookup_base: List[int] = field(default_factory=list)  # the true prompt ids, for prompt-lookup drafts
 
     @property
     def samples(self) -> bool:
@@ -361,7 +462,11 @@ class PagedBatchEngine:
         decode_kernel: str = "auto",
         streaming_roll: Optional[int] = None,
         speculative: bool = False,
+        draft_len: int = 4,
+        draft_ngram: int = 2,
+        draft_fn=None,
         pipeline_rolls: bool = False,
+        prefill_priority: bool = False,
         decode_graphs: bool = True,
     ):
         """``max_len`` caps one request's prompt + generation (it sets the
@@ -374,19 +479,25 @@ class PagedBatchEngine:
         ``decode_kernel``: "auto" decodes with K12, "manual" with K13 (the
         same function; the plain route ignores it, as the JAX engine does off
         the TPU).  ``decode_graphs``: a CUDA engine on the kernels replays a
-        CUDA graph for each roll (False: every roll eagerly).
+        CUDA graph for each roll and verify (False: each eagerly).
         ``params`` already live on ``device`` (default CUDA; raises without
-        it)."""
+        it).
+
+        As in the JAX engine: ``prefix_cache`` publishes prompt pages under
+        their digests and lets a later request with the same prefix skip them;
+        ``streaming_roll`` is the roll while any decoding request streams;
+        ``speculative`` verifies ``draft_len`` drafted tokens a slot in one
+        dispatch (prompt lookup of ``draft_ngram``-grams, or
+        ``draft_fn(context) -> ids``); ``pipeline_rolls`` dispatches the next
+        roll from the device's tokens before reading the last one back;
+        ``prefill_priority`` holds the roll while an admitted slot is
+        mid-prefill."""
         if page_size not in PAGE_SIZES and torch.device(device or "cuda").type == "cuda":
             raise ValueError(f"PagedBatchEngine: page_size {page_size} has no CUDA kernel; the paged attention kernels "
                              f"take page sizes {PAGE_SIZES}")
         dtype = params["language_model"]["embed_tokens"].dtype
         waiting = {
             "a device mesh (tensor-parallel serving)": mesh is not None,
-            "the prefix cache": prefix_cache,
-            "streaming rolls": streaming_roll is not None,
-            "speculative verify": speculative,
-            "pipelined rolls": pipeline_rolls,
             "the MoE trunk": cfg.text.is_moe,
         }
         for what, asked in waiting.items():
@@ -411,6 +522,19 @@ class PagedBatchEngine:
         self._prompt_bucket = prompt_bucket
         self._chunk_bucket = math.lcm(prompt_bucket, page_size)
         self.decode_roll = max(1, int(decode_roll))
+        self.streaming_roll = max(1, int(streaming_roll)) if streaming_roll else None
+        self.speculative = bool(speculative)
+        self.draft_len = max(1, int(draft_len))
+        self.draft_ngram = max(1, int(draft_ngram))
+        self.draft_fn = draft_fn
+        self.pipeline_rolls = bool(pipeline_rolls)
+        self.prefill_priority = bool(prefill_priority)
+        self._inflight: Optional[dict] = None  # a dispatched roll not yet read back (pipeline_rolls)
+        # the positions a dispatch may write past a request's budget: the
+        # longest roll or verify chunk, twice that when a successor roll may
+        # be dispatched before the host sees the request finish
+        self._max_roll = max(self.decode_roll, self.streaming_roll or 1,
+                             self.draft_len + 1 if self.speculative else 1) * (2 if self.pipeline_rolls else 1)
         # contiguous prefills and the ViT go through the single-request engine,
         # whose scratch cache keeps the weights' dtype (K15 rounds on commit)
         self._prefiller = OmChatEngine(
@@ -423,9 +547,10 @@ class PagedBatchEngine:
         self.v_pool = torch.zeros(shape, dtype=cache_dtype or dtype, device=self.device)
         self.allocator = PageAllocator(num_pages)
         self._parking = num_pages
+        self.prefix_cache: Optional[PrefixPageCache] = PrefixPageCache() if prefix_cache else None
         # pages one request may map: the table width, widened by the roll
-        # headroom so decode_roll does not shrink the prompt+generation cap
-        self.max_pages = -(-(max_len + self.decode_roll - 1) // page_size)
+        # headroom so the rolls do not shrink the prompt+generation cap
+        self.max_pages = -(-(max_len + self._max_roll - 1) // page_size)
         self._ids = itertools.count()
         self.queue: List[_PagedRequest] = []
         self.slots: List[Optional[_PagedRequest]] = [None] * max_slots
@@ -438,14 +563,33 @@ class PagedBatchEngine:
         self.rng_seed = rng_seed
         self._generator = torch.Generator(device=self.device).manual_seed(rng_seed)
         # a roll's inputs, one row a slot: token, length, active, the pick's
-        # parameters, then the page table
+        # parameters, then the page table; a verify's: its draft_len + 1
+        # tokens, length, active, then the page table
         cuda = self.device.type == "cuda"
         self._roll_host = torch.zeros((max_slots, _ROLL_COLS + self.max_pages), dtype=torch.int32, pin_memory=cuda)
         self._roll_dev = self._roll_host.to(self.device) if cuda else self._roll_host
+        self._roll_staged: Optional[torch.cuda.Event] = None  # the last copy out of _roll_host
+        t_chunk = self.draft_len + 1
+        self._verify_host = torch.zeros((max_slots, t_chunk + 2 + self.max_pages), dtype=torch.int32, pin_memory=cuda)
+        self._verify_dev = self._verify_host.to(self.device) if cuda else self._verify_host
         self.decode_graphs = decode_graphs
-        self._rolls: dict = {}  # (table width, pick mode) -> the roll's GraphedStep, or its body run eagerly
+        # (table width, pick mode, roll) -> the roll's GraphedStep, or its body run eagerly
+        self._rolls: dict = {}
+        self._verifies: dict = {}  # table width -> the verify's GraphedStep, or its body
+        # host copies of the rolls' outputs, two a shape used in turn: a roll's
+        # outputs are copied out right after it, and at most two rolls (one in
+        # flight, its successor) are unread at once
+        self._host_outs: dict = {}
         self._graph_pool = torch.cuda.graph_pool_handle() if self.graphed() else None
         self.rolls_graphed = self.rolls_eager = 0
+        self.verifies_graphed = self.verifies_eager = 0
+        # speculative accounting: verify dispatches and the tokens they gave;
+        # an EMA of the accepted drafts a slot gates the verify (it replaces a
+        # whole roll, so it pays only while drafts accept), starting
+        # optimistic and probing again every 32nd draft-bearing tick
+        self.spec_dispatches = self.spec_tokens = 0
+        self._spec_ema = float(self.draft_len)
+        self._spec_probe = 0
 
     # -- client API ---------------------------------------------------------
 
@@ -459,31 +603,45 @@ class PagedBatchEngine:
         image_cache_key: Optional[str] = None,
         logprobs: bool = False,
         top_logprobs: int = 0,
+        streaming: bool = False,
     ) -> int:
         """Queue one request (ids with ``-200`` sentinels, its tiles
         [N, 3, H, W] in sentinel order); returns its id.  ``logprobs`` /
         ``top_logprobs`` (at most ``LOGPROBS_K``): each generated token's
         log-prob and the top alternatives, read with
-        :meth:`request_logprobs`.  Raises before any work when no allocation
-        could ever hold it."""
+        :meth:`request_logprobs`.  ``streaming``: a client reads the tokens
+        as they come, so rolls shrink to ``streaming_roll`` while it decodes.
+        Raises before any work when no allocation could ever hold it."""
         if generation is not None and (generation.presence_penalty or generation.frequency_penalty):
             raise NotImplementedError("PagedBatchEngine: presence / frequency penalties wait for a later slice")
         req = _PagedRequest(next(self._ids), list(input_ids), None, max_new_tokens, eos_token_id, generation)
         req.logprobs = bool(logprobs) or top_logprobs > 0
         req.top_logprobs = max(0, min(int(top_logprobs), LOGPROBS_K))
+        req.streaming = bool(streaming)
+        if self.speculative:
+            req.lookup_base = [t for t in req.input_ids if t >= 0]
         req.submit_t = time.perf_counter()
         req.plan = self._prefiller.plan([req.input_ids])
-        # roll - 1 extra positions absorb mid-roll writes past a finished budget
-        need = self._n_pages_for(int(req.plan.lengths[0]) + max_new_tokens + self.decode_roll - 1)
+        # _max_roll - 1 extra positions absorb a dispatch's writes past a finished budget
+        need = self._n_pages_for(int(req.plan.lengths[0]) + max_new_tokens + self._max_roll - 1)
         if need > min(self.max_pages, self.allocator.num_pages):
             raise ValueError(
                 f"request needs {need} pages (> cap {self.max_pages} / pool {self.allocator.num_pages}); "
                 "raise max_len/num_pages or shorten the request"
             )
         req.n_pages_needed = need
+        if images is not None and image_cache_key is None and isinstance(images, np.ndarray):
+            # one identity for the feature LRU and the prefix pages' digests
+            image_cache_key = pixel_digest(images)
+        if self.prefix_cache is not None:
+            plan = req.plan
+            is_image = np.asarray(plan.is_image[0])
+            req.page_hashes = page_hashes(
+                np.asarray(plan.token_ids[0]), int(plan.lengths[0]), self.page_size,
+                int(np.argmax(is_image)) if is_image.any() else None,
+                image_key=image_cache_key if images is not None else None, is_image=is_image,
+                image_index=np.asarray(plan.image_index[0]))
         if images is not None:
-            if image_cache_key is None and isinstance(images, np.ndarray):
-                image_cache_key = pixel_digest(images)
             # feature LRU: repeated images skip the ViT; misses defer to the
             # batched encode of the next tick
             cache = self._prefiller.image_cache
@@ -531,10 +689,11 @@ class PagedBatchEngine:
         self.requests[request_id].cancelled = True
 
     def has_work(self) -> bool:
-        return bool(self.queue) or any(r is not None for r in self.slots)
+        return bool(self.queue) or any(r is not None for r in self.slots) or self._inflight is not None
 
     def stats(self) -> dict:
-        """Scheduler gauges: slots, queue, pages, image cache, latency."""
+        """Scheduler gauges: slots, queue, pages, the speculative counts, the
+        prefix and image caches, latency."""
         out = {
             "slots_busy": sum(r is not None for r in self.slots),
             "slots_total": self.max_slots,
@@ -542,27 +701,36 @@ class PagedBatchEngine:
             "pages_free": self.allocator.available,
             "pages_total": self.allocator.num_pages,
         }
+        if self.speculative:
+            out["spec_dispatches"] = self.spec_dispatches
+            out["spec_tokens"] = self.spec_tokens
+        if self.prefix_cache is not None:
+            out.update({f"prefix_cache_{k}": v for k, v in self.prefix_cache.stats().items()})
         if self._prefiller.image_cache is not None:
             out.update({f"image_cache_{k}": v for k, v in self._prefiller.image_cache.stats().items()})
         out.update({k: round(v, 4) for k, v in self.latency_stats().items() if k != "requests_measured"})
         return out
 
     def reset_latency_stats(self) -> None:
-        """Clear the rolling windows and the roll counts (after a warm-up)."""
+        """Clear the rolling windows and the roll and verify counts (after a
+        warm-up)."""
         self._ttfts.clear()
         self._gaps.clear()
         self.rolls_graphed = self.rolls_eager = 0
+        self.verifies_graphed = self.verifies_eager = 0
 
     def latency_stats(self) -> dict:
         """TTFT p50/p99/max and inter-token p50/p99, seconds, over rolling
-        windows, and the rolls replayed from a CUDA graph (``rolls_graphed``)
-        and issued eagerly (``rolls_eager``).  Inter-token gaps are
+        windows, and the rolls and verifies replayed from a CUDA graph
+        (``rolls_graphed``, ``verifies_graphed``) and issued eagerly
+        (``rolls_eager``, ``verifies_eager``).  Inter-token gaps are
         observation gaps at roll granularity: a roll delivers its tokens
         together."""
         ttfts = list(self._ttfts)
         gaps = list(self._gaps)
         out: dict = {"requests_measured": len(ttfts), "rolls_graphed": self.rolls_graphed,
-                     "rolls_eager": self.rolls_eager}
+                     "rolls_eager": self.rolls_eager, "verifies_graphed": self.verifies_graphed,
+                     "verifies_eager": self.verifies_eager}
         if ttfts:
             out["ttft_p50_s"] = float(np.percentile(ttfts, 50))
             out["ttft_p99_s"] = float(np.percentile(ttfts, 99))
@@ -583,6 +751,18 @@ class PagedBatchEngine:
 
     def _n_pages_for(self, total_tokens: int) -> int:
         return -(-total_tokens // self.page_size)
+
+    def _table_width(self, max_need: int, cap: int) -> int:
+        """The table width a dispatch reaching ``max_need`` rows slices: a
+        power of two >= 4 pages, at most ``cap``."""
+        return min(_pow2_at_least(self._n_pages_for(max_need), 4), cap)
+
+    def _alloc(self, n: int) -> List[int]:
+        """Allocate, reclaiming refcount-0 prefix-cache pages under pressure."""
+        short = n - self.allocator.available
+        if short > 0 and self.prefix_cache is not None:
+            self.allocator.release(self.prefix_cache.evict(short))
+        return self.allocator.alloc(n)
 
     def _tile_bucket(self, n: int) -> int:
         for b in self._TILE_BUCKETS:
@@ -653,16 +833,31 @@ class PagedBatchEngine:
             if self.slots[i] is not None or not self.queue:
                 continue
             req = self.queue[0]
-            if req.n_pages_needed > self.allocator.available:
-                break  # head-of-line waits for pages that decode progress frees
+            hit: List[int] = []
+            if self.prefix_cache is not None and req.page_hashes:
+                # at least one prompt row is left to prefill: its logits pick the first token
+                usable = (int(req.plan.lengths[0]) - 1) // self.page_size
+                hit = self.prefix_cache.lookup(req.page_hashes[:usable])
+            evictable = self.prefix_cache.evictable if self.prefix_cache is not None else 0
+            if req.n_pages_needed - len(hit) > self.allocator.available + evictable:
+                for p in hit:  # head-of-line waits for pages that decode progress frees
+                    self.prefix_cache.unref(p)
+                break
             self.queue.pop(0)
-            req.pages = self.allocator.alloc(req.n_pages_needed)
+            req.cache_refs = hit
+            req.chunk_pos = len(hit) * self.page_size
+            req.pages = self._alloc(req.n_pages_needed - len(hit))
             req.slot = i
             self.slots[i] = req
             self._tables[i, :] = self._parking
-            self._tables[i, : len(req.pages)] = req.pages
+            self._tables[i, : len(hit)] = hit
+            self._tables[i, len(hit): len(hit) + len(req.pages)] = req.pages
 
     def _release(self, req: _PagedRequest):
+        if self.prefix_cache is not None:
+            for p in req.cache_refs:
+                self.prefix_cache.unref(p)
+            req.cache_refs = []
         self.allocator.release(req.pages)
         req.pages = []
         # park the slot's table so later decode writes never touch a freed page
@@ -794,6 +989,20 @@ class PagedBatchEngine:
     def _finish_prefill(self, req: _PagedRequest, logits):
         self._finish_with_token(req, self._first_token(req, logits), logits)
 
+    def _publish_prefix_pages(self, req: _PagedRequest):
+        """After a prefill, publish the prompt pages it wrote (those
+        ``page_hashes`` addresses past the admission hit): a published page
+        belongs to the cache, and the request holds a reference instead."""
+        n_hit = len(req.cache_refs)
+        moved = set()
+        for j in range(n_hit, len(req.page_hashes)):
+            p = req.pages[j - n_hit]
+            if self.prefix_cache.publish(req.page_hashes[j], p):
+                req.cache_refs.append(p)
+                moved.add(j - n_hit)
+        if moved:
+            req.pages = [p for k, p in enumerate(req.pages) if k not in moved]
+
     def _finish_with_token(self, req: _PagedRequest, first: int, logits_row=None):
         """Record the first token (``logits_row``: the [1, V] logits it came
         from) and start decoding, or release at EOS / a one-token budget."""
@@ -802,6 +1011,8 @@ class PagedBatchEngine:
         now = time.perf_counter()
         req.ttft = now - req.submit_t
         self._ttfts.append(req.ttft)
+        if self.prefix_cache is not None and req.page_hashes:
+            self._publish_prefix_pages(req)
         self._lengths[req.slot] = req.prompt_len
         if first == req.eos_token_id:
             self._release(req)
@@ -874,9 +1085,32 @@ class PagedBatchEngine:
         for req, logits in finished_prefills:
             self._finish_prefill(req, logits)
 
+        if self._inflight is not None:
+            # pipelined rolls: dispatch the successor from the in-flight roll's
+            # tokens on the device BEFORE reading that roll back, unless a
+            # request is queued, mid-prefill or cancelled (``_can_extend``) or
+            # every member will be at its budget after it; then just drain.
+            # As in the JAX engine, a request whose prefill finished this tick
+            # joins the rolls only when the chain ends.
+            h, self._inflight = self._inflight, None
+            nxt = None
+            if (self._can_extend(h["decoding"]) and all(not r.done for r in h["decoding"])
+                    and any(len(r.generated) + h["roll"] < r.max_new_tokens for r in h["decoding"])):
+                nxt = self._extend_roll(h)
+            self._process_roll(h)
+            self._inflight = nxt
+            return
         decoding = [r for r in self.slots if r is not None and r.prefilled and r.last_token is not None]
         if not decoding:
             return
+        # throughput mode: roll only once every admitted request is in the
+        # batch (queued ones wait on slots and pages that decoding frees)
+        if self.prefill_priority and any(r is not None and not r.prefilled for r in self.slots):
+            return
+        # speculative verify, greedy slots only; a tick without a draft rolls
+        if self.speculative and not any(r.samples or r.logprobs for r in decoding):
+            if self._speculative_tick(decoding):
+                return
         active = np.zeros(self.max_slots, bool)
         for r in decoding:
             self._tokens[r.slot] = r.last_token
@@ -884,48 +1118,63 @@ class PagedBatchEngine:
         # a slot mid-chunked-prefill has real pages in its table row: pass it
         # parked, or the roll would write over its committed chunks
         tables_dec = np.where(active[:, None], self._tables, self._parking)
-        roll = self.decode_roll
-        # slice the table to the pages reachable in this dispatch (a power of
-        # two >= 4; + roll covers the rows written during it)
-        need_pages = -(-(int(max(self._lengths[r.slot] for r in decoding)) + roll) // self.page_size)
-        width = min(_pow2_at_least(need_pages, 4), tables_dec.shape[1])
-        self._process_roll(self._dispatch_roll(decoding, roll, active, tables_dec[:, :width]))
+        roll = self.streaming_roll if self.streaming_roll and any(r.streaming for r in decoding) else self.decode_roll
+        # slice the table to the pages reachable in this dispatch (+ roll
+        # covers the rows written during it)
+        width = self._table_width(int(max(self._lengths[r.slot] for r in decoding)) + roll, tables_dec.shape[1])
+        h = self._dispatch_roll(decoding, roll, active, tables_dec[:, :width])
+        if self.pipeline_rolls and self._can_extend(decoding):
+            self._inflight = h  # the next tick dispatches its successor before reading it
+            return
+        self._process_roll(h)
 
     # -- decode rolls ---------------------------------------------------------
 
     def graphed(self) -> bool:
-        """Whether rolls replay CUDA graphs (a CUDA engine on the kernels
-        with ``decode_graphs``)."""
+        """Whether rolls and verifies replay CUDA graphs (a CUDA engine on
+        the kernels with ``decode_graphs``)."""
         return self.decode_graphs and self.device.type == "cuda" and self.attn_impl != PLAIN
 
     def precompile(self, roll_widths: Sequence[int] = ROLL_WIDTHS,
                    variants: Sequence[tuple] = PICK_MODES) -> List[int]:
         """Capture the roll of every table width in ``roll_widths`` (capped
-        at the table's width) and every pick mode in ``variants`` ((any
-        sampled, log-probs) pairs) ahead of traffic, as the JAX engine's
-        ``precompile`` compiles its roll programs; returns the widths.  Each
-        capture follows one roll over parked slots (nothing active, every
-        table on the parking page), so it writes nothing but the parking
-        page; the generator is seeded again afterwards, so that precompiling
-        leaves the draws of the traffic after it unchanged.  Prefill runs
-        eagerly and has nothing to capture.  On a CPU engine, or without
-        graphs, each parked roll runs eagerly once."""
+        at the table's width), every pick mode in ``variants`` ((any
+        sampled, log-probs) pairs) and both roll lengths (``decode_roll``,
+        ``streaming_roll``), and with ``speculative`` the verify of every
+        width, ahead of traffic, as the JAX engine's ``precompile`` compiles
+        its programs; returns the widths.  Each capture follows one dispatch
+        over parked slots (nothing active, every table on the parking page),
+        so it writes nothing but the parking page; the generator is seeded
+        again afterwards, so that precompiling leaves the draws of the
+        traffic after it unchanged.  Prefill runs eagerly and has nothing to
+        capture.  On a CPU engine, or without graphs, each parked dispatch
+        runs eagerly once."""
         widths = sorted({min(int(w), self.max_pages) for w in roll_widths})
         parked = np.full((self.max_slots, self.max_pages), self._parking, np.int32)
         zeros = np.zeros(self.max_slots, np.int32)
+        rolls = sorted({self.decode_roll, self.streaming_roll or self.decode_roll})
         for w in widths:
-            for mode in variants:
-                step = self._roll_step(w, tuple(mode))
-                if isinstance(step, GraphedStep) and step.graph is not None:
-                    continue
-                self._stage_roll(zeros, zeros, zeros, parked[:, :w], self._sampling_rows([]))
-                step()
+            for roll in rolls:
+                for mode in variants:
+                    step = self._roll_step(w, tuple(mode), roll)
+                    if isinstance(step, GraphedStep) and step.graph is not None:
+                        continue
+                    self._stage_roll(zeros, zeros, zeros, parked[:, :w], self._sampling_rows([]))
+                    step()
+            if self.speculative:
+                step = self._verify_step(w)
+                if not (isinstance(step, GraphedStep) and step.graph is not None):
+                    self._stage_verify(np.zeros((self.max_slots, self.draft_len + 1), np.int32), zeros, zeros,
+                                       parked[:, :w])
+                    step()
         self._generator.manual_seed(self.rng_seed)
         return widths
 
     def capture_ms(self) -> float:
-        """The wall time the roll graphs' captures took, in milliseconds."""
-        return 1e3 * sum(step.capture_s for step in self._rolls.values() if isinstance(step, GraphedStep))
+        """The wall time the roll and verify graphs' captures took, in
+        milliseconds."""
+        steps = itertools.chain(self._rolls.values(), self._verifies.values())
+        return 1e3 * sum(step.capture_s for step in steps if isinstance(step, GraphedStep))
 
     def _sampling_rows(self, decoding) -> np.ndarray:
         """[S, 4] fp32 host rows of the roll's per-slot pick parameters:
@@ -940,9 +1189,12 @@ class PagedBatchEngine:
 
     def _stage_roll(self, tokens, lengths, active, tables, sampling: np.ndarray) -> None:
         """Copy a roll's host inputs ([S] tokens, lengths, active; [S, 4]
-        sampling rows; [S, W] tables) into the static buffer the roll reads
-        (one asynchronous copy from pinned memory on CUDA: the host writes the
-        pinned rows again only after the roll's tokens came back)."""
+        sampling rows; [S, W] tables) into the static buffer the roll reads:
+        one asynchronous copy from pinned memory on CUDA.  Under pipelined
+        rolls the host stages a roll while the last one's copy may still be
+        queued, so it first waits for that copy."""
+        if self._roll_staged is not None:
+            self._roll_staged.synchronize()
         h = self._roll_host.numpy()
         h[:, 0], h[:, 1], h[:, 2] = tokens, lengths, active
         h[:, 3], h[:, 4] = sampling[:, 0], sampling[:, 1]
@@ -950,6 +1202,8 @@ class PagedBatchEngine:
         h[:, _ROLL_COLS: _ROLL_COLS + tables.shape[1]] = tables
         if self._roll_dev is not self._roll_host:
             self._roll_dev.copy_(self._roll_host, non_blocking=True)
+            self._roll_staged = torch.cuda.Event()
+            self._roll_staged.record()
 
     def _roll_inputs(self, width: int) -> tuple:
         """(tokens, lengths, active, tables) of the staged roll: views of the
@@ -963,17 +1217,24 @@ class PagedBatchEngine:
         return {"do_sample": b[:, 3] != 0, "top_k": b[:, 4], "temperature": b[:, 5].view(torch.float32),
                 "top_p": b[:, 6].view(torch.float32)}
 
-    def _roll_step(self, width: int, mode: tuple = PICK_MODES[0]):
-        """The roll at table width ``width`` and pick ``mode``: a GraphedStep
-        on a graphed engine (a sampled mode registers the engine's generator
-        with its graph), else its body; it writes the [roll, S] tokens (and
-        with log-probs the chosen [roll, S] and top [roll, S, K] values and
-        ids) into static buffers and returns them."""
-        step = self._rolls.get((width, mode))
+    def _graphed_or_body(self, body, sampled: bool = False):
+        if self.graphed():
+            return GraphedStep(body, self._graph_pool, self.device, generators=(self._generator,) if sampled else ())
+        return body
+
+    def _roll_step(self, width: int, mode: tuple = PICK_MODES[0], roll: Optional[int] = None):
+        """The roll of ``roll`` steps (default ``decode_roll``) at table
+        width ``width`` and pick ``mode``: a GraphedStep on a graphed engine
+        (a sampled mode registers the engine's generator with its graph),
+        else its body; it writes the [roll, S] tokens (and with log-probs the
+        chosen [roll, S] and top [roll, S, K] values and ids) into static
+        buffers and returns them."""
+        roll = self.decode_roll if roll is None else roll
+        step = self._rolls.get((width, mode, roll))
         if step is None:
             sampled, logprobs = mode
             kw = dict(dtype=torch.int32, device=self.device)
-            shape = (self.decode_roll, self.max_slots)
+            shape = (roll, self.max_slots)
             out = [torch.zeros(shape, **kw)]
             if logprobs:
                 out += [torch.zeros(shape, dtype=torch.float32, device=self.device),
@@ -984,7 +1245,7 @@ class PagedBatchEngine:
             def body():
                 eng = engine()
                 got = _paged_decode_roll(eng.params, eng.cfg, *eng._roll_inputs(width), eng.k_pool, eng.v_pool,
-                                         eng.page_size, eng.attn_impl, eng.decode_roll,
+                                         eng.page_size, eng.attn_impl, roll,
                                          decode_kernel=eng.decode_kernel,
                                          sampling=eng._roll_sampling() if sampled else None,
                                          generator=eng._generator, logprobs=logprobs)
@@ -992,35 +1253,80 @@ class PagedBatchEngine:
                     o.copy_(g)
                 return tuple(out)
 
-            if self.graphed():
-                step = GraphedStep(body, self._graph_pool, self.device,
-                                   generators=(self._generator,) if sampled else ())
-            else:
-                step = body
-            self._rolls[(width, mode)] = step
+            step = self._rolls[(width, mode, roll)] = self._graphed_or_body(body, sampled)
         return step
 
-    def _dispatch_roll(self, decoding, roll, active, tables_dec):
+    def _dispatch_roll(self, decoding, roll, active, tables_dec, lengths=None, tokens=None):
         """Issue one decode roll without reading its tokens back: a replay of
-        the graph of its width and pick mode, or its body run eagerly where
-        graphs are off."""
-        self._stage_roll(self._tokens, self._lengths, active, tables_dec, self._sampling_rows(decoding))
+        the graph of its width, pick mode and length, or its body run eagerly
+        where graphs are off; its outputs are then copied to host buffers
+        (asynchronously on CUDA).  ``lengths`` (default the host's) and
+        ``tokens`` (a device row that replaces the staged tokens, queued
+        after the staging copy) start a pipelined successor.  Returns the
+        in-flight handle :meth:`_process_roll` reads."""
+        lengths = np.array(self._lengths if lengths is None else lengths)
+        self._stage_roll(self._tokens, lengths, active, tables_dec, self._sampling_rows(decoding))
+        if tokens is not None:
+            self._roll_dev[:, 0].copy_(tokens)
         mode = (any(r.samples for r in decoding), any(r.logprobs for r in decoding))
-        step = self._roll_step(tables_dec.shape[1], mode)
+        step = self._roll_step(tables_dec.shape[1], mode, roll)
         out = step()
         if isinstance(step, GraphedStep):
             self.rolls_graphed += 1
         else:
             self.rolls_eager += 1
-        return {"decoding": list(decoding), "slots": [r.slot for r in decoding], "out": out}
+        host, ready = self._to_host(out)
+        return {"decoding": list(decoding), "slots": [r.slot for r in decoding], "roll": roll, "active": active,
+                "out": out, "host": host, "ready": ready, "lengths_next": lengths + roll * active.astype(np.int32)}
+
+    def _to_host(self, out) -> tuple:
+        """Copy a dispatch's outputs into the next of the two host sets of
+        their shapes (pinned, asynchronously, on CUDA); returns the set and
+        the event that marks the copy done (None on the CPU)."""
+        cuda = self.device.type == "cuda"
+        key = tuple((tuple(o.shape), o.dtype) for o in out)
+        sets = self._host_outs.setdefault(key, [None, None, 0])
+        turn = sets[2]
+        sets[2] = 1 - turn
+        if sets[turn] is None:
+            sets[turn] = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=cuda) for o in out)
+        for h, o in zip(sets[turn], out):
+            h.copy_(o, non_blocking=cuda)
+        ready = None
+        if cuda:
+            ready = torch.cuda.Event()
+            ready.record()
+        return sets[turn], ready
+
+    def _can_extend(self, decoding) -> bool:
+        """A roll may stay in flight (its successor dispatched from the
+        device's tokens) only while nothing would change the decoding set: no
+        queued admission, no slot mid-prefill, no cancel, no speculative
+        drafts (which read the host's tokens)."""
+        return (not self.queue and not any(r is not None and not r.prefilled for r in self.slots)
+                and not any(r.cancelled for r in decoding) and not self.speculative)
+
+    def _extend_roll(self, h) -> dict:
+        """Dispatch the successor of the in-flight roll ``h`` from its last
+        tokens on the device, at lengths advanced by the whole roll for every
+        active slot (a request that finished inside ``h`` decodes on into its
+        headroom; the host discards the surplus)."""
+        lengths, active, roll = h["lengths_next"], h["active"], h["roll"]
+        tables = np.where(active[:, None], self._tables, self._parking)
+        width = self._table_width(int(max(lengths[s] for s in h["slots"])) + roll, tables.shape[1])
+        return self._dispatch_roll(h["decoding"], roll, active, tables[:, :width], lengths=lengths,
+                                   tokens=h["out"][0][-1])
 
     def _process_roll(self, h):
-        """Read a roll's tokens (and log-probs) back, one readback each, and
-        run the per-request bookkeeping: EOS / budget releases, the latency
+        """Read a roll's tokens (and log-probs) from its host copies and run
+        the per-request bookkeeping: EOS / budget releases, the latency
         windows and the log-prob lists, kept aligned with the tokens.  Host
         lengths advance per consumed token; a request that finishes mid-roll
-        is released, so its surplus positions stay in its freed headroom."""
-        toks_np, *lp = (t.cpu().numpy() for t in h["out"])  # [roll, S], then [roll, S], [roll, S, K] x 2
+        is released, so its surplus positions stay in its freed headroom; a
+        request released while the roll was in flight (a cancel) is skipped."""
+        if h["ready"] is not None:
+            h["ready"].synchronize()
+        toks_np, *lp = (t.numpy() for t in h["host"])  # [roll, S], then [roll, S], [roll, S, K] x 2
         tick_now = time.perf_counter()  # tokens of a roll arrive together
         for r, slot in zip(h["decoding"], h["slots"]):
             if r.done:
@@ -1042,3 +1348,98 @@ class PagedBatchEngine:
                 if len(r.generated) >= r.max_new_tokens:
                     self._release(r)
                     break
+
+    # -- speculative verify ---------------------------------------------------
+
+    def _stage_verify(self, tokens, lengths, active, tables) -> None:
+        """Copy a verify's host inputs ([S, T] tokens; [S] lengths, active;
+        [S, W] tables) into the static buffer the verify reads (its tokens
+        come back before the host stages again)."""
+        t = self.draft_len + 1
+        h = self._verify_host.numpy()
+        h[:, :t], h[:, t], h[:, t + 1] = tokens, lengths, active
+        h[:, t + 2: t + 2 + tables.shape[1]] = tables
+        if self._verify_dev is not self._verify_host:
+            self._verify_dev.copy_(self._verify_host, non_blocking=True)
+
+    def _verify_step(self, width: int):
+        """The verify at table width ``width``: a GraphedStep on a graphed
+        engine, else its body; it writes the greedy token after each of the
+        [S, draft_len + 1] rows into a static [S, draft_len + 1] buffer and
+        returns it."""
+        step = self._verifies.get(width)
+        if step is None:
+            t = self.draft_len + 1
+            out = torch.zeros((self.max_slots, t), dtype=torch.int32, device=self.device)
+            engine = weakref.ref(self)
+
+            def body():
+                eng = engine()
+                b = eng._verify_dev
+                logits = _paged_verify(eng.params, eng.cfg, b[:, :t], b[:, t], b[:, t + 1] != 0,
+                                       b[:, t + 2: t + 2 + width], eng.k_pool, eng.v_pool, eng.page_size,
+                                       eng.attn_impl)
+                out.copy_(torch.argmax(logits, dim=-1))
+                return out
+
+            step = self._verifies[width] = self._graphed_or_body(body)
+        return step
+
+    def _speculative_tick(self, decoding) -> bool:
+        """One batched verify dispatch for the decoding slots; returns False
+        (the caller rolls instead) when no slot proposes a draft, or while
+        the acceptance EMA says drafts do not accept (but every 32nd
+        draft-bearing tick, which probes again)."""
+        t_chunk = self.draft_len + 1
+        propose = self.draft_fn or (lambda ctx: propose_draft(ctx, ngram=self.draft_ngram, k=self.draft_len))
+        drafts: Dict[int, List[int]] = {}
+        for r in decoding:
+            drafts[r.slot] = [int(x) for x in propose(r.lookup_base + r.generated)[: self.draft_len]]
+        if not any(drafts.values()):
+            return False
+        self._spec_probe += 1
+        if self._spec_ema < 0.5 and self._spec_probe % 32 != 0:
+            return False
+        toks = np.zeros((self.max_slots, t_chunk), np.int32)
+        active = np.zeros(self.max_slots, bool)
+        for r in decoding:
+            d = drafts[r.slot]
+            toks[r.slot, 0] = r.last_token
+            toks[r.slot, 1: 1 + len(d)] = d
+            active[r.slot] = True
+        tables = np.where(active[:, None], self._tables, self._parking)
+        width = self._table_width(int(max(self._lengths[r.slot] for r in decoding)) + t_chunk, tables.shape[1])
+        self._stage_verify(toks, self._lengths, active, tables[:, :width])
+        step = self._verify_step(width)
+        out_np = step().cpu().numpy()  # [S, T]: the greedy token after each row
+        if isinstance(step, GraphedStep):
+            self.verifies_graphed += 1
+        else:
+            self.verifies_eager += 1
+        tick_now = time.perf_counter()
+        self.spec_dispatches += 1
+        delivered_before = self.spec_tokens
+        for r in decoding:
+            g, d = out_np[r.slot], drafts[r.slot]
+            n_acc = 0
+            while n_acc < len(d) and d[n_acc] == int(g[n_acc]):
+                n_acc += 1
+            # the accepted draft, then the model's own token where it disagrees
+            # (or after the whole draft)
+            for tok in d[:n_acc] + [int(g[n_acc])]:
+                self.spec_tokens += 1
+                self._lengths[r.slot] += 1
+                r.last_token = tok
+                if tok == r.eos_token_id:
+                    self._release(r)
+                    break
+                r.generated.append(tok)
+                if r.token_times and tick_now > r.token_times[-1]:
+                    self._gaps.append(tick_now - r.token_times[-1])
+                r.token_times.append(tick_now)
+                if len(r.generated) >= r.max_new_tokens:
+                    self._release(r)
+                    break
+        a_mean = (self.spec_tokens - delivered_before) / max(len(decoding), 1) - 1.0
+        self._spec_ema = 0.7 * self._spec_ema + 0.3 * a_mean
+        return True

@@ -65,7 +65,10 @@ causal edge inside a kv tile and on its boundary), K3 at B = 4 (beams) and
 over a 33024-row cache (a 32-frame video), K7, K11 and K10 at M = 9 (one
 128-row tile, mostly padding), each with a planted fault that must fall
 outside the tolerance; the sampled decode step replayed from a CUDA graph,
-bitwise its eager run from one seed.
+bitwise its eager run from one seed.  The paged engine's routes: the graphed
+speculative verify bitwise its eager body (tokens and both pools, bf16 and
+e4m3), the verify on the kernels against its plain route at 2+2 layers, and
+pipelined graphed rolls giving the unpipelined run's tokens.
 """
 
 import pytest
@@ -1310,6 +1313,114 @@ def test_paged_pick_modes_graphed_give_the_eager_rolls(graph_model):
     (want, st_eager), (runs, st_graph) = got[False], got[True]
     assert runs == want and all(len(t) == 12 for t, _ in runs)
     assert st_graph["rolls_eager"] == 0 and st_graph["rolls_graphed"] == st_eager["rolls_eager"] > 0
+
+
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+def test_paged_verify_graphed_is_its_eager_body(graph_model, pool):
+    """Speculative verify in the batch: after ``precompile`` every verify
+    replays its width's CUDA graph (``verifies_eager`` 0), and the tokens,
+    the speculative counts and both pools, bit for bit, are those of the
+    same engine running every verify and roll eagerly."""
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    cfg, params = graph_model
+    prompts = _prompts(4, seed=3)
+    settings = dict(max_slots=4, num_pages=48, page_size=128, max_len=1024, decode_roll=4, image_cache_size=0,
+                    cache_dtype=None if pool == "bf16" else E4M3)
+    base = PagedBatchEngine(cfg, params, **settings)
+    rids = [base.submit(p, None, max_new_tokens=16, eos_token_id=-1) for p in prompts]
+    base.run_to_completion()
+    # an oracle draft of the rolls' tokens, so that drafts accept (both runs draft alike)
+    cont = {tuple(p + r[:i]): r[i:] for p, r in zip(prompts, map(base.result, rids)) for i in range(len(r))}
+    del base
+    got = {}
+    for graphs in (False, True):
+        eng = PagedBatchEngine(cfg, params, decode_graphs=graphs, speculative=True,
+                               draft_fn=lambda ctx: cont.get(tuple(ctx), [])[:4], **settings)
+        eng.precompile(variants=((False, False),))
+        rids = [eng.submit(p, None, max_new_tokens=16, eos_token_id=-1) for p in prompts]
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        got[graphs] = ([eng.result(r) for r in rids], eng.stats(), eng.k_pool.clone(), eng.v_pool.clone())
+        assert eng.allocator.available == 48
+    (want, st_e, k_e, v_e), (tokens, st_g, k_g, v_g) = got[False], got[True]
+    assert tokens == want and all(len(t) == 16 for t in tokens)
+    assert st_g["spec_dispatches"] == st_e["spec_dispatches"] == st_e["verifies_eager"] > 0
+    assert st_g["spec_tokens"] == st_e["spec_tokens"] and st_g["verifies_eager"] == 0
+    assert st_g["verifies_graphed"] == st_g["spec_dispatches"]
+    assert torch.equal(k_g.view(torch.uint8), k_e.view(torch.uint8))
+    assert torch.equal(v_g.view(torch.uint8), v_e.view(torch.uint8))
+
+
+def test_paged_verify_kernels_match_plain(graph_model):
+    """``_paged_verify`` at 2+2 layers on the kernels (K2 over the gathered
+    pages, K4) against ``attn_impl="plain"`` on the same pools and tokens:
+    logits within chip_smoke.py's phase-4 limits (atol 1e-1, rtol 2e-2),
+    layer 0's committed rows bitwise and the same rows written in every
+    layer, the rest of the pools untouched; a verify with its lengths one
+    row late falls outside."""
+    import numpy as np
+
+    from omchat_torch.runtime.paged_engine import _paged_verify
+
+    cfg, params = graph_model
+    tc = cfg.text
+    g = torch.Generator(device="cuda").manual_seed(11)
+    s, t, ps, pages = 6, 5, 128, 48
+    shape = (tc.num_hidden_layers, pages + 1, tc.num_key_value_heads, ps, tc.attn_head_dim)
+    k_pool = (torch.randn(shape, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    v_pool = (torch.randn(shape, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    tokens = torch.randint(2000, 20000, (s, t), generator=g, device="cuda", dtype=torch.int32)
+    lengths = torch.tensor([700, 127, 128, 1000, 3, 0], dtype=torch.int32, device="cuda")
+    active = torch.tensor([True, True, True, True, True, False], device="cuda")
+    perm = np.random.default_rng(0).permutation(pages)[: s * 8].reshape(s, 8)
+    perm[-1] = pages  # the inactive slot parked
+    tables = torch.tensor(perm, dtype=torch.int32, device="cuda")
+
+    def run(impl, lens=lengths):
+        kp, vp = k_pool.clone(), v_pool.clone()
+        return _paged_verify(params, cfg, tokens, lens, active, tables, kp, vp, ps, impl), kp, vp
+
+    (lk, kk, vk), (lp, kpl, vpl) = run(None), run("plain")
+    live = active[:, None, None]
+    err = ((lk - lp).abs() - (1e-1 + 2e-2 * lp.abs())).masked_fill(~live, -1)
+    assert float(err.max()) <= 0, float((lk - lp).abs().max())
+    # layer 0's rows are projections of the embeddings: bitwise; later layers' rows come
+    # from the previous layer's attention, which the two routes round apart
+    assert torch.equal(kk[0], kpl[0]) and torch.equal(vk[0], vpl[0])
+    for got, ref, before in ((kk, kpl, k_pool), (vk, vpl, v_pool)):  # the same rows written, nothing else
+        moved = (got[:, :pages] != before[:, :pages]).any(-1).any(2)  # [L, pages, ps]
+        assert torch.equal(moved, (ref[:, :pages] != before[:, :pages]).any(-1).any(2))
+        assert int(moved.any(0).sum()) == 5 * t
+    bad, _, _ = run(None, lengths + 1)
+    assert float(((bad - lp).abs() - (1e-1 + 2e-2 * lp.abs())).masked_fill(~live, -1).max()) > 0
+
+
+def test_paged_pipelined_graphed_gives_the_unpipelined_tokens(graph_model):
+    """Pipelined rolls on the graphs: each successor dispatched from the
+    in-flight roll's tokens on the card, two rolls' outputs in flight at
+    once; every request gets the unpipelined graphed run's tokens bit for
+    bit, no roll runs eagerly after ``precompile``, nothing stays in flight
+    and every page comes back."""
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    cfg, params = graph_model
+    got = {}
+    for pipelined in (False, True):
+        eng = PagedBatchEngine(cfg, params, max_slots=4, num_pages=48, page_size=128, max_len=1024, decode_roll=4,
+                               image_cache_size=0, pipeline_rolls=pipelined)
+        eng.precompile(variants=((False, False),))
+        extended = []
+        orig = eng._extend_roll
+        eng._extend_roll = lambda h: (extended.append(1), orig(h))[1]
+        rids = [eng.submit(p, None, max_new_tokens=18, eos_token_id=-1) for p in _prompts(4, seed=4)]
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        got[pipelined] = [eng.result(r) for r in rids], eng.latency_stats(), len(extended)
+        assert eng._inflight is None and eng.allocator.available == 48
+    (want, st, _), (tokens, st_p, n_ext) = got[False], got[True]
+    assert tokens == want and all(len(t) == 18 for t in tokens)
+    assert n_ext > 0 and st_p["rolls_eager"] == st["rolls_eager"] == 0 and st_p["rolls_graphed"] > 0
 
 
 def test_lora_bank_decode_graph_serves_every_adapter(graph_model):

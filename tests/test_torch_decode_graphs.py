@@ -219,7 +219,7 @@ def test_precompile_and_bucketed_rolls_match_per_step_rolls_and_jax(reference, r
     assert widths == sorted({min(w, eng.max_pages) for w in (4, 8, 16, 32)})
     parking = eng._parking
     assert not eng.k_pool[:, :parking].any() and not eng.v_pool[:, :parking].any()
-    assert set(eng._rolls) == {(w, mode) for w in widths for mode in PICK_MODES}  # every width and pick mode
+    assert set(eng._rolls) == {(w, mode, roll) for w in widths for mode in PICK_MODES}  # every width and pick mode
     assert _run(eng) == want == _run(_port(params, decode_roll=1))
     stats = eng.latency_stats()
     assert stats["rolls_graphed"] == 0 and stats["rolls_eager"] > 0  # a CPU engine rolls eagerly
@@ -251,7 +251,8 @@ def test_serving_warmup_precompiles_and_leaves_the_engine_idle(reference, capsys
     eng = _port(params, decode_roll=2)
     assert warmup_engine(eng) >= 0
     assert not eng.has_work() and not eng.requests and eng.allocator.available == ENGINE["num_pages"]
-    assert eng._rolls and eng.latency_stats() == {"requests_measured": 0, "rolls_graphed": 0, "rolls_eager": 0}
+    assert eng._rolls and eng.latency_stats() == {"requests_measured": 0, "rolls_graphed": 0, "rolls_eager": 0,
+                                                  "verifies_graphed": 0, "verifies_eager": 0}
     assert _run(eng) == want
     with pytest.raises(SystemExit):
         main(["--help"])

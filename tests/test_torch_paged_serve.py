@@ -80,10 +80,8 @@ def test_image_completion(server):
     assert engine.stats()["image_cache_misses"] >= 1
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--prefix-cache"], "A10c"), (["--streaming-roll", "4"], "A10c"), (["--pipeline-rolls"], "A10c"),
-    (["--paged", "--speculative"], "A10c"), (["--continuous-batching"], "A10d"), (["--tp", "2"], "13"),
-], ids=["prefix-cache", "streaming-roll", "pipeline-rolls", "paged-speculative", "continuous-batching", "tp"])
+@pytest.mark.parametrize("flags,item", [(["--continuous-batching"], "A10d"), (["--tp", "2"], "13")],
+                         ids=["continuous-batching", "tp"])
 def test_unsupported_field_is_a_client_error(flags, item, capsys, monkeypatch):
     """What the port does not serve yet is refused by name, as a usage error
     naming the queue item that will bring it, before any weight loads."""

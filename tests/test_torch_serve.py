@@ -416,3 +416,138 @@ def test_model_and_logprobs_fields(servers):
     assert out["model"] == "omchat-tpu" and out["choices"][0]["logprobs"] is None
     _, _, models_list = _call(ports["default"][1], "/v1/models")
     assert models_list["data"][0]["id"] == "omchat-tpu"
+
+
+# -- the paged engine's routes through the server ----------------------------
+
+ROUTE_FLAGS = {
+    "prefix-cache": (["--prefix-cache"], lambda e: e.prefix_cache is not None),
+    "streaming-roll": (["--streaming-roll", "2"], lambda e: e.streaming_roll == 2),
+    "pipeline-rolls": (["--pipeline-rolls"], lambda e: e.pipeline_rolls),
+    "speculative": (["--speculative"], lambda e: e.speculative and e.draft_len == 4),
+    "draft-len": (["--speculative", "--draft-len", "3"], lambda e: e.speculative and e.draft_len == 3),
+}
+
+
+def _main_builds(tmodel, monkeypatch, flags):
+    """The paged engine ``tserve.main`` builds for ``flags`` (no server runs)."""
+    built = {}
+
+    class Server:
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    class Loop:
+        def close(self):
+            pass
+
+    def make_server(model, engine=None, host="", port=0, speculative=False):
+        built.update(engine=engine, speculative=speculative)
+        return Server(), Loop()
+
+    monkeypatch.setattr(tserve, "load_model", lambda ap, args: tmodel)
+    monkeypatch.setattr(tserve, "make_server", make_server)
+    tserve.main(["--model-path", "unused", "--device", "cpu", "--no-warmup", "--paged", "--page-size", "8",
+                 "--num-pages", "64", "--max-len", "256", *flags])
+    return built
+
+
+@pytest.mark.parametrize("flag", list(ROUTE_FLAGS))
+def test_route_flags_reach_the_paged_engine(models, monkeypatch, flag):
+    """Each of the paged engine's route flags is served, not refused, and
+    reaches the engine as the JAX server passes it (cli/serve.py)."""
+    _, tmodel = models
+    flags, holds = ROUTE_FLAGS[flag]
+    built = _main_builds(tmodel, monkeypatch, flags)
+    assert isinstance(built["engine"], TPagedEngine) and holds(built["engine"])
+    others = [f for f in ROUTE_FLAGS if f != flag and not (flag == "draft-len" and f == "speculative")]
+    assert not any(ROUTE_FLAGS[f][1](built["engine"]) for f in others)
+
+
+@pytest.mark.parametrize("flags,item", [(["--continuous-batching"], "A10d"), (["--tp", "2"], "13")],
+                         ids=["continuous-batching-without-paged", "tp-2"])
+def test_waiting_flags_still_refused_by_name(flags, item, capsys, monkeypatch):
+    def no_load(*a, **kw):
+        raise AssertionError("weights loaded before the refusal")
+
+    monkeypatch.setattr("omchat_torch.api.load_pretrained_model", no_load)
+    with pytest.raises(SystemExit) as e:
+        tserve.main(["--model-path", "/nonexistent", "--device", "cpu", *flags])
+    assert e.value.code == 2 and item in capsys.readouterr().err
+
+
+def _spy_submits(engine, seen):
+    orig = engine.submit
+
+    def spy(*a, **kw):
+        seen.append(kw.get("streaming", False))
+        return orig(*a, **kw)
+
+    return orig, spy
+
+
+def test_paged_sse_submits_streaming(servers):
+    """An SSE request on the paged route submits with ``streaming=True`` (so
+    the engine's rolls shrink to ``--streaming-roll``), a plain one without,
+    on both servers."""
+    ports, jpaged, tpaged = servers
+    seen = {"jax": [], "port": []}
+    saved = []
+    for name, eng in (("jax", jpaged), ("port", tpaged)):
+        orig, spy = _spy_submits(eng, seen[name])
+        saved.append((eng, orig))
+        eng.submit = spy
+    try:
+        for path, body in (STREAM_BODIES["stream"], GREEDY_BODIES["text"]):
+            _both(servers, "paged", path, body)
+    finally:
+        for eng, orig in saved:
+            eng.submit = orig
+    assert seen["port"] == seen["jax"] == [True, False]
+
+
+def test_metrics_carry_the_route_counts(models):
+    """With speculative verify and the prefix cache on, /metrics carries the
+    engine's ``spec_*`` and ``prefix_cache_*`` gauges with the JAX server's
+    values after the same two requests (the second hits the first's pages),
+    and the verifies' graphed / eager counts."""
+    from serve import make_handler
+
+    from omchat_tpu.config import OmChatConfig
+    from omchat_tpu.runtime.paged_engine import PagedBatchEngine
+    from omchat_tpu.utils.logging import build_logger
+
+    jmodel, tmodel = models
+    opts = dict(PAGED, speculative=True, prefix_cache=True)
+    jpaged = PagedBatchEngine(OmChatConfig.tiny(), jmodel.engine.params, attn_impl="xla", **opts)
+    tpaged = paged_batch_engine(tmodel, **opts)
+    stop = threading.Event()
+    jthread = _jax_scheduler(jpaged, stop)
+    jsrv = _serve(make_handler(jmodel, build_logger("test.torch_serve", "test_torch_serve.log", log_dir="/tmp"),
+                               jpaged))
+    tsrv, loop = tserve.make_server(tmodel, tpaged, "127.0.0.1", 0)
+    threading.Thread(target=tsrv.serve_forever, daemon=True).start()
+    try:
+        body = {"messages": _user("abcabcabcabcabcabcabcabc hello hello"), "max_tokens": 12}
+        rows = []
+        for port in (jsrv.server_address[1], tsrv.server_address[1]):
+            for _ in range(2):
+                assert _call(port, CHAT, body)[0] == 200
+            text = _call(port, "/metrics")[2]
+            rows.append(dict(line.split(" ", 1) for line in text.splitlines() if line and not line.startswith("#")))
+    finally:
+        for srv in (jsrv, tsrv):
+            srv.shutdown()
+            srv.server_close()
+        loop.close()
+        stop.set()
+        jthread.join(30)
+    jrows, trows = rows
+    keys = [k for k in jrows if k.startswith(("omchat_engine_spec_", "omchat_engine_prefix_cache_"))]
+    assert len(keys) == 6 and {k: trows[k] for k in keys} == {k: jrows[k] for k in keys}
+    assert int(trows["omchat_engine_prefix_cache_hits"]) > 0
+    assert int(trows["omchat_engine_verifies_eager"]) == int(trows["omchat_engine_spec_dispatches"])
+    assert trows["omchat_engine_verifies_graphed"] == "0"
