@@ -245,6 +245,35 @@
     rows over the gathered blocks, SDPA with the same mask), K4 at its
     L*S*T = 2240 rows (``index_put_``), K14 on the prefix run's largest
     resumed chunk (gather + SDPA).
+29. The slot engine (``runtime/batch_engine.py:BatchEngine``, the server's
+    ``--continuous-batching`` route) at full width and depth on phase 3's
+    weights (right after phase 28): phase 5's workload on 16 slots of 4096
+    rows, chunks of 512, after ``precompile`` (line ``slot engine``:
+    tokens/s, TTFT p50 / p99, the 16-slot step's wall ms, the graphed step
+    beside the same body eager (``step_ms``), chunk dispatch ms, K1-K4
+    launches; every request 64 tokens, every step a replay); a late joiner
+    (request 1's tokens bitwise with and without request 0 joining); the
+    e4m3 rerun (K2, K3, K4 on the e4m3 cache; the first step leaving the
+    bf16 tokens); at 2+2 layers 4 requests against the single-request engine
+    and a LoRA bank of two rank-16 adapters (ids 0 / 1 / 2) against merged
+    weights, both by phase 7's rule, the bank's planted faults (adapters 1
+    and 2 swapped, the bank ignored) outside phase 4's limits;
+    ``process_anyres_image(use_native=True)``
+    on a seeded 1000x700 image within ``NATIVE_TOL`` of the numpy path, ms
+    of each.  Kernel rows at what the timed run handed them: K2 on its
+    largest 512-row chunk into one slot, K3 at 16 rows of unequal lengths
+    with parked rows of 0 cache rows (planted faults: a row's length from its
+    neighbour, a parked row given cache rows), K4 on that step's 448 rows,
+    parked rows at row 4095 (bitwise).
+30. The eval entry point (``omchat_torch/cli/eval.py``'s ``run`` on phase
+    3's model with ``id_tokenizer``): 8 questions (4 with a seeded PNG)
+    serial and with 4 in flight (the paged engine), samples/s of each, then
+    ``--perplexity`` on a seeded text (K2 on cacheless windows); at 2+2
+    layers the serial answers must be ``engine.generate``'s tokens, the
+    concurrent ones agree up to the first step whose top-2 margin is under
+    0.1, and each counted token's nll be within ``PPL_TOKEN_GAP`` of
+    ``attn_impl="plain"``'s, where the plain route with a planted fault
+    (non-causal attention, one future column) must fall outside it.
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -6314,6 +6343,738 @@ def paged_routes_on_the_card(gen, model, seed: int, phase27: dict = None) -> tup
     return res, rows, counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 29-30: the slot engine (BatchEngine) and the eval entry point
+# ---------------------------------------------------------------------------
+
+# Phase 29: the slot engine's settings (the JAX server's --continuous-batching
+# engine at phase 5's 16 slots and 4096 rows, chunks of 512 rows), the late
+# joiner's budget, the image of the native tile pipeline's check and its limit
+# (the fused pass computes x * (1/255/std) - mean/std where the numpy path
+# computes (x/255 - mean)/std: one or two float32 ulps at |x| <= 2.7).
+SLOT_ENGINE = dict(max_slots=16, max_len=4096, chunk_size=512, image_cache_size=0)
+SLOT_JOIN_TOKENS, SLOT_STEP_READINGS, SLOT_STEP_CALLS = 32, 3, 10
+NATIVE_IMAGE, NATIVE_TOL = (1000, 700), 1e-6
+# Phase 30: EVAL_SAMPLES questions, the first EVAL_IMAGES with a seeded
+# 448x448 PNG, EVAL_NEW_TOKENS greedy tokens each, serial and with
+# EVAL_CONCURRENCY in flight; perplexity over PPL_WORDS seeded words (about
+# 3900 byte tokens in two 2048-token windows).  At 2+2 layers each counted
+# token's nll, kernels against the plain route, must be within PPL_TOKEN_GAP,
+# and the plain route with each of PPL_FAULTS planted must leave it: a mean
+# over thousands of tokens of random weights moves little under a wrong mask,
+# so the check is a token's, and its limit lies between the sound gaps and
+# the faults' (chip_probes/slot_eval_faults.py, three seeded texts on an H100:
+# kernels vs plain at most 0.063 a token, the faults at least 3.96 and 1.29;
+# their mean-nll gaps 0.146 and 0.002 would pass a limit of 0.2 on the mean).
+EVAL_SAMPLES, EVAL_IMAGES, EVAL_NEW_TOKENS, EVAL_CONCURRENCY = 8, 4, 32, 4
+PPL_WORDS, PPL_TOKEN_GAP = 700, 2 * LOGITS_ATOL
+PPL_FAULTS = ("non-causal", "one future column")
+
+
+def record_slot_run(eng) -> dict:
+    """Wrap the slot engine's two dispatch points, the prefill chunk and the
+    decode step, so that a run records each chunk's slot, start and length
+    (what K2 is handed), each decode step's lengths and active flags (what K3
+    and K4 are handed), each request's first-token logits (its last chunk's)
+    and the time they were ready (the engine picks the first token from them
+    at once), and CUDA events around both dispatches (a step's stage, replay
+    and readback).  Each entry carries ``rec["label"]`` at its time."""
+    import numpy as np
+    import torch
+
+    rec = {"label": None, "steps": [], "chunks": [], "spans": [], "first": {}, "logits": {}}
+    chunk, decode = eng._prefill_chunk, eng._decode
+
+    def timed(kind, fn, *a):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a)
+        end.record()
+        rec["spans"].append(dict(label=rec["label"], kind=kind, start=start, end=end))
+        return out
+
+    def on_chunk(req):
+        n = min(eng.chunk_size, int(req.plan.lengths[0]) - req.prefill_pos)
+        rec["chunks"].append(dict(label=rec["label"], slot=req.slot, start=req.prefill_pos, len=n))
+        logits = timed("chunk", chunk, req)
+        if req.prefill_pos + n >= int(req.plan.lengths[0]):
+            rec["logits"][req.request_id] = logits[0].float()
+            torch.cuda.synchronize()
+            rec["first"][req.request_id] = time.perf_counter()
+        return logits
+
+    def on_decode(decoding):
+        active = np.zeros(eng.max_slots, bool)
+        active[[r.slot for r in decoding]] = True
+        rec["steps"].append(dict(label=rec["label"], lengths=eng._lengths.copy(), active=active))
+        return timed("step", decode, decoding)
+
+    eng._prefill_chunk, eng._decode = on_chunk, on_decode
+    return rec
+
+
+def slot_spans(rec, label, kind) -> list:
+    return [s["start"].elapsed_time(s["end"]) for s in rec["spans"] if s["label"] == label and s["kind"] == kind]
+
+
+def slot_timed_run(cfg, params, work, label: str, cache_dtype=None, precompile: bool = True) -> tuple:
+    """Phase 29's timed run of ``work`` on a fresh slot engine (``cache_dtype``
+    e4m3 for the rerun): ``precompile`` (both decode graphs), a warm-up at 4
+    new tokens, then SERVING_NEW_TOKENS with K1-K4 counted from 0: tokens/s,
+    TTFT percentiles, the step and chunk dispatch wall ms, steps graphed /
+    eager.  Every request must return all its tokens, every step be a replay
+    and every kernel launch.  Returns (results, engine, record)."""
+    import numpy as np
+    import torch
+
+    from omchat_torch.runtime.batch_engine import BatchEngine
+
+    eng = BatchEngine(cfg, params, device=DEVICE, cache_dtype=cache_dtype, **SLOT_ENGINE)
+    rec = record_slot_run(eng)
+    t0 = time.perf_counter()
+    if precompile:
+        eng.precompile()
+    capture_s = time.perf_counter() - t0
+    rec["label"] = "warm-up"
+    drive(eng, work, 4)
+    eng.reset_latency_stats()
+    counted = counters()
+    for c in counted.values():
+        c.launches = 0
+    graph = eng._steps[False]
+    replays = graph.replays
+    rec["label"] = "timed"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = drive(eng, work, SERVING_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counted.items()}
+    ttfts = [rec["first"][r] - t0 for r in rids]
+    done = [eng.pop_result(r) for r in rids]
+    steps = [s for s in rec["steps"] if s["label"] == "timed"]
+    step_ms = slot_spans(rec, "timed", "step")
+    full = [ms for s, ms in zip(steps, step_ms) if s["active"].all()]
+    res = {
+        "card": CARD, "cache": str(eng.cache.k.dtype).replace("torch.", ""), "requests": len(work),
+        "generated_tokens": sum(len(t) for t, _ in done), "wall_s": wall,
+        "tokens_per_s": sum(len(t) for t, _ in done) / wall,
+        "ttft_p50_s": float(np.percentile(ttfts, 50)), "ttft_p99_s": float(np.percentile(ttfts, 99)),
+        "decode_steps": len(steps), "steps_graphed": eng.steps_graphed, "steps_eager": eng.steps_eager,
+        "step_wall_ms_16_slots": sum(full) / len(full) if full else None, "steps_at_16_slots": len(full),
+        "step_wall_ms_mean": sum(step_ms) / len(step_ms),
+        "chunk_dispatches": len(slot_spans(rec, "timed", "chunk")),
+        "chunk_dispatch_ms_mean": float(np.mean(slot_spans(rec, "timed", "chunk"))),
+        "chunk_dispatch_ms_sum": sum(slot_spans(rec, "timed", "chunk")),
+        "capture_s": capture_s if precompile else None, "launches": launches,
+    }
+    failed = []
+    short = [i for i, (t, _) in enumerate(done) if len(t) != SERVING_NEW_TOKENS]
+    if short:
+        failed.append(f"requests {short} did not return {SERVING_NEW_TOKENS} tokens")
+    if eng.steps_eager or graph.replays - replays != len(steps):
+        failed.append(f"{eng.steps_eager} steps eager, {graph.replays - replays} replays of {len(steps)} steps")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        failed.append(f"kernels never launched on the slot engine's path: {missing}")
+    res["tokens"] = [t for t, _ in done]
+    if failed:
+        log(f"{label}: " + json.dumps({k: v for k, v in res.items() if k != "tokens"}))
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return res, eng, rec
+
+
+def slot_step_ms(eng, rec) -> dict:
+    """The 16-slot decode step graphed (one replay) beside the same body run
+    eagerly, in turns (``SLOT_STEP_READINGS`` readings of ``SLOT_STEP_CALLS``
+    calls, CUDA events: the card's timeline, the host's issue gaps
+    included), on the staged lengths of the timed run's last step with every
+    slot decoding."""
+    import numpy as np
+
+    steps = [s for s in rec["steps"] if s["label"] == "timed" and s["active"].all()]
+    snap = steps[-1] if steps else [s for s in rec["steps"] if s["label"] == "timed"][-1]
+    n = eng.max_slots
+    eng._stage(np.full(n, 1000, np.int32), snap["lengths"], snap["active"].astype(np.int32), np.zeros(n, np.int32),
+               eng._sampling_rows([]))
+    graph = eng._steps[False].graph
+    got = {"graphed": [], "eager": []}
+    for _ in range(SLOT_STEP_READINGS):
+        got["graphed"].append(time_ms(graph.replay, iters=SLOT_STEP_CALLS, warmup=1))
+        got["eager"].append(time_ms(lambda: eng._decode_body(False), iters=SLOT_STEP_CALLS, warmup=1))
+    return {f"{k}_ms": sorted(v)[len(v) // 2] for k, v in got.items()} | {"readings": got,
+                                                                           "active": int(snap["active"].sum())}
+
+
+def late_joiner(eng, work) -> dict:
+    """A running request's tokens with and without a late joiner, bitwise, on
+    the timed run's engine: request 1 (text) alone, then again with request 0
+    (an image prompt: its ViT and chunk run between request 1's steps)
+    submitted once request 1 has decoded 4 tokens."""
+    a, b = work[1], work[0]
+    alone = eng.result(drive(eng, [a], SLOT_JOIN_TOKENS)[0])
+    ra = eng.submit(a[0], a[1], max_new_tokens=SLOT_JOIN_TOKENS, eos_token_id=-1)
+    while len(eng.requests[ra].generated) < 4:
+        eng.step()
+    rb = eng.submit(b[0], b[1], max_new_tokens=SLOT_JOIN_TOKENS, eos_token_id=-1)
+    eng.run_to_completion()
+    joined, other = eng.result(ra), eng.result(rb)
+    res = {"tokens": len(joined), "bitwise_equal": joined == alone, "joiner_tokens": len(other)}
+    if joined != alone:
+        raise AssertionError(f"late joiner: request 1's tokens changed ({first_divergence([joined], [alone])})")
+    return res
+
+
+def parity_by_phase7(label, got: list, got_first: list, ref_engine, work, gens, ref_first=None) -> list:
+    """Phase 7's rule for each request: its first-token logits within phase 4's
+    limits of the single-request engine's (``ref_engine``, or one engine a
+    request), and its greedy tokens equal up to the first step whose
+    reference top-2 margin is under PARITY_MARGIN.  The reference's
+    first-token logits are appended to ``ref_first`` when it is given."""
+    import torch
+
+    out = []
+    for i, ((ids, tiles), toks, first, gen) in enumerate(zip(work, got, got_first, gens)):
+        ref = ref_engine[i] if isinstance(ref_engine, list) else ref_engine
+        steps = []
+        want = ref.generate([ids], tiles, gen, logits_callback=lambda s, lg: steps.append(lg[0].float())).token_ids[0]
+        if ref_first is not None:
+            ref_first.append(steps[0])
+        diff = check_close(f"{label} first-token logits (request {i})", first, steps[0], LOGITS_ATOL, LOGITS_RTOL)
+        margins = [float(t[0] - t[1]) for t in (torch.topk(lg, 2).values for lg in steps)]
+        upto = next((j for j, m in enumerate(margins) if m < PARITY_MARGIN), len(margins))
+        if toks[:upto] != want[:upto]:
+            raise AssertionError(f"{label}, request {i}: tokens {toks[:upto]} != {want[:upto]} (compared up to "
+                                 f"step {upto}, the first top-2 margin under {PARITY_MARGIN})")
+        out.append({"image": tiles is not None, "logits_max_abs_diff": diff, "tokens_compared": upto,
+                    "tokens_equal_beyond": toks == want})
+    return out
+
+
+def slot_parity_small(small, work, seed: int) -> dict:
+    """At full width and 2+2 layers: 4 requests (1 image, 3 text) through the
+    slot engine against the single-request engine, by phase 7's rule; then a
+    LoRA bank of two seeded rank-16 adapters, requests under ids 0 / 1 / 2 in
+    one batch against the base engine and ``merge_lora`` engines.  The same
+    batch with adapters 1 and 2 swapped, and with the bank ignored (every id
+    0), must put the first-token logits of the requests it moves outside
+    phase 4's limits of their merged engines', or those limits would pass a
+    bank that mixes up or drops adapters."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.batch_engine import BatchEngine
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.training.lora import build_lora_bank, merge_lora
+
+    cfg, params = small.config, small.engine.params
+    gen = GenerationConfig(max_new_tokens=PARITY_NEW_TOKENS, eos_token_id=-1)
+    eng = BatchEngine(cfg, params, device=DEVICE, **SLOT_ENGINE)
+    rec = record_slot_run(eng)
+    rids = drive(eng, work[:4], PARITY_NEW_TOKENS)
+    ref = OmChatEngine(cfg, params, image_cache_size=0, device=DEVICE)
+    res = {"vs single-request": parity_by_phase7("slot vs single-request", [eng.result(r) for r in rids],
+                                                 [rec["logits"][r] for r in rids], ref, work[:4], [gen] * 4)}
+    del eng
+    adapters = seeded_adapters(params, seed)
+    eng = BatchEngine(cfg, params, device=DEVICE, lora_bank=build_lora_bank(adapters, dtype=torch.bfloat16),
+                      **SLOT_ENGINE)
+    rec = record_slot_run(eng)
+    lora_work = work[1:4]
+    rids = [eng.submit(ids, tiles, max_new_tokens=PARITY_NEW_TOKENS, eos_token_id=-1, adapter_id=a)
+            for (ids, tiles), a in zip(lora_work, (0, 1, 2))]
+    eng.run_to_completion()
+    refs = [ref] + [OmChatEngine(cfg, merge_lora(params, ad), image_cache_size=0, device=DEVICE) for ad in adapters]
+    want = []
+    res["lora bank, adapters 0 / 1 / 2"] = parity_by_phase7(
+        "slot LoRA bank vs merged weights", [eng.result(r) for r in rids], [rec["logits"][r] for r in rids], refs,
+        lora_work, [gen] * 3, ref_first=want)
+    faults, missed = {}, []
+    for fault, ids_ in (("adapters 1 and 2 swapped", (0, 2, 1)), ("bank ignored", (0, 0, 0))):
+        rids = [eng.submit(ids, tiles, max_new_tokens=1, eos_token_id=-1, adapter_id=a)
+                for (ids, tiles), a in zip(lora_work, ids_)]
+        eng.run_to_completion()
+        faults[fault] = {}
+        for i, (r, a) in enumerate(zip(rids, ids_)):
+            if a != i:
+                dev = (rec["logits"][r] - want[i]).abs()
+                outside = int((dev > LOGITS_ATOL + LOGITS_RTOL * want[i].abs()).sum())
+                faults[fault][f"id {i} run as {a}"] = {"max_dev": float(dev.max()), "logits_outside": outside}
+                if not outside:
+                    missed.append(f"{fault}: request under id {i} run as {a} stays within phase 4's limits "
+                                  f"(max dev {float(dev.max()):.4g})")
+    res["lora bank, planted faults"] = faults
+    del eng, refs, ref
+    torch.cuda.empty_cache()
+    if missed:
+        raise AssertionError(f"the limits would pass a faulty LoRA bank: {missed} ({json.dumps(res)})")
+    return res
+
+
+def native_pipeline_check(seed: int) -> dict:
+    """``anyres_process_native`` (built from ``omchat_torch/csrc_host`` by
+    ``use_native=True``) against the numpy path on a seeded 1000x700 image:
+    within NATIVE_TOL, with both paths' host ms (median of 5)."""
+    import numpy as np
+    from PIL import Image
+
+    from omchat_torch.processing.image_processor import process_anyres_image
+
+    w, h = NATIVE_IMAGE
+    img = Image.fromarray(np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8))
+    t0 = time.perf_counter()
+    native = process_anyres_image(img, use_native=True)
+    first_s = time.perf_counter() - t0
+    ref = process_anyres_image(img, use_native=False)
+    diff = float(np.abs(native - ref).max())
+
+    def ms(fn):
+        got = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn()
+            got.append((time.perf_counter() - t) * 1e3)
+        return sorted(got)[2]
+
+    res = {"tiles": int(native.shape[0]), "max_abs_diff": diff, "first_call_s (build or load)": first_s,
+           "native_ms": ms(lambda: process_anyres_image(img, use_native=True)),
+           "numpy_ms": ms(lambda: process_anyres_image(img, use_native=False))}
+    if native.shape != ref.shape or diff > NATIVE_TOL:
+        raise AssertionError(f"native tile pipeline vs numpy: {res}")
+    return res
+
+
+def slot_kernel_rows(gen, seen: dict) -> list:
+    """Phase 29's kernel rows at what the timed run handed the kernels: K2 on
+    its largest chunk (512 rows at q_offset = the chunk's start, one slot of
+    a [16, 4, 4096, 128] layer cache, keys planted on the causal edge; the
+    edge a column late must fall outside), K3 on a step with 16 rows of
+    unequal lengths and parked rows of 0 cache rows (keys planted at each
+    row's last valid row, the first past it, a split's edge and on parked
+    rows' row 0; one row's length taken from its neighbour, and a parked row
+    given its neighbour's length, must fall outside), K4 committing that
+    step's 28 x 16 rows, parked rows at the last row (bitwise); kernel,
+    plain, library and bound times."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.ops import decode_attention as da
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops import paged_attention as pa
+
+    cfg = OmChatConfig().text
+    H, KVH, D, L = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.attn_head_dim, cfg.num_hidden_layers
+    B, T, S = SLOT_ENGINE["max_slots"], SLOT_ENGINE["max_len"], SLOT_ENGINE["chunk_size"]
+    rows = []
+
+    # K2: the chunk reaching the most cache rows
+    ch = max(seen["chunks"], key=lambda c: c["start"] + c["len"])
+    s, c0, clen = ch["slot"], ch["start"], ch["len"]
+    u = _direction(gen, KVH, D)
+    q = _randn(gen, 1, S, H, D) + u.repeat_interleave(H // KVH, dim=0)
+    k, v = _randn(gen, B, KVH, T, D), _randn(gen, B, KVH, T, D)
+    k[s, :, c0: min(c0 + S + 1, T)] = 0.8 * u[:, None]
+    ks, vs = k[s: s + 1], v[s: s + 1]
+    qo = torch.full((1,), c0, dtype=torch.int32, device=DEVICE)
+    kvl = qo + clen
+    kw = dict(causal=True, q_offset=qo, kv_len=kvl)
+    # the chunk's padding rows sit past kv_len, where K2's output is unspecified (the engine reads none of them)
+    valid = (torch.arange(S, device=DEVICE) < clen)[None, :, None, None]
+    out = fa.flash_attention(q, ks, vs, kv_format="bntd", **kw)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, ks, vs, **kw) * valid
+    err = check_close("K2 slot chunk", out * valid, ref, *ATTN_TOL["K2"])
+    faults = {"causal edge one column late": check_fault_caught(
+        "K2 slot chunk", "the causal edge one column late",
+        fa.flash_attention_plain(q, ks, vs, causal=True, q_offset=qo + 1, kv_len=kvl + 1) * valid, ref,
+        *ATTN_TOL["K2"])}
+    p_ms = time_ms(lambda: fa.flash_attention_plain(q, ks, vs, **kw), iters=3, warmup=1)
+    kv_rows = c0 + clen
+    qt = q.transpose(1, 2)
+    mask = ((torch.arange(kv_rows, device=DEVICE)[None, :] <= (c0 + torch.arange(S, device=DEVICE))[:, None])
+            & (torch.arange(kv_rows, device=DEVICE)[None, :] < kv_rows))
+    ms, readings = time_in_turns({
+        "kernel": lambda: fa.flash_attention(q, ks, vs, kv_format="bntd", **kw),
+        "library": lambda: F.scaled_dot_product_attention(qt, ks[:, :, :kv_rows], vs[:, :, :kv_rows],
+                                                          attn_mask=mask, enable_gqa=True)})
+    # the work the engine needs: the chunk's clen valid rows (the padding rows' output is read by no one)
+    cols = sum(min(c0 + i + 1, kv_rows) for i in range(clen))
+    rows.append(dict(name=f"flash_attention[slot chunk S={S}]", source="omchat_torch/csrc/flash_attention.cu",
+                     replaces="omchat_tpu/ops/flash_attention.py:246", max_abs_err=err, ms=ms["kernel"],
+                     plain_ms=p_ms, library_ms=ms["library"], flops=4.0 * H * D * cols,
+                     bytes=(2 * clen * H * D + 2 * KVH * kv_rows * D) * 2, faults=faults, readings=readings["kernel"],
+                     extra=f" slot={s} q_offset={c0} chunk_len={clen} kv_len={kv_rows} (a [{B}, {KVH}, {T}, {D}] "
+                           f"layer cache)"))
+    del q, k, v, out, ref, qt, ks, vs
+
+    # K3: the step with the most decoding rows that still has a parked row
+    step = max((st for st in seen["steps"] if not st["active"].all()), key=lambda st: int(st["active"].sum()))
+    lens = np.where(step["active"], step["lengths"], 0).astype(np.int32)
+    parked = [b for b in range(B) if not step["active"][b]]
+    kc, vc = _randn(gen, L, B, KVH, T, D), _randn(gen, L, B, KVH, T, D)
+    u = _direction(gen, KVH, D)
+    qd = _randn(gen, B, 1, H, D) + u.repeat_interleave(H // KVH, dim=0)
+    splits, srows, _ = split_edge(B, KVH, T, int(lens.max()))
+    for b in range(B):
+        n = int(lens[b])
+        plant = (0,) if n == 0 else tuple({0, max(n - 1, 0), n, max(1, n // srows) * srows} - {T})
+        for row in plant:
+            kc[:, b, :, row] = 0.8 * u
+    kn_, vn_ = (0.8 * u)[None].expand(B, KVH, D).contiguous(), _randn(gen, B, KVH, D)
+    clen = torch.as_tensor(lens, dtype=torch.int32, device=DEVICE)
+    out = da.flash_decode_stacked(qd, kc, vc, clen, L - 1, kn_, vn_)
+    torch.cuda.synchronize()
+    ref = da.flash_decode_stacked_plain(qd, kc, vc, clen, L - 1, kn_, vn_)
+    err = check_close("K3 at 16 slots", out, ref, *ATTN_TOL["K3"])
+    live = [b for b in range(B) if lens[b]]
+    nb, nc = next((b, c) for b, c in zip(live, live[1:]) if lens[b] != lens[c])
+    wrong = clen.clone()
+    wrong[nb] = clen[nc]
+    faults = {f"row {nb}'s length from row {nc}": check_fault_caught(
+        "K3 at 16 slots", "one row's length taken from its neighbour",
+        da.flash_decode_stacked_plain(qd, kc, vc, wrong, L - 1, kn_, vn_), ref, *ATTN_TOL["K3"])}
+    pb = parked[0]
+    wrong = clen.clone()
+    wrong[pb] = int(lens.max())
+    faults[f"parked row {pb} given {int(lens.max())} rows"] = check_fault_caught(
+        "K3 at 16 slots", "a parked row attending to cache rows",
+        da.flash_decode_stacked_plain(qd, kc, vc, wrong, L - 1, kn_, vn_), ref, *ATTN_TOL["K3"])
+    it = iter(range(10**9))
+    p_ms = time_ms(lambda: da.flash_decode_stacked_plain(qd, kc, vc, clen, next(it) % L, kn_, vn_), iters=4,
+                   warmup=1)
+    # the library call: SDPA over each row's valid cache rows and its self column (masked to the row's length)
+    m = int(lens.max())
+    kx = torch.cat([kc[:, :, :, :m], kn_[None, :, :, None].expand(L, B, KVH, 1, D)], dim=3)
+    vx = torch.cat([vc[:, :, :, :m], vn_[None, :, :, None].expand(L, B, KVH, 1, D)], dim=3)
+    col = torch.arange(m + 1, device=DEVICE)
+    xmask = ((col[None, :] < clen[:, None]) | (col[None, :] == m))[:, None, None, :]
+    qs = qd.transpose(1, 2)
+
+    def library_decode():
+        li = next(it) % L
+        return F.scaled_dot_product_attention(qs, kx[li], vx[li], attn_mask=xmask, enable_gqa=True)
+
+    ms, readings = device_times(lambda: da.flash_decode_stacked(qd, kc, vc, clen, next(it) % L, kn_, vn_),
+                                library_decode, L)
+    total = int(lens.sum()) + B
+    rows.append(dict(name=f"flash_decode_stacked[B={B} slots]", source="omchat_torch/csrc/flash_decode_stacked.cu",
+                     replaces="omchat_tpu/ops/decode_attention.py:109", max_abs_err=err, ms=ms["kernel"],
+                     plain_ms=p_ms, library_ms=ms["library"], flops=4.0 * H * D * total,
+                     bytes=(2 * KVH * total * D + 2 * B * H * D) * 2, faults=faults, readings=readings["kernel"],
+                     extra=f" cache_len={lens.tolist()} parked={parked}" + split_text(splits, srows, B, KVH, H)
+                           + eager_text(ms)))
+    del kx, vx
+
+    # K4: the step's L x B rows, parked rows at the cache's last row
+    n = L * B
+    kf, vf = kc.view(n, KVH, T, D), vc.view(n, KVH, T, D)
+    pages = torch.arange(n, dtype=torch.int32, device=DEVICE)
+    wp = np.where(step["active"], step["lengths"], T - 1).astype(np.int32)
+    offs = torch.as_tensor(np.tile(wp, L), dtype=torch.int32, device=DEVICE)
+    k_rows, v_rows = _randn(gen, n, KVH, D), _randn(gen, n, KVH, D)
+    k_ref, v_ref = kf.clone(), vf.clone()
+    pa.commit_rows(kf, vf, pages, offs, k_rows, v_rows)
+    torch.cuda.synchronize()
+    pa.commit_rows_plain(k_ref, v_ref, pages, offs, k_rows, v_rows)
+    if not (torch.equal(kf.view(torch.int16), k_ref.view(torch.int16))
+            and torch.equal(vf.view(torch.int16), v_ref.view(torch.int16))):
+        raise AssertionError("K4 at 16 slots: the cache differs from the plain commit (bitwise, all rows)")
+    del k_ref, v_ref
+    p_ms = time_ms(lambda: pa.commit_rows_plain(kf, vf, pages, offs, k_rows, v_rows), iters=20)
+    idx = (pages.long()[:, None], torch.arange(KVH, device=DEVICE)[None, :], offs.long()[:, None])
+
+    def library_commit():
+        kf.index_put_(idx, k_rows)
+        vf.index_put_(idx, v_rows)
+
+    ms, readings = device_times(lambda: pa.commit_rows(kf, vf, pages, offs, k_rows, v_rows), library_commit,
+                                GRAPH_CALLS)
+    rows.append(dict(name=f"commit_rows[L*B={n} slots]", source="omchat_torch/csrc/commit_rows.cu",
+                     replaces="omchat_tpu/ops/paged_attention.py:619", max_abs_err=0.0, ms=ms["kernel"],
+                     plain_ms=p_ms, library_ms=ms["library"], flops=0.0, bytes=2 * (2 * n * KVH * D * 2) + 2 * n * 4,
+                     faults={}, readings=readings["kernel"],
+                     extra=f" parked rows at {T - 1}: {L * len(parked)}; launch_floor_ms="
+                           f"{k4_floor_ms(n, KVH, D):.5f} (an empty kernel on K4's grid, graphed)" + eager_text(ms)))
+    del kc, vc, kf, vf
+
+    for r in rows:
+        flops = r.pop("flops")
+        r["bound_ms"], r["bound_by"] = bound_ms(flops, r.pop("bytes"))
+        caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in r.pop("faults").items())
+        log(f"kernel {r['name']}: kernel_ms={r['ms']:.5f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.5f} bound_ms={r['bound_ms']:.5f} ({r['bound_by']})"
+            f"{rate_text(flops, r['ms'], r['bound_ms'], r.pop('readings'))}{r.pop('extra')} "
+            f"max_abs_err={r['max_abs_err']:.3g}{caught} ({CARD})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def slot_engine_on_the_card(gen, model, small, seed: int) -> tuple:
+    """Phase 29 at full width and depth on phase 3's weights: the slot engine's
+    timed run of phase 5's workload (bf16, then an e4m3 rerun), its graphed
+    step beside the eager one, a late joiner, the 2+2-layer parity and LoRA
+    bank checks, the native tile pipeline and the three kernel rows.  Every
+    part runs and prints its line; then the phase raises with every check
+    that failed.  Returns (results, kernel rows, the rows' launches)."""
+    import torch
+
+    from omchat_torch.ops.fp8 import E4M3
+
+    cfg, params = model.config, model.engine.params
+    work = serving_workload(cfg)
+    res, failed, rows, counts, seen = {}, [], [], {}, None
+    try:
+        timed, eng, rec = slot_timed_run(cfg, params, work, "slot engine")
+        timed["step_ms"] = slot_step_ms(eng, rec)
+        seen = dict(steps=[s for s in rec["steps"] if s["label"] == "timed"],
+                    chunks=[c for c in rec["chunks"] if c["label"] == "timed"], launches=timed["launches"])
+        log("slot engine (16 slots, 4096 rows, chunks of 512; phase 5's workload): " + json.dumps(
+            {k: v for k, v in timed.items() if k != "tokens"}))
+        res["timed"] = timed
+        rec["label"] = "late joiner"
+        res["late joiner"] = late_joiner(eng, work)
+        log("slot engine, late joiner: " + json.dumps(res["late joiner"]))
+        del eng, rec
+        torch.cuda.empty_cache()
+    except AssertionError as e:
+        failed.append(f"timed run: {e}")
+    for name, run in (("e4m3", lambda: slot_timed_run(cfg, params, work, "slot engine (e4m3 cache)", E4M3,
+                                                      precompile=False)[0]),
+                      ("2+2 layers", lambda: slot_parity_small(small, work, seed)),
+                      ("native tile pipeline", lambda: native_pipeline_check(seed))):
+        try:
+            out = run()
+            if name == "e4m3":
+                base = res.get("timed", {}).get("tokens")
+                out["first_step_leaving_bf16"] = first_divergence(out.pop("tokens"), base) if base else None
+            res[name] = out
+            log(f"slot engine, {name}: " + json.dumps(out))
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+        torch.cuda.empty_cache()
+    if seen is not None:
+        rows = slot_kernel_rows(gen, seen)
+        la = seen["launches"]
+        counts = {rows[0]["name"]: la["flash_attention"], rows[1]["name"]: la["flash_decode_stacked"],
+                  rows[2]["name"]: la["commit_rows"]}
+    if failed:
+        raise AssertionError("phase 29 failed: " + " | ".join(failed))
+    return res, rows, counts
+
+
+def eval_files(directory: str, seed: int) -> tuple:
+    """Phase 30's question file (EVAL_SAMPLES questions, the first EVAL_IMAGES
+    with a seeded 448x448 PNG), its truths and a seeded text for perplexity:
+    (question file, truths file, text file, the questions)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    questions = []
+    for i in range(EVAL_SAMPLES):
+        q = {"question_id": i, "text": f"Question {i}: what is shown, and what colour is it?"}
+        if i < EVAL_IMAGES:
+            name = f"img{i}.png"
+            Image.fromarray(rng.integers(0, 256, (448, 448, 3), dtype=np.uint8)).save(os.path.join(directory, name))
+            q["image"] = name
+        questions.append(q)
+    paths = [os.path.join(directory, n) for n in ("questions.jsonl", "truths.json", "text.txt")]
+    with open(paths[0], "w") as f:
+        f.writelines(json.dumps(q) + "\n" for q in questions)
+    with open(paths[1], "w") as f:
+        json.dump({str(i): "red" for i in range(EVAL_SAMPLES)}, f)
+    words = ["".join(chr(97 + c) for c in rng.integers(0, 26, int(rng.integers(2, 8)))) for _ in range(PPL_WORDS)]
+    with open(paths[2], "w") as f:
+        f.write(" ".join(words))
+    return (*paths, questions)
+
+
+def eval_runs(model, directory: str, files: tuple, label: str) -> dict:
+    """``cli/eval.run`` on ``model`` over phase 30's files, serial, then with
+    EVAL_CONCURRENCY in flight, then ``--perplexity``: samples/s of each
+    (wall, the model's synchronize included), the answers' token ids, the
+    perplexity, K2's launches in the perplexity run."""
+    import torch
+
+    from omchat_torch.cli import eval as cli_eval
+    from omchat_torch.ops import flash_attention as fa
+
+    q, truths, text, _ = files
+    res = {}
+    for name, extra in (("serial", []), (f"concurrency {EVAL_CONCURRENCY}", ["--concurrency", str(EVAL_CONCURRENCY)])):
+        answers = os.path.join(directory, f"answers-{label}-{extra[-1] if extra else 1}.jsonl")
+        args = cli_eval.build_parser().parse_args([
+            "--model-path", "(in process)", "--benchmark", "gqa", "--question-file", q, "--image-folder", directory,
+            "--answers-file", answers, "--truths-file", truths, "--max-new-tokens", str(EVAL_NEW_TOKENS), *extra])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli_eval.run(args, model)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(answers) as f:
+            toks = [ids_of(json.loads(line)["text"]) for line in f]
+        res[name] = {"samples_per_s": EVAL_SAMPLES / wall, "wall_s": wall, "accuracy": out["accuracy"],
+                     "answer_tokens": [len(t) for t in toks], "tokens": toks}
+    # the same concurrent eval on a caller-built paged engine whose rolls were captured first (the CLI's
+    # call builds its engine, and captures each roll shape at its first use, within its wall time)
+    from omchat_torch.eval.harness import read_question_file, run_eval_concurrent
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    eng = PagedBatchEngine(model.config, model.engine.params, max_slots=EVAL_CONCURRENCY, num_pages=264,
+                           max_len=8192, decode_roll=8, prefill_chunk=4096, device=DEVICE)
+    eng.precompile()
+    t0 = time.perf_counter()
+    run_eval_concurrent(model, read_question_file(q, directory), os.path.join(directory, f"answers-{label}-pc.jsonl"),
+                        max_new_tokens=EVAL_NEW_TOKENS, concurrency=EVAL_CONCURRENCY, progress=False, engine=eng)
+    torch.cuda.synchronize()
+    res[f"concurrency {EVAL_CONCURRENCY}, precompiled engine"] = {"samples_per_s": EVAL_SAMPLES / (time.perf_counter() - t0),
+                                                "capture_ms": eng.capture_ms(), "rolls_eager": eng.rolls_eager,
+                                                "rolls_graphed": eng.rolls_graphed}
+    del eng
+    args = cli_eval.build_parser().parse_args(["--model-path", "(in process)", "--perplexity", text])
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    ppl = cli_eval.run(args, model)
+    torch.cuda.synchronize()
+    res["perplexity"] = {k: ppl[k] for k in ("value", "nll", "tokens", "windows")} | {
+        "wall_s": time.perf_counter() - t0, "flash_attention_launches": fa.flash_attention.launches}
+    return res
+
+
+def perplexity_per_token(model, text: str, fault=None) -> tuple:
+    """The entry point's ``perplexity`` of ``text`` on ``model``, and the
+    negative log-likelihood of each token it counts ([N] fp32, in order;
+    ``cross_entropy_loss`` is wrapped to keep its terms).  ``fault`` plants
+    one in the causal attention of the plain route: "non-causal" (each row
+    sees its whole window) or "one future column" (each row also sees the
+    next token, its own target)."""
+    import torch
+
+    from omchat_torch.eval.harness import perplexity
+    from omchat_torch.models import qwen2
+    from omchat_torch.training import train_step
+
+    attention, ce, kept = qwen2.attention, train_step.cross_entropy_loss, []
+
+    def faulty(q, k, v, *, causal=False, q_offset=None, **kw):
+        if causal and fault == "non-causal":
+            causal = False
+        elif causal:
+            q_offset = (k.shape[1] - q.shape[1] if q_offset is None else q_offset) + 1
+        return attention(q, k, v, causal=causal, q_offset=q_offset, **kw)
+
+    def keeping(logits, labels):
+        valid = (labels >= 0) & (labels < logits.shape[-1])
+        lg = logits.float()[valid]
+        kept.append(torch.logsumexp(lg, -1) - lg.gather(-1, labels[valid].long()[:, None])[:, 0])
+        return ce(logits, labels)
+
+    train_step.cross_entropy_loss = keeping
+    if fault is not None:
+        qwen2.attention = faulty
+    try:
+        res = perplexity(model, text)
+    finally:
+        train_step.cross_entropy_loss, qwen2.attention = ce, attention
+    return res, torch.cat(kept)
+
+
+def perplexity_gaps(model, plain, text: str) -> dict:
+    """The perplexity of ``text`` through the kernels (``model``) and the
+    plain route (``plain``), and the plain route with each of PPL_FAULTS
+    planted: each one's largest per-token nll gap to the plain route's and
+    the gap of their mean nll."""
+    base, base_tok = perplexity_per_token(plain, text)
+    out = {"plain_nll": base["nll"], "tokens": base["tokens"]}
+    for name, fault, m in [("kernels", None, model)] + [(f, f, plain) for f in PPL_FAULTS]:
+        res, tok = perplexity_per_token(m, text, fault)
+        out[name] = {"nll": res["nll"], "mean_nll_gap": abs(res["nll"] - base["nll"]),
+                     "token_nll_gap_max": float((tok - base_tok).abs().max())}
+    return out
+
+
+def eval_on_the_card(model, small, seed: int) -> dict:
+    """Phase 30: the eval entry point (``cli/eval.run``, the port's
+    ``omchat_torch/cli/eval.py`` on an in-process model) on phase 3's weights
+    with ``id_tokenizer`` (answers carry their token ids): EVAL_SAMPLES
+    questions serial and with EVAL_CONCURRENCY in flight (the paged engine),
+    samples/s of each; ``--perplexity`` (K2 on cacheless windows).  At 2+2
+    layers the serial answers must be the single-request engine's tokens, the
+    concurrent ones agree with them up to the first step whose top-2 margin
+    is under PARITY_MARGIN, and the perplexity through the kernels be finite
+    with each counted token's nll within PPL_TOKEN_GAP of
+    ``attn_impl="plain"``'s, which the plain route with each of PPL_FAULTS
+    planted must leave."""
+    import shutil
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from omchat_torch.api import omchat_model
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    directory = tempfile.mkdtemp(prefix="chip-smoke-eval-")
+    res, failed = {}, []
+    try:
+        files = eval_files(directory, seed)
+        full = eval_runs(omchat_model(id_tokenizer(False), model.engine), directory, files, "full")
+        serial, conc = full["serial"]["tokens"], full[f"concurrency {EVAL_CONCURRENCY}"]["tokens"]
+        full["answers_equal"] = sum(a == b for a, b in zip(serial, conc))
+        full["first_step_leaving_serial"] = first_divergence(conc, serial)
+        res["full depth"] = full
+        if not (full["perplexity"]["value"] < float("inf") and full["perplexity"]["flash_attention_launches"]):
+            failed.append(f"full-depth perplexity {full['perplexity']}")
+
+        sm = omchat_model(id_tokenizer(False), small.engine)
+        two = eval_runs(sm, directory, files, "2+2")
+        gen = GenerationConfig(max_new_tokens=EVAL_NEW_TOKENS)
+        compared = []
+        for i, q in enumerate(files[3]):
+            image = Image.open(os.path.join(directory, q["image"])).convert("RGB") if "image" in q else None
+            inputs = sm.processor(q["text"], images=image)
+            steps = []
+            want = small.engine.generate([inputs["input_ids"][0].tolist()], inputs.get("images"), gen,
+                                         logits_callback=lambda s, lg: steps.append(lg[0].float())).token_ids[0]
+            margins = [float(t[0] - t[1]) for t in (torch.topk(lg, 2).values for lg in steps)]
+            upto = next((j for j, m in enumerate(margins) if m < PARITY_MARGIN), len(margins))
+            got_s, got_c = two["serial"]["tokens"][i], two[f"concurrency {EVAL_CONCURRENCY}"]["tokens"][i]
+            if got_s != want:
+                failed.append(f"2+2 layers, sample {i}: serial answer {got_s} is not engine.generate's {want}")
+            if got_c[:upto] != want[:upto]:
+                failed.append(f"2+2 layers, sample {i}: concurrent answer {got_c[:upto]} != {want[:upto]} "
+                              f"(compared up to step {upto})")
+            compared.append(upto)
+        two["tokens_compared"] = compared
+        plain = omchat_model(id_tokenizer(False), OmChatEngine(small.config, small.engine.params, attn_impl="plain",
+                                                               image_cache_size=0, device=DEVICE))
+        with open(files[2]) as f:
+            gaps = perplexity_gaps(sm, plain, f.read())
+        ppl = two["perplexity"]
+        ppl.update(plain_nll=gaps["plain_nll"], nll_gap=abs(ppl["nll"] - gaps["plain_nll"]), limit=PPL_TOKEN_GAP,
+                   per_token=gaps)
+        if not (gaps["kernels"]["token_nll_gap_max"] <= PPL_TOKEN_GAP and ppl["nll_gap"] <= PPL_TOKEN_GAP
+                and math.isfinite(ppl["value"])):
+            failed.append(f"2+2 layers perplexity, kernels vs plain: {ppl} (limit {PPL_TOKEN_GAP} a token)")
+        if not all(gaps[fault]["token_nll_gap_max"] > PPL_TOKEN_GAP for fault in PPL_FAULTS):
+            failed.append(f"2+2 layers perplexity: the limit {PPL_TOKEN_GAP} would pass a planted fault ({gaps})")
+        res["2+2 layers"] = two
+    except AssertionError as e:
+        failed.append(str(e))
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    for label, r in res.items():
+        log(f"eval entry point, {label}: " + json.dumps({"card": CARD, **{
+            k: ({kk: vv for kk, vv in v.items() if kk != "tokens"} if isinstance(v, dict) else v)
+            for k, v in r.items()}}))
+    if failed:
+        raise AssertionError("phase 30 failed: " + " | ".join(failed))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -6367,7 +7128,10 @@ def main() -> int:
     served = serving_on_the_card(surface, small_surface(surface.config, args.seed), args.seed)
     surface.engine.release_decode_states()
     _, routes_rows, routes_launches = paged_routes_on_the_card(gen, surface, args.seed, served["paged"])
-    del surface, video_frames
+    small = small_surface(surface.config, args.seed)
+    slot, slot_rows, slot_launches = slot_engine_on_the_card(gen, surface, small, args.seed)
+    eval_on_the_card(surface, small, args.seed)
+    del surface, small, video_frames
     surface_rows = surface_kernel_rows(gen, shapes["prompt_len"], entry["video"]["merged_len"])
     del full
     gc.collect()
@@ -6378,6 +7142,14 @@ def main() -> int:
         "card": CARD, "http_tokens_per_s": served["paged"]["tokens_per_s"],
         "phase27_in_process_tokens_per_s": served["paged"]["in_process_tokens_per_s"],
         "phase5_in_process_tokens_per_s": serve["tokens_per_s"]}))
+    log("slot engine (phase 29) beside the paged engine (phase 5), this call: " + json.dumps({
+        "card": CARD, "tokens_per_s": [slot["timed"]["tokens_per_s"], serve["tokens_per_s"]],
+        "ttft_p50_s": [slot["timed"]["ttft_p50_s"], serve.get("ttft_p50_s")],
+        "ttft_p99_s": [slot["timed"]["ttft_p99_s"], serve.get("ttft_p99_s")],
+        "decode_step_wall_ms_16_slots": [slot["timed"]["step_wall_ms_16_slots"],
+                                         serve["decode_step_wall_ms_16_slots"]],
+        "prefill_ms_slot_chunks_vs_paged_vit_shorts_chunks": [slot["timed"]["chunk_dispatch_ms_sum"],
+                                sum(serve["span_ms"][k] for k in ("vit", "shorts", "chunk"))]}))
     paged_rows = paged_kernel_phases(gen, timed)
     paged_parity(args.seed)
 
@@ -6491,14 +7263,16 @@ def main() -> int:
                 "flash_decode_stacked[B=4]": options["beam"]["k3_launches"],
                 "flash_decode_stacked[video]": entry["video"]["launches"]["flash_decode_stacked"],
                 # phase 28: K2 and K4 in the echo run's verify ticks, K14 in the prefix-cache run's timed wave
-                **routes_launches}
+                **routes_launches,
+                # phase 29: K2, K3 and K4 in the slot engine's timed run
+                **slot_launches}
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
     } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows + ps_rows + [k5_row, k6_row] + surface_rows
-        + routes_rows]
+        + routes_rows + slot_rows]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

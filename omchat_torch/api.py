@@ -1,7 +1,8 @@
 """High-level API — PyTorch port of ``omchat_tpu/api.py`` (the plain chat
 turn and ``load_pretrained_model`` with bf16, int8 weight-only or w8a8
-weights on one device), plus :func:`paged_batch_engine`, the serving engine
-over a loaded model (what ``cli/serve.py --paged`` builds).
+weights on one device), plus :func:`paged_batch_engine` and
+:func:`batch_engine`, the serving engines over a loaded model (what
+``cli/serve.py --paged`` and ``--continuous-batching`` build).
 
 ``load_pretrained_model`` mirrors the reference's builder.py:22 (tokenizer +
 model + image processor + context length) and returns a ready engine.
@@ -9,7 +10,8 @@ model + image processor + context length) and returns a ready engine.
 serve.  ``OmChatModel`` carries the JAX package's single-request surface:
 ``chat`` (history, beams, speculative, guided / JSON / schema decoding),
 ``chat_tools`` and ``chat_video``.  The server (``cli/serve.py``) builds the
-model and, with ``--paged``, :func:`paged_batch_engine` over its weights.
+model and, with ``--paged``, :func:`paged_batch_engine` over its weights
+(``--continuous-batching`` alone: :func:`batch_engine`).
 Tensor parallelism comes with a later slice.
 """
 
@@ -30,6 +32,7 @@ from omchat_torch.processing.chat import make_context
 from omchat_torch.processing.image_processor import OmChatImageProcessor
 from omchat_torch.processing.processor import OmChatProcessor
 from omchat_torch.processing.video import process_video_frames, video_prompt
+from omchat_torch.runtime.batch_engine import BatchEngine
 from omchat_torch.runtime.beam_search import beam_search
 from omchat_torch.runtime.constrained import choice_mask_fn
 from omchat_torch.runtime.generate import OmChatEngine
@@ -271,3 +274,14 @@ def paged_batch_engine(model: OmChatModel, **options) -> PagedBatchEngine:
     options = {"attn_impl": model.engine.attn_impl, "device": model.engine.device,
                "cache_dtype": model.engine.cache_dtype, **options}
     return PagedBatchEngine(model.config, model.engine.params, **options)
+
+
+def batch_engine(model: OmChatModel, **options) -> BatchEngine:
+    """A slot continuous-batching engine (one shared contiguous cache)
+    serving ``model``'s weights, by default on its device with its attention
+    route and cache dtype (``options``: BatchEngine's keyword arguments —
+    max_slots, max_len, chunk_size, image_cache_size, cache_dtype,
+    lora_bank, ...)."""
+    options = {"attn_impl": model.engine.attn_impl, "device": model.engine.device,
+               "cache_dtype": model.engine.cache_dtype, **options}
+    return BatchEngine(model.config, model.engine.params, **options)

@@ -1,0 +1,141 @@
+"""Eval driver — the port's counterpart of ``cli/eval.py`` (the working
+eval_q.sh), over :mod:`omchat_torch.eval.harness`.
+
+    python -m omchat_torch.cli.eval --model-path CKPT --benchmark gqa --question-file q.jsonl \\
+        --answers-file answers.jsonl [--truths-file truths.json] [--image-folder DIR] [--concurrency N] \\
+        [--max-new-tokens N] [--guided-mc] [--int8 | --w8a8] [--kv-cache-dtype fp8] [--lora ADAPTER] \\
+        [--device cuda]
+    python -m omchat_torch.cli.eval --model-path CKPT --perplexity text.txt [--ppl-window 2048]
+
+``--benchmark mantis`` (multi-image interleave) and ``mmbench_video``
+(``--video-folder``, ``--num-frames``, ``--scores-file``) take their own
+readers and scorers.  ``--concurrency N`` (N > 1) serves the questions
+through the paged continuous-batching engine with N requests in flight.
+Each run prints one JSON line: the score, or the perplexity.
+
+:func:`main` parses the flags and loads the model; :func:`run` does the rest
+on a model already in memory (what ``chip_smoke.py`` drives).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Optional
+
+from omchat_torch.cli.options import add_model_flags, load_model
+from omchat_torch.eval.harness import SCORERS
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    add_model_flags(parser)
+    parser.add_argument("--perplexity", default=None, metavar="TEXT_FILE",
+                        help="teacher-forced perplexity over a UTF-8 text file "
+                        "(non-overlapping windows; prints one JSON line and exits)")
+    parser.add_argument("--ppl-window", type=int, default=2048)
+    parser.add_argument("--benchmark", default=None, choices=sorted(SCORERS))
+    parser.add_argument("--question-file", default=None)
+    parser.add_argument("--image-folder", default="")
+    parser.add_argument("--video-folder", default="",
+                        help="root for mmbench_video video paths (frame dirs / GIFs / containers)")
+    parser.add_argument("--num-frames", type=int, default=32,
+                        help="frames sampled per video (mmbench_video; reference runs 32)")
+    parser.add_argument("--scores-file", default=None,
+                        help="JSON mapping question_id -> 0-3 score from the official external "
+                        "GPT judge, e.g. {\"42\": 3, \"43\": 1} (mmbench_video).  Without it "
+                        "the offline heuristic judge scores answers — validated at exact 0.75 / "
+                        "±1 1.00 agreement on a hand-labeled fixture (tests/test_eval_harness.py), "
+                        "NOT comparable to published GPT-judge numbers")
+    parser.add_argument("--concurrency", type=int, default=1,
+                        help="N>1 runs greedy generation with N requests in flight through "
+                        "the continuous-batching PagedBatchEngine (incompatible with --guided-mc, "
+                        "whose per-prefix token masks are host-side)")
+    parser.add_argument("--max-len", type=int, default=8192,
+                        help="per-request prompt+generation cap for --concurrency "
+                        "(raise for video workloads beyond 8k tokens)")
+    parser.add_argument("--answers-file", default=None)
+    parser.add_argument("--truths-file", default=None, help="JSON {question_id: answer(s)}")
+    parser.add_argument("--max-new-tokens", type=int, default=128)
+    parser.add_argument("--guided-mc", action="store_true",
+                        help="constrain answers to the choice letters A-E via trie-masked decoding (MC protocols only)")
+    return parser
+
+
+def check_args(parser: argparse.ArgumentParser, args) -> None:
+    """The JAX driver's usage errors (exit code 2), before any weight loads."""
+    if args.perplexity is None and not (args.benchmark and args.question_file and args.answers_file):
+        parser.error("pass --perplexity TEXT_FILE, or --benchmark + --question-file + --answers-file")
+    if args.concurrency > 1 and args.guided_mc:
+        parser.error("--concurrency is greedy-only; --guided-mc runs serial by design")
+
+
+def run(args, model) -> Optional[dict]:
+    """Run the eval ``args`` asks for on ``model`` (an ``OmChatModel``) and
+    print its JSON line; returns what it printed (None for a plain benchmark
+    run without ``--truths-file``, which prints nothing, as in JAX)."""
+    from omchat_torch.eval import harness
+
+    out = None
+    if args.perplexity is not None:
+        with open(args.perplexity) as f:
+            text = f.read()
+        res = harness.perplexity(model, text, window=args.ppl_window)
+        out = {"metric": "perplexity", "value": round(res["perplexity"], 4), **res}
+    elif args.benchmark == "mantis":
+        # multi-image interleave workload (reference README.md:105-107)
+        samples = harness.read_mantis_file(args.question_file, args.image_folder)
+        if args.concurrency > 1:
+            harness.run_eval_concurrent(model, samples, args.answers_file, mode="mantis",
+                                        max_new_tokens=args.max_new_tokens, concurrency=args.concurrency,
+                                        max_len=args.max_len)
+        else:
+            harness.run_eval_mantis(model, samples, args.answers_file, max_new_tokens=args.max_new_tokens,
+                                    guided_mc=args.guided_mc)
+        truths = {s.question_id: {"answer": s.answer, **(s.extra or {})} for s in samples}
+        if args.truths_file:
+            with open(args.truths_file) as f:
+                truths = json.load(f)
+        out = {"benchmark": "mantis", **harness.score_mantis(harness.read_answers_file(args.answers_file), truths)}
+    elif args.benchmark == "mmbench_video":
+        # 32-frame video workload (reference README.md:187-200)
+        samples = harness.read_video_question_file(args.question_file, args.video_folder)
+        if args.concurrency > 1:
+            harness.run_eval_concurrent(model, samples, args.answers_file, mode="video",
+                                        num_frames=args.num_frames, max_new_tokens=args.max_new_tokens,
+                                        concurrency=args.concurrency, max_len=args.max_len)
+        else:
+            harness.run_eval_video(model, samples, args.answers_file, num_frames=args.num_frames,
+                                   max_new_tokens=args.max_new_tokens)
+        scores = None
+        if args.scores_file:
+            with open(args.scores_file) as f:
+                scores = json.load(f)
+        out = {"benchmark": "mmbench_video",
+               **harness.score_mmbench_video(harness.read_answers_file(args.answers_file), samples, scores)}
+    else:
+        samples = harness.read_question_file(args.question_file, args.image_folder)
+        if args.concurrency > 1:
+            harness.run_eval_concurrent(model, samples, args.answers_file, max_new_tokens=args.max_new_tokens,
+                                        concurrency=args.concurrency, max_len=args.max_len)
+        else:
+            harness.run_eval(model, samples, args.answers_file, max_new_tokens=args.max_new_tokens,
+                             guided_choices=list("ABCDE") if args.guided_mc else None)
+        if args.truths_file:
+            with open(args.truths_file) as f:
+                truths = json.load(f)
+            out = {"benchmark": args.benchmark, "accuracy": harness.score(args.benchmark, args.answers_file, truths)}
+    if out is not None:
+        print(json.dumps(out), flush=True)
+    return out
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    check_args(parser, args)
+    return run(args, load_model(parser, args))
+
+
+if __name__ == "__main__":
+    main()

@@ -2,10 +2,11 @@
 
     python -m omchat_torch.cli.serve --model-path CKPT [--port 8000] [--device cuda] [--int8 | --w8a8] \\
         [--kv-cache-dtype fp8] [--lora ADAPTER] [--paged [--decode-roll N] [--decode-kernel manual] \\
-        [--prefix-cache] [--streaming-roll N] [--pipeline-rolls] [--draft-len N]] [--speculative] [--no-warmup]
+        [--prefix-cache] [--streaming-roll N] [--pipeline-rolls] [--draft-len N]] \\
+        [--continuous-batching [--max-slots N] [--max-len N]] [--speculative] [--no-warmup]
 
 Routes: ``GET /health``, ``/metrics`` (Prometheus text: request counters,
-and with ``--paged`` the batch engine's ``stats()`` and ``engine_dead``) and
+and with a batch engine its ``stats()`` and ``engine_dead``) and
 ``/v1/models``; ``POST /v1/chat/completions`` and ``/chat`` (text and base64
 ``image_url`` content parts; ``tools`` / ``tool_choice``, ``response_format``
 ``json_object`` / ``json_schema``, ``guided_json``, ``guided_choice``) and
@@ -31,6 +32,12 @@ Engines, as the JAX server routes them:
   requests submit with ``streaming=True``), ``--pipeline-rolls``, and
   ``--speculative`` with ``--draft-len`` (speculative verify of the batch's
   greedy slots).
+- ``--continuous-batching`` without ``--paged`` adds the slot engine
+  (:class:`~omchat_torch.runtime.batch_engine.BatchEngine`: ``--max-slots``
+  slots of ``--max-len`` rows in one shared cache, in the ``--kv-cache-dtype``
+  dtype, ``--image-cache`` encoded images), ticked the same way: plain and
+  sampled requests (SSE included) join its batch; log-prob requests run the
+  single-request engine too, as the slot engine returns tokens only.
 
 One lock serialises the card: the scheduler takes it for each tick and a
 single-request generation for its whole run, so that no CUDA graph is
@@ -38,9 +45,8 @@ captured on one thread while another launches (a constrained request pauses
 the batch while it runs, as it holds the lock for its whole generation).  The
 two engines share one set of weights.
 
-Refused by name before any weight loads, with the work that will bring them
-(``ROADMAP.md`` queue A): ``--continuous-batching`` without ``--paged`` (the
-slot engine, A10d), ``--tp`` above 1 (A13).
+Refused by name before any weight loads, with the work that will bring it
+(``ROADMAP.md`` queue A): ``--tp`` above 1 (A13).
 
 Request example:
     {"messages": [{"role": "user", "content": [
@@ -63,7 +69,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Tuple
 
-from omchat_torch.cli.options import add_model_flags, load_model, refuse_waiting
+from omchat_torch.cli.options import add_model_flags, load_model
 from omchat_torch.config import GenerationConfig
 from omchat_torch.runtime.generate import KeywordStopper
 
@@ -234,7 +240,7 @@ class ServingLoop:
         self.lock = threading.Lock()
         self.error: Optional[BaseException] = None
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True, name="paged-scheduler")
+        self._thread = threading.Thread(target=self._run, daemon=True, name="batch-scheduler")
 
     def start(self) -> "ServingLoop":
         if self.engine is not None:
@@ -254,7 +260,7 @@ class ServingLoop:
                     if busy:
                         self.engine.step()
             except Exception as e:  # noqa: BLE001 — the scheduler's boundary: fail every waiting request
-                logger.exception("paged scheduler died; failing in-flight requests")
+                logger.exception("batch scheduler died; failing in-flight requests")
                 self.error = e
                 return
             if not busy:
@@ -470,10 +476,11 @@ def make_handler(model, loop: ServingLoop, speculative: bool = False):
 
             finish = None
             if batch is not None:
-                # streaming: the engine shrinks its rolls to --streaming-roll while this request decodes
+                # streaming: the paged engine shrinks its rolls to --streaming-roll while this request decodes
+                stream_kw = {"streaming": True} if hasattr(batch, "streaming_roll") else {}
                 rid = loop.submit(input_ids, images,
                                   dataclasses.replace(gen, presence_penalty=0.0, frequency_penalty=0.0), image_key,
-                                  streaming=True)
+                                  **stream_kw)
                 deadline = time.time() + 60 + 0.5 * gen.max_new_tokens
                 sent = 0
                 while True:
@@ -628,8 +635,10 @@ def make_handler(model, loop: ServingLoop, speculative: bool = False):
             n = max(1, min(int(req.get("n", 1) or 1), 8))
             allowed_fn = _constraint(model, req, tool_fns, tool_mode, forced_name)
             # seeded, biased, penalised and constrained requests run the
-            # single-request engine; log-probs stay in the batch
-            use_engine = (seed is not None or allowed_fn is not None or logit_bias is not None
+            # single-request engine; log-probs stay in the paged engine's
+            # batch, and leave the slot engine's
+            use_engine = ((want_logprobs and not hasattr(batch, "request_logprobs")) or seed is not None
+                          or allowed_fn is not None or logit_bias is not None
                           or gen.presence_penalty != 0.0 or gen.frequency_penalty != 0.0)
             completions = run_completions(input_ids, inputs.get("images"), gen, stops, n,
                                           want_logprobs=want_logprobs, n_top=n_top, seed=seed, allowed_fn=allowed_fn,
@@ -703,12 +712,13 @@ def make_handler(model, loop: ServingLoop, speculative: bool = False):
 
 def warmup_engine(engine, timeout_s: float = 600.0) -> float:
     """What the first requests would otherwise pay for, before the server
-    takes traffic (the JAX server's ``warmup_engines`` on a paged engine):
-    the engine's ``precompile`` (a CUDA graph of the decode roll at every
-    table width bucket and pick mode), then three short text requests run to
-    completion (the batched and the lone short prefill, the kernels' first
-    launches; eos -1 never matches, so each runs its four tokens).  Returns
-    the seconds taken."""
+    takes traffic (the JAX server's ``warmup_engines`` on a batch engine):
+    the engine's ``precompile`` (on a paged engine a CUDA graph of the
+    decode roll at every table width bucket and pick mode; on the slot
+    engine the greedy and the sampled decode step's), then three short text
+    requests run to completion (the prefills, the kernels' first launches;
+    eos -1 never matches, so each runs its four tokens).  Returns the
+    seconds taken."""
     t0 = time.perf_counter()
     engine.precompile()
     rids = [engine.submit(list(p), None, max_new_tokens=4, eos_token_id=-1) for p in ([9] * 17, [9] * 9, [9] * 9)]
@@ -754,8 +764,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--paged", action="store_true",
                     help="continuous batching over a paged KV pool (implies --continuous-batching)")
     ap.add_argument("--continuous-batching", action="store_true",
-                    help="a batch engine shares decode steps among requests; without --paged (the slot engine) "
-                         "it waits for ROADMAP queue A item A10d")
+                    help="a batch engine shares decode steps among requests: without --paged the slot engine "
+                         "(--max-slots slots of --max-len rows in one shared cache)")
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--num-pages", type=int, default=1024)
     ap.add_argument("--page-size", type=int, default=128)
@@ -781,7 +791,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged: dispatch the next decode roll from the card's tokens before reading the last one "
                          "back (the host's readback overlaps the card's work)")
     ap.add_argument("--no-warmup", dest="warmup", action="store_false",
-                    help="skip the start-up warm-up (with --paged the decode rolls' CUDA graphs, captured by "
+                    help="skip the start-up warm-up (with a batch engine its decode CUDA graphs, captured by "
                          "precompile, and three short requests; else one short generate); the first requests "
                          "then pay for them")
     return ap
@@ -792,10 +802,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.paged:
         args.continuous_batching = True  # --paged implies the batch scheduler
-    refuse_waiting(ap, {
-        "--continuous-batching without --paged (the slot engine)": (args.continuous_batching and not args.paged,
-                                                                   "A10d"),
-    })
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s")
     model = load_model(ap, args)
@@ -810,10 +816,18 @@ def main(argv=None):
             streaming_roll=args.streaming_roll, pipeline_rolls=args.pipeline_rolls, speculative=args.speculative,
             draft_len=args.draft_len,
         )
+    elif args.continuous_batching:
+        from omchat_torch.api import batch_engine
+
+        engine = batch_engine(model, max_slots=args.max_slots, max_len=args.max_len, image_cache_size=args.image_cache)
     if args.warmup:
         logger.info(f"warm-up done in {warmup_engines(model, engine):.1f} s")
     server, loop = make_server(model, engine, args.host, args.port, speculative=args.speculative)
-    route = f"paged ({args.max_slots} slots, {args.num_pages} pages)" if engine is not None else "single-request"
+    route = "single-request"
+    if args.paged:
+        route = f"paged ({args.max_slots} slots, {args.num_pages} pages)"
+    elif engine is not None:
+        route = f"slot engine ({args.max_slots} slots of {args.max_len} rows)"
     logger.info(f"serving on {args.host}:{args.port}, {route}")
     try:
         server.serve_forever()

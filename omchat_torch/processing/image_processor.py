@@ -13,7 +13,7 @@ Drop-in behavioral equivalent of the reference's two image front-ends:
 
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 from PIL import Image
@@ -28,13 +28,30 @@ def process_anyres_image(
     grid_pinpoints: Sequence[Sequence[int]] = DEFAULT_GRID_PINPOINTS,
     tile_size: int = 448,
     return_best_res: bool = False,
+    use_native: Optional[bool] = None,
 ):
     """anyres-tile one image → [N, 3, tile, tile] float32 (thumbnail first).
 
     Matches reference mm_utils.py:119-158 with the InternViT CLIP processor
-    settings (crop 448, shortest-edge 448, ImageNet stats).  The port keeps
-    only the Python route (the JAX package's fused C++ route is not carried).
+    settings (crop 448, shortest-edge 448, ImageNet stats).  ``use_native``
+    routes the pad/tile/normalize through the fused C++ pipeline
+    (:mod:`omchat_torch.processing.native`; the same output to float32
+    rounding): None takes it when its library builds, as in the JAX package;
+    True raises with the compiler's output when it does not; False keeps the
+    numpy path.
     """
+    if use_native is None:
+        from omchat_torch.processing import native
+
+        use_native = native.available()
+    if use_native:
+        from omchat_torch.processing import native
+        from omchat_torch.processing.anyres import select_best_resolution
+
+        stacked = native.anyres_process_native(image, grid_pinpoints, tile_size)
+        if return_best_res:
+            return stacked, select_best_resolution(image.size, grid_pinpoints)
+        return stacked
     tiles, best_resolution = anyres_tile_images(image, grid_pinpoints, tile_size)
     arrays = [preprocess_tile(t, crop_size=tile_size, shortest_edge=tile_size) for t in tiles]
     stacked = np.stack(arrays, axis=0)

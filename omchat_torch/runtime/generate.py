@@ -437,8 +437,13 @@ class OmChatEngine:
         """Drop every kept decode state: its cache, buffers and graphs (whose
         memory goes back to the allocator with the engine's last graph).  A
         long-running caller that has served requests of many shapes can call
-        this to free them; the next request makes its state anew."""
+        this to free them; the next request makes its state anew, and its
+        graph is captured into a new pool: the caching allocator refuses a
+        capture into a pool whose every graph is gone while that pool still
+        holds memory."""
         self._states.clear()
+        if self._graph_pool is not None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
 
     def _decode_body(self, st: DecodeState, mode: PickMode = GREEDY) -> torch.Tensor:
         """One decode step on ``st``'s buffers, in place (the step a graph

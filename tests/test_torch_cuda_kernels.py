@@ -1256,6 +1256,25 @@ def test_decode_graphs_give_the_eager_tokens(graph_model, cache):
     assert run(eager, "generate_ondevice")[0] == want
 
 
+def test_decode_graph_captures_again_after_release(graph_model):
+    """After ``release_decode_states`` dropped every graph of the engine's
+    pool, the next request captures its step again (into a new pool) and
+    gives the same tokens."""
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    cfg, params = graph_model
+    gen = GenerationConfig(max_new_tokens=12, eos_token_id=-1)
+    ids = _prompts(1, seed=3)[0]
+    eng = OmChatEngine(cfg, params, image_cache_size=0)
+    want = eng.generate([ids], None, gen).token_ids
+    pool = eng._graph_pool
+    eng.release_decode_states()
+    assert not eng._states and eng._graph_pool != pool
+    assert eng.generate([ids], None, gen).token_ids == want and eng.spans["capture"] > 0
+    assert eng.generate([ids], None, gen).token_ids == want and "capture" not in eng.spans
+
+
 @pytest.mark.parametrize("pool", ["bf16", "e4m3"])
 @pytest.mark.parametrize("kernel", ["auto", "manual"], ids=["k12", "k13"])
 def test_paged_rolls_graphed_give_the_eager_tokens(graph_model, kernel, pool):

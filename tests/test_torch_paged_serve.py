@@ -80,8 +80,7 @@ def test_image_completion(server):
     assert engine.stats()["image_cache_misses"] >= 1
 
 
-@pytest.mark.parametrize("flags,item", [(["--continuous-batching"], "A10d"), (["--tp", "2"], "13")],
-                         ids=["continuous-batching", "tp"])
+@pytest.mark.parametrize("flags,item", [(["--tp", "2"], "13")], ids=["tp"])
 def test_unsupported_field_is_a_client_error(flags, item, capsys, monkeypatch):
     """What the port does not serve yet is refused by name, as a usage error
     naming the queue item that will bring it, before any weight loads."""

@@ -6,9 +6,12 @@ over ``OmChatConfig.tiny()``'s float32 weights (``tests/test_serve.py``'s
 equal JSON apart from ``latency_ms``, equal SSE chunk sequences, log-probs
 within 1e-5; on the default route (the single-request engine) and, for the
 greedy and log-prob bodies, on the ``--paged`` route (JAX
-``PagedBatchEngine(attn_impl="xla")`` and the port's, page size 8).  Seeded
-sampling is held within the port (equal seeds, equal replies).  Then the
-warm-up on both of the port's routes, and the four places where the port's server used to answer differently: the default
+``PagedBatchEngine(attn_impl="xla")`` and the port's, page size 8), and
+every body of both kinds on the ``--continuous-batching`` route (the slot
+engines: the JAX ``BatchEngine(attn_impl="xla")`` and the port's, 4 slots,
+chunks of 16).  Seeded sampling is held within the port (equal seeds, equal
+replies).  Then the warm-up on each of the port's routes, and the four
+places where the port's server used to answer differently: the default
 route, ``top_k``, tool and unknown roles, the ``model`` and ``logprobs``
 fields.
 """
@@ -30,10 +33,11 @@ from PIL import Image
 
 import jax
 
-from omchat_torch.api import omchat_model, paged_batch_engine
+from omchat_torch.api import batch_engine, omchat_model, paged_batch_engine
 from omchat_torch.checkpoint.convert import from_jax_params
 from omchat_torch.cli import serve as tserve
 from omchat_torch.config import OmChatConfig as TOmChatConfig
+from omchat_torch.runtime.batch_engine import BatchEngine as TBatchEngine
 from omchat_torch.runtime.generate import OmChatEngine as TEngine
 from omchat_torch.runtime.paged_engine import PagedBatchEngine as TPagedEngine
 from omchat_torch.utils.testing import MockTokenizer
@@ -42,6 +46,8 @@ from tests.test_serve import _tiny_model
 LP_TOL = 1e-5
 # the paged engines of the --paged route: page size 8, small pools
 PAGED = dict(max_slots=4, num_pages=96, page_size=8, prompt_bucket=16, max_len=256, prefill_chunk=64)
+# the slot engines of the --continuous-batching route
+SLOT = dict(max_slots=4, max_len=1024, chunk_size=16)
 
 TOOLS = [
     {"type": "function", "function": {"name": "get_weather", "parameters": {
@@ -467,8 +473,7 @@ def test_route_flags_reach_the_paged_engine(models, monkeypatch, flag):
     assert not any(ROUTE_FLAGS[f][1](built["engine"]) for f in others)
 
 
-@pytest.mark.parametrize("flags,item", [(["--continuous-batching"], "A10d"), (["--tp", "2"], "13")],
-                         ids=["continuous-batching-without-paged", "tp-2"])
+@pytest.mark.parametrize("flags,item", [(["--tp", "2"], "13")], ids=["tp-2"])
 def test_waiting_flags_still_refused_by_name(flags, item, capsys, monkeypatch):
     def no_load(*a, **kw):
         raise AssertionError("weights loaded before the refusal")
@@ -551,3 +556,125 @@ def test_metrics_carry_the_route_counts(models):
     assert int(trows["omchat_engine_prefix_cache_hits"]) > 0
     assert int(trows["omchat_engine_verifies_eager"]) == int(trows["omchat_engine_spec_dispatches"])
     assert trows["omchat_engine_verifies_graphed"] == "0"
+
+
+# -- the slot engine's route (--continuous-batching without --paged) -------
+
+@pytest.fixture(scope="module")
+def slot_servers(models):
+    """(JAX port, the port's port) of the two servers over slot engines, and
+    the port's engine."""
+    from serve import make_handler
+
+    from omchat_tpu.config import OmChatConfig
+    from omchat_tpu.runtime.batch_engine import BatchEngine
+    from omchat_tpu.utils.logging import build_logger
+
+    jmodel, tmodel = models
+    jslot = BatchEngine(OmChatConfig.tiny(), jmodel.engine.params, attn_impl="xla", **SLOT)
+    tslot = batch_engine(tmodel, **SLOT)
+    stop = threading.Event()
+    jthread = _jax_scheduler(jslot, stop)
+    jsrv = _serve(make_handler(jmodel, build_logger("test.torch_serve", "test_torch_serve.log", log_dir="/tmp"),
+                               jslot))
+    tsrv, loop = tserve.make_server(tmodel, tslot, "127.0.0.1", 0)
+    threading.Thread(target=tsrv.serve_forever, daemon=True).start()
+    yield (jsrv.server_address[1], tsrv.server_address[1]), tslot
+    for srv in (jsrv, tsrv):
+        srv.shutdown()
+        srv.server_close()
+    loop.close()
+    stop.set()
+    jthread.join(30)
+    assert not jthread.is_alive()
+
+
+def _both_slot(slot_servers, path, body=None):
+    (jport, tport), _ = slot_servers
+    want, got = _call(jport, path, body), _call(tport, path, body)
+    _assert_same(got, want)
+    return got
+
+
+# the bodies the slot route answers from its batch; the rest (log-probs,
+# seeds, bias, penalties, constraints) run the single-request engine, as on
+# the JAX server
+SLOT_BODIES = ("text", "image", "chat_alias", "stop", "metrics_request", "n_choices", "text_completions",
+               "text_completions_echo", "text_completions_stop", "tool_auto_history")
+
+
+@pytest.mark.parametrize("name", list(GREEDY_BODIES))
+def test_slot_route_matches_jax(slot_servers, name):
+    """Every greedy body on the --continuous-batching route: the JAX server's
+    reply; those of SLOT_BODIES decoded by the slot engine, one step a
+    token, the others by the single-request engine."""
+    path, body = GREEDY_BODIES[name]
+    _, tslot = slot_servers
+    before = tslot.steps_eager
+    status, _, out = _both_slot(slot_servers, path, body)
+    assert status == 200 and out["choices"]
+    assert (tslot.steps_eager > before) == (name in SLOT_BODIES)
+    assert not tslot.requests and not tslot.has_work()
+
+
+@pytest.mark.parametrize("name", list(STREAM_BODIES))
+def test_slot_route_sse_chunks_match_jax(slot_servers, name):
+    path, body = STREAM_BODIES[name]
+    status, ctype, events = _both_slot(slot_servers, path, body)
+    assert status == 200 and events[-1] == "[DONE]" and len(events) >= 3
+
+
+def test_slot_route_metrics_match_jax(slot_servers):
+    """/metrics after the same request: the JAX server's counters and every
+    one of the slot engine's gauges (slots, queue, the image cache)."""
+    _both_slot(slot_servers, *GREEDY_BODIES["metrics_request"])
+    rows = []
+    for port in slot_servers[0]:
+        status, _, body = _call(port, "/metrics")
+        assert status == 200
+        rows.append(dict(line.split(" ", 1) for line in body.splitlines() if line and not line.startswith("#")))
+    jrows, trows = rows
+    assert set(jrows) == set(trows)
+    for k in jrows:
+        if k != "omchat_request_latency_ms_sum":
+            assert trows[k] == jrows[k], k
+    assert trows["omchat_engine_slots_total"] == str(SLOT["max_slots"]) and trows["omchat_engine_dead"] == "0"
+
+
+def test_continuous_batching_builds_the_slot_engine(models, monkeypatch):
+    """``--continuous-batching`` without ``--paged`` is served, not refused:
+    the slot engine over the model's weights with the flags' slots, rows and
+    image cache, its cache in the model's cache dtype."""
+    _, tmodel = models
+    built = {}
+
+    class Server:
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    class Loop:
+        def close(self):
+            pass
+
+    def make_server(model, engine=None, host="", port=0, speculative=False):
+        built["engine"] = engine
+        return Server(), Loop()
+
+    monkeypatch.setattr(tserve, "load_model", lambda ap, args: tmodel)
+    monkeypatch.setattr(tserve, "make_server", make_server)
+    tserve.main(["--model-path", "unused", "--device", "cpu", "--no-warmup", "--continuous-batching",
+                 "--max-slots", "3", "--max-len", "128", "--image-cache", "0"])
+    eng = built["engine"]
+    assert isinstance(eng, TBatchEngine) and not isinstance(eng, TPagedEngine)
+    assert (eng.max_slots, eng.max_len, eng.image_cache) == (3, 128, None)
+    assert eng.params is tmodel.engine.params and eng.cache.k.dtype == torch.float32
+
+
+def test_warmup_on_the_slot_route(models):
+    _, tmodel = models
+    engine = batch_engine(tmodel, **SLOT)
+    assert tserve.warmup_engines(tmodel, engine) >= 0
+    assert not engine.requests and not engine.has_work() and engine.steps_eager == 0  # counts reset after it
