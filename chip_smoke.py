@@ -274,6 +274,32 @@
     0.1, and each counted token's nll be within ``PPL_TOKEN_GAP`` of
     ``attn_impl="plain"``'s, where the plain route with a planted fault
     (non-causal attention, one future column) must fall outside it.
+31. The other towers (right after phase 30): CLIP-L/336, CLIP-L with
+    clip_smoe (4 experts, top-2), SigLIP so400m/384 and InternViT-300M/448
+    at full width and depth on 5 seeded images through
+    ``build_vision_tower(name).forward``, and CLIP-L through S2 at (336,
+    672, 1008); each against ``attn_impl="plain"`` within
+    ``TOWER_REL_LIMIT`` of max |out| (the CLIP-SMoE plain run on the kernel
+    run's routing), K2 launched once a layer run; then K2 at the towers'
+    shapes, D = 64 at 577 and 1025 rows and D = 72 at 729, against its plain
+    version with planted keys, where two planted faults (the softmax scale of
+    a 128-wide head; q and k read past column D) must fall outside.
+32. The OmChat variants through ``OmChatModel.chat`` on phase 3's 7B and 6B
+    weights, one seeded image and 32 greedy tokens each: InternViT-300M with
+    a 1024 -> 3584 mlp2x_gelu projector (K2 at D = 64 in the encode), the v1
+    spatial_unpad merge with an image_newline on a 1000x700 image, the
+    cabstract projector (144 queries, depth 3), the mlp_smoe projector (4
+    experts, top-2): TTFT, decode tokens/s, tokens per sentinel; at 2+2
+    layers each variant's kernels against the plain route by phase 7's rule.
+33. The Qwen1.5-MoE-A2.7B trunk (``MOE_TEXT``, 14.3 B parameters) behind the
+    resident InternViT-6B, after phase 3's 7B weights are released: phase
+    3's request through the single-request engine (graphed steps, beside
+    the step's weight-read floor), phase 5's workload through the paged
+    engine after ``precompile`` (every roll a replay), 4 of its requests
+    through the slot engine; K2-K4 and K12 / K14 / K15 at group 1 (16 / 16
+    heads) at those runs' shapes against their plain versions (phases 2 and
+    6's keys and faults); at 2+2 layers kernels vs plain within phase 4's
+    limits and ``moe_impl="gmm"`` against dense within ``MOE_GMM_REL``.
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -620,7 +646,9 @@ def main_path_shapes(seed: int) -> dict:
     }
 
 
-def kernel_phases(gen, shapes: dict) -> list:
+def kernel_phases(gen, shapes: dict, cfg=None, tag: str = "") -> list:
+    """Phase 2: K1-K4 at the main path's shapes; with ``cfg`` (phase 33: the
+    MoE trunk's heads) K2-K4 at that trunk's, their rows named with ``tag``."""
     import torch
     import torch.nn.functional as F
 
@@ -631,7 +659,8 @@ def kernel_phases(gen, shapes: dict) -> list:
 
     dev = torch.device("cuda")
     bf = torch.bfloat16
-    cfg = OmChatConfig()
+    with_k1 = cfg is None
+    cfg = cfg or OmChatConfig()
     rows = []
 
     def randn(*shape, scale=1.0):
@@ -640,66 +669,67 @@ def kernel_phases(gen, shapes: dict) -> list:
     def direction(*shape):
         return _direction(gen, *shape)
 
-    # K1 — ViT packed qk-norm attention over the 3 tiles, padded rows SP, valid rows VALID.
-    # q carries a per-head direction u; the keys at the last valid column (VALID-1)
-    # and the first pad column (VALID) are 0.8 u + 0.6 noise, so after the qk-norm
-    # each takes about a quarter of every row's softmax when it is let in.
-    B, SP, VALID = shapes["tiles"], shapes["vit_sp"], shapes["vit_valid"]
-    H, D = cfg.vision.num_attention_heads, cfg.vision.head_dim
-    HD = H * D
-    u = direction(HD)
-    qkv = randn(B, SP, 3 * HD)
-    qkv[..., :HD] += u
-    for col in (VALID - 1, VALID):
-        qkv[:, col, HD:2 * HD] = 0.8 * u + 0.6 * randn(B, HD)
-    qg = (1.0 + 0.1 * randn(HD).float()).to(bf) * fa.packed_prescale(D)
-    kg = (1.0 + 0.1 * randn(HD).float()).to(bf)
-    eps = 1e-6
-    out = fa.packed_qkv_norm_attention(qkv, num_heads=H, q_gamma=qg, k_gamma=kg, eps=eps, valid_len=VALID)
-    torch.cuda.synchronize()
-    rq, rk, gq32, gk32 = fa.qk_norm_stats(qkv, qg, kg, eps)
+    if with_k1:
+        # K1 — ViT packed qk-norm attention over the 3 tiles, padded rows SP, valid rows VALID.
+        # q carries a per-head direction u; the keys at the last valid column (VALID-1)
+        # and the first pad column (VALID) are 0.8 u + 0.6 noise, so after the qk-norm
+        # each takes about a quarter of every row's softmax when it is let in.
+        B, SP, VALID = shapes["tiles"], shapes["vit_sp"], shapes["vit_valid"]
+        H, D = cfg.vision.num_attention_heads, cfg.vision.head_dim
+        HD = H * D
+        u = direction(HD)
+        qkv = randn(B, SP, 3 * HD)
+        qkv[..., :HD] += u
+        for col in (VALID - 1, VALID):
+            qkv[:, col, HD:2 * HD] = 0.8 * u + 0.6 * randn(B, HD)
+        qg = (1.0 + 0.1 * randn(HD).float()).to(bf) * fa.packed_prescale(D)
+        kg = (1.0 + 0.1 * randn(HD).float()).to(bf)
+        eps = 1e-6
+        out = fa.packed_qkv_norm_attention(qkv, num_heads=H, q_gamma=qg, k_gamma=kg, eps=eps, valid_len=VALID)
+        torch.cuda.synchronize()
+        rq, rk, gq32, gk32 = fa.qk_norm_stats(qkv, qg, kg, eps)
 
-    def k1_plain(valid):
-        return fa.packed_qkv_norm_attention_plain(qkv, rq, rk, gq32, gk32, num_heads=H, valid_len=valid)[:, :VALID]
+        def k1_plain(valid):
+            return fa.packed_qkv_norm_attention_plain(qkv, rq, rk, gq32, gk32, num_heads=H, valid_len=valid)[:, :VALID]
 
-    ref = k1_plain(VALID)
-    err = check_close("K1 packed_qkv_norm_attention", out[:, :VALID], ref, *ATTN_TOL["K1"])
-    faults = {"last valid column dropped": check_fault_caught("K1", "the last valid column dropped",
-                                                              k1_plain(VALID - 1), ref, *ATTN_TOL["K1"]),
-              "first pad column let in": check_fault_caught("K1", "the first pad column let in",
-                                                            k1_plain(VALID + 1), ref, *ATTN_TOL["K1"])}
-    # the prepass alone, against its plain version, and two planted faults
-    want = torch.stack(fa.qk_norm_prepass_plain(qkv, qg, kg, eps))
-    pre_err = check_close("K1 qk_norm_prepass", torch.stack(fa.qk_norm_prepass(qkv, qg, kg, eps)), want,
-                          *PREPASS_TOL)
-    kx = qkv[..., HD:2 * HD].float()
-    for fault, kn_bad in (("k's gamma left out", kx * rk[..., None]),
-                          ("k normalised by q's rstd", kx * rq[..., None] * gk32)):
-        faults[f"prepass: {fault}"] = check_fault_caught("K1 qk_norm_prepass", fault,
-                                                         torch.stack((want[0], kn_bad.to(bf))), want, *PREPASS_TOL)
-    del want, kx, kn_bad
-    ref_mag = float(ref.float().abs().mean())
-    p_ms = time_ms(lambda: fa.packed_qkv_norm_attention_plain(qkv, rq, rk, gq32, gk32, num_heads=H,
-                                                              valid_len=VALID), iters=5, warmup=1)
-    # library yardstick: SDPA over the already-normalised heads (no qk-norm)
-    qn = (qkv[:, :VALID, :HD].float() * rq[:, :VALID, None] * gq32).to(bf).view(B, VALID, H, D).transpose(1, 2)
-    kn = (qkv[:, :VALID, HD:2 * HD].float() * rk[:, :VALID, None] * gk32).to(bf).view(B, VALID, H, D).transpose(1, 2)
-    vn = qkv[:, :VALID, 2 * HD:].reshape(B, VALID, H, D).transpose(1, 2)
-    # the kernel (its prepass included), the prepass alone and SDPA, read in turns
-    ms, readings = time_in_turns({
-        "kernel": lambda: fa.packed_qkv_norm_attention(qkv, num_heads=H, q_gamma=qg, k_gamma=kg, eps=eps,
-                                                       valid_len=VALID),
-        "prepass": lambda: fa.qk_norm_prepass(qkv, qg, kg, eps),
-        "library": lambda: F.scaled_dot_product_attention(qn, kn, vn)})
-    flops = 4.0 * B * H * VALID * VALID * D
-    nbytes = qkv.numel() * 2 + 2 * HD * 4 + B * SP * HD * 2
-    rows.append(dict(name="packed_qkv_norm_attention", source="omchat_torch/csrc/packed_qkv_norm_attention.cu",
-                     replaces="omchat_tpu/ops/flash_attention.py:559", max_abs_err=err, ms=ms["kernel"],
-                     plain_ms=p_ms, library_ms=ms["library"], flops=flops, bytes=nbytes, ref_mean_abs=ref_mag,
-                     faults=faults, readings=readings["kernel"],
-                     extra=f" prepass_ms={ms['prepass']:.4f} (bound {bound_ms(0.0, 2 * B * SP * 2 * HD * 2)[0]:.4f}, "
-                           f"bytes) prepass_max_abs_err={pre_err:.4g}"))
-    del qkv, out, ref, qn, kn, vn
+        ref = k1_plain(VALID)
+        err = check_close("K1 packed_qkv_norm_attention", out[:, :VALID], ref, *ATTN_TOL["K1"])
+        faults = {"last valid column dropped": check_fault_caught("K1", "the last valid column dropped",
+                                                                  k1_plain(VALID - 1), ref, *ATTN_TOL["K1"]),
+                  "first pad column let in": check_fault_caught("K1", "the first pad column let in",
+                                                                k1_plain(VALID + 1), ref, *ATTN_TOL["K1"])}
+        # the prepass alone, against its plain version, and two planted faults
+        want = torch.stack(fa.qk_norm_prepass_plain(qkv, qg, kg, eps))
+        pre_err = check_close("K1 qk_norm_prepass", torch.stack(fa.qk_norm_prepass(qkv, qg, kg, eps)), want,
+                              *PREPASS_TOL)
+        kx = qkv[..., HD:2 * HD].float()
+        for fault, kn_bad in (("k's gamma left out", kx * rk[..., None]),
+                              ("k normalised by q's rstd", kx * rq[..., None] * gk32)):
+            faults[f"prepass: {fault}"] = check_fault_caught("K1 qk_norm_prepass", fault,
+                                                             torch.stack((want[0], kn_bad.to(bf))), want, *PREPASS_TOL)
+        del want, kx, kn_bad
+        ref_mag = float(ref.float().abs().mean())
+        p_ms = time_ms(lambda: fa.packed_qkv_norm_attention_plain(qkv, rq, rk, gq32, gk32, num_heads=H,
+                                                                  valid_len=VALID), iters=5, warmup=1)
+        # library yardstick: SDPA over the already-normalised heads (no qk-norm)
+        qn = (qkv[:, :VALID, :HD].float() * rq[:, :VALID, None] * gq32).to(bf).view(B, VALID, H, D).transpose(1, 2)
+        kn = (qkv[:, :VALID, HD:2 * HD].float() * rk[:, :VALID, None] * gk32).to(bf).view(B, VALID, H, D).transpose(1, 2)
+        vn = qkv[:, :VALID, 2 * HD:].reshape(B, VALID, H, D).transpose(1, 2)
+        # the kernel (its prepass included), the prepass alone and SDPA, read in turns
+        ms, readings = time_in_turns({
+            "kernel": lambda: fa.packed_qkv_norm_attention(qkv, num_heads=H, q_gamma=qg, k_gamma=kg, eps=eps,
+                                                           valid_len=VALID),
+            "prepass": lambda: fa.qk_norm_prepass(qkv, qg, kg, eps),
+            "library": lambda: F.scaled_dot_product_attention(qn, kn, vn)})
+        flops = 4.0 * B * H * VALID * VALID * D
+        nbytes = qkv.numel() * 2 + 2 * HD * 4 + B * SP * HD * 2
+        rows.append(dict(name="packed_qkv_norm_attention", source="omchat_torch/csrc/packed_qkv_norm_attention.cu",
+                         replaces="omchat_tpu/ops/flash_attention.py:559", max_abs_err=err, ms=ms["kernel"],
+                         plain_ms=p_ms, library_ms=ms["library"], flops=flops, bytes=nbytes, ref_mean_abs=ref_mag,
+                         faults=faults, readings=readings["kernel"],
+                         extra=f" prepass_ms={ms['prepass']:.4f} (bound {bound_ms(0.0, 2 * B * SP * 2 * HD * 2)[0]:.4f}, "
+                               f"bytes) prepass_max_abs_err={pre_err:.4g}"))
+        del qkv, out, ref, qn, kn, vn
 
     # K2 — causal GQA prefill over the bntd cache layer: the merged prompt's S rows
     # (KVL valid) against a cache of T rows.  q carries its kv head's direction u; a
@@ -836,6 +866,15 @@ def kernel_phases(gen, shapes: dict) -> list:
     del kc, vc, kf, vf, k_ref, v_ref
 
     for r in rows:
+        r["name"] += tag
+    report_rows(rows)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def report_rows(rows: list) -> None:
+    """Each kernel row's bound from its operations and bytes, and its line."""
+    for r in rows:
         flops = r.pop("flops")
         r["bound_ms"], r["bound_by"] = bound_ms(flops, r.pop("bytes"))
         mag = "" if r["ref_mean_abs"] is None else f" ref_mean_abs={r['ref_mean_abs']:.3g}"
@@ -844,8 +883,6 @@ def kernel_phases(gen, shapes: dict) -> list:
         log(f"kernel {r['name']}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){rate}"
             f"{r.pop('extra', '')} max_abs_err={r['max_abs_err']:.3g}{mag}{caught}")
-    torch.cuda.empty_cache()
-    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1258,12 +1295,13 @@ def serving(seed: int) -> tuple:
     return res, timed
 
 
-def paged_kernel_phases(gen, timed: dict) -> list:
+def paged_kernel_phases(gen, timed: dict, tc=None, tag: str = "") -> list:
     """Phase 6: K12, K14 and K15 (and K2 at the batched-prefill shape,
     printed only) at what the timed serving run handed them, against their
     plain versions; returns their rows.  Keys are planted at the length and
     causal boundaries as in phase 2, and each check shows that a faulted
-    plain version falls outside it."""
+    plain version falls outside it.  With ``tc`` (phase 33: the MoE trunk's
+    text config) at that trunk's heads, the rows named with ``tag``."""
 
     import numpy as np
     import torch
@@ -1276,7 +1314,7 @@ def paged_kernel_phases(gen, timed: dict) -> list:
 
     dev = torch.device(DEVICE)
     i32 = dict(dtype=torch.int32, device=dev)
-    tc = OmChatConfig().text
+    tc = tc or OmChatConfig().text
     L, H, KVH, D = tc.num_hidden_layers, tc.num_attention_heads, tc.num_key_value_heads, tc.attn_head_dim
     G = H // KVH
     PS, P = SERVING["page_size"], SERVING["num_pages"]
@@ -1496,6 +1534,7 @@ def paged_kernel_phases(gen, timed: dict) -> list:
     del q2, k2, v2, q2t, mask2, out, ref
 
     for r in rows + [k2_batched]:
+        r["name"] += tag
         flops = r.pop("flops")
         r["bound_ms"], r["bound_by"] = bound_ms(flops, r.pop("bytes"))
         mag = "" if r["ref_mean_abs"] is None else f" ref_mean_abs={r['ref_mean_abs']:.3g}"
@@ -7075,6 +7114,551 @@ def eval_on_the_card(model, small, seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 31-33: the other towers and decoders (A11): CLIP / SigLIP /
+# InternViT-300M through K2 at head widths 64 and 72, the OmChat variants
+# (InternViT-300M, the v1 spatial merge, the cabstract and sparse
+# projectors), the Qwen2-MoE trunk in every engine
+# ---------------------------------------------------------------------------
+
+# Phase 31: TOWER_IMAGES images a tower (tiles for InternViT-300M), S2 at
+# S2_SIZES (1 + 4 + 9 crops an image).  A tower through the kernels (K2) against
+# attn_impl="plain" on the same weights: max |diff| within TOWER_REL_LIMIT of
+# max |out|, phase 22's limit for a ViT (bf16 rounds every activation and the
+# routes round q and p at other places).  The CLIP-SMoE tower has TOWER_EXPERTS
+# experts, TOWER_SELECTED picked a token; its plain run takes the kernel run's
+# routing weights (``routed_pair``: an H100 run read 1.8% of the routing
+# decisions broken apart by the two routes' roundings of near-ties, and the
+# unpinned outputs 0.555 of max |out| apart, a token sent to another expert).
+TOWER_IMAGES, S2_SIZES, TOWER_EXPERTS, TOWER_SELECTED = 5, (336, 672, 1008), 4, 2
+TOWER_REL_LIMIT = VIT_REL_LIMIT
+# Phase 32: the v1 variant's image (width, height); the cabstract projector's
+# queries and depth; the sparse projector's experts.
+V1_IMAGE, CABSTRACT_QUERIES, CABSTRACT_DEPTH = (1000, 700), 144, 3
+# Phase 33: Qwen1.5-MoE-A2.7B (Qwen/Qwen1.5-MoE-A2.7B config.json: hidden 2048, 24
+# layers, 16 / 16 heads of 128, 60 experts, top-4, moe_intermediate_size 1408,
+# shared_expert_intermediate_size 5632, vocab 151936, norm_topk_prob false, rope
+# theta 1e6, qkv bias; dev/exp_moe_gmm.py:3 names the geometry), behind the
+# InternViT-6B tower and a 3200 -> 2048 mlp2x_gelu projector.  MOE_SLOT_REQUESTS
+# of phase 5's requests go through the slot engine.  At 2+2 layers the expert
+# routes "gmm" and "dense" compute the same function in bf16 with other
+# roundings (dense rounds the routing weights to bf16 and sums the experts in
+# one product, gmm scales each replica's output and adds them one by one), so
+# their first-token logits are held within MOE_GMM_REL of max |logit|.
+MOE_TEXT = dict(vocab_size=151936, hidden_size=2048, intermediate_size=5632, num_hidden_layers=24,
+                num_attention_heads=16, num_key_value_heads=16, max_position_embeddings=8192, rms_norm_eps=1e-6,
+                rope_theta=1000000.0, attention_bias=True, tie_word_embeddings=False, num_experts=60,
+                num_experts_per_tok=4, moe_intermediate_size=1408, shared_expert_intermediate_size=5632,
+                decoder_sparse_step=1, norm_topk_prob=False)
+MOE_SLOT_REQUESTS, MOE_GMM_REL = 4, 5e-2
+
+
+def hf_clip_state(gen, cfg) -> dict:
+    """A HF CLIPVisionModel / SiglipVisionModel state dict of ``cfg``'s
+    geometry on the card, bf16: normal(0, 0.02) matrices, unit norms, zero
+    biases; with ``cfg.clip_smoe`` every layer's experts and router too."""
+    import torch
+
+    d, f, n, p = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers, cfg.patch_size
+
+    def w(*shape, scale=0.02):
+        return _randn(gen, *shape, scale=scale)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.bfloat16, device=DEVICE)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16, device=DEVICE)
+
+    pre = "vision_model."
+    s = {pre + "embeddings.patch_embedding.weight": w(d, 3, p, p),
+         pre + "embeddings.position_embedding.weight": w(cfg.grid ** 2 + int(cfg.use_class_token), d)}
+    if cfg.use_class_token:
+        s[pre + "embeddings.class_embedding"] = w(d, scale=1.0)
+        s[pre + "pre_layrnorm.weight"], s[pre + "pre_layrnorm.bias"] = ones(d), zeros(d)
+    else:
+        s[pre + "embeddings.patch_embedding.bias"] = zeros(d)
+    if cfg.post_layernorm:
+        s[pre + "post_layernorm.weight"], s[pre + "post_layernorm.bias"] = ones(d), zeros(d)
+    for i in range(n):
+        lay = f"{pre}encoder.layers.{i}."
+        for ln in ("layer_norm1", "layer_norm2"):
+            s[lay + ln + ".weight"], s[lay + ln + ".bias"] = ones(d), zeros(d)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            s[lay + f"self_attn.{proj}.weight"], s[lay + f"self_attn.{proj}.bias"] = w(d, d), zeros(d)
+        mlps = [lay + "mlp."] + ([f"{lay}experts.{e}." for e in range(cfg.num_experts)] if cfg.clip_smoe else [])
+        for m in mlps:
+            s[m + "fc1.weight"], s[m + "fc1.bias"] = w(f, d), zeros(f)
+            s[m + "fc2.weight"], s[m + "fc2.bias"] = w(d, f), zeros(d)
+        if cfg.clip_smoe:
+            s[lay + "router.weight"], s[lay + "router.bias"] = w(cfg.num_experts, d), zeros(cfg.num_experts)
+    return s
+
+
+def rel_gap(got, ref) -> float:
+    """max |got - ref| over max |ref|, both finite, or raises."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite output")
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def narrow_k2_plain(q, k, v, scale_width: int, read_cols: int):
+    """K2's non-causal function over btnd q, k, v [B, S, H, D] with the two
+    knobs of phase 31's planted faults: the softmax scale of a head
+    ``scale_width`` wide, and q and k read ``read_cols`` columns from each
+    head's first, the columns past D being the ones that follow in memory
+    (the next head's, the next row's for the last heads), as a tensor map
+    declared over the wrong width would read them.  (scale_width, read_cols)
+    = (D, D) is the kernel's function."""
+    import torch
+
+    B, S, H, D = q.shape
+
+    def widen(t):
+        if read_cols == D:
+            return t
+        flat = t.reshape(B * S, H * D)
+        ext = torch.cat([flat, flat.roll(-1, 0)], dim=1)
+        return torch.stack([ext[:, h * D: h * D + read_cols] for h in range(H)], dim=1).view(B, S, H, read_cols)
+
+    qw = widen(q)
+    qs = qw * torch.full((), scale_width ** -0.5 * 1.4426950408889634, dtype=q.dtype, device=q.device)
+    s = torch.einsum("bshd,bthd->bhst", qs.float(), widen(k).float())
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhst,bthd->bshd", p.to(v.dtype).float(), v.float()) / p.sum(dim=-1)[..., None].transpose(1, 2)
+    return o.to(q.dtype)
+
+
+def narrow_k2_row(gen, B: int, S: int, H: int, D: int, launches_from: str) -> dict:
+    """K2 at a tower's shape (B images of S rows, H heads of D, non-causal,
+    btnd): q carries a per-head direction u, the keys at columns 0, S // 2
+    and S - 1 hold 0.8 u; held against its plain version, with the two
+    planted faults (the scale of D = 128; q and k read past column D) outside
+    the limit, and timed beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from omchat_torch.ops import flash_attention as fa
+
+    u = _direction(gen, H, D)
+    q = _randn(gen, B, S, H, D) + u
+    k, v = _randn(gen, B, S, H, D), _randn(gen, B, S, H, D)
+    for col in (0, S // 2, S - 1):
+        k[:, col] = 0.8 * u
+    out = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), causal=False, q_offset=None, kv_len=None)
+    name = f"flash_attention[D={D}, {S} rows]"
+    err = check_close(f"K2 {name}", out, ref, *ATTN_TOL["K2"])
+    check_close(f"K2 {name}: the fault model at (D, D) is the plain version", narrow_k2_plain(q, k, v, D, D), ref,
+                *ATTN_TOL["K2"])
+    faults = {"scale of D=128": check_fault_caught(f"K2 {name}", "the scale of a 128-wide head",
+                                                   narrow_k2_plain(q, k, v, 128, D), ref, *ATTN_TOL["K2"]),
+              "reads past column D": check_fault_caught(f"K2 {name}", "q and k read past column D",
+                                                        narrow_k2_plain(q, k, v, D, 128), ref, *ATTN_TOL["K2"])}
+    p_ms = time_ms(lambda: fa.flash_attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), causal=False,
+                                                    q_offset=None, kv_len=None), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms, readings = time_in_turns({"kernel": lambda: fa.flash_attention(q, k, v, causal=False),
+                                  "library": lambda: F.scaled_dot_product_attention(qt, kt, vt)})
+    row = dict(name=name, source="omchat_torch/csrc/flash_attention.cu",
+               replaces="omchat_tpu/ops/flash_attention.py:246", max_abs_err=err, ms=ms["kernel"], plain_ms=p_ms,
+               library_ms=ms["library"], flops=4.0 * B * H * S * S * D, bytes=4 * B * S * H * D * 2,
+               ref_mean_abs=float(ref.float().abs().mean()), faults=faults, readings=readings["kernel"],
+               extra=f" (B={B} S={S} H={H} D={D}, launches from the {launches_from} run)")
+    del q, k, v, qt, kt, vt, out, ref
+    return row
+
+
+def routed_pair(tower, params, cfg, pixels) -> tuple:
+    """A CLIP-SMoE tower on the kernels and on ``attn_impl="plain"`` with
+    the plain run taking the kernel run's routing weights layer by layer:
+    the two routes round differently, so a token whose router probabilities
+    nearly tie goes to another expert on each, and that is the router's
+    tie, not an attention kernel's fault.  Returns (kernels out, plain out,
+    the share of routing decisions the unpinned plain run makes apart and
+    its gap)."""
+    from omchat_torch.models import smoe
+
+    route = smoe.smoe_route
+    picks = []
+
+    def record(router, x, k):
+        got = route(router, x, k)
+        picks.append(got)
+        return got
+
+    try:
+        smoe.smoe_route = record
+        out = tower.forward(params, cfg, pixels)
+        kernel_picks, picks = picks, []
+        free = tower.forward(params, cfg, pixels, attn_impl="plain")
+        replay = iter(kernel_picks)
+        smoe.smoe_route = lambda router, x, k: next(replay)
+        ref = tower.forward(params, cfg, pixels, attn_impl="plain")
+    finally:
+        smoe.smoe_route = route
+    apart = sum(int(((a[0] > 0) != (b[0] > 0)).any(-1).sum()) for a, b in zip(kernel_picks, picks))
+    total = sum(int(a[0].shape[:-1].numel()) for a in kernel_picks)
+    return out, ref, {"routing_decisions_apart_unpinned": apart / total,
+                      "kernels_vs_plain_rel_unpinned": rel_gap(out, free)}
+
+
+def towers_on_the_card(gen, seed: int) -> tuple:
+    """Phase 31: CLIP-L/336, CLIP-L with clip_smoe, CLIP-L through S2,
+    SigLIP so400m and InternViT-300M at full width and depth on seeded bf16
+    weights, each through ``build_vision_tower(name).forward`` on the kernels
+    against ``attn_impl="plain"``, K2 launched once a layer run; then K2 at
+    the three towers' shapes (D = 64 at 577 and 1025 rows, D = 72 at 729).
+    Returns (kernel rows, the rows' launches)."""
+    import torch
+
+    from omchat_torch.models.intern_vit import init_params as vit_init
+    from omchat_torch.models.multiscale import multiscale_forward
+    from omchat_torch.models.tower import build_vision_tower
+    from omchat_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    towers = (("CLIP-L/336", "openai/clip-vit-large-patch14-336", {}),
+              ("CLIP-L/336 clip_smoe", "openai/clip-vit-large-patch14-336",
+               dict(clip_smoe=True, num_experts=TOWER_EXPERTS, num_selected=TOWER_SELECTED)),
+              ("SigLIP so400m/384", "google/siglip-so400m-patch14-384", {}),
+              ("InternViT-300M/448", "OpenGVLab/InternViT-300M-448px", {}))
+    res, launches, shapes = {}, {}, {}
+    for label, name, kw in towers:
+        tower = build_vision_tower(name, **kw)
+        cfg = tower.config
+        t0 = time.perf_counter()
+        params = (vit_init(cfg, g, bf) if "internvit" in name.lower()
+                  else tower.convert(hf_clip_state(gen, cfg), cfg, bf))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        pixels = _randn(gen, TOWER_IMAGES, 3, cfg.image_size, cfg.image_size)
+        layers = cfg.num_hidden_layers - (1 if tower.forward.__name__ == "clip_vit_forward" else 0)  # feature layer
+        tower.forward(params, cfg, pixels)  # warm-up: cuBLAS plans, the kernels' first launches
+        fa.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tower.forward(params, cfg, pixels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_k2 = fa.flash_attention.launches
+        extra = {}
+        if getattr(cfg, "clip_smoe", False):
+            out, ref, extra = routed_pair(tower, params, cfg, pixels)
+        else:
+            ref = tower.forward(params, cfg, pixels, attn_impl="plain")
+        gap = rel_gap(out, ref)
+        seq = out.shape[1]
+        res[label] = {"layers_run": layers, "head_dim": cfg.head_dim, "rows": seq, "out_shape": list(out.shape),
+                      "k2_launches": n_k2, "forward_ms": wall * 1e3, "images_per_s": TOWER_IMAGES / wall,
+                      "kernels_vs_plain_rel": gap, "weights_built_s": build_s, **extra}
+        if n_k2 != layers:
+            raise AssertionError(f"towers, {label}: K2 launched {n_k2} times for {layers} layers")
+        if gap > TOWER_REL_LIMIT:
+            raise AssertionError(f"towers, {label}: kernels vs plain {gap:.4g} of max |out|, past {TOWER_REL_LIMIT}")
+        if "clip_smoe" not in label:
+            shapes.setdefault((cfg.head_dim, seq, cfg.num_attention_heads), (label, n_k2))
+        if label == "CLIP-L/336":  # S2 over the same tower: 1 + 4 + 9 crops an image
+            def feature(x):
+                return tower.forward(params, cfg, x)[:, 1:]
+
+            fa.flash_attention.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s2 = multiscale_forward(feature, pixels.float(), S2_SIZES, cfg.image_size)
+            torch.cuda.synchronize()
+            s2_wall = time.perf_counter() - t0
+            n_s2 = fa.flash_attention.launches
+            s2_ref = multiscale_forward(lambda x: tower.forward(params, cfg, x, attn_impl="plain")[:, 1:],
+                                        pixels.float(), S2_SIZES, cfg.image_size)
+            crops = sum(max(sz // cfg.image_size, 1) ** 2 for sz in S2_SIZES)
+            res["CLIP-L/336 S2"] = {"scales": list(S2_SIZES), "crops_per_image": crops, "out_shape": list(s2.shape),
+                                    "k2_launches": n_s2, "forward_ms": s2_wall * 1e3,
+                                    "crops_per_s": TOWER_IMAGES * crops / s2_wall,
+                                    "kernels_vs_plain_rel": rel_gap(s2, s2_ref)}
+            if n_s2 != layers * len(S2_SIZES) or res["CLIP-L/336 S2"]["kernels_vs_plain_rel"] > TOWER_REL_LIMIT:
+                raise AssertionError(f"towers, S2: {res['CLIP-L/336 S2']}")
+            del s2, s2_ref
+        log(f"towers, {label}: " + json.dumps({"card": CARD, **res[label]}))
+        del params, out, ref, pixels
+        torch.cuda.empty_cache()
+    log("towers, CLIP-L/336 S2: " + json.dumps({"card": CARD, **res["CLIP-L/336 S2"]}))
+    rows = []
+    for (d, seq, h), (label, n) in sorted(shapes.items()):
+        rows.append(narrow_k2_row(gen, TOWER_IMAGES, seq, h, d, label))
+        launches[rows[-1]["name"]] = n
+    report_rows(rows)
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def variant_params(name: str, full: tuple, small: bool, seed: int) -> tuple:
+    """(cfg, params) of one of phase 32's OmChat variants over phase 3's
+    config: at full depth its Qwen2-7B and InternViT-6B weights (``full``)
+    with the variant's own parts; ``small``: full width, 2 ViT + 2 LLM
+    layers, every part seeded anew."""
+    import torch
+
+    from omchat_torch.config import ProjectorConfig, VisionConfig
+    from omchat_torch.models import intern_vit, projector, qwen2
+
+    cfg, params = full
+    if small:
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=2),
+                                  text=dataclasses.replace(cfg.text, num_hidden_layers=2))
+        params = build_model(cfg, seed)
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 31)
+    bf = torch.bfloat16
+    if name == "InternViT-300M + mlp2x_gelu":
+        vision = VisionConfig.internvit_300m()
+        if small:
+            vision = dataclasses.replace(vision, num_hidden_layers=2)
+        cfg = dataclasses.replace(cfg, vision=vision)
+        params = {**params, "vision_tower": intern_vit.init_params(vision, g, bf),
+                  "projector": projector.init_params(cfg.projector, vision.hidden_size, cfg.text.hidden_size, g, bf)}
+    elif name == "v1 spatial_unpad":
+        cfg = dataclasses.replace(cfg, mm_patch_merge_type="spatial_unpad")
+        params = {**params, "image_newline": _randn(g, cfg.text.hidden_size)}
+    else:
+        pc = (ProjectorConfig(projector_type="cabstract", n_query=CABSTRACT_QUERIES, depth=CABSTRACT_DEPTH)
+              if name == "cabstract" else ProjectorConfig.from_type("mlp2x_gelu", mlp_smoe=True,
+                                                                    num_experts=TOWER_EXPERTS,
+                                                                    num_selected=TOWER_SELECTED))
+        cfg = dataclasses.replace(cfg, projector=pc)
+        params = {**params, "projector": projector.init_params(pc, cfg.vision.hidden_size, cfg.text.hidden_size, g,
+                                                               bf)}
+    return cfg, params
+
+
+VARIANTS = ("InternViT-300M + mlp2x_gelu", "v1 spatial_unpad", "cabstract", "mlp_smoe")
+
+
+def variant_image(name: str, seed: int):
+    import numpy as np
+
+    if name == "v1 spatial_unpad":
+        return seeded_image(np.random.default_rng(seed), V1_IMAGE[1], V1_IMAGE[0])
+    return request_image(seed)
+
+
+def variant_inputs(model, image) -> tuple:
+    """What ``OmChatModel.chat`` hands the engine: (ids, tiles, extra)."""
+    inputs = model.processor(REQUEST_QUESTION, images=image)
+    extra = {}
+    if model.config.mm_patch_merge_type.startswith("spatial"):
+        extra = {"num_patches": inputs["num_patches"].tolist(), "image_sizes": inputs["image_sizes"]}
+    return inputs["input_ids"][0].tolist(), inputs["images"], extra
+
+
+def variants_on_the_card(full: tuple, seed: int) -> dict:
+    """Phase 32: the four OmChat variants through ``OmChatModel.chat`` at
+    full depth, one seeded image and NEW_TOKENS greedy tokens each (TTFT,
+    decode tokens/s, the image's tokens), then at 2+2 layers each variant's
+    first-token logits on the kernels within phase 4's limits of
+    ``attn_impl="plain"`` and its greedy tokens by phase 7's rule."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.ops import flash_attention as fa
+
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_id=-1)
+    res = {}
+    for name in VARIANTS:
+        cfg, params = variant_params(name, full, False, seed)
+        model = surface_model(cfg, params, image_cache_size=0)
+        image = variant_image(name, seed)
+        model.chat(REQUEST_QUESTION, image=image, generation=gen)  # warm-up, the decode graph's capture
+        fa.flash_attention.launches = 0
+        reply = model.chat(REQUEST_QUESTION, image=image, generation=gen)
+        n_k2 = fa.flash_attention.launches
+        sp = model.engine.spans
+        ids, tiles, extra = variant_inputs(model, image)
+        feats = model.engine.encode_images(tiles)
+        if feats.shape[0] != tiles.shape[0] * cfg.image_seq_len:
+            raise AssertionError(f"variants, {name}: {feats.shape[0]} feature rows for {tiles.shape[0]} tiles of "
+                                 f"{cfg.image_seq_len}")
+        per_sentinel = ([cfg.image_seq_len] * int(tiles.shape[0]) if not extra else
+                        model.engine.merge_spatial_features(feats, extra["num_patches"], extra["image_sizes"])[1])
+        r = {"card": CARD, "tiles": int(tiles.shape[0]), "image_tokens_per_sentinel": per_sentinel,
+             "tokens_per_tile": cfg.image_seq_len, "ttft_ms": sp["ttft"] * 1e3, "vit_ms": sp["encode_images"] * 1e3,
+             "decode_tokens_per_s": sp["decode_steps"] / sp["decode"], "new_tokens": sp["decode_steps"] + 1,
+             "k2_launches": n_k2, "reply_chars": len(reply)}
+        if name.startswith("InternViT-300M"):
+            want = cfg.vision.num_hidden_layers + cfg.text.num_hidden_layers  # the encode's and the prefill's
+            if r["k2_launches"] != want:
+                raise AssertionError(f"variants, {name}: K2 launched {r['k2_launches']} times, not {want}")
+        if r["new_tokens"] != NEW_TOKENS:
+            raise AssertionError(f"variants, {name}: {r['new_tokens']} tokens, not {NEW_TOKENS}")
+        del model, params, feats
+        torch.cuda.empty_cache()
+        small = {}
+        cfg_s, params_s = variant_params(name, full, True, seed)
+        for impl in (None, "plain"):
+            m = surface_model(cfg_s, params_s, image_cache_size=0, attn_impl=impl, decode_graphs=impl is None)
+            ids, tiles, extra = variant_inputs(m, image)
+            steps = []
+            toks = m.engine.generate([ids], tiles, GenerationConfig(max_new_tokens=PARITY_NEW_TOKENS, eos_token_id=-1),
+                                     logits_callback=lambda s, lg: steps.append(lg[0].float()), **extra).token_ids[0]
+            small[impl] = (toks, steps)
+        (toks, steps), (want, ref_steps) = small[None], small["plain"]
+        r["small_logits_max_abs_diff"] = check_close(f"variants, {name}: 2+2 layers first-token logits", steps[0],
+                                                     ref_steps[0], LOGITS_ATOL, LOGITS_RTOL)
+        margins = [float(t[0] - t[1]) for t in (torch.topk(lg, 2).values for lg in ref_steps)]
+        upto = next((j for j, m in enumerate(margins) if m < PARITY_MARGIN), len(margins))
+        if toks[:upto] != want[:upto]:
+            raise AssertionError(f"variants, {name}: 2+2 layers tokens {toks[:upto]} != {want[:upto]} (compared up "
+                                 f"to step {upto}, the first top-2 margin under {PARITY_MARGIN})")
+        r["small_tokens_compared"], r["small_tokens_equal_beyond"] = upto, toks == want
+        res[name] = r
+        log(f"variants, {name}: " + json.dumps(r))
+        del params_s
+        torch.cuda.empty_cache()
+    return res
+
+
+def moe_model(vision_tower, seed: int, layers=None) -> tuple:
+    """(cfg, params): phase 3's config with the Qwen1.5-MoE-A2.7B trunk
+    (``MOE_TEXT``; ``layers``: 2 ViT + 2 LLM layers, all seeded), behind
+    ``vision_tower`` (the resident InternViT-6B) and a seeded 3200 -> 2048
+    mlp2x_gelu projector; bf16."""
+    import torch
+
+    from omchat_torch.config import OmChatConfig, TextConfig
+    from omchat_torch.models import intern_vit, projector, qwen2
+
+    full = OmChatConfig()
+    cfg = dataclasses.replace(full, text=TextConfig(**MOE_TEXT))
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 33)
+    bf = torch.bfloat16
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=layers),
+                                  text=dataclasses.replace(cfg.text, num_hidden_layers=layers))
+        vision_tower = intern_vit.init_params(cfg.vision, g, bf)
+    return cfg, {"vision_tower": vision_tower,
+                 "projector": projector.init_params(cfg.projector, cfg.vision.hidden_size, cfg.text.hidden_size, g, bf),
+                 "language_model": qwen2.init_params(cfg.text, g, bf)}
+
+
+def moe_small_checks(seed: int) -> dict:
+    """Phase 33 at full width and 2+2 layers: phase 3's request's
+    first-token logits on the kernels within phase 4's limits of
+    ``attn_impl="plain"``, and its first-token logits through
+    ``qwen2_moe_forward`` with ``moe_impl="gmm"`` within MOE_GMM_REL of
+    max |logit| of the dense route's."""
+    import torch
+
+    from omchat_torch.models.omchat import fuse_embeddings
+    from omchat_torch.models.qwen2 import lm_head
+    from omchat_torch.models.qwen2_moe import qwen2_moe_forward
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    cfg, params = moe_model(None, seed, layers=2)
+    ids, tiles = make_request(cfg, seed)
+    logits, embeds = {}, None
+    for impl in (None, "plain"):
+        eng = OmChatEngine(cfg, params, attn_impl=impl, image_cache_size=0)
+        feats = eng.encode_images(tiles)
+        plan = eng.plan([ids])
+        logits[impl], _ = eng.prefill(plan, feats, NEW_TOKENS)
+        if impl is None:
+            t = lambda a: torch.as_tensor(a, device=DEVICE)  # noqa: E731
+            embeds = fuse_embeddings(params, t(plan.token_ids), t(plan.is_image), t(plan.image_index), feats)
+            pos, n = t(plan.positions), int(plan.lengths[0])
+    res = {"logits_max_abs_diff": check_close("moe, 2+2 layers: kernels vs plain first-token logits", logits[None],
+                                              logits["plain"], LOGITS_ATOL, LOGITS_RTOL),
+           "argmax_equal": bool(torch.equal(logits[None].argmax(-1), logits["plain"].argmax(-1)))}
+    routes = {}
+    for impl in ("dense", "gmm"):  # the prompt through the trunk, the last row's logits
+        h, _ = qwen2_moe_forward(params["language_model"], cfg.text, embeds[:, :n], pos[:, :n], moe_impl=impl)
+        routes[impl] = lm_head(params["language_model"], cfg.text, h[:, -1])
+    res["gmm_vs_dense_rel"] = rel_gap(routes["gmm"], routes["dense"])
+    res["gmm_vs_dense_rows"] = n
+    log("moe, 2+2 layers: " + json.dumps({"card": CARD, **res}))
+    if res["gmm_vs_dense_rel"] > MOE_GMM_REL:
+        raise AssertionError(f"moe, 2+2 layers: gmm vs dense {res['gmm_vs_dense_rel']:.4g} of max |logit|, past "
+                             f"{MOE_GMM_REL}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_on_the_card(gen, vision_tower, seed: int, shapes: dict) -> tuple:
+    """Phase 33: the Qwen1.5-MoE-A2.7B trunk at full width and depth behind
+    the resident InternViT-6B: (a) phase 3's request through the
+    single-request engine, every step a graph replay, beside the step's
+    weight-read floor; (b) phase 5's workload through the paged engine after
+    ``precompile`` (every roll a replay); (c) MOE_SLOT_REQUESTS of its
+    requests through the slot engine; then K2-K4 and K12 / K14 / K15 at group
+    1 (16 / 16 heads) against their plain versions, and the 2+2-layer checks.
+    Returns (kernel rows, the rows' launches)."""
+    import torch
+
+    from omchat_torch.runtime import paged_engine as pe
+    from omchat_torch.utils.tree import tree_items
+
+    gc.collect()  # the earlier phases' engines, graph pools and caches
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = moe_model(vision_tower, seed)
+    torch.cuda.synchronize()
+    lm = params["language_model"]
+    leaves = [t for _, t in tree_items(lm)]
+    lm_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    step_bytes = lm_bytes - lm["embed_tokens"].numel() * lm["embed_tokens"].element_size()  # one row of it is read
+    log("moe: built full-width full-depth weights in " + json.dumps({
+        "card": CARD, "build_s": time.perf_counter() - t0, "trunk_params": sum(t.numel() for t in leaves),
+        "trunk_gib": lm_bytes / 2**30, "allocated_gib": torch.cuda.memory_allocated() / 2**30}))
+    e2e = end_to_end(seed, model=(cfg, params), label="moe e2e (single request, graphed steps)")
+    if (e2e["tiles"], e2e["merged_len"], e2e["cache_len"]) != (shapes["tiles"], shapes["prompt_len"],
+                                                                 shapes["cache_rows"]):
+        raise AssertionError(f"moe e2e: the request's shapes differ from phase 2's: {shapes}")
+    floor_ms = step_bytes / PEAK_BYTES * 1e3
+    log("moe e2e, decode step against its weight-read floor: " + json.dumps({
+        "card": CARD, "graphed_step_wall_ms": 1e3 / e2e["decode_tokens_per_s"], "weight_read_floor_ms": floor_ms,
+        "weights_read_per_step_gb": step_bytes / 1e9, "floor_share": floor_ms * e2e["decode_tokens_per_s"] / 1e3}))
+
+    work = serving_workload(cfg)
+    eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, **SERVING)
+    t0 = time.perf_counter()
+    widths = eng.precompile(variants=(pe.PICK_MODES[0],))
+    precompile_s = time.perf_counter() - t0
+    rec, undo = record_dispatches(eng)
+    try:
+        serve = timed_serving(eng, work, rec, paged_counters(), "moe serving (paged engine, graphed rolls)")
+    finally:
+        undo()
+    log("moe serving, rolls: " + json.dumps({"card": CARD, "precompile_s": precompile_s, "widths": widths,
+                                             "rolls_graphed": serve["rolls_graphed"],
+                                             "rolls_eager": serve["rolls_eager"]}))
+    if serve["rolls_eager"] or not serve["rolls_graphed"]:
+        raise AssertionError(f"moe serving: rolls graphed {serve['rolls_graphed']}, eager {serve['rolls_eager']}")
+    del eng
+    torch.cuda.empty_cache()
+    timed = {k: [e for e in rec[k] if e["label"] == "timed"] for k in ("rolls", "chunks", "commits", "prefills")}
+    slot, slot_eng, _ = slot_timed_run(cfg, params, work[:MOE_SLOT_REQUESTS], "moe slot engine")
+    log(f"moe slot engine ({MOE_SLOT_REQUESTS} of phase 5's requests): " + json.dumps(
+        {k: v for k, v in slot.items() if k != "tokens"}))
+    del slot_eng
+    torch.cuda.empty_cache()
+    log("moe, peak memory: " + json.dumps({"card": CARD, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                                           "allocated_gib": torch.cuda.memory_allocated() / 2**30}))
+    del params, lm, leaves
+    torch.cuda.empty_cache()
+    rows = kernel_phases(gen, shapes, cfg=cfg, tag="[group 1]")
+    rows += paged_kernel_phases(gen, timed, tc=cfg.text, tag="[group 1]")
+    la = {**serve["launches"], **e2e["launches"]}  # K2-K4 on the single request, K12 / K14 / K15 in serving
+    launches = {r["name"]: la[r["name"][: -len("[group 1]")]] for r in rows}
+    moe_small_checks(seed)
+    return rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -7133,7 +7717,12 @@ def main() -> int:
     eval_on_the_card(surface, small, args.seed)
     del surface, small, video_frames
     surface_rows = surface_kernel_rows(gen, shapes["prompt_len"], entry["video"]["merged_len"])
+    tower_rows, tower_launches = towers_on_the_card(gen, args.seed)
+    variants_on_the_card(full, args.seed)
+    vit6b = full[1]["vision_tower"]
     del full
+    moe_rows, moe_launches = moe_on_the_card(gen, vit6b, args.seed, shapes)
+    del vit6b
     gc.collect()
     kernel_vs_plain(args.seed)
 
@@ -7265,14 +7854,17 @@ def main() -> int:
                 # phase 28: K2 and K4 in the echo run's verify ticks, K14 in the prefix-cache run's timed wave
                 **routes_launches,
                 # phase 29: K2, K3 and K4 in the slot engine's timed run
-                **slot_launches}
+                **slot_launches,
+                # phase 31: K2 at D = 64 / 72 in the CLIP-L, InternViT-300M and SigLIP runs; phase 33: K2-K4
+                # at group 1 on the MoE trunk's single request, K12 / K14 / K15 in its serving run
+                **tower_launches, **moe_launches}
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
     } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows + ps_rows + [k5_row, k6_row] + surface_rows
-        + routes_rows + slot_rows]
+        + routes_rows + slot_rows + tower_rows + moe_rows]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -108,6 +108,10 @@ class OmChatModel:
             allowed_fn = get_json_schema_mode(self.tokenizer, json_schema).mask_fn()
         elif json_mode:
             allowed_fn = get_json_mode(self.tokenizer).mask_fn()
+        extra = {}
+        if self.config.mm_patch_merge_type.startswith("spatial") and "images" in inputs:
+            # the OmChat-v1 assembly: one sentinel an image, its merged tokens vary
+            extra = {"num_patches": inputs["num_patches"].tolist(), "image_sizes": inputs["image_sizes"]}
         out = self.engine.generate(
             [ids],
             inputs.get("images"),
@@ -115,6 +119,7 @@ class OmChatModel:
             stream_callback=stream_callback,
             tokenizer=self.tokenizer,
             allowed_tokens_fn=allowed_fn,
+            **extra,
         )
         return self.tokenizer.decode(out.token_ids[0], skip_special_tokens=True)
 
@@ -253,14 +258,13 @@ def omchat_model(tokenizer, engine: OmChatEngine) -> OmChatModel:
     the image processor and processor ``load_pretrained_model`` builds, for a
     model whose weights are already in memory."""
     config = engine.cfg
-    if config.mm_patch_merge_type != "flat":
-        raise NotImplementedError("the OmChat-v1 spatial patch merge waits for a later slice")
     image_processor = OmChatImageProcessor(
         crop_size=config.vision.image_size,
         shortest_edge=config.vision.image_size,
         image_grid_pinpoints=config.image_grid_pinpoints,
     )
-    processor = OmChatProcessor(tokenizer, image_processor)
+    processor = OmChatProcessor(tokenizer, image_processor,
+                                patch_expand=not config.mm_patch_merge_type.startswith("spatial"))
     return OmChatModel(tokenizer, engine, image_processor, processor, config,
                        config.tokenizer_model_max_length or 8192)
 

@@ -6,8 +6,9 @@ and returns the same tree of torch tensors.  Every leaf keeps its layout
 (per-layer stacking on a leading axis, linear kernels [in, out]) and its
 dtype (bf16 leaves stay bf16) except:
 
-- the patch-embedding conv, HWIO [P, P, 3, D] → OIHW [D, 3, P, P] for
-  ``F.conv2d``;
+- conv kernels, HWIO → OIHW for ``F.conv2d``: the patch embedding's [P, P,
+  3, D] and the C-Abstractor's (``conv1`` / ``conv2`` / ``conv3`` /
+  ``downsample.conv``, the depthwise [3, 3, 1, C] one included);
 - int8 ``kernel_q`` leaves, [..., in, out] → [..., out, in], the port's
   int8 layout (:mod:`omchat_torch.ops.linear`).  Their scales, the static
   ``fc1_out_scale`` and everything else come across as they are;
@@ -15,7 +16,8 @@ dtype (bf16 leaves stay bf16) except:
   which stay Python numbers.
 
 So a QLoRA base (``quantize_tree`` over the trunk's layers) and a LoRA
-adapter tree cross like any other tree.
+adapter tree cross like any other tree, and so does a tree with lists (the
+C-Abstractor's ``s1`` / ``s2`` / ``readout``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ import numpy as np
 import torch
 
 
+# The param groups whose 4-D "kernel" is a conv's (HWIO in the JAX package).
+_CONV_KERNELS = ("patch_embedding", "conv1", "conv2", "conv3", "conv")
+
+
 def _leaf(x, path, dtype, device) -> torch.Tensor:
     arr = np.asarray(x)
     bf16 = arr.dtype.name == "bfloat16"
@@ -34,7 +40,7 @@ def _leaf(x, path, dtype, device) -> torch.Tensor:
     t = torch.from_numpy(np.array(arr, copy=True))  # own, writable memory
     if bf16:
         t = t.to(torch.bfloat16)  # exact: the values came from bf16
-    if path[-2:] == ("patch_embedding", "kernel"):
+    if path[-1:] == ("kernel",) and len(path) > 1 and path[-2] in _CONV_KERNELS and t.dim() == 4:
         t = t.permute(3, 2, 0, 1).contiguous()  # HWIO → OIHW
     if path[-1:] == ("kernel_q",):
         t = t.transpose(-1, -2).contiguous()  # [.., in, out] → [.., out, in]
@@ -44,10 +50,12 @@ def _leaf(x, path, dtype, device) -> torch.Tensor:
 
 
 def from_jax_params(tree, dtype: Optional[torch.dtype] = None, device=None, _path=()):
-    """Nested dict of numpy-like leaves → the same nested dict of tensors
-    (``dtype``: cast floating leaves; ``device``: where they go)."""
+    """Nested dicts / lists of numpy-like leaves → the same nesting of
+    tensors (``dtype``: cast floating leaves; ``device``: where they go)."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, dtype, device, _path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [from_jax_params(v, dtype, device, _path + (i,)) for i, v in enumerate(tree)]
     if isinstance(tree, (int, float)):
         return tree
     return _leaf(tree, _path, dtype, device)

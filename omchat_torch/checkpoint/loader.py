@@ -111,9 +111,9 @@ def convert_vision_tower(state: Dict[str, torch.Tensor], cfg: VisionConfig, dtyp
 
 def convert_qwen2(state: Dict[str, torch.Tensor], cfg: TextConfig, dtype=torch.bfloat16, device=None) -> dict:
     """Keys like ``model.embed_tokens.weight``, ``model.layers.N...``,
-    ``lm_head.weight`` → tree (dense trunk)."""
-    if cfg.is_moe:
-        raise NotImplementedError("Qwen2-MoE checkpoints wait for the MoE slice")
+    ``lm_head.weight`` → tree (the dense trunk, or with ``cfg.is_moe`` the
+    MoE trunk's layers, :func:`~omchat_torch.models.qwen2_moe.
+    convert_hf_moe_layers`)."""
     stack = _stacker(state, cfg.num_hidden_layers, dtype, device)
     one = lambda k: state[k].to(dtype=dtype, device=device).contiguous()  # noqa: E731
 
@@ -134,14 +134,19 @@ def convert_qwen2(state: Dict[str, torch.Tensor], cfg: TextConfig, dtype=torch.b
                 "v_proj": proj("self_attn.v_proj", cfg.attention_bias),
                 "o_proj": proj("self_attn.o_proj", False),
             },
-            "mlp": {
-                "gate_proj": proj("mlp.gate_proj", False),
-                "up_proj": proj("mlp.up_proj", False),
-                "down_proj": proj("mlp.down_proj", False),
-            },
         },
         "norm": {"scale": one("model.norm.weight")},
     }
+    if cfg.is_moe:
+        from omchat_torch.models.qwen2_moe import convert_hf_moe_layers
+
+        params["layers"]["mlp"] = convert_hf_moe_layers(state, cfg, dtype, device)
+    else:
+        params["layers"]["mlp"] = {
+            "gate_proj": proj("mlp.gate_proj", False),
+            "up_proj": proj("mlp.up_proj", False),
+            "down_proj": proj("mlp.down_proj", False),
+        }
     if not cfg.tie_word_embeddings and "lm_head.weight" in state:
         params["lm_head"] = {"kernel": state["lm_head.weight"].t().to(dtype=dtype, device=device).contiguous()}
     return params

@@ -5,13 +5,16 @@
 // single request, and the batched short prefill of the paged engine), without
 // segment ids.
 //
-//   q   [B, S, H, 128] bf16, already multiplied (in bf16) by D^-0.5 * log2(e)
-//   k,v [B, KVH, T, 128] bf16 or e4m3 (a layer of the stacked cache, "bntd";
-//       the e4m3 entry point omchat_flash_attention_e4m3 takes the fp8 cache)
+//   q   [B, S, H, D] bf16, already multiplied (in bf16) by D^-0.5 * log2(e);
+//       D a multiple of 8 from 8 to 128 (128 on the LLM, 64 and 72 on the
+//       CLIP / SigLIP / InternViT-300M towers)
+//   k,v [B, KVH, T, D] bf16 or e4m3 (a layer of the stacked cache, "bntd";
+//       the e4m3 entry point omchat_flash_attention_e4m3 takes the fp8 cache,
+//       at D = 128 only)
 //   each read in place through its own element strides (head, row, batch):
 //   a "btnd" view, or v as a column block of a fused qkv, too
 //   q_offset, kv_len [B] int32; query row i sits at kv position i + q_offset
-//   out [B, S, H, 128] bf16
+//   out [B, S, H, D] bf16
 // Rows whose position is at or past kv_len are unspecified (a causal row tile
 // wholly past it writes zeros); a batch with kv_len 0 writes zeros.
 //
@@ -26,7 +29,10 @@
 // rounded to e4m3, as the TPU kernel's p.astype(v.dtype) does
 // (flash_attention.py:145,162).  The TPU kernel's "anchored" walk is a
 // bookkeeping trick of that machine; a plain online softmax computes the same
-// function.  Times at the main path's shapes: PERF.md section 6.
+// function.  Below D = 128 the block still computes on 128-column tiles: the
+// maps declare the true D, so TMA zero-fills the columns past it instead of
+// reading the next head's (a "btnd" view), and the store writes D columns a
+// row.  Times at the main path's shapes: PERF.md section 6.
 #include "flash_fwd_sm90.cuh"
 
 namespace {
@@ -37,8 +43,9 @@ int launch(const void* q, long long q_sh, long long q_sr, long long q_sb, const 
            long long k_sr, long long k_sb, const void* v, long long v_sh, long long v_sr, long long v_sb, void* out,
            const void* q_offset, const void* kv_len, int B, int S, int H, int KVH, int T, int D, int causal,
            void* stream) {
-    if (D != fwd90::HD) return (int)cudaErrorInvalidValue;
+    if (D < 8 || D > fwd90::HD || D % 8 || (E4M3 && D != fwd90::HD)) return (int)cudaErrorInvalidValue;
     fwd90::Params p{};
+    p.head_dim = D;
     p.out = (bf16*)out;
     p.out_row = (long long)H * D;
     p.out_batch = (long long)S * H * D;

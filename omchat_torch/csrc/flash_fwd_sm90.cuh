@@ -3,7 +3,10 @@
 // (paged_flash_prefill.cu: K2 through page tables), K1 / K5
 // (packed_qkv_norm_attention.cu: non-causal packed ViT attention) and K16a
 // (flash_attention_bwd.cu: the training forward, with lse and segment ids).
-// Head width 128.
+// Head width 128; K2 also takes any multiple of 8 from 8 to 128 (the towers'
+// 64 and 72): its maps declare the true width, so TMA fills the tile's columns
+// past it with zeros, which add nothing to q . k and give output columns that
+// are never stored.
 //
 // The function, per batch b, q head h and q row i (position i + q_offset[b]):
 //   s_j = q_i . k_j in fp32 (q already in the exp2 domain: it carries
@@ -102,6 +105,7 @@ struct Params {
     float mask_value;
     float* lse;                 // LSE: [B, H, S] fp32
     const int* seg;             // SEG: [B, S] segment ids (T == S, no q_offset); negative ids are padding
+    int head_dim = HD;          // the columns of a row that are read and stored: a multiple of 8, at most HD
 };
 
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
@@ -234,7 +238,7 @@ flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     const int r0 = rt * BM, kvh = head / (p.H / p.KVH), tid = threadIdx.x;
     const int qoff = p.q_offset ? p.q_offset[b] : 0;
     const int klen = max(0, min(p.kv_len ? p.kv_len[b] : p.kv_len_all, p.T));
-    bf16* out_b = p.out + (long long)b * p.out_batch + head * HD;
+    bf16* out_b = p.out + (long long)b * p.out_batch + head * p.head_dim;
     float* lse_b = LSE ? p.lse + ((long long)b * p.H + head) * p.S : nullptr;
     const int* seg_b = SEG ? p.seg + (long long)b * p.S : nullptr;
 
@@ -247,10 +251,11 @@ flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
         n_tiles = meta[0];
     }
     if (n_tiles == 0) {  // no column, or padding rows: zeros (and an lse of -inf)
-        for (int idx = tid; idx < BM * (HD / 8); idx += THREADS) {
-            const int row = r0 + idx / (HD / 8);
+        const int chunks = p.head_dim / 8;  // 16-byte chunks a row
+        for (int idx = tid; idx < BM * chunks; idx += THREADS) {
+            const int row = r0 + idx / chunks;
             if (row < p.S)
-                *reinterpret_cast<uint4*>(out_b + row * p.out_row + (idx % (HD / 8)) * 8) = make_uint4(0, 0, 0, 0);
+                *reinterpret_cast<uint4*>(out_b + row * p.out_row + (idx % chunks) * 8) = make_uint4(0, 0, 0, 0);
         }
         if constexpr (LSE)
             if (tid < BM && r0 + tid < p.S) lse_b[r0 + tid] = -INFINITY;
@@ -376,23 +381,24 @@ flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
         bf16* op = out_b + row * p.out_row;
 #pragma unroll
         for (int n = 0; n < 16; ++n)
-            *reinterpret_cast<uint32_t*>(op + 8 * n + 2 * t) =
-                pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+            if (8 * n < p.head_dim)
+                *reinterpret_cast<uint32_t*>(op + 8 * n + 2 * t) =
+                    pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
         if constexpr (LSE)
             if (t == 0) lse_b[row] = l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : -INFINITY;
     }
 }
 
-// Maps of q ([B, S, H, 128], boxes of BM rows) and k, v ([B, KVH, T, 128],
-// `kv_bytes` a value, boxes of BN rows), each with its element strides (head,
-// row, batch).  False when cuTensorMapEncodeTiled refuses one (a base not
-// 16-byte aligned, a stride not a multiple of 16 bytes).
+// Maps of q ([B, S, H, D], boxes of BM rows) and k, v ([B, KVH, T, D],
+// `kv_bytes` a value, boxes of BN rows), D = p.head_dim, each with its element
+// strides (head, row, batch).  False when cuTensorMapEncodeTiled refuses one (a
+// base not 16-byte aligned, a stride not a multiple of 16 bytes).
 inline bool dense_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, const Params& p, const void* q,
                        const long long (&qs)[3], const void* k, const long long (&ks)[3], const void* v,
                        const long long (&vs)[3], int kv_bytes) {
-    return sm90::rows_map(mq, q, 2, p.H, p.S, p.B, qs[0], qs[1], qs[2], BM) &&
-           sm90::rows_map(mk, k, kv_bytes, p.KVH, p.T, p.B, ks[0], ks[1], ks[2], BN) &&
-           sm90::rows_map(mv, v, kv_bytes, p.KVH, p.T, p.B, vs[0], vs[1], vs[2], BN);
+    return sm90::rows_map(mq, q, 2, p.H, p.S, p.B, qs[0], qs[1], qs[2], BM, p.head_dim) &&
+           sm90::rows_map(mk, k, kv_bytes, p.KVH, p.T, p.B, ks[0], ks[1], ks[2], BN, p.head_dim) &&
+           sm90::rows_map(mv, v, kv_bytes, p.KVH, p.T, p.B, vs[0], vs[1], vs[2], BN, p.head_dim);
 }
 
 // Launches flash_fwd over maps of q and k, v: dense_maps's, or through page
@@ -401,6 +407,8 @@ inline bool dense_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, const 
 template <bool KV8, bool P8, bool LSE = false, bool SEG = false>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, const Params& p, void* stream) {
     if (p.B <= 0 || p.S <= 0 || p.KVH <= 0 || p.H % p.KVH != 0 || p.T <= 0) return (int)cudaErrorInvalidValue;
+    if (p.head_dim < 8 || p.head_dim > HD || p.head_dim % 8 || (KV8 && p.head_dim != HD))
+        return (int)cudaErrorInvalidValue;
     if (p.tables && (p.page_size < 8 || BN % p.page_size != 0)) return (int)cudaErrorInvalidValue;
     if ((LSE && !p.lse) || (SEG && (!p.seg || p.T != p.S || p.q_offset))) return (int)cudaErrorInvalidValue;
     const int smem = Smem<KV8>::BYTES + (SEG ? (4 + (p.T + BN - 1) / BN) * (int)sizeof(int) : 0);

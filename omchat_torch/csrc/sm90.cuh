@@ -238,16 +238,18 @@ inline EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// A rank-4 map over x[d3][d2][d1][128] of `elem_bytes`-byte elements (bf16:
+// A rank-4 map over x[d3][d2][d1][width] of `elem_bytes`-byte elements (bf16:
 // 2, e4m3 as uint8: 1) with row strides s1, s2, s3 (elements), read in boxes
-// of 128 bytes of columns x 1 x `rows` x 1 with the 128-byte swizzle.  Returns
+// of 128 bytes of columns x 1 x `rows` x 1 with the 128-byte swizzle.  A box
+// that reaches past column `width` (a head narrower than 128) gets zeros there,
+// not the next head's columns.  Returns
 // false if cuTensorMapEncodeTiled refuses it (a base not 16-byte aligned, a stride not a
 // multiple of 16 bytes).
 inline bool rows_map(CUtensorMap* map, const void* x, int elem_bytes, uint64_t d1, uint64_t d2, uint64_t d3,
-                     uint64_t s1, uint64_t s2, uint64_t s3, uint32_t rows) {
+                     uint64_t s1, uint64_t s2, uint64_t s3, uint32_t rows, uint64_t width = 128) {
     EncodeTiledFn fn = encode_tiled();
     if (!fn) return false;
-    const cuuint64_t dims[4] = {128, d1, d2, d3};
+    const cuuint64_t dims[4] = {width, d1, d2, d3};
     const cuuint64_t strides[3] = {s1 * elem_bytes, s2 * elem_bytes, s3 * elem_bytes};
     const cuuint32_t box[4] = {128u / elem_bytes, 1, rows, 1};
     const cuuint32_t estr[4] = {1, 1, 1, 1};

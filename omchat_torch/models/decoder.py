@@ -1,7 +1,10 @@
-"""Decoder-trunk dispatch (PyTorch port of ``omchat_tpu/models/decoder.py``).
+"""Decoder-trunk dispatch: the dense Qwen2 or the Qwen2-MoE trunk, by config
+(PyTorch port of ``omchat_tpu/models/decoder.py``).
 
-``cfg.is_moe`` selects the Qwen2-MoE trunk in the JAX package; the port's MoE
-trunk comes with the MoE slice, so an MoE config raises here until then."""
+Both forwards share one contract (:func:`omchat_torch.models.qwen2.
+qwen2_forward`), so the generation runtime and the serving engines stay
+decoder-agnostic: ``cfg.is_moe`` (``num_experts > 0`` in the HF config)
+routes to the MoE trunk."""
 
 from __future__ import annotations
 
@@ -10,7 +13,10 @@ from omchat_torch.models.qwen2 import qwen2_forward
 
 
 def decoder_forward(params: dict, cfg: TextConfig, *args, **kwargs):
-    """Same signature and returns as :func:`qwen2_forward`."""
+    """Same signature and returns as :func:`qwen2_forward`; the MoE trunk
+    when configured (its dense expert route, as the JAX package's)."""
     if cfg.is_moe:
-        raise NotImplementedError("the Qwen2-MoE trunk waits for the MoE slice")
+        from omchat_torch.models.qwen2_moe import qwen2_moe_forward
+
+        return qwen2_moe_forward(params, cfg, *args, **kwargs)
     return qwen2_forward(params, cfg, *args, **kwargs)

@@ -135,19 +135,22 @@ def attention_inputs(cfg: TextConfig, y, p: dict, cos, sin, a8: bool = False, lo
 
 
 def decoder_layer(cfg: TextConfig, x, layer: dict, cos, sin, attend, *, quant_glue: bool = False,
-                  lora: Optional[dict] = None, adapter_ids=None):
+                  lora: Optional[dict] = None, adapter_ids=None, mlp_fn=None):
     """One decoder layer.  ``attend(q, k, v) -> ctx [B, S, H, hd]`` owns the
     cache handling (prefill write + causal attention, or the decode self
     column).  ``quant_glue``: w8a8 prefill layers over quantized params take
     the fused glue path (:func:`_decoder_layer_glue`).  ``lora``: this
     layer's slice of a LoRA bank ({group: {name: {"a": [N, in, r], "b":
-    [N, r, out]}}}), applied per row by ``adapter_ids`` [B]."""
+    [N, r, out]}}}), applied per row by ``adapter_ids`` [B].
+    ``mlp_fn(y, mlp_params, a8, lora, adapter_ids)``: the MLP (default the
+    dense SwiGLU; the MoE trunk's block, which takes no glue path)."""
     b, s, _ = x.shape
     # w8a8 serves the compute-bound prefill; the one-token decode step keeps
     # the weight-only int8 path
     a8 = cfg.w8a8 and s > 1
     attn_p = layer["self_attn"]
-    if quant_glue and a8 and lora is None and "kernel_q" in attn_p["q_proj"] and "kernel_q" in attn_p["o_proj"]:
+    if (quant_glue and a8 and lora is None and mlp_fn is None and "kernel_q" in attn_p["q_proj"]
+            and "kernel_q" in attn_p["o_proj"]):
         return _decoder_layer_glue(cfg, x, layer, cos, sin, attend)
     attn_lora = lora.get("self_attn") if lora is not None else None
     mlp_lora = lora.get("mlp") if lora is not None else None
@@ -156,7 +159,7 @@ def decoder_layer(cfg: TextConfig, x, layer: dict, cos, sin, attend, *, quant_gl
     o = attend(q, k, v).reshape(b, s, -1)
     x = x + _lora_dense(o, attn_p["o_proj"], a8, attn_lora, "o_proj", adapter_ids)
     y = rms_norm(x, layer["post_attention_layernorm"]["scale"], cfg.rms_norm_eps)
-    return x + _mlp(y, layer["mlp"], a8, mlp_lora, adapter_ids)
+    return x + (mlp_fn or _mlp)(y, layer["mlp"], a8, mlp_lora, adapter_ids)
 
 
 def _decoder_layer_glue(cfg: TextConfig, x, layer: dict, cos, sin, attend):
@@ -230,7 +233,7 @@ def commit_decode_rows(cache: KVCache, write_pos: torch.Tensor, k_rows, v_rows, 
 
 
 def decode_scan(cfg: TextConfig, attn_impl, params: dict, inputs_embeds, cos, sin, cache: KVCache, kv_len, write_pos,
-                lora_bank: Optional[dict] = None, adapter_ids=None):
+                lora_bank: Optional[dict] = None, adapter_ids=None, mlp_fn=None):
     """Single-token decode over the layer stack with the cache READ-ONLY in
     the loop: layer ``li`` attends to its cache layer (selected inside the
     kernel) plus the in-flight token as a self column; the new K/V rows are
@@ -247,7 +250,7 @@ def decode_scan(cfg: TextConfig, attn_impl, params: dict, inputs_embeds, cos, si
                                     k_new=k[:, 0], v_new=v[:, 0])
 
         x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend,
-                          lora=_bank_layer(lora_bank, li), adapter_ids=adapter_ids)
+                          lora=_bank_layer(lora_bank, li), adapter_ids=adapter_ids, mlp_fn=mlp_fn)
     cache = commit_decode_rows(cache, write_pos, torch.stack(k_rows), torch.stack(v_rows), attn_impl)
     return x, cache
 
@@ -271,6 +274,7 @@ def qwen2_forward(
     segment_ids: Optional[torch.Tensor] = None,
     lora_bank: Optional[dict] = None,
     adapter_ids: Optional[torch.Tensor] = None,
+    mlp_fn=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder trunk (no lm_head).
 
@@ -286,7 +290,8 @@ def qwen2_forward(
 
     ``lora_bank`` (``build_lora_bank``: leaves [L, N, in, r] / [L, N, r,
     out], bank row 0 = the base) with ``adapter_ids`` [B]: each batch row
-    applies its own adapter."""
+    applies its own adapter.  ``mlp_fn``: every layer's MLP (see
+    :func:`decoder_layer`; the MoE trunk passes its block)."""
     cos, sin = rope_cos_sin(
         positions,
         cfg.attn_head_dim,
@@ -310,14 +315,14 @@ def qwen2_forward(
         raise ValueError("segment_ids (packing) is for the cacheless training path")
     if cache is not None and inputs_embeds.shape[1] == 1:
         x, cache = decode_scan(cfg, attn_impl, params, inputs_embeds, cos, sin, cache, kv_len, write_pos,
-                               lora_bank, adapter_ids)
+                               lora_bank, adapter_ids, mlp_fn)
     elif cache is None:
         def attend(q, k, v):
             return cache_attend(attn_impl, None, (), None, None, None, q, k, v, segment_ids)
 
         def layer_fn(x, layer, lora=None):
             return decoder_layer(cfg, x, layer, cos, sin, attend, quant_glue=quant_glue_ok(attn_impl), lora=lora,
-                                 adapter_ids=adapter_ids)
+                                 adapter_ids=adapter_ids, mlp_fn=mlp_fn)
 
         x = inputs_embeds
         n_layers = params["layers"]["input_layernorm"]["scale"].shape[0]
@@ -336,7 +341,7 @@ def qwen2_forward(
 
             x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend,
                               quant_glue=quant_glue_ok(attn_impl), lora=_bank_layer(lora_bank, li),
-                              adapter_ids=adapter_ids)
+                              adapter_ids=adapter_ids, mlp_fn=mlp_fn)
     return rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps), cache
 
 
@@ -401,11 +406,17 @@ def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
     return table[safe]
 
 
-def init_params(cfg: TextConfig, generator: torch.Generator, dtype=torch.float32, device=None) -> dict:
+def init_params(cfg: TextConfig, generator: torch.Generator, dtype=torch.float32, device=None,
+                mlp: bool = True) -> dict:
     """Random weights from a seeded generator (the JAX ``init_params``
-    distribution): normal(0, 0.02) matrices, zero biases, unit norms."""
-    if cfg.is_moe:
-        raise NotImplementedError("the Qwen2-MoE trunk waits for the MoE slice")
+    distribution): normal(0, 0.02) matrices, zero biases, unit norms.  An
+    MoE config gets the MoE trunk's (:func:`omchat_torch.models.qwen2_moe.
+    init_params`); ``mlp=False`` leaves out the dense MLP (the MoE init
+    adds its block)."""
+    if cfg.is_moe and mlp:
+        from omchat_torch.models.qwen2_moe import init_params as moe_init
+
+        return moe_init(cfg, generator, dtype, device)
     d, f, l, vocab = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers, cfg.vocab_size
     h, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.attn_head_dim
     device = device if device is not None else generator.device
@@ -431,14 +442,15 @@ def init_params(cfg: TextConfig, generator: torch.Generator, dtype=torch.float32
                 "v_proj": proj(d, kvh * hd, cfg.attention_bias),
                 "o_proj": proj(h * hd, d, False),
             },
-            "mlp": {
-                "gate_proj": proj(d, f, False),
-                "up_proj": proj(d, f, False),
-                "down_proj": proj(f, d, False),
-            },
         },
         "norm": {"scale": ones(d)},
     }
+    if mlp:
+        params["layers"]["mlp"] = {
+            "gate_proj": proj(d, f, False),
+            "up_proj": proj(d, f, False),
+            "down_proj": proj(f, d, False),
+        }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"kernel": nrm((d, vocab))}
     return params

@@ -289,6 +289,13 @@ def _prescale_q(q: torch.Tensor) -> torch.Tensor:
     return q * torch.full((), q.shape[-1] ** -0.5 * LOG2E, dtype=q.dtype, device=q.device)
 
 
+def k2_head_dim_supported(head_dim: int, e4m3: bool = False) -> bool:
+    """Whether K2's CUDA kernel takes this head width: a multiple of 8 from 8
+    to 128 (every row a whole number of 16-byte TMA chunks), and 128 alone on
+    an e4m3 cache."""
+    return head_dim == 128 if e4m3 else head_dim % 8 == 0 and 8 <= head_dim <= 128
+
+
 def flash_attention_plain(q, k, v, *, causal: bool, q_offset, kv_len, segment_ids=None):
     """The kernel's function, untiled.  q: [B, S, H, D]; k/v [B, KVH, T, D].
 
@@ -334,7 +341,8 @@ def flash_attention(
     """Flash attention forward.  q: [B, S, H, D]; k/v: [B, T, KVH, D]
     ("btnd") or [B, KVH, T, D] ("bntd", the cache layout the kernel reads;
     bfloat16 or e4m3 on CUDA).  Returns [B, S, H, D] in q.dtype; semantics of
-    ``attention_reference``."""
+    ``attention_reference``.  On CUDA, D is any width that
+    :func:`k2_head_dim_supported` takes; another raises."""
     if kv_format == "btnd":
         k, v = k.transpose(1, 2), v.transpose(1, 2)
     elif kv_format != "bntd":
@@ -346,9 +354,9 @@ def flash_attention(
     suffix = _require_cuda("flash_attention", q, cache=(k, v))
     if segment_ids is not None:
         raise NotImplementedError("flash_attention: segment_ids packing has no CUDA kernel yet")
-    if D != 128 or H % KVH != 0 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: head_dim {D}, heads {H}/{KVH}, k {tuple(k.shape)} / v {tuple(v.shape)} "
-                         "unsupported by the CUDA kernel")
+    if not k2_head_dim_supported(D, e4m3=bool(suffix)) or H % KVH != 0 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: head_dim {D}{' on an e4m3 cache' if suffix else ''}, heads {H}/{KVH}, "
+                         f"k {tuple(k.shape)} / v {tuple(v.shape)} unsupported by the CUDA kernel")
     ks, vs = _tma_strides("flash_attention", "k", k), _tma_strides("flash_attention", "v", v)
     qs = _prescale_q(q).contiguous()
     q_off = per_batch(q_offset, B, T - S, q.device)

@@ -43,8 +43,11 @@ base model); the prefill chunk applies its adapter and the decode step each
 slot's own.  Images are encoded at submit (kernel K1 on CUDA) through the
 encoded-image LRU (``image_cache_size`` entries, 0 disables it).
 
-Waiting for later slices, each raising ``NotImplementedError`` rather than
-being ignored: a device mesh (A13) and the MoE trunk.  Presence / frequency
+An MoE trunk (``cfg.text.is_moe``) runs its block's dense expert route, as
+the JAX slot engine does; its LoRA bank adapts attention only.
+
+Waiting for a later slice, raising ``NotImplementedError`` rather than being
+ignored: a device mesh (A13).  Presence / frequency
 penalties raise too: the JAX slot engine has none either.
 """
 
@@ -60,6 +63,7 @@ import torch
 
 from omchat_torch.config import GenerationConfig, OmChatConfig
 from omchat_torch.models.decoder import decoder_forward
+from omchat_torch.models.qwen2_moe import check_lora_bank
 from omchat_torch.models.omchat import encode_images, fuse_embeddings, plan_multimodal_merge
 from omchat_torch.models.qwen2 import KVCache, embed_tokens, init_kv_cache, lm_head
 from omchat_torch.ops.attention import PLAIN
@@ -133,13 +137,10 @@ class BatchEngine:
         multi-adapter bank on the params' device.  ``decode_graphs``: a CUDA
         engine on the kernels replays a CUDA graph for each decode step
         (False: eagerly)."""
-        waiting = {
-            "a device mesh (tensor-parallel serving, ROADMAP queue A item A13)": mesh is not None,
-            "the MoE trunk": cfg.text.is_moe,
-        }
-        for what, asked in waiting.items():
-            if asked:
-                raise NotImplementedError(f"BatchEngine: {what} waits for a later slice of the port")
+        if mesh is not None:
+            raise NotImplementedError("BatchEngine: a device mesh (tensor-parallel serving, ROADMAP queue A item A13) "
+                                      "waits for a later slice of the port")
+        check_lora_bank(cfg.text, lora_bank)
         if attn_impl not in (None, PLAIN):
             raise ValueError(f"unknown attn_impl {attn_impl!r} (None or 'plain')")
         self.cfg = cfg

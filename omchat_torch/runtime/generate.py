@@ -57,6 +57,8 @@ from omchat_torch.models.omchat import (
     round_up_to_bucket,
 )
 from omchat_torch.models.qwen2 import KVCache, embed_tokens, init_kv_cache, lm_head
+from omchat_torch.models.qwen2_moe import check_lora_bank
+from omchat_torch.models.spatial_merge import spatial_unpad_merge
 from omchat_torch.ops.attention import PLAIN
 from omchat_torch.ops.sampling import greedy, sample_from
 from omchat_torch.runtime.cuda_graphs import GraphedStep
@@ -217,6 +219,7 @@ class OmChatEngine:
         decode_graphs: bool = True,
         lora_bank: Optional[dict] = None,
     ):
+        check_lora_bank(cfg.text, lora_bank)
         self.cfg = cfg
         self.lora_bank = lora_bank
         self.params = params
@@ -254,13 +257,36 @@ class OmChatEngine:
 
         return cached_encode(self.image_cache, pixel_values, cache_key, encode)
 
-    def plan(self, batch_input_ids, pad_to: Optional[int] = None) -> MergePlan:
+    def plan(self, batch_input_ids, pad_to: Optional[int] = None, tokens_per_sentinel=None) -> MergePlan:
         """The merged layout of a batch, padded to ``pad_to`` rows or else to
-        the next multiple of the prompt bucket."""
+        the next multiple of the prompt bucket (``tokens_per_sentinel``: each
+        sentinel's feature rows where they vary, the v1 spatial merge)."""
         return plan_multimodal_merge(
-            batch_input_ids, self.cfg.image_seq_len, pad_to=pad_to, bucket=self.prompt_bucket,
-            max_length=self.cfg.tokenizer_model_max_length,
+            batch_input_ids, self.cfg.image_seq_len, tokens_per_sentinel=tokens_per_sentinel, pad_to=pad_to,
+            bucket=self.prompt_bucket, max_length=self.cfg.tokenizer_model_max_length,
         )
+
+    def merge_spatial_features(self, feats: torch.Tensor, num_patches, image_sizes):
+        """The OmChat-v1 fusion (``cfg.mm_patch_merge_type`` "spatial" /
+        "spatial_unpad"): each image's projected tile features laid out on the
+        anyres grid, the aspect padding cropped, the learned
+        ``image_newline`` ending each row, the thumbnail first.
+
+        feats: flattened [ΣN·L, D] tile features in sentinel order;
+        num_patches: tiles per image; image_sizes: (width, height) of each
+        original.  Returns (flat [ΣT, D] merged features, tokens per
+        sentinel)."""
+        newline = self.params.get("image_newline")
+        if newline is None:
+            raise ValueError("mm_patch_merge_type spatial needs the checkpoint's image_newline embedding")
+        feats = feats.reshape(-1, self.cfg.image_seq_len, feats.shape[-1])  # [ΣN, L, D]
+        outs, off = [], 0
+        for n, size in zip(num_patches, image_sizes):
+            outs.append(spatial_unpad_merge(feats[off : off + int(n)], tuple(size), self.cfg.image_grid_pinpoints,
+                                            self.cfg.vision.image_size, newline,
+                                            patch_merge_type=self.cfg.mm_patch_merge_type))
+            off += int(n)
+        return torch.cat(outs, dim=0), [int(m.shape[0]) for m in outs]
 
     def _adapter_ids(self, b: int, adapter_id) -> Optional[torch.Tensor]:
         """[B] bank rows for a batch of ``b`` (``adapter_id``: an int for
@@ -527,16 +553,22 @@ class OmChatEngine:
         st.penalty.zero_()
 
     def _prefill_into_state(self, batch_input_ids, images, gen: GenerationConfig, t0: float, rng_key=None,
-                            logit_bias: Optional[dict] = None, adapter_id=None):
+                            logit_bias: Optional[dict] = None, adapter_id=None, num_patches=None,
+                            image_sizes=None):
         """Encode, plan and prefill into the decode state of the request's
         shape and set it for the request (:meth:`_start`); records the
         ``encode_images`` span.  Returns (plan, state, first-token logits)."""
         ids = self._adapter_ids(len(batch_input_ids), adapter_id)
         feats = self.encode_images(images) if images is not None else None
+        tokens_per_sentinel = None
+        if feats is not None and self.cfg.mm_patch_merge_type.startswith("spatial"):
+            if num_patches is None or image_sizes is None:
+                raise ValueError("spatial patch merge needs num_patches and image_sizes per image")
+            feats, tokens_per_sentinel = self.merge_spatial_features(feats, num_patches, image_sizes)
         self._sync()
         t1 = time.perf_counter()
         self.spans["encode_images"] = t1 - t0
-        plan = self.plan(batch_input_ids)
+        plan = self.plan(batch_input_ids, tokens_per_sentinel=tokens_per_sentinel)
         st = self.decode_state(plan.token_ids.shape[0], self.cache_rows(plan, gen.max_new_tokens))
         logits, _ = self.prefill(plan, feats, gen.max_new_tokens, cache=st.cache, adapter_ids=ids)
         self._start(st, plan.lengths, gen, rng_key, logit_bias, ids)
@@ -573,6 +605,8 @@ class OmChatEngine:
         logit_bias: Optional[dict] = None,
         adapter_id=None,
         logits_callback: Optional[Callable[[int, torch.Tensor], None]] = None,
+        num_patches: Optional[Sequence[int]] = None,
+        image_sizes: Optional[Sequence] = None,
     ) -> GenerateOutput:
         """Greedy / sampled decode with host streaming: one decode step (one
         graph replay on a CUDA engine) and one readback of its tokens a token.
@@ -591,7 +625,12 @@ class OmChatEngine:
         ``logits_callback(step, logits)`` sees each step's raw [B, V] fp32
         logits (a copy of the decode state's buffer).  ``adapter_id``: the
         LoRA bank row of the whole batch (an int) or of each row (a
-        sequence), 0 the base model; ``ValueError`` outside the bank."""
+        sequence), 0 the base model; ``ValueError`` outside the bank.
+        ``num_patches`` / ``image_sizes``: needed when
+        ``cfg.mm_patch_merge_type`` is "spatial" / "spatial_unpad" (the
+        OmChat-v1 assembly): tiles per image and each original's (width,
+        height); one sentinel an image then takes that image's merged
+        tokens."""
         gen = generation or GenerationConfig()
         if allowed_tokens_fn is not None and len(batch_input_ids) != 1:
             raise ValueError("constrained decoding is single-request (b == 1)")
@@ -602,7 +641,7 @@ class OmChatEngine:
         self.spans = {}
         t0 = time.perf_counter()
         plan, st, logits = self._prefill_into_state(batch_input_ids, images, gen, t0, rng_key, logit_bias,
-                                                    adapter_id)
+                                                    adapter_id, num_patches, image_sizes)
         run = self._runner(st, mode)
         graph_before = getattr(run, "graph", None)
 

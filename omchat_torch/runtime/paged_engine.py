@@ -90,8 +90,14 @@ the paged attention kernels are built for (``ops.paged_attention.PAGE_SIZES``:
 16, 32, 64, 128) and refuses any other before it allocates; a CPU engine takes
 any page size.
 
-Waiting for later slices, each raising ``NotImplementedError`` rather than
-being ignored: a device mesh and the MoE trunk.  Presence / frequency
+An MoE trunk (``cfg.text.is_moe``) serves through the same layer body with
+its block as the MLP; ``moe_impl`` picks the experts' route in the chunked
+prefill, the rolls and the verify ("dense", which the graphs capture, or
+"gmm", eager only), and the contiguous prefill of the single-request engine
+takes the dense route, as in the JAX engine.
+
+Waiting for a later slice, raising ``NotImplementedError`` rather than being
+ignored: a device mesh.  Presence / frequency
 penalties raise too: the JAX paged engine has none either.  Prefill runs
 eagerly, so :meth:`PagedBatchEngine.precompile` captures the decode rolls and
 the verify only.
@@ -113,6 +119,7 @@ import torch
 from omchat_torch.config import OmChatConfig
 from omchat_torch.models.omchat import fuse_embeddings
 from omchat_torch.models.qwen2 import decoder_layer, embed_tokens, lm_head, quant_glue_ok
+from omchat_torch.models.qwen2_moe import MOE_IMPLS, moe_mlp
 from omchat_torch.ops.attention import PLAIN, attention
 from omchat_torch.ops.fp8 import cast_to
 from omchat_torch.ops.norms import rms_norm
@@ -183,10 +190,16 @@ def _commit_pages(slot_k, slot_v, k_pool, v_pool, tables: np.ndarray, n_pages: n
            torch.as_tensor(flat, device=k_pool.device), chunks_k, chunks_v)
 
 
+def _mlp_fn(tc, moe_impl: str):
+    """The layers' MLP: None (the dense SwiGLU) or, on an MoE trunk, its
+    block with the ``moe_impl`` experts route."""
+    return moe_mlp(tc, moe_impl) if tc.is_moe else None
+
+
 def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
                       attn_impl: Optional[str] = None, *, decode_kernel: str = "auto",
                       sampling: Optional[dict] = None, generator: Optional[torch.Generator] = None,
-                      logprobs: bool = False):
+                      logprobs: bool = False, moe_impl: str = "dense"):
     """One decode step over every slot against the page pool; returns the
     next tokens [S] (int32) and commits the step's K/V rows in place.  With
     ``logprobs`` it returns (tokens, chosen [S] fp32, top values [S, K]
@@ -229,7 +242,7 @@ def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables
                                           k_new=k[:, 0], v_new=v[:, 0], page_offset=li * n_slots,
                                           kernel=decode_kernel)
 
-        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend)
+        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, mlp_fn=_mlp_fn(tc, moe_impl))
     flat_pages = (torch.arange(n_layers, dtype=torch.int32, device=tokens.device)[:, None] * n_slots
                   + page_idx[None, :]).reshape(-1)
     commit = commit_rows_plain if attn_impl == PLAIN else commit_rows
@@ -257,7 +270,7 @@ def _roll_pick(logits, sampling: Optional[dict], generator: Optional[torch.Gener
 def _paged_decode_roll(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
                        attn_impl: Optional[str], steps: int, *, decode_kernel: str = "auto",
                        sampling: Optional[dict] = None, generator: Optional[torch.Generator] = None,
-                       logprobs: bool = False):
+                       logprobs: bool = False, moe_impl: str = "dense"):
     """``steps`` decode iterations issued back to back on the device; returns
     the [steps, S] tokens without reading them back (with ``logprobs`` the
     tuple of :func:`_decode_step_core`'s outputs, each stacked over the
@@ -268,7 +281,7 @@ def _paged_decode_roll(params, cfg: OmChatConfig, tokens, lengths, active, table
     for _ in range(steps):
         step = _decode_step_core(params, cfg, tokens, lengths, active, tables, k_pool, v_pool, page_size,
                                  attn_impl, decode_kernel=decode_kernel, sampling=sampling, generator=generator,
-                                 logprobs=logprobs)
+                                 logprobs=logprobs, moe_impl=moe_impl)
         out.append(step)
         tokens = step[0] if logprobs else step
         lengths = torch.where(active, lengths + 1, lengths)
@@ -279,7 +292,7 @@ def _paged_decode_roll(params, cfg: OmChatConfig, tokens, lengths, active, table
 
 def _paged_prefill_chunk(params, cfg: OmChatConfig, token_ids, is_image, image_index, image_features, positions,
                          chunk_start: np.ndarray, chunk_len: np.ndarray, tables: np.ndarray, k_pool, v_pool,
-                         page_size: int, attn_impl: Optional[str] = None) -> torch.Tensor:
+                         page_size: int, attn_impl: Optional[str] = None, moe_impl: str = "dense") -> torch.Tensor:
     """One chunk of a paged prefill for B requests at once: each row's K/V go
     into its own pages (a plain indexed write, in place, rounded to the pool's
     dtype) and the chunk attends to everything cached so far through the page
@@ -319,14 +332,15 @@ def _paged_prefill_chunk(params, cfg: OmChatConfig, token_ids, is_image, image_i
             vp[pages] = cast_to(v.reshape(b * n_chunk, page_size, kvh, hd).transpose(1, 2), vp.dtype)
             return paged_prefill_attention(q, kp, vp, kv_len, tab, q_off, impl=attn_impl)
 
-        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl))
+        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl),
+                          mlp_fn=_mlp_fn(tc, moe_impl))
     last_idx = torch.as_tensor(np.maximum(chunk_len - 1, 0), dtype=torch.long, device=dev)
     last = x[torch.arange(b, device=dev), last_idx]  # [B, D]
     return lm_head(lm, tc, rms_norm(last, lm["norm"]["scale"], tc.rms_norm_eps))
 
 
 def _paged_verify(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
-                  attn_impl: Optional[str] = None) -> torch.Tensor:
+                  attn_impl: Optional[str] = None, moe_impl: str = "dense") -> torch.Tensor:
     """Speculative verify: T candidate rows a slot in one forward against the
     page pool; returns the logits of every row [S, T, V] (fp32) and commits
     the rows' K/V in place.
@@ -378,7 +392,8 @@ def _paged_verify(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_
             return attention(q, kg, vg, causal=True, q_offset=q_off, kv_len=kv_len, impl=attn_impl,
                              kv_format="bntd")
 
-        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl))
+        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl),
+                          mlp_fn=_mlp_fn(tc, moe_impl))
     flat_pages = (torch.arange(n_layers, dtype=torch.int32, device=dev)[:, None, None] * n_slots
                   + page_rows[None]).reshape(-1)
     commit = commit_rows_plain if attn_impl == PLAIN else commit_rows
@@ -468,6 +483,7 @@ class PagedBatchEngine:
         pipeline_rolls: bool = False,
         prefill_priority: bool = False,
         decode_graphs: bool = True,
+        moe_impl: str = "dense",
     ):
         """``max_len`` caps one request's prompt + generation (it sets the
         page-table width); ``decode_roll`` decode steps run per dispatch, with
@@ -496,13 +512,11 @@ class PagedBatchEngine:
             raise ValueError(f"PagedBatchEngine: page_size {page_size} has no CUDA kernel; the paged attention kernels "
                              f"take page sizes {PAGE_SIZES}")
         dtype = params["language_model"]["embed_tokens"].dtype
-        waiting = {
-            "a device mesh (tensor-parallel serving)": mesh is not None,
-            "the MoE trunk": cfg.text.is_moe,
-        }
-        for what, asked in waiting.items():
-            if asked:
-                raise NotImplementedError(f"PagedBatchEngine: {what} waits for a later slice of the port")
+        if mesh is not None:
+            raise NotImplementedError("PagedBatchEngine: a device mesh (tensor-parallel serving) waits for a later "
+                                      "slice of the port")
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"unknown moe_impl {moe_impl!r} (one of {MOE_IMPLS})")
         if decode_kernel not in DECODE_KERNELS:
             raise ValueError(f"unknown decode_kernel {decode_kernel!r} (auto or manual)")
         if attn_impl not in (None, PLAIN):
@@ -573,6 +587,10 @@ class PagedBatchEngine:
         self._verify_host = torch.zeros((max_slots, t_chunk + 2 + self.max_pages), dtype=torch.int32, pin_memory=cuda)
         self._verify_dev = self._verify_host.to(self.device) if cuda else self._verify_host
         self.decode_graphs = decode_graphs
+        self.moe_impl = moe_impl
+        if cfg.text.is_moe and moe_impl == "gmm" and self.graphed():
+            raise ValueError("PagedBatchEngine: moe_impl='gmm' sizes its expert groups on the host, which a CUDA graph "
+                             "cannot capture; pass decode_graphs=False with it")
         # (table width, pick mode, roll) -> the roll's GraphedStep, or its body run eagerly
         self._rolls: dict = {}
         self._verifies: dict = {}  # table width -> the verify's GraphedStep, or its body
@@ -935,7 +953,7 @@ class PagedBatchEngine:
         logits = _paged_prefill_chunk(
             self.params, self.cfg, t(tok), t(isi), t(idx), feats, t(pos),
             np.asarray(starts, np.int32), np.asarray(lens, np.int32), np.stack(tables),
-            self.k_pool, self.v_pool, self.page_size, self.attn_impl,
+            self.k_pool, self.v_pool, self.page_size, self.attn_impl, self.moe_impl,
         )
         finished = []
         for i, r in enumerate(reqs):
@@ -1248,7 +1266,7 @@ class PagedBatchEngine:
                                          eng.page_size, eng.attn_impl, roll,
                                          decode_kernel=eng.decode_kernel,
                                          sampling=eng._roll_sampling() if sampled else None,
-                                         generator=eng._generator, logprobs=logprobs)
+                                         generator=eng._generator, logprobs=logprobs, moe_impl=eng.moe_impl)
                 for o, g in zip(out, got if logprobs else (got,)):
                     o.copy_(g)
                 return tuple(out)
@@ -1378,7 +1396,7 @@ class PagedBatchEngine:
                 b = eng._verify_dev
                 logits = _paged_verify(eng.params, eng.cfg, b[:, :t], b[:, t], b[:, t + 1] != 0,
                                        b[:, t + 2: t + 2 + width], eng.k_pool, eng.v_pool, eng.page_size,
-                                       eng.attn_impl)
+                                       eng.attn_impl, eng.moe_impl)
                 out.copy_(torch.argmax(logits, dim=-1))
                 return out
 

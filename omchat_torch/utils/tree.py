@@ -23,3 +23,12 @@ def tree_items(tree, prefix=()):
             yield from tree_items(v, prefix + (k,))
     else:
         yield prefix, tree
+
+
+def tree_map(fn, tree):
+    """``fn`` over every leaf of a nested dict / list, keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)

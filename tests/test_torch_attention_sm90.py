@@ -1,7 +1,7 @@
 """The plain versions behind the Hopper attention kernels (K1's prepass and
-attention, K2) against the JAX package's Pallas kernels in interpret mode, at
-the shapes the kernels' 128-row tiling makes special, and the wrappers'
-refusal of operands that a TMA tensor map cannot take.
+attention, K2, at head width 128 and at the towers' 64 and 72) against the
+JAX package's Pallas kernels in interpret mode, at the shapes the kernels'
+128-row tiling makes special, and the wrappers' refusal of operands that a TMA tensor map cannot take.
 
 Same seeded numpy inputs to both sides, float32; tolerances are float32
 round-off of differently ordered sums (the JAX side tiles and rescales, the
@@ -82,6 +82,26 @@ def test_k2_plain_matches_pallas_across_kv_tiles(q_offset, kv_len):
         np.testing.assert_allclose(out[b, :rows].numpy(), np.asarray(ref)[b, :rows], atol=ATOL, rtol=RTOL)
         if kl[b] == 0:  # no valid column: the port writes zeros (the Pallas kernel's rows are unspecified)
             assert not out[b].any()
+
+
+@pytest.mark.parametrize("D", [64, 72])
+@pytest.mark.parametrize("causal,S,fmt", [(False, 77, "btnd"), (True, 130, "bntd")], ids=["noncausal_btnd", "causal"])
+def test_k2_plain_matches_pallas_at_tower_head_widths(D, causal, S, fmt):
+    """K2 at the towers' head widths, 64 (CLIP-L, InternViT-300M) and 72
+    (SigLIP so400m): the plain version, whose q prescale takes D^-0.5 of the
+    true width, against the Pallas kernel in interpret mode."""
+    from omchat_tpu.ops.flash_attention import flash_attention
+
+    rng = np.random.default_rng(13)
+    B, H, KVH = 2, 4, 4 if fmt == "btnd" else 2
+    kv_shape = (B, S, KVH, D) if fmt == "btnd" else (B, KVH, S, D)
+    q, k, v = _np(rng, B, S, H, D), _np(rng, *kv_shape), _np(rng, *kv_shape)
+    ref = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, kv_format=fmt, block_q=64,
+                          block_k=64, interpret=True)
+    out = t_flash.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal,
+                                  kv_format=fmt)
+    assert t_flash.k2_head_dim_supported(D) and not t_flash.k2_head_dim_supported(D, e4m3=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
 
 
 def test_tma_strides_refuse_by_name():

@@ -1594,3 +1594,93 @@ def test_sampled_decode_graph_draws_the_eager_tokens(graph_model, top_k):
     assert run.graph is not None and run.replays == 2 * 23 - 1
     assert graphed.generate([ids], None, gen, rng_key=7).token_ids == want
     assert graphed.generate_ondevice([ids], None, gen, rng_key=8).token_ids != want
+
+
+# K2 at the towers' head widths: CLIP-L / InternViT-300M (64) and SigLIP (72).
+@pytest.mark.parametrize("D", [64, 72, 8, 120])
+@pytest.mark.parametrize(
+    "B,H,KVH,S,T,causal,fmt",
+    [(2, 16, 16, 577, 577, False, "btnd"), (1, 16, 16, 729, 729, False, "bntd"), (2, 4, 2, 200, 328, True, "bntd"),
+     (1, 4, 4, 130, 130, True, "btnd")],
+    ids=["clip_rows", "siglip_rows", "causal_group2", "causal_btnd"],
+)
+def test_flash_attention_kernel_at_narrow_head_widths(gen, D, B, H, KVH, S, T, causal, fmt):
+    q = _randn(gen, B, S, H, D)
+    kv_shape = (B, KVH, T, D) if fmt == "bntd" else (B, T, KVH, D)
+    k, v = _randn(gen, *kv_shape), _randn(gen, *kv_shape)
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, kv_format=fmt)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1 and out.shape == (B, S, H, D)
+    kb, vb = (k, v) if fmt == "bntd" else (k.transpose(1, 2), v.transpose(1, 2))
+    ref = fa.flash_attention_plain(q, kb, vb, causal=causal, q_offset=None, kv_len=None)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+@pytest.mark.parametrize("D", [64, 72])
+def test_flash_attention_kernel_reads_no_column_of_the_next_head(gen, D):
+    """q, k and v as head views of one fused qkv row ([B, N, 3 H D]), the
+    towers' layout: a 128-column box past column D would read the next head's
+    columns; large values there must change nothing."""
+    B, N, H = 2, 257, 16
+    qkv = _randn(gen, B, N, 3, H, D)
+    q, k, v = qkv.unbind(2)
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    ref = fa.flash_attention_plain(q.contiguous(), k.transpose(1, 2), v.transpose(1, 2), causal=False, q_offset=None,
+                                   kv_len=None)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+def test_flash_attention_refuses_widths_the_kernel_lacks(gen):
+    """D = 256, a width not a multiple of 8, and e4m3 at D != 128 raise before
+    any launch: no fallback to the plain version."""
+    n0 = fa.flash_attention.launches
+    for D in (256, 68):
+        q, k = _randn(gen, 1, 16, 2, D), _randn(gen, 1, 2, 16, D)
+        with pytest.raises(ValueError, match=f"head_dim {D}"):
+            fa.flash_attention(q, k, k, causal=True, kv_format="bntd")
+    q, k = _randn(gen, 1, 16, 2, 64), to_e4m3(_randn(gen, 1, 2, 16, 64))
+    with pytest.raises(ValueError, match="head_dim 64 on an e4m3 cache"):
+        fa.flash_attention(q, k, k, causal=True, kv_format="bntd")
+    assert fa.flash_attention.launches == n0
+
+
+@pytest.mark.parametrize("cache", ["bf16", "e4m3"])
+@pytest.mark.parametrize("lens", [[1900], [0, 1, 512, 1000]], ids=["moe_request", "ragged"])
+def test_flash_decode_stacked_kernel_at_group_1(gen, lens, cache):
+    """K3 at 16 / 16 heads (Qwen1.5-MoE-A2.7B's group of one)."""
+    H = KVH = 16
+    D, T, layer = 128, 2048, 2
+    q, kc, vc, cl = _decode_case(gen, H, KVH, lens, T, 3, cache)
+    kn, vn = _randn(gen, len(lens), KVH, D), _randn(gen, len(lens), KVH, D)
+    out = da.flash_decode_stacked(q, kc, vc, cl, layer, kn, vn)
+    torch.cuda.synchronize()
+    ref = da.flash_decode_stacked_plain(q, kc, vc, cl, layer, kn, vn)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+
+
+def test_paged_kernels_at_group_1(gen):
+    """K12 and K14 at 16 / 16 heads, the MoE trunk's serving shapes."""
+    H = KVH = 16
+    D = 128
+    lengths = [3, 700, 1, 1300, 128, 999]
+    B, W = len(lengths), 16
+    kp, vp, tables = _paged_pool(gen, sum(-(-n // 128) for n in lengths) + 2, KVH, D, lengths, W)
+    q = _randn(gen, B, 1, H, D)
+    kn, vn = _randn(gen, B, KVH, D), _randn(gen, B, KVH, D)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out = pa.paged_flash_decode(q, kp, vp, lens, tables, kn, vn)
+    torch.cuda.synchronize()
+    ref = pa.paged_flash_decode_plain(q, kp, vp, lens, tables, kn, vn)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    qo = torch.tensor([o - min(o, 100) for o in lengths], dtype=torch.int32, device="cuda")
+    qc = _randn(gen, B, 128, H, D)
+    out = pa.paged_flash_prefill(qc, kp, vp, lens, tables, qo)
+    torch.cuda.synchronize()
+    ref = pa.paged_flash_prefill_plain(qc, kp, vp, lens, tables, qo)
+    for b, n in enumerate(lengths):
+        rows = n - int(qo[b])
+        torch.testing.assert_close(out[b, :rows].float(), ref[b, :rows].float(), **TOL)

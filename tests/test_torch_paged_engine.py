@@ -153,9 +153,6 @@ def test_waiting_request_options_raise(reference):
     eng = _port(params)
     with pytest.raises(NotImplementedError):  # the JAX paged engine has no penalties either
         eng.submit([5, 6], generation=GenerationConfig(presence_penalty=0.5))
-    with pytest.raises(NotImplementedError):
-        TPagedEngine(TOmChatConfig(text=TOmChatConfig.tiny().text.__class__(num_experts=4, moe_intermediate_size=8)),
-                     params, device="cpu")
 
 
 def test_paged_engine_defaults_to_cuda(reference):
