@@ -300,6 +300,32 @@
     heads) at those runs' shapes against their plain versions (phases 2 and
     6's keys and faults); at 2+2 layers kernels vs plain within phase 4's
     limits and ``moe_impl="gmm"`` against dense within ``MOE_GMM_REL``.
+34. K2's segment-ids entry (``omchat_flash_attention_seg``) at the packed
+    forward's shape: 28 / 4 heads of 128 over one 4096-row pack of five
+    documents and a -1 tail, causal (the kernels line's row) and
+    non-causal, and at D = 64 over 16 / 16 heads; keys planted at every
+    document boundary and tile edge; against its plain version on every row
+    (the -1 rows zeros), with two planted faults (a boundary off by one,
+    padding allowed to attend) outside the limit; timed in turns beside SDPA
+    with the same boolean block-diagonal mask.
+35. The packed forward: ``loss_fn(attn_impl=None)`` over the full-depth
+    Qwen2-7B trunk on that pack, against the plain route's packed loss and
+    against the five documents run one at a time, within ``PACKED_LIMITS``
+    (1.5 x the plain route's own packed-vs-one-at-a-time gaps in the mean
+    loss and in max |logit|), which the pack without its segment ids must
+    fail; K2's segment entry launched once a layer.
+36. The HF export round trip: the full-width model at 2 + 2 layers through
+    ``export_hf_bundle`` into a temporary directory and back through
+    ``load_pretrained_model``: every tensor bitwise, the config equal, phase
+    3's request giving the in-memory engine's greedy tokens through K1-K4;
+    write and load seconds, the bundle's GiB.
+37. Parity: ``run_parity`` on that bundle, its own remote-code twin in fp32
+    on the card against the port's engine on the kernels (bf16), the plain
+    route (bf16) and the plain route (fp32): argmax match rate, first
+    divergence, max |logit diff| (printed; argmax flips on random weights);
+    the kernels held to 1.5 x the plain bf16 route's gap and the fp32 route
+    to ``PARITY_FP32_LIMIT``; layer 0's q_proj transposed in the twin must
+    fail the kernels' limit.
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -7659,6 +7685,383 @@ def moe_on_the_card(gen, vision_tower, seed: int, shapes: dict) -> tuple:
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 34-37 (A12): K2 with segment ids and the packed forward, the HF
+# export round trip, the parity runbook against the bundle's own twin
+# ---------------------------------------------------------------------------
+
+# Phases 34-35: a pack of PACKED_ROWS rows holding five documents of mixed lengths
+# (SEG_DOCS, row spans) and a -1 tail; SEG_TARGET of each document's last rows
+# carry labels.  Phase 34 also reads K2's segment entry at head width 64 over
+# SEG_NARROW_HEADS (q, kv) heads.
+SEG_DOCS = ((0, 310), (310, 1410), (1410, 1650), (1650, 3300), (3300, 3950))
+SEG_TARGET, SEG_NARROW_HEADS = 128, (16, 16)
+# Phase 35, the packed forward at full depth (loss_fn, attn_impl=None: K2's
+# segment entry in every layer) against the plain route's packed loss and the
+# documents run one at a time.  Derived as C4's limit was: an H100 run (NVIDIA H100
+# 80GB HBM3, 700.00 W; chip_probes/packed_forward_gaps.py, token seeds 0-3 over
+# the seed-0 weights) read the plain route's own packed-vs-one-at-a-time gaps at
+# up to 0.00278 in the mean loss and 0.250 in max |logit| over the labelled rows
+# (the kernels 0.00389 and 0.297, K16a's training route 0.00266 and 0.310: bf16
+# rounding over 28 layers; one layer apart, each route is 2-2.5 bf16 ulps from
+# the plain route's hidden states).  The kernel route is held to 1.5 x the
+# plain route's largest reading on each measure.
+PACKED_PLAIN_GAPS = {"loss": 0.0027801513671867895, "logit": 0.25}
+PACKED_LIMITS = {k: 1.5 * v for k, v in PACKED_PLAIN_GAPS.items()}
+# Phases 36-37: the full-width model at EXPORT_LAYERS (ViT, LLM) layers exported
+# and loaded back; PARITY_NEW_TOKENS greedy steps of the parity runbook.  The
+# kernel route's max |logit diff| against the fp32 twin is held to 1.5 x the
+# plain route's in bf16 (the same report, the same prompt: bf16 rounding of the
+# same products), and the plain route in fp32 to PARITY_FP32_LIMIT, the JAX
+# runbook's fp32 limit (tests/test_trust_remote_code.py; an H100 run read
+# 2.5e-5 at full width, NVIDIA H100 80GB HBM3, 700.00 W).
+EXPORT_LAYERS, PARITY_STEPS = (2, 2), 16
+PARITY_FP32_LIMIT = 1e-4
+
+
+def packed_segments(docs, rows: int):
+    """[1, rows] int32 segment ids on the card: document i over its span, -1
+    past the last."""
+    import torch
+
+    seg = torch.full((1, rows), -1, dtype=torch.int32, device=DEVICE)
+    for i, (s, e) in enumerate(docs):
+        seg[:, s:e] = i
+    return seg
+
+
+def seg_k2_plain(q, k, v, seg, causal, fault=None):
+    """K2's plain version over btnd q, k, v with segment ids; ``fault``
+    plants "boundary": each document's first row counted in the document
+    before it, or "padding": the -1 rows a segment of their own that attends
+    (kv_len the whole pack)."""
+    import torch
+
+    from omchat_torch.ops import flash_attention as fa
+
+    kv_len = (seg >= 0).sum(1, dtype=torch.int32)
+    if fault == "boundary":
+        seg = seg.clone()
+        starts = (torch.nonzero(seg[0, 1:] != seg[0, :-1]).flatten() + 1).tolist()
+        for e in starts:
+            if seg[0, e] > 0:
+                seg[0, e] = seg[0, e - 1]
+    elif fault == "padding":
+        seg = torch.where(seg < 0, seg.max() + 1, seg)
+        kv_len = torch.full_like(kv_len, seg.shape[1])
+    return fa.flash_attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), causal=causal, q_offset=None,
+                                    kv_len=kv_len, segment_ids=seg)
+
+
+def seg_k2_row(gen, H: int, KVH: int, D: int, causal: bool, name: str) -> dict:
+    """K2's segment entry over the phase-35 pack: q carries its kv head's
+    direction u, the keys on both sides of every document boundary and of
+    every 64-column tile edge hold 0.8 u; held against its plain version on
+    every row (the -1 rows zeros in both), with the planted faults
+    ("boundary", "padding") outside the limit, and timed in turns beside SDPA
+    with the same boolean block-diagonal mask.  The bound counts each
+    document's own causal triangle (or square)."""
+    import torch
+    import torch.nn.functional as F
+
+    from omchat_torch.ops import flash_attention as fa
+
+    S = PACKED_ROWS
+    seg = packed_segments(SEG_DOCS, S)
+    u = _direction(gen, KVH, D)
+    q = _randn(gen, 1, S, H, D) + u.repeat_interleave(H // KVH, dim=0)
+    k, v = _randn(gen, 1, S, KVH, D), _randn(gen, 1, S, KVH, D)
+    edges = (torch.nonzero(seg[0, 1:] != seg[0, :-1]).flatten() + 1).tolist()
+    cols = {c for e in edges for c in (e - 1, e)} | set(range(63, S - 1, 64)) | set(range(64, S, 64))
+    k[:, torch.tensor(sorted(cols), device=DEVICE)] = (0.8 * u).to(k.dtype)
+    out = fa.flash_attention(q, k, v, causal=causal, segment_ids=seg)
+    torch.cuda.synchronize()
+    ref = seg_k2_plain(q, k, v, seg, causal)
+    label = f"K2 {name}"
+    err = check_close(label, out, ref, *ATTN_TOL["K2"])
+    if not bool((out[seg < 0] == 0).all()):
+        raise AssertionError(f"{label}: a -1 row is not zero")
+    faults = {f: check_fault_caught(label, what, seg_k2_plain(q, k, v, seg, causal, fault=f), ref, *ATTN_TOL["K2"])
+              for f, what in (("boundary", "a document boundary off by one"),
+                              ("padding", "padding allowed to attend"))}
+    mask = (seg[:, :, None] == seg[:, None, :]) & (seg >= 0)[:, None, :]
+    if causal:
+        mask = mask & torch.ones((S, S), dtype=torch.bool, device=DEVICE).tril()
+    qt, kt, vt, mt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
+    p_ms = time_ms(lambda: seg_k2_plain(q, k, v, seg, causal), iters=3, warmup=1)
+    ms, readings = time_in_turns({
+        "kernel": lambda: fa.flash_attention(q, k, v, causal=causal, segment_ids=seg),
+        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mt, enable_gqa=True)})
+    pairs = sum((e - s) * (e - s + 1) // 2 if causal else (e - s) ** 2 for s, e in SEG_DOCS)
+    row = dict(name=name, source="omchat_torch/csrc/flash_attention.cu",
+               replaces="omchat_tpu/ops/flash_attention.py:208", max_abs_err=err, ms=ms["kernel"], plain_ms=p_ms,
+               library_ms=ms["library"], flops=4.0 * H * D * pairs, bytes=2 * S * (2 * H + 2 * KVH) * D + 4 * S,
+               ref_mean_abs=float(ref.float().abs().mean()), faults=faults, readings=readings["kernel"],
+               extra=f" (S={S}, {len(SEG_DOCS)} documents + a {S - SEG_DOCS[-1][1]}-row -1 tail, H={H} KVH={KVH} "
+                     f"D={D}, {'causal' if causal else 'non-causal'}; {pairs} (q, k) pairs)")
+    del q, k, v, qt, kt, vt, mt, mask, out, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def segment_kernel_rows(gen) -> list:
+    """Phase 34: K2's segment entry at the packed forward's shape, causal
+    (the row of the kernels line) and non-causal, and at D = 64."""
+    H, KVH = 28, 4
+    rows = [seg_k2_row(gen, H, KVH, 128, True, "flash_attention[segments]"),
+            seg_k2_row(gen, H, KVH, 128, False, "flash_attention[segments, non-causal]"),
+            seg_k2_row(gen, *SEG_NARROW_HEADS, 64, True, "flash_attention[segments, D=64]")]
+    report_rows(rows)
+    return rows[:1]
+
+
+def packed_batch(cfg, seed: int) -> dict:
+    """``pack_rows`` of seeded documents at SEG_DOCS' lengths (labels on
+    their last SEG_TARGET tokens) into one row of PACKED_ROWS."""
+    import numpy as np
+
+    from omchat_torch.cli.train import pack_rows
+
+    rng = np.random.default_rng(seed)
+    row = [(rng.integers(10, cfg.text.vocab_size, e - s).tolist(), SEG_TARGET) for s, e in SEG_DOCS]
+    return {k: v.to(DEVICE) for k, v in pack_rows([row], PACKED_ROWS).items()}
+
+
+def packed_forward(seed: int) -> dict:
+    """Phase 35: ``loss_fn(attn_impl=None)`` over the full-depth Qwen2-7B trunk
+    (random bf16 weights) on one packed 4096-row text batch, against the plain
+    route's packed loss and each route's documents run one at a time (the
+    label-weighted mean of their losses; the max |logit| gap over the
+    labelled rows), within ``PACKED_LIMITS``; the planted fault (the pack
+    without its segment ids: every document attends to the ones before it)
+    must read past them."""
+    import torch
+
+    from omchat_torch.config import OmChatConfig
+    from omchat_torch.models import qwen2
+    from omchat_torch.models.omchat import fuse_embeddings
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.training.train_step import loss_fn, shift_labels
+
+    cfg = OmChatConfig()
+    params = {"language_model": qwen2.init_params(cfg.text, torch.Generator(device=DEVICE).manual_seed(seed),
+                                                  torch.bfloat16)}
+    batch = packed_batch(cfg, seed)
+    labelled = shift_labels(batch["labels"])[0] >= 0
+
+    def logits(b, impl):
+        embeds = fuse_embeddings(params, b["token_ids"], b["is_image"], b["image_index"], None)
+        hidden, _ = qwen2.qwen2_forward(params["language_model"], cfg.text, embeds, b["positions"], attn_impl=impl,
+                                        segment_ids=b.get("segment_ids"))
+        return qwen2.lm_head(params["language_model"], cfg.text, hidden)[0]
+
+    def one_at_a_time(impl, packed_logits):
+        """Each document alone, without segment ids: (label-weighted mean
+        loss, labels, max |logit| gap from ``packed_logits`` on its labelled
+        rows)."""
+        total, count, gap = 0.0, 0, 0.0
+        for s, e in SEG_DOCS:
+            single = {k: v[:, s:e] for k, v in batch.items() if k != "segment_ids"}
+            one, m = loss_fn(params, cfg, single, attn_impl=impl, remat=False)
+            total += float(one) * int(m)
+            count += int(m)
+            rows = labelled[s:e]
+            gap = max(gap, float((logits(single, impl)[rows] - packed_logits[s:e][rows]).abs().max()))
+        return total / count, count, gap
+
+    res, ms = {}, {}
+    with torch.no_grad():
+        for route, impl in (("kernels", None), ("plain", "plain")):
+            loss_fn(params, cfg, batch, attn_impl=impl, remat=False)  # warm-up
+            fa.flash_attention.seg_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, n = loss_fn(params, cfg, batch, attn_impl=impl, remat=False)
+            torch.cuda.synchronize()
+            ms[route] = (time.perf_counter() - t0) * 1e3
+            if route == "kernels":
+                seg_launches = fa.flash_attention.seg_launches
+            packed_logits = logits(batch, impl)
+            mean, count, gap = one_at_a_time(impl, packed_logits)
+            if count != int(n) or not math.isfinite(float(loss)):
+                raise AssertionError(f"packed forward ({route}): {count} labels one at a time vs {int(n)} packed, "
+                                     f"loss {float(loss)}")
+            res[route] = {"packed": float(loss), "one_at_a_time": mean, "max_logit_gap": gap}
+            del packed_logits
+        unsegmented = {k: v for k, v in batch.items() if k != "segment_ids"}
+        fault_loss, _ = loss_fn(params, cfg, unsegmented, attn_impl=None, remat=False)
+        fault_logits = logits(unsegmented, None)
+        _, _, fault_gap = one_at_a_time(None, fault_logits)
+    k, p = res["kernels"], res["plain"]
+    gaps = {"plain: packed vs one at a time": {"loss": abs(p["packed"] - p["one_at_a_time"]),
+                                               "logit": p["max_logit_gap"]},
+            "kernels: packed vs one at a time": {"loss": abs(k["packed"] - k["one_at_a_time"]),
+                                                 "logit": k["max_logit_gap"]},
+            "kernels packed vs plain packed": {"loss": abs(k["packed"] - p["packed"])},
+            "fault, segment ids dropped: vs one at a time": {"loss": abs(float(fault_loss) - k["one_at_a_time"]),
+                                                             "logit": fault_gap}}
+    out = {"card": CARD, "losses": res, "gaps": gaps, "limits": PACKED_LIMITS, "k2_segment_launches": seg_launches,
+           "loss_fn_ms": ms, "rows": PACKED_ROWS, "documents": [e - s for s, e in SEG_DOCS],
+           "labels": int(n), "layers": cfg.text.num_hidden_layers}
+    log("packed forward (full depth, loss_fn attn_impl=None vs plain): " + json.dumps(out))
+    del params, batch, fault_logits
+    torch.cuda.empty_cache()
+    if seg_launches != cfg.text.num_hidden_layers:
+        raise AssertionError(f"packed forward: K2's segment entry launched {seg_launches} times, not once a layer")
+    for what in ("kernels: packed vs one at a time", "kernels packed vs plain packed"):
+        for metric, gap in gaps[what].items():
+            if gap > PACKED_LIMITS[metric]:
+                raise AssertionError(f"packed forward: {what}, {metric} gap {gap:.4g} past {PACKED_LIMITS[metric]:.4g}")
+    fault = gaps["fault, segment ids dropped: vs one at a time"]
+    if all(fault[m] <= PACKED_LIMITS[m] for m in fault):
+        raise AssertionError(f"packed forward: the planted fault (segment ids dropped) reads {fault}, within "
+                             f"{PACKED_LIMITS}")
+    return out
+
+
+def write_byte_tokenizer(directory: str) -> None:
+    """A byte-level BPE tokenizer in HF format (256 byte tokens, the ChatML
+    markers after them), built locally: what ``load_pretrained_model`` reads
+    beside the weights.  Its ids stay below every vocab of the repo."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {ch: i for i, ch in enumerate(sorted(pre_tokenizers.ByteLevel.alphabet()))}
+    vocab["<|im_start|>"], vocab["<|im_end|>"] = len(vocab), len(vocab) + 1
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=[]))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    PreTrainedTokenizerFast(tokenizer_object=tok, eos_token="<|im_end|>").save_pretrained(directory)
+
+
+def export_round_trip(seed: int, directory: str) -> dict:
+    """Phase 36: the full-width model at EXPORT_LAYERS layers (random bf16
+    weights) through ``export_hf_bundle`` into ``directory`` and back through
+    ``load_pretrained_model`` on the card: every tensor bitwise, the config
+    equal, and phase 3's request giving the in-memory engine's greedy tokens
+    through the kernels (K1-K4 launched)."""
+    import torch
+
+    from omchat_torch.api import load_pretrained_model
+    from omchat_torch.checkpoint.save import export_hf_bundle
+    from omchat_torch.config import GenerationConfig, OmChatConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.utils.tree import tree_items
+
+    full = OmChatConfig()
+    cfg = dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_hidden_layers=EXPORT_LAYERS[0]),
+                              text=dataclasses.replace(full.text, num_hidden_layers=EXPORT_LAYERS[1]))
+    params = build_model(cfg, seed)
+    src, bundle = os.path.join(directory, "tokenizer"), os.path.join(directory, "bundle")
+    write_byte_tokenizer(src)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_hf_bundle(cfg, params, bundle, source_dir=src)
+    write_s = time.perf_counter() - t0
+    gib = sum(os.path.getsize(os.path.join(bundle, f)) for f in os.listdir(bundle)) / 2**30
+    t0 = time.perf_counter()
+    model = load_pretrained_model(bundle, dtype=torch.bfloat16, device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if model.config != cfg:
+        raise AssertionError(f"export: the bundle's config differs: {model.config} vs {cfg}")
+    got = dict(tree_items(model.engine.params))
+    want = dict(tree_items(params))
+    if got.keys() != want.keys():
+        raise AssertionError(f"export: the loaded tree's leaves differ: {sorted(set(got) ^ set(want))}")
+    differ = [".".join(p) for p, t in want.items() if not torch.equal(got[p], t)]
+    if differ:
+        raise AssertionError(f"export: {len(differ)} tensors not bitwise after the round trip: {differ[:5]}")
+    ids, tiles = make_request(cfg, seed)
+    gen = GenerationConfig(max_new_tokens=PARITY_STEPS, eos_token_id=-1)
+    want_tokens = OmChatEngine(cfg, params, image_cache_size=0, device=DEVICE).generate([ids], tiles, gen).token_ids
+    counted = counters()
+    for c in counted.values():
+        c.launches = 0
+    got_tokens = model.engine.generate([ids], tiles, gen).token_ids
+    launches = {name: c.launches for name, c in counted.items()}
+    res = {"card": CARD, "layers": EXPORT_LAYERS, "bundle_gib": gib, "files": sorted(os.listdir(bundle)),
+           "write_s": write_s, "load_s": load_s, "tensors_bitwise": len(want), "tokens": got_tokens[0],
+           "launches": launches}
+    log("export round trip (export_hf_bundle -> load_pretrained_model): " + json.dumps(res))
+    if got_tokens != want_tokens:
+        raise AssertionError(f"export: the loaded engine's tokens {got_tokens} differ from the in-memory "
+                             f"engine's {want_tokens}")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"export: kernels never launched on the loaded model's request: {missing}")
+    del model, params
+    torch.cuda.empty_cache()
+    return {"bundle": bundle, "cfg": cfg, "ids": ids, "tiles": tiles}
+
+
+def parity_on_the_card(exported: dict) -> dict:
+    """Phase 37: ``run_parity`` on phase 36's bundle: the bundle's own
+    remote-code twin in fp32 on the card against the port's engine on the
+    kernels in bf16, on the plain route in bf16 and on the plain route in
+    fp32; then layer 0's q_proj transposed in the twin, which must fail the
+    kernels' limit."""
+    import torch
+
+    from omchat_torch.api import load_pretrained_model
+    from omchat_torch.eval.parity import load_torch_twin, run_parity
+
+    bundle, ids, tiles = exported["bundle"], exported["ids"], exported["tiles"]
+    t0 = time.perf_counter()
+    twin, source = load_torch_twin(bundle, device=DEVICE)
+    twin_s = time.perf_counter() - t0
+    if source != "remote_code":
+        raise AssertionError(f"parity: the bundle's twin came from {source}, not its own code")
+    reports = {}
+    for route, impl, dtype in (("kernels bf16", None, torch.bfloat16), ("plain bf16", "plain", torch.bfloat16),
+                               ("plain fp32", "plain", torch.float32)):
+        model = load_pretrained_model(bundle, dtype=dtype, attn_impl=impl, device=DEVICE)
+        t0 = time.perf_counter()
+        reports[route] = run_parity(model, twin, ids, tiles, max_new_tokens=PARITY_STEPS, per_module=True)
+        reports[route]["s"] = time.perf_counter() - t0
+        if route == "kernels bf16":
+            kernels_model = model
+        else:
+            del model
+    q_proj = twin.get_submodule("language_model.model.layers.0.self_attn.q_proj")
+    w = q_proj.weight.data.clone()
+    q_proj.weight.data = w.t().contiguous()
+    fault = run_parity(kernels_model, twin, ids, tiles, max_new_tokens=PARITY_STEPS)
+    q_proj.weight.data = w
+    limit = 1.5 * reports["plain bf16"]["max_logit_diff"]
+    keys = ("argmax_match_rate", "first_divergence_step", "max_logit_diff", "mean_logit_diff",
+            "engine_matches_torch", "s")
+    res = {"card": CARD, "twin": source, "twin_load_s": twin_s, "steps": PARITY_STEPS,
+           **{route: {k: r[k] for k in keys} | {"per_module": r["per_module"]} for route, r in reports.items()},
+           "kernels_limit": limit, "fp32_limit": PARITY_FP32_LIMIT,
+           "fault q_proj transposed": {k: fault[k] for k in keys if k != "s"}}
+    log("parity (run_parity on the bundle, remote-code twin fp32 on the card): " + json.dumps(res))
+    del kernels_model, twin
+    torch.cuda.empty_cache()
+    if reports["kernels bf16"]["max_logit_diff"] > limit:
+        raise AssertionError(f"parity: the kernels' max |logit diff| {reports['kernels bf16']['max_logit_diff']:.4g}"
+                             f" past 1.5 x the plain route's {limit:.4g}")
+    if reports["plain fp32"]["max_logit_diff"] > PARITY_FP32_LIMIT:
+        raise AssertionError(f"parity: the fp32 plain engine's max |logit diff| "
+                             f"{reports['plain fp32']['max_logit_diff']:.4g} past {PARITY_FP32_LIMIT:.4g}")
+    if fault["max_logit_diff"] <= limit:
+        raise AssertionError(f"parity: the planted fault (q_proj transposed) reads {fault['max_logit_diff']:.4g}, "
+                             f"within the limit {limit:.4g}")
+    return res
+
+
+def a12_on_the_card(gen, seed: int) -> tuple:
+    """Phases 34-37; returns (kernel rows, {row name: launches on the packed
+    forward})."""
+    import tempfile
+
+    rows = segment_kernel_rows(gen)
+    packed = packed_forward(seed)
+    with tempfile.TemporaryDirectory(prefix="omchat_export_") as d:
+        parity_on_the_card(export_round_trip(seed, d))
+    return rows, {rows[0]["name"]: packed["k2_segment_launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -7819,6 +8222,9 @@ def main() -> int:
                                 "decode_step_wall_ms_16_slots", "pages_free")}
          for ps, r in ((128, serve), (64, ps64))}))
     vit5, k5_row = vit_without_qk_norm(gen, args.seed, shapes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    a12_rows, a12_launches = a12_on_the_card(gen, args.seed)
 
     # each kernel's launches on its own main path: K1-K4 on the single-image
     # request (phase 3), K12, K14 and K15 in the timed serving run (phase 5),
@@ -7857,14 +8263,16 @@ def main() -> int:
                 **slot_launches,
                 # phase 31: K2 at D = 64 / 72 in the CLIP-L, InternViT-300M and SigLIP runs; phase 33: K2-K4
                 # at group 1 on the MoE trunk's single request, K12 / K14 / K15 in its serving run
-                **tower_launches, **moe_launches}
+                **tower_launches, **moe_launches,
+                # phase 35: K2's segment entry in the packed forward at full depth
+                **a12_launches}
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
     } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows + ps_rows + [k5_row, k6_row] + surface_rows
-        + routes_rows + slot_rows + tower_rows + moe_rows]
+        + routes_rows + slot_rows + tower_rows + moe_rows + a12_rows]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

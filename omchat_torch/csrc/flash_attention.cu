@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel omchat_tpu/ops/flash_attention.py:246 flash_attention
 // (body _attn_core, :35; pallas_call :462) on the Qwen2 prefill path (the
-// single request, and the batched short prefill of the paged engine), without
-// segment ids.
+// single request, and the batched short prefill of the paged engine), and its
+// segment-ids body _attn_kernel_seg (:208) on the packed forward
+// (omchat_flash_attention_seg: qwen2_forward(segment_ids=) on the kernel
+// route, a packed batch's loss without its backward).
 //
 //   q   [B, S, H, D] bf16, already multiplied (in bf16) by D^-0.5 * log2(e);
 //       D a multiple of 8 from 8 to 128 (128 on the LLM, 64 and 72 on the
@@ -17,6 +19,16 @@
 //   out [B, S, H, D] bf16
 // Rows whose position is at or past kv_len are unspecified (a causal row tile
 // wholly past it writes zeros); a batch with kv_len 0 writes zeros.
+//
+// With segment ids (omchat_flash_attention_seg): seg [B, S] int32, T == S and
+// no q_offset; row i attends to column j only where seg[j] == seg[i] >= 0, so
+// a row of padding (a negative id) writes zeros.  The block lists the kv tiles
+// whose id ranges meet its rows' before its loop (list_meeting_tiles) and
+// loads only those, as the TPU kernel windows its kv blocks per q block
+// (flash_attention.py:359-377); every listed tile is masked, because a
+// document boundary may cut any tile.  The work a packed batch needs is each
+// document's own triangle (or square), which the tile list brings the kernel
+// to within the tiles that a boundary cuts.
 //
 // What bounds it on the H100: at the main-path shape (S=3200, T=3328, H=28,
 // KVH=4, causal) the work is ~77 GFLOP against ~30 MB of q/k/v/out, so
@@ -38,11 +50,11 @@
 namespace {
 
 // Element strides (head, row, batch) of q, k and v.
-template <bool E4M3>
+template <bool E4M3, bool SEG = false>
 int launch(const void* q, long long q_sh, long long q_sr, long long q_sb, const void* k, long long k_sh,
            long long k_sr, long long k_sb, const void* v, long long v_sh, long long v_sr, long long v_sb, void* out,
            const void* q_offset, const void* kv_len, int B, int S, int H, int KVH, int T, int D, int causal,
-           void* stream) {
+           void* stream, const void* seg = nullptr) {
     if (D < 8 || D > fwd90::HD || D % 8 || (E4M3 && D != fwd90::HD)) return (int)cudaErrorInvalidValue;
     fwd90::Params p{};
     p.head_dim = D;
@@ -55,10 +67,11 @@ int launch(const void* q, long long q_sh, long long q_sr, long long q_sb, const 
     p.causal = causal;
     p.q_scale = 1.f;
     p.mask_value = OMCHAT_MASK_VALUE;
+    p.seg = (const int*)seg;
     const long long qs[3] = {q_sh, q_sr, q_sb}, ks[3] = {k_sh, k_sr, k_sb}, vs[3] = {v_sh, v_sr, v_sb};
     CUtensorMap mq, mk, mv;
     if (!fwd90::dense_maps(&mq, &mk, &mv, p, q, qs, k, ks, v, vs, E4M3 ? 1 : 2)) return (int)cudaErrorInvalidValue;
-    return fwd90::launch<E4M3, E4M3>(mq, mk, mv, p, stream);
+    return fwd90::launch<E4M3, E4M3, false, SEG>(mq, mk, mv, p, stream);
 }
 
 }  // namespace
@@ -79,4 +92,15 @@ extern "C" int omchat_flash_attention_e4m3(const void* q, long long q_sh, long l
                                            int T, int D, int causal, void* stream) {
     return launch<true>(q, q_sh, q_sr, q_sb, k, k_sh, k_sr, k_sb, v, v_sh, v_sr, v_sb, out, q_offset, kv_len, B, S,
                         H, KVH, T, D, causal, stream);
+}
+
+// Segment ids seg [B, S] int32 (T == S, no q_offset), bf16 q / k / v.
+extern "C" int omchat_flash_attention_seg(const void* q, long long q_sh, long long q_sr, long long q_sb,
+                                          const void* k, long long k_sh, long long k_sr, long long k_sb,
+                                          const void* v, long long v_sh, long long v_sr, long long v_sb, void* out,
+                                          const void* seg, const void* kv_len, int B, int S, int H, int KVH, int D,
+                                          int causal, void* stream) {
+    if (!seg) return (int)cudaErrorInvalidValue;
+    return launch<false, true>(q, q_sh, q_sr, q_sb, k, k_sh, k_sr, k_sb, v, v_sh, v_sr, v_sb, out, nullptr, kv_len,
+                               B, S, H, KVH, S, D, causal, stream, seg);
 }

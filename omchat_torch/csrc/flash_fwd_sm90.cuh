@@ -2,7 +2,9 @@
 // causal GQA prefill over the cache, bf16 or e4m3), K14
 // (paged_flash_prefill.cu: K2 through page tables), K1 / K5
 // (packed_qkv_norm_attention.cu: non-causal packed ViT attention) and K16a
-// (flash_attention_bwd.cu: the training forward, with lse and segment ids).
+// (flash_attention_bwd.cu: the training forward, with lse and segment ids);
+// K2 takes the segment ids too (omchat_flash_attention_seg, the packed
+// forward without lse).
 // Head width 128; K2 also takes any multiple of 8 from 8 to 128 (the towers'
 // 64 and 72): its maps declare the true width, so TMA fills the tile's columns
 // past it with zeros, which add nothing to q . k and give output columns that
@@ -19,8 +21,9 @@
 //   p_j = exp2(s_j - m) under the online softmax, l = sum of the unrounded p,
 //   out_i = sum_j round(p_j) v_j / l, p rounded to bf16 (P8, K2 on an e4m3
 //   cache: to e4m3 against the running max, then widened exactly), and a row
-//   with no column writes zeros; LSE also writes the natural-log
-//   lse[b, h, i] = (m + log2 l) ln 2, -inf for a row with no column.
+//   with no column, or (SEG) of padding, writes zeros; LSE also writes the
+//   natural-log lse[b, h, i] = (m + log2 l) ln 2, -inf for a row with no
+//   column.
 //
 // The block: 128 q rows of one q head and batch.  Two consumer warpgroups of
 // 64 rows, then one producer warp whose one thread issues every TMA load: Q
@@ -377,7 +380,10 @@ flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
         if (row >= p.S) continue;
-        const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+        // a row of padding (SEG, a negative id) has no column even where the
+        // finite mask value of K2 left l > 0
+        const bool live = l[r] > 0.f && (!SEG || sq[r] >= 0);
+        const float inv = live ? 1.f / l[r] : 0.f;
         bf16* op = out_b + row * p.out_row;
 #pragma unroll
         for (int n = 0; n < 16; ++n)
@@ -385,7 +391,7 @@ flash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
                 *reinterpret_cast<uint32_t*>(op + 8 * n + 2 * t) =
                     pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
         if constexpr (LSE)
-            if (t == 0) lse_b[row] = l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : -INFINITY;
+            if (t == 0) lse_b[row] = live ? (m[r] + log2f(l[r])) * LN2 : -INFINITY;
     }
 }
 

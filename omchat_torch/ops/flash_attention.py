@@ -13,7 +13,8 @@ PyTorch port of ``omchat_tpu/ops/flash_attention.py``.  Each kernel comes as
   without tiling: the CPU tests run it and ``chip_smoke.py`` holds the kernel
   against it;
 - a launch counter, ``<wrapper>.launches``, raised by one at every kernel
-  launch and nowhere else.
+  launch and nowhere else (K2's segment-ids entry counts apart, in
+  ``flash_attention.seg_launches``).
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ _PACKED_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * 3 + [c
                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _K2_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong] * 3
             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+# K2 with segment ids: q, k, v as above, out, seg, kv_len, B, S, H, KVH, D, causal, stream
+_K2_SEG_ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong] * 3
+                + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
 def _require_cuda(name: str, *tensors: torch.Tensor, cache=()) -> str:
@@ -302,7 +306,10 @@ def flash_attention_plain(q, k, v, *, causal: bool, q_offset, kv_len, segment_id
     q pre-scaled in its dtype, fp32 scores in the exp2 domain, the finite
     mask value, p rounded to v's dtype for the PV product (to e4m3 on an fp8
     cache, as the TPU kernel's ``p.astype(v.dtype)``); a row with no valid
-    column outputs zeros."""
+    column outputs zeros.  With ``segment_ids`` [B, S] (S == T) a column is
+    valid only where its id equals the row's, so a row of padding (id -1,
+    past ``kv_len``) outputs zeros too; the TPU kernel leaves such a row
+    unspecified (its finite mask value averages v over the tiles it visited)."""
     B, S, H, D = q.shape
     KVH, T = k.shape[1], k.shape[2]
     G = H // KVH
@@ -342,26 +349,50 @@ def flash_attention(
     ("btnd") or [B, KVH, T, D] ("bntd", the cache layout the kernel reads;
     bfloat16 or e4m3 on CUDA).  Returns [B, S, H, D] in q.dtype; semantics of
     ``attention_reference``.  On CUDA, D is any width that
-    :func:`k2_head_dim_supported` takes; another raises."""
+    :func:`k2_head_dim_supported` takes; another raises.
+
+    ``segment_ids`` [B, S] int32 (multi-document packing, -1 = padding):
+    self-attention only (S == T, else ValueError, as in JAX), ``kv_len``
+    defaulting to each row's count of ids >= 0 (flash_attention.py:333-337);
+    on CUDA ``omchat_flash_attention_seg`` over a bf16 K / V without
+    ``q_offset`` (the e4m3 cache never carries segments)."""
     if kv_format == "btnd":
         k, v = k.transpose(1, 2), v.transpose(1, 2)
     elif kv_format != "bntd":
         raise ValueError(f"unknown kv_format {kv_format!r}")
     B, S, H, D = q.shape
     KVH, T = k.shape[1], k.shape[2]
+    if segment_ids is not None:
+        if S != T:
+            raise ValueError("segment_ids packing requires self-attention (S == T)")
+        if kv_len is None:
+            kv_len = (segment_ids >= 0).sum(dim=1, dtype=torch.int32)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, segment_ids=segment_ids)
     suffix = _require_cuda("flash_attention", q, cache=(k, v))
-    if segment_ids is not None:
-        raise NotImplementedError("flash_attention: segment_ids packing has no CUDA kernel yet")
+    if segment_ids is not None and (suffix or q_offset is not None):
+        raise ValueError("flash_attention: segment_ids take a bf16 K / V and no q_offset on CUDA (the packed "
+                         "forward is cacheless)")
     if not k2_head_dim_supported(D, e4m3=bool(suffix)) or H % KVH != 0 or k.shape != v.shape:
         raise ValueError(f"flash_attention: head_dim {D}{' on an e4m3 cache' if suffix else ''}, heads {H}/{KVH}, "
                          f"k {tuple(k.shape)} / v {tuple(v.shape)} unsupported by the CUDA kernel")
     ks, vs = _tma_strides("flash_attention", "k", k), _tma_strides("flash_attention", "v", v)
     qs = _prescale_q(q).contiguous()
-    q_off = per_batch(q_offset, B, T - S, q.device)
     kvl = per_batch(kv_len, B, T, q.device)
     out = torch.empty_like(qs)
+    if segment_ids is not None:
+        seg = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+        if seg.shape != (B, S):
+            raise ValueError(f"flash_attention: segment_ids {tuple(seg.shape)}, expected {(B, S)}")
+        kernel_lib.launch(
+            "flash_attention.cu", "omchat_flash_attention_seg", _K2_SEG_ARGS,
+            kernel_lib.ptr(qs), D, H * D, S * H * D, kernel_lib.ptr(k), ks[1], ks[2], ks[0],
+            kernel_lib.ptr(v), vs[1], vs[2], vs[0], *map(kernel_lib.ptr, (out, seg, kvl)), B, S, H, KVH, D,
+            int(causal), kernel_lib.stream_ptr(q.device),
+        )
+        flash_attention.seg_launches += 1
+        return out
+    q_off = per_batch(q_offset, B, T - S, q.device)
     kernel_lib.launch(
         "flash_attention.cu", "omchat_flash_attention" + suffix, _K2_ARGS,
         kernel_lib.ptr(qs), D, H * D, S * H * D, kernel_lib.ptr(k), ks[1], ks[2], ks[0],
@@ -372,4 +403,5 @@ def flash_attention(
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0  # omchat_flash_attention / _e4m3
+flash_attention.seg_launches = 0  # omchat_flash_attention_seg

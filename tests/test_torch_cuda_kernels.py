@@ -1684,3 +1684,61 @@ def test_paged_kernels_at_group_1(gen):
     for b, n in enumerate(lengths):
         rows = n - int(qo[b])
         torch.testing.assert_close(out[b, :rows].float(), ref[b, :rows].float(), **TOL)
+
+
+def _packed_seg(B, S, cuts, tail):
+    """[B, S] int32 segment ids: documents between ``cuts`` (row b's cuts
+    shifted by 37 b), then a -1 tail of ``tail`` rows."""
+    seg = torch.full((B, S), -1, dtype=torch.int32, device="cuda")
+    for b in range(B):
+        edges = [0] + [min(c + 37 * b, S - tail) for c in cuts] + [S - tail]
+        for i in range(len(edges) - 1):
+            seg[b, edges[i]:edges[i + 1]] = i
+    return seg
+
+
+@pytest.mark.parametrize(
+    "B,S,H,KVH,D,cuts,tail,causal",
+    [(1, 700, 28, 4, 128, [100, 260, 300, 511], 40, True),
+     (1, 700, 28, 4, 128, [100, 260, 300, 511], 40, False),
+     (2, 384, 16, 16, 64, [127, 128, 200], 1, True),
+     (2, 385, 8, 1, 72, [64, 192, 320], 0, False),
+     (1, 4096, 28, 4, 128, [900, 1500, 2400, 3100], 300, True)],
+    ids=["causal_group7", "noncausal_group7", "causal_mha_d64_edges", "noncausal_group8_d72", "chip_smoke_shape"])
+def test_flash_attention_kernel_with_segment_ids(gen, B, S, H, KVH, D, cuts, tail, causal):
+    """K2's segment-ids entry against its plain version on every row: valid
+    rows within the bf16 tolerance, padding rows (-1) zeros in both; a kv_len
+    below the count of valid ids masks the columns past it."""
+    q, k, v = _randn(gen, B, S, H, D), _randn(gen, B, S, KVH, D), _randn(gen, B, S, KVH, D)
+    seg = _packed_seg(B, S, cuts, tail)
+    n0, s0 = fa.flash_attention.launches, fa.flash_attention.seg_launches
+    out = fa.flash_attention(q, k, v, causal=causal, segment_ids=seg)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention.seg_launches) == (n0, s0 + 1)
+    kl = (seg >= 0).sum(1, dtype=torch.int32)
+    ref = fa.flash_attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), causal=causal, q_offset=None, kv_len=kl,
+                                   segment_ids=seg)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    assert bool((out[seg < 0] == 0).all())
+    short = kl - 50
+    out = fa.flash_attention(q, k, v, causal=causal, segment_ids=seg, kv_len=short)
+    ref = fa.flash_attention_plain(q, k.transpose(1, 2), v.transpose(1, 2), causal=causal, q_offset=None,
+                                   kv_len=short, segment_ids=seg)
+    for b in range(B):
+        rows = int(short[b])
+        torch.testing.assert_close(out[b, :rows].float(), ref[b, :rows].float(), **TOL)
+
+
+def test_flash_attention_segment_ids_refusals(gen):
+    """Segment ids with S != T, with an e4m3 K / V or with a q_offset raise
+    before any launch."""
+    s0 = fa.flash_attention.seg_launches
+    q, k = _randn(gen, 1, 64, 4, 128), _randn(gen, 1, 64, 2, 128)
+    seg = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="S == T"):
+        fa.flash_attention(q[:, :32], k, k, causal=True, segment_ids=seg[:, :32])
+    with pytest.raises(ValueError, match="bf16 K / V and no q_offset"):
+        fa.flash_attention(q, to_e4m3(k), to_e4m3(k), causal=True, segment_ids=seg)
+    with pytest.raises(ValueError, match="bf16 K / V and no q_offset"):
+        fa.flash_attention(q, k, k, causal=True, segment_ids=seg, q_offset=0)
+    assert fa.flash_attention.seg_launches == s0
