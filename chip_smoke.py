@@ -344,6 +344,25 @@
     wall ms at world 1 and 2, the collectives' share of a step and each
     rank's peak GiB are printed: the ranks share one card, so they show the
     collectives' overhead, not scaling.
+39. Tensor-parallel serving, two ranks spawned on the one card over gloo
+    (``run_ranks``), each holding its shard of seeded weights built one
+    layer at a time (``layerwise_model``: the same weights at any tp).
+    (a) Full width, 2 ViT + 2 trunk layers: ``OmChatEngine`` on phase 3's
+    request, ``PagedBatchEngine`` and ``BatchEngine`` on phase 7's 4
+    requests, at tp 2 on the kernels and on ``attn_impl="plain"``, against
+    the same engines on one device and the same route: first-token logits
+    within phase 4's limits, tokens by phase 7's rule; every rank's
+    launches by the per-layer formula (the one-device counts, each ViT
+    layer's K1 a K2 on the rank's heads); three planted faults (o_proj's
+    row-parallel reduce dropped, the cache written with the other rank's kv
+    heads, the vocabulary blocks gathered in reversed rank order) must leave
+    phase 4's limits.  (b) Full width and depth: phase 3's
+    request at tp 2 (TTFT, ViT / prefill / decode ms, eager decode ms a
+    step, each rank's peak GiB, the collectives' share of a decode step)
+    and phase 5's workload through ``PagedBatchEngine`` (tokens/s, TTFT p50
+    / p99), printed beside world 1's phase 3 / 5 numbers; the first-token
+    logits' gap to world 1 on the kernels within ``SERVING_TP_BAR`` x the
+    plain route's gap (C4's rule), and the o_proj fault outside it.
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -8465,6 +8484,428 @@ def parallel_training(seed: int) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 39: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+SERVING_TP_LAYERS = (2, 2)
+SERVING_TP_FAULTS = ("o_proj_reduce_dropped", "kv_heads_of_the_other_rank", "vocab_blocks_reversed")
+SERVING_TP_FAULT_STEPS = 4  # a fault's step logits are compared over this many steps
+# (b): the kernels' first-token logit gap, tp 2 against world 1, within this many
+# times the plain route's gap on the same weights (how C4 was settled)
+SERVING_TP_BAR = 1.5
+SERVING_TP_WARM = 4  # new tokens of the warm-up requests
+
+
+def layerwise_model(cfg, seed: int, mesh=None) -> dict:
+    """Random bf16 weights whose every layer is drawn from a generator of
+    its own (seed, tower, layer), built one layer at a time: with ``mesh``
+    this rank's shard (``parallel.sharding.shard_stacked``), so no rank
+    holds the whole tree.  The same weights at any tp."""
+    import torch
+
+    from omchat_torch.models import intern_vit, projector, qwen2
+    from omchat_torch.parallel.sharding import omchat_param_specs, shard_params, shard_stacked
+
+    bf = torch.bfloat16
+
+    def gen(tower: int, i: int):
+        return torch.Generator(device=DEVICE).manual_seed(seed * 1_000_003 + tower * 10_007 + i)
+
+    one_v = dataclasses.replace(cfg.vision, num_hidden_layers=1)
+    one_t = dataclasses.replace(cfg.text, num_hidden_layers=1)
+    vit, text = intern_vit.init_params(one_v, gen(1, 0), bf), qwen2.init_params(one_t, gen(2, 0), bf)
+    del vit["layers"], text["layers"]
+    rest = {"vision_tower": vit, "language_model": text,
+            "projector": projector.init_params(cfg.projector, cfg.vision.hidden_size, cfg.text.hidden_size,
+                                               gen(3, 0), bf)}
+    specs = omchat_param_specs(cfg, rest)
+    params = rest if mesh is None else shard_params(rest, mesh, specs)
+    del rest
+    params["vision_tower"]["layers"] = shard_stacked(
+        lambda i: intern_vit.init_params(one_v, gen(1, i + 1), bf)["layers"], cfg.vision.num_hidden_layers, mesh,
+        specs["vision_tower"]["layers"], DEVICE)
+    params["language_model"]["layers"] = shard_stacked(
+        lambda i: qwen2.init_params(one_t, gen(2, i + 1), bf)["layers"], cfg.text.num_hidden_layers, mesh,
+        specs["language_model"]["layers"], DEVICE)
+    return params
+
+
+@contextlib.contextmanager
+def serving_tp_fault(fault, mesh):
+    """Swap a planted serving fault into the modules the engines reach:
+    o_proj's row-parallel reduce dropped in every layer (the MLP's and the
+    embedding's reduce are made in their own functions), the cache written
+    with the next rank's kv heads (the prefill's write, which its attention
+    then reads, and the decode's row commit), the vocabulary blocks gathered
+    in reversed rank order."""
+    import torch
+
+    from omchat_torch.models import qwen2
+    from omchat_torch.parallel import comm
+
+    saved = []
+
+    def swap(name, fn):
+        saved.append((name, getattr(qwen2, name)))
+        setattr(qwen2, name, fn)
+
+    if fault == "o_proj_reduce_dropped":
+        reduce = qwen2.reduce_from_axis
+        swap("reduce_from_axis", lambda x, m, axis="model": (
+            x if sys._getframe(1).f_code.co_name == "decoder_layer" else reduce(x, m, axis)))
+    elif fault == "kv_heads_of_the_other_rank":
+        commit, attend = qwen2.commit_decode_rows, qwen2.cache_attend
+        tp, me = mesh.axis_size("model"), mesh.axis_index("model")
+
+        def other(rows):  # [..., KVH/tp, D] at dim 2: the next rank's kv heads
+            return comm._gather(rows.contiguous(), mesh.group("model"), 2).chunk(tp, 2)[(me + 1) % tp].contiguous()
+
+        swap("commit_decode_rows", lambda cache, wp, k, v, impl=None: commit(cache, wp, other(k), other(v), impl))
+        swap("cache_attend", lambda impl, wp, starts, kv_len, kc, vc, q, k, v, seg=None: attend(
+            impl, wp, starts, kv_len, kc, vc, q, other(k), other(v), seg))
+    elif fault == "vocab_blocks_reversed":
+        swap("gather_vocab", lambda logits, vocab_size, m: torch.cat(
+            comm._gather(logits.contiguous(), m.group("model"), 0).chunk(m.axis_size("model"), 0)[::-1], dim=-1))
+    try:
+        yield
+    finally:
+        for name, fn in reversed(saved):
+            setattr(qwen2, name, fn)
+
+
+def serving_tp_cfg(layers=None):
+    from omchat_torch.config import OmChatConfig
+
+    full = OmChatConfig()
+    if layers is None:
+        return full
+    v, t = layers
+    return dataclasses.replace(full, vision=dataclasses.replace(full.vision, num_hidden_layers=v),
+                               text=dataclasses.replace(full.text, num_hidden_layers=t))
+
+
+def serving_tp_engines(cfg, params, seed: int, impl, mesh=None, fault=None) -> dict:
+    """The three engines on one route at 2+2 layers: the single-request
+    engine on phase 3's request (each step's logits), the paged and the slot
+    engine on phase 7's 4 requests (first-token logits), each with the
+    launches of its run; eager decode steps, so that a launch count is a
+    count of steps."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.batch_engine import BatchEngine
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    counted = paged_counters()
+    counted["flash_decode_stacked"] = counters()["flash_decode_stacked"]
+
+    def run(fn):
+        for c in counted.values():
+            c.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        res["launches"] = {n: c.launches for n, c in counted.items()}
+        return res
+
+    ids, tiles = make_request(cfg, seed)
+    work = serving_workload(cfg)[:4]
+    gen = GenerationConfig(max_new_tokens=PARITY_NEW_TOKENS, eos_token_id=-1)
+
+    def single():
+        eng = OmChatEngine(cfg, params, attn_impl=impl, image_cache_size=0, decode_graphs=False, mesh=mesh,
+                           device=DEVICE)
+        steps = []
+        out = eng.generate([ids], tiles, gen, logits_callback=lambda s, lg: steps.append(lg[0].float().cpu()))
+        return {"tokens": out.token_ids[0], "logits": steps}
+
+    if fault is not None:
+        with serving_tp_fault(fault, mesh):
+            return single()
+
+    def paged():
+        eng = PagedBatchEngine(cfg, params, attn_impl=impl, image_cache_size=0, device=DEVICE, decode_graphs=False,
+                               mesh=mesh, **SERVING)
+        first = capture_first_logits(eng)
+        rids = drive(eng, work, PARITY_NEW_TOKENS)
+        return {"tokens": [eng.result(r) for r in rids], "first": [first[r][0].cpu() for r in rids]}
+
+    def slot():
+        eng = BatchEngine(cfg, params, attn_impl=impl, device=DEVICE, decode_graphs=False, mesh=mesh, **SLOT_ENGINE)
+        rec = record_slot_run(eng)
+        rids = drive(eng, work, PARITY_NEW_TOKENS)
+        return {"tokens": [eng.result(r) for r in rids], "first": [rec["logits"][r].cpu() for r in rids]}
+
+    res = {"single": run(single), "paged": run(paged), "slot": run(slot)}
+    if mesh is None:  # phase 7's rule reads the single-request engine's step margins of each request
+        eng = OmChatEngine(cfg, params, attn_impl=impl, image_cache_size=0, decode_graphs=False, device=DEVICE)
+        res["margins"] = []
+        for w_ids, w_tiles in work:
+            steps = []
+            eng.generate([w_ids], w_tiles, gen, logits_callback=lambda s, lg: steps.append(lg[0].float()))
+            res["margins"].append([float(t[0] - t[1]) for t in (torch.topk(lg, 2).values for lg in steps)])
+    return res
+
+
+def serving_tp_full(cfg, params, seed: int, mesh=None) -> dict:
+    """Phase 39 (b) on this rank (or world 1 without ``mesh``): phase 3's
+    request's first-token logits on the kernels and on the plain route;
+    with ``mesh`` also the o_proj fault's, the timed request (eager steps),
+    the collectives' share of a decode step and phase 5's workload through
+    the paged engine."""
+    import numpy as np
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.ops.sampling import greedy
+    from omchat_torch.parallel import comm
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    ids, tiles = make_request(cfg, seed)
+
+    def first_logits(impl, fault=None):
+        eng = OmChatEngine(cfg, params, attn_impl=impl, image_cache_size=0, mesh=mesh, device=DEVICE)
+        with serving_tp_fault(fault, mesh) if fault else contextlib.nullcontext():
+            logits, _ = eng.prefill(eng.plan([ids]), eng.encode_images(tiles), 0)
+        return logits[0].float().cpu()
+
+    out = {"logits": {"kernel": first_logits(None), "plain": first_logits("plain")}}
+    if mesh is None:
+        return out
+    out["logits"]["fault"] = first_logits(None, "o_proj_reduce_dropped")
+    counted = {**paged_counters(), "flash_decode_stacked": counters()["flash_decode_stacked"]}
+
+    def launches():
+        torch.cuda.synchronize()
+        got = {n: c.launches for n, c in counted.items()}
+        for c in counted.values():
+            c.launches = 0
+        return got
+
+    eng = OmChatEngine(cfg, params, image_cache_size=0, mesh=mesh, device=DEVICE)
+    eng.generate([ids], tiles, GenerationConfig(max_new_tokens=SERVING_TP_WARM, eos_token_id=-1))
+    torch.cuda.reset_peak_memory_stats()
+    launches()
+    got = eng.generate([ids], tiles, GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_id=-1))
+    sp = eng.spans
+    out["request"] = {"new_tokens": len(got.token_ids[0]), "ttft_ms": sp["ttft"] * 1e3,
+                      "vit_ms": sp["encode_images"] * 1e3, "prefill_ms": sp["prefill"] * 1e3,
+                      "decode_ms": sp["decode"] * 1e3, "decode_ms_a_step": sp["decode"] * 1e3 / sp["decode_steps"],
+                      "graphed": eng.graphed(), "launches": launches()}
+    plan = eng.plan([ids])
+    logits, cache = eng.prefill(plan, eng.encode_images(tiles), 16)
+    tok, kv_len = greedy(logits), torch.as_tensor(plan.lengths, device=DEVICE)
+    comm.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with comm.timing():
+        for _ in range(8):
+            logits, cache = eng.decode_step(tok, kv_len, cache)
+            tok, kv_len = greedy(logits), kv_len + 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["decode_collectives"] = {"share": sum(comm.SECONDS.values()) / wall, "ms_a_step": wall * 1e3 / 8,
+                                 "calls_a_step": {k: v / 8 for k, v in comm.CALLS.items()}}
+    del eng, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    pe = PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, mesh=mesh, **SERVING)
+    work = serving_workload(cfg)
+    drive(pe, work[:3], SERVING_TP_WARM)
+    pe.reset_latency_stats()
+    launches()
+    t0 = time.perf_counter()
+    rids = drive(pe, work, SERVING_NEW_TOKENS)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    lat = pe.latency_stats()
+    toks = [pe.result(r) for r in rids]
+    out["serving"] = {"tokens_per_s": sum(map(len, toks)) / wall, "wall_s": wall,
+                      "ttft_p50_s": lat.get("ttft_p50_s"), "ttft_p99_s": lat.get("ttft_p99_s"),
+                      "rolls_eager": lat["rolls_eager"], "rolls_graphed": lat["rolls_graphed"],
+                      "launches": counts, "all_tokens": all(len(t) == SERVING_NEW_TOKENS for t in toks),
+                      "pages_back": pe.allocator.available == SERVING["num_pages"]}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del pe
+    return out
+
+
+def serving_tp_rank(seed: int, small_ref: dict) -> dict:
+    """Phase 39 in one rank of the world of 2: (a) at 2+2 layers on both
+    routes and the faults, then (b) at full depth."""
+    import torch
+    import torch.distributed as dist
+
+    from omchat_torch.parallel.mesh import create_mesh
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(tp=2)
+    cfg = serving_tp_cfg(SERVING_TP_LAYERS)
+    params = layerwise_model(cfg, seed, mesh)
+    out = {"heads": {"trunk_q": params["language_model"]["layers"]["self_attn"]["q_proj"]["kernel"].shape[-1] // 128,
+                     "trunk_kv": params["language_model"]["layers"]["self_attn"]["k_proj"]["kernel"].shape[-1] // 128,
+                     "vit": params["vision_tower"]["layers"]["attn"]["qkv"]["kernel"].shape[-1] // 3 // 128}}
+    t0 = time.perf_counter()
+    out["small"] = {route: serving_tp_engines(cfg, params, seed, impl, mesh)
+                    for route, impl in (("kernel", None), ("plain", "plain"))}
+    out["faults"] = {f: serving_tp_engines(cfg, params, seed, None, mesh, fault=f) for f in SERVING_TP_FAULTS}
+    out["small_s"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = serving_tp_cfg()
+    params = layerwise_model(cfg, seed, mesh)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["shard_gib"] = torch.cuda.memory_allocated() / 2**30
+    out["full"] = serving_tp_full(cfg, params, seed, mesh)
+    log(f"serving tp rank {dist.get_rank()}: " + json.dumps(
+        {"heads": out["heads"], "build_s": out["build_s"], "shard_gib": out["shard_gib"],
+         "peak_gib": out["full"]["peak_gib"], "request": out["full"]["request"],
+         "decode_collectives": out["full"]["decode_collectives"], "serving": out["full"]["serving"]}))
+    if dist.get_rank() != 0:  # rank 0 brings the logits back; every rank its launches and tokens
+        for route in out["small"].values():
+            for res in route.values():
+                res.pop("logits", None)
+                res.pop("first", None)
+        out["faults"] = None
+        out["full"].pop("logits")
+    return out
+
+
+def _tp_launch_rule(world1: dict) -> dict:
+    """The launches a rank must make for a run world 1 made with
+    ``world1``: the same counts, each ViT layer's K1 (and its prepass) a K2
+    on the rank's heads."""
+    want = dict(world1)
+    want["flash_attention"] = world1["flash_attention"] + world1["packed_qkv_norm_attention"]
+    want["packed_qkv_norm_attention"] = want["qk_norm_prepass"] = 0
+    return want
+
+
+def serving_tp(seed: int, e2e: dict, serve: dict) -> dict:
+    """Phase 39: tensor-parallel serving on two ranks sharing the card."""
+    import torch
+
+    from omchat_torch.parallel.launch import run_ranks
+
+    failed = []
+    cfg = serving_tp_cfg(SERVING_TP_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = layerwise_model(cfg, seed)
+    ref = {route: serving_tp_engines(cfg, params, seed, impl) for route, impl in (("kernel", None), ("plain", "plain"))}
+    del params
+    params = layerwise_model(serving_tp_cfg(), seed)
+    full_ref = serving_tp_full(serving_tp_cfg(), params, seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    world1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(serving_tp_rank, 2, seed, {}, timeout=900)
+    world2_s = time.perf_counter() - t0
+    log(f"serving tp: world 1 references {world1_s:.1f} s, the world of 2 {world2_s:.1f} s; two ranks share one "
+        "card over gloo, so the times show the collectives' overhead, not scaling")
+    # (a): parity, launches and faults at 2+2 layers
+    small = {}
+    for route in ("kernel", "plain"):
+        for name in ("single", "paged", "slot"):
+            got, want = ranks[0]["small"][route][name], ref[route][name]
+            key = f"{route}/{name}"
+            if name == "single":
+                firsts, wants, toks, want_toks = [got["logits"][0]], [want["logits"][0]], [got["tokens"]], \
+                    [want["tokens"]]
+                margins = [[float(t[0] - t[1]) for t in (torch.topk(lg, 2).values for lg in want["logits"])]]
+            else:
+                firsts, wants, toks, want_toks = got["first"], want["first"], got["tokens"], want["tokens"]
+                margins = ref[route]["margins"]
+            row = []
+            for i, (a, b, t, w, m) in enumerate(zip(firsts, wants, toks, want_toks, margins)):
+                dev = (a - b).abs()
+                outside = int((dev > LOGITS_ATOL + LOGITS_RTOL * b.abs()).sum())
+                upto = next((j for j, x in enumerate(m) if x < PARITY_MARGIN), len(m))
+                row.append({"logits_max_abs_diff": float(dev.max()), "tokens_compared": upto,
+                            "tokens_equal_beyond": t == w})
+                if outside:
+                    failed.append(f"(a) {key} request {i}: first-token logits {outside} outside phase 4's limits "
+                                  f"(max diff {float(dev.max()):.4g})")
+                if t[:upto] != w[:upto]:
+                    failed.append(f"(a) {key} request {i}: tokens {t[:upto]} != world 1's {w[:upto]}")
+            small[key] = row
+            for r, res in enumerate(ranks):
+                mine = res["small"][route][name]
+                if route == "kernel" and mine["launches"] != _tp_launch_rule(want["launches"]):
+                    failed.append(f"(a) {key} rank {r}: launches {mine['launches']}, expected "
+                                  f"{_tp_launch_rule(want['launches'])} (world 1: {want['launches']})")
+                if route == "plain" and any(mine["launches"].values()):
+                    failed.append(f"(a) {key} rank {r}: the plain route launched {mine['launches']}")
+                if mine["tokens"] != ranks[0]["small"][route][name]["tokens"]:
+                    failed.append(f"(a) {key}: rank {r}'s tokens differ from rank 0's")
+    faults = {}
+    sound = ranks[0]["small"]["kernel"]["single"]["logits"][:SERVING_TP_FAULT_STEPS]
+    for fault, res in ranks[0]["faults"].items():
+        bad = res["logits"][:SERVING_TP_FAULT_STEPS]
+        outside = [int(((a - b).abs() > LOGITS_ATOL + LOGITS_RTOL * b.abs()).sum()) for a, b in zip(bad, sound)]
+        faults[fault] = {"logits_outside_by_step": outside,
+                         "max_abs_diff_by_step": [float((a - b).abs().max()) for a, b in zip(bad, sound)]}
+        if not any(outside):
+            failed.append(f"(a) the limits would pass {fault}: {faults[fault]}")
+    heads = [r["heads"] for r in ranks]
+    if [h["trunk_q"] for h in heads] != [14, 14] or [h["trunk_kv"] for h in heads] != [2, 2] or \
+            sorted(h["vit"] for h in heads) != [12, 13]:
+        failed.append(f"local heads {heads}, expected 14 / 2 trunk heads and 13 + 12 ViT heads")
+    # (b): full depth
+    full = ranks[0]["full"]
+    gaps = {route: float((full["logits"][route] - full_ref["logits"][route]).abs().max())
+            for route in ("kernel", "plain")}
+    gaps["fault"] = float((full["logits"]["fault"] - full_ref["logits"]["kernel"]).abs().max())
+    bar = SERVING_TP_BAR * gaps["plain"]
+    if gaps["kernel"] > bar:
+        failed.append(f"(b) tp 2 vs world 1 first-token logits on the kernels {gaps['kernel']:.4g} past "
+                      f"{SERVING_TP_BAR} x the plain route's {gaps['plain']:.4g}")
+    if gaps["fault"] <= bar:
+        failed.append(f"(b) the bar {bar:.4g} would pass o_proj's dropped reduce ({gaps['fault']:.4g})")
+    n_v, n_t = serving_tp_cfg().vision.num_hidden_layers, serving_tp_cfg().text.num_hidden_layers
+    steps = NEW_TOKENS - 1  # the request's eager decode steps: K3 on every layer, one K4 commit
+    want = {"flash_attention": n_t + n_v, "flash_decode_stacked": n_t * steps, "commit_rows": steps,
+            "packed_qkv_norm_attention": 0, "qk_norm_prepass": 0}
+    for r, res in enumerate(ranks):
+        sv, rq = res["full"]["serving"], res["full"]["request"]
+        if not (sv["all_tokens"] and sv["pages_back"]) or sv["rolls_graphed"] or rq["graphed"]:
+            failed.append(f"(b) rank {r}: serving {sv}, request {rq}")
+        if any(rq["launches"][n] != k for n, k in want.items()):
+            failed.append(f"(b) rank {r}: the request's launches {rq['launches']}, expected {want}")
+        if sv["launches"] != ranks[0]["full"]["serving"]["launches"] or not all(
+                sv["launches"][n] for n in ("flash_attention", "commit_rows", "paged_flash_decode",
+                                            "paged_flash_prefill", "commit_pages")):
+            failed.append(f"(b) rank {r}: serving launches {sv['launches']}")
+    summary = {
+        "card": CARD,
+        "(a) parity": small, "(a) faults": faults, "heads": heads,
+        "(b) first-token logit gaps to world 1": {**gaps, "bar": bar},
+        "(b) request tp 2": [r["full"]["request"] for r in ranks],
+        "(b) request world 1 (phase 3, graphed)": {k: e2e.get(k) for k in ("ttft_ms", "vit_ms", "prefill_ms",
+                                                                           "decode_tokens_per_s", "peak_mem_gib")},
+        "(b) decode collectives tp 2": [r["full"]["decode_collectives"] for r in ranks],
+        "(b) serving tp 2": [r["full"]["serving"] for r in ranks],
+        "(b) serving world 1 (phase 5, graphed)": {k: serve.get(k) for k in ("tokens_per_s", "ttft_p50_s",
+                                                                             "ttft_p99_s")},
+        "(b) peak GiB tp 2": [r["full"]["peak_gib"] for r in ranks], "(b) shard GiB": [r["shard_gib"] for r in ranks],
+        "(b) build s": [r["build_s"] for r in ranks], "world1_s": world1_s, "world2_s": world2_s,
+    }
+    log("serving tp (phase 39, this call): " + json.dumps(summary))
+    if failed:
+        raise AssertionError("phase 39 failed: " + " | ".join(failed))
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -8631,6 +9072,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     parallel_training(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_tp(args.seed, e2e, serve)
 
     # each kernel's launches on its own main path: K1-K4 on the single-image
     # request (phase 3), K12, K14 and K15 in the timed serving run (phase 5),

@@ -12,34 +12,39 @@ serve.  ``OmChatModel`` carries the JAX package's single-request surface:
 ``chat_tools`` and ``chat_video``.  The server (``cli/serve.py``) builds the
 model and, with ``--paged``, :func:`paged_batch_engine` over its weights
 (``--continuous-batching`` alone: :func:`batch_engine`).
-Tensor parallelism comes with a later slice.
+
+``load_pretrained_model(tp=N)`` in a launched world of N ranks (``torchrun
+--nproc-per-node N``) loads this rank's shard of the weights over a pure
+tensor-parallel mesh, one layer at a time, and the engines it and the two
+factories build serve over that mesh (:mod:`omchat_torch.parallel.serving`).
 """
 
 from __future__ import annotations
 
 import json
+import os
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from omchat_torch.checkpoint.loader import load_lora_adapter, load_omchat_checkpoint
+from omchat_torch.checkpoint.loader import (load_lora_adapter, load_omchat_checkpoint,
+                                            load_omchat_checkpoint_sharded)
 from omchat_torch.config import GenerationConfig, OmChatConfig
 from omchat_torch.models.intern_vit import calibrate_fc1_scales
 from omchat_torch.ops.linear import quantize_tree
+from omchat_torch.parallel.serving import check_serving_mesh, serving_mesh
 from omchat_torch.processing.chat import make_context
 from omchat_torch.processing.image_processor import OmChatImageProcessor
 from omchat_torch.processing.processor import OmChatProcessor
 from omchat_torch.processing.video import process_video_frames, video_prompt
 from omchat_torch.runtime.batch_engine import BatchEngine
-from omchat_torch.runtime.beam_search import beam_search
 from omchat_torch.runtime.constrained import choice_mask_fn
 from omchat_torch.runtime.generate import OmChatEngine
 from omchat_torch.runtime.json_mode import get_json_mode
 from omchat_torch.runtime.json_schema import get_json_schema_mode
 from omchat_torch.runtime.paged_engine import PagedBatchEngine
-from omchat_torch.runtime.speculative import generate_speculative
 from omchat_torch.runtime.tool_calls import (
     forced_call_schema,
     parse_tool_calls,
@@ -50,6 +55,7 @@ from omchat_torch.runtime.tool_calls import (
 )
 from omchat_torch.training.lora import merge_lora
 from omchat_torch.utils.device import resolve_device
+from omchat_torch.utils.tree import tree_map
 
 
 @dataclass
@@ -95,11 +101,11 @@ class OmChatModel:
         if num_beams > 1:
             if gen.do_sample or guided_choices or json_mode or json_schema is not None:
                 raise ValueError("num_beams > 1 is greedy-only (no sampling/constrained decoding)")
-            out = beam_search(self.engine, ids, inputs.get("images"), num_beams=num_beams,
-                              max_new_tokens=gen.max_new_tokens, eos_token_id=gen.eos_token_id)
+            out = self.engine.beam_search(ids, inputs.get("images"), num_beams=num_beams,
+                                          max_new_tokens=gen.max_new_tokens, eos_token_id=gen.eos_token_id)
             return self.tokenizer.decode(out, skip_special_tokens=True)
         if speculative and not gen.do_sample and not guided_choices and not json_mode and json_schema is None:
-            out, _ = generate_speculative(self.engine, ids, inputs.get("images"), gen, stream_callback=stream_callback)
+            out, _ = self.engine.generate_speculative(ids, inputs.get("images"), gen, stream_callback=stream_callback)
             return self.tokenizer.decode(out, skip_special_tokens=True)
         allowed_fn = None
         if guided_choices:
@@ -227,6 +233,7 @@ def load_pretrained_model(
     device=None,
     lora_path: Optional[str] = None,
     cache_dtype: Optional[torch.dtype] = None,
+    tp: int = 1,
 ) -> OmChatModel:
     """Load an OmChat checkpoint directory (HF-bundle or repo-native key
     layout) onto ``device`` (default CUDA; raises without it).
@@ -239,11 +246,31 @@ def load_pretrained_model(
     ``save_lora_adapter``), merged in bf16 before any quantization, so the
     int8 scales cover the fine-tuned weights.  ``cache_dtype``: the KV
     cache's storage dtype (``torch.float8_e4m3fn``: the fp8 cache), also the
-    page pool's of :func:`paged_batch_engine`."""
+    page pool's of :func:`paged_batch_engine`.
+
+    ``tp`` above 1: tensor-parallel serving over the launched world, which
+    must be exactly ``tp`` ranks, each on its device (``device``; ranks may
+    share one card).  Each rank reads and keeps only its shard, built one
+    layer at a time (:func:`~omchat_torch.checkpoint.loader.
+    load_omchat_checkpoint_sharded`): the LoRA merge and the int8
+    quantization see each whole layer before it is split, as the JAX package
+    merges and quantizes before it shards.  w8a8, the MoE trunk and a tp
+    that does not divide both head counts are refused before any weight
+    loads."""
     from transformers import AutoTokenizer
 
     dev = resolve_device(device)
+    mesh = serving_mesh(tp)
+    if mesh is not None:
+        config = OmChatConfig.from_json(os.path.join(model_path, "config.json"))
+        check_serving_mesh(config.with_w8a8() if w8a8 else config, mesh, what="load_pretrained_model")
     tokenizer = AutoTokenizer.from_pretrained(model_path, use_fast=True)
+    if mesh is not None:
+        lora = load_lora_adapter(lora_path, dtype) if lora_path is not None else None
+        config, params = load_omchat_checkpoint_sharded(model_path, mesh, dtype, config, dev,
+                                                        _whole_layer_transform(lora, quantize_int8))
+        return omchat_model(tokenizer, OmChatEngine(config, params, attn_impl=attn_impl, cache_dtype=cache_dtype,
+                                                    device=dev, mesh=mesh))
     config, params = load_omchat_checkpoint(model_path, dtype, device=dev)
     if lora_path is not None:
         params = merge_lora(params, load_lora_adapter(lora_path, dtype, device=dev))
@@ -251,6 +278,23 @@ def load_pretrained_model(
         config, params = quantize_model(config, params, w8a8=w8a8, attn_impl=attn_impl)
     return omchat_model(tokenizer, OmChatEngine(config, params, attn_impl=attn_impl, cache_dtype=cache_dtype,
                                                 device=dev))
+
+
+def _whole_layer_transform(lora: Optional[dict], quantize_int8: bool):
+    """What the sharded load applies to each whole piece before splitting
+    it: the LoRA merge on each trunk layer (the adapter's slice of that
+    layer), then the int8 quantization (per output channel: a row-parallel
+    kernel must be quantized whole)."""
+
+    def transform(tree: dict, where: str, index) -> dict:
+        if where == "text_layer" and lora is not None:
+            piece = {"layers": tree_map(lambda t: t[index: index + 1], lora["layers"]), "scale": lora["scale"]}
+            anchor = tree["input_layernorm"]["scale"]  # merge_lora reads the activations' dtype off the embedding
+            tree = merge_lora({"language_model": {"layers": tree, "embed_tokens": anchor}}, piece)
+            tree = tree["language_model"]["layers"]
+        return quantize_tree(tree) if quantize_int8 else tree
+
+    return transform
 
 
 def omchat_model(tokenizer, engine: OmChatEngine) -> OmChatModel:
@@ -274,9 +318,10 @@ def paged_batch_engine(model: OmChatModel, **options) -> PagedBatchEngine:
     default on its device with its attention route and cache dtype
     (``options``: PagedBatchEngine's keyword arguments — max_slots,
     num_pages, page_size, max_len, decode_roll, prefill_chunk,
-    image_cache_size, cache_dtype, decode_kernel, ...)."""
+    image_cache_size, cache_dtype, decode_kernel, ...); under the model's
+    mesh when it has one."""
     options = {"attn_impl": model.engine.attn_impl, "device": model.engine.device,
-               "cache_dtype": model.engine.cache_dtype, **options}
+               "cache_dtype": model.engine.cache_dtype, "mesh": model.engine.mesh, **options}
     return PagedBatchEngine(model.config, model.engine.params, **options)
 
 
@@ -285,7 +330,7 @@ def batch_engine(model: OmChatModel, **options) -> BatchEngine:
     serving ``model``'s weights, by default on its device with its attention
     route and cache dtype (``options``: BatchEngine's keyword arguments —
     max_slots, max_len, chunk_size, image_cache_size, cache_dtype,
-    lora_bank, ...)."""
+    lora_bank, ...); under the model's mesh when it has one."""
     options = {"attn_impl": model.engine.attn_impl, "device": model.engine.device,
-               "cache_dtype": model.engine.cache_dtype, **options}
+               "cache_dtype": model.engine.cache_dtype, "mesh": model.engine.mesh, **options}
     return BatchEngine(model.config, model.engine.params, **options)

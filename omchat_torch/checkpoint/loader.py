@@ -20,7 +20,8 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Dict, Optional
+from collections.abc import Mapping
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -42,28 +43,70 @@ def load_safetensors_dir(directory: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _canonical_key(key: str) -> Optional[str]:
+    """A repo-native key's HF-bundle name (None: a key the loader drops)."""
+    if key.endswith(".inv_freq"):
+        return None
+    if key.startswith("model.vision_tower."):
+        return key[len("model.vision_tower.") :]
+    if key.startswith("model.mm_projector."):
+        rest = key[len("model.mm_projector.") :]
+        m = re.match(r"^(\d+)\.(.*)$", rest)
+        rest = f"linear_{int(m.group(1)) // 2 + 1}.{m.group(2)}" if m else f"linear_1.{rest}"
+        return f"multi_modal_projector.{rest}"
+    if key.startswith("model.") or key.startswith("lm_head."):
+        return "language_model." + key
+    return key
+
+
 def normalize_key_layout(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Map repo-native key names onto the HF-bundle layout (the canonical one)."""
-    out = {}
-    for key, val in state.items():
-        if key.endswith(".inv_freq"):
-            continue
-        if key.startswith("model.vision_tower."):
-            key = key[len("model.vision_tower.") :]
-        elif key.startswith("model.mm_projector."):
-            rest = key[len("model.mm_projector.") :]
-            m = re.match(r"^(\d+)\.(.*)$", rest)
-            rest = f"linear_{int(m.group(1)) // 2 + 1}.{m.group(2)}" if m else f"linear_1.{rest}"
-            key = f"multi_modal_projector.{rest}"
-        elif key.startswith("model.") or key.startswith("lm_head."):
-            key = "language_model." + key
-        out[key] = val
-    return out
+    return {_canonical_key(k): v for k, v in state.items() if _canonical_key(k) is not None}
 
 
-def _stacker(state, n_layers: int, dtype, device):
+class LazyState(Mapping):
+    """A checkpoint directory's tensors by canonical (HF-bundle) key, each
+    read from its memory-mapped file when looked up, so that a rank reads
+    only the layers it converts.  ``sub(prefix)``: the keys under
+    ``prefix``, with it stripped."""
+
+    def __init__(self, directory: Optional[str] = None, *, _keys=None, _handles=None):
+        if _keys is not None:
+            self._keys, self._handles = _keys, _handles
+            return
+        from safetensors.torch import safe_open
+
+        paths = sorted(glob.glob(os.path.join(directory, "*.safetensors")))
+        if not paths:
+            raise FileNotFoundError(f"no .safetensors under {directory}")
+        self._handles = [safe_open(path, framework="pt") for path in paths]
+        names = [(i, k) for i, f in enumerate(self._handles) for k in f.keys()]
+        native = any(k.startswith("model.") for _, k in names)
+        self._keys = {(_canonical_key(k) if native else k): (i, k) for i, k in names}
+        self._keys.pop(None, None)
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        i, k = self._keys[key]
+        return self._handles[i].get_tensor(k)
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def sub(self, prefix: str) -> "LazyState":
+        keys = {k[len(prefix):]: v for k, v in self._keys.items() if k.startswith(prefix)}
+        return LazyState(_keys=keys, _handles=self._handles)
+
+
+def _stacker(state, n_layers, dtype, device):
+    """``stack(fmt)``: the leaf of every layer in ``n_layers`` (a count, or
+    the layer indices to take) stacked on a leading axis."""
+    indices = range(n_layers) if isinstance(n_layers, int) else n_layers
+
     def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
-        arrs = [state[fmt.format(i)] for i in range(n_layers)]
+        arrs = [state[fmt.format(i)] for i in indices]
         if transpose:
             arrs = [a.t() for a in arrs]
         return torch.stack(arrs).to(dtype=dtype, device=device).contiguous()
@@ -73,39 +116,50 @@ def _stacker(state, n_layers: int, dtype, device):
 
 def convert_vision_tower(state: Dict[str, torch.Tensor], cfg: VisionConfig, dtype=torch.bfloat16, device=None) -> dict:
     """Keys like ``embeddings.class_embedding``, ``encoder.layers.N...`` → tree."""
-    stack = _stacker(state, cfg.num_hidden_layers, dtype, device)
+    return {**vision_top(state, dtype, device), "layers": convert_vision_layers(state, cfg, dtype, device)}
+
+
+def vision_top(state, dtype=torch.bfloat16, device=None) -> dict:
+    """The tower's leaves outside its layers: the embeddings."""
     one = lambda k: state[k].to(dtype=dtype, device=device).contiguous()  # noqa: E731
-    lay = "encoder.layers.{}."
-    params = {
+    return {
         "class_embedding": one("embeddings.class_embedding").reshape(-1),
         "position_embedding": one("embeddings.position_embedding")[0],
         "patch_embedding": {
             "kernel": one("embeddings.patch_embedding.weight"),  # OIHW, as F.conv2d takes it
             "bias": one("embeddings.patch_embedding.bias"),
         },
-        "layers": {
-            "norm1": {"scale": stack(lay + "norm1.weight")},
-            "norm2": {"scale": stack(lay + "norm2.weight")},
-            "ls1": stack(lay + "ls1"),
-            "ls2": stack(lay + "ls2"),
-            "attn": {
-                "qkv": {"kernel": stack(lay + "attn.qkv.weight", True)},
-                "proj": {"kernel": stack(lay + "attn.proj.weight", True), "bias": stack(lay + "attn.proj.bias")},
-            },
-            "mlp": {
-                "fc1": {"kernel": stack(lay + "mlp.fc1.weight", True), "bias": stack(lay + "mlp.fc1.bias")},
-                "fc2": {"kernel": stack(lay + "mlp.fc2.weight", True), "bias": stack(lay + "mlp.fc2.bias")},
-            },
+    }
+
+
+def convert_vision_layers(state, cfg: VisionConfig, dtype=torch.bfloat16, device=None,
+                          layers: Optional[Sequence[int]] = None) -> dict:
+    """The tower's ``layers`` subtree: every layer, or those in ``layers``
+    stacked in that order."""
+    stack = _stacker(state, cfg.num_hidden_layers if layers is None else layers, dtype, device)
+    lay = "encoder.layers.{}."
+    params = {
+        "norm1": {"scale": stack(lay + "norm1.weight")},
+        "norm2": {"scale": stack(lay + "norm2.weight")},
+        "ls1": stack(lay + "ls1"),
+        "ls2": stack(lay + "ls2"),
+        "attn": {
+            "qkv": {"kernel": stack(lay + "attn.qkv.weight", True)},
+            "proj": {"kernel": stack(lay + "attn.proj.weight", True), "bias": stack(lay + "attn.proj.bias")},
+        },
+        "mlp": {
+            "fc1": {"kernel": stack(lay + "mlp.fc1.weight", True), "bias": stack(lay + "mlp.fc1.bias")},
+            "fc2": {"kernel": stack(lay + "mlp.fc2.weight", True), "bias": stack(lay + "mlp.fc2.bias")},
         },
     }
     if "encoder.layers.0.attn.qkv.bias" in state:
-        params["layers"]["attn"]["qkv"]["bias"] = stack(lay + "attn.qkv.bias")
+        params["attn"]["qkv"]["bias"] = stack(lay + "attn.qkv.bias")
     if cfg.qk_normalization:
-        params["layers"]["attn"]["q_norm"] = {"scale": stack(lay + "attn.q_norm.weight")}
-        params["layers"]["attn"]["k_norm"] = {"scale": stack(lay + "attn.k_norm.weight")}
+        params["attn"]["q_norm"] = {"scale": stack(lay + "attn.q_norm.weight")}
+        params["attn"]["k_norm"] = {"scale": stack(lay + "attn.k_norm.weight")}
     if cfg.norm_type == "layer_norm":
-        params["layers"]["norm1"]["bias"] = stack(lay + "norm1.bias")
-        params["layers"]["norm2"]["bias"] = stack(lay + "norm2.bias")
+        params["norm1"]["bias"] = stack(lay + "norm1.bias")
+        params["norm2"]["bias"] = stack(lay + "norm2.bias")
     return params
 
 
@@ -114,8 +168,26 @@ def convert_qwen2(state: Dict[str, torch.Tensor], cfg: TextConfig, dtype=torch.b
     ``lm_head.weight`` → tree (the dense trunk, or with ``cfg.is_moe`` the
     MoE trunk's layers, :func:`~omchat_torch.models.qwen2_moe.
     convert_hf_moe_layers`)."""
-    stack = _stacker(state, cfg.num_hidden_layers, dtype, device)
+    params = qwen2_top(state, cfg, dtype, device)
+    params["layers"] = qwen2_layers(state, cfg, dtype, device)
+    return params
+
+
+def qwen2_top(state, cfg: TextConfig, dtype=torch.bfloat16, device=None) -> dict:
+    """The trunk's leaves outside its layers: the embedding, the final norm
+    and an untied lm_head."""
     one = lambda k: state[k].to(dtype=dtype, device=device).contiguous()  # noqa: E731
+    params = {"embed_tokens": one("model.embed_tokens.weight"), "norm": {"scale": one("model.norm.weight")}}
+    if not cfg.tie_word_embeddings and "lm_head.weight" in state:
+        params["lm_head"] = {"kernel": state["lm_head.weight"].t().to(dtype=dtype, device=device).contiguous()}
+    return params
+
+
+def qwen2_layers(state, cfg: TextConfig, dtype=torch.bfloat16, device=None,
+                 layers: Optional[Sequence[int]] = None) -> dict:
+    """The trunk's ``layers`` subtree: every layer, or those in ``layers``
+    stacked in that order (the dense trunk only for a subset)."""
+    stack = _stacker(state, cfg.num_hidden_layers if layers is None else layers, dtype, device)
 
     def proj(name, bias):
         p = {"kernel": stack("model.layers.{}." + name + ".weight", True)}
@@ -124,31 +196,27 @@ def convert_qwen2(state: Dict[str, torch.Tensor], cfg: TextConfig, dtype=torch.b
         return p
 
     params = {
-        "embed_tokens": one("model.embed_tokens.weight"),
-        "layers": {
-            "input_layernorm": {"scale": stack("model.layers.{}.input_layernorm.weight")},
-            "post_attention_layernorm": {"scale": stack("model.layers.{}.post_attention_layernorm.weight")},
-            "self_attn": {
-                "q_proj": proj("self_attn.q_proj", cfg.attention_bias),
-                "k_proj": proj("self_attn.k_proj", cfg.attention_bias),
-                "v_proj": proj("self_attn.v_proj", cfg.attention_bias),
-                "o_proj": proj("self_attn.o_proj", False),
-            },
+        "input_layernorm": {"scale": stack("model.layers.{}.input_layernorm.weight")},
+        "post_attention_layernorm": {"scale": stack("model.layers.{}.post_attention_layernorm.weight")},
+        "self_attn": {
+            "q_proj": proj("self_attn.q_proj", cfg.attention_bias),
+            "k_proj": proj("self_attn.k_proj", cfg.attention_bias),
+            "v_proj": proj("self_attn.v_proj", cfg.attention_bias),
+            "o_proj": proj("self_attn.o_proj", False),
         },
-        "norm": {"scale": one("model.norm.weight")},
     }
     if cfg.is_moe:
+        if layers is not None:
+            raise NotImplementedError("the MoE trunk converts its layers whole")
         from omchat_torch.models.qwen2_moe import convert_hf_moe_layers
 
-        params["layers"]["mlp"] = convert_hf_moe_layers(state, cfg, dtype, device)
+        params["mlp"] = convert_hf_moe_layers(state, cfg, dtype, device)
     else:
-        params["layers"]["mlp"] = {
+        params["mlp"] = {
             "gate_proj": proj("mlp.gate_proj", False),
             "up_proj": proj("mlp.up_proj", False),
             "down_proj": proj("mlp.down_proj", False),
         }
-    if not cfg.tie_word_embeddings and "lm_head.weight" in state:
-        params["lm_head"] = {"kernel": state["lm_head.weight"].t().to(dtype=dtype, device=device).contiguous()}
     return params
 
 
@@ -263,3 +331,50 @@ def load_omchat_checkpoint(model_path: str, dtype=torch.bfloat16, config: Option
         config = OmChatConfig.from_json(os.path.join(model_path, "config.json"))
     state = load_safetensors_dir(model_path)
     return config, convert_omchat_state_dict(state, config, dtype, device)
+
+
+def load_omchat_checkpoint_sharded(model_path: str, mesh, dtype=torch.bfloat16, config: Optional[OmChatConfig] = None,
+                                   device=None, transform=None):
+    """(cfg, this rank's shard of the tree) from a checkpoint directory,
+    read one layer at a time: the leaves outside the layer stacks are
+    converted on the host and sharded, then every layer of the tower and of
+    the trunk is read, converted, passed through ``transform`` and sharded
+    into the stacked shard on ``device``
+    (:func:`omchat_torch.parallel.sharding.shard_stacked`), so a rank's
+    device holds its shard and at most one whole layer.  The specs are
+    :func:`~omchat_torch.parallel.sharding.omchat_param_specs` (an int8 tree
+    through ``adapt_specs_to_quantized``).  ``transform(tree, where, index)``
+    (``where``: "rest", "vision_layer" or "text_layer", a layer with a
+    leading axis of 1, on the host) is what must see whole weights before
+    they are split: the LoRA merge, the int8 quantization; ``index`` is the
+    layer's, None for "rest"."""
+    from omchat_torch.parallel.sharding import omchat_param_specs, shard_params, shard_stacked
+    from omchat_torch.utils.tree import tree_map
+
+    if config is None:
+        config = OmChatConfig.from_json(os.path.join(model_path, "config.json"))
+    transform = transform or (lambda tree, where, index: tree)
+    state = LazyState(model_path)
+    vt = state.sub("vision_tower.vision_tower." if any(k.startswith("vision_tower.vision_tower.") for k in state)
+                   else "vision_tower.")
+    lm = state.sub("language_model.")
+    host = torch.device("cpu")
+    rest = {
+        "vision_tower": vision_top(vt, dtype, host),
+        "projector": convert_projector(state.sub("multi_modal_projector."), dtype, host),
+        "language_model": qwen2_top(lm, config.text, dtype, host),
+    }
+    for key in ("image_newline", "language_model.model.image_newline"):
+        if key in state:
+            rest["image_newline"] = state[key].to(dtype=dtype)
+            break
+    rest = transform(rest, "rest", None)
+    specs = omchat_param_specs(config, rest)
+    params = tree_map(lambda t: t.to(device), shard_params(rest, mesh, specs))
+    params["vision_tower"]["layers"] = shard_stacked(
+        lambda i: transform(convert_vision_layers(vt, config.vision, dtype, host, [i]), "vision_layer", i),
+        config.vision.num_hidden_layers, mesh, specs["vision_tower"]["layers"], device)
+    params["language_model"]["layers"] = shard_stacked(
+        lambda i: transform(qwen2_layers(lm, config.text, dtype, host, [i]), "text_layer", i),
+        config.text.num_hidden_layers, mesh, specs["language_model"]["layers"], device)
+    return config, params

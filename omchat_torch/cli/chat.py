@@ -5,14 +5,16 @@
     printf "hello\\nand then?\\n\\n" | python -m omchat_torch.cli.chat --model-path CKPT [--image-path IMG] \\
         [--int8 | --w8a8] [--kv-cache-dtype fp8] [--lora ADAPTER] [--speculative]
 
-An empty line or end of input exits.
+An empty line or end of input exits.  Under ``torchrun --nproc-per-node N
+... --tp N`` rank 0 reads each line and broadcasts it; every rank runs the
+turn on its shard, and only rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from omchat_torch.cli.options import add_model_flags, load_model
+from omchat_torch.cli.options import add_model_flags, is_leader, load_model
 
 
 def main(argv=None):
@@ -30,24 +32,34 @@ def main(argv=None):
     from omchat_torch.config import GenerationConfig
     from omchat_torch.runtime.generate import make_stdout_streamer
 
+    from omchat_torch.parallel.serving import agreed
+
     model = load_model(parser, args)
+    lead = is_leader(model)
+    say = print if lead else (lambda *a, **kw: None)
     image = Image.open(args.image_path).convert("RGB") if args.image_path else None
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens)
     history = []
-    print("omchat chat — empty line to exit")
+    say("omchat chat — empty line to exit")
+    read = agreed(model.engine.mesh, _read_question)  # rank 0 reads stdin; every rank gets the line
     while True:
-        try:
-            question = input("user: ").strip()
-        except (EOFError, KeyboardInterrupt):
-            break
+        question = read()
         if not question:
             break
-        print("assistant: ", end="", flush=True)
+        say("assistant: ", end="", flush=True)
         answer = model.chat(question, image=image, history=None if args.no_history else list(history),
-                            generation=gen, stream_callback=make_stdout_streamer(model.tokenizer),
+                            generation=gen, stream_callback=make_stdout_streamer(model.tokenizer) if lead else None,
                             speculative=args.speculative)
-        print()
+        say()
         history.append((question, answer))
+
+
+def _read_question() -> str:
+    """The next line of stdin, stripped; "" at its end."""
+    try:
+        return input("user: ").strip()
+    except (EOFError, KeyboardInterrupt):
+        return ""
 
 
 if __name__ == "__main__":

@@ -68,6 +68,8 @@ def check_args(parser: argparse.ArgumentParser, args) -> None:
         parser.error("pass --perplexity TEXT_FILE, or --benchmark + --question-file + --answers-file")
     if args.concurrency > 1 and args.guided_mc:
         parser.error("--concurrency is greedy-only; --guided-mc runs serial by design")
+    if args.tp > 1:
+        parser.error("--tp: the JAX package's eval entry point has no --tp; eval runs on one device")
 
 
 def run(args, model) -> Optional[dict]:

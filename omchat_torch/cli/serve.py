@@ -45,8 +45,12 @@ captured on one thread while another launches (a constrained request pauses
 the batch while it runs, as it holds the lock for its whole generation).  The
 two engines share one set of weights.
 
-Refused by name before any weight loads, with the work that will bring it
-(``ROADMAP.md`` queue A): ``--tp`` above 1 (A13).
+``--tp N`` under ``torchrun --nproc-per-node N`` (every route): each rank
+loads its shard and builds the same engines; rank 0 binds the port, runs the
+scheduler thread and broadcasts every engine call to the other ranks, which
+replay it on their shards (:mod:`omchat_torch.parallel.serving`).  Refused
+before any weight loads: ``--tp N`` outside a launched world of N ranks, and
+``--w8a8`` with it (ROADMAP queue A, A13b's remainder).
 
 Request example:
     {"messages": [{"role": "user", "content": [
@@ -69,7 +73,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Tuple
 
-from omchat_torch.cli.options import add_model_flags, load_model
+from omchat_torch.cli.options import add_model_flags, is_leader, load_model
 from omchat_torch.config import GenerationConfig
 from omchat_torch.runtime.generate import KeywordStopper
 
@@ -353,10 +357,8 @@ def make_handler(model, loop: ServingLoop, speculative: bool = False):
             stopper = KeywordStopper(stops, model.tokenizer) if stops else None
             return loop.run_n(input_ids, images, gen, n, image_key, stopper, want_logprobs, n_top)
         if speculative and not gen.do_sample and not use_engine and n == 1:
-            from omchat_torch.runtime.speculative import generate_speculative
-
             with lock:
-                token_ids, _ = generate_speculative(model.engine, list(input_ids), images, gen)
+                token_ids, _ = model.engine.generate_speculative(list(input_ids), images, gen)
             return [(token_ids, len(input_ids), None)]
         completions = []
         for i in range(n):
@@ -797,7 +799,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
+def main(argv=None, on_ready=None):
+    """The server.  ``on_ready(server)``: called on the leading rank once the
+    server is bound (a caller that runs ``main`` in a thread learns the port
+    there and may end it with ``server.shutdown()``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.paged:
@@ -820,20 +825,34 @@ def main(argv=None):
         from omchat_torch.api import batch_engine
 
         engine = batch_engine(model, max_slots=args.max_slots, max_len=args.max_len, image_cache_size=args.image_cache)
-    if args.warmup:
-        logger.info(f"warm-up done in {warmup_engines(model, engine):.1f} s")
-    server, loop = make_server(model, engine, args.host, args.port, speculative=args.speculative)
-    route = "single-request"
-    if args.paged:
-        route = f"paged ({args.max_slots} slots, {args.num_pages} pages)"
-    elif engine is not None:
-        route = f"slot engine ({args.max_slots} slots of {args.max_len} rows)"
-    logger.info(f"serving on {args.host}:{args.port}, {route}")
+    from omchat_torch.parallel import serving
+
+    mesh = model.engine.mesh
+    if not is_leader(model):  # a follower replays the leader's engine calls until it stops
+        serving.follow(mesh, model=model.engine, batch=engine)
+        return
+    channel = serving.lead(mesh, model=model.engine, batch=engine)
     try:
-        server.serve_forever()
+        if args.warmup:
+            logger.info(f"warm-up done in {warmup_engines(model, engine):.1f} s")
+        server, loop = make_server(model, engine, args.host, args.port, speculative=args.speculative)
+        route = "single-request"
+        if args.paged:
+            route = f"paged ({args.max_slots} slots, {args.num_pages} pages)"
+        elif engine is not None:
+            route = f"slot engine ({args.max_slots} slots of {args.max_len} rows)"
+        tp = f", tp {args.tp}" if args.tp > 1 else ""
+        logger.info(f"serving on {args.host}:{args.port}, {route}{tp}")
+        if on_ready is not None:
+            on_ready(server)
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+            loop.close()
     finally:
-        server.server_close()
-        loop.close()
+        if channel is not None:
+            channel.stop()
 
 
 if __name__ == "__main__":

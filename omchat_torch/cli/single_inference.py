@@ -6,7 +6,8 @@ decode with eos 151645).
         (--image-path IMG | --video-path VIDEO [--video-frames 32]) --question "What is in the picture?" \\
         [--int8 | --w8a8] [--kv-cache-dtype fp8] [--lora ADAPTER] [--speculative | --num-beams N]
 
-``--video-path`` takes an animated GIF / WebP, a directory of frame images
+Under ``torchrun --nproc-per-node N ... --tp N`` every rank runs the request
+on its shard; only rank 0 prints.  ``--video-path`` takes an animated GIF / WebP, a directory of frame images
 or (with imageio installed) a video container.
 """
 
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import argparse
 
-from omchat_torch.cli.options import add_model_flags, load_model
+from omchat_torch.cli.options import add_model_flags, is_leader, load_model
 
 
 def main(argv=None):
@@ -43,18 +44,22 @@ def main(argv=None):
     from omchat_torch.runtime.generate import make_stdout_streamer
 
     model = load_model(parser, args)
-    stream = make_stdout_streamer(model.tokenizer)
+    lead = is_leader(model)
+    stream = make_stdout_streamer(model.tokenizer) if lead else None
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens)
     if args.video_path is not None:
         frames = load_video_frames(args.video_path, num_samples=args.video_frames)
         model.chat_video(args.question, frames, num_samples=args.video_frames, generation=gen, stream_callback=stream)
     elif args.num_beams > 1:
         image = Image.open(args.image_path).convert("RGB")
-        print(model.chat(args.question, image=image, generation=gen, num_beams=args.num_beams), end="")
+        answer = model.chat(args.question, image=image, generation=gen, num_beams=args.num_beams)
+        if lead:
+            print(answer, end="")
     else:
         image = Image.open(args.image_path).convert("RGB")
         model.chat(args.question, image=image, generation=gen, stream_callback=stream, speculative=args.speculative)
-    print()
+    if lead:
+        print()
 
 
 if __name__ == "__main__":

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from omchat_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from omchat_torch.parallel.launch import init_world, launched_world
 
 EOS = 151645
 
@@ -310,41 +311,6 @@ def _train_lora(args, cfg, params, total, logger, device, dtype):
 
 PARALLEL_FLAGS = {"--cp": "13c", "--ulysses": "13c", "--sequence-parallel": "13c", "--pp": "13d"}
 LAUNCH = "torchrun --standalone --nproc-per-node N -m omchat_torch.cli.train ..."
-
-
-def launched_world() -> int:
-    """The world size of a launched run: the live process group's, or
-    ``torchrun``'s ``WORLD_SIZE``; 1 without one."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
-def init_world(device: torch.device, logger) -> tuple:
-    """Join the launched world: (this rank's device, whether this call
-    created the process group).  Each rank takes
-    ``cuda:LOCAL_RANK`` over NCCL when every local rank has a card, else
-    ``cuda:0`` shared over gloo; the CPU takes gloo."""
-    import torch.distributed as dist
-
-    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
-    if device.type == "cuda":
-        own = torch.cuda.device_count() >= local_world
-        device = torch.device("cuda", local_rank if own else 0)
-        torch.cuda.set_device(device)
-        backend = "nccl" if own else "gloo"
-    else:
-        backend = "gloo"
-    created = not dist.is_initialized()
-    if created:
-        dist.init_process_group(backend, init_method="env://")
-    else:
-        backend = dist.get_backend()
-    logger.info(f"rank {dist.get_rank()} of {dist.get_world_size()}: device {device}, backend {backend}")
-    return device, created
 
 
 def _train_sharded(args, cfg, params, total, logger, device, parser):

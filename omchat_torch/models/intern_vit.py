@@ -19,8 +19,10 @@ scales of its normed value, so every residual + norm + quantize is one fused
 pass (K8, K11) and fc1 writes int8 codes (K9, with the static scales of
 :func:`calibrate_fc1_scales`).
 
-Tensor parallelism (``mesh``, the training pass): a rank holds its heads of
-q, of k and of v in the head-wise ``qkv`` shard
+Tensor parallelism (``mesh``: the training pass, and the serving engines'
+encode under a mesh, where the split path's attention is K2 on the rank's
+heads, since K1's fused qk-norm cannot sum over ranks): a rank holds its
+heads of q, of k and of v in the head-wise ``qkv`` shard
 (:mod:`omchat_torch.parallel.sharding`; 25 heads split 13 + 12 at tp 2), its
 slice of fc1 and of its bias, and the rows of proj and fc2 that read them;
 the outputs of proj and fc2 are reduced over the model axis before their

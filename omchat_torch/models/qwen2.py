@@ -36,12 +36,16 @@ to q / k / v / o and gate / up / down, gathered from a stacked bank
 zeros: the base model).  A layer with a bank runs the unfused chain, as the
 JAX package's does.
 
-Tensor parallelism (``mesh``, the cacheless training pass): each rank holds
-its shard of the tree (:mod:`omchat_torch.parallel.sharding`): its q / kv
-heads, its slice of the MLP's width, its block of the vocabulary.  A layer
-enters each tensor-parallel block through *copy to the model axis* and
-leaves it through *reduce from the model axis* after o_proj and down_proj
-(:mod:`omchat_torch.parallel.comm`); attention runs on the local heads.
+Tensor parallelism (``mesh``): each rank holds its shard of the tree
+(:mod:`omchat_torch.parallel.sharding`): its q / kv heads, its slice of the
+MLP's width, its block of the vocabulary.  A layer enters each
+tensor-parallel block through *copy to the model axis* and leaves it through
+*reduce from the model axis* after o_proj and down_proj
+(:mod:`omchat_torch.parallel.comm`); attention runs on the local heads.  The
+training pass runs cacheless; the serving paths (cached prefill, the decode
+scan, the row commit, the verify rows) run against a cache of the rank's kv
+heads only, [L, B, KVH/tp, T, D], and :func:`full_logits` gathers the ranks'
+vocabulary blocks, so that every rank picks from the same whole logits.
 """
 
 from __future__ import annotations
@@ -60,8 +64,8 @@ from omchat_torch.ops.norms import rms_norm, rmsnorm_quant
 from omchat_torch.ops.paged_attention import commit_rows, commit_rows_plain
 from omchat_torch.ops.quant_matmul import attn_proj_glue_quant, proj_glue_supported, swiglu_quant
 from omchat_torch.ops.rope import apply_rope, rope_cos_sin
-from omchat_torch.parallel.comm import copy_to_axis, gather_layer, reduce_from_axis
-from omchat_torch.parallel.sharding import block_range, check_trunk_tp
+from omchat_torch.parallel.comm import all_gather_blocks, copy_to_axis, gather_layer, reduce_from_axis
+from omchat_torch.parallel.sharding import block_range, check_trunk_tp, split_sizes
 from omchat_torch.utils.tree import layer_list, layer_slice
 
 
@@ -76,9 +80,13 @@ class KVCache(NamedTuple):
         return self.k.shape[3]
 
 
-def init_kv_cache(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> KVCache:
-    """A zeroed cache; ``dtype`` torch.float8_e4m3fn halves its bytes."""
-    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.attn_head_dim)
+def init_kv_cache(cfg: TextConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+                  mesh=None) -> KVCache:
+    """A zeroed cache; ``dtype`` torch.float8_e4m3fn halves its bytes.
+    ``mesh``: this rank's kv heads only (``parallel.sharding.local_kv_shape``)."""
+    from omchat_torch.parallel.sharding import local_kv_shape
+
+    shape = local_kv_shape(cfg, mesh, batch, max_len)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device), v=torch.zeros(shape, dtype=dtype, device=device))
 
 
@@ -156,17 +164,18 @@ def decoder_layer(cfg: TextConfig, x, layer: dict, cos, sin, attend, *, quant_gl
     [N, r, out]}}}), applied per row by ``adapter_ids`` [B].
     ``mlp_fn(y, mlp_params, a8, lora, adapter_ids, mesh=)``: the MLP (default
     the dense SwiGLU; the MoE trunk's block, which takes no glue path).
-    ``mesh``: ``layer`` is this rank's tensor-parallel shard (the cacheless
-    training pass, no LoRA, no w8a8): q/k/v on its heads enter through *copy
-    to the model axis*, o_proj's and the MLP's partial sums leave through
-    *reduce from the model axis*; both are the identity without a mesh."""
+    ``mesh``: ``layer`` is this rank's tensor-parallel shard (no LoRA, no
+    w8a8): q/k/v on its heads enter through *copy to the model axis*,
+    o_proj's and the MLP's partial sums leave through *reduce from the model
+    axis*; both are the identity without a mesh.  ``attend`` then sees the
+    rank's heads only."""
     b, s, _ = x.shape
     # w8a8 serves the compute-bound prefill; the one-token decode step keeps
     # the weight-only int8 path
     a8 = cfg.w8a8 and s > 1
     if mesh is not None and (a8 or lora is not None):
-        raise NotImplementedError("a tensor-parallel layer runs neither w8a8 nor a LoRA bank; sharded serving "
-                                  "comes with ROADMAP queue A item 13b")
+        raise NotImplementedError("a tensor-parallel layer runs neither w8a8 nor a LoRA bank (ROADMAP queue A, "
+                                  "A13b's remainder)")
     attn_p = layer["self_attn"]
     if (quant_glue and a8 and lora is None and mlp_fn is None and "kernel_q" in attn_p["q_proj"]
             and "kernel_q" in attn_p["o_proj"]):
@@ -252,11 +261,12 @@ def commit_decode_rows(cache: KVCache, write_pos: torch.Tensor, k_rows, v_rows, 
 
 
 def decode_scan(cfg: TextConfig, attn_impl, params: dict, inputs_embeds, cos, sin, cache: KVCache, kv_len, write_pos,
-                lora_bank: Optional[dict] = None, adapter_ids=None, mlp_fn=None):
+                lora_bank: Optional[dict] = None, adapter_ids=None, mlp_fn=None, mesh=None):
     """Single-token decode over the layer stack with the cache READ-ONLY in
     the loop: layer ``li`` attends to its cache layer (selected inside the
     kernel) plus the in-flight token as a self column; the new K/V rows are
-    committed once after the loop."""
+    committed once after the loop.  ``mesh``: the layers and the cache are
+    this rank's shards."""
     n_layers = params["layers"]["input_layernorm"]["scale"].shape[0]
     cache_len = (kv_len - 1).to(torch.int32)  # excludes the in-flight token
     k_rows, v_rows = [], []
@@ -269,7 +279,7 @@ def decode_scan(cfg: TextConfig, attn_impl, params: dict, inputs_embeds, cos, si
                                     k_new=k[:, 0], v_new=v[:, 0])
 
         x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend,
-                          lora=_bank_layer(lora_bank, li), adapter_ids=adapter_ids, mlp_fn=mlp_fn)
+                          lora=_bank_layer(lora_bank, li), adapter_ids=adapter_ids, mlp_fn=mlp_fn, mesh=mesh)
     cache = commit_decode_rows(cache, write_pos, torch.stack(k_rows), torch.stack(v_rows), attn_impl)
     return x, cache
 
@@ -316,16 +326,14 @@ def qwen2_forward(
 
     ``mesh`` (:class:`omchat_torch.parallel.mesh.Mesh`): ``params`` is this
     rank's shard and every layer runs tensor-parallel over the ``model``
-    axis.  ``fsdp_dims``: one layer's tree of the dimension each leaf is
-    split on over ``data`` (None: whole), from the FSDP spec tree; the
-    shards are all-gathered inside the checkpointed layer, so the remat
-    recompute gathers them again.  The cacheless pass only (the serving
-    paths come with ROADMAP queue A item 13b)."""
+    axis; a cache holds this rank's kv heads
+    (:func:`omchat_torch.parallel.sharding.local_kv_shape`).
+    ``fsdp_dims``: one layer's tree of the dimension each leaf is split on
+    over ``data`` (None: whole), from the FSDP spec tree; the shards are
+    all-gathered inside the checkpointed layer, so the remat recompute
+    gathers them again."""
     if mesh is not None:
         check_trunk_tp(cfg, mesh.axis_size("model"))
-        if cache is not None:
-            raise NotImplementedError("a tensor-parallel trunk runs the cacheless training pass; sharded serving "
-                                      "comes with ROADMAP queue A item 13b")
     cos, sin = rope_cos_sin(
         positions,
         cfg.attn_head_dim,
@@ -349,7 +357,7 @@ def qwen2_forward(
         raise ValueError("segment_ids (packing) is for the cacheless training path")
     if cache is not None and inputs_embeds.shape[1] == 1:
         x, cache = decode_scan(cfg, attn_impl, params, inputs_embeds, cos, sin, cache, kv_len, write_pos,
-                               lora_bank, adapter_ids, mlp_fn)
+                               lora_bank, adapter_ids, mlp_fn, mesh)
     elif cache is None:
         def attend(q, k, v):
             return cache_attend(attn_impl, None, (), None, None, None, q, k, v, segment_ids)
@@ -376,7 +384,7 @@ def qwen2_forward(
 
             x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend,
                               quant_glue=quant_glue_ok(attn_impl), lora=_bank_layer(lora_bank, li),
-                              adapter_ids=adapter_ids, mlp_fn=mlp_fn)
+                              adapter_ids=adapter_ids, mlp_fn=mlp_fn, mesh=mesh)
     return rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps), cache
 
 
@@ -436,6 +444,24 @@ def lm_head(params: dict, cfg: TextConfig, hidden: torch.Tensor, mesh=None) -> t
     if cfg.tie_word_embeddings or "lm_head" not in params:
         return (hidden @ params["embed_tokens"].T.to(hidden.dtype)).float()
     return dense(hidden, params["lm_head"]).float()
+
+
+def gather_vocab(logits: torch.Tensor, vocab_size: int, mesh) -> torch.Tensor:
+    """The whole vocabulary's logits [..., V] from each rank's block [...,
+    block] (blocks of :func:`~omchat_torch.parallel.sharding.split_sizes`,
+    the larger first), concatenated in rank order; the logits as they are
+    without a mesh."""
+    if mesh is None or mesh.axis_size("model") == 1:
+        return logits
+    return all_gather_blocks(logits, mesh, "model", split_sizes(vocab_size, mesh.axis_size("model")))
+
+
+def full_logits(params: dict, cfg: TextConfig, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The serving head: :func:`lm_head` over the whole vocabulary (fp32) on
+    every rank.  ``mesh``: each rank's vocabulary block, gathered
+    (:func:`gather_vocab`), so that sampling, masks, penalties and log-probs
+    see what they see on one device and every rank picks the same token."""
+    return gather_vocab(lm_head(params, cfg, hidden, mesh), cfg.vocab_size, mesh)
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor, mesh=None, vocab_size: Optional[int] = None) -> torch.Tensor:

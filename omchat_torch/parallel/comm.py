@@ -17,6 +17,8 @@ package, written out on ``torch.distributed`` with their gradients.
   squares over heads split across ranks).
 - :func:`row_parallel_dense`: a row-parallel linear, its partial sums
   reduced before the replicated bias (``dense`` without a mesh).
+- :func:`all_gather_blocks`: blocks of unequal widths gathered in rank
+  order (the serving head's vocabulary blocks).
 
 Every function is the identity when ``mesh`` is None or the axis has one
 rank, so the single-device path runs no collective.
@@ -215,6 +217,21 @@ def row_parallel_dense(x: torch.Tensor, p: dict, mesh, *, a8: bool = False) -> t
         return dense(x, p, a8=a8)
     y = reduce_from_axis(x @ p["kernel"], mesh)
     return y + p["bias"] if "bias" in p else y
+
+
+def all_gather_blocks(x: torch.Tensor, mesh, axis: str, sizes, dim: int = -1) -> torch.Tensor:
+    """The ranks' blocks of ``dim`` (rank i's ``sizes[i]`` wide, unequal
+    allowed) concatenated in axis order, on every rank; no gradient.  Each
+    block is padded to the widest for the one all-gather, then cut back."""
+    group = _group(mesh, axis)
+    if group is None:
+        return x
+    w = max(sizes)
+    x = x.detach().movedim(dim, 0)
+    if x.shape[0] < w:
+        x = torch.cat([x, x.new_zeros((w - x.shape[0], *x.shape[1:]))])
+    out = _gather(x, group, 0)
+    return torch.cat([out[i * w: i * w + n] for i, n in enumerate(sizes)]).movedim(0, dim)
 
 
 def max_over_axis(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:

@@ -14,19 +14,25 @@
 
 ``fn(*args)`` runs in every rank once the process group is up; the ranks'
 results come back in rank order (through ``torch.save`` files in the
-temporary directory, so a result may hold tensors).  A user launches the
-trainer with ``torchrun`` instead (see :mod:`omchat_torch.cli.train`).
+temporary directory, so a result may hold tensors).
+
+A user launches the trainer or the serving CLIs with ``torchrun`` instead;
+:func:`launched_world` and :func:`init_world` are how those entry points
+join the world it launched.
 """
 
 from __future__ import annotations
 
+import datetime
 import multiprocessing
 import os
 import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
+
+import torch
 
 
 def _rank_main(fn: Callable, args: tuple, rank: int, world: int, backend: str, store_path: str, out_dir: str,
@@ -100,3 +106,40 @@ def _error_text(tmp: str, rank: int) -> str:
         with open(path) as f:
             return f.read()
     return "(no traceback: the process died before it could write one)"
+
+
+def launched_world() -> int:
+    """The world size of a launched run: the live process group's, or
+    ``torchrun``'s ``WORLD_SIZE``; 1 without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def init_world(device: torch.device, logger, timeout: Optional[datetime.timedelta] = None) -> tuple:
+    """Join the launched world: (this rank's device, whether this call
+    created the process group).  Each rank takes
+    ``cuda:LOCAL_RANK`` over NCCL when every local rank has a card, else
+    ``cuda:0`` shared over gloo; the CPU takes gloo.  ``timeout``: the
+    collectives' (torch's default without it)."""
+    import torch.distributed as dist
+
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
+    if device.type == "cuda":
+        own = torch.cuda.device_count() >= local_world
+        device = torch.device("cuda", local_rank if own else 0)
+        torch.cuda.set_device(device)
+        backend = "nccl" if own else "gloo"
+    else:
+        backend = "gloo"
+    created = not dist.is_initialized()
+    if created:
+        kw = {} if timeout is None else {"timeout": timeout}
+        dist.init_process_group(backend, init_method="env://", **kw)
+    else:
+        backend = dist.get_backend()
+    logger.info(f"rank {dist.get_rank()} of {dist.get_world_size()}: device {device}, backend {backend}")
+    return device, created

@@ -244,8 +244,10 @@ def omchat_param_specs(cfg: OmChatConfig, params: dict, *, fsdp: bool = False) -
 
 def kv_cache_specs(cfg: TextConfig, mesh, batch: Optional[int] = None):
     """Cache [L, B, KVH, T, D]: batch over data, kv heads over model, each
-    axis only where it divides evenly (else it replicates).  The spec only:
-    no engine shards its cache yet (ROADMAP queue A item 13b)."""
+    axis only where it divides evenly (else it replicates), JAX's spec.  The
+    serving engines split their caches and page pools by it
+    (:func:`local_kv_shape`); they take only a tp that divides the kv heads
+    (:func:`check_trunk_tp`), so the head axis is always ``model`` there."""
     from omchat_torch.models.qwen2 import KVCache
 
     tp, dp = mesh.axis_size("model"), mesh.axis_size("data")
@@ -253,6 +255,21 @@ def kv_cache_specs(cfg: TextConfig, mesh, batch: Optional[int] = None):
     batch_axis = "data" if (batch is None or batch % dp == 0) else None
     spec = P(None, batch_axis, head_axis, None, None)
     return KVCache(k=spec, v=spec)
+
+
+def local_kv_shape(cfg: TextConfig, mesh, lead: int, rows: int, *, pool: bool = False) -> List[int]:
+    """This rank's shape of a cache [L, B=lead, KVH, T=rows, D] split by
+    :func:`kv_cache_specs`, or with ``pool`` of a page pool [L, P+1=lead,
+    KVH, page=rows, D], whose page axis never splits.  Without a mesh, the
+    whole shape."""
+    shape = [cfg.num_hidden_layers, lead, cfg.num_key_value_heads, rows, cfg.attn_head_dim]
+    if mesh is None:
+        return shape
+    check_trunk_tp(cfg, mesh.axis_size("model"))
+    spec = kv_cache_specs(cfg, mesh, batch=lead).k
+    if pool:
+        spec = Spec(None, None, *spec[2:])
+    return local_shape(shape, spec, mesh.coords(), mesh.shape)
 
 
 def adapt_specs_to_quantized(specs, params):
@@ -420,6 +437,25 @@ def gather_params(local, mesh, specs: dict, shapes: Optional[Dict[tuple, Sequenc
             _set(out, path, unshard_leaf(shards, by_path[path], mesh.shape))
         return out
     return _gather_live(local, mesh, specs, shapes)
+
+
+def shard_stacked(layer_fn, n_layers: int, mesh, specs: dict, device=None) -> dict:
+    """This rank's shard of a tree stacked on a leading layer axis, built one
+    layer at a time: ``layer_fn(i)`` gives layer ``i``'s whole tree (each
+    leaf with a leading axis of 1, on any device); its shard is copied into
+    the stacked shard on ``device``, allocated at the first layer, and the
+    layer is dropped, so a rank holds its shard plus one whole layer.
+    Without a mesh, the whole tree the same way."""
+    out = None
+    for i in range(n_layers):
+        layer = layer_fn(i)
+        shard = layer if mesh is None else shard_params(layer, mesh, specs)
+        if out is None:
+            out = tree_map(lambda t: torch.empty((n_layers, *t.shape[1:]), dtype=t.dtype, device=device), shard)
+        for (_, dst), (_, src) in zip(tree_items(out), tree_items(shard)):
+            dst[i].copy_(src[0])
+        del layer, shard
+    return out
 
 
 def canonical_shapes(params: dict) -> Dict[tuple, List[int]]:

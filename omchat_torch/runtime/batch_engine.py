@@ -46,9 +46,15 @@ encoded-image LRU (``image_cache_size`` entries, 0 disables it).
 An MoE trunk (``cfg.text.is_moe``) runs its block's dense expert route, as
 the JAX slot engine does; its LoRA bank adapts attention only.
 
-Waiting for a later slice, raising ``NotImplementedError`` rather than being
-ignored: a device mesh (A13).  Presence / frequency
-penalties raise too: the JAX slot engine has none either.
+``mesh`` (a pure tensor-parallel :class:`~omchat_torch.parallel.mesh.Mesh`;
+:mod:`omchat_torch.parallel.serving`): ``params`` is this rank's shard, the
+shared cache holds this rank's kv heads (split per
+``parallel.sharding.kv_cache_specs(batch=max_slots)``), K2's chunks, K3 and
+K4 run on them, and the logits are gathered over the vocabulary, so every
+rank picks the same tokens.  The steps run eagerly there (a gloo
+collective cannot be captured); every rank must make the same calls.
+Presence / frequency penalties raise ``NotImplementedError``: the JAX slot
+engine has none either.
 """
 
 from __future__ import annotations
@@ -65,9 +71,10 @@ from omchat_torch.config import GenerationConfig, OmChatConfig
 from omchat_torch.models.decoder import decoder_forward
 from omchat_torch.models.qwen2_moe import check_lora_bank
 from omchat_torch.models.omchat import encode_images, fuse_embeddings, plan_multimodal_merge
-from omchat_torch.models.qwen2 import KVCache, embed_tokens, init_kv_cache, lm_head
+from omchat_torch.models.qwen2 import KVCache, embed_tokens, gather_vocab, init_kv_cache, lm_head
 from omchat_torch.ops.attention import PLAIN
 from omchat_torch.ops.sampling import greedy, sample, sample_batch
+from omchat_torch.parallel.serving import check_serving_mesh, replicated
 from omchat_torch.runtime.cuda_graphs import GraphedStep
 from omchat_torch.runtime.feature_cache import ImageFeatureCache, cached_encode
 from omchat_torch.utils.device import resolve_device
@@ -136,11 +143,11 @@ class BatchEngine:
         ``torch.float8_e4m3fn`` halves its bytes.  ``lora_bank``: a stacked
         multi-adapter bank on the params' device.  ``decode_graphs``: a CUDA
         engine on the kernels replays a CUDA graph for each decode step
-        (False: eagerly)."""
-        if mesh is not None:
-            raise NotImplementedError("BatchEngine: a device mesh (tensor-parallel serving, ROADMAP queue A item A13) "
-                                      "waits for a later slice of the port")
+        (False: eagerly).  ``mesh``: tensor-parallel serving over this
+        rank's shard (see the module docstring)."""
+        check_serving_mesh(cfg, mesh, lora_bank=lora_bank, what="BatchEngine")
         check_lora_bank(cfg.text, lora_bank)
+        self.mesh = mesh
         if attn_impl not in (None, PLAIN):
             raise ValueError(f"unknown attn_impl {attn_impl!r} (None or 'plain')")
         self.cfg = cfg
@@ -153,7 +160,8 @@ class BatchEngine:
         self.chunk_size = min(chunk_size, max_len)
         self.attn_impl = attn_impl
         dtype = params["language_model"]["embed_tokens"].dtype
-        self.cache = init_kv_cache(cfg.text, max_slots, max_len, dtype=cache_dtype or dtype, device=self.device)
+        self.cache = init_kv_cache(cfg.text, max_slots, max_len, dtype=cache_dtype or dtype, device=self.device,
+                                   mesh=mesh)
         self._ids = itertools.count()
         self.queue: List[_Request] = []
         self.slots: List[Optional[_Request]] = [None] * max_slots
@@ -182,6 +190,7 @@ class BatchEngine:
 
     # -- client API ---------------------------------------------------------
 
+    @replicated
     @torch.no_grad()
     def submit(
         self,
@@ -223,7 +232,7 @@ class BatchEngine:
     def _encode(self, pixel_values) -> torch.Tensor:
         """[N, 3, H, W] tiles → flattened [N*L, D] projected features."""
         pv = torch.as_tensor(np.asarray(pixel_values), device=self.device)
-        feats = encode_images(self.params, self.cfg, pv, attn_impl=self.attn_impl)
+        feats = encode_images(self.params, self.cfg, pv, attn_impl=self.attn_impl, mesh=self.mesh)
         return feats.reshape(-1, feats.shape[-1])
 
     def finished(self, request_id: int) -> bool:
@@ -237,12 +246,14 @@ class BatchEngine:
         req = self.requests[request_id]
         return list(req.generated), req.done
 
+    @replicated
     def pop_result(self, request_id: int):
         """Return (generated_ids, merged_prompt_len) and evict the request —
         long-running servers must evict or per-request state accumulates."""
         req = self.requests.pop(request_id)
         return list(req.generated), int(req.plan.lengths[0])
 
+    @replicated
     def cancel(self, request_id: int) -> None:
         """Request early termination.  Only a flag is set here; the scheduler
         releases the slot at the start of its next tick."""
@@ -271,6 +282,7 @@ class BatchEngine:
             out.update({f"image_cache_{k}": v for k, v in self.image_cache.stats().items()})
         return out
 
+    @replicated
     def run_to_completion(self, max_ticks: int = 100000) -> int:
         ticks = 0
         while self.has_work() and ticks < max_ticks:
@@ -295,6 +307,7 @@ class BatchEngine:
         req.done = True
         req.image_features = None  # drop the projected features' device memory
 
+    @replicated
     @torch.no_grad()
     def step(self):
         """One scheduler tick: advance at most one prefill chunk for a joining
@@ -344,7 +357,7 @@ class BatchEngine:
             return torch.as_tensor(np.pad(a[:, c0: c0 + csize], ((0, 0), (0, self.chunk_size - csize))), device=dev)
 
         embeds = fuse_embeddings(self.params, cut(plan.token_ids), cut(plan.is_image), cut(plan.image_index),
-                                 req.image_features)
+                                 req.image_features, self.mesh, self.cfg.text.vocab_size)
         s = req.slot
         slot_cache = KVCache(self.cache.k[:, s: s + 1], self.cache.v[:, s: s + 1])
         ids = None
@@ -354,9 +367,15 @@ class BatchEngine:
             lm, self.cfg.text, embeds, cut(plan.positions), slot_cache,
             write_pos=torch.full((1,), c0, dtype=torch.int32, device=dev),
             kv_len=torch.full((1,), c0 + chunk_len, dtype=torch.int32, device=dev),
-            attn_impl=self.attn_impl, lora_bank=self.lora_bank, adapter_ids=ids,
+            attn_impl=self.attn_impl, lora_bank=self.lora_bank, adapter_ids=ids, mesh=self.mesh,
         )
-        return lm_head(lm, self.cfg.text, hidden[:, max(chunk_len - 1, 0)])
+        return self._logits(hidden[:, max(chunk_len - 1, 0)])
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The whole vocabulary's logits (fp32) on every rank: the rank's
+        vocabulary block, gathered over a mesh."""
+        tc = self.cfg.text
+        return gather_vocab(lm_head(self.params["language_model"], tc, hidden), tc.vocab_size, self.mesh)
 
     def _first_token(self, req: _Request, logits: torch.Tensor) -> int:
         if req.samples:
@@ -379,8 +398,10 @@ class BatchEngine:
 
     def graphed(self) -> bool:
         """Whether decode steps replay CUDA graphs (a CUDA engine on the
-        kernels with ``decode_graphs``)."""
-        return self.decode_graphs and self.device.type == "cuda" and self.attn_impl != PLAIN
+        kernels with ``decode_graphs``, on one rank: under a mesh of tp > 1
+        the steps run eagerly)."""
+        return (self.decode_graphs and self.device.type == "cuda" and self.attn_impl != PLAIN
+                and (self.mesh is None or self.mesh.axis_size("model") == 1))
 
     def _stage(self, tokens, lengths, active, adapter_ids, sampling: np.ndarray) -> None:
         """Copy a step's host inputs ([S] tokens, lengths, active, adapter
@@ -415,13 +436,14 @@ class BatchEngine:
         b = self._step_dev
         tokens, lengths, active = b[:, 0], b[:, 1], b[:, 2] != 0
         wp = torch.where(active, lengths, self.max_len - 1)
-        embeds = embed_tokens(lm, tokens[:, None])
+        embeds = embed_tokens(lm, tokens[:, None], self.mesh, self.cfg.text.vocab_size)
         hidden, _ = decoder_forward(
             lm, self.cfg.text, embeds, wp[:, None], self.cache,
             write_pos=wp, kv_len=torch.where(active, lengths + 1, 1), attn_impl=self.attn_impl,
             lora_bank=self.lora_bank, adapter_ids=b[:, 3].long() if self.lora_bank is not None else None,
+            mesh=self.mesh,
         )
-        logits = lm_head(lm, self.cfg.text, hidden)[:, 0]
+        logits = self._logits(hidden)[:, 0]
         if sampled:
             nxt = sample_batch(logits, self._generator, do_sample=b[:, 4] != 0, top_k=b[:, 5],
                                temperature=b[:, 6].view(torch.float32), top_p=b[:, 7].view(torch.float32))
@@ -462,6 +484,7 @@ class BatchEngine:
             self.steps_eager += 1
         return out.cpu().numpy()
 
+    @replicated
     @torch.no_grad()
     def precompile(self) -> None:
         """Capture the greedy and the sampled decode step ahead of traffic:
@@ -481,6 +504,7 @@ class BatchEngine:
             torch.cuda.synchronize(self.device)
         self._generator.manual_seed(self.rng_seed)
 
+    @replicated
     def reset_latency_stats(self) -> None:
         """Clear the counts of graphed and eager steps (after a warm-up)."""
         self.steps_graphed = self.steps_eager = 0

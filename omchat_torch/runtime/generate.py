@@ -56,11 +56,12 @@ from omchat_torch.models.omchat import (
     plan_multimodal_merge,
     round_up_to_bucket,
 )
-from omchat_torch.models.qwen2 import KVCache, embed_tokens, init_kv_cache, lm_head
+from omchat_torch.models.qwen2 import KVCache, embed_tokens, full_logits, init_kv_cache
 from omchat_torch.models.qwen2_moe import check_lora_bank
 from omchat_torch.models.spatial_merge import spatial_unpad_merge
 from omchat_torch.ops.attention import PLAIN
 from omchat_torch.ops.sampling import greedy, sample_from
+from omchat_torch.parallel.serving import agreed, check_serving_mesh, replicated
 from omchat_torch.runtime.cuda_graphs import GraphedStep
 from omchat_torch.runtime.feature_cache import ImageFeatureCache, cached_encode
 from omchat_torch.utils.device import resolve_device
@@ -200,6 +201,14 @@ class OmChatEngine:
     device) for per-request LoRA; requests pick an adapter with
     ``generate(adapter_id=)``, id 0 being the base model.
 
+    ``mesh`` (a pure tensor-parallel :class:`~omchat_torch.parallel.mesh.
+    Mesh`): ``params`` is this rank's shard
+    (:func:`~omchat_torch.parallel.sharding.shard_params`), the caches hold
+    this rank's kv heads, every rank runs the same calls
+    (:mod:`omchat_torch.parallel.serving`) and picks the same tokens from
+    the gathered logits.  The steps run eagerly there (``graphed()`` is
+    False: a gloo collective cannot be captured).
+
     After :meth:`generate` or :meth:`generate_ondevice`, ``spans`` holds the
     stage times in seconds (``encode_images``, ``prefill``, ``ttft``,
     ``decode``: the decode steps, a capture excluded; ``capture``: the CUDA
@@ -218,8 +227,11 @@ class OmChatEngine:
         device=None,
         decode_graphs: bool = True,
         lora_bank: Optional[dict] = None,
+        mesh=None,
     ):
         check_lora_bank(cfg.text, lora_bank)
+        check_serving_mesh(cfg, mesh, lora_bank=lora_bank, what="OmChatEngine")
+        self.mesh = mesh
         self.cfg = cfg
         self.lora_bank = lora_bank
         self.params = params
@@ -243,7 +255,7 @@ class OmChatEngine:
     def encode_tiles(self, pixel_values) -> torch.Tensor:
         """[N, 3, H, W] tiles → [N, L, D] projected features (uncached)."""
         pv = torch.as_tensor(np.asarray(pixel_values), device=self.device)
-        return encode_images(self.params, self.cfg, pv, attn_impl=self.attn_impl)
+        return encode_images(self.params, self.cfg, pv, attn_impl=self.attn_impl, mesh=self.mesh)
 
     def encode_images(self, pixel_values, cache_key=None) -> torch.Tensor:
         """[N, 3, H, W] tiles → flattened [N*L, D] projected features, through
@@ -325,10 +337,12 @@ class OmChatEngine:
         dev = self.device
         cache_len = self.cache_rows(plan, max_new_tokens)
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        embeds = fuse_embeddings(self.params, t(plan.token_ids), t(plan.is_image), t(plan.image_index), image_features)
+        embeds = fuse_embeddings(self.params, t(plan.token_ids), t(plan.is_image), t(plan.image_index), image_features,
+                                 self.mesh, self.cfg.text.vocab_size)
         b = embeds.shape[0]
         if cache is None:
-            cache = init_kv_cache(self.cfg.text, b, cache_len, dtype=self.cache_dtype or embeds.dtype, device=dev)
+            cache = init_kv_cache(self.cfg.text, b, cache_len, dtype=self.cache_dtype or embeds.dtype, device=dev,
+                                  mesh=self.mesh)
         elif cache.k.shape[1] != b or cache.max_len != cache_len:
             raise ValueError(f"prefill: the cache holds {tuple(cache.k.shape)}, the plan needs B={b} x {cache_len}")
         else:
@@ -338,10 +352,10 @@ class OmChatEngine:
         hidden, cache = decoder_forward(
             lm, self.cfg.text, embeds, t(plan.positions), cache,
             write_pos=torch.zeros((b,), dtype=torch.int32, device=dev), kv_len=lengths, attn_impl=self.attn_impl,
-            lora_bank=self.lora_bank, adapter_ids=adapter_ids,
+            lora_bank=self.lora_bank, adapter_ids=adapter_ids, mesh=self.mesh,
         )
         last = hidden[torch.arange(b, device=dev), (lengths - 1).clamp(min=0).long()]  # [B, D]
-        return lm_head(lm, self.cfg.text, last), cache
+        return full_logits(lm, self.cfg.text, last, self.mesh), cache
 
     @torch.no_grad()
     def prefill_chunked(self, plan: MergePlan, image_features: Optional[torch.Tensor], max_new_tokens: int,
@@ -359,7 +373,8 @@ class OmChatEngine:
         b, m = plan.token_ids.shape
         padded_m = round_up_to_bucket(plan.max_len, chunk_size)
         cache_len = round_up_to_bucket(padded_m + max_new_tokens, self.prompt_bucket)
-        cache = init_kv_cache(cfg.text, b, cache_len, dtype=self.cache_dtype or lm["embed_tokens"].dtype, device=dev)
+        cache = init_kv_cache(cfg.text, b, cache_len, dtype=self.cache_dtype or lm["embed_tokens"].dtype, device=dev,
+                              mesh=self.mesh)
         final = torch.zeros((b, cfg.text.vocab_size), dtype=torch.float32, device=dev)
         lengths = plan.lengths
         for c0 in range(0, m, chunk_size):
@@ -375,15 +390,15 @@ class OmChatEngine:
             if (chunk_lengths == 0).all():
                 break
             embeds = fuse_embeddings(self.params, cut(plan.token_ids), cut(plan.is_image), cut(plan.image_index),
-                                     image_features)
+                                     image_features, self.mesh, cfg.text.vocab_size)
             start = torch.full((b,), c0, dtype=torch.int32, device=dev)
             hidden, cache = decoder_forward(lm, cfg.text, embeds, cut(plan.positions), cache, write_pos=start,
                                             kv_len=start + torch.as_tensor(chunk_lengths, device=dev),
-                                            attn_impl=self.attn_impl)
+                                            attn_impl=self.attn_impl, mesh=self.mesh)
             ends = (lengths > c0) & (lengths <= c0 + chunk_size)  # rows whose last token is in this chunk
             if ends.any():
                 idx = torch.as_tensor(np.maximum(chunk_lengths - 1, 0), device=dev).long()
-                logits = lm_head(lm, cfg.text, hidden[torch.arange(b, device=dev), idx])
+                logits = full_logits(lm, cfg.text, hidden[torch.arange(b, device=dev), idx], self.mesh)
                 final = torch.where(torch.as_tensor(ends, device=dev)[:, None], logits, final)
         return final, cache
 
@@ -394,20 +409,22 @@ class OmChatEngine:
         ``adapter_ids`` [B]: each row's LoRA bank row.  The cache is updated
         in place."""
         lm = self.params["language_model"]
-        embeds = embed_tokens(lm, tokens[:, None])
+        embeds = embed_tokens(lm, tokens[:, None], self.mesh, self.cfg.text.vocab_size)
         hidden, cache = decoder_forward(
             lm, self.cfg.text, embeds, kv_len[:, None], cache,
             write_pos=kv_len, kv_len=kv_len + 1, attn_impl=self.attn_impl,
-            lora_bank=self.lora_bank, adapter_ids=adapter_ids,
+            lora_bank=self.lora_bank, adapter_ids=adapter_ids, mesh=self.mesh,
         )
-        return lm_head(lm, self.cfg.text, hidden)[:, 0], cache
+        return full_logits(lm, self.cfg.text, hidden, self.mesh)[:, 0], cache
 
     # -- the decode state and its step ------------------------------------
 
     def graphed(self) -> bool:
         """Whether decode steps replay CUDA graphs (a CUDA engine on the
-        kernels with ``decode_graphs``)."""
-        return self.decode_graphs and self.device.type == "cuda" and self.attn_impl != PLAIN
+        kernels with ``decode_graphs``, on one rank: under a mesh of tp > 1
+        the steps run eagerly, since a gloo collective cannot be captured)."""
+        return (self.decode_graphs and self.device.type == "cuda" and self.attn_impl != PLAIN
+                and (self.mesh is None or self.mesh.axis_size("model") == 1))
 
     def decode_state(self, batch: int, cache_rows: int) -> DecodeState:
         """The decode state for ``batch`` rows over a cache of ``cache_rows``
@@ -425,7 +442,7 @@ class OmChatEngine:
             i32 = dict(dtype=torch.int32, device=dev)
             f32 = dict(dtype=torch.float32, device=dev)
             st = DecodeState(
-                cache=init_kv_cache(self.cfg.text, batch, cache_rows, dtype=dtype, device=dev),
+                cache=init_kv_cache(self.cfg.text, batch, cache_rows, dtype=dtype, device=dev, mesh=self.mesh),
                 tokens=torch.zeros(batch, **i32), kv_len=torch.zeros(batch, **i32),
                 done=torch.zeros(batch, dtype=torch.bool, device=dev), eos=torch.zeros(1, **i32),
                 step=torch.zeros(1, dtype=torch.int64, device=dev), out=torch.zeros(batch, cache_rows, **i32),
@@ -459,6 +476,7 @@ class OmChatEngine:
             st.runs[mode] = run
         return run
 
+    @replicated
     def release_decode_states(self) -> None:
         """Drop every kept decode state: its cache, buffers and graphs (whose
         memory goes back to the allocator with the engine's last graph).  A
@@ -588,6 +606,7 @@ class OmChatEngine:
 
     # -- full generation ----------------------------------------------------
 
+    @replicated
     @torch.no_grad()
     def generate(
         self,
@@ -637,7 +656,9 @@ class OmChatEngine:
         if not 0 <= top_logprobs <= TOP_LOGPROBS_MAX:
             raise ValueError(f"top_logprobs must be in [0, {TOP_LOGPROBS_MAX}]")
         mode = (gen.do_sample, bool(return_logprobs or top_logprobs))
-        stopper = KeywordStopper(stop_keywords, tokenizer) if stop_keywords else None
+        # host decisions every rank of a mesh takes from its leader (serving.agreed)
+        should_stop = agreed(self.mesh, KeywordStopper(stop_keywords, tokenizer).should_stop if stop_keywords else None)
+        allowed_tokens_fn = agreed(self.mesh, allowed_tokens_fn)
         self.spans = {}
         t0 = time.perf_counter()
         plan, st, logits = self._prefill_into_state(batch_input_ids, images, gen, t0, rng_key, logit_bias,
@@ -682,7 +703,7 @@ class OmChatEngine:
                     tops[i].append([(int(t), float(lp)) for t, lp in zip(top_id[i], top_lp[i])])
                 if stream_callback is not None and b == 1:
                     stream_callback(int(toks[i]))
-                if stopper is not None and stopper.should_stop(generated[i]):
+                if should_stop is not None and should_stop(generated[i]):
                     done[i] = True
             if done.all() or step == gen.max_new_tokens - 1:
                 break
@@ -701,6 +722,7 @@ class OmChatEngine:
             top_logprobs=tops if top_logprobs > 0 else None,
         )
 
+    @replicated
     @torch.no_grad()
     def generate_ondevice(
         self,
@@ -740,3 +762,20 @@ class OmChatEngine:
         eos = gen.eos_token_id
         return GenerateOutput(token_ids=[row[: row.index(eos)] if eos in row else row for row in out],
                               prompt_len=plan.lengths)
+
+    @replicated
+    def beam_search(self, input_ids: Sequence[int], images=None, **options) -> List[int]:
+        """:func:`omchat_torch.runtime.beam_search.beam_search` on this
+        engine (one replicated call under a serving mesh)."""
+        from omchat_torch.runtime.beam_search import beam_search
+
+        return beam_search(self, input_ids, images, **options)
+
+    @replicated
+    def generate_speculative(self, input_ids: Sequence[int], images=None, generation: Optional[GenerationConfig] = None,
+                             **options):
+        """:func:`omchat_torch.runtime.speculative.generate_speculative` on
+        this engine (one replicated call under a serving mesh)."""
+        from omchat_torch.runtime.speculative import generate_speculative
+
+        return generate_speculative(self, input_ids, images, generation, **options)

@@ -96,9 +96,14 @@ prefill, the rolls and the verify ("dense", which the graphs capture, or
 "gmm", eager only), and the contiguous prefill of the single-request engine
 takes the dense route, as in the JAX engine.
 
-Waiting for a later slice, raising ``NotImplementedError`` rather than being
-ignored: a device mesh.  Presence / frequency
-penalties raise too: the JAX paged engine has none either.  Prefill runs
+``mesh`` (a pure tensor-parallel :class:`~omchat_torch.parallel.mesh.Mesh`;
+:mod:`omchat_torch.parallel.serving`): ``params`` is this rank's shard, the
+pools hold this rank's kv heads ([L, P+1, KVH/tp, page, D]), K12 / K13,
+K14, K15 and K4 run on them, the logits are gathered over the vocabulary,
+and the host allocator, page tables and prefix cache, fed the same calls,
+stay the same on every rank.  Rolls and verifies run eagerly there (a gloo
+collective cannot be captured).  Presence / frequency penalties raise
+``NotImplementedError``: the JAX paged engine has none either.  Prefill runs
 eagerly, so :meth:`PagedBatchEngine.precompile` captures the decode rolls and
 the verify only.
 """
@@ -118,7 +123,7 @@ import torch
 
 from omchat_torch.config import OmChatConfig
 from omchat_torch.models.omchat import fuse_embeddings
-from omchat_torch.models.qwen2 import decoder_layer, embed_tokens, lm_head, quant_glue_ok
+from omchat_torch.models.qwen2 import decoder_layer, embed_tokens, full_logits, quant_glue_ok
 from omchat_torch.models.qwen2_moe import MOE_IMPLS, moe_mlp
 from omchat_torch.ops.attention import PLAIN, attention
 from omchat_torch.ops.fp8 import cast_to
@@ -137,6 +142,8 @@ from omchat_torch.ops.paged_attention import (
 )
 from omchat_torch.ops.rope import rope_cos_sin
 from omchat_torch.ops.sampling import greedy, sample, sample_batch
+from omchat_torch.parallel.serving import check_serving_mesh, replicated
+from omchat_torch.parallel.sharding import local_kv_shape
 from omchat_torch.runtime.cuda_graphs import GraphedStep
 from omchat_torch.runtime.feature_cache import pixel_digest
 from omchat_torch.runtime.generate import OmChatEngine
@@ -199,7 +206,7 @@ def _mlp_fn(tc, moe_impl: str):
 def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
                       attn_impl: Optional[str] = None, *, decode_kernel: str = "auto",
                       sampling: Optional[dict] = None, generator: Optional[torch.Generator] = None,
-                      logprobs: bool = False, moe_impl: str = "dense"):
+                      logprobs: bool = False, moe_impl: str = "dense", mesh=None):
     """One decode step over every slot against the page pool; returns the
     next tokens [S] (int32) and commits the step's K/V rows in place.  With
     ``logprobs`` it returns (tokens, chosen [S] fp32, top values [S, K]
@@ -216,13 +223,14 @@ def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables
     self column.  Each layer hands back
     its new K/V rows, and one row commit (K4) writes all layers' rows after
     the loop.  ``sampling``: per-slot do_sample / temperature / top_k / top_p
-    tensors, drawn with ``generator``; None decodes greedily."""
+    tensors, drawn with ``generator``; None decodes greedily.  ``mesh``:
+    the params and the pools are this rank's shards."""
     tc = cfg.text
     lm = params["language_model"]
     n_layers, n_slots = k_pool.shape[0], k_pool.shape[1]  # P+1 incl. parking
     kflat = k_pool.view(n_layers * n_slots, *k_pool.shape[2:])
     vflat = v_pool.view(n_layers * n_slots, *v_pool.shape[2:])
-    x = embed_tokens(lm, tokens[:, None])  # [S, 1, D]
+    x = embed_tokens(lm, tokens[:, None], mesh, tc.vocab_size)  # [S, 1, D]
     cos, sin = rope_cos_sin(
         lengths[:, None], tc.attn_head_dim, theta=tc.rope_theta, scaling=tc.rope_scaling,
         max_position_embeddings=tc.max_position_embeddings, dtype=x.dtype,
@@ -242,7 +250,8 @@ def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables
                                           k_new=k[:, 0], v_new=v[:, 0], page_offset=li * n_slots,
                                           kernel=decode_kernel)
 
-        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, mlp_fn=_mlp_fn(tc, moe_impl))
+        x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, mlp_fn=_mlp_fn(tc, moe_impl),
+                          mesh=mesh)
     flat_pages = (torch.arange(n_layers, dtype=torch.int32, device=tokens.device)[:, None] * n_slots
                   + page_idx[None, :]).reshape(-1)
     commit = commit_rows_plain if attn_impl == PLAIN else commit_rows
@@ -250,7 +259,7 @@ def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables
     commit(kflat, vflat, flat_pages, offsets.repeat(n_layers),
            torch.stack(k_rows).reshape(n_layers * s, *k_rows[0].shape[1:]),
            torch.stack(v_rows).reshape(n_layers * s, *v_rows[0].shape[1:]))
-    logits = lm_head(lm, tc, rms_norm(x, lm["norm"]["scale"], tc.rms_norm_eps))[:, 0]
+    logits = full_logits(lm, tc, rms_norm(x, lm["norm"]["scale"], tc.rms_norm_eps), mesh)[:, 0]
     return _roll_pick(logits, sampling, generator, logprobs)
 
 
@@ -270,7 +279,7 @@ def _roll_pick(logits, sampling: Optional[dict], generator: Optional[torch.Gener
 def _paged_decode_roll(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
                        attn_impl: Optional[str], steps: int, *, decode_kernel: str = "auto",
                        sampling: Optional[dict] = None, generator: Optional[torch.Generator] = None,
-                       logprobs: bool = False, moe_impl: str = "dense"):
+                       logprobs: bool = False, moe_impl: str = "dense", mesh=None):
     """``steps`` decode iterations issued back to back on the device; returns
     the [steps, S] tokens without reading them back (with ``logprobs`` the
     tuple of :func:`_decode_step_core`'s outputs, each stacked over the
@@ -281,7 +290,7 @@ def _paged_decode_roll(params, cfg: OmChatConfig, tokens, lengths, active, table
     for _ in range(steps):
         step = _decode_step_core(params, cfg, tokens, lengths, active, tables, k_pool, v_pool, page_size,
                                  attn_impl, decode_kernel=decode_kernel, sampling=sampling, generator=generator,
-                                 logprobs=logprobs, moe_impl=moe_impl)
+                                 logprobs=logprobs, moe_impl=moe_impl, mesh=mesh)
         out.append(step)
         tokens = step[0] if logprobs else step
         lengths = torch.where(active, lengths + 1, lengths)
@@ -292,7 +301,8 @@ def _paged_decode_roll(params, cfg: OmChatConfig, tokens, lengths, active, table
 
 def _paged_prefill_chunk(params, cfg: OmChatConfig, token_ids, is_image, image_index, image_features, positions,
                          chunk_start: np.ndarray, chunk_len: np.ndarray, tables: np.ndarray, k_pool, v_pool,
-                         page_size: int, attn_impl: Optional[str] = None, moe_impl: str = "dense") -> torch.Tensor:
+                         page_size: int, attn_impl: Optional[str] = None, moe_impl: str = "dense",
+                         mesh=None) -> torch.Tensor:
     """One chunk of a paged prefill for B requests at once: each row's K/V go
     into its own pages (a plain indexed write, in place, rounded to the pool's
     dtype) and the chunk attends to everything cached so far through the page
@@ -310,10 +320,10 @@ def _paged_prefill_chunk(params, cfg: OmChatConfig, token_ids, is_image, image_i
     b, c = token_ids.shape
     n_chunk = c // page_size
     max_pages = tables.shape[1]
-    kvh, hd = tc.num_key_value_heads, tc.attn_head_dim
+    kvh, hd = k_pool.shape[2], tc.attn_head_dim  # this rank's kv heads under a mesh
     parked = k_pool.shape[1] - 1
 
-    x = fuse_embeddings(params, token_ids, is_image, image_index, image_features)  # [B, C, D]
+    x = fuse_embeddings(params, token_ids, is_image, image_index, image_features, mesh, tc.vocab_size)  # [B, C, D]
     cos, sin = rope_cos_sin(
         positions, hd, theta=tc.rope_theta, scaling=tc.rope_scaling,
         max_position_embeddings=tc.max_position_embeddings, dtype=x.dtype,
@@ -333,14 +343,14 @@ def _paged_prefill_chunk(params, cfg: OmChatConfig, token_ids, is_image, image_i
             return paged_prefill_attention(q, kp, vp, kv_len, tab, q_off, impl=attn_impl)
 
         x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl),
-                          mlp_fn=_mlp_fn(tc, moe_impl))
+                          mlp_fn=_mlp_fn(tc, moe_impl), mesh=mesh)
     last_idx = torch.as_tensor(np.maximum(chunk_len - 1, 0), dtype=torch.long, device=dev)
     last = x[torch.arange(b, device=dev), last_idx]  # [B, D]
-    return lm_head(lm, tc, rms_norm(last, lm["norm"]["scale"], tc.rms_norm_eps))
+    return full_logits(lm, tc, rms_norm(last, lm["norm"]["scale"], tc.rms_norm_eps), mesh)
 
 
 def _paged_verify(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_pool, v_pool, page_size: int,
-                  attn_impl: Optional[str] = None, moe_impl: str = "dense") -> torch.Tensor:
+                  attn_impl: Optional[str] = None, moe_impl: str = "dense", mesh=None) -> torch.Tensor:
     """Speculative verify: T candidate rows a slot in one forward against the
     page pool; returns the logits of every row [S, T, V] (fp32) and commits
     the rows' K/V in place.
@@ -366,7 +376,7 @@ def _paged_verify(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_
     n_layers, n_slots = k_pool.shape[0], k_pool.shape[1]  # P+1 incl. parking
     kflat = k_pool.view(n_layers * n_slots, *k_pool.shape[2:])
     vflat = v_pool.view(n_layers * n_slots, *v_pool.shape[2:])
-    x = embed_tokens(lm, tokens)  # [S, T, D]
+    x = embed_tokens(lm, tokens, mesh, tc.vocab_size)  # [S, T, D]
     positions = lengths[:, None] + torch.arange(t, dtype=torch.int32, device=dev)[None, :]
     cos, sin = rope_cos_sin(
         positions, tc.attn_head_dim, theta=tc.rope_theta, scaling=tc.rope_scaling,
@@ -393,14 +403,14 @@ def _paged_verify(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_
                              kv_format="bntd")
 
         x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl),
-                          mlp_fn=_mlp_fn(tc, moe_impl))
+                          mlp_fn=_mlp_fn(tc, moe_impl), mesh=mesh)
     flat_pages = (torch.arange(n_layers, dtype=torch.int32, device=dev)[:, None, None] * n_slots
                   + page_rows[None]).reshape(-1)
     commit = commit_rows_plain if attn_impl == PLAIN else commit_rows
     commit(kflat, vflat, flat_pages, offsets[None].expand(n_layers, s, t).reshape(-1),
            torch.stack(k_rows).reshape(n_layers * s * t, *k_rows[0].shape[2:]),
            torch.stack(v_rows).reshape(n_layers * s * t, *v_rows[0].shape[2:]))
-    return lm_head(lm, tc, rms_norm(x, lm["norm"]["scale"], tc.rms_norm_eps))
+    return full_logits(lm, tc, rms_norm(x, lm["norm"]["scale"], tc.rms_norm_eps), mesh)
 
 
 @dataclass
@@ -507,14 +517,14 @@ class PagedBatchEngine:
         ``draft_fn(context) -> ids``); ``pipeline_rolls`` dispatches the next
         roll from the device's tokens before reading the last one back;
         ``prefill_priority`` holds the roll while an admitted slot is
-        mid-prefill."""
+        mid-prefill.  ``mesh``: tensor-parallel serving over this rank's
+        shard (see the module docstring)."""
         if page_size not in PAGE_SIZES and torch.device(device or "cuda").type == "cuda":
             raise ValueError(f"PagedBatchEngine: page_size {page_size} has no CUDA kernel; the paged attention kernels "
                              f"take page sizes {PAGE_SIZES}")
         dtype = params["language_model"]["embed_tokens"].dtype
-        if mesh is not None:
-            raise NotImplementedError("PagedBatchEngine: a device mesh (tensor-parallel serving) waits for a later "
-                                      "slice of the port")
+        check_serving_mesh(cfg, mesh, what="PagedBatchEngine")
+        self.mesh = mesh
         if moe_impl not in MOE_IMPLS:
             raise ValueError(f"unknown moe_impl {moe_impl!r} (one of {MOE_IMPLS})")
         if decode_kernel not in DECODE_KERNELS:
@@ -553,10 +563,9 @@ class PagedBatchEngine:
         # whose scratch cache keeps the weights' dtype (K15 rounds on commit)
         self._prefiller = OmChatEngine(
             cfg, params, attn_impl=attn_impl, prompt_bucket=prompt_bucket,
-            image_cache_size=image_cache_size, device=self.device,
+            image_cache_size=image_cache_size, device=self.device, mesh=mesh,
         )
-        tc = cfg.text
-        shape = (tc.num_hidden_layers, num_pages + 1, tc.num_key_value_heads, page_size, tc.attn_head_dim)
+        shape = local_kv_shape(cfg.text, mesh, num_pages + 1, page_size, pool=True)
         self.k_pool = torch.zeros(shape, dtype=cache_dtype or dtype, device=self.device)
         self.v_pool = torch.zeros(shape, dtype=cache_dtype or dtype, device=self.device)
         self.allocator = PageAllocator(num_pages)
@@ -611,6 +620,7 @@ class PagedBatchEngine:
 
     # -- client API ---------------------------------------------------------
 
+    @replicated
     def submit(
         self,
         input_ids: Sequence[int],
@@ -685,6 +695,7 @@ class PagedBatchEngine:
         req = self.requests[request_id]
         return list(req.generated), req.done
 
+    @replicated
     def pop_result(self, request_id: int):
         req = self.requests.pop(request_id)
         return list(req.generated), req.prompt_len
@@ -701,6 +712,7 @@ class PagedBatchEngine:
         tops = [t[: req.top_logprobs] for t in req.top_list] if req.top_logprobs else None
         return list(req.lp_list), tops
 
+    @replicated
     def cancel(self, request_id: int) -> None:
         """Request early termination.  Only a flag is set here; the scheduler
         releases the slot and pages at the start of its next tick."""
@@ -729,6 +741,7 @@ class PagedBatchEngine:
         out.update({k: round(v, 4) for k, v in self.latency_stats().items() if k != "requests_measured"})
         return out
 
+    @replicated
     def reset_latency_stats(self) -> None:
         """Clear the rolling windows and the roll and verify counts (after a
         warm-up)."""
@@ -758,6 +771,7 @@ class PagedBatchEngine:
             out["intertoken_p99_s"] = float(np.percentile(gaps, 99))
         return out
 
+    @replicated
     def run_to_completion(self, max_ticks: int = 100000) -> int:
         ticks = 0
         while self.has_work() and ticks < max_ticks:
@@ -953,7 +967,7 @@ class PagedBatchEngine:
         logits = _paged_prefill_chunk(
             self.params, self.cfg, t(tok), t(isi), t(idx), feats, t(pos),
             np.asarray(starts, np.int32), np.asarray(lens, np.int32), np.stack(tables),
-            self.k_pool, self.v_pool, self.page_size, self.attn_impl, self.moe_impl,
+            self.k_pool, self.v_pool, self.page_size, self.attn_impl, self.moe_impl, self.mesh,
         )
         finished = []
         for i, r in enumerate(reqs):
@@ -1045,6 +1059,7 @@ class PagedBatchEngine:
         if len(req.generated) >= req.max_new_tokens:
             self._release(req)
 
+    @replicated
     @torch.no_grad()
     def step(self):
         """One scheduler tick: encode, admit, every pending prefill, one roll."""
@@ -1150,9 +1165,12 @@ class PagedBatchEngine:
 
     def graphed(self) -> bool:
         """Whether rolls and verifies replay CUDA graphs (a CUDA engine on
-        the kernels with ``decode_graphs``)."""
-        return self.decode_graphs and self.device.type == "cuda" and self.attn_impl != PLAIN
+        the kernels with ``decode_graphs``, on one rank: under a mesh of tp
+        > 1 they run eagerly)."""
+        return (self.decode_graphs and self.device.type == "cuda" and self.attn_impl != PLAIN
+                and (self.mesh is None or self.mesh.axis_size("model") == 1))
 
+    @replicated
     def precompile(self, roll_widths: Sequence[int] = ROLL_WIDTHS,
                    variants: Sequence[tuple] = PICK_MODES) -> List[int]:
         """Capture the roll of every table width in ``roll_widths`` (capped
@@ -1266,7 +1284,8 @@ class PagedBatchEngine:
                                          eng.page_size, eng.attn_impl, roll,
                                          decode_kernel=eng.decode_kernel,
                                          sampling=eng._roll_sampling() if sampled else None,
-                                         generator=eng._generator, logprobs=logprobs, moe_impl=eng.moe_impl)
+                                         generator=eng._generator, logprobs=logprobs, moe_impl=eng.moe_impl,
+                                         mesh=eng.mesh)
                 for o, g in zip(out, got if logprobs else (got,)):
                     o.copy_(g)
                 return tuple(out)
@@ -1396,7 +1415,7 @@ class PagedBatchEngine:
                 b = eng._verify_dev
                 logits = _paged_verify(eng.params, eng.cfg, b[:, :t], b[:, t], b[:, t + 1] != 0,
                                        b[:, t + 2: t + 2 + width], eng.k_pool, eng.v_pool, eng.page_size,
-                                       eng.attn_impl, eng.moe_impl)
+                                       eng.attn_impl, eng.moe_impl, eng.mesh)
                 out.copy_(torch.argmax(logits, dim=-1))
                 return out
 

@@ -24,8 +24,9 @@ import torch
 
 from omchat_torch.config import GenerationConfig
 from omchat_torch.models.decoder import decoder_forward
-from omchat_torch.models.qwen2 import KVCache, embed_tokens, lm_head
+from omchat_torch.models.qwen2 import KVCache, embed_tokens, full_logits
 from omchat_torch.ops.sampling import greedy
+from omchat_torch.parallel.serving import agreed
 
 
 def propose_draft(token_ids: Sequence[int], ngram: int = 2, k: int = 8) -> List[int]:
@@ -48,11 +49,12 @@ def verify_step(engine, tokens: torch.Tensor, write_pos: torch.Tensor, cache: KV
     returns the logits of every position [B, S, V] fp32 (the cache is
     written in place)."""
     lm = engine.params["language_model"]
+    tc, mesh = engine.cfg.text, engine.mesh
     s = tokens.shape[1]
     positions = write_pos[:, None] + torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
-    hidden, _ = decoder_forward(lm, engine.cfg.text, embed_tokens(lm, tokens), positions, cache,
-                                write_pos=write_pos, kv_len=write_pos + s, attn_impl=engine.attn_impl)
-    return lm_head(lm, engine.cfg.text, hidden)
+    hidden, _ = decoder_forward(lm, tc, embed_tokens(lm, tokens, mesh, tc.vocab_size), positions, cache,
+                                write_pos=write_pos, kv_len=write_pos + s, attn_impl=engine.attn_impl, mesh=mesh)
+    return full_logits(lm, tc, hidden, mesh)
 
 
 def draft_context(input_ids: Sequence[int]) -> List[int]:
@@ -106,7 +108,8 @@ def generate_speculative(
     if stream_callback is not None:
         stream_callback(last)
 
-    propose = draft_fn or (lambda ctx: propose_draft(ctx, ngram=ngram, k=draft_len))
+    # a caller's draft_fn is a host decision every rank of a mesh takes from its leader
+    propose = agreed(engine.mesh, draft_fn) or (lambda ctx: propose_draft(ctx, ngram=ngram, k=draft_len))
     while len(generated) < gen.max_new_tokens:
         draft = propose(context)[:draft_len]
         budget = gen.max_new_tokens - len(generated)

@@ -243,7 +243,7 @@ def test_sampled_rows_deterministic_and_greedy_rows_unmoved(setup):
 def test_later_slices_and_bad_options_refused(setup):
     _, _, tparams = setup
     cfg = TOmChatConfig.tiny()
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(TypeError, match="Mesh"):  # a mesh is a parallel.mesh.Mesh (tensor-parallel serving)
         tbe.BatchEngine(cfg, tparams, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="attn_impl"):
         tbe.BatchEngine(cfg, tparams, device="cpu", attn_impl="xla")

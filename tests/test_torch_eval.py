@@ -274,7 +274,7 @@ def test_cli_eval_end_to_end_on_the_cpu(tiny_ckpt, tmp_path, capsys, concurrency
     ([], "--perplexity TEXT_FILE"),
     (["--benchmark", "gqa", "--question-file", "q", "--answers-file", "a", "--concurrency", "2", "--guided-mc"],
      "greedy-only"),
-    (["--perplexity", "t.txt", "--tp", "2"], "item 13"),
+    (["--perplexity", "t.txt", "--tp", "2"], "eval entry point has no --tp"),
 ])
 def test_cli_eval_usage_errors_before_loading(flags, message, capsys, monkeypatch):
     from omchat_torch.cli import eval as tcli

@@ -4,7 +4,8 @@ weights, the same mixed workload, identical greedy tokens on every route
 (batched shorts, lone short, chunked and grouped chunks, whose attention
 walks the page tables through K14), at decode_roll 1, 2 and 4 and on the
 plain reference route; page accounting across waves and cancels;
-sampling; the options that wait for later slices (a mesh, the MoE trunk).
+sampling; the options that wait for later slices or are refused (a mesh with a
+data axis).
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ from omchat_torch.checkpoint.convert import from_jax_params
 from omchat_torch.config import GenerationConfig
 from omchat_torch.config import OmChatConfig as TOmChatConfig
 from omchat_torch.constants import IMAGE_TOKEN_INDEX
+from omchat_torch.parallel.mesh import create_mesh
 from omchat_torch.runtime.paged_engine import PagedBatchEngine as TPagedEngine
 
 MAX_NEW = 6
@@ -141,9 +143,11 @@ def test_sampling_top_k1_is_greedy_and_seeded_runs_repeat(reference):
     assert runs[0] == runs[1]
 
 
-@pytest.mark.parametrize("option", [dict(mesh=object())], ids=lambda o: next(iter(o)))
+@pytest.mark.parametrize("option", [dict(mesh=create_mesh(tp=1, ranks=range(2)))], ids=lambda o: next(iter(o)))
 def test_waiting_options_raise(option):
-    with pytest.raises(NotImplementedError):
+    """A serving mesh is pure tensor-parallel: one with a data axis above 1
+    (which JAX's serving mesh never has) is refused."""
+    with pytest.raises(ValueError, match="pure tensor-parallel"):
         TPagedEngine(TOmChatConfig.tiny(), {"language_model": {"embed_tokens": torch.zeros(2)}}, device="cpu",
                      **option)
 

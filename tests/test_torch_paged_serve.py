@@ -80,10 +80,10 @@ def test_image_completion(server):
     assert engine.stats()["image_cache_misses"] >= 1
 
 
-@pytest.mark.parametrize("flags,item", [(["--tp", "2"], "13")], ids=["tp"])
+@pytest.mark.parametrize("flags,item", [(["--tp", "2"], "torchrun --nproc-per-node 2")], ids=["tp"])
 def test_unsupported_field_is_a_client_error(flags, item, capsys, monkeypatch):
-    """What the port does not serve yet is refused by name, as a usage error
-    naming the queue item that will bring it, before any weight loads."""
+    """``--tp 2`` outside a launched world of 2 ranks is a usage error that
+    says what to launch, before any weight loads."""
     from omchat_torch.cli.serve import main
 
     def no_load(*a, **kw):

@@ -254,3 +254,351 @@ def cli_rank(argv):
     from omchat_torch.cli.train import main
 
     main(argv)
+
+
+# --------------------------------------------------------------------------
+# tensor-parallel serving (tests/test_torch_tp_serving*.py)
+# --------------------------------------------------------------------------
+
+SERVING_FAULTS = ("o_proj_reduce_dropped", "kv_heads_of_the_other_rank", "vocab_blocks_reversed")
+
+
+def echo_draft(context):
+    """A draft every tick (a random model rarely repeats an n-gram of its
+    prompt): the context's last three tokens."""
+    return list(context[-3:])
+
+
+def serving_config(heads):
+    """The tiny OmChat config with the trunk's (q, kv) head counts."""
+    import dataclasses
+
+    from omchat_torch.config import OmChatConfig
+
+    cfg = OmChatConfig.tiny()
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_attention_heads=heads[0],
+                                                             num_key_value_heads=heads[1]))
+
+
+@contextlib.contextmanager
+def _serving_fault(fault, mesh):
+    """The serving faults the limits must catch: o_proj's row-parallel
+    reduce dropped in every layer, the cache written with the next rank's kv
+    heads (the prefill's write, which its attention then reads, and the
+    decode's row commit), the vocabulary blocks gathered in reversed rank
+    order."""
+    import sys
+
+    from omchat_torch.models import qwen2
+    from omchat_torch.parallel import comm
+
+    saved = []
+
+    def swap(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    if fault == "o_proj_reduce_dropped":
+        reduce = qwen2.reduce_from_axis
+
+        def reduce_unless_o_proj(x, m, axis="model"):
+            # decoder_layer reduces o_proj itself; the MLP's and the embedding's reduce happen in their own functions
+            return x if sys._getframe(1).f_code.co_name == "decoder_layer" else reduce(x, m, axis)
+
+        swap(qwen2, "reduce_from_axis", reduce_unless_o_proj)
+    elif fault == "kv_heads_of_the_other_rank":
+        commit, attend = qwen2.commit_decode_rows, qwen2.cache_attend
+
+        def other(rows):  # [..., KVH/tp, D] at dim 2: the next rank's kv heads
+            tp, me = mesh.axis_size("model"), mesh.axis_index("model")
+            return comm._gather(rows.contiguous(), mesh.group("model"), 2).chunk(tp, 2)[(me + 1) % tp].contiguous()
+
+        swap(qwen2, "commit_decode_rows", lambda cache, wp, k, v, impl=None: commit(cache, wp, other(k), other(v), impl))
+        swap(qwen2, "cache_attend", lambda impl, wp, starts, kv_len, kc, vc, q, k, v, seg=None: attend(
+            impl, wp, starts, kv_len, kc, vc, q, other(k), other(v), seg))
+    elif fault == "vocab_blocks_reversed":
+        def reversed_gather(logits, vocab_size, m):
+            blocks = comm._gather(logits.contiguous(), m.group("model"), 0).chunk(m.axis_size("model"), 0)
+            return torch.cat(blocks[::-1], dim=-1)
+
+        swap(qwen2, "gather_vocab", reversed_gather)
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def _refuse_to_decide(*args):
+    raise AssertionError("a rank other than the leader took a host decision itself")
+
+
+def generation_options(cfg, params, local, mesh, req) -> dict:
+    """The single-request engine's options under ``mesh`` against the same
+    engine on one device in this rank (the whole tree): sampling with bias,
+    penalties and log-probs, an allowed-tokens mask and stop keywords (taken
+    on the leader only: the other ranks pass callables that must not run, and
+    no tokenizer), the on-device loop, beams and speculative decoding.
+    {option: (one device's output, the mesh's)}."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.utils.testing import MockTokenizer
+
+    lead = dist.get_rank() == 0
+    ids, n = req["texts"][0] + req["echo"], req["new_tokens"]
+    greedy = GenerationConfig(max_new_tokens=n, eos_token_id=-1)
+    sampled = dataclasses.replace(greedy, do_sample=True, temperature=0.8, top_k=40, top_p=0.9,
+                                  presence_penalty=0.5, frequency_penalty=0.3)
+
+    def allowed(generated):
+        return list(range(50 + len(generated), 300, 7))
+
+    runs = {
+        "sampled_bias_penalties_logprobs": lambda e, one: (
+            lambda o: (o.token_ids, o.logprobs, o.top_logprobs))(e.generate(
+                [ids], None, sampled, rng_key=11, logit_bias={17: 5.0, 23: -3.0}, return_logprobs=True,
+                top_logprobs=3)),
+        "allowed_tokens_mask": lambda e, one: e.generate(
+            [ids], None, greedy, allowed_tokens_fn=allowed if one or lead else _refuse_to_decide).token_ids,
+        "stop_keywords": lambda e, one: e.generate(
+            [ids], None, dataclasses.replace(greedy, max_new_tokens=3 * n), stop_keywords=["\x20"],
+            tokenizer=MockTokenizer() if one or lead else None).token_ids,
+        "ondevice_sampled": lambda e, one: e.generate_ondevice([ids], None, sampled, rng_key=5).token_ids,
+        "beams": lambda e, one: e.beam_search(ids, None, num_beams=3, max_new_tokens=n, eos_token_id=-1),
+        "speculative": lambda e, one: e.generate_speculative(
+            ids, None, greedy, draft_len=3, draft_fn=echo_draft if one or lead else _refuse_to_decide),
+    }
+    one = OmChatEngine(cfg, params, prompt_bucket=8, device="cpu")
+    tp = OmChatEngine(cfg, local, prompt_bucket=8, device="cpu", mesh=mesh)
+    return {name: (run(one, True), run(tp, False)) for name, run in runs.items()}
+
+
+def tp_serving_rank(tp, heads, jparams, jqparams, req):
+    """Every serving case on this world's pure-TP mesh, on the CPU in fp32:
+    rank 0 returns {case: result}, every rank {case: its tokens}."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from omchat_torch.checkpoint.convert import from_jax_params
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.ops.fp8 import E4M3
+    from omchat_torch.ops.sampling import greedy
+    from omchat_torch.parallel.comm import _gather
+    from omchat_torch.parallel.mesh import create_mesh
+    from omchat_torch.parallel.sharding import omchat_param_specs, shard_params
+    from omchat_torch.parallel.tp_attention import tp_flash_attention, tp_shardable
+    from omchat_torch.runtime.batch_engine import BatchEngine
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    cfg = serving_config(heads)
+    mesh = create_mesh(tp=tp)
+    shard = lambda p: shard_params(p, mesh, omchat_param_specs(cfg, p))  # noqa: E731
+    local = shard(from_jax_params(jparams))
+    ids, px, texts, n = req["ids"], req["pixels"], req["texts"], req["new_tokens"]
+    gen = GenerationConfig(max_new_tokens=n, eos_token_id=-1)
+    out = {}
+
+    def engine(params=local, **kw):
+        return OmChatEngine(cfg, params, prompt_bucket=8, device="cpu", mesh=mesh, **kw)
+
+    def generate(eng, prompt=ids, pixels=px):
+        steps = []
+        o = eng.generate([prompt], pixels, gen, logits_callback=lambda s, lg: steps.append(lg[0].numpy()))
+        return {"tokens": o.token_ids[0], "logits": np.stack(steps)}
+
+    out["generate"] = generate(engine())
+    for fault in SERVING_FAULTS:
+        with _serving_fault(fault, mesh):
+            out[fault] = generate(engine())
+    eng = engine()
+    plan = eng.plan([ids])
+    logits, cache = eng.prefill_chunked(plan, eng.encode_images(px), n, chunk_size=8)
+    first, toks, kv_len = logits[0].numpy(), [int(greedy(logits)[0])], torch.as_tensor(plan.lengths)
+    for _ in range(n - 1):
+        logits, cache = eng.decode_step(torch.tensor([toks[-1]], dtype=torch.int32), kv_len, cache)
+        kv_len = kv_len + 1
+        toks.append(int(greedy(logits)[0]))
+    out["chunked"] = {"tokens": toks, "logits": first[None]}
+    # the plain route: K2's plain version rounds p to e4m3 on an e4m3 cache, XLA keeps it in fp32
+    out["e4m3"] = generate(engine(cache_dtype=E4M3, attn_impl="plain"))
+    out["int8"] = generate(engine(shard(from_jax_params(jqparams))), prompt=texts[0], pixels=None)
+
+    def drive(be, requests):
+        rids = [be.submit(p, x, max_new_tokens=n, eos_token_id=-1) for p, x in requests]
+        be.run_to_completion(300)
+        return [be.result(r) for r in rids]
+
+    both = [(t, None) for t in texts]
+    out["batch"] = {"tokens": drive(BatchEngine(cfg, local, max_slots=2, max_len=64, chunk_size=16, mesh=mesh,
+                                                device="cpu"), both)}
+    paged = dict(max_slots=2, num_pages=24, page_size=8, prompt_bucket=16, max_len=96, mesh=mesh, device="cpu")
+    out["paged"] = {"tokens": drive(PagedBatchEngine(cfg, local, **paged), both + [(ids, px)])}
+    out["paged_e4m3"] = {"tokens": drive(PagedBatchEngine(cfg, local, cache_dtype=E4M3, **paged), both)}
+    pe = PagedBatchEngine(cfg, local, prefix_cache=True, **paged)
+    first_run = drive(pe, [(req["prefix"] + [41], None)])
+    out["paged_prefix"] = {"tokens": first_run + drive(pe, [(req["prefix"] + [42, 43], None)]),
+                           "hits": pe.prefix_cache.hits}
+    pe = PagedBatchEngine(cfg, local, speculative=True, draft_len=3, draft_fn=echo_draft, **paged)
+    out["paged_speculative"] = {"tokens": drive(pe, [(req["echo"], None)]), "verifies": pe.verifies_eager}
+    out["options"] = generation_options(cfg, from_jax_params(jparams), local, mesh, req)
+    # K2 on the rank's heads (tests/test_tp_attention.py's case)
+    att = req["attention"]
+    heads_of = lambda a: torch.from_numpy(a).chunk(tp, 2)[mesh.axis_index("model")]  # noqa: E731
+    o = tp_flash_attention(heads_of(att["q"]), heads_of(att["k"]), heads_of(att["v"]), mesh, causal=True,
+                           q_offset=torch.as_tensor(att["q_offset"]), kv_len=torch.as_tensor(att["kv_len"]))
+    out["tp_attention"] = {"out": _gather(o.contiguous(), mesh.group("model"), 2).numpy(),
+                           "shardable": [tp_shardable(mesh, h, kv) for h, kv in ((28, 4), (25, 4), (28, 3))]}
+    if dist.get_rank() == 0:
+        return out
+    return {**{k: {"tokens": v["tokens"]} for k, v in out.items() if "tokens" in v},
+            "options": {k: v[1] for k, v in out["options"].items()}}
+
+
+def _post(port: int, path: str, body: dict) -> dict:
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def serve_and_ask(argv, requests) -> list:
+    """``cli.serve.main(argv)`` on this rank; on the leading rank it runs in
+    a thread, answers ``requests`` ([(path, body)]) over HTTP and is shut
+    down; on a follower it returns when the leader stops.  Returns the
+    answers (the leader's), [] on a follower."""
+    import threading
+
+    from omchat_torch.cli import serve
+
+    ready = threading.Event()
+    box = {}
+
+    def on_ready(server):
+        box["server"] = server
+        ready.set()
+
+    thread = threading.Thread(target=serve.main, args=(argv,), kwargs={"on_ready": on_ready}, daemon=True)
+    thread.start()
+    answers = []
+    while thread.is_alive() and not ready.wait(0.05):
+        pass
+    if ready.is_set():
+        port = box["server"].server_address[1]
+        answers = [_post(port, path, body) for path, body in requests]
+        box["server"].shutdown()
+    thread.join(120)
+    assert not thread.is_alive(), "the server did not stop"
+    return answers
+
+
+def tp_cli_rank(ckpt, lora_dir, requests, prompt):
+    """The serving entry points in a launched world (the tests' gloo ranks):
+    ``load_pretrained_model(tp=)`` (plain, int8, a LoRA merge) with each
+    rank's leaf shapes, ``single_inference``, ``chat`` (stdin on rank 0),
+    and ``serve`` on all three routes answering ``requests``."""
+    import contextlib
+    import io
+    import sys
+
+    import torch.distributed as dist
+
+    from omchat_torch.api import load_pretrained_model
+    from omchat_torch.config import GenerationConfig
+
+    rank, tp = dist.get_rank(), dist.get_world_size()
+    gen = GenerationConfig(max_new_tokens=4, eos_token_id=-1)
+    out = {}
+    for name, kw in (("load", {}), ("int8", {"quantize_int8": True}), ("lora", {"lora_path": lora_dir})):
+        model = load_pretrained_model(ckpt, dtype=torch.float32, device="cpu", tp=tp, **kw)
+        steps = []
+        o = model.engine.generate([prompt], None, gen, logits_callback=lambda s, lg: steps.append(lg[0].numpy()))
+        lm = model.engine.params["language_model"]
+        q = lm["layers"]["self_attn"]["q_proj"]
+        out[name] = {"tokens": o.token_ids[0], "logits": steps[0],
+                     "q_shape": tuple((q.get("kernel") if "kernel" in q else q["kernel_q"]).shape),
+                     "embed_rows": lm["embed_tokens"].shape[0]}
+        del model
+    base = ["--model-path", ckpt, "--device", "cpu", "--tp", str(tp), "--max-new-tokens", "3"]
+    from omchat_torch.cli import chat, single_inference
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        single_inference.main(base + ["--image-path", f"{ckpt}/img.png", "--question", "what is it?"])
+    out["single_inference"] = text.getvalue()
+    text = io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO("hello\nand then?\n\n" if rank == 0 else "")
+    try:
+        with contextlib.redirect_stdout(text):
+            chat.main(base)
+    finally:
+        sys.stdin = stdin
+    out["chat"] = text.getvalue()
+    serve = ["--model-path", ckpt, "--device", "cpu", "--tp", str(tp), "--host", "127.0.0.1", "--port", "0"]
+    small = ["--page-size", "8", "--num-pages", "64", "--max-len", "256", "--max-slots", "2"]
+    for route, flags in (("paged", ["--paged", *small]), ("slots", ["--continuous-batching", *small]),
+                         ("single", [])):
+        out[f"serve_{route}"] = serve_and_ask(serve + flags, requests)
+    return out
+
+
+class _Counter:
+    """A stand-in engine for the leader / follower machinery."""
+
+    def __init__(self):
+        self.calls = []
+
+    def add(self, x, fail_on=None, stream_callback=None):
+        import torch.distributed as dist
+
+        if fail_on == "every rank" or fail_on == dist.get_rank():
+            raise ValueError(f"{x} refused")
+        if stream_callback is not None:
+            stream_callback(x)
+        self.calls.append(x)
+        return 2 * x
+
+
+def replica_rank():
+    """The leader's replicated calls on a world of 2: one that every rank
+    runs, one that every rank refuses alike (the leader reports it and both
+    go on), one that only the follower refuses (both raise
+    ``ReplicaDiverged``, the leader with the follower's traceback)."""
+    import torch.distributed as dist
+
+    from omchat_torch.parallel import serving
+    from omchat_torch.parallel.mesh import create_mesh
+
+    serving_counter = type("Counter", (_Counter,), {"add": serving.replicated(_Counter.add)})
+    mesh = create_mesh(tp=2)
+    engine = serving_counter()
+    out = {}
+    if dist.get_rank() == 0:
+        serving.lead(mesh, engine=engine)
+        seen = []
+        out["ok"] = engine.add(3, stream_callback=seen.append)  # an observer: the follower gets None
+        out["seen"] = seen
+        try:
+            engine.add(5, fail_on="every rank")
+        except ValueError as e:
+            out["alike"] = str(e)
+        out["after"] = engine.add(7)
+        try:
+            engine.add(9, fail_on=1)
+        except serving.ReplicaDiverged as e:
+            out["diverged"] = str(e)
+    else:
+        try:
+            serving.follow(mesh, engine=engine)
+        except serving.ReplicaDiverged as e:
+            out["diverged"] = str(e)
+    out["calls"] = engine.calls
+    return out

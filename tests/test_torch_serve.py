@@ -473,8 +473,10 @@ def test_route_flags_reach_the_paged_engine(models, monkeypatch, flag):
     assert not any(ROUTE_FLAGS[f][1](built["engine"]) for f in others)
 
 
-@pytest.mark.parametrize("flags,item", [(["--tp", "2"], "13")], ids=["tp-2"])
+@pytest.mark.parametrize("flags,item", [(["--tp", "2"], "torchrun --nproc-per-node 2")], ids=["tp-2"])
 def test_waiting_flags_still_refused_by_name(flags, item, capsys, monkeypatch):
+    """``--tp 2`` outside a launched world of 2 ranks: a usage error that
+    says what to launch, before any weight loads."""
     def no_load(*a, **kw):
         raise AssertionError("weights loaded before the refusal")
 

@@ -152,7 +152,7 @@ def test_single_inference_needs_one_source_and_refuses_tp(tiny_ckpt, capsys):
         assert "exactly one of --image-path / --video-path" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         main(base + ["--image-path", str(tiny_ckpt / "img.png"), "--tp", "2"])
-    assert "queue A item 13" in capsys.readouterr().err
+    assert "torchrun --nproc-per-node 2" in capsys.readouterr().err  # not a launched world of 2 ranks
 
 
 @pytest.mark.parametrize("route", ["--speculative", "--num-beams"])
@@ -210,14 +210,15 @@ def test_chat_cli_threads_history_over_piped_turns(tiny_ckpt, loads, monkeypatch
     assert [h for _, h in seen] == [None, None]
     with pytest.raises(SystemExit):
         main(argv + ["--tp", "2"])
-    assert "queue A item 13" in capsys.readouterr().err
+    assert "torchrun --nproc-per-node 2" in capsys.readouterr().err  # not a launched world of 2 ranks
 
 
-def test_serve_cli_refuses_tp_and_takes_lora():
+def test_serve_cli_refuses_tp_and_takes_lora(capsys):
     from omchat_torch.cli import serve
 
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit):  # --tp 2 outside a launched world of 2 ranks
         serve.main(["--model-path", os.devnull, "--tp", "2"])
+    assert "torchrun --nproc-per-node 2" in capsys.readouterr().err
     import argparse
 
     ap = argparse.ArgumentParser()
