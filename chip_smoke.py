@@ -8534,8 +8534,8 @@ def layerwise_model(cfg, seed: int, mesh=None) -> dict:
 @contextlib.contextmanager
 def serving_tp_fault(fault, mesh):
     """Swap a planted serving fault into the modules the engines reach:
-    o_proj's row-parallel reduce dropped in every layer (the MLP's and the
-    embedding's reduce are made in their own functions), the cache written
+    o_proj's row-parallel reduce dropped in every layer (down_proj still
+    reduces), the cache written
     with the next rank's kv heads (the prefill's write, which its attention
     then reads, and the decode's row commit), the vocabulary blocks gathered
     in reversed rank order."""
@@ -8551,9 +8551,9 @@ def serving_tp_fault(fault, mesh):
         setattr(qwen2, name, fn)
 
     if fault == "o_proj_reduce_dropped":
-        reduce = qwen2.reduce_from_axis
-        swap("reduce_from_axis", lambda x, m, axis="model": (
-            x if sys._getframe(1).f_code.co_name == "decoder_layer" else reduce(x, m, axis)))
+        row = qwen2._row_lora_dense
+        swap("_row_lora_dense", lambda y, p, a8, lora, name, ids, m: row(y, p, a8, lora, name, ids,
+                                                                          None if name == "o_proj" else m))
     elif fault == "kv_heads_of_the_other_rank":
         commit, attend = qwen2.commit_decode_rows, qwen2.cache_attend
         tp, me = mesh.axis_size("model"), mesh.axis_index("model")
@@ -8562,8 +8562,8 @@ def serving_tp_fault(fault, mesh):
             return comm._gather(rows.contiguous(), mesh.group("model"), 2).chunk(tp, 2)[(me + 1) % tp].contiguous()
 
         swap("commit_decode_rows", lambda cache, wp, k, v, impl=None: commit(cache, wp, other(k), other(v), impl))
-        swap("cache_attend", lambda impl, wp, starts, kv_len, kc, vc, q, k, v, seg=None: attend(
-            impl, wp, starts, kv_len, kc, vc, q, other(k), other(v), seg))
+        swap("cache_attend", lambda impl, wp, starts, kv_len, kc, vc, q, k, v, seg=None, runs=None: attend(
+            impl, wp, starts, kv_len, kc, vc, q, other(k), other(v), seg, runs))
     elif fault == "vocab_blocks_reversed":
         swap("gather_vocab", lambda logits, vocab_size, m: torch.cat(
             comm._gather(logits.contiguous(), m.group("model"), 0).chunk(m.axis_size("model"), 0)[::-1], dim=-1))
@@ -8585,18 +8585,26 @@ def serving_tp_cfg(layers=None):
                                text=dataclasses.replace(full.text, num_hidden_layers=t))
 
 
-def serving_tp_engines(cfg, params, seed: int, impl, mesh=None, fault=None) -> dict:
+def serving_tp_engines(cfg, params, seed: int, impl, mesh=None, fault=None, engines=("single", "paged", "slot"),
+                       lora_bank=None, adapters=None, moe_impl="dense") -> dict:
     """The three engines on one route at 2+2 layers: the single-request
     engine on phase 3's request (each step's logits), the paged and the slot
     engine on phase 7's 4 requests (first-token logits), each with the
     launches of its run; eager decode steps, so that a launch count is a
-    count of steps."""
+    count of steps.  ``engines``: which of them run; ``lora_bank`` with
+    ``adapters`` (the single request's adapter, then the slot requests'
+    ones); ``moe_impl``: the paged engine's experts route; ``fault``: the
+    single-request engine alone under a planted fault (phase 39's or phase
+    40's)."""
     import torch
 
     from omchat_torch.config import GenerationConfig
     from omchat_torch.runtime.batch_engine import BatchEngine
     from omchat_torch.runtime.generate import OmChatEngine
     from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    adapters = adapters or [None] * 5
+    bank = {} if lora_bank is None else {"lora_bank": lora_bank}
 
     counted = paged_counters()
     counted["flash_decode_stacked"] = counters()["flash_decode_stacked"]
@@ -8615,35 +8623,40 @@ def serving_tp_engines(cfg, params, seed: int, impl, mesh=None, fault=None) -> d
 
     def single():
         eng = OmChatEngine(cfg, params, attn_impl=impl, image_cache_size=0, decode_graphs=False, mesh=mesh,
-                           device=DEVICE)
+                           device=DEVICE, **bank)
         steps = []
-        out = eng.generate([ids], tiles, gen, logits_callback=lambda s, lg: steps.append(lg[0].float().cpu()))
+        out = eng.generate([ids], tiles, gen, logits_callback=lambda s, lg: steps.append(lg[0].float().cpu()),
+                           adapter_id=adapters[0])
         return {"tokens": out.token_ids[0], "logits": steps}
 
     if fault is not None:
-        with serving_tp_fault(fault, mesh):
+        with (serving_tp_fault if fault in SERVING_TP_FAULTS else remainder_fault)(fault, mesh):
             return single()
 
     def paged():
         eng = PagedBatchEngine(cfg, params, attn_impl=impl, image_cache_size=0, device=DEVICE, decode_graphs=False,
-                               mesh=mesh, **SERVING)
+                               mesh=mesh, moe_impl=moe_impl, **SERVING)
         first = capture_first_logits(eng)
         rids = drive(eng, work, PARITY_NEW_TOKENS)
         return {"tokens": [eng.result(r) for r in rids], "first": [first[r][0].cpu() for r in rids]}
 
     def slot():
-        eng = BatchEngine(cfg, params, attn_impl=impl, device=DEVICE, decode_graphs=False, mesh=mesh, **SLOT_ENGINE)
+        eng = BatchEngine(cfg, params, attn_impl=impl, device=DEVICE, decode_graphs=False, mesh=mesh, **SLOT_ENGINE,
+                          **bank)
         rec = record_slot_run(eng)
-        rids = drive(eng, work, PARITY_NEW_TOKENS)
+        rids = [eng.submit(w_ids, w_tiles, max_new_tokens=PARITY_NEW_TOKENS, eos_token_id=-1, adapter_id=a or 0)
+                for (w_ids, w_tiles), a in zip(work, adapters[1:])]
+        eng.run_to_completion()
         return {"tokens": [eng.result(r) for r in rids], "first": [rec["logits"][r].cpu() for r in rids]}
 
-    res = {"single": run(single), "paged": run(paged), "slot": run(slot)}
+    res = {name: run({"single": single, "paged": paged, "slot": slot}[name]) for name in engines}
     if mesh is None:  # phase 7's rule reads the single-request engine's step margins of each request
-        eng = OmChatEngine(cfg, params, attn_impl=impl, image_cache_size=0, decode_graphs=False, device=DEVICE)
+        eng = OmChatEngine(cfg, params, attn_impl=impl, image_cache_size=0, decode_graphs=False, device=DEVICE, **bank)
         res["margins"] = []
-        for w_ids, w_tiles in work:
+        for (w_ids, w_tiles), a in zip(work, adapters[1:] if "slot" in engines and bank else [None] * len(work)):
             steps = []
-            eng.generate([w_ids], w_tiles, gen, logits_callback=lambda s, lg: steps.append(lg[0].float()))
+            eng.generate([w_ids], w_tiles, gen, logits_callback=lambda s, lg: steps.append(lg[0].float()),
+                         adapter_id=a)
             res["margins"].append([float(t[0] - t[1]) for t in (torch.topk(lg, 2).values for lg in steps)])
     return res
 
@@ -8732,9 +8745,10 @@ def serving_tp_full(cfg, params, seed: int, mesh=None) -> dict:
     return out
 
 
-def serving_tp_rank(seed: int, small_ref: dict) -> dict:
+def serving_tp_rank(seed: int, small_ref: dict, remainder=()) -> dict:
     """Phase 39 in one rank of the world of 2: (a) at 2+2 layers on both
-    routes and the faults, then (b) at full depth."""
+    routes and the faults, then (b) at full depth; then phase 40's tp-2
+    cases ``remainder``, which share this world."""
     import torch
     import torch.distributed as dist
 
@@ -8764,6 +8778,10 @@ def serving_tp_rank(seed: int, small_ref: dict) -> dict:
     out["build_s"] = time.perf_counter() - t0
     out["shard_gib"] = torch.cuda.memory_allocated() / 2**30
     out["full"] = serving_tp_full(cfg, params, seed, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["remainder"] = remainder_rank(seed, remainder, 2) if remainder else None
     log(f"serving tp rank {dist.get_rank()}: " + json.dumps(
         {"heads": out["heads"], "build_s": out["build_s"], "shard_gib": out["shard_gib"],
          "peak_gib": out["full"]["peak_gib"], "request": out["full"]["request"],
@@ -8788,8 +8806,14 @@ def _tp_launch_rule(world1: dict) -> dict:
     return want
 
 
-def serving_tp(seed: int, e2e: dict, serve: dict) -> dict:
-    """Phase 39: tensor-parallel serving on two ranks sharing the card."""
+REMAINDER_TP2_CASES = ("w8a8", "lora", "moe")
+
+
+def serving_tp(seed: int, e2e: dict, serve: dict, remainder=REMAINDER_TP2_CASES) -> tuple:
+    """Phase 39: tensor-parallel serving on two ranks sharing the card.
+    Returns (its summary, its world-1 references at 2+2 layers, each rank's
+    results of phase 40's tp-2 cases ``remainder``, run in the same
+    world)."""
     import torch
 
     from omchat_torch.parallel.launch import run_ranks
@@ -8809,7 +8833,7 @@ def serving_tp(seed: int, e2e: dict, serve: dict) -> dict:
     torch.cuda.empty_cache()
     world1_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ranks = run_ranks(serving_tp_rank, 2, seed, {}, timeout=900)
+    ranks = run_ranks(serving_tp_rank, 2, seed, {}, remainder, timeout=900)
     world2_s = time.perf_counter() - t0
     log(f"serving tp: world 1 references {world1_s:.1f} s, the world of 2 {world2_s:.1f} s; two ranks share one "
         "card over gloo, so the times show the collectives' overhead, not scaling")
@@ -8903,6 +8927,391 @@ def serving_tp(seed: int, e2e: dict, serve: dict) -> dict:
     log("serving tp (phase 39, this call): " + json.dumps(summary))
     if failed:
         raise AssertionError("phase 39 failed: " + " | ".join(failed))
+    return summary, ref, [r["remainder"] for r in ranks] if remainder else None
+
+
+# ---------------------------------------------------------------------------
+# Phase 40: the rest of tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+# each case's planted fault: the row-parallel amax unreduced, a row-parallel
+# LoRA delta added after the reduce, a rank's experts indexed from expert 0,
+# a rank's q heads reading the kv head of the next group.  The limits are
+# phase 4's, widened where world 1 itself moves by more on the same function
+# computed with other roundings: w8a8 to SERVING_TP_BAR x the gap between
+# world 1's glue route and its unfused chain (an int8 code flips where a
+# bf16 input moves by an ulp; the sharp check there is the codes' and
+# accumulators' bitwise equality), the MoE trunk to MOE_GMM_REL of max
+# |logit| (phase 33's rule for its two expert routes: the experts' sum is
+# taken in another order across the ranks, and a top-k pick may flip)
+REMAINDER_FAULTS = {"w8a8": "amax_not_reduced", "lora": "lora_delta_after_reduce", "moe": "experts_from_zero",
+                    "tp8": "next_kv_head"}
+REMAINDER_ADAPTERS = [2, 1, 2, 3, 0]  # the single request's adapter, then the slot requests' (mixed)
+REMAINDER_TP8 = 8
+REMAINDER_STEPS = 8  # timed eager decode steps a case
+
+
+@contextlib.contextmanager
+def remainder_fault(fault, mesh=None):
+    """Swap one of phase 40's planted faults into the modules it reaches."""
+    from omchat_torch.models import qwen2, qwen2_moe
+    from omchat_torch.parallel import comm, tp_attention
+
+    saved = []
+
+    def swap(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    if fault == "amax_not_reduced":
+        swap(comm, "max_over_axis", lambda x, m, axis="model": x.detach().contiguous().clone())
+    elif fault == "lora_delta_after_reduce":
+        def after(y, p, a8, lora, name, ids, m):
+            out = comm.row_parallel_dense(y, p, m, a8=a8)
+            return out + qwen2.lora_delta(y, lora[name], ids) if lora is not None and name in lora else out
+
+        swap(qwen2, "_row_lora_dense", after)
+    elif fault == "experts_from_zero":
+        block = qwen2_moe.expert_block
+        swap(qwen2_moe, "expert_block", lambda cfg, m=None: (lambda b: slice(0, b.stop - b.start))(block(cfg, m)))
+    elif fault == "next_kv_head":
+        swap(tp_attention, "_kv_head", lambda j, h, kvh: (j // (h // kvh) + 1) % kvh)
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def unfused_w8a8():
+    """The one-device kernels route on the unfused w8a8 chain, the chain a
+    mesh runs (and the JAX package under a mesh): the trunk's glue layer
+    and the ViT's packed path (its glue scan) off, so every product is
+    ``dense(a8=True)`` and the ViT's attention is K2 on the split path."""
+    from omchat_torch.models import intern_vit, qwen2
+    from omchat_torch.runtime import paged_engine
+
+    saved = [(qwen2, "quant_glue_ok"), (paged_engine, "quant_glue_ok"), (intern_vit, "packed_seq_supported")]
+    saved = [(m, n, getattr(m, n)) for m, n in saved]
+    for m, n, _ in saved:
+        setattr(m, n, lambda *a: False)
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def remainder_model(case: str, seed: int, mesh=None):
+    """(cfg, params, lora bank) of a phase 40 case at full width and 2+2
+    layers, bf16, the same weights on every rank and on world 1: the whole
+    tree (the tp-8 case's with ``mesh``: this rank's shard, built a layer at
+    a time).  The bank is whole (the engines shard it).  w8a8 is
+    ``api.quantize_model`` on the whole model, as a one-device load
+    quantizes and calibrates; the MoE case is phase 33's
+    Qwen1.5-MoE-A2.7B trunk."""
+    import torch
+
+    from omchat_torch import api
+    from omchat_torch.training.lora import build_lora_bank
+
+    bank = None
+    if case == "moe":
+        cfg, params = moe_model(None, seed, layers=2)
+    elif case == "tp8":
+        cfg = serving_tp_cfg(SERVING_TP_LAYERS)
+        return cfg, layerwise_model(cfg, seed, mesh), None
+    else:
+        cfg = serving_tp_cfg(SERVING_TP_LAYERS)
+        params = layerwise_model(cfg, seed)
+        if case == "w8a8":
+            cfg, params = api.quantize_model(cfg, params, w8a8=True)
+        else:  # phase 27's seeded rank-16 adapters on q / k / v / o, three of them
+            bank = build_lora_bank(seeded_adapters(params, seed + 40, n=3), dtype=torch.bfloat16)
+    return cfg, params, bank
+
+
+def remainder_case_runs(case: str, cfg, params, bank, seed: int, mesh=None) -> dict:
+    """A case's engines on the kernels and on the plain route (each its
+    launches), and with ``mesh`` the planted fault's run."""
+    runs = {"w8a8": dict(engines=("single", "paged")),
+            "lora": dict(engines=("single", "slot"), lora_bank=bank, adapters=REMAINDER_ADAPTERS),
+            "moe": dict(engines=("single", "paged", "slot")),
+            "tp8": dict(engines=("single", "paged"))}[case]
+    ctx = unfused_w8a8 if case == "w8a8" and mesh is None else contextlib.nullcontext
+    out = {}
+    with ctx():
+        for route, impl in (("kernel", None), ("plain", "plain")):
+            out[route] = serving_tp_engines(cfg, params, seed, impl, mesh, **runs)
+        if case == "moe":  # the paged engine on the gmm experts route
+            out["kernel"]["paged_gmm"] = serving_tp_engines(cfg, params, seed, None, mesh, engines=("paged",),
+                                                            moe_impl="gmm")["paged"]
+    if mesh is not None:
+        out["fault"] = serving_tp_engines(cfg, params, seed, None, mesh, fault=REMAINDER_FAULTS[case],
+                                          lora_bank=bank, adapters=runs.get("adapters"))
+    return out
+
+
+def remainder_timing(cfg, params, bank, seed: int, mesh) -> dict:
+    """The single-request engine's eager decode step on the kernels: ms a
+    step and the collectives' share of it (each collective waits for the
+    card before and after it, :func:`omchat_torch.parallel.comm.timing`)."""
+    import torch
+
+    from omchat_torch.ops.sampling import greedy
+    from omchat_torch.parallel import comm
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    ids, tiles = make_request(cfg, seed)
+    eng = OmChatEngine(cfg, params, image_cache_size=0, mesh=mesh, device=DEVICE, decode_graphs=False,
+                       **({} if bank is None else {"lora_bank": bank}))
+    plan = eng.plan([ids])
+    logits, cache = eng.prefill(plan, eng.encode_images(tiles), 16)
+    tok, kv_len = greedy(logits), torch.as_tensor(plan.lengths, device=DEVICE)
+    out = {}
+    for timed in (False, True):
+        comm.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with comm.timing() if timed else contextlib.nullcontext():
+            for _ in range(REMAINDER_STEPS):
+                logits, cache = eng.decode_step(tok, kv_len, cache)
+                tok, kv_len = greedy(logits), kv_len + 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if timed:
+            out.update(collectives_share=sum(comm.SECONDS.values()) / wall,
+                       calls_a_step={k: v / REMAINDER_STEPS for k, v in comm.CALLS.items()})
+        else:
+            out["step_ms"] = wall * 1e3 / REMAINDER_STEPS
+    return out
+
+
+def remainder_rank(seed: int, cases, tp: int) -> dict:
+    """Phase 40's cases in one rank of a world of ``tp``: each case's
+    engines on both routes, its fault, its eager step and this rank's peak
+    GiB; for w8a8 also the row-parallel codes, row scales and int32
+    accumulators of layer 0 against world 1's, bitwise."""
+    import torch
+    import torch.distributed as dist
+
+    from omchat_torch.parallel.mesh import create_mesh
+    from omchat_torch.parallel.sharding import omchat_param_specs, shard_params
+    from omchat_torch.parallel.tp_attention import head_runs
+    from omchat_torch.runtime.generate import OmChatEngine
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(tp=tp)
+    out = {}
+    for case in cases:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, params, bank = remainder_model(case, seed, mesh)
+        res = {}
+        if case != "tp8":  # the whole tree, then this rank's shard
+            whole, params = params, shard_params(params, mesh, omchat_param_specs(cfg, params))
+            if case == "w8a8":
+                res["codes"] = remainder_codes(cfg, seed, mesh, whole, params)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        res.update(build_s=time.perf_counter() - t0, runs=head_runs(cfg.text, mesh))
+        if case == "lora":  # bank row 0 adds exactly nothing: the base model's logits, bitwise
+            ids, tiles = make_request(cfg, seed)
+            first = []
+            for kw in ({"lora_bank": bank}, {}):
+                eng = OmChatEngine(cfg, params, image_cache_size=0, mesh=mesh, device=DEVICE, **kw)
+                logits, _ = eng.prefill(eng.plan([ids]), eng.encode_images(tiles), 0,
+                                        adapter_ids=eng._adapter_ids(1, 0))
+                first.append(logits)
+            res["adapter0_bitwise_base"] = bool(torch.equal(*first))
+            del eng, first
+        res.update(remainder_case_runs(case, cfg, params, bank, seed, mesh))
+        res["timing"] = remainder_timing(cfg, params, bank, seed, mesh)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["s"] = time.perf_counter() - t0
+        del params, bank
+        gc.collect()
+        torch.cuda.empty_cache()
+        if dist.get_rank() != 0:  # rank 0 brings the logits back; every rank its launches and tokens
+            for route in ("kernel", "plain"):
+                for run in res[route].values():
+                    if isinstance(run, dict):
+                        run.pop("logits", None)
+                        run.pop("first", None)
+            res["fault"] = None
+        out[case] = res
+    return out
+
+
+def remainder_codes(cfg, seed: int, mesh, whole, local) -> dict:
+    """Layer 0's o_proj (over the rank's heads) and down_proj (over its
+    slice of the width) on seeded bf16 activations: each rank's int8 codes,
+    row scales and int32 accumulator against world 1's from the whole
+    quantized layer, bitwise (sound and with the unreduced amax)."""
+    import torch
+
+    from omchat_torch.ops.linear import _int8_product, quantize_activations
+    from omchat_torch.parallel.comm import model_slice, row_parallel_int8
+    from omchat_torch.utils.tree import layer_slice
+
+    tc = cfg.text
+    full, mine = (layer_slice(t["language_model"]["layers"], 0) for t in (whole, local))
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 41)
+    out = {}
+    for name, group, width, units in (("o_proj", "self_attn", tc.num_attention_heads * tc.attn_head_dim,
+                                       tc.num_attention_heads), ("down_proj", "mlp", tc.intermediate_size, None)):
+        x = torch.randn((2, 700, width), generator=g, device=DEVICE).to(torch.bfloat16)
+        cols = model_slice(width, mesh, units=units)
+        wq, wrs = quantize_activations(x)
+        wacc = _int8_product(wq, full[group][name])
+        for label, ctx in (("sound", contextlib.nullcontext), ("fault", lambda: remainder_fault("amax_not_reduced"))):
+            with ctx():
+                xq, rs, acc = row_parallel_int8(x[..., cols], mine[group][name], mesh)
+            out[f"{name}/{label}"] = [bool(torch.equal(xq, wq[..., cols])), bool(torch.equal(rs, wrs)),
+                                      bool(torch.equal(acc, wacc))]
+    return out
+
+
+def _remainder_launch_rule(world1: dict, runs) -> dict:
+    """The launches a rank must make for a run world 1 made with
+    ``world1`` (:func:`_tp_launch_rule`), the trunk's attention kernels
+    once per run of q heads that share a kv head where the kv heads
+    replicate (``runs`` of ``head_runs``; None: one call as on one device).
+    World 1's K2 launches are the trunk's (its ViT takes K1, or K2 on the
+    unfused w8a8 chain, which the caller folds in)."""
+    want = _tp_launch_rule(world1)
+    r = 1 if runs is None else len(runs)
+    for name in ("flash_decode_stacked", "paged_flash_decode", "paged_flash_prefill"):
+        if name in want:
+            want[name] = world1[name] * r
+    want["flash_attention"] = world1["flash_attention"] * r + world1["packed_qkv_norm_attention"]
+    return want
+
+
+def serving_tp_remainder(seed: int, tp2=None, tp8_ref=None) -> dict:
+    """Phase 40: w8a8, a LoRA bank and the MoE trunk at tp 2, Qwen2-7B's 4
+    kv heads replicated at tp 8 (eight ranks sharing the card), each against
+    the same engines on world 1 on the same weights and route.  ``tp2``:
+    the tp-2 cases' rank results from phase 39's world (run here without
+    it); ``tp8_ref``: phase 39's world-1 references of the same 2+2-layer
+    model (computed here without them)."""
+    import torch
+
+    from omchat_torch.parallel.launch import run_ranks
+
+    failed, summary = [], {"card": CARD}
+    t0 = time.perf_counter()
+    if tp2 is None:
+        tp2 = run_ranks(remainder_rank, 2, seed, ("w8a8", "lora", "moe"), 2, timeout=900)
+    tp8 = run_ranks(remainder_rank, REMAINDER_TP8, seed, ("tp8",), REMAINDER_TP8, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    worlds = {case: [r[case] for r in tp2] for case in ("w8a8", "lora", "moe")}
+    worlds["tp8"] = [r["tp8"] for r in tp8]
+    for case, got in worlds.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        if case == "tp8" and tp8_ref is not None:
+            ref = tp8_ref
+        else:
+            cfg, params, bank = remainder_model(case, seed)
+            ref = remainder_case_runs(case, cfg, params, bank, seed)
+            if case == "w8a8":  # the glue route's gap beside the unfused chain's
+                ref["glue"] = serving_tp_engines(cfg, params, seed, None, engines=("single",))["single"]
+            del params, bank
+        ref_s = time.perf_counter() - t1
+        floor = 0.0
+        if case == "w8a8":
+            floor = SERVING_TP_BAR * float((ref["glue"]["logits"][0] - ref["kernel"]["single"]["logits"][0]).abs().max())
+
+        def outside_of(a, b):
+            limit = LOGITS_ATOL + LOGITS_RTOL * b.abs()
+            if case == "moe":
+                limit = limit.clamp(min=MOE_GMM_REL * float(b.abs().max()))
+            return (a - b).abs() > limit.clamp(min=floor)
+
+        rows, faults = {}, {}
+        for route in ("kernel", "plain"):
+            for name, want in ref[route].items():
+                if name == "margins" or name not in got[0][route]:
+                    continue
+                mine = got[0][route][name]
+                if name == "single":
+                    pairs = [(mine["logits"][0], want["logits"][0], mine["tokens"], want["tokens"],
+                              [float(t[0] - t[1]) for t in (torch.topk(lg, 2).values for lg in want["logits"])])]
+                else:
+                    pairs = list(zip(mine["first"], want["first"], mine["tokens"], want["tokens"],
+                                     ref[route]["margins"]))
+                row = []
+                for i, (a, b, t, w, m) in enumerate(pairs):
+                    dev = (a - b).abs()
+                    outside = int(outside_of(a, b).sum())
+                    upto = next((j for j, x in enumerate(m) if x < PARITY_MARGIN), len(m))
+                    row.append({"logits_max_abs_diff": float(dev.max()), "logits_max_abs": float(b.abs().max()),
+                                "tokens_compared": upto, "tokens_equal_beyond": t == w})
+                    if outside:
+                        failed.append(f"{case} {route}/{name} request {i}: first-token logits {outside} outside "
+                                      f"the case's limits (max diff {float(dev.max()):.4g})")
+                    if t[:upto] != w[:upto]:
+                        failed.append(f"{case} {route}/{name} request {i}: tokens {t[:upto]} != world 1's {w[:upto]}")
+                rows[f"{route}/{name}"] = row
+                for r, res in enumerate(got):
+                    launches = res[route][name]["launches"]
+                    if route == "kernel":
+                        expect = _remainder_launch_rule(want["launches"], res["runs"])
+                        if launches != expect:
+                            failed.append(f"{case} {route}/{name} rank {r}: launches {launches}, expected {expect} "
+                                          f"(world 1: {want['launches']}, runs {res['runs']})")
+                    elif any(launches.values()):
+                        failed.append(f"{case} plain/{name} rank {r}: the plain route launched {launches}")
+                    if res[route][name]["tokens"] != mine["tokens"]:
+                        failed.append(f"{case} {route}/{name}: rank {r}'s tokens differ from rank 0's")
+        sound = got[0]["kernel"]["single"]["logits"][:SERVING_TP_FAULT_STEPS]
+        bad = got[0]["fault"]["logits"][:SERVING_TP_FAULT_STEPS]
+        outside = [int(outside_of(a, b).sum()) for a, b in zip(bad, sound)]
+        faults[REMAINDER_FAULTS[case]] = {"logits_outside_by_step": outside,
+                                          "max_abs_diff_by_step": [float((a - b).abs().max()) for a, b in
+                                                                   zip(bad, sound)]}
+        if not any(outside) and not (case == "w8a8" and not all(got[0]["codes"]["o_proj/fault"])):
+            failed.append(f"{case}: the limits would pass {REMAINDER_FAULTS[case]}: {faults}")
+        entry = {"parity": rows, "faults": faults, "w8a8_floor": floor, "runs_by_rank": [res["runs"] for res in got],
+                 "eager_step": [res["timing"] for res in got], "peak_gib": [res["peak_gib"] for res in got],
+                 "rank_s": [res["s"] for res in got], "world1_ref_s": ref_s,
+                 "launches_by_rank": [{n: res["kernel"][n]["launches"] for n in res["kernel"] if n != "margins"}
+                                      for res in got]}
+        if case == "w8a8":
+            codes = got[0]["codes"]
+            entry["codes"] = {r: res["codes"] for r, res in enumerate(got)}
+            if not all(all(v) for r in got for k, v in r["codes"].items() if k.endswith("/sound")):
+                failed.append(f"w8a8: row-parallel codes / scales / accumulators not bitwise world 1's: {entry['codes']}")
+            if all(codes["o_proj/fault"]) or all(codes["down_proj/fault"]):
+                failed.append(f"w8a8: the unreduced amax left the codes bitwise: {codes}")
+            glue = ref["glue"]["logits"][0]
+            entry["glue_route_gap_to_unfused_world1"] = float((glue - ref["kernel"]["single"]["logits"][0]).abs().max())
+            entry["tp2_gap_to_unfused_world1"] = rows["kernel/single"][0]["logits_max_abs_diff"]
+        if case == "lora":
+            base = [res["adapter0_bitwise_base"] for res in got]
+            entry["adapter0_bitwise_base"] = base
+            if not all(base):
+                failed.append(f"lora: adapter 0's logits are not bitwise the base model's on every rank: {base}")
+        summary[case] = entry
+        log(f"serving tp remainder, {case} (phase 40, this call): " + json.dumps({"card": CARD, **entry}))
+    summary["ranks_s"] = ranks_s
+    log("serving tp remainder (phase 40, this call): " + json.dumps(
+        {"card": CARD, "ranks_s": ranks_s, "note": "ranks share one card over gloo: the times show the "
+         "collectives' overhead, not scaling",
+         **{case: {"step_ms": [t["step_ms"] for t in e["eager_step"]],
+                   "collectives_share": [t["collectives_share"] for t in e["eager_step"]],
+                   "peak_gib": e["peak_gib"]} for case, e in summary.items() if isinstance(e, dict) and
+            "eager_step" in e}}))
+    if failed:
+        raise AssertionError("phase 40 failed: " + " | ".join(failed))
     return summary
 
 
@@ -9074,7 +9483,10 @@ def main() -> int:
     parallel_training(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    serving_tp(args.seed, e2e, serve)
+    _, tp_ref, tp2_remainder = serving_tp(args.seed, e2e, serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_tp_remainder(args.seed, tp2_remainder, tp_ref)
 
     # each kernel's launches on its own main path: K1-K4 on the single-image
     # request (phase 3), K12, K14 and K15 in the timed serving run (phase 5),

@@ -32,7 +32,8 @@ import torch
 from omchat_torch.checkpoint.loader import (load_lora_adapter, load_omchat_checkpoint,
                                             load_omchat_checkpoint_sharded)
 from omchat_torch.config import GenerationConfig, OmChatConfig
-from omchat_torch.models.intern_vit import calibrate_fc1_scales
+from omchat_torch.models.intern_vit import calibrate_fc1_scales, calibration_layer, fc1_scale
+from omchat_torch.models.intern_vit import embeddings as vit_embeddings
 from omchat_torch.ops.linear import quantize_tree
 from omchat_torch.parallel.serving import check_serving_mesh, serving_mesh
 from omchat_torch.processing.chat import make_context
@@ -55,7 +56,7 @@ from omchat_torch.runtime.tool_calls import (
 )
 from omchat_torch.training.lora import merge_lora
 from omchat_torch.utils.device import resolve_device
-from omchat_torch.utils.tree import tree_map
+from omchat_torch.utils.tree import layer_slice, tree_map
 
 
 @dataclass
@@ -214,13 +215,40 @@ def quantize_model(config: OmChatConfig, params: dict, *, w8a8: bool, attn_impl:
     params = quantize_tree(params)
     if w8a8:
         config = config.with_w8a8()
-        size = config.vision.image_size
         dev = params["vision_tower"]["patch_embedding"]["kernel"].device
-        pixels = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3, size, size)))
-        pixels = pixels.to(torch.bfloat16).to(dev)
-        params["vision_tower"] = calibrate_fc1_scales(params["vision_tower"], config.vision, pixels,
-                                                      attn_impl=attn_impl)
+        params["vision_tower"] = calibrate_fc1_scales(params["vision_tower"], config.vision,
+                                                      calibration_pixels(config.vision, dev), attn_impl=attn_impl)
     return config, params
+
+
+def calibration_pixels(cfg, device) -> torch.Tensor:
+    """The fc1 calibration's input: two seeded standard-normal images in
+    bf16 (the JAX package's)."""
+    size = cfg.image_size
+    return torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3, size, size))).to(torch.bfloat16).to(device)
+
+
+class _Fc1Calibration:
+    """:func:`calibrate_fc1_scales` run by the sharded load on whole layers
+    as it reads them (the JAX package calibrates the whole tower before it
+    shards it): the embeddings of :func:`calibration_pixels` from the
+    "rest" piece, then each whole quantized tower layer moved to ``device``
+    for its forward, its fc1 scale stored in the layer before it is split.
+    The same forward as the one-device load's, so the same scales."""
+
+    def __init__(self, cfg, attn_impl, device):
+        self.cfg, self.attn_impl, self.device, self.x = cfg, attn_impl, device, None
+
+    @torch.no_grad()
+    def __call__(self, tree: dict, where: str) -> dict:
+        on_device = lambda t: tree_map(lambda a: a.to(self.device), t)  # noqa: E731
+        if where == "rest":
+            self.x = vit_embeddings(on_device(tree["vision_tower"]), self.cfg, calibration_pixels(self.cfg, self.device))
+        elif where == "vision_layer":
+            self.x, amax = calibration_layer(self.cfg, self.x, on_device(layer_slice(tree, 0)), self.attn_impl)
+            scale = fc1_scale(amax).reshape(1).to(tree["norm1"]["scale"].device)
+            tree = {**tree, "mlp": {**tree["mlp"], "fc1_out_scale": scale}}
+        return tree
 
 
 def load_pretrained_model(
@@ -254,21 +282,25 @@ def load_pretrained_model(
     layer at a time (:func:`~omchat_torch.checkpoint.loader.
     load_omchat_checkpoint_sharded`): the LoRA merge and the int8
     quantization see each whole layer before it is split, as the JAX package
-    merges and quantizes before it shards.  w8a8, the MoE trunk and a tp
-    that does not divide both head counts are refused before any weight
-    loads."""
+    merges and quantizes before it shards; ``w8a8`` calibrates the ViT's
+    fc1 scales on each whole layer as it is read (:class:`_Fc1Calibration`).
+    A tp that would leave a rank without a q head is refused before any
+    weight loads."""
     from transformers import AutoTokenizer
 
     dev = resolve_device(device)
     mesh = serving_mesh(tp)
     if mesh is not None:
         config = OmChatConfig.from_json(os.path.join(model_path, "config.json"))
-        check_serving_mesh(config.with_w8a8() if w8a8 else config, mesh, what="load_pretrained_model")
+        config = config.with_w8a8() if w8a8 else config
+        check_serving_mesh(config, mesh, what="load_pretrained_model")
     tokenizer = AutoTokenizer.from_pretrained(model_path, use_fast=True)
     if mesh is not None:
         lora = load_lora_adapter(lora_path, dtype) if lora_path is not None else None
+        calibrate = _Fc1Calibration(config.vision, attn_impl, dev) if w8a8 else None
         config, params = load_omchat_checkpoint_sharded(model_path, mesh, dtype, config, dev,
-                                                        _whole_layer_transform(lora, quantize_int8))
+                                                        _whole_layer_transform(lora, quantize_int8 or w8a8,
+                                                                               calibrate))
         return omchat_model(tokenizer, OmChatEngine(config, params, attn_impl=attn_impl, cache_dtype=cache_dtype,
                                                     device=dev, mesh=mesh))
     config, params = load_omchat_checkpoint(model_path, dtype, device=dev)
@@ -280,11 +312,12 @@ def load_pretrained_model(
                                                 device=dev))
 
 
-def _whole_layer_transform(lora: Optional[dict], quantize_int8: bool):
+def _whole_layer_transform(lora: Optional[dict], quantize_int8: bool, calibrate=None):
     """What the sharded load applies to each whole piece before splitting
     it: the LoRA merge on each trunk layer (the adapter's slice of that
     layer), then the int8 quantization (per output channel: a row-parallel
-    kernel must be quantized whole)."""
+    kernel must be quantized whole), then w8a8's fc1 calibration
+    (``calibrate``, a :class:`_Fc1Calibration`)."""
 
     def transform(tree: dict, where: str, index) -> dict:
         if where == "text_layer" and lora is not None:
@@ -292,7 +325,8 @@ def _whole_layer_transform(lora: Optional[dict], quantize_int8: bool):
             anchor = tree["input_layernorm"]["scale"]  # merge_lora reads the activations' dtype off the embedding
             tree = merge_lora({"language_model": {"layers": tree, "embed_tokens": anchor}}, piece)
             tree = tree["language_model"]["layers"]
-        return quantize_tree(tree) if quantize_int8 else tree
+        tree = quantize_tree(tree) if quantize_int8 else tree
+        return calibrate(tree, where) if calibrate is not None else tree
 
     return transform
 

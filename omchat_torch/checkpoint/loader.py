@@ -186,7 +186,7 @@ def qwen2_top(state, cfg: TextConfig, dtype=torch.bfloat16, device=None) -> dict
 def qwen2_layers(state, cfg: TextConfig, dtype=torch.bfloat16, device=None,
                  layers: Optional[Sequence[int]] = None) -> dict:
     """The trunk's ``layers`` subtree: every layer, or those in ``layers``
-    stacked in that order (the dense trunk only for a subset)."""
+    stacked in that order."""
     stack = _stacker(state, cfg.num_hidden_layers if layers is None else layers, dtype, device)
 
     def proj(name, bias):
@@ -206,11 +206,9 @@ def qwen2_layers(state, cfg: TextConfig, dtype=torch.bfloat16, device=None,
         },
     }
     if cfg.is_moe:
-        if layers is not None:
-            raise NotImplementedError("the MoE trunk converts its layers whole")
         from omchat_torch.models.qwen2_moe import convert_hf_moe_layers
 
-        params["mlp"] = convert_hf_moe_layers(state, cfg, dtype, device)
+        params["mlp"] = convert_hf_moe_layers(state, cfg, dtype, device, layers)
     else:
         params["mlp"] = {
             "gate_proj": proj("mlp.gate_proj", False),
@@ -346,8 +344,10 @@ def load_omchat_checkpoint_sharded(model_path: str, mesh, dtype=torch.bfloat16, 
     through ``adapt_specs_to_quantized``).  ``transform(tree, where, index)``
     (``where``: "rest", "vision_layer" or "text_layer", a layer with a
     leading axis of 1, on the host) is what must see whole weights before
-    they are split: the LoRA merge, the int8 quantization; ``index`` is the
-    layer's, None for "rest"."""
+    they are split: the LoRA merge, the int8 quantization, the w8a8
+    calibration; ``index`` is the layer's, None for "rest".  It sees "rest"
+    first, then the tower's layers in order, then the trunk's.  An MoE
+    layer's experts are read whole and split into whole experts."""
     from omchat_torch.parallel.sharding import omchat_param_specs, shard_params, shard_stacked
     from omchat_torch.utils.tree import tree_map
 

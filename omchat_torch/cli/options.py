@@ -2,8 +2,10 @@
 (``single_inference``, ``chat``, ``serve``) and the load they drive.
 
 ``--tp N`` serves over N ranks launched by ``torchrun --nproc-per-node N``
-(each rank holds 1/N of the weights and of the KV cache; ranks that share
-one card meet over gloo on ``cuda:0``, ranks with a card each over NCCL).
+(each rank holds its share of the weights and of the KV cache, every kv
+head where N does not divide them; ranks that share one card meet over
+gloo on ``cuda:0``, ranks with a card each over NCCL), with or without
+``--int8`` / ``--w8a8`` / ``--lora``, on the dense or the MoE trunk.
 ``--tp N`` in a process that is not one of exactly N launched ranks is a
 usage error before any weight loads.
 """
@@ -33,23 +35,14 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default; raises without a GPU) or cpu (plain PyTorch path)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree: launch with torchrun --nproc-per-node N; each rank holds 1/N "
-                             "of the weights and of the KV cache (w8a8 and the MoE trunk serve on one rank)")
-
-
-def refuse_waiting(parser: argparse.ArgumentParser, waiting: dict) -> None:
-    """A usage error (exit code 2) for the first of ``waiting`` ({flag:
-    (asked, ROADMAP queue A item)}) that was asked for, naming the item that
-    will bring it; run before any weight loads."""
-    for flag, (asked, item) in waiting.items():
-        if asked:
-            parser.error(f"{flag}: not ported yet (ROADMAP queue A item {item}); the port refuses it rather than "
-                         "ignoring it")
+                        help="tensor-parallel degree: launch with torchrun --nproc-per-node N; each rank holds about "
+                             "1/N of the weights and of the KV cache (every kv head where N does not divide them); "
+                             "int8, w8a8, LoRA merges and the MoE trunk serve under it")
 
 
 def check_tp(parser: argparse.ArgumentParser, args) -> None:
-    """The usage errors of ``--tp``, before any weight loads: a world that
-    is not exactly ``--tp`` launched ranks, and w8a8 under it."""
+    """The usage errors of ``--tp``, before any weight loads: a tp below 1
+    and a world that is not exactly ``--tp`` launched ranks."""
     from omchat_torch.parallel.launch import launched_world
 
     if args.tp < 1:
@@ -60,7 +53,6 @@ def check_tp(parser: argparse.ArgumentParser, args) -> None:
     if world != args.tp:
         parser.error(f"--tp {args.tp} serves over {args.tp} launched ranks: run it under torchrun --nproc-per-node "
                      f"{args.tp} (this process is a world of {world})")
-    refuse_waiting(parser, {"--w8a8 with --tp above 1": (args.w8a8, "13, A13b's remainder")})
 
 
 def join_world(args):

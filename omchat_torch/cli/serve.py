@@ -48,9 +48,9 @@ two engines share one set of weights.
 ``--tp N`` under ``torchrun --nproc-per-node N`` (every route): each rank
 loads its shard and builds the same engines; rank 0 binds the port, runs the
 scheduler thread and broadcasts every engine call to the other ranks, which
-replay it on their shards (:mod:`omchat_torch.parallel.serving`).  Refused
-before any weight loads: ``--tp N`` outside a launched world of N ranks, and
-``--w8a8`` with it (ROADMAP queue A, A13b's remainder).
+replay it on their shards (:mod:`omchat_torch.parallel.serving`); ``--w8a8``
+serves under it too.  Refused before any weight loads: ``--tp N`` outside a
+launched world of N ranks, and a tp above the trunk's q heads.
 
 Request example:
     {"messages": [{"role": "user", "content": [

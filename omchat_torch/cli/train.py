@@ -321,7 +321,7 @@ def _train_sharded(args, cfg, params, total, logger, device, parser):
 
     from omchat_torch.checkpoint.save import TrainCheckpointer, save_mm_projector
     from omchat_torch.parallel.mesh import create_mesh
-    from omchat_torch.parallel.sharding import canonical_shapes, omchat_param_specs
+    from omchat_torch.parallel.sharding import canonical_shapes, check_train_tp, omchat_param_specs
     from omchat_torch.training.schedules import warmup_cosine_schedule
     from omchat_torch.training.train_step import (AdamW, gather_state, init_train_state, make_sharded_train_step,
                                                   shard_state)
@@ -330,6 +330,10 @@ def _train_sharded(args, cfg, params, total, logger, device, parser):
     world = launched_world()
     if world % args.tp:
         parser.error(f"--tp {args.tp} does not divide the world of {world} ranks")
+    try:
+        check_train_tp(cfg.text, args.tp)
+    except ValueError as e:
+        parser.error(f"--tp {args.tp}: {e}")
     mesh = create_mesh(tp=args.tp)
     if args.batch_size % mesh.dp != 0:
         parser.error(f"--batch-size {args.batch_size} must be divisible by the data-parallel degree {mesh.dp} "

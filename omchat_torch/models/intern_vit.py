@@ -26,7 +26,12 @@ heads of q, of k and of v in the head-wise ``qkv`` shard
 (:mod:`omchat_torch.parallel.sharding`; 25 heads split 13 + 12 at tp 2), its
 slice of fc1 and of its bias, and the rows of proj and fc2 that read them;
 the outputs of proj and fc2 are reduced over the model axis before their
-replicated biases and LayerScale.  The qk-RMSNorm normalizes over the whole
+replicated biases and LayerScale.  w8a8 under a mesh is the unfused chain
+(the glue scan needs the packed path, as JAX's glue route needs its Pallas
+route): qkv and fc1 are column products on the replicated normed input,
+proj and fc2 row products over the whole row's codes with their int32
+partials summed (:func:`~omchat_torch.parallel.comm.row_parallel_int8`),
+and a calibrated ``fc1_out_scale`` rides in the shard unread.  The qk-RMSNorm normalizes over the whole
 (head, head_dim) axis, so a rank's sum of squares over its own heads is
 summed over the model axis and divided by the full width.
 """
@@ -163,15 +168,15 @@ def _layer_forward(
     [B, SP, 3*H*D] layout the qkv matmul writes and rows >= fused_valid_len
     are padding.  ``with_fc1_amax`` also returns max |gelu(fc1(.))| (the
     calibration pass).  ``mesh``: ``layer`` is this rank's tensor-parallel
-    shard (the split path, no w8a8): its heads of q, k and v, its slice of
-    fc1; the normed inputs enter through *copy to the model axis* and proj's
-    and fc2's partial sums are reduced before their replicated biases and
-    LayerScale."""
+    shard (the split path): its heads of q, k and v, its slice of fc1; the
+    normed inputs enter through *copy to the model axis* and proj's and
+    fc2's partial sums (in w8a8 the int32 accumulators) are reduced before
+    their replicated biases and LayerScale."""
     b, n, d = x.shape
     hd = cfg.head_dim
     a8 = cfg.w8a8
-    if mesh is not None and (a8 or fused_valid_len is not None):
-        raise NotImplementedError("a tensor-parallel ViT layer runs the split path without w8a8")
+    if mesh is not None and fused_valid_len is not None:
+        raise NotImplementedError("a tensor-parallel ViT layer runs the split path")
     y = copy_to_axis(apply_norm(x, layer["norm1"], cfg.layer_norm_eps), mesh)
     qkv = dense(y, layer["attn"]["qkv"], a8=a8)
     if fused_valid_len is not None:
@@ -286,6 +291,17 @@ def intern_vit_forward(
     return x[:, :s] if sp != s else x
 
 
+def calibration_layer(cfg: VisionConfig, x: torch.Tensor, layer: dict, attn_impl: Optional[str] = None):
+    """One layer of the calibration pass (the unfused w8a8 split path on a
+    whole layer): (its output, its amax of ``gelu(fc1(.))``)."""
+    return _layer_forward(cfg, x, layer, attn_impl=attn_impl, with_fc1_amax=True)
+
+
+def fc1_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The static fc1 output scale of an amax: max(amax, 1e-6) / 127 in fp32."""
+    return div127(amax.float().clamp(min=1e-6))
+
+
 @torch.no_grad()
 def calibrate_fc1_scales(params: dict, cfg: VisionConfig, pixel_values: torch.Tensor,
                          attn_impl: Optional[str] = None) -> dict:
@@ -299,9 +315,9 @@ def calibrate_fc1_scales(params: dict, cfg: VisionConfig, pixel_values: torch.Te
     x = embeddings(params, cfg, pixel_values)
     amax = []
     for i in range(cfg.num_hidden_layers):
-        x, a = _layer_forward(cfg, x, layer_slice(params["layers"], i), attn_impl=attn_impl, with_fc1_amax=True)
+        x, a = calibration_layer(cfg, x, layer_slice(params["layers"], i), attn_impl)
         amax.append(a)
-    scales = div127(torch.stack(amax).float().clamp(min=1e-6))
+    scales = fc1_scale(torch.stack(amax))
     out = dict(params)
     out["layers"] = dict(params["layers"])
     out["layers"]["mlp"] = {**params["layers"]["mlp"], "fc1_out_scale": scales}

@@ -37,15 +37,26 @@ zeros: the base model).  A layer with a bank runs the unfused chain, as the
 JAX package's does.
 
 Tensor parallelism (``mesh``): each rank holds its shard of the tree
-(:mod:`omchat_torch.parallel.sharding`): its q / kv heads, its slice of the
-MLP's width, its block of the vocabulary.  A layer enters each
-tensor-parallel block through *copy to the model axis* and leaves it through
-*reduce from the model axis* after o_proj and down_proj
-(:mod:`omchat_torch.parallel.comm`); attention runs on the local heads.  The
-training pass runs cacheless; the serving paths (cached prefill, the decode
-scan, the row commit, the verify rows) run against a cache of the rank's kv
-heads only, [L, B, KVH/tp, T, D], and :func:`full_logits` gathers the ranks'
-vocabulary blocks, so that every rank picks from the same whole logits.
+(:mod:`omchat_torch.parallel.sharding`): its q heads, its kv heads (all of
+them where tp does not divide the kv heads), its slice of the MLP's width,
+its block of the vocabulary.  A layer enters each tensor-parallel block
+through *copy to the model axis* and leaves it through *reduce from the
+model axis* after o_proj and down_proj (:mod:`omchat_torch.parallel.comm`);
+attention runs on the local heads, once per run of heads that share a kv
+head where the kv heads replicate (:mod:`omchat_torch.parallel.tp_attention`).
+The training pass runs cacheless; the serving paths (cached prefill, the
+decode scan, the row commit, the verify rows) run against a cache of the
+rank's kv heads, [L, B, KVH/tp, T, D] or [L, B, KVH, T, D] replicated, and
+:func:`full_logits` gathers the ranks' vocabulary blocks, so that every rank
+picks from the same whole logits.  Under a mesh w8a8 runs the unfused chain
+(``quant_glue`` off, as JAX's ``quant_glue_ok`` is under a mesh): q / k / v
+and gate / up are column products on the replicated input, o_proj and
+down_proj row products whose codes take the whole row's scale and whose
+int32 partials are summed (:func:`~omchat_torch.parallel.comm.
+row_parallel_int8`).  A LoRA bank is sharded like its targets
+(:func:`~omchat_torch.parallel.sharding.lora_bank_specs`): a column
+target's delta is the rank's columns, a row target's is a partial sum added
+before the reduce.
 """
 
 from __future__ import annotations
@@ -64,8 +75,10 @@ from omchat_torch.ops.norms import rms_norm, rmsnorm_quant
 from omchat_torch.ops.paged_attention import commit_rows, commit_rows_plain
 from omchat_torch.ops.quant_matmul import attn_proj_glue_quant, proj_glue_supported, swiglu_quant
 from omchat_torch.ops.rope import apply_rope, rope_cos_sin
-from omchat_torch.parallel.comm import all_gather_blocks, copy_to_axis, gather_layer, reduce_from_axis
+from omchat_torch.parallel.comm import (all_gather_blocks, copy_to_axis, gather_layer, reduce_from_axis,
+                                        row_parallel_dense)
 from omchat_torch.parallel.sharding import block_range, check_trunk_tp, split_sizes
+from omchat_torch.parallel.tp_attention import by_runs, head_runs, one_head
 from omchat_torch.utils.tree import layer_list, layer_slice
 
 
@@ -109,6 +122,14 @@ def _lora_dense(y, p: dict, a8: bool, lora: Optional[dict], name: str, ids) -> t
     return out
 
 
+def _row_lora_dense(y, p: dict, a8: bool, lora: Optional[dict], name: str, ids, mesh) -> torch.Tensor:
+    """A row-parallel projection (o_proj, down_proj) with its per-row LoRA
+    delta: :func:`_lora_dense` without a mesh; under one, the delta over the
+    rank's input rows joins the rank's partial sum before the reduce."""
+    delta = lora_delta(y, lora[name], ids) if lora is not None and name in lora else None
+    return row_parallel_dense(y, p, mesh, a8=a8, partial=delta)
+
+
 def _mlp(y: torch.Tensor, p: dict, a8: bool = False, lora: Optional[dict] = None, adapter_ids=None,
          mesh=None) -> torch.Tensor:
     """SwiGLU: down(silu(gate(y)) * up(y)); per-row LoRA deltas when serving
@@ -118,7 +139,7 @@ def _mlp(y: torch.Tensor, p: dict, a8: bool = False, lora: Optional[dict] = None
     g = _lora_dense(y, p["gate_proj"], a8, lora, "gate_proj", adapter_ids)
     u = _lora_dense(y, p["up_proj"], a8, lora, "up_proj", adapter_ids)
     h = F.silu(g) * u
-    return reduce_from_axis(_lora_dense(h, p["down_proj"], a8, lora, "down_proj", adapter_ids), mesh)
+    return _row_lora_dense(h, p["down_proj"], a8, lora, "down_proj", adapter_ids, mesh)
 
 
 def _mlp_prequant(yq, yrs, p: dict, dtype) -> torch.Tensor:
@@ -137,7 +158,8 @@ def _mlp_prequant(yq, yrs, p: dict, dtype) -> torch.Tensor:
 def quant_glue_ok(attn_impl) -> bool:
     """Whether prefill takes the fused glue kernels: every route but the
     plain reference (the JAX package's ``attn_impl="xla"``, which runs the
-    unfused chain)."""
+    unfused chain).  :func:`decoder_layer` also keeps them off under a mesh,
+    as the JAX package's ``quant_glue_ok`` is false there."""
     return attn_impl != PLAIN
 
 
@@ -164,20 +186,19 @@ def decoder_layer(cfg: TextConfig, x, layer: dict, cos, sin, attend, *, quant_gl
     [N, r, out]}}}), applied per row by ``adapter_ids`` [B].
     ``mlp_fn(y, mlp_params, a8, lora, adapter_ids, mesh=)``: the MLP (default
     the dense SwiGLU; the MoE trunk's block, which takes no glue path).
-    ``mesh``: ``layer`` is this rank's tensor-parallel shard (no LoRA, no
-    w8a8): q/k/v on its heads enter through *copy to the model axis*,
-    o_proj's and the MLP's partial sums leave through *reduce from the model
-    axis*; both are the identity without a mesh.  ``attend`` then sees the
-    rank's heads only."""
+    ``mesh``: ``layer`` (and ``lora``) is this rank's tensor-parallel shard:
+    q/k/v on its heads enter through *copy to the model axis*, o_proj's and
+    the MLP's partial sums leave through *reduce from the model axis* (in
+    w8a8 the int32 accumulator's); both are the identity without a mesh.
+    ``attend`` then sees the rank's q heads and its kv heads (all of them
+    where they replicate).  The glue path stays off under a mesh
+    (:func:`quant_glue_ok`)."""
     b, s, _ = x.shape
     # w8a8 serves the compute-bound prefill; the one-token decode step keeps
     # the weight-only int8 path
     a8 = cfg.w8a8 and s > 1
-    if mesh is not None and (a8 or lora is not None):
-        raise NotImplementedError("a tensor-parallel layer runs neither w8a8 nor a LoRA bank (ROADMAP queue A, "
-                                  "A13b's remainder)")
     attn_p = layer["self_attn"]
-    if (quant_glue and a8 and lora is None and mlp_fn is None and "kernel_q" in attn_p["q_proj"]
+    if (quant_glue and a8 and lora is None and mlp_fn is None and mesh is None and "kernel_q" in attn_p["q_proj"]
             and "kernel_q" in attn_p["o_proj"]):
         return _decoder_layer_glue(cfg, x, layer, cos, sin, attend)
     attn_lora = lora.get("self_attn") if lora is not None else None
@@ -185,7 +206,7 @@ def decoder_layer(cfg: TextConfig, x, layer: dict, cos, sin, attend, *, quant_gl
     y = rms_norm(x, layer["input_layernorm"]["scale"], cfg.rms_norm_eps)
     q, k, v = attention_inputs(cfg, copy_to_axis(y, mesh), attn_p, cos, sin, a8, attn_lora, adapter_ids)
     o = attend(q, k, v).reshape(b, s, -1)
-    x = x + reduce_from_axis(_lora_dense(o, attn_p["o_proj"], a8, attn_lora, "o_proj", adapter_ids), mesh)
+    x = x + _row_lora_dense(o, attn_p["o_proj"], a8, attn_lora, "o_proj", adapter_ids, mesh)
     y = rms_norm(x, layer["post_attention_layernorm"]["scale"], cfg.rms_norm_eps)
     return x + (mlp_fn or _mlp)(y, layer["mlp"], a8, mlp_lora, adapter_ids, mesh=mesh)
 
@@ -216,7 +237,7 @@ def _decoder_layer_glue(cfg: TextConfig, x, layer: dict, cos, sin, attend):
     return x + _mlp_prequant(yq, yrs, layer["mlp"], x.dtype)
 
 
-def cache_attend(attn_impl, write_pos, starts, kv_len, k_cache, v_cache, q, k, v, segment_ids=None):
+def cache_attend(attn_impl, write_pos, starts, kv_len, k_cache, v_cache, q, k, v, segment_ids=None, runs=None):
     """Cache handler for one layer: write K/V at ``write_pos`` [B]
     (``starts``: the same offsets as host ints) into the head-major cache
     layer [B, KVH, T, D] in place, rounded to the cache's dtype, and attend
@@ -226,17 +247,25 @@ def cache_attend(attn_impl, write_pos, starts, kv_len, k_cache, v_cache, q, k, v
     cache (:func:`~omchat_torch.ops.attention.decode_attention` on a 4-D
     cache: kernel K6, ``kv_len`` including the token).  With no cache
     (``k_cache is None``) it attends over this call's K/V only, within
-    ``segment_ids`` when given."""
+    ``segment_ids`` when given.  ``runs``
+    (:func:`~omchat_torch.parallel.tp_attention.head_runs`): the rank's q
+    heads attend run by run, each to its kv head of a replicated cache;
+    every kv head is written."""
     if k_cache is None:
-        return attention(q, k, v, causal=True, impl=attn_impl, segment_ids=segment_ids)
+        return by_runs(runs, q, lambda qr, h: attention(qr, one_head(k, h, 2, copy=False),
+                                                        one_head(v, h, 2, copy=False), causal=True,
+                                                        impl=attn_impl, segment_ids=segment_ids))
     s = q.shape[1]
     for bi, wp in enumerate(starts):
         k_cache[bi, :, wp : wp + s] = cast_to(k[bi].transpose(0, 1), k_cache.dtype)
         v_cache[bi, :, wp : wp + s] = cast_to(v[bi].transpose(0, 1), v_cache.dtype)
     if s == 1:
-        return decode_attention(q, k_cache, v_cache, kv_len, impl=attn_impl)
-    return attention(q, k_cache, v_cache, causal=True, q_offset=write_pos, kv_len=kv_len, impl=attn_impl,
-                     kv_format="bntd")
+        return by_runs(runs, q, lambda qr, h: decode_attention(qr, one_head(k_cache, h, 1),
+                                                               one_head(v_cache, h, 1), kv_len, impl=attn_impl))
+    return by_runs(runs, q, lambda qr, h: attention(qr, one_head(k_cache, h, 1, copy=False),
+                                                    one_head(v_cache, h, 1, copy=False), causal=True,
+                                                    q_offset=write_pos, kv_len=kv_len, impl=attn_impl,
+                                                    kv_format="bntd"))
 
 
 def commit_decode_rows(cache: KVCache, write_pos: torch.Tensor, k_rows, v_rows, attn_impl=None) -> KVCache:
@@ -266,17 +295,25 @@ def decode_scan(cfg: TextConfig, attn_impl, params: dict, inputs_embeds, cos, si
     the loop: layer ``li`` attends to its cache layer (selected inside the
     kernel) plus the in-flight token as a self column; the new K/V rows are
     committed once after the loop.  ``mesh``: the layers and the cache are
-    this rank's shards."""
+    this rank's shards; where the kv heads replicate, each run of q heads
+    that share a kv head decodes over that head (K3 on a copy of its
+    layer slice) and the commit writes every kv head."""
     n_layers = params["layers"]["input_layernorm"]["scale"].shape[0]
     cache_len = (kv_len - 1).to(torch.int32)  # excludes the in-flight token
     k_rows, v_rows = [], []
+    runs = head_runs(cfg, mesh)
     x = inputs_embeds
     for li in range(n_layers):
         def attend(q, k, v, li=li):
             k_rows.append(k[:, 0])
             v_rows.append(v[:, 0])
-            return decode_attention(q, cache.k, cache.v, cache_len, impl=attn_impl, layer=li,
-                                    k_new=k[:, 0], v_new=v[:, 0])
+            if runs is None:
+                return decode_attention(q, cache.k, cache.v, cache_len, impl=attn_impl, layer=li,
+                                        k_new=k[:, 0], v_new=v[:, 0])
+            # a run's kv head of layer li, copied contiguous for K3 as a one-layer stack
+            return by_runs(runs, q, lambda qr, h: decode_attention(
+                qr, one_head(cache.k[li], h, 1)[None], one_head(cache.v[li], h, 1)[None], cache_len,
+                impl=attn_impl, layer=0, k_new=one_head(k[:, 0], h, 1), v_new=one_head(v[:, 0], h, 1)))
 
         x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend,
                           lora=_bank_layer(lora_bank, li), adapter_ids=adapter_ids, mlp_fn=mlp_fn, mesh=mesh)
@@ -324,9 +361,10 @@ def qwen2_forward(
     applies its own adapter.  ``mlp_fn``: every layer's MLP (see
     :func:`decoder_layer`; the MoE trunk passes its block).
 
-    ``mesh`` (:class:`omchat_torch.parallel.mesh.Mesh`): ``params`` is this
-    rank's shard and every layer runs tensor-parallel over the ``model``
-    axis; a cache holds this rank's kv heads
+    ``mesh`` (:class:`omchat_torch.parallel.mesh.Mesh`): ``params`` (and a
+    ``lora_bank``) is this rank's shard and every layer runs tensor-parallel
+    over the ``model`` axis; a cache holds this rank's kv heads, all of them
+    where tp does not divide them
     (:func:`omchat_torch.parallel.sharding.local_kv_shape`).
     ``fsdp_dims``: one layer's tree of the dimension each leaf is split on
     over ``data`` (None: whole), from the FSDP spec tree; the shards are
@@ -355,12 +393,13 @@ def qwen2_forward(
 
     if segment_ids is not None and cache is not None:
         raise ValueError("segment_ids (packing) is for the cacheless training path")
+    runs = head_runs(cfg, mesh)
     if cache is not None and inputs_embeds.shape[1] == 1:
         x, cache = decode_scan(cfg, attn_impl, params, inputs_embeds, cos, sin, cache, kv_len, write_pos,
                                lora_bank, adapter_ids, mlp_fn, mesh)
     elif cache is None:
         def attend(q, k, v):
-            return cache_attend(attn_impl, None, (), None, None, None, q, k, v, segment_ids)
+            return cache_attend(attn_impl, None, (), None, None, None, q, k, v, segment_ids, runs)
 
         def layer_fn(x, layer, lora=None):
             layer = gather_layer(layer, mesh, fsdp_dims)
@@ -380,7 +419,7 @@ def qwen2_forward(
         starts = write_pos.tolist()
         for li in range(n_layers):
             def attend(q, k, v, kc=cache.k[li], vc=cache.v[li]):
-                return cache_attend(attn_impl, write_pos, starts, kv_len, kc, vc, q, k, v)
+                return cache_attend(attn_impl, write_pos, starts, kv_len, kc, vc, q, k, v, runs=runs)
 
             x = decoder_layer(cfg, x, layer_slice(params["layers"], li), cos, sin, attend,
                               quant_glue=quant_glue_ok(attn_impl), lora=_bank_layer(lora_bank, li),

@@ -15,11 +15,19 @@ the JAX package computes them outside any Pallas kernel:
 - ``"gmm"``: the token replicas sorted by expert, one ``torch.matmul`` a
   group, and a weighted scatter-add back (the JAX package's megablox route).
   It reads the group sizes on the host, so no CUDA graph can capture it.
+
+Under a tensor-parallel mesh (expert parallelism) a rank holds a block of
+whole experts (:func:`expert_block`, unevenly where tp does not divide E)
+and its slice of the shared expert; the router runs replicated in fp32 on
+the replicated input, so every rank picks the same experts, each route
+runs the rank's experts only, and one reduce sums the experts' and the
+shared expert's parts.  The group sizes of ``"gmm"`` differ between ranks,
+but no collective sits inside the groups, so the ranks stay in step.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +50,13 @@ def _router(x: torch.Tensor, gate_kernel: torch.Tensor, cfg: TextConfig) -> Tupl
     return topk_w, topk_idx
 
 
+def expert_block(cfg: TextConfig, mesh=None) -> slice:
+    """The experts this rank holds, [lo, hi) of E (all of them without a
+    mesh): whole experts, the ceil-sized blocks first, as the expert axis's
+    spec splits them."""
+    return model_slice(cfg.num_experts, mesh)
+
+
 def _experts_dense(x: torch.Tensor, p: dict, topk_w, topk_idx, cfg: TextConfig, mesh=None) -> torch.Tensor:
     """Every expert on every token, combined by the routing weights.  x [T, D].
     ``mesh``: ``p`` holds this rank's block of the experts, and the routing
@@ -50,23 +65,28 @@ def _experts_dense(x: torch.Tensor, p: dict, topk_w, topk_idx, cfg: TextConfig, 
     combine = torch.zeros((x.shape[0], cfg.num_experts), dtype=torch.float32, device=x.device)
     combine = combine.scatter_add_(1, topk_idx, topk_w).to(x.dtype)  # [T, E]
     if mesh is not None:
-        combine = copy_to_axis(combine, mesh)[:, model_slice(cfg.num_experts, mesh)]  # [T, E_local]
+        combine = copy_to_axis(combine, mesh)[:, expert_block(cfg, mesh)]  # [T, E_local]
     gate = torch.matmul(x, p["gate_proj"])  # [E, T, F]
     up = torch.matmul(x, p["up_proj"])
     out = torch.matmul(silu(gate) * up, p["down_proj"])  # [E, T, D]
     return torch.einsum("etd,te->td", out, combine)
 
 
-def _experts_gmm(x: torch.Tensor, p: dict, topk_w, topk_idx, cfg: TextConfig) -> torch.Tensor:
+def _experts_gmm(x: torch.Tensor, p: dict, topk_w, topk_idx, cfg: TextConfig, mesh=None) -> torch.Tensor:
     """The grouped product: the T * K token replicas sorted by expert, each
     expert's group through its SwiGLU, the outputs weighted and added back
-    to their tokens."""
+    to their tokens.  ``mesh``: only the replicas routed to this rank's
+    experts (``p`` holds that block), the rest of the sum on the other
+    ranks."""
     k = cfg.num_experts_per_tok
+    block = expert_block(cfg, mesh)
     flat_idx = topk_idx.reshape(-1)
-    order = torch.argsort(flat_idx, stable=True)
+    mine = torch.nonzero((flat_idx >= block.start) & (flat_idx < block.stop))[:, 0]
+    local = flat_idx[mine] - block.start
+    order = mine[torch.argsort(local, stable=True)]
     token_of = order // k
-    xs = x[token_of]  # [T*K, D] in expert order
-    sizes = torch.bincount(flat_idx, minlength=cfg.num_experts).tolist()
+    xs = x[token_of]  # [replicas, D] in expert order
+    sizes = torch.bincount(local, minlength=block.stop - block.start).tolist()
     out = torch.empty_like(xs)
     start = 0
     for e, n in enumerate(sizes):
@@ -82,17 +102,15 @@ def _experts_gmm(x: torch.Tensor, p: dict, topk_w, topk_idx, cfg: TextConfig) ->
 def _moe_block(x: torch.Tensor, p: dict, cfg: TextConfig, moe_impl: str, mesh=None) -> torch.Tensor:
     """x [B, S, D] → [B, S, D].  ``mesh``: expert parallelism.  A rank holds
     its block of the experts and its slice of the shared expert; the router
-    runs replicated on the replicated input, the local experts on the dense
+    runs replicated on the replicated input, the local experts on either
     route, and one reduce over the model axis sums the experts' and the
     shared expert's parts."""
-    if mesh is not None and moe_impl != "dense":
-        raise NotImplementedError("expert parallelism runs the dense experts route")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     topk_w, topk_idx = _router(xt, p["gate"]["kernel"], cfg)
     xc = copy_to_axis(xt, mesh)
     if moe_impl == "gmm":
-        out = _experts_gmm(xc, p["experts"], topk_w, topk_idx, cfg)
+        out = _experts_gmm(xc, p["experts"], topk_w, topk_idx, cfg, mesh)
     else:
         out = _experts_dense(xc, p["experts"], topk_w, topk_idx, cfg, mesh)
     se = p["shared_expert"]
@@ -143,7 +161,8 @@ def qwen2_moe_forward(
     through ``decode_scan``.  Needs a homogeneous stack (every layer sparse,
     no ``mlp_only_layers``), which the released Qwen2-MoE checkpoints are.
     ``mesh``, ``fsdp_dims``: expert parallel over the model axis
-    (:func:`_moe_block`), on the cacheless pass."""
+    (:func:`_moe_block`), on the cacheless pass and the cached serving
+    paths alike."""
     assert cfg.is_moe
     return qwen2_forward(params, cfg, inputs_embeds, positions, cache, write_pos, kv_len, attn_impl=attn_impl,
                          remat=remat, lora_bank=lora_bank, adapter_ids=adapter_ids,
@@ -172,18 +191,22 @@ def init_params(cfg: TextConfig, generator: torch.Generator, dtype=torch.float32
     return params
 
 
-def convert_hf_moe_layers(state: dict, cfg: TextConfig, dtype=torch.bfloat16, device=None) -> dict:
+def convert_hf_moe_layers(state: dict, cfg: TextConfig, dtype=torch.bfloat16, device=None,
+                          layers: Optional[Sequence[int]] = None) -> dict:
     """The HF Qwen2Moe layers' MLP weights (keys relative to ``model.``'s
-    parent, as ``convert_qwen2`` takes them) → the MoE block's tree."""
-    n, e = cfg.num_hidden_layers, cfg.num_experts
+    parent, as ``convert_qwen2`` takes them) → the MoE block's tree, of
+    every layer or of those in ``layers`` stacked in that order (the
+    sharded load reads one layer at a time)."""
+    e = cfg.num_experts
+    indices = range(cfg.num_hidden_layers) if layers is None else layers
 
     def stack(fmt):
-        return torch.stack([state[fmt.format(i)].t() for i in range(n)]).to(dtype=dtype, device=device).contiguous()
+        return torch.stack([state[fmt.format(i)].t() for i in indices]).to(dtype=dtype, device=device).contiguous()
 
     def stack_experts(proj):  # [L, E, in, out]
         return torch.stack([
             torch.stack([state[f"model.layers.{i}.mlp.experts.{j}.{proj}.weight"].t() for j in range(e)])
-            for i in range(n)
+            for i in indices
         ]).to(dtype=dtype, device=device).contiguous()
 
     pre = "model.layers.{}.mlp."

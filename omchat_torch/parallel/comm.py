@@ -16,7 +16,10 @@ package, written out on ``torch.distributed`` with their gradients.
   every rank then uses in its own partial computation (the qk-norm's sum of
   squares over heads split across ranks).
 - :func:`row_parallel_dense`: a row-parallel linear, its partial sums
-  reduced before the replicated bias (``dense`` without a mesh).
+  reduced before the replicated bias (``dense`` without a mesh); in w8a8
+  (:func:`row_parallel_int8`) each rank quantizes its slice of the row at
+  the whole row's scale and the int32 partial products are summed, so the
+  codes and the accumulator are bitwise one device's.
 - :func:`all_gather_blocks`: blocks of unequal widths gathered in rank
   order (the serving head's vocabulary blocks).
 
@@ -49,7 +52,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from omchat_torch.ops.linear import dense
+from omchat_torch.ops.linear import _int8_product, dense, div127
 from omchat_torch.parallel.sharding import block_range
 
 CALLS: Counter = Counter()
@@ -209,13 +212,41 @@ def reduce_scatter_dim(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tens
     return x if group is None else _ScatterDim.apply(x, group, dim % x.dim())
 
 
-def row_parallel_dense(x: torch.Tensor, p: dict, mesh, *, a8: bool = False) -> torch.Tensor:
+def row_parallel_int8(x: torch.Tensor, p: dict, mesh):
+    """The w8a8 product of a row-parallel layer: x [..., in/tp] is this
+    rank's slice of each row and ``p["kernel_q"]`` [out, in/tp] its columns
+    of the codes.  Each rank takes the amax of its slice, the max over
+    ``model`` is the whole row's, each quantizes its slice at that scale
+    (so its codes are exactly its slice of one device's), and the int32
+    partial products are summed over ``model``.  Returns (codes, row scales
+    [..., 1] fp32, the int32 accumulator [..., out]), those of
+    ``quantize_activations`` and the int8 product on one device."""
+    xf = x.float()
+    row_scale = div127(max_over_axis(xf.abs().amax(dim=-1, keepdim=True), mesh).clamp(min=1e-6))
+    xq = torch.round(xf / row_scale).clamp(-127, 127).to(torch.int8)
+    return xq, row_scale, sum_value(_int8_product(xq, p), mesh, "model")
+
+
+def row_parallel_dense(x: torch.Tensor, p: dict, mesh, *, a8: bool = False,
+                       partial: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ W on this rank's rows of W, the partial sums reduced over
     ``model``, then the replicated bias once; ``dense(x, p, a8=a8)`` without
-    a mesh."""
+    a mesh.  ``partial``: a term that is itself this rank's partial sum of
+    the output (the LoRA delta over the rank's input rows), added before the
+    reduce (after the bias without a mesh, as one device adds it).  w8a8
+    over int8 weights reduces the int32 accumulator
+    (:func:`row_parallel_int8`) and dequantizes once; ``partial`` is then
+    reduced on its own."""
     if mesh is None:
-        return dense(x, p, a8=a8)
-    y = reduce_from_axis(x @ p["kernel"], mesh)
+        y = dense(x, p, a8=a8)
+        return y if partial is None else y + partial
+    if a8 and "kernel_q" in p:
+        _, row_scale, acc = row_parallel_int8(x, p, mesh)
+        y = (acc.float() * row_scale * p["scale"].float()).to(x.dtype)
+        y = y + p["bias"] if "bias" in p else y
+        return y if partial is None else y + reduce_from_axis(partial, mesh)
+    y = dense(x, {k: v for k, v in p.items() if k != "bias"})
+    y = reduce_from_axis(y if partial is None else y + partial, mesh)
     return y + p["bias"] if "bias" in p else y
 
 

@@ -7,9 +7,9 @@ order, or a collective waits forever.  Three pieces keep them together:
 
 - :func:`check_serving_mesh`: what an engine takes under a mesh: a
   :class:`~omchat_torch.parallel.mesh.Mesh`, pure tensor-parallel (a data
-  axis of 1, as JAX's serving mesh), a tp that divides both head counts;
-  the dense trunk without w8a8 and without a LoRA bank (each refused by
-  name: A13b's remainder in ``ROADMAP.md``).
+  axis of 1, as JAX's serving mesh), with at least one q head on every
+  rank.  Any tp up to the q heads serves (the kv heads replicate where tp
+  does not divide them), and so do w8a8, a LoRA bank and the MoE trunk.
 - :func:`agreed`: a host decision that only the leader (the first rank of
   the model axis) can take, or that must not differ between ranks (an
   ``allowed_tokens_fn`` mask, a stop-keyword check, a draft), is taken on
@@ -84,11 +84,11 @@ def _from_leader():
 FROM_LEADER = _FromLeader()
 
 
-def check_serving_mesh(cfg, mesh, *, lora_bank=None, what: str = "engine") -> None:
+def check_serving_mesh(cfg, mesh, *, what: str = "engine") -> None:
     """Refuse what a serving engine cannot run under ``mesh`` (nothing
-    without one): anything but a :class:`Mesh`, a data axis above 1, a tp
-    that does not divide both head counts, and, each by name, w8a8, a LoRA
-    bank and the MoE trunk (ROADMAP queue A, A13b's remainder)."""
+    without one): anything but a :class:`Mesh`, a data axis above 1, and a
+    tp that would leave a rank without a q head of the trunk or of the
+    vision tower (the JAX package pads such a rank out)."""
     if mesh is None:
         return
     from omchat_torch.parallel.mesh import Mesh
@@ -99,13 +99,14 @@ def check_serving_mesh(cfg, mesh, *, lora_bank=None, what: str = "engine") -> No
     if "model" not in mesh.axis_names or any(n != 1 for a, n in mesh.shape.items() if a != "model"):
         raise ValueError(f"{what}: a serving mesh is pure tensor-parallel (JAX's serving mesh has no data axis), "
                          f"got {mesh.shape}")
-    check_trunk_tp(cfg.text, mesh.axis_size("model"))
-    waiting = {"w8a8": cfg.text.w8a8 or cfg.vision.w8a8, "a LoRA bank": lora_bank is not None,
-               "the MoE trunk": cfg.text.is_moe}
-    for name, asked in waiting.items():
-        if asked and mesh.axis_size("model") > 1:
-            raise NotImplementedError(f"{what}: {name} under a tensor-parallel mesh waits for ROADMAP queue A, "
-                                      "A13b's remainder")
+    tp = mesh.axis_size("model")
+    try:
+        check_trunk_tp(cfg.text, tp)
+    except ValueError as e:
+        raise ValueError(f"{what}: {e}") from None
+    if tp > cfg.vision.num_attention_heads:
+        raise ValueError(f"{what}: tp={tp} would leave a rank without a q head of the vision tower (it has "
+                         f"{cfg.vision.num_attention_heads})")
 
 
 def serving_mesh(tp: int):

@@ -21,7 +21,11 @@ its ``model`` dimension splits:
   The fused ViT ``attn.qkv`` kernel [L, D, 3D] (and its bias) is q | k | v:
   a rank's shard holds its own heads of q, of k and of v (Megatron's
   head-wise layout), not a contiguous third of the columns.
-  :func:`gather_params` restores the canonical column order.
+  :func:`gather_params` restores the canonical column order;
+- ``whole_unless_even``: the dimension splits only where tp divides its
+  ``units``, and every rank holds it whole otherwise: the kv heads
+  (k_proj, v_proj, their biases and a LoRA bank's k / v targets), which
+  JAX's :func:`kv_cache_specs` replicates with the cache when ``KVH % tp``.
 
 The ``data`` axis (FSDP) splits evenly; a dimension that dp does not divide
 is refused with a message (GSPMD would pad it).
@@ -47,21 +51,29 @@ class Spec(tuple):
     with the ``model`` dimension's ``units`` and ``blocks`` (see the module
     docstring)."""
 
-    def __new__(cls, *axes, units: Optional[int] = None, blocks: int = 1):
+    def __new__(cls, *axes, units: Optional[int] = None, blocks: int = 1, whole_unless_even: bool = False):
         self = super().__new__(cls, axes)
-        self.units, self.blocks = units, blocks
+        self.units, self.blocks, self.whole_unless_even = units, blocks, whole_unless_even
         return self
 
     def __reduce__(self):
-        return (_spec, (tuple(self), self.units, self.blocks))
+        return (_spec, (tuple(self), self.units, self.blocks, self.whole_unless_even))
 
     def __repr__(self) -> str:
-        extra = (f", units={self.units}" if self.units else "") + (f", blocks={self.blocks}" if self.blocks > 1 else "")
+        extra = ((f", units={self.units}" if self.units else "") + (f", blocks={self.blocks}" if self.blocks > 1 else "")
+                 + (", whole_unless_even=True" if self.whole_unless_even else ""))
         return f"P({', '.join(map(repr, self))}{extra})"
 
 
-def _spec(axes, units, blocks):
-    return Spec(*axes, units=units, blocks=blocks)
+def _spec(axes, units, blocks, whole_unless_even=False):
+    return Spec(*axes, units=units, blocks=blocks, whole_unless_even=whole_unless_even)
+
+
+def _like(spec, *axes) -> Spec:
+    """A spec over ``axes`` that splits its ``model`` dimension as ``spec``
+    (a :class:`Spec` or a plain tuple) does."""
+    return Spec(*axes, units=getattr(spec, "units", None), blocks=getattr(spec, "blocks", 1),
+                whole_unless_even=getattr(spec, "whole_unless_even", False))
 
 
 P = Spec
@@ -107,8 +119,8 @@ def qwen2_param_specs(cfg: TextConfig, *, fsdp: bool = False) -> dict:
             "post_attention_layernorm": {"scale": P()},
             "self_attn": {
                 "q_proj": {"kernel": P(None, d, "model", units=h)},
-                "k_proj": {"kernel": P(None, d, "model", units=kvh)},
-                "v_proj": {"kernel": P(None, d, "model", units=kvh)},
+                "k_proj": {"kernel": P(None, d, "model", units=kvh, whole_unless_even=True)},
+                "v_proj": {"kernel": P(None, d, "model", units=kvh, whole_unless_even=True)},
                 "o_proj": {"kernel": P(None, "model", d, units=h)},
             },
             "mlp": {
@@ -138,20 +150,74 @@ def qwen2_param_specs(cfg: TextConfig, *, fsdp: bool = False) -> dict:
         }
     if cfg.attention_bias:
         for name, units in (("q_proj", h), ("k_proj", kvh), ("v_proj", kvh)):
-            specs["layers"]["self_attn"][name]["bias"] = P(None, "model", units=units)
+            specs["layers"]["self_attn"][name]["bias"] = P(None, "model", units=units,
+                                                           whole_unless_even=name != "q_proj")
     if not cfg.tie_word_embeddings:
         specs["lm_head"] = {"kernel": P(None, "model")}
     return specs
 
 
+# a LoRA bank's targets: the column-parallel ones (their output split like
+# the target kernel's) and the row-parallel ones (their input split)
+_COLUMN_TARGETS = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+_ROW_TARGETS = ("o_proj", "down_proj")
+
+
+def lora_bank_specs(cfg: TextConfig, bank: dict) -> dict:
+    """Specs of a serving LoRA bank (``build_lora_bank``: leaves ``a`` [L,
+    N, in, r] and ``b`` [L, N, r, out]) that mirror each target kernel's:
+    on a column-parallel target ``a`` is whole and ``b`` holds the rank's
+    output columns (whole heads for q / k / v; k / v whole on every rank
+    where the kv heads do not split); on a row-parallel target ``a`` holds
+    the rank's input rows and ``b`` is whole, so the rank's delta is a
+    partial sum that joins the target's before the reduce."""
+    h, kvh = cfg.num_attention_heads, cfg.num_key_value_heads
+    units = {"q_proj": h, "k_proj": kvh, "v_proj": kvh, "o_proj": h}
+    out: dict = {}
+    for group, names in bank["layers"].items():
+        for name in names:
+            u = units.get(name)
+            if name in _COLUMN_TARGETS:
+                spec = {"a": P(), "b": P(None, None, None, "model", units=u,
+                                         whole_unless_even=name in ("k_proj", "v_proj"))}
+            elif name in _ROW_TARGETS:
+                spec = {"a": P(None, None, "model", None, units=u), "b": P()}
+            else:
+                raise ValueError(f"a LoRA bank target {group}.{name} has no tensor-parallel layout")
+            out.setdefault(group, {})[name] = spec
+    return {"layers": out}
+
+
+def shard_lora_bank(cfg: TextConfig, bank: Optional[dict], mesh) -> Optional[dict]:
+    """This rank's shard of a whole serving bank (:func:`lora_bank_specs`);
+    the bank itself without a mesh or at tp 1, None without a bank."""
+    if bank is None or mesh is None or mesh.axis_size("model") == 1:
+        return bank
+    return shard_params(bank, mesh, lora_bank_specs(cfg, bank))
+
+
 def check_trunk_tp(cfg: TextConfig, tp: int) -> None:
-    """The trunk runs tensor-parallel only where tp divides both the q and
-    the kv head counts (each rank keeps whole GQA groups); the JAX package
-    pads the others, the port refuses them."""
+    """The serving rule: the q heads split into whole heads, unevenly where
+    tp does not divide them (:func:`split_sizes`), the kv heads split where
+    tp divides them and stay whole on every rank otherwise (JAX's
+    :func:`kv_cache_specs`), every other dimension splits by elements.  Only
+    a rank that would hold no q head (tp above the q heads) is refused: the
+    JAX package pads such a rank out."""
+    h = cfg.num_attention_heads
+    if tp > h:
+        raise ValueError(f"tp={tp} would leave a rank without a q head (the trunk has {h}); serve at tp <= {h}")
+
+
+def check_train_tp(cfg: TextConfig, tp: int) -> None:
+    """The trainer's rule: tp divides both the q and the kv head counts, so
+    that no weight is replicated over the model axis (replicated k / v
+    kernels would need their gradients summed over the ranks, ROADMAP queue
+    A, the trainer at an indivisible tp); serving takes any tp
+    (:func:`check_trunk_tp`)."""
     h, kvh = cfg.num_attention_heads, cfg.num_key_value_heads
     if tp > 1 and (h % tp or kvh % tp):
-        raise ValueError(f"tp={tp} must divide the trunk's {h} q heads and {kvh} kv heads; other widths wait "
-                         "for ROADMAP queue A item 13 (the JAX package pads them)")
+        raise ValueError(f"tp={tp} must divide the trunk's {h} q heads and {kvh} kv heads to train; the trainer "
+                         "at an indivisible tp waits for ROADMAP queue A item 13 (serving takes it)")
 
 
 def vision_param_specs(cfg: VisionConfig, *, fsdp: bool = False) -> dict:
@@ -178,6 +244,8 @@ def vision_param_specs(cfg: VisionConfig, *, fsdp: bool = False) -> dict:
             },
         },
     }
+    if cfg.w8a8:  # the calibrated static fc1 scales [L] (read by the one-device glue route only)
+        specs["layers"]["mlp"]["fc1_out_scale"] = P()
     if cfg.qkv_bias:
         specs["layers"]["attn"]["qkv"]["bias"] = P(None, "model", units=h, blocks=3)
     if cfg.qk_normalization:
@@ -226,7 +294,7 @@ def specs_without_axis(specs, axis: str):
     def fix(spec):
         axes = [None if a == axis else (tuple(x for x in a if x != axis) if isinstance(a, tuple) else a)
                 for a in spec]
-        return Spec(*axes, units=getattr(spec, "units", None), blocks=getattr(spec, "blocks", 1))
+        return _like(spec, *axes)
 
     return spec_map(fix, specs)
 
@@ -246,8 +314,8 @@ def kv_cache_specs(cfg: TextConfig, mesh, batch: Optional[int] = None):
     """Cache [L, B, KVH, T, D]: batch over data, kv heads over model, each
     axis only where it divides evenly (else it replicates), JAX's spec.  The
     serving engines split their caches and page pools by it
-    (:func:`local_kv_shape`); they take only a tp that divides the kv heads
-    (:func:`check_trunk_tp`), so the head axis is always ``model`` there."""
+    (:func:`local_kv_shape`): at a tp that does not divide the kv heads
+    every rank holds all of them, as k_proj / v_proj are whole there."""
     from omchat_torch.models.qwen2 import KVCache
 
     tp, dp = mesh.axis_size("model"), mesh.axis_size("data")
@@ -265,7 +333,6 @@ def local_kv_shape(cfg: TextConfig, mesh, lead: int, rows: int, *, pool: bool = 
     shape = [cfg.num_hidden_layers, lead, cfg.num_key_value_heads, rows, cfg.attn_head_dim]
     if mesh is None:
         return shape
-    check_trunk_tp(cfg, mesh.axis_size("model"))
     spec = kv_cache_specs(cfg, mesh, batch=lead).k
     if pool:
         spec = Spec(None, None, *spec[2:])
@@ -283,8 +350,7 @@ def adapt_specs_to_quantized(specs, params):
             out = dict(specs)
             out.pop("kernel")
             out["kernel_q"] = kspec
-            out["scale"] = (Spec(*(tuple(kspec[:-2]) + tuple(kspec[-1:])), units=kspec.units, blocks=kspec.blocks)
-                            if len(kspec) >= 2 else P())
+            out["scale"] = _like(kspec, *(tuple(kspec[:-2]) + tuple(kspec[-1:]))) if len(kspec) >= 2 else P()
             if "bias" in out and "bias" not in params:
                 out.pop("bias")
             return out
@@ -309,7 +375,11 @@ def _axes(spec) -> List[Tuple[int, str]]:
 
 
 def _model_parts(n: int, spec, tp: int) -> List[List[Tuple[int, int]]]:
-    """Per model rank, the [lo, hi) ranges (one per block) of an ``n``-wide dimension."""
+    """Per model rank, the [lo, hi) ranges (one per block) of an ``n``-wide
+    dimension; the whole dimension on every rank for a
+    ``whole_unless_even`` spec whose units tp does not divide."""
+    if getattr(spec, "whole_unless_even", False) and (spec.units or n) % tp:
+        return [[(0, n)]] * tp
     blocks = getattr(spec, "blocks", 1)
     per = n // blocks
     return [[(b * per + lo, b * per + hi) for b in range(blocks)
@@ -365,6 +435,8 @@ def unshard_leaf(shards: Dict[Tuple[Tuple[str, int], ...], torch.Tensor], spec, 
         parts = [build({**fixed, ax: i}, rest) for i in range(size)]
         if ax != "model":
             return torch.cat(parts, dim)
+        if getattr(spec, "whole_unless_even", False) and (spec.units or parts[0].shape[dim]) % size:
+            return parts[0]  # every rank holds it whole
         blocks = getattr(spec, "blocks", 1)
         if blocks == 1:
             return torch.cat(parts, dim)
@@ -397,7 +469,7 @@ def leaf_specs(params: dict, specs: dict) -> Dict[tuple, tuple]:
     for path, _ in tree_items(params):
         spec = _spec_at(specs, path)
         if path[-1] == "kernel_q" and len(spec) >= 2:
-            spec = Spec(*(tuple(spec[:-2]) + (spec[-1], spec[-2])), units=spec.units, blocks=spec.blocks)
+            spec = _like(spec, *(tuple(spec[:-2]) + (spec[-1], spec[-2])))
         out[path] = spec
     return out
 

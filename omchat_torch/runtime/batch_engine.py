@@ -49,9 +49,12 @@ the JAX slot engine does; its LoRA bank adapts attention only.
 ``mesh`` (a pure tensor-parallel :class:`~omchat_torch.parallel.mesh.Mesh`;
 :mod:`omchat_torch.parallel.serving`): ``params`` is this rank's shard, the
 shared cache holds this rank's kv heads (split per
-``parallel.sharding.kv_cache_specs(batch=max_slots)``), K2's chunks, K3 and
-K4 run on them, and the logits are gathered over the vocabulary, so every
-rank picks the same tokens.  The steps run eagerly there (a gloo
+``parallel.sharding.kv_cache_specs(batch=max_slots)``, all of them where
+tp does not divide them), K2's chunks, K3 and K4 run on them (once per run
+of q heads that share a kv head there), and the logits are gathered over
+the vocabulary, so every rank picks the same tokens.  A LoRA bank is given
+whole and sharded like its targets; w8a8 chunks run the unfused chain; the
+MoE trunk runs its experts' block a rank.  The steps run eagerly there (a gloo
 collective cannot be captured); every rank must make the same calls.
 Presence / frequency penalties raise ``NotImplementedError``: the JAX slot
 engine has none either.
@@ -75,6 +78,7 @@ from omchat_torch.models.qwen2 import KVCache, embed_tokens, gather_vocab, init_
 from omchat_torch.ops.attention import PLAIN
 from omchat_torch.ops.sampling import greedy, sample, sample_batch
 from omchat_torch.parallel.serving import check_serving_mesh, replicated
+from omchat_torch.parallel.sharding import shard_lora_bank
 from omchat_torch.runtime.cuda_graphs import GraphedStep
 from omchat_torch.runtime.feature_cache import ImageFeatureCache, cached_encode
 from omchat_torch.utils.device import resolve_device
@@ -145,7 +149,7 @@ class BatchEngine:
         engine on the kernels replays a CUDA graph for each decode step
         (False: eagerly).  ``mesh``: tensor-parallel serving over this
         rank's shard (see the module docstring)."""
-        check_serving_mesh(cfg, mesh, lora_bank=lora_bank, what="BatchEngine")
+        check_serving_mesh(cfg, mesh, what="BatchEngine")
         check_lora_bank(cfg.text, lora_bank)
         self.mesh = mesh
         if attn_impl not in (None, PLAIN):
@@ -171,7 +175,7 @@ class BatchEngine:
         self._lengths = np.zeros(max_slots, np.int32)
         self.rng_seed = rng_seed
         self._generator = torch.Generator(device=self.device).manual_seed(rng_seed)
-        self.lora_bank = lora_bank
+        self.lora_bank = shard_lora_bank(cfg.text, lora_bank, mesh)
         self.n_adapters = 0
         if lora_bank is not None:
             leaf = next(iter(next(iter(lora_bank["layers"].values())).values()))

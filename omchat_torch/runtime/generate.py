@@ -62,6 +62,7 @@ from omchat_torch.models.spatial_merge import spatial_unpad_merge
 from omchat_torch.ops.attention import PLAIN
 from omchat_torch.ops.sampling import greedy, sample_from
 from omchat_torch.parallel.serving import agreed, check_serving_mesh, replicated
+from omchat_torch.parallel.sharding import shard_lora_bank
 from omchat_torch.runtime.cuda_graphs import GraphedStep
 from omchat_torch.runtime.feature_cache import ImageFeatureCache, cached_encode
 from omchat_torch.utils.device import resolve_device
@@ -204,10 +205,14 @@ class OmChatEngine:
     ``mesh`` (a pure tensor-parallel :class:`~omchat_torch.parallel.mesh.
     Mesh`): ``params`` is this rank's shard
     (:func:`~omchat_torch.parallel.sharding.shard_params`), the caches hold
-    this rank's kv heads, every rank runs the same calls
-    (:mod:`omchat_torch.parallel.serving`) and picks the same tokens from
-    the gathered logits.  The steps run eagerly there (``graphed()`` is
-    False: a gloo collective cannot be captured).
+    this rank's kv heads (all of them where tp does not divide them), every
+    rank runs the same calls (:mod:`omchat_torch.parallel.serving`) and
+    picks the same tokens from the gathered logits.  ``lora_bank`` is given
+    whole and sharded here like its targets
+    (:func:`~omchat_torch.parallel.sharding.shard_lora_bank`).  w8a8 and
+    the MoE trunk serve there as on one device, w8a8 on its unfused chain.
+    The steps run eagerly there (``graphed()`` is False: a gloo collective
+    cannot be captured).
 
     After :meth:`generate` or :meth:`generate_ondevice`, ``spans`` holds the
     stage times in seconds (``encode_images``, ``prefill``, ``ttft``,
@@ -230,10 +235,10 @@ class OmChatEngine:
         mesh=None,
     ):
         check_lora_bank(cfg.text, lora_bank)
-        check_serving_mesh(cfg, mesh, lora_bank=lora_bank, what="OmChatEngine")
+        check_serving_mesh(cfg, mesh, what="OmChatEngine")
         self.mesh = mesh
         self.cfg = cfg
-        self.lora_bank = lora_bank
+        self.lora_bank = shard_lora_bank(cfg.text, lora_bank, mesh)
         self.params = params
         self.attn_impl = attn_impl
         self.cache_dtype = cache_dtype

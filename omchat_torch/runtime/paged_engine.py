@@ -98,8 +98,11 @@ takes the dense route, as in the JAX engine.
 
 ``mesh`` (a pure tensor-parallel :class:`~omchat_torch.parallel.mesh.Mesh`;
 :mod:`omchat_torch.parallel.serving`): ``params`` is this rank's shard, the
-pools hold this rank's kv heads ([L, P+1, KVH/tp, page, D]), K12 / K13,
-K14, K15 and K4 run on them, the logits are gathered over the vocabulary,
+pools hold this rank's kv heads ([L, P+1, KVH/tp, page, D], or every kv
+head, [L, P+1, KVH, page, D], where tp does not divide them, and then K12 /
+K13 and K14 run once per run of q heads that share a kv head), K12 / K13,
+K14, K15 and K4 run on them, w8a8 prefills run the unfused chain, the MoE
+trunk its experts' block a rank (either ``moe_impl``), the logits are gathered over the vocabulary,
 and the host allocator, page tables and prefix cache, fed the same calls,
 stay the same on every rank.  Rolls and verifies run eagerly there (a gloo
 collective cannot be captured).  Presence / frequency penalties raise
@@ -144,6 +147,7 @@ from omchat_torch.ops.rope import rope_cos_sin
 from omchat_torch.ops.sampling import greedy, sample, sample_batch
 from omchat_torch.parallel.serving import check_serving_mesh, replicated
 from omchat_torch.parallel.sharding import local_kv_shape
+from omchat_torch.parallel.tp_attention import by_runs, head_runs, one_head
 from omchat_torch.runtime.cuda_graphs import GraphedStep
 from omchat_torch.runtime.feature_cache import pixel_digest
 from omchat_torch.runtime.generate import OmChatEngine
@@ -224,7 +228,10 @@ def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables
     its new K/V rows, and one row commit (K4) writes all layers' rows after
     the loop.  ``sampling``: per-slot do_sample / temperature / top_k / top_p
     tensors, drawn with ``generator``; None decodes greedily.  ``mesh``:
-    the params and the pools are this rank's shards."""
+    the params and the pools are this rank's shards; where the kv heads
+    replicate, each run of q heads that share a kv head decodes over a
+    contiguous copy of that head of the layer's pool, and the commit writes
+    every kv head."""
     tc = cfg.text
     lm = params["language_model"]
     n_layers, n_slots = k_pool.shape[0], k_pool.shape[1]  # P+1 incl. parking
@@ -242,13 +249,19 @@ def _decode_step_core(params, cfg: OmChatConfig, tokens, lengths, active, tables
     attn_lengths = torch.where(active, lengths, torch.zeros_like(lengths))
     k_rows: List[torch.Tensor] = []
     v_rows: List[torch.Tensor] = []
+    runs = head_runs(tc, mesh)
     for li in range(n_layers):
         def attend(q, k, v, li=li):
             k_rows.append(k[:, 0])
             v_rows.append(v[:, 0])
-            return paged_decode_attention(q, kflat, vflat, attn_lengths, tables, impl=attn_impl,
-                                          k_new=k[:, 0], v_new=v[:, 0], page_offset=li * n_slots,
-                                          kernel=decode_kernel)
+            if runs is None:
+                return paged_decode_attention(q, kflat, vflat, attn_lengths, tables, impl=attn_impl,
+                                              k_new=k[:, 0], v_new=v[:, 0], page_offset=li * n_slots,
+                                              kernel=decode_kernel)
+            # a run's kv head of layer li's pool, copied contiguous for K12 / K13
+            return by_runs(runs, q, lambda qr, h: paged_decode_attention(
+                qr, one_head(k_pool[li], h, 1), one_head(v_pool[li], h, 1), attn_lengths, tables, impl=attn_impl,
+                k_new=one_head(k[:, 0], h, 1), v_new=one_head(v[:, 0], h, 1), kernel=decode_kernel))
 
         x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, mlp_fn=_mlp_fn(tc, moe_impl),
                           mesh=mesh)
@@ -334,13 +347,15 @@ def _paged_prefill_chunk(params, cfg: OmChatConfig, token_ids, is_image, image_i
     kv_len = torch.as_tensor(chunk_start + chunk_len, dtype=torch.int32, device=dev)
     q_off = torch.as_tensor(chunk_start, dtype=torch.int32, device=dev)
     tab = torch.as_tensor(tables, dtype=torch.int32, device=dev)
+    runs = head_runs(tc, mesh)
     for li in range(k_pool.shape[0]):
         kp, vp = k_pool[li], v_pool[li]
 
         def attend(q, k, v, kp=kp, vp=vp):
             kp[pages] = cast_to(k.reshape(b * n_chunk, page_size, kvh, hd).transpose(1, 2), kp.dtype)
             vp[pages] = cast_to(v.reshape(b * n_chunk, page_size, kvh, hd).transpose(1, 2), vp.dtype)
-            return paged_prefill_attention(q, kp, vp, kv_len, tab, q_off, impl=attn_impl)
+            return by_runs(runs, q, lambda qr, h: paged_prefill_attention(
+                qr, one_head(kp, h, 1), one_head(vp, h, 1), kv_len, tab, q_off, impl=attn_impl))
 
         x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl),
                           mlp_fn=_mlp_fn(tc, moe_impl), mesh=mesh)
@@ -391,6 +406,7 @@ def _paged_verify(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_
     rows = positions.long()
     k_rows: List[torch.Tensor] = []
     v_rows: List[torch.Tensor] = []
+    runs = head_runs(tc, mesh)
     for li in range(n_layers):
         def attend(q, k, v, li=li):
             k_rows.append(k)
@@ -399,8 +415,9 @@ def _paged_verify(params, cfg: OmChatConfig, tokens, lengths, active, tables, k_
             kg, vg = kg.to(q.dtype), vg.to(q.dtype)
             kg[b_idx, :, rows] = k
             vg[b_idx, :, rows] = v
-            return attention(q, kg, vg, causal=True, q_offset=q_off, kv_len=kv_len, impl=attn_impl,
-                             kv_format="bntd")
+            return by_runs(runs, q, lambda qr, h: attention(
+                qr, one_head(kg, h, 1, copy=False), one_head(vg, h, 1, copy=False), causal=True, q_offset=q_off,
+                kv_len=kv_len, impl=attn_impl, kv_format="bntd"))
 
         x = decoder_layer(tc, x, layer_slice(lm["layers"], li), cos, sin, attend, quant_glue=quant_glue_ok(attn_impl),
                           mlp_fn=_mlp_fn(tc, moe_impl), mesh=mesh)

@@ -35,7 +35,7 @@ from omchat_torch.models.qwen2 import lm_head, qwen2_forward
 from omchat_torch.ops.attention import VJP
 from omchat_torch.ops.cross_entropy import cross_entropy_loss, vocab_parallel_token_losses
 from omchat_torch.parallel import comm
-from omchat_torch.parallel.sharding import check_trunk_tp, gather_params, leaf_specs, shard_params
+from omchat_torch.parallel.sharding import check_train_tp, gather_params, leaf_specs, shard_params
 from omchat_torch.utils.tree import tree_items
 
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default, which the JAX trainer relies on (not torch's 1e-2)
@@ -369,7 +369,7 @@ def make_sharded_train_step(cfg: OmChatConfig, mesh, param_specs: dict, optimize
         if on:
             raise NotImplementedError(f"{flag} comes with ROADMAP queue A item 13c (sequence, context and Ulysses "
                                       "parallelism)")
-    check_trunk_tp(cfg.text, mesh.axis_size("model"))
+    check_train_tp(cfg.text, mesh.axis_size("model"))
     fsdp_dims = layer_gather_dims(param_specs)
     cache: dict = {}
 

@@ -287,8 +287,6 @@ def _serving_fault(fault, mesh):
     heads (the prefill's write, which its attention then reads, and the
     decode's row commit), the vocabulary blocks gathered in reversed rank
     order."""
-    import sys
-
     from omchat_torch.models import qwen2
     from omchat_torch.parallel import comm
 
@@ -299,13 +297,13 @@ def _serving_fault(fault, mesh):
         setattr(mod, name, fn)
 
     if fault == "o_proj_reduce_dropped":
-        reduce = qwen2.reduce_from_axis
+        row = qwen2._row_lora_dense
 
-        def reduce_unless_o_proj(x, m, axis="model"):
-            # decoder_layer reduces o_proj itself; the MLP's and the embedding's reduce happen in their own functions
-            return x if sys._getframe(1).f_code.co_name == "decoder_layer" else reduce(x, m, axis)
+        def o_proj_unreduced(y, p, a8, lora, name, ids, m):
+            # o_proj's partial sums as they are (the row product without a mesh); down_proj still reduces
+            return row(y, p, a8, lora, name, ids, None if name == "o_proj" else m)
 
-        swap(qwen2, "reduce_from_axis", reduce_unless_o_proj)
+        swap(qwen2, "_row_lora_dense", o_proj_unreduced)
     elif fault == "kv_heads_of_the_other_rank":
         commit, attend = qwen2.commit_decode_rows, qwen2.cache_attend
 
@@ -314,8 +312,8 @@ def _serving_fault(fault, mesh):
             return comm._gather(rows.contiguous(), mesh.group("model"), 2).chunk(tp, 2)[(me + 1) % tp].contiguous()
 
         swap(qwen2, "commit_decode_rows", lambda cache, wp, k, v, impl=None: commit(cache, wp, other(k), other(v), impl))
-        swap(qwen2, "cache_attend", lambda impl, wp, starts, kv_len, kc, vc, q, k, v, seg=None: attend(
-            impl, wp, starts, kv_len, kc, vc, q, other(k), other(v), seg))
+        swap(qwen2, "cache_attend", lambda impl, wp, starts, kv_len, kc, vc, q, k, v, seg=None, runs=None: attend(
+            impl, wp, starts, kv_len, kc, vc, q, other(k), other(v), seg, runs))
     elif fault == "vocab_blocks_reversed":
         def reversed_gather(logits, vocab_size, m):
             blocks = comm._gather(logits.contiguous(), m.group("model"), 0).chunk(m.axis_size("model"), 0)
@@ -333,12 +331,13 @@ def _refuse_to_decide(*args):
     raise AssertionError("a rank other than the leader took a host decision itself")
 
 
-def generation_options(cfg, params, local, mesh, req) -> dict:
+def generation_options(cfg, params, local, mesh, req, lora_bank=None, adapter_id=None) -> dict:
     """The single-request engine's options under ``mesh`` against the same
     engine on one device in this rank (the whole tree): sampling with bias,
     penalties and log-probs, an allowed-tokens mask and stop keywords (taken
     on the leader only: the other ranks pass callables that must not run, and
-    no tokenizer), the on-device loop, beams and speculative decoding.
+    no tokenizer), the on-device loop, beams and speculative decoding; with
+    ``lora_bank`` (whole) the ``generate`` calls take ``adapter_id``.
     {option: (one device's output, the mesh's)}."""
     import dataclasses
 
@@ -350,6 +349,7 @@ def generation_options(cfg, params, local, mesh, req) -> dict:
 
     lead = dist.get_rank() == 0
     ids, n = req["texts"][0] + req["echo"], req["new_tokens"]
+    adapter = {} if adapter_id is None else {"adapter_id": adapter_id}
     greedy = GenerationConfig(max_new_tokens=n, eos_token_id=-1)
     sampled = dataclasses.replace(greedy, do_sample=True, temperature=0.8, top_k=40, top_p=0.9,
                                   presence_penalty=0.5, frequency_penalty=0.3)
@@ -361,19 +361,19 @@ def generation_options(cfg, params, local, mesh, req) -> dict:
         "sampled_bias_penalties_logprobs": lambda e, one: (
             lambda o: (o.token_ids, o.logprobs, o.top_logprobs))(e.generate(
                 [ids], None, sampled, rng_key=11, logit_bias={17: 5.0, 23: -3.0}, return_logprobs=True,
-                top_logprobs=3)),
+                top_logprobs=3, **adapter)),
         "allowed_tokens_mask": lambda e, one: e.generate(
-            [ids], None, greedy, allowed_tokens_fn=allowed if one or lead else _refuse_to_decide).token_ids,
+            [ids], None, greedy, allowed_tokens_fn=allowed if one or lead else _refuse_to_decide, **adapter).token_ids,
         "stop_keywords": lambda e, one: e.generate(
             [ids], None, dataclasses.replace(greedy, max_new_tokens=3 * n), stop_keywords=["\x20"],
-            tokenizer=MockTokenizer() if one or lead else None).token_ids,
+            tokenizer=MockTokenizer() if one or lead else None, **adapter).token_ids,
         "ondevice_sampled": lambda e, one: e.generate_ondevice([ids], None, sampled, rng_key=5).token_ids,
         "beams": lambda e, one: e.beam_search(ids, None, num_beams=3, max_new_tokens=n, eos_token_id=-1),
         "speculative": lambda e, one: e.generate_speculative(
             ids, None, greedy, draft_len=3, draft_fn=echo_draft if one or lead else _refuse_to_decide),
     }
-    one = OmChatEngine(cfg, params, prompt_bucket=8, device="cpu")
-    tp = OmChatEngine(cfg, local, prompt_bucket=8, device="cpu", mesh=mesh)
+    one = OmChatEngine(cfg, params, prompt_bucket=8, device="cpu", lora_bank=lora_bank)
+    tp = OmChatEngine(cfg, local, prompt_bucket=8, device="cpu", mesh=mesh, lora_bank=lora_bank)
     return {name: (run(one, True), run(tp, False)) for name, run in runs.items()}
 
 
@@ -601,4 +601,215 @@ def replica_rank():
         except serving.ReplicaDiverged as e:
             out["diverged"] = str(e)
     out["calls"] = engine.calls
+    return out
+
+
+# --------------------------------------------------------------------------
+# the rest of tensor-parallel serving (tests/test_torch_tp_remainder*.py):
+# w8a8, a LoRA bank, the MoE trunk, kv heads replicated at an indivisible tp
+# --------------------------------------------------------------------------
+
+MOE_TEXT = dict(num_experts_per_tok=2, moe_intermediate_size=32, shared_expert_intermediate_size=64)
+REMAINDER_TEXT = {
+    "w8a8": {},
+    "lora": {},
+    "moe4": dict(num_experts=4, **MOE_TEXT),
+    "moe8": dict(num_experts=8, **MOE_TEXT),
+    "kv42": {},  # the tiny trunk's 4 q / 2 kv heads: at tp 4 a q head a rank, both kv heads on each
+    "kv62": dict(num_attention_heads=6, num_key_value_heads=2, head_dim=16),  # rank 1: q heads 2-3 over kv 0 and 1
+}
+REMAINDER_FAULTS = {"w8a8": "amax_not_reduced", "lora": "lora_delta_after_reduce", "moe4": "experts_from_zero",
+                    "moe8": "experts_from_zero", "kv42": "next_kv_head", "kv62": "next_kv_head"}
+
+
+def remainder_config(config_cls, case):
+    """``config_cls.tiny()`` (either package's OmChatConfig) with the
+    case's trunk, in w8a8 for "w8a8"."""
+    import dataclasses
+
+    cfg = config_cls.tiny()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, **REMAINDER_TEXT[case]))
+    return cfg.with_w8a8() if case == "w8a8" else cfg
+
+
+@contextlib.contextmanager
+def remainder_fault(fault):
+    """The faults the limits must catch: each rank's amax of a row-parallel
+    layer left unreduced (each quantizes its slice at its own scale), a
+    row-parallel LoRA delta added after the reduce (each rank's slice of
+    the delta only), a rank's experts indexed from expert 0 instead of its
+    block's first, a rank's q heads reading the kv head of the next group."""
+    from omchat_torch.models import qwen2, qwen2_moe
+    from omchat_torch.parallel import comm, tp_attention
+
+    saved = []
+
+    def swap(mod, name, fn):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    if fault == "amax_not_reduced":
+        swap(comm, "max_over_axis", lambda x, mesh, axis="model": x.detach().contiguous().clone())
+    elif fault == "lora_delta_after_reduce":
+        def after(y, p, a8, lora, name, ids, mesh):
+            out = comm.row_parallel_dense(y, p, mesh, a8=a8)
+            return out + qwen2.lora_delta(y, lora[name], ids) if lora is not None and name in lora else out
+
+        swap(qwen2, "_row_lora_dense", after)
+    elif fault == "experts_from_zero":
+        block = qwen2_moe.expert_block
+        swap(qwen2_moe, "expert_block", lambda cfg, mesh=None: (lambda b: slice(0, b.stop - b.start))(block(cfg, mesh)))
+    elif fault == "next_kv_head":
+        swap(tp_attention, "_kv_head", lambda j, h, kvh: (j // (h // kvh) + 1) % kvh)
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def row_parallel_codes(cfg, whole, local, mesh, seed=7) -> dict:
+    """The w8a8 row-parallel products of layer 0 (o_proj over the rank's
+    heads, down_proj over its slice of the width) on seeded activations
+    against one device's: {name: (codes, row scales, int32 accumulator)
+    each bitwise equal}."""
+    import numpy as np
+
+    from omchat_torch.ops.linear import _int8_product, quantize_activations
+    from omchat_torch.parallel.comm import model_slice, row_parallel_int8
+    from omchat_torch.utils.tree import layer_slice
+
+    tc = cfg.text
+    full, mine = (layer_slice(t["language_model"]["layers"], 0) for t in (whole, local))
+    out = {}
+    for name, group, width, units in (("o_proj", "self_attn", tc.num_attention_heads * tc.attn_head_dim,
+                                       tc.num_attention_heads), ("down_proj", "mlp", tc.intermediate_size, None)):
+        x = torch.from_numpy(np.random.default_rng(seed).standard_normal((2, 9, width)).astype(np.float32))
+        cols = model_slice(width, mesh, units=units)
+        xq, rs, acc = row_parallel_int8(x[..., cols], mine[group][name], mesh)
+        wq, wrs = quantize_activations(x)
+        out[name] = (torch.equal(xq, wq[..., cols]), torch.equal(rs, wrs),
+                     torch.equal(acc, _int8_product(wq, full[group][name])))
+    return out
+
+
+def _drive(be, requests, n):
+    rids = [be.submit(p, x, max_new_tokens=n, eos_token_id=-1, **kw) for p, x, kw in requests]
+    be.run_to_completion(300)
+    return [be.result(r) for r in rids]
+
+
+def tp_remainder_rank(tp, cases, trees, banks, req):
+    """Each case of ``cases`` on this world's pure-TP mesh, on the CPU in
+    fp32: the three engines over the rank's shard of ``trees[case]`` (a
+    whole JAX tree as numpy), the LoRA banks of ``banks`` given whole, the
+    case's planted fault.  Rank 0 returns {case: {run: result}}, the others
+    {case: {run: tokens}}."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from omchat_torch.checkpoint.convert import from_jax_params
+    from omchat_torch.config import GenerationConfig, OmChatConfig
+    from omchat_torch.parallel.mesh import create_mesh
+    from omchat_torch.parallel.sharding import kv_cache_specs, local_kv_shape, omchat_param_specs, shard_params
+    from omchat_torch.parallel.tp_attention import head_runs
+    from omchat_torch.runtime.batch_engine import BatchEngine
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    mesh = create_mesh(tp=tp)
+    ids, px, texts, n = req["ids"], req["pixels"], req["texts"], req["new_tokens"]
+    gen = GenerationConfig(max_new_tokens=n, eos_token_id=-1)
+    paged = dict(max_slots=2, num_pages=24, page_size=8, prompt_bucket=16, max_len=96, mesh=mesh, device="cpu")
+    plain = [(t, None, {}) for t in texts]
+    out = {}
+
+    def generate(eng, adapter_id=None):
+        steps = []
+        o = eng.generate([ids], px, gen, logits_callback=lambda s, lg: steps.append(lg[0].numpy()),
+                         **({} if adapter_id is None else {"adapter_id": adapter_id}))
+        return {"tokens": o.token_ids[0], "logits": np.stack(steps)}
+
+    for case in cases:
+        cfg = remainder_config(OmChatConfig, case)
+        whole = from_jax_params(trees[case])
+        local = shard_params(whole, mesh, omchat_param_specs(cfg, whole))
+        engine = lambda **kw: OmChatEngine(cfg, local, prompt_bucket=8, device="cpu", mesh=mesh,  # noqa: E731
+                                           image_cache_size=0, **kw)
+        batch = lambda **kw: BatchEngine(cfg, local, max_slots=2, max_len=64, chunk_size=16, mesh=mesh,  # noqa: E731
+                                         device="cpu", **kw)
+        res = {}
+        if case == "lora":
+            res["base"] = generate(engine())
+            for name, bank in banks.items():
+                tbank = {"layers": {g: {k: {x: torch.from_numpy(np.asarray(a)) for x, a in ab.items()}
+                                        for k, ab in names.items()} for g, names in bank["layers"].items()}}
+                eng = engine(lora_bank=tbank)
+                for i in range(tbank["layers"]["self_attn"]["q_proj"]["a"].shape[1]):
+                    res[f"{name}_{i}"] = generate(eng, i)
+                mixed = [(t, None, {"adapter_id": i}) for t, i in zip(texts + [ids[:3]], (1, 2, 0))]
+                res[f"{name}_batch"] = {"tokens": _drive(batch(lora_bank=tbank), mixed, n)}
+            with remainder_fault(REMAINDER_FAULTS[case]):
+                res["fault"] = generate(engine(lora_bank=tbank), 1)
+            res["options"] = generation_options(cfg, whole, local, mesh, req, lora_bank=tbank, adapter_id=1)
+        else:
+            res["generate"] = generate(engine())
+            res["batch"] = {"tokens": _drive(batch(), plain, n)}
+            res["paged"] = {"tokens": _drive(PagedBatchEngine(cfg, local, **paged), plain + [(ids, px, {})], n)}
+            if cfg.text.is_moe:
+                res["paged_gmm"] = {"tokens": _drive(PagedBatchEngine(cfg, local, moe_impl="gmm", **paged),
+                                                     plain + [(ids, px, {})], n)}
+            if cfg.text.is_moe:
+                res["options"] = generation_options(cfg, whole, local, mesh, req)
+            if case == "w8a8":
+                pe = PagedBatchEngine(cfg, local, prefix_cache=True, **paged)
+                first = _drive(pe, [(req["prefix"] + [41], None, {})], n)
+                res["paged_prefix"] = {"tokens": first + _drive(pe, [(req["prefix"] + [42, 43], None, {})], n),
+                                       "hits": pe.prefix_cache.hits}
+                res["codes"] = row_parallel_codes(cfg, whole, local, mesh)
+            if case.startswith("kv"):
+                res["layout"] = {"runs": head_runs(cfg.text, mesh), "head_axis": kv_cache_specs(cfg.text, mesh).k[2],
+                                 "cache": local_kv_shape(cfg.text, mesh, 2, 64),
+                                 "k_proj": tuple(local["language_model"]["layers"]["self_attn"]["k_proj"]
+                                                 ["kernel"].shape)}
+            with remainder_fault(REMAINDER_FAULTS[case]):
+                res["fault"] = generate(engine())
+                if case == "w8a8":
+                    res["fault_codes"] = row_parallel_codes(cfg, whole, local, mesh)
+        out[case] = res
+    if dist.get_rank() == 0:
+        return out
+    return {case: {k: {"tokens": v["tokens"]} for k, v in res.items() if isinstance(v, dict) and "tokens" in v}
+            | ({"options": {k: v[1] for k, v in res["options"].items()}} if "options" in res else {})
+            for case, res in out.items()}
+
+
+def tp_remainder_cli_rank(ckpt, prompt):
+    """``load_pretrained_model(w8a8=True, tp=)`` in a launched world: the
+    greedy tokens, first-step logits and the calibrated fc1 scales of each
+    rank's shard; ``single_inference --w8a8 --tp`` (rank 0 prints)."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from omchat_torch.api import load_pretrained_model
+    from omchat_torch.cli import single_inference
+    from omchat_torch.config import GenerationConfig
+
+    tp = dist.get_world_size()
+    gen = GenerationConfig(max_new_tokens=4, eos_token_id=-1)
+    model = load_pretrained_model(ckpt, dtype=torch.float32, device="cpu", w8a8=True, tp=tp)
+    steps = []
+    o = model.engine.generate([prompt], None, gen, logits_callback=lambda s, lg: steps.append(lg[0].numpy()))
+    vt = model.engine.params["vision_tower"]["layers"]
+    out = {"tokens": o.token_ids[0], "logits": steps[0], "w8a8": model.config.text.w8a8 and model.config.vision.w8a8,
+           "fc1_out_scale": vt["mlp"]["fc1_out_scale"].clone(),
+           "qkv_codes": tuple(vt["attn"]["qkv"]["kernel_q"].shape)}
+    del model
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        single_inference.main(["--model-path", ckpt, "--device", "cpu", "--tp", str(tp), "--w8a8",
+                               "--max-new-tokens", "3", "--image-path", f"{ckpt}/img.png", "--question", "what is it?"])
+    out["single_inference"] = text.getvalue()
     return out

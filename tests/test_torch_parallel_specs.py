@@ -249,9 +249,27 @@ def test_fsdp_refuses_an_uneven_data_split():
 
 
 def test_trunk_tp_must_divide_both_head_counts():
+    """The trainer still takes only a tp that divides both head counts;
+    serving takes tp 3 / 7 / 8 too: the q heads split into whole heads
+    (unevenly), k_proj / v_proj stay whole on every rank where tp does not
+    divide the 4 kv heads, and the cache replicates its head axis as JAX's
+    spec does; only a rank left without a q head is refused."""
     cfg = TOmChatConfig().text  # 28 q heads, 4 kv heads
     for tp in (1, 2, 4):
+        tsh.check_train_tp(cfg, tp)
         tsh.check_trunk_tp(cfg, tp)
     for tp in (3, 7, 8):
         with pytest.raises(ValueError, match="ROADMAP queue A item 13"):
-            tsh.check_trunk_tp(cfg, tp)
+            tsh.check_train_tp(cfg, tp)
+        tsh.check_trunk_tp(cfg, tp)
+        specs = tsh.qwen2_param_specs(cfg)["layers"]["self_attn"]
+        q_rows = [tsh.local_shape([1, 3584, 3584], specs["q_proj"]["kernel"], {"model": m}, {"model": tp})[2] // 128
+                  for m in range(tp)]
+        assert q_rows == tsh.split_sizes(28, tp)
+        for m in range(tp):
+            assert tsh.local_shape([1, 3584, 512], specs["k_proj"]["kernel"], {"model": m}, {"model": tp}) == \
+                [1, 3584, 512]
+        mesh = tmesh.create_mesh(tp=tp, ranks=range(tp))
+        assert tsh.kv_cache_specs(cfg, mesh).k[2] is None
+    with pytest.raises(ValueError, match="without a q head"):
+        tsh.check_trunk_tp(cfg, 29)

@@ -14,9 +14,9 @@ on-disk checkpoint, float32):
   every rank reported once, an error on one rank only ``ReplicaDiverged``
   on both, with that rank's traceback;
 - what stays refused before any weight loads: ``--tp 2`` outside a launched
-  world of 2 ranks, ``--w8a8`` with ``--tp``, an engine's mesh that is not a
-  ``Mesh`` or has a data axis, w8a8 / a LoRA bank / the MoE trunk under a
-  mesh.
+  world of 2 ranks (with ``--w8a8`` too, which a launched world takes), an
+  engine's mesh that is not a ``Mesh`` or has a data axis, a tp that leaves
+  a rank without a q head of the trunk or of the tower.
 """
 
 import contextlib
@@ -169,15 +169,19 @@ def test_tp_without_a_launched_world_is_a_usage_error_before_loading(cli, capsys
 
 
 def test_w8a8_with_tp_is_refused_by_name(capsys, monkeypatch):
+    """``--w8a8 --tp 2`` is no longer refused in a launched world of two
+    ranks; outside one it is the usage error every ``--tp`` above 1 is."""
     from omchat_torch.cli import options
 
-    monkeypatch.setattr("omchat_torch.parallel.launch.launched_world", lambda: 2)
     parser = __import__("argparse").ArgumentParser()
     options.add_model_flags(parser)
     args = parser.parse_args(["--model-path", "x", "--tp", "2", "--w8a8"])
     with pytest.raises(SystemExit):
         options.check_tp(parser, args)
-    assert "A13b" in capsys.readouterr().err
+    assert "torchrun --nproc-per-node 2" in capsys.readouterr().err
+    monkeypatch.setattr("omchat_torch.parallel.launch.launched_world", lambda: 2)
+    options.check_tp(parser, args)
+    assert capsys.readouterr().err == ""
 
 
 def test_engines_refuse_what_a_serving_mesh_does_not_serve():
@@ -190,11 +194,16 @@ def test_engines_refuse_what_a_serving_mesh_does_not_serve():
         check_serving_mesh(cfg, object())
     with pytest.raises(ValueError, match="pure tensor-parallel"):
         check_serving_mesh(cfg, create_mesh(tp=1, ranks=range(2)))
+    tp8 = Mesh(np.arange(8).reshape(1, 8), ("data", "model"), rank=0)
+    with pytest.raises(ValueError, match="without a q head"):
+        check_serving_mesh(cfg, tp8)  # 4 q heads: four of the eight ranks would hold none
+    wide = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_attention_heads=8))
+    with pytest.raises(ValueError, match="vision tower"):
+        check_serving_mesh(wide, tp8)  # the tower's 4 heads
+    # what serves now: a kv head count tp does not divide, w8a8, the MoE trunk
     tp2 = Mesh(np.arange(2).reshape(1, 2), ("data", "model"), rank=0)
-    with pytest.raises(ValueError, match="q heads"):
-        check_serving_mesh(dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_key_value_heads=1)), tp2)
+    tp4 = Mesh(np.arange(4).reshape(1, 4), ("data", "model"), rank=0)
     moe = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_experts=4))
-    for bad, kw in ((cfg.with_w8a8(), {}), (cfg, {"lora_bank": {}}), (moe, {})):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            check_serving_mesh(bad, tp2, **kw)
-    check_serving_mesh(cfg, tp2)
+    for ok, mesh in ((dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_key_value_heads=1)), tp2),
+                     (cfg.with_w8a8(), tp2), (moe, tp2), (cfg, tp4)):
+        check_serving_mesh(ok, mesh)
