@@ -328,7 +328,8 @@
     fail the kernels' limit.
 
 38. The sharded train step (``make_sharded_train_step``) at full width on
-    2 ViT + 2 trunk layers, two ranks spawned on the one card over gloo
+    1 ViT + 1 trunk layer (``PARALLEL_LAYERS``), two ranks spawned on the
+    one card over gloo
     (``run_ranks``): tp 2 (14 / 2 trunk heads and 13 or 12 ViT heads a
     rank), dp 2, dp 2 with FSDP, three full fine-tune steps each on one
     batch of two samples whose answers differ in length, on the kernel route
@@ -356,8 +357,8 @@
     layer's K1 a K2 on the rank's heads); three planted faults (o_proj's
     row-parallel reduce dropped, the cache written with the other rank's kv
     heads, the vocabulary blocks gathered in reversed rank order) must leave
-    phase 4's limits.  (b) Full width at a quarter of the depth
-    (``SERVING_TP_DEEP``: 12 ViT + 7 trunk layers): phase 3's
+    phase 4's limits.  (b) Full width at a seventh of the depth
+    (``SERVING_TP_DEEP``: 6 ViT + 4 trunk layers): phase 3's
     request at tp 2 (TTFT, ViT / prefill / decode ms, eager decode ms a
     step, each rank's peak GiB, the collectives' share of a decode step)
     and phase 5's workload through ``PagedBatchEngine`` (tokens/s, TTFT p50
@@ -396,6 +397,27 @@
     and the broadcasts' share and each rank's peak GiB printed (line
     ``pipeline training (phase 42, this call)``).  Then K16a/b/c checked at
     a microbatch's shape.
+43. Head width 64: Qwen/Qwen2-0.5B's trunk widths (``QWEN2_05B_TEXT``: 14 /
+    2 heads of 64, tied embeddings) behind InternViT-300M/448 and a 1024 ->
+    896 mlp2x_gelu projector (InternVL2-1B's geometry), full width and
+    depth, random bf16 weights (``head_width_64``): phase 3's request
+    through ``OmChatModel.chat`` on a bf16 and an e4m3 cache (TTFT, decode
+    tokens/s, peak GiB; K2 a ViT and trunk layer, K3 a step and layer, K4 a
+    step, every step a graph replay), phase 5's workload through
+    ``PagedBatchEngine`` after ``precompile`` on K12 and K13 over a bf16 and
+    an e4m3 pool (tokens/s, TTFT p50 / p99; every request 64 tokens, every
+    page back, every roll a replay, K13 K12's tokens), 4 of its requests
+    through ``BatchEngine``, phase 23's decode step through
+    ``cache_attend`` (K6).  Then phases 2, 6, 17 and 23's kernel checks
+    and times at the shapes these runs handed the kernels (rows tagged
+    ``[D=64]``), and ``width_checks`` at D = 64, 72 and 16 (bf16; e4m3 at
+    64 and 16) at phase 2's lengths: K3, K6, K12, K13, K14 and K2 on e4m3
+    against their plain versions, a fault model at (D, D) within the limit
+    and its two planted faults (the scale of a 128-wide head; q and k read
+    past column D) outside it, K12 bitwise K13.  At 2 + 2 layers the
+    single-request and paged engines on the kernels against
+    ``attn_impl="plain"`` by phase 7's rule.  Alone: ``python3
+    chip_probes/head_width.py``.
 
 Prints one JSON line of per-kernel numbers before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero (printing no
@@ -2693,7 +2715,7 @@ def paged_decode_p_e4m3(q, k_pages, v_pages, lengths, page_tables, k_new, v_new,
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
-def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
+def fp8_kernel_phases(gen, shapes: dict, timed: dict, tc=None, tag: str = "") -> list:
     """Phase 17: K13 over a bf16 and an e4m3 pool and the e4m3 variants of
     K12 and K14 at what the timed serving run (phase 5) handed K12 and K14,
     K2 and K3 on an e4m3 cache at the single request's shapes (phase 2),
@@ -2701,7 +2723,10 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
     faults must fall outside the limits.  The e4m3 stores of K4 and K15
     bitwise at those shapes and on every bf16 bit pattern (the in-kernel
     cast against ``ops.fp8.to_e4m3``).  Times as in phases 2 and 6; the
-    library line upcasts the e4m3 operands to bf16 inside the timed call."""
+    library line upcasts the e4m3 operands to bf16 inside the timed call.
+    With ``tc`` (phase 43: the Qwen2-0.5B trunk's text config) at that
+    trunk's heads, its rows named with ``tag``, without the bit-pattern
+    sweep (which does not depend on the heads)."""
 
     import numpy as np
     import torch
@@ -2717,7 +2742,7 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
     dev = torch.device(DEVICE)
     bf = torch.bfloat16
     i32 = dict(dtype=torch.int32, device=dev)
-    tc = OmChatConfig().text
+    tc = tc or OmChatConfig().text
     L, H, KVH, D = tc.num_hidden_layers, tc.num_attention_heads, tc.num_key_value_heads, tc.attn_head_dim
     G = H // KVH
     PS, P = SERVING["page_size"], SERVING["num_pages"]
@@ -2836,7 +2861,8 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
     splits, chunk = pa.paged_splits(S, KVH, W * PS, torch.cuda.get_device_properties(0).multi_processor_count)
     diffs = {pool: float((outs[("manual", pool)].float() - outs[("auto", pool)].float()).abs().max())
              for pool in ("bf16", "e4m3")}
-    log(f"K13 vs K12 on the same inputs (both split-KV: {splits} chunks of {chunk} rows, then a merge), max |diff|: "
+    log(f"K13 vs K12{tag} on the same inputs (both split-KV: {splits} chunks of {chunk} rows, then a merge), "
+        f"max |diff|: "
         f"bf16 pool {diffs['bf16']:.4g}, e4m3 pool {diffs['e4m3']:.4g}")
     if any(not torch.equal(outs[("manual", pool)], outs[("auto", pool)]) for pool in ("bf16", "e4m3")):
         raise AssertionError(f"K13 and K12 must compute the same bits on the same inputs: max |diff| {diffs}")
@@ -3017,21 +3043,23 @@ def fp8_kernel_phases(gen, shapes: dict, timed: dict) -> list:
 
     # The in-kernel cast: every bf16 bit pattern through K4 (as rows) and K15
     # (as a page) into e4m3 pools, against to_e4m3 bitwise (NaN past 464).
-    patterns = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16).view(bf)
-    want = to_e4m3(patterns).view(torch.uint8)
-    kp, vp = (torch.zeros(2, KVH, PS, D, dtype=E4M3, device=dev) for _ in range(2))
-    prow = patterns.view(PS, KVH, D)
-    pa.commit_rows(kp, vp, torch.ones(PS, **i32), torch.arange(PS, **i32), prow, prow)
-    pa.commit_pages(kp, vp, torch.zeros(1, **i32), patterns.view(1, KVH, PS, D), patterns.view(1, KVH, PS, D))
-    torch.cuda.synchronize()
-    cast = {"K4": int((kp[1].transpose(0, 1).reshape(-1).view(torch.uint8) != want).sum()),
-            "K15": int((kp[0].reshape(-1).view(torch.uint8) != want).sum())}
-    nan_share = float(((want & 0x7F) == 0x7F).float().mean())
-    log(f"e4m3 store, every bf16 bit pattern: bytes differing from to_e4m3 {cast} (NaN share {nan_share:.4f})")
-    if any(cast.values()):
-        raise AssertionError(f"the e4m3 stores differ from to_e4m3 on {cast} of the 65536 bf16 patterns")
+    if not tag:
+        patterns = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16).view(bf)
+        want = to_e4m3(patterns).view(torch.uint8)
+        kp, vp = (torch.zeros(2, KVH, PS, D, dtype=E4M3, device=dev) for _ in range(2))
+        prow = patterns.view(PS, KVH, D)
+        pa.commit_rows(kp, vp, torch.ones(PS, **i32), torch.arange(PS, **i32), prow, prow)
+        pa.commit_pages(kp, vp, torch.zeros(1, **i32), patterns.view(1, KVH, PS, D), patterns.view(1, KVH, PS, D))
+        torch.cuda.synchronize()
+        cast = {"K4": int((kp[1].transpose(0, 1).reshape(-1).view(torch.uint8) != want).sum()),
+                "K15": int((kp[0].reshape(-1).view(torch.uint8) != want).sum())}
+        nan_share = float(((want & 0x7F) == 0x7F).float().mean())
+        log(f"e4m3 store, every bf16 bit pattern: bytes differing from to_e4m3 {cast} (NaN share {nan_share:.4f})")
+        if any(cast.values()):
+            raise AssertionError(f"the e4m3 stores differ from to_e4m3 on {cast} of the 65536 bf16 patterns")
 
     for r in rows:
+        r["name"] += tag
         mag = "" if r["ref_mean_abs"] is None else f" ref_mean_abs={r['ref_mean_abs']:.3g}"
         caught = "".join(f"; fault '{f}' max_dev={d:.3g} (caught)" for f, d in r["faults"].items())
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -6557,13 +6585,15 @@ def slot_spans(rec, label, kind) -> list:
     return [s["start"].elapsed_time(s["end"]) for s in rec["spans"] if s["label"] == label and s["kind"] == kind]
 
 
-def slot_timed_run(cfg, params, work, label: str, cache_dtype=None, precompile: bool = True) -> tuple:
+def slot_timed_run(cfg, params, work, label: str, cache_dtype=None, precompile: bool = True,
+                   counted=None) -> tuple:
     """Phase 29's timed run of ``work`` on a fresh slot engine (``cache_dtype``
     e4m3 for the rerun): ``precompile`` (both decode graphs), a warm-up at 4
-    new tokens, then SERVING_NEW_TOKENS with K1-K4 counted from 0: tokens/s,
-    TTFT percentiles, the step and chunk dispatch wall ms, steps graphed /
-    eager.  Every request must return all its tokens, every step be a replay
-    and every kernel launch.  Returns (results, engine, record)."""
+    new tokens, then SERVING_NEW_TOKENS with K1-K4 (or ``counted``) counted
+    from 0: tokens/s, TTFT percentiles, the step and chunk dispatch wall ms,
+    steps graphed / eager.  Every request must return all its tokens, every
+    step be a replay and every kernel launch.  Returns (results, engine,
+    record)."""
     import numpy as np
     import torch
 
@@ -6578,7 +6608,7 @@ def slot_timed_run(cfg, params, work, label: str, cache_dtype=None, precompile: 
     rec["label"] = "warm-up"
     drive(eng, work, 4)
     eng.reset_latency_stats()
-    counted = counters()
+    counted = counted or counters()
     for c in counted.values():
         c.launches = 0
     graph = eng._steps[False]
@@ -8142,12 +8172,12 @@ def a12_on_the_card(gen, seed: int) -> tuple:
 # ---------------------------------------------------------------------------
 
 # Full width (InternViT-6B 3200 / 25 heads, Qwen2-7B 3584 / 28 / 4, vocab 152064),
-# PARALLEL_LAYERS (ViT, trunk) layers: a data-parallel rank holds the whole train
-# state (1.83 B parameters: 3.7 GB bf16, 14.7 GB of fp32 moments, 3.7 GB of
-# gradients), two of them share the card, and gloo carries every collective through
-# host memory (~0.8 GB/s for a 59 MB all-reduce on the card, chip_probes/
-# gloo_cuda_collectives.py), so each data-parallel step all-reduces 3.7 GB of
-# gradients in seconds.  The two samples' answers differ in length
+# PARALLEL_LAYERS (ViT, trunk) layers (1 + 1, which keeps the whole run with phase 43
+# inside its time limit): a data-parallel rank holds the whole train state (1.47 B
+# parameters: 2.9 GB bf16, 11.8 GB of fp32 moments, 2.9 GB of gradients), two of them
+# share the card, and gloo carries every collective through host memory (~0.8 GB/s for
+# a 59 MB all-reduce on the card, chip_probes/gloo_cuda_collectives.py), so each
+# data-parallel step all-reduces 2.9 GB of gradients in seconds.  The two samples' answers differ in length
 # (PARALLEL_ANSWERS), so the data ranks' label counts differ and the ranks' mean
 # loss is not the global one.  PARALLEL_STEPS full fine-tune steps a run (lr
 # PARALLEL_LR, the trainer's default and phase 16's stage-2 rate, clip 1.0: at
@@ -8174,7 +8204,7 @@ def a12_on_the_card(gen, seed: int) -> tuple:
 # caught in the CPU tests, on 5 heads split 3 + 2: on random weights at full
 # width each rank's mean square over its 12-13 heads is close to the whole
 # width's, so the loss barely moves.)
-PARALLEL_LAYERS, PARALLEL_ANSWERS = (2, 2), (64, 32)
+PARALLEL_LAYERS, PARALLEL_ANSWERS = (1, 1), (64, 32)
 PARALLEL_STEPS, PARALLEL_FAULT_STEPS, PARALLEL_BAR, PARALLEL_LR = 3, 1, 1.5, 1e-5
 PARALLEL_TOKEN_FLOOR, PARALLEL_MU_FLOOR = 1e-5, 2.0 ** -9
 PARALLEL_MODES = {"tp2": (2, False), "dp2": (1, False), "fsdp": (1, True)}  # (tp, fsdp) on a world of 2
@@ -8526,10 +8556,11 @@ def parallel_training(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 SERVING_TP_LAYERS = (2, 2)
-# (b)'s depth, a quarter of InternViT-6B's 45 and Qwen2-7B's 28 layers: at tp 2 over gloo every layer's
-# all-reduces cost more than its compute, and at full depth (b) took most of the 172 s its world of two ran
-# on a slow host (its serving run alone 45.6 s)
-SERVING_TP_DEEP = (12, 7)
+# (b)'s depth, an eighth of InternViT-6B's 45 layers and a seventh of Qwen2-7B's 28: at tp 2 over gloo
+# every layer's all-reduces cost more than its compute, and at full depth (b) took most of the 172 s its
+# world of two ran on a slow host (its serving run alone 45.6 s); 6 + 4 keeps the whole run with phase 43
+# inside its time limit
+SERVING_TP_DEEP = (6, 4)
 SERVING_TP_FAULTS = ("o_proj_reduce_dropped", "kv_heads_of_the_other_rank", "vocab_blocks_reversed")
 SERVING_TP_FAULT_STEPS = 4  # a fault's step logits are compared over this many steps
 # (b): the kernels' first-token logit gap, tp 2 against world 1, within this many
@@ -9360,9 +9391,10 @@ def serving_tp_remainder(seed: int, tp2=None, tp8_ref=None) -> dict:
 # Phase 41: the trainer's sequence modes and an indivisible tp
 # ---------------------------------------------------------------------------
 
-# phase 38's setup (full width, 2 + 2 layers, B = 2 x 3328 rows, lr 1e-5, 3 steps), with the embedding,
-# lm_head and the trunk's MLP frozen (1.50 of the 1.83 B parameters): a context rank's gradient sync
-# moves the ViT, the projector and the trunk's attention and norms, 0.33 B, a step
+# phase 38's setup (full width, PARALLEL_LAYERS layers, B = 2 x 3328 rows, lr 1e-5, 3 steps), with the
+# embedding, lm_head and the trunk's MLP frozen (at 2 + 2 layers 1.50 of the 1.83 B parameters, so a
+# context rank's gradient sync moved the ViT, the projector and the trunk's attention and norms, 0.33 B,
+# a step; at 1 + 1 about half of that)
 SEQ_CASES = {  # case: (world, mesh kind, n, batch)
     "ring": (2, "cp", 2, "mm"), "ulysses": (2, "cp", 2, "mm"), "sp": (2, "tp", 2, "mm"),
     "ring_pack": (2, "cp", 2, "pack"), "tp3": (3, "tp", 3, "mm")}
@@ -9977,6 +10009,398 @@ def pipeline_training(seed: int, gen=None) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 43: head width 64 — a Qwen2-0.5B-width trunk behind InternViT-300M
+# ---------------------------------------------------------------------------
+
+# Qwen/Qwen2-0.5B's config.json (vocab 151936, hidden 896, intermediate 4864, 24
+# layers, 14 / 2 heads of 64, rope theta 1e6, qkv bias, tied embeddings) behind
+# InternViT-300M/448 (``VisionConfig.internvit_300m()``: 24 layers of 16 heads of
+# 64, layer norm, no qk-norm) and a 1024 -> 896 mlp2x_gelu projector: InternVL2-1B's
+# geometry.  Random bf16 weights from the seed, full width and depth; the 2 + 2
+# layer checks cut the depth alone.
+QWEN2_05B_TEXT = dict(vocab_size=151936, hidden_size=896, intermediate_size=4864, num_hidden_layers=24,
+                      num_attention_heads=14, num_key_value_heads=2, max_position_embeddings=32768, rms_norm_eps=1e-6,
+                      rope_theta=1000000.0, attention_bias=True, tie_word_embeddings=True)
+HW_TAG = "[D=64]"
+HW_SLOT_REQUESTS = 4
+HW_CHATS = 3  # timed chats a cache dtype; the median by TTFT is reported (one chat's TTFT read 97 and 255 ms)
+# the other head widths phase 43 holds the kernels at, at phase 2's lengths, with
+# their cache dtypes (e4m3 takes multiples of 16 only)
+HW_WIDTHS = {64: ("bf16", "e4m3"), 72: ("bf16",), 16: ("bf16", "e4m3")}
+
+
+def head64_model(seed: int, layers=None) -> tuple:
+    """(cfg, params) of phase 43's model; ``layers``: that many ViT and LLM
+    layers, every part seeded."""
+    from omchat_torch.config import OmChatConfig, TextConfig, VisionConfig
+
+    vision, text = VisionConfig.internvit_300m(), TextConfig(**QWEN2_05B_TEXT)
+    if layers is not None:
+        vision = dataclasses.replace(vision, num_hidden_layers=layers)
+        text = dataclasses.replace(text, num_hidden_layers=layers)
+    cfg = OmChatConfig(vision=vision, text=text)
+    return cfg, build_model(cfg, seed + 43)
+
+
+def width_fault_model(q, k, v, valid, scale_width: int, read_cols: int, prescale: bool, p_dtype):
+    """Attention of q [B, S, H, D] over k, v [B, KVH, T, D] at the columns
+    where ``valid`` [B, S, T], in the kernels' arithmetic (fp32 scores in the
+    exp2 domain, p rounded to ``p_dtype`` for the P V product, a row with no
+    column zeros), with the two knobs of phase 43's planted faults: the
+    softmax scale of a head ``scale_width`` wide, and q and k read
+    ``read_cols`` columns from each row's first, the columns past D being the
+    ones that follow in memory (the next head's, the next row's), as a kernel
+    built for a wider head reads them.  (D, D) is the kernels' function;
+    ``prescale``: q carries the scale in its own dtype (K2, K14's wrappers)."""
+    import torch
+
+    from omchat_torch.ops.flash_attention import LOG2E
+    from omchat_torch.ops.fp8 import cast_to
+
+    B, S, H, D = q.shape
+    KVH = k.shape[1]
+
+    def widen(t):
+        flat = t.to(torch.bfloat16).reshape(-1, D)
+        ext = torch.cat([flat.roll(-i, 0) for i in range(-(-read_cols // D))], dim=1)[:, :read_cols]
+        return ext.reshape(*t.shape[:-1], read_cols)
+
+    scale = scale_width ** -0.5 * LOG2E
+    qw = widen(q)
+    if prescale:
+        qw, scale = qw * torch.full((), scale, dtype=q.dtype, device=q.device), 1.0
+    s = torch.einsum("bsngd,bntd->bngst", qw.float().view(B, S, KVH, H // KVH, read_cols), widen(k).float()) * scale
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bngst,bntd->bngsd", cast_to(p, p_dtype).float(), v.to(torch.bfloat16).float())
+    o = o / torch.where(l == 0, torch.ones_like(l), l)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+def width_checks(gen, tc, shapes: dict, D: int, cache: str) -> dict:
+    """Phase 43 at head width D on a ``cache`` ("bf16" or "e4m3") cache, at
+    phase 2's lengths and ``tc``'s heads, with phases 2 and 6's planted keys:
+    K3 (the stacked cache, the self column), K6 (its layer as a per-layer
+    cache holding the token), K12 and K13 (its rows as shuffled pages of
+    128), K14 (the prompt's last chunk through those pages) and, on e4m3, K2
+    (the prompt against the cache), each against its plain version at its
+    limit; the fault model (``width_fault_model``) at (D, D) within that
+    limit, and its two planted faults (the scale of a 128-wide head; q and
+    k read past column D) outside it; K12 bitwise K13.  Returns each check's
+    max |err| and the faults' max deviations."""
+    import torch
+
+    from omchat_torch.ops import decode_attention as da
+    from omchat_torch.ops import flash_attention as fa
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.ops.fp8 import E4M3, to_e4m3
+
+    dev, bf = torch.device(DEVICE), torch.bfloat16
+    i32 = dict(dtype=torch.int32, device=dev)
+    H, KVH, PS = tc.num_attention_heads, tc.num_key_value_heads, SERVING["page_size"]
+    G = H // KVH
+    T, LEN, KVL, S2 = shapes["cache_rows"], shapes["decode_lens"][0], shapes["prompt_len"], shapes["prompt_rows"]
+    W = T // PS
+    store = to_e4m3 if cache == "e4m3" else (lambda t: t)
+    u = _direction(gen, KVH, D)
+    uq = u.repeat_interleave(G, dim=0)
+    _, srows, edge = split_edge(1, KVH, T, LEN)
+    kc, vc = _randn(gen, 2, 1, KVH, T, D), _randn(gen, 2, 1, KVH, T, D)
+    for row, w in ((0, 0.6), (edge - 1, 0.8), (edge, 0.8), (LEN - 1, 0.8), (LEN, 0.8), (KVL - 1, 0.8)):
+        kc[:, 0, :, row] = w * u
+    # layer 1's rows as W pages of PS, stored in a shuffled order behind a table (K12, K13, K14)
+    perm = torch.randperm(W, generator=torch.Generator().manual_seed(D)).to(dev)
+    pages_k, pages_v = (store(c[1, 0].view(KVH, W, PS, D).transpose(0, 1)[perm].contiguous()) for c in (kc, vc))
+    table = torch.argsort(perm).to(torch.int32)[None]
+    kc, vc = store(kc), store(vc)
+    q1 = _randn(gen, 1, 1, H, D) + uq
+    kn, vn = (0.8 * u)[None], _randn(gen, 1, KVH, D)
+    res, tag = {}, f"[D={D}, {cache} cache]"
+
+    def held(name, out, ref, tol, model, rows=None):
+        """out against ref; model(scale_width, read_cols) at (D, D) too, and its two faults outside."""
+        cut = (lambda t: t) if rows is None else (lambda t: t[:, :rows])
+        err = check_close(f"{name}{tag}", cut(out), cut(ref), *tol)
+        check_close(f"{name}{tag}: the fault model at (D, D) is the plain version", cut(model(D, D)), cut(ref), *tol)
+        res[name] = {"max_abs_err": err, "faults": {
+            "scale of D=128": check_fault_caught(f"{name}{tag}", "the scale of a 128-wide head", cut(model(128, D)),
+                                                 cut(ref), *tol),
+            "reads past column D": check_fault_caught(f"{name}{tag}", "q and k read past column D",
+                                                      cut(model(D, 128)), cut(ref), *tol)}}
+
+    # K3: layer 1 of the stack at the first decode step's length, the self column
+    ck = torch.full((1,), LEN, **i32)
+    col = torch.arange(T + 1, device=dev)
+    valid3 = ((col < LEN) | (col == T))[None, None]
+    k3k, k3v = torch.cat([kc[1].to(bf), kn[:, :, None]], 2), torch.cat([vc[1].to(bf), vn[:, :, None]], 2)
+    k3 = da.flash_decode_stacked(q1, kc, vc, ck, 1, kn, vn)
+    held("K3 flash_decode_stacked", k3, da.flash_decode_stacked_plain(q1, kc, vc, ck, 1, kn, vn), ATTN_TOL["K3"],
+         lambda sw, rc: width_fault_model(q1, k3k, k3v, valid3, sw, rc, False, bf))
+    # K6: layer 1 as a per-layer cache whose row LEN holds the token (0.8 u), LEN + 1 rows
+    c6 = ck + 1
+    valid6 = (col[:T] < LEN + 1)[None, None]
+    held("K6 flash_decode", da.flash_decode(q1, kc[1], vc[1], c6), da.flash_decode_plain(q1, kc[1], vc[1], c6),
+         ATTN_TOL["K3"], lambda sw, rc: width_fault_model(q1, kc[1], vc[1], valid6, sw, rc, False, bf))
+    # K12 and K13 over the pages
+    outs = {}
+    for kernel in ("auto", "manual"):
+        fn = pa.DECODE_KERNELS[kernel]
+        outs[kernel] = fn(q1, pages_k, pages_v, ck, table, kn, vn)
+        held(f"{'K12' if kernel == 'auto' else 'K13'} {fn.__name__}", outs[kernel],
+             pa.paged_flash_decode_plain(q1, pages_k, pages_v, ck, table, kn, vn), ATTN_TOL["K12"],
+             lambda sw, rc: width_fault_model(q1, k3k, k3v, valid3, sw, rc, False, bf))
+    torch.cuda.synchronize()
+    if not torch.equal(outs["auto"], outs["manual"]):
+        raise AssertionError(f"K12 and K13{tag}: not bitwise equal, max |diff| "
+                             f"{float((outs['auto'].float() - outs['manual'].float()).abs().max()):.4g}")
+    res["K12 bitwise K13"] = True
+    # K14: the prompt's last chunk (page-aligned start, rows past the prompt padding) through the pages
+    start = (KVL - 1) // 1024 * 1024
+    C = -(-(KVL - start) // 128) * 128
+    q14 = _randn(gen, 1, C, H, D) + uq
+    qo, kl = torch.full((1,), start, **i32), torch.full((1,), KVL, **i32)
+    pos = start + torch.arange(C, device=dev)[:, None]
+    valid14 = ((col[None, :T] <= pos) & (col[None, :T] < KVL))[None]
+    held("K14 paged_flash_prefill", pa.paged_flash_prefill(q14, pages_k, pages_v, kl, table, qo),
+         pa.paged_flash_prefill_plain(q14, pages_k, pages_v, kl, table, qo), ATTN_TOL["K14"],
+         lambda sw, rc: width_fault_model(q14, kc[1], vc[1], valid14, sw, rc, True, bf), rows=KVL - start)
+    if cache == "e4m3":  # K2: the merged prompt against the cache layer (p rounded to e4m3, as its P V takes it)
+        q2 = _randn(gen, 1, S2, H, D) + uq
+        zero, kvl = torch.zeros(1, **i32), torch.full((1,), KVL, **i32)
+        valid2 = ((col[None, :T] <= torch.arange(S2, device=dev)[:, None]) & (col[None, :T] < KVL))[None]
+        held("K2 flash_attention", fa.flash_attention(q2, kc[1], vc[1], causal=True, q_offset=zero, kv_len=kvl,
+                                                      kv_format="bntd"),
+             fa.flash_attention_plain(q2, kc[1], vc[1], causal=True, q_offset=zero, kv_len=kvl), K2_E4M3_TOL,
+             lambda sw, rc: width_fault_model(q2, kc[1], vc[1], valid2, sw, rc, True, E4M3), rows=KVL)
+        del q2
+    torch.cuda.synchronize()
+    log(f"head width {D}, {cache} cache, at phase 2's lengths (T={T} len={LEN} prompt={KVL}, {H} / {KVH} heads): "
+        + json.dumps(res))
+    del kc, vc, pages_k, pages_v, q14
+    torch.cuda.empty_cache()
+    return res
+
+
+def head64_chats(cfg, params, seed: int) -> dict:
+    """Phase 43 (1): phase 3's request through ``OmChatModel.chat`` with a
+    bf16 and an e4m3 cache (the reference ``generate``, its logits finite,
+    then HW_CHATS timed chats through ``surface_run``, streamed, each
+    encoding its image anew and giving the reference's tokens; the median by
+    TTFT kept), each decode step a graph replay; K2 launched once a ViT and
+    an LLM layer, K3 a decode step and layer, K4 a step."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.ops.fp8 import E4M3
+    from omchat_torch.runtime.feature_cache import ImageFeatureCache
+
+    image = request_image(seed)
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_id=-1)
+    L, V = cfg.text.num_hidden_layers, cfg.vision.num_hidden_layers
+    out = {}
+    for cache, dtype in (("bf16", None), ("e4m3", E4M3)):
+        model = surface_model(cfg, params, cache_dtype=dtype)
+        ids, tiles, _ = variant_inputs(model, image)
+        bad = []
+
+        def finite(step, logits):
+            if logits.shape != (1, cfg.text.vocab_size) or not torch.isfinite(logits).all():
+                bad.append(step)
+
+        want = model.engine.generate([ids], tiles, gen, logits_callback=finite).token_ids[0]
+        label = f"head width 64, chat ({cache} cache)"
+        runs = []
+        for _ in range(HW_CHATS):  # each chat encodes its image anew
+            model.engine.image_cache = ImageFeatureCache(model.engine.image_cache.capacity)
+            runs.append(surface_run(model, label, lambda cb: model.chat(REQUEST_QUESTION, image=image, generation=gen,
+                                                                        stream_callback=cb), ids, tiles, gen,
+                                    want=want))
+        r = sorted(runs, key=lambda x: x["ttft_ms"])[HW_CHATS // 2]  # the median chat by TTFT
+        r["ttft_ms_runs"] = [x["ttft_ms"] for x in runs]
+        steps = NEW_TOKENS - 1
+        expect = {"flash_attention": V + L, "flash_decode_stacked": steps * L, "commit_rows": steps}
+        failed = [f"logits not finite at steps {bad}"] if bad else []
+        failed += [f"{n} launched {x['launches'][n]} times in a chat, not {n_}" for x in runs
+                   for n, n_ in expect.items() if x["launches"][n] != n_]
+        if not model.engine.graphed() or "capture" in model.engine.spans:
+            failed.append("the timed chat's decode steps were not replays of the captured graph")
+        if any(x["image_cache_hit"] for x in runs):
+            failed.append("a timed chat found its image in the cache")
+        if failed:
+            raise AssertionError(f"{label}: " + "; ".join(failed))
+        out[cache] = r
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def head64_serving(cfg, params) -> tuple:
+    """Phase 43 (2): phase 5's workload through ``PagedBatchEngine`` after
+    ``precompile`` on K12 and on K13 over a bf16 and an e4m3 pool
+    (``timed_serving``: every request 64 tokens, every page back, every
+    counted kernel launched), every roll a replay, K13 giving every request
+    K12's tokens on its pool.  Returns (runs, the K12 bf16 run's record)."""
+    import torch
+
+    from omchat_torch.ops import paged_attention as pa
+    from omchat_torch.ops.fp8 import E4M3
+    from omchat_torch.runtime import paged_engine as pe
+
+    work = serving_workload(cfg)
+    decode = {"auto": "paged_flash_decode", "manual": "paged_flash_decode_manual"}
+    runs, record = {}, None
+    for pool in ("bf16", "e4m3"):
+        for kernel in ("auto", "manual"):
+            label = f"head width 64, serving ({pool} pool, decode_kernel={kernel})"
+            eng = pe.PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, decode_kernel=kernel,
+                                      cache_dtype=E4M3 if pool == "e4m3" else None, **SERVING)
+            t0 = time.perf_counter()
+            eng.precompile(variants=(pe.PICK_MODES[0],))
+            precompile_s = time.perf_counter() - t0
+            counts = {n: c for n, c in paged_counters().items()
+                      if n not in ("paged_flash_decode", "packed_qkv_norm_attention", "qk_norm_prepass")}
+            counts[decode[kernel]] = pa.DECODE_KERNELS[kernel]
+            rec, undo = record_dispatches(eng)
+            try:
+                res = timed_serving(eng, work, rec, counts, label)
+            finally:
+                undo()
+            res["precompile_s"] = precompile_s
+            if res["rolls_eager"] or not res["rolls_graphed"]:
+                raise AssertionError(f"{label}: rolls graphed {res['rolls_graphed']}, eager {res['rolls_eager']}")
+            if kernel == "manual" and res["tokens"] != runs[(pool, "auto")]["tokens"]:
+                raise AssertionError(f"{label}: the tokens leave the {pool}-pool K12 run's "
+                                     f"({first_divergence(res['tokens'], runs[(pool, 'auto')]['tokens'])})")
+            if (pool, kernel) == ("bf16", "auto"):
+                record = {k: [e for e in rec[k] if e["label"] == "timed"] for k in ("rolls", "chunks", "commits",
+                                                                                     "prefills")}
+            runs[(pool, kernel)] = res
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    log("head width 64, serving by pool and decode kernel: " + json.dumps({
+        f"{pool}/{kernel}": {k: r[k] for k in ("tokens_per_s", "ttft_p50_s", "ttft_p99_s", "intertoken_p50_s",
+                                               "intertoken_p99_s", "decode_step_wall_ms_16_slots", "pages_free",
+                                               "rolls_graphed", "precompile_s")}
+        for (pool, kernel), r in runs.items()} | {"card": CARD}))
+    return runs, record
+
+
+def head64_small(seed: int) -> dict:
+    """Phase 43 at full width and 2 + 2 layers: phase 3's request through
+    the single-request engine on the kernels against ``attn_impl="plain"``,
+    and phase 7's four requests through the paged engine (K12, K14) against
+    the plain single-request engine, each by phase 7's rule."""
+    import torch
+
+    from omchat_torch.config import GenerationConfig
+    from omchat_torch.runtime.generate import OmChatEngine
+    from omchat_torch.runtime.paged_engine import PagedBatchEngine
+
+    cfg, params = head64_model(seed, layers=2)
+    ids, tiles = make_request(cfg, seed)
+    gen = GenerationConfig(max_new_tokens=PARITY_NEW_TOKENS, eos_token_id=-1)
+    plain = OmChatEngine(cfg, params, attn_impl="plain", image_cache_size=0, device=DEVICE)
+    kern = OmChatEngine(cfg, params, image_cache_size=0, device=DEVICE)
+    steps = []
+    toks = kern.generate([ids], tiles, gen, logits_callback=lambda s, lg: steps.append(lg[0].float())).token_ids[0]
+    res = {"single": parity_by_phase7("head width 64, 2+2 layers, single request (K2, K3) vs plain", [toks],
+                                      [steps[0]], plain, [(ids, tiles)], [gen])}
+    work = serving_workload(cfg)[:4]
+    eng = PagedBatchEngine(cfg, params, image_cache_size=0, device=DEVICE, **SERVING)
+    first = capture_first_logits(eng)
+    rids = drive(eng, work, PARITY_NEW_TOKENS)
+    res["paged"] = parity_by_phase7("head width 64, 2+2 layers, paged (K12, K14) vs plain single request",
+                                    [eng.result(r) for r in rids], [first[r][0] for r in rids], plain, work,
+                                    [gen] * len(work))
+    log("head width 64, 2+2 layers, kernels vs plain by phase 7's rule: " + json.dumps({"card": CARD, **res}))
+    del plain, kern, eng, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def head_width_64(gen, seed: int, shapes: dict) -> tuple:
+    """Phase 43: the Qwen2-0.5B-width trunk (head width 64, group 7) behind
+    InternViT-300M at full width and depth: (1) phase 3's request through
+    ``OmChatModel.chat`` on a bf16 and an e4m3 cache, (2) phase 5's workload
+    through the paged engine on K12 and K13 over both pools, (3)
+    HW_SLOT_REQUESTS of its requests through the slot engine, (4) phase 23's
+    decode step through ``cache_attend`` (K6); then K2-K4, K12 / K14 / K15,
+    the fp8 phase's kernels and K6 at D = 64 at the shapes these runs handed
+    them, timed beside their library calls; the kernels at D = 64, 72 and 16
+    at phase 2's lengths with the width faults (``width_checks``); the 2 + 2
+    layer checks.  Returns (kernel rows, the rows' launches)."""
+    import torch
+
+    from omchat_torch.utils.tree import tree_items
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = head64_model(seed)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    log("head width 64: built " + json.dumps({"card": CARD, "build_s": time.perf_counter() - t0, "params": n_params,
+                                              "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                                              "text": QWEN2_05B_TEXT, "vision": "InternViT-300M/448"}))
+    chats = head64_chats(cfg, params, seed)
+    if (chats["bf16"]["tiles"], chats["bf16"]["merged_len"], chats["bf16"]["cache_rows"]) != (
+            shapes["tiles"], shapes["prompt_len"], shapes["cache_rows"]):
+        raise AssertionError(f"head width 64: the request's shapes differ from phase 2's: {shapes}")
+    runs, timed = head64_serving(cfg, params)
+    no_k1 = {n: c for n, c in counters().items() if n not in ("packed_qkv_norm_attention", "qk_norm_prepass")}
+    slot, slot_eng, _ = slot_timed_run(cfg, params, serving_workload(cfg)[:HW_SLOT_REQUESTS],
+                                       "head width 64, slot engine", counted=no_k1)
+    log(f"head width 64, slot engine ({HW_SLOT_REQUESTS} of phase 5's requests): " + json.dumps(
+        {k: v for k, v in slot.items() if k != "tokens"}))
+    del slot_eng
+    k6, k6_row = decode_layer_cache(gen, cfg, params, seed)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = kernel_phases(gen, shapes, cfg=cfg, tag=HW_TAG)
+    rows += paged_kernel_phases(gen, timed, tc=cfg.text, tag=HW_TAG)
+    rows += fp8_kernel_phases(gen, shapes, timed, tc=cfg.text, tag=HW_TAG)
+    k6_row["name"] += HW_TAG
+    rows.append(k6_row)
+    widths = {f"D={D}, {c}": width_checks(gen, cfg.text, shapes, D, c) for D, cs in HW_WIDTHS.items() for c in cs}
+    small = head64_small(seed)
+    chat, e4 = chats["bf16"]["launches"], chats["e4m3"]["launches"]
+    by_run = {("bf16", "auto"): ("paged_flash_decode", "paged_flash_prefill", "commit_pages"),
+              ("bf16", "manual"): ("paged_flash_decode_manual",), ("e4m3", "auto"): (
+                  "paged_flash_decode", "paged_flash_prefill", "commit_pages"),
+              ("e4m3", "manual"): ("paged_flash_decode_manual",)}
+    launches = {f"{n}{HW_TAG}": chat[n] for n in ("flash_attention", "flash_decode_stacked", "commit_rows")}
+    launches |= {f"{n}[e4m3]{HW_TAG}": e4[n] for n in ("flash_decode_stacked", "commit_rows")}
+    # the e4m3 chat's K2 launches over the e4m3 cache: the prefill's, one a trunk layer (the ViT's are bf16)
+    launches[f"flash_attention[e4m3]{HW_TAG}"] = e4["flash_attention"] - cfg.vision.num_hidden_layers
+    for (pool, kernel), names in by_run.items():
+        suffix = "[e4m3]" if pool == "e4m3" else ""
+        launches |= {f"{n}{suffix}{HW_TAG}": runs[(pool, kernel)]["launches"][n] for n in names}
+    launches[k6_row["name"]] = k6["flash_decode_launches"]
+    summary = {"card": CARD, "peak_gib": peak, "ttft_ms": chats["bf16"]["ttft_ms"],
+               "decode_tokens_per_s": chats["bf16"]["decode_tokens_per_s"],
+               "ttft_ms_runs": chats["bf16"]["ttft_ms_runs"],
+               "e4m3_cache": {k: chats["e4m3"][k] for k in ("ttft_ms", "ttft_ms_runs", "decode_tokens_per_s",
+                                                            "peak_mem_gib")},
+               "serving_tokens_per_s": {f"{p}/{k}": r["tokens_per_s"] for (p, k), r in runs.items()},
+               "ttft_p50_s": runs[("bf16", "auto")]["ttft_p50_s"], "ttft_p99_s": runs[("bf16", "auto")]["ttft_p99_s"],
+               "slot_tokens_per_s": slot["tokens_per_s"], "launches": launches,
+               "widths_checked": list(widths), "small_requests_checked": len(small["paged"]) + 1}
+    log("head width 64 (phase 43, this call): " + json.dumps(summary))
+    missing = [n for n, c in launches.items() if not c]
+    if missing or {r["name"] for r in rows} != set(launches):
+        raise AssertionError(f"head width 64: kernels never launched on the path {missing}, or rows without "
+                             f"launches {sorted({r['name'] for r in rows} ^ set(launches))}")
+    return rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the weights, inputs and image")
@@ -10155,6 +10579,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pipeline_training(args.seed, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hw_rows, hw_launches = head_width_64(gen, args.seed, shapes)
 
     # each kernel's launches on its own main path: K1-K4 on the single-image
     # request (phase 3), K12, K14 and K15 in the timed serving run (phase 5),
@@ -10195,14 +10622,16 @@ def main() -> int:
                 # at group 1 on the MoE trunk's single request, K12 / K14 / K15 in its serving run
                 **tower_launches, **moe_launches,
                 # phase 35: K2's segment entry in the packed forward at full depth
-                **a12_launches}
+                **a12_launches,
+                # phase 43: the kernels at head width 64 on that phase's chats, serving runs and K6 step
+                **hw_launches}
     kernels = [{
         "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
         "launches": launches[r["name"]], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
     } for r in rows + paged_rows + w8a8_rows + train_rows + fp8_rows + ps_rows + [k5_row, k6_row] + surface_rows
-        + routes_rows + slot_rows + tower_rows + moe_rows + a12_rows]
+        + routes_rows + slot_rows + tower_rows + moe_rows + a12_rows + hw_rows]
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

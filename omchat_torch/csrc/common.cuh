@@ -240,21 +240,55 @@ __device__ __forceinline__ void attend_tile(const uint32_t (&qa)[D / 16][4], con
     }
 }
 
-// Paged decode (K12, K13): the GQA group's `group` q rows at `qb` ([group, D]
-// bf16) as one mma row tile, rows >= group zero.
-template <int D>
-__device__ __forceinline__ void load_q_group(uint32_t (&qa)[D / 16][4], const bf16* qb, int group) {
+// Split-KV decode (K3, K6, K12, K13): the GQA group's `group` q rows at `qb`
+// ([group, d] bf16, d the true head width) as one mma row tile of DP >= d
+// columns; rows >= group and columns >= d are zero, so that the zero-filled
+// columns of a padded K row add nothing to q . k.  d is a multiple of 8, so
+// a pair of columns lies wholly below d or wholly past it.
+template <int DP>
+__device__ __forceinline__ void load_q_group(uint32_t (&qa)[DP / 16][4], const bf16* qb, int group, int d) {
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
+    auto at = [&](int r, int c) {
+        return r < group && c < d ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * d + c) : 0u;
+    };
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
         const int c = kk * 16 + 2 * t;
-        qa[kk][0] = g < group ? *reinterpret_cast<const uint32_t*>(qb + (size_t)g * D + c) : 0u;
-        qa[kk][1] = g + 8 < group ? *reinterpret_cast<const uint32_t*>(qb + (size_t)(g + 8) * D + c) : 0u;
-        qa[kk][2] = g < group ? *reinterpret_cast<const uint32_t*>(qb + (size_t)g * D + c + 8) : 0u;
-        qa[kk][3] = g + 8 < group ? *reinterpret_cast<const uint32_t*>(qb + (size_t)(g + 8) * D + c + 8) : 0u;
+        qa[kk][0] = at(g, c);
+        qa[kk][1] = at(g + 8, c);
+        qa[kk][2] = at(g, c + 8);
+        qa[kk][3] = at(g + 8, c + 8);
     }
+}
+
+// The padded widths the split-KV decode kernels are built for: a head width
+// d (a multiple of 8 from 8 to 128) runs on the smallest of 32, 64, 96 and
+// 128 that holds it (the mma tiles take 16 columns a step, and each of two
+// warps keeps whole 8-column n-tiles of the output).  Width 128 itself, the
+// 7B trunk's, runs an instantiation that knows d when compiling (EXACT), so
+// its copies and stores take the code of a fixed width.
+__host__ __device__ constexpr int padded_width(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96 : 128; }
+
+// Whether a split-KV decode kernel of padded width DP takes head width d on a
+// cache of `elem_bytes` a value: rows of whole 16-byte copies (a multiple of
+// 8 in bf16, of 16 in e4m3) and DP = padded_width(d).
+__host__ __device__ constexpr bool split_width_ok(int d, int DP, int elem_bytes) {
+    return d >= 8 && d <= 128 && (d * elem_bytes) % 16 == 0 && padded_width(d) == DP;
+}
+
+// Zero columns d .. DP - 1 of `rows` shared rows of stride `ld` (elements of
+// type E) from `base`, by the block's threads: the columns a padded row holds
+// past the head width, which no copy writes.  16 bytes a store (DP - d is a
+// whole number of them).
+template <int DP, typename E>
+__device__ __forceinline__ void zero_pad_columns(E* base, int rows, int ld, int d) {
+    constexpr int VEC = 16 / (int)sizeof(E);
+    const int pieces = (DP - d) / VEC;
+    for (int idx = threadIdx.x; idx < rows * pieces; idx += blockDim.x)
+        *reinterpret_cast<uint4*>(base + (size_t)(idx / pieces) * ld + d + (idx % pieces) * VEC) =
+            make_uint4(0, 0, 0, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -262,19 +296,20 @@ __device__ __forceinline__ void load_q_group(uint32_t (&qa)[D / 16][4], const bf
 // into chunks, a block of a chunk writes its q rows' fp32 softmax state
 // (store_split_state), and a second kernel merges the chunks of each q row
 // (split_merge_kernel, over combine_splits).  A state row is m and l (exp2
-// domain) and acc [D], unnormalised, relative to m.  The scratch: for n = B *
-// KVH * splits * group partial rows (row ((b * KVH + kvh) * splits + split) *
-// group + gi), acc [n, D] first, then m [n], then l [n], all fp32.
+// domain) and acc [d], unnormalised, relative to m, d the true head width.
+// The scratch: for n = B * KVH * splits * group partial rows (row ((b * KVH +
+// kvh) * splits + split) * group + gi), acc [n, d] first, then m [n], then
+// l [n], all fp32.
 // ---------------------------------------------------------------------------
 
 // One warp's share of a split block's state, after its last tile: the
 // rows r < group of the GQA group (the mma tile's rows g and g + 8; at most
-// 16) of its DV output columns from `col0` on, into acc_out[r * D + d]; with
-// `ml`, also m_out[r] and l_out[r].
-template <int D, int DV>
+// 16) of its DV output columns from `col0` on, those below d, into
+// acc_out[r * d + c]; with `ml`, also m_out[r] and l_out[r].
+template <int DV>
 __device__ __forceinline__ void store_split_state(const float (&m)[2], const float (&l)[2],
                                                   const float (&acc)[DV / 8][4], int group, int col0, bool ml,
-                                                  float* m_out, float* l_out, float* acc_out) {
+                                                  float* m_out, float* l_out, float* acc_out, int d) {
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
@@ -283,9 +318,12 @@ __device__ __forceinline__ void store_split_state(const float (&m)[2], const flo
         const int r = g + 8 * h;
         if (r >= group) continue;
 #pragma unroll
-        for (int dt = 0; dt < DV / 8; ++dt)
-            *reinterpret_cast<float2*>(acc_out + (size_t)r * D + col0 + dt * 8 + 2 * t) =
-                make_float2(acc[dt][2 * h], acc[dt][2 * h + 1]);
+        for (int dt = 0; dt < DV / 8; ++dt) {
+            const int c = col0 + dt * 8 + 2 * t;
+            if (c < d)
+                *reinterpret_cast<float2*>(acc_out + (size_t)r * d + c) =
+                    make_float2(acc[dt][2 * h], acc[dt][2 * h + 1]);
+        }
         if (ml && t == 0) {
             m_out[r] = m[h];
             l_out[r] = l[h];
@@ -295,28 +333,32 @@ __device__ __forceinline__ void store_split_state(const float (&m)[2], const flo
 
 // The merge across split blocks for one q row, called by every thread of a
 // block of NW warps: the states of n splits (m_part[s * stride], l_part[s *
-// stride], acc_part[s * stride * D + d]; a split that saw no column has m =
-// -inf and its acc is never read into the sums).  Warp w takes splits w PER
-// .. w PER + PER - 1, then w PER + NW PER ..., every load of a pass issued
-// before its sums, merges them in split order against its running max; then
-// warp 0 merges the warps in warp order: a fixed order, so the result is
-// bitwise the same from launch to launch.  Then the self column (q_row .
-// k_row, v_row; none when k_row is null) folds in after the merge, as
-// omchat_tpu/ops/online_softmax.py:64 fold_self_column follows the last tile,
-// its p rounded to bf16 for its product; the row is normalised
-// (normalize_output :76: a row with no column at all writes zeros) into o_row
-// [D] bf16.  smem: NW (D + 2) floats, 16-byte aligned.  Launch its kernel
-// as a programmatic dependent of the split kernel (launch_merge_dependent).
-template <int D, int NW, int PER>
+// stride], acc_part[s * stride * d + c]; a split that saw no column has m =
+// -inf and its acc is never read into the sums).  Lane i holds columns 4 i ..
+// 4 i + 3, those below the head width d (a multiple of 8, at most 128).
+// Warp w takes splits w PER .. w PER + PER - 1, then w PER + NW PER ...,
+// every load of a pass issued before its sums, merges them in split order
+// against its running max; then warp 0 merges the warps in warp order: a
+// fixed order, so the result is bitwise the same from launch to launch.
+// Then the self column (q_row . k_row, v_row; none when k_row is null) folds
+// in after the merge, as omchat_tpu/ops/online_softmax.py:64
+// fold_self_column follows the last tile, its p rounded to bf16 for its
+// product; the row is normalised (normalize_output :76: a row with no column
+// at all writes zeros) into o_row [d] bf16.  smem: NW (128 + 2) floats,
+// 16-byte aligned.  Launch its kernel as a programmatic dependent of the
+// split kernel (launch_merge_dependent).
+template <int NW, int PER>
 __device__ __forceinline__ void combine_splits(float* smem, const float* m_part, const float* l_part,
                                                const float* acc_part, int n, int stride, const bf16* q_row,
-                                               const bf16* k_row, const bf16* v_row, bf16* o_row, float scale_log2) {
-    static_assert(D == 128, "a lane holds four columns, one float4");
+                                               const bf16* k_row, const bf16* v_row, bf16* o_row, float scale_log2,
+                                               int d) {
+    constexpr int W = 128;  // columns a merge block can hold: four a lane
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const int c = lane * 4;
-    float qf[4], kf[4], vf[4];  // the self column's operands, which no split block writes
-    if (warp == 0 && k_row != nullptr)
+    const bool on = c < d;  // the lane holds columns of the head
+    float qf[4] = {0.f, 0.f, 0.f, 0.f}, kf[4] = {0.f, 0.f, 0.f, 0.f}, vf[4];  // the self column's operands
+    if (warp == 0 && k_row != nullptr && on)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             qf[i] = __bfloat162float(q_row[c + i]);
@@ -338,7 +380,7 @@ __device__ __forceinline__ void combine_splits(float* smem, const float* m_part,
             const size_t s = (size_t)(s0 + j) * stride;
             ms[j] = in ? m_part[s] : -INFINITY;
             ls[j] = in ? l_part[s] : 0.f;
-            x[j] = in ? *reinterpret_cast<const float4*>(acc_part + s * D + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+            x[j] = in && on ? *reinterpret_cast<const float4*>(acc_part + s * d + c) : make_float4(0.f, 0.f, 0.f, 0.f);
         }
         float mb = mw;
 #pragma unroll
@@ -362,12 +404,12 @@ __device__ __forceinline__ void combine_splits(float* smem, const float* m_part,
     }
     float* m_s = smem;           // [NW]
     float* l_s = m_s + NW;       // [NW]
-    float* a_s = l_s + NW;       // [NW][D]
+    float* a_s = l_s + NW;       // [NW][W]
     if (lane == 0) {
         m_s[warp] = mw;
         l_s[warp] = lw;
     }
-    *reinterpret_cast<float4*>(a_s + warp * D + c) = make_float4(a[0], a[1], a[2], a[3]);
+    *reinterpret_cast<float4*>(a_s + warp * W + c) = make_float4(a[0], a[1], a[2], a[3]);
     __syncthreads();
     if (warp != 0) return;
 
@@ -377,7 +419,7 @@ __device__ __forceinline__ void combine_splits(float* smem, const float* m_part,
     for (int w = 0; w < NW; ++w) {
         if (m_s[w] == -INFINITY) continue;  // a warp that held no split with a column
         const float e = exp2f(m_s[w] - mg);
-        const float4 x = *reinterpret_cast<const float4*>(a_s + w * D + c);
+        const float4 x = *reinterpret_cast<const float4*>(a_s + w * W + c);
         lsum += l_s[w] * e;
         o[0] += x.x * e;
         o[1] += x.y * e;
@@ -395,29 +437,32 @@ __device__ __forceinline__ void combine_splits(float* smem, const float* m_part,
         const float pb = __bfloat162float(__float2bfloat16(p));
         lsum = lsum * alpha + p;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) o[i] = o[i] * alpha + pb * vf[i];
+        for (int i = 0; i < 4; ++i) o[i] = o[i] * alpha + pb * (on ? vf[i] : 0.f);
     }
+    if (on)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o_row[c + i] = __float2bfloat16(lsum == 0.f ? 0.f : o[i] / lsum);
+        for (int i = 0; i < 4; ++i) o_row[c + i] = __float2bfloat16(lsum == 0.f ? 0.f : o[i] / lsum);
 }
 
 // The merge kernel: one block of NW warps a (q head, request), grid (H, B),
-// over the scratch above; the self column k_new / v_new [B, KVH, D] (null:
-// none) folds in after the merge; out [B, H, D] bf16.
-template <int D, int NW, int PER>
+// over the scratch above; the self column k_new / v_new [B, KVH, d] (null:
+// none) folds in after the merge; out [B, H, d] bf16.  DC > 0: the head
+// width is DC, known when compiling (d is ignored).
+template <int NW, int PER, int DC = 0>
 __global__ void __launch_bounds__(32 * NW)
 split_merge_kernel(const float* __restrict__ scratch, const bf16* __restrict__ q, const bf16* __restrict__ k_new,
                    const bf16* __restrict__ v_new, bf16* __restrict__ out, int B, int KVH, int splits, int group,
-                   float scale_log2) {
-    __shared__ __align__(16) float smem[NW * (D + 2)];
+                   float scale_log2, int d_arg) {
+    const int d = DC > 0 ? DC : d_arg;
+    __shared__ __align__(16) float smem[NW * (128 + 2)];
     const int h = blockIdx.x, b = blockIdx.y;
     const int H = KVH * group, kvh = h / group, gi = h % group;
     const size_t n = (size_t)B * KVH * splits * group;
     const size_t r = ((size_t)b * KVH + kvh) * splits * group + gi;  // split 0's partial row of this head
-    const size_t kv = ((size_t)b * KVH + kvh) * D;
-    combine_splits<D, NW, PER>(smem, scratch + n * D + r, scratch + n * D + n + r, scratch + r * D, splits, group,
-                               q + ((size_t)b * H + h) * D, k_new != nullptr ? k_new + kv : nullptr,
-                               v_new != nullptr ? v_new + kv : nullptr, out + ((size_t)b * H + h) * D, scale_log2);
+    const size_t kv = ((size_t)b * KVH + kvh) * d;
+    combine_splits<NW, PER>(smem, scratch + n * d + r, scratch + n * d + n + r, scratch + r * d, splits, group,
+                            q + ((size_t)b * H + h) * d, k_new != nullptr ? k_new + kv : nullptr,
+                            v_new != nullptr ? v_new + kv : nullptr, out + ((size_t)b * H + h) * d, scale_log2, d);
 }
 
 // Launch the merge kernel right behind the split kernel on `stream` as its

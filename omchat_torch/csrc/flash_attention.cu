@@ -12,7 +12,8 @@
 //       CLIP / SigLIP / InternViT-300M towers)
 //   k,v [B, KVH, T, D] bf16 or e4m3 (a layer of the stacked cache, "bntd";
 //       the e4m3 entry point omchat_flash_attention_e4m3 takes the fp8 cache,
-//       at D = 128 only)
+//       at D a multiple of 16: TMA strides an e4m3 row of D bytes only in
+//       whole 16 bytes)
 //   each read in place through its own element strides (head, row, batch):
 //   a "btnd" view, or v as a column block of a fused qkv, too
 //   q_offset, kv_len [B] int32; query row i sits at kv position i + q_offset
@@ -44,7 +45,8 @@
 // function.  Below D = 128 the block still computes on 128-column tiles: the
 // maps declare the true D, so TMA zero-fills the columns past it instead of
 // reading the next head's (a "btnd" view), and the store writes D columns a
-// row.  Times at the main path's shapes: PERF.md section 6.
+// row; on e4m3 the zero bytes widen to zeros.  Times at the main path's
+// shapes: PERF.md section 6.
 #include "flash_fwd_sm90.cuh"
 
 namespace {
@@ -55,7 +57,7 @@ int launch(const void* q, long long q_sh, long long q_sr, long long q_sb, const 
            long long k_sr, long long k_sb, const void* v, long long v_sh, long long v_sr, long long v_sb, void* out,
            const void* q_offset, const void* kv_len, int B, int S, int H, int KVH, int T, int D, int causal,
            void* stream, const void* seg = nullptr) {
-    if (D < 8 || D > fwd90::HD || D % 8 || (E4M3 && D != fwd90::HD)) return (int)cudaErrorInvalidValue;
+    if (D < 8 || D > fwd90::HD || D % (E4M3 ? 16 : 8)) return (int)cudaErrorInvalidValue;
     fwd90::Params p{};
     p.head_dim = D;
     p.out = (bf16*)out;

@@ -23,7 +23,10 @@
 // Both take `scratch`, fp32 [B * H * splits * (D + 2)] from the wrapper, and
 // the split: `splits` chunks of `rows` rows (a multiple of 64) covering T
 // (ops/decode_attention.py:decode_splits, chosen on the host from T, B, KVH
-// and the SM count, never from the lengths on the card).
+// and the SM count, never from the lengths on the card).  D, the head
+// width, is a multiple of 8 from 8 to 128 on a bf16 cache and of 16 from 16
+// to 128 on an e4m3 cache (rows of whole 16-byte copies), as the JAX kernels
+// take any width.
 //
 // What bounds it on the H100: bytes.  At the main path's ~3.2k cached rows a
 // layer reads ~6.8 MB of K/V (3328 x 4 kv heads x 128 x 2 bytes, K and V) for
@@ -40,8 +43,8 @@
 // state (m = -inf, l = 0), as the TPU kernel's index map clamps the tail
 // (decode_attention.py:14-16).  The GQA group's q rows are one mma.sync row
 // tile (attend_tile, as K12).  Both warps score all 64 columns of a stage
-// (the same scores, max and sums in each) and each computes its own 64 of
-// the 128 output columns, so the warps need no merge (scoring twice cost
+// (the same scores, max and sums in each) and each computes its own half of
+// the output columns, so the warps need no merge (scoring twice cost
 // less than a merge through shared memory, and two warps less than four):
 // each writes its columns of the block's fp32 (m, l, acc) into the scratch
 // [B, KVH, splits, group] (store_split_state).  A second kernel, launched from the same entry on the
@@ -56,11 +59,19 @@
 // score), p rounded to bf16 for the P V product, l summing the unrounded fp32
 // p.  p is rounded against its chunk's own maximum, as the TPU kernel rounds
 // against the running maximum of its 512-row tiles: the same kind of
-// rounding.  An e4m3 cache is staged as stored (128 B a row, 16 values a
+// rounding.  An e4m3 cache is staged as stored (D bytes a row, 16 values a
 // 16-byte copy) and widened to bf16 in registers (exact); p and the bf16 self
 // column are not rounded to e4m3, as the TPU kernel casts K/V to q's dtype
 // (decode_attention.py:66,72).  K6 has K3's bound (the same bytes but the
 // self column) and its design.
+//
+// Head widths below 128.  The kernels are built for the padded widths 32,
+// 64, 96 and 128 (padded_width in common.cuh), and the true width D comes at
+// run time: a row is copied as its D columns, the stage's columns D .. DP - 1
+// are zeroed once a block, q's are zero in its mma fragments, so the padding
+// adds nothing to q . k; the output columns past D are never stored, and the
+// scratch, the merge and the softmax scale D^-0.5 take the true D.  At D =
+// 128 the work is as before.
 #include "common.cuh"
 
 namespace {
@@ -73,15 +84,16 @@ constexpr int MERGE_PER = 8;     // splits a merge warp loads in one pass
 
 // The scratch: common.cuh's (split-KV decode).
 
-template <int D, typename E>
+template <int DP, typename E, bool EXACT>
 __global__ void __launch_bounds__(32 * WARPS)
 decode_split_kernel(const bf16* __restrict__ q, const E* __restrict__ k_cache, const E* __restrict__ v_cache,
                     const int* __restrict__ cache_len, int layer, float* __restrict__ scratch, int B, int KVH, int T,
-                    int group, int rows, float scale_log2) {
+                    int d_arg, int group, int rows, float scale_log2) {
+    const int d = EXACT ? DP : d_arg;  // the head width
     constexpr int VEC = 16 / (int)sizeof(E);  // elements a 16-byte copy
-    constexpr int LD = D + VEC;               // padded shared row (bank spread), 16-byte aligned
+    constexpr int LD = DP + VEC;              // padded shared row (bank spread), 16-byte aligned
     constexpr int STAGE = 2 * TILE * LD;      // K and V of one stage, elements
-    constexpr int DV = D / WARPS;             // output columns a warp
+    constexpr int DV = DP / WARPS;            // output columns a warp
     extern __shared__ __align__(16) unsigned char smem_raw[];
     E* buf = reinterpret_cast<E*>(smem_raw);
 
@@ -91,7 +103,7 @@ decode_split_kernel(const bf16* __restrict__ q, const E* __restrict__ k_cache, c
     const int warp = threadIdx.x >> 5;
     const size_t n = (size_t)B * KVH * splits * group;
     const size_t r0 = (((size_t)b * KVH + kvh) * splits + split) * group;  // the block's first partial row
-    float* m_out = scratch + n * D + r0;
+    float* m_out = scratch + n * d + r0;
     float* l_out = m_out + n;
     const int len = min(cache_len[b], T);
     const int c_begin = split * rows;
@@ -104,18 +116,20 @@ decode_split_kernel(const bf16* __restrict__ q, const E* __restrict__ k_cache, c
         return;
     }
 
-    const size_t plane = (((size_t)layer * B + b) * KVH + kvh) * (size_t)T * D;
+    const size_t plane = (((size_t)layer * B + b) * KVH + kvh) * (size_t)T * d;
     const E* kc = k_cache + plane;
     const E* vc = v_cache + plane;
     const int n_tiles = (c_end - c_begin + TILE - 1) / TILE;
+    const int pieces = d / VEC;  // 16-byte copies a row
+    zero_pad_columns<DP>(buf, 2 * 2 * TILE, LD, d);  // columns d .. DP - 1 of both stages' K and V rows
     auto stage = [&](int t, int s) {
         E* kd = buf + s * STAGE;
         E* vd = kd + TILE * LD;
-        for (int idx = threadIdx.x; idx < TILE * (D / VEC); idx += blockDim.x) {
-            const int r = idx / (D / VEC), c = (idx % (D / VEC)) * VEC;
+        for (int idx = threadIdx.x; idx < TILE * pieces; idx += blockDim.x) {
+            const int r = idx / pieces, c = (idx % pieces) * VEC;
             const int row = c_begin + t * TILE + r;
             const bool valid = row < c_end;  // else zero-filled: past the length or the chunk
-            const size_t src = valid ? (size_t)row * D + c : 0;
+            const size_t src = valid ? (size_t)row * d + c : 0;
             cp_async16_zfill(kd + r * LD + c, kc + src, valid);
             cp_async16_zfill(vd + r * LD + c, vc + src, valid);
         }
@@ -124,8 +138,8 @@ decode_split_kernel(const bf16* __restrict__ q, const E* __restrict__ k_cache, c
     stage(0, 0);
 
     const int H = KVH * group;
-    uint32_t qa[D / 16][4];
-    load_q_group<D>(qa, q + ((size_t)b * H + (size_t)kvh * group) * D, group);
+    uint32_t qa[DP / 16][4];
+    load_q_group<DP>(qa, q + ((size_t)b * H + (size_t)kvh * group) * d, group, d);
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};
     float acc[DV / 8][4];
@@ -144,35 +158,48 @@ decode_split_kernel(const bf16* __restrict__ q, const E* __restrict__ k_cache, c
         const int c0 = c_begin + t * TILE;
         const E* ks = buf + (t & 1) * STAGE;
         auto mask = [&](int, int col, float s) { return c0 + col < c_end ? s * scale_log2 : OMCHAT_MASK_VALUE; };
-        attend_tile<D, TILE, DV>(qa, ks, ks + TILE * LD + warp * DV, LD, m, l, acc, mask);
+        attend_tile<DP, TILE, DV>(qa, ks, ks + TILE * LD + warp * DV, LD, m, l, acc, mask);
         __syncthreads();  // the buffer is free for the stage after next
     }
     // m and l are the same in every warp (the same scores in the same order): warp 0 writes them
-    store_split_state<D, DV>(m, l, acc, group, warp * DV, warp == 0, m_out, l_out, scratch + r0 * D);
+    store_split_state<DV>(m, l, acc, group, warp * DV, warp == 0, m_out, l_out, scratch + r0 * d, d);
 }
 
-template <int D, typename E, bool SELF>
+template <int DP, typename E, bool SELF, bool EXACT>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* cache_len, int layer,
-           const void* k_new, const void* v_new, void* out, void* scratch, int B, int KVH, int T, int D_arg,
-           int group, int splits, int rows, void* stream) {
+           const void* k_new, const void* v_new, void* out, void* scratch, int B, int KVH, int T, int D, int group,
+           int splits, int rows, void* stream) {
     if (group < 1 || group > MAX_GROUP) return (int)cudaErrorInvalidValue;
-    if (D_arg != D) return (int)cudaErrorInvalidValue;
+    if (!split_width_ok(D, DP, (int)sizeof(E))) return (int)cudaErrorInvalidValue;
     if (splits < 1 || rows < TILE || rows % TILE != 0 || (long long)splits * rows < T)
         return (int)cudaErrorInvalidValue;
     if (B == 0) return 0;
-    constexpr size_t smem = 2 * 2 * (size_t)TILE * (D + 16 / sizeof(E)) * sizeof(E);  // two stages of K and V
-    cudaFuncSetAttribute(decode_split_kernel<D, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+    constexpr size_t smem = 2 * 2 * (size_t)TILE * (DP + 16 / sizeof(E)) * sizeof(E);  // two stages of K and V
+    cudaFuncSetAttribute(decode_split_kernel<DP, E, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);  // the true width's softmax scale
     cudaStream_t s = (cudaStream_t)stream;
-    decode_split_kernel<D, E><<<dim3(splits, KVH, B), 32 * WARPS, smem, s>>>(
+    decode_split_kernel<DP, E, EXACT><<<dim3(splits, KVH, B), 32 * WARPS, smem, s>>>(
         (const bf16*)q, (const E*)k_cache, (const E*)v_cache, (const int*)cache_len, layer, (float*)scratch, B, KVH,
-        T, group, rows, scale_log2);
+        T, D, group, rows, scale_log2);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    return (int)launch_merge_dependent(split_merge_kernel<D, MERGE_WARPS, MERGE_PER>, dim3(KVH * group, B),
+    return (int)launch_merge_dependent(split_merge_kernel<MERGE_WARPS, MERGE_PER, EXACT ? DP : 0>, dim3(KVH * group, B),
                                        dim3(32 * MERGE_WARPS), s, (const float*)scratch, (const bf16*)q,
                                        (const bf16*)(SELF ? k_new : nullptr), (const bf16*)(SELF ? v_new : nullptr),
-                                       (bf16*)out, B, KVH, splits, group, scale_log2);
+                                       (bf16*)out, B, KVH, splits, group, scale_log2, D);
+}
+
+// The instantiation of padded width padded_width(D), or width 128's own (a
+// width none takes is refused there).
+template <typename E, bool SELF, typename... A>
+int launch_width(int D, A... a) {
+    switch (D == 128 ? 0 : padded_width(D)) {
+        case 0: return launch<128, E, SELF, true>(a...);
+        case 32: return launch<32, E, SELF, false>(a...);
+        case 64: return launch<64, E, SELF, false>(a...);
+        case 96: return launch<96, E, SELF, false>(a...);
+        default: return launch<128, E, SELF, false>(a...);
+    }
 }
 
 }  // namespace
@@ -181,29 +208,29 @@ extern "C" int omchat_flash_decode_stacked(const void* q, const void* k_cache, c
                                            const void* cache_len, int layer, const void* k_new, const void* v_new,
                                            void* out, void* scratch, int B, int KVH, int T, int D, int group,
                                            int splits, int rows, void* stream) {
-    return launch<128, bf16, true>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, scratch, B, KVH, T, D,
-                                   group, splits, rows, stream);
+    return launch_width<bf16, true>(D, q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, scratch, B, KVH, T,
+                                    D, group, splits, rows, stream);
 }
 
 extern "C" int omchat_flash_decode_stacked_e4m3(const void* q, const void* k_cache, const void* v_cache,
                                                 const void* cache_len, int layer, const void* k_new,
                                                 const void* v_new, void* out, void* scratch, int B, int KVH, int T,
                                                 int D, int group, int splits, int rows, void* stream) {
-    return launch<128, e4m3, true>(q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, scratch, B, KVH, T, D,
-                                   group, splits, rows, stream);
+    return launch_width<e4m3, true>(D, q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, scratch, B, KVH, T,
+                                    D, group, splits, rows, stream);
 }
 
 // K6: the per-layer cache [B, KVH, T, D] is layer 0 of a one-layer stack.
 extern "C" int omchat_flash_decode(const void* q, const void* k_cache, const void* v_cache, const void* cache_len,
                                    void* out, void* scratch, int B, int KVH, int T, int D, int group, int splits,
                                    int rows, void* stream) {
-    return launch<128, bf16, false>(q, k_cache, v_cache, cache_len, 0, nullptr, nullptr, out, scratch, B, KVH, T, D,
-                                    group, splits, rows, stream);
+    return launch_width<bf16, false>(D, q, k_cache, v_cache, cache_len, 0, nullptr, nullptr, out, scratch, B, KVH, T,
+                                     D, group, splits, rows, stream);
 }
 
 extern "C" int omchat_flash_decode_e4m3(const void* q, const void* k_cache, const void* v_cache,
                                         const void* cache_len, void* out, void* scratch, int B, int KVH, int T, int D,
                                         int group, int splits, int rows, void* stream) {
-    return launch<128, e4m3, false>(q, k_cache, v_cache, cache_len, 0, nullptr, nullptr, out, scratch, B, KVH, T, D,
-                                    group, splits, rows, stream);
+    return launch_width<e4m3, false>(D, q, k_cache, v_cache, cache_len, 0, nullptr, nullptr, out, scratch, B, KVH,
+                                     T, D, group, splits, rows, stream);
 }

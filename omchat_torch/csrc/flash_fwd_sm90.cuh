@@ -5,10 +5,10 @@
 // (flash_attention_bwd.cu: the training forward, with lse and segment ids);
 // K2 takes the segment ids too (omchat_flash_attention_seg, the packed
 // forward without lse).
-// Head width 128; K2 also takes any multiple of 8 from 8 to 128 (the towers'
-// 64 and 72): its maps declare the true width, so TMA fills the tile's columns
-// past it with zeros, which add nothing to q . k and give output columns that
-// are never stored.
+// Head width 128; K2 and K14 also take any multiple of 8 from 8 to 128 (the
+// towers' 64 and 72, Qwen2-0.5B's 64), of 16 on an e4m3 cache: their maps
+// declare the true width, so TMA fills the tile's columns past it with zeros,
+// which add nothing to q . k and give output columns that are never stored.
 //
 // The function, per batch b, q head h and q row i (position i + q_offset[b]):
 //   s_j = q_i . k_j in fp32 (q already in the exp2 domain: it carries
@@ -100,7 +100,7 @@ struct Params {
     int B, S, H, KVH, T;        // S q rows and T kv rows a batch; H / KVH q heads a kv head
     // K14: K / V rows through page tables (else null): kv row j of batch b is
     // row j % page_size of page tables[b * table_stride + j / page_size]
-    // (T = table_width * page_size); the maps are over [pages, KVH, page_size, 128]
+    // (T = table_width * page_size); the maps are over [pages, KVH, page_size, head_dim]
     const int* tables;
     int table_stride, table_width, page_size, num_pages;
     int causal;
@@ -108,7 +108,7 @@ struct Params {
     float mask_value;
     float* lse;                 // LSE: [B, H, S] fp32
     const int* seg;             // SEG: [B, S] segment ids (T == S, no q_offset); negative ids are padding
-    int head_dim = HD;          // the columns of a row that are read and stored: a multiple of 8, at most HD
+    int head_dim = HD;          // the columns of a row read and stored: a multiple of 8 (16 on e4m3), at most HD
 };
 
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
@@ -408,13 +408,12 @@ inline bool dense_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv, const 
 }
 
 // Launches flash_fwd over maps of q and k, v: dense_maps's, or through page
-// tables (K14) maps over [pages, KVH, page_size, 128] (d1 = KVH, d2 =
+// tables (K14) maps over [pages, KVH, page_size, head_dim] (d1 = KVH, d2 =
 // page_size, d3 = pages) in boxes of one page.  Returns a cudaError_t.
 template <bool KV8, bool P8, bool LSE = false, bool SEG = false>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, const Params& p, void* stream) {
     if (p.B <= 0 || p.S <= 0 || p.KVH <= 0 || p.H % p.KVH != 0 || p.T <= 0) return (int)cudaErrorInvalidValue;
-    if (p.head_dim < 8 || p.head_dim > HD || p.head_dim % 8 || (KV8 && p.head_dim != HD))
-        return (int)cudaErrorInvalidValue;
+    if (p.head_dim < 8 || p.head_dim > HD || p.head_dim % (KV8 ? 16 : 8)) return (int)cudaErrorInvalidValue;
     if (p.tables && (p.page_size < 8 || BN % p.page_size != 0)) return (int)cudaErrorInvalidValue;
     if ((LSE && !p.lse) || (SEG && (!p.seg || p.T != p.S || p.q_offset))) return (int)cudaErrorInvalidValue;
     const int smem = Smem<KV8>::BYTES + (SEG ? (4 + (p.T + BN - 1) / BN) * (int)sizeof(int) : 0);

@@ -18,9 +18,10 @@
 // Design: split-KV, a block per (chunk, kv head, request), so that the
 // longest request's rows spread over many SMs instead of setting the time
 // from one.  The producer warp fills the ring with 16-byte cp.async copies
-// (cp.async.cg, L2 only): each lane copies one 16-byte piece of 2 rows (bf16;
-// 4 rows in e4m3) a pass, neighbouring lanes on neighbouring bytes of a row,
-// so a pass moves whole 256-byte rows.  When a lane's copies of a stage are
+// (cp.async.cg, L2 only): each lane copies one 16-byte piece a pass,
+// neighbouring lanes on neighbouring bytes of a row, so a pass moves 512
+// bytes (at D = 128 two whole bf16 rows, four e4m3 rows; a narrower row's
+// pieces run on into the next row).  When a lane's copies of a stage are
 // issued it hands them to the stage's full barrier
 // (cp.async.mbarrier.arrive.noinc), which completes once all 32 lanes' copies
 // have landed; the consumers wait on it as on K13's bulk copies.  A row past
@@ -40,52 +41,74 @@ __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
     asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(sm90::smem_u32(bar)) : "memory");
 }
 
-template <int D, typename E>
+template <int DP, typename E, bool EXACT>
 __global__ void __launch_bounds__(32 * WARPS)
 paged_split_kernel(const bf16* __restrict__ q, const E* __restrict__ k_pages, const E* __restrict__ v_pages,
                    const int* __restrict__ lengths, const int* __restrict__ tables, float* __restrict__ scratch,
-                   int B, int H, int KVH, int PS, int table_stride, int width, int page_offset, int rows,
-                   float scale_log2) {
-    using St = Stage<D, E>;
-    constexpr int VEC = 16 / (int)sizeof(E);    // values in a 16-byte piece
-    constexpr int PIECES = D / VEC;              // pieces in a row: 16 in bf16, 8 in e4m3
-    constexpr int ROWS_PER_PASS = 32 / PIECES;   // rows a warp copies in one pass
-    static_assert(32 % PIECES == 0 && STAGE_ROWS % ROWS_PER_PASS == 0, "a pass copies whole rows");
+                   int B, int H, int KVH, int PS, int d_arg, int table_stride, int width, int page_offset,
+                   int rows, float scale_log2) {
+    const int d = EXACT ? DP : d_arg;  // the head width
+    using St = Stage<DP, E>;
+    constexpr int VEC = 16 / (int)sizeof(E);  // values in a 16-byte piece
     extern __shared__ __align__(128) unsigned char smem_raw[];
     E* ring = reinterpret_cast<E*>(smem_raw);       // [NBUF][K, V][STAGE_ROWS][LD]
     __shared__ __align__(8) uint64_t full[St::NBUF];   // a stage's copies have landed
     __shared__ __align__(8) uint64_t empty[St::NBUF];  // every consumer warp is done with a stage
 
     trigger_merge_launch();  // the merge blocks may start; they wait for these stores
-    const Chunk c = block_chunk<D>(lengths, scratch, B, H, KVH, PS, width, rows);
+    const Chunk c = block_chunk(lengths, scratch, B, H, KVH, PS, width, rows, d);
     if (empty_chunk(c, H / KVH)) return;
+    zero_ring_padding<DP>(ring, d);
     init_ring(full, empty, 32);  // one noinc arrival a producer lane
     __syncthreads();
 
     if (threadIdx.x >> 5 == CONSUMERS) {
+        // Lane i copies pieces i, i + 32, ... of the stage's rows, tracked as
+        // (row, piece).  Where a row's pieces divide a pass of 32 (a width of
+        // 2^k pieces: 16 at d = 128 in bf16, two rows a pass) a lane keeps
+        // its piece and steps whole rows.
         const int lane = threadIdx.x & 31;
-        const int piece = (lane % PIECES) * VEC, r_lane = lane / PIECES;
+        const int pieces = d / VEC;                              // 16-byte pieces in a row
+        const int step_r = 32 / pieces, step_p = 32 % pieces;   // a pass of 32 pieces, in rows and pieces
         const int* table = tables + (size_t)blockIdx.z * table_stride;
-        const size_t head_off = (size_t)blockIdx.y * PS * D;
-        const size_t page_elems = (size_t)KVH * PS * D;
+        const size_t head_off = (size_t)blockIdx.y * PS * d;
+        const size_t page_elems = (size_t)KVH * PS * d;
+        auto copy = [&](E* kd, int p, int r, int col) {
+            const size_t src = row_src(table, c, c.begin + p * STAGE_ROWS + r, PS, page_elems, head_off,
+                                       page_offset, d) + col;
+            cp_async16(kd + r * St::LD + col, k_pages + src);
+            cp_async16(kd + St::ELEMS + r * St::LD + col, v_pages + src);
+        };
         for (int p = 0; p < c.stages; ++p) {
             const int s = p % St::NBUF;
             if (p >= St::NBUF) sm90::mbar_wait(&empty[s], (p / St::NBUF - 1) & 1);
             E* kd = ring + (size_t)s * 2 * St::ELEMS;
+            if (step_p == 0) {
 #pragma unroll 4
-            for (int r = r_lane; r < STAGE_ROWS; r += ROWS_PER_PASS) {
-                const size_t src = row_src(table, c, c.begin + p * STAGE_ROWS + r, PS, page_elems, head_off,
-                                           page_offset, D) + piece;
-                cp_async16(kd + r * St::LD + piece, k_pages + src);
-                cp_async16(kd + St::ELEMS + r * St::LD + piece, v_pages + src);
+                for (int r = lane / pieces; r < STAGE_ROWS; r += step_r) copy(kd, p, r, (lane % pieces) * VEC);
+            } else {
+                for (int r = lane / pieces, pc = lane % pieces; r < STAGE_ROWS;) {
+                    copy(kd, p, r, pc * VEC);
+                    r += step_r;
+                    pc += step_p;
+                    if (pc >= pieces) {
+                        pc -= pieces;
+                        ++r;
+                    }
+                }
             }
             cp_async_arrive_noinc(&full[s]);
         }
         asm volatile("cp.async.wait_all;\n" ::: "memory");  // leave no copy of this thread in flight
         return;
     }
-    consume_chunk<D, E>(q, ring, c, full, empty, H, KVH, scale_log2);
+    consume_chunk<DP, E>(q, ring, c, full, empty, H, KVH, scale_log2, d);
 }
+
+template <int DP, typename E, bool EXACT>
+struct Split {
+    static SplitKernel<E> fn() { return paged_split_kernel<DP, E, EXACT>; }
+};
 
 }  // namespace
 
@@ -93,9 +116,9 @@ extern "C" int omchat_paged_flash_decode(const void* q, const void* k_pages, con
                                          const void* tables, const void* k_new, const void* v_new, void* out,
                                          void* scratch, int B, int H, int KVH, int page_size, int D, int table_stride,
                                          int width, int page_offset, int splits, int rows, void* stream) {
-    return paged_split::launch<128, bf16>(paged_split_kernel<128, bf16>, q, k_pages, v_pages, lengths, tables, k_new,
-                                          v_new, out, scratch, B, H, KVH, page_size, D, table_stride, width,
-                                          page_offset, splits, rows, stream);
+    return paged_split::launch_width<Split, bf16>(D, q, k_pages, v_pages, lengths, tables, k_new, v_new, out,
+                                                  scratch, B, H, KVH, page_size, D, table_stride, width,
+                                                  page_offset, splits, rows, stream);
 }
 
 extern "C" int omchat_paged_flash_decode_e4m3(const void* q, const void* k_pages, const void* v_pages,
@@ -103,7 +126,7 @@ extern "C" int omchat_paged_flash_decode_e4m3(const void* q, const void* k_pages
                                               const void* v_new, void* out, void* scratch, int B, int H, int KVH,
                                               int page_size, int D, int table_stride, int width, int page_offset,
                                               int splits, int rows, void* stream) {
-    return paged_split::launch<128, e4m3>(paged_split_kernel<128, e4m3>, q, k_pages, v_pages, lengths, tables, k_new,
-                                          v_new, out, scratch, B, H, KVH, page_size, D, table_stride, width,
-                                          page_offset, splits, rows, stream);
+    return paged_split::launch_width<Split, e4m3>(D, q, k_pages, v_pages, lengths, tables, k_new, v_new, out,
+                                                  scratch, B, H, KVH, page_size, D, table_stride, width,
+                                                  page_offset, splits, rows, stream);
 }

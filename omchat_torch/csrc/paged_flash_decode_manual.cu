@@ -16,7 +16,8 @@
 // the producer warp does the same with the TMA engine's bulk copies
 // (cp.async.bulk, completing on an mbarrier): lane 0 waits for a stage to be
 // free and announces its bytes, then each of the 32 lanes bulk-copies two
-// rows of K and of V (256 bytes each in bf16) into their padded shared rows.
+// rows of K and of V (D values each: 256 bytes in bf16 at D = 128) into
+// their padded shared rows.
 // A row's page is looked up from the table per row, so chunks, stages and
 // their order are fixed in rows, not pages, and every page size computes the
 // same bits; the copy of a row past the length re-reads the last valid row,
@@ -43,22 +44,24 @@ __device__ __forceinline__ void bulk_copy(void* smem, const void* gmem, unsigned
         : "memory");
 }
 
-template <int D, typename E>
+template <int DP, typename E, bool EXACT>
 __global__ void __launch_bounds__(32 * WARPS)
 manual_split_kernel(const bf16* __restrict__ q, const E* __restrict__ k_pages, const E* __restrict__ v_pages,
                     const int* __restrict__ lengths, const int* __restrict__ tables, float* __restrict__ scratch,
-                    int B, int H, int KVH, int PS, int table_stride, int width, int page_offset, int rows,
-                    float scale_log2) {
-    using St = Stage<D, E>;
-    constexpr unsigned ROW_BYTES = D * sizeof(E);
+                    int B, int H, int KVH, int PS, int d_arg, int table_stride, int width, int page_offset,
+                    int rows, float scale_log2) {
+    const int d = EXACT ? DP : d_arg;  // the head width
+    using St = Stage<DP, E>;
+    const unsigned row_bytes = d * sizeof(E);  // a multiple of 16, as a bulk copy needs
     extern __shared__ __align__(128) unsigned char smem_raw[];
     E* ring = reinterpret_cast<E*>(smem_raw);       // [NBUF][K, V][STAGE_ROWS][LD]
     __shared__ __align__(8) uint64_t full[St::NBUF];   // a stage's copies have landed
     __shared__ __align__(8) uint64_t empty[St::NBUF];  // every consumer warp is done with a stage
 
     trigger_merge_launch();  // the merge blocks may start; they wait for these stores
-    const Chunk c = block_chunk<D>(lengths, scratch, B, H, KVH, PS, width, rows);
+    const Chunk c = block_chunk(lengths, scratch, B, H, KVH, PS, width, rows, d);
     if (empty_chunk(c, H / KVH)) return;
+    zero_ring_padding<DP>(ring, d);
     init_ring(full, empty, 1);
     __syncthreads();
 
@@ -67,27 +70,32 @@ manual_split_kernel(const bf16* __restrict__ q, const E* __restrict__ k_pages, c
         // every lane copies rows lane, lane + 32 of K and of V.
         const int lane = threadIdx.x & 31;
         const int* table = tables + (size_t)blockIdx.z * table_stride;
-        const size_t head_off = (size_t)blockIdx.y * PS * D;
-        const size_t page_elems = (size_t)KVH * PS * D;
+        const size_t head_off = (size_t)blockIdx.y * PS * d;
+        const size_t page_elems = (size_t)KVH * PS * d;
         for (int p = 0; p < c.stages; ++p) {
             const int s = p % St::NBUF;
             if (lane == 0) {
                 if (p >= St::NBUF) sm90::mbar_wait(&empty[s], (p / St::NBUF - 1) & 1);
-                sm90::mbar_arrive_expect_tx(&full[s], 2 * STAGE_ROWS * ROW_BYTES);
+                sm90::mbar_arrive_expect_tx(&full[s], 2 * STAGE_ROWS * row_bytes);
             }
             __syncwarp();
             E* kd = ring + (size_t)s * 2 * St::ELEMS;
             for (int r = lane; r < STAGE_ROWS; r += 32) {
                 const size_t src = row_src(table, c, c.begin + p * STAGE_ROWS + r, PS, page_elems, head_off,
-                                           page_offset, D);
-                bulk_copy(kd + r * St::LD, k_pages + src, ROW_BYTES, &full[s]);
-                bulk_copy(kd + St::ELEMS + r * St::LD, v_pages + src, ROW_BYTES, &full[s]);
+                                           page_offset, d);
+                bulk_copy(kd + r * St::LD, k_pages + src, row_bytes, &full[s]);
+                bulk_copy(kd + St::ELEMS + r * St::LD, v_pages + src, row_bytes, &full[s]);
             }
         }
         return;
     }
-    consume_chunk<D, E>(q, ring, c, full, empty, H, KVH, scale_log2);
+    consume_chunk<DP, E>(q, ring, c, full, empty, H, KVH, scale_log2, d);
 }
+
+template <int DP, typename E, bool EXACT>
+struct Split {
+    static SplitKernel<E> fn() { return manual_split_kernel<DP, E, EXACT>; }
+};
 
 }  // namespace
 
@@ -96,9 +104,9 @@ extern "C" int omchat_paged_flash_decode_manual(const void* q, const void* k_pag
                                                 const void* v_new, void* out, void* scratch, int B, int H, int KVH,
                                                 int page_size, int D, int table_stride, int width, int page_offset,
                                                 int splits, int rows, void* stream) {
-    return paged_split::launch<128, bf16>(manual_split_kernel<128, bf16>, q, k_pages, v_pages, lengths, tables, k_new,
-                                         v_new, out, scratch, B, H, KVH, page_size, D, table_stride, width,
-                                         page_offset, splits, rows, stream);
+    return paged_split::launch_width<Split, bf16>(D, q, k_pages, v_pages, lengths, tables, k_new, v_new, out,
+                                                  scratch, B, H, KVH, page_size, D, table_stride, width,
+                                                  page_offset, splits, rows, stream);
 }
 
 extern "C" int omchat_paged_flash_decode_manual_e4m3(const void* q, const void* k_pages, const void* v_pages,
@@ -106,7 +114,7 @@ extern "C" int omchat_paged_flash_decode_manual_e4m3(const void* q, const void* 
                                                      const void* v_new, void* out, void* scratch, int B, int H,
                                                      int KVH, int page_size, int D, int table_stride, int width,
                                                      int page_offset, int splits, int rows, void* stream) {
-    return paged_split::launch<128, e4m3>(manual_split_kernel<128, e4m3>, q, k_pages, v_pages, lengths, tables, k_new,
-                                         v_new, out, scratch, B, H, KVH, page_size, D, table_stride, width,
-                                         page_offset, splits, rows, stream);
+    return paged_split::launch_width<Split, e4m3>(D, q, k_pages, v_pages, lengths, tables, k_new, v_new, out,
+                                                  scratch, B, H, KVH, page_size, D, table_stride, width,
+                                                  page_offset, splits, rows, stream);
 }

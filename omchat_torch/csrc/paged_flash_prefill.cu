@@ -4,7 +4,8 @@
 // Replaces the TPU kernel omchat_tpu/ops/paged_attention.py:442
 // paged_flash_prefill (body _paged_prefill_kernel :385, pallas_call :514).
 //
-//   q            [B, C, H, D] bf16, already multiplied (in bf16) by D^-0.5 * log2(e)
+//   q            [B, C, H, D] bf16, already multiplied (in bf16) by D^-0.5 * log2(e);
+//                D a multiple of 8 from 8 to 128 (of 16 on the e4m3 pool), K2's widths
 //   k/v_pages    [P, KVH, PS, D] bf16, or e4m3 through omchat_paged_flash_prefill_e4m3
 //                (the fp8 pool), one layer's page-major pool (PS 16, 32, 64 or 128)
 //   q_offset     [B] int32 position of the chunk's first row (page-aligned)
@@ -30,7 +31,8 @@
 // diagonal and kv_len, straight from the pool.  An e4m3 pool is staged as
 // stored and widened to bf16 once per block; p is rounded to bf16, as the TPU
 // kernel casts the pages to q's dtype before its products
-// (paged_attention.py:423,429).
+// (paged_attention.py:423,429).  Below D = 128 the maps declare the true
+// width, as K2's do, so TMA fills a page box's columns past D with zeros.
 #include "flash_fwd_sm90.cuh"
 
 namespace {
@@ -39,9 +41,11 @@ template <bool KV8>
 int launch(const void* q, const void* k_pages, const void* v_pages, void* out, const void* q_offset,
            const void* kv_len, const void* tables, int B, int C, int H, int KVH, int PS, int D, int table_stride,
            int width, int num_pages, void* stream) {
-    if (D != fwd90::HD || width <= 0 || num_pages <= 0) return (int)cudaErrorInvalidValue;
+    if (D < 8 || D > fwd90::HD || D % (KV8 ? 16 : 8) || width <= 0 || num_pages <= 0)
+        return (int)cudaErrorInvalidValue;
     if (B == 0 || C == 0) return 0;
     fwd90::Params p{};
+    p.head_dim = D;
     p.out = (bf16*)out;
     p.out_row = (long long)H * D;
     p.out_batch = (long long)C * H * D;
@@ -55,9 +59,10 @@ int launch(const void* q, const void* k_pages, const void* v_pages, void* out, c
     p.table_stride = table_stride, p.table_width = width, p.page_size = PS, p.num_pages = num_pages;
     const int eb = KV8 ? 1 : 2;
     CUtensorMap mq, mk, mv;
-    if (!sm90::rows_map(&mq, q, 2, H, C, B, D, (uint64_t)H * D, (uint64_t)C * H * D, fwd90::BM) ||
-        !sm90::rows_map(&mk, k_pages, eb, KVH, PS, num_pages, (uint64_t)PS * D, D, (uint64_t)KVH * PS * D, PS) ||
-        !sm90::rows_map(&mv, v_pages, eb, KVH, PS, num_pages, (uint64_t)PS * D, D, (uint64_t)KVH * PS * D, PS))
+    // the maps declare the true width D: TMA fills a tile's columns past it with zeros
+    if (!sm90::rows_map(&mq, q, 2, H, C, B, D, (uint64_t)H * D, (uint64_t)C * H * D, fwd90::BM, D) ||
+        !sm90::rows_map(&mk, k_pages, eb, KVH, PS, num_pages, (uint64_t)PS * D, D, (uint64_t)KVH * PS * D, PS, D) ||
+        !sm90::rows_map(&mv, v_pages, eb, KVH, PS, num_pages, (uint64_t)PS * D, D, (uint64_t)KVH * PS * D, PS, D))
         return (int)cudaErrorInvalidValue;
     return fwd90::launch<KV8, false>(mq, mk, mv, p, stream);
 }

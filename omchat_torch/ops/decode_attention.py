@@ -12,9 +12,11 @@ CUDA source (``omchat_torch/csrc/flash_decode_stacked.cu``):
 Both kernels split the cache's rows over blocks (split-KV): the wrapper cuts
 the T rows into :func:`decode_splits` chunks on the host, and one call
 launches a kernel that attends each chunk and a second that merges the
-chunks' softmax states.  Each wrapper sends a CPU tensor to its plain version
-(``*_plain``) and launches its kernels on a CUDA tensor, or raises;
-``<wrapper>.launches`` counts the calls that launched them.
+chunks' softmax states, at every head width that
+:func:`~omchat_torch.ops.flash_attention.head_dim_supported` takes.  Each
+wrapper sends a CPU tensor to its plain version (``*_plain``) and launches
+its kernels on a CUDA tensor, or raises; ``<wrapper>.launches`` counts the
+calls that launched them.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import functools
 import torch
 
 from omchat_torch.ops import kernel_lib
-from omchat_torch.ops.flash_attention import _require_cuda
+from omchat_torch.ops.flash_attention import _require_cuda, require_head_dim
 
 # C signatures: q, k_cache, v_cache, cache_len, layer, k_new, v_new, out, scratch, B, KVH, T, D, group, splits,
 # rows, stream / q, k_cache, v_cache, cache_len, out, scratch, B, KVH, T, D, group, splits, rows, stream
@@ -57,11 +59,18 @@ def num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def scratch_floats(B: int, H: int, splits: int, D: int) -> int:
+    """The fp32 values of a split-KV decode call's scratch (K3, K6, K12,
+    K13): each of the B x H x ``splits`` partial states holds acc [D] and
+    its m and l, at the true head width D."""
+    return B * H * splits * (D + 2)
+
+
 def _split_args(q, B, KVH, T, D):
     """(scratch, splits, rows) for one call: the fp32 partial states
     [B, KVH, splits, group] x (D + 2) that the merge reads."""
     splits, rows = decode_splits(B, KVH, T, num_sms(q.device.index))
-    scratch = torch.empty(B * q.shape[2] * splits * (D + 2), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(scratch_floats(B, q.shape[2], splits, D), dtype=torch.float32, device=q.device)
     return scratch, splits, rows
 
 
@@ -113,7 +122,8 @@ def flash_decode_stacked(
     suffix = _require_cuda("flash_decode_stacked", q, k_new, v_new, cache=(k_cache, v_cache))
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("flash_decode_stacked: the stacked cache must be contiguous")
-    if q.shape[1] != 1 or H % KVH or H // KVH > 8 or D != 128 or not 0 <= layer < L:
+    require_head_dim("flash_decode_stacked", D, bool(suffix))
+    if q.shape[1] != 1 or H % KVH or H // KVH > 8 or q.shape[3] != D or not 0 <= layer < L:
         raise ValueError(f"flash_decode_stacked: unsupported shape q={tuple(q.shape)} cache={tuple(k_cache.shape)}")
     qc = q.contiguous()
     kn, vn = k_new.contiguous(), v_new.contiguous()
@@ -170,7 +180,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, 
     B, KVH, T, D = k_cache.shape
     H = q.shape[2]
     suffix = _require_cuda("flash_decode", q, cache=(k_cache, v_cache))
-    if q.shape[1] != 1 or H % KVH or H // KVH > 8 or D != 128 or v_cache.shape != k_cache.shape:
+    require_head_dim("flash_decode", D, bool(suffix))
+    if q.shape[1] != 1 or H % KVH or H // KVH > 8 or q.shape[3] != D or v_cache.shape != k_cache.shape:
         raise ValueError(f"flash_decode: unsupported shape q={tuple(q.shape)} cache={tuple(k_cache.shape)}")
     qc, kc, vc = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device).expand(B).contiguous()

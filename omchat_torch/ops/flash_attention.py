@@ -293,11 +293,25 @@ def _prescale_q(q: torch.Tensor) -> torch.Tensor:
     return q * torch.full((), q.shape[-1] ** -0.5 * LOG2E, dtype=q.dtype, device=q.device)
 
 
-def k2_head_dim_supported(head_dim: int, e4m3: bool = False) -> bool:
-    """Whether K2's CUDA kernel takes this head width: a multiple of 8 from 8
-    to 128 (every row a whole number of 16-byte TMA chunks), and 128 alone on
-    an e4m3 cache."""
-    return head_dim == 128 if e4m3 else head_dim % 8 == 0 and 8 <= head_dim <= 128
+def head_dim_supported(head_dim: int, e4m3: bool = False) -> bool:
+    """Whether the CUDA attention kernels over a cache take this head width:
+    K2 (:func:`flash_attention`), K3 / K6 (``ops.decode_attention``) and K12 /
+    K13 / K14 (``ops.paged_attention``) all take a row of whole 16-byte
+    pieces, which TMA's strides and the 16-byte copies need, up to 128
+    columns: a multiple of 8 from 8 to 128 on a bfloat16 cache, of 16 from 16
+    to 128 on an e4m3 cache (one byte a value).  The JAX kernels take any
+    width."""
+    step = 16 if e4m3 else 8
+    return head_dim % step == 0 and step <= head_dim <= 128
+
+
+def require_head_dim(name: str, head_dim: int, e4m3: bool) -> None:
+    """Raise, naming the kernel and the width, unless :func:`head_dim_supported`."""
+    if not head_dim_supported(head_dim, e4m3):
+        rule = ("a multiple of 16 from 16 to 128 (an e4m3 row must be whole 16-byte pieces)" if e4m3
+                else "a multiple of 8 from 8 to 128")
+        raise ValueError(f"{name}: head width {head_dim} on a{'n e4m3' if e4m3 else ' bfloat16'} cache is not "
+                         f"taken by the CUDA kernel, which takes {rule}")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, q_offset, kv_len, segment_ids=None):
@@ -349,7 +363,7 @@ def flash_attention(
     ("btnd") or [B, KVH, T, D] ("bntd", the cache layout the kernel reads;
     bfloat16 or e4m3 on CUDA).  Returns [B, S, H, D] in q.dtype; semantics of
     ``attention_reference``.  On CUDA, D is any width that
-    :func:`k2_head_dim_supported` takes; another raises.
+    :func:`head_dim_supported` takes; another raises.
 
     ``segment_ids`` [B, S] int32 (multi-document packing, -1 = padding):
     self-attention only (S == T, else ValueError, as in JAX), ``kv_len``
@@ -373,9 +387,10 @@ def flash_attention(
     if segment_ids is not None and (suffix or q_offset is not None):
         raise ValueError("flash_attention: segment_ids take a bf16 K / V and no q_offset on CUDA (the packed "
                          "forward is cacheless)")
-    if not k2_head_dim_supported(D, e4m3=bool(suffix)) or H % KVH != 0 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: head_dim {D}{' on an e4m3 cache' if suffix else ''}, heads {H}/{KVH}, "
-                         f"k {tuple(k.shape)} / v {tuple(v.shape)} unsupported by the CUDA kernel")
+    require_head_dim("flash_attention", D, bool(suffix))
+    if H % KVH != 0 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: heads {H}/{KVH}, k {tuple(k.shape)} / v {tuple(v.shape)} unsupported by "
+                         "the CUDA kernel")
     ks, vs = _tma_strides("flash_attention", "k", k), _tma_strides("flash_attention", "v", v)
     qs = _prescale_q(q).contiguous()
     kvl = per_batch(kv_len, B, T, q.device)

@@ -27,7 +27,9 @@ kernels:
 Each wrapper sends CPU tensors to its plain PyTorch version (``*_plain``) and
 launches its CUDA kernel on CUDA tensors, or raises; ``<wrapper>.launches``
 counts the kernel launches.  The attention kernels K12, K13 and K14 are built
-for the page sizes in :data:`PAGE_SIZES`; K4 and K15 take any page size.  :func:`paged_decode_attention` and
+for the page sizes in :data:`PAGE_SIZES` and take the head widths of
+:func:`~omchat_torch.ops.flash_attention.head_dim_supported`; K4 and K15
+take any page size.  :func:`paged_decode_attention` and
 :func:`paged_prefill_attention` are the dispatchers the serving engine calls.
 """
 
@@ -40,8 +42,8 @@ import torch
 
 from omchat_torch.ops import kernel_lib
 from omchat_torch.ops.attention import PLAIN, attention_reference, per_batch, self_column_reference
-from omchat_torch.ops.decode_attention import decode_splits, num_sms
-from omchat_torch.ops.flash_attention import LOG2E, _prescale_q, _require_cuda, flash_attention_plain
+from omchat_torch.ops.decode_attention import decode_splits, num_sms, scratch_floats
+from omchat_torch.ops.flash_attention import LOG2E, _prescale_q, _require_cuda, flash_attention_plain, require_head_dim
 from omchat_torch.ops.fp8 import cast_to
 
 # C signatures:
@@ -157,7 +159,8 @@ def _paged_decode_operands(name, q, k_pages, v_pages, lengths, page_tables, k_ne
     suffix = _require_cuda(name, q, *((k_new, v_new) if self_col else ()), cache=(k_pages, v_pages))
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or k_pages.shape != v_pages.shape:
         raise ValueError(f"{name}: the pools must be contiguous and of one shape")
-    if S != 1 or D != 128 or PS not in PAGE_SIZES or H % KVH or H // KVH > 16:
+    require_head_dim(name, D, bool(suffix))
+    if S != 1 or k_pages.shape[3] != D or PS not in PAGE_SIZES or H % KVH or H // KVH > 16:
         raise ValueError(f"{name}: unsupported shape q={tuple(q.shape)} pool={tuple(k_pages.shape)}")
     if self_col and not (k_new.shape == v_new.shape == (B, KVH, D)):
         raise ValueError(f"{name}: the self column must be [B, KVH, D], got {tuple(k_new.shape)}")
@@ -200,7 +203,7 @@ def _launch_split_decode(name, q, k_pages, v_pages, lengths, page_tables, k_new,
     suffix, qc, tables, lens, kn, vn, out = _paged_decode_operands(name, q, k_pages, v_pages, lengths, page_tables,
                                                                    k_new, v_new)
     splits, rows = paged_splits(B, KVH, tables.shape[1] * PS, num_sms(q.device.index))
-    scratch = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(scratch_floats(B, H, splits, D), dtype=torch.float32, device=q.device)
     kernel_lib.launch(
         source, entry + suffix, _SPLIT_DECODE_ARGS,
         *map(kernel_lib.ptr, (qc, k_pages, v_pages, lens, tables)), _opt_ptr(kn), _opt_ptr(vn),
@@ -352,7 +355,8 @@ def paged_flash_prefill(
     suffix = _require_cuda("paged_flash_prefill", q, cache=(k_pages, v_pages))
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()) or k_pages.shape != v_pages.shape:
         raise ValueError("paged_flash_prefill: the pools must be contiguous and of one shape")
-    if D != 128 or PS not in PAGE_SIZES or H % KVH:
+    require_head_dim("paged_flash_prefill", D, bool(suffix))
+    if k_pages.shape[3] != D or PS not in PAGE_SIZES or H % KVH:
         raise ValueError(f"paged_flash_prefill: unsupported shape q={tuple(q.shape)} pool={tuple(k_pages.shape)}")
     qs = _prescale_q(q).contiguous()
     tables = _table_arg(page_tables, q.device)

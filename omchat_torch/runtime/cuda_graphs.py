@@ -39,10 +39,18 @@ the generator's current seed and offset and advances the offset by what the
 captured draws consume, as the eager body does.  The offset the eager first
 run advanced is recorded, and the first replay must advance it by as much,
 or it raises: the graph's draws are the eager body's.
+
+A capture runs with Python's cyclic garbage collector paused and in
+``thread_local`` capture mode: a collection inside the capture would run the
+finalizers of earlier engines' garbage (their graphs, pools, pinned host
+buffers), whose CUDA calls invalidate a capture in progress (a roll's GEMM
+then fails with ``CUBLAS_STATUS_EXECUTION_FAILED``), and another thread's
+calls may not invalidate it either.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib
 import pkgutil
 import time
@@ -120,10 +128,14 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
+        collecting = gc.isenabled()
+        gc.disable()  # garbage waits until the capture has ended (see the module's note)
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                 captured = self.body()
         finally:
+            if collecting:
+                gc.enable()
             self._deltas = {w: w.launches - before[w] for w in wrappers if w.launches != before[w]}
             for w in wrappers:
                 w.launches = before[w]

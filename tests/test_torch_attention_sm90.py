@@ -100,7 +100,7 @@ def test_k2_plain_matches_pallas_at_tower_head_widths(D, causal, S, fmt):
                           block_k=64, interpret=True)
     out = t_flash.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal,
                                   kv_format=fmt)
-    assert t_flash.k2_head_dim_supported(D) and not t_flash.k2_head_dim_supported(D, e4m3=True)
+    assert t_flash.head_dim_supported(D) and t_flash.head_dim_supported(D, e4m3=True) == (D % 16 == 0)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
 
 

@@ -58,7 +58,12 @@ and a chunk's edges, with one request filling every chunk and the others
 only the first, bitwise the same on a second launch and under a CUDA-graph
 replay over new lengths.  K12 (split-KV on K13's chunks and arithmetic)
 bitwise equal to K13 on both pools in those cases and at page sizes 16-128,
-bitwise the same on a second launch and under a CUDA-graph replay.  The
+bitwise the same on a second launch and under a CUDA-graph replay.  Head
+widths: K3 and K6 (3328-row cache, lengths at the chunk edges), K12 bitwise
+K13 (a request filling every chunk), K14 (ragged chunks at page size 16) and
+K2's e4m3 entry at Qwen2-0.5B's 14 / 2 heads and every width the rule takes
+(multiples of 8 from 8 to 128 on bf16, of 16 on e4m3), K12 / K13 at D = 64
+and page sizes 16 and 64, and other widths refused before any launch.  The
 single-request surface's regimes: K2 at S = 1, 9 and 64 query rows past
 q_offset 127, 3187, 3199 and 3200 (a speculative verify step, a chunk; the
 causal edge inside a kv tile and on its boundary), K3 at B = 4 (beams) and
@@ -153,12 +158,12 @@ def _sms():
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def _decode_case(gen, H, KVH, lens, T, L, cache):
+def _decode_case(gen, H, KVH, lens, T, L, cache, D=128):
     """q [B, 1, H, D] carrying its kv head's direction u, a cache [L, B, KVH,
     T, D] whose rows at every chunk edge (the last row of a split and the
     first of the next) hold 0.8 u, so that they take most of each row's
     softmax, and the lengths."""
-    D, B = 128, len(lens)
+    B = len(lens)
     rows = da.decode_splits(B, KVH, T, _sms())[1]
     u = (torch.randint(0, 2, (KVH, D), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
     q = _randn(gen, B, 1, H, D) + u.repeat_interleave(H // KVH, dim=0)
@@ -1185,6 +1190,55 @@ def test_graphed_step_counts_replays_and_checks_its_capture(gen):
         GraphedStep(eager_only, pool, torch.device("cuda"))()
 
 
+def test_graphed_step_captures_while_garbage_that_holds_cuda_state_waits(gen):
+    """Cyclic garbage left by earlier engines (here: cycles holding a captured
+    graph, its pool, pinned host memory and device memory) is not collected
+    inside a capture, even with the collector set to run at nearly every
+    allocation: the capture of a 24-GEMM body succeeds and replays the eager
+    result (the lost captures of ROADMAP C6)."""
+    import gc
+
+    from omchat_torch.runtime.cuda_graphs import GraphedStep
+
+    x = _randn(gen, 64, 896)
+    ws = [_randn(gen, 896, 896) * 0.05 for _ in range(24)]
+
+    def body():
+        h = x
+        for w in ws:
+            h = (h @ w).float().softmax(-1).bfloat16()
+        return h
+
+    def garbage():
+        a, b = [], []
+        a.append(b)
+        b.append(a)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            x @ ws[0]
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle()):
+            y = x @ ws[0]
+        a += [graph, y, torch.empty(1 << 20, pin_memory=True), torch.empty(1 << 22, device="cuda")]
+
+    thresholds = gc.get_threshold()
+    want = body()
+    for _ in range(4):
+        for _ in range(6):
+            garbage()
+        gc.set_threshold(1, 1, 1)
+        try:
+            step = GraphedStep(body, torch.cuda.graph_pool_handle(), torch.device("cuda"))
+            step()
+            got = step()
+            torch.cuda.synchronize()
+        finally:
+            gc.set_threshold(*thresholds)
+        assert step.graph is not None and torch.equal(got, want)
+
+
 def _graph_model():
     """OmChatConfig() at full width with 2 ViT and 2 LLM layers, random bf16
     weights (seed 0)."""
@@ -1635,15 +1689,16 @@ def test_flash_attention_kernel_reads_no_column_of_the_next_head(gen, D):
 
 
 def test_flash_attention_refuses_widths_the_kernel_lacks(gen):
-    """D = 256, a width not a multiple of 8, and e4m3 at D != 128 raise before
-    any launch: no fallback to the plain version."""
+    """D = 256, a width not a multiple of 8, and e4m3 at a width not a
+    multiple of 16 (an e4m3 row of 24 bytes, which TMA cannot stride) raise
+    before any launch: no fallback to the plain version."""
     n0 = fa.flash_attention.launches
     for D in (256, 68):
         q, k = _randn(gen, 1, 16, 2, D), _randn(gen, 1, 2, 16, D)
-        with pytest.raises(ValueError, match=f"head_dim {D}"):
+        with pytest.raises(ValueError, match=f"head width {D}"):
             fa.flash_attention(q, k, k, causal=True, kv_format="bntd")
-    q, k = _randn(gen, 1, 16, 2, 64), to_e4m3(_randn(gen, 1, 2, 16, 64))
-    with pytest.raises(ValueError, match="head_dim 64 on an e4m3 cache"):
+    q, k = _randn(gen, 1, 16, 2, 24), to_e4m3(_randn(gen, 1, 2, 16, 24))
+    with pytest.raises(ValueError, match="head width 24 on an e4m3 cache"):
         fa.flash_attention(q, k, k, causal=True, kv_format="bntd")
     assert fa.flash_attention.launches == n0
 
@@ -1742,3 +1797,144 @@ def test_flash_attention_segment_ids_refusals(gen):
     with pytest.raises(ValueError, match="bf16 K / V and no q_offset"):
         fa.flash_attention(q, k, k, causal=True, segment_ids=seg, q_offset=0)
     assert fa.flash_attention.seg_launches == s0
+
+
+# ---------------------------------------------------------------------------
+# head widths other than 128: K3, K6, K12, K13, K14 and K2's e4m3 entry
+# ---------------------------------------------------------------------------
+
+# every width the rule takes (fa.head_dim_supported): multiples of 8 on bf16, of 16 on e4m3
+WIDTH_CASES = [(D, "bf16") for D in range(8, 129, 8)] + [(D, "e4m3") for D in range(16, 129, 16)]
+WIDTH_IDS = [f"{c}_D{D}" for D, c in WIDTH_CASES]
+
+
+@pytest.mark.parametrize("D,cache", WIDTH_CASES, ids=WIDTH_IDS)
+def test_decode_kernels_at_every_head_width(gen, D, cache):
+    """K3 (with the self column) and K6 at Qwen2-0.5B's 14 / 2 heads over a
+    3328-row cache: lengths 0, 1, a chunk's edges and T, keys planted at
+    every chunk edge; one launch each, within TOL of the plain version, a
+    second launch bitwise the same."""
+    assert fa.head_dim_supported(D, e4m3=cache == "e4m3")
+    H, KVH, T = 14, 2, 3328
+    lens = _edge_lens(KVH, T)
+    q, kc, vc, cl = _decode_case(gen, H, KVH, lens, T, 2, cache, D=D)
+    kn, vn = _randn(gen, len(lens), KVH, D), _randn(gen, len(lens), KVH, D)
+    n3, n6 = da.flash_decode_stacked.launches, da.flash_decode.launches
+    out = da.flash_decode_stacked(q, kc, vc, cl, 1, kn, vn)
+    again = da.flash_decode_stacked(q, kc, vc, cl, 1, kn, vn)
+    k6 = da.flash_decode(q, kc[1], vc[1], cl)
+    torch.cuda.synchronize()
+    assert (da.flash_decode_stacked.launches, da.flash_decode.launches) == (n3 + 2, n6 + 1)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), da.flash_decode_stacked_plain(q, kc, vc, cl, 1, kn, vn).float(), **TOL)
+    torch.testing.assert_close(k6.float(), da.flash_decode_plain(q, kc[1], vc[1], cl).float(), **TOL)
+    assert not k6[0].any()  # length 0: zeros
+
+
+def _paged_width_case(gen, D, cache, PS=128):
+    """K12 / K13 operands at head width D over a flat two-layer pool (the
+    layer at page_offset P + 1): lengths 0, 1, a chunk's edges and a full
+    table, at Qwen2-0.5B's heads."""
+    H, KVH, W = 14, 2, 26
+    chunk = pa.paged_splits(6, KVH, W * PS, _sms())[1]
+    lengths = [0, 1, chunk - 1, chunk, chunk + 1, W * PS]
+    kp, vp, tables = _paged_pool_ps(gen, PS, KVH, D, lengths, W, False)
+    kp = torch.cat([_randn(gen, *kp.shape), kp])
+    vp = torch.cat([_randn(gen, *vp.shape), vp])
+    if cache == "e4m3":
+        kp, vp = to_e4m3(kp), to_e4m3(vp)
+    B = len(lengths)
+    q, kn, vn = _randn(gen, B, 1, H, D), _randn(gen, B, KVH, D), _randn(gen, B, KVH, D)
+    return q, kp, vp, torch.tensor(lengths, dtype=torch.int32, device="cuda"), tables, kn, vn, kp.shape[0] // 2
+
+
+@pytest.mark.parametrize("D,cache", WIDTH_CASES, ids=WIDTH_IDS)
+def test_paged_decode_kernels_at_every_head_width(gen, D, cache):
+    """K12 and K13 at width D: within TOL of the plain version, K12 bitwise
+    K13 (their shared chunks and arithmetic), a request of length 0 exactly
+    v_new."""
+    q, kp, vp, lens, tables, kn, vn, off = _paged_width_case(gen, D, cache)
+    n12, n13 = pa.paged_flash_decode.launches, pa.paged_flash_decode_manual.launches
+    k12 = pa.paged_flash_decode(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    k13 = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.cuda.synchronize()
+    assert (pa.paged_flash_decode.launches, pa.paged_flash_decode_manual.launches) == (n12 + 1, n13 + 1)
+    assert torch.equal(k12, k13)
+    ref = pa.paged_flash_decode_plain(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.testing.assert_close(k12.float(), ref.float(), **TOL)
+    assert torch.equal(k12[0, 0], vn[0].repeat_interleave(q.shape[2] // kn.shape[1], dim=0))
+
+
+@pytest.mark.parametrize("cache", ["bf16", "e4m3"])
+@pytest.mark.parametrize("PS", [16, 64])
+def test_paged_decode_kernels_at_head_width_64_and_page_size(gen, PS, cache):
+    """K12 / K13 at D = 64 and page sizes 16 and 64: bitwise equal, within TOL."""
+    q, kp, vp, lens, tables, kn, vn, off = _paged_width_case(gen, 64, cache, PS=PS)
+    k12 = pa.paged_flash_decode(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    k13 = pa.paged_flash_decode_manual(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.cuda.synchronize()
+    assert torch.equal(k12, k13)
+    ref = pa.paged_flash_decode_plain(q, kp, vp, lens, tables, kn, vn, page_offset=off)
+    torch.testing.assert_close(k12.float(), ref.float(), **TOL)
+
+
+@pytest.mark.parametrize("D,cache", WIDTH_CASES, ids=WIDTH_IDS)
+def test_paged_flash_prefill_at_every_head_width(gen, D, cache):
+    """K14 at width D, page size 16: ragged chunks past page-aligned offsets,
+    within TOL of its plain version and of gather + K2."""
+    H, KVH, PS, C = 14, 2, 16, 200
+    q_offset, chunk_len = [0, 256], [200, 131]
+    kv_len = [o + n for o, n in zip(q_offset, chunk_len)]
+    W = -(-max(kv_len) // PS) + 1
+    kp, vp, tables = _paged_pool_ps(gen, PS, KVH, D, kv_len, W, cache == "e4m3")
+    q = _randn(gen, 2, C, H, D)
+    qo = torch.tensor(q_offset, dtype=torch.int32, device="cuda")
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    n0 = pa.paged_flash_prefill.launches
+    out = pa.paged_flash_prefill(q, kp, vp, kl, tables, qo)
+    torch.cuda.synchronize()
+    assert pa.paged_flash_prefill.launches == n0 + 1
+    ref = pa.paged_flash_prefill_plain(q, kp, vp, kl, tables, qo)
+    for b in range(2):
+        torch.testing.assert_close(out[b, :chunk_len[b]].float(), ref[b, :chunk_len[b]].float(), **TOL)
+
+
+@pytest.mark.parametrize("D", range(16, 129, 16))
+def test_flash_attention_e4m3_at_every_head_width(gen, D):
+    """K2's e4m3 entry at width D: causal with offsets at group 7, within the
+    e4m3 tolerance of its plain version (p rounded to e4m3 on both sides)."""
+    H, KVH, S, T = 14, 2, 200, 328
+    q = _randn(gen, 2, S, H, D)
+    k, v = to_e4m3(_randn(gen, 2, KVH, T, D)), to_e4m3(_randn(gen, 2, KVH, T, D))
+    qo = torch.tensor([0, 128], dtype=torch.int32, device="cuda")
+    kl = torch.tensor([200, 328], dtype=torch.int32, device="cuda")
+    n0 = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=True, q_offset=qo, kv_len=kl, kv_format="bntd")
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=True, q_offset=qo, kv_len=kl)
+    torch.testing.assert_close(out.float(), ref.float(), **K2_E4M3_TOL)
+
+
+def test_decode_and_paged_kernels_refuse_other_widths(gen):
+    """A width the rule refuses (12, 136 on bf16; 24 on e4m3) raises before
+    any launch, naming the width: no fallback to the plain version."""
+    H, KVH, B = 14, 2, 2
+    counters = (da.flash_decode_stacked, da.flash_decode, pa.paged_flash_decode, pa.paged_flash_decode_manual,
+                pa.paged_flash_prefill)
+    n0 = [f.launches for f in counters]
+    lens = torch.tensor([3, 5], dtype=torch.int32, device="cuda")
+    tables = torch.zeros(B, 2, dtype=torch.int32, device="cuda")
+    for D, e4m3 in ((12, False), (136, False), (24, True)):
+        cast = to_e4m3 if e4m3 else (lambda t: t)
+        q, kn = _randn(gen, B, 1, H, D), _randn(gen, B, KVH, D)
+        stack, pool = cast(_randn(gen, 2, B, KVH, 64, D)), cast(_randn(gen, 3, KVH, 16, D))
+        calls = [lambda: da.flash_decode_stacked(q, stack, stack, lens, 0, kn, kn),
+                 lambda: da.flash_decode(q, stack[0], stack[0], lens),
+                 lambda: pa.paged_flash_decode(q, pool, pool, lens, tables, kn, kn),
+                 lambda: pa.paged_flash_decode_manual(q, pool, pool, lens, tables, kn, kn),
+                 lambda: pa.paged_flash_prefill(_randn(gen, B, 16, H, D), pool, pool, lens, tables, lens * 0)]
+        for call in calls:
+            with pytest.raises(ValueError, match=f"head width {D} on an? {'e4m3' if e4m3 else 'bfloat16'} cache"):
+                call()
+    assert [f.launches for f in counters] == n0
