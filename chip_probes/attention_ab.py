@@ -1,5 +1,6 @@
 """K1, K2 (bf16, e4m3, batched prefill), K5, K14, K16a (the training
-forward, LLM, ViT and packed), K16b (the training dQ, the same three), K3
+forward, LLM, ViT and packed), K16b (the training dQ) and K16c (dK / dV),
+the same three, K3
 (bf16 and e4m3), K6, K12 and K13 (bf16 and e4m3 pools) at their PERF.md
 section-6 shapes, timed from
 the ``omchat_torch`` package under ``--root``, so that two trees (a parent
@@ -25,11 +26,15 @@ call's device time (the 28 calls of a walk graphed,
 set to each of those row counts ("K13 rows=256"), to choose the split.
 ``--save-outputs FILE`` writes K12's and K13's outputs on layer 0 of that
 pool (both pools) with ``torch.save``, so that two trees' outputs can be
-compared bit for bit.  Prints one JSON line: the card, the label and {case:
-median ms}.  Needs one NVIDIA GPU.
+compared bit for bit.  Prints one JSON line: the card, the label, {case:
+median ms} and, under "sha256", a SHA-256 of K16a's (out, lse), K16b's dQ and
+K16c's (dK, dV) at each of the three shapes on the same seeded inputs, so
+that equal hashes show two trees' K16 give the same bits.  Needs one NVIDIA
+GPU.
 """
 import argparse
 import functools
+import hashlib
 import inspect
 import json
 import os
@@ -177,6 +182,7 @@ def main() -> int:
         "K16a vit": lambda: fb.flash_fwd(qv, kv, vv, False),
         "K16a packed": lambda: fb.flash_fwd(qp, kp4, vp4, True, seg),
         **{f"K16b {case}": functools.partial(fb.flash_bwd_dq, *a[:8], **a[8]) for case, a in bwd.items()},
+        **{f"K16c {case}": functools.partial(fb.flash_bwd_dkv, *a[:8], **a[8]) for case, a in bwd.items()},
         "K3 eager": lambda: k3(kd, vd),
         "K3_e4m3 eager": lambda: k3(kd8, vd8),
         "K6 eager": k6,
@@ -207,6 +213,13 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / LAUNCHES
 
+    def sha(out) -> str:
+        h = hashlib.sha256()
+        for t in out if isinstance(out, tuple) else (out,):
+            h.update(t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    digests = {case: sha(fn()) for case, fn in cases.items() if case.startswith("K16")}
     cases.update({name: graphed(cases[eager], L) for name, eager in graphs.items()})
     for rows in filter(None, args.k13_rows.split(",")):
         graphs[f"K13 rows={rows}"] = None
@@ -220,6 +233,7 @@ def main() -> int:
                          capture_output=True, text=True)
     print(json.dumps({"card": smi.stdout.strip(), "label": args.label,
                       "ms": {k: sorted(r)[len(r) // 2] for k, r in readings.items()},
+                      "sha256": {k: v for k, v in digests.items() if k in cases},
                       "readings": {k: [round(x, 4) for x in r] for k, r in readings.items()}}), flush=True)
     return 0
 

@@ -8,7 +8,7 @@ hand-written training attention kernels), ``--device cpu`` for the plain
 PyTorch path.
 
     python -m omchat_torch.cli.train --synthetic 20 --device cpu    # the tiny random model
-    python -m omchat_torch.cli.train --synthetic 3 --warmup 0 --batch-size 2 --tune-mm-mlp-adapter  # random 13B
+    python -m omchat_torch.cli.train --synthetic 2 --warmup 0    # the tiny random model on the card
     python -m omchat_torch.cli.train --model-path CKPT --data train.jsonl --image-root IMGS --lora-rank 16
 
 Modes: stage-1 (``--tune-mm-mlp-adapter``, the projector alone, saved as
@@ -236,17 +236,20 @@ def to_device(batch: dict, device, dtype) -> dict:
             for k, v in batch.items()}
 
 
-def random_model(device: torch.device, seed: int = 0):
-    """(cfg, params) of a random model from a seeded generator, its geometry
-    taken from the device: the tiny test model in fp32 on the CPU, the
-    omchat-v2.0-13B geometry in bf16 on CUDA (the kernels take head width 128
-    only, which the tiny model does not have)."""
+def random_model_spec(device: torch.device):
+    """(cfg, dtype) of the random model on ``device``: the tiny test model
+    (``OmChatConfig.tiny()``, as JAX's CLI builds without ``--model-path``),
+    in fp32 on the CPU and in bf16, the dtype the CUDA kernels take, on CUDA."""
     from omchat_torch.config import OmChatConfig
+
+    return OmChatConfig.tiny(), torch.float32 if device.type == "cpu" else torch.bfloat16
+
+
+def random_model(device: torch.device, seed: int = 0):
+    """(cfg, params) of :func:`random_model_spec`'s model from a seeded generator."""
     from omchat_torch.models import intern_vit, projector, qwen2
 
-    tiny = device.type == "cpu"
-    cfg = OmChatConfig.tiny() if tiny else OmChatConfig()
-    dtype = torch.float32 if tiny else torch.bfloat16
+    cfg, dtype = random_model_spec(device)
     g = torch.Generator(device=device).manual_seed(seed)
     return cfg, {
         "vision_tower": intern_vit.init_params(cfg.vision, g, dtype, device),
@@ -464,8 +467,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="OmChat fine-tuning (PyTorch port): one device, or the ranks "
                                                  "that torchrun launches")
     parser.add_argument("--model-path", default=None,
-                        help="checkpoint to fine-tune (None = random weights from seed 0: the tiny test model on "
-                             "the CPU, the omchat-v2.0-13B geometry on CUDA)")
+                        help="checkpoint to fine-tune (None = the tiny test model's random weights from seed 0: "
+                             "fp32 on the CPU, bf16 on CUDA)")
     parser.add_argument("--data", default=None, help="LLaVA-style JSONL dataset")
     parser.add_argument("--image-root", default="", help="image directory for --data")
     parser.add_argument("--synthetic", type=int, default=0, help="run N synthetic steps (smoke mode)")

@@ -7,7 +7,9 @@
 //   K16b _bwd dQ   (:421, pallas_call :494, body _bwd_dq_kernel :153)
 //   K16c _bwd dK/dV (:421, pallas_call :564, body _bwd_dkv_kernel :197)
 //
-// Layout ("btnd", no cache, no offsets), head width 128:
+// Layout ("btnd", no cache, no offsets), head width D a multiple of 8 from 8
+// to 128 (Qwen2-7B's and InternViT-6B's 128; Qwen2-0.5B's and
+// InternViT-300M's 64; the tiny test model's 16):
 //   q, dout, out, dq   [B, S, H, D]   bf16
 //   k, v, dk, dv       [B, S, KVH, D] bf16 (GQA: H / KVH q heads per kv head)
 //   lse, di            [B, H, S]      fp32 (natural-log lse; di = rowsum(dO * O))
@@ -76,13 +78,22 @@
 // whose segment ranges cannot meet, are skipped and never loaded (the block
 // lists the tiles it needs before its loop); only the diagonal tile, a
 // ragged tail (TMA reads zeros past S) or a packed tile is masked.
+// Widths under 128 (K2's design): the tiles stay 128 columns wide and every
+// map declares the true width D, so TMA fills the columns past D with zeros (a
+// box wholly past D, the second one at D <= 64, still completes its full byte
+// count).  Zero columns of Q, K, V and dO add nothing to S = Q K^T or to
+// dP = dO V^T and give zero columns of dQ, dK and dV, which are never stored:
+// every stride is taken at D and only the 8-column pieces below D are
+// written.  A row of heads x D bf16 values is whole 16-byte pieces, as TMA's
+// strides need, exactly when D is a multiple of 8.  Width 128 keeps its own
+// instantiation (FULL: D a constant), the code it ran before.
 #include "common.cuh"
 #include "flash_fwd_sm90.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int HD = 128;        // head width (Qwen2-7B, InternViT-6B)
+constexpr int HD = 128;        // the tiles' columns: the widest head
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int WG = 128;        // threads of a warpgroup
 constexpr int TILE64 = 64 * HD * 2;    // bytes of a 64-row shared tile
@@ -130,12 +141,13 @@ constexpr int DQ_RING = 2 * TILE128;
 constexpr int DQ_BAR = DQ_RING + DQ_STAGES * 2 * TILE64;
 constexpr int DQ_META = DQ_BAR + 8 * (1 + 2 * DQ_STAGES);
 
-template <bool SEG>
+// FULL: head width 128, else `width` (a multiple of 8 below 128).
+template <bool SEG, bool FULL>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
                     const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
                     const float* __restrict__ lse, const float* __restrict__ di, const int* __restrict__ seg,
-                    bf16* __restrict__ dq, int B, int S, int H, int KVH, int causal, float scale) {
+                    bf16* __restrict__ dq, int B, int S, int H, int KVH, int width, int causal, float scale) {
     extern __shared__ unsigned char smem_raw[];
     unsigned char* sm = aligned_smem(smem_raw);
     uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + DQ_BAR);
@@ -148,7 +160,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
     const int rt = (S + DQ_BM - 1) / DQ_BM - 1 - blockIdx.y / B;  // the last (longest) row tiles first
     const int r0 = rt * DQ_BM, kvh = head / (H / KVH), tid = threadIdx.x;
     const int* seg_b = SEG ? seg + (size_t)b * S : nullptr;
-    bf16* dq_b = dq + (size_t)b * S * H * HD + (size_t)head * HD;
+    const int hd = FULL ? HD : width;
+    bf16* dq_b = dq + (size_t)b * S * H * hd + (size_t)head * hd;
 
     const int end = causal ? min(S, r0 + DQ_BM) : S;  // the block's columns: [0, end)
     int n_tiles = (end + DQ_BN - 1) / DQ_BN;
@@ -158,10 +171,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
         n_tiles = meta[0];
     }
     if (n_tiles == 0) {  // padding rows only: zero gradient
-        for (int idx = tid; idx < DQ_BM * (HD / 8); idx += DQ_THREADS) {
-            const int row = r0 + idx / (HD / 8);
+        const int chunks = hd / 8;  // 16-byte chunks a row
+        for (int idx = tid; idx < DQ_BM * chunks; idx += DQ_THREADS) {
+            const int row = r0 + idx / chunks;
             if (row < S)
-                *reinterpret_cast<uint4*>(dq_b + (size_t)row * H * HD + (idx % (HD / 8)) * 8) = make_uint4(0, 0, 0, 0);
+                *reinterpret_cast<uint4*>(dq_b + (size_t)row * H * hd + (idx % chunks) * 8) = make_uint4(0, 0, 0, 0);
         }
         return;
     }
@@ -284,11 +298,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_cons
     for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
         if (row >= S) continue;
-        bf16* o = dq_b + (size_t)row * H * HD;
+        bf16* o = dq_b + (size_t)row * H * hd;
 #pragma unroll
         for (int n = 0; n < 16; ++n)
-            *reinterpret_cast<uint32_t*>(o + 8 * n + 2 * t) =
-                pack_bf16(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale);
+            if (FULL || 8 * n < hd)
+                *reinterpret_cast<uint32_t*>(o + 8 * n + 2 * t) =
+                    pack_bf16(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale);
     }
 }
 
@@ -304,12 +319,14 @@ constexpr int DKV_RING = 2 * TILE64;
 constexpr int DKV_BAR = DKV_RING + DKV_STAGES_N * DKV_STAGE;
 constexpr int DKV_META = DKV_BAR + 8 * (1 + 2 * DKV_STAGES_N);
 
-template <bool SEG>
+// FULL: head width 128, else `width` (a multiple of 8 below 128).
+template <bool SEG, bool FULL>
 __global__ void __launch_bounds__(WG, 2)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_do,
                      const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
                      const float* __restrict__ lse, const float* __restrict__ di, const int* __restrict__ seg,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int H, int KVH, int causal) {
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int H, int KVH, int width,
+                     int causal) {
     extern __shared__ unsigned char smem_raw[];
     unsigned char* sm = aligned_smem(smem_raw);
     uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + DKV_BAR);
@@ -468,13 +485,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_con
         if (lane == 0) sm90::mbar_arrive(&empty[s]);
     }
 
+    const int hd = FULL ? HD : width;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int row = kr0 + 8 * r;
         if (row >= S) continue;
-        const size_t at = ((size_t)b * S + row) * KVH * HD + (size_t)kvh * HD;
+        const size_t at = ((size_t)b * S + row) * KVH * hd + (size_t)kvh * hd;
 #pragma unroll
         for (int n = 0; n < 16; ++n) {
+            if (!FULL && 8 * n >= hd) continue;
             *reinterpret_cast<uint32_t*>(dk + at + 8 * n + 2 * t) = pack_bf16(dka[4 * n + 2 * r], dka[4 * n + 2 * r + 1]);
             *reinterpret_cast<uint32_t*>(dv + at + 8 * n + 2 * t) = pack_bf16(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
         }
@@ -482,7 +501,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_con
 }
 
 bool bad_shape(int B, int S, int H, int KVH, int D) {
-    return D != HD || B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0;
+    return D < 8 || D > HD || D % 8 != 0 || B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0;
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -492,9 +511,16 @@ void allow_smem(Kernel kernel, size_t bytes) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Tensor maps over [B, S, heads, 128] bf16, read `rows` rows of one head at a time.
-bool rows_map(CUtensorMap* map, const void* x, int B, int S, int heads, int rows) {
-    return sm90::rows_map(map, x, 2, heads, S, B, HD, (uint64_t)heads * HD, (uint64_t)S * heads * HD, rows);
+// Tensor maps over [B, S, heads, D] bf16, read `rows` rows of one head at a
+// time in 128-column tiles (zeros past column D).
+bool rows_map(CUtensorMap* map, const void* x, int B, int S, int heads, int D, int rows) {
+    return sm90::rows_map(map, x, 2, heads, S, B, D, (uint64_t)heads * D, (uint64_t)S * heads * D, rows, D);
+}
+
+// The kernel instantiation for segment ids or none, at width 128 or another.
+template <typename Kernel>
+Kernel pick(bool seg, int D, Kernel seg_full, Kernel seg_narrow, Kernel full, Kernel narrow) {
+    return seg ? (D == HD ? seg_full : seg_narrow) : (D == HD ? full : narrow);
 }
 
 }  // namespace
@@ -506,8 +532,9 @@ extern "C" int omchat_flash_attention_fwd(const void* q, const void* k, const vo
         return (int)cudaErrorInvalidValue;
     fwd90::Params p{};
     p.out = (bf16*)out;
-    p.out_row = (long long)H * HD;
-    p.out_batch = (long long)S * H * HD;
+    p.out_row = (long long)H * D;
+    p.out_batch = (long long)S * H * D;
+    p.head_dim = D;
     p.kv_len_all = S;
     p.B = B, p.S = S, p.H = H, p.KVH = KVH, p.T = S;
     p.causal = causal;
@@ -516,8 +543,8 @@ extern "C" int omchat_flash_attention_fwd(const void* q, const void* k, const vo
     p.lse = (float*)lse;
     p.seg = (const int*)seg;
     CUtensorMap mq, mk, mv;
-    if (!rows_map(&mq, q, B, S, H, fwd90::BM) || !rows_map(&mk, k, B, S, KVH, fwd90::BN) ||
-        !rows_map(&mv, v, B, S, KVH, fwd90::BN))
+    if (!rows_map(&mq, q, B, S, H, D, fwd90::BM) || !rows_map(&mk, k, B, S, KVH, D, fwd90::BN) ||
+        !rows_map(&mv, v, B, S, KVH, D, fwd90::BN))
         return (int)cudaErrorInvalidValue;
     return seg ? fwd90::launch<false, false, true, true>(mq, mk, mv, p, stream)
                : fwd90::launch<false, false, true, false>(mq, mk, mv, p, stream);
@@ -530,16 +557,18 @@ extern "C" int omchat_flash_attention_bwd_dq(const void* q, const void* k, const
     if (bad_shape(B, S, H, KVH, D) || misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
         return (int)cudaErrorInvalidValue;
     CUtensorMap mq, mdo, mk, mv;
-    if (!rows_map(&mq, q, B, S, H, DQ_BM) || !rows_map(&mdo, dout, B, S, H, DQ_BM) ||
-        !rows_map(&mk, k, B, S, KVH, DQ_BN) || !rows_map(&mv, v, B, S, KVH, DQ_BN))
+    if (!rows_map(&mq, q, B, S, H, D, DQ_BM) || !rows_map(&mdo, dout, B, S, H, D, DQ_BM) ||
+        !rows_map(&mk, k, B, S, KVH, D, DQ_BN) || !rows_map(&mv, v, B, S, KVH, D, DQ_BN))
         return (int)cudaErrorInvalidValue;
     const int n_kt = (S + DQ_BN - 1) / DQ_BN;
     const size_t smem = 1024 + DQ_META + (seg ? (4 + n_kt) * sizeof(int) : 0);
     const dim3 grid(H, ((S + DQ_BM - 1) / DQ_BM) * B);
-    auto kernel = seg ? flash_bwd_dq_kernel<true> : flash_bwd_dq_kernel<false>;
+    auto kernel = pick(seg, D, flash_bwd_dq_kernel<true, true>, flash_bwd_dq_kernel<true, false>,
+                       flash_bwd_dq_kernel<false, true>, flash_bwd_dq_kernel<false, false>);
     allow_smem(kernel, smem);
     kernel<<<grid, DQ_THREADS, smem, (cudaStream_t)stream>>>(mq, mdo, mk, mv, (const float*)lse, (const float*)di,
-                                                             (const int*)seg, (bf16*)dq, B, S, H, KVH, causal, scale);
+                                                             (const int*)seg, (bf16*)dq, B, S, H, KVH, D, causal,
+                                                             scale);
     return (int)cudaGetLastError();
 }
 
@@ -550,15 +579,16 @@ extern "C" int omchat_flash_attention_bwd_dkv(const void* q, const void* k, cons
     if (bad_shape(B, S, H, KVH, D) || misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
         return (int)cudaErrorInvalidValue;
     CUtensorMap mq, mdo, mk, mv;
-    if (!rows_map(&mq, q, B, S, H, BWD_QT) || !rows_map(&mdo, dout, B, S, H, BWD_QT) ||
-        !rows_map(&mk, k, B, S, KVH, DKV_BK) || !rows_map(&mv, v, B, S, KVH, DKV_BK))
+    if (!rows_map(&mq, q, B, S, H, D, BWD_QT) || !rows_map(&mdo, dout, B, S, H, D, BWD_QT) ||
+        !rows_map(&mk, k, B, S, KVH, D, DKV_BK) || !rows_map(&mv, v, B, S, KVH, D, DKV_BK))
         return (int)cudaErrorInvalidValue;
     const int n_qt = (S + BWD_QT - 1) / BWD_QT;
     const size_t smem = 1024 + DKV_META + (4 + n_qt) * sizeof(int);
     const dim3 grid(KVH * B, (S + DKV_BK - 1) / DKV_BK);
-    auto kernel = seg ? flash_bwd_dkv_kernel<true> : flash_bwd_dkv_kernel<false>;
+    auto kernel = pick(seg, D, flash_bwd_dkv_kernel<true, true>, flash_bwd_dkv_kernel<true, false>,
+                       flash_bwd_dkv_kernel<false, true>, flash_bwd_dkv_kernel<false, false>);
     allow_smem(kernel, smem);
     kernel<<<grid, WG, smem, (cudaStream_t)stream>>>(mq, mdo, mk, mv, (const float*)lse, (const float*)di,
-                                                     (const int*)seg, (bf16*)dk, (bf16*)dv, B, S, H, KVH, causal);
+                                                     (const int*)seg, (bf16*)dk, (bf16*)dv, B, S, H, KVH, D, causal);
     return (int)cudaGetLastError();
 }

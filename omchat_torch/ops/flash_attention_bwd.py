@@ -15,6 +15,10 @@ whose segments cannot meet are skipped.  As in JAX, every kernel takes q
 multiplied by ``D**-0.5`` in q's dtype (:func:`_prescaled`); the backward
 computes that product once and hands it to the dQ and dK/dV kernels.
 
+The CUDA kernels take bfloat16 at every head width of
+:func:`omchat_torch.ops.flash_attention.head_dim_supported` (a multiple of 8
+from 8 to 128), causal or not, with or without segment ids.
+
 Each kernel comes as a wrapper (:func:`flash_fwd`, :func:`flash_bwd_dq`,
 :func:`flash_bwd_dkv`) that takes the plain PyTorch version (``*_plain``) for a
 CPU tensor and launches the hand-written CUDA kernel
@@ -35,6 +39,7 @@ from typing import Optional
 import torch
 
 from omchat_torch.ops import kernel_lib
+from omchat_torch.ops.flash_attention import head_dim_supported
 
 SOURCE = "flash_attention_bwd.cu"
 # C signatures (every size an int; every kernel takes q prescaled, dQ also
@@ -52,6 +57,11 @@ def softmax_scale(q: torch.Tensor) -> torch.Tensor:
     """D^-0.5 rounded to q's dtype: the TPU kernels receive q * scale in q's
     dtype (flash_attention_bwd.py:332)."""
     return torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype, device=q.device)
+
+
+def _scale_value(q: torch.Tensor) -> float:
+    """:func:`softmax_scale`'s value, rounded to q's dtype on the host."""
+    return float(torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype))
 
 
 def attention_mask(s: int, causal: bool, segment_ids: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
@@ -151,17 +161,38 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, di, causal: bool, segment_ids=None):
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, q, k, *tensors) -> None:
-    for t in (q, k, *tensors):
+def _on_cuda(name: str, tensors) -> None:
+    for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+
+
+def _check(name: str, q, k, v, *tensors) -> None:
+    """Raise, naming the wrapper and the shape, unless the CUDA kernel takes
+    these operands: bfloat16 on the card, a width of
+    :func:`~omchat_torch.ops.flash_attention.head_dim_supported`, whole GQA
+    groups, k and v of one shape over q's rows."""
+    _on_cuda(name, (q, k, v, *tensors))
+    for t in (q, k, v, *tensors):
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
+            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype} (q {tuple(q.shape)})")
     b, s, h, d = q.shape
     kvh = k.shape[2]
-    if d != 128 or h % kvh != 0 or k.shape[:2] != (b, s):
-        raise ValueError(f"{name}: q {tuple(q.shape)} / k {tuple(k.shape)} unsupported by the CUDA kernel "
-                         f"(head width 128, whole GQA groups, self-attention)")
+    if not head_dim_supported(d):
+        raise ValueError(f"{name}: head width {d} (q {tuple(q.shape)}) is not taken by the CUDA kernel, which takes "
+                         f"a multiple of 8 from 8 to 128")
+    if h % kvh != 0 or k.shape != (b, s, kvh, d) or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)} unsupported by the "
+                         f"CUDA kernel (whole GQA groups, self-attention)")
+
+
+def _aligned(entry: str, **operands) -> None:
+    """Raise, naming the C entry and the operand, unless every operand's
+    base is 16-byte aligned, as the kernels' TMA maps need."""
+    for what, t in operands.items():
+        if t.data_ptr() % 16:
+            raise RuntimeError(f"{entry}: {what} {tuple(t.shape)} has a base address not 16-byte aligned, as TMA "
+                               f"needs; nothing launched")
 
 
 def _seg_arg(segment_ids, q):
@@ -191,6 +222,7 @@ def flash_fwd(q, k, v, causal: bool, segment_ids=None):
         return flash_fwd_plain(q, k, v, causal, segment_ids)
     _check("flash_fwd", q, k, v)
     qs, k, v = _prescaled(q), k.contiguous(), v.contiguous()
+    _aligned("omchat_flash_attention_fwd", k=k, v=v)
     seg, seg_p = _seg_arg(segment_ids, q)
     out = torch.empty_like(qs)
     b, s, h = q.shape[:3]
@@ -220,12 +252,13 @@ def flash_bwd_dq(q, k, v, dout, lse, di, causal: bool, segment_ids=None, *, q_sc
         return flash_bwd_dq_plain(q, k, v, dout, lse, di, causal, segment_ids)
     _check("flash_bwd_dq", q, k, v, dout)
     qs, k, v, dout = _q_arg(q, q_scaled), k.contiguous(), v.contiguous(), dout.contiguous()
+    _aligned("omchat_flash_attention_bwd_dq", q_scaled=qs, k=k, v=v, dout=dout)
     lse, di = lse.float().contiguous(), di.float().contiguous()
     seg, seg_p = _seg_arg(segment_ids, q)
     dq = torch.empty_like(qs)
     kernel_lib.launch(SOURCE, "omchat_flash_attention_bwd_dq", _DQ_ARGS,
                       *map(kernel_lib.ptr, (qs, k, v, dout, lse, di)), seg_p, kernel_lib.ptr(dq),
-                      *_dims(q, k, causal), ctypes.c_float(float(softmax_scale(q))), kernel_lib.stream_ptr(q.device))
+                      *_dims(q, k, causal), ctypes.c_float(_scale_value(q)), kernel_lib.stream_ptr(q.device))
     flash_bwd_dq.launches += 1
     return dq
 
@@ -237,6 +270,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, di, causal: bool, segment_ids=None, *, q_s
         return flash_bwd_dkv_plain(q, k, v, dout, lse, di, causal, segment_ids)
     _check("flash_bwd_dkv", q, k, v, dout)
     qs, k, v, dout = _q_arg(q, q_scaled), k.contiguous(), v.contiguous(), dout.contiguous()
+    _aligned("omchat_flash_attention_bwd_dkv", q_scaled=qs, k=k, v=v, dout=dout)
     lse, di = lse.float().contiguous(), di.float().contiguous()
     seg, seg_p = _seg_arg(segment_ids, q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

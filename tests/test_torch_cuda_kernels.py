@@ -32,7 +32,10 @@ fall inside 128-row tiles: outputs and gradients within the bf16 tolerance
 above, lse atol 1e-3
 (fp32 sums in another order), padding rows lse = -inf and output 0 (and
 dQ 0 where lse = -inf), dQ and dK/dV bitwise the same on a second run (no
-atomics), and a k whose base TMA cannot take refused.  The fp8 (e4m3) KV
+atomics), and a k whose base TMA cannot take refused; the same at head
+widths 8, 16, 64, 72 and 120 (the trunk's 14 / 2 heads causal, the 300M
+ViT's 16 / 16 over 1025 rows, packed rows causal and not, rows whose lse is
+-inf), and widths 12 / 136 and fp32 refused by name.  The fp8 (e4m3) KV
 cache: K2, K3, K12, K13 and K14 over e4m3 caches at the bf16 tolerance, but
 K2, whose p is rounded to e4m3 against the running row max (the plain version
 rounds it against the row's global max, as the TPU kernel and its XLA
@@ -459,9 +462,9 @@ def test_attn_proj_glue_quant_kernel_at_path_shapes(gen, M, N, vit):
     torch.testing.assert_close(rs, rp, rtol=1e-2, atol=0)
 
 
-def _train_attn_case(gen, B, S, H, KVH, packed):
-    q, k, v, do = _randn(gen, B, S, H, 128), _randn(gen, B, S, KVH, 128), _randn(gen, B, S, KVH, 128), \
-        _randn(gen, B, S, H, 128)
+def _train_attn_case(gen, B, S, H, KVH, packed, D=128):
+    q, k, v, do = _randn(gen, B, S, H, D), _randn(gen, B, S, KVH, D), _randn(gen, B, S, KVH, D), \
+        _randn(gen, B, S, H, D)
     seg = None
     if packed:  # three documents and a -1 tail on every row
         seg = torch.full((B, S), -1, dtype=torch.int32, device="cuda")
@@ -568,6 +571,90 @@ def test_flash_bwd_dkv_kernel_is_deterministic(gen, B, S, H, KVH, causal, packed
     rk, rv = fb.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal, seg)
     torch.testing.assert_close(dk.float(), rk.float(), **TOL)
     torch.testing.assert_close(dv.float(), rv.float(), **TOL)
+
+
+# K16 at head widths other than 128 (every multiple of 8 from 8 to 128 is taken):
+# the ragged causal trunk at Qwen2-0.5B's 14 / 2 heads, InternViT-300M's
+# non-causal 16 / 16 over 1025 rows, and packed rows causal and not
+K16_WIDTHS = (8, 16, 64, 72, 120)
+K16_WIDTH_SHAPES = {"causal_group7_ragged": (2, 200, 14, 2, True, False), "vit300m_1025": (1, 1025, 16, 16, False, False),
+                    "causal_group7_packed": (1, 384, 14, 2, True, True),
+                    "noncausal_group7_packed": (1, 300, 14, 2, False, True)}
+K16_WIDTH_CASES = [(D, c) for D in K16_WIDTHS for c in K16_WIDTH_SHAPES]
+
+
+@pytest.mark.parametrize("D,case", K16_WIDTH_CASES, ids=[f"{c}_D{D}" for D, c in K16_WIDTH_CASES])
+def test_training_attention_kernels_at_head_width(gen, D, case):
+    """K16a, K16b and K16c at width D: one launch each, within TOL of their
+    plain versions (lse atol 1e-3), padding rows lse = -inf, output 0 and
+    zero dQ, dQ and dK / dV bitwise the same on a second launch."""
+    from omchat_torch.ops import flash_attention_bwd as fb
+
+    B, S, H, KVH, causal, packed = K16_WIDTH_SHAPES[case]
+    q, k, v, do, seg = _train_attn_case(gen, B, S, H, KVH, packed, D=D)
+    n0 = (fb.flash_fwd.launches, fb.flash_bwd_dq.launches, fb.flash_bwd_dkv.launches)
+    out, lse = fb.flash_fwd(q, k, v, causal, seg)
+    ro, rl = fb.flash_fwd_plain(q, k, v, causal, seg)
+    di = fb.flash_di(do, ro)
+    dq = fb.flash_bwd_dq(q, k, v, do, rl, di, causal, seg)
+    dk, dv = fb.flash_bwd_dkv(q, k, v, do, rl, di, causal, seg)
+    dq2 = fb.flash_bwd_dq(q, k, v, do, rl, di, causal, seg)
+    dk2, dv2 = fb.flash_bwd_dkv(q, k, v, do, rl, di, causal, seg)
+    torch.cuda.synchronize()
+    assert (fb.flash_fwd.launches, fb.flash_bwd_dq.launches, fb.flash_bwd_dkv.launches) == (
+        n0[0] + 1, n0[1] + 2, n0[2] + 2)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    valid = torch.ones((B, S), dtype=torch.bool, device="cuda") if seg is None else seg >= 0
+    torch.testing.assert_close(out[valid].float(), ro[valid].float(), **TOL)
+    torch.testing.assert_close(lse.transpose(1, 2)[valid], rl.transpose(1, 2)[valid], atol=1e-3, rtol=1e-4)
+    assert bool(torch.isneginf(lse.transpose(1, 2)[~valid]).all()) and bool((out[~valid] == 0).all())
+    torch.testing.assert_close(dq.float(), fb.flash_bwd_dq_plain(q, k, v, do, rl, di, causal, seg).float(), **TOL)
+    rk, rv = fb.flash_bwd_dkv_plain(q, k, v, do, rl, di, causal, seg)
+    torch.testing.assert_close(dk.float(), rk.float(), **TOL)
+    torch.testing.assert_close(dv.float(), rv.float(), **TOL)
+    assert bool((dq[~valid] == 0).all())
+
+
+@pytest.mark.parametrize("D", K16_WIDTHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_training_backward_kernels_at_head_width_where_lse_is_minus_inf(gen, D, causal):
+    """Rows whose lse is -inf (in a ragged tail and mid-tile) get zero dQ and
+    add nothing to dK / dV, at width D without segment ids."""
+    from omchat_torch.ops import flash_attention_bwd as fb
+
+    q, k, v, do, _ = _train_attn_case(gen, 2, 200, 14, 2, False, D=D)
+    out, lse = fb.flash_fwd_plain(q, k, v, causal)
+    di = fb.flash_di(do, out)
+    rows = [0, 63, 64, 130, 199]
+    lse[:, :, rows] = float("-inf")
+    dq = fb.flash_bwd_dq(q, k, v, do, lse, di, causal)
+    dk, dv = fb.flash_bwd_dkv(q, k, v, do, lse, di, causal)
+    torch.cuda.synchronize()
+    assert bool((dq[:, rows] == 0).all())
+    torch.testing.assert_close(dq.float(), fb.flash_bwd_dq_plain(q, k, v, do, lse, di, causal).float(), **TOL)
+    rk, rv = fb.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal)
+    torch.testing.assert_close(dk.float(), rk.float(), **TOL)
+    torch.testing.assert_close(dv.float(), rv.float(), **TOL)
+
+
+def test_training_attention_kernels_refuse_other_widths_and_fp32(gen):
+    """Widths the rule refuses (12, 136) and an fp32 q raise before any
+    launch, naming the width or the dtype: no fallback to the plain version."""
+    from omchat_torch.ops import flash_attention_bwd as fb
+
+    counts = (fb.flash_fwd, fb.flash_bwd_dq, fb.flash_bwd_dkv)
+    n0 = [f.launches for f in counts]
+    for D in (12, 136):
+        q, k, v, do, _ = _train_attn_case(gen, 1, 64, 14, 2, False, D=D)
+        lse = torch.zeros(1, 14, 64, device="cuda")
+        for call in (lambda: fb.flash_fwd(q, k, v, True), lambda: fb.flash_bwd_dq(q, k, v, do, lse, lse, True),
+                     lambda: fb.flash_bwd_dkv(q, k, v, do, lse, lse, True)):
+            with pytest.raises(ValueError, match=f"head width {D} "):
+                call()
+    q, k, v, _, _ = _train_attn_case(gen, 1, 64, 14, 2, False, D=64)
+    with pytest.raises(TypeError, match="takes bfloat16, got torch.float32"):
+        fb.flash_fwd(q.float(), k, v, True)
+    assert [f.launches for f in counts] == n0
 
 
 # ---------------------------------------------------------------------------
